@@ -54,3 +54,63 @@ class GeneratorSource(Source):
                 return
             yield b
             i += 1
+
+
+@dataclasses.dataclass
+class DeviceGeneratorSource(GeneratorSource):
+    """A generator source whose batches can be made on the card, inside
+    the consuming window operator's step (the driver chains it there),
+    so no record crosses to the host.
+
+    Contract:
+
+    - ``device_keys_ts(batch_index, device)`` returns the batch's int64
+      ``(keys, ts)`` tensors on ``device``; ``keys_ts_host(batch_index)``
+      returns the same two arrays in numpy, bit for bit (the host copy
+      repairs device-side key misses).
+    - ``ts_bounds(batch_index)`` is the batch's exact ``(min_ts,
+      max_ts)``, so the driver runs the watermark clock without the
+      device.
+    - ``gen(split, batch_index)`` materializes the full record batch for
+      when the chain cannot take it (a devgen gate closed).
+    - ``key_domain``: keys in ``[0, key_domain)`` map to slot == key on
+      the device (``KeyDirectory.register_dense``); others are repaired
+      on the host. ``None`` disables the chain. ``keys_bounded``
+      declares that every key lies in the domain by construction, which
+      lets the operator skip the per-step stats copy when no late or
+      re-fire work is possible either.
+    - ``subdivide(k)`` returns the same record stream at
+      ``batch_size / k`` granularity (sub-batch ``j`` of logical batch
+      ``i`` is batch ``i * k + j``); ``None`` = cannot re-slice.
+    """
+
+    device_keys_ts: Optional[Callable] = None
+    keys_ts_host: Optional[Callable] = None
+    ts_bounds: Optional[Callable] = None
+    key_field: str = "key"
+    batch_size: int = 8192
+    n_batches: int = 0
+    key_domain: Optional[int] = None
+    keys_bounded: bool = False
+    subdivide: Optional[Callable[[int], "DeviceGeneratorSource"]] = None
+
+    def subdivided(self, k: int) -> "DeviceGeneratorSource":
+        """The same stream at ``batch_size / k`` granularity. Raises when
+        the source declares no subdivision or ``k`` does not divide the
+        batch size."""
+        if k < 1:
+            raise ValueError(f"sub-batch count must be >= 1, got {k}")
+        if k == 1:
+            return self
+        if self.subdivide is None:
+            raise ValueError(
+                "this DeviceGeneratorSource declares no subdivide "
+                "callable — it cannot re-slice its stream")
+        if self.batch_size % k:
+            raise ValueError(
+                f"pipeline.sub-batches={k} does not divide the device "
+                f"source's batch_size={self.batch_size}")
+        return self.subdivide(k)
+
+    def splits(self) -> List[str]:
+        return ["0"]  # device chaining is single-split by construction

@@ -44,7 +44,11 @@ class PipelineOptions:
         "(from_collection).")
     SUB_BATCHES = ConfigOption(
         "pipeline.sub-batches", 1,
-        "Sub-batch steps per logical batch. Only 1 is ported.")
+        "Sub-batch steps per logical batch: a device-made source chained "
+        "into its window operator runs each logical batch as this many "
+        "steps, each with its own watermark advance and fires. Must "
+        "divide pipeline.microbatch-size. Host-fed sources take only 1 "
+        "(host-plane sub-batching is still to port).")
     MAX_INFLIGHT_STEPS = ConfigOption(
         "pipeline.max-inflight-steps", 3,
         "Device steps (uploads + apply launches) allowed in flight "
@@ -122,10 +126,14 @@ class Configuration:
                 f"analysis.fail-on must be one of {FAIL_ON_VALUES}, "
                 f"got {fail_on!r}")
         k = int(self.get(PipelineOptions.SUB_BATCHES))
-        if k != 1:
-            raise NotImplementedError(
-                f"pipeline.sub-batches={k}: only 1 is ported (sub-batch "
-                "fire/emit decoupling is in ROADMAP.md)")
+        if k < 1:
+            raise ValueError(f"pipeline.sub-batches must be >= 1, got {k}")
+        mb = int(self.get(PipelineOptions.MICROBATCH_SIZE))
+        if mb % k:
+            raise ValueError(
+                f"pipeline.sub-batches ({k}) must divide "
+                f"pipeline.microbatch-size ({mb}): sub-batches are equal "
+                "slices of the logical batch")
         for opt in (PipelineOptions.MICROBATCH_SIZE,
                     PipelineOptions.MAX_INFLIGHT_STEPS,
                     StateOptions.NUM_KEY_SHARDS,

@@ -15,6 +15,10 @@ kernel skips it and sets a bit in the device's error word, which
 
 All four work on the int32 count lane, so every result is exact: the
 kernel, the plain version and the JAX reference agree bit for bit.
+
+The launch counts, the error word, the library loader and the argument
+checks here serve every kernel module of the port
+(``devgen_kernels.py`` too).
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "window_counts": 0,
     "topn_select_append": 0,
     "ring_columns": 0,
+    "nexmark_bids": 0,
+    "devgen_ingest": 0,
 }
 
 
@@ -39,9 +45,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# bits of the device error word (kErr* in csrc/window_kernels.cu)
+# bits of the device error word (kErr* in csrc/*.cu)
 ERROR_BITS = {1: "scatter_counts: cell index outside counts",
-              2: "ring_columns: kept src_col outside the source ring"}
+              2: "ring_columns: kept src_col outside the source ring",
+              4: "devgen_ingest: cell index outside counts"}
 _error_words: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -85,22 +92,30 @@ _SIGNATURES = {
     "fk_topn_tile": [],
     "fk_error_string": [ctypes.c_int],
 }
-_lib_cache: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def load_library(name: str, signatures: Dict[str, list],
+                 error_string: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded (once), with every entry
+    point's argument types declared. Each entry point returns an int
+    CUDA error code; ``error_string`` names the one that decodes it."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = build.load(name)
+        for fn, args in signatures.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, error_string).restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
-    global _lib_cache
-    if _lib_cache is None:
-        lib = build.load("window_kernels")
-        for fn, args in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.fk_error_string.restype = ctypes.c_char_p
-        _lib_cache = lib
-    return _lib_cache
+    return load_library("window_kernels", _SIGNATURES, "fk_error_string")
 
 
-def _on_cuda(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+def on_cuda(name: str, *tensors: Optional[torch.Tensor]) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
     (plain version); raises on a mix or any other device."""
     devs = {t.device for t in tensors if t is not None}
@@ -114,7 +129,7 @@ def _on_cuda(name: str, *tensors: Optional[torch.Tensor]) -> bool:
     return True
 
 
-def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
+def check_tensor(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
@@ -123,15 +138,22 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{what}: must be contiguous")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    rc = getattr(_lib(), fn)(*args)
+def launch(lib: ctypes.CDLL, error_string: str, name: str, fn: str,
+           *args) -> None:
+    """Call entry point ``fn``; raise on a non-zero CUDA error code,
+    else count one launch of ``name``."""
+    rc = getattr(lib, fn)(*args)
     if rc != 0:
-        msg = _lib().fk_error_string(rc).decode()
+        msg = getattr(lib, error_string)(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
     LAUNCHES[name] += 1
 
 
-def _stream(t: torch.Tensor) -> int:
+def _launch(name: str, fn: str, *args) -> None:
+    launch(_lib(), "fk_error_string", name, fn, *args)
+
+
+def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -143,18 +165,18 @@ def scatter_counts(counts: torch.Tensor, idx: torch.Tensor,
     in place. ``idx`` is the int32 flat cell index ``row * ring + col``;
     an entry outside the tensor raises (the kernel skips it and reports
     it through ``error_word``). Returns ``counts``."""
-    _check(counts, "counts", torch.int32, 2)
-    _check(idx, "idx", torch.int32, 1)
+    check_tensor(counts, "counts", torch.int32, 2)
+    check_tensor(idx, "idx", torch.int32, 1)
     if cnt is not None:
-        _check(cnt, "cnt", torch.int32, 1)
+        check_tensor(cnt, "cnt", torch.int32, 1)
         if cnt.numel() != idx.numel():
             raise ValueError("cnt and idx differ in length")
-    if not _on_cuda("scatter_counts", counts, idx, cnt):
+    if not on_cuda("scatter_counts", counts, idx, cnt):
         return scatter_counts_plain(counts, idx, cnt)
     _launch("scatter_counts", "fk_scatter_counts", counts.data_ptr(),
             counts.numel(), idx.data_ptr(),
             cnt.data_ptr() if cnt is not None else None, idx.numel(),
-            error_word(counts.device).data_ptr(), _stream(counts))
+            error_word(counts.device).data_ptr(), stream_of(counts))
     return counts
 
 
@@ -175,12 +197,12 @@ def window_counts(counts: torch.Tensor, end_panes: torch.Tensor,
     """(rows, W) int32: the sum of ``counts[r, p % ring]`` over panes p in
     ``[end_w - ppw, end_w)`` ∩ ``[pane_lo, min(pane_hi, pane_lo + ring -
     1)]``, and 0 where ``w_valid[w]`` is False."""
-    _check(counts, "counts", torch.int32, 2)
-    _check(end_panes, "end_panes", torch.int64, 1)
-    _check(w_valid, "w_valid", torch.bool, 1)
+    check_tensor(counts, "counts", torch.int32, 2)
+    check_tensor(end_panes, "end_panes", torch.int64, 1)
+    check_tensor(w_valid, "w_valid", torch.bool, 1)
     if w_valid.numel() != end_panes.numel():
         raise ValueError("w_valid and end_panes differ in length")
-    if not _on_cuda("window_counts", counts, end_panes, w_valid):
+    if not on_cuda("window_counts", counts, end_panes, w_valid):
         return window_counts_plain(counts, end_panes, w_valid, pane_lo,
                                    pane_hi, ppw)
     rows, ring = counts.shape
@@ -188,7 +210,7 @@ def window_counts(counts: torch.Tensor, end_panes: torch.Tensor,
     out = torch.empty((rows, W), dtype=torch.int32, device=counts.device)
     _launch("window_counts", "fk_window_counts", counts.data_ptr(), rows,
             ring, end_panes.data_ptr(), w_valid.data_ptr(), W, int(pane_lo),
-            int(pane_hi), int(ppw), out.data_ptr(), _stream(counts))
+            int(pane_hi), int(ppw), out.data_ptr(), stream_of(counts))
     return out
 
 
@@ -220,11 +242,11 @@ def topn_select_append(wcounts: torch.Tensor, used_mask: torch.Tensor,
     ``sel_cap`` selected cells; then head ``[0, 0] += written`` and
     ``[0, 1] += selected - written``. Rows ``1 .. row_cap`` are the data
     ring; the last row is reserved and never written."""
-    _check(wcounts, "wcounts", torch.int32, 2)
-    _check(used_mask, "used_mask", torch.bool, 1)
-    _check(end_panes, "end_panes", torch.int64, 1)
-    _check(w_valid, "w_valid", torch.bool, 1)
-    _check(emit_ring, "emit_ring", torch.int32, 2)
+    check_tensor(wcounts, "wcounts", torch.int32, 2)
+    check_tensor(used_mask, "used_mask", torch.bool, 1)
+    check_tensor(end_panes, "end_panes", torch.int64, 1)
+    check_tensor(w_valid, "w_valid", torch.bool, 1)
+    check_tensor(emit_ring, "emit_ring", torch.int32, 2)
     rows, W = wcounts.shape
     if used_mask.numel() != rows or end_panes.numel() != W \
             or w_valid.numel() != W:
@@ -234,7 +256,7 @@ def topn_select_append(wcounts: torch.Tensor, used_mask: torch.Tensor,
             f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
     if n < 1 or sel_cap < 1:
         raise ValueError("n and sel_cap must be >= 1")
-    if not _on_cuda("topn_select_append", wcounts, used_mask, end_panes,
+    if not on_cuda("topn_select_append", wcounts, used_mask, end_panes,
                     w_valid, emit_ring):
         return topn_select_append_plain(wcounts, used_mask, end_panes,
                                         w_valid, anchor, n, sel_cap, emit_ring)
@@ -251,7 +273,7 @@ def topn_select_append(wcounts: torch.Tensor, used_mask: torch.Tensor,
             end_panes.data_ptr(), w_valid.data_ptr(), int(anchor), int(n),
             int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
             emit_ring.shape[1], thresh.data_ptr(), block_counts.data_ptr(),
-            old_total.data_ptr(), _stream(wcounts))
+            old_total.data_ptr(), stream_of(wcounts))
     return emit_ring
 
 
@@ -290,18 +312,18 @@ def ring_columns(src: torch.Tensor, dst: torch.Tensor, src_col: torch.Tensor,
     entries where ``keep`` lie in ``[0, src ring)``; one that does not
     raises (the kernel writes 0 there and reports it through
     ``error_word``). Returns ``dst``."""
-    _check(src, "src", torch.int32, 2)
-    _check(dst, "dst", torch.int32, 2)
-    _check(src_col, "src_col", torch.int32, 1)
-    _check(keep, "keep", torch.bool, 1)
+    check_tensor(src, "src", torch.int32, 2)
+    check_tensor(dst, "dst", torch.int32, 2)
+    check_tensor(src_col, "src_col", torch.int32, 1)
+    check_tensor(keep, "keep", torch.bool, 1)
     if dst.shape[0] != src.shape[0] or src_col.numel() != dst.shape[1] \
             or keep.numel() != dst.shape[1]:
         raise ValueError("ring_columns: shapes do not line up")
-    if not _on_cuda("ring_columns", src, dst, src_col, keep):
+    if not on_cuda("ring_columns", src, dst, src_col, keep):
         return ring_columns_plain(src, dst, src_col, keep)
     _launch("ring_columns", "fk_ring_columns", src.data_ptr(), src.shape[1],
             dst.data_ptr(), dst.shape[1], dst.shape[0], src_col.data_ptr(),
-            keep.data_ptr(), error_word(src.device).data_ptr(), _stream(src))
+            keep.data_ptr(), error_word(src.device).data_ptr(), stream_of(src))
     return dst
 
 

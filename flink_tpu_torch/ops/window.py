@@ -12,11 +12,22 @@ window can need any more (and remaps the ring when it grows). The host
 reads the emit ring through announced copies: a non-blocking device→host
 copy plus a CUDA event per fire, read once it has landed.
 
+A device-made source (``attach_device_source``) skips the host ingest:
+its batch index is stashed and the next watermark advance runs one
+step, ``devgen_step`` — ``nexmark_bids`` makes the records on the
+card, ``devgen_ingest`` folds them in and writes a stats vector, and
+the fire/purge tail fires every window end of the advance in one
+``window_counts`` + ``topn_select_append`` pair. The host fills the
+reference's fused-step header (``_fused_fill_header``) and hands its
+decoded values to the kernels as launch arguments; the stats vector
+comes back only when it can carry late, re-fire or miss work.
+
 Host control flow (watermark clock, ring bookkeeping, lateness, late
-re-firing, the key directory) mirrors ``flink_tpu/ops/window.py`` rule
-for rule, so both packages fire the same windows and emit the same rows
-in the same order. Non-top-n fires, sum/max/min lanes, processing time,
-spill, device-generated sources and the mesh are in ROADMAP.md.
+re-firing, the key directory, the device-made ingest's stash, flush and
+reconciliation) mirrors ``flink_tpu/ops/window.py`` rule for rule, so
+both packages fire the same windows and emit the same rows in the same
+order. Non-top-n fires, sum/max/min lanes, processing time, spill and
+the mesh are in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch
 from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.config import PipelineOptions
 from flink_tpu_torch.device import resolve_device
+from flink_tpu_torch.kernels import devgen_kernels as dk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
 from flink_tpu_torch.state.keyed import (
@@ -44,6 +56,19 @@ from flink_tpu_torch.time.watermarks import LONG_MIN
 MAX_FIRE_CHUNK_RING = 16
 # top-n winner capacity factor (see WindowOperator._topn_cap)
 MAX_FIRE_CHUNK = 4
+
+# the reference's fused-step header, in int32 words: [0:2] pane_lo,
+# [2:4] pane_hi, [4:6] ring anchor (int64 each), [6] clear-mask columns
+# 32-63, [7] columns 0-31, [8:8+MIN_FIRE_PAD] window-end deltas from
+# pane_lo (_DELTA_SENTINEL = unused), then at DEVGEN_HDR_OFF the
+# device-made batch's (batch index, dead_below, refire_below) as int64
+FUSED_HDR = 128
+MIN_FIRE_PAD = 64
+DEVGEN_HDR_OFF = 8 + MIN_FIRE_PAD
+_DELTA_SENTINEL = -(2 ** 30)
+# refire bitmap span of the device-made ingest (panes above
+# dead_below); a longer lateness span sends the batch to the host path
+DEVGEN_REFIRE_BITS = dk.REFIRE_BITS
 
 
 def _next_pow2(n: int) -> int:
@@ -188,6 +213,90 @@ class WindowPlan:
                 + self.allowed_lateness_ms + 1)
 
 
+def small_upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A few host bytes on ``device`` without waiting on its stream:
+    staged through pinned memory, since a copy from pageable memory
+    synchronizes the stream first."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def decode_header(hdr: np.ndarray) -> Tuple[int, int, int, List[int], int]:
+    """``(pane_lo, pane_hi, anchor, end panes, clear mask)`` of a
+    ``FUSED_HDR`` header; bit c of the mask clears ring column c."""
+    lo, hi, anchor = (int(v) for v in hdr[:6].view(np.int64))
+    deltas = hdr[8:8 + MIN_FIRE_PAD].astype(np.int64)
+    ends = (lo + deltas[deltas > _DELTA_SENTINEL]).tolist()
+    mask = int(np.array([hdr[7], hdr[6]], np.int32).view(np.uint64)[0])
+    return lo, hi, anchor, ends, mask
+
+
+def _no_span(name: str):
+    return contextlib.nullcontext()
+
+
+def fused_fire_clear(counts: torch.Tensor, emit_ring: torch.Tensor,
+                     hdr: np.ndarray, used_mask: torch.Tensor, *,
+                     panes_per_window: int, sel_cap: int, topn: int,
+                     span=_no_span) -> None:
+    """The fire + purge tail of the reference's one-dispatch steps
+    (``flink_tpu/ops/window.py`` ``_fused_fire_clear``), driven by the
+    header the host filled: every window end in it fires in ONE
+    ``window_counts`` + ``topn_select_append`` pair (rows land row-major
+    over all of them, as in the reference), then the masked ring
+    columns are purged. The gate: no fire launch without a window end,
+    no purge launch with an empty mask. The header's scalars go to the
+    kernels as launch arguments; the end list and the keep mask, which
+    the kernels read from device memory, ride small pinned copies."""
+    pane_lo, pane_hi, anchor, ends, mask = decode_header(hdr)
+    dev = counts.device
+    if ends:
+        end_t = small_upload(np.asarray(ends, np.int64), dev)
+        w_valid = torch.ones(len(ends), dtype=torch.bool, device=dev)
+        with span("fire"):
+            wc = wk.window_counts(counts, end_t, w_valid, pane_lo, pane_hi,
+                                  panes_per_window)
+            wk.topn_select_append(wc, used_mask, end_t, w_valid, anchor,
+                                  topn, sel_cap, emit_ring)
+    if mask:
+        ring = counts.shape[1]
+        keep = np.array([not (mask >> c) & 1 for c in range(ring)])
+        src_col = torch.arange(ring, dtype=torch.int32, device=dev)
+        keep_t = small_upload(keep, dev)
+        with span("purge"):
+            wk.ring_columns(counts, counts, src_col, keep_t)
+
+
+def devgen_step(counts: torch.Tensor, emit_ring: torch.Tensor,
+                hdr: np.ndarray, used_mask: torch.Tensor, *, gen,
+                key_domain: int, panes_per_window: int, sel_cap: int,
+                topn: int, dump_row: int, pane_ms: int, offset_ms: int,
+                span=_no_span) -> torch.Tensor:
+    """One device-made step (``flink_tpu/ops/window.py``
+    ``devgen_step_kernel``): make the batch named in the header on the
+    device (``gen(batch_index, device)``), fold it into ``counts``
+    (``devgen_ingest``), run the fire + purge tail, and return the
+    stats vector ``[n_valid, n_late, n_miss, ring_total, n_refire,
+    ring_truncated, 0, 0] ++ refire bitmap``. Words 3 and 5 are the
+    emit ring's head after the fire, copied on the same stream."""
+    batch_index, dead_below, refire_below = (
+        int(v) for v in hdr[DEVGEN_HDR_OFF:DEVGEN_HDR_OFF + 6].view(np.int64))
+    with span("gen"):
+        keys, ts = gen(batch_index, counts.device)
+    with span("ingest"):
+        stats = dk.devgen_ingest(
+            counts, keys, ts, key_domain=key_domain, pane_ms=pane_ms,
+            offset_ms=offset_ms, dead_below=dead_below,
+            refire_below=refire_below, dump_row=dump_row)
+    fused_fire_clear(counts, emit_ring, hdr, used_mask,
+                     panes_per_window=panes_per_window, sel_cap=sel_cap,
+                     topn=topn, span=span)
+    stats[3:6:2] = emit_ring[0, :2]
+    return stats
+
+
 class DeviceTimer:
     """Busy time of the device per launch group, from a CUDA event pair
     recorded around each group on the current stream. Completed pairs
@@ -309,6 +418,14 @@ class WindowOperator:
         self._used_dev: Optional[torch.Tensor] = None
         self.prof: Dict[str, float] = collections.defaultdict(float)
         self.timer = DeviceTimer(self.device)
+        # device-made source (attach_device_source): its spec, the batch
+        # (index, dead_below, refire_below, need_stats) waiting for the
+        # next advance's step, and dispatched steps' stats copies
+        # (batch index, dead_below, host stats, CUDA event) awaiting
+        # reconciliation
+        self._devgen_spec = None
+        self._stash_devgen: Optional[Tuple[int, int, int, bool]] = None
+        self._devstats_pending: collections.deque = collections.deque()
 
     # -- sizes ------------------------------------------------------------
     def _topn_cap(self) -> int:
@@ -403,11 +520,6 @@ class WindowOperator:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         return t if self.device.type == "cpu" else t.pin_memory()
 
-    def _small_upload(self, t: torch.Tensor) -> torch.Tensor:
-        """Upload a few host bytes without waiting on the stream (a
-        blocking copy would synchronize with every queued step)."""
-        return t.to(self.device, non_blocking=True)
-
     def _apply_cells(self, idx: np.ndarray, cnt: Optional[np.ndarray]) -> None:
         if len(idx) == 0:
             return
@@ -438,7 +550,11 @@ class WindowOperator:
         self.prof["pb_throttle_wait"] += time.perf_counter() - t0
 
     def quiesce(self) -> None:
-        """Block until every dispatched step has completed."""
+        """Dispatch a stashed device-made batch, fold in every step's
+        stats, and block until every dispatched step has completed."""
+        self._flush_devgen()
+        if self._devstats_pending:
+            self._reconcile_devstats()
         while self._inflight:
             self._inflight.popleft().synchronize()
         if self.device.type == "cuda":
@@ -450,6 +566,7 @@ class WindowOperator:
                    applied_max: Optional[int]) -> None:
         """Resize the pane ring to hold >= ``need`` live panes, moving
         each applied live pane p from column p % old to p % new."""
+        self._flush_devgen()  # a stashed batch lands in the old layout
         old_ring = self.plan.ring
         new_ring = _next_pow2(need + 4)
         lo = self._cleared_below
@@ -460,9 +577,9 @@ class WindowOperator:
         if hi >= lo:
             ps = np.arange(lo, hi + 1)
             cmap[ps % new_ring] = ps % old_ring
-        src_col = self._small_upload(
-            torch.from_numpy(np.maximum(cmap, 0).astype(np.int32)))
-        keep = self._small_upload(torch.from_numpy(cmap >= 0))
+        src_col = small_upload(np.maximum(cmap, 0).astype(np.int32),
+                               self.device)
+        keep = small_upload(cmap >= 0, self.device)
         with self.timer.span("grow"):
             dst = torch.empty((self.layout.rows, new_ring), dtype=torch.int32,
                               device=self.device)
@@ -479,6 +596,11 @@ class WindowOperator:
         if wm < self.watermark or (wm == self.watermark and not self._refire):
             return self._empty()
         taw = time.perf_counter()
+        # device-made steps whose stats have landed: late accounting,
+        # re-fire scheduling and miss repair before this advance
+        # enumerates its ends
+        if self._devstats_pending:
+            self._reconcile_devstats(force=False)
         prev = self.watermark
         self.watermark = wm
         ends = sorted(set(self.plan.enumerate_fire_ends(
@@ -490,6 +612,14 @@ class WindowOperator:
         if self._fired_below_end is None or frontier > self._fired_below_end:
             self._fired_below_end = frontier
         self._refire.clear()
+        # device-made batch: its ingest, these fires and the purge run
+        # as one step
+        if self._stash_devgen is not None:
+            out = self._advance_fused_devgen(wm, ends)
+            if out is not None:
+                self.prof["aw_dispatch"] += time.perf_counter() - taw
+                return out
+            self._flush_devgen()  # more than MIN_FIRE_PAD ends: chunked
         out = self._fire_ends(ends)
 
         # purge panes no window can need any more; only columns written
@@ -511,7 +641,7 @@ class WindowOperator:
                     keep[np.arange(lo, hi) % ring] = False
                 src_col = torch.arange(ring, dtype=torch.int32,
                                        device=self.device)
-                keep_t = self._small_upload(torch.from_numpy(keep))
+                keep_t = small_upload(keep, self.device)
                 with self.timer.span("purge"):
                     wk.ring_columns(self.state.counts, self.state.counts,
                                     src_col, keep_t)
@@ -535,7 +665,7 @@ class WindowOperator:
         ring_buf = self._ensure_ring()
         for c0 in range(0, len(ends), MAX_FIRE_CHUNK_RING):
             chunk = ends[c0:c0 + MAX_FIRE_CHUNK_RING]
-            end_t = self._small_upload(torch.tensor(chunk, dtype=torch.int64))
+            end_t = small_upload(np.asarray(chunk, np.int64), self.device)
             w_valid = torch.ones(len(chunk), dtype=torch.bool,
                                  device=self.device)
             with self.timer.span("fire"):
@@ -640,7 +770,7 @@ class WindowOperator:
         if self._used_pushed != nk or self._used_dev is None:
             used = np.zeros(self.layout.rows, dtype=bool)
             used[:self.layout.slots] = self.directory.used_mask()
-            self._used_dev = self._small_upload(torch.from_numpy(used))
+            self._used_dev = small_upload(used, self.device)
             self._used_pushed = nk
         return self._used_dev
 
@@ -656,11 +786,246 @@ class WindowOperator:
             "count": np.zeros(0, np.int32),
         })
 
+    # -- device-made ingest (devgen_step) -----------------------------------
+    # how many dispatched steps' stats may wait before an advance blocks
+    # on the oldest; miss repair stays well inside the pane ring's life
+    DEVSTATS_MAX_LAG = 2
+
+    def attach_device_source(self, spec) -> bool:
+        """Chain a ``DeviceGeneratorSource``: its batches are made on the
+        card inside this operator's step. The directory registers the
+        source's key domain densely (slot == key). Returns False when
+        this operator cannot host it; the driver then feeds the batches
+        from the host."""
+        # The reference also requires its C hash table here, for miss
+        # repair's probe. This port has none; its numpy table has the
+        # same lookup_keys, so the port accepts it.
+        if self.plan.ring > 64:
+            return False
+        d = getattr(spec, "key_domain", None)
+        if d is None or d <= 0 or d > self.layout.slots:
+            return False
+        if self.directory.num_keys() == 0:
+            self.directory.register_dense(d)
+        else:
+            # a restored directory must already hold the identity over
+            # the whole domain: a prefix would leave device-writable
+            # slots unregistered and free to the allocator
+            if self.directory.num_keys() < d:
+                return False
+            probe = np.arange(d, dtype=np.int64)
+            vals, found = self.directory.lookup(probe)
+            if not (found.all() and (vals == probe).all()):
+                return False
+        self._devgen_spec = spec
+        return True
+
+    def process_batch_device(self, batch_index: int) -> bool:
+        """Accept one device-made batch: check the gates, grow the ring
+        from the source's exact ts bounds, and stash the index for the
+        next advance's step. False when a gate closed (the ring outgrew
+        the header's 64 clear bits, the re-fire span outgrew the bitmap,
+        or the whole batch is late); the caller then feeds this batch
+        from the host."""
+        spec = self._devgen_spec
+        if spec is None or self.plan.ring > 64:
+            return False
+        t0 = time.perf_counter()
+        dead = self._cleared_below
+        refire_below = (self._fired_below_end
+                        if self._fired_below_end is not None
+                        else int(np.iinfo(np.int64).min))
+        if refire_below > dead and refire_below - dead > DEVGEN_REFIRE_BITS:
+            return False
+        ts_min, ts_max = spec.ts_bounds(batch_index)
+        pane_ms, off = self.plan.pane_ms, self.plan.offset_ms
+        pmin = (int(ts_min) - off) // pane_ms
+        pmax = (int(ts_max) - off) // pane_ms
+        if pmax < dead:
+            return False  # whole batch late: the host path accounts it
+        # a pending batch dispatches against the current ring layout,
+        # before any growth below
+        self._flush_devgen()
+        eff_min = max(pmin, dead)
+        prev_min, prev_max = self._min_pane_seen, self._max_pane_seen
+        new_min = eff_min if prev_min is None else min(prev_min, eff_min)
+        new_max = pmax if prev_max is None else max(prev_max, pmax)
+        if new_max - max(dead, new_min) >= self.plan.ring:
+            self._grow_ring(new_max - max(dead, new_min) + 1,
+                            prev_min, prev_max)
+            if self.plan.ring > 64:
+                return False  # outgrew the clear words: host path
+        self._min_pane_seen = new_min
+        self._max_pane_seen = new_max
+        # the stats can be non-zero only with an unproven key bound
+        # (misses) or panes below the dead or fired frontier (late,
+        # re-fire); otherwise their copy is skipped
+        need_stats = (not spec.keys_bounded or pmin < dead
+                      or pmin < refire_below)
+        self._stash_devgen = (int(batch_index), int(dead),
+                              int(refire_below), bool(need_stats))
+        self.prof["pbd_host"] += time.perf_counter() - t0
+        self._throttle()
+        return True
+
+    def _dispatch_devgen(self, hdr: np.ndarray, batch_index: int, dead: int,
+                         need_stats: bool) -> None:
+        spec = self._devgen_spec
+        stats = devgen_step(
+            self.state.counts, self._ensure_ring(), hdr,
+            self._used_mask_device(), gen=spec.device_keys_ts,
+            key_domain=int(spec.key_domain),
+            panes_per_window=self.plan.panes_per_window,
+            sel_cap=self._topn_cap(), topn=self._topn[1],
+            dump_row=self.layout.slots, pane_ms=self.plan.pane_ms,
+            offset_ms=self.plan.offset_ms, span=self.timer.span)
+        if need_stats:
+            if self.device.type == "cpu":
+                self._devstats_pending.append((batch_index, dead, stats, None))
+            else:
+                host = torch.empty(stats.shape, dtype=stats.dtype,
+                                   pin_memory=True)
+                host.copy_(stats, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+                self._devstats_pending.append((batch_index, dead, host, ev))
+        self._note_dispatch()
+
+    def _devgen_header(self, batch_index: int, dead: int,
+                       refire_below: int) -> np.ndarray:
+        hdr = np.zeros(FUSED_HDR, np.int32)
+        hdr[DEVGEN_HDR_OFF:DEVGEN_HDR_OFF + 6] = np.array(
+            [batch_index, dead, refire_below], np.int64).view(np.int32)
+        return hdr
+
+    def _advance_fused_devgen(self, wm: int,
+                              ends: List[int]) -> Optional["FiredWindows"]:
+        """One step over the stashed batch: make + ingest + fire + purge.
+        None when the fire list overflows the header's window slots."""
+        batch_index, dead, refire_below, need_stats = self._stash_devgen
+        hdr = self._devgen_header(batch_index, dead, refire_below)
+        filled = self._fused_fill_header(wm, ends, hdr)
+        if filled is None:
+            return None
+        ends_f, cleared_after = filled
+        self._stash_devgen = None
+        self._dispatch_devgen(hdr, batch_index, dead, need_stats)
+        self._cleared_below = cleared_after
+        return self._ring_after_fire(len(ends_f))
+
+    def _flush_devgen(self) -> None:
+        """Dispatch a stashed device-made batch as a step without fires
+        or purge — every consumer of up-to-date state calls this
+        (snapshots, quiesce, ring growth, the chunked advance)."""
+        if self._stash_devgen is None:
+            return
+        batch_index, dead, refire_below, need_stats = self._stash_devgen
+        self._stash_devgen = None
+        lo = (self._cleared_below if self._min_pane_seen is None
+              else max(self._cleared_below, self._min_pane_seen))
+        if self._ring_anchor is None:
+            self._ring_anchor = lo
+        hi_v = (self._max_pane_seen if self._max_pane_seen is not None
+                else lo - 1)
+        hdr = self._devgen_header(batch_index, dead, refire_below)
+        hdr[:6] = np.array([lo, hi_v, self._ring_anchor],
+                           np.int64).view(np.int32)
+        hdr[8:8 + MIN_FIRE_PAD] = _DELTA_SENTINEL
+        self._dispatch_devgen(hdr, batch_index, dead, need_stats)
+
+    def _fused_fill_header(self, wm: int, ends: List[int],
+                           buf: np.ndarray) -> Optional[Tuple[List[int], int]]:
+        """Fill the header's pane bounds, ring anchor, clear words and
+        window-end deltas in place (the reference's rule, word for
+        word). Returns (fired ends, cleared_below after the purge), or
+        None when more than MIN_FIRE_PAD ends would fire."""
+        ppw = self.plan.panes_per_window
+        if self._max_pane_seen is None:
+            ends_f: List[int] = []
+            lo = self._cleared_below
+        else:
+            lo = max(self._cleared_below, self._min_pane_seen)
+            hi = self._max_pane_seen
+            ends_f = [e for e in ends if e > lo and e - ppw <= hi]
+        if len(ends_f) > MIN_FIRE_PAD:
+            return None
+        ring = self.plan.ring
+        new_dead = self.plan.first_dead_pane(wm)
+        clear_word = 0
+        cleared_after = self._cleared_below
+        if new_dead > self._cleared_below:
+            clo = self._cleared_below
+            if self._min_pane_seen is not None:
+                clo = max(clo, self._min_pane_seen)
+            else:
+                clo = new_dead
+            if new_dead > clo:
+                if new_dead - clo >= ring:
+                    clear_word = (1 << ring) - 1
+                else:
+                    for p in range(clo, new_dead):
+                        clear_word |= 1 << (p % ring)
+            cleared_after = new_dead
+        if self._ring_anchor is None:
+            self._ring_anchor = lo
+        hi_v = self._max_pane_seen if self._max_pane_seen is not None else lo - 1
+        buf[:6] = np.array([lo, hi_v, self._ring_anchor],
+                           np.int64).view(np.int32)
+        cw = np.array([clear_word], np.uint64).view(np.int32)
+        buf[7], buf[6] = cw[0], cw[1]
+        deltas = np.full(MIN_FIRE_PAD, _DELTA_SENTINEL, np.int64)
+        if ends_f:
+            deltas[:len(ends_f)] = np.asarray(ends_f, np.int64) - lo
+        buf[8:8 + MIN_FIRE_PAD] = deltas.astype(np.int32)
+        return ends_f, cleared_after
+
+    def _reconcile_devstats(self, force: bool = True) -> None:
+        """Fold dispatched steps' stats into host accounting: late
+        records, re-fire scheduling, and miss repair — the batch is made
+        again on the host (bit-exact with the device), and its records
+        outside the key domain go through ``process_batch``, which
+        registers their keys and re-fires windows already fired.
+
+        ``force=False`` takes only stats whose copy has landed, unless
+        more than DEVSTATS_MAX_LAG are waiting."""
+        while self._devstats_pending:
+            batch_index, dead, host, ev = self._devstats_pending[0]
+            if (not force
+                    and len(self._devstats_pending) <= self.DEVSTATS_MAX_LAG
+                    and ev is not None and not ev.query()):
+                return
+            self._devstats_pending.popleft()
+            if ev is not None:
+                ev.synchronize()
+            arr = host.numpy()
+            n_late, n_miss, n_refire = int(arr[1]), int(arr[2]), int(arr[4])
+            self.late_records += n_late
+            if n_refire:
+                rbm = arr[dk.STATS_HEAD:dk.STATS_HEAD + DEVGEN_REFIRE_BITS]
+                late_panes = np.flatnonzero(rbm) + dead
+                self._refire.update(self.plan.late_refire_ends(
+                    late_panes, self._fired_below_end, self.watermark))
+            if n_miss:
+                keys, ts = self._devgen_spec.keys_ts_host(batch_index)
+                out = (keys < 0) | (keys >= self._devgen_spec.key_domain)
+                # keys the directory already refused as FULL fail the
+                # job (the reference's default policy; no drops here)
+                vals, found = self.directory.lookup(keys[out])
+                n_full = int((found & (vals < 0)).sum())
+                if n_full:
+                    raise_full(n_full)
+                self.process_batch(keys[out], ts[out], {})
+
     # -- snapshots ----------------------------------------------------------
     def snapshot_state(self) -> Dict[str, Any]:
         """The operator's state as the reference package lays it out: a
         device clone of the panes (ordered on the stream, no sync), the
-        key directory arrays and the watermark bookkeeping."""
+        key directory arrays and the watermark bookkeeping. A stashed
+        device-made batch is dispatched and every step's stats folded
+        in first."""
+        self._flush_devgen()
+        if self._devstats_pending:
+            self._reconcile_devstats()
         return {
             "spill": None,
             "n_dev": 1,
@@ -713,6 +1078,10 @@ class WindowOperator:
         self._max_pane_seen = snap["max_pane_seen"]
         self._refire = set(snap["refire"])
         self.late_records = snap["late_records"]
+        # device-made steps from before the restore belong to another
+        # timeline
+        self._stash_devgen = None
+        self._devstats_pending.clear()
         self._inflight.clear()
         self._used_pushed = -1
         # the emit ring restarts: a checkpoint delivers its rows first,

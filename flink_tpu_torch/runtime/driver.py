@@ -3,12 +3,23 @@ fused host map chain, fold it into the window operator's device state,
 advance the watermark clock, and hand fired windows to the downstream
 chain and sinks.
 
+A device-made source (``DeviceGeneratorSource``) whose only consumer
+is a window operator keyed on its key field is chained into that
+operator: the loop then pulls per-batch markers (index, exact max
+timestamp, record count) instead of records, and the operator makes each
+batch on the card. With ``pipeline.sub-batches`` K > 1 the chained
+source is subdivided into K bit-exact slices per logical batch, each
+its own step with its own watermark advance. A batch the operator's
+devgen gates refuse is made on the host and fed normally (metric
+``devgen_host_batches``).
+
 Fired windows are delivered from the same thread: after every loop
 pass the driver polls the operators' emit rings for copies that have
 landed (never waiting on the device), and at end of input it drains
 them with a barrier. Checkpointing, the cross-host exchange, batch
-mode, rescaling, the debloater and savepoints are not ported
-(ROADMAP.md); the configuration check refuses confs that ask for them.
+mode, rescaling, the debloater, savepoints and host-plane sub-batching
+are not ported (ROADMAP.md); the configuration check and the driver
+refuse confs that ask for them.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from flink_tpu_torch.api.sources import DeviceGeneratorSource
 from flink_tpu_torch.config import Configuration, PipelineOptions, StateOptions
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.compiler import ExecutionPlan
@@ -48,12 +60,28 @@ class Driver:
         self._wm_gens: Dict[int, List[Any]] = {}
         self.metrics: Dict[str, Any] = {
             "records_in": 0, "records_out": 0, "batches": 0,
-            "fired_windows": 0,
+            "fired_windows": 0, "devgen_host_batches": 0,
         }
         self.prof: Dict[str, float] = collections.defaultdict(float)
         self._pending_emits: List[Tuple[int, Any]] = []
         self._ops: Dict[int, Any] = {}
+        self._sub_batches = int(config.get(PipelineOptions.SUB_BATCHES))
+        self._base_inflight = int(
+            config.get(PipelineOptions.MAX_INFLIGHT_STEPS))
         self._build_ops()
+        # source id -> (window node id, the source as chained, its
+        # sub-batch factor)
+        self._dev_chains: Dict[int, Tuple[int, DeviceGeneratorSource, int]] = {}
+        for sid in plan.sources:
+            self._maybe_chain_device_source(sid, plan.node(sid))
+        unchained = [sid for sid in plan.sources if sid not in self._dev_chains]
+        if self._sub_batches > 1 and unchained:
+            raise NotImplementedError(
+                f"pipeline.sub-batches={self._sub_batches} with a host-fed "
+                "source: host-plane sub-batching (the reference driver's "
+                "_ingest_host_subbatched) is still to port (ROADMAP.md); "
+                "only a device-made source chained into its window "
+                "operator runs sub-batches")
 
     def _build_ops(self) -> None:
         from flink_tpu_torch.ops.factory import OperatorBuildContext, _window_factory
@@ -66,12 +94,67 @@ class Driver:
             device=self.device,
             num_shards=int(self.config.get(StateOptions.NUM_KEY_SHARDS)),
             slots_per_shard=int(self.config.get(StateOptions.SLOTS_PER_SHARD)),
-            max_inflight_steps=int(
-                self.config.get(PipelineOptions.MAX_INFLIGHT_STEPS)),
+            # K sub-batch steps per logical batch, each 1/K of the
+            # records: scale the in-flight credit so the queue depth in
+            # logical batches (in bytes) stays the same
+            max_inflight_steps=self._base_inflight * self._sub_batches,
             max_out_of_orderness_ms=max(ooo))
         for n in self.plan.nodes.values():
             if n.kind == "window":
                 self._ops[n.id] = _window_factory(n, ctx)
+
+    def _maybe_chain_device_source(self, sid: int, n) -> None:
+        """Chain a device-made source into its consuming window operator
+        when it is the source's only consumer, keyed on the source's key
+        field, and the operator can host it (its own gate). K > 1
+        subdivides the source first, when it can re-slice itself."""
+        src = n.source
+        if (not isinstance(src, DeviceGeneratorSource)
+                or src.device_keys_ts is None or len(n.downstream) != 1):
+            return
+        wid = n.downstream[0]
+        wn = self.plan.node(wid)
+        if wn.kind != "window" or wn.key_field != src.key_field:
+            return
+        factor = 1
+        if self._sub_batches > 1 and src.subdivide is not None:
+            # a declared subdivision that fails is a config error, never
+            # a silent fall back to logical-batch steps
+            src = src.subdivided(self._sub_batches)
+            factor = self._sub_batches
+        op = self._ops[wid]
+        if not op.attach_device_source(src):
+            return
+        self._dev_chains[sid] = (wid, src, factor)
+        if factor == 1:
+            # steps stay logical batches: the K-scaled credit would
+            # queue K times the bytes
+            op.max_inflight_steps = self._base_inflight
+
+    def _push_device_batch(self, sid: int, split_ix: int,
+                           marker: "_DevBatch") -> bool:
+        """Hand a device-made batch to its operator; False when a devgen
+        gate closed and the batch must be fed from the host."""
+        t0 = time.perf_counter()
+        wid, _, _ = self._dev_chains[sid]
+        ok = self._ops[wid].process_batch_device(marker.index)
+        if ok:
+            self.metrics["records_in"] += marker.n
+            self.metrics["batches"] += 1
+            self._wm_gens[sid][split_ix].on_batch(marker.ts_max)
+        self.prof["push"] += time.perf_counter() - t0
+        return ok
+
+    def _host_batch_for(self, sid: int, marker: "_DevBatch"):
+        """The records of a device-made batch, made on the host."""
+        _, src, factor = self._dev_chains[sid]
+        if factor == 1 and self._sub_batches > 1:
+            raise NotImplementedError(
+                "a devgen gate sent a logical batch to the host under "
+                "pipeline.sub-batches > 1: host-plane sub-batching is "
+                "still to port (ROADMAP.md)")
+        self.metrics["devgen_host_batches"] += 1
+        return src.gen("0", marker.index)
 
     # -- the streaming loop -------------------------------------------------
     def run(self, job_name: str = "job"):
@@ -88,6 +171,11 @@ class Driver:
                 self._wm_gens[sid] = [make_generator(strategy) for _ in splits]
                 srcs[sid] = {}
                 for i, split in enumerate(splits):
+                    if sid in self._dev_chains:
+                        # no records and no feeder thread: markers only
+                        srcs[sid][i] = _dev_batch_markers(
+                            self._dev_chains[sid][1])
+                        continue
                     srcs[sid][i] = _Prefetcher(n.source.open_split(split, 0),
                                                PREFETCH_DEPTH)
             active = {sid: sorted(its) for sid, its in srcs.items()}
@@ -100,6 +188,10 @@ class Driver:
                         if nxt is None:
                             alive.remove(split_ix)
                             continue
+                        if isinstance(nxt, _DevBatch):
+                            if self._push_device_batch(sid, split_ix, nxt):
+                                continue
+                            nxt = self._host_batch_for(sid, nxt)
                         data, ts = nxt
                         ts = np.asarray(ts, np.int64)
                         self._push_source_batch(sid, data, ts)
@@ -219,6 +311,23 @@ class Driver:
             ts = np.asarray(out["window_end"], np.int64) - 1
             self._push_downstream(nid, (out, ts, np.ones(nrec, bool)))
         self.prof["drain"] += time.perf_counter() - t0
+
+
+class _DevBatch:
+    """Marker of one device-made batch: its index, its exact max
+    timestamp (for the watermark clock) and its record count."""
+
+    __slots__ = ("index", "ts_max", "n")
+
+    def __init__(self, index: int, ts_max: int, n: int):
+        self.index = index
+        self.ts_max = ts_max
+        self.n = n
+
+
+def _dev_batch_markers(src: DeviceGeneratorSource):
+    for i in range(src.n_batches):
+        yield _DevBatch(i, int(src.ts_bounds(i)[1]), src.batch_size)
 
 
 class _Prefetcher:

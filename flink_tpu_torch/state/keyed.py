@@ -193,6 +193,31 @@ class KeyDirectory:
             slots[miss_ix] = alloc[inv]
         return slots
 
+    def lookup(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(slots, found) of ``keys`` without registering any; a key the
+        directory refused has slot FULL."""
+        return self._table.lookup_keys(np.ascontiguousarray(keys, np.int64))
+
+    def register_dense(self, n: int) -> None:
+        """Pre-register keys [0, n) with slot == key: the device-made
+        ingest's contract (``ops/window.py`` ``devgen_step``), where slot
+        must be a pure function of key on the device. It bypasses hash
+        sharding, so it needs an empty directory; it claims the dense
+        region from every shard's free pointer, so later keys outside
+        [0, n) allocate normally from what each shard has left."""
+        if self.num_keys():
+            raise ValueError("register_dense requires an empty directory")
+        if n > self.local_slots:
+            raise ValueError(
+                f"dense key domain {n} exceeds capacity {self.local_slots}")
+        keys = np.arange(n, dtype=np.int64)
+        self._table.insert_batch(keys, hash_keys_numpy(keys), keys)
+        self._rev_keys[:n] = keys
+        self._rev_used[:n] = True
+        self._next_free[:] = np.clip(
+            n - np.arange(self.num_shards) * self.slots_per_shard,
+            0, self.slots_per_shard)
+
     def _alloc_slots(self, keys: np.ndarray, hashes: np.ndarray) -> np.ndarray:
         """Assign shard-local slots to a batch of DISTINCT new keys:
         group by shard, hand out contiguous indices from each shard's

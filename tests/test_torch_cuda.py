@@ -187,7 +187,9 @@ def test_window_operator_on_the_card_matches_the_cpu(dev):
     assert np.array_equal(ends[0]["key"], ends[1]["key"])
     assert np.array_equal(ends[0]["count"], ends[1]["count"])
     assert torch.equal(ops[0].state.counts, ops[1].state.counts.cpu())
-    assert all(wk.LAUNCHES[k] > 0 for k in wk.LAUNCHES)
+    assert all(wk.LAUNCHES[k] > 0 for k in (
+        "scatter_counts", "window_counts", "topn_select_append",
+        "ring_columns"))
 
 
 def test_q5_on_the_card_matches_the_cpu(dev):
@@ -209,3 +211,104 @@ def test_q5_on_the_card_matches_the_cpu(dev):
         rows.append([(int(r["auction"]), int(r["window_end"]),
                       int(r["bid_count"])) for r in sink.rows])
     assert rows[0] == rows[1] and len(rows[0]) > 40
+
+
+# -- the device-made ingest (nexmark_bids, devgen_ingest) --------------------
+
+@pytest.mark.parametrize("logical,off", [(0, 0), (5, 1 << 20), (77, 3 << 20)])
+def test_nexmark_bids(dev, logical, off):
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    args = (logical, off, 1 << 20, 1 << 22, 100, 4, 100, 10_000)
+    k1, t1 = dk.nexmark_bids(*args, dev)
+    k2, t2 = dk.nexmark_bids_plain(*args, dev)
+    assert torch.equal(k1, k2) and torch.equal(t1, t2)
+    assert int(k1.min()) >= 0 and int(k1.max()) < 10_000
+
+
+def _ingest_both(dev, keys, ts, **kw):
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    a = torch.zeros((32769, 64), dtype=torch.int32, device=dev)
+    b = a.clone()
+    sa = dk.devgen_ingest(a, keys, ts, **kw)
+    sb = dk.devgen_ingest_plain(b, keys, ts, kw["key_domain"], kw["pane_ms"],
+                                kw["offset_ms"], kw["dead_below"],
+                                kw["refire_below"], kw["dump_row"],
+                                torch.zeros_like(sa))
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+    return a, sa
+
+
+@pytest.mark.parametrize("late", [False, True])
+def test_devgen_ingest(dev, late):
+    """A 2^20 sub-batch of the headline stream; with ``late`` some keys
+    leave the domain (or go negative) and some panes fall below the dead
+    and fired frontiers, so the stats words and the bitmap are held to
+    the plain version too."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    keys, ts = dk.nexmark_bids(3, 1 << 20, 1 << 20, 1 << 22, 100, 4, 100,
+                               10_000, dev)
+    lo = int(ts.min()) // 1000
+    kw = dict(key_domain=10_000, pane_ms=1000, offset_ms=0, dead_below=lo,
+              refire_below=-(2 ** 63), dump_row=32768)
+    if late:
+        rng = np.random.default_rng(9)
+        pick = _t(rng.random(keys.numel()), dev)
+        keys = keys.clone()
+        keys[pick < 0.05] += 10_000
+        keys[pick > 0.98] = -1
+        kw.update(dead_below=lo + 2, refire_below=lo + 5)
+    state, stats = _ingest_both(dev, keys, ts, **kw)
+    head = stats[:8].tolist()
+    assert head[0] + head[1] + head[2] == keys.numel()
+    assert int(state.sum()) == keys.numel()
+    if late:
+        assert head[1] > 0 and head[2] > 0 and head[4] > 0
+        assert int(stats[8:].sum()) == 3
+
+
+def test_devgen_ingest_error_word(dev):
+    """A dump row outside the state: the invalid records are not written
+    and the error word reports it."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    wk.check_errors(dev)
+    c = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    keys = _t(np.array([1, 9, 2], np.int64), dev)
+    ts = _t(np.array([5, 6, 7], np.int64), dev)
+    dk.devgen_ingest(c, keys, ts, key_domain=3, pane_ms=1, offset_ms=0,
+                     dead_below=0, refire_below=-(2 ** 63), dump_row=4)
+    assert int(c.sum()) == 2
+    with pytest.raises(IndexError, match="devgen_ingest"):
+        wk.check_errors(dev)
+    wk.check_errors(dev)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_devgen_q5_on_the_card_matches_the_cpu(dev, k):
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import CollectSink
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream_device
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+
+    cfg = NexmarkConfig(batch_size=1 << 18, n_batches=4, events_per_ms=8,
+                        num_active_auctions=2_000, hot_ratio=4)
+    rows = []
+    for d in ("cpu", dev):
+        env = StreamExecutionEnvironment(Configuration(
+            {"state.num-key-shards": 32, "state.slots-per-shard": 256,
+             "pipeline.microbatch-size": 1 << 18, "pipeline.sub-batches": k}))
+        sink = CollectSink()
+        q5_hot_items(env, bid_stream_device(cfg), sink,
+                     out_of_orderness_ms=1_000)
+        wk.reset_launch_counts()
+        res = env.execute("q5-devgen", device=d)
+        assert res.metrics["devgen_host_batches"] == 0
+        rows.append([(int(r["auction"]), int(r["window_end"]),
+                      int(r["bid_count"])) for r in sink.rows])
+    assert rows[0] == rows[1] and len(rows[0]) > 100
+    assert wk.LAUNCHES["nexmark_bids"] == 4 * k
+    assert wk.LAUNCHES["devgen_ingest"] == 4 * k

@@ -46,4 +46,6 @@ def test_scan_covers_the_package():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "flink_tpu_torch/ops/window.py" in files
     assert "flink_tpu_torch/kernels/window_kernels.py" in files
+    assert "flink_tpu_torch/kernels/devgen_kernels.py" in files
+    assert "flink_tpu_torch/nexmark/generator.py" in files
     assert "chip_smoke.py" in files
