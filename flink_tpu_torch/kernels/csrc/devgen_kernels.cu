@@ -85,10 +85,13 @@ __global__ void nexmark_bids_kernel(int64_t* __restrict__ keys, int64_t* __restr
 // state equals the reference's on every row. A refire candidate (valid
 // and pane < refire_below) sets bitmap word pane - dead_below when that
 // lies in [0, kRefireBits) (the reference's segment sum drops the rest).
-// Stats words 0, 1, 2, 4 = n_valid, n_late, n_miss, n_refire. A cell
-// outside counts is not written and sets kErrIngestCell.
-// Bound: bytes — 16 B read per record plus one 4-byte atomic
-// read-modify-write per record. Design: one thread per record,
+// Stats words 0, 1, 2, 4 = n_valid, n_late, n_miss, n_refire; a null
+// stats pointer skips the bitmap and the counters (the host needs them
+// only when a batch can be late, re-fire or miss). A cell outside
+// counts is not written and sets kErrIngestCell.
+// Bound: bytes — 16 B read per record plus a 4-byte read and write of
+// each distinct cell the batch touches (the atomics of one cell meet in
+// L2; the 4-8 MB state fits there). Design: one thread per record,
 // grid-stride; the four counters go through a warp reduce
 // (__reduce_add_sync), shared-memory per-warp partials and one global
 // atomicAdd per block and counter. Hot cells take many same-address
@@ -122,9 +125,10 @@ __global__ void devgen_ingest_kernel(int32_t* __restrict__ counts, int64_t n_cel
     if (valid && pane < refire_below) {
       ++c_refire;
       const int64_t bit = pane - dead_below;
-      if (bit >= 0 && bit < kRefireBits) stats[kStatsHead + bit] = 1;
+      if (stats != nullptr && bit >= 0 && bit < kRefireBits) stats[kStatsHead + bit] = 1;
     }
   }
+  if (stats == nullptr) return;  // the same for every thread of the grid
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   c_valid = __reduce_add_sync(0xffffffffu, c_valid);
   c_late = __reduce_add_sync(0xffffffffu, c_late);
@@ -140,7 +144,7 @@ __global__ void devgen_ingest_kernel(int32_t* __restrict__ counts, int64_t n_cel
   if (threadIdx.x < 4) {
     int32_t sum = 0;
     for (int w = 0; w < kWarps; ++w) sum += s_part[threadIdx.x][w];
-    // words 0, 1, 2 and 4 (3 is the ring head the operator copies in)
+    // words 0, 1, 2 and 4 (3 and 5 are the reference's ring head)
     const int word = threadIdx.x < 3 ? threadIdx.x : 4;
     if (sum) atomicAdd(&stats[word], sum);
   }

@@ -17,14 +17,16 @@ kernel, plain version and JAX reference agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from flink_tpu_torch.kernels import window_kernels as wk
 
 # stats vector: [n_valid, n_late, n_miss, ring_total, n_refire,
-# ring_truncated, 0, 0] then the refire bitmap (ops/window.py)
+# ring_truncated, 0, 0] then the refire bitmap — the reference's layout
+# (flink_tpu/ops/window.py devgen_step_kernel); the port leaves the
+# emit-ring words 3 and 5 at 0, since it reads the ring head itself
 STATS_HEAD = 8
 REFIRE_BITS = 2048
 STATS_WORDS = STATS_HEAD + REFIRE_BITS
@@ -120,14 +122,14 @@ def nexmark_bids_plain(logical, off, n, batch_total, events_per_ms, hot_ratio,
 
 def devgen_ingest(counts: torch.Tensor, keys: torch.Tensor, ts: torch.Tensor,
                   *, key_domain: int, pane_ms: int, offset_ms: int,
-                  dead_below: int, refire_below: int,
-                  dump_row: int) -> torch.Tensor:
+                  dead_below: int, refire_below: int, dump_row: int,
+                  with_stats: bool = True) -> Optional[torch.Tensor]:
     """Fold one device-made batch into ``counts`` (``(rows, ring)``
-    int32, in place) and return its stats vector (``STATS_WORDS`` int32,
-    zeroed here first): words 0, 1, 2, 4 = valid, late, miss and refire
-    records, bitmap word ``STATS_HEAD + pane - dead_below`` = 1 for each
-    refire pane in range. Words 3 and 5 (the emit ring's head after the
-    step's fire) are the caller's to fill.
+    int32, in place). With ``with_stats``, return its stats vector
+    (``STATS_WORDS`` int32, zeroed here first): words 0, 1, 2, 4 =
+    valid, late, miss and refire records, bitmap word ``STATS_HEAD +
+    pane - dead_below`` = 1 for each refire pane in range, the other
+    words 0. Without, return None and write no stats.
 
     A record hits when ``0 <= key < key_domain`` (slot = key); its pane
     is ``floor((ts - offset_ms) / pane_ms)``; it is late when it hits
@@ -141,7 +143,8 @@ def devgen_ingest(counts: torch.Tensor, keys: torch.Tensor, ts: torch.Tensor,
         raise ValueError("keys and ts differ in length")
     if pane_ms < 1:
         raise ValueError("pane_ms must be >= 1")
-    stats = torch.zeros(STATS_WORDS, dtype=torch.int32, device=counts.device)
+    stats = (torch.zeros(STATS_WORDS, dtype=torch.int32, device=counts.device)
+             if with_stats else None)
     if not wk.on_cuda("devgen_ingest", counts, keys, ts):
         return devgen_ingest_plain(counts, keys, ts, key_domain, pane_ms,
                                    offset_ms, dead_below, refire_below,
@@ -151,7 +154,8 @@ def devgen_ingest(counts: torch.Tensor, keys: torch.Tensor, ts: torch.Tensor,
             counts.numel(), keys.data_ptr(), ts.data_ptr(), keys.numel(),
             int(key_domain), int(pane_ms), int(offset_ms), ring,
             int(dead_below), int(refire_below), int(dump_row),
-            stats.data_ptr(), wk.error_word(counts.device).data_ptr(),
+            stats.data_ptr() if stats is not None else None,
+            wk.error_word(counts.device).data_ptr(),
             wk.stream_of(counts))
     return stats
 
@@ -172,6 +176,8 @@ def devgen_ingest_plain(counts, keys, ts, key_domain, pane_ms, offset_ms,
     counts.view(-1).index_add_(
         0, flat, torch.ones(flat.numel(), dtype=torch.int32,
                             device=counts.device))
+    if stats is None:
+        return None
     refire = valid & (pane < refire_below)
     stats[0] = valid.sum()
     stats[1] = late.sum()

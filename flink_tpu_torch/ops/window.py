@@ -13,14 +13,13 @@ reads the emit ring through announced copies: a non-blocking device→host
 copy plus a CUDA event per fire, read once it has landed.
 
 A device-made source (``attach_device_source``) skips the host ingest:
-its batch index is stashed and the next watermark advance runs one
-step, ``devgen_step`` — ``nexmark_bids`` makes the records on the
-card, ``devgen_ingest`` folds them in and writes a stats vector, and
-the fire/purge tail fires every window end of the advance in one
-``window_counts`` + ``topn_select_append`` pair. The host fills the
-reference's fused-step header (``_fused_fill_header``) and hands its
-decoded values to the kernels as launch arguments; the stats vector
-comes back only when it can carry late, re-fire or miss work.
+its batch index is stashed, and the next watermark advance makes the
+records on the card (the source's ``device_keys_ts``, ``nexmark_bids``
+for Nexmark), folds them in with ``devgen_ingest`` and then fires every
+window end of the advance in one ``window_counts`` +
+``topn_select_append`` pair, as the reference's one-dispatch step does.
+The ingest's stats vector is made and copied back only when the batch
+can carry late, re-fire or miss work.
 
 Host control flow (watermark clock, ring bookkeeping, lateness, late
 re-firing, the key directory, the device-made ingest's stash, flush and
@@ -51,21 +50,15 @@ from flink_tpu_torch.state.keyed import (
     KeyDirectory, PaneState, PaneStateLayout, init_state, raise_full)
 from flink_tpu_torch.time.watermarks import LONG_MIN
 
-# a steady advance's whole window list fires in one window_counts +
-# topn_select_append pair; catch-up advances go in chunks of this many
+# host-fed advances fire in chunks of this many windows, each chunk one
+# window_counts + topn_select_append pair (the reference's numpy path)
 MAX_FIRE_CHUNK_RING = 16
+# an advance over a device-made batch fires up to this many windows in
+# one pair, as the reference's one-dispatch step does (its header has
+# this many window slots); more go in chunks
+MIN_FIRE_PAD = 64
 # top-n winner capacity factor (see WindowOperator._topn_cap)
 MAX_FIRE_CHUNK = 4
-
-# the reference's fused-step header, in int32 words: [0:2] pane_lo,
-# [2:4] pane_hi, [4:6] ring anchor (int64 each), [6] clear-mask columns
-# 32-63, [7] columns 0-31, [8:8+MIN_FIRE_PAD] window-end deltas from
-# pane_lo (_DELTA_SENTINEL = unused), then at DEVGEN_HDR_OFF the
-# device-made batch's (batch index, dead_below, refire_below) as int64
-FUSED_HDR = 128
-MIN_FIRE_PAD = 64
-DEVGEN_HDR_OFF = 8 + MIN_FIRE_PAD
-_DELTA_SENTINEL = -(2 ** 30)
 # refire bitmap span of the device-made ingest (panes above
 # dead_below); a longer lateness span sends the batch to the host path
 DEVGEN_REFIRE_BITS = dk.REFIRE_BITS
@@ -223,78 +216,46 @@ def small_upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def decode_header(hdr: np.ndarray) -> Tuple[int, int, int, List[int], int]:
-    """``(pane_lo, pane_hi, anchor, end panes, clear mask)`` of a
-    ``FUSED_HDR`` header; bit c of the mask clears ring column c."""
-    lo, hi, anchor = (int(v) for v in hdr[:6].view(np.int64))
-    deltas = hdr[8:8 + MIN_FIRE_PAD].astype(np.int64)
-    ends = (lo + deltas[deltas > _DELTA_SENTINEL]).tolist()
-    mask = int(np.array([hdr[7], hdr[6]], np.int32).view(np.uint64)[0])
-    return lo, hi, anchor, ends, mask
+class PinnedStage:
+    """Small host→device uploads of one operator through a few reused
+    pinned host slots. A copy from pageable memory synchronizes the
+    stream first, and a fresh pinned tensor per copy costs an allocation
+    each time; a slot is rewritten only once the copy that last read it
+    has run (its CUDA event). Larger arrays take a fresh pinned tensor.
+    On the CPU an upload is the array itself."""
 
+    SLOTS = 8
+    SLOT_BYTES = 4096
 
-def _no_span(name: str):
-    return contextlib.nullcontext()
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._host: Optional[np.ndarray] = None
+        self._host_t: Optional[torch.Tensor] = None
+        self._events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._next = 0
 
-
-def fused_fire_clear(counts: torch.Tensor, emit_ring: torch.Tensor,
-                     hdr: np.ndarray, used_mask: torch.Tensor, *,
-                     panes_per_window: int, sel_cap: int, topn: int,
-                     span=_no_span) -> None:
-    """The fire + purge tail of the reference's one-dispatch steps
-    (``flink_tpu/ops/window.py`` ``_fused_fire_clear``), driven by the
-    header the host filled: every window end in it fires in ONE
-    ``window_counts`` + ``topn_select_append`` pair (rows land row-major
-    over all of them, as in the reference), then the masked ring
-    columns are purged. The gate: no fire launch without a window end,
-    no purge launch with an empty mask. The header's scalars go to the
-    kernels as launch arguments; the end list and the keep mask, which
-    the kernels read from device memory, ride small pinned copies."""
-    pane_lo, pane_hi, anchor, ends, mask = decode_header(hdr)
-    dev = counts.device
-    if ends:
-        end_t = small_upload(np.asarray(ends, np.int64), dev)
-        w_valid = torch.ones(len(ends), dtype=torch.bool, device=dev)
-        with span("fire"):
-            wc = wk.window_counts(counts, end_t, w_valid, pane_lo, pane_hi,
-                                  panes_per_window)
-            wk.topn_select_append(wc, used_mask, end_t, w_valid, anchor,
-                                  topn, sel_cap, emit_ring)
-    if mask:
-        ring = counts.shape[1]
-        keep = np.array([not (mask >> c) & 1 for c in range(ring)])
-        src_col = torch.arange(ring, dtype=torch.int32, device=dev)
-        keep_t = small_upload(keep, dev)
-        with span("purge"):
-            wk.ring_columns(counts, counts, src_col, keep_t)
-
-
-def devgen_step(counts: torch.Tensor, emit_ring: torch.Tensor,
-                hdr: np.ndarray, used_mask: torch.Tensor, *, gen,
-                key_domain: int, panes_per_window: int, sel_cap: int,
-                topn: int, dump_row: int, pane_ms: int, offset_ms: int,
-                span=_no_span) -> torch.Tensor:
-    """One device-made step (``flink_tpu/ops/window.py``
-    ``devgen_step_kernel``): make the batch named in the header on the
-    device (``gen(batch_index, device)``), fold it into ``counts``
-    (``devgen_ingest``), run the fire + purge tail, and return the
-    stats vector ``[n_valid, n_late, n_miss, ring_total, n_refire,
-    ring_truncated, 0, 0] ++ refire bitmap``. Words 3 and 5 are the
-    emit ring's head after the fire, copied on the same stream."""
-    batch_index, dead_below, refire_below = (
-        int(v) for v in hdr[DEVGEN_HDR_OFF:DEVGEN_HDR_OFF + 6].view(np.int64))
-    with span("gen"):
-        keys, ts = gen(batch_index, counts.device)
-    with span("ingest"):
-        stats = dk.devgen_ingest(
-            counts, keys, ts, key_domain=key_domain, pane_ms=pane_ms,
-            offset_ms=offset_ms, dead_below=dead_below,
-            refire_below=refire_below, dump_row=dump_row)
-    fused_fire_clear(counts, emit_ring, hdr, used_mask,
-                     panes_per_window=panes_per_window, sel_cap=sel_cap,
-                     topn=topn, span=span)
-    stats[3:6:2] = emit_ring[0, :2]
-    return stats
+    def upload(self, arr: np.ndarray) -> torch.Tensor:
+        arr = np.ascontiguousarray(arr)
+        t = torch.from_numpy(arr)
+        if self.device.type == "cpu":
+            return t
+        if arr.nbytes > self.SLOT_BYTES or arr.nbytes == 0:
+            return small_upload(arr, self.device)
+        if self._host_t is None:
+            self._host_t = torch.empty((self.SLOTS, self.SLOT_BYTES),
+                                       dtype=torch.uint8, pin_memory=True)
+            self._host = self._host_t.numpy()
+        i = self._next
+        self._next = (i + 1) % self.SLOTS
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        self._host[i, :arr.nbytes] = arr.reshape(-1).view(np.uint8)
+        dev = torch.empty(arr.nbytes, dtype=torch.uint8, device=self.device)
+        dev.copy_(self._host_t[i, :arr.nbytes], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[i] = ev
+        return dev.view(t.dtype).view(t.shape)
 
 
 class DeviceTimer:
@@ -416,12 +377,18 @@ class WindowOperator:
         self._ring_version_no = 0
         self._used_pushed = -1
         self._used_dev: Optional[torch.Tensor] = None
+        self._stage = PinnedStage(self.device)
+        # device constants of the fire and purge: all-valid window flags
+        # (sliced per fire) and the identity column map (per ring size)
+        self._w_valid = torch.ones(MIN_FIRE_PAD, dtype=torch.bool,
+                                   device=self.device)
+        self._ident_cols: Optional[torch.Tensor] = None
         self.prof: Dict[str, float] = collections.defaultdict(float)
         self.timer = DeviceTimer(self.device)
         # device-made source (attach_device_source): its spec, the batch
         # (index, dead_below, refire_below, need_stats) waiting for the
-        # next advance's step, and dispatched steps' stats copies
-        # (batch index, dead_below, host stats, CUDA event) awaiting
+        # next advance, and dispatched batches' stats copies (batch
+        # index, dead_below, host stats, CUDA event) awaiting
         # reconciliation
         self._devgen_spec = None
         self._stash_devgen: Optional[Tuple[int, int, int, bool]] = None
@@ -577,9 +544,8 @@ class WindowOperator:
         if hi >= lo:
             ps = np.arange(lo, hi + 1)
             cmap[ps % new_ring] = ps % old_ring
-        src_col = small_upload(np.maximum(cmap, 0).astype(np.int32),
-                               self.device)
-        keep = small_upload(cmap >= 0, self.device)
+        src_col = self._stage.upload(np.maximum(cmap, 0).astype(np.int32))
+        keep = self._stage.upload(cmap >= 0)
         with self.timer.span("grow"):
             dst = torch.empty((self.layout.rows, new_ring), dtype=torch.int32,
                               device=self.device)
@@ -612,15 +578,11 @@ class WindowOperator:
         if self._fired_below_end is None or frontier > self._fired_below_end:
             self._fired_below_end = frontier
         self._refire.clear()
-        # device-made batch: its ingest, these fires and the purge run
-        # as one step
-        if self._stash_devgen is not None:
-            out = self._advance_fused_devgen(wm, ends)
-            if out is not None:
-                self.prof["aw_dispatch"] += time.perf_counter() - taw
-                return out
-            self._flush_devgen()  # more than MIN_FIRE_PAD ends: chunked
-        out = self._fire_ends(ends)
+        # a stashed device-made batch lands first; its advance fires its
+        # ends in one pair (see MIN_FIRE_PAD)
+        stashed = self._stash_devgen is not None
+        self._flush_devgen()
+        out = self._fire_ends(ends, whole=stashed)
 
         # purge panes no window can need any more; only columns written
         # (>= min pane seen) can hold data
@@ -639,17 +601,23 @@ class WindowOperator:
                     keep[:] = False
                 else:
                     keep[np.arange(lo, hi) % ring] = False
-                src_col = torch.arange(ring, dtype=torch.int32,
-                                       device=self.device)
-                keep_t = small_upload(keep, self.device)
+                if self._ident_cols is None or len(self._ident_cols) != ring:
+                    self._ident_cols = torch.arange(ring, dtype=torch.int32,
+                                                    device=self.device)
+                keep_t = self._stage.upload(keep)
                 with self.timer.span("purge"):
                     wk.ring_columns(self.state.counts, self.state.counts,
-                                    src_col, keep_t)
+                                    self._ident_cols, keep_t)
             self._cleared_below = new_dead
         self.prof["aw_dispatch"] += time.perf_counter() - taw
         return out
 
-    def _fire_ends(self, ends: List[int]) -> "FiredWindows":
+    def _fire_ends(self, ends: List[int],
+                   whole: bool = False) -> "FiredWindows":
+        """Fire ``ends`` in chunks of MAX_FIRE_CHUNK_RING windows; with
+        ``whole`` (an advance over a device-made batch) in one chunk when
+        there are at most MIN_FIRE_PAD, so rows land row-major over all
+        of them."""
         if not ends or self._max_pane_seen is None:
             return self._empty()
         lo = max(self._cleared_below, self._min_pane_seen)
@@ -663,11 +631,12 @@ class WindowOperator:
         if self._ring_anchor is None:
             self._ring_anchor = lo
         ring_buf = self._ensure_ring()
-        for c0 in range(0, len(ends), MAX_FIRE_CHUNK_RING):
-            chunk = ends[c0:c0 + MAX_FIRE_CHUNK_RING]
-            end_t = small_upload(np.asarray(chunk, np.int64), self.device)
-            w_valid = torch.ones(len(chunk), dtype=torch.bool,
-                                 device=self.device)
+        step = (len(ends) if whole and len(ends) <= MIN_FIRE_PAD
+                else MAX_FIRE_CHUNK_RING)
+        for c0 in range(0, len(ends), step):
+            chunk = ends[c0:c0 + step]
+            end_t = self._stage.upload(np.asarray(chunk, np.int64))
+            w_valid = self._w_valid[:len(chunk)]
             with self.timer.span("fire"):
                 wc = wk.window_counts(self.state.counts, end_t, w_valid, lo,
                                       hi, ppw)
@@ -770,7 +739,7 @@ class WindowOperator:
         if self._used_pushed != nk or self._used_dev is None:
             used = np.zeros(self.layout.rows, dtype=bool)
             used[:self.layout.slots] = self.directory.used_mask()
-            self._used_dev = small_upload(used, self.device)
+            self._used_dev = self._stage.upload(used)
             self._used_pushed = nk
         return self._used_dev
 
@@ -786,8 +755,8 @@ class WindowOperator:
             "count": np.zeros(0, np.int32),
         })
 
-    # -- device-made ingest (devgen_step) -----------------------------------
-    # how many dispatched steps' stats may wait before an advance blocks
+    # -- device-made ingest -------------------------------------------------
+    # how many dispatched batches' stats may wait before an advance blocks
     # on the oldest; miss repair stays well inside the pane ring's life
     DEVSTATS_MAX_LAG = 2
 
@@ -823,8 +792,8 @@ class WindowOperator:
     def process_batch_device(self, batch_index: int) -> bool:
         """Accept one device-made batch: check the gates, grow the ring
         from the source's exact ts bounds, and stash the index for the
-        next advance's step. False when a gate closed (the ring outgrew
-        the header's 64 clear bits, the re-fire span outgrew the bitmap,
+        next advance. False when a gate closed (the ring outgrew the
+        reference's 64 clear bits, the re-fire span outgrew the bitmap,
         or the whole batch is late); the caller then feeds this batch
         from the host."""
         spec = self._devgen_spec
@@ -854,7 +823,7 @@ class WindowOperator:
             self._grow_ring(new_max - max(dead, new_min) + 1,
                             prev_min, prev_max)
             if self.plan.ring > 64:
-                return False  # outgrew the clear words: host path
+                return False  # outgrew the clear bits: host path
         self._min_pane_seen = new_min
         self._max_pane_seen = new_max
         # the stats can be non-zero only with an unproven key bound
@@ -868,17 +837,24 @@ class WindowOperator:
         self._throttle()
         return True
 
-    def _dispatch_devgen(self, hdr: np.ndarray, batch_index: int, dead: int,
-                         need_stats: bool) -> None:
+    def _flush_devgen(self) -> None:
+        """Make a stashed device-made batch on the card and fold it in
+        (``devgen_ingest``). An advance calls this before its fires;
+        so does every other consumer of up-to-date state (snapshots,
+        quiesce, ring growth)."""
+        if self._stash_devgen is None:
+            return
+        batch_index, dead, refire_below, need_stats = self._stash_devgen
+        self._stash_devgen = None
         spec = self._devgen_spec
-        stats = devgen_step(
-            self.state.counts, self._ensure_ring(), hdr,
-            self._used_mask_device(), gen=spec.device_keys_ts,
-            key_domain=int(spec.key_domain),
-            panes_per_window=self.plan.panes_per_window,
-            sel_cap=self._topn_cap(), topn=self._topn[1],
-            dump_row=self.layout.slots, pane_ms=self.plan.pane_ms,
-            offset_ms=self.plan.offset_ms, span=self.timer.span)
+        with self.timer.span("gen"):
+            keys, ts = spec.device_keys_ts(batch_index, self.device)
+        with self.timer.span("ingest"):
+            stats = dk.devgen_ingest(
+                self.state.counts, keys, ts, key_domain=int(spec.key_domain),
+                pane_ms=self.plan.pane_ms, offset_ms=self.plan.offset_ms,
+                dead_below=dead, refire_below=refire_below,
+                dump_row=self.layout.slots, with_stats=need_stats)
         if need_stats:
             if self.device.type == "cpu":
                 self._devstats_pending.append((batch_index, dead, stats, None))
@@ -890,94 +866,6 @@ class WindowOperator:
                 ev.record()
                 self._devstats_pending.append((batch_index, dead, host, ev))
         self._note_dispatch()
-
-    def _devgen_header(self, batch_index: int, dead: int,
-                       refire_below: int) -> np.ndarray:
-        hdr = np.zeros(FUSED_HDR, np.int32)
-        hdr[DEVGEN_HDR_OFF:DEVGEN_HDR_OFF + 6] = np.array(
-            [batch_index, dead, refire_below], np.int64).view(np.int32)
-        return hdr
-
-    def _advance_fused_devgen(self, wm: int,
-                              ends: List[int]) -> Optional["FiredWindows"]:
-        """One step over the stashed batch: make + ingest + fire + purge.
-        None when the fire list overflows the header's window slots."""
-        batch_index, dead, refire_below, need_stats = self._stash_devgen
-        hdr = self._devgen_header(batch_index, dead, refire_below)
-        filled = self._fused_fill_header(wm, ends, hdr)
-        if filled is None:
-            return None
-        ends_f, cleared_after = filled
-        self._stash_devgen = None
-        self._dispatch_devgen(hdr, batch_index, dead, need_stats)
-        self._cleared_below = cleared_after
-        return self._ring_after_fire(len(ends_f))
-
-    def _flush_devgen(self) -> None:
-        """Dispatch a stashed device-made batch as a step without fires
-        or purge — every consumer of up-to-date state calls this
-        (snapshots, quiesce, ring growth, the chunked advance)."""
-        if self._stash_devgen is None:
-            return
-        batch_index, dead, refire_below, need_stats = self._stash_devgen
-        self._stash_devgen = None
-        lo = (self._cleared_below if self._min_pane_seen is None
-              else max(self._cleared_below, self._min_pane_seen))
-        if self._ring_anchor is None:
-            self._ring_anchor = lo
-        hi_v = (self._max_pane_seen if self._max_pane_seen is not None
-                else lo - 1)
-        hdr = self._devgen_header(batch_index, dead, refire_below)
-        hdr[:6] = np.array([lo, hi_v, self._ring_anchor],
-                           np.int64).view(np.int32)
-        hdr[8:8 + MIN_FIRE_PAD] = _DELTA_SENTINEL
-        self._dispatch_devgen(hdr, batch_index, dead, need_stats)
-
-    def _fused_fill_header(self, wm: int, ends: List[int],
-                           buf: np.ndarray) -> Optional[Tuple[List[int], int]]:
-        """Fill the header's pane bounds, ring anchor, clear words and
-        window-end deltas in place (the reference's rule, word for
-        word). Returns (fired ends, cleared_below after the purge), or
-        None when more than MIN_FIRE_PAD ends would fire."""
-        ppw = self.plan.panes_per_window
-        if self._max_pane_seen is None:
-            ends_f: List[int] = []
-            lo = self._cleared_below
-        else:
-            lo = max(self._cleared_below, self._min_pane_seen)
-            hi = self._max_pane_seen
-            ends_f = [e for e in ends if e > lo and e - ppw <= hi]
-        if len(ends_f) > MIN_FIRE_PAD:
-            return None
-        ring = self.plan.ring
-        new_dead = self.plan.first_dead_pane(wm)
-        clear_word = 0
-        cleared_after = self._cleared_below
-        if new_dead > self._cleared_below:
-            clo = self._cleared_below
-            if self._min_pane_seen is not None:
-                clo = max(clo, self._min_pane_seen)
-            else:
-                clo = new_dead
-            if new_dead > clo:
-                if new_dead - clo >= ring:
-                    clear_word = (1 << ring) - 1
-                else:
-                    for p in range(clo, new_dead):
-                        clear_word |= 1 << (p % ring)
-            cleared_after = new_dead
-        if self._ring_anchor is None:
-            self._ring_anchor = lo
-        hi_v = self._max_pane_seen if self._max_pane_seen is not None else lo - 1
-        buf[:6] = np.array([lo, hi_v, self._ring_anchor],
-                           np.int64).view(np.int32)
-        cw = np.array([clear_word], np.uint64).view(np.int32)
-        buf[7], buf[6] = cw[0], cw[1]
-        deltas = np.full(MIN_FIRE_PAD, _DELTA_SENTINEL, np.int64)
-        if ends_f:
-            deltas[:len(ends_f)] = np.asarray(ends_f, np.int64) - lo
-        buf[8:8 + MIN_FIRE_PAD] = deltas.astype(np.int32)
-        return ends_f, cleared_after
 
     def _reconcile_devstats(self, force: bool = True) -> None:
         """Fold dispatched steps' stats into host accounting: late

@@ -200,8 +200,9 @@ class KeyDirectory:
 
     def register_dense(self, n: int) -> None:
         """Pre-register keys [0, n) with slot == key: the device-made
-        ingest's contract (``ops/window.py`` ``devgen_step``), where slot
-        must be a pure function of key on the device. It bypasses hash
+        ingest's contract (``kernels/devgen_kernels.py``
+        ``devgen_ingest``), where slot must be a pure function of key
+        on the device. It bypasses hash
         sharding, so it needs an empty directory; it claims the dense
         region from every shard's free pointer, so later keys outside
         [0, n) allocate normally from what each shard has left."""

@@ -269,6 +269,53 @@ def test_devgen_ingest(dev, late):
         assert int(stats[8:].sum()) == 3
 
 
+def test_devgen_ingest_without_stats(dev):
+    """The headline form (no stats vector): the same counts as the plain
+    version and as the form with stats."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    keys, ts = dk.nexmark_bids(3, 0, 1 << 20, 1 << 22, 100, 4, 100, 10_000,
+                               dev)
+    kw = dict(key_domain=10_000, pane_ms=1000, offset_ms=0,
+              dead_below=int(ts.min()) // 1000, refire_below=-(2 ** 63),
+              dump_row=32768)
+    with_stats, _ = _ingest_both(dev, keys, ts, **kw)
+    a = torch.zeros_like(with_stats)
+    b = torch.zeros_like(with_stats)
+    assert dk.devgen_ingest(a, keys, ts, with_stats=False, **kw) is None
+    assert dk.devgen_ingest_plain(
+        b, keys, ts, kw["key_domain"], kw["pane_ms"], kw["offset_ms"],
+        kw["dead_below"], kw["refire_below"], kw["dump_row"], None) is None
+    assert torch.equal(a, b) and torch.equal(a, with_stats)
+
+
+def test_pinned_stage_round_trips(dev):
+    """More uploads than slots, while the stream is busy, of every dtype
+    the operator stages and of an array past the slot size: each lands
+    intact."""
+    from flink_tpu_torch.ops.window import PinnedStage
+
+    stage = PinnedStage(dev)
+    rng = np.random.default_rng(3)
+    busy = torch.randn(4096, 4096, device=dev)
+    sent, got = [], []
+    for i in range(3 * PinnedStage.SLOTS):
+        busy = busy @ busy / 64  # keep the stream behind the host
+        for arr in (rng.integers(-2 ** 40, 2 ** 40, 1 + i % 64),
+                    rng.random(64 + i) < 0.5,
+                    rng.integers(0, 2 ** 30, 700, dtype=np.int64)
+                    .astype(np.int32)):
+            sent.append(arr.copy())
+            got.append(stage.upload(arr))
+            arr[:] = 0  # the caller may reuse its array at once
+    sent.append(np.arange(PinnedStage.SLOT_BYTES, dtype=np.int64))
+    got.append(stage.upload(sent[-1]))
+    torch.cuda.synchronize()
+    for a, t in zip(sent, got):
+        assert t.device.type == "cuda"
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
 def test_devgen_ingest_error_word(dev):
     """A dump row outside the state: the invalid records are not written
     and the error word reports it."""

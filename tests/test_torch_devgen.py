@@ -1,8 +1,7 @@
 """The port's device-made Q5 path (bids made on the card) against the JAX
 package's, on the CPU: the bid generator bit for bit, the ingest step's
-pane counts and stats vector, the fused-step header word for word, the
-operator's fired rows and state, and ``env.execute()`` at 1, 2 and 4
-sub-batches — integers all, so every comparison is exact. Here the
+pane counts and stats vector, the operator's fired rows and state, and
+``env.execute()`` at 1, 2 and 4 sub-batches — integers all, so every comparison is exact. Here the
 kernel wrappers take their plain PyTorch versions (the tensors lie on
 the CPU); tests/test_torch_cuda.py holds the kernels to the same plain
 versions on the card.
@@ -211,16 +210,13 @@ class PortOddGen:
         return keys, ids // self.events_per_ms + self._shift(batch_index)
 
 
-def step_header(batch_index, dead, refire_below, lo=0, hi=-1, anchor=0,
-                ends=(), clear=0):
-    hdr = np.zeros(pw.FUSED_HDR, np.int32)
-    hdr[:6] = np.array([lo, hi, anchor], np.int64).view(np.int32)
-    cw = np.array([clear], np.uint64).view(np.int32)
-    hdr[7], hdr[6] = cw[0], cw[1]
-    deltas = np.full(pw.MIN_FIRE_PAD, pw._DELTA_SENTINEL, np.int64)
-    deltas[:len(ends)] = np.asarray(ends, np.int64) - lo
-    hdr[8:8 + pw.MIN_FIRE_PAD] = deltas.astype(np.int32)
-    hdr[pw.DEVGEN_HDR_OFF:pw.DEVGEN_HDR_OFF + 6] = np.array(
+def step_header(batch_index, dead, refire_below):
+    """The reference's step header with no window to fire and an empty
+    clear mask: its step is then the ingest alone."""
+    hdr = np.zeros(jw.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([0, -1, 0], np.int64).view(np.int32)
+    hdr[8:8 + jw.MIN_FIRE_PAD] = jw._DELTA_SENTINEL
+    hdr[jw.DEVGEN_HDR_OFF:jw.DEVGEN_HDR_OFF + 6] = np.array(
         [batch_index, dead, refire_below], np.int64).view(np.int32)
     return hdr
 
@@ -233,38 +229,38 @@ STEP_CASES = {
     "late": dict(batch=5, dead=22, refire_below=INT64_MIN),
     "refire": dict(batch=5, dead=18, refire_below=23),
     "out_of_domain": dict(batch=5, dead=21, refire_below=22, odd=True),
-    "fires_and_clear": dict(batch=5, dead=10, refire_below=INT64_MIN,
-                            lo=14, hi=24, anchor=12, ends=(20, 21, 22),
-                            clear=(1 << 14) | (1 << 15)),
 }
+
+
+def step_generators(case, epm=1, domain=400):
+    """(JAX generator, port generator, batch, dead, refire_below)."""
+    c = dict(STEP_CASES[case])
+    if c.get("odd"):
+        return (JaxOddGen(4096, epm, domain), PortOddGen(4096, epm, domain),
+                c["batch"], c["dead"], c["refire_below"])
+    cfg = dict(CFG, events_per_ms=epm, num_active_auctions=domain)
+    jgen_fn, pgen_fn = (s.device_keys_ts for s in both_sources(cfg))
+    return jgen_fn, pgen_fn, c["batch"], c["dead"], c["refire_below"]
 
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
 def test_devgen_step_matches_jit_devgen_step(case):
-    """Counts on every row (the dump row too) and the whole stats vector
-    equal; with fires in the header, the emit ring too (all but its last
-    row, which the reference's padded selection scribbles on)."""
-    c = dict(STEP_CASES[case])
-    odd = c.pop("odd", False)
-    batch, dead, refire_below = c.pop("batch"), c.pop("dead"), c.pop("refire_below")
-    bs, epm, domain, ring, ppw = 4096, 1, 400, 16, 10
+    """The port's make + ingest (the source's ``device_keys_ts``, then
+    ``devgen_ingest``) against the reference's step with nothing to fire
+    or clear: counts on every row (the dump row too) and the whole stats
+    vector equal, the emit ring's head words 3 and 5 at 0 in both."""
+    jgen_fn, pgen_fn, batch, dead, refire_below = step_generators(case)
+    domain, ring, ppw = 400, 16, 10
     slots = 1024
     rows = slots + 1
-    if odd:
-        jgen_fn = JaxOddGen(bs, epm, domain)
-        pgen_fn = PortOddGen(bs, epm, domain)
-    else:
-        cfg = dict(CFG, events_per_ms=epm, num_active_auctions=domain)
-        jgen_fn, pgen_fn = (s.device_keys_ts for s in both_sources(cfg))
-    hdr = step_header(batch, dead, refire_below, **c)
+    hdr = step_header(batch, dead, refire_below)
     rng = np.random.default_rng(len(case))
     used = np.zeros(rows, bool)
     used[:domain] = True
+    # live columns for panes 14..19 before the batch (ring invariant)
     counts0 = np.zeros((rows, ring), np.int32)
-    if c:
-        # live columns for panes 14..19 before the batch (ring invariant)
-        for p in range(14, 20):
-            counts0[:domain, p % ring] = rng.integers(0, 40, domain)
+    for p in range(14, 20):
+        counts0[:domain, p % ring] = rng.integers(0, 40, domain)
     st, ring_j, stats_j = jw._JIT_DEVGEN_STEP(
         JaxPaneState(None, None, None, jnp.asarray(counts0)),
         jnp.zeros((2050, 3), jnp.int32), jnp.asarray(hdr), jnp.asarray(used),
@@ -272,65 +268,35 @@ def test_devgen_step_matches_jit_devgen_step(case):
         panes_per_window=ppw, ring=ring, sel_cap=256, by="count", topn=1,
         dump_row=slots, pane_ms=1000, offset_ms=0, fire_gate=True)
     counts = torch.from_numpy(counts0.copy())
-    emit = torch.zeros((2050, 3), dtype=torch.int32)
-    stats = pw.devgen_step(
-        counts, emit, hdr, torch.from_numpy(used), gen=pgen_fn,
-        key_domain=domain, panes_per_window=ppw, sel_cap=256, topn=1,
-        dump_row=slots, pane_ms=1000, offset_ms=0)
+    keys, ts = pgen_fn(batch, torch.device("cpu"))
+    stats = dk.devgen_ingest(
+        counts, keys, ts, key_domain=domain, pane_ms=1000, offset_ms=0,
+        dead_below=dead, refire_below=refire_below, dump_row=slots)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(st.counts))
     np.testing.assert_array_equal(stats.numpy(), np.asarray(stats_j))
-    np.testing.assert_array_equal(emit.numpy()[:-1], np.asarray(ring_j)[:-1])
     head = stats.numpy()[:8]
+    assert head[3] == head[5] == 0
     if case in ("late", "out_of_domain"):
         assert head[1] > 0
     if case in ("refire", "out_of_domain"):
         assert head[4] > 0 and stats.numpy()[8:].sum() > 0
-    if odd:
+    if case == "out_of_domain":
         assert head[2] > 0 and counts.numpy()[slots].sum() == head[1] + head[2]
-    if c:
-        assert emit.numpy()[0, 0] >= 3
 
 
-# -- (c) the fused-step header, word for word -------------------------------
-
-HEADER_CASES = {
-    # ring, cleared_below, min_pane, max_pane, anchor, wm, ends
-    "ring16_clear_one": (16, 5, 3, 14, None, 14_999, [11, 12, 13, 14, 15]),
-    "ring32_clear_wraps": (32, 5, 3, 30, 3, 30_999, list(range(8, 32))),
-    "ring64_high_bits": (64, 40, 2, 100, 33, 95_999, list(range(41, 101))),
-    "ring64_clear_all": (64, 0, 0, 200, 0, 199_999, [150, 160]),
-    "too_many_ends": (64, 0, 0, 200, 0, 99_999, list(range(20, 100))),
-    "nothing_seen": (16, -7, None, None, None, 3_999, [2, 3]),
-}
-
-
-@pytest.mark.parametrize("case", sorted(HEADER_CASES))
-def test_fused_fill_header_matches_the_reference(case):
-    ring, cleared, mn, mx, anchor, wm, ends = HEADER_CASES[case]
-    kw = dict(num_shards=8, slots_per_shard=64, top_n=("count", 1))
-    ref = jw.WindowOperator(JaxSliding.of(10_000, 1_000), jax_count(), **kw)
-    port = pw.WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000),
-                             count(), device="cpu", **kw)
-    bufs, outs = [], []
-    for op in (ref, port):
-        op.plan = dataclasses.replace(op.plan, ring=ring)
-        op._cleared_below, op._min_pane_seen, op._max_pane_seen = cleared, mn, mx
-        op._ring_anchor = anchor
-        buf = np.zeros(pw.FUSED_HDR, np.int32)
-        outs.append(op._fused_fill_header(wm, list(ends), buf))
-        bufs.append(buf)
-    np.testing.assert_array_equal(bufs[1], bufs[0])
-    assert outs[1] == outs[0]
-    assert port._ring_anchor == ref._ring_anchor
-    if case == "ring64_high_bits":
-        assert bufs[1][6] != 0 and bufs[1][7] != 0
-        lo, hi, anc, got_ends, mask = pw.decode_header(bufs[1])
-        assert (lo, hi, anc) == (40, 100, 33) and got_ends == ends
-        assert mask == sum(1 << (p % 64) for p in range(40, 87))
-    if case == "ring64_clear_all":
-        assert pw.decode_header(bufs[1])[4] == (1 << 64) - 1
-    if case == "too_many_ends":
-        assert outs[1] is None
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_devgen_ingest_without_stats_folds_the_same_counts(case):
+    """``with_stats=False`` (a batch that cannot be late, re-fire or
+    miss) writes the same pane counts and returns no stats vector."""
+    _, pgen_fn, batch, dead, refire_below = step_generators(case)
+    keys, ts = pgen_fn(batch, torch.device("cpu"))
+    kw = dict(key_domain=400, pane_ms=1000, offset_ms=0, dead_below=dead,
+              refire_below=refire_below, dump_row=1024)
+    a = torch.zeros((1025, 16), dtype=torch.int32)
+    b = a.clone()
+    assert dk.devgen_ingest(a, keys, ts, **kw) is not None
+    assert dk.devgen_ingest(b, keys, ts, with_stats=False, **kw) is None
+    assert torch.equal(a, b) and int(a.sum()) == len(keys)
 
 
 # -- (d) the operator, both packages attached to one stream -----------------
@@ -375,8 +341,8 @@ def drive_devgen(ref, port, srcs, batches, advance_after, ooo=1_000):
 def test_operator_rows_and_state_match_the_reference():
     """Six 8.2 s batches; advances after batches 0 and 1, then none until
     batch 5, whose step fires ~33 windows at once (more than the
-    host-fed path's chunk of 16) and clears ring columns in both header
-    words, after the ring grew 16 -> 32 -> 64 columns (each growth
+    host-fed path's chunk of 16) and purges ring columns on both sides
+    of column 32, after the ring grew 16 -> 32 -> 64 columns (each growth
     flushing a stashed batch first)."""
     cfg = dict(CFG, batch_size=8192, events_per_ms=1)
     srcs = both_sources(cfg)
@@ -386,6 +352,58 @@ def test_operator_rows_and_state_match_the_reference():
     fired = drive_devgen(ref, port, srcs, range(6), {0, 1, 5})
     assert max(len({r[2] for r in f}) for f in fired) > 16
     assert port.plan.ring == 64
+
+
+@needs_native
+@pytest.mark.parametrize("n_ends", [pw.MIN_FIRE_PAD, pw.MIN_FIRE_PAD + 1])
+def test_one_fire_pair_holds_up_to_min_fire_pad_ends(n_ends, monkeypatch):
+    """One stashed batch spanning n_ends - 9 one-second panes, then the
+    final advance: its n_ends windows fire in one window_counts +
+    topn_select_append pair up to MIN_FIRE_PAD ends, in chunks of
+    MAX_FIRE_CHUNK_RING above it; rows equal the reference's in order
+    either way."""
+    cfg = dict(CFG, batch_size=(n_ends - 9) * 1000, n_batches=1,
+               events_per_ms=1)
+    srcs = both_sources(cfg)
+    ref, port = make_ops()
+    assert ref.attach_device_source(srcs[0])
+    assert port.attach_device_source(srcs[1])
+    assert ref.process_batch_device(0) and port.process_batch_device(0)
+    pairs = []
+    real = pw.wk.window_counts
+    monkeypatch.setattr(pw.wk, "window_counts",
+                        lambda c, e, *a: pairs.append(len(e)) or real(c, e, *a))
+    wm = port.final_watermark()
+    assert wm == ref.final_watermark()
+    b = rows_of(port.advance_watermark(wm))
+    a = rows_of(ref.advance_watermark(wm))
+    assert b == a
+    assert len({r[2] for r in b}) == n_ends == sum(pairs)
+    if n_ends <= pw.MIN_FIRE_PAD:
+        assert pairs == [n_ends]
+    else:
+        assert max(pairs) == pw.MAX_FIRE_CHUNK_RING
+
+
+@pytest.mark.parametrize("dead_shift,queued", [(0, False), (1, True)])
+def test_stats_come_back_only_when_a_batch_can_be_late(dead_shift, queued):
+    """A batch of the bounded Nexmark domain wholly above the purge and
+    fire frontiers makes no stats vector; one reaching below the purge
+    frontier queues its stats for reconciliation."""
+    src = pgen.bid_stream_device(pgen.NexmarkConfig(**CFG))
+    _, port = make_ops()
+    assert port.attach_device_source(src)
+    assert port.process_batch_device(0)
+    port.advance_watermark(src.ts_bounds(0)[1] - 1_001)
+    port.quiesce()
+    lo = (src.ts_bounds(1)[0]) // 1000
+    port._cleared_below = lo + dead_shift
+    port._fired_below_end = lo + dead_shift
+    assert port.process_batch_device(1)
+    port._flush_devgen()
+    assert len(port._devstats_pending) == int(queued)
+    port.quiesce()
+    assert (port.late_records > 0) == queued
 
 
 # -- (e) Q5 through env.execute() at K = 1, 2, 4 ----------------------------
