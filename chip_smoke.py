@@ -12,17 +12,24 @@ Phases, one JSON line each:
    (one process per source, started together) into
    ``flink_tpu_torch/_build/``.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
-   card, exactly (all are integer work), then its time (CUDA events,
-   warmed, many launches), the plain version's time, the time of one
-   PyTorch library call computing the same function where there is
-   one, and the least time the card could take (bytes over 3.35 TB/s
-   or operations over 67 T/s, whichever is larger). The four window
+   card (integers and max/min exactly, and sums where both add in one
+   fixed order; the plain ``scatter_lanes`` adds with atomics, so its
+   sums are held to the bound of another order), then its time (CUDA
+   events, warmed, many launches), the plain version's time, the time of
+   one PyTorch library call computing the same function where there is
+   one, and the least time the card could take (bytes over 3.35 TB/s or
+   operations over 67 T/s, whichever is larger). The four window
    kernels at the host-fed Q5 shapes (128 x 256 key slots + 1 dump row,
    a 32-column pane ring, 11 windows of 10 panes, ~110k host-combined
    pairs); ``nexmark_bids`` and ``devgen_ingest`` at the headline shapes
    (a 2^20-bid sub-batch, 32,769 x 64 state, 10,000 auctions, hot ratio
    4), plus a ``devgen_ingest`` case with out-of-domain and late
-   records that compares the stats vector and re-fire bitmap too.
+   records that compares the stats vector and re-fire bitmap too; the
+   lane kernels at this slice's shapes: ``fire_pack`` on WordCount
+   state (65,537 x 16, 4-window chunks, ~28k words per window) and on
+   bid-aggregate state (32,769 x 32 x 1 sum + 1 max + 1 min lane),
+   ``scatter_lanes`` on a 2^20-bid batch, ``scatter_pair_lanes`` on its
+   ~110k host-combined pairs, ``ring_columns`` over an f32 lane.
 3. ``q5``      — Nexmark Q5 hot items, host-fed, through the port's
    ``StreamExecutionEnvironment.execute()`` at the conf of
    ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids.
@@ -33,13 +40,24 @@ Phases, one JSON line each:
    full; the median run's numbers are printed beside every run's rate.
    Then 4 logical batches at 1 and at 4 sub-batches (the first with a
    64-column pane ring), whose rows must agree window by window.
+5. ``wordcount`` — BASELINE.json config #0 (``bench.py:441-478``) at
+   ``confs/bench_wordcount.conf``: 2^20-word batches, 128 x 512 slots,
+   a 1 s tumbling count fired through ``fire_pack``. One warm-up run of
+   4 batches, then three timed runs of 24 batches, each checked in full
+   against a numpy golden of per-(word, window) counts.
+6. ``bid_aggs`` — on the host-fed Q5 bids and conf, keyed by auction,
+   sliding 10 s / 1 s: job (a) count + sum + max + min of price (per
+   record, ``scatter_lanes``) and job (b) count + avg (host-combined,
+   ``scatter_pair_lanes``), 16 batches of 2^20 bids each, checked
+   against a numpy golden: counts, max and min exactly, sums and avgs
+   within ``agg_rel_bound``.
 
-In the two Q5 phases every kernel's launch counter is zeroed just
+In the pipeline phases every kernel's launch counter is zeroed just
 before the run and read just after; each kernel of the path must have
-launched, the committed rows must equal a numpy golden of
-per-(auction, window) counts and each window's max set, and the phase
-prints events/s and the device's idle share (CUDA events around each
-launch group).
+launched, the committed rows must equal the phase's numpy golden, and
+the phase prints events/s and the device's idle share (CUDA events
+around each launch group; a ``torch.profiler`` run beside gives kernel
+time by name).
 
 Then the card's name and power limit (nvidia-smi), the kernel table as
 one JSON object, and last ``{"ok": true, "device": {...}}``. Any
@@ -65,15 +83,38 @@ DEVGEN_SUB = 4
 DEVGEN_K_BATCHES = 4            # the K = 1 / K = 4 comparison
 DEVGEN_RUNS = 5                 # timed headline runs, after one warm-up
 SEED = 20261017
-KERNEL_SOURCES = ("window_kernels", "devgen_kernels")
+WC_BATCH = 1 << 20              # confs/bench_wordcount.conf
+WC_BATCHES = 24                 # bench.py:737-738: warm-up 4, timed 24
+WC_WARMUP_BATCHES = 4
+WC_RUNS = 3
+WC_VOCAB = 30_000
+AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
+KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels")
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
+    "scatter_counts": ("scatter_counts_kernel",),
     "window_counts": ("window_counts_kernel",),
     "topn_select_append": ("topn_threshold_kernel", "topn_count_kernel",
                            "topn_write_kernel"),
-    "ring_columns": ("ring_columns_kernel",),
+    "ring_columns": ("ring_columns_kernel", "ring_columns_f32_kernel"),
     "nexmark_bids": ("nexmark_bids_kernel",),
     "devgen_ingest": ("devgen_ingest_kernel",),
+    "fire_pack": ("fire_count_kernel", "fire_write_kernel"),
+    "scatter_lanes": ("lanes_prep_kernel", "radix_upsweep_kernel",
+                      "scan_chunk_sums_kernel", "scan_chunks_kernel",
+                      "scan_apply_kernel", "radix_downsweep_kernel",
+                      "lanes_gather_kernel", "lanes_heads_kernel",
+                      "lanes_fold_kernel"),
+    "scatter_pair_lanes": ("pair_lanes_kernel",),
+}
+# the CUDA kernels of which one wrapper call launches exactly one: the
+# profile's count of wrapper calls (scatter_lanes runs its radix passes
+# several times a call)
+CALL_KERNELS = {
+    "topn_select_append": ("topn_threshold_kernel",),
+    "ring_columns": ("ring_columns_kernel", "ring_columns_f32_kernel"),
+    "fire_pack": ("fire_count_kernel",),
+    "scatter_lanes": ("lanes_prep_kernel",),
 }
 
 
@@ -195,12 +236,30 @@ def phase_kernels(torch, np):
              for e, ok in zip(ends.tolist(), w_valid.tolist()) if ok]
     live = sum(len(sp) for sp in spans)
     live_cols = len({p % ring for sp in spans for p in sp})
+    # the library yardstick: one f32 matmul of the counts by the (ring, W)
+    # column mask, TF32 off; exact while every window count is below 2^24
+    colmask = torch.zeros((ring, W), dtype=torch.float32, device=dev)
+    for w, sp in enumerate(spans):
+        colmask[[p % ring for p in sp], w] = 1.0
+    check(int(wc.max()) < 2 ** 24, "window counts beyond f32's exact range")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a_f = a.float()
+        mm = a_f @ colmask
+        torch.cuda.synchronize()
+        check(torch.equal(mm.to(torch.int32), wc),
+              "the matmul yardstick differs from window_counts")
+        lib_ms = time_ms(torch, lambda: a_f @ colmask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     record("window_counts", "flink_tpu/ops/window.py:286", err,
            time_ms(torch, lambda: wk.window_counts(a, ends, w_valid, pane_lo,
                                                    pane_hi, ppw)),
            time_ms(torch, lambda: wk.window_counts_plain(a, ends, w_valid,
                                                          pane_lo, pane_hi, ppw)),
-           None, rows * live_cols * 4 + rows * W * 4 + W * 9, rows * live)
+           lib_ms, rows * live_cols * 4 + rows * W * 4 + W * 9, rows * live)
+    out[-1]["library_call"] = "counts.float() @ colmask (TF32 off)"
 
     # K3: topn_select_append
     r1, r2 = emit_ring.clone(), emit_ring.clone()
@@ -252,6 +311,8 @@ def phase_kernels(torch, np):
            rows * n_cleared * 4 + ring * 5, 0)
     wk.check_errors(dev)
     extra = devgen_kernel_cases(torch, np, dev, record)
+    wk.check_errors(dev)
+    extra.update(lane_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
@@ -344,6 +405,250 @@ def devgen_kernel_cases(torch, np, dev, record):
            time_ms(torch, lambda: scratch.view(-1).index_add_(0, flat, ones)),
            16 * n + 8 * n_cells, 15 * n, source="devgen_kernels.cu")
     return {"devgen_ingest_distinct_cells": n_cells}
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal tensors, NaN-aware, signed zeros distinct."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+    return bool(torch.equal(a, b))
+
+
+def lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, widths, hot=0):
+    """Pane state at a main-path shape: ``keys`` registered rows with
+    Poisson counts (the first ``hot`` of them 26x) and positive lanes in
+    the live panes' columns, identities elsewhere."""
+    sw, mw, nw = widths
+    counts = np.zeros((rows, ring), np.int32)
+    sums = np.zeros((rows, ring, sw), np.float32)
+    maxs = np.full((rows, ring, mw), -np.inf, np.float32)
+    mins = np.full((rows, ring, nw), np.inf, np.float32)
+    for p in range(pane_lo, pane_hi + 1):
+        c = p % ring
+        counts[keys, c] = rng.poisson(9.5, len(keys))
+        counts[keys[:hot], c] *= 26
+        v = (rng.random((len(keys), max(sw, mw, nw, 1))) * 900 + 50
+             ).astype(np.float32)
+        sums[keys, c] = v[:, :sw] * counts[keys, c][:, None]
+        maxs[keys, c] = v[:, :mw] * 3
+        mins[keys, c] = v[:, :nw] / 3
+    return counts, sums, maxs, mins
+
+
+def lane_kernel_cases(torch, np, dev, record, out):
+    """fire_pack, scatter_lanes, scatter_pair_lanes and the f32-lane
+    ring_columns against their plain versions at this slice's shapes:
+    WordCount state (65,537 x 16 after its first growth, 4-window chunks,
+    ~28k keys) and the bid-aggregate state (32,769 x 32 x (1 sum, 1 max,
+    1 min), 10,000 auctions, 2^20 bids, ~110k host-combined pairs).
+    Integers and max/min exactly; sums too where kernel and plain version
+    add in one fixed order (fire_pack, scatter_pair_lanes), else to the
+    bound of another order."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    rng = np.random.default_rng(SEED + 3)
+    extra = {}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # L1 fire_pack, WordCount shape: count only, packed2, 4 windows of 1
+    # pane; ~28k words fire per window
+    rows, ring, W, ppw, cap = 65_537, 16, 4, 1, 1 << 17
+    pane_lo, pane_hi = 7, 17
+    keys = rng.choice(rows - 1, 30_000, replace=False)
+    counts, _, _, _ = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys,
+                                 (0, 0, 0))
+    counts[keys, :] *= rng.random((len(keys), 1)) < 0.94   # ~28k fire
+    used_np = np.zeros(rows, bool)
+    used_np[keys] = True
+    c_t, used = t(counts), t(used_np)
+    ends = torch.arange(pane_lo + 1, pane_lo + 1 + W, dtype=torch.int64,
+                        device=dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    args = (c_t, None, None, None, ends, valid, used, pane_lo, pane_hi, ppw,
+            cap, True)
+    a_buf, _ = lk.fire_pack(*args)
+    b_buf, _ = lk.fire_pack_plain(*args)
+    torch.cuda.synchronize()
+    n = int(b_buf[0, 0])
+    check(int(a_buf[0, 0]) == n and torch.equal(a_buf[:n + 1], b_buf[:n + 1]),
+          "fire_pack (packed2) differs from its plain version")
+    ms = time_ms(torch, lambda: lk.fire_pack(*args))
+    plain = time_ms(torch, lambda: lk.fire_pack_plain(*args), iters=10)
+    # reads: the count lane's live columns once, the used mask; writes
+    # the head and n 2-column rows
+    record("fire_pack", "flink_tpu/ops/window.py:384", 0, ms, plain, None,
+           rows * W * 4 + rows + W * 9 + (n + 1) * 8, rows * W * (ppw + 2),
+           source="lane_kernels.cu")
+    out[-1]["rows_per_fire"] = n
+    extra["fire_pack_wordcount_rows"] = n
+
+    # L1 fire_pack, bid-aggregate shape: count + sum + max + min lanes,
+    # 4 windows of 10 panes
+    rows, ring, ppw = 32_769, 32, 10
+    pane_lo, pane_hi = 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, (1, 1, 1),
+                    hot=100)
+    used_np = np.zeros(rows, bool)
+    used_np[keys] = True
+    lanes_args = [t(x) for x in st]
+    ends = torch.arange(pane_hi - 2, pane_hi + 2, dtype=torch.int64,
+                        device=dev)
+    cap = 1 << 16
+    args = (*lanes_args, ends, valid, t(used_np), pane_lo, pane_hi, ppw, cap,
+            False)
+    a_buf, a_lanes = lk.fire_pack(*args)
+    b_buf, b_lanes = lk.fire_pack_plain(*args)
+    torch.cuda.synchronize()
+    n = int(b_buf[0, 0])
+    check(int(a_buf[0, 0]) == n and torch.equal(a_buf[:n + 1], b_buf[:n + 1])
+          and same_bits(torch, a_lanes[:n], b_lanes[:n]),
+          "fire_pack (lanes) differs from its plain version")
+    spans = [range(max(e - ppw, pane_lo), min(e - 1, pane_hi) + 1)
+             for e in ends.tolist()]
+    live = sum(len(sp) for sp in spans)
+    live_cols = len({p % ring for sp in spans for p in sp})
+    # reads: the count lane's live columns and the used mask once; each
+    # firing row's sum lane whole (every column times its mask bit) and
+    # its max/min lanes' live columns; writes the head, n rows of 3 and
+    # n rows of lanes
+    b, by = bound_ms(rows * live_cols * 4 + rows
+                     + len(keys) * (ring + 2 * live_cols) * 4
+                     + (n + 1) * 12 + n * 12,
+                     rows * live + n * (ring + 2 * live // W))
+    extra["fire_pack_lanes"] = {
+        "rows": n, "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: lk.fire_pack(*args)),
+        "plain_ms": time_ms(torch, lambda: lk.fire_pack_plain(*args),
+                            iters=10),
+        "bound_ms": b, "bound_by": by, "live_panes": live}
+
+    # L2 scatter_lanes: one 2^20-bid batch of the bid-aggregate job (a)
+    # into its state: 10,000 auctions, hot ratio 4, 100 bids/ms
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=1, events_per_ms=100,
+                        num_active_auctions=10_000, hot_ratio=4)
+    data, ts = bid_batch(cfg, 0, 5)
+    directory = KeyDirectory(128, 256)
+    slots = directory.assign(data["auction"])
+    idx_np = (slots * ring + (ts // 1000) % ring).astype(np.int32)
+    idx = t(idx_np)
+    price = t(data["price"])[:, None].contiguous()
+    state = [t(x) for x in st]
+    runs = []
+    for fn in (lk.scatter_lanes, lk.scatter_lanes, lk.scatter_lanes_plain):
+        s_ = [x.clone() for x in state]
+        fn(*s_, idx, price, price, price)
+        runs.append(s_)
+    torch.cuda.synchronize()
+    check(all(same_bits(torch, x, y) for x, y in zip(runs[0], runs[1])),
+          "scatter_lanes: two runs differ")
+    check(all(same_bits(torch, runs[0][k], runs[2][k]) for k in (0, 2, 3)),
+          "scatter_lanes: counts or max/min differ from the plain version")
+    # sums: the plain index_add_ adds in no fixed order on the card; the
+    # bound of two orders of n_cell + 1 positive terms
+    n_cell = torch.zeros(rows * ring, dtype=torch.float64, device=dev)
+    n_cell.index_add_(0, idx.long(), torch.ones(Q5_BATCH, dtype=torch.float64,
+                                                device=dev))
+    got, want = runs[0][1].reshape(-1).double(), runs[2][1].reshape(-1).double()
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs()
+                <= 2 * (n_cell + 1) * 2.0 ** -24 * want.abs()).all()),
+          f"scatter_lanes sums differ from the plain version by {err}")
+    cells = int(torch.unique(idx).numel())
+    scratch = [x.clone() for x in state]
+    plain_scratch = [x.clone() for x in state]
+    sum_flat = scratch[1].view(-1, 1)
+    max_flat = scratch[2].view(-1)
+    idx_long = idx.long()
+    p1 = price.view(-1)
+    record("scatter_lanes", "flink_tpu/ops/window.py:62", err,
+           time_ms(torch, lambda: lk.scatter_lanes(*scratch, idx, price, price,
+                                                   price)),
+           time_ms(torch, lambda: lk.scatter_lanes_plain(
+               *plain_scratch, idx, price, price, price), iters=10),
+           time_ms(torch, lambda: sum_flat.index_add_(0, idx_long, price)),
+           Q5_BATCH * (4 + 12) + cells * 16 * 2, Q5_BATCH * 4,
+           source="lane_kernels.cu")
+    out[-1]["library_call"] = "index_add_ (the sum lane)"
+    out[-1]["library_amax_ms"] = time_ms(
+        torch, lambda: max_flat.scatter_reduce_(0, idx_long, p1, "amax"))
+    out[-1]["distinct_cells"] = cells
+
+    # L3 scatter_pair_lanes: the same batch host-combined (job (b)'s
+    # upload: one [pair, count, f32 sum] row per distinct cell)
+    from flink_tpu_torch.ops.window import preagg_combine, preagg_encode_i32
+
+    pairs, cnts, lanes = preagg_combine(
+        slots, (ts // 1000) % ring, np.ones(len(ts), bool), ring,
+        {"price": data["price"]}, ("price",))
+    buf = t(preagg_encode_i32(pairs, cnts, lanes))
+    P = buf.shape[0]
+    pstate = [t(st[0]), t(st[1])]
+    a_ = [x.clone() for x in pstate]
+    b_ = [x.clone() for x in pstate]
+    lk.scatter_pair_lanes(*a_, buf)
+    lk.scatter_pair_lanes_plain(*b_, buf)
+    torch.cuda.synchronize()
+    check(same_bits(torch, a_[0], b_[0]) and same_bits(torch, a_[1], b_[1]),
+          "scatter_pair_lanes differs from its plain version")
+    ps = [x.clone() for x in pstate]
+    pp = [x.clone() for x in pstate]
+    pair_long = buf[:, 0].long()
+    pair_sums = buf[:, 2:].contiguous().view(torch.float32)
+    psum_flat = ps[1].view(-1, 1)
+    record("scatter_pair_lanes", "flink_tpu/ops/window.py:205", 0.0,
+           time_ms(torch, lambda: lk.scatter_pair_lanes(*ps, buf)),
+           time_ms(torch, lambda: lk.scatter_pair_lanes_plain(*pp, buf)),
+           time_ms(torch, lambda: psum_flat.index_add_(0, pair_long,
+                                                       pair_sums)),
+           P * 12 + P * 8 * 2, P * 2, source="lane_kernels.cu")
+    out[-1]["library_call"] = "index_add_ (the sum lane)"
+    out[-1]["pairs"] = P
+    extra["scatter_pair_lanes_pairs"] = P
+
+    # K4 over the f32 lanes: the purge of 11 dead columns of each
+    ident = torch.arange(ring, dtype=torch.int32, device=dev)
+    keep_np = np.ones(ring, bool)
+    keep_np[np.arange(pane_lo - 11, pane_lo) % ring] = False
+    keep = t(keep_np)
+    ok = True
+    for lane, fill in zip(state[1:], (0.0, -float("inf"), float("inf"))):
+        x1, x2 = lane.clone(), lane.clone()
+        wk.ring_columns(x1, x1, ident, keep, fill)
+        wk.ring_columns_plain(x2, x2, ident, keep, fill)
+        ok = ok and same_bits(torch, x1, x2)
+    cmap = np.full(64, -1, np.int64)
+    ps_ = np.arange(pane_lo, pane_hi + 1)
+    cmap[ps_ % 64] = ps_ % ring
+    g1 = torch.empty((rows, 64, 1), device=dev)
+    g2 = torch.empty_like(g1)
+    src_col, keep_g = t(np.maximum(cmap, 0).astype(np.int32)), t(cmap >= 0)
+    wk.ring_columns(state[1], g1, src_col, keep_g, 0.0)
+    wk.ring_columns_plain(state[1], g2, src_col, keep_g, 0.0)
+    torch.cuda.synchronize()
+    check(ok and same_bits(torch, g1, g2),
+          "ring_columns (f32 lanes) differs from its plain version")
+    x1 = state[2].clone()
+    n_cleared = int((~keep_np).sum())
+    b, by = bound_ms(rows * n_cleared * 4 + ring * 5, 0)
+    row = next(r for r in out if r["name"] == "ring_columns")
+    row["f32_lanes"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: wk.ring_columns(x1, x1, ident, keep,
+                                                     -float("inf"))),
+        "plain_ms": time_ms(torch, lambda: wk.ring_columns_plain(
+            x1, x1, ident, keep, -float("inf"))),
+        "bound_ms": b, "bound_by": by, "shape": [rows, ring, 1]}
+    return extra
 
 
 def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
@@ -452,20 +757,16 @@ def run_devgen_q5(torch, np, conf, cfg, label):
     return rows, launches, res, wall
 
 
-def profile_devgen(torch, np, conf_path, cfg):
-    """Kernel time by name from ``torch.profiler`` over a devgen Q5 run
-    of ``cfg`` at the headline conf: the device's busy share without the
-    launch gaps that CUDA event spans count as busy. The profiler slows
-    the host, so this run's wall (and idle share) is an upper bound."""
+def profile_run(torch, run):
+    """Kernel time by name from ``torch.profiler`` over ``run()`` (which
+    returns its wall seconds): the device's busy share without the launch
+    gaps that CUDA event spans count as busy. The profiler slows the
+    host, so the run's wall (and idle share) is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
-
-    from flink_tpu_torch.config import Configuration
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = run_devgen_q5(
-            torch, np, Configuration.from_file(conf_path), cfg,
-            "q5-devgen-profiled")
+        wall = run()
     # device-side entries only (kernels, memcpy, memset): a host op such
     # as aten::copy_ also carries its kernels' time, which would count
     # twice
@@ -476,20 +777,37 @@ def profile_devgen(torch, np, conf_path, cfg):
             by_name[e.key] = {"device_ms": us / 1e3, "count": e.count}
     busy_ms = sum(v["device_ms"] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
-    # device ms per wrapper call: its CUDA kernels' total over the calls
-    # (topn_select_append launches three kernels per call)
-    per_call = {}
-    for name, kernels in PROFILED_KERNELS.items():
-        hits = [v for k, v in by_name.items()
-                if any(f"::{kn}(" in k for kn in kernels)]
-        if hits:
-            calls = max(v["count"] for v in hits)
-            per_call[name] = sum(v["device_ms"] for v in hits) / calls
-    return {"logical_batches": cfg.n_batches, "wall_s": wall,
-            "device_busy_ms": busy_ms,
+    return {"wall_s": wall, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
                                   if busy_ms > 0 else "not measured"),
-            "device_ms_per_call": per_call, "top_device_ms": dict(top)}
+            "device_ms_per_call": device_ms_per_call(by_name),
+            "top_device_ms": dict(top)}
+
+
+def profile_devgen(torch, np, conf_path, cfg):
+    """``profile_run`` over a devgen Q5 run of ``cfg`` at the headline
+    conf."""
+    from flink_tpu_torch.config import Configuration
+
+    out = profile_run(torch, lambda: run_devgen_q5(
+        torch, np, Configuration.from_file(conf_path), cfg,
+        "q5-devgen-profiled")[3])
+    return {"logical_batches": cfg.n_batches, **out}
+
+
+def device_ms_per_call(by_name):
+    """Device ms per wrapper call: its CUDA kernels' total over the calls
+    (topn_select_append and fire_pack launch several kernels a call)."""
+    per_call = {}
+    for name, kernels in PROFILED_KERNELS.items():
+        def hits(names):
+            return [v for k, v in by_name.items()
+                    if any(f"::{kn}(" in k or k.startswith(kn + "(")
+                           for kn in names)]
+        calls = sum(v["count"] for v in hits(CALL_KERNELS.get(name, kernels)))
+        if calls:
+            per_call[name] = sum(v["device_ms"] for v in hits(kernels)) / calls
+    return per_call
 
 
 def phase_q5_devgen(torch, np):
@@ -602,6 +920,293 @@ def phase_q5_devgen(torch, np):
     return launches, out["profiled"]["device_ms_per_call"]
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def busy_and_host(res):
+    busy = {k.split(".")[-1]: v for k, v in res.metrics.items()
+            if k.startswith("device_busy_ms.")}
+    host = {k.split(".", 2)[-1]: v for k, v in res.metrics.items()
+            if k.startswith("profile.")}
+    return busy, host
+
+
+def wordcount_source(np, n_batches):
+    """bench.py:441-478's WordCount source: 2^20 word ids a batch,
+    floor(u^2 * 30,000) from default_rng(i), ts = (i * 2^20 + j) // 100."""
+    from flink_tpu_torch.api.sources import GeneratorSource
+
+    def gen(split, i):
+        if i >= n_batches:
+            return None
+        rng = np.random.default_rng(i)
+        u = rng.random(WC_BATCH)
+        words = (u * u * WC_VOCAB).astype(np.int64)
+        ts = (i * WC_BATCH + np.arange(WC_BATCH, dtype=np.int64)) // 100
+        return ({"word": words}, ts)
+    return GeneratorSource(gen), gen
+
+
+def run_wordcount(torch, np, n_batches, label):
+    """WordCount through the port's ``env.execute()`` at
+    confs/bench_wordcount.conf: (rows as (key, window_end, count)
+    arrays, launches, JobResult, wall seconds)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    env = StreamExecutionEnvironment(Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf")))
+    parts = []
+    src, _ = wordcount_source(np, n_batches)
+    (env.from_source(src, WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .key_by("word").window(TumblingEventTimeWindows.of(1000)).count()
+     .add_sink(FnSink(lambda b: parts.append(
+         [np.asarray(b[k]).copy() for k in ("key", "window_end", "count")]))))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [np.concatenate([p[j] for p in parts]) for j in range(3)]
+    return rows, dict(wk.LAUNCHES), res, wall
+
+
+def wordcount_golden(np, n_batches):
+    """Per-(word, 1 s window) counts of the first ``n_batches`` batches,
+    as (key, window_end, count) sorted by (window_end, key)."""
+    _, gen = wordcount_source(np, n_batches)
+    hist = None
+    for i in range(n_batches):
+        words, ts = gen("0", i)
+        cell = (ts // 1000) * WC_VOCAB + words["word"]
+        h = np.bincount(cell, minlength=(int(ts[-1]) // 1000 + 1) * WC_VOCAB)
+        if hist is None:
+            hist = h
+        else:
+            hist = np.pad(hist, (0, len(h) - len(hist))) + h
+    nz = np.flatnonzero(hist)
+    return (nz % WC_VOCAB, (nz // WC_VOCAB + 1) * 1000,
+            hist[nz].astype(np.int32))
+
+
+def check_wordcount(np, rows, golden, label):
+    key, end, cnt = rows
+    order = np.lexsort((key, end))
+    got = (key[order], end[order], cnt[order])
+    check(len(key) == len(golden[0])
+          and all(np.array_equal(g, w) for g, w in zip(got, golden)),
+          f"{label}: rows differ from the golden ({len(key)} rows, "
+          f"{len(golden[0])} expected)")
+
+
+def phase_wordcount(torch, np):
+    """BASELINE.json config #0 at its full shape through ``env.execute()``:
+    one warm-up run of 4 batches, then timed runs of 24 batches of 2^20
+    words, each checked in full against the numpy golden."""
+    from flink_tpu_torch.config import Configuration, PipelineOptions, StateOptions
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf"))
+    check(int(conf.get(PipelineOptions.MICROBATCH_SIZE)) == WC_BATCH
+          and int(conf.get(StateOptions.NUM_KEY_SHARDS)) == 128
+          and int(conf.get(StateOptions.SLOTS_PER_SHARD)) == 512
+          and int(conf.get(PipelineOptions.MAX_INFLIGHT_STEPS)) == 1,
+          "confs/bench_wordcount.conf is not the WordCount shape")
+    rows, _, _, _ = run_wordcount(torch, np, WC_WARMUP_BATCHES, "wc-warmup")
+    check_wordcount(np, rows, wordcount_golden(np, WC_WARMUP_BATCHES),
+                    "wordcount warm-up")
+    runs = []
+    for i in range(WC_RUNS):
+        rows, launches, res, wall = run_wordcount(torch, np, WC_BATCHES,
+                                                  f"wordcount-{i}")
+        missing = [k for k in ("scatter_counts", "fire_pack", "ring_columns")
+                   if launches[k] == 0]
+        check(not missing, f"kernels not launched on WordCount: {missing}")
+        runs.append((wall, rows, launches, res))
+    # the golden's numpy work comes after the timed runs
+    golden = wordcount_golden(np, WC_BATCHES)
+    for i, (_, rows, _, _) in enumerate(runs):
+        check_wordcount(np, rows, golden, f"wordcount run {i}")
+    events = WC_BATCH * WC_BATCHES
+    wall, rows, launches, res = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+    busy, host = busy_and_host(res)
+    prof = profile_run(torch, lambda: run_wordcount(
+        torch, np, WC_WARMUP_BATCHES, "wordcount-profiled")[3])
+    out = {"phase": "wordcount", "conf": "confs/bench_wordcount.conf",
+           "events": events, "batches": WC_BATCHES, "runs": WC_RUNS,
+           "events_per_s_runs": [events / r[0] for r in runs],
+           "events_per_s": events / wall, "wall_s": wall,
+           "rows": len(rows[0]), "windows": int(len(np.unique(rows[1]))),
+           "rows_per_window": len(rows[0]) / len(np.unique(rows[1])),
+           "launches": launches, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+           "host_profile_s": host,
+           "profiled": {"batches": WC_WARMUP_BATCHES, **prof},
+           "card": card_line()}
+    emit(out)
+    return launches, prof["device_ms_per_call"]
+
+
+# the bid-aggregate golden's bound on a sum or avg, relative to the exact
+# (f64) value of positive prices: each f32 add of the ingest (at most two
+# a record: the host combine's rounding and the add into the pane),
+# each of the fire's ring-column adds (at most 32 columns) and the avg's
+# division round once by at most 2^-24 of the running total
+def agg_rel_bound(count):
+    return (2.0 * count + 34.0) * 2.0 ** -24
+
+
+def run_bid_agg(torch, np, which, n_batches, label):
+    """Job (a) multi(count, sum, max, min) or (b) multi(count, avg) of
+    price per auction, sliding 10 s / 1 s, 1 s out-of-orderness, on the
+    Q5 host-fed bids at confs/bench_q5_host_fed.conf: (rows, launches,
+    JobResult, wall)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=n_batches,
+                        events_per_ms=100, num_active_auctions=10_000,
+                        hot_ratio=4)
+    agg = (ta.multi(ta.count(), ta.sum_of("price"), ta.max_of("price"),
+                    ta.min_of("price")) if which == "a"
+           else ta.multi(ta.count(), ta.avg_of("price")))
+    env = StreamExecutionEnvironment(Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf")))
+    parts = []
+    (env.from_source(bid_stream(cfg),
+                     WatermarkStrategy.for_bounded_out_of_orderness(1_000))
+     .key_by("auction").window(SlidingEventTimeWindows.of(10_000, 1_000))
+     .aggregate(agg)
+     .add_sink(FnSink(lambda b: parts.append(
+         {k: np.asarray(v).copy() for k, v in b.items()}))))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return rows, dict(wk.LAUNCHES), res, wall, cfg
+
+
+def bid_golden(np, cfg):
+    """Per-(auction, window end pane) count, f64 sum, max and min of
+    price over sliding 10 s / 1 s windows: (n_auctions, n_ends) arrays,
+    end pane e covering panes [e - 10, e)."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    n_a = cfg.num_active_auctions
+    n_p = (cfg.batch_size * cfg.n_batches - 1) // cfg.events_per_ms // 1000 + 1
+    cnt = np.zeros(n_a * n_p, np.int64)
+    tot = np.zeros(n_a * n_p, np.float64)
+    mx = np.full(n_a * n_p, -np.inf, np.float32)
+    mn = np.full(n_a * n_p, np.inf, np.float32)
+    for i in range(cfg.n_batches):
+        data, ts = bid_batch(cfg, 0, i)
+        cell = data["auction"] * n_p + ts // 1000
+        cnt += np.bincount(cell, minlength=n_a * n_p)
+        tot += np.bincount(cell, weights=data["price"].astype(np.float64),
+                           minlength=n_a * n_p)
+        np.maximum.at(mx, cell, data["price"])
+        np.minimum.at(mn, cell, data["price"])
+    shape = (n_a, n_p)
+    cnt, tot, mx, mn = (x.reshape(shape) for x in (cnt, tot, mx, mn))
+    n_e = n_p + 10
+    out = {"count": np.zeros((n_a, n_e), np.int64),
+           "sum": np.zeros((n_a, n_e)),
+           "max": np.full((n_a, n_e), -np.inf, np.float32),
+           "min": np.full((n_a, n_e), np.inf, np.float32)}
+    for e in range(1, n_e):
+        lo, hi = max(e - 10, 0), min(e, n_p)
+        out["count"][:, e] = cnt[:, lo:hi].sum(axis=1)
+        out["sum"][:, e] = tot[:, lo:hi].sum(axis=1)
+        out["max"][:, e] = mx[:, lo:hi].max(axis=1)
+        out["min"][:, e] = mn[:, lo:hi].min(axis=1)
+    return out
+
+
+def check_bid_agg(np, which, rows, golden, label):
+    a = rows["key"].astype(np.int64)
+    e = rows["window_end"] // 1000
+    check(len(set(zip(a.tolist(), e.tolist()))) == len(a),
+          f"{label}: duplicate (auction, window) rows")
+    check(len(a) == int((golden["count"] > 0).sum()),
+          f"{label}: {len(a)} rows, expected {int((golden['count'] > 0).sum())}")
+    check(np.array_equal(rows["count"], golden["count"][a, e]),
+          f"{label}: counts differ from the golden")
+    cnt = golden["count"][a, e]
+    exact = golden["sum"][a, e]
+    if which == "a":
+        check(np.array_equal(rows["max_price"], golden["max"][a, e])
+              and np.array_equal(rows["min_price"], golden["min"][a, e]),
+              f"{label}: max/min differ from the golden")
+        got, want = rows["sum_price"].astype(np.float64), exact
+    else:
+        got = rows["avg_price"].astype(np.float64)
+        want = exact / np.maximum(cnt, 1)
+    rel = np.abs(got - want) / np.abs(want)
+    check(bool((rel <= agg_rel_bound(cnt)).all()),
+          f"{label}: sums outside the bound (max rel err {float(rel.max())})")
+    return float(rel.max()), float((rel / agg_rel_bound(cnt)).max())
+
+
+def phase_bid_aggs(torch, np):
+    """Jobs (a) and (b) on 16 batches of 2^20 bids (after a 2-batch
+    warm-up each), checked against the numpy golden."""
+    out = {"phase": "bid_aggs", "conf": "confs/bench_q5_host_fed.conf",
+           "events": Q5_BATCH * AGG_BATCHES, "batches": AGG_BATCHES,
+           "rel_bound": "(2 * count + 34) * 2^-24"}
+    launches_by_job, per_call = {}, {}
+    runs = {}
+    for which, path_kernel in (("a", "scatter_lanes"),
+                               ("b", "scatter_pair_lanes")):
+        run_bid_agg(torch, np, which, 2, f"bid-agg-{which}-warmup")
+        rows, launches, res, wall, cfg = run_bid_agg(
+            torch, np, which, AGG_BATCHES, f"bid-agg-{which}")
+        missing = [k for k in (path_kernel, "fire_pack", "ring_columns")
+                   if launches[k] == 0]
+        check(not missing, f"job ({which}): kernels not launched: {missing}")
+        runs[which] = (rows, cfg)
+        busy, host = busy_and_host(res)
+        prof = profile_run(torch, lambda: run_bid_agg(
+            torch, np, which, 4, f"bid-agg-{which}-profiled")[3])
+        for k, v in prof["device_ms_per_call"].items():
+            per_call.setdefault(k, v)
+        launches_by_job[which] = launches
+        out[which] = {"events_per_s": Q5_BATCH * AGG_BATCHES / wall,
+                      "wall_s": wall, "rows": len(rows["key"]),
+                      "windows": int(len(np.unique(rows["window_end"]))),
+                      "launches": launches, "device_busy_ms": busy,
+                      "device_idle_share":
+                          1.0 - sum(busy.values()) / (wall * 1e3),
+                      "host_profile_s": host,
+                      "profiled": {"batches": 4, **prof}}
+    golden = bid_golden(np, runs["a"][1])
+    for which, (rows, _) in runs.items():
+        rel, share = check_bid_agg(np, which, rows, golden, f"job ({which})")
+        out[which]["max_rel_err"] = rel
+        out[which]["max_share_of_bound"] = share
+    out["card"] = card_line()
+    emit(out)
+    return launches_by_job, per_call
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -620,19 +1225,30 @@ def main() -> int:
         table = phase_kernels(torch, np)
         host_fed = phase_q5(torch, np)
         devgen, per_call = phase_q5_devgen(torch, np)
+        wordcount, wc_per_call = phase_wordcount(torch, np)
+        aggs, agg_per_call = phase_bid_aggs(torch, np)
+        paths = {"q5_host_fed": host_fed, "q5_devgen": devgen,
+                 "wordcount": wordcount, "bid_aggs_a": aggs["a"],
+                 "bid_aggs_b": aggs["b"]}
+        # each kernel's count on its own main path: the headline (devgen)
+        # path for the Q5 kernels it runs, else host-fed Q5; fire_pack on
+        # WordCount; the two lane scatters on their bid-aggregate job
+        own_path = {"scatter_counts": "q5_host_fed", "fire_pack": "wordcount",
+                    "scatter_lanes": "bid_aggs_a",
+                    "scatter_pair_lanes": "bid_aggs_b"}
         for row in table:
-            # device time per call inside the profiled devgen run (the
+            name = row["name"]
+            # device time per call inside the profiled pipeline runs (the
             # "ms" above is a launch loop, host-bound for short kernels)
-            row["pipeline_device_ms"] = per_call.get(row["name"])
-            # the headline (devgen) path's count; scatter_counts runs
-            # only on the host-fed path
-            row["launches"] = devgen[row["name"]] or host_fed[row["name"]]
-            row["launches_by_path"] = {"q5_host_fed": host_fed[row["name"]],
-                                       "q5_devgen": devgen[row["name"]]}
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True)
-        print(smi.stdout.strip().splitlines()[0], flush=True)
+            row["pipeline_device_ms"] = (per_call.get(name)
+                                         or wc_per_call.get(name)
+                                         or agg_per_call.get(name))
+            path = own_path.get(name, "q5_devgen")
+            row["launches"] = paths[path][name] or host_fed[name]
+            row["launches_path"] = path
+            row["launches_by_path"] = {p: l[name] for p, l in paths.items()}
+            check(row["launches"] > 0, f"{name} never launched on its path")
+        print(card_line(), flush=True)
     except Exception:
         traceback.print_exc()
         return 1

@@ -1,6 +1,6 @@
 """The fluent DataStream API: each call appends a transformation;
 nothing runs until ``StreamExecutionEnvironment.execute()``. The port
-has the Q5 path: map, key_by, window, count/aggregate, top, add_sink.
+has map, key_by, window, count/sum/max/min/aggregate, top and add_sink.
 Allowed lateness, triggers and the other operators are in ROADMAP.md
 (the window operator itself handles lateness)."""
 from __future__ import annotations
@@ -66,6 +66,21 @@ class WindowedStream:
         from flink_tpu_torch.ops.aggregates import count as count_agg
 
         return self.aggregate(count_agg())
+
+    def sum(self, field: str) -> "WindowedAggregateStream":
+        from flink_tpu_torch.ops.aggregates import sum_of
+
+        return self.aggregate(sum_of(field))
+
+    def max(self, field: str) -> "WindowedAggregateStream":
+        from flink_tpu_torch.ops.aggregates import max_of
+
+        return self.aggregate(max_of(field))
+
+    def min(self, field: str) -> "WindowedAggregateStream":
+        from flink_tpu_torch.ops.aggregates import min_of
+
+        return self.aggregate(min_of(field))
 
     def aggregate(self, agg: LaneAggregate,
                   name: str = "window_agg") -> "WindowedAggregateStream":

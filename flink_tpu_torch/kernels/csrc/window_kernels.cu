@@ -8,11 +8,12 @@
 // upload is reported (the wrapper's error word is read back and raises)
 // rather than hidden.
 //
-// All four kernels work on the int32 COUNT lane of the pane state
-// (rows = key slots + 1 dump row, ring = pane ring columns), the only lane
-// a count() aggregate has. Integer sums are exact in any order, so every
-// result here is bit-identical to the plain PyTorch version beside it and
-// to the JAX reference, atomics or not.
+// K1-K3 work on the int32 COUNT lane of the pane state (rows = key slots
+// + 1 dump row, ring = pane ring columns). Integer sums are exact in any
+// order, so every result here is bit-identical to the plain PyTorch
+// version beside it and to the JAX reference, atomics or not. K4 moves or
+// clears ring columns of the count lane and, in its f32 form, of each
+// (rows, ring, width) sum/max/min lane: pure copies and fills, exact too.
 //
 // K1 scatter_counts       replaces flink_tpu/ops/window.py:190
 //                         _apply_preagg_u32_core (and the count lane of
@@ -22,7 +23,7 @@
 // K3 topn_select_append   replaces flink_tpu/ops/window.py:547
 //                         _ring_append_topn_core + :456 _topn_select_append
 // K4 ring_columns         replaces flink_tpu/ops/window.py:825 clear_kernel
-//                         and :888 ring_remap_kernel
+//                         and :888 ring_remap_kernel (every lane)
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -326,6 +327,34 @@ __global__ void ring_columns_kernel(const int32_t* src, int32_t src_ring, int32_
   }
 }
 
+// K4, f32 form: the same column map over a (rows, ring, width) sum, max
+// or min lane, with that lane's identity (0, -inf, +inf) as the fill.
+// Bound: bytes, as the int form, times the lane width.
+__global__ void ring_columns_f32_kernel(const float* src, int32_t src_ring, float* dst,
+                                        int32_t dst_ring, int64_t rows, int32_t width,
+                                        const int32_t* __restrict__ src_col,
+                                        const uint8_t* __restrict__ keep, float fill,
+                                        int32_t* __restrict__ err) {
+  const int64_t total = rows * (int64_t)dst_ring * width;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const bool in_place = src == dst;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
+    const int64_t cell = t / width;
+    const int32_t l = (int32_t)(t - cell * width);
+    const int64_t r = cell / dst_ring;
+    const int32_t j = (int32_t)(cell - r * dst_ring);
+    const int32_t s = src_col[j];
+    if (!keep[j]) {
+      dst[t] = fill;
+    } else if (s < 0 || s >= src_ring) {
+      dst[t] = fill;
+      if (r == 0 && l == 0) atomicOr(err, kErrRingColumn);
+    } else if (!(in_place && s == j)) {
+      dst[t] = src[(r * src_ring + s) * width + l];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -387,6 +416,17 @@ int fk_ring_columns(const int32_t* src, int32_t src_ring, int32_t* dst, int32_t 
   if (total > 0) {
     ring_columns_kernel<<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
         src, src_ring, dst, dst_ring, rows, src_col, keep, err);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fk_ring_columns_f32(const float* src, int32_t src_ring, float* dst, int32_t dst_ring,
+                        int64_t rows, int32_t width, const int32_t* src_col, const uint8_t* keep,
+                        float fill, int32_t* err, void* stream) {
+  const int64_t total = rows * (int64_t)dst_ring * width;
+  if (total > 0) {
+    ring_columns_f32_kernel<<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+        src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill, err);
   }
   return (int)cudaGetLastError();
 }

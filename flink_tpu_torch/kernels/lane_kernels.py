@@ -1,0 +1,346 @@
+"""The general window aggregates' three device functions: a CUDA kernel
+each (``csrc/lane_kernels.cu``) and a plain PyTorch version each, with
+the same signature.
+
+- ``fire_pack`` (L1): fire a chunk of windows over every lane, select
+  the non-empty cells of registered rows, compact them stably in
+  row-major order and pack them for the host, with each selected
+  cell's raw lane values beside.
+- ``scatter_lanes`` (L2): fold a batch of records into the count lane
+  and the f32 sum/max/min lanes, each cell's records in record order.
+- ``scatter_pair_lanes`` (L3): fold host-combined ``[pair, count, sum
+  lanes...]`` rows into the count and sum lanes.
+
+As in ``window_kernels.py``: a wrapper takes the plain version only for
+tensors on the CPU and launches the kernel (or raises) for CUDA
+tensors; ``window_kernels.LAUNCHES`` counts the launches; an entry
+outside the state makes the plain version raise and the kernel set a
+bit in the device's error word.
+
+Floats: every f32 sum adds in a fixed order, so kernel reruns agree bit
+for bit. A scatter adds a cell's records in record order — the JAX
+reference's order on XLA's CPU backend, so the plain version there
+equals the reference bit for bit. The fire adds the ring columns in
+column order, each times its 0/1 mask bit; the reference's jitted
+column-mask product lets XLA's GEMM pick the association by shape, so
+fired sums agree with it to a rounding or two. Max and min follow IEEE
+754-2019 maximum / minimum as XLA does (NaN wins, -0 < +0); the plain
+version gets that from an order-preserving integer key, since
+``torch.amax`` does not order the zeros.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from flink_tpu_torch.kernels import window_kernels as wk
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "lk_fire_pack": [_P, _I64, _I32, _P, _I32, _P, _I32, _P, _I32, _P, _P,
+                     _I32, _I64, _I64, _I32, _P, _P, _I32, _I32, _I32, _P,
+                     _P, _P, _P, _P],
+    "lk_scatter_lanes": [_P, _P, _I32, _P, _I32, _P, _I32, _I64, _P, _P, _P,
+                         _P, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P],
+    "lk_scatter_pair_lanes": [_P, _P, _I32, _I64, _P, _I64, _I32, _P, _P],
+    "lk_fire_tile": [],
+    "lk_radix_tile": [],
+    "lk_error_string": [ctypes.c_int],
+}
+
+_CANON_NAN = 0x7FC00000
+_I32_MAX = 2 ** 31 - 1
+_I32_MIN = -2 ** 31
+
+
+def _lib() -> ctypes.CDLL:
+    return wk.load_library("lane_kernels", _SIGNATURES, "lk_error_string")
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    wk.launch(_lib(), "lk_error_string", name, fn, *args)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
+
+
+def _width(t: Optional[torch.Tensor]) -> int:
+    return t.shape[-1] if t is not None else 0
+
+
+def _check_lanes(counts: torch.Tensor, sums, maxs, mins) -> None:
+    wk.check_tensor(counts, "counts", torch.int32, 2)
+    for name, t in (("sums", sums), ("maxs", maxs), ("mins", mins)):
+        if t is None:
+            continue
+        wk.check_tensor(t, name, torch.float32, 3)
+        if t.shape[:2] != counts.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match counts "
+                             f"{tuple(counts.shape)}")
+
+
+# -- IEEE 754-2019 maximum / minimum through order-preserving int32 keys ----
+
+def ordered_key(x: torch.Tensor, nan_key: int) -> torch.Tensor:
+    """int32 keys of f32 values whose integer order is the float order
+    with -0 < +0; NaN takes ``nan_key``."""
+    b = x.contiguous().view(torch.int32)
+    key = torch.where(b >= 0, b, b ^ 0x7FFFFFFF)
+    return torch.where(torch.isnan(x), torch.full_like(key, nan_key), key)
+
+
+def from_ordered_key(key: torch.Tensor) -> torch.Tensor:
+    """The f32 values of ``ordered_key`` keys; a NaN key gives the
+    canonical NaN."""
+    nan = (key == _I32_MAX) | (key == _I32_MIN)
+    b = torch.where(key >= 0, key, key ^ 0x7FFFFFFF)
+    b = torch.where(nan, torch.full_like(b, _CANON_NAN), b)
+    return b.view(torch.float32)
+
+
+def _ieee_reduce(x: torch.Tensor, dim: int, maximum: bool) -> torch.Tensor:
+    key = ordered_key(x, _I32_MAX if maximum else _I32_MIN)
+    red = key.amax(dim=dim) if maximum else key.amin(dim=dim)
+    return from_ordered_key(red)
+
+
+# -- L1 ------------------------------------------------------------------------
+
+def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
+              maxs: Optional[torch.Tensor], mins: Optional[torch.Tensor],
+              end_panes: torch.Tensor, w_valid: torch.Tensor,
+              used_mask: torch.Tensor, pane_lo: int, pane_hi: int, ppw: int,
+              out_cap: int, packed2: bool
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Fire windows ``end_panes`` over every lane and pack the selected
+    cells.
+
+    A cell (row r, window w) is selected when its window count — the
+    count lane over panes ``[end_w - ppw, end_w)`` ∩ ``[pane_lo,
+    min(pane_hi, pane_lo + ring - 1)]`` — is > 0, ``used_mask[r]`` and
+    ``w_valid[w]``. Selected cells are compacted in row-major (r, w)
+    order into ``buf`` (``(out_cap + 1, 2 if packed2 else 3)`` int32):
+    row 0 = ``[n selected, 0, ...]``, rows 1..min(n, out_cap) = ``[r,
+    end_w - pane_lo, count]`` or, packed2, ``[(r << 8) | delta, count]``.
+    ``lanes`` (``(out_cap, S + M + m)`` f32, None when packed2 or the
+    aggregate has no lanes) holds each selected cell's window sums (ring
+    columns added in column order, each times its live bit), maxes and
+    mins over the window's live panes ``[end_w - ppw, end_w)`` ∩
+    ``[pane_lo, pane_hi]``. Rows past n hold no data. More than
+    ``out_cap`` selected cells keep the first ``out_cap`` (the kernel
+    also sets a bit in ``error_word``); the head still counts all."""
+    _check_lanes(counts, sums, maxs, mins)
+    wk.check_tensor(end_panes, "end_panes", torch.int64, 1)
+    wk.check_tensor(w_valid, "w_valid", torch.bool, 1)
+    wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+    rows, ring = counts.shape
+    W = end_panes.numel()
+    if w_valid.numel() != W or used_mask.numel() != rows:
+        raise ValueError("w_valid/used_mask do not match end_panes/counts")
+    if out_cap < 1:
+        raise ValueError("out_cap must be >= 1")
+    L = _width(sums) + _width(maxs) + _width(mins)
+    if packed2 and L:
+        raise ValueError("the packed2 layout is for count-only aggregates")
+    if not wk.on_cuda("fire_pack", counts, sums, maxs, mins, end_panes,
+                      w_valid, used_mask):
+        return fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid,
+                               used_mask, pane_lo, pane_hi, ppw, out_cap,
+                               packed2)
+    dev = counts.device
+    cols = 2 if packed2 else 3
+    buf = torch.empty((out_cap + 1, cols), dtype=torch.int32, device=dev)
+    lanes = (torch.empty((out_cap, L), dtype=torch.float32, device=dev)
+             if L else None)
+    # scratch may be freed as soon as this returns: the caching allocator
+    # hands it out again only to work queued later on the same stream
+    n_blocks = max(1, math.ceil(rows * W / _lib().lk_fire_tile()))
+    wc = torch.empty(rows * W, dtype=torch.int32, device=dev)
+    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    _launch("fire_pack", "lk_fire_pack", counts.data_ptr(), rows, ring,
+            _ptr(sums), _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
+            _width(mins), end_panes.data_ptr(), w_valid.data_ptr(), W,
+            int(pane_lo), int(pane_hi), int(ppw), used_mask.data_ptr(),
+            buf.data_ptr(), cols, int(out_cap), int(bool(packed2)),
+            _ptr(lanes), wc.data_ptr(), block_counts.data_ptr(),
+            wk.error_word(dev).data_ptr(), wk.stream_of(counts))
+    return buf, lanes
+
+
+def _live_columns(end_panes: torch.Tensor, ring: int, pane_lo: int,
+                 pane_hi: int, ppw: int) -> torch.Tensor:
+    """(W, ring) bool: ring column c holds a pane of window w inside
+    ``[pane_lo, pane_hi]`` (the reference fire's column mask)."""
+    dev = end_panes.device
+    want = end_panes[:, None] - ppw + torch.arange(
+        ppw, dtype=torch.int64, device=dev)[None, :]                  # (W, ppw)
+    live = (want >= int(pane_lo)) & (want <= int(pane_hi))
+    onehot = torch.remainder(want, ring)[:, :, None] == torch.arange(
+        ring, dtype=torch.int64, device=dev)[None, None, :]
+    return (onehot & live[:, :, None]).any(dim=1)
+
+
+def fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid, used_mask,
+                    pane_lo, pane_hi, ppw, out_cap, packed2):
+    dev = counts.device
+    rows, ring = counts.shape
+    W = end_panes.numel()
+    wc = wk.window_counts_plain(counts, end_panes, w_valid, pane_lo, pane_hi,
+                                ppw)
+    sel = (wc > 0) & used_mask[:, None] & w_valid[None, :]
+    flat = torch.nonzero(sel.reshape(-1)).reshape(-1)              # row-major
+    n = flat.numel()
+    m = min(n, out_cap)
+    flat = flat[:m]
+    r, w = flat // W, flat % W
+    delta = (end_panes[w] - int(pane_lo)).to(torch.int32)
+    cnt = wc[r, w]
+    r32 = r.to(torch.int32)
+    buf = torch.zeros((out_cap + 1, 2 if packed2 else 3), dtype=torch.int32,
+                      device=dev)
+    buf[0, 0] = n
+    if packed2:
+        buf[1:m + 1, 0] = (r32 << 8) | delta
+        buf[1:m + 1, 1] = cnt
+    else:
+        buf[1:m + 1] = torch.stack([r32, delta, cnt], dim=1)
+    L = _width(sums) + _width(maxs) + _width(mins)
+    if not L:
+        return buf, None
+    colmask = _live_columns(end_panes, ring, pane_lo, pane_hi, ppw)[w]  # (m, ring)
+    lanes = torch.zeros((out_cap, L), dtype=torch.float32, device=dev)
+    parts = []
+    if sums is not None:
+        bit = colmask.to(torch.float32)[:, :, None]
+        acc = torch.zeros((m, sums.shape[2]), dtype=torch.float32, device=dev)
+        for c in range(ring):
+            acc = acc + sums[r, c] * bit[:, c]
+        parts.append(acc)
+    for lane, fill, maximum in ((maxs, -math.inf, True),
+                                (mins, math.inf, False)):
+        if lane is None:
+            continue
+        vals = torch.where(colmask[:, :, None], lane[r],
+                           torch.full((), fill, device=dev))
+        parts.append(_ieee_reduce(vals, 1, maximum))
+    lanes[:m] = torch.cat(parts, dim=1)
+    return buf, lanes
+
+
+# -- L2 ------------------------------------------------------------------------
+
+def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
+                  maxs: Optional[torch.Tensor], mins: Optional[torch.Tensor],
+                  idx: torch.Tensor, s: torch.Tensor, mx: torch.Tensor,
+                  mn: torch.Tensor) -> None:
+    """Fold records into the pane state, in place: for record i at flat
+    cell ``idx[i]`` (``row * ring + column``), the count adds 1, each sum
+    lane adds ``s[i]`` (a cell's records in record order), each max lane
+    takes the IEEE maximum with ``mx[i]`` and each min lane the minimum
+    with ``mn[i]``. ``s``/``mx``/``mn`` are ``(B, width)`` f32 of the
+    state's widths (zero-width where a lane family is None). An index
+    outside the state raises (the kernel skips it and reports it through
+    ``error_word``)."""
+    _check_lanes(counts, sums, maxs, mins)
+    wk.check_tensor(idx, "idx", torch.int32, 1)
+    B = idx.numel()
+    for name, t, lane in (("s", s, sums), ("mx", mx, maxs), ("mn", mn, mins)):
+        wk.check_tensor(t, name, torch.float32, 2)
+        if t.shape != (B, _width(lane)):
+            raise ValueError(f"{name} {tuple(t.shape)} must be ({B}, "
+                             f"{_width(lane)})")
+    if not wk.on_cuda("scatter_lanes", counts, sums, maxs, mins, idx, s, mx,
+                      mn):
+        return scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn)
+    if B == 0:
+        return None
+    dev = counts.device
+    n_cells = counts.numel()
+    bits = int(n_cells).bit_length()        # the sentinel n_cells fits
+    tile = _lib().lk_radix_tile()
+    n_blocks = math.ceil(B / tile)
+    scratch = torch.empty((4, B), dtype=torch.int32, device=dev)
+    hist = torch.empty(256 * n_blocks, dtype=torch.int32, device=dev)
+    chunk = torch.empty(math.ceil(256 * n_blocks / 1024), dtype=torch.int32,
+                        device=dev)
+    head_of = torch.empty(n_cells, dtype=torch.int32, device=dev)
+    L = _width(sums) + _width(maxs) + _width(mins)
+    ordered = torch.empty(max(L, 1) * B, dtype=torch.float32, device=dev)
+    _launch("scatter_lanes", "lk_scatter_lanes", counts.data_ptr(),
+            _ptr(sums), _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
+            _width(mins), n_cells, idx.data_ptr(), s.data_ptr(), mx.data_ptr(),
+            mn.data_ptr(), B, bits, scratch[0].data_ptr(),
+            scratch[1].data_ptr(), scratch[2].data_ptr(),
+            scratch[3].data_ptr(), hist.data_ptr(), chunk.data_ptr(),
+            head_of.data_ptr(), ordered.data_ptr(),
+            wk.error_word(dev).data_ptr(), wk.stream_of(counts))
+    return None
+
+
+def scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn):
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= counts.numel()):
+        wk.raise_for_error_bits(8)
+    ix = idx.long()
+    counts.view(-1).index_add_(
+        0, ix, torch.ones(ix.numel(), dtype=torch.int32, device=idx.device))
+    cells = counts.numel()
+    if sums is not None:
+        # index_add_ on the CPU adds in index order: a cell's records in
+        # record order
+        sums.view(cells, -1).index_add_(0, ix, s)
+    for lane, vals, maximum in ((maxs, mx, True), (mins, mn, False)):
+        if lane is None:
+            continue
+        nan_key = _I32_MAX if maximum else _I32_MIN
+        key = ordered_key(lane.view(cells, -1), nan_key)
+        key.scatter_reduce_(0, ix[:, None].expand_as(vals),
+                            ordered_key(vals, nan_key),
+                            "amax" if maximum else "amin")
+        lane.view(cells, -1).copy_(from_ordered_key(key))
+    return None
+
+
+# -- L3 ------------------------------------------------------------------------
+
+def scatter_pair_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
+                       buf: torch.Tensor) -> None:
+    """Fold host-combined pair rows into the state, in place. ``buf`` is
+    ``(P, 2 + S)`` int32 rows ``[pair, count, f32 bits of each sum
+    lane]`` (``flink_tpu``'s ``preagg_encode_i32`` layout) with pair =
+    ``row * ring + column``, distinct within one call; pair < 0 marks
+    padding. A pair outside the state raises (the kernel skips it and
+    reports it through ``error_word``)."""
+    wk.check_tensor(counts, "counts", torch.int32, 2)
+    wk.check_tensor(buf, "buf", torch.int32, 2)
+    sw = _width(sums)
+    if sums is not None:
+        _check_lanes(counts, sums, None, None)
+    if buf.shape[1] != 2 + sw:
+        raise ValueError(f"buf has {buf.shape[1]} columns, expected {2 + sw}")
+    if not wk.on_cuda("scatter_pair_lanes", counts, sums, buf):
+        return scatter_pair_lanes_plain(counts, sums, buf)
+    _launch("scatter_pair_lanes", "lk_scatter_pair_lanes", counts.data_ptr(),
+            _ptr(sums), sw, counts.numel(), buf.data_ptr(), buf.shape[0],
+            buf.shape[1], wk.error_word(counts.device).data_ptr(),
+            wk.stream_of(counts))
+    return None
+
+
+def scatter_pair_lanes_plain(counts, sums, buf):
+    ok = buf[:, 0] >= 0
+    rows = buf[ok]
+    pair = rows[:, 0].long()
+    if pair.numel() and int(pair.max()) >= counts.numel():
+        wk.raise_for_error_bits(16)
+    counts.view(-1).index_add_(0, pair, rows[:, 1])
+    if sums is not None:
+        sums.view(counts.numel(), -1).index_add_(
+            0, pair, rows[:, 2:].contiguous().view(torch.float32))
+    return None

@@ -1,6 +1,7 @@
-"""The window operator's four device functions: a CUDA kernel each
-(``csrc/window_kernels.cu``) and a plain PyTorch version each, with the
-same signature.
+"""The window operator's four count-lane device functions: a CUDA kernel
+each (``csrc/window_kernels.cu``) and a plain PyTorch version each, with
+the same signature (``ring_columns`` also moves the f32 sum/max/min
+lanes).
 
 A wrapper takes the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts
@@ -13,12 +14,12 @@ kernel skips it and sets a bit in the device's error word, which
 ``check_errors`` (or a caller's own copy of ``error_word``, decoded by
 ``raise_for_error_bits``) turns into the same kind of exception.
 
-All four work on the int32 count lane, so every result is exact: the
+All four are integer work or pure copies, so every result is exact: the
 kernel, the plain version and the JAX reference agree bit for bit.
 
 The launch counts, the error word, the library loader and the argument
 checks here serve every kernel module of the port
-(``devgen_kernels.py`` too).
+(``devgen_kernels.py`` and ``lane_kernels.py`` too).
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ LAUNCHES: Dict[str, int] = {
     "ring_columns": 0,
     "nexmark_bids": 0,
     "devgen_ingest": 0,
+    "fire_pack": 0,
+    "scatter_lanes": 0,
+    "scatter_pair_lanes": 0,
 }
 
 
@@ -48,7 +52,10 @@ def reset_launch_counts() -> None:
 # bits of the device error word (kErr* in csrc/*.cu)
 ERROR_BITS = {1: "scatter_counts: cell index outside counts",
               2: "ring_columns: kept src_col outside the source ring",
-              4: "devgen_ingest: cell index outside counts"}
+              4: "devgen_ingest: cell index outside counts",
+              8: "scatter_lanes: cell index outside the pane state",
+              16: "scatter_pair_lanes: pair index outside the pane state",
+              32: "fire_pack: more selected rows than the buffer holds"}
 _error_words: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -89,6 +96,8 @@ _SIGNATURES = {
     "fk_topn_select_append": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I32, _P,
                               _I32, _I32, _P, _P, _P, _P],
     "fk_ring_columns": [_P, _I32, _P, _I32, _I64, _P, _P, _P, _P],
+    "fk_ring_columns_f32": [_P, _I32, _P, _I32, _I64, _I32, _P, _P,
+                            ctypes.c_float, _P, _P],
     "fk_topn_tile": [],
     "fk_error_string": [ctypes.c_int],
 }
@@ -305,34 +314,51 @@ def topn_select_append_plain(wcounts, used_mask, end_panes, w_valid, anchor,
 # -- K4 ----------------------------------------------------------------------
 
 def ring_columns(src: torch.Tensor, dst: torch.Tensor, src_col: torch.Tensor,
-                 keep: torch.Tensor) -> torch.Tensor:
-    """``dst[:, j] = src[:, src_col[j]] if keep[j] else 0``. In place
-    (``dst is src``) only with ``src_col[j] == j`` wherever ``keep[j]``
-    — the pane purge; a ring growth writes a new ``dst``. ``src_col``
-    entries where ``keep`` lie in ``[0, src ring)``; one that does not
-    raises (the kernel writes 0 there and reports it through
+                 keep: torch.Tensor, fill: float = 0) -> torch.Tensor:
+    """``dst[:, j] = src[:, src_col[j]] if keep[j] else fill``, over the
+    int32 ``(rows, ring)`` count lane (fill 0) or an f32 ``(rows, ring,
+    width)`` sum/max/min lane (fill 0, -inf or +inf). In place (``dst
+    is src``) only with ``src_col[j] == j`` wherever ``keep[j]`` — the
+    pane purge; a ring growth writes a new ``dst``. ``src_col`` entries
+    where ``keep`` lie in ``[0, src ring)``; one that does not raises
+    (the kernel writes the fill there and reports it through
     ``error_word``). Returns ``dst``."""
-    check_tensor(src, "src", torch.int32, 2)
-    check_tensor(dst, "dst", torch.int32, 2)
+    lane = src.dim() == 3
+    if lane:
+        check_tensor(src, "src", torch.float32, 3)
+        check_tensor(dst, "dst", torch.float32, 3)
+    else:
+        check_tensor(src, "src", torch.int32, 2)
+        check_tensor(dst, "dst", torch.int32, 2)
+        if fill != 0:
+            raise ValueError("ring_columns: the count lane's fill is 0")
     check_tensor(src_col, "src_col", torch.int32, 1)
     check_tensor(keep, "keep", torch.bool, 1)
     if dst.shape[0] != src.shape[0] or src_col.numel() != dst.shape[1] \
-            or keep.numel() != dst.shape[1]:
+            or keep.numel() != dst.shape[1] or dst.shape[2:] != src.shape[2:]:
         raise ValueError("ring_columns: shapes do not line up")
     if not on_cuda("ring_columns", src, dst, src_col, keep):
-        return ring_columns_plain(src, dst, src_col, keep)
-    _launch("ring_columns", "fk_ring_columns", src.data_ptr(), src.shape[1],
-            dst.data_ptr(), dst.shape[1], dst.shape[0], src_col.data_ptr(),
-            keep.data_ptr(), error_word(src.device).data_ptr(), stream_of(src))
+        return ring_columns_plain(src, dst, src_col, keep, fill)
+    err = error_word(src.device).data_ptr()
+    if lane:
+        _launch("ring_columns", "fk_ring_columns_f32", src.data_ptr(),
+                src.shape[1], dst.data_ptr(), dst.shape[1], dst.shape[0],
+                dst.shape[2], src_col.data_ptr(), keep.data_ptr(),
+                float(fill), err, stream_of(src))
+    else:
+        _launch("ring_columns", "fk_ring_columns", src.data_ptr(),
+                src.shape[1], dst.data_ptr(), dst.shape[1], dst.shape[0],
+                src_col.data_ptr(), keep.data_ptr(), err, stream_of(src))
     return dst
 
 
-def ring_columns_plain(src, dst, src_col, keep):
+def ring_columns_plain(src, dst, src_col, keep, fill=0):
     kept = src_col[keep]
     if kept.numel() and (int(kept.min()) < 0 or int(kept.max()) >= src.shape[1]):
         raise_for_error_bits(2)
     cols = torch.where(keep, src_col, torch.zeros_like(src_col)).long()
-    new = torch.where(keep[None, :], src[:, cols],
-                      torch.zeros((), dtype=src.dtype, device=src.device))
+    k = keep.reshape((1, -1) + (1,) * (src.dim() - 2))
+    new = torch.where(k, src[:, cols],
+                      torch.full((), fill, dtype=src.dtype, device=src.device))
     dst.copy_(new)
     return dst

@@ -1,16 +1,27 @@
-"""The keyed event-time window operator, count-only top-n form (the
-Nexmark Q5 hot-items shape), over dense device pane state.
+"""The keyed event-time window operator over dense device pane state:
+an int32 ``(rows, ring)`` count lane plus the aggregate's f32 ``(rows,
+ring, width)`` sum, max and min lanes.
 
-Per batch the host assigns each record a key slot and a pane, combines
-the batch per (slot, pane-ring column) pair when that shrinks the upload
-(``preagg_combine``), and ``scatter_counts`` folds it into the
-``(rows, ring)`` count tensor. A watermark advance fires every window
-it completes: ``window_counts`` sums each window's live panes for all
-rows at once, ``topn_select_append`` appends each window's top-n rows
-to a device-resident emit ring, and ``ring_columns`` purges panes no
-window can need any more (and remaps the ring when it grows). The host
-reads the emit ring through announced copies: a non-blocking device→host
-copy plus a CUDA event per fire, read once it has landed.
+Per batch the host assigns each record a key slot and a pane. When every
+lane is a host-combinable sum (count, sum, avg) and the combined upload
+is decisively smaller, the host combines the batch per (slot, pane-ring
+column) pair (``preagg_combine``) and ``scatter_counts`` (count only) or
+``scatter_pair_lanes`` folds the pairs in; otherwise one flat cell index
+per record goes up with the fields the aggregate reads, ``lift_masked``
+lifts them on the device and ``scatter_counts`` (count only) or
+``scatter_lanes`` folds them in.
+
+A watermark advance fires every window it completes. With ``.top(n)``
+(count only): ``window_counts`` sums each window's live panes for all
+rows at once and ``topn_select_append`` appends each window's top-n
+rows to a device-resident emit ring, which the host reads through
+announced copies. Without: ``fire_pack`` fires chunks of up to
+``MAX_FIRE_CHUNK`` windows into packed buffers (every non-empty
+(key, window) cell, with its lanes), the aggregate's ``finalize`` runs
+on them in torch, and each buffer starts its device→host copy into
+pinned memory at once, with a CUDA event. Either way ``ring_columns``
+purges panes no window can need any more, every lane (and remaps the
+ring when it grows).
 
 A device-made source (``attach_device_source``) skips the host ingest:
 its batch index is stashed, and the next watermark advance makes the
@@ -25,7 +36,7 @@ Host control flow (watermark clock, ring bookkeeping, lateness, late
 re-firing, the key directory, the device-made ingest's stash, flush and
 reconciliation) mirrors ``flink_tpu/ops/window.py`` rule for rule, so
 both packages fire the same windows and emit the same rows in the same
-order. Non-top-n fires, sum/max/min lanes, processing time, spill and
+order. Processing time, changelog lanes, top-n over lanes, spill and
 the mesh are in ROADMAP.md.
 """
 from __future__ import annotations
@@ -44,8 +55,10 @@ from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.config import PipelineOptions
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.kernels import devgen_kernels as dk
+from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
+from flink_tpu_torch.records import device_cast
 from flink_tpu_torch.state.keyed import (
     KeyDirectory, PaneState, PaneStateLayout, init_state, raise_full)
 from flink_tpu_torch.time.watermarks import LONG_MIN
@@ -57,8 +70,14 @@ MAX_FIRE_CHUNK_RING = 16
 # one pair, as the reference's one-dispatch step does (its header has
 # this many window slots); more go in chunks
 MIN_FIRE_PAD = 64
-# top-n winner capacity factor (see WindowOperator._topn_cap)
+# fires without top-n go in chunks of this many windows, one fire_pack
+# buffer each; also the top-n winner capacity factor (_topn_cap)
 MAX_FIRE_CHUNK = 4
+# changelog aggregates read this record column (still to port)
+OP_FIELD = "__op__"
+# the host pre-combine runs only while the (slot, ring column) pair
+# domain stays this small
+PREAGG_MAX_DOMAIN = 1 << 23
 # refire bitmap span of the device-made ingest (panes above
 # dead_below); a longer lateness span sends the batch to the host path
 DEVGEN_REFIRE_BITS = dk.REFIRE_BITS
@@ -72,13 +91,34 @@ def _next_pow2(n: int) -> int:
 
 
 def preagg_combine(slots: np.ndarray, cols: np.ndarray, valid: np.ndarray,
-                   ring: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Combine one batch per (slot, ring column) pair on the host:
-    (pair ids ``slot * ring + col`` as int32, int32 counts). The count
-    lane only; the summed float lanes come with the other aggregates."""
+                   ring: int, data: Optional[Dict[str, np.ndarray]] = None,
+                   sum_fields: Tuple[str, ...] = ()
+                   ) -> Tuple[np.ndarray, np.ndarray, List[np.ndarray]]:
+    """Combine one batch per (slot, ring column) pair on the host: pair
+    ids ``slot * ring + col`` (int32, ascending), int32 counts, and per
+    sum field the pair's sum, accumulated in f64 in record order and
+    rounded to f32 once (the reference's ``np.add.at`` order)."""
     pk = (slots[valid] * ring + cols[valid]).astype(np.int32)
-    pairs, cnts = np.unique(pk, return_counts=True)
-    return pairs, cnts.astype(np.int32)
+    if not sum_fields:
+        pairs, cnts = np.unique(pk, return_counts=True)
+        return pairs, cnts.astype(np.int32), []
+    pairs, inv, cnts = np.unique(pk, return_inverse=True, return_counts=True)
+    lanes = [np.bincount(inv, weights=np.asarray(data[f], np.float64)[valid],
+                         minlength=len(pairs)).astype(np.float32)
+             for f in sum_fields]
+    return pairs, cnts.astype(np.int32), lanes
+
+
+def preagg_encode_i32(pairs: np.ndarray, cnts: np.ndarray,
+                      lanes: List[np.ndarray]) -> np.ndarray:
+    """(pairs, counts, sum lanes) as one ``(P, 2 + S)`` int32 upload:
+    ``[pair, count, f32 bits of each lane]`` (``scatter_pair_lanes``)."""
+    buf = np.empty((len(pairs), 2 + len(lanes)), np.int32)
+    buf[:, 0] = pairs
+    buf[:, 1] = cnts
+    for i, ln in enumerate(lanes):
+        buf[:, 2 + i] = np.asarray(ln, np.float32).view(np.int32)
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +339,9 @@ class DeviceTimer:
 # ---------------------------------------------------------------------------
 
 class WindowOperator:
-    """Drives the four window kernels for one keyed, count-only, top-n
-    window aggregation on one device."""
+    """Drives the window kernels for one keyed event-time window
+    aggregation on one device: count-only with ``.top(n)`` through the
+    emit ring, or any ported aggregate through packed fires."""
 
     # rows of the device emit ring between host polls; overflow is
     # detected from the ring's monotone head counter and raises
@@ -324,35 +365,52 @@ class WindowOperator:
             raise NotImplementedError(
                 "only event-time window assigners are ported (processing-"
                 "time windows are in ROADMAP.md)")
-        if (agg.sum_width, agg.max_width, agg.min_width) != (0, 0, 0) \
-                or agg.sum_fields != ():
+        if agg.fields is None:
             raise NotImplementedError(
-                f"aggregate {agg.name!r}: only count() is ported (sum/max/"
-                "min lanes are in ROADMAP.md, queue 2: fire_pack_kernel "
-                "and the float lanes)")
-        res = probe_finalize(agg)
-        if sorted(res) != ["count"]:
+                f"aggregate {agg.name!r} does not declare the record fields "
+                "its lift reads; the port uploads only declared fields")
+        if OP_FIELD in agg.fields:
             raise NotImplementedError(
-                "only count() with its default result field 'count' is "
-                f"ported, got result fields {sorted(res)}")
-        if top_n is None:
-            raise NotImplementedError(
-                "window fires without .top(n) go through fire_pack_kernel, "
-                "which is still to port (ROADMAP.md queue 2)")
-        by, n = top_n
-        if by != "count" or int(n) < 1:
-            raise ValueError(f"top_n must be ('count', n >= 1), got {top_n}")
+                f"aggregate {agg.name!r} reads the changelog op column: "
+                "changelog lanes are still to port (ROADMAP.md)")
+        self.agg = agg
+        if top_n is not None:
+            by, n = top_n
+            if int(n) < 1:
+                raise ValueError(f"top_n needs n >= 1, got {top_n}")
+            if by != "count":
+                raise NotImplementedError(
+                    f"top-n by {by!r}: top-n by anything but the count is "
+                    "still to port (ROADMAP.md)")
+            res = probe_finalize(agg)
+            if (agg.sum_width, agg.max_width, agg.min_width) != (0, 0, 0) \
+                    or sorted(res) != ["count"]:
+                raise NotImplementedError(
+                    "top-n fires are ported for count() with its default "
+                    f"result field only, got {agg.name!r} with result "
+                    f"fields {sorted(res)} (ROADMAP.md)")
+            self._topn: Optional[Tuple[str, int]] = ("count", int(n))
+        else:
+            self._topn = None
         self.device = resolve_device(device)
-        self._topn = ("count", int(n))
         self.plan = WindowPlan.plan(
             assigner, allowed_lateness_ms=allowed_lateness_ms,
             max_out_of_orderness_ms=max_out_of_orderness_ms)
         self.directory = KeyDirectory(num_shards, slots_per_shard)
         self.layout = PaneStateLayout(slots=self.directory.local_slots,
-                                      ring=self.plan.ring, sum_width=0,
-                                      max_width=0, min_width=0)
+                                      ring=self.plan.ring,
+                                      sum_width=agg.sum_width,
+                                      max_width=agg.max_width,
+                                      min_width=agg.min_width)
         self._check_cell_index()
         self.state = init_state(self.layout, self.device)
+        res = probe_finalize(agg)
+        # result fields in packed-buffer column order, which are ints,
+        # and their empty columns for a fire with no rows
+        self._res_fields = sorted(res)
+        self._res_is_int = {k: not torch.is_floating_point(v)
+                            for k, v in res.items()}
+        self._res_empty = {k: v.numpy() for k, v in res.items()}
         self.watermark = LONG_MIN
         self._cleared_below = self.plan.first_dead_pane(LONG_MIN)
         self._fired_below_end: Optional[int] = None
@@ -448,22 +506,52 @@ class WindowOperator:
             raise_full(int(bad.sum()))
         t2 = time.perf_counter()
         ring = self.plan.ring
-        if self._preagg_gate(panes, valid):
-            pairs, cnts = preagg_combine(slots, panes % ring, valid, ring)
+        lanes_f = self._preagg_lanes()
+        if lanes_f is not None and self._preagg_gate(panes, valid, lanes_f):
+            pairs, cnts, sums = preagg_combine(slots, panes % ring, valid,
+                                               ring, data, lanes_f)
+            if lanes_f:
+                pairs = preagg_encode_i32(pairs, cnts, sums)
             self.prof["preagg_combine"] += time.perf_counter() - t2
-            self._apply_cells(pairs, cnts)
+            if lanes_f:
+                self._apply_pairs(pairs)
+            else:
+                self._apply_cells(pairs, cnts)
         else:
-            # per-record: one flat cell index per valid record; invalid
-            # records never leave the host
+            # per-record: one flat cell index per valid record (plus the
+            # fields the aggregate reads); invalid records never leave
+            # the host
             idx = (slots * ring + panes % ring)[valid].astype(np.int32)
+            fields = {k: device_cast(data[k])[valid] for k in self.agg.fields}
             self.prof["pb_pack"] += time.perf_counter() - t2
-            self._apply_cells(idx, None)
+            if self._has_lanes():
+                self._apply_records(idx, fields)
+            else:
+                self._apply_cells(idx, None)
         self._throttle()
 
-    def _preagg_gate(self, panes: np.ndarray, valid: np.ndarray) -> bool:
+    def _has_lanes(self) -> bool:
+        lay = self.layout
+        return (lay.sum_width, lay.max_width, lay.min_width) != (0, 0, 0)
+
+    def _preagg_lanes(self) -> Optional[Tuple[str, ...]]:
+        """The sum fields the host may pre-combine — ``()`` for count
+        only — or None when a lane is not a host-combinable sum or the
+        pair domain is too large (the reference's eligibility rule)."""
+        agg = self.agg
+        if (agg.max_width == 0 and agg.min_width == 0
+                and agg.sum_fields is not None
+                and len(agg.sum_fields) == agg.sum_width
+                and self.layout.slots * self.plan.ring <= PREAGG_MAX_DOMAIN):
+            return agg.sum_fields
+        return None
+
+    def _preagg_gate(self, panes: np.ndarray, valid: np.ndarray,
+                     lanes_f: Tuple[str, ...]) -> bool:
         """Combine on the host when the pair buffer is decisively smaller
         than the per-record upload (the reference's gate: 6 bytes per
-        pair bucket against 2 bytes per record)."""
+        count-only pair bucket, 4 per column of an ``[pair, count, sum
+        lanes...]`` row, against 2 bytes per record)."""
         nv = int(valid.sum())
         if nv == 0:
             return False
@@ -471,8 +559,9 @@ class WindowOperator:
         span = int(pv.max() - pv.min()) + 1
         nk = self.directory.num_keys()
         bound = min(nv, max(nk, 1) * min(span, self.plan.ring))
+        bpp = 6 if not lanes_f else 4 * (2 + len(lanes_f))
         cap = _next_pow2(max(bound, 256))
-        return 6 * cap <= 2 * len(panes)
+        return bpp * cap <= 2 * len(panes)
 
     def _check_cell_index(self) -> None:
         """Cell indices (row * ring + column) travel as int32."""
@@ -498,6 +587,40 @@ class WindowOperator:
             cnt_d = (cnt_h.to(self.device, non_blocking=True)
                      if cnt_h is not None else None)
             wk.scatter_counts(self.state.counts, idx_d, cnt_d)
+        self._note_dispatch()
+        self.prof["pb_dispatch"] += time.perf_counter() - t0
+
+    def _apply_records(self, idx: np.ndarray,
+                       fields: Dict[str, np.ndarray]) -> None:
+        """Per-record lanes: upload the flat cell indices and the fields
+        the aggregate reads, lift them on the device, ``scatter_lanes``."""
+        if len(idx) == 0:
+            return
+        t0 = time.perf_counter()
+        idx_h = self._staged(idx)
+        fields_h = {k: self._staged(v) for k, v in fields.items()}
+        with self.timer.span("apply"):
+            idx_d = idx_h.to(self.device, non_blocking=True)
+            data = {k: v.to(self.device, non_blocking=True)
+                    for k, v in fields_h.items()}
+            ones = torch.ones(len(idx), dtype=torch.bool, device=self.device)
+            s, mx, mn = self.agg.lift_masked(data, ones)
+            st = self.state
+            lk.scatter_lanes(st.counts, st.sums, st.maxs, st.mins, idx_d,
+                             s.contiguous(), mx.contiguous(), mn.contiguous())
+        self._note_dispatch()
+        self.prof["pb_dispatch"] += time.perf_counter() - t0
+
+    def _apply_pairs(self, buf: np.ndarray) -> None:
+        """Host-combined pairs with sum lanes: one ``(P, 2 + S)`` int32
+        upload, ``scatter_pair_lanes``."""
+        if len(buf) == 0:
+            return
+        t0 = time.perf_counter()
+        buf_h = self._staged(buf)
+        with self.timer.span("apply"):
+            buf_d = buf_h.to(self.device, non_blocking=True)
+            lk.scatter_pair_lanes(self.state.counts, self.state.sums, buf_d)
         self._note_dispatch()
         self.prof["pb_dispatch"] += time.perf_counter() - t0
 
@@ -547,13 +670,25 @@ class WindowOperator:
         src_col = self._stage.upload(np.maximum(cmap, 0).astype(np.int32))
         keep = self._stage.upload(cmap >= 0)
         with self.timer.span("grow"):
-            dst = torch.empty((self.layout.rows, new_ring), dtype=torch.int32,
-                              device=self.device)
-            wk.ring_columns(self.state.counts, dst, src_col, keep)
-        self.state = PaneState(None, None, None, dst)
+            moved = []
+            for lane, fill in self._lanes_with_fills():
+                if lane is None:
+                    moved.append(None)
+                    continue
+                dst = torch.empty((lane.shape[0], new_ring) + lane.shape[2:],
+                                  dtype=lane.dtype, device=self.device)
+                moved.append(wk.ring_columns(lane, dst, src_col, keep, fill))
+        self.state = PaneState(*moved)
         self.plan = dataclasses.replace(self.plan, ring=new_ring)
         self.layout = dataclasses.replace(self.layout, ring=new_ring)
         self._check_cell_index()
+
+    def _lanes_with_fills(self):
+        """Every lane of the state (None at zero width) with its identity,
+        in ``PaneState`` order."""
+        st = self.state
+        return ((st.sums, 0.0), (st.maxs, -float("inf")),
+                (st.mins, float("inf")), (st.counts, 0))
 
     # -- time path --------------------------------------------------------
     def advance_watermark(self, wm: int) -> "FiredWindows":
@@ -606,18 +741,21 @@ class WindowOperator:
                                                     device=self.device)
                 keep_t = self._stage.upload(keep)
                 with self.timer.span("purge"):
-                    wk.ring_columns(self.state.counts, self.state.counts,
-                                    self._ident_cols, keep_t)
+                    for lane, fill in self._lanes_with_fills():
+                        if lane is not None:
+                            wk.ring_columns(lane, lane, self._ident_cols,
+                                            keep_t, fill)
             self._cleared_below = new_dead
         self.prof["aw_dispatch"] += time.perf_counter() - taw
         return out
 
     def _fire_ends(self, ends: List[int],
                    whole: bool = False) -> "FiredWindows":
-        """Fire ``ends`` in chunks of MAX_FIRE_CHUNK_RING windows; with
-        ``whole`` (an advance over a device-made batch) in one chunk when
-        there are at most MIN_FIRE_PAD, so rows land row-major over all
-        of them."""
+        """Fire ``ends``. Top-n: in chunks of MAX_FIRE_CHUNK_RING windows
+        into the emit ring; with ``whole`` (an advance over a device-made
+        batch) in one chunk when there are at most MIN_FIRE_PAD, so rows
+        land row-major over all of them. Otherwise: in chunks of
+        MAX_FIRE_CHUNK windows, one packed buffer each."""
         if not ends or self._max_pane_seen is None:
             return self._empty()
         lo = max(self._cleared_below, self._min_pane_seen)
@@ -628,6 +766,8 @@ class WindowOperator:
         if not ends:
             return self._empty()
         used = self._used_mask_device()
+        if self._topn is None:
+            return self._fire_packs(ends, lo, hi, used)
         if self._ring_anchor is None:
             self._ring_anchor = lo
         ring_buf = self._ensure_ring()
@@ -645,6 +785,117 @@ class WindowOperator:
                                       self._topn_cap(), ring_buf)
         return self._ring_after_fire(len(ends))
 
+    def _fire_packs(self, ends: List[int], lo: int, hi: int,
+                    used: torch.Tensor) -> "FiredWindows":
+        """One ``fire_pack`` buffer per chunk of MAX_FIRE_CHUNK ends, the
+        aggregate's finalize on its rows, and its device→host copy
+        started at once."""
+        packed2 = self._fire_packed2()
+        packs = []
+        for c0 in range(0, len(ends), MAX_FIRE_CHUNK):
+            chunk = ends[c0:c0 + MAX_FIRE_CHUNK]
+            end_t = self._stage.upload(np.asarray(chunk, np.int64))
+            cap = self._fire_cap(_next_pow2(len(chunk)))
+            st = self.state
+            with self.timer.span("fire"):
+                buf, lanes = lk.fire_pack(
+                    st.counts, st.sums, st.maxs, st.mins, end_t,
+                    self._w_valid[:len(chunk)], used, lo, hi,
+                    self.plan.panes_per_window, cap, packed2)
+                if not packed2:
+                    buf = self._finalize_pack(buf, lanes, cap)
+            packs.append((lo,) + self._copy_to_host(buf))
+        return FiredWindows(op=self, packs=packs)
+
+    def _finalize_pack(self, buf: torch.Tensor, lanes: Optional[torch.Tensor],
+                       cap: int) -> torch.Tensor:
+        """The aggregate's finalize on a fire buffer's rows, its result
+        lanes packed after ``[row, delta, count]`` in sorted field order
+        (``count`` excluded): int lanes as int32, float lanes as f32
+        bits."""
+        fields = self._pack_fields()
+        if not fields:
+            return buf
+        lay = self.layout
+        sw, mw = lay.sum_width, lay.max_width
+        if lanes is None:
+            lanes = torch.zeros((cap, 0), dtype=torch.float32,
+                                device=buf.device)
+        res = self.agg.finalize(lanes[:, :sw], lanes[:, sw:sw + mw],
+                                lanes[:, sw + mw:], buf[1:, 2])
+        out = torch.zeros((cap + 1, 3 + len(fields)), dtype=torch.int32,
+                          device=buf.device)
+        out[:, :3] = buf
+        for i, name in enumerate(fields):
+            v = res[name].reshape(cap)
+            out[1:, 3 + i] = (v.to(torch.int32) if self._res_is_int[name]
+                              else v.to(torch.float32).view(torch.int32))
+        return out
+
+    def _fire_cap(self, w: int) -> int:
+        """Rows of a W-window fire buffer: a window fires at most one
+        row per registered key, so this bound never truncates."""
+        nk = max(1, self.directory.num_keys())
+        return _next_pow2(min(nk, self.layout.slots) * w)
+
+    def _fire_packed2(self) -> bool:
+        """The 2-column ``[(row << 8) | delta, count]`` layout: a
+        count-only result, slot ids < 2^23, end deltas < 2^8."""
+        return (not self._pack_fields() and self.layout.slots < (1 << 23)
+                and self.plan.ring + self.plan.panes_per_window < (1 << 8))
+
+    def _pack_fields(self) -> List[str]:
+        """Result fields carried after ``[row, delta, count]``, in sorted
+        order; ``count`` rides column 2."""
+        return [f for f in self._res_fields if f != "count"]
+
+    @staticmethod
+    def _check_fire_cap(n: int, cap: int) -> None:
+        if n > cap:
+            raise RuntimeError(
+                f"fired-row buffer overflow: {n} rows > capacity {cap}")
+
+    def _decode_packs(self, packs) -> Dict[str, np.ndarray]:
+        """Host decode of landed fire buffers: slot → key, pane → window
+        times, bit lanes → result fields. Each buffer's layout is read
+        from its own width (a growth may flip the packed2 gate between
+        fire and decode)."""
+        rows_l, ep_l, cnt_l, lane_l = [], [], [], []
+        for lo, host, err, ev in packs:
+            if ev is not None:
+                ev.synchronize()
+            buf = host.numpy()
+            n = int(buf[0, 0])
+            self._check_fire_cap(n, len(buf) - 1)
+            if err is not None:
+                wk.raise_for_error_bits(int(err[0]))
+            body = buf[1:1 + n]
+            if body.shape[1] == 2:
+                rows_l.append(body[:, 0] >> 8)
+                ep_l.append(lo + (body[:, 0] & 0xFF).astype(np.int64))
+                cnt_l.append(body[:, 1])
+            else:
+                rows_l.append(body[:, 0])
+                ep_l.append(lo + body[:, 1].astype(np.int64))
+                cnt_l.append(body[:, 2])
+                lane_l.append(body[:, 3:])
+        rows = np.concatenate(rows_l)
+        end_pane = np.concatenate(ep_l)
+        window_end = end_pane * self.plan.pane_ms + self.plan.offset_ms
+        out: Dict[str, np.ndarray] = {
+            "key": self.directory.key_of_slots(rows),
+            "window_start": window_end - self.plan.size_ms,
+            "window_end": window_end,
+            "count": np.ascontiguousarray(np.concatenate(cnt_l)),
+        }
+        fields = self._pack_fields()
+        if fields:
+            lanes = np.concatenate(lane_l)
+            for i, k in enumerate(fields):
+                col = np.ascontiguousarray(lanes[:, i])
+                out[k] = col if self._res_is_int[k] else col.view(np.float32)
+        return out
+
     def _ring_after_fire(self, n_ends: int) -> "FiredWindows":
         self._ring_version_no += 1
         if n_ends > 0:
@@ -654,19 +905,24 @@ class WindowOperator:
     def _announce_ring(self) -> None:
         """Start a non-blocking copy of the live emit ring, and of the
         kernels' error word, to the host."""
+        self._ring_versions.append(
+            (self._ring_version_no,) + self._copy_to_host(self._emit_ring))
+
+    def _copy_to_host(self, buf: torch.Tensor):
+        """(host copy, host copy of the kernels' error word, CUDA event):
+        non-blocking copies into pinned memory (a pageable copy would
+        synchronize the stream), read once the event has passed. On the
+        CPU a clone, no error word, no event."""
         if self.device.type == "cpu":
-            self._ring_versions.append(
-                (self._ring_version_no, self._emit_ring.clone(), None, None))
-            return
+            return buf.clone(), None, None
         with self.timer.span("drain"):
-            host = torch.empty(self._emit_ring.shape, dtype=torch.int32,
-                               pin_memory=True)
-            host.copy_(self._emit_ring, non_blocking=True)
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
             err = torch.empty(1, dtype=torch.int32, pin_memory=True)
             err.copy_(wk.error_word(self.device), non_blocking=True)
             ev = torch.cuda.Event()
             ev.record()
-        self._ring_versions.append((self._ring_version_no, host, err, ev))
+        return host, err, ev
 
     def _ensure_ring(self) -> torch.Tensor:
         if self._emit_ring is None:
@@ -748,12 +1004,14 @@ class WindowOperator:
                                              self._max_pane_seen)
 
     def _empty(self) -> "FiredWindows":
-        return FiredWindows(data={
+        data = {
             "key": np.zeros(0, np.int64),
             "window_start": np.zeros(0, np.int64),
             "window_end": np.zeros(0, np.int64),
             "count": np.zeros(0, np.int32),
-        })
+        }
+        data.update(self._res_empty)
+        return FiredWindows(data=data)
 
     # -- device-made ingest -------------------------------------------------
     # how many dispatched batches' stats may wait before an advance blocks
@@ -769,7 +1027,8 @@ class WindowOperator:
         # The reference also requires its C hash table here, for miss
         # repair's probe. This port has none; its numpy table has the
         # same lookup_keys, so the port accepts it.
-        if self.plan.ring > 64:
+        if self._topn is None or self._preagg_lanes() != () \
+                or self.plan.ring > 64:
             return False
         d = getattr(spec, "key_domain", None)
         if d is None or d <= 0 or d > self.layout.slots:
@@ -934,28 +1193,41 @@ class WindowOperator:
         the reference package's once its panes are host arrays (see
         ``load_jax_snapshot``)."""
         panes = snap["panes"]
-        lanes = {k: (panes.get(k) if isinstance(panes, Mapping)
-                     else getattr(panes, k, None))
-                 for k in ("sums", "maxs", "mins", "counts")}
-        if any(lanes[k] is not None for k in ("sums", "maxs", "mins")):
-            raise ValueError("snapshot carries sum/max/min lanes; only "
-                             "count-only state is ported")
+        names = ("sums", "maxs", "mins", "counts")
+        lanes = {}
+        for k in names:
+            v = (panes.get(k) if isinstance(panes, Mapping)
+                 else getattr(panes, k, None))
+            if v is not None and not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v))
+            lanes[k] = v
+        ring = int(snap.get("ring", lanes["counts"].shape[1]))
+        rows = self.layout.rows
+        lay = self.layout
+        want = {"sums": (lay.sum_width, torch.float32),
+                "maxs": (lay.max_width, torch.float32),
+                "mins": (lay.min_width, torch.float32)}
+        for k, (width, dtype) in want.items():
+            v = lanes[k]
+            shape = None if v is None else (tuple(v.shape), v.dtype)
+            if shape != (None if width == 0 else ((rows, ring, width), dtype)):
+                raise ValueError(
+                    f"snapshot lane {k} {shape} does not match this "
+                    f"operator's layout ({rows}, {ring}, {width}) {dtype} "
+                    f"(aggregate {self.agg.name!r})")
         counts = lanes["counts"]
-        if not isinstance(counts, torch.Tensor):
-            counts = torch.from_numpy(np.array(counts))
-        ring = int(snap.get("ring", counts.shape[1]))
-        if counts.dtype != torch.int32 or tuple(counts.shape) != (
-                self.layout.rows, ring):
+        if counts.dtype != torch.int32 or tuple(counts.shape) != (rows, ring):
             raise ValueError(
                 f"snapshot panes {tuple(counts.shape)} {counts.dtype} do not "
-                f"match this operator's layout ({self.layout.rows}, {ring}) "
-                "int32")
+                f"match this operator's layout ({rows}, {ring}) int32")
         if ring != self.plan.ring:
             # the snapshotted operator had grown its pane ring
             self.plan = dataclasses.replace(self.plan, ring=ring)
             self.layout = dataclasses.replace(self.layout, ring=ring)
-        self.state = PaneState(None, None, None,
-                               counts.to(self.device).contiguous().clone())
+        self.state = PaneState(*(
+            None if lanes[k] is None
+            else lanes[k].to(self.device).contiguous().clone()
+            for k in names))
         self.directory = KeyDirectory.restore(
             self.directory.num_shards, self.directory.slots_per_shard,
             snap["directory"])
@@ -983,8 +1255,9 @@ class WindowOperator:
         """Carry state across from the reference package: ``snap`` is
         ``flink_tpu``'s ``WindowOperator.snapshot_state()`` with its
         ``panes`` fetched to host arrays (``np.asarray`` per lane) — pane
-        counts, key directory, watermark, cleared/fired frontiers, pane
-        range, re-fire set and ring size."""
+        counts and sum/max/min lanes, key directory, watermark,
+        cleared/fired frontiers, pane range, re-fire set and ring size.
+        The lanes must be this operator's aggregate's."""
         if snap.get("n_dev", 1) != 1:
             raise ValueError("only single-device snapshots can be loaded")
         spill = snap.get("spill")
@@ -1000,45 +1273,62 @@ class WindowOperator:
 
 
 class FiredWindows(Mapping):
-    """A fired-window batch, materialized on first access (an emit-ring
-    fire reads the ring then)."""
+    """A fired-window batch, materialized on first access: an emit-ring
+    fire reads the ring then, a packed fire decodes its buffers once
+    their copies have landed."""
 
     def __init__(self, data: Optional[Dict[str, np.ndarray]] = None,
                  op: Optional[WindowOperator] = None, ring: bool = False,
-                 ring_no: int = 0) -> None:
+                 ring_no: int = 0, packs: Optional[list] = None) -> None:
         self._data = data
         self._op = op
         self._ring = ring
         self._ring_no = ring_no
+        self._packs = packs
+
+    def ready(self) -> bool:
+        """True unless a packed buffer's device→host copy is still in
+        flight (an emit-ring fire reads whatever copy has landed)."""
+        return self._data is not None or not self._packs or all(
+            ev is None or ev.query() for _, _, _, ev in self._packs)
 
     def materialize(self) -> Dict[str, np.ndarray]:
         if self._data is None:
-            self._data = self._op.drain_ring()
+            if self._packs is not None:
+                self._data = self._op._decode_packs(self._packs)
+                self._packs = None
+            else:
+                self._data = self._op.drain_ring()
             self._op = None
         return self._data
 
     @staticmethod
     def materialize_many(fireds: List["FiredWindows"],
                          barrier: bool = False) -> None:
-        """One ring read per operator serves every pending fire of it
-        (later ones read empty). A barrier pins each operator's newest
+        """One ring read per operator serves every pending ring fire of
+        it (later ones read empty). A barrier pins each operator's newest
         fire version, so every appended row is delivered; otherwise the
-        read takes whatever copy already landed."""
+        read takes whatever copy already landed. Packed fires decode
+        their own buffers, waiting for copies still in flight."""
         need: Dict[int, int] = {}
         for f in fireds:
-            if f._data is None:
+            if f._data is None and f._packs is None:
                 cur = need.get(id(f._op), 0)
                 need[id(f._op)] = max(cur, f._ring_no) if barrier else 0
         done = set()
         for f in fireds:
-            if f._data is None:
-                op = f._op
-                if id(op) in done:
-                    f._data = op._empty().materialize()
-                else:
-                    f._data = op.drain_ring(min_no=need[id(op)])
-                    done.add(id(op))
-                f._op = None
+            if f._data is not None:
+                continue
+            if f._packs is not None:
+                f.materialize()
+                continue
+            op = f._op
+            if id(op) in done:
+                f._data = op._empty().materialize()
+            else:
+                f._data = op.drain_ring(min_no=need[id(op)])
+                done.add(id(op))
+            f._op = None
 
     def __getitem__(self, key: str) -> np.ndarray:
         return self.materialize()[key]

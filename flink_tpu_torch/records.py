@@ -1,7 +1,7 @@
-"""Host record helpers: the timestamp convention and the key hash that
+"""Host record helpers: the timestamp convention, the key hash that
 routes keys to key shards (bit-identical to
 ``flink_tpu.records.hash_keys_numpy``, so both packages assign the same
-slots to the same keys)."""
+slots to the same keys) and the cast of record fields for upload."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,3 +18,12 @@ def hash_keys_numpy(keys: np.ndarray) -> np.ndarray:
         x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
         x = x ^ (x >> np.uint64(31))
     return (x & np.uint64(0x7FFFFFFFFFFFFFFF)).astype(np.int64)
+
+
+def device_cast(arr: np.ndarray) -> np.ndarray:
+    """A record field as it travels to the device: float64 becomes
+    float32 (the lanes are f32); integer widths are kept."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.float64:
+        return arr.astype(np.float32)
+    return arr

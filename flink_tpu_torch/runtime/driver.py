@@ -13,10 +13,11 @@ its own step with its own watermark advance. A batch the operator's
 devgen gates refuse is made on the host and fed normally (metric
 ``devgen_host_batches``).
 
-Fired windows are delivered from the same thread: after every loop
-pass the driver polls the operators' emit rings for copies that have
-landed (never waiting on the device), and at end of input it drains
-them with a barrier. Checkpointing, the cross-host exchange, batch
+Fired windows are delivered from the same thread, in fire order: after
+every loop pass the driver polls the operators' emit rings for copies
+that have landed and delivers the packed fires whose copies have landed
+(never waiting on the device); at end of input it drains everything
+with a barrier. Checkpointing, the cross-host exchange, batch
 mode, rescaling, the debloater, savepoints and host-plane sub-batching
 are not ported (ROADMAP.md); the configuration check and the driver
 refuse confs that ask for them.
@@ -285,14 +286,22 @@ class Driver:
             self._out_wm[nid] = in_wm
 
     def _drain_emits(self, barrier: bool) -> None:
-        """Deliver fired windows downstream. A periodic drain reads the
-        emit-ring copies that have already landed; a barrier reads
-        everything appended so far."""
+        """Deliver fired windows downstream, in fire order. A periodic
+        drain reads the emit-ring copies that have already landed and
+        stops at the first packed fire whose copy is still in flight
+        (later drains pick it up); a barrier delivers every fire and
+        every ring row so far."""
         from flink_tpu_torch.ops.window import FiredWindows
 
         t0 = time.perf_counter()
         pending = self._pending_emits
-        self._pending_emits = []
+        if barrier:
+            self._pending_emits = []
+        else:
+            k = 0
+            while k < len(pending) and pending[k][1].ready():
+                k += 1
+            pending, self._pending_emits = pending[:k], pending[k:]
         if barrier:
             # a fire whose rows a periodic poll left on the device may
             # have no marker left: pin every ring operator's newest

@@ -359,3 +359,225 @@ def test_devgen_q5_on_the_card_matches_the_cpu(dev, k):
     assert rows[0] == rows[1] and len(rows[0]) > 100
     assert wk.LAUNCHES["nexmark_bids"] == 4 * k
     assert wk.LAUNCHES["devgen_ingest"] == 4 * k
+
+
+# -- the lane kernels (fire_pack, scatter_lanes, scatter_pair_lanes) ---------
+
+def _lane_state(rng, rows, ring, pane_lo, pane_hi, sw, mw, nw):
+    """Pane state with data only in the live panes' columns, identities
+    elsewhere."""
+    counts = np.zeros((rows, ring), np.int32)
+    sums = np.zeros((rows, ring, sw), np.float32)
+    maxs = np.full((rows, ring, mw), -np.inf, np.float32)
+    mins = np.full((rows, ring, nw), np.inf, np.float32)
+    for p in range(pane_lo, pane_hi + 1):
+        c = p % ring
+        hit = rng.random(rows) < 0.4
+        k = int(hit.sum())
+        counts[hit, c] = rng.integers(1, 30, k)
+        sums[hit, c] = (rng.random((k, sw)) * 1e4).astype(np.float32)
+        maxs[hit, c] = rng.standard_normal((k, mw)).astype(np.float32)
+        mins[hit, c] = rng.standard_normal((k, nw)).astype(np.float32)
+    return counts, sums, maxs, mins
+
+
+def _same_bits(a, b):
+    """Equal, NaN-aware and signed zeros distinct."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("packed2,sw,mw,nw,W", [
+    (True, 0, 0, 0, 4), (False, 0, 0, 0, 3), (False, 1, 1, 1, 4),
+    (False, 2, 0, 1, 1)])
+def test_fire_pack(dev, packed2, sw, mw, nw, W):
+    """Kernel against the plain version on the card: rows, order, head and
+    every lane bit for bit (both add the sums in column order)."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(W + sw)
+    rows, ring, lo, hi, ppw = 32769, 32, 1000, 1020, 10
+    c, s, mx, mn = _lane_state(rng, rows, ring, lo, hi, sw, mw, nw)
+    c[3, :] = 0                               # a key with nothing live
+    mx[5, lo % ring] = np.nan
+    used = rng.random(rows) < 0.9
+    used[-1] = False
+    ends = _t(np.arange(hi - W + 2, hi + 2, dtype=np.int64), dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    args = [_t(c, dev)] + [_t(x, dev) if x.shape[2] else None
+                           for x in (s, mx, mn)]
+    cap = 1 << 17
+    a_buf, a_lanes = lk.fire_pack(*args, ends, valid, _t(used, dev), lo, hi,
+                                  ppw, cap, packed2)
+    b_buf, b_lanes = lk.fire_pack_plain(*args, ends, valid, _t(used, dev), lo,
+                                        hi, ppw, cap, packed2)
+    n = int(b_buf[0, 0])
+    assert 0 < n <= cap and int(a_buf[0, 0]) == n
+    assert torch.equal(a_buf[:n + 1].cpu(), b_buf[:n + 1].cpu())
+    if sw + mw + nw:
+        assert _same_bits(a_lanes[:n], b_lanes[:n])
+    else:
+        assert a_lanes is None and b_lanes is None
+
+
+def test_fire_pack_overflow_sets_the_error_word(dev):
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    c = torch.ones((300, 8), dtype=torch.int32, device=dev)
+    used = torch.ones(300, dtype=torch.bool, device=dev)
+    ends = torch.tensor([5, 6], device=dev)
+    try:
+        buf, _ = lk.fire_pack(c, None, None, None, ends,
+                              torch.ones(2, dtype=torch.bool, device=dev),
+                              used, 0, 7, 1, 64, True)
+        assert int(buf[0, 0]) == 600
+        with pytest.raises(IndexError, match="fire_pack"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
+@pytest.mark.parametrize("hot", [0.0, 0.3, 1.0])
+def test_scatter_lanes(dev, hot):
+    """2^20 records into 32,769 x 32 state: counts and max/min equal the
+    plain version exactly; sums within the bound of another order (the
+    plain index_add_ adds in no fixed order on the card); two kernel runs
+    agree bit for bit."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(int(hot * 10))
+    rows, ring, B = 32769, 32, 1 << 20
+    c, s, mx, mn = _lane_state(rng, rows, ring, 0, 31, 1, 1, 1)
+    cells = (rows - 1) * ring
+    idx = np.where(rng.random(B) < hot, rng.integers(0, 3, B),
+                   rng.integers(0, cells, B)).astype(np.int32)
+    v = (rng.random(B) * 1e3).astype(np.float32)
+    v[:4] = [np.nan, -0.0, 0.0, np.inf]
+    x = _t(v[:, None], dev)
+    state = [_t(a, dev) for a in (c, s, mx, mn)]
+    runs = []
+    for fn in (lk.scatter_lanes, lk.scatter_lanes, lk.scatter_lanes_plain):
+        st = [t.clone() for t in state]
+        fn(*st, _t(idx, dev), x, x, x)
+        runs.append(st)
+    for t0, t1 in zip(runs[0], runs[1]):
+        assert _same_bits(t0, t1)
+    for k in (0, 2, 3):
+        assert _same_bits(runs[0][k], runs[2][k])
+    got, want = runs[0][1].double(), runs[2][1].double()
+    n = torch.zeros(rows * ring, dtype=torch.float64, device=dev)
+    n.index_add_(0, _t(idx, dev).long(), torch.ones(B, dtype=torch.float64,
+                                                    device=dev))
+    mag = want.abs().reshape(-1) + 1.0
+    bound = 2 * (n + 1) * 2.0 ** -24 * (mag + s.reshape(-1).max())
+    ok = (got.reshape(-1) - want.reshape(-1)).abs() <= bound
+    ok |= got.reshape(-1) == want.reshape(-1)          # the inf record's cell
+    ok |= torch.isnan(got.reshape(-1)) & torch.isnan(want.reshape(-1))
+    assert bool(ok.all())
+
+
+def test_scatter_pair_lanes(dev):
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(3)
+    rows, ring, P = 32769, 32, 110_000
+    c, s, _, _ = _lane_state(rng, rows, ring, 0, 31, 2, 0, 0)
+    pairs = rng.choice((rows - 1) * ring, P, replace=False).astype(np.int32)
+    buf = np.zeros((131_072, 4), np.int32)
+    buf[:, 0] = -1
+    buf[:P, 0] = pairs
+    buf[:P, 1] = rng.integers(1, 50, P)
+    buf[:P, 2:] = (rng.random((P, 2)) * 1e4).astype(np.float32).view(np.int32)
+    a = [_t(c, dev), _t(s, dev)]
+    b = [t.clone() for t in a]
+    lk.scatter_pair_lanes(*a, _t(buf, dev))
+    lk.scatter_pair_lanes_plain(*b, _t(buf, dev))
+    assert _same_bits(a[0], b[0]) and _same_bits(a[1], b[1])
+
+
+def test_ring_columns_lanes(dev):
+    rng = np.random.default_rng(4)
+    _, s, mx, mn = _lane_state(rng, 4097, 16, 30, 40, 2, 1, 3)
+    keep = rng.random(32) < 0.5
+    src_col = rng.integers(0, 16, 32).astype(np.int32)
+    for lane, fill in ((s, 0.0), (mx, -np.inf), (mn, np.inf)):
+        src = _t(lane, dev)
+        a = torch.empty((4097, 32, lane.shape[2]), device=dev)
+        b = torch.empty_like(a)
+        wk.ring_columns(src, a, _t(src_col, dev), _t(keep, dev), fill)
+        wk.ring_columns_plain(src, b, _t(src_col, dev), _t(keep, dev), fill)
+        assert _same_bits(a, b)
+
+
+def test_lane_kernels_report_out_of_range_entries(dev):
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    c = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    s = torch.zeros((3, 4, 1), device=dev)
+    try:
+        lk.scatter_lanes(c, s, None, None,
+                         torch.tensor([0, 12], dtype=torch.int32, device=dev),
+                         torch.ones((2, 1), device=dev),
+                         torch.zeros((2, 0), device=dev),
+                         torch.zeros((2, 0), device=dev))
+        with pytest.raises(IndexError, match="scatter_lanes"):
+            wk.check_errors(dev)
+        assert int(c.sum()) == 1
+        lk.scatter_pair_lanes(c, s, torch.tensor(
+            [[12, 1, 0], [-1, 5, 0]], dtype=torch.int32, device=dev))
+        with pytest.raises(IndexError, match="scatter_pair_lanes"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
+@pytest.mark.parametrize("agg_name", ["count", "lanes", "avg"])
+def test_window_aggregates_on_the_card_match_the_cpu(dev, agg_name):
+    """Packed fires through the operator on the card and on the CPU: rows
+    in the same order, integers and max/min equal, sums within 2 * count
+    roundings (both add in the same order, so they are usually equal)."""
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+
+    agg = {"count": ta.count(),
+           "lanes": ta.multi(ta.count(), ta.sum_of("price"),
+                             ta.max_of("price"), ta.min_of("price")),
+           "avg": ta.multi(ta.count(), ta.avg_of("price"))}[agg_name]
+    rng = np.random.default_rng(7)
+    ops = [WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000), agg,
+                          num_shards=32, slots_per_shard=256,
+                          max_out_of_orderness_ms=1_000, device=d)
+           for d in ("cpu", dev)]
+    wk.reset_launch_counts()
+    t = 0
+    outs = [[], []]
+    for i in range(6):
+        n = 40_000 if i % 2 else 3_000
+        # few keys: the large batches take the host pre-combine
+        keys = rng.zipf(1.5, n) % 300
+        ts = t + rng.integers(-900, 6_000, n)
+        price = (rng.random(n) * 100).astype(np.float32)
+        t += 6_000
+        for op, out in zip(ops, outs):
+            op.process_batch(keys, ts, {"price": price})
+            out.append(dict(op.advance_watermark(int(ts.max()) - 1_001)))
+    for op, out in zip(ops, outs):
+        out.append(dict(op.advance_watermark(op.final_watermark())))
+    for a, b in zip(*outs):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            if k.startswith(("sum", "avg")):
+                bound = (2 * a["count"] + 4) * 2.0 ** -24 * np.abs(a[k])
+                assert (np.abs(a[k] - b[k]) <= bound).all()
+            else:
+                np.testing.assert_array_equal(a[k], b[k])
+    assert wk.LAUNCHES["fire_pack"] > 0
+    if agg_name == "lanes":
+        assert wk.LAUNCHES["scatter_lanes"] > 0
+    if agg_name == "avg":
+        assert wk.LAUNCHES["scatter_pair_lanes"] > 0

@@ -188,12 +188,15 @@ def test_max_inflight_steps_reaches_the_operator(steps):
 
 
 def test_unported_pipeline_shapes_raise():
+    from flink_tpu_torch.ops.aggregates import count, max_of, multi
+
     env = StreamExecutionEnvironment(Configuration(dict(SMALL_CONF)))
     (env.from_source(GeneratorSource(seeded_bids(64, 1, 1, 5, seed=5)))
-     .key_by("auction").window(TumblingEventTimeWindows.of(1_000)).count()
+     .key_by("auction").window(TumblingEventTimeWindows.of(1_000))
+     .aggregate(multi(count(), max_of("price"))).top(1, by="max_price")
      .add_sink(CollectSink()))
-    with pytest.raises(NotImplementedError, match="fire_pack_kernel"):
-        env.execute("no-top", device="cpu")
+    with pytest.raises(NotImplementedError, match="top-n by 'max_price'"):
+        env.execute("top-by-price", device="cpu")
 
 
 def test_from_collection_batches_by_microbatch_size():

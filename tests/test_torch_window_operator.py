@@ -268,9 +268,12 @@ def test_topn_tie_explosion_raises_loudly():
 
 
 def test_operator_refuses_unported_shapes(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        WindowOperator(TumblingEventTimeWindows.of(1000), count(),
-                       device="cpu")  # no top-n: fire_pack_kernel
+    from flink_tpu_torch.ops.aggregates import max_of, multi
+
+    with pytest.raises(NotImplementedError, match="top-n by 'max_price'"):
+        WindowOperator(TumblingEventTimeWindows.of(1000),
+                       multi(count(), max_of("price")),
+                       top_n=("max_price", 1), device="cpu")
     # the default device is the card; without one the operator refuses
     # instead of running on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
