@@ -13,8 +13,10 @@ Phases, one JSON line each:
    ``flink_tpu_torch/_build/``.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (integers and max/min exactly, and sums where both add in one
-   fixed order; the plain ``scatter_lanes`` adds with atomics, so its
-   sums are held to the bound of another order), then its time (CUDA
+   fixed order; the plain ``scatter_lanes`` adds with atomics on the
+   card, so there its sums are held to the bound of another order, and
+   the kernel's lanes must equal the plain version's on the CPU, which
+   adds in record order, bit for bit), then its time (CUDA
    events, warmed, many launches), the plain version's time, the time of
    one PyTorch library call computing the same function where there is
    one, and the least time the card could take (bytes over 3.35 TB/s or
@@ -27,9 +29,12 @@ Phases, one JSON line each:
    records that compares the stats vector and re-fire bitmap too; the
    lane kernels at this slice's shapes: ``fire_pack`` on WordCount
    state (65,537 x 16, 4-window chunks, ~28k words per window) and on
-   bid-aggregate state (32,769 x 32 x 1 sum + 1 max + 1 min lane),
-   ``scatter_lanes`` on a 2^20-bid batch, ``scatter_pair_lanes`` on its
-   ~110k host-combined pairs, ``ring_columns`` over an f32 lane.
+   bid-aggregate state (32,769 x 32 x 1 sum + 1 max + 1 min lane, and
+   1 sum lane alone, job (b)'s layout), ``scatter_lanes`` on a 2^20-bid
+   batch, ``scatter_pair_lanes`` on its ~110k host-combined pairs,
+   ``ring_columns`` over an f32 lane; and the count-lane kernels in
+   WordCount's forms: ``scatter_counts`` per record on a 2^20-word batch
+   into 65,537 x 16 state, ``ring_columns`` growing 6 to 16 columns.
 3. ``q5``      — Nexmark Q5 hot items, host-fed, through the port's
    ``StreamExecutionEnvironment.execute()`` at the conf of
    ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids.
@@ -96,7 +101,7 @@ PROFILED_KERNELS = {
     "window_counts": ("window_counts_kernel",),
     "topn_select_append": ("topn_threshold_kernel", "topn_count_kernel",
                            "topn_write_kernel"),
-    "ring_columns": ("ring_columns_kernel", "ring_columns_f32_kernel"),
+    "ring_columns": ("ring_columns_kernel",),
     "nexmark_bids": ("nexmark_bids_kernel",),
     "devgen_ingest": ("devgen_ingest_kernel",),
     "fire_pack": ("fire_count_kernel", "fire_write_kernel"),
@@ -112,7 +117,7 @@ PROFILED_KERNELS = {
 # several times a call)
 CALL_KERNELS = {
     "topn_select_append": ("topn_threshold_kernel",),
-    "ring_columns": ("ring_columns_kernel", "ring_columns_f32_kernel"),
+    "ring_columns": ("ring_columns_kernel",),
     "fire_pack": ("fire_count_kernel",),
     "scatter_lanes": ("lanes_prep_kernel",),
 }
@@ -445,8 +450,10 @@ def lane_kernel_cases(torch, np, dev, record, out):
     ~28k keys) and the bid-aggregate state (32,769 x 32 x (1 sum, 1 max,
     1 min), 10,000 auctions, 2^20 bids, ~110k host-combined pairs).
     Integers and max/min exactly; sums too where kernel and plain version
-    add in one fixed order (fire_pack, scatter_pair_lanes), else to the
-    bound of another order."""
+    add in one fixed order (fire_pack, scatter_pair_lanes, and
+    scatter_lanes against its plain version on the CPU), else to the
+    bound of another order (scatter_lanes against its plain version on
+    the card)."""
     from flink_tpu_torch.kernels import lane_kernels as lk
     from flink_tpu_torch.kernels import window_kernels as wk
 
@@ -553,8 +560,19 @@ def lane_kernel_cases(torch, np, dev, record, out):
           "scatter_lanes: two runs differ")
     check(all(same_bits(torch, runs[0][k], runs[2][k]) for k in (0, 2, 3)),
           "scatter_lanes: counts or max/min differ from the plain version")
-    # sums: the plain index_add_ adds in no fixed order on the card; the
-    # bound of two orders of n_cell + 1 positive terms
+    # the kernel adds each cell's records in record order: the plain
+    # version on the CPU (index_add_ there adds in index order) gives the
+    # same bits in every lane
+    cpu_state = [x.cpu() for x in state]
+    price_cpu = price.cpu()
+    lk.scatter_lanes_plain(*cpu_state, idx.cpu(), price_cpu, price_cpu,
+                           price_cpu)
+    check(all(same_bits(torch, x, y) for x, y in zip(runs[0], cpu_state)),
+          "scatter_lanes differs from the plain version's record order "
+          "(the plain version on the CPU)")
+    # sums against the plain version on the card: its index_add_ adds in
+    # no fixed order there; the bound of two orders of n_cell + 1
+    # positive terms
     n_cell = torch.zeros(rows * ring, dtype=torch.float64, device=dev)
     n_cell.index_add_(0, idx.long(), torch.ones(Q5_BATCH, dtype=torch.float64,
                                                 device=dev))
@@ -648,7 +666,101 @@ def lane_kernel_cases(torch, np, dev, record, out):
         "plain_ms": time_ms(torch, lambda: wk.ring_columns_plain(
             x1, x1, ident, keep, -float("inf"))),
         "bound_ms": b, "bound_by": by, "shape": [rows, ring, 1]}
+
+    # L1 fire_pack in job (b)'s layout: one sum lane, no max or min lane
+    sum_args = (lanes_args[0], lanes_args[1], None, None, ends, valid,
+                t(used_np), pane_lo, pane_hi, ppw, cap, False)
+    a_buf, a_lanes = lk.fire_pack(*sum_args)
+    b_buf, b_lanes = lk.fire_pack_plain(*sum_args)
+    torch.cuda.synchronize()
+    n = int(b_buf[0, 0])
+    check(n > 0 and int(a_buf[0, 0]) == n
+          and torch.equal(a_buf[:n + 1], b_buf[:n + 1])
+          and tuple(a_lanes.shape) == (cap, 1)
+          and same_bits(torch, a_lanes[:n], b_lanes[:n]),
+          "fire_pack (one sum lane) differs from its plain version")
+    b, by = bound_ms(rows * live_cols * 4 + rows + len(keys) * ring * 4
+                     + (n + 1) * 12 + n * 4, rows * live + n * ring)
+    extra["fire_pack_sum_lane"] = {
+        "rows": n, "max_abs_err": 0.0, "widths": [1, 0, 0],
+        "ms": time_ms(torch, lambda: lk.fire_pack(*sum_args)),
+        "plain_ms": time_ms(torch, lambda: lk.fire_pack_plain(*sum_args),
+                            iters=10),
+        "bound_ms": b, "bound_by": by}
+    extra.update(wordcount_kernel_cases(torch, np, dev, out))
     return extra
+
+
+def wordcount_kernel_cases(torch, np, dev, out):
+    """The count-lane kernels in the forms the WordCount path gives them:
+    ``scatter_counts`` per record (no counts: += 1 a word) on batch 0's
+    2^20 words into 65,537 x 16 state, and the ``ring_columns`` growth
+    of the count lane from 6 to 16 columns at 65,537 rows. Both exact."""
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    rows, ring = 128 * 512 + 1, 16
+    _, gen = wordcount_source(np, 1)
+    data, ts = gen("0", 0)
+    slots = KeyDirectory(128, 512).assign(data["word"])
+    idx_np = (slots * ring + (ts // 1000) % ring).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(dev)
+    base = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+    a, b = base.clone(), base.clone()
+    wk.scatter_counts(a, idx, None)
+    wk.scatter_counts_plain(b, idx, None)
+    torch.cuda.synchronize()
+    err = int((a.long() - b.long()).abs().max())
+    check(err == 0 and int(a.sum()) == WC_BATCH,
+          f"scatter_counts (per record) differs from its plain version by {err}")
+    cells = int(torch.unique(idx).numel())
+    scratch, plain_scratch = base.clone(), base.clone()
+    idx_long = idx.long()
+    ones = torch.ones(WC_BATCH, dtype=torch.int32, device=dev)
+    b_ms, by = bound_ms(WC_BATCH * 4 + cells * 8, WC_BATCH)
+    row = next(r for r in out if r["name"] == "scatter_counts")
+    row["per_record"] = {
+        "shape": [rows, ring], "records": WC_BATCH, "distinct_cells": cells,
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: wk.scatter_counts(scratch, idx, None)),
+        "plain_ms": time_ms(torch, lambda: wk.scatter_counts_plain(
+            plain_scratch, idx, None)),
+        "library_ms": time_ms(torch, lambda: scratch.view(-1).index_add_(
+            0, idx_long, ones)),
+        "bound_ms": b_ms, "bound_by": by}
+
+    # the growth 6 -> 16: as the first batch makes it (nothing applied
+    # yet, every column cleared) and with panes 3..8 applied (each moves
+    # from column p % 6 to p % 16)
+    old = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, 40, (rows, 6), dtype=np.int32)).to(dev)
+    maps = []
+    for applied in (np.arange(0), np.arange(3, 9)):
+        cmap = np.full(ring, -1, np.int64)
+        cmap[applied % ring] = applied % 6
+        maps.append((torch.from_numpy(np.maximum(cmap, 0).astype(np.int32)).to(dev),
+                     torch.from_numpy(cmap >= 0).to(dev), len(applied)))
+    ok = True
+    for src_col, keep, _ in maps:
+        g1 = torch.empty((rows, ring), dtype=torch.int32, device=dev)
+        g2 = torch.empty_like(g1)
+        wk.ring_columns(old, g1, src_col, keep)
+        wk.ring_columns_plain(old, g2, src_col, keep)
+        torch.cuda.synchronize()
+        ok = ok and torch.equal(g1, g2)
+    check(ok, "ring_columns (count-lane growth 6 -> 16) differs from its "
+          "plain version")
+    src_col, keep, kept = maps[1]
+    g = torch.empty((rows, ring), dtype=torch.int32, device=dev)
+    b_ms, by = bound_ms(rows * kept * 4 + rows * ring * 4 + ring * 5, 0)
+    row = next(r for r in out if r["name"] == "ring_columns")
+    row["count_growth"] = {
+        "shape": [rows, 6, ring], "kept_columns": kept, "max_abs_err": 0,
+        "ms": time_ms(torch, lambda: wk.ring_columns(old, g, src_col, keep)),
+        "plain_ms": time_ms(torch, lambda: wk.ring_columns_plain(
+            old, g, src_col, keep)),
+        "bound_ms": b_ms, "bound_by": by}
+    return {"wordcount_scatter_distinct_cells": cells}
 
 
 def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
@@ -802,8 +914,8 @@ def device_ms_per_call(by_name):
     for name, kernels in PROFILED_KERNELS.items():
         def hits(names):
             return [v for k, v in by_name.items()
-                    if any(f"::{kn}(" in k or k.startswith(kn + "(")
-                           for kn in names)]
+                    if any(f"::{kn}(" in k or f"::{kn}<" in k
+                           or k.startswith(kn + "(") for kn in names)]
         calls = sum(v["count"] for v in hits(CALL_KERNELS.get(name, kernels)))
         if calls:
             per_call[name] = sum(v["device_ms"] for v in hits(kernels)) / calls

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with one ``nvcc`` call into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries land in ``flink_tpu_torch/_build/`` under a name
-that carries a hash of the source and flags, so an edited source never
-loads a stale build. Nothing here runs at import time: the CPU tests
+that carries a hash of the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source or header never loads a stale build. Nothing here runs at import time: the CPU tests
 import every module of the package on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -52,9 +52,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -17,13 +17,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "window_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// grid-stride kernels never launch more blocks than this (8 per SM on
-// the 132-SM card)
-constexpr int64_t kMaxBlocks = 132 * 8;
 // error-word bit (window_kernels.py ERROR_BITS decodes it)
 constexpr int32_t kErrIngestCell = 4;
 // stats vector layout (ops/window.py devgen_step_kernel): 8 header words
@@ -32,20 +29,9 @@ constexpr int32_t kErrIngestCell = 4;
 constexpr int kStatsHead = 8;
 constexpr int64_t kRefireBits = 2048;
 
-inline int grid_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
 __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t m) {
   int64_t q = a / m;
   return (a % m != 0 && ((a < 0) != (m < 0))) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
-  int64_t r = a % m;
-  return r < 0 ? r + m : r;
 }
 
 // ---- K5: nexmark_bids ----------------------------------------------------

@@ -31,38 +31,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "window_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// L1 compaction tile: each thread owns kItems consecutive (row, window)
-// cells of the row-major grid
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
 // L2 radix sort: 8-bit digits, kRadixItems records per thread per pass
 constexpr int kRadixBits = 8;
 constexpr int kRadixDigits = 1 << kRadixBits;
 constexpr int kRadixItems = 16;
 constexpr int kRadixTile = kThreads * kRadixItems;
 constexpr int kScanThreads = 1024;
-constexpr int64_t kMaxBlocks = 132 * 8;
 // error-word bits (window_kernels.py ERROR_BITS decodes them)
 constexpr int32_t kErrScatterLanes = 8;
 constexpr int32_t kErrPairLanes = 16;
 constexpr int32_t kErrFireCap = 32;
 
 static_assert(kThreads == kRadixDigits, "one thread per radix digit");
-
-inline int grid_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
-  int64_t r = a % m;
-  return r < 0 ? r + m : r;
-}
 
 __device__ __forceinline__ float max_ieee(float a, float b) {
   if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
@@ -74,33 +58,6 @@ __device__ __forceinline__ float min_ieee(float a, float b) {
   if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
   if (a == b) return signbit(a) ? a : b;
   return a < b ? a : b;
-}
-
-__device__ __forceinline__ long long block_sum(long long v, long long* smem) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  long long r = 0;
-  for (int i = 0; i < kWarps; ++i) r += smem[i];
-  return r;
-}
-
-// exclusive prefix sum of v in thread order over a block of kThreads
-__device__ __forceinline__ int block_exclusive_scan(int v, int* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int n = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += n;
-  }
-  __syncthreads();
-  if (lane == 31) smem[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  for (int i = 0; i < warp; ++i) before += smem[i];
-  return before + incl - v;
 }
 
 // ---- L1: fire_pack ---------------------------------------------------------
@@ -124,22 +81,6 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* smem) {
 //      each selected cell's row and lanes. Block 0 writes the head. The
 //      rows land in exactly the order of the reference's stable argsort.
 
-__device__ __forceinline__ int32_t window_count(const int32_t* __restrict__ row, int32_t ring,
-                                                int64_t e, int64_t pane_lo, int64_t hi_cap,
-                                                int32_t ppw) {
-  const int64_t lo = e - ppw > pane_lo ? e - ppw : pane_lo;
-  const int64_t hi = e - 1 < hi_cap ? e - 1 : hi_cap;
-  int32_t acc = 0;
-  if (lo <= hi) {
-    int64_t col = floor_mod(lo, ring);
-    for (int64_t p = lo; p <= hi; ++p) {
-      acc += row[col];
-      if (++col == ring) col = 0;
-    }
-  }
-  return acc;
-}
-
 __global__ void fire_count_kernel(const int32_t* __restrict__ counts, int64_t rows, int32_t ring,
                                   const int64_t* __restrict__ end_panes,
                                   const uint8_t* __restrict__ w_valid, int32_t W,
@@ -148,7 +89,7 @@ __global__ void fire_count_kernel(const int32_t* __restrict__ counts, int64_t ro
                                   int32_t* __restrict__ block_counts) {
   __shared__ long long s_sum[kWarps];
   const int64_t K = rows * (int64_t)W;
-  const int64_t hi_cap = pane_hi < pane_lo + ring - 1 ? pane_hi : pane_lo + ring - 1;
+  const int64_t hi_cap = live_hi_cap(pane_lo, pane_hi, ring);
   const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
   long long c = 0;
   for (int j = 0; j < kItems; ++j) {

@@ -1,0 +1,90 @@
+// Device helpers shared by the window-operator kernel sources
+// (window_kernels.cu, lane_kernels.cu, devgen_kernels.cu): the launch
+// shape, block-wide sum and scan, and the window-count rule (which panes
+// of a window are live). Each .cu file includes this once, inside
+// no namespace of its own; everything here has internal linkage.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// compaction tile: each thread owns kItems consecutive (row, window)
+// cells, so a block covers kTile cells of the row-major grid
+constexpr int kItems = 4;
+constexpr int kTile = kThreads * kItems;
+// grid-stride kernels never launch more blocks than this (8 per SM on
+// the 132-SM card keeps every SM busy and the grid loop short)
+constexpr int64_t kMaxBlocks = 132 * 8;
+
+inline int grid_for(int64_t n) {
+  int64_t b = (n + kThreads - 1) / kThreads;
+  if (b < 1) b = 1;
+  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
+  int64_t r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// ---- block reductions / scan (kThreads threads) ---------------------------
+
+__device__ __forceinline__ long long block_sum(long long v, long long* smem) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // smem may still be read by a previous call
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  long long r = 0;
+  for (int i = 0; i < kWarps; ++i) r += smem[i];
+  return r;
+}
+
+// exclusive prefix sum of v in thread order (thread 0 gets 0)
+__device__ __forceinline__ int block_exclusive_scan(int v, int* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    int n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  __syncthreads();
+  if (lane == 31) smem[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  for (int i = 0; i < warp; ++i) before += smem[i];
+  return before + incl - v;
+}
+
+// ---- the window-count rule -------------------------------------------------
+// The last pane a fire may read: the ring holds panes [pane_lo, pane_lo +
+// ring - 1] at most, whatever pane_hi says.
+__host__ __device__ __forceinline__ int64_t live_hi_cap(int64_t pane_lo, int64_t pane_hi,
+                                                        int32_t ring) {
+  return pane_hi < pane_lo + ring - 1 ? pane_hi : pane_lo + ring - 1;
+}
+
+// The count of one row (``row`` = its ring columns) over the window ending
+// at pane e: panes [e - ppw, e) ∩ [pane_lo, hi_cap], each at column p mod
+// ring.
+__device__ __forceinline__ int32_t window_count(const int32_t* __restrict__ row, int32_t ring,
+                                                int64_t e, int64_t pane_lo, int64_t hi_cap,
+                                                int32_t ppw) {
+  const int64_t lo = e - ppw > pane_lo ? e - ppw : pane_lo;
+  const int64_t hi = e - 1 < hi_cap ? e - 1 : hi_cap;
+  int32_t acc = 0;
+  if (lo <= hi) {
+    int64_t col = floor_mod(lo, ring);
+    for (int64_t p = lo; p <= hi; ++p) {
+      acc += row[col];
+      if (++col == ring) col = 0;
+    }
+  }
+  return acc;
+}
+
+}  // namespace

@@ -28,33 +28,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "window_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// K3 compaction tile: each thread owns kItems consecutive (row, window)
-// cells, so a block covers kTile cells of the row-major grid
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
-// grid-stride kernels never launch more blocks than this (8 per SM on
-// the 132-SM card keeps every SM busy and the grid loop short)
-constexpr int64_t kMaxBlocks = 132 * 8;
 // error-word bits (window_kernels.py ERROR_BITS decodes them)
 constexpr int32_t kErrScatterIndex = 1;
 constexpr int32_t kErrRingColumn = 2;
 
-inline int grid_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
-  int64_t r = a % m;
-  return r < 0 ? r + m : r;
-}
-
-// ---- block reductions / scan (256 threads, 8 warps) ----------------------
+// ---- block max (kThreads threads) ----------------------------------------
 
 __device__ __forceinline__ float block_max(float v, float* smem) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -65,33 +47,6 @@ __device__ __forceinline__ float block_max(float v, float* smem) {
   float r = smem[0];
   for (int i = 1; i < kWarps; ++i) r = fmaxf(r, smem[i]);
   return r;
-}
-
-__device__ __forceinline__ long long block_sum(long long v, long long* smem) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  long long r = 0;
-  for (int i = 0; i < kWarps; ++i) r += smem[i];
-  return r;
-}
-
-// exclusive prefix sum of v in thread order (thread 0 gets 0)
-__device__ __forceinline__ int block_exclusive_scan(int v, int* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int n = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += n;
-  }
-  __syncthreads();
-  if (lane == 31) smem[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  for (int i = 0; i < warp; ++i) before += smem[i];
-  return before + incl - v;
 }
 
 // ---- K1: scatter_counts --------------------------------------------------
@@ -134,25 +89,12 @@ __global__ void window_counts_kernel(const int32_t* __restrict__ counts, int64_t
                                      int32_t* __restrict__ out) {
   const int64_t total = rows * (int64_t)W;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t hi_cap = pane_hi < pane_lo + ring - 1 ? pane_hi : pane_lo + ring - 1;
+  const int64_t hi_cap = live_hi_cap(pane_lo, pane_hi, ring);
   for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
     const int64_t r = t / W;
     const int32_t w = (int32_t)(t - r * W);
-    int32_t acc = 0;
-    if (w_valid[w]) {
-      const int64_t e = end_panes[w];
-      const int64_t lo = e - ppw > pane_lo ? e - ppw : pane_lo;
-      const int64_t hi = e - 1 < hi_cap ? e - 1 : hi_cap;
-      if (lo <= hi) {
-        const int32_t* row = counts + r * ring;
-        int64_t col = floor_mod(lo, ring);
-        for (int64_t p = lo; p <= hi; ++p) {
-          acc += row[col];
-          if (++col == ring) col = 0;
-        }
-      }
-    }
-    out[t] = acc;
+    out[t] = w_valid[w] ? window_count(counts + r * ring, ring, end_panes[w], pane_lo, hi_cap, ppw)
+                        : 0;
   }
 }
 
@@ -297,49 +239,27 @@ __global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t r
 }
 
 // ---- K4: ring_columns ----------------------------------------------------
-// dst[r, j] = keep[j] ? src[r, src_col[j]] : 0. The purge is the in-place
-// case (src == dst, src_col[j] == j, keep = ~clear_mask): kept cells are
-// not touched, so only the cleared cells cost a write. Ring growth is the
-// out-of-place case (new width). Bound: bytes — rows x cleared columns x
-// 4 written for the purge; one read of the kept columns plus one write
-// of the new tensor for a growth. A kept column whose src_col lies
-// outside the source is written as 0 and sets kErrRingColumn.
-__global__ void ring_columns_kernel(const int32_t* src, int32_t src_ring, int32_t* dst,
-                                    int32_t dst_ring, int64_t rows,
+// dst[r, j, l] = keep[j] ? src[r, src_col[j], l] : fill, over a
+// (rows, ring, width) lane: the int32 count lane (width 1, fill 0) or an
+// f32 sum, max or min lane with its identity (0, -inf, +inf) as the fill.
+// The purge is the in-place case (src == dst, src_col[j] == j, keep =
+// ~clear_mask): kept cells are not touched, so only the cleared cells
+// cost a write. Ring growth is the out-of-place case (new width). Bound:
+// bytes — rows x cleared columns x width x 4 written for the purge; one
+// read of the kept columns plus one write of the new tensor for a growth.
+// A kept column whose src_col lies outside the source is written as the
+// fill and sets kErrRingColumn.
+template <typename T>
+__global__ void ring_columns_kernel(const T* src, int32_t src_ring, T* dst, int32_t dst_ring,
+                                    int64_t rows, int32_t width,
                                     const int32_t* __restrict__ src_col,
-                                    const uint8_t* __restrict__ keep,
+                                    const uint8_t* __restrict__ keep, T fill,
                                     int32_t* __restrict__ err) {
-  const int64_t total = rows * (int64_t)dst_ring;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const bool in_place = src == dst;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const int64_t r = t / dst_ring;
-    const int32_t j = (int32_t)(t - r * dst_ring);
-    const int32_t s = src_col[j];
-    if (!keep[j]) {
-      dst[t] = 0;
-    } else if (s < 0 || s >= src_ring) {
-      dst[t] = 0;  // never read outside the source
-      if (r == 0) atomicOr(err, kErrRingColumn);
-    } else if (!(in_place && s == j)) {
-      dst[t] = src[r * src_ring + s];
-    }
-  }
-}
-
-// K4, f32 form: the same column map over a (rows, ring, width) sum, max
-// or min lane, with that lane's identity (0, -inf, +inf) as the fill.
-// Bound: bytes, as the int form, times the lane width.
-__global__ void ring_columns_f32_kernel(const float* src, int32_t src_ring, float* dst,
-                                        int32_t dst_ring, int64_t rows, int32_t width,
-                                        const int32_t* __restrict__ src_col,
-                                        const uint8_t* __restrict__ keep, float fill,
-                                        int32_t* __restrict__ err) {
   const int64_t total = rows * (int64_t)dst_ring * width;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const bool in_place = src == dst;
   for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const int64_t cell = t / width;
+    const int64_t cell = width == 1 ? t : t / width;
     const int32_t l = (int32_t)(t - cell * width);
     const int64_t r = cell / dst_ring;
     const int32_t j = (int32_t)(cell - r * dst_ring);
@@ -347,12 +267,24 @@ __global__ void ring_columns_f32_kernel(const float* src, int32_t src_ring, floa
     if (!keep[j]) {
       dst[t] = fill;
     } else if (s < 0 || s >= src_ring) {
-      dst[t] = fill;
+      dst[t] = fill;  // never read outside the source
       if (r == 0 && l == 0) atomicOr(err, kErrRingColumn);
     } else if (!(in_place && s == j)) {
       dst[t] = src[(r * src_ring + s) * width + l];
     }
   }
+}
+
+template <typename T>
+int launch_ring_columns(const T* src, int32_t src_ring, T* dst, int32_t dst_ring, int64_t rows,
+                        int32_t width, const int32_t* src_col, const uint8_t* keep, T fill,
+                        int32_t* err, void* stream) {
+  const int64_t total = rows * (int64_t)dst_ring * width;
+  if (total > 0) {
+    ring_columns_kernel<T><<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+        src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill, err);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -412,23 +344,15 @@ int fk_topn_select_append(const int32_t* wcounts, int64_t rows, int32_t W, const
 int fk_ring_columns(const int32_t* src, int32_t src_ring, int32_t* dst, int32_t dst_ring,
                     int64_t rows, const int32_t* src_col, const uint8_t* keep, int32_t* err,
                     void* stream) {
-  const int64_t total = rows * (int64_t)dst_ring;
-  if (total > 0) {
-    ring_columns_kernel<<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        src, src_ring, dst, dst_ring, rows, src_col, keep, err);
-  }
-  return (int)cudaGetLastError();
+  return launch_ring_columns<int32_t>(src, src_ring, dst, dst_ring, rows, 1, src_col, keep, 0, err,
+                                      stream);
 }
 
 int fk_ring_columns_f32(const float* src, int32_t src_ring, float* dst, int32_t dst_ring,
                         int64_t rows, int32_t width, const int32_t* src_col, const uint8_t* keep,
                         float fill, int32_t* err, void* stream) {
-  const int64_t total = rows * (int64_t)dst_ring * width;
-  if (total > 0) {
-    ring_columns_f32_kernel<<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill, err);
-  }
-  return (int)cudaGetLastError();
+  return launch_ring_columns<float>(src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill,
+                                    err, stream);
 }
 
 }  // extern "C"

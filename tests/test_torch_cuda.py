@@ -443,10 +443,12 @@ def test_fire_pack_overflow_sets_the_error_word(dev):
 
 @pytest.mark.parametrize("hot", [0.0, 0.3, 1.0])
 def test_scatter_lanes(dev, hot):
-    """2^20 records into 32,769 x 32 state: counts and max/min equal the
-    plain version exactly; sums within the bound of another order (the
-    plain index_add_ adds in no fixed order on the card); two kernel runs
-    agree bit for bit."""
+    """2^20 records into 32,769 x 32 state: every lane equals the plain
+    version on the CPU bit for bit (both add a cell's records in record
+    order; index_add_ on the CPU adds in index order); counts and max/min
+    equal the plain version on the card exactly, sums within the bound of
+    another order (its index_add_ adds in no fixed order there); two
+    kernel runs agree bit for bit."""
     from flink_tpu_torch.kernels import lane_kernels as lk
 
     rng = np.random.default_rng(int(hot * 10))
@@ -468,6 +470,11 @@ def test_scatter_lanes(dev, hot):
         assert _same_bits(t0, t1)
     for k in (0, 2, 3):
         assert _same_bits(runs[0][k], runs[2][k])
+    cpu = [torch.from_numpy(a.copy()) for a in (c, s, mx, mn)]
+    xc = torch.from_numpy(v[:, None].copy())
+    lk.scatter_lanes_plain(*cpu, torch.from_numpy(idx), xc, xc, xc)
+    for k in range(4):
+        assert _same_bits(runs[0][k], cpu[k])
     got, want = runs[0][1].double(), runs[2][1].double()
     n = torch.zeros(rows * ring, dtype=torch.float64, device=dev)
     n.index_add_(0, _t(idx, dev).long(), torch.ones(B, dtype=torch.float64,
