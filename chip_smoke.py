@@ -10,7 +10,8 @@ Phases, one JSON line each:
 
 1. ``build``   — compiles ``flink_tpu_torch/kernels/csrc/*.cu`` with nvcc
    (one process per source, started together) into
-   ``flink_tpu_torch/_build/``.
+   ``flink_tpu_torch/_build/``, and the host codec
+   ``flink_tpu_torch/native/codec.cc`` with g++ beside them.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (integers and max/min exactly, and sums where both add in one
    fixed order; the plain ``scatter_lanes`` adds with atomics on the
@@ -34,10 +35,20 @@ Phases, one JSON line each:
    batch, ``scatter_pair_lanes`` on its ~110k host-combined pairs,
    ``ring_columns`` over an f32 lane; and the count-lane kernels in
    WordCount's forms: ``scatter_counts`` per record on a 2^20-word batch
-   into 65,537 x 16 state, ``ring_columns`` growing 6 to 16 columns.
+   into 65,537 x 16 state, ``ring_columns`` growing 6 to 16 columns; the
+   native lane's kernels at the host-fed Q5 shapes: ``apply_pairs_u32``
+   on ~110k pair words into 32,769 x 32, ``apply_pairs_u16`` with pair
+   counts of 4095 and more, and ``fused_step`` (one upload: header + the
+   pair words; apply, fire of 1 or 11 window ends with top-1, purge) with
+   the fire gate on and off.
 3. ``q5``      — Nexmark Q5 hot items, host-fed, through the port's
    ``StreamExecutionEnvironment.execute()`` at the conf of
-   ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids.
+   ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids, through
+   the native lane (the C scan, then one ``fused_step`` per batch after
+   the first); then 4 batches on the numpy lane (the numpy key table,
+   ``scatter_counts``), 4 batches of hot-key bids (1,000 auctions, half
+   the bids on 10 of them: pair counts past 0xFFF, ``apply_pairs_u16``),
+   and a ``torch.profiler`` run of 4 native-lane batches.
 4. ``q5_devgen`` — the headline path: Q5 with bids made on the card, at
    ``confs/bench_q5_headline.conf`` (2^22-bid logical batches in 4
    sub-batches, 128 x 256 key slots) on 16 logical batches (67,108,864
@@ -94,7 +105,9 @@ WC_WARMUP_BATCHES = 4
 WC_RUNS = 3
 WC_VOCAB = 30_000
 AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
-KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels")
+KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels",
+                  "fused_kernels")
+Q5_SIDE_BATCHES = 4             # the numpy-lane, hot-key and profiled runs
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
     "scatter_counts": ("scatter_counts_kernel",),
@@ -111,6 +124,14 @@ PROFILED_KERNELS = {
                       "lanes_gather_kernel", "lanes_heads_kernel",
                       "lanes_fold_kernel"),
     "scatter_pair_lanes": ("pair_lanes_kernel",),
+    "apply_pairs_u32": ("apply_pairs_u32_kernel",),
+    "apply_pairs_u16": ("apply_pairs_u16_kernel",),
+    # the chain of one fused step; in a native-lane Q5 run the first
+    # batch's chunked fire adds its window_counts / top-n / purge kernels
+    "fused_step": ("fused_header_kernel", "apply_pairs_u32_kernel",
+                   "window_counts_kernel", "topn_threshold_kernel",
+                   "topn_count_kernel", "topn_write_kernel",
+                   "ring_columns_kernel"),
 }
 # the CUDA kernels of which one wrapper call launches exactly one: the
 # profile's count of wrapper calls (scatter_lanes runs its radix passes
@@ -120,6 +141,7 @@ CALL_KERNELS = {
     "ring_columns": ("ring_columns_kernel",),
     "fire_pack": ("fire_count_kernel",),
     "scatter_lanes": ("lanes_prep_kernel",),
+    "fused_step": ("fused_header_kernel",),
 }
 
 
@@ -153,11 +175,15 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def phase_build():
+    from flink_tpu_torch import native_codec
     from flink_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     build.build_all(KERNEL_SOURCES)
     out = {"phase": "build", "seconds": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    out["host_codec"] = {"library": os.path.relpath(native_codec.build(), ROOT),
+                         "seconds": time.perf_counter() - t1}
     for name in KERNEL_SOURCES:
         log = build.BUILD_LOG[name]
         out[name] = {
@@ -318,6 +344,8 @@ def phase_kernels(torch, np):
     extra = devgen_kernel_cases(torch, np, dev, record)
     wk.check_errors(dev)
     extra.update(lane_kernel_cases(torch, np, dev, record, out))
+    wk.check_errors(dev)
+    extra.update(fused_kernel_cases(torch, np, dev, record))
     wk.check_errors(dev)
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
@@ -763,6 +791,127 @@ def wordcount_kernel_cases(torch, np, dev, out):
     return {"wordcount_scatter_distinct_cells": cells}
 
 
+def fused_kernel_cases(torch, np, dev, record):
+    """The native lane's kernels at the host-fed Q5 shapes (128 x 256 key
+    slots + 1 dump row, a 32-column ring, 10,000 auctions, one batch's
+    ~110k host-combined pairs padded to 2^17 words): ``apply_pairs_u32``;
+    ``apply_pairs_u16`` on the same pairs with every 50th count raised
+    past 0xFFF; ``fused_step`` on the header + words upload with 1 and
+    with 11 window ends, the fire gate on and off. All exact."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.ops.window import preagg_encode_u16, preagg_encode_u32
+
+    rng = np.random.default_rng(SEED + 7)
+    slots, ring, ppw, n_keys = 128 * 256, 32, 10, 10_000
+    rows = slots + 1
+    pane_lo, pane_hi = 1000, 1020            # 21 live panes of the 32
+    key_rows = rng.choice(slots, n_keys, replace=False)
+    used = torch.zeros(rows, dtype=torch.bool, device=dev)
+    used[torch.from_numpy(key_rows).to(dev)] = True
+    counts_np = np.zeros((rows, ring), np.int32)
+    for p in range(pane_lo, pane_hi + 1):
+        counts_np[key_rows, p % ring] = rng.poisson(9.5, n_keys)
+    counts_np[key_rows[:100], :] *= 26
+    base = torch.from_numpy(counts_np).to(dev)
+    # the batch's pairs: every key x its 11 newest panes, host-combined
+    batch_panes = np.arange(pane_hi - 10, pane_hi + 1)
+    pairs = np.sort((key_rows[:, None] * ring
+                     + batch_panes[None, :] % ring).reshape(-1))
+    cnts = rng.poisson(9.5, len(pairs)) + 1
+    cap = 1 << 17
+    words = torch.from_numpy(preagg_encode_u32(pairs, cnts, cap)).to(dev)
+
+    def max_err(a, b):
+        return int((a.long() - b.long()).abs().max())
+
+    def pair_case(name, apply, plain, buf, cnt_values, nbytes, replaces):
+        a, b = base.clone(), base.clone()
+        apply(a, buf)
+        plain(b, buf)
+        torch.cuda.synchronize()
+        err = max_err(a, b)
+        check(err == 0, f"{name} differs from its plain version by {err}")
+        s1, s2, s3 = base.clone(), base.clone(), base.clone()
+        idx = torch.from_numpy(pairs).to(dev)
+        add = torch.from_numpy(cnt_values.astype(np.int32)).to(dev)
+        record(name, replaces, err,
+               time_ms(torch, lambda: apply(s1, buf)),
+               time_ms(torch, lambda: plain(s2, buf)),
+               time_ms(torch, lambda: s3.view(-1).index_add_(0, idx, add)),
+               nbytes, buf.shape[0], source="fused_kernels.cu")
+
+    # F1
+    pair_case("apply_pairs_u32",
+              lambda c, b: fk.apply_pairs_u32(c, b, slots),
+              lambda c, b: fk.apply_pairs_u32_plain(c, b, slots), words, cnts,
+              4 * cap + 8 * len(pairs), "flink_tpu/ops/window.py:190")
+    # F3: every 50th pair past 0xFFF, as a hot key's in the u16 form
+    cnts_used = cnts.copy()
+    cnts_used[::50] += 4095
+    triples = torch.from_numpy(preagg_encode_u16(pairs, cnts_used, cap)).to(dev)
+    pair_case("apply_pairs_u16", fk.apply_pairs_u16, fk.apply_pairs_u16_plain,
+              triples, cnts_used, 6 * cap + 8 * len(pairs),
+              "flink_tpu/ops/window.py:145")
+
+    # F2: one upload of header + words; the purge clears one column
+    def upload(n_ends):
+        hdr = np.zeros(fk.FUSED_HDR, np.int32)
+        hdr[:6] = np.array([pane_lo, pane_hi, pane_lo], np.int64).view(np.int32)
+        cw = np.array([1 << ((pane_lo - 1) % ring)], np.uint64).view(np.int32)
+        hdr[7], hdr[6] = cw[0], cw[1]
+        deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+        deltas[:n_ends] = np.arange(pane_hi + 2 - n_ends, pane_hi + 2) - pane_lo
+        hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+        return torch.cat([torch.from_numpy(hdr).to(dev), words])
+
+    cases = {}
+    for n_ends in (11, 1):
+        buf = upload(n_ends)
+        for gate in (True, False):
+            pad = min(fk.MIN_FIRE_PAD, 1 << (n_ends - 1).bit_length()) \
+                if gate else fk.MIN_FIRE_PAD
+            kw = dict(ppw=ppw, n=1, sel_cap=256, dump_row=slots,
+                      fire_gate=gate, fire_pad=pad)
+            st = [base.clone(), base.clone()]
+            er = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+                  for _ in range(2)]
+            fk.fused_step(st[0], er[0], buf, used, **kw)
+            fk.fused_step_plain(st[1], er[1], buf, used, **kw)
+            torch.cuda.synchronize()
+            err = max(max_err(st[0], st[1]), max_err(er[0][:-1], er[1][:-1]))
+            check(err == 0, f"fused_step ({n_ends} ends, gate {gate}) "
+                  f"differs from its plain version by {err}")
+            written = int(er[0][0, 0])
+            check(written >= n_ends, f"fused_step ring head {er[0][0].tolist()}")
+            s1, r1 = base.clone(), er[0].clone()
+            s2, r2 = base.clone(), er[1].clone()
+            ms = time_ms(torch, lambda: fk.fused_step(s1, r1, buf, used, **kw))
+            plain_ms = time_ms(torch, lambda: fk.fused_step_plain(
+                s2, r2, buf, used, **kw), iters=10, warmup=2)
+            # the bound moves the upload once, each pair's cell read and
+            # written once, the live columns the fire sums (each window's
+            # span of the 21 live panes), the used mask, the appended rows
+            # and the purged column; operations: one add a word and a pane
+            spans = [range(max(e - ppw, pane_lo), min(e - 1, pane_hi) + 1)
+                     for e in range(pane_hi + 2 - n_ends, pane_hi + 2)]
+            live_cols = len({p % ring for sp in spans for p in sp})
+            live = sum(len(sp) for sp in spans)
+            nbytes = (4 * buf.numel() + 8 * len(pairs) + 4 * rows * live_cols
+                      + rows + 12 * written + 8 + 4 * rows)
+            nops = buf.numel() + rows * live + rows * n_ends * 4
+            b_ms, by = bound_ms(nbytes, nops)
+            cases[f"ends{n_ends}_gate_{'on' if gate else 'off'}"] = {
+                "fire_pad": pad, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                "rows_appended": written}
+            if n_ends == 11 and gate:
+                record("fused_step", "flink_tpu/ops/window.py:587", err, ms,
+                       plain_ms, None, nbytes, nops, source="fused_kernels.cu")
+    return {"fused_step_cases": cases,
+            "fused_step_kernels_per_step": fk.FUSED_STEP_KERNELS,
+            "native_lane_pairs": len(pairs)}
+
+
 def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
     """(auction, window_end, count) rows: every window's max-count
     auctions, from per-(auction, pane) counts summed over the window.
@@ -788,59 +937,127 @@ def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
     return expect
 
 
-def phase_q5(torch, np):
+def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False):
+    """Q5 on host-made bids through ``env.execute()`` at
+    confs/bench_q5_host_fed.conf: (rows in commit order, launches,
+    JobResult, wall seconds). ``numpy_lane`` runs it with the numpy key
+    table (``NativeHashTable.create`` returning None, as the tests select
+    it), so no native lane."""
+    from flink_tpu_torch import native_codec
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
     from flink_tpu_torch.config import Configuration
     from flink_tpu_torch.kernels import window_kernels as wk
-    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream
+    from flink_tpu_torch.nexmark.generator import bid_stream
     from flink_tpu_torch.nexmark.queries import q5_hot_items
 
     conf = Configuration.from_file(
         os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
-    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=Q5_BATCHES,
-                        events_per_ms=100, num_active_auctions=10_000,
-                        hot_ratio=4)
     parts = []
     env = StreamExecutionEnvironment(conf)
     q5_hot_items(env, bid_stream(cfg), FnSink(
         lambda b: parts.append({k: np.asarray(v).copy() for k, v in b.items()})),
         window_ms=10_000, slide_ms=1_000, out_of_orderness_ms=1_000)
-    wk.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = env.execute("nexmark-q5-host-fed", device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(wk.LAUNCHES)
-    on_path = ("scatter_counts", "window_counts", "topn_select_append",
-               "ring_columns")
-    missing = [k for k in on_path if launches[k] == 0]
-    check(not missing, f"kernels not launched on the host-fed path: {missing}")
+    create = native_codec.NativeHashTable.__dict__["create"]
+    if numpy_lane:
+        native_codec.NativeHashTable.create = classmethod(
+            lambda cls, capacity_hint=1024: None)
+    try:
+        torch.cuda.synchronize()
+        wk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = env.execute(label, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        native_codec.NativeHashTable.create = create
     rows = [(int(a), int(w), int(c)) for p in parts
             for a, w, c in zip(p["auction"], p["window_end"], p["bid_count"])]
+    return rows, dict(wk.LAUNCHES), res, wall
+
+
+def check_q5_rows(np, rows, cfg, label):
     from flink_tpu_torch.nexmark.generator import bid_batch
 
     expect = q5_golden(
         np, ((d["auction"], t) for d, t in
              (bid_batch(cfg, 0, i) for i in range(cfg.n_batches))),
         cfg.num_active_auctions, window_panes=10, pane_ms=1000)
-    check(len(rows) == len(set(rows)), "duplicate committed rows")
+    check(len(rows) == len(set(rows)), f"{label}: duplicate committed rows")
     got = set(rows)
     check(got == expect,
-          f"Q5 rows differ from the golden: {len(got - expect)} extra, "
+          f"{label}: rows differ from the golden: {len(got - expect)} extra, "
           f"{len(expect - got)} missing of {len(expect)}")
-    busy = {k.split(".")[-1]: v for k, v in res.metrics.items()
-            if k.startswith("device_busy_ms.")}
-    events = Q5_BATCH * Q5_BATCHES
-    host = {k.split(".", 2)[-1]: v for k, v in res.metrics.items()
-            if k.startswith("profile.")}
-    emit({"phase": "q5", "events": events, "batches": Q5_BATCHES,
-          "wall_s": wall, "events_per_s": events / wall,
-          "rows": len(rows), "windows": len({w for _, w, _ in rows}),
-          "launches": launches, "device_busy_ms": busy,
-          "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
-          "host_profile_s": host})
-    return launches
+
+
+def q5_run_summary(rows, launches, res, wall, n_batches):
+    busy, host = busy_and_host(res)
+    events = Q5_BATCH * n_batches
+    return {"events": events, "batches": n_batches, "wall_s": wall,
+            "events_per_s": events / wall, "rows": len(rows),
+            "windows": len({w for _, w, _ in rows}), "launches": launches,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+            "host_profile_s": host,
+            "host_ms_per_batch": {k: v * 1e3 / n_batches
+                                  for k, v in host.items()}}
+
+
+def phase_q5(torch, np):
+    """Q5 host-fed at full width through the native lane (16 batches),
+    then 4 batches each on the numpy lane and on hot-key bids, and a
+    profiled native-lane run; every run checked against the golden."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig
+
+    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=Q5_BATCHES,
+                        events_per_ms=100, num_active_auctions=10_000,
+                        hot_ratio=4)
+    rows, launches, res, wall = run_q5_host_fed(torch, np, cfg,
+                                                "nexmark-q5-host-fed")
+    on_path = ("fused_step", "apply_pairs_u32", "window_counts",
+               "topn_select_append", "ring_columns")
+    missing = [k for k in on_path if launches[k] == 0]
+    check(not missing, f"kernels not launched on the native lane: {missing}")
+    check(launches["fused_step"] == Q5_BATCHES - 1,
+          f"{launches['fused_step']} fused steps for {Q5_BATCHES} batches "
+          "(one per batch after the first expected)")
+    side = dataclasses.replace(cfg, n_batches=Q5_SIDE_BATCHES)
+    n_rows, n_launches, n_res, n_wall = run_q5_host_fed(
+        torch, np, side, "q5-host-fed-numpy-lane", numpy_lane=True)
+    check(n_launches["scatter_counts"] > 0 and n_launches["fused_step"] == 0,
+          f"the numpy lane's launches {n_launches}")
+    # 1,000 auctions, half the bids on 10 of them: ~5,000 bids a pane
+    hot = dataclasses.replace(side, num_active_auctions=1_000, hot_ratio=2)
+    h_rows, h_launches, h_res, h_wall = run_q5_host_fed(torch, np, hot,
+                                                        "q5-hot-keys")
+    check(h_launches["apply_pairs_u16"] > 0,
+          f"no apply_pairs_u16 launch on hot keys: {h_launches}")
+    prof = profile_run(torch, lambda: run_q5_host_fed(
+        torch, np, side, "q5-host-fed-profiled")[3])
+    h_prof = profile_run(torch, lambda: run_q5_host_fed(
+        torch, np, hot, "q5-hot-keys-profiled")[3])
+    # the goldens' numpy work comes after the timed runs
+    check_q5_rows(np, rows, cfg, "Q5 native lane")
+    check_q5_rows(np, n_rows, side, "Q5 numpy lane")
+    check_q5_rows(np, h_rows, hot, "Q5 hot keys")
+    out = {"phase": "q5", "conf": "confs/bench_q5_host_fed.conf",
+           **q5_run_summary(rows, launches, res, wall, Q5_BATCHES),
+           "fused_steps_per_batch": launches["fused_step"] / Q5_BATCHES,
+           "fused_step_kernels_per_step": fk.FUSED_STEP_KERNELS,
+           "numpy_lane": q5_run_summary(n_rows, n_launches, n_res, n_wall,
+                                        Q5_SIDE_BATCHES),
+           "hot_keys": {"auctions": hot.num_active_auctions,
+                        "hot_ratio": hot.hot_ratio,
+                        **q5_run_summary(h_rows, h_launches, h_res, h_wall,
+                                         Q5_SIDE_BATCHES)},
+           "profiled": {"batches": Q5_SIDE_BATCHES, **prof},
+           "hot_keys_profiled": {"batches": Q5_SIDE_BATCHES, **h_prof},
+           "card": card_line()}
+    emit(out)
+    per_call = dict(h_prof["device_ms_per_call"])
+    per_call.update(prof["device_ms_per_call"])
+    return launches, n_launches, h_launches, per_call
 
 
 def run_devgen_q5(torch, np, conf, cfg, label):
@@ -1141,7 +1358,8 @@ def phase_wordcount(torch, np):
     for i in range(WC_RUNS):
         rows, launches, res, wall = run_wordcount(torch, np, WC_BATCHES,
                                                   f"wordcount-{i}")
-        missing = [k for k in ("scatter_counts", "fire_pack", "ring_columns")
+        missing = [k for k in ("scatter_counts", "apply_pairs_u32",
+                               "fire_pack", "ring_columns")
                    if launches[k] == 0]
         check(not missing, f"kernels not launched on WordCount: {missing}")
         runs.append((wall, rows, launches, res))
@@ -1335,17 +1553,24 @@ def main() -> int:
     try:
         phase_build()
         table = phase_kernels(torch, np)
-        host_fed = phase_q5(torch, np)
+        host_fed, numpy_lane, hot_keys, q5_per_call = phase_q5(torch, np)
         devgen, per_call = phase_q5_devgen(torch, np)
         wordcount, wc_per_call = phase_wordcount(torch, np)
         aggs, agg_per_call = phase_bid_aggs(torch, np)
-        paths = {"q5_host_fed": host_fed, "q5_devgen": devgen,
+        paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
+                 "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
                  "bid_aggs_b": aggs["b"]}
         # each kernel's count on its own main path: the headline (devgen)
-        # path for the Q5 kernels it runs, else host-fed Q5; fire_pack on
-        # WordCount; the two lane scatters on their bid-aggregate job
-        own_path = {"scatter_counts": "q5_host_fed", "fire_pack": "wordcount",
+        # path for the Q5 kernels it runs, else host-fed Q5; the fused
+        # step on host-fed Q5's native lane, scatter_counts on its numpy
+        # lane, apply_pairs_u16 on its hot keys; apply_pairs_u32 and
+        # fire_pack on WordCount; the two lane scatters on their
+        # bid-aggregate job
+        own_path = {"scatter_counts": "q5_numpy_lane",
+                    "fused_step": "q5_host_fed",
+                    "apply_pairs_u16": "q5_hot_keys",
+                    "apply_pairs_u32": "wordcount", "fire_pack": "wordcount",
                     "scatter_lanes": "bid_aggs_a",
                     "scatter_pair_lanes": "bid_aggs_b"}
         for row in table:
@@ -1354,7 +1579,8 @@ def main() -> int:
             # "ms" above is a launch loop, host-bound for short kernels)
             row["pipeline_device_ms"] = (per_call.get(name)
                                          or wc_per_call.get(name)
-                                         or agg_per_call.get(name))
+                                         or agg_per_call.get(name)
+                                         or q5_per_call.get(name))
             path = own_path.get(name, "q5_devgen")
             row["launches"] = paths[path][name] or host_fed[name]
             row["launches_path"] = path

@@ -32,6 +32,8 @@ class ConfigOption(Generic[T]):
         """File values arrive as strings; the default's type decides."""
         if not isinstance(raw, str):
             return raw
+        if isinstance(self.default, bool):
+            return raw.strip().lower() in ("1", "true", "yes", "on")  # type: ignore[return-value]
         if isinstance(self.default, int):
             return int(raw)  # type: ignore[return-value]
         return raw.strip()  # type: ignore[return-value]
@@ -53,6 +55,14 @@ class PipelineOptions:
         "pipeline.max-inflight-steps", 3,
         "Device steps (uploads + apply launches) allowed in flight "
         "before ingest waits on the oldest one's CUDA event.")
+    FIRE_GATE = ConfigOption(
+        "pipeline.fire-gate", True,
+        "Fire-gated fused steps: a host-fed top-n batch's one-upload "
+        "fused step skips its fire on the card when its header lists no "
+        "window end, and its purge when the clear mask is empty, and "
+        "sizes its fire to the ends it has. Committed output is the same "
+        "either way; false runs the fire and purge at full width on every "
+        "step.")
 
 
 class StateOptions:

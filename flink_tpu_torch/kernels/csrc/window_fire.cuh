@@ -1,0 +1,310 @@
+// The fire and purge kernels of the count lane, shared by the sources
+// that launch them: window_kernels.cu (K2-K4, each launched from the host
+// with its scalars as arguments) and fused_kernels.cu (F2, the one-upload
+// fused step, which launches the same kernels with their scalars and gates
+// read from a parameter block that a kernel decoded on the card from the
+// uploaded header). One body per kernel; a FireSource says where its
+// scalars come from. Include once, after window_common.cuh.
+#pragma once
+
+#include <math.h>
+
+#include "window_common.cuh"
+
+namespace {
+
+// error-word bit of ring_columns (window_kernels.py ERROR_BITS decodes it)
+constexpr int32_t kErrRingColumn = 2;
+
+// A fire's pane bounds and emit-ring anchor.
+struct FireScalars {
+  int64_t pane_lo, pane_hi, anchor;
+};
+
+// Where a fire kernel takes its scalars from, and whether it runs: the
+// values of a host launch (dev and run null), or the fused step's
+// parameter block in device memory (dev), with its gate word (run: the
+// kernel does nothing when *run == 0).
+struct FireSource {
+  FireScalars imm;
+  const FireScalars* dev;
+  const int32_t* run;
+
+  __device__ __forceinline__ FireScalars get() const { return dev != nullptr ? *dev : imm; }
+  __device__ __forceinline__ bool skip() const { return run != nullptr && *run == 0; }
+};
+
+inline FireSource host_fire(int64_t pane_lo, int64_t pane_hi, int64_t anchor) {
+  return FireSource{{pane_lo, pane_hi, anchor}, nullptr, nullptr};
+}
+
+// ---- block max (kThreads threads) ----------------------------------------
+
+__device__ __forceinline__ float block_max(float v, float* smem) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // smem may still be read by a previous call
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  float r = smem[0];
+  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, smem[i]);
+  return r;
+}
+
+// ---- K2: window_counts ---------------------------------------------------
+// out[r, w] = sum of counts[r, p mod ring] over panes p in
+// [end_w - ppw, end_w) ∩ [pane_lo, min(pane_hi, pane_lo + ring - 1)],
+// 0 where !w_valid[w]. The JAX kernel gets the same numbers from a ring
+// roll + cumsum + prefix difference (a TPU-friendly form); here each
+// thread owns one output cell and adds its window's live panes directly.
+// Bound: bytes — counts read once (rows x ring x 4) and the
+// (rows x W) output written once; neighbouring threads share a row, so
+// the repeated pane reads of overlapping windows hit L1/L2, not HBM.
+__global__ void window_counts_kernel(const int32_t* __restrict__ counts, int64_t rows,
+                                     int32_t ring, const int64_t* __restrict__ end_panes,
+                                     const uint8_t* __restrict__ w_valid, int32_t W,
+                                     FireSource src, int32_t ppw, int32_t* __restrict__ out) {
+  if (src.skip()) return;
+  const FireScalars s = src.get();
+  const int64_t total = rows * (int64_t)W;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t hi_cap = live_hi_cap(s.pane_lo, s.pane_hi, ring);
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
+    const int64_t r = t / W;
+    const int32_t w = (int32_t)(t - r * W);
+    out[t] = w_valid[w]
+                 ? window_count(counts + r * ring, ring, end_panes[w], s.pane_lo, hi_cap, ppw)
+                 : 0;
+  }
+}
+
+inline void launch_window_counts(const int32_t* counts, int64_t rows, int32_t ring,
+                                 const int64_t* end_panes, const uint8_t* w_valid, int32_t W,
+                                 FireSource src, int32_t ppw, int32_t* out, cudaStream_t s) {
+  const int64_t total = rows * (int64_t)W;
+  if (total > 0) {
+    window_counts_kernel<<<grid_for(total), kThreads, 0, s>>>(counts, rows, ring, end_panes,
+                                                             w_valid, W, src, ppw, out);
+  }
+}
+
+// ---- K3: topn_select_append ----------------------------------------------
+// Per window: candidates are cells with count > 0 on a registered row;
+// they rank by the count as f32 (what count().finalize gives the JAX
+// kernel). The threshold is the n-th largest candidate value with ties
+// counted (lax.top_k semantics), -inf when a window has fewer than n
+// candidates. Cells at or above it are selected, compacted in row-major
+// (row, window) order and appended to the emit ring.
+//
+// Bound: bytes — one read of the (rows x W) window counts plus the used
+// mask, and a few hundred bytes of appended rows. Design, three
+// launches on one stream:
+//   A  one block per window: up to n max-and-count rounds (n = 1 for Q5:
+//      one max and one count pass over the window's column);
+//   B  one block per kTile cells: count the selected cells;
+//   C  one block per kTile cells: each block sums the counts of the
+//      blocks before it (deterministic, no atomic cursor), scans its
+//      tile in thread order and writes its rows. Block 0 also moves the
+//      ring head. Rows land in exactly the order the JAX kernel's stable
+//      argsort gives.
+
+__device__ __forceinline__ bool topn_selected(const int32_t* __restrict__ wcounts, int64_t i,
+                                              int32_t W, const uint8_t* __restrict__ used,
+                                              const uint8_t* __restrict__ w_valid,
+                                              const float* __restrict__ thresh) {
+  const int64_t r = i / W;
+  const int32_t w = (int32_t)(i - r * W);
+  const int32_t c = wcounts[i];
+  return c > 0 && w_valid[w] && used[r] && (float)c >= thresh[w];
+}
+
+__global__ void topn_threshold_kernel(const int32_t* __restrict__ wcounts, int64_t rows,
+                                      int32_t W, const uint8_t* __restrict__ used,
+                                      const uint8_t* __restrict__ w_valid, int32_t n,
+                                      float* __restrict__ thresh,
+                                      const int32_t* __restrict__ ring,
+                                      long long* __restrict__ old_total, FireSource src) {
+  __shared__ float s_max[kWarps];
+  __shared__ long long s_sum[kWarps];
+  if (src.skip()) return;
+  const int32_t w = blockIdx.x;
+  if (w == 0 && threadIdx.x == 0) *old_total = ring[0];
+  float result = -INFINITY;
+  if (w_valid[w]) {
+    float ceiling = INFINITY;  // this round looks only below it
+    long long need = n;
+    for (int32_t round = 0; round < n; ++round) {
+      float m = -INFINITY;
+      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int32_t c = wcounts[r * W + w];
+        if (c > 0 && used[r]) {
+          const float v = (float)c;
+          if (v < ceiling && v > m) m = v;
+        }
+      }
+      m = block_max(m, s_max);
+      if (m == -INFINITY) break;  // fewer than n candidates
+      long long k = 0;
+      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int32_t c = wcounts[r * W + w];
+        if (c > 0 && used[r] && (float)c == m) ++k;
+      }
+      need -= block_sum(k, s_sum);
+      if (need <= 0) {
+        result = m;
+        break;
+      }
+      ceiling = m;
+    }
+  }
+  if (threadIdx.x == 0) thresh[w] = result;
+}
+
+__global__ void topn_count_kernel(const int32_t* __restrict__ wcounts, int64_t rows, int32_t W,
+                                  const uint8_t* __restrict__ used,
+                                  const uint8_t* __restrict__ w_valid,
+                                  const float* __restrict__ thresh,
+                                  int32_t* __restrict__ block_counts, FireSource src) {
+  __shared__ long long s_sum[kWarps];
+  if (src.skip()) return;
+  const int64_t K = rows * (int64_t)W;
+  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
+  long long c = 0;
+  for (int j = 0; j < kItems; ++j) {
+    const int64_t i = base + j;
+    if (i < K && topn_selected(wcounts, i, W, used, w_valid, thresh)) ++c;
+  }
+  c = block_sum(c, s_sum);
+  if (threadIdx.x == 0) block_counts[blockIdx.x] = (int32_t)c;
+}
+
+__global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t rows, int32_t W,
+                                  const uint8_t* __restrict__ used,
+                                  const uint8_t* __restrict__ w_valid,
+                                  const float* __restrict__ thresh,
+                                  const int32_t* __restrict__ block_counts, int32_t n_blocks,
+                                  const long long* __restrict__ old_total,
+                                  const int64_t* __restrict__ end_panes, FireSource src,
+                                  int32_t sel_cap, int32_t* __restrict__ ring,
+                                  int32_t row_cap, int32_t ring_cols) {
+  __shared__ long long s_sum[kWarps];
+  __shared__ int s_scan[kWarps];
+  if (src.skip()) return;
+  const int64_t anchor = src.get().anchor;
+  const int64_t K = rows * (int64_t)W;
+  long long before = 0;
+  for (int32_t b = threadIdx.x; b < (int32_t)blockIdx.x; b += blockDim.x) before += block_counts[b];
+  before = block_sum(before, s_sum);
+  const long long total = *old_total;
+  if (blockIdx.x == 0) {
+    long long all = 0;
+    for (int32_t b = threadIdx.x; b < n_blocks; b += blockDim.x) all += block_counts[b];
+    all = block_sum(all, s_sum);
+    if (threadIdx.x == 0) {
+      const long long written = all < sel_cap ? all : sel_cap;
+      ring[0] = (int32_t)(total + written);
+      ring[1] += (int32_t)(all - written);
+    }
+  }
+  if (before >= sel_cap) return;  // uniform per block: every row of it is truncated
+  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
+  bool sel[kItems];
+  int mine = 0;
+  for (int j = 0; j < kItems; ++j) {
+    const int64_t i = base + j;
+    sel[j] = i < K && topn_selected(wcounts, i, W, used, w_valid, thresh);
+    mine += sel[j];
+  }
+  long long pos = before + block_exclusive_scan(mine, s_scan);
+  for (int j = 0; j < kItems; ++j) {
+    if (!sel[j]) continue;
+    if (pos < sel_cap) {
+      const int64_t i = base + j;
+      const int64_t r = i / W;
+      const int32_t w = (int32_t)(i - r * W);
+      const int64_t slot = (total + pos) % row_cap + 1;
+      int32_t* dst = ring + slot * ring_cols;
+      dst[0] = (int32_t)r;
+      dst[1] = (int32_t)(end_panes[w] - anchor);
+      dst[2] = wcounts[i];
+    }
+    ++pos;
+  }
+}
+
+// scratch: thresh (W floats), block_counts (ceil(rows*W / kTile) int32),
+// old_total (one int64); returns the first launch error
+inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
+                       const int64_t* end_panes, const uint8_t* w_valid, FireSource src,
+                       int32_t n, int32_t sel_cap, int32_t* ring, int32_t ring_rows,
+                       int32_t ring_cols, float* thresh, int32_t* block_counts,
+                       long long* old_total, cudaStream_t s) {
+  const int64_t K = rows * (int64_t)W;
+  if (K <= 0 || W <= 0 || n <= 0) return (int)cudaGetLastError();
+  const int32_t n_blocks = (int32_t)((K + kTile - 1) / kTile);
+  topn_threshold_kernel<<<W, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, n, thresh, ring,
+                                               old_total, src);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  topn_count_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
+                                                   block_counts, src);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  topn_write_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
+                                                   block_counts, n_blocks, old_total, end_panes,
+                                                   src, sel_cap, ring, ring_rows - 2, ring_cols);
+  return (int)cudaGetLastError();
+}
+
+// ---- K4: ring_columns ----------------------------------------------------
+// dst[r, j, l] = keep[j] ? src[r, src_col[j], l] : fill, over a
+// (rows, ring, width) lane: the int32 count lane (width 1, fill 0) or an
+// f32 sum, max or min lane with its identity (0, -inf, +inf) as the fill.
+// The purge is the in-place case (src == dst, src_col[j] == j, keep =
+// ~clear_mask): kept cells are not touched, so only the cleared cells
+// cost a write. Ring growth is the out-of-place case (new width). Bound:
+// bytes — rows x cleared columns x width x 4 written for the purge; one
+// read of the kept columns plus one write of the new tensor for a growth.
+// A kept column whose src_col lies outside the source is written as the
+// fill and sets kErrRingColumn. ``run`` (null from a host launch) gates
+// the fused step's purge: nothing happens when *run == 0.
+template <typename T>
+__global__ void ring_columns_kernel(const T* src, int32_t src_ring, T* dst, int32_t dst_ring,
+                                    int64_t rows, int32_t width,
+                                    const int32_t* __restrict__ src_col,
+                                    const uint8_t* __restrict__ keep, T fill,
+                                    int32_t* __restrict__ err, const int32_t* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;
+  const int64_t total = rows * (int64_t)dst_ring * width;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const bool in_place = src == dst;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
+    const int64_t cell = width == 1 ? t : t / width;
+    const int32_t l = (int32_t)(t - cell * width);
+    const int64_t r = cell / dst_ring;
+    const int32_t j = (int32_t)(cell - r * dst_ring);
+    const int32_t s = src_col[j];
+    if (!keep[j]) {
+      dst[t] = fill;
+    } else if (s < 0 || s >= src_ring) {
+      dst[t] = fill;  // never read outside the source
+      if (r == 0 && l == 0) atomicOr(err, kErrRingColumn);
+    } else if (!(in_place && s == j)) {
+      dst[t] = src[(r * src_ring + s) * width + l];
+    }
+  }
+}
+
+template <typename T>
+int launch_ring_columns(const T* src, int32_t src_ring, T* dst, int32_t dst_ring, int64_t rows,
+                        int32_t width, const int32_t* src_col, const uint8_t* keep, T fill,
+                        int32_t* err, const int32_t* run, cudaStream_t s) {
+  const int64_t total = rows * (int64_t)dst_ring * width;
+  if (total > 0) {
+    ring_columns_kernel<T><<<grid_for(total), kThreads, 0, s>>>(
+        src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill, err, run);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

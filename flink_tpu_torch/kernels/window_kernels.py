@@ -19,7 +19,8 @@ kernel, the plain version and the JAX reference agree bit for bit.
 
 The launch counts, the error word, the library loader and the argument
 checks here serve every kernel module of the port
-(``devgen_kernels.py`` and ``lane_kernels.py`` too).
+(``devgen_kernels.py``, ``lane_kernels.py`` and ``fused_kernels.py``
+too).
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "fire_pack": 0,
     "scatter_lanes": 0,
     "scatter_pair_lanes": 0,
+    "apply_pairs_u32": 0,
+    "apply_pairs_u16": 0,
+    "fused_step": 0,
 }
 
 

@@ -1,0 +1,272 @@
+// Host ingest codec of the PyTorch/CUDA port: the C half of the window
+// operator's native lane (flink_tpu_torch/ops/window.py
+// _process_batch_fused), bound with ctypes by flink_tpu_torch/native_codec.py
+// and built from this file alone with g++ at first use.
+//
+// The port's own copy of the functions of native/codec.cc that the lane
+// runs, and nothing else: the key-directory hash table, the host pre-
+// combine, and the fused count-only ingest scan with its two finalizes.
+// The other codec functions (tokenizer, parsers, socket reader, CRC, the
+// Nexmark generator) come with the slices that need them.
+//
+// Interface is plain C: the Python side passes raw numpy buffers.
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// int64 -> int64 open-addressing hash table: the key-directory probe loop
+// (ref role: CopyOnWriteStateMap.get/put — the per-record state-map probe —
+// batched and compiled; state/keyed.py _NumpyHashTable is the numpy form
+// with the same probe order). The mix MUST stay bit-identical to
+// flink_tpu_torch/records.py hash_keys_numpy: the key shard of a key is
+// that hash modulo the shard count on every path.
+
+static inline uint64_t ht_mix(uint64_t x) {
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
+  x = x ^ (x >> 31);
+  return x & 0x7FFFFFFFFFFFFFFFULL;
+}
+
+struct FtHashTable {
+  int64_t* keys;
+  int64_t* vals;
+  uint8_t* used;
+  uint64_t mask;   // size - 1
+  int64_t count;
+};
+
+static void ht_alloc(FtHashTable* t, uint64_t size) {
+  t->keys = (int64_t*)calloc(size, sizeof(int64_t));
+  t->vals = (int64_t*)calloc(size, sizeof(int64_t));
+  t->used = (uint8_t*)calloc(size, 1);
+  t->mask = size - 1;
+  t->count = 0;
+}
+
+static void ht_grow(FtHashTable* t) {
+  FtHashTable old = *t;
+  ht_alloc(t, (old.mask + 1) * 2);
+  for (uint64_t i = 0; i <= old.mask; ++i) {
+    if (!old.used[i]) continue;
+    uint64_t ix = ht_mix((uint64_t)old.keys[i]) & t->mask;
+    while (t->used[ix]) ix = (ix + 1) & t->mask;
+    t->keys[ix] = old.keys[i];
+    t->vals[ix] = old.vals[i];
+    t->used[ix] = 1;
+    ++t->count;
+  }
+  free(old.keys); free(old.vals); free(old.used);
+}
+
+void* ht_new(int64_t capacity_hint) {
+  uint64_t size = 16;
+  while ((int64_t)size < capacity_hint * 2) size *= 2;
+  FtHashTable* t = (FtHashTable*)malloc(sizeof(FtHashTable));
+  ht_alloc(t, size);
+  return t;
+}
+
+void ht_free(void* h) {
+  FtHashTable* t = (FtHashTable*)h;
+  free(t->keys); free(t->vals); free(t->used); free(t);
+}
+
+int64_t ht_count(void* h) { return ((FtHashTable*)h)->count; }
+
+// Batch lookup; hashes computed inline. out_vals[i] untouched-where-miss
+// semantics are NOT provided: misses write -1 and out_found[i]=0 (vals may
+// legitimately be negative sentinels, so found is a separate byte).
+void ht_lookup(void* h, const int64_t* keys, int64_t n,
+               int64_t* out_vals, uint8_t* out_found) {
+  FtHashTable* t = (FtHashTable*)h;
+  for (int64_t i = 0; i < n; ++i) {
+    uint64_t ix = ht_mix((uint64_t)keys[i]) & t->mask;
+    for (;;) {
+      if (!t->used[ix]) { out_vals[i] = -1; out_found[i] = 0; break; }
+      if (t->keys[ix] == keys[i]) {
+        out_vals[i] = t->vals[ix]; out_found[i] = 1; break;
+      }
+      ix = (ix + 1) & t->mask;
+    }
+  }
+}
+
+// Batch insert-or-update (keys need not be distinct; later wins).
+void ht_insert(void* h, const int64_t* keys, const int64_t* vals, int64_t n) {
+  FtHashTable* t = (FtHashTable*)h;
+  for (int64_t i = 0; i < n; ++i) {
+    if ((t->count + 1) * 2 > (int64_t)(t->mask + 1)) ht_grow(t);
+    uint64_t ix = ht_mix((uint64_t)keys[i]) & t->mask;
+    for (;;) {
+      if (!t->used[ix]) {
+        t->keys[ix] = keys[i]; t->vals[ix] = vals[i]; t->used[ix] = 1;
+        ++t->count;
+        break;
+      }
+      if (t->keys[ix] == keys[i]) { t->vals[ix] = vals[i]; break; }
+      ix = (ix + 1) & t->mask;
+    }
+  }
+}
+
+// splitmix64 finalizer over a batch (hash_keys_numpy fast path).
+void hash_keys(const int64_t* keys, int64_t n, int64_t* out) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = (int64_t)ht_mix((uint64_t)keys[i]);
+}
+
+// Host pre-aggregation combine (mini-batch local aggregation, the
+// window operator's upload shrinker): histogram one microbatch per
+// (slot, ring-column) pair, with optional f64-accumulated sum lanes
+// per pair. ``hist`` (domain i32) and ``lane_acc`` (domain*nlanes f64)
+// are caller-owned workspaces that must be ZERO on entry; every touched
+// entry is reset before returning, so steady-state calls never pay a
+// full-domain clear. ``lanes`` is lane-major: lanes[l*n + i].
+// Returns the distinct-pair count, or -1 when it exceeds ``cap`` — in
+// that case recording stopped at cap and the workspaces are left DIRTY:
+// the caller must re-zero them before the next call.
+int64_t preagg_combine(int64_t n, const int64_t* slots, const int64_t* panes,
+                       const uint8_t* valid, int64_t ring, int64_t domain,
+                       int64_t nlanes, const double* lanes,
+                       int32_t* hist, double* lane_acc,
+                       int32_t* out_pairs, int32_t* out_counts,
+                       float* out_lanes, int64_t cap) {
+  int64_t np_ = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (!valid[i]) continue;
+    int64_t pm = panes[i] % ring;
+    if (pm < 0) pm += ring;
+    int64_t p = slots[i] * ring + pm;  // caller guarantees p < domain
+    if (hist[p] == 0) {
+      if (np_ >= cap) return -1;  // workspaces dirty; caller re-zeros
+      out_pairs[np_++] = (int32_t)p;
+    }
+    hist[p] += 1;
+    for (int64_t l = 0; l < nlanes; ++l)
+      lane_acc[p * nlanes + l] += lanes[l * n + i];
+  }
+  for (int64_t j = 0; j < np_; ++j) {
+    int64_t p = out_pairs[j];
+    out_counts[j] = hist[p];
+    hist[p] = 0;
+    for (int64_t l = 0; l < nlanes; ++l) {
+      out_lanes[j * nlanes + l] = (float)lane_acc[p * nlanes + l];
+      lane_acc[p * nlanes + l] = 0.0;
+    }
+  }
+  return np_;
+}
+
+// Fully-fused count-only ingest: key->slot directory probe (the open-
+// addressing table above) + event-time pane + late/refire accounting +
+// (slot, ring-column) histogram in ONE scan over (keys, ts) — no
+// separate slots array (8 MB per 2^20 batch) is written and read again.
+//
+// Records whose key is NOT in the table are skipped and their indices
+// written to out_miss (caller registers the new keys, then re-invokes
+// over the miss subset with np_in continuing — at steady state with a
+// bounded key domain the miss list is empty). Keys mapped to a
+// NEGATIVE slot (directory FULL sentinel) count into n_bad exactly as
+// the unfused path did.
+//
+// stats accumulate ACROSS calls: [n_valid, n_late, n_bad, pmin, pmax,
+// n_refire, n_miss, cmax]; the caller seeds pmin=INT64_MAX,
+// pmax=INT64_MIN, rest 0. Returns the running distinct-pair count, or
+// -1 on pair-cap overflow / -2 on miss-cap overflow (workspace left
+// dirty; caller re-zeros and falls back).
+int64_t ingest_fused_scan(
+    int64_t n, const int64_t* keys, const int64_t* ts, void* ht,
+    int64_t pane_ms, int64_t offset_ms, int64_t ring,
+    int64_t dead_below, int64_t refire_below,
+    int32_t* hist, int32_t* out_pairs, int64_t np_in, int64_t cap,
+    int64_t* stats, uint8_t* refire_bitmap, int64_t bitmap_base,
+    int64_t bitmap_len, int64_t* out_miss, int64_t miss_cap) {
+  FtHashTable* t = (FtHashTable*)ht;
+  int64_t np_ = np_in, n_valid = 0, n_late = 0, n_bad = 0;
+  int64_t n_refire = 0, n_miss = stats[6];
+  int64_t pmin = stats[3], pmax = stats[4], cmax = stats[7];
+  for (int64_t i = 0; i < n; ++i) {
+    // probe first: an unknown key must reach the miss list even when
+    // its record is late (registration is not drop-sensitive)
+    uint64_t ix = ht_mix((uint64_t)keys[i]) & t->mask;
+    int64_t slot;
+    for (;;) {
+      if (!t->used[ix]) { slot = INT64_MIN; break; }  // miss
+      if (t->keys[ix] == keys[i]) { slot = t->vals[ix]; break; }
+      ix = (ix + 1) & t->mask;
+    }
+    if (slot == INT64_MIN) {
+      if (n_miss >= miss_cap) return -2;
+      out_miss[n_miss++] = i;
+      continue;
+    }
+    int64_t tt = ts[i] - offset_ms;
+    int64_t pane = tt / pane_ms - ((tt % pane_ms) < 0 ? 1 : 0);
+    if (pane < dead_below) { ++n_late; continue; }
+    if (slot < 0) { ++n_bad; continue; }
+    ++n_valid;
+    if (pane < pmin) pmin = pane;
+    if (pane > pmax) pmax = pane;
+    if (pane < refire_below) {
+      int64_t off = pane - bitmap_base;
+      if (off >= 0 && off < bitmap_len * 8) {
+        refire_bitmap[off >> 3] |= (uint8_t)(1u << (off & 7));
+        ++n_refire;
+      }
+    }
+    int64_t col = pane % ring;
+    if (col < 0) col += ring;
+    int64_t p = slot * ring + col;
+    if (hist[p] == 0) {
+      if (np_ >= cap) return -1;
+      out_pairs[np_++] = (int32_t)p;
+    }
+    if (++hist[p] > cmax) cmax = hist[p];
+  }
+  stats[0] += n_valid;
+  stats[1] += n_late;
+  stats[2] += n_bad;
+  stats[3] = pmin;
+  stats[4] = pmax;
+  stats[5] += n_refire;
+  stats[6] = n_miss;
+  stats[7] = cmax;
+  return np_;
+}
+
+// Finalize a fused scan into the packed u32 upload buffer the device
+// kernel consumes: out_u32[hdr + j] = (pair << 12) | count for the np_
+// recorded pairs, -1 padding elsewhere (header region included — the
+// pending advance fills it before dispatch). Resets every touched hist
+// entry, so steady-state calls never pay a full-domain clear.
+// Precondition: every count < 0xFFF (the caller checked stats[7]).
+void ingest_fused_finalize_u32(
+    int64_t np_, int32_t* hist, const int32_t* out_pairs,
+    int32_t* out_u32, int64_t hdr, int64_t cap_out) {
+  for (int64_t j = 0; j < hdr; ++j) out_u32[j] = -1;
+  for (int64_t j = 0; j < np_; ++j) {
+    int32_t p = out_pairs[j];
+    out_u32[hdr + j] = (int32_t)(((uint32_t)p << 12) | (uint32_t)hist[p]);
+    hist[p] = 0;
+  }
+  for (int64_t j = hdr + np_; j < hdr + cap_out; ++j) out_u32[j] = -1;
+}
+
+// Finalize into separate (pairs, counts) arrays — the fallback when a
+// count overflows the u32 pack's 12-bit field (u16/i32 encode paths).
+void ingest_fused_finalize_pairs(
+    int64_t np_, int32_t* hist, const int32_t* out_pairs,
+    int32_t* out_counts) {
+  for (int64_t j = 0; j < np_; ++j) {
+    int32_t p = out_pairs[j];
+    out_counts[j] = hist[p];
+    hist[p] = 0;
+  }
+}
+
+}  // extern "C"

@@ -16,6 +16,7 @@ class OperatorBuildContext:
     slots_per_shard: int
     max_inflight_steps: int
     max_out_of_orderness_ms: int
+    fire_gate: bool
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
@@ -29,5 +30,6 @@ def _window_factory(node, ctx: OperatorBuildContext):
         max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
         top_n=t.top_n,
         max_inflight_steps=ctx.max_inflight_steps,
+        fire_gate=ctx.fire_gate,
         device=ctx.device,
     )

@@ -2,16 +2,28 @@
 an int32 ``(rows, ring)`` count lane plus the aggregate's f32 ``(rows,
 ring, width)`` sum, max and min lanes.
 
-Per batch the host assigns each record a key slot and a pane. When every
-lane is a host-combinable sum (count, sum, avg) and the combined upload
-is decisively smaller, the host combines the batch per (slot, pane-ring
-column) pair (``preagg_combine``) and ``scatter_counts`` (count only) or
-``scatter_pair_lanes`` folds the pairs in; otherwise one flat cell index
-per record goes up with the fields the aggregate reads, ``lift_masked``
-lifts them on the device and ``scatter_counts`` (count only) or
-``scatter_lanes`` folds them in.
+Per batch the host assigns each record a key slot and a pane. A
+count-only batch first tries the native lane (``_process_batch_fused``,
+when the key directory holds the C table of the port's host codec): one
+C scan probes the keys, computes panes, late and re-fire accounting and
+the per-(slot, ring column) histogram, and C writes the pair words
+``pair << 12 | count`` into a reused pinned buffer. With top-n those
+words are stashed, and the next watermark advance fills the buffer's
+header and runs apply + fire + top-n + purge as one upload and one
+``fused_step`` call; without top-n ``apply_pairs_u32`` folds them in,
+and a pair count of 0xFFF or more goes up as uint16 triples to
+``apply_pairs_u16``. Otherwise (the general path): when every lane is a
+host-combinable sum (count, sum, avg) and the combined upload is
+decisively smaller, the host combines the batch per (slot, pane-ring
+column) pair — in C on the native lane, then the same word forms; with
+the numpy key table in numpy, then an int32 index + count upload to
+``scatter_counts`` — and ``scatter_pair_lanes`` folds sum lanes in;
+otherwise one flat cell index per record goes up with the fields the
+aggregate reads, ``lift_masked`` lifts them on the device and
+``scatter_counts`` (count only) or ``scatter_lanes`` folds them in.
 
-A watermark advance fires every window it completes. With ``.top(n)``
+A watermark advance fires every window it completes (over a stashed
+native-lane batch, inside its fused step). With ``.top(n)``
 (count only): ``window_counts`` sums each window's live panes for all
 rows at once and ``topn_select_append`` appends each window's top-n
 rows to a device-resident emit ring, which the host reads through
@@ -51,10 +63,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flink_tpu_torch import native_codec as nc
 from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.config import PipelineOptions
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.kernels import devgen_kernels as dk
+from flink_tpu_torch.kernels import fused_kernels as fk
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
@@ -66,10 +80,12 @@ from flink_tpu_torch.time.watermarks import LONG_MIN
 # host-fed advances fire in chunks of this many windows, each chunk one
 # window_counts + topn_select_append pair (the reference's numpy path)
 MAX_FIRE_CHUNK_RING = 16
-# an advance over a device-made batch fires up to this many windows in
-# one pair, as the reference's one-dispatch step does (its header has
-# this many window slots); more go in chunks
-MIN_FIRE_PAD = 64
+# an advance over a device-made or stashed native-lane batch fires up to
+# this many windows in one pass, as the reference's one-dispatch steps do
+# (the fused step's header has this many window slots); more go in chunks
+MIN_FIRE_PAD = fk.MIN_FIRE_PAD
+# header words ahead of the pair words of a native-lane upload
+FUSED_HDR = fk.FUSED_HDR
 # fires without top-n go in chunks of this many windows, one fire_pack
 # buffer each; also the top-n winner capacity factor (_topn_cap)
 MAX_FIRE_CHUNK = 4
@@ -107,6 +123,31 @@ def preagg_combine(slots: np.ndarray, cols: np.ndarray, valid: np.ndarray,
                          minlength=len(pairs)).astype(np.float32)
              for f in sum_fields]
     return pairs, cnts.astype(np.int32), lanes
+
+
+def preagg_encode_u16(pairs: np.ndarray, cnts: np.ndarray,
+                      cap: int) -> np.ndarray:
+    """(pairs, counts) as one ``(cap, 3)`` uint16 upload ``[pair lo16,
+    pair hi16, count]``; padding rows carry the 0xFFFF/0xFFFF pair
+    (``apply_pairs_u16``)."""
+    n = len(pairs)
+    buf = np.empty((cap, 3), np.uint16)
+    pu = pairs.astype(np.uint32)
+    buf[:n, 0] = pu & 0xFFFF
+    buf[:n, 1] = pu >> 16
+    buf[:n, 2] = cnts.astype(np.uint16)
+    buf[n:] = 0xFFFF
+    return buf
+
+
+def preagg_encode_u32(pairs: np.ndarray, cnts: np.ndarray,
+                      cap: int) -> np.ndarray:
+    """(pairs, counts) as ``cap`` int32 words ``pair << 12 | count``,
+    padded with -1 (``apply_pairs_u32``); every count < 0xFFF."""
+    buf = np.full(cap, -1, np.int32)
+    buf[:len(pairs)] = (pairs.astype(np.int64) << 12
+                        | cnts.astype(np.int64)).astype(np.uint32).view(np.int32)
+    return buf
 
 
 def preagg_encode_i32(pairs: np.ndarray, cnts: np.ndarray,
@@ -298,6 +339,59 @@ class PinnedStage:
         return dev.view(t.dtype).view(t.shape)
 
 
+class PairStage:
+    """The native lane's pair words through a few reused pinned host
+    buffers of ``FUSED_HDR + 2^21`` int32 words: the C finalize writes a
+    batch's words straight into one (through a numpy view), and a buffer
+    is rewritten only once the copy that last read it has landed (its
+    CUDA event). The stashed batch's buffer is held until its fused step
+    uploads it. On the CPU the buffers are plain memory and an upload is
+    a view of the buffer."""
+
+    SLOTS = 2
+    WORDS = FUSED_HDR + (1 << 21)
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._host: List[Optional[torch.Tensor]] = [None] * self.SLOTS
+        self._events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._held: Optional[int] = None
+        self._next = 0
+
+    def acquire(self) -> Tuple[int, np.ndarray]:
+        """(slot, its whole buffer as writable numpy), once free: never
+        the held slot, and never before its last copy has landed."""
+        i = self._next
+        if i == self._held:
+            i = (i + 1) % self.SLOTS
+        self._next = (i + 1) % self.SLOTS
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        if self._host[i] is None:
+            self._host[i] = torch.empty(
+                self.WORDS, dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
+        return i, self._host[i].numpy()
+
+    def hold(self, i: Optional[int]) -> None:
+        """Keep slot ``i`` (None: none) from ``acquire``: a stash."""
+        self._held = i
+
+    def upload(self, i: int, lo: int, hi: int) -> torch.Tensor:
+        """Words ``[lo, hi)`` of slot ``i`` on the device: one
+        non-blocking copy, after which the slot's event is recorded."""
+        t = self._host[i][lo:hi]
+        if self.device.type == "cpu":
+            return t
+        dev = torch.empty(hi - lo, dtype=torch.int32, device=self.device)
+        dev.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[i] = ev
+        return dev
+
+
 class DeviceTimer:
     """Busy time of the device per launch group, from a CUDA event pair
     recorded around each group on the current stream. Completed pairs
@@ -358,6 +452,7 @@ class WindowOperator:
         max_out_of_orderness_ms: int = 0,
         top_n: Optional[Tuple[str, int]] = None,
         max_inflight_steps: int = PipelineOptions.MAX_INFLIGHT_STEPS.default,
+        fire_gate: bool = PipelineOptions.FIRE_GATE.default,
         device: "str | torch.device" = "cuda",
     ) -> None:
         if getattr(assigner, "is_processing_time", False) \
@@ -422,6 +517,17 @@ class WindowOperator:
         # CUDA event once more than this many are outstanding
         self.max_inflight_steps = int(max_inflight_steps)
         self._inflight: collections.deque = collections.deque()
+        # pipeline.fire-gate: a fused step skips its fire on the card when
+        # the header lists no window end, and its purge when the clear
+        # mask is empty; it also sizes the fire to the ends it has
+        # (_fire_pad_bucket). The bytes are the same either way.
+        self.fire_gate = bool(fire_gate)
+        # native lane: a count-only top-n batch's pair words (pinned slot,
+        # the buffer) waiting for the next advance's fused step, the
+        # pinned buffers, and the C scan's zeroed workspace
+        self._stash: Optional[Tuple[int, np.ndarray]] = None
+        self._pairs = PairStage(self.device)
+        self._preagg_ws: Optional[nc.PreaggWorkspace] = None
         # device emit ring: row 0 = head [total appended, truncated, 0],
         # rows 1..EMIT_RING_ROWS = data, last row reserved
         self._emit_ring: Optional[torch.Tensor] = None
@@ -464,6 +570,11 @@ class WindowOperator:
                       valid: Optional[np.ndarray] = None) -> None:
         """Fold a batch in. Late-beyond-lateness rows are dropped and
         counted; late-within-lateness rows schedule re-fires."""
+        if (self._preagg_lanes() == ()
+                and (valid is None or bool(np.all(valid)))
+                and self._process_batch_fused(keys, ts)):
+            return
+        self._flush_stash()
         t0 = time.perf_counter()
         keys = np.asarray(keys, dtype=np.int64)
         ts = np.asarray(ts, dtype=np.int64)
@@ -507,16 +618,10 @@ class WindowOperator:
         t2 = time.perf_counter()
         ring = self.plan.ring
         lanes_f = self._preagg_lanes()
-        if lanes_f is not None and self._preagg_gate(panes, valid, lanes_f):
-            pairs, cnts, sums = preagg_combine(slots, panes % ring, valid,
-                                               ring, data, lanes_f)
-            if lanes_f:
-                pairs = preagg_encode_i32(pairs, cnts, sums)
-            self.prof["preagg_combine"] += time.perf_counter() - t2
-            if lanes_f:
-                self._apply_pairs(pairs)
-            else:
-                self._apply_cells(pairs, cnts)
+        cap = (self._preagg_gate(panes, valid, lanes_f)
+               if lanes_f is not None else 0)
+        if cap:
+            self._preagg_dispatch(slots, panes, valid, data, lanes_f, cap)
         else:
             # per-record: one flat cell index per valid record (plus the
             # fields the aggregate reads); invalid records never leave
@@ -547,21 +652,287 @@ class WindowOperator:
         return None
 
     def _preagg_gate(self, panes: np.ndarray, valid: np.ndarray,
-                     lanes_f: Tuple[str, ...]) -> bool:
+                     lanes_f: Tuple[str, ...]) -> int:
         """Combine on the host when the pair buffer is decisively smaller
         than the per-record upload (the reference's gate: 6 bytes per
         count-only pair bucket, 4 per column of an ``[pair, count, sum
-        lanes...]`` row, against 2 bytes per record)."""
+        lanes...]`` row, against 2 bytes per record): the pair capacity
+        when it is, else 0."""
         nv = int(valid.sum())
         if nv == 0:
-            return False
+            return 0
         pv = panes[valid]
         span = int(pv.max() - pv.min()) + 1
         nk = self.directory.num_keys()
         bound = min(nv, max(nk, 1) * min(span, self.plan.ring))
         bpp = 6 if not lanes_f else 4 * (2 + len(lanes_f))
         cap = _next_pow2(max(bound, 256))
-        return bpp * cap <= 2 * len(panes)
+        return cap if bpp * cap <= 2 * len(panes) else 0
+
+    def _preagg_dispatch(self, slots: np.ndarray, panes: np.ndarray,
+                         valid: np.ndarray, data: Dict[str, np.ndarray],
+                         lanes_f: Tuple[str, ...], cap: int) -> None:
+        """The general path's host combine: in C on the native lane (at
+        most ``cap`` pairs; more fall back to numpy, as in the
+        reference), in numpy with the numpy key table; then sum lanes as
+        one ``(P, 2 + S)`` upload, count-only pairs in the native lane's
+        word forms (``_apply_combined``) or, on the numpy lane, as an
+        int32 index + count upload."""
+        t0 = time.perf_counter()
+        ring = self.plan.ring
+        native = None
+        if self.directory.native() and cap <= (1 << 21):
+            ws = self._workspace(self.layout.slots * ring, len(lanes_f))
+            native = nc.preagg_combine_native(
+                slots, panes, valid, [data[f] for f in lanes_f], ring, ws, cap)
+        if native is not None:
+            pairs, cnts, sums = native
+        else:
+            pairs, cnts, sums = preagg_combine(slots, panes % ring, valid,
+                                               ring, data, lanes_f)
+        self.prof["preagg_combine"] += time.perf_counter() - t0
+        if lanes_f:
+            self._apply_pairs(preagg_encode_i32(pairs, cnts, sums))
+        elif native is not None:
+            self._apply_combined(pairs, cnts)
+        else:
+            self._apply_cells(pairs, cnts)
+
+    def _workspace(self, domain: int, nlanes: int) -> nc.PreaggWorkspace:
+        ws = self._preagg_ws
+        if ws is None or ws.domain != domain or ws.nlanes != nlanes:
+            ws = self._preagg_ws = nc.PreaggWorkspace(domain, nlanes)
+        return ws
+
+    # -- native lane --------------------------------------------------------
+    def _fused_ok(self) -> bool:
+        """The fused step exists for top-n operators whose ring fits the
+        header's 64-bit clear mask."""
+        return self._topn is not None and self.plan.ring <= fk.MAX_FUSED_RING
+
+    def _process_batch_fused(self, keys: np.ndarray, ts: np.ndarray) -> bool:
+        """Count-only ingest in one C scan (``ingest_fused_scan``): the
+        key probe, panes, late and re-fire accounting and the (slot, ring
+        column) histogram, then the pair words written by C. Returns
+        False — with no pane state touched, at most new keys registered,
+        as ``assign`` would — when the directory holds the numpy table,
+        the batch looks high-cardinality (the pair capacity is not
+        decisively below the batch), the pairs overflow it, or the
+        re-fire span is degenerate; the caller then runs the general
+        path. The reference's gates and order, rule for rule."""
+        if not self.directory.native():
+            return False
+        table = self.directory._table
+        keys = np.asarray(keys, dtype=np.int64)
+        ts = np.asarray(ts, dtype=np.int64)
+        n = len(ts)
+        nk = self.directory.num_keys()
+        cap = _next_pow2(max(min(n, max(nk, 1) * self.plan.ring), 256))
+        if 4 * cap > 2 * n or cap > (1 << 21):
+            return False
+        dead = self._cleared_below
+        refire_below = (self._fired_below_end
+                        if self._fired_below_end is not None
+                        else int(np.iinfo(np.int64).min))
+        bits = 0
+        if refire_below > dead:
+            if refire_below - dead > (1 << 20):
+                return False  # degenerate lateness span: general path
+            bits = int(refire_below - dead)
+        prev_min, prev_max = self._min_pane_seen, self._max_pane_seen
+        pane_ms, off = self.plan.pane_ms, self.plan.offset_ms
+        t_scan = time.perf_counter()
+        for attempt in (0, 1):
+            ws = self._workspace(self.layout.slots * self.plan.ring, 0)
+            scan = nc.ingest_fused_scan_native(
+                keys, ts, table, pane_ms, off, self.plan.ring, ws, cap, dead,
+                refire_below, bits, miss_cap=n)
+            if scan is None:
+                return False
+            res, miss_ix = scan
+            if len(miss_ix):
+                # new keys: register them (the probe proved them absent),
+                # then continue the same scan over just their records
+                t1 = time.perf_counter()
+                self.directory.register_misses(keys[miss_ix])
+                self.prof["pb_assign"] += time.perf_counter() - t1
+                scan = nc.ingest_fused_scan_native(
+                    keys[miss_ix], ts[miss_ix], table, pane_ms, off,
+                    self.plan.ring, ws, cap, dead, refire_below, bits,
+                    cont=res, miss_cap=1)
+                if scan is None:
+                    return False
+                res, miss2 = scan
+                if len(miss2):  # registered keys cannot miss
+                    ws.rezero()
+                    return False
+            (n_valid, n_late, n_bad, pmin, pmax, n_refire, _,
+             cmax) = (int(x) for x in res.stats)
+            if n_valid == 0:
+                break
+            if self._min_pane_seen is None or pmin < self._min_pane_seen:
+                self._min_pane_seen = pmin
+            if self._max_pane_seen is None or pmax > self._max_pane_seen:
+                self._max_pane_seen = pmax
+            live_lo = max(dead, self._min_pane_seen)
+            live_hi = self._max_pane_seen
+            if live_hi - live_lo >= self.plan.ring and attempt == 0:
+                # the histogram's columns were taken mod the old ring:
+                # grow (remapping only the panes applied before this
+                # batch) and scan again
+                ws.rezero()
+                self._grow_ring(live_hi - live_lo + 1, prev_min, prev_max)
+                continue
+            break
+        self.prof["preagg_combine"] += time.perf_counter() - t_scan
+        self.late_records += n_late
+        if n_bad:
+            ws.rezero()
+            raise_full(n_bad)
+        if n_refire:
+            late_panes = (np.flatnonzero(
+                np.unpackbits(res.bitmap, bitorder="little")) + dead)
+            self._refire.update(self.plan.late_refire_ends(
+                late_panes, self._fired_below_end, self.watermark))
+        if n_valid == 0:
+            return True
+        tc = time.perf_counter()
+        domain = self.layout.slots * self.plan.ring
+        if cmax < 0xFFF and domain <= (1 << 20):
+            # the words land in a pinned buffer behind FUSED_HDR header
+            # words, which the next advance fills for its fused step
+            slot, out = self._pairs.acquire()
+            buf = nc.ingest_fused_finalize_u32_native(
+                res, ws, FUSED_HDR, _next_pow2(max(res.npairs, 256)), out)
+            if self._fused_ok() and self._stash is None:
+                self._stash = (slot, buf)
+                self._pairs.hold(slot)
+                self.prof["pb_preagg"] += time.perf_counter() - tc
+                return True
+            self._apply_u32(slot, len(buf))
+        else:
+            self._apply_combined(
+                *nc.ingest_fused_finalize_pairs_native(res, ws))
+        self.prof["pb_preagg"] += time.perf_counter() - tc
+        self._throttle()
+        return True
+
+    def _apply_u32(self, slot: int, n_words: int) -> None:
+        """Fold a pinned buffer's pair words (after its header) in with
+        ``apply_pairs_u32``."""
+        t0 = time.perf_counter()
+        with self.timer.span("apply"):
+            words = self._pairs.upload(slot, FUSED_HDR, n_words)
+            fk.apply_pairs_u32(self.state.counts, words, self.layout.slots)
+        self._note_dispatch()
+        self.prof["pb_dispatch"] += time.perf_counter() - t0
+
+    def _apply_combined(self, pairs: np.ndarray, cnts: np.ndarray) -> None:
+        """Count-only pairs of the native lane in the tightest form that
+        holds them (the reference's rule): a u32 word each while every
+        count < 0xFFF and the pair domain fits 20 bits
+        (``apply_pairs_u32``), uint16 triples while counts fit 16 bits
+        (``apply_pairs_u16``), else an int32 index + count upload
+        (``scatter_counts``)."""
+        if len(pairs) == 0:
+            return
+        cap = _next_pow2(max(len(pairs), 256))
+        cmax = int(cnts.max())
+        if cmax < 0xFFF and self.layout.slots * self.plan.ring <= (1 << 20):
+            buf, apply = preagg_encode_u32(pairs, cnts, cap), (
+                lambda d: fk.apply_pairs_u32(self.state.counts, d,
+                                             self.layout.slots))
+        elif cmax <= 0xFFFF:
+            buf, apply = preagg_encode_u16(pairs, cnts, cap), (
+                lambda d: fk.apply_pairs_u16(self.state.counts, d))
+        else:
+            self._apply_cells(pairs, cnts)
+            return
+        t0 = time.perf_counter()
+        buf_h = self._staged(buf)
+        with self.timer.span("apply"):
+            apply(buf_h.to(self.device, non_blocking=True))
+        self._note_dispatch()
+        self.prof["pb_dispatch"] += time.perf_counter() - t0
+
+    def _flush_stash(self) -> None:
+        """Fold a stashed native-lane batch in with ``apply_pairs_u32``.
+        Every consumer of up-to-date state calls this first: the general
+        ingest path, an advance that takes no fused step, ring growth,
+        quiesce and snapshots."""
+        if self._stash is None:
+            return
+        slot, buf = self._stash
+        self._stash = None
+        self._pairs.hold(None)
+        self._apply_u32(slot, len(buf))
+
+    def _fire_pad_bucket(self, n_ends: int) -> int:
+        """Delta slots a fused step reads: with the fire gate the power of
+        two at or above its end count (its fire's width), else all
+        MIN_FIRE_PAD."""
+        if not self.fire_gate:
+            return MIN_FIRE_PAD
+        return min(MIN_FIRE_PAD, _next_pow2(max(n_ends, 1)))
+
+    def _fused_fill_header(self, wm: int, ends: List[int], buf: np.ndarray
+                           ) -> Optional[Tuple[List[int], int]]:
+        """Fill the stashed buffer's FUSED_HDR header in place: pane
+        bounds, ring anchor, clear mask, window-end deltas (the layout
+        ``fused_step`` documents). Returns (the ends it fires, the purge
+        frontier after it), or None when more than MIN_FIRE_PAD ends
+        fire."""
+        ppw = self.plan.panes_per_window
+        if self._max_pane_seen is None:
+            ends_f: List[int] = []
+            lo = self._cleared_below
+        else:
+            lo = max(self._cleared_below, self._min_pane_seen)
+            ends_f = [e for e in ends if e > lo and e - ppw <= self._max_pane_seen]
+        if len(ends_f) > MIN_FIRE_PAD:
+            return None
+        # the purge, as advance_watermark's: its mask rides the header
+        clear, cleared_after = self._purge_columns(wm)
+        clear_word = 0
+        if clear is not None:
+            for c in np.flatnonzero(clear).tolist():
+                clear_word |= 1 << c
+        if self._ring_anchor is None:
+            self._ring_anchor = lo
+        hi = self._max_pane_seen if self._max_pane_seen is not None else lo - 1
+        buf[:6] = np.array([lo, hi, self._ring_anchor], np.int64).view(np.int32)
+        cw = np.array([clear_word], np.uint64).view(np.int32)
+        buf[7], buf[6] = cw[0], cw[1]
+        deltas = np.full(MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+        deltas[:len(ends_f)] = np.asarray(ends_f, np.int64) - lo
+        buf[8:8 + MIN_FIRE_PAD] = deltas.astype(np.int32)
+        return ends_f, cleared_after
+
+    def _advance_fused(self, wm: int, ends: List[int]) -> Optional["FiredWindows"]:
+        """The advance over a stashed batch as one upload and one
+        ``fused_step`` call: the stash's apply, the fire of up to
+        MIN_FIRE_PAD window ends (rows row-major over all of them) and
+        the purge. None when more ends fire; the caller then flushes the
+        stash and takes the chunked path."""
+        slot, buf = self._stash
+        filled = self._fused_fill_header(wm, ends, buf)
+        if filled is None:
+            return None
+        ends_f, cleared_after = filled
+        self._stash = None
+        self._pairs.hold(None)
+        used = self._used_mask_device()
+        ring_buf = self._ensure_ring()
+        with self.timer.span("step"):
+            fk.fused_step(self.state.counts, ring_buf,
+                          self._pairs.upload(slot, 0, len(buf)), used,
+                          ppw=self.plan.panes_per_window, n=self._topn[1],
+                          sel_cap=self._topn_cap(), dump_row=self.layout.slots,
+                          fire_gate=self.fire_gate,
+                          fire_pad=self._fire_pad_bucket(len(ends_f)))
+        self._note_dispatch()
+        self._cleared_below = cleared_after
+        return self._ring_after_fire(len(ends_f))
 
     def _check_cell_index(self) -> None:
         """Cell indices (row * ring + column) travel as int32."""
@@ -641,10 +1012,12 @@ class WindowOperator:
 
     def quiesce(self) -> None:
         """Dispatch a stashed device-made batch, fold in every step's
-        stats, and block until every dispatched step has completed."""
+        stats, fold in a stashed native-lane batch, and block until every
+        dispatched step has completed."""
         self._flush_devgen()
         if self._devstats_pending:
             self._reconcile_devstats()
+        self._flush_stash()
         while self._inflight:
             self._inflight.popleft().synchronize()
         if self.device.type == "cuda":
@@ -656,7 +1029,9 @@ class WindowOperator:
                    applied_max: Optional[int]) -> None:
         """Resize the pane ring to hold >= ``need`` live panes, moving
         each applied live pane p from column p % old to p % new."""
-        self._flush_devgen()  # a stashed batch lands in the old layout
+        # stashed batches land in the old layout
+        self._flush_stash()
+        self._flush_devgen()
         old_ring = self.plan.ring
         new_ring = _next_pow2(need + 4)
         lo = self._cleared_below
@@ -713,41 +1088,57 @@ class WindowOperator:
         if self._fired_below_end is None or frontier > self._fired_below_end:
             self._fired_below_end = frontier
         self._refire.clear()
-        # a stashed device-made batch lands first; its advance fires its
-        # ends in one pair (see MIN_FIRE_PAD)
+        # a stashed device-made batch lands first (after pairs its miss
+        # repair stashed); its advance fires its ends in one pair (see
+        # MIN_FIRE_PAD). A stashed native-lane batch rides one fused step
+        # with this advance's fires and purge, when they fit it.
         stashed = self._stash_devgen is not None
+        if not stashed and self._stash is not None and self._fused_ok():
+            out = self._advance_fused(wm, ends)
+            if out is not None:
+                self.prof["aw_dispatch"] += time.perf_counter() - taw
+                return out
+        self._flush_stash()
         self._flush_devgen()
         out = self._fire_ends(ends, whole=stashed)
 
-        # purge panes no window can need any more; only columns written
-        # (>= min pane seen) can hold data
-        new_dead = self.plan.first_dead_pane(wm)
-        if new_dead > self._cleared_below:
-            lo = self._cleared_below
-            if self._min_pane_seen is not None:
-                lo = max(lo, self._min_pane_seen)
-            else:
-                lo = new_dead
-            hi = new_dead
-            if hi > lo:
-                ring = self.plan.ring
-                keep = np.ones(ring, bool)
-                if hi - lo >= ring:
-                    keep[:] = False
-                else:
-                    keep[np.arange(lo, hi) % ring] = False
-                if self._ident_cols is None or len(self._ident_cols) != ring:
-                    self._ident_cols = torch.arange(ring, dtype=torch.int32,
-                                                    device=self.device)
-                keep_t = self._stage.upload(keep)
-                with self.timer.span("purge"):
-                    for lane, fill in self._lanes_with_fills():
-                        if lane is not None:
-                            wk.ring_columns(lane, lane, self._ident_cols,
-                                            keep_t, fill)
-            self._cleared_below = new_dead
+        # purge panes no window can need any more
+        clear, cleared_after = self._purge_columns(wm)
+        if clear is not None:
+            ring = self.plan.ring
+            if self._ident_cols is None or len(self._ident_cols) != ring:
+                self._ident_cols = torch.arange(ring, dtype=torch.int32,
+                                                device=self.device)
+            keep_t = self._stage.upload(~clear)
+            with self.timer.span("purge"):
+                for lane, fill in self._lanes_with_fills():
+                    if lane is not None:
+                        wk.ring_columns(lane, lane, self._ident_cols,
+                                        keep_t, fill)
+        self._cleared_below = cleared_after
         self.prof["aw_dispatch"] += time.perf_counter() - taw
         return out
+
+    def _purge_columns(self, wm: int) -> Tuple[Optional[np.ndarray], int]:
+        """The purge of an advance to ``wm``: the (ring,) bool mask of the
+        columns whose panes no window can need any more (None when there
+        are none), and the purge frontier after it. Only columns written
+        (panes >= the min pane seen) can hold data."""
+        new_dead = self.plan.first_dead_pane(wm)
+        if new_dead <= self._cleared_below:
+            return None, self._cleared_below
+        if self._min_pane_seen is None:
+            return None, new_dead
+        lo = max(self._cleared_below, self._min_pane_seen)
+        if new_dead <= lo:
+            return None, new_dead
+        ring = self.plan.ring
+        clear = np.zeros(ring, bool)
+        if new_dead - lo >= ring:
+            clear[:] = True
+        else:
+            clear[np.arange(lo, new_dead) % ring] = True
+        return clear, new_dead
 
     def _fire_ends(self, ends: List[int],
                    whole: bool = False) -> "FiredWindows":
@@ -1024,11 +1415,9 @@ class WindowOperator:
         source's key domain densely (slot == key). Returns False when
         this operator cannot host it; the driver then feeds the batches
         from the host."""
-        # The reference also requires its C hash table here, for miss
-        # repair's probe. This port has none; its numpy table has the
-        # same lookup_keys, so the port accepts it.
+        # miss repair's probe needs the C key table, as in the reference
         if self._topn is None or self._preagg_lanes() != () \
-                or self.plan.ring > 64:
+                or self.plan.ring > 64 or not self.directory.native():
             return False
         d = getattr(spec, "key_domain", None)
         if d is None or d <= 0 or d > self.layout.slots:
@@ -1168,11 +1557,12 @@ class WindowOperator:
         """The operator's state as the reference package lays it out: a
         device clone of the panes (ordered on the stream, no sync), the
         key directory arrays and the watermark bookkeeping. A stashed
-        device-made batch is dispatched and every step's stats folded
-        in first."""
+        device-made batch is dispatched, every step's stats folded in
+        and a stashed native-lane batch applied first."""
         self._flush_devgen()
         if self._devstats_pending:
             self._reconcile_devstats()
+        self._flush_stash()
         return {
             "spill": None,
             "n_dev": 1,
@@ -1238,8 +1628,10 @@ class WindowOperator:
         self._max_pane_seen = snap["max_pane_seen"]
         self._refire = set(snap["refire"])
         self.late_records = snap["late_records"]
-        # device-made steps from before the restore belong to another
-        # timeline
+        # stashed and device-made steps from before the restore belong to
+        # another timeline
+        self._stash = None
+        self._pairs.hold(None)
         self._stash_devgen = None
         self._devstats_pending.clear()
         self._inflight.clear()

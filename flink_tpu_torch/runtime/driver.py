@@ -13,6 +13,10 @@ its own step with its own watermark advance. A batch the operator's
 devgen gates refuse is made on the host and fed normally (metric
 ``devgen_host_batches``).
 
+A host-fed window operator may hold its last batch back for the next
+watermark advance (its native lane's fused step); the end-of-input
+``quiesce`` folds such a batch in before the final watermark.
+
 Fired windows are delivered from the same thread, in fire order: after
 every loop pass the driver polls the operators' emit rings for copies
 that have landed and delivers the packed fires whose copies have landed
@@ -99,7 +103,8 @@ class Driver:
             # records: scale the in-flight credit so the queue depth in
             # logical batches (in bytes) stays the same
             max_inflight_steps=self._base_inflight * self._sub_batches,
-            max_out_of_orderness_ms=max(ooo))
+            max_out_of_orderness_ms=max(ooo),
+            fire_gate=bool(self.config.get(PipelineOptions.FIRE_GATE)))
         for n in self.plan.nodes.values():
             if n.kind == "window":
                 self._ops[n.id] = _window_factory(n, ctx)

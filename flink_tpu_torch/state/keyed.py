@@ -6,7 +6,9 @@ slot, column = pane ring position, and one extra dump row keeps the
 layout of the reference's snapshots. The host directory maps each key
 to a stable slot inside its key shard (shard = splitmix64(key) %
 num_shards; global slot = shard * slots_per_shard + local index) with
-a vectorized numpy open-addressing table.
+the C open-addressing table of the port's host codec
+(``native_codec.NativeHashTable``), or its vectorized numpy form, which
+tests select by making ``NativeHashTable.create`` return None.
 """
 from __future__ import annotations
 
@@ -153,11 +155,11 @@ class _NumpyHashTable:
 class KeyDirectory:
     """Host-side key → slot mapping, over all key shards of one device.
 
-    Batch lookups are fully vectorized over a numpy open-addressing
-    table; only never-before-seen keys take the insert path. Slot ids
-    are stable for the life of the job (and across snapshots — the
-    directory is part of them), and allocation is the reference
-    package's, so both packages give a key the same slot.
+    Batch lookups probe the C table (or its numpy form); only
+    never-before-seen keys take the insert path. Slot ids are stable for
+    the life of the job (and across snapshots — the directory is part of
+    them), and allocation is the reference package's, so both packages
+    give a key the same slot.
     """
 
     FULL = -2  # sentinel: shard out of slots
@@ -165,7 +167,9 @@ class KeyDirectory:
     def __init__(self, num_shards: int, slots_per_shard: int) -> None:
         self.num_shards = num_shards
         self.slots_per_shard = slots_per_shard
-        self._table = _NumpyHashTable()
+        from flink_tpu_torch.native_codec import NativeHashTable
+
+        self._table = NativeHashTable.create() or _NumpyHashTable()
         self._next_free = np.zeros(num_shards, dtype=np.int64)
         self._rev_keys = np.zeros(self.local_slots, dtype=np.int64)
         self._rev_used = np.zeros(self.local_slots, dtype=bool)
@@ -192,6 +196,21 @@ class KeyDirectory:
             self._table.insert_batch(uniq, uh, alloc)
             slots[miss_ix] = alloc[inv]
         return slots
+
+    def register_misses(self, miss_keys: np.ndarray) -> None:
+        """Register keys known to be absent (the fused ingest scan has
+        just probed them): allocate and insert without a second lookup,
+        in the order ``assign`` would allocate them."""
+        uniq = np.unique(np.asarray(miss_keys, np.int64))
+        uh = hash_keys_numpy(uniq)
+        self._table.insert_batch(uniq, uh, self._alloc_slots(uniq, uh))
+
+    def native(self) -> bool:
+        """True when the directory probes the C table (the operator then
+        takes its native ingest lane)."""
+        from flink_tpu_torch.native_codec import NativeHashTable
+
+        return isinstance(self._table, NativeHashTable)
 
     def lookup(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(slots, found) of ``keys`` without registering any; a key the

@@ -588,3 +588,133 @@ def test_window_aggregates_on_the_card_match_the_cpu(dev, agg_name):
         assert wk.LAUNCHES["scatter_lanes"] > 0
     if agg_name == "avg":
         assert wk.LAUNCHES["scatter_pair_lanes"] > 0
+
+
+# -- the native lane (apply_pairs_u32, apply_pairs_u16, fused_step) ----------
+
+def _pair_words(rng, slots, ring, n, cap, extra=()):
+    pairs = np.unique(rng.integers(0, slots * ring, n))
+    cnts = rng.integers(1, 0xFFF, len(pairs))
+    words = np.concatenate([((pairs << 12) | cnts), [(p << 12) | 3 for p in extra]])
+    buf = np.full(cap, -1, np.int32)
+    buf[:len(words)] = rng.permutation(words.astype(np.uint32).view(np.int32))
+    return buf
+
+
+@pytest.mark.parametrize("ring", [16, 32, 64])
+def test_apply_pairs_u32(dev, ring):
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    rng = np.random.default_rng(ring)
+    slots = (1 << 20) // ring              # a pair domain of 2^20
+    counts = _t(rng.integers(0, 9, (slots + 1, ring)).astype(np.int32), dev)
+    buf = _t(_pair_words(rng, slots, ring, 120_000, 1 << 17,
+                         extra=[slots * ring, (slots + 1) * ring + 5]), dev)
+    a, b = counts.clone(), counts.clone()
+    fk.apply_pairs_u32(a, buf, slots)
+    fk.apply_pairs_u32_plain(b, buf, slots)
+    assert torch.equal(a, b) and not torch.equal(a, counts)
+
+
+def test_apply_pairs_u16(dev):
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.ops.window import preagg_encode_u16
+
+    rng = np.random.default_rng(3)
+    slots, ring = 32768, 32
+    counts = _t(rng.integers(0, 9, (slots + 1, ring)).astype(np.int32), dev)
+    pairs = np.concatenate([np.unique(rng.integers(0, slots * ring, 90_000)),
+                            [slots * ring + 2, (slots + 1) * ring + 9]])
+    cnts = rng.integers(0, 0x10000, len(pairs))
+    cnts[:50] = 0xFFFF
+    buf = _t(preagg_encode_u16(pairs, cnts, 1 << 17), dev)
+    a, b = counts.clone(), counts.clone()
+    fk.apply_pairs_u16(a, buf)
+    fk.apply_pairs_u16_plain(b, buf)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ring,n_ends,gate", [
+    (16, 1, True), (32, 11, True), (32, 11, False), (32, 0, True),
+    (32, 0, False), (64, 64, True), (64, 17, False)])
+def test_fused_step(dev, ring, n_ends, gate):
+    """The kernel chain against the plain version on one upload: state,
+    emit ring (last row excepted) and the error word."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    rng = np.random.default_rng(ring * 100 + n_ends)
+    slots, ppw = (1 << 20) // ring, 10     # a pair domain of 2^20
+    pane_lo = 500
+    pane_hi = pane_lo + min(ring - 2, 40)
+    counts = _t(_live_counts(rng, slots + 1, ring, pane_lo, pane_hi), dev)
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([pane_lo, pane_hi, pane_lo - 3], np.int64).view(np.int32)
+    clear = np.array([sum(1 << c for c in (0, 5, 31, 33, 63) if c < ring)],
+                     np.uint64).view(np.int32)
+    hdr[7], hdr[6] = clear
+    ends = np.sort(rng.choice(np.arange(pane_lo - 20, pane_hi + ppw + 20),
+                              n_ends, replace=False))
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[:n_ends] = ends - pane_lo
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+    words = _pair_words(rng, slots, ring, 110_000, 1 << 17)
+    buf = _t(np.concatenate([hdr, words]), dev)
+    used = _t(rng.random(slots + 1) < 0.5, dev)
+    pad = min(64, 1 << max(n_ends - 1, 0).bit_length()) if gate else 64
+    rings = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    states = [counts.clone(), counts.clone()]
+    kw = dict(ppw=ppw, n=1, sel_cap=256, dump_row=slots, fire_gate=gate,
+              fire_pad=max(pad, 1))
+    fk.fused_step(states[0], rings[0], buf, used, **kw)
+    fk.fused_step_plain(states[1], rings[1], buf, used, **kw)
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(rings[0][:-1], rings[1][:-1])
+    if n_ends == 0:
+        assert not rings[0].any()
+    wk.check_errors(dev)
+
+
+@pytest.mark.parametrize("lane", ["native", "numpy"])
+def test_host_fed_lanes_on_the_card_match_the_cpu(dev, monkeypatch, lane):
+    """Q5-shaped batches (~12 window ends an advance) through the
+    operator on the card and on the CPU, on the native lane (fused steps)
+    and on the numpy lane (scatter_counts): the same rows in the same
+    order and the same state."""
+    from flink_tpu_torch import native_codec as nc
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.ops.aggregates import count
+    from flink_tpu_torch.ops.window import WindowOperator
+
+    if lane == "numpy":
+        monkeypatch.setattr(nc.NativeHashTable, "create",
+                            classmethod(lambda cls, capacity_hint=1024: None))
+    rng = np.random.default_rng(8)
+    ops = [WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000), count(),
+                          num_shards=128, slots_per_shard=256,
+                          max_out_of_orderness_ms=1_000, top_n=("count", 1),
+                          device=d) for d in ("cpu", dev)]
+    wk.reset_launch_counts()
+    t, outs = 0, [[], []]
+    for _ in range(6):
+        # 1,000 keys x a 32-column ring: the lane's pair bound (2^15)
+        # stays decisively below the batch, and no pair reaches 0xFFF
+        keys = rng.integers(0, 1_000, 200_000)
+        ts = t + rng.integers(-900, 12_000, 200_000)
+        t += 12_000
+        for op, out in zip(ops, outs):
+            op.process_batch(keys, ts, {})
+            f = dict(op.advance_watermark(int(ts.max()) - 1_001))
+            out.append([tuple(np.asarray(f[k]).tolist())
+                        for k in ("key", "window_end", "count")])
+    for op, out in zip(ops, outs):
+        op.quiesce()
+        f = dict(op.advance_watermark(op.final_watermark()))
+        out.append([tuple(np.asarray(f[k]).tolist())
+                    for k in ("key", "window_end", "count")])
+    assert outs[0] == outs[1]
+    assert torch.equal(ops[0].state.counts, ops[1].state.counts.cpu())
+    if lane == "native":
+        assert wk.LAUNCHES["fused_step"] >= 4
+    else:
+        assert wk.LAUNCHES["fused_step"] == 0 and wk.LAUNCHES["scatter_counts"] > 0

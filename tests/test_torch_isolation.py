@@ -47,5 +47,37 @@ def test_scan_covers_the_package():
     assert "flink_tpu_torch/ops/window.py" in files
     assert "flink_tpu_torch/kernels/window_kernels.py" in files
     assert "flink_tpu_torch/kernels/devgen_kernels.py" in files
+    assert "flink_tpu_torch/kernels/fused_kernels.py" in files
+    assert "flink_tpu_torch/native_codec.py" in files
     assert "flink_tpu_torch/nexmark/generator.py" in files
     assert "chip_smoke.py" in files
+
+
+def test_native_codec_builds_only_the_port_source(monkeypatch, tmp_path):
+    """The port's host codec compiles flink_tpu_torch/native/codec.cc
+    alone, into flink_tpu_torch/_build/ — never the reference's
+    native/codec.cc or its library."""
+    import subprocess
+
+    from flink_tpu_torch import native_codec as nc
+
+    assert nc.SOURCE == os.path.join(ROOT, "flink_tpu_torch", "native", "codec.cc")
+    assert os.path.dirname(nc.library_path()) == os.path.join(
+        ROOT, "flink_tpu_torch", "_build")
+    cmds = []
+    real_run = subprocess.run
+
+    def run(cmd, *a, **k):
+        cmds.append(list(cmd))
+        return real_run(cmd, *a, **k)
+
+    monkeypatch.setattr(nc.subprocess, "run", run)
+    monkeypatch.setattr(nc, "BUILD_DIR", str(tmp_path))
+    path = nc.build()
+    assert os.path.dirname(path) == str(tmp_path) and os.path.exists(path)
+    [cmd] = cmds
+    inputs = [a for a in cmd if a.endswith((".cc", ".cpp", ".c", ".so"))]
+    assert inputs == [nc.SOURCE]
+    with open(os.path.join(ROOT, "flink_tpu_torch", "native_codec.py")) as f:
+        text = f.read()
+    assert "libflinktpucodec" not in text

@@ -1,0 +1,242 @@
+"""The port's host codec (``flink_tpu_torch/native/codec.cc`` through
+``flink_tpu_torch.native_codec``) against its numpy key table and
+against the reference's codec (``flink_tpu.native_codec``) on the same
+inputs: table lookups and inserts, the splitmix64 hash, the host
+combine, the fused ingest scan with its miss list, and both finalizes —
+all exact, bit for bit. A failed build raises."""
+import os
+
+import numpy as np
+import pytest
+
+from flink_tpu import native_codec as ref_nc
+from flink_tpu_torch import native_codec as nc
+from flink_tpu_torch.records import hash_keys_numpy
+from flink_tpu_torch.state.keyed import KeyDirectory, _NumpyHashTable
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_codec():
+    if not ref_nc.native_available():
+        pytest.skip("the reference's codec library did not build")
+
+
+def test_hash_matches_numpy():
+    rng = np.random.default_rng(0)
+    keys = np.concatenate([rng.integers(-2 ** 63, 2 ** 63 - 1, 5000,
+                                        dtype=np.int64),
+                           np.array([0, -1, 2 ** 63 - 1, -2 ** 63], np.int64)])
+    np.testing.assert_array_equal(nc.hash_keys_native(keys),
+                                  hash_keys_numpy(keys))
+
+
+@pytest.mark.parametrize("hint", [1, 1024])
+def test_table_matches_numpy_table(hint):
+    """Batches of inserts (growing the table from its hint), updates and
+    lookups of present and absent keys: the C table and the numpy table
+    answer alike."""
+    rng = np.random.default_rng(hint)
+    c_tab = nc.NativeHashTable.create(hint)
+    np_tab = _NumpyHashTable(hint)
+    seen = np.zeros(0, np.int64)
+    for _ in range(6):
+        new = np.unique(rng.integers(-10 ** 12, 10 ** 12, 700))
+        vals = rng.integers(-5, 1 << 40, len(new))
+        c_tab.insert_batch(new, None, vals)
+        np_tab.insert_batch(new, hash_keys_numpy(new), vals)
+        seen = np.concatenate([seen, new])
+        probe = np.concatenate([rng.choice(seen, 900),
+                                rng.integers(-10 ** 12, 10 ** 12, 300)])
+        for got, want in zip(c_tab.lookup_keys(probe), np_tab.lookup_keys(probe)):
+            np.testing.assert_array_equal(got, want)
+    # an update of present keys
+    upd = seen[::3]
+    c_tab.insert_batch(upd, None, np.full(len(upd), 7))
+    np_tab.insert_batch(upd, hash_keys_numpy(upd), np.full(len(upd), 7))
+    for got, want in zip(c_tab.lookup_keys(seen), np_tab.lookup_keys(seen)):
+        np.testing.assert_array_equal(got, want)
+    assert c_tab._count == np_tab._count == len(np.unique(seen))
+
+
+def _tables(keys, vals):
+    ours = nc.NativeHashTable.create()
+    theirs = ref_nc.NativeHashTable.create()
+    ours.insert_batch(keys, None, vals)
+    theirs.insert_batch(keys, None, vals)
+    return ours, theirs
+
+
+def _batch(seed, n, n_keys, span_ms, pane_ms):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, n).astype(np.int64)
+    ts = (rng.integers(0, span_ms, n) - 3 * pane_ms).astype(np.int64)
+    return keys, ts
+
+
+@pytest.mark.parametrize("seed,dead,refire", [(0, -10 ** 9, -2 ** 63),
+                                              (1, 2, 6), (2, -1, 4)])
+def test_fused_scan_and_finalizes_match_the_reference(seed, dead, refire):
+    """One scan with misses, the continued scan over the missed records
+    once registered, then both finalizes: pairs, stats, re-fire bitmap,
+    miss list and the u32 buffer equal the reference's."""
+    pane_ms, ring, n = 100, 16, 20_000
+    keys, ts = _batch(seed, n, 900, 1_200, pane_ms)
+    known = np.arange(0, 900, 2, dtype=np.int64)      # half the keys
+    vals = (known * 7) % 600
+    vals[::11] = KeyDirectory.FULL                    # refused keys
+    bits = max(refire - dead, 0) if refire > dead else 0
+    out = []
+    for mod, tab in zip((nc, ref_nc), _tables(known, vals)):
+        ws = mod.PreaggWorkspace(601 * ring, 0)
+        res, miss = mod.ingest_fused_scan_native(
+            keys, ts, tab, pane_ms, 0, ring, ws, 1 << 14, dead, refire,
+            bits, miss_cap=n)
+        first = (res.npairs, res.out_pairs[:res.npairs].copy(),
+                 res.stats.copy(), res.bitmap.copy(), miss.copy())
+        new = np.unique(keys[miss])
+        tab.insert_batch(new, None, 300 + (new % 300))
+        res, miss2 = mod.ingest_fused_scan_native(
+            keys[miss], ts[miss], tab, pane_ms, 0, ring, ws, 1 << 14, dead,
+            refire, bits, cont=res, miss_cap=1)
+        assert len(miss2) == 0
+        snap = (res.npairs, res.out_pairs[:res.npairs].copy(),
+                res.stats.copy(), res.bitmap.copy(), ws.hist.copy())
+        if int(res.stats[7]) < 0xFFF:
+            u32 = mod.ingest_fused_finalize_u32_native(res, ws, 128, 1 << 14)
+        else:
+            u32 = None
+        assert not ws.hist.any()
+        out.append((first, snap, u32))
+    (f_a, s_a, u_a), (f_b, s_b, u_b) = out
+    for a, b in zip(f_a + s_a, f_b + s_b):
+        np.testing.assert_array_equal(a, b)
+    assert f_a[2][6] > 0 and s_a[2][0] > 0       # misses, then valid records
+    if dead > -10 ** 9:
+        assert s_a[2][1] > 0                     # late records
+    assert s_a[2][2] > 0                         # refused keys count as bad
+    np.testing.assert_array_equal(u_a, u_b)
+
+
+def test_finalize_pairs_and_u32_into_a_given_buffer():
+    pane_ms, ring = 10, 8
+    keys, ts = _batch(5, 5_000, 50, 200, pane_ms)
+    keys[:4500] = 3                                   # one pair past 0xFFF
+    ts[:4500] = 40
+    known = np.arange(50, dtype=np.int64)
+    res_all = []
+    for mod, tab in zip((nc, ref_nc), _tables(known, known)):
+        ws = mod.PreaggWorkspace(50 * ring, 0)
+        res, _ = mod.ingest_fused_scan_native(
+            keys, ts, tab, pane_ms, 0, ring, ws, 1024, -10 ** 9, -2 ** 63, 0)
+        assert int(res.stats[7]) >= 0xFFF
+        pairs, cnts = mod.ingest_fused_finalize_pairs_native(res, ws)
+        assert not ws.hist.any()
+        res_all.append((pairs.copy(), cnts.copy()))
+    for a, b in zip(*res_all):
+        np.testing.assert_array_equal(a, b)
+    # the u32 finalize writes into a caller's buffer, header first
+    keys2, ts2 = _batch(6, 3_000, 50, 200, pane_ms)
+    bufs = []
+    for mod, tab in zip((nc, ref_nc), _tables(known, known)):
+        ws = mod.PreaggWorkspace(50 * ring, 0)
+        res, _ = mod.ingest_fused_scan_native(
+            keys2, ts2, tab, pane_ms, 0, ring, ws, 1024, -10 ** 9, -2 ** 63, 0)
+        if mod is nc:
+            out = np.full(128 + 4096, 77, np.int32)
+            buf = mod.ingest_fused_finalize_u32_native(res, ws, 128, 1024, out)
+            assert buf.base is out or buf.base is out.base
+            assert (out[128 + 1024:] == 77).all()
+        else:
+            buf = mod.ingest_fused_finalize_u32_native(res, ws, 128, 1024)
+        bufs.append(buf)
+    np.testing.assert_array_equal(*bufs)
+    assert (bufs[0][:128] == -1).all()
+
+
+def test_scan_overflow_declines_and_rezeroes():
+    pane_ms, ring = 10, 8
+    keys, ts = _batch(7, 4_000, 200, 400, pane_ms)
+    tab = nc.NativeHashTable.create()
+    tab.insert_batch(np.arange(200), None, np.arange(200))
+    ws = nc.PreaggWorkspace(200 * ring, 0)
+    assert nc.ingest_fused_scan_native(keys, ts, tab, pane_ms, 0, ring, ws,
+                                       64, -10 ** 9, -2 ** 63, 0) is None
+    assert not ws.hist.any()
+    # a miss list past its capacity declines too
+    tab2 = nc.NativeHashTable.create()
+    assert nc.ingest_fused_scan_native(keys, ts, tab2, pane_ms, 0, ring, ws,
+                                       1 << 12, -10 ** 9, -2 ** 63, 0,
+                                       miss_cap=10) is None
+
+
+@pytest.mark.parametrize("nlanes", [0, 2])
+def test_preagg_combine_matches_the_reference(nlanes):
+    rng = np.random.default_rng(nlanes)
+    n, slots, ring = 30_000, 700, 16
+    sl = rng.integers(0, slots, n).astype(np.int64)
+    panes = rng.integers(-40, 90, n).astype(np.int64)
+    valid = rng.random(n) < 0.9
+    lanes = [rng.random(n).astype(np.float32) * 100 for _ in range(nlanes)]
+    out = []
+    for mod in (nc, ref_nc):
+        ws = mod.PreaggWorkspace(slots * ring, nlanes)
+        out.append(mod.preagg_combine_native(sl, panes, valid, lanes, ring,
+                                             ws, 1 << 14))
+        assert not ws.hist.any() and not ws.lane_acc.any()
+    (pa, ca, la), (pb, cb, lb) = out
+    np.testing.assert_array_equal(pa, pb)
+    np.testing.assert_array_equal(ca, cb)
+    for x, y in zip(la, lb):
+        np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32))
+    ws = nc.PreaggWorkspace(slots * ring, nlanes)
+    assert nc.preagg_combine_native(sl, panes, valid, lanes, ring, ws, 16) is None
+    assert not ws.hist.any()
+
+
+def test_directory_register_misses_allocates_like_assign():
+    """A key set registered through the scan's miss path gets the slots
+    the general path's assign gives it, in the port and the reference."""
+    from flink_tpu.state.keyed import KeyDirectory as RefDirectory
+
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 10 ** 9, 5_000)
+    later = rng.integers(0, 10 ** 9, 2_000)
+    a, b, r = KeyDirectory(16, 512), KeyDirectory(16, 512), RefDirectory(16, 512)
+    assert a.native() and b.native()
+    a.register_misses(keys)
+    r.register_misses(keys)
+    b.assign(keys)
+    probe = np.concatenate([keys, later])
+    np.testing.assert_array_equal(a.assign(probe), b.assign(probe))
+    np.testing.assert_array_equal(a.assign(probe), r.assign(probe))
+    np.testing.assert_array_equal(a.used_mask(), r.used_mask())
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(nc, "CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(nc, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(nc, "_lib", None)
+    with pytest.raises(RuntimeError, match="host codec build failed"):
+        nc.NativeHashTable.create()
+    with pytest.raises(RuntimeError, match="host codec build failed"):
+        KeyDirectory(4, 16)
+
+
+def test_a_compile_error_raises_with_the_compiler_output(monkeypatch, tmp_path):
+    bad = tmp_path / "codec.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(nc, "SOURCE", str(bad))
+    monkeypatch.setattr(nc, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(nc, "_lib", None)
+    with pytest.raises(RuntimeError, match="error"):
+        nc.load()
+
+
+def test_library_builds_from_the_port_source_into_its_build_dir():
+    nc.load()
+    path = nc.library_path()
+    assert os.path.dirname(path) == os.path.join(ROOT, "flink_tpu_torch", "_build")
+    assert os.path.exists(path)
+    assert nc.SOURCE == os.path.join(ROOT, "flink_tpu_torch", "native", "codec.cc")

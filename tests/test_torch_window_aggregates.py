@@ -8,8 +8,9 @@ integer or max/min field exactly (NaN-aware), every sum or avg field
 within |port - ref| <= (2 * count + 4) * 2^-24 * |ref| (the error of
 adding the same positive terms in another order, plus one rounding of
 the division; the scatters add in the reference's order, the fire's
-column sum may associate differently). The reference runs on its numpy
-host paths (see tests/test_torch_window_operator.py)."""
+column sum may associate differently). Both packages run on their
+numpy host paths (see tests/test_torch_window_operator.py);
+tests/test_torch_native_lane.py runs the native lanes."""
 import jax
 import numpy as np
 import pytest
@@ -43,11 +44,15 @@ KEY_COLS = ("key", "window_start", "window_end", "count")
 
 
 @pytest.fixture
-def jax_numpy_host_paths(monkeypatch):
+def numpy_host_paths(monkeypatch):
+    """Both packages on their numpy host paths: neither directory gets
+    its C key table, so neither takes its native lane."""
     from flink_tpu import native_codec
+    from flink_tpu_torch import native_codec as port_native_codec
 
-    monkeypatch.setattr(native_codec.NativeHashTable, "create",
-                        classmethod(lambda cls, capacity_hint=1024: None))
+    for mod in (native_codec, port_native_codec):
+        monkeypatch.setattr(mod.NativeHashTable, "create",
+                            classmethod(lambda cls, capacity_hint=1024: None))
 
 
 AGGS = {
@@ -145,7 +150,7 @@ def ooo_steps(rng, n_batches, batch, keys, span_ms, ooo_ms, start=50_000):
 
 
 @pytest.mark.parametrize("agg", sorted(AGGS))
-def test_sliding_out_of_order_matches_reference(jax_numpy_host_paths, agg):
+def test_sliding_out_of_order_matches_reference(numpy_host_paths, agg):
     """Sliding 10 s / 1 s, out-of-order batches of 2.5 s, a watermark
     after each: advances fire 2-4 windows, so some fires take one
     fire_pack chunk and the end flush several."""
@@ -155,7 +160,7 @@ def test_sliding_out_of_order_matches_reference(jax_numpy_host_paths, agg):
 
 
 @pytest.mark.parametrize("agg", ["count", "lanes", "avg"])
-def test_ring_growth_and_chunked_fires_match_reference(jax_numpy_host_paths,
+def test_ring_growth_and_chunked_fires_match_reference(numpy_host_paths,
                                                        agg):
     """A 40 s batch grows the ring (every lane moves); the advance after
     it fires more than 4 windows, chunk after chunk (rows in order)."""
@@ -171,7 +176,7 @@ def test_ring_growth_and_chunked_fires_match_reference(jax_numpy_host_paths,
 
 
 @pytest.mark.parametrize("agg", ["count", "avg", "sum"])
-def test_preagg_gate_both_branches(jax_numpy_host_paths, agg):
+def test_preagg_gate_both_branches(numpy_host_paths, agg):
     """A small batch takes the per-record upload, a large one over few
     keys the host-combined pairs (scatter_pair_lanes when there are sum
     lanes); both match."""
@@ -193,7 +198,7 @@ def test_preagg_gate_both_branches(jax_numpy_host_paths, agg):
     drive(ref, port, [("wm", 4_200)])
 
 
-def test_allowed_lateness_refires_with_lanes(jax_numpy_host_paths):
+def test_allowed_lateness_refires_with_lanes(numpy_host_paths):
     rng = np.random.default_rng(9)
     ref, port = make_pair("lanes", 1_000, None, lateness=2_000)
 
@@ -207,7 +212,7 @@ def test_allowed_lateness_refires_with_lanes(jax_numpy_host_paths):
     assert port.late_records > 0
 
 
-def test_count_without_packed2_layout(jax_numpy_host_paths):
+def test_count_without_packed2_layout(numpy_host_paths):
     """A 300 s / 1 s window (ring + panes per window >= 256) takes the
     3-column count-only layout; rows match."""
     rng = np.random.default_rng(12)
@@ -230,7 +235,7 @@ def _snapshot_run(agg):
 
 
 @pytest.mark.parametrize("agg", ["lanes", "avg"])
-def test_jax_snapshot_with_float_lanes_continues(jax_numpy_host_paths, agg):
+def test_jax_snapshot_with_float_lanes_continues(numpy_host_paths, agg):
     """A mid-run reference snapshot with float lanes, loaded through
     load_jax_snapshot, continues to the reference's rows."""
     ref, rest = _snapshot_run(agg)
@@ -244,7 +249,7 @@ def test_jax_snapshot_with_float_lanes_continues(jax_numpy_host_paths, agg):
     assert drive(ref, port, rest) > 10
 
 
-def test_jax_snapshot_of_another_aggregate_is_refused(jax_numpy_host_paths):
+def test_jax_snapshot_of_another_aggregate_is_refused(numpy_host_paths):
     ref, _ = _snapshot_run("lanes")
     snap = ref.snapshot_state()
     snap["panes"] = jax.tree_util.tree_map(np.asarray, snap["panes"])
@@ -342,7 +347,7 @@ def wordcount(env, src, wm, sink, aggs, windows):
      .window(windows[0].of(1000)).count().add_sink(sink))
 
 
-def test_wordcount_end_to_end_matches_reference(jax_numpy_host_paths):
+def test_wordcount_end_to_end_matches_reference(numpy_host_paths):
     """WordCount (BASELINE config #0's job, bench.py:441-478) at 4096-word
     batches over a 300-word vocabulary, 1 s tumbling counts, in-flight
     steps 1: rows equal in order, and equal to a numpy golden."""
@@ -391,7 +396,7 @@ def bid_aggs(which):
 
 @pytest.mark.parametrize("which,n_auctions,path", [
     ("a", 200, "pb_pack"), ("b", 60, "preagg_combine")])
-def test_bid_aggregates_end_to_end_match_reference(jax_numpy_host_paths,
+def test_bid_aggregates_end_to_end_match_reference(numpy_host_paths,
                                                    which, n_auctions, path):
     """Jobs (a) multi(count, sum, max, min) per record and (b) multi(count,
     avg) host-combined, sliding 10 s / 1 s with 1 s out-of-orderness on

@@ -2,11 +2,12 @@
 fired rows must be equal in order (key, window_start, window_end, count
 — all exact integers), and so must the pane state.
 
-The reference runs on its numpy host paths (no native hash table), the
-paths the port carries: general ingest, the host pre-aggregation gate,
-and the chunked top-n fire. With its native library the reference fuses
-apply + fire into one program per batch, which may order the rows of an
-advance that fires more than 16 windows differently."""
+Both packages run on their numpy host paths (no C key table): general
+ingest, the host pre-aggregation gate, and the chunked top-n fire. With
+their C tables both take the native lane, which fuses apply + fire into
+one step per batch and orders the rows of an advance that fires more
+than 16 windows differently; tests/test_torch_native_lane.py holds the
+two native lanes against each other."""
 import jax
 import numpy as np
 import pytest
@@ -29,11 +30,15 @@ COLS = ("key", "window_start", "window_end", "count")
 
 
 @pytest.fixture
-def jax_numpy_host_paths(monkeypatch):
+def numpy_host_paths(monkeypatch):
+    """Both packages on their numpy host paths: neither directory gets
+    its C key table, so neither takes its native lane."""
     from flink_tpu import native_codec
+    from flink_tpu_torch import native_codec as port_native_codec
 
-    monkeypatch.setattr(native_codec.NativeHashTable, "create",
-                        classmethod(lambda cls, capacity_hint=1024: None))
+    for mod in (native_codec, port_native_codec):
+        monkeypatch.setattr(mod.NativeHashTable, "create",
+                            classmethod(lambda cls, capacity_hint=1024: None))
 
 
 def rows_of(fired):
@@ -97,7 +102,7 @@ def ooo_steps(rng, n_batches, batch, keys, span_ms, ooo_ms, start=50_000):
 
 
 @pytest.mark.parametrize("n", [1, 3])
-def test_out_of_order_incremental_watermarks(jax_numpy_host_paths, n):
+def test_out_of_order_incremental_watermarks(numpy_host_paths, n):
     """Sliding 10 s / 1 s windows, out-of-order events, a watermark after
     every batch (rows equal in order, pane state equal)."""
     rng = np.random.default_rng(11 + n)
@@ -106,7 +111,7 @@ def test_out_of_order_incremental_watermarks(jax_numpy_host_paths, n):
     assert len(fired) >= 30
 
 
-def test_batch_that_grows_the_ring(jax_numpy_host_paths):
+def test_batch_that_grows_the_ring(numpy_host_paths):
     """A batch spanning 40 s grows the 16-column ring; the advance after
     it fires more than 16 windows, in chunks (rows equal in order)."""
     rng = np.random.default_rng(3)
@@ -121,7 +126,7 @@ def test_batch_that_grows_the_ring(jax_numpy_host_paths):
     assert len({w for _, _, w, _ in fired}) > 40
 
 
-def test_preagg_gate_both_branches(jax_numpy_host_paths):
+def test_preagg_gate_both_branches(numpy_host_paths):
     """A batch too small to pass the host pre-aggregation gate takes the
     per-record upload, a large one the combined-pair upload; both match
     the reference (rows equal in order)."""
@@ -140,7 +145,7 @@ def test_preagg_gate_both_branches(jax_numpy_host_paths):
     drive(ref, port, [("wm", 4_200)])
 
 
-def test_allowed_lateness_refires_and_drops(jax_numpy_host_paths):
+def test_allowed_lateness_refires_and_drops(numpy_host_paths):
     """Late-within-lateness records re-fire their windows; records past
     the lateness are dropped and counted (rows equal in order)."""
     rng = np.random.default_rng(9)
@@ -159,7 +164,7 @@ def test_allowed_lateness_refires_and_drops(jax_numpy_host_paths):
     assert port.late_records > 0
 
 
-def test_jax_snapshot_continues_identically(jax_numpy_host_paths):
+def test_jax_snapshot_continues_identically(numpy_host_paths):
     """Snapshot the reference mid-stream, load it into the port, run both
     on: the rows after the load and the final pane state are equal."""
     rng = np.random.default_rng(21)
@@ -182,7 +187,7 @@ def test_jax_snapshot_continues_identically(jax_numpy_host_paths):
     assert len(fired) > 10
 
 
-def test_jax_snapshot_with_dropped_records_is_refused(jax_numpy_host_paths):
+def test_jax_snapshot_with_dropped_records_is_refused(numpy_host_paths):
     """The port raises on a full key directory and never drops, so a
     reference snapshot that counts dropped records cannot be carried on."""
     rng = np.random.default_rng(22)
