@@ -48,7 +48,9 @@ Phases, one JSON line each:
    the first); then 4 batches on the numpy lane (the numpy key table,
    ``scatter_counts``), 4 batches of hot-key bids (1,000 auctions, half
    the bids on 10 of them: pair counts past 0xFFF, ``apply_pairs_u16``),
-   and a ``torch.profiler`` run of 4 native-lane batches.
+   and a ``torch.profiler`` run of 4 native-lane batches, in which each
+   ``fused_step`` call is a profiler range: its device time per step is
+   the kernels inside the range, not every kernel that shares a name.
 4. ``q5_devgen`` — the headline path: Q5 with bids made on the card, at
    ``confs/bench_q5_headline.conf`` (2^22-bid logical batches in 4
    sub-batches, 128 x 256 key slots) on 16 logical batches (67,108,864
@@ -126,13 +128,12 @@ PROFILED_KERNELS = {
     "scatter_pair_lanes": ("pair_lanes_kernel",),
     "apply_pairs_u32": ("apply_pairs_u32_kernel",),
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
-    # the chain of one fused step; in a native-lane Q5 run the first
-    # batch's chunked fire adds its window_counts / top-n / purge kernels
-    "fused_step": ("fused_header_kernel", "apply_pairs_u32_kernel",
-                   "window_counts_kernel", "topn_threshold_kernel",
-                   "topn_count_kernel", "topn_write_kernel",
-                   "ring_columns_kernel"),
 }
+# wrappers whose kernels are shared with other wrappers (the fused step's
+# chain reuses window_counts, top-n and ring_columns): the profiled runs
+# wrap each call in a profiler range and charge it only the device
+# kernels launched inside that range
+RANGED_WRAPPERS = ("fused_step",)
 # the CUDA kernels of which one wrapper call launches exactly one: the
 # profile's count of wrapper calls (scatter_lanes runs its radix passes
 # several times a call)
@@ -1057,6 +1058,11 @@ def phase_q5(torch, np):
     emit(out)
     per_call = dict(h_prof["device_ms_per_call"])
     per_call.update(prof["device_ms_per_call"])
+    # the fused step's own kernels only, if the profiler linked all of
+    # each step's launches to its range
+    ranged = prof["ranged_per_call"].get("fused_step")
+    if ranged and ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS:
+        per_call["fused_step"] = ranged["device_ms"]
     return launches, n_launches, h_launches, per_call
 
 
@@ -1090,19 +1096,38 @@ def profile_run(torch, run):
     """Kernel time by name from ``torch.profiler`` over ``run()`` (which
     returns its wall seconds): the device's busy share without the launch
     gaps that CUDA event spans count as busy. The profiler slows the
-    host, so the run's wall (and idle share) is an upper bound."""
-    from torch.profiler import ProfilerActivity, profile
+    host, so the run's wall (and idle share) is an upper bound. Each
+    call of a ``RANGED_WRAPPERS`` wrapper runs inside a profiler range,
+    and its device time per call is the sum of the kernels the profiler
+    links to that range (launched inside it), over the calls."""
+    import contextlib
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = run()
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with record_function(RANGE_PREFIX + name):
+                return fn(*a, **k)
+        return call
+
+    with contextlib.ExitStack() as undo:
+        for name in RANGED_WRAPPERS:
+            fn = getattr(fk, name)
+            setattr(fk, name, ranged(name, fn))
+            undo.callback(setattr, fk, name, fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run()
     # device-side entries only (kernels, memcpy, memset): a host op such
     # as aten::copy_ also carries its kernels' time, which would count
     # twice
     by_name = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(RANGE_PREFIX)):
             by_name[e.key] = {"device_ms": us / 1e3, "count": e.count}
     busy_ms = sum(v["device_ms"] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
@@ -1110,7 +1135,45 @@ def profile_run(torch, run):
             "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
                                   if busy_ms > 0 else "not measured"),
             "device_ms_per_call": device_ms_per_call(by_name),
+            "ranged_per_call": ranged_per_call(torch, prof.events()),
             "top_device_ms": dict(top)}
+
+
+RANGE_PREFIX = "chip_smoke:"
+
+
+def ranged_per_call(torch, events):
+    """{wrapper: {"calls", "kernels_per_call", "device_ms", "span_ms"}}
+    over the profiler ranges of ``profile_run``. The profiler marks each
+    range on the device's timeline too, from the first to the last
+    kernel launched inside it; every launch is on one stream, so the
+    kernels within that mark are the range's own. ``device_ms`` is their
+    summed time per call, ``span_ms`` the mark's length per call (idle
+    gaps between the kernels included)."""
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(RANGE_PREFIX)
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    out = {}
+    for m in dev:
+        if not m.name.startswith(RANGE_PREFIX):
+            continue
+        lo, hi = m.time_range.start, m.time_range.end
+        inside = [k for k in kernels
+                  if k.time_range.start >= lo and k.time_range.end <= hi]
+        row = out.setdefault(m.name[len(RANGE_PREFIX):],
+                             {"calls": 0, "kernels": 0, "device_us": 0.0,
+                              "span_us": 0.0})
+        row["calls"] += 1
+        row["kernels"] += len(inside)
+        row["device_us"] += sum(k.time_range.end - k.time_range.start
+                                for k in inside)
+        row["span_us"] += hi - lo
+    return {name: {"calls": r["calls"],
+                   "kernels_per_call": r["kernels"] / r["calls"],
+                   "device_ms": r["device_us"] / 1e3 / r["calls"],
+                   "span_ms": r["span_us"] / 1e3 / r["calls"]}
+            for name, r in out.items()}
 
 
 def profile_devgen(torch, np, conf_path, cfg):

@@ -298,98 +298,78 @@ def small_upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class PinnedStage:
-    """Small host→device uploads of one operator through a few reused
-    pinned host slots. A copy from pageable memory synchronizes the
-    stream first, and a fresh pinned tensor per copy costs an allocation
-    each time; a slot is rewritten only once the copy that last read it
-    has run (its CUDA event). Larger arrays take a fresh pinned tensor.
-    On the CPU an upload is the array itself."""
+    """Host→device uploads of one operator through a few reused pinned
+    host slots. A copy from pageable memory synchronizes the stream
+    first, and a fresh pinned tensor per copy costs an allocation each
+    time; a slot is rewritten only once the copy that last read it has
+    run (its CUDA event), and a held slot is not handed out at all.
+    ``upload`` stages a small array (larger ones take a fresh pinned
+    tensor); ``acquire`` hands out a whole slot as writable numpy to a
+    producer that writes in place (the native lane's C finalize), and
+    ``upload_slot`` copies a byte range of it. On the CPU an upload is
+    the array itself and the slots are plain memory."""
 
     SLOTS = 8
     SLOT_BYTES = 4096
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, slots: int = SLOTS,
+                 slot_bytes: int = SLOT_BYTES) -> None:
         self.device = device
-        self._host: Optional[np.ndarray] = None
+        self.slots, self.slot_bytes = slots, slot_bytes
         self._host_t: Optional[torch.Tensor] = None
-        self._events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self._events: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._held: Optional[int] = None
         self._next = 0
+
+    def acquire(self) -> Tuple[int, np.ndarray]:
+        """(slot, its bytes as writable numpy), once free: never the held
+        slot, and never before its last copy has run."""
+        i = self._next
+        if i == self._held:
+            i = (i + 1) % self.slots
+        self._next = (i + 1) % self.slots
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        if self._host_t is None:
+            self._host_t = torch.empty(
+                (self.slots, self.slot_bytes), dtype=torch.uint8,
+                pin_memory=self.device.type == "cuda")
+        return i, self._host_t[i].numpy()
+
+    def hold(self, i: Optional[int]) -> None:
+        """Keep slot ``i`` (None: none) from ``acquire``: a stash."""
+        self._held = i
+
+    def upload_slot(self, i: int, lo: int, hi: int) -> torch.Tensor:
+        """Bytes ``[lo, hi)`` of slot ``i`` on the device as uint8: one
+        non-blocking copy, after which the slot's event is recorded."""
+        t = self._host_t[i, lo:hi]
+        if self.device.type == "cpu":
+            return t
+        dev = torch.empty(hi - lo, dtype=torch.uint8, device=self.device)
+        dev.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._events[i] = ev
+        return dev
 
     def upload(self, arr: np.ndarray) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
         t = torch.from_numpy(arr)
         if self.device.type == "cpu":
             return t
-        if arr.nbytes > self.SLOT_BYTES or arr.nbytes == 0:
+        if arr.nbytes > self.slot_bytes or arr.nbytes == 0:
             return small_upload(arr, self.device)
-        if self._host_t is None:
-            self._host_t = torch.empty((self.SLOTS, self.SLOT_BYTES),
-                                       dtype=torch.uint8, pin_memory=True)
-            self._host = self._host_t.numpy()
-        i = self._next
-        self._next = (i + 1) % self.SLOTS
-        if self._events[i] is not None:
-            self._events[i].synchronize()
-        self._host[i, :arr.nbytes] = arr.reshape(-1).view(np.uint8)
-        dev = torch.empty(arr.nbytes, dtype=torch.uint8, device=self.device)
-        dev.copy_(self._host_t[i, :arr.nbytes], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self._events[i] = ev
-        return dev.view(t.dtype).view(t.shape)
+        i, host = self.acquire()
+        host[:arr.nbytes] = arr.reshape(-1).view(np.uint8)
+        return self.upload_slot(i, 0, arr.nbytes).view(t.dtype).view(t.shape)
 
 
-class PairStage:
-    """The native lane's pair words through a few reused pinned host
-    buffers of ``FUSED_HDR + 2^21`` int32 words: the C finalize writes a
-    batch's words straight into one (through a numpy view), and a buffer
-    is rewritten only once the copy that last read it has landed (its
-    CUDA event). The stashed batch's buffer is held until its fused step
-    uploads it. On the CPU the buffers are plain memory and an upload is
-    a view of the buffer."""
-
-    SLOTS = 2
-    WORDS = FUSED_HDR + (1 << 21)
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self._host: List[Optional[torch.Tensor]] = [None] * self.SLOTS
-        self._events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
-        self._held: Optional[int] = None
-        self._next = 0
-
-    def acquire(self) -> Tuple[int, np.ndarray]:
-        """(slot, its whole buffer as writable numpy), once free: never
-        the held slot, and never before its last copy has landed."""
-        i = self._next
-        if i == self._held:
-            i = (i + 1) % self.SLOTS
-        self._next = (i + 1) % self.SLOTS
-        if self._events[i] is not None:
-            self._events[i].synchronize()
-            self._events[i] = None
-        if self._host[i] is None:
-            self._host[i] = torch.empty(
-                self.WORDS, dtype=torch.int32,
-                pin_memory=self.device.type == "cuda")
-        return i, self._host[i].numpy()
-
-    def hold(self, i: Optional[int]) -> None:
-        """Keep slot ``i`` (None: none) from ``acquire``: a stash."""
-        self._held = i
-
-    def upload(self, i: int, lo: int, hi: int) -> torch.Tensor:
-        """Words ``[lo, hi)`` of slot ``i`` on the device: one
-        non-blocking copy, after which the slot's event is recorded."""
-        t = self._host[i][lo:hi]
-        if self.device.type == "cpu":
-            return t
-        dev = torch.empty(hi - lo, dtype=torch.int32, device=self.device)
-        dev.copy_(t, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self._events[i] = ev
-        return dev
+# the native lane's pair words: FUSED_HDR header words + up to 2^21 words
+# a batch; two slots, one of which a stash may hold
+PAIR_SLOTS = 2
+PAIR_SLOT_BYTES = 4 * (FUSED_HDR + (1 << 21))
 
 
 class DeviceTimer:
@@ -526,7 +506,7 @@ class WindowOperator:
         # the buffer) waiting for the next advance's fused step, the
         # pinned buffers, and the C scan's zeroed workspace
         self._stash: Optional[Tuple[int, np.ndarray]] = None
-        self._pairs = PairStage(self.device)
+        self._pairs = PinnedStage(self.device, PAIR_SLOTS, PAIR_SLOT_BYTES)
         self._preagg_ws: Optional[nc.PreaggWorkspace] = None
         # device emit ring: row 0 = head [total appended, truncated, 0],
         # rows 1..EMIT_RING_ROWS = data, last row reserved
@@ -803,7 +783,8 @@ class WindowOperator:
             # words, which the next advance fills for its fused step
             slot, out = self._pairs.acquire()
             buf = nc.ingest_fused_finalize_u32_native(
-                res, ws, FUSED_HDR, _next_pow2(max(res.npairs, 256)), out)
+                res, ws, FUSED_HDR, _next_pow2(max(res.npairs, 256)),
+                out.view(np.int32))
             if self._fused_ok() and self._stash is None:
                 self._stash = (slot, buf)
                 self._pairs.hold(slot)
@@ -822,7 +803,8 @@ class WindowOperator:
         ``apply_pairs_u32``."""
         t0 = time.perf_counter()
         with self.timer.span("apply"):
-            words = self._pairs.upload(slot, FUSED_HDR, n_words)
+            words = self._pairs.upload_slot(
+                slot, 4 * FUSED_HDR, 4 * n_words).view(torch.int32)
             fk.apply_pairs_u32(self.state.counts, words, self.layout.slots)
         self._note_dispatch()
         self.prof["pb_dispatch"] += time.perf_counter() - t0
@@ -925,7 +907,8 @@ class WindowOperator:
         ring_buf = self._ensure_ring()
         with self.timer.span("step"):
             fk.fused_step(self.state.counts, ring_buf,
-                          self._pairs.upload(slot, 0, len(buf)), used,
+                          self._pairs.upload_slot(slot, 0, 4 * len(buf))
+                          .view(torch.int32), used,
                           ppw=self.plan.panes_per_window, n=self._topn[1],
                           sel_cap=self._topn_cap(), dump_row=self.layout.slots,
                           fire_gate=self.fire_gate,

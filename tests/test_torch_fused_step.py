@@ -1,13 +1,14 @@
-"""Parity of the native lane's three device functions with the JAX
-functions they replace (flink_tpu/ops/window.py), run as the JAX tests
-run them (CPU XLA). On CPU tensors the wrappers take their plain
-PyTorch versions; tests/test_torch_cuda.py holds the CUDA kernels
-against the same plain versions on the card.
+"""Parity of the native lane's fused step (F2, ``fused_step``) with the
+JAX function it replaces (``_JIT_FUSED_STEP``, flink_tpu/ops/window.py),
+run as the JAX tests run it (CPU XLA). On CPU tensors the wrapper takes
+its plain PyTorch version; tests/test_torch_cuda.py holds the CUDA
+kernels against the same plain version on the card. The lane's two
+pair applies (F1, F3) are in tests/test_torch_apply_pairs.py.
 
 Every comparison is exact (integer work on the count lane): the pane
-state, and for the fused step the emit ring, head row included, but for
-its last row — the reference's scatter dump for the padding lanes of its
-fixed-size selection, which the port never writes."""
+state and the emit ring, head row included, but for its last row — the
+reference's scatter dump for the padding lanes of its fixed-size
+selection, which the port never writes."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,62 +60,16 @@ def _header(pane_lo, pane_hi, anchor, ends, clear_cols):
     return hdr
 
 
-# -- F1 ------------------------------------------------------------------------
-
-@pytest.mark.parametrize("ring", [16, 32, 64])
-def test_apply_pairs_u32_matches_preagg_u32(ring):
-    """Padding words (0xFFFFFFFF) and pairs in the dump row or beyond the
-    state go to no cell, as in _JIT_PREAGG_U32."""
-    rng = np.random.default_rng(ring)
-    slots = 1000
-    base = _state(rng, slots + 1, ring, 40, 40 + ring - 2)
-    extra = [slots * ring, slots * ring + ring - 1, (slots + 3) * ring,
-             (1 << 20) - 1]
-    buf = _words(rng, slots, ring, 6000, 8192, pane_lo=40, pane_hi=40 + ring - 2,
-                 extra=extra)
-    ref = jw._JIT_PREAGG_U32(JaxPaneState(None, None, None, jnp.asarray(base)),
-                             jnp.asarray(buf), ring=ring, dump_row=slots)
-    got = fk.apply_pairs_u32(torch.from_numpy(base.copy()),
-                             torch.from_numpy(buf), slots)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.counts))
-    assert not np.array_equal(got.numpy(), base)
-
-
-# -- F3 ------------------------------------------------------------------------
-
-def test_apply_pairs_u16_matches_preagg_u16():
-    """Counts past 0xFFF, padding rows, and pairs in the dump row (which
-    the u16 form writes) and beyond the state (dropped)."""
-    rng = np.random.default_rng(5)
-    slots, ring = 3000, 32
-    rows = slots + 1
-    base = _state(rng, rows, ring, 10, 30)
-    pairs = np.unique(rng.integers(0, slots * ring, 5000))
-    cnts = rng.integers(0, 0xFFFF + 1, len(pairs))
-    cnts[:10] = 0xFFFF
-    pairs = np.concatenate([pairs, [slots * ring + 3, rows * ring + 17,
-                                    (1 << 31) - 5]])
-    cnts = np.concatenate([cnts, [9, 9, 9]])
-    cap = 8192
-    buf = np.full((cap, 3), 0xFFFF, np.uint16)
-    pu = pairs.astype(np.uint32)
-    buf[:len(pairs), 0] = pu & 0xFFFF
-    buf[:len(pairs), 1] = pu >> 16
-    buf[:len(pairs), 2] = cnts
-    buf[:len(pairs)] = buf[rng.permutation(len(pairs))]
-    ref = jw._JIT_PREAGG_U16(JaxPaneState(None, None, None, jnp.asarray(base)),
-                             jnp.asarray(buf), ring=ring, dump_row=slots)
-    got = fk.apply_pairs_u16(torch.from_numpy(base.copy()), torch.from_numpy(buf))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.counts))
-    assert got.numpy()[slots].sum() > base[slots].sum()
-
-
 # -- F2 ------------------------------------------------------------------------
 
-def _fused_pair(*, ring, n_ends, fire_pad, gate, n_top=1, seed=0, clear=(),
+def _fused_pair(*, ring, n_ends, fire_pad, gate, n_top=2, seed=0, clear=(),
                 fill=0, slots=600, ppw=10):
     """(reference counts, ring) and (port counts, ring) after one fused
-    step on the same state, upload and emit ring."""
+    step on the same state, upload and emit ring. Every case shares one
+    state, upload and emit shape and n_top, so the reference compiles one
+    program per (ring, fire_pad, gate) and the cases below reuse them:
+    ring 64 at every bucket gated plus 64 ungated, rings 16 and 32 at 8
+    gated and 64 ungated."""
     rng = np.random.default_rng(seed)
     rows = slots + 1
     pane_lo = 1000 + seed
@@ -171,9 +126,9 @@ def test_fused_step_rings_and_clear_words(ring, clear, gate):
 @pytest.mark.parametrize("fire_pad", [1, 2, 4, 8, 16, 32, 64])
 def test_fused_step_every_fire_pad_bucket(fire_pad):
     n_ends = max(1, fire_pad // 2 + 1) if fire_pad > 1 else 1
-    _assert_same(_fused_pair(ring=32, n_ends=min(n_ends, fire_pad),
-                             fire_pad=fire_pad, gate=True, n_top=2,
-                             seed=fire_pad, clear=[7]))
+    _assert_same(_fused_pair(ring=64, n_ends=min(n_ends, fire_pad),
+                             fire_pad=fire_pad, gate=True,
+                             seed=fire_pad, clear=[7, 40]))
 
 
 @pytest.mark.parametrize("n_ends", [0, 1, 64])

@@ -140,18 +140,19 @@ def test_one_advance_fires_many_windows_in_the_reference_order(calls, n_ends):
 
 @pytest.mark.parametrize("gate", [True, False])
 def test_q5_shaped_stream_in_order(calls, gate):
-    """Sliding 10 s / 1 s with 1 s out-of-orderness on Q5's 128 x 256
-    slots, batches of ~20 s of event time (about 20 ends an advance, so
-    the fused step's row order differs from chunks of 16), 300 keys, the
-    fire gate on and off. At ring 32 the pair domain is 2^20: u32 words
-    and one fused step per batch."""
+    """Sliding 10 s / 1 s with 1 s out-of-orderness, batches of ~20 s of
+    event time (about 20 ends an advance, so the fused step's row order
+    differs from chunks of 16), 100 keys, the fire gate on and off: u32
+    words and one fused step per batch at ring 32. (Q5's own 128 x 256
+    slots, where ring 32 makes the pair domain exactly 2^20, run in
+    test_q5_end_to_end_in_order.)"""
     rng = np.random.default_rng(3)
     ref, port = make_pair(10_000, 1_000, 2, ooo=1_000, fire_gate=gate,
-                          shards=128, slots=256)
+                          shards=16, slots=64)
     steps, t = [], 0
     for _ in range(4):
-        steps.append(("batch", (rng.zipf(1.5, 40_000) % 300).astype(np.int64),
-                      (t + rng.integers(-1_000, 20_000, 40_000)).astype(np.int64)))
+        steps.append(("batch", (rng.zipf(1.5, 12_000) % 100).astype(np.int64),
+                      (t + rng.integers(-1_000, 20_000, 12_000)).astype(np.int64)))
         t += 20_000
         steps.append(("wm", t - 1_000 - 1))
     fired = drive(ref, port, steps)
@@ -165,8 +166,8 @@ def test_ring_64_goes_up_as_u16_without_a_fused_step(calls):
     fire through the chunked path."""
     rng = np.random.default_rng(4)
     ref, port = make_pair(1_000, 100, 1, shards=128, slots=256)
-    steps = [span_batch(rng, 70_000, 300, 0, 50),
-             span_batch(rng, 70_000, 300, 0, 50), ("wm", 3_000)]
+    steps = [span_batch(rng, 20_000, 100, 0, 30),
+             span_batch(rng, 20_000, 100, 0, 30), ("wm", 2_000)]
     fired = drive(ref, port, steps)
     assert port.plan.ring == 64 and port.layout.slots * 64 == 1 << 21
     assert calls["apply_pairs_u16"] >= 1 and calls["fused_step"] == 0
@@ -278,9 +279,9 @@ def test_q5_end_to_end_in_order(calls):
     runs one fused step."""
     from test_torch_q5 import golden, run_both, seeded_bids
 
-    gen = seeded_bids(40_960, 4, 2, 200, seed=12)
+    gen = seeded_bids(20_480, 4, 1, 200, seed=12)
     conf = {"state.num-key-shards": 128, "state.slots-per-shard": 256,
-            "pipeline.microbatch-size": 40_960}
+            "pipeline.microbatch-size": 20_480}
     ref, got, res = run_both(gen, conf, 10_000, 1_000, 1_000)
     assert got == ref
     assert set(got) == golden(gen, 10_000, 1_000)
@@ -300,15 +301,26 @@ def test_wordcount_end_to_end_matches_reference(calls):
     assert calls["apply_pairs_u32"] >= 4 and calls["fused_step"] == 0
 
 
-def test_bid_aggregates_host_combined_in_c_match_reference(calls):
+def test_bid_aggregates_host_combined_in_c_match_reference(calls, monkeypatch):
     """Job (b), multi(count, avg): the host combine runs in C on the
-    native lane; sums within the ordering bound."""
+    native lane (the C combine hands back pairs for every batch, so
+    nothing took the numpy combine); sums within the ordering bound."""
+    from flink_tpu_torch import native_codec
     from test_torch_window_aggregates import assert_rows_match, bid_aggs, bids_gen, run_both
 
+    combined = []
+    orig = native_codec.preagg_combine_native
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        combined.append(out is not None)
+        return out
+    monkeypatch.setattr(native_codec, "preagg_combine_native", spy)
     gen = bids_gen(4096, 6, 60, 1, seed=False)
     conf = {"state.num-key-shards": 8, "state.slots-per-shard": 64}
     ref, got, res = run_both(bid_aggs("b"), gen, conf, 1_000)
     assert_rows_match(got, ref)
     assert len(set(got["window_end"].tolist())) > 20
+    assert len(combined) >= 6 and all(combined)
     assert any(k.endswith(".preagg_combine") for k in res.metrics)
     assert not calls
