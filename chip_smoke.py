@@ -40,7 +40,11 @@ Phases, one JSON line each:
    on ~110k pair words into 32,769 x 32, ``apply_pairs_u16`` with pair
    counts of 4095 and more, and ``fused_step`` (one upload: header + the
    pair words; apply, fire of 1 or 11 window ends with top-1, purge) with
-   the fire gate on and off.
+   the fire gate on and off; the count window's ``count_fire`` on
+   WindowWordCount's state (65,537 rows, each word's count after one real
+   2^20-word batch, one sum lane) and with a sum, a max and a min lane,
+   each timed on a fresh copy of the state; ``split_cells`` on a
+   2^20-bid batch's 3-byte upload into 32,769 x 32.
 3. ``q5``      — Nexmark Q5 hot items, host-fed, through the port's
    ``StreamExecutionEnvironment.execute()`` at the conf of
    ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids, through
@@ -68,7 +72,16 @@ Phases, one JSON line each:
    record, ``scatter_lanes``) and job (b) count + avg (host-combined,
    ``scatter_pair_lanes``), 16 batches of 2^20 bids each, checked
    against a numpy golden: counts, max and min exactly, sums and avgs
-   within ``agg_rel_bound``.
+   within ``agg_rel_bound``. Job (a) uploads 3 bytes a record
+   (``split_cells``).
+7. ``window_wordcount`` — the upstream WindowWordCount example
+   (``keyBy(word).countWindow(250, 150).sum(1)``; the port's count
+   windows tumble, so the slide is dropped) as
+   ``count_window(250).sum("n")`` on the WordCount stream and state:
+   one warm-up run of 4 batches, three timed runs of 24 batches of 2^20
+   words (``scatter_lanes`` + ``count_fire`` a batch), every emitted
+   batch checked against a numpy golden as (key, count, sum) sorted by
+   key; then a ``count()`` job on 4 batches (``scatter_counts``).
 
 In the pipeline phases every kernel's launch counter is zeroed just
 before the run and read just after; each kernel of the path must have
@@ -107,8 +120,9 @@ WC_WARMUP_BATCHES = 4
 WC_RUNS = 3
 WC_VOCAB = 30_000
 AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
+CW_SIZE = 250                   # WindowWordCount.java countWindow(250, 150)
 KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels",
-                  "fused_kernels")
+                  "fused_kernels", "count_window_kernels")
 Q5_SIDE_BATCHES = 4             # the numpy-lane, hot-key and profiled runs
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
@@ -128,6 +142,8 @@ PROFILED_KERNELS = {
     "scatter_pair_lanes": ("pair_lanes_kernel",),
     "apply_pairs_u32": ("apply_pairs_u32_kernel",),
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
+    "split_cells": ("split_cells_kernel",),
+    "count_fire": ("count_fire_count_kernel", "count_fire_write_kernel"),
 }
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
@@ -143,6 +159,7 @@ CALL_KERNELS = {
     "fire_pack": ("fire_count_kernel",),
     "scatter_lanes": ("lanes_prep_kernel",),
     "fused_step": ("fused_header_kernel",),
+    "count_fire": ("count_fire_count_kernel",),
 }
 
 
@@ -347,6 +364,8 @@ def phase_kernels(torch, np):
     extra.update(lane_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     extra.update(fused_kernel_cases(torch, np, dev, record))
+    wk.check_errors(dev)
+    extra.update(count_window_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
@@ -790,6 +809,105 @@ def wordcount_kernel_cases(torch, np, dev, out):
             old, g, src_col, keep)),
         "bound_ms": b_ms, "bound_by": by}
     return {"wordcount_scatter_distinct_cells": cells}
+
+
+def count_window_kernel_cases(torch, np, dev, record, out):
+    """``count_fire`` on WindowWordCount's state (65,537 rows; each
+    word's count after one real 2^20-word batch, one sum lane holding
+    the same, as ``count_window(250).sum("n")`` leaves it) and on a
+    max/min/avg shape (those counts with 1 sum, 1 max and 1 min lane);
+    ``split_cells`` on a 2^20-bid batch of the bid-aggregate job (a)
+    into 32,769 x 32. Both exact: count_fire copies lanes as bits."""
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
+    from flink_tpu_torch.ops.window import split_encode
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    extra = {}
+    rows = 128 * 512 + 1
+    _, gen = wordcount_source(np, 1)
+    words, _ = gen("0", 0)
+    directory = KeyDirectory(128, 512)
+    slots = directory.assign(words["word"])
+    counts_np = np.bincount(slots, minlength=rows).astype(np.int32)
+    cap = 1 << (directory.num_keys() - 1).bit_length()   # the operator's
+    rng = np.random.default_rng(SEED + 7)
+    price = (rng.random(rows) * 900 + 50).astype(np.float32)
+    shapes = {"sum": (counts_np.astype(np.float32)[:, None], None, None),
+              "lanes": ((counts_np * price)[:, None], (price * 3)[:, None],
+                        (price / 3)[:, None])}
+    for name, lanes in shapes.items():
+        saved = [torch.from_numpy(counts_np).to(dev)] + [
+            None if x is None else torch.from_numpy(
+                np.ascontiguousarray(x, np.float32)).to(dev) for x in lanes]
+        kern = [None if x is None else x.clone() for x in saved]
+        plain = [None if x is None else x.clone() for x in saved]
+
+        def restore(st):
+            for x, y in zip(st, saved):
+                if x is not None:
+                    x.copy_(y)
+
+        a = cwk.count_fire(kern[0], None, *kern[1:], CW_SIZE, cap)
+        b = cwk.count_fire_plain(plain[0], None, *plain[1:], CW_SIZE, cap)
+        torch.cuda.synchronize()
+        n = int(b[0, 0])
+        check(n > 0 and int(a[0, 0]) == n
+              and same_bits(torch, a[:n + 1], b[:n + 1])
+              and all(x is None or same_bits(torch, x, y)
+                      for x, y in zip(kern, plain)),
+              f"count_fire ({name}) differs from its plain version")
+        # each timed call fires on a fresh copy of the state (a fire
+        # resets its rows); the copy loop alone is timed and subtracted
+        copy_ms = time_ms(torch, lambda: restore(kern))
+        ms = time_ms(torch, lambda: (restore(kern), cwk.count_fire(
+            kern[0], None, *kern[1:], CW_SIZE, cap))) - copy_ms
+        plain_ms = time_ms(torch, lambda: (restore(plain), cwk.count_fire_plain(
+            plain[0], None, *plain[1:], CW_SIZE, cap)), iters=10) - copy_ms
+        L = sum(1 for x in lanes if x is not None)
+        # reads: the counts once and each fired row's lanes once; writes:
+        # the head and n rows of 2 + L words, then each fired row's count
+        # and lanes reset
+        nbytes = rows * 4 + n * L * 4 + (n + 1) * (2 + L) * 4 + n * (1 + L) * 4
+        if name == "sum":
+            record("count_fire", "flink_tpu/ops/count_window.py:106", 0, ms,
+                   plain_ms, None, nbytes, rows,
+                   source="count_window_kernels.cu")
+            out[-1].update({"rows": rows, "fired_rows": n, "out_cap": cap,
+                            "copy_ms_subtracted": copy_ms,
+                            "library_call": "none (no single torch call "
+                                            "fires, packs and resets)"})
+        else:
+            b_ms, by = bound_ms(nbytes, rows)
+            extra["count_fire_lanes"] = {
+                "widths": [1, 1, 1], "fired_rows": n, "max_abs_err": 0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": by, "copy_ms_subtracted": copy_ms}
+
+    # split_cells: one batch of job (a)'s per-record upload
+    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=1, events_per_ms=100,
+                        num_active_auctions=10_000, hot_ratio=4)
+    data, ts = bid_batch(cfg, 0, 5)
+    slots = KeyDirectory(128, 256).assign(data["auction"])
+    ring, dump_row = 32, 128 * 256
+    cols = ((ts // 1000) % ring).astype(np.uint8)
+    sc = torch.from_numpy(split_encode(slots, cols, np.ones(len(ts), bool))
+                          ).to(dev)
+    a = wk.split_cells(sc, ring, dump_row)
+    b = wk.split_cells_plain(sc, ring, dump_row)
+    torch.cuda.synchronize()
+    want = torch.from_numpy((slots * ring + cols).astype(np.int32)).to(dev)
+    check(torch.equal(a, b) and torch.equal(a, want),
+          "split_cells differs from its plain version")
+    record("split_cells", "flink_tpu/ops/window.py:101", 0,
+           time_ms(torch, lambda: wk.split_cells(sc, ring, dump_row)),
+           time_ms(torch, lambda: wk.split_cells_plain(sc, ring, dump_row)),
+           None, Q5_BATCH * (3 + 4), Q5_BATCH * 4)
+    out[-1].update({"records": Q5_BATCH, "shape": [dump_row + 1, ring],
+                    "library_call": "none (no single torch call decodes "
+                                    "the 3-byte records)"})
+    return extra
 
 
 def fused_kernel_cases(torch, np, dev, record):
@@ -1572,7 +1690,10 @@ def phase_bid_aggs(torch, np):
         run_bid_agg(torch, np, which, 2, f"bid-agg-{which}-warmup")
         rows, launches, res, wall, cfg = run_bid_agg(
             torch, np, which, AGG_BATCHES, f"bid-agg-{which}")
-        missing = [k for k in (path_kernel, "fire_pack", "ring_columns")
+        # job (a) goes per record into 32,769 rows: the split upload
+        path_kernels = ((path_kernel, "split_cells") if which == "a"
+                        else (path_kernel,))
+        missing = [k for k in path_kernels + ("fire_pack", "ring_columns")
                    if launches[k] == 0]
         check(not missing, f"job ({which}): kernels not launched: {missing}")
         runs[which] = (rows, cfg)
@@ -1600,6 +1721,149 @@ def phase_bid_aggs(torch, np):
     return launches_by_job, per_call
 
 
+def window_wordcount_source(np, n_batches):
+    """``wordcount_source``'s words, each carrying ``n = 1`` (the
+    upstream example's ``Tuple2(word, 1)``)."""
+    from flink_tpu_torch.api.sources import GeneratorSource
+
+    _, words = wordcount_source(np, n_batches)
+    ones = np.ones(WC_BATCH, np.int64)
+
+    def gen(split, i):
+        batch = words(split, i)
+        if batch is None:
+            return None
+        data, ts = batch
+        return ({"word": data["word"], "n": ones}, ts)
+    return GeneratorSource(gen)
+
+
+def run_window_wordcount(torch, np, n_batches, label, agg="sum"):
+    """WindowWordCount through the port's ``env.execute()`` at
+    confs/bench_wordcount.conf: ``count_window(250).sum("n")`` (or
+    ``.count()``) keyed by word: (the sink's batches, launches,
+    JobResult, wall seconds)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    env = StreamExecutionEnvironment(Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf")))
+    parts = []
+    windows = (env.from_source(window_wordcount_source(np, n_batches),
+                               WatermarkStrategy.for_bounded_out_of_orderness(0))
+               .key_by("word").count_window(CW_SIZE))
+    (windows.sum("n") if agg == "sum" else windows.count()).add_sink(
+        FnSink(lambda b: parts.append(
+            {k: np.asarray(v).copy() for k, v in b.items()})))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return parts, dict(wk.LAUNCHES), res, wall
+
+
+def window_wordcount_golden(np, n_batches):
+    """Per batch, the words whose count since their last fire reached 250
+    by the batch's end (the trigger is checked at batch boundaries), as
+    (words ascending, counts); their counts then restart."""
+    _, gen = wordcount_source(np, n_batches)
+    since = np.zeros(WC_VOCAB, np.int64)
+    out = []
+    for i in range(n_batches):
+        data, _ = gen("0", i)
+        since += np.bincount(data["word"], minlength=WC_VOCAB)
+        fired = np.flatnonzero(since >= CW_SIZE)
+        out.append((fired, since[fired].astype(np.int32)))
+        since[fired] = 0
+    return out
+
+
+def check_window_wordcount(np, parts, golden, label, field=None):
+    """Every emitted batch against its golden batch, as (key, count[,
+    sum]) sorted by key; a batch that fires nothing emits nothing."""
+    want = [g for g in golden if len(g[0])]
+    check(len(parts) == len(want),
+          f"{label}: {len(parts)} emitted batches, {len(want)} expected")
+    for i, (part, (keys, counts)) in enumerate(zip(parts, want)):
+        order = np.argsort(part["key"], kind="stable")
+        ok = (np.array_equal(part["key"][order], keys)
+              and np.array_equal(part["count"][order], counts)
+              and np.all(part["window_end"] == 1 << 62))
+        if field is not None:
+            ok = ok and part[field].dtype == np.float32 and np.array_equal(
+                part[field][order], counts.astype(np.float32))
+        check(ok, f"{label}: emitted batch {i} differs from the golden")
+    return sum(len(p["key"]) for p in parts)
+
+
+def phase_window_wordcount(torch, np):
+    """WindowWordCount (``count_window(250).sum("n")`` by word; the
+    upstream example's slide of 150 dropped) on the WordCount stream and
+    state at full width: one warm-up run of 4 batches, three timed runs
+    of 24 batches of 2^20 words, every emitted batch checked against the
+    numpy golden; then a ``count()`` job on 4 batches."""
+    from flink_tpu_torch.config import Configuration, PipelineOptions, StateOptions
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf"))
+    check(int(conf.get(PipelineOptions.MICROBATCH_SIZE)) == WC_BATCH
+          and int(conf.get(StateOptions.NUM_KEY_SHARDS)) == 128
+          and int(conf.get(StateOptions.SLOTS_PER_SHARD)) == 512,
+          "confs/bench_wordcount.conf is not the WordCount shape")
+    parts, _, _, _ = run_window_wordcount(torch, np, WC_WARMUP_BATCHES,
+                                          "ww-warmup")
+    check_window_wordcount(np, parts, window_wordcount_golden(
+        np, WC_WARMUP_BATCHES), "window_wordcount warm-up", "sum_n")
+    runs = []
+    for i in range(WC_RUNS):
+        parts, launches, res, wall = run_window_wordcount(
+            torch, np, WC_BATCHES, f"window-wordcount-{i}")
+        missing = [k for k in ("scatter_lanes", "count_fire")
+                   if launches[k] == 0]
+        check(not missing, f"kernels not launched on WindowWordCount: "
+              f"{missing}")
+        runs.append((wall, parts, launches, res))
+    # the golden's numpy work comes after the timed runs
+    golden = window_wordcount_golden(np, WC_BATCHES)
+    fired_rows = [check_window_wordcount(np, parts, golden,
+                                         f"window_wordcount run {i}", "sum_n")
+                  for i, (_, parts, _, _) in enumerate(runs)]
+    events = WC_BATCH * WC_BATCHES
+    wall, parts, launches, res = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+    busy, host = busy_and_host(res)
+    prof = profile_run(torch, lambda: run_window_wordcount(
+        torch, np, WC_WARMUP_BATCHES, "window-wordcount-profiled")[3])
+    c_parts, c_launches, _, c_wall = run_window_wordcount(
+        torch, np, WC_WARMUP_BATCHES, "window-wordcount-count", agg="count")
+    c_rows = check_window_wordcount(
+        np, c_parts, window_wordcount_golden(np, WC_WARMUP_BATCHES),
+        "window_wordcount count()")
+    missing = [k for k in ("scatter_counts", "count_fire")
+               if c_launches[k] == 0]
+    check(not missing, f"kernels not launched on the count() job: {missing}")
+    out = {"phase": "window_wordcount", "conf": "confs/bench_wordcount.conf",
+           "job": f"key_by(word).count_window({CW_SIZE}).sum(n)",
+           "events": events, "batches": WC_BATCHES, "runs": WC_RUNS,
+           "events_per_s_runs": [events / r[0] for r in runs],
+           "events_per_s": events / wall, "wall_s": wall,
+           "fired_rows_runs": fired_rows,
+           "emitted_batches": len(parts), "launches": launches,
+           "device_busy_ms": busy,
+           "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+           "host_profile_s": host,
+           "profiled": {"batches": WC_WARMUP_BATCHES, **prof},
+           "count_job": {"batches": WC_WARMUP_BATCHES, "rows": c_rows,
+                         "wall_s": c_wall, "launches": c_launches},
+           "card": card_line()}
+    emit(out)
+    return launches, prof["device_ms_per_call"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1620,22 +1884,26 @@ def main() -> int:
         devgen, per_call = phase_q5_devgen(torch, np)
         wordcount, wc_per_call = phase_wordcount(torch, np)
         aggs, agg_per_call = phase_bid_aggs(torch, np)
+        window_wc, ww_per_call = phase_window_wordcount(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
-                 "bid_aggs_b": aggs["b"]}
+                 "bid_aggs_b": aggs["b"], "window_wordcount": window_wc}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
         # lane, apply_pairs_u16 on its hot keys; apply_pairs_u32 and
-        # fire_pack on WordCount; the two lane scatters on their
-        # bid-aggregate job
+        # fire_pack on WordCount; the two lane scatters and the split
+        # upload's decode on their bid-aggregate job; count_fire on
+        # WindowWordCount
         own_path = {"scatter_counts": "q5_numpy_lane",
                     "fused_step": "q5_host_fed",
                     "apply_pairs_u16": "q5_hot_keys",
                     "apply_pairs_u32": "wordcount", "fire_pack": "wordcount",
                     "scatter_lanes": "bid_aggs_a",
-                    "scatter_pair_lanes": "bid_aggs_b"}
+                    "scatter_pair_lanes": "bid_aggs_b",
+                    "split_cells": "bid_aggs_a",
+                    "count_fire": "window_wordcount"}
         for row in table:
             name = row["name"]
             # device time per call inside the profiled pipeline runs (the
@@ -1643,7 +1911,8 @@ def main() -> int:
             row["pipeline_device_ms"] = (per_call.get(name)
                                          or wc_per_call.get(name)
                                          or agg_per_call.get(name)
-                                         or q5_per_call.get(name))
+                                         or q5_per_call.get(name)
+                                         or ww_per_call.get(name))
             path = own_path.get(name, "q5_devgen")
             row["launches"] = paths[path][name] or host_fed[name]
             row["launches_path"] = path

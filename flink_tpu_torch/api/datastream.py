@@ -1,6 +1,7 @@
 """The fluent DataStream API: each call appends a transformation;
 nothing runs until ``StreamExecutionEnvironment.execute()``. The port
-has map, key_by, window, count/sum/max/min/aggregate, top and add_sink.
+has map, key_by, window, count_window, count/sum/max/min/aggregate, top
+and add_sink.
 Allowed lateness, triggers and the other operators are in ROADMAP.md
 (the window operator itself handles lateness)."""
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import Any, Optional
 from flink_tpu_torch.api.functions import as_batch_fn
 from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.graph.transformations import (
+    CountWindowAggregateTransformation,
     KeyByTransformation,
     MapTransformation,
     SinkTransformation,
@@ -56,31 +58,43 @@ class KeyedStream(DataStream):
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
 
+    def count_window(self, size: int) -> "CountWindowedStream":
+        """Fire each key every ``size`` records (GlobalWindows + a
+        purging count trigger). The trigger is checked per batch: a key
+        crossing ``size`` inside a batch fires once with its full
+        aggregate (``ops/count_window.py``)."""
+        return CountWindowedStream(self, size, purge=True)
 
-class WindowedStream:
-    def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
-        self.keyed = keyed
-        self.assigner = assigner
 
-    def count(self) -> "WindowedAggregateStream":
+class _AggregateShortcuts:
+    """count/sum/max/min, shared by the windowed stream kinds; each
+    delegates to the subclass's ``aggregate``."""
+
+    def count(self):
         from flink_tpu_torch.ops.aggregates import count as count_agg
 
         return self.aggregate(count_agg())
 
-    def sum(self, field: str) -> "WindowedAggregateStream":
+    def sum(self, field: str):
         from flink_tpu_torch.ops.aggregates import sum_of
 
         return self.aggregate(sum_of(field))
 
-    def max(self, field: str) -> "WindowedAggregateStream":
+    def max(self, field: str):
         from flink_tpu_torch.ops.aggregates import max_of
 
         return self.aggregate(max_of(field))
 
-    def min(self, field: str) -> "WindowedAggregateStream":
+    def min(self, field: str):
         from flink_tpu_torch.ops.aggregates import min_of
 
         return self.aggregate(min_of(field))
+
+
+class WindowedStream(_AggregateShortcuts):
+    def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
+        self.keyed = keyed
+        self.assigner = assigner
 
     def aggregate(self, agg: LaneAggregate,
                   name: str = "window_agg") -> "WindowedAggregateStream":
@@ -90,6 +104,22 @@ class WindowedStream:
             key_field=kt.key_field)
         self.keyed.env._register(t)
         return WindowedAggregateStream(self.keyed.env, t)
+
+
+class CountWindowedStream(_AggregateShortcuts):
+    def __init__(self, keyed: KeyedStream, size: int, purge: bool = True):
+        self.keyed = keyed
+        self.size = size
+        self.purge = purge
+
+    def aggregate(self, agg: LaneAggregate,
+                  name: str = "count_window_agg") -> DataStream:
+        kt = self.keyed.transform
+        t = CountWindowAggregateTransformation(
+            name, (kt,), size=self.size, purge=self.purge, aggregate=agg,
+            key_field=kt.key_field)
+        self.keyed.env._register(t)
+        return DataStream(self.keyed.env, t)
 
 
 class WindowedAggregateStream(DataStream):

@@ -1,13 +1,15 @@
 """Lower the transformation DAG to the plan the driver walks per batch:
-source → chain (fused host map functions) → window → chain → sink.
-KeyBy folds into the window node that consumes it. A transformation the
-port does not have yet raises, naming its ROADMAP.md item."""
+source → chain (fused host map functions) → window or count window →
+chain → sink. KeyBy folds into the window node that consumes it. A
+transformation the port does not have yet raises, naming its
+ROADMAP.md item."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from flink_tpu_torch.graph.transformations import (
+    CountWindowAggregateTransformation,
     KeyByTransformation,
     MapTransformation,
     SinkTransformation,
@@ -21,7 +23,7 @@ from flink_tpu_torch.time.watermarks import WatermarkStrategy
 @dataclasses.dataclass
 class ExecNode:
     id: int
-    kind: str                 # source | chain | window | sink
+    kind: str                 # source | chain | window | count_window | sink
     downstream: List[int] = dataclasses.field(default_factory=list)
     source: Any = None
     watermark_strategy: Optional[WatermarkStrategy] = None
@@ -82,6 +84,14 @@ def compile_job(transforms: Sequence[Transformation],
                     "a window aggregate must follow key_by in this port")
             up = node_for(t.inputs[0])
             n = new_node("window", t.name, window_transform=t,
+                         key_field=t.key_field)
+            nodes[up].downstream.append(n.id)
+        elif isinstance(t, CountWindowAggregateTransformation):
+            if not isinstance(t.inputs[0], KeyByTransformation):
+                raise NotImplementedError(
+                    "a count window must follow key_by in this port")
+            up = node_for(t.inputs[0])
+            n = new_node("count_window", t.name, window_transform=t,
                          key_field=t.key_field)
             nodes[up].downstream.append(n.id)
         elif isinstance(t, SinkTransformation):

@@ -61,5 +61,16 @@ class WindowAggregateTransformation(Transformation):
 
 
 @dataclasses.dataclass(eq=False)
+class CountWindowAggregateTransformation(Transformation):
+    """Keyed count window + aggregate: fires each key every ``size``
+    records (GlobalWindows + a count trigger, purging when ``purge``)."""
+
+    size: int = 0
+    purge: bool = True
+    aggregate: Optional[LaneAggregate] = None
+    key_field: str = "key"
+
+
+@dataclasses.dataclass(eq=False)
 class SinkTransformation(Transformation):
     sink: Any = None

@@ -31,6 +31,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "compact.cuh"
 #include "window_common.cuh"
 
 namespace {
@@ -72,14 +73,13 @@ __device__ __forceinline__ float min_ieee(float a, float b) {
 //
 // Bound: bytes — the count lane's live columns once, each selected cell's
 // lane columns once (the sums row is read whole, since the reference adds
-// every column times its mask bit), the output rows once. Design, two
-// launches on one stream (the pattern of window_kernels.cu K3):
-//   A  one block per kTile cells: window counts into a (rows, W) scratch
-//      and the block's selected count;
-//   B  one block per kTile cells: the counts of the blocks before it
-//      (deterministic, no atomic cursor), an ordered in-tile scan, then
-//      each selected cell's row and lanes. Block 0 writes the head. The
-//      rows land in exactly the order of the reference's stable argsort.
+// every column times its mask bit), the output rows once. Design, the
+// two launches of compact.cuh's ordered compaction on one stream:
+//   A  window counts into a (rows, W) scratch and each block's selected
+//      count;
+//   B  each selected cell's row and lanes at its position; block 0
+//      writes the head. The rows land in exactly the order of the
+//      reference's stable argsort.
 
 __global__ void fire_count_kernel(const int32_t* __restrict__ counts, int64_t rows, int32_t ring,
                                   const int64_t* __restrict__ end_panes,
@@ -87,24 +87,19 @@ __global__ void fire_count_kernel(const int32_t* __restrict__ counts, int64_t ro
                                   int64_t pane_lo, int64_t pane_hi, int32_t ppw,
                                   const uint8_t* __restrict__ used, int32_t* __restrict__ wc,
                                   int32_t* __restrict__ block_counts) {
-  __shared__ long long s_sum[kWarps];
-  const int64_t K = rows * (int64_t)W;
   const int64_t hi_cap = live_hi_cap(pane_lo, pane_hi, ring);
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  long long c = 0;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j;
-    if (i >= K) break;
-    const int64_t r = i / W;
-    const int32_t w = (int32_t)(i - r * W);
-    const int32_t v = w_valid[w] ? window_count(counts + r * ring, ring, end_panes[w], pane_lo,
-                                                hi_cap, ppw)
-                                 : 0;
-    wc[i] = v;
-    if (v > 0 && used[r]) ++c;
-  }
-  c = block_sum(c, s_sum);
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = (int32_t)c;
+  compact_count(
+      rows * (int64_t)W,
+      [&](int64_t i) {
+        const int64_t r = i / W;
+        const int32_t w = (int32_t)(i - r * W);
+        const int32_t v = w_valid[w] ? window_count(counts + r * ring, ring, end_panes[w],
+                                                    pane_lo, hi_cap, ppw)
+                                     : 0;
+        wc[i] = v;
+        return v > 0 && used[r];
+      },
+      block_counts);
 }
 
 __global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, int32_t W,
@@ -118,86 +113,63 @@ __global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, 
                                   int32_t* __restrict__ out, int32_t out_cols, int32_t out_cap,
                                   int32_t packed2, float* __restrict__ lanes,
                                   int32_t* __restrict__ err) {
-  __shared__ long long s_sum[kWarps];
-  __shared__ int s_scan[kWarps];
-  const int64_t K = rows * (int64_t)W;
-  long long before = 0;
-  for (int32_t b = threadIdx.x; b < (int32_t)blockIdx.x; b += blockDim.x) before += block_counts[b];
-  before = block_sum(before, s_sum);
-  if (blockIdx.x == 0) {
-    long long all = 0;
-    for (int32_t b = threadIdx.x; b < n_blocks; b += blockDim.x) all += block_counts[b];
-    all = block_sum(all, s_sum);
-    if (threadIdx.x == 0) {
-      out[0] = (int32_t)all;
-      for (int32_t c = 1; c < out_cols; ++c) out[c] = 0;
-      if (all > out_cap) atomicOr(err, kErrFireCap);
-    }
-  }
-  if (before >= out_cap) return;  // uniform per block: all its rows are past the cap
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  bool sel[kItems];
-  int mine = 0;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j;
-    sel[j] = i < K && wc[i] > 0 && used[i / W];
-    mine += sel[j];
-  }
-  long long pos = before + block_exclusive_scan(mine, s_scan);
   const int32_t L = sw + mw + nw;
-  for (int j = 0; j < kItems; ++j) {
-    if (!sel[j]) continue;
-    if (pos >= out_cap) break;
-    const int64_t i = base + j;
-    const int64_t r = i / W;
-    const int32_t w = (int32_t)(i - r * W);
-    const int64_t e = end_panes[w];
-    const int32_t delta = (int32_t)(e - pane_lo);
-    int32_t* dst = out + (pos + 1) * out_cols;
-    if (packed2) {
-      dst[0] = ((int32_t)r << 8) | delta;
-      dst[1] = wc[i];
-    } else {
-      dst[0] = (int32_t)r;
-      dst[1] = delta;
-      dst[2] = wc[i];
-    }
-    if (L > 0) {
-      // the window's live panes [lo_w, hi_w]; column c is live when it
-      // holds one of them (span < ring: one live pane per column)
-      const int64_t lo_w = e - ppw > pane_lo ? e - ppw : pane_lo;
-      const int64_t hi_w = e - 1 < pane_hi ? e - 1 : pane_hi;
-      const int64_t span = hi_w - lo_w;
-      const int32_t c0 = (int32_t)floor_mod(lo_w, ring);
-      const int32_t span32 = span < 0 ? -1 : (span >= ring - 1 ? ring - 1 : (int32_t)span);
-      float* lo_out = lanes + pos * L;
-      for (int32_t s = 0; s < sw; ++s) {
-        float acc = 0.0f;
-        for (int32_t c = 0; c < ring; ++c) {
-          const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
-          acc += sums[(r * ring + c) * sw + s] * (d <= span32 ? 1.0f : 0.0f);
+  compact_write(
+      rows * (int64_t)W, block_counts, n_blocks, out_cap,
+      [&](int64_t i) { return wc[i] > 0 && used[i / W]; },
+      [&](int64_t i, long long pos) {
+        const int64_t r = i / W;
+        const int32_t w = (int32_t)(i - r * W);
+        const int64_t e = end_panes[w];
+        const int32_t delta = (int32_t)(e - pane_lo);
+        int32_t* dst = out + (pos + 1) * out_cols;
+        if (packed2) {
+          dst[0] = ((int32_t)r << 8) | delta;
+          dst[1] = wc[i];
+        } else {
+          dst[0] = (int32_t)r;
+          dst[1] = delta;
+          dst[2] = wc[i];
         }
-        lo_out[s] = acc;
-      }
-      for (int32_t s = 0; s < mw; ++s) {
-        float acc = -INFINITY;
-        for (int32_t c = 0; c < ring; ++c) {
-          const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
-          if (d <= span32) acc = max_ieee(acc, maxs[(r * ring + c) * mw + s]);
+        if (L == 0) return;
+        // the window's live panes [lo_w, hi_w]; column c is live when it
+        // holds one of them (span < ring: one live pane per column)
+        const int64_t lo_w = e - ppw > pane_lo ? e - ppw : pane_lo;
+        const int64_t hi_w = e - 1 < pane_hi ? e - 1 : pane_hi;
+        const int64_t span = hi_w - lo_w;
+        const int32_t c0 = (int32_t)floor_mod(lo_w, ring);
+        const int32_t span32 = span < 0 ? -1 : (span >= ring - 1 ? ring - 1 : (int32_t)span);
+        float* lo_out = lanes + pos * L;
+        for (int32_t s = 0; s < sw; ++s) {
+          float acc = 0.0f;
+          for (int32_t c = 0; c < ring; ++c) {
+            const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
+            acc += sums[(r * ring + c) * sw + s] * (d <= span32 ? 1.0f : 0.0f);
+          }
+          lo_out[s] = acc;
         }
-        lo_out[sw + s] = acc;
-      }
-      for (int32_t s = 0; s < nw; ++s) {
-        float acc = INFINITY;
-        for (int32_t c = 0; c < ring; ++c) {
-          const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
-          if (d <= span32) acc = min_ieee(acc, mins[(r * ring + c) * nw + s]);
+        for (int32_t s = 0; s < mw; ++s) {
+          float acc = -INFINITY;
+          for (int32_t c = 0; c < ring; ++c) {
+            const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
+            if (d <= span32) acc = max_ieee(acc, maxs[(r * ring + c) * mw + s]);
+          }
+          lo_out[sw + s] = acc;
         }
-        lo_out[sw + mw + s] = acc;
-      }
-    }
-    ++pos;
-  }
+        for (int32_t s = 0; s < nw; ++s) {
+          float acc = INFINITY;
+          for (int32_t c = 0; c < ring; ++c) {
+            const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
+            if (d <= span32) acc = min_ieee(acc, mins[(r * ring + c) * nw + s]);
+          }
+          lo_out[sw + mw + s] = acc;
+        }
+      },
+      [&](long long all) {
+        out[0] = (int32_t)all;
+        for (int32_t c = 1; c < out_cols; ++c) out[c] = 0;
+        if (all > out_cap) atomicOr(err, kErrFireCap);
+      });
 }
 
 // ---- L2: scatter_lanes -----------------------------------------------------
@@ -477,7 +449,7 @@ int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float*
                  int32_t* block_counts, int32_t* err, void* stream) {
   const int64_t K = rows * (int64_t)W;
   if (K <= 0) return (int)cudaGetLastError();
-  const int32_t n_blocks = (int32_t)((K + kTile - 1) / kTile);
+  const int32_t n_blocks = compact_blocks(K);
   cudaStream_t s = (cudaStream_t)stream;
   fire_count_kernel<<<n_blocks, kThreads, 0, s>>>(counts, rows, ring, end_panes, w_valid, W,
                                                   pane_lo, pane_hi, ppw, used, wc, block_counts);

@@ -9,6 +9,7 @@
 
 #include <math.h>
 
+#include "compact.cuh"
 #include "window_common.cuh"
 
 namespace {
@@ -101,12 +102,10 @@ inline void launch_window_counts(const int32_t* counts, int64_t rows, int32_t ri
 // launches on one stream:
 //   A  one block per window: up to n max-and-count rounds (n = 1 for Q5:
 //      one max and one count pass over the window's column);
-//   B  one block per kTile cells: count the selected cells;
-//   C  one block per kTile cells: each block sums the counts of the
-//      blocks before it (deterministic, no atomic cursor), scans its
-//      tile in thread order and writes its rows. Block 0 also moves the
-//      ring head. Rows land in exactly the order the JAX kernel's stable
-//      argsort gives.
+//   B, C  compact.cuh's ordered compaction of the selected cells: each
+//      block's count, then each block's rows at their positions; block
+//      0 also moves the ring head. Rows land in exactly the order the
+//      JAX kernel's stable argsort gives.
 
 __device__ __forceinline__ bool topn_selected(const int32_t* __restrict__ wcounts, int64_t i,
                                               int32_t W, const uint8_t* __restrict__ used,
@@ -165,17 +164,11 @@ __global__ void topn_count_kernel(const int32_t* __restrict__ wcounts, int64_t r
                                   const uint8_t* __restrict__ w_valid,
                                   const float* __restrict__ thresh,
                                   int32_t* __restrict__ block_counts, FireSource src) {
-  __shared__ long long s_sum[kWarps];
   if (src.skip()) return;
-  const int64_t K = rows * (int64_t)W;
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  long long c = 0;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j;
-    if (i < K && topn_selected(wcounts, i, W, used, w_valid, thresh)) ++c;
-  }
-  c = block_sum(c, s_sum);
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = (int32_t)c;
+  compact_count(
+      rows * (int64_t)W,
+      [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
+      block_counts);
 }
 
 __global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t rows, int32_t W,
@@ -187,49 +180,26 @@ __global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t r
                                   const int64_t* __restrict__ end_panes, FireSource src,
                                   int32_t sel_cap, int32_t* __restrict__ ring,
                                   int32_t row_cap, int32_t ring_cols) {
-  __shared__ long long s_sum[kWarps];
-  __shared__ int s_scan[kWarps];
   if (src.skip()) return;
   const int64_t anchor = src.get().anchor;
-  const int64_t K = rows * (int64_t)W;
-  long long before = 0;
-  for (int32_t b = threadIdx.x; b < (int32_t)blockIdx.x; b += blockDim.x) before += block_counts[b];
-  before = block_sum(before, s_sum);
   const long long total = *old_total;
-  if (blockIdx.x == 0) {
-    long long all = 0;
-    for (int32_t b = threadIdx.x; b < n_blocks; b += blockDim.x) all += block_counts[b];
-    all = block_sum(all, s_sum);
-    if (threadIdx.x == 0) {
-      const long long written = all < sel_cap ? all : sel_cap;
-      ring[0] = (int32_t)(total + written);
-      ring[1] += (int32_t)(all - written);
-    }
-  }
-  if (before >= sel_cap) return;  // uniform per block: every row of it is truncated
-  const int64_t base = (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  bool sel[kItems];
-  int mine = 0;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j;
-    sel[j] = i < K && topn_selected(wcounts, i, W, used, w_valid, thresh);
-    mine += sel[j];
-  }
-  long long pos = before + block_exclusive_scan(mine, s_scan);
-  for (int j = 0; j < kItems; ++j) {
-    if (!sel[j]) continue;
-    if (pos < sel_cap) {
-      const int64_t i = base + j;
-      const int64_t r = i / W;
-      const int32_t w = (int32_t)(i - r * W);
-      const int64_t slot = (total + pos) % row_cap + 1;
-      int32_t* dst = ring + slot * ring_cols;
-      dst[0] = (int32_t)r;
-      dst[1] = (int32_t)(end_panes[w] - anchor);
-      dst[2] = wcounts[i];
-    }
-    ++pos;
-  }
+  compact_write(
+      rows * (int64_t)W, block_counts, n_blocks, sel_cap,
+      [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
+      [&](int64_t i, long long pos) {
+        const int64_t r = i / W;
+        const int32_t w = (int32_t)(i - r * W);
+        const int64_t slot = (total + pos) % row_cap + 1;
+        int32_t* dst = ring + slot * ring_cols;
+        dst[0] = (int32_t)r;
+        dst[1] = (int32_t)(end_panes[w] - anchor);
+        dst[2] = wcounts[i];
+      },
+      [&](long long all) {
+        const long long written = all < sel_cap ? all : sel_cap;
+        ring[0] = (int32_t)(total + written);
+        ring[1] += (int32_t)(all - written);
+      });
 }
 
 // scratch: thresh (W floats), block_counts (ceil(rows*W / kTile) int32),
@@ -241,7 +211,7 @@ inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const ui
                        long long* old_total, cudaStream_t s) {
   const int64_t K = rows * (int64_t)W;
   if (K <= 0 || W <= 0 || n <= 0) return (int)cudaGetLastError();
-  const int32_t n_blocks = (int32_t)((K + kTile - 1) / kTile);
+  const int32_t n_blocks = compact_blocks(K);
   topn_threshold_kernel<<<W, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, n, thresh, ring,
                                                old_total, src);
   int rc = (int)cudaGetLastError();

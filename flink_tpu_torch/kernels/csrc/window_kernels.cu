@@ -24,6 +24,9 @@
 //                         _ring_append_topn_core + :456 _topn_select_append
 // K4 ring_columns         replaces flink_tpu/ops/window.py:825 clear_kernel
 //                         and :888 ring_remap_kernel (every lane)
+// K7 split_cells          replaces flink_tpu/ops/window.py:101 split_decode
+//                         and the decode of :122 apply_kernel_split (the
+//                         scatter itself is K1 or lane_kernels.cu's L2)
 //
 // K2-K4's kernels live in window_fire.cuh, which fused_kernels.cu (the
 // one-upload fused step) launches too.
@@ -35,8 +38,12 @@
 
 namespace {
 
-// error-word bit of scatter_counts (window_kernels.py ERROR_BITS decodes it)
+// error-word bits of scatter_counts and split_cells (window_kernels.py
+// ERROR_BITS decodes them)
 constexpr int32_t kErrScatterIndex = 1;
+constexpr int32_t kErrSplitCell = 64;
+// the slot id of an invalid record in a split upload
+constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
 
 // ---- K1: scatter_counts --------------------------------------------------
 // counts.flat[idx[i]] += cnt[i] (or += 1 when cnt is null).
@@ -62,6 +69,34 @@ __global__ void scatter_counts_kernel(int32_t* __restrict__ counts, int64_t n_ce
   }
 }
 
+// ---- K7: split_cells -----------------------------------------------------
+// The per-record upload of 3 bytes a record, (B, 3) uint8: bytes 0-1 the
+// little-endian slot id, byte 2 the ring column; slot 0xFFFF is an
+// invalid record and goes to the dump row. cells[i] = row * ring + col,
+// the int32 flat cell that scatter_counts / scatter_lanes take. A slot
+// past the dump row or a column past the ring writes cell -1 (which the
+// scatter then skips and reports too) and sets kErrSplitCell.
+// Bound: bytes — 3 read and 4 written a record. Design: one thread per
+// record reads its three bytes (records are 3-byte aligned, so no wider
+// load); the writes coalesce.
+__global__ void split_cells_kernel(const uint8_t* __restrict__ sc, int64_t n, int32_t ring,
+                                   int32_t dump_row, int32_t* __restrict__ cells,
+                                   int32_t* __restrict__ err) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const uint8_t* rec = sc + 3 * i;
+    const uint32_t slot = (uint32_t)rec[0] | ((uint32_t)rec[1] << 8);
+    const int32_t col = rec[2];
+    const int32_t row = slot == kInvalidSlotU16 ? dump_row : (int32_t)slot;
+    if (row > dump_row || col >= ring) {
+      atomicOr(err, kErrSplitCell);
+      cells[i] = -1;
+      continue;
+    }
+    cells[i] = row * ring + col;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -75,6 +110,15 @@ int fk_scatter_counts(int32_t* counts, int64_t n_cells, const int32_t* idx, cons
   if (n > 0) {
     scatter_counts_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(counts, n_cells,
                                                                               idx, cnt, n, err);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fk_split_cells(const uint8_t* sc, int64_t n, int32_t ring, int32_t dump_row, int32_t* cells,
+                   int32_t* err, void* stream) {
+  if (n > 0) {
+    split_cells_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(sc, n, ring, dump_row,
+                                                                          cells, err);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-"""The window operator's four count-lane device functions: a CUDA kernel
-each (``csrc/window_kernels.cu``) and a plain PyTorch version each, with
-the same signature (``ring_columns`` also moves the f32 sum/max/min
-lanes).
+"""The window operator's count-lane device functions and the split
+upload's decode: a CUDA kernel each (``csrc/window_kernels.cu``) and a
+plain PyTorch version each, with the same signature (``ring_columns``
+also moves the f32 sum/max/min lanes).
 
 A wrapper takes the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts
@@ -14,13 +14,13 @@ kernel skips it and sets a bit in the device's error word, which
 ``check_errors`` (or a caller's own copy of ``error_word``, decoded by
 ``raise_for_error_bits``) turns into the same kind of exception.
 
-All four are integer work or pure copies, so every result is exact: the
-kernel, the plain version and the JAX reference agree bit for bit.
+All of them are integer work or pure copies, so every result is exact:
+the kernel, the plain version and the JAX reference agree bit for bit.
 
 The launch counts, the error word, the library loader and the argument
 checks here serve every kernel module of the port
-(``devgen_kernels.py``, ``lane_kernels.py`` and ``fused_kernels.py``
-too).
+(``devgen_kernels.py``, ``lane_kernels.py``, ``fused_kernels.py`` and
+``count_window_kernels.py`` too).
 """
 from __future__ import annotations
 
@@ -45,6 +45,8 @@ LAUNCHES: Dict[str, int] = {
     "apply_pairs_u32": 0,
     "apply_pairs_u16": 0,
     "fused_step": 0,
+    "split_cells": 0,
+    "count_fire": 0,
 }
 
 
@@ -59,7 +61,9 @@ ERROR_BITS = {1: "scatter_counts: cell index outside counts",
               4: "devgen_ingest: cell index outside counts",
               8: "scatter_lanes: cell index outside the pane state",
               16: "scatter_pair_lanes: pair index outside the pane state",
-              32: "fire_pack: more selected rows than the buffer holds"}
+              32: "fire_pack: more selected rows than the buffer holds",
+              64: "split_cells: slot or ring column outside the state",
+              128: "count_fire: more fired rows than the buffer holds"}
 _error_words: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -96,6 +100,7 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "fk_scatter_counts": [_P, _I64, _P, _P, _I64, _P, _P],
+    "fk_split_cells": [_P, _I64, _I32, _I32, _P, _P, _P],
     "fk_window_counts": [_P, _I64, _I32, _P, _P, _I32, _I64, _I64, _I32, _P, _P],
     "fk_topn_select_append": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I32, _P,
                               _I32, _I32, _P, _P, _P, _P],
@@ -200,6 +205,43 @@ def scatter_counts_plain(counts, idx, cnt=None):
            else torch.ones(idx.numel(), dtype=torch.int32, device=idx.device))
     counts.view(-1).index_add_(0, idx.long(), add)
     return counts
+
+
+# -- K7 ----------------------------------------------------------------------
+
+INVALID_SLOT_U16 = 0xFFFF  # the slot id of an invalid record in a split upload
+
+
+def split_cells(sc: torch.Tensor, ring: int, dump_row: int) -> torch.Tensor:
+    """(B,) int32 flat cells ``row * ring + col`` of a ``(B, 3)`` uint8
+    split upload: bytes 0-1 the little-endian slot id, byte 2 the ring
+    column; slot ``INVALID_SLOT_U16`` goes to the dump row. A slot past
+    ``dump_row`` or a column past the ring raises (the kernel writes
+    cell -1 and reports it through ``error_word``)."""
+    check_tensor(sc, "sc", torch.uint8, 2)
+    if sc.shape[1] != 3:
+        raise ValueError(f"sc must be (B, 3), got {tuple(sc.shape)}")
+    if not 1 <= ring <= 256 or not 0 <= dump_row < INVALID_SLOT_U16:
+        raise ValueError(f"split upload needs ring <= 256 and dump_row < "
+                         f"0xFFFF, got ring {ring}, dump_row {dump_row}")
+    if not on_cuda("split_cells", sc):
+        return split_cells_plain(sc, ring, dump_row)
+    cells = torch.empty(sc.shape[0], dtype=torch.int32, device=sc.device)
+    _launch("split_cells", "fk_split_cells", sc.data_ptr(), sc.shape[0],
+            int(ring), int(dump_row), cells.data_ptr(),
+            error_word(sc.device).data_ptr(), stream_of(sc))
+    return cells
+
+
+def split_cells_plain(sc, ring, dump_row):
+    b = sc.to(torch.int32)
+    slot = b[:, 0] | (b[:, 1] << 8)
+    col = b[:, 2]
+    row = torch.where(slot == INVALID_SLOT_U16,
+                      torch.full_like(slot, dump_row), slot)
+    if row.numel() and (int(row.max()) > dump_row or int(col.max()) >= ring):
+        raise_for_error_bits(64)
+    return row * ring + col
 
 
 # -- K2 ----------------------------------------------------------------------

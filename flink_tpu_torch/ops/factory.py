@@ -1,5 +1,5 @@
-"""Operator factory: builds the runtime operator of a plan node. Only
-the window operator is ported."""
+"""Operator factories: build the runtime operator of a plan node. The
+window and count-window operators are ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,5 +31,17 @@ def _window_factory(node, ctx: OperatorBuildContext):
         top_n=t.top_n,
         max_inflight_steps=ctx.max_inflight_steps,
         fire_gate=ctx.fire_gate,
+        device=ctx.device,
+    )
+
+
+def _count_window_factory(node, ctx: OperatorBuildContext):
+    from flink_tpu_torch.ops.count_window import CountWindowOperator
+
+    t = node.window_transform
+    return CountWindowOperator(
+        t.aggregate, t.size, purge=t.purge,
+        num_shards=ctx.num_shards,
+        slots_per_shard=ctx.slots_per_shard,
         device=ctx.device,
     )

@@ -18,8 +18,10 @@ decisively smaller, the host combines the batch per (slot, pane-ring
 column) pair — in C on the native lane, then the same word forms; with
 the numpy key table in numpy, then an int32 index + count upload to
 ``scatter_counts`` — and ``scatter_pair_lanes`` folds sum lanes in;
-otherwise one flat cell index per record goes up with the fields the
-aggregate reads, ``lift_masked`` lifts them on the device and
+otherwise one cell per record goes up with the fields the aggregate
+reads — 3 bytes (slot, ring column) while the slot id fits uint16 and
+the ring 256 columns, which ``split_cells`` decodes on the device, else
+an int32 flat index — ``lift_masked`` lifts the fields on the device and
 ``scatter_counts`` (count only) or ``scatter_lanes`` folds them in.
 
 A watermark advance fires every window it completes (over a stashed
@@ -123,6 +125,30 @@ def preagg_combine(slots: np.ndarray, cols: np.ndarray, valid: np.ndarray,
                          minlength=len(pairs)).astype(np.float32)
              for f in sum_fields]
     return pairs, cnts.astype(np.int32), lanes
+
+
+# one record of the split upload: the little-endian slot id, the column
+_SPLIT_RECORD = np.dtype([("slot", "<u2"), ("col", "u1")])
+
+
+def split_encode(slots: np.ndarray, cols: np.ndarray,
+                 valid: np.ndarray) -> np.ndarray:
+    """The split upload's host half: (B,) slots + (B,) ring columns →
+    (B, 3) uint8, bytes 0-1 the little-endian slot id and byte 2 the
+    column, with slot 0xFFFF marking an invalid row (``split_cells``
+    decodes it on the device)."""
+    n = len(slots)
+    rec = np.empty(n, _SPLIT_RECORD)
+    rec["slot"] = (slots if np.all(valid)
+                   else np.where(valid, slots, wk.INVALID_SLOT_U16))
+    rec["col"] = cols
+    return rec.view(np.uint8).reshape(n, 3)
+
+
+def ring_column(panes: np.ndarray, ring: int) -> np.ndarray:
+    """Each pane's ring column, ``panes mod ring`` (a mask when the ring
+    is a power of two, as it is after any growth)."""
+    return panes & (ring - 1) if ring & (ring - 1) == 0 else panes % ring
 
 
 def preagg_encode_u16(pairs: np.ndarray, cnts: np.ndarray,
@@ -287,14 +313,17 @@ class WindowPlan:
                 + self.allowed_lateness_ms + 1)
 
 
-def small_upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A few host bytes on ``device`` without waiting on its stream:
-    staged through pinned memory, since a copy from pageable memory
-    synchronizes the stream first."""
+def staged(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host tensor ready for an asynchronous upload to ``device``: pinned
+    for the card (a copy from pageable memory synchronizes the stream
+    first), the array itself for the CPU."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    return t if device.type == "cpu" else t.pin_memory()
+
+
+def small_upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host bytes on ``device`` without waiting on its stream."""
+    return staged(arr, device).to(device, non_blocking=True)
 
 
 class PinnedStage:
@@ -364,6 +393,24 @@ class PinnedStage:
         i, host = self.acquire()
         host[:arr.nbytes] = arr.reshape(-1).view(np.uint8)
         return self.upload_slot(i, 0, arr.nbytes).view(t.dtype).view(t.shape)
+
+
+def copy_to_host(buf: torch.Tensor, timer: "DeviceTimer"):
+    """(host copy, host copy of the kernels' error word, CUDA event):
+    non-blocking copies into pinned memory (a pageable copy would
+    synchronize the stream), read once the event has passed; torch's
+    pinned allocator hands a block out again only after the copies that
+    used it have run. On the CPU a clone, no error word, no event."""
+    if buf.device.type == "cpu":
+        return buf.clone(), None, None
+    with timer.span("drain"):
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        err = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        err.copy_(wk.error_word(buf.device), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+    return host, err, ev
 
 
 # the native lane's pair words: FUSED_HDR header words + up to 2^21 words
@@ -603,17 +650,34 @@ class WindowOperator:
         if cap:
             self._preagg_dispatch(slots, panes, valid, data, lanes_f, cap)
         else:
-            # per-record: one flat cell index per valid record (plus the
-            # fields the aggregate reads); invalid records never leave
-            # the host
-            idx = (slots * ring + panes % ring)[valid].astype(np.int32)
-            fields = {k: device_cast(data[k])[valid] for k in self.agg.fields}
+            # per-record: one cell per valid record (plus the fields the
+            # aggregate reads), as 3 bytes while the split upload holds,
+            # else an int32 flat index; invalid records never leave the
+            # host
+            cols = ring_column(panes, ring)
+            if self._split_upload:
+                idx = split_encode(slots, cols, valid)
+            else:
+                idx = (slots * ring + cols).astype(np.int32)
+            fields = {k: device_cast(data[k]) for k in self.agg.fields}
+            if not valid.all():
+                idx = idx[valid]
+                fields = {k: v[valid] for k, v in fields.items()}
             self.prof["pb_pack"] += time.perf_counter() - t2
             if self._has_lanes():
                 self._apply_records(idx, fields)
             else:
                 self._apply_cells(idx, None)
         self._throttle()
+
+    @property
+    def _split_upload(self) -> bool:
+        """The per-record upload goes as 3 bytes a record while the slot
+        id fits uint16 with 0xFFFF reserved (dump row included) and the
+        ring column fits a byte: the reference's rule, current after
+        every ring growth."""
+        return (self.layout.rows <= wk.INVALID_SLOT_U16
+                and self.plan.ring <= 256)
 
     def _has_lanes(self) -> bool:
         lay = self.layout
@@ -831,7 +895,7 @@ class WindowOperator:
             self._apply_cells(pairs, cnts)
             return
         t0 = time.perf_counter()
-        buf_h = self._staged(buf)
+        buf_h = staged(buf, self.device)
         with self.timer.span("apply"):
             apply(buf_h.to(self.device, non_blocking=True))
         self._note_dispatch()
@@ -924,20 +988,25 @@ class WindowOperator:
                 "pane state beyond 2^31 cells needs a 64-bit cell index "
                 "(ROADMAP.md)")
 
-    def _staged(self, arr: np.ndarray) -> torch.Tensor:
-        """Host tensor ready for an asynchronous upload (pinned when the
-        operator runs on the card)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        return t if self.device.type == "cpu" else t.pin_memory()
+    def _cells_on_device(self, cells_h: torch.Tensor) -> torch.Tensor:
+        """Staged cells as int32 flat indices on the device: an int32
+        upload as it is, a split upload's (B, 3) bytes through
+        ``split_cells``."""
+        cells = cells_h.to(self.device, non_blocking=True)
+        if cells.dtype == torch.uint8:
+            return wk.split_cells(cells, self.plan.ring, self.layout.slots)
+        return cells
 
     def _apply_cells(self, idx: np.ndarray, cnt: Optional[np.ndarray]) -> None:
+        """Count-lane cells: int32 flat indices, or a split upload's
+        (B, 3) bytes (per record, no counts); ``scatter_counts``."""
         if len(idx) == 0:
             return
         t0 = time.perf_counter()
-        idx_h = self._staged(idx)
-        cnt_h = self._staged(cnt) if cnt is not None else None
+        idx_h = staged(idx, self.device)
+        cnt_h = staged(cnt, self.device) if cnt is not None else None
         with self.timer.span("apply"):
-            idx_d = idx_h.to(self.device, non_blocking=True)
+            idx_d = self._cells_on_device(idx_h)
             cnt_d = (cnt_h.to(self.device, non_blocking=True)
                      if cnt_h is not None else None)
             wk.scatter_counts(self.state.counts, idx_d, cnt_d)
@@ -946,15 +1015,16 @@ class WindowOperator:
 
     def _apply_records(self, idx: np.ndarray,
                        fields: Dict[str, np.ndarray]) -> None:
-        """Per-record lanes: upload the flat cell indices and the fields
-        the aggregate reads, lift them on the device, ``scatter_lanes``."""
+        """Per-record lanes: upload the cells (int32 flat indices or a
+        split upload's bytes) and the fields the aggregate reads, lift
+        them on the device, ``scatter_lanes``."""
         if len(idx) == 0:
             return
         t0 = time.perf_counter()
-        idx_h = self._staged(idx)
-        fields_h = {k: self._staged(v) for k, v in fields.items()}
+        idx_h = staged(idx, self.device)
+        fields_h = {k: staged(v, self.device) for k, v in fields.items()}
         with self.timer.span("apply"):
-            idx_d = idx_h.to(self.device, non_blocking=True)
+            idx_d = self._cells_on_device(idx_h)
             data = {k: v.to(self.device, non_blocking=True)
                     for k, v in fields_h.items()}
             ones = torch.ones(len(idx), dtype=torch.bool, device=self.device)
@@ -971,7 +1041,7 @@ class WindowOperator:
         if len(buf) == 0:
             return
         t0 = time.perf_counter()
-        buf_h = self._staged(buf)
+        buf_h = staged(buf, self.device)
         with self.timer.span("apply"):
             buf_d = buf_h.to(self.device, non_blocking=True)
             lk.scatter_pair_lanes(self.state.counts, self.state.sums, buf_d)
@@ -1178,7 +1248,7 @@ class WindowOperator:
                     self.plan.panes_per_window, cap, packed2)
                 if not packed2:
                     buf = self._finalize_pack(buf, lanes, cap)
-            packs.append((lo,) + self._copy_to_host(buf))
+            packs.append((lo,) + copy_to_host(buf, self.timer))
         return FiredWindows(op=self, packs=packs)
 
     def _finalize_pack(self, buf: torch.Tensor, lanes: Optional[torch.Tensor],
@@ -1280,23 +1350,7 @@ class WindowOperator:
         """Start a non-blocking copy of the live emit ring, and of the
         kernels' error word, to the host."""
         self._ring_versions.append(
-            (self._ring_version_no,) + self._copy_to_host(self._emit_ring))
-
-    def _copy_to_host(self, buf: torch.Tensor):
-        """(host copy, host copy of the kernels' error word, CUDA event):
-        non-blocking copies into pinned memory (a pageable copy would
-        synchronize the stream), read once the event has passed. On the
-        CPU a clone, no error word, no event."""
-        if self.device.type == "cpu":
-            return buf.clone(), None, None
-        with self.timer.span("drain"):
-            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            err = torch.empty(1, dtype=torch.int32, pin_memory=True)
-            err.copy_(wk.error_word(self.device), non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-        return host, err, ev
+            (self._ring_version_no,) + copy_to_host(self._emit_ring, self.timer))
 
     def _ensure_ring(self) -> torch.Tensor:
         if self._emit_ring is None:
@@ -1378,14 +1432,7 @@ class WindowOperator:
                                              self._max_pane_seen)
 
     def _empty(self) -> "FiredWindows":
-        data = {
-            "key": np.zeros(0, np.int64),
-            "window_start": np.zeros(0, np.int64),
-            "window_end": np.zeros(0, np.int64),
-            "count": np.zeros(0, np.int32),
-        }
-        data.update(self._res_empty)
-        return FiredWindows(data=data)
+        return empty_fired(self._res_empty)
 
     # -- device-made ingest -------------------------------------------------
     # how many dispatched batches' stats may wait before an advance blocks
@@ -1647,13 +1694,27 @@ class WindowOperator:
         self.restore_state(snap)
 
 
+def empty_fired(res_empty: Dict[str, np.ndarray]) -> "FiredWindows":
+    """A fire with no rows: the window columns and the aggregate's result
+    fields (``res_empty``), each empty with its dtype."""
+    data = {
+        "key": np.zeros(0, np.int64),
+        "window_start": np.zeros(0, np.int64),
+        "window_end": np.zeros(0, np.int64),
+        "count": np.zeros(0, np.int32),
+    }
+    data.update(res_empty)
+    return FiredWindows(data=data)
+
+
 class FiredWindows(Mapping):
     """A fired-window batch, materialized on first access: an emit-ring
     fire reads the ring then, a packed fire decodes its buffers once
-    their copies have landed."""
+    their copies have landed (``op._decode_packs``; each pack ends with
+    its copy's CUDA event, None on the CPU)."""
 
     def __init__(self, data: Optional[Dict[str, np.ndarray]] = None,
-                 op: Optional[WindowOperator] = None, ring: bool = False,
+                 op: Any = None, ring: bool = False,
                  ring_no: int = 0, packs: Optional[list] = None) -> None:
         self._data = data
         self._op = op
@@ -1665,7 +1726,7 @@ class FiredWindows(Mapping):
         """True unless a packed buffer's device→host copy is still in
         flight (an emit-ring fire reads whatever copy has landed)."""
         return self._data is not None or not self._packs or all(
-            ev is None or ev.query() for _, _, _, ev in self._packs)
+            p[-1] is None or p[-1].query() for p in self._packs)
 
     def materialize(self) -> Dict[str, np.ndarray]:
         if self._data is None:

@@ -17,6 +17,11 @@ A host-fed window operator may hold its last batch back for the next
 watermark advance (its native lane's fused step); the end-of-input
 ``quiesce`` folds such a batch in before the final watermark.
 
+A count window (``count_window``) fires per batch, not per watermark:
+the driver takes its fires right after each batch and delivers them at
+once, and leaves it out of the watermark advance (it is blind to event
+time).
+
 Fired windows are delivered from the same thread, in fire order: after
 every loop pass the driver polls the operators' emit rings for copies
 that have landed and delivers the packed fires whose copies have landed
@@ -89,7 +94,8 @@ class Driver:
                 "operator runs sub-batches")
 
     def _build_ops(self) -> None:
-        from flink_tpu_torch.ops.factory import OperatorBuildContext, _window_factory
+        from flink_tpu_torch.ops.factory import (
+            OperatorBuildContext, _count_window_factory, _window_factory)
 
         ooo = [self.plan.watermark_strategy.max_out_of_orderness_ms]
         for n in self.plan.nodes.values():
@@ -108,6 +114,8 @@ class Driver:
         for n in self.plan.nodes.values():
             if n.kind == "window":
                 self._ops[n.id] = _window_factory(n, ctx)
+            elif n.kind == "count_window":
+                self._ops[n.id] = _count_window_factory(n, ctx)
 
     def _maybe_chain_device_source(self, sid: int, n) -> None:
         """Chain a device-made source into its consuming window operator
@@ -264,6 +272,13 @@ class Driver:
         elif n.kind == "window":
             keys = np.asarray(data[n.key_field], np.int64)
             self._ops[nid].process_batch(keys, ts, data, valid)
+        elif n.kind == "count_window":
+            op = self._ops[nid]
+            keys = np.asarray(data[n.key_field], np.int64)
+            op.process_batch(keys, ts, data, valid)
+            fired = op.take_fired()
+            if fired is not None:
+                self._deliver(nid, fired)
         elif n.kind == "sink":
             nrec = int(valid.sum())
             if nrec:
@@ -283,6 +298,8 @@ class Driver:
                 continue
             ups = self._upstream[nid]
             in_wm = min(self._out_wm[u] for u in ups) if ups else LONG_MIN
+            # count_window is left out: it fires per batch, and an
+            # advance would only queue empty fires
             if n.kind == "window":
                 op = self._ops[nid]
                 wm = op.final_watermark() if in_wm == _FINAL else in_wm
@@ -312,19 +329,25 @@ class Driver:
             # have no marker left: pin every ring operator's newest
             # version so nothing is left behind
             for nid, op in self._ops.items():
-                if op._emit_ring is not None and op._ring_version_no:
+                if self.plan.node(nid).kind == "window" \
+                        and op._emit_ring is not None and op._ring_version_no:
                     pending.append((nid, FiredWindows(
                         op=op, ring=True, ring_no=op._ring_version_no)))
         FiredWindows.materialize_many([f for _, f in pending], barrier=barrier)
         for nid, fired in pending:
-            out = dict(fired)
-            nrec = len(out["window_end"])
-            if nrec == 0:
-                continue
-            self.metrics["fired_windows"] += nrec
-            ts = np.asarray(out["window_end"], np.int64) - 1
-            self._push_downstream(nid, (out, ts, np.ones(nrec, bool)))
+            self._deliver(nid, fired)
         self.prof["drain"] += time.perf_counter() - t0
+
+    def _deliver(self, nid: int, fired) -> None:
+        """Push one fire's rows downstream, stamped at window end - 1
+        (materializing it first, if it is still lazy)."""
+        out = dict(fired)
+        nrec = len(out["window_end"])
+        if nrec == 0:
+            return
+        self.metrics["fired_windows"] += nrec
+        ts = np.asarray(out["window_end"], np.int64) - 1
+        self._push_downstream(nid, (out, ts, np.ones(nrec, bool)))
 
 
 class _DevBatch:

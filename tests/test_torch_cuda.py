@@ -718,3 +718,146 @@ def test_host_fed_lanes_on_the_card_match_the_cpu(dev, monkeypatch, lane):
         assert wk.LAUNCHES["fused_step"] >= 4
     else:
         assert wk.LAUNCHES["fused_step"] == 0 and wk.LAUNCHES["scatter_counts"] > 0
+
+
+# -- count windows (count_fire) and the split upload (split_cells) -----------
+
+@pytest.mark.parametrize("purge,widths", [
+    (True, (0, 0, 0)), (True, (1, 0, 0)), (False, (1, 1, 1)),
+    (True, (2, 1, 2))])
+def test_count_fire(dev, purge, widths):
+    """Kernel against the plain version on the card at WindowWordCount's
+    65,537 rows: the packed rows and head, and the state after the
+    resets, bit for bit."""
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+
+    rng = np.random.default_rng(sum(widths) + purge)
+    rows, size = 65_537, 250
+    counts = rng.integers(0, 400, rows).astype(np.int32)
+    counts[-1] = 10_000                        # the dump row never fires
+    base = None if purge else (counts - rng.integers(0, 300, rows)).astype(
+        np.int32)
+    lanes = [rng.standard_normal((rows, w)).astype(np.float32) if w else None
+             for w in widths]
+    if widths[1]:
+        lanes[1][:5, 0] = [np.nan, -0.0, 0.0, np.inf, -np.inf]
+    runs = []
+    for fn in (cwk.count_fire, cwk.count_fire_plain):
+        st = [_t(counts, dev), None if base is None else _t(base, dev)] + [
+            None if x is None else _t(x, dev) for x in lanes]
+        buf = fn(*st, size, 1 << 16)
+        runs.append((buf, st))
+    (a, sa), (b, sb) = runs
+    n = int(b[0, 0])
+    assert n > 1000 and int(a[0, 0]) == n
+    assert _same_bits(a[:n + 1], b[:n + 1])
+    for x, y in zip(sa, sb):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert _same_bits(x, y)
+
+
+def test_count_fire_overflow_sets_the_error_word(dev):
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+
+    counts = torch.full((3000,), 9, dtype=torch.int32, device=dev)
+    try:
+        buf = cwk.count_fire(counts, None, None, None, None, 3, 1024)
+        assert int(buf[0, 0]) == 2999
+        with pytest.raises(IndexError, match="count_fire"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
+@pytest.mark.parametrize("ring", [1, 32, 256])
+def test_split_cells(dev, ring):
+    from flink_tpu_torch.ops.window import split_encode
+
+    rng = np.random.default_rng(ring)
+    n, dump_row = (1 << 20) + 3, 32_768
+    sc = split_encode(rng.integers(0, dump_row, n),
+                      rng.integers(0, ring, n).astype(np.uint8),
+                      rng.random(n) < 0.95)
+    got = wk.split_cells(_t(sc, dev), ring, dump_row)
+    want = wk.split_cells_plain(_t(sc, dev), ring, dump_row)
+    assert torch.equal(got, want)
+    bad = sc[:4].copy()
+    # a slot past the dump row
+    bad[1, :2] = np.array([dump_row + 1], np.uint16).view(np.uint8)
+    try:
+        out = wk.split_cells(_t(bad, dev), ring, dump_row)
+        assert int(out[1]) == -1
+        with pytest.raises(IndexError, match="split_cells"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
+@pytest.mark.parametrize("agg_name,purge", [("count", True), ("lanes", True),
+                                            ("lanes", False)])
+def test_count_window_on_the_card_matches_the_cpu(dev, agg_name, purge):
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.count_window import CountWindowOperator
+
+    agg = {"count": ta.count(),
+           "lanes": ta.multi(ta.count(), ta.sum_of("price"),
+                             ta.max_of("price"), ta.min_of("price"),
+                             ta.avg_of("price"))}[agg_name]
+    rng = np.random.default_rng(11)
+    ops = [CountWindowOperator(agg, 50, purge=purge, num_shards=32,
+                               slots_per_shard=256, device=d)
+           for d in ("cpu", dev)]
+    wk.reset_launch_counts()
+    outs = [[], []]
+    for i in range(5):
+        n = 50_000
+        keys = rng.zipf(1.4, n) % 5_000
+        price = (rng.random(n) * 100).astype(np.float32)
+        valid = rng.random(n) < 0.97
+        for op, out in zip(ops, outs):
+            op.process_batch(keys, np.zeros(n, np.int64), {"price": price},
+                             valid)
+            out.append(dict(op.take_fired()))
+    for a, b in zip(*outs):
+        assert list(a) == list(b) and len(a["key"]) > 0
+        for k in a:
+            x, y = a[k], b[k]
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            np.testing.assert_array_equal(x, y, err_msg=k)
+    assert wk.LAUNCHES["count_fire"] == 5
+    key = "scatter_lanes" if agg_name == "lanes" else "scatter_counts"
+    assert wk.LAUNCHES[key] == 5
+
+
+def test_split_upload_on_the_card_matches_the_cpu(dev):
+    """Per-record lanes into 32,769 x 32 state: the card takes the split
+    upload (split_cells), and its rows equal the CPU's."""
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+
+    agg = ta.multi(ta.count(), ta.max_of("price"), ta.min_of("price"))
+    ops = [WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000), agg,
+                          num_shards=128, slots_per_shard=256,
+                          max_out_of_orderness_ms=17_000, device=d)
+           for d in ("cpu", dev)]
+    assert all(op._split_upload for op in ops)
+    rng = np.random.default_rng(12)
+    wk.reset_launch_counts()
+    outs = [[], []]
+    for i in range(4):
+        n = 100_000
+        keys = rng.integers(0, 20_000, n)
+        ts = 50_000 + i * 1_000 + rng.integers(0, 3_000, n)
+        price = (rng.random(n) * 100).astype(np.float32)
+        for op, out in zip(ops, outs):
+            op.process_batch(keys, ts, {"price": price})
+            out.append(dict(op.advance_watermark(int(ts.max()) - 1_000)))
+    for op, out in zip(ops, outs):
+        out.append(dict(op.advance_watermark(op.final_watermark())))
+    for a, b in zip(*outs):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert wk.LAUNCHES["split_cells"] == 4

@@ -48,6 +48,8 @@ def test_scan_covers_the_package():
     assert "flink_tpu_torch/kernels/window_kernels.py" in files
     assert "flink_tpu_torch/kernels/devgen_kernels.py" in files
     assert "flink_tpu_torch/kernels/fused_kernels.py" in files
+    assert "flink_tpu_torch/kernels/count_window_kernels.py" in files
+    assert "flink_tpu_torch/ops/count_window.py" in files
     assert "flink_tpu_torch/native_codec.py" in files
     assert "flink_tpu_torch/nexmark/generator.py" in files
     assert "chip_smoke.py" in files

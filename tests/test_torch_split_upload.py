@@ -1,0 +1,209 @@
+"""The split upload on the per-record path: 3 bytes a record (a
+little-endian uint16 slot id and a uint8 ring column, 0xFFFF for an
+invalid record) instead of an int32 flat cell, decoded on the device by
+``split_cells``. The port's host encode and device decode against the
+JAX package's ``split_encode`` / ``split_decode``, and the window
+operator's choice of upload against the reference's: the split while
+the state's rows (dump row included) fit below 0xFFFF and the ring fits
+256 columns, checked again after a ring growth. Rows must equal the
+reference's in order, exactly (count, max and min only)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flink_tpu.api.windowing import (
+    SlidingEventTimeWindows as JaxSliding,
+    TumblingEventTimeWindows as JaxTumbling,
+)
+from flink_tpu.ops import aggregates as ja
+from flink_tpu.ops.window import WindowOperator as JaxWindowOperator
+from flink_tpu.ops.window import split_decode as jax_split_decode
+from flink_tpu.ops.window import split_encode as jax_split_encode
+from flink_tpu_torch.api.windowing import (
+    SlidingEventTimeWindows,
+    TumblingEventTimeWindows,
+)
+from flink_tpu_torch.kernels import window_kernels as wk
+from flink_tpu_torch.ops import aggregates as ta
+from flink_tpu_torch.ops.window import WindowOperator, split_encode
+
+
+@pytest.fixture
+def numpy_host_paths(monkeypatch):
+    """Both packages key through their numpy tables (so neither takes a
+    native count-only lane)."""
+    from flink_tpu import native_codec
+    from flink_tpu_torch import native_codec as port_native_codec
+
+    for mod in (native_codec, port_native_codec):
+        monkeypatch.setattr(mod.NativeHashTable, "create",
+                            classmethod(lambda cls, capacity_hint=1024: None))
+
+
+@pytest.fixture
+def split_calls(monkeypatch):
+    """Records the (B, ring) of every split_cells call of the port."""
+    seen = []
+    orig = wk.split_cells
+
+    def spy(sc, ring, dump_row):
+        seen.append((sc.shape[0], ring))
+        return orig(sc, ring, dump_row)
+    monkeypatch.setattr(wk, "split_cells", spy)
+    return seen
+
+
+def encode_case(seed, n=500, slots=32_768):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, slots, n).astype(np.int64),
+            rng.integers(0, 32, n).astype(np.uint8),
+            rng.random(n) < 0.9)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_encode_bytes_equal_the_reference(seed):
+    slots, cols, valid = encode_case(seed)
+    got = split_encode(slots, cols, valid)
+    want = jax_split_encode(slots, cols, valid)
+    assert got.dtype == want.dtype == np.uint8 and got.shape == (len(slots), 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("ring", [1, 32, 256])
+def test_split_cells_plain_equals_split_decode(ring):
+    slots, cols, valid = encode_case(ring, slots=65_534)
+    cols = (cols.astype(np.int64) % ring).astype(np.uint8)
+    slots[:3] = [0, 65_533, 65_534]
+    sc = jax_split_encode(slots, cols, valid)
+    slot, col = (np.asarray(a) for a in jax_split_decode(jnp.asarray(sc)))
+    dump_row = 65_534
+    row = np.where(slot == 0xFFFF, dump_row, slot.astype(np.int64))
+    want = (row * ring + col).astype(np.int32)
+    got = wk.split_cells(torch.from_numpy(sc), ring, dump_row)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_split_cells_refuses_cells_outside_the_state():
+    sc = split_encode(np.array([5, 9]), np.array([1, 40], np.uint8),
+                      np.ones(2, bool))
+    with pytest.raises(IndexError, match="split_cells"):
+        wk.split_cells(torch.from_numpy(sc), 32, 100)
+    with pytest.raises(IndexError, match="split_cells"):
+        wk.split_cells(torch.from_numpy(sc[:1]), 32, 4)
+    with pytest.raises(ValueError):
+        wk.split_cells(torch.from_numpy(sc), 512, 100)
+
+
+AGGS = {"count": lambda m: m.count(),
+        "lanes": lambda m: m.multi(m.count(), m.max_of("price"),
+                                   m.min_of("price"))}
+
+
+def make_pair(agg, assigner, shards, slots, ooo):
+    kw = dict(num_shards=shards, slots_per_shard=slots,
+              max_out_of_orderness_ms=ooo)
+    size, slide = assigner
+    if slide is None:
+        ref = JaxWindowOperator(JaxTumbling.of(size), AGGS[agg](ja), **kw)
+        port = WindowOperator(TumblingEventTimeWindows.of(size),
+                              AGGS[agg](ta), device="cpu", **kw)
+    else:
+        ref = JaxWindowOperator(JaxSliding.of(size, slide), AGGS[agg](ja),
+                                **kw)
+        port = WindowOperator(SlidingEventTimeWindows.of(size, slide),
+                              AGGS[agg](ta), device="cpu", **kw)
+    return ref, port
+
+
+def assert_same(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def drive(ref, port, steps):
+    """(batch | watermark) steps on both; every advance's rows equal in
+    order, and the final flush. Returns the number of rows."""
+    n = 0
+    for step in steps:
+        if step[0] == "batch":
+            _, keys, ts, data = step
+            ref.process_batch(keys, ts, data)
+            port.process_batch(keys, ts, data)
+            assert port._split_upload == ref._split_upload
+        else:
+            got = dict(port.advance_watermark(step[1]))
+            assert_same(got, dict(ref.advance_watermark(step[1])))
+            n += len(got["key"])
+    got = dict(port.advance_watermark(port.final_watermark()))
+    assert_same(got, dict(ref.advance_watermark(ref.final_watermark())))
+    np.testing.assert_array_equal(port.state.counts.numpy(),
+                                  np.asarray(ref.state.counts))
+    return n + len(got["key"])
+
+
+def per_record_steps(rng, n_batches, batch, n_keys, pane_ms, spread,
+                     start=100_000):
+    """High-cardinality batches (the host pre-combine declines them, so
+    they go per record), each followed by a watermark."""
+    steps, t = [], start
+    for _ in range(n_batches):
+        keys = rng.integers(0, n_keys, batch).astype(np.int64) * 31 + 7
+        ts = (t + rng.integers(0, spread, batch)).astype(np.int64)
+        price = rng.normal(100, 30, batch).astype(np.float32)
+        price[:3] = [-0.0, 0.0, np.nan]
+        steps.append(("batch", keys, ts, {"price": price}))
+        steps.append(("wm", int(ts.max()) - 1000))
+        t += pane_ms
+    return steps
+
+
+@pytest.mark.parametrize("agg", list(AGGS))
+def test_split_taken_at_32769_rows_and_ring_32(numpy_host_paths, split_calls,
+                                                agg):
+    # the bid-aggregate jobs' state: 128 x 256 slots, 10 s / 1 s windows
+    # over a 32-column ring
+    ref, port = make_pair(agg, (10_000, 1_000), 128, 256, 17_000)
+    assert port.layout.rows == 32_769 and port.plan.ring == 32
+    assert ref._split_upload and port._split_upload
+    steps = per_record_steps(np.random.default_rng(3), 4, 512, 30_000,
+                             1_000, 3_000)
+    assert drive(ref, port, steps) > 0
+    assert split_calls and all(r == 32 for _, r in split_calls)
+
+
+def test_split_not_taken_at_65537_rows(numpy_host_paths, split_calls):
+    ref, port = make_pair("lanes", (1_000, None), 128, 512, 0)
+    assert port.layout.rows == 65_537
+    assert not ref._split_upload and not port._split_upload
+    steps = per_record_steps(np.random.default_rng(4), 3, 512, 30_000,
+                             1_000, 1_000)
+    assert drive(ref, port, steps) > 0
+    assert split_calls == []
+
+
+@pytest.mark.parametrize("agg", list(AGGS))
+def test_ring_growth_past_256_switches_back(numpy_host_paths, split_calls,
+                                            agg):
+    ref, port = make_pair(agg, (10, None), 16, 32, 0)
+    assert port._split_upload and port.plan.ring <= 256
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 60, 256).astype(np.int64)
+    data = {"price": rng.normal(50, 10, 256).astype(np.float32)}
+    narrow = (1_000 + rng.integers(0, 40, 256)).astype(np.int64)
+    # panes 100..506 live at once: the ring grows to 512 columns
+    wide = (2_000 + np.arange(256) * 12).astype(np.int64)
+    steps = [("batch", keys, narrow, data), ("batch", keys, wide, data),
+             ("wm", 5_100)]
+    steps += per_record_steps(rng, 2, 256, 60, 10, 30, start=5_200)
+    assert drive(ref, port, steps) > 0
+    assert port.plan.ring == ref.plan.ring == 512
+    assert not ref._split_upload and not port._split_upload
+    # the first batch only, at the ring it started with
+    assert len(split_calls) == 1 and split_calls[0][0] == 256
+    assert split_calls[0][1] <= 256
