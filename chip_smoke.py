@@ -44,7 +44,10 @@ Phases, one JSON line each:
    WindowWordCount's state (65,537 rows, each word's count after one real
    2^20-word batch, one sum lane) and with a sum, a max and a min lane,
    each timed on a fresh copy of the state; ``split_cells`` on a
-   2^20-bid batch's 3-byte upload into 32,769 x 32.
+   2^20-bid batch's 3-byte upload into 32,769 x 32; the top-n lane
+   kernels at job T's shapes: ``window_lanes`` (32,769 x 32, 11 windows
+   of 10 panes, a sum and a max lane) and ``topn_select_lanes`` (top-1
+   by the max, two result columns), each bit for bit.
 3. ``q5``      — Nexmark Q5 hot items, host-fed, through the port's
    ``StreamExecutionEnvironment.execute()`` at the conf of
    ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids, through
@@ -82,6 +85,28 @@ Phases, one JSON line each:
    words (``scatter_lanes`` + ``count_fire`` a batch), every emitted
    batch checked against a numpy golden as (key, count, sum) sorted by
    key; then a ``count()`` job on 4 batches (``scatter_counts``).
+8. ``topn_lanes`` — job T: the host-fed Q5 bids and conf keyed by
+   auction, sliding 10 s / 1 s, ``multi(max_of("price"),
+   avg_of("price"))`` then ``.top(1, by="max_price")`` on 16 batches of
+   2^20 bids (per record through ``split_cells`` and ``scatter_lanes``;
+   each fire ``window_counts``, ``window_lanes``, the finalize in torch
+   and ``topn_select_lanes``), then the same stream with ``.top(3,
+   by="avg_price")``; the rows against a numpy golden (by max exactly;
+   by average under the margin rule: where a window's 3rd and 4th
+   averages lie further apart than their bounds the winners must equal
+   the golden's, else lie among the rows tied within the bounds).
+9. ``changelog`` — job C: the same bids as a changelog feed (an int8
+   ``__op__`` column from the seed: 70 % +I, 10 % +U, 10 % -U, 10 %
+   -D), 10 s tumbling windows by auction,
+   ``multi(changelog_count("net"), changelog_sum_of("price"),
+   changelog_avg_of("price"))`` on 16 batches of 2^20 records, against a
+   numpy golden (counts and signed counts exactly, signed sums within
+   the bound of their absolute terms).
+10. ``q5_spill`` — job S: Q5 hot items host-fed with ``state.backend:
+   spill`` at 128 x 256 key slots and 100,000 auctions (about 3 x the
+   slots), 8 batches of 2^20 bids: the keys past the slots aggregate in
+   the host spill store and re-rank with the device's winners at every
+   fire; rows against Q5's numpy golden, ``records_spilled`` printed.
 
 In the pipeline phases every kernel's launch counter is zeroed just
 before the run and read just after; each kernel of the path must have
@@ -122,7 +147,12 @@ WC_VOCAB = 30_000
 AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
 CW_SIZE = 250                   # WindowWordCount.java countWindow(250, 150)
 KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels",
-                  "fused_kernels", "count_window_kernels")
+                  "fused_kernels", "count_window_kernels", "topn_lanes_kernels")
+TOPN_BATCHES = 16               # job T, 2^20 bids each
+CHANGELOG_BATCHES = 16          # job C
+SPILL_BATCHES = 8               # job S
+SPILL_AUCTIONS = 100_000        # job S's key domain, ~3 x the 32,768 slots
+SIDE_BATCHES = 4                # the profiled runs of jobs T, C and S
 Q5_SIDE_BATCHES = 4             # the numpy-lane, hot-key and profiled runs
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
@@ -144,6 +174,9 @@ PROFILED_KERNELS = {
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
     "split_cells": ("split_cells_kernel",),
     "count_fire": ("count_fire_count_kernel", "count_fire_write_kernel"),
+    "window_lanes": ("window_lanes_kernel",),
+    "topn_select_lanes": ("lanes_threshold_kernel", "lanes_count_kernel",
+                          "lanes_write_kernel"),
 }
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
@@ -160,6 +193,7 @@ CALL_KERNELS = {
     "scatter_lanes": ("lanes_prep_kernel",),
     "fused_step": ("fused_header_kernel",),
     "count_fire": ("count_fire_count_kernel",),
+    "topn_select_lanes": ("lanes_threshold_kernel",),
 }
 
 
@@ -366,6 +400,8 @@ def phase_kernels(torch, np):
     extra.update(fused_kernel_cases(torch, np, dev, record))
     wk.check_errors(dev)
     extra.update(count_window_kernel_cases(torch, np, dev, record, out))
+    wk.check_errors(dev)
+    extra.update(topn_lanes_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
@@ -1056,12 +1092,12 @@ def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
     return expect
 
 
-def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False):
+def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None):
     """Q5 on host-made bids through ``env.execute()`` at
     confs/bench_q5_host_fed.conf: (rows in commit order, launches,
     JobResult, wall seconds). ``numpy_lane`` runs it with the numpy key
     table (``NativeHashTable.create`` returning None, as the tests select
-    it), so no native lane."""
+    it), so no native lane; ``backend`` sets ``state.backend``."""
     from flink_tpu_torch import native_codec
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
@@ -1072,6 +1108,8 @@ def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False):
 
     conf = Configuration.from_file(
         os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    if backend is not None:
+        conf.set("state.backend", backend)
     parts = []
     env = StreamExecutionEnvironment(conf)
     q5_hot_items(env, bid_stream(cfg), FnSink(
@@ -1864,6 +1902,429 @@ def phase_window_wordcount(torch, np):
     return launches, prof["device_ms_per_call"]
 
 
+def topn_lanes_kernel_cases(torch, np, dev, record, out):
+    """window_lanes and topn_select_lanes against their plain versions at
+    job T's shapes: 32,769 rows, the 32-column ring and 11-window fires
+    of 10 s / 1 s windows after the first batch's growth, the lanes of
+    ``multi(max_of("price"), avg_of("price"))`` (one sum, one max) for
+    10,000 auctions, top-1 by max_price. Every lane and the whole emit
+    ring bit for bit (kernel and plain version add the sums in column
+    order)."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.ops import aggregates as ta
+
+    rng = np.random.default_rng(SEED + 6)
+    rows, ring, ppw, W = 32_769, 32, 10, 11
+    pane_lo, pane_hi = 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    counts, sums, maxs, _ = lane_state(np, rng, rows, ring, pane_lo, pane_hi,
+                                       keys, (1, 1, 0), hot=100)
+    used_np = np.zeros(rows, bool)
+    used_np[keys] = True
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    c_t, s_t, m_t, used = t(counts), t(sums), t(maxs), t(used_np)
+    ends = torch.arange(pane_hi - W + 2, pane_hi + 2, dtype=torch.int64,
+                        device=dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    lane_args = (s_t, m_t, None, ends, valid, pane_lo, pane_hi, ppw, rows)
+    a = tk.window_lanes(*lane_args)
+    b = tk.window_lanes_plain(*lane_args)
+    torch.cuda.synchronize()
+    check(all(x.shape == y.shape and same_bits(torch, x, y)
+              for x, y in zip(a, b)),
+          "window_lanes differs from its plain version")
+    # the library yardstick: the sum lane times the (ring, W) column mask
+    # in one f32 matmul, TF32 off (the reference's form of the sums)
+    colmask = lk._live_columns(ends, ring, pane_lo, pane_hi, ppw).T.float()
+    s2 = s_t[:, :, 0].contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_ms = time_ms(torch, lambda: s2 @ colmask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    live = int(colmask.sum())                # live (pane, window) pairs
+    live_cols = int((colmask.sum(dim=1) > 0).sum())
+    lanes = 2
+    record("window_lanes", "flink_tpu/ops/window.py:318", 0,
+           time_ms(torch, lambda: tk.window_lanes(*lane_args)),
+           time_ms(torch, lambda: tk.window_lanes_plain(*lane_args), iters=10),
+           lib_ms, rows * live_cols * 4 * lanes + rows * W * 4 * lanes + W * 9,
+           rows * live * lanes, source="topn_lanes_kernels.cu")
+    out[-1]["library_call"] = "sums @ colmask (TF32 off), the sum lane"
+
+    # TB: the operator's finalize on the grid, then the selection
+    wc = wk.window_counts(c_t, ends, valid, pane_lo, pane_hi, ppw)
+    res = ta.multi(ta.max_of("price"), ta.avg_of("price")).finalize(
+        a[0], a[1], a[2], wc)
+    cols = torch.stack([res[f].to(torch.float32).view(torch.int32)
+                        for f in ("avg_price", "max_price")], dim=2).contiguous()
+    v = res["max_price"].contiguous()
+    n_top, sel_cap = 1, 256
+    emit_ring = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
+    sel_args = (wc, v, cols, used, ends, valid, pane_lo, n_top, sel_cap)
+    r1, r2 = emit_ring.clone(), emit_ring.clone()
+    tk.topn_select_lanes(*sel_args, r1)
+    tk.topn_select_lanes_plain(*sel_args, r2)
+    torch.cuda.synchronize()
+    check(torch.equal(r1[:-1], r2[:-1]),
+          "topn_select_lanes differs from its plain version")
+    written = int(r1[0, 0])
+    check(written >= W and int(r1[0, 1]) == 0, f"ring head {r1[0].tolist()}")
+    r3, r4 = emit_ring.clone(), emit_ring.clone()
+    vt = v.T.contiguous()
+    record("topn_select_lanes", "flink_tpu/ops/window.py:547", 0,
+           time_ms(torch, lambda: tk.topn_select_lanes(*sel_args, r3)),
+           time_ms(torch, lambda: tk.topn_select_lanes_plain(*sel_args, r4),
+                   iters=10),
+           time_ms(torch, lambda: torch.topk(vt, n_top, dim=1)),
+           rows * W * 8 + rows + W * 9 + written * 5 * 4 + 8,
+           rows * W * (2 * n_top + 2), source="topn_lanes_kernels.cu")
+    out[-1]["library_call"] = "torch.topk(v.T, n), the threshold only"
+
+    # job T's second run: top-3 by avg_price, which takes the threshold's
+    # later rounds; planted in the ranked lane: a +NaN above window 0's
+    # best, window 1's 3rd value tied on another candidate, window 2's
+    # 3rd place a +0.0 tied (IEEE) with a -0.0 below it, every other
+    # candidate there negative, and a -NaN for window 3's best
+    v3 = res["avg_price"].clone()
+    cand = ((wc > 0) & used[:, None]).cpu().numpy()
+    plant = {}
+    for w in range(4):
+        c = np.flatnonzero(cand[:, w])
+        col = v3[torch.from_numpy(c).to(dev), w].cpu().numpy()
+        plant[w] = c[np.argsort(-col, kind="stable")]
+        check(len(c) > 4, f"window {w} has {len(c)} candidates")
+    v3[int(plant[0][-1]), 0] = float("nan")
+    v3[int(plant[1][-1]), 1] = v3[int(plant[1][2]), 1]
+    rest = torch.from_numpy(plant[2][2:]).to(dev)
+    v3[rest, 2] = -v3[rest, 2]
+    v3[int(plant[2][2]), 2] = 0.0
+    v3[int(plant[2][-1]), 2] = -0.0
+    v3[int(plant[3][0]), 3] = -float("nan")
+    cols3 = torch.stack([v3.view(torch.int32),
+                         res["max_price"].view(torch.int32)],
+                        dim=2).contiguous()
+    sel3 = (wc, v3, cols3, used, ends, valid, pane_lo, 3, sel_cap)
+    r5, r6 = emit_ring.clone(), emit_ring.clone()
+    tk.topn_select_lanes(*sel3, r5)
+    tk.topn_select_lanes_plain(*sel3, r6)
+    torch.cuda.synchronize()
+    check(torch.equal(r5[:-1], r6[:-1]),
+          "topn_select_lanes (top-3 by avg_price) differs from its plain "
+          "version")
+    written3 = int(r5[0, 0])
+    check(written3 >= 2 * W and int(r5[0, 1]) == 0,
+          f"top-3 ring head {r5[0].tolist()}")
+    got = r5[1:1 + written3, :2].cpu().numpy()
+    got = set(zip(got[:, 0].tolist(),
+                  (got[:, 1] + pane_lo - int(ends[0])).tolist()))
+    check((int(plant[0][-1]), 0) not in got and (int(plant[0][1]), 0) in got
+          and (int(plant[1][-1]), 1) in got and (int(plant[2][2]), 2) in got
+          and (int(plant[2][-1]), 2) in got and (int(plant[3][0]), 3) not in got,
+          "top-3: the planted NaN, tie and signed-zero cells did not select "
+          "as the reference's rule does")
+    return {"window_lanes_cells": rows * W, "topn_select_lanes_rows": written,
+            "topn_select_lanes_top3_rows": written3}
+
+
+def phase_summary(rows_n, launches, res, wall, events, batches, prof):
+    """A pipeline phase's common figures: events/s, rows, launches, the
+    idle share by CUDA-event spans and by the profiler's run."""
+    busy, host = busy_and_host(res)
+    return {"events": events, "batches": batches, "wall_s": wall,
+            "events_per_s": events / wall, "rows": rows_n,
+            "launches": launches, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+            "host_profile_s": host,
+            "profiled": {"batches": SIDE_BATCHES, **prof}}
+
+
+def bids_cfg(n_batches, n_auctions=10_000):
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig
+
+    # bench.py:393-395's host-fed bids
+    return NexmarkConfig(batch_size=Q5_BATCH, n_batches=n_batches,
+                         events_per_ms=100, num_active_auctions=n_auctions,
+                         hot_ratio=4)
+
+
+def run_window_job(torch, np, source, window, agg, label, top=None,
+                   ooo_ms=1_000):
+    """A keyed-by-auction window job on ``source`` through
+    ``env.execute()`` at confs/bench_q5_host_fed.conf: (rows as columns,
+    launches, JobResult, wall seconds)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    env = StreamExecutionEnvironment(Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf")))
+    parts = []
+    stream = (env.from_source(
+        source, WatermarkStrategy.for_bounded_out_of_orderness(ooo_ms))
+        .key_by("auction").window(window).aggregate(agg))
+    if top is not None:
+        stream = stream.top(top[1], by=top[0])
+    stream.add_sink(FnSink(lambda b: parts.append(
+        {k: np.asarray(v).copy() for k, v in b.items()})))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return rows, dict(wk.LAUNCHES), res, wall
+
+
+def run_topn_lanes(torch, np, n_batches, by, n, label):
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.ops import aggregates as ta
+
+    return run_window_job(
+        torch, np, bid_stream(bids_cfg(n_batches)),
+        SlidingEventTimeWindows.of(10_000, 1_000),
+        ta.multi(ta.max_of("price"), ta.avg_of("price")), label, top=(by, n))
+
+
+def check_topn_lanes(np, rows, golden, by, n, label):
+    """Job T's rows against the golden: each row's count, max and average
+    (the average within ``agg_rel_bound``); the winners exactly by max,
+    and by average under the margin rule. Returns the number of windows
+    that took the narrow branch of the margin rule."""
+    a = rows["key"].astype(np.int64)
+    e = rows["window_end"] // 1000
+    check(len(set(zip(a.tolist(), e.tolist()))) == len(a),
+          f"{label}: duplicate (auction, window) rows")
+    cnt = golden["count"]
+    check(np.array_equal(rows["count"], cnt[a, e]),
+          f"{label}: counts differ from the golden")
+    check(np.array_equal(rows["max_price"], golden["max"][a, e]),
+          f"{label}: max differs from the golden")
+    avg = golden["sum"] / np.maximum(cnt, 1)
+    rel = np.abs(rows["avg_price"].astype(np.float64) - avg[a, e]) / avg[a, e]
+    check(bool((rel <= agg_rel_bound(cnt[a, e])).all()),
+          f"{label}: averages outside the bound")
+    got = {}
+    for ai, ei in zip(a.tolist(), e.tolist()):
+        got.setdefault(ei, set()).add(ai)
+    ends = np.flatnonzero((cnt > 0).any(axis=0))
+    check(set(got) == set(ends.tolist()),
+          f"{label}: {len(got)} windows fired, {len(ends)} hold data")
+    narrow = 0
+    for ei in ends.tolist():
+        cand = np.flatnonzero(cnt[:, ei] > 0)
+        if by == "max_price":
+            vals = golden["max"][cand, ei]
+            thresh = np.sort(vals)[::-1][min(n, len(vals)) - 1]
+            check(got[ei] == set(cand[vals >= thresh].tolist()),
+                  f"{label}: window {ei}'s winners differ from the golden")
+            continue
+        vals = avg[cand, ei]
+        bound = agg_rel_bound(cnt[cand, ei]) * np.abs(vals)
+        order = np.argsort(-vals, kind="stable")
+        if len(cand) <= n:
+            check(got[ei] == set(cand.tolist()), f"{label}: window {ei}")
+            continue
+        t, u = order[n - 1], order[n]
+        if vals[t] - vals[u] > bound[t] + bound[u]:
+            check(got[ei] == set(cand[order[:n]].tolist()),
+                  f"{label}: window {ei}'s winners differ from the golden")
+        else:
+            narrow += 1
+            tied = set(cand[vals >= vals[t] - bound - bound[t]].tolist())
+            check(got[ei] <= tied and len(got[ei]) >= n,
+                  f"{label}: window {ei}'s winners are not among the tied")
+    return narrow
+
+
+def phase_topn_lanes(torch, np):
+    """Job T: top-1 by max_price, then top-3 by avg_price, over
+    ``multi(max_of("price"), avg_of("price"))`` on 16 batches of 2^20
+    host-fed bids, each checked against the numpy golden."""
+    on_path = ("split_cells", "scatter_lanes", "window_counts",
+               "window_lanes", "topn_select_lanes", "ring_columns")
+    out = {"phase": "topn_lanes", "conf": "confs/bench_q5_host_fed.conf",
+           "job": 'key_by(auction).window(10 s / 1 s).aggregate(multi('
+                  'max_of(price), avg_of(price))).top(n, by)',
+           "rel_bound": "(2 * count + 34) * 2^-24"}
+    runs, per_call, launches_first = [], {}, None
+    for by, n in (("max_price", 1), ("avg_price", 3)):
+        run_topn_lanes(torch, np, 2, by, n, f"topn-{by}-warmup")
+        rows, launches, res, wall = run_topn_lanes(
+            torch, np, TOPN_BATCHES, by, n, f"topn-{by}")
+        missing = [k for k in on_path if launches[k] == 0]
+        check(not missing, f"top {n} by {by}: kernels not launched: {missing}")
+        check(launches["topn_select_append"] == 0
+              and launches["fused_step"] == 0,
+              f"top {n} by {by} took a count-only kernel: {launches}")
+        prof = profile_run(torch, lambda: run_topn_lanes(
+            torch, np, SIDE_BATCHES, by, n, f"topn-{by}-profiled")[3])
+        for k, v in prof["device_ms_per_call"].items():
+            per_call.setdefault(k, v)
+        runs.append((by, n, rows, launches, res, wall, prof))
+        launches_first = launches_first or launches
+    # the golden's numpy work comes after the timed runs
+    golden = bid_golden(np, bids_cfg(TOPN_BATCHES))
+    for by, n, rows, launches, res, wall, prof in runs:
+        narrow = check_topn_lanes(np, rows, golden, by, n, f"top {n} by {by}")
+        out[f"top{n}_{by}"] = {
+            **phase_summary(len(rows["key"]), launches, res, wall,
+                            Q5_BATCH * TOPN_BATCHES, TOPN_BATCHES, prof),
+            "windows": int(len(np.unique(rows["window_end"]))),
+            "narrow_margin_windows": narrow}
+    out["card"] = card_line()
+    emit(out)
+    return launches_first, per_call
+
+
+def changelog_source(np, n_batches):
+    """Job C's feed: the host-fed bids with an int8 ``__op__`` column
+    drawn from the seed, 70 % +I, 10 % +U, 10 % -U, 10 % -D."""
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.nexmark.generator import bid_batch
+    from flink_tpu_torch.records import (
+        OP_DELETE, OP_FIELD, OP_INSERT, OP_UPDATE_AFTER, OP_UPDATE_BEFORE)
+
+    cfg = bids_cfg(n_batches)
+    codes = np.array([OP_INSERT, OP_UPDATE_AFTER, OP_UPDATE_BEFORE,
+                      OP_DELETE], np.int8)
+
+    def batch(i):
+        data, ts = bid_batch(cfg, 0, i)
+        rng = np.random.default_rng(SEED + 1000 + i)
+        data[OP_FIELD] = rng.choice(codes, len(ts), p=[0.7, 0.1, 0.1, 0.1])
+        return data, ts
+
+    def gen(split, i):
+        return batch(i) if i < n_batches else None
+
+    return GeneratorSource(gen), batch
+
+
+def run_changelog(torch, np, n_batches, label):
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.ops import aggregates as ta
+
+    source, _ = changelog_source(np, n_batches)
+    return run_window_job(
+        torch, np, source, TumblingEventTimeWindows.of(10_000),
+        ta.multi(ta.changelog_count("net"), ta.changelog_sum_of("price"),
+                 ta.changelog_avg_of("price")), label)
+
+
+def check_changelog(np, rows, n_batches, label):
+    """Job C against per-(auction, 10 s window) sums in f64: rows, counts
+    and signed counts exactly; the signed sum within (2 * count + 34) *
+    2^-24 of its absolute terms' sum, the average within that over its
+    divisor plus 2 * 2^-24 of itself. Returns the largest share of the
+    sum bound used."""
+    from flink_tpu_torch.records import OP_DELETE, OP_FIELD, OP_UPDATE_BEFORE
+
+    _, batch = changelog_source(np, n_batches)
+    n_a = 10_000
+    parts = [batch(i) for i in range(n_batches)]
+    n_w = int(max(ts.max() for _, ts in parts)) // 10_000 + 1
+    cnt = np.zeros(n_a * n_w, np.int64)
+    net = np.zeros(n_a * n_w, np.int64)
+    tot = np.zeros(n_a * n_w)
+    ab = np.zeros(n_a * n_w)
+    for data, ts in parts:
+        cell = data["auction"] * n_w + ts // 10_000
+        ops = data[OP_FIELD]
+        sign = np.where((ops == OP_UPDATE_BEFORE) | (ops == OP_DELETE), -1, 1)
+        price = data["price"].astype(np.float64)
+        cnt += np.bincount(cell, minlength=n_a * n_w)
+        net += np.bincount(cell, weights=sign, minlength=n_a * n_w).astype(
+            np.int64)
+        tot += np.bincount(cell, weights=sign * price, minlength=n_a * n_w)
+        ab += np.bincount(cell, weights=price, minlength=n_a * n_w)
+    c = rows["key"].astype(np.int64) * n_w + rows["window_start"] // 10_000
+    check(len(np.unique(c)) == len(c), f"{label}: duplicate rows")
+    check(len(c) == int((cnt > 0).sum()),
+          f"{label}: {len(c)} rows, expected {int((cnt > 0).sum())}")
+    check(np.array_equal(rows["count"], cnt[c])
+          and np.array_equal(rows["net"], net[c]),
+          f"{label}: counts or signed counts differ from the golden")
+    bound = agg_rel_bound(cnt[c]) * ab[c]
+    err = np.abs(rows["sum_price"].astype(np.float64) - tot[c])
+    check(bool((err <= bound).all()), f"{label}: signed sums outside the bound")
+    div = np.maximum(net[c], 1).astype(np.float64)
+    want = tot[c] / div
+    err_a = np.abs(rows["avg_price"].astype(np.float64) - want)
+    check(bool((err_a <= bound / div + 2 * 2.0 ** -24 * np.abs(want)).all()),
+          f"{label}: averages outside the bound")
+    return float((err / np.maximum(bound, 1e-300)).max())
+
+
+def phase_changelog(torch, np):
+    """Job C on 16 batches of 2^20 changelog records, against the numpy
+    golden."""
+    run_changelog(torch, np, 2, "changelog-warmup")
+    rows, launches, res, wall = run_changelog(torch, np, CHANGELOG_BATCHES,
+                                              "changelog")
+    missing = [k for k in ("split_cells", "scatter_lanes", "fire_pack",
+                           "ring_columns") if launches[k] == 0]
+    check(not missing, f"changelog: kernels not launched: {missing}")
+    prof = profile_run(torch, lambda: run_changelog(
+        torch, np, SIDE_BATCHES, "changelog-profiled")[3])
+    share = check_changelog(np, rows, CHANGELOG_BATCHES, "changelog")
+    out = {"phase": "changelog", "conf": "confs/bench_q5_host_fed.conf",
+           "job": "key_by(auction).window(10 s tumbling).aggregate(multi("
+                  "changelog_count(net), changelog_sum_of(price), "
+                  "changelog_avg_of(price)))",
+           "op_mix": {"+I": 0.7, "+U": 0.1, "-U": 0.1, "-D": 0.1},
+           **phase_summary(len(rows["key"]), launches, res, wall,
+                           Q5_BATCH * CHANGELOG_BATCHES, CHANGELOG_BATCHES,
+                           prof),
+           "max_share_of_sum_bound": share, "card": card_line()}
+    emit(out)
+    return launches, prof["device_ms_per_call"]
+
+
+def phase_q5_spill(torch, np):
+    """Job S: Q5 host-fed with the host spill store at 100,000 auctions
+    (about 3 x the 32,768 key slots), 8 batches of 2^20 bids, against
+    Q5's numpy golden."""
+    cfg = bids_cfg(SPILL_BATCHES, SPILL_AUCTIONS)
+    run_q5_host_fed(torch, np, dataclasses.replace(cfg, n_batches=2),
+                    "q5-spill-warmup", backend="spill")
+    rows, launches, res, wall = run_q5_host_fed(torch, np, cfg, "q5-spill",
+                                                backend="spill")
+    missing = [k for k in ("window_counts", "topn_select_append",
+                           "ring_columns") if launches[k] == 0]
+    check(not missing, f"q5_spill: kernels not launched: {missing}")
+    check(launches["fused_step"] == 0, "a fused step ran with spill")
+    spilled = int(res.metrics["records_spilled"])
+    check(spilled > 0, "q5_spill: no record was spilled")
+    check(int(res.metrics["records_dropped_full"]) == 0,
+          "q5_spill: records were dropped")
+    side = dataclasses.replace(cfg, n_batches=SIDE_BATCHES)
+    prof = profile_run(torch, lambda: run_q5_host_fed(
+        torch, np, side, "q5-spill-profiled", backend="spill")[3])
+    check_q5_rows(np, rows, cfg, "Q5 with spill")
+    events = Q5_BATCH * SPILL_BATCHES
+    out = {"phase": "q5_spill", "conf": "confs/bench_q5_host_fed.conf + "
+                                        "state.backend: spill",
+           "auctions": SPILL_AUCTIONS, "key_slots": 128 * 256,
+           **phase_summary(len(rows), launches, res, wall, events,
+                           SPILL_BATCHES, prof),
+           "windows": len({w for _, w, _ in rows}),
+           "records_spilled": spilled, "spilled_share": spilled / events,
+           "card": card_line()}
+    emit(out)
+    return launches, prof["device_ms_per_call"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1885,17 +2346,22 @@ def main() -> int:
         wordcount, wc_per_call = phase_wordcount(torch, np)
         aggs, agg_per_call = phase_bid_aggs(torch, np)
         window_wc, ww_per_call = phase_window_wordcount(torch, np)
+        topn_lanes, tl_per_call = phase_topn_lanes(torch, np)
+        changelog, cl_per_call = phase_changelog(torch, np)
+        q5_spill, sp_per_call = phase_q5_spill(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
-                 "bid_aggs_b": aggs["b"], "window_wordcount": window_wc}
+                 "bid_aggs_b": aggs["b"], "window_wordcount": window_wc,
+                 "topn_lanes": topn_lanes, "changelog": changelog,
+                 "q5_spill": q5_spill}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
         # lane, apply_pairs_u16 on its hot keys; apply_pairs_u32 and
         # fire_pack on WordCount; the two lane scatters and the split
         # upload's decode on their bid-aggregate job; count_fire on
-        # WindowWordCount
+        # WindowWordCount; the top-n lane kernels on job T's first run
         own_path = {"scatter_counts": "q5_numpy_lane",
                     "fused_step": "q5_host_fed",
                     "apply_pairs_u16": "q5_hot_keys",
@@ -1903,7 +2369,9 @@ def main() -> int:
                     "scatter_lanes": "bid_aggs_a",
                     "scatter_pair_lanes": "bid_aggs_b",
                     "split_cells": "bid_aggs_a",
-                    "count_fire": "window_wordcount"}
+                    "count_fire": "window_wordcount",
+                    "window_lanes": "topn_lanes",
+                    "topn_select_lanes": "topn_lanes"}
         for row in table:
             name = row["name"]
             # device time per call inside the profiled pipeline runs (the
@@ -1912,7 +2380,10 @@ def main() -> int:
                                          or wc_per_call.get(name)
                                          or agg_per_call.get(name)
                                          or q5_per_call.get(name)
-                                         or ww_per_call.get(name))
+                                         or ww_per_call.get(name)
+                                         or tl_per_call.get(name)
+                                         or cl_per_call.get(name)
+                                         or sp_per_call.get(name))
             path = own_path.get(name, "q5_devgen")
             row["launches"] = paths[path][name] or host_fed[name]
             row["launches_path"] = path

@@ -1,9 +1,10 @@
 """The fluent DataStream API: each call appends a transformation;
 nothing runs until ``StreamExecutionEnvironment.execute()``. The port
-has map, key_by, window, count_window, count/sum/max/min/aggregate, top
-and add_sink.
-Allowed lateness, triggers and the other operators are in ROADMAP.md
-(the window operator itself handles lateness)."""
+has map, key_by, window (with allowed_lateness), count_window,
+count/sum/max/min/aggregate, top and add_sink. ``aggregate`` takes a
+``LaneAggregate``; a user ``AggregateFunction`` goes through
+``ops.aggregates.lower_aggregate`` first, as in the JAX package.
+Triggers and the other operators are in ROADMAP.md."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -95,13 +96,20 @@ class WindowedStream(_AggregateShortcuts):
     def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
         self.keyed = keyed
         self.assigner = assigner
+        self._lateness = 0
+
+    def allowed_lateness(self, ms: int) -> "WindowedStream":
+        """Keep each window's state ``ms`` past its end: a late record
+        within it re-fires the window with the updated result."""
+        self._lateness = ms
+        return self
 
     def aggregate(self, agg: LaneAggregate,
                   name: str = "window_agg") -> "WindowedAggregateStream":
         kt = self.keyed.transform
         t = WindowAggregateTransformation(
             name, (kt,), assigner=self.assigner, aggregate=agg,
-            key_field=kt.key_field)
+            key_field=kt.key_field, allowed_lateness_ms=self._lateness)
         self.keyed.env._register(t)
         return WindowedAggregateStream(self.keyed.env, t)
 

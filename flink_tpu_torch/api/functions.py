@@ -1,9 +1,11 @@
-"""User functions: the map path. A map is a batch function over a dict
-of field → (B,) numpy arrays; per-record functions, filters, flat maps
-and reduce/aggregate functions are in ROADMAP.md."""
+"""User functions: the map path, and incremental aggregation. A map is
+a batch function over a dict of field → (B,) numpy arrays; an
+``AggregateFunction`` lowers to lanes through
+``ops.aggregates.lower_aggregate``. Per-record functions, filters, flat
+maps and reduce functions are in ROADMAP.md."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Any, Callable, Dict, Union
 
 import numpy as np
 
@@ -22,3 +24,24 @@ def as_batch_fn(fn: Union[MapFunction, Callable]) -> Callable:
     if not callable(fn):
         raise TypeError(f"map expects a MapFunction or a callable, got {fn!r}")
     return fn
+
+
+class AggregateFunction:
+    """Incremental aggregation ACC/IN/OUT (create_accumulator / add /
+    merge / get_result). The accumulator is a pytree of scalars, and
+    ``add`` and ``merge`` are torch code that ``torch.func.vmap`` can
+    batch; ``ops.aggregates.lower_aggregate`` lowers an instance whose
+    merge is a per-leaf sum, max or min to the dense lanes and refuses
+    any other."""
+
+    def create_accumulator(self) -> Any:
+        raise NotImplementedError
+
+    def add(self, value: Dict[str, Any], acc: Any) -> Any:
+        raise NotImplementedError
+
+    def merge(self, a: Any, b: Any) -> Any:
+        raise NotImplementedError
+
+    def get_result(self, acc: Any) -> Any:
+        raise NotImplementedError

@@ -73,6 +73,20 @@ class StateOptions:
         "state.slots-per-shard", 4096,
         "Distinct keys a shard can hold; shards x slots bounds the "
         "resident key count on the device.")
+    BACKEND = ConfigOption(
+        "state.backend", "hbm",
+        "Keyed state backend: 'hbm' (dense pane tensors on the device) "
+        "or 'spill' (keys past the device's slots aggregate exactly in a "
+        "host store, state/spill.py). 'lsm', the disk-backed spill tier, "
+        "is still to port.")
+    ALLOW_DROPS = ConfigOption(
+        "state.allow-drops", False,
+        "When a key shard is full under state.backend='hbm', the default "
+        "fails the job; true drops the overflow keys' records and counts "
+        "them (records_dropped_full).")
+
+
+BACKENDS = ("hbm", "spill", "lsm")
 
 
 class AnalysisOptions:
@@ -135,6 +149,15 @@ class Configuration:
             raise ValueError(
                 f"analysis.fail-on must be one of {FAIL_ON_VALUES}, "
                 f"got {fail_on!r}")
+        backend = str(self.get(StateOptions.BACKEND)).strip().lower()
+        if backend not in BACKENDS:
+            raise ValueError(f"state.backend must be 'hbm', 'spill' or "
+                             f"'lsm', got {backend!r}")
+        if backend == "lsm":
+            raise NotImplementedError(
+                "state.backend='lsm' (the disk-backed spill tier, "
+                "state/lsm.py) is still to port: ROADMAP.md queue 1 item "
+                "4.5; use 'spill'")
         k = int(self.get(PipelineOptions.SUB_BATCHES))
         if k < 1:
             raise ValueError(f"pipeline.sub-batches must be >= 1, got {k}")

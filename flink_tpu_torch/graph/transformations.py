@@ -52,12 +52,14 @@ class KeyByTransformation(Transformation):
 @dataclasses.dataclass(eq=False)
 class WindowAggregateTransformation(Transformation):
     """Keyed window + aggregate; ``top_n = (result_field, n)`` fuses a
-    per-window top-n into the fire."""
+    per-window top-n into the fire; late records within
+    ``allowed_lateness_ms`` re-fire their windows."""
 
     assigner: Optional[WindowAssigner] = None
     aggregate: Optional[LaneAggregate] = None
     key_field: str = "key"
     top_n: Optional[Tuple[str, int]] = None
+    allowed_lateness_ms: int = 0
 
 
 @dataclasses.dataclass(eq=False)

@@ -49,18 +49,6 @@ constexpr int32_t kErrFireCap = 32;
 
 static_assert(kThreads == kRadixDigits, "one thread per radix digit");
 
-__device__ __forceinline__ float max_ieee(float a, float b) {
-  if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
-  if (a == b) return signbit(a) ? b : a;
-  return a > b ? a : b;
-}
-
-__device__ __forceinline__ float min_ieee(float a, float b) {
-  if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
-  if (a == b) return signbit(a) ? a : b;
-  return a < b ? a : b;
-}
-
 // ---- L1: fire_pack ---------------------------------------------------------
 // For every (row, window) cell of a chunk of W window ends: the window's
 // count over its live panes, selection (count > 0, row in use, window

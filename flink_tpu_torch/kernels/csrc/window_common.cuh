@@ -1,11 +1,13 @@
 // Device helpers shared by the window-operator kernel sources
-// (window_kernels.cu, lane_kernels.cu, devgen_kernels.cu): the launch
-// shape, block-wide sum and scan, and the window-count rule (which panes
-// of a window are live). Each .cu file includes this once, inside
-// no namespace of its own; everything here has internal linkage.
+// (window_kernels.cu, lane_kernels.cu, devgen_kernels.cu,
+// topn_lanes_kernels.cu, ...): the launch shape, block-wide sum and scan,
+// the window-count rule (which panes of a window are live) and IEEE
+// maximum / minimum. Each .cu file includes this once, inside no
+// namespace of its own; everything here has internal linkage.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -29,6 +31,20 @@ inline int grid_for(int64_t n) {
 __device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
   int64_t r = a % m;
   return r < 0 ? r + m : r;
+}
+
+// IEEE 754-2019 maximum / minimum, as XLA's max and min: a NaN operand
+// gives the canonical NaN, and -0 < +0.
+__device__ __forceinline__ float max_ieee(float a, float b) {
+  if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
+  if (a == b) return signbit(a) ? b : a;
+  return a > b ? a : b;
+}
+
+__device__ __forceinline__ float min_ieee(float a, float b) {
+  if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
+  if (a == b) return signbit(a) ? a : b;
+  return a < b ? a : b;
 }
 
 // ---- block reductions / scan (kThreads threads) ---------------------------

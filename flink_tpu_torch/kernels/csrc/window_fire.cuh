@@ -181,25 +181,11 @@ __global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t r
                                   int32_t sel_cap, int32_t* __restrict__ ring,
                                   int32_t row_cap, int32_t ring_cols) {
   if (src.skip()) return;
-  const int64_t anchor = src.get().anchor;
-  const long long total = *old_total;
-  compact_write(
-      rows * (int64_t)W, block_counts, n_blocks, sel_cap,
+  topn_ring_append(
+      rows, W, wcounts, block_counts, n_blocks, *old_total, end_panes, src.get().anchor, sel_cap,
+      ring, row_cap, ring_cols,
       [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
-      [&](int64_t i, long long pos) {
-        const int64_t r = i / W;
-        const int32_t w = (int32_t)(i - r * W);
-        const int64_t slot = (total + pos) % row_cap + 1;
-        int32_t* dst = ring + slot * ring_cols;
-        dst[0] = (int32_t)r;
-        dst[1] = (int32_t)(end_panes[w] - anchor);
-        dst[2] = wcounts[i];
-      },
-      [&](long long all) {
-        const long long written = all < sel_cap ? all : sel_cap;
-        ring[0] = (int32_t)(total + written);
-        ring[1] += (int32_t)(all - written);
-      });
+      [](int64_t, int32_t*) {});
 }
 
 // scratch: thresh (W floats), block_counts (ceil(rows*W / kTile) int32),

@@ -19,8 +19,8 @@ the kernel, the plain version and the JAX reference agree bit for bit.
 
 The launch counts, the error word, the library loader and the argument
 checks here serve every kernel module of the port
-(``devgen_kernels.py``, ``lane_kernels.py``, ``fused_kernels.py`` and
-``count_window_kernels.py`` too).
+(``devgen_kernels.py``, ``lane_kernels.py``, ``fused_kernels.py``,
+``count_window_kernels.py`` and ``topn_lanes_kernels.py`` too).
 """
 from __future__ import annotations
 
@@ -47,6 +47,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_step": 0,
     "split_cells": 0,
     "count_fire": 0,
+    "window_lanes": 0,
+    "topn_select_lanes": 0,
 }
 
 

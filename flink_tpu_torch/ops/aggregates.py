@@ -7,8 +7,12 @@ them into ``(rows, ring, width)`` lane state with add / max / min, and
 fields.
 
 Ported: ``count``, ``sum_of``, ``max_of``, ``min_of``, ``avg_of`` and
-``multi``. The changelog lanes and ``lower_aggregate`` are in
-ROADMAP.md; the window operator refuses them.
+``multi``; the changelog lanes ``changelog_count``, ``changelog_sum_of``
+and ``changelog_avg_of``, which weight each record by the sign of its
+op (``records.OP_FIELD``) in the lift (``changelog_max_of`` and
+``changelog_min_of`` refuse, as the JAX package's do); and
+``lower_aggregate``, which adapts a user ``AggregateFunction`` to the
+lanes.
 
 Identities: sum 0, max -inf, min +inf, so padding rows lift to no-ops.
 """
@@ -16,9 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
+
+from flink_tpu_torch.records import OP_DELETE, OP_FIELD, OP_UPDATE_BEFORE
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -222,3 +229,169 @@ def multi(*aggs: LaneAggregate) -> LaneAggregate:
     return LaneAggregate(sw, mw, nw, lift, finalize,
                          name="+".join(a.name for a in aggs),
                          fields=comp_fields, sum_fields=comp_sum)
+
+
+# ---------------------------------------------------------------------------
+# Changelog lanes: windowed aggregation over op-typed input.
+# ---------------------------------------------------------------------------
+
+def _op_sign(data: Tensors) -> torch.Tensor:
+    """(B,) f32 +1/-1 from the changelog op column: +I/+U add, -U/-D
+    subtract."""
+    ops = data[OP_FIELD].to(torch.int32)
+    neg = (ops == OP_UPDATE_BEFORE) | (ops == OP_DELETE)
+    return torch.where(neg, -1.0, 1.0).to(torch.float32)
+
+
+@_cached
+def changelog_count(result_field: str = "count") -> LaneAggregate:
+    """COUNT(*) over a changelog stream: the sum of the records' signs
+    (the count lane counts rows, retractions included). The lift is
+    opaque (``sum_fields`` None), so the host never pre-combines it."""
+
+    def lift(data: Tensors):
+        s = _op_sign(data)[:, None]
+        z = _empty_lanes(s[:, 0])
+        return s, z, z
+
+    def finalize(sums, maxs, mins, counts):
+        return {result_field: torch.round(sums[..., 0]).to(torch.int32)}
+
+    return LaneAggregate(1, 0, 0, lift, finalize, name="changelog_count",
+                         fields=(OP_FIELD,))
+
+
+@_cached
+def changelog_sum_of(field: str,
+                     result_field: Optional[str] = None) -> LaneAggregate:
+    """SUM(field) over a changelog stream: sign-weighted values."""
+    out = result_field or f"sum_{field}"
+
+    def lift(data: Tensors):
+        s = (data[field].to(torch.float32) * _op_sign(data))[:, None]
+        z = _empty_lanes(data[field])
+        return s, z, z
+
+    def finalize(sums, maxs, mins, counts):
+        return {out: sums[..., 0]}
+
+    return LaneAggregate(1, 0, 0, lift, finalize,
+                         name=f"changelog_sum({field})",
+                         fields=(field, OP_FIELD))
+
+
+@_cached
+def changelog_avg_of(field: str,
+                     result_field: Optional[str] = None) -> LaneAggregate:
+    """AVG(field) over a changelog stream: the signed sum over a signed
+    count lane of its own, its divisor clamped at 1."""
+    out = result_field or f"avg_{field}"
+
+    def lift(data: Tensors):
+        sign = _op_sign(data)
+        s = torch.stack([data[field].to(torch.float32) * sign, sign], dim=-1)
+        z = _empty_lanes(data[field])
+        return s, z, z
+
+    def finalize(sums, maxs, mins, counts):
+        c = torch.clamp(torch.round(sums[..., 1]), min=1.0)
+        return {out: sums[..., 0] / c}
+
+    return LaneAggregate(2, 0, 0, lift, finalize,
+                         name=f"changelog_avg({field})",
+                         fields=(field, OP_FIELD))
+
+
+def changelog_max_of(field: str, result_field: Optional[str] = None) -> None:
+    """Refused: a max lane cannot retract a value it has taken."""
+    raise NotImplementedError(
+        "MAX over a changelog stream cannot retract: max(a, b) forgets "
+        "the loser, so a -U row cannot undo its +U. Materialize the "
+        "stream first (RetractSink / UpsertSink) or keep the raw rows "
+        "with an evicting window.")
+
+
+def changelog_min_of(field: str, result_field: Optional[str] = None) -> None:
+    """Refused for the same reason as :func:`changelog_max_of`."""
+    raise NotImplementedError(
+        "MIN over a changelog stream cannot retract: min(a, b) forgets "
+        "the loser, so a -U row cannot undo its +U. Materialize the "
+        "stream first (RetractSink / UpsertSink) or keep the raw rows "
+        "with an evicting window.")
+
+
+# ---------------------------------------------------------------------------
+# Lowering user AggregateFunction classes.
+# ---------------------------------------------------------------------------
+
+def lower_aggregate(fn: Any, probe_fields: Dict[str, Any]) -> LaneAggregate:
+    """Adapt a user ``AggregateFunction`` (``create_accumulator`` /
+    ``add`` / ``merge`` / ``get_result``, written in torch) to the lanes.
+
+    Each accumulator leaf is classed sum-, max- or min-merged by running
+    ``merge`` on probe values (merge(3, 5) and merge(5, 3)); a leaf that
+    merges as none of them raises. The lift runs ``add`` on a fresh
+    accumulator per record (``torch.func.vmap``); the finalize rebuilds
+    the accumulator from the lanes and calls ``get_result`` (a non-dict
+    result becomes ``{"result": ...}``). ``probe_fields``: field name →
+    dtype of the records the aggregate reads (the fields uploaded)."""
+    acc0 = fn.create_accumulator()
+    leaves0, treedef = pytree.tree_flatten(acc0)
+
+    def probe(x: float, y: float):
+        a = pytree.tree_unflatten(
+            [torch.tensor(x, dtype=torch.float64)] * len(leaves0), treedef)
+        b = pytree.tree_unflatten(
+            [torch.tensor(y, dtype=torch.float64)] * len(leaves0), treedef)
+        return [float(v) for v in pytree.tree_leaves(fn.merge(a, b))]
+
+    kinds = []
+    for m in probe(3.0, 5.0):
+        if abs(m - 8.0) < 1e-9:
+            kinds.append("sum")
+        elif abs(m - 5.0) < 1e-9:
+            kinds.append("max")
+        elif abs(m - 3.0) < 1e-9:
+            kinds.append("min")
+        else:
+            raise NotImplementedError(
+                f"accumulator leaf merges as neither sum/max/min (got {m} "
+                "from merge(3,5)); compose flink_tpu_torch.ops built-in lane "
+                "aggregates instead")
+    for k, v in zip(kinds, probe(5.0, 3.0)):
+        if (k == "max" and abs(v - 5.0) > 1e-9) \
+                or (k == "min" and abs(v - 3.0) > 1e-9):
+            raise NotImplementedError("non-commutative merge")
+    sum_ix = [i for i, k in enumerate(kinds) if k == "sum"]
+    max_ix = [i for i, k in enumerate(kinds) if k == "max"]
+    min_ix = [i for i, k in enumerate(kinds) if k == "min"]
+
+    def lift(data: Tensors):
+        def one(row: Tensors):
+            return fn.add(row, fn.create_accumulator())
+
+        leaves = pytree.tree_leaves(torch.func.vmap(one)(data))
+        cols = [leaf.to(torch.float32).reshape(leaf.shape[0], -1)
+                for leaf in leaves]
+
+        def gather(ix):
+            if not ix:
+                return torch.zeros((cols[0].shape[0], 0), dtype=torch.float32,
+                                   device=cols[0].device)
+            return torch.cat([cols[i] for i in ix], dim=-1)
+
+        return gather(sum_ix), gather(max_ix), gather(min_ix)
+
+    def finalize(sums, maxs, mins, counts):
+        leaves: list = [None] * len(leaves0)
+        for j, i in enumerate(sum_ix):
+            leaves[i] = sums[..., j]
+        for j, i in enumerate(max_ix):
+            leaves[i] = maxs[..., j]
+        for j, i in enumerate(min_ix):
+            leaves[i] = mins[..., j]
+        res = fn.get_result(pytree.tree_unflatten(leaves, treedef))
+        return res if isinstance(res, dict) else {"result": res}
+
+    return LaneAggregate(len(sum_ix), len(max_ix), len(min_ix), lift, finalize,
+                         name=type(fn).__name__, fields=tuple(probe_fields))

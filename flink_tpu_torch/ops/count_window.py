@@ -40,11 +40,11 @@ from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
 from flink_tpu_torch.ops.window import (
-    OP_FIELD, DeviceTimer, FiredWindows, _next_pow2, copy_to_host,
+    DeviceTimer, FiredWindows, _next_pow2, copy_to_host,
     empty_fired, staged)
 from flink_tpu_torch.records import device_cast
 from flink_tpu_torch.state.keyed import (
-    KeyDirectory, PaneState, PaneStateLayout, init_state, raise_full)
+    KeyDirectory, PaneState, PaneStateLayout, account_full_drop, init_state)
 from flink_tpu_torch.time.watermarks import LONG_MIN
 
 # the eternal window's end (GlobalWindow.maxTimestamp() analogue)
@@ -66,10 +66,6 @@ class CountWindowOperator:
             raise NotImplementedError(
                 f"aggregate {agg.name!r} does not declare the record fields "
                 "its lift reads; the port uploads only declared fields")
-        if OP_FIELD in agg.fields:
-            raise NotImplementedError(
-                f"aggregate {agg.name!r} reads the changelog op column: "
-                "changelog lanes are still to port (ROADMAP.md)")
         self.agg = agg
         self.size = int(size)
         self.purge = bool(purge)
@@ -93,6 +89,10 @@ class CountWindowOperator:
         self._fields = [f for f in self._res_fields if f != "count"]
         self.watermark = LONG_MIN
         self.late_records = 0
+        # state.allow-drops: records of a full key shard are dropped and
+        # counted instead of failing the job (account_full_drop)
+        self.allow_drops = False
+        self.records_dropped_full = 0
         # fired buffers' host copies (host, error word, CUDA event) since
         # the last take_fired
         self._pending: collections.deque = collections.deque()
@@ -112,7 +112,8 @@ class CountWindowOperator:
         slots = self.directory.assign(keys)
         bad = valid & (slots < 0)
         if bad.any():
-            raise_full(int(bad.sum()))
+            account_full_drop(self, int(bad.sum()))
+            valid = valid & ~bad
         t1 = time.perf_counter()
         self.prof["pb_assign"] += t1 - t0
         # invalid records never leave the host
@@ -261,7 +262,7 @@ class CountWindowOperator:
             "directory": self.directory.snapshot(),
             "watermark": self.watermark,
             "late_records": self.late_records,
-            "records_dropped_full": 0,
+            "records_dropped_full": self.records_dropped_full,
         }
 
     def restore_state(self, snap: Dict[str, Any]) -> None:
@@ -304,6 +305,7 @@ class CountWindowOperator:
             snap["directory"])
         self.watermark = snap["watermark"]
         self.late_records = snap["late_records"]
+        self.records_dropped_full = snap.get("records_dropped_full", 0)
         self._pending.clear()
 
     def load_jax_snapshot(self, snap: Dict[str, Any]) -> None:
@@ -313,9 +315,10 @@ class CountWindowOperator:
         lanes must be this operator's aggregate's."""
         if snap.get("kind") != "count_window":
             raise ValueError("not a count-window snapshot")
-        if snap.get("records_dropped_full", 0):
+        if snap.get("records_dropped_full", 0) and not self.allow_drops:
             raise ValueError(
                 "snapshot's operator dropped records on a full key "
-                "directory; this port raises on a full directory instead "
-                "of dropping, so it cannot carry that state on")
+                "directory; this operator raises on a full directory "
+                "(state.allow-drops is false), so it cannot carry that "
+                "state on")
         self.restore_state(snap)

@@ -1,5 +1,7 @@
 """Operator factories: build the runtime operator of a plan node. The
-window and count-window operators are ported."""
+window and count-window operators are ported; the state backend
+(``hbm`` or ``spill``) and the drop policy reach them through the
+context."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,31 +19,43 @@ class OperatorBuildContext:
     max_inflight_steps: int
     max_out_of_orderness_ms: int
     fire_gate: bool
+    # state.backend: 'hbm' (device slots only) or 'spill' (keys past
+    # them aggregate in a host store)
+    backend: str = "hbm"
+    # state.allow-drops: drop and count a full shard's records instead
+    # of failing the job
+    allow_drops: bool = False
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
     from flink_tpu_torch.ops.window import WindowOperator
 
     t = node.window_transform
-    return WindowOperator(
+    op = WindowOperator(
         t.assigner, t.aggregate,
         num_shards=ctx.num_shards,
         slots_per_shard=ctx.slots_per_shard,
+        allowed_lateness_ms=t.allowed_lateness_ms,
         max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
         top_n=t.top_n,
+        spill=ctx.backend == "spill",
         max_inflight_steps=ctx.max_inflight_steps,
         fire_gate=ctx.fire_gate,
         device=ctx.device,
     )
+    op.allow_drops = ctx.allow_drops
+    return op
 
 
 def _count_window_factory(node, ctx: OperatorBuildContext):
     from flink_tpu_torch.ops.count_window import CountWindowOperator
 
     t = node.window_transform
-    return CountWindowOperator(
+    op = CountWindowOperator(
         t.aggregate, t.size, purge=t.purge,
         num_shards=ctx.num_shards,
         slots_per_shard=ctx.slots_per_shard,
         device=ctx.device,
     )
+    op.allow_drops = ctx.allow_drops
+    return op

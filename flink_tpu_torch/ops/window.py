@@ -25,11 +25,16 @@ an int32 flat index — ``lift_masked`` lifts the fields on the device and
 ``scatter_counts`` (count only) or ``scatter_lanes`` folds them in.
 
 A watermark advance fires every window it completes (over a stashed
-native-lane batch, inside its fused step). With ``.top(n)``
-(count only): ``window_counts`` sums each window's live panes for all
-rows at once and ``topn_select_append`` appends each window's top-n
-rows to a device-resident emit ring, which the host reads through
-announced copies. Without: ``fire_pack`` fires chunks of up to
+native-lane batch, inside its fused step). With ``.top(n)``:
+``window_counts`` sums each window's live panes for all rows at once
+and ``topn_select_append`` appends each window's top-n rows to a
+device-resident emit ring, which the host reads through announced
+copies — for count() ranked by its count. Any other ranking field or
+aggregate adds ``window_lanes`` (the lanes of every (row, window) cell),
+the aggregate's finalize in torch on that grid, and
+``topn_select_lanes``, which ranks by the field and appends each winner
+with its result columns (emit ring ``3 + F`` wide). Without top-n:
+``fire_pack`` fires chunks of up to
 ``MAX_FIRE_CHUNK`` windows into packed buffers (every non-empty
 (key, window) cell, with its lanes), the aggregate's ``finalize`` runs
 on them in torch, and each buffer starts its device→host copy into
@@ -46,12 +51,18 @@ window end of the advance in one ``window_counts`` +
 The ingest's stats vector is made and copied back only when the batch
 can carry late, re-fire or miss work.
 
+With ``spill`` (``state.backend = spill``) a record whose key's shard
+is full aggregates in a ``HostSpillStore`` on the host instead; each
+fire adds the store's rows for the same ends, and a top-n re-ranks the
+union per window (the emit ring drained at each fire). Under
+``state.allow-drops`` a full shard's records are dropped and counted
+(``records_dropped_full``); by default they fail the job.
+
 Host control flow (watermark clock, ring bookkeeping, lateness, late
 re-firing, the key directory, the device-made ingest's stash, flush and
 reconciliation) mirrors ``flink_tpu/ops/window.py`` rule for rule, so
 both packages fire the same windows and emit the same rows in the same
-order. Processing time, changelog lanes, top-n over lanes, spill and
-the mesh are in ROADMAP.md.
+order. Processing time and the mesh are in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -72,11 +83,13 @@ from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.kernels import devgen_kernels as dk
 from flink_tpu_torch.kernels import fused_kernels as fk
 from flink_tpu_torch.kernels import lane_kernels as lk
+from flink_tpu_torch.kernels import topn_lanes_kernels as tk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
 from flink_tpu_torch.records import device_cast
 from flink_tpu_torch.state.keyed import (
-    KeyDirectory, PaneState, PaneStateLayout, init_state, raise_full)
+    KeyDirectory, PaneState, PaneStateLayout, account_full_drop, init_state)
+from flink_tpu_torch.state.spill import HostSpillStore
 from flink_tpu_torch.time.watermarks import LONG_MIN
 
 # host-fed advances fire in chunks of this many windows, each chunk one
@@ -91,8 +104,6 @@ FUSED_HDR = fk.FUSED_HDR
 # fires without top-n go in chunks of this many windows, one fire_pack
 # buffer each; also the top-n winner capacity factor (_topn_cap)
 MAX_FIRE_CHUNK = 4
-# changelog aggregates read this record column (still to port)
-OP_FIELD = "__op__"
 # the host pre-combine runs only while the (slot, ring column) pair
 # domain stays this small
 PREAGG_MAX_DOMAIN = 1 << 23
@@ -461,8 +472,9 @@ class DeviceTimer:
 
 class WindowOperator:
     """Drives the window kernels for one keyed event-time window
-    aggregation on one device: count-only with ``.top(n)`` through the
-    emit ring, or any ported aggregate through packed fires."""
+    aggregation on one device: with ``.top(n)`` through the emit ring,
+    without through packed fires; keys past the directory's slots on
+    the host with ``spill``."""
 
     # rows of the device emit ring between host polls; overflow is
     # detected from the ring's monotone head counter and raises
@@ -478,6 +490,7 @@ class WindowOperator:
         allowed_lateness_ms: int = 0,
         max_out_of_orderness_ms: int = 0,
         top_n: Optional[Tuple[str, int]] = None,
+        spill: bool = False,
         max_inflight_steps: int = PipelineOptions.MAX_INFLIGHT_STEPS.default,
         fire_gate: bool = PipelineOptions.FIRE_GATE.default,
         device: "str | torch.device" = "cuda",
@@ -491,29 +504,25 @@ class WindowOperator:
             raise NotImplementedError(
                 f"aggregate {agg.name!r} does not declare the record fields "
                 "its lift reads; the port uploads only declared fields")
-        if OP_FIELD in agg.fields:
-            raise NotImplementedError(
-                f"aggregate {agg.name!r} reads the changelog op column: "
-                "changelog lanes are still to port (ROADMAP.md)")
         self.agg = agg
+        res = probe_finalize(agg)
+        self._topn: Optional[Tuple[str, int]] = None
+        # top-n over lanes: any ranking field or aggregate but count()
+        # ranked by its count, which keeps the count-only kernels (and
+        # the fused step and the device-made ingest)
+        self._topn_lanes = False
         if top_n is not None:
             by, n = top_n
             if int(n) < 1:
                 raise ValueError(f"top_n needs n >= 1, got {top_n}")
-            if by != "count":
-                raise NotImplementedError(
-                    f"top-n by {by!r}: top-n by anything but the count is "
-                    "still to port (ROADMAP.md)")
-            res = probe_finalize(agg)
-            if (agg.sum_width, agg.max_width, agg.min_width) != (0, 0, 0) \
-                    or sorted(res) != ["count"]:
-                raise NotImplementedError(
-                    "top-n fires are ported for count() with its default "
-                    f"result field only, got {agg.name!r} with result "
-                    f"fields {sorted(res)} (ROADMAP.md)")
-            self._topn: Optional[Tuple[str, int]] = ("count", int(n))
-        else:
-            self._topn = None
+            if by not in res:
+                raise ValueError(
+                    f"top-n by {by!r}: aggregate {agg.name!r} has result "
+                    f"fields {sorted(res)}")
+            self._topn = (by, int(n))
+            self._topn_lanes = not (
+                by == "count" and sorted(res) == ["count"]
+                and (agg.sum_width, agg.max_width, agg.min_width) == (0, 0, 0))
         self.device = resolve_device(device)
         self.plan = WindowPlan.plan(
             assigner, allowed_lateness_ms=allowed_lateness_ms,
@@ -526,7 +535,6 @@ class WindowOperator:
                                       min_width=agg.min_width)
         self._check_cell_index()
         self.state = init_state(self.layout, self.device)
-        res = probe_finalize(agg)
         # result fields in packed-buffer column order, which are ints,
         # and their empty columns for a fire with no rows
         self._res_fields = sorted(res)
@@ -540,6 +548,16 @@ class WindowOperator:
         self._min_pane_seen: Optional[int] = None
         self._max_pane_seen: Optional[int] = None
         self.late_records = 0
+        # state.backend = spill: keys past the directory's slots
+        # aggregate on the host; a top-n with spill queues the store's
+        # rows here for the drain that re-ranks them with the ring's
+        self._spill: Optional[HostSpillStore] = (
+            HostSpillStore(agg) if spill else None)
+        self._pending_ring_extras: collections.deque = collections.deque()
+        # state.allow-drops: drop and count the records of a full shard
+        # instead of failing the job (account_full_drop)
+        self.allow_drops = False
+        self.records_dropped_full = 0
         # bounded in-flight dispatch: ingest waits on the oldest step's
         # CUDA event once more than this many are outstanding
         self.max_inflight_steps = int(max_inflight_steps)
@@ -597,7 +615,7 @@ class WindowOperator:
                       valid: Optional[np.ndarray] = None) -> None:
         """Fold a batch in. Late-beyond-lateness rows are dropped and
         counted; late-within-lateness rows schedule re-fires."""
-        if (self._preagg_lanes() == ()
+        if (self._spill is None and self._preagg_lanes() == ()
                 and (valid is None or bool(np.all(valid)))
                 and self._process_batch_fused(keys, ts)):
             return
@@ -641,7 +659,16 @@ class WindowOperator:
         self.prof["pb_assign"] += time.perf_counter() - t1
         bad = valid & (slots < 0)
         if bad.any():
-            raise_full(int(bad.sum()))
+            full = bad & (slots == KeyDirectory.FULL)
+            if self._spill is not None and full.any():
+                # a full shard's keys aggregate on the host; a key
+                # outside the directory (-1) is never absorbed
+                self._spill.absorb(keys[full], panes[full],
+                                   {k: data[k][full] for k in self.agg.fields})
+                bad = bad & ~full
+            if bad.any():
+                account_full_drop(self, int(bad.sum()))
+            valid = valid & ~bad & ~full
         t2 = time.perf_counter()
         ring = self.plan.ring
         lanes_f = self._preagg_lanes()
@@ -750,9 +777,11 @@ class WindowOperator:
 
     # -- native lane --------------------------------------------------------
     def _fused_ok(self) -> bool:
-        """The fused step exists for top-n operators whose ring fits the
-        header's 64-bit clear mask."""
-        return self._topn is not None and self.plan.ring <= fk.MAX_FUSED_RING
+        """The fused step exists for count-only top-n operators without
+        spill whose ring fits the header's 64-bit clear mask."""
+        return (self._topn is not None and not self._topn_lanes
+                and self._spill is None
+                and self.plan.ring <= fk.MAX_FUSED_RING)
 
     def _process_batch_fused(self, keys: np.ndarray, ts: np.ndarray) -> bool:
         """Count-only ingest in one C scan (``ingest_fused_scan``): the
@@ -831,8 +860,9 @@ class WindowOperator:
         self.prof["preagg_combine"] += time.perf_counter() - t_scan
         self.late_records += n_late
         if n_bad:
-            ws.rezero()
-            raise_full(n_bad)
+            if not self.allow_drops:
+                ws.rezero()
+            account_full_drop(self, n_bad)
         if n_refire:
             late_panes = (np.flatnonzero(
                 np.unpackbits(res.bitmap, bitorder="little")) + dead)
@@ -1153,7 +1183,22 @@ class WindowOperator:
                 return out
         self._flush_stash()
         self._flush_devgen()
+        # the host store's keys fire on the same ends (re-fires too);
+        # its keys are disjoint from the device's, so rows ride along
+        extra = (self._spill.fire(
+            ends, self.plan.panes_per_window, self.plan.pane_ms,
+            self.plan.offset_ms, self.plan.size_ms)
+            if self._spill is not None and ends else None)
         out = self._fire_ends(ends, whole=stashed)
+        if self._topn is not None and self._spill is not None:
+            # top-n + spill: drain the ring at each fire, so the host rows
+            # re-rank against this fire's device winners only
+            if extra is not None:
+                self._pending_ring_extras.append(extra)
+            if out._ring or extra is not None:
+                out = FiredWindows(data=self.drain_ring())
+        elif extra is not None:
+            out._extra = extra
 
         # purge panes no window can need any more
         clear, cleared_after = self._purge_columns(wm)
@@ -1168,6 +1213,8 @@ class WindowOperator:
                     if lane is not None:
                         wk.ring_columns(lane, lane, self._ident_cols,
                                         keep_t, fill)
+        if self._spill is not None and cleared_after > self._cleared_below:
+            self._spill.purge_below(cleared_after)
         self._cleared_below = cleared_after
         self.prof["aw_dispatch"] += time.perf_counter() - taw
         return out
@@ -1224,10 +1271,37 @@ class WindowOperator:
             with self.timer.span("fire"):
                 wc = wk.window_counts(self.state.counts, end_t, w_valid, lo,
                                       hi, ppw)
-                wk.topn_select_append(wc, used, end_t, w_valid,
-                                      self._ring_anchor, self._topn[1],
-                                      self._topn_cap(), ring_buf)
+                if self._topn_lanes:
+                    self._topn_lanes_fire(wc, end_t, w_valid, lo, hi, used,
+                                          ring_buf)
+                else:
+                    wk.topn_select_append(wc, used, end_t, w_valid,
+                                          self._ring_anchor, self._topn[1],
+                                          self._topn_cap(), ring_buf)
         return self._ring_after_fire(len(ends))
+
+    def _topn_lanes_fire(self, wc: torch.Tensor, end_t: torch.Tensor,
+                         w_valid: torch.Tensor, lo: int, hi: int,
+                         used: torch.Tensor, ring_buf: torch.Tensor) -> None:
+        """A top-n chunk over lanes: ``window_lanes`` over the (rows, W)
+        grid, the aggregate's finalize on it in torch (the ranking field
+        as f32 and the result columns as int32 words, ``_finalize_pack``'s
+        forms), then ``topn_select_lanes``."""
+        st = self.state
+        sums, maxs, mins = tk.window_lanes(
+            st.sums, st.maxs, st.mins, end_t, w_valid, lo, hi,
+            self.plan.panes_per_window, self.layout.rows)
+        res = self.agg.finalize(sums, maxs, mins, wc)
+        by, n = self._topn
+        v = res[by].to(torch.float32).contiguous()
+        cols = [res[f].to(torch.int32) if self._res_is_int[f]
+                else res[f].to(torch.float32).view(torch.int32)
+                for f in self._pack_fields()]
+        grid = (torch.stack(cols, dim=2) if cols
+                else torch.zeros(wc.shape + (0,), dtype=torch.int32,
+                                 device=wc.device))
+        tk.topn_select_lanes(wc, v, grid.contiguous(), used, end_t, w_valid,
+                             self._ring_anchor, n, self._topn_cap(), ring_buf)
 
     def _fire_packs(self, ends: List[int], lo: int, hi: int,
                     used: torch.Tensor) -> "FiredWindows":
@@ -1353,9 +1427,14 @@ class WindowOperator:
             (self._ring_version_no,) + copy_to_host(self._emit_ring, self.timer))
 
     def _ensure_ring(self) -> torch.Tensor:
+        """The emit ring, made at first use: row 0 the head, rows 1 ..
+        EMIT_RING_ROWS the data, the last row reserved; ``3 + F`` columns
+        (``[row, end - anchor, count]`` and the result fields but the
+        count)."""
         if self._emit_ring is None:
-            self._emit_ring = torch.zeros((self.EMIT_RING_ROWS + 2, 3),
-                                          dtype=torch.int32, device=self.device)
+            self._emit_ring = torch.zeros(
+                (self.EMIT_RING_ROWS + 2, 3 + len(self._pack_fields())),
+                dtype=torch.int32, device=self.device)
         return self._emit_ring
 
     def drain_ring(self, min_no: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -1366,8 +1445,11 @@ class WindowOperator:
         newest copy that already landed and returns nothing when none
         has — later polls pick the rows up, since the head counter is
         monotone."""
+        # the host store's rows of the fires this drain reads
+        extras = list(self._pending_ring_extras)
+        self._pending_ring_extras.clear()
         if self._emit_ring is None or self._ring_anchor is None:
-            return dict(self._empty())
+            return self._merge_extras(dict(self._empty()), extras)
         t0 = time.perf_counter()
         need = self._ring_version_no if min_no is None else min_no
         acceptable = [v for v in self._ring_versions if v[0] >= need]
@@ -1378,7 +1460,7 @@ class WindowOperator:
                 break
         if host is None:
             if min_no == 0:
-                return dict(self._empty())
+                return self._merge_extras(dict(self._empty()), extras)
             if not acceptable:
                 self._announce_ring()
                 acceptable = [self._ring_versions[-1]]
@@ -1403,18 +1485,28 @@ class WindowOperator:
                 f"emit ring overflow: {new} rows appended since last drain "
                 f"> capacity {row_cap}; drain more often or raise "
                 "EMIT_RING_ROWS")
-        if new <= 0:
-            return dict(self._empty())
-        body = arr[(self._ring_drained + np.arange(new)) % row_cap + 1]
-        self._ring_drained = total
+        # a fetched ring decodes even when it holds no new row, so an
+        # empty drain has the decoded rows' columns (the reference's)
+        body = arr[(self._ring_drained + np.arange(max(new, 0))) % row_cap + 1]
+        self._ring_drained = max(total, self._ring_drained)
         end_pane = self._ring_anchor + body[:, 1].astype(np.int64)
         window_end = end_pane * self.plan.pane_ms + self.plan.offset_ms
-        return {
+        out = {
             "key": self.directory.key_of_slots(body[:, 0]),
             "window_start": window_end - self.plan.size_ms,
             "window_end": window_end,
             "count": np.ascontiguousarray(body[:, 2]),
         }
+        for i, k in enumerate(self._pack_fields()):
+            col = np.ascontiguousarray(body[:, 3 + i])
+            out[k] = col if self._res_is_int[k] else col.view(np.float32)
+        return self._merge_extras(out, extras)
+
+    def _merge_extras(self, out: Dict[str, np.ndarray],
+                      extras: List[Dict[str, np.ndarray]]
+                      ) -> Dict[str, np.ndarray]:
+        return (drain_merge_extras(out, extras, self._topn) if extras
+                else out)
 
     def _used_mask_device(self) -> torch.Tensor:
         """(rows,) bool on the device marking registered-key rows,
@@ -1445,8 +1537,10 @@ class WindowOperator:
         source's key domain densely (slot == key). Returns False when
         this operator cannot host it; the driver then feeds the batches
         from the host."""
-        # miss repair's probe needs the C key table, as in the reference
-        if self._topn is None or self._preagg_lanes() != () \
+        # miss repair's probe needs the C key table, as in the reference;
+        # with spill the reference feeds the batches from the host too
+        if self._topn is None or self._topn_lanes or self._spill is not None \
+                or self._preagg_lanes() != () \
                 or self.plan.ring > 64 or not self.directory.native():
             return False
         d = getattr(spec, "key_domain", None)
@@ -1574,13 +1668,17 @@ class WindowOperator:
             if n_miss:
                 keys, ts = self._devgen_spec.keys_ts_host(batch_index)
                 out = (keys < 0) | (keys >= self._devgen_spec.key_domain)
-                # keys the directory already refused as FULL fail the
-                # job (the reference's default policy; no drops here)
+                # keys the directory already refused as FULL stay
+                # refused: the drop policy decides (account_full_drop);
+                # the rest register through the ordinary path
                 vals, found = self.directory.lookup(keys[out])
-                n_full = int((found & (vals < 0)).sum())
+                refused = found & (vals < 0)
+                n_full = int(refused.sum())
                 if n_full:
-                    raise_full(n_full)
-                self.process_batch(keys[out], ts[out], {})
+                    account_full_drop(self, n_full)
+                if (~refused).any():
+                    self.process_batch(keys[out][~refused], ts[out][~refused],
+                                       {})
 
     # -- snapshots ----------------------------------------------------------
     def snapshot_state(self) -> Dict[str, Any]:
@@ -1594,7 +1692,8 @@ class WindowOperator:
             self._reconcile_devstats()
         self._flush_stash()
         return {
-            "spill": None,
+            "spill": (self._spill.snapshot() if self._spill is not None
+                      else None),
             "n_dev": 1,
             "ring": self.plan.ring,
             "panes": self.state.clone(),
@@ -1606,12 +1705,24 @@ class WindowOperator:
             "max_pane_seen": self._max_pane_seen,
             "refire": sorted(self._refire),
             "late_records": self.late_records,
+            "records_dropped_full": self.records_dropped_full,
         }
+
+    @property
+    def records_spilled(self) -> int:
+        return self._spill.records_spilled if self._spill is not None else 0
 
     def restore_state(self, snap: Dict[str, Any]) -> None:
         """Restore from ``snapshot_state()`` output — this package's, or
         the reference package's once its panes are host arrays (see
-        ``load_jax_snapshot``)."""
+        ``load_jax_snapshot``). Host-spill state restores into an
+        operator with spill; an operator without refuses it rather than
+        lose it."""
+        snap_spill = snap.get("spill")
+        if self._spill is None and snap_spill and snap_spill.get("panes"):
+            raise ValueError(
+                "snapshot contains host-spill state but state.backend is "
+                "'hbm'; restore with state.backend='spill'")
         panes = snap["panes"]
         names = ("sums", "maxs", "mins", "counts")
         lanes = {}
@@ -1658,6 +1769,10 @@ class WindowOperator:
         self._max_pane_seen = snap["max_pane_seen"]
         self._refire = set(snap["refire"])
         self.late_records = snap["late_records"]
+        self.records_dropped_full = snap.get("records_dropped_full", 0)
+        if self._spill is not None and snap_spill is not None:
+            self._spill.restore(snap_spill)
+        self._pending_ring_extras.clear()
         # stashed and device-made steps from before the restore belong to
         # another timeline
         self._stash = None
@@ -1683,14 +1798,15 @@ class WindowOperator:
         if snap.get("n_dev", 1) != 1:
             raise ValueError("only single-device snapshots can be loaded")
         spill = snap.get("spill")
-        if spill and (spill.get("panes") or spill.get("runs")):
-            raise ValueError("snapshot carries host-spill state, which is "
-                             "not ported")
-        if snap.get("records_dropped_full", 0):
+        if spill and (spill.get("kind") == "lsm" or spill.get("runs")):
+            raise ValueError("snapshot carries lsm state (state.backend="
+                             "'lsm'), which is not ported")
+        if snap.get("records_dropped_full", 0) and not self.allow_drops:
             raise ValueError(
                 "snapshot's operator dropped records on a full key "
-                "directory; this port raises on a full directory instead "
-                "of dropping, so it cannot carry that state on")
+                "directory; this operator raises on a full directory "
+                "(state.allow-drops is false), so it cannot carry that "
+                "state on")
         self.restore_state(snap)
 
 
@@ -1707,11 +1823,53 @@ def empty_fired(res_empty: Dict[str, np.ndarray]) -> "FiredWindows":
     return FiredWindows(data=data)
 
 
+def merge_spill_rows(dev: Dict[str, np.ndarray],
+                     extra: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Device-fired rows, then the host store's rows of the same fire
+    (a fire without top-n: a field-wise concatenation)."""
+    return {k: np.concatenate([np.asarray(dev[k]), np.asarray(extra[k])])
+            for k in dev}
+
+
+def topn_keep(we: np.ndarray, v: np.ndarray, n: int,
+              windows: Optional[np.ndarray] = None) -> np.ndarray:
+    """Keep-mask of a per-window top-n with ties kept, over the windows
+    ``windows`` (all when None); rows of other windows pass."""
+    keep = np.ones(len(we), bool)
+    for w in (np.unique(we) if windows is None else windows):
+        grp = np.flatnonzero(we == w)
+        if len(grp) > n:
+            gv = v[grp]
+            thresh = np.partition(gv, len(gv) - n)[len(gv) - n]
+            keep[grp[gv < thresh]] = False  # ties at thresh stay
+    return keep
+
+
+def drain_merge_extras(dev: Dict[str, np.ndarray],
+                       extras: List[Dict[str, np.ndarray]],
+                       topn: Optional[Tuple[str, int]]
+                       ) -> Dict[str, np.ndarray]:
+    """A ring drain's rows plus the host store's rows of the same fire,
+    re-ranked in the windows the host rows touch: the device rows are
+    the top-n of the resident keys, so the union's top-n is exact over
+    one fire (a top-n with spill drains at every fire)."""
+    ex = {k: np.concatenate([np.asarray(e[k]) for e in extras])
+          for k in extras[0]}
+    comb = {k: np.concatenate([np.asarray(dev[k]), ex[k]]) for k in dev}
+    if topn is None:
+        return comb
+    field, n = topn
+    keep = topn_keep(comb["window_end"], np.asarray(comb[field]), n,
+                     windows=np.unique(ex["window_end"]))
+    return {k: v[keep] for k, v in comb.items()}
+
+
 class FiredWindows(Mapping):
     """A fired-window batch, materialized on first access: an emit-ring
     fire reads the ring then, a packed fire decodes its buffers once
     their copies have landed (``op._decode_packs``; each pack ends with
-    its copy's CUDA event, None on the CPU)."""
+    its copy's CUDA event, None on the CPU). ``_extra``: the host spill
+    store's rows of the same fire, appended at materialization."""
 
     def __init__(self, data: Optional[Dict[str, np.ndarray]] = None,
                  op: Any = None, ring: bool = False,
@@ -1721,6 +1879,7 @@ class FiredWindows(Mapping):
         self._ring = ring
         self._ring_no = ring_no
         self._packs = packs
+        self._extra: Optional[Dict[str, np.ndarray]] = None
 
     def ready(self) -> bool:
         """True unless a packed buffer's device→host copy is still in
@@ -1736,6 +1895,9 @@ class FiredWindows(Mapping):
             else:
                 self._data = self._op.drain_ring()
             self._op = None
+        if self._extra is not None:
+            self._data = merge_spill_rows(self._data, self._extra)
+            self._extra = None
         return self._data
 
     @staticmethod

@@ -1,5 +1,5 @@
-"""Host record helpers: the timestamp convention, the key hash that
-routes keys to key shards (bit-identical to
+"""Host record helpers: the timestamp convention, the changelog op
+column, the key hash that routes keys to key shards (bit-identical to
 ``flink_tpu.records.hash_keys_numpy``, so both packages assign the same
 slots to the same keys) and the cast of record fields for upload."""
 from __future__ import annotations
@@ -8,6 +8,17 @@ import numpy as np
 
 # Timestamps are epoch milliseconds, int64. MIN_TS marks "no timestamp".
 MIN_TS = np.int64(np.iinfo(np.int64).min)
+
+# The changelog plane: a row's kind (Flink's RowKind) rides an ordinary
+# int8 data column, ``__op__``, that only changelog streams carry. The
+# codes are the JAX package's.
+OP_FIELD = "__op__"
+OP_DTYPE = np.int8
+OP_INSERT = 0         # +I  first result for its key
+OP_UPDATE_BEFORE = 1  # -U  retraction of the previously emitted row
+OP_UPDATE_AFTER = 2   # +U  the replacement row
+OP_DELETE = 3         # -D  final deletion for its key
+OP_NAMES = ("+I", "-U", "+U", "-D")
 
 
 def hash_keys_numpy(keys: np.ndarray) -> np.ndarray:

@@ -110,7 +110,9 @@ class Driver:
             # logical batches (in bytes) stays the same
             max_inflight_steps=self._base_inflight * self._sub_batches,
             max_out_of_orderness_ms=max(ooo),
-            fire_gate=bool(self.config.get(PipelineOptions.FIRE_GATE)))
+            fire_gate=bool(self.config.get(PipelineOptions.FIRE_GATE)),
+            backend=str(self.config.get(StateOptions.BACKEND)).strip().lower(),
+            allow_drops=bool(self.config.get(StateOptions.ALLOW_DROPS)))
         for n in self.plan.nodes.values():
             if n.kind == "window":
                 self._ops[n.id] = _window_factory(n, ctx)
@@ -241,7 +243,10 @@ class Driver:
         out = dict(self.metrics)
         out["wall_s"] = time.perf_counter() - t_start
         out["device"] = str(self.device)
-        out["late_records"] = sum(op.late_records for op in self._ops.values())
+        for counter in ("late_records", "records_dropped_full",
+                        "records_spilled"):
+            out[counter] = sum(getattr(op, counter, 0)
+                               for op in self._ops.values())
         for k, v in self.prof.items():
             out[f"profile.driver.{k}"] = v
         for nid, op in self._ops.items():

@@ -296,11 +296,19 @@ class KeyDirectory:
         return d
 
 
-def raise_full(n: int) -> None:
-    """Key-directory overflow: a full shard fails the job, the reference
-    package's default policy (dropping with accounting and host spill
-    are not ported)."""
-    raise RuntimeError(
-        f"key directory shard full: {n} record(s) have no state slot "
-        "(state.num-key-shards x state.slots-per-shard exceeded). The "
-        "default policy never drops data: raise the slot budget.")
+def account_full_drop(op, n: int) -> None:
+    """Key-directory overflow policy of an operator: by default a full
+    shard fails the job (the JAX package's default); with
+    ``op.allow_drops`` (``state.allow-drops``) its ``n`` records are
+    dropped and counted in ``op.records_dropped_full``."""
+    if n <= 0:
+        return
+    if not getattr(op, "allow_drops", False):
+        raise RuntimeError(
+            f"key directory shard full: {n} record(s) have no state slot "
+            "(state.num-key-shards x state.slots-per-shard exceeded). The "
+            "default policy never drops data - use state.backend='spill' "
+            "for exact host-side degradation, raise the slot budget, or "
+            "set state.allow-drops=true to drop with accounting "
+            "(records_dropped_full).")
+    op.records_dropped_full += n

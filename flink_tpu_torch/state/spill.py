@@ -1,0 +1,224 @@
+"""Host spill store (``state.backend = spill``): exact windowed
+aggregation for keys that get no slot in the device's key directory.
+
+The device holds a fixed number of key slots. A record whose key's
+shard is full aggregates here instead, per (key, pane), in host numpy
+arrays; at each fire the store combines the fired windows' panes with
+the same monoid operations as the device (sum, max, min, count) and the
+aggregate's finalize, and its rows go out beside the device's. A key
+lives in exactly one of the two stores (the directory is insert-only,
+so a key refused once is refused for good): their rows simply
+concatenate, and a top-n re-ranks the union per window.
+
+The lift and the finalize are the aggregate's torch functions, run on
+tensors of an explicit ``torch.device("cpu")``. That is this store's
+design, as in the JAX package (which pins them to CPU JAX): the spilled
+keys' records never cross to the card. It is not a fallback.
+
+Fire, refire and purge follow the operator: it passes the same fired
+ends (re-fires included) to both stores and purges both at the same
+horizon. The JAX package's thread-pool and chunked-tree fold
+(``fold_chunk_records``) waits for the host pool (ROADMAP.md); until
+then a pool is refused.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from flink_tpu_torch.records import device_cast
+
+_NEG_INF = np.float32(-np.inf)
+_POS_INF = np.float32(np.inf)
+_CPU = torch.device("cpu")
+
+
+class HostSpillStore:
+    """Per-(key, pane) lane accumulators in host numpy arrays:
+    ``panes[p] = (keys sorted (K,), sums (K, S), maxs (K, M), mins (K,
+    m), counts (K,))``. A batch is absorbed by one lexsort and a segment
+    reduce, then a sorted-union splice into each touched pane."""
+
+    def __init__(self, agg, *, pool=None) -> None:
+        if pool is not None:
+            raise NotImplementedError(
+                "a host pool for the spill store's folds waits for the "
+                "port of parallel/hostpool.py (ROADMAP.md)")
+        self.agg = agg
+        self.panes: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                    np.ndarray, np.ndarray]] = {}
+        self.records_spilled = 0
+
+    # -- ingest ----------------------------------------------------------
+
+    def _lift(self, data: Dict[str, np.ndarray], n: int
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The aggregate's lane lift of ``n`` host rows, in torch on the
+        CPU."""
+        cols = {k: torch.from_numpy(np.ascontiguousarray(device_cast(v)))
+                for k, v in data.items()}
+        s, mx, mn = self.agg.lift_masked(
+            cols, torch.ones(n, dtype=torch.bool, device=_CPU))
+        return s.numpy(), mx.numpy(), mn.numpy()
+
+    def absorb(self, keys: np.ndarray, panes: np.ndarray,
+               data: Dict[str, np.ndarray]) -> None:
+        """Fold overflow records into the per-(key, pane) accumulators."""
+        n = len(keys)
+        if n == 0:
+            return
+        self.records_spilled += n
+        self._splice_groups(*self._group_batch(keys, panes, data))
+
+    def _group_batch(self, keys: np.ndarray, panes: np.ndarray,
+                     data: Dict[str, np.ndarray]) -> Tuple[np.ndarray, ...]:
+        """One (pane, key) grouping pass: lexsort, group boundaries and a
+        segment reduce in record order. Returns pane-contiguous
+        groups."""
+        n = len(keys)
+        sums, maxs, mins = self._lift(data, n)
+        o = np.lexsort((keys, panes))
+        pk, kk = panes[o], keys[o]
+        new_grp = np.empty(n, bool)
+        new_grp[0] = True
+        new_grp[1:] = (pk[1:] != pk[:-1]) | (kk[1:] != kk[:-1])
+        gid = np.cumsum(new_grp) - 1
+        G = int(gid[-1]) + 1
+        S, M, m = self.agg.sum_width, self.agg.max_width, self.agg.min_width
+        g_sum = np.zeros((G, S), np.float32)
+        np.add.at(g_sum, gid, sums[o])
+        g_max = np.full((G, M), _NEG_INF, np.float32)
+        np.maximum.at(g_max, gid, maxs[o])
+        g_min = np.full((G, m), _POS_INF, np.float32)
+        np.minimum.at(g_min, gid, mins[o])
+        g_cnt = np.bincount(gid, minlength=G).astype(np.int64)
+        return pk[new_grp], kk[new_grp], g_sum, g_max, g_min, g_cnt
+
+    def _splice_groups(self, g_pane, g_key, g_sum, g_max, g_min,
+                       g_cnt) -> None:
+        bounds = np.flatnonzero(
+            np.concatenate([[True], g_pane[1:] != g_pane[:-1], [True]]))
+        for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+            self._merge_pane(int(g_pane[a]), g_key[a:b], g_sum[a:b],
+                             g_max[a:b], g_min[a:b], g_cnt[a:b])
+
+    def _merge_pane(self, pane: int, keys, sums, maxs, mins, counts) -> None:
+        cur = self.panes.get(pane)
+        if cur is None:
+            self.panes[pane] = (keys.copy(), sums.copy(), maxs.copy(),
+                                mins.copy(), counts.copy())
+            return
+        ck, cs, cx, cn, cc = cur
+        union = np.union1d(ck, keys)
+        K = len(union)
+        S, M, m = self.agg.sum_width, self.agg.max_width, self.agg.min_width
+        us = np.zeros((K, S), np.float32)
+        ux = np.full((K, M), _NEG_INF, np.float32)
+        un = np.full((K, m), _POS_INF, np.float32)
+        uc = np.zeros(K, np.int64)
+        po = np.searchsorted(union, ck)
+        pn = np.searchsorted(union, keys)
+        us[po] = cs
+        us[pn] += sums
+        ux[po] = cx
+        ux[pn] = np.maximum(ux[pn], maxs)
+        un[po] = cn
+        un[pn] = np.minimum(un[pn], mins)
+        uc[po] = cc
+        uc[pn] += counts
+        self.panes[pane] = (union, us, ux, un, uc)
+
+    # -- fire ------------------------------------------------------------
+
+    def fire(self, ends: List[int], panes_per_window: int, pane_ms: int,
+             offset_ms: int, size_ms: int) -> Optional[Dict[str, np.ndarray]]:
+        """Fired rows of the given end panes, in end order (each window's
+        keys ascending); None when no stored pane meets any window."""
+        if not self.panes or not ends:
+            return None
+        ppw = panes_per_window
+        lo_stored, hi_stored = min(self.panes), max(self.panes)
+        live = [e for e in ends if e > lo_stored and e - ppw <= hi_stored]
+        if not live:
+            return None
+        keys_out: List[np.ndarray] = []
+        ends_out: List[np.ndarray] = []
+        cnt_out: List[np.ndarray] = []
+        res_cols: Dict[str, List[np.ndarray]] = {}
+        for e in live:
+            hit = self._fire_window(e, ppw)
+            if hit is None:
+                continue
+            kk, wc_has, res = hit
+            keys_out.append(kk)
+            ends_out.append(np.full(len(kk), e, np.int64))
+            cnt_out.append(wc_has)
+            for f, v in res.items():
+                if f == "count":
+                    continue  # the exact element count wins
+                res_cols.setdefault(f, []).append(v)
+        if not keys_out:
+            return None
+        window_end = np.concatenate(ends_out) * pane_ms + offset_ms
+        out: Dict[str, np.ndarray] = {
+            "key": np.concatenate(keys_out),
+            "window_start": window_end - size_ms,
+            "window_end": window_end,
+            "count": np.concatenate(cnt_out),
+        }
+        for f, cols in res_cols.items():
+            out[f] = np.concatenate(cols)
+        return out
+
+    def _fire_window(self, e: int, ppw: int
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray, Dict]]:
+        """One window's panes combined; (keys, counts, finalized fields)
+        or None when it holds nothing. The finalize runs in torch on the
+        CPU."""
+        S, M, m = self.agg.sum_width, self.agg.max_width, self.agg.min_width
+        span = [self.panes[p] for p in range(e - ppw, e) if p in self.panes]
+        if not span:
+            return None
+        union = span[0][0] if len(span) == 1 else np.unique(
+            np.concatenate([s[0] for s in span]))
+        K = len(union)
+        ws = np.zeros((K, S), np.float32)
+        wx = np.full((K, M), _NEG_INF, np.float32)
+        wn = np.full((K, m), _POS_INF, np.float32)
+        wc = np.zeros(K, np.int64)
+        for ck, cs, cx, cn, cc in span:
+            pos = np.searchsorted(union, ck)
+            ws[pos] += cs
+            wx[pos] = np.maximum(wx[pos], cx)
+            wn[pos] = np.minimum(wn[pos], cn)
+            wc[pos] += cc
+        has = wc > 0
+        if not has.any():
+            return None
+        res = self.agg.finalize(
+            torch.from_numpy(ws[has]), torch.from_numpy(wx[has]),
+            torch.from_numpy(wn[has]),
+            torch.from_numpy(wc[has].astype(np.int32)))
+        return union[has], wc[has], {k: v.numpy() for k, v in res.items()}
+
+    # -- lifecycle -------------------------------------------------------
+
+    def purge_below(self, dead_pane: int) -> None:
+        for p in [p for p in self.panes if p < dead_pane]:
+            del self.panes[p]
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The JAX package's layout: ``{"panes": {pane: (keys, sums,
+        maxs, mins, counts)}, "records_spilled": n}``."""
+        return {
+            "panes": {int(p): tuple(a.copy() for a in t)
+                      for p, t in self.panes.items()},
+            "records_spilled": self.records_spilled,
+        }
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        self.panes = {int(p): tuple(np.asarray(a) for a in t)
+                      for p, t in snap["panes"].items()}
+        self.records_spilled = int(snap["records_spilled"])

@@ -10,6 +10,7 @@ import torch
 
 from flink_tpu.ops import aggregates as ja
 from flink_tpu_torch.ops import aggregates as ta
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 B = 257
 

@@ -14,6 +14,7 @@ from flink_tpu.ops import window as jw
 from flink_tpu.state.keyed import PaneState as JaxPaneState
 from flink_tpu_torch.kernels import fused_kernels as fk
 from test_torch_fused_step import _state, _words
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 
 # -- F1 ------------------------------------------------------------------------

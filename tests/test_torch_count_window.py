@@ -41,6 +41,7 @@ from flink_tpu_torch.ops.count_window import (
     CountWindowOperator,
 )
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 U = 2.0 ** -24
 

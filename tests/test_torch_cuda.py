@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from flink_tpu_torch.kernels import window_kernels as wk
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -861,3 +862,155 @@ def test_split_upload_on_the_card_matches_the_cpu(dev):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert wk.LAUNCHES["split_cells"] == 4
+
+
+# -- top-n over lanes (window_lanes, topn_select_lanes) -------------------------
+
+@pytest.mark.parametrize("sw,mw,nw,W", [(1, 1, 0, 16), (2, 1, 1, 5),
+                                        (0, 0, 1, 1), (4, 0, 0, 64)])
+def test_window_lanes(dev, sw, mw, nw, W):
+    """Kernel against the plain version on the card, every cell bit for
+    bit (both add the sums in column order): NaN and ±0 in the max/min
+    lanes, windows past the live range, one invalid window."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    rng = np.random.default_rng(sw * 7 + W)
+    rows, ring, lo, hi, ppw = 32769, 32, 1000, 1020, 10
+    _, s, mx, mn = _lane_state(rng, rows, ring, lo, hi, sw, mw, nw)
+    if mw:
+        mx[5, lo % ring] = np.nan
+        mx[6, :] = -0.0
+        mx[6, (lo + 1) % ring] = 0.0
+    if nw:
+        mn[7, hi % ring] = np.nan
+    ends = rng.integers(lo - 2, hi + ppw + 2, W).astype(np.int64)
+    valid = np.ones(W, bool)
+    valid[0] = W == 1
+    args = [_t(x, dev) if x.shape[2] else None for x in (s, mx, mn)]
+    e, v = _t(ends, dev), _t(valid, dev)
+    a = tk.window_lanes(*args, e, v, lo, hi, ppw, rows)
+    b = tk.window_lanes_plain(*args, e, v, lo, hi, ppw, rows)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and _same_bits(x, y)
+
+
+def _topn_lanes(dev, seed, rows, W, n, sel_cap, F=2, fill=0, specials=True,
+                spread=20_000):
+    """Both versions on one random ranking grid; ``spread`` sets how
+    often values tie (every selection must fit the 2048-row ring)."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    rng = np.random.default_rng(seed)
+    wc = (rng.integers(0, 9, (rows, W))
+          * (rng.random((rows, W)) < 0.4)).astype(np.int32)
+    v = rng.integers(-spread, spread, (rows, W)).astype(np.float32)
+    if specials:
+        v[3, 0], v[4, 0] = np.nan, -np.nan        # +NaN on top, -NaN last
+        v[5:9, W - 1] = [0.0, -0.0, -np.inf, spread - 1.0]
+        wc[3:9] = np.maximum(wc[3:9], 1)
+    used = rng.random(rows) < 0.9
+    used[-1] = False
+    cols = rng.integers(-2 ** 31, 2 ** 31 - 1, (rows, W, F)).astype(np.int32)
+    ends = _t(np.arange(100, 100 + W, dtype=np.int64), dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    r1 = torch.zeros((2048 + 2, 3 + F), dtype=torch.int32, device=dev)
+    r1[0, 0] = fill
+    r2 = r1.clone()
+    args = [_t(wc, dev), _t(v, dev), _t(cols, dev), _t(used, dev), ends, valid,
+            90, n, sel_cap]
+    tk.topn_select_lanes(*args, r1)
+    tk.topn_select_lanes_plain(*args, r2)
+    assert torch.equal(r1[:-1], r2[:-1])
+    return r1
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+@pytest.mark.parametrize("W", [1, 16])
+def test_topn_select_lanes(dev, n, W):
+    """Kernel ring equal to the plain version's: head, rows, order and
+    the result columns, with ±NaN, ±0 and -inf in the ranking grid."""
+    r = _topn_lanes(dev, n * 13 + W, 32769, W, n, 1 << 12, fill=2040)
+    # window 0's top value is +NaN: at n = 1 its threshold is NaN and
+    # selects nothing, so a one-window top-1 fire appends no row
+    assert (int(r[0, 0]) > 2040) == (W > 1 or n > 1) and int(r[0, 1]) == 0
+
+
+def test_topn_select_lanes_truncates_past_sel_cap(dev):
+    """Ties beyond sel_cap: the first sel_cap rows land, the rest count
+    in head[0, 1]."""
+    r = _topn_lanes(dev, 3, 4097, 4, 1, 8, specials=False, spread=20)
+    assert int(r[0, 0]) == 8 and int(r[0, 1]) > 0
+
+
+@pytest.mark.parametrize("by", ["max_price", "avg_price", "count"])
+def test_topn_lanes_operator_on_the_card_matches_the_cpu(dev, by):
+    """The operator's lane route on the card and on the CPU: rows equal
+    in order (the averages within 2 * count roundings), through
+    window_lanes and topn_select_lanes; with spill, host rows re-rank
+    into the same leaderboards."""
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+
+    agg = ta.multi(ta.count(), ta.max_of("price"), ta.avg_of("price"))
+    rng = np.random.default_rng(21)
+    for spill in (False, True):
+        ops = [WindowOperator(SlidingEventTimeWindows.of(4_000, 1_000), agg,
+                              num_shards=32, slots_per_shard=32 if spill else 256,
+                              max_out_of_orderness_ms=1_000, top_n=(by, 2),
+                              spill=spill, device=d) for d in ("cpu", dev)]
+        wk.reset_launch_counts()
+        outs = [[], []]
+        for i in range(5):
+            n = 20_000
+            keys = rng.integers(0, 3_000, n)
+            ts = i * 1_000 + rng.integers(0, 1_500, n)
+            price = rng.integers(0, 1_000, n).astype(np.float32)
+            price[:3] = [np.nan, -0.0, 0.0] if i == 2 else price[:3]
+            for op, out in zip(ops, outs):
+                op.process_batch(keys, ts, {"price": price})
+                out.append(dict(op.advance_watermark(i * 1_000)))
+        for op, out in zip(ops, outs):
+            out.append(dict(op.advance_watermark(op.final_watermark())))
+        for a, b in zip(*outs):
+            assert list(a) == list(b)
+            for k in a:
+                x, y = np.asarray(a[k]), np.asarray(b[k])
+                if x.dtype == np.float32:
+                    x, y = x.view(np.int32), y.view(np.int32)
+                np.testing.assert_array_equal(x, y, err_msg=k)
+        assert wk.LAUNCHES["window_lanes"] > 0
+        assert wk.LAUNCHES["topn_select_lanes"] == wk.LAUNCHES["window_counts"]
+        assert wk.LAUNCHES["topn_select_append"] == 0
+        assert (ops[1].records_spilled > 0) == spill
+
+
+def test_changelog_lanes_on_the_card_match_the_cpu(dev):
+    """Signed lanes per record on the card and on the CPU: rows equal
+    (integer-valued prices, so the sums are exact)."""
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+    from flink_tpu_torch.records import OP_FIELD
+
+    agg = ta.multi(ta.changelog_count("net"), ta.changelog_sum_of("price"),
+                   ta.changelog_avg_of("price"))
+    ops = [WindowOperator(TumblingEventTimeWindows.of(1_000), agg,
+                          num_shards=32, slots_per_shard=256, device=d)
+           for d in ("cpu", dev)]
+    rng = np.random.default_rng(23)
+    wk.reset_launch_counts()
+    outs = [[], []]
+    for i in range(3):
+        n = 50_000
+        keys = rng.integers(0, 5_000, n)
+        ts = i * 1_000 + rng.integers(0, 1_000, n)
+        data = {"price": rng.integers(0, 100, n).astype(np.float32),
+                OP_FIELD: rng.choice(np.array([0, 0, 1, 2, 3], np.int8), n)}
+        for op, out in zip(ops, outs):
+            op.process_batch(keys, ts, data)
+            out.append(dict(op.advance_watermark(i * 1_000 + 999)))
+    for a, b in zip(*outs):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert wk.LAUNCHES["scatter_lanes"] == 3

@@ -38,6 +38,7 @@ from flink_tpu_torch.nexmark import generator as pgen
 from flink_tpu_torch.nexmark.queries import q5_hot_items
 from flink_tpu_torch.ops import window as pw
 from flink_tpu_torch.ops.aggregates import count
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 needs_native = pytest.mark.skipif(
     not native_available(), reason="needs the C codec (miss repair)")

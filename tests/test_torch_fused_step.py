@@ -18,6 +18,7 @@ from flink_tpu.ops import window as jw
 from flink_tpu.ops.aggregates import count as jax_count
 from flink_tpu.state.keyed import PaneState as JaxPaneState
 from flink_tpu_torch.kernels import fused_kernels as fk
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 HDR = fk.FUSED_HDR
 ROW_CAP = 256

@@ -17,6 +17,7 @@ from flink_tpu_torch.records import hash_keys_numpy
 from flink_tpu_torch.state.keyed import KeyDirectory
 from flink_tpu_torch.time import clock
 from flink_tpu_torch.time import watermarks as wm
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 ASSIGNERS = [
     ("SlidingEventTimeWindows", (10_000, 1_000)),

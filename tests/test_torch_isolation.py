@@ -5,6 +5,7 @@ import ast
 import os
 
 import pytest
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,6 +51,8 @@ def test_scan_covers_the_package():
     assert "flink_tpu_torch/kernels/fused_kernels.py" in files
     assert "flink_tpu_torch/kernels/count_window_kernels.py" in files
     assert "flink_tpu_torch/ops/count_window.py" in files
+    assert "flink_tpu_torch/kernels/topn_lanes_kernels.py" in files
+    assert "flink_tpu_torch/state/spill.py" in files
     assert "flink_tpu_torch/native_codec.py" in files
     assert "flink_tpu_torch/nexmark/generator.py" in files
     assert "chip_smoke.py" in files

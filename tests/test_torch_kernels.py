@@ -6,6 +6,7 @@ against the same plain versions on the card.
 
 Every comparison is exact: the functions work on the int32 count lane,
 where integer sums do not depend on order."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,10 @@ from flink_tpu.ops import window as jw
 from flink_tpu.ops.aggregates import count as jax_count
 from flink_tpu.state.keyed import PaneState as JaxPaneState
 from flink_tpu_torch.kernels import window_kernels as wk
+from test_torch_threads import capped_torch_threads  # noqa: F401
+
+# the reference's fire jitted once a shape, as its operator runs it
+FIRE = jax.jit(jw.fire_kernel, static_argnames=("panes_per_window", "ring"))
 
 RING_ROWS = (16, 24)
 
@@ -91,9 +96,9 @@ def test_window_counts_matches_fire_kernel(ring, W):
     w_valid = rng.random(W) < 0.8
     w_valid[0] = True
     ends = np.where(w_valid, ends, jw._END_SENTINEL)
-    ref = jw.fire_kernel(_jax_state(counts), jnp.asarray(ends),
-                         jnp.asarray(w_valid), jnp.int64(pane_lo),
-                         jnp.int64(pane_hi), panes_per_window=ppw, ring=ring)[3]
+    ref = FIRE(_jax_state(counts), jnp.asarray(ends), jnp.asarray(w_valid),
+               jnp.int64(pane_lo), jnp.int64(pane_hi), panes_per_window=ppw,
+               ring=ring)[3]
     got = wk.window_counts(torch.from_numpy(counts), torch.from_numpy(ends),
                            torch.from_numpy(w_valid), pane_lo, pane_hi, ppw)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
@@ -130,7 +135,7 @@ def _check_topn(case, n, sel_cap, ring):
     pad = max(jw.MIN_FIRE_PAD, 1 << (W - 1).bit_length())
     params = np.asarray([pane_lo, pane_hi, anchor] + list(ends)
                         + [int(jw._END_SENTINEL)] * (pad - W), np.int64)
-    ref = np.asarray(jw.ring_append_topn_kernel(
+    ref = np.asarray(jw._JIT_RING_TOPN(
         _jax_state(counts), jnp.asarray(ring_buf), jnp.asarray(params),
         jnp.asarray(used), agg=jax_count(), panes_per_window=ppw, ring=ring,
         sel_cap=sel_cap, by="count", topn=n))

@@ -22,6 +22,7 @@ from flink_tpu.state.keyed import PaneState as JaxPaneState
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops import aggregates as ta
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 U = 2.0 ** -24
 

@@ -13,6 +13,7 @@ from flink_tpu import native_codec as ref_nc
 from flink_tpu_torch import native_codec as nc
 from flink_tpu_torch.records import hash_keys_numpy
 from flink_tpu_torch.state.keyed import KeyDirectory, _NumpyHashTable
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

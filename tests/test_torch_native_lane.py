@@ -33,6 +33,7 @@ from flink_tpu_torch.api.windowing import (
 from flink_tpu_torch.kernels import fused_kernels as fk
 from flink_tpu_torch.ops.aggregates import count
 from flink_tpu_torch.ops.window import WindowOperator
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 COLS = ("key", "window_start", "window_end", "count")
 

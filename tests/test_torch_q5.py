@@ -21,6 +21,7 @@ from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
 from flink_tpu_torch.config import Configuration
 from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream
 from flink_tpu_torch.nexmark.queries import q5_hot_items
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 SMALL_CONF = {
     "state.num-key-shards": 8,
@@ -154,7 +155,7 @@ def test_bench_conf_loads_and_validates():
 
 
 @pytest.mark.parametrize("conf,err", [
-    ({"state.backend": "spill"}, ValueError),
+    ({"state.backend": "rocksdb"}, ValueError),
     ({"pipeline.sub-batches": 4}, NotImplementedError),
     ({"analysis.fail-on": "sometimes"}, ValueError),
     ({"pipeline.max-inflight-steps": 0}, ValueError),
@@ -190,12 +191,15 @@ def test_max_inflight_steps_reaches_the_operator(steps):
 def test_unported_pipeline_shapes_raise():
     from flink_tpu_torch.ops.aggregates import count, max_of, multi
 
-    env = StreamExecutionEnvironment(Configuration(dict(SMALL_CONF)))
+    # the disk-backed spill tier is still to port: a job asking for it
+    # is refused, naming the roadmap item
+    env = StreamExecutionEnvironment(Configuration(
+        dict(SMALL_CONF, **{"state.backend": "lsm"})))
     (env.from_source(GeneratorSource(seeded_bids(64, 1, 1, 5, seed=5)))
      .key_by("auction").window(TumblingEventTimeWindows.of(1_000))
      .aggregate(multi(count(), max_of("price"))).top(1, by="max_price")
      .add_sink(CollectSink()))
-    with pytest.raises(NotImplementedError, match="top-n by 'max_price'"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.5"):
         env.execute("top-by-price", device="cpu")
 
 

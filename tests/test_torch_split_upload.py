@@ -27,6 +27,7 @@ from flink_tpu_torch.api.windowing import (
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops import aggregates as ta
 from flink_tpu_torch.ops.window import WindowOperator, split_encode
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 
 @pytest.fixture
@@ -101,49 +102,92 @@ AGGS = {"count": lambda m: m.count(),
                                    m.min_of("price"))}
 
 
-def make_pair(agg, assigner, shards, slots, ooo):
-    kw = dict(num_shards=shards, slots_per_shard=slots,
-              max_out_of_orderness_ms=ooo)
+def make_port(agg, assigner, shards, slots, ooo):
     size, slide = assigner
-    if slide is None:
-        ref = JaxWindowOperator(JaxTumbling.of(size), AGGS[agg](ja), **kw)
-        port = WindowOperator(TumblingEventTimeWindows.of(size),
-                              AGGS[agg](ta), device="cpu", **kw)
-    else:
-        ref = JaxWindowOperator(JaxSliding.of(size, slide), AGGS[agg](ja),
-                                **kw)
-        port = WindowOperator(SlidingEventTimeWindows.of(size, slide),
-                              AGGS[agg](ta), device="cpu", **kw)
-    return ref, port
+    a = (TumblingEventTimeWindows.of(size) if slide is None
+         else SlidingEventTimeWindows.of(size, slide))
+    return WindowOperator(a, AGGS[agg](ta), device="cpu", num_shards=shards,
+                          slots_per_shard=slots, max_out_of_orderness_ms=ooo)
 
 
-def assert_same(got, want):
-    assert list(got) == list(want)
-    for k in want:
+def make_ref(assigner, shards, slots, ooo):
+    size, slide = assigner
+    a = JaxTumbling.of(size) if slide is None else JaxSliding.of(size, slide)
+    return JaxWindowOperator(a, AGGS["lanes"](ja), num_shards=shards,
+                             slots_per_shard=slots,
+                             max_out_of_orderness_ms=ooo)
+
+
+@pytest.fixture(scope="module")
+def reference_run():
+    """``run(case, ref, steps)``: the reference operator driven through
+    ``steps`` once per module and case, on its numpy table: the upload
+    choice after each batch, each advance's rows, the final flush and
+    the final counts. The reference runs the lanes aggregate; its rows
+    carry every column a count() run has (the same cells, in the same
+    order), so the count and lanes cases of one layout share one run
+    and its compiled programs."""
+    from flink_tpu import native_codec
+
+    cache = {}
+
+    def run(case, ref, steps):
+        if case in cache:
+            return cache[case]
+        out = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(native_codec.NativeHashTable, "create",
+                       classmethod(lambda cls, capacity_hint=1024: None))
+            for step in steps:
+                if step[0] == "batch":
+                    ref.process_batch(*step[1:])
+                    out.append(ref._split_upload)
+                else:
+                    out.append(dict(ref.advance_watermark(step[1])))
+            out.append(dict(ref.advance_watermark(ref.final_watermark())))
+        cache[case] = (out, np.asarray(ref.state.counts), ref.plan.ring)
+        return cache[case]
+
+    return run
+
+
+# the columns each aggregate's rows carry, in order: count() has the
+# first four of the lanes aggregate's (the reference's run)
+COLUMNS = {"count": ["key", "window_start", "window_end", "count"],
+           "lanes": ["key", "window_start", "window_end", "count",
+                     "max_price", "min_price"]}
+
+
+def assert_same(got, want, columns):
+    """The port's rows have exactly ``columns``, in order, each equal
+    bit for bit to the reference's column of that name."""
+    assert list(got) == columns
+    for k in got:
         g, w = np.asarray(got[k]), np.asarray(want[k])
         if g.dtype == np.float32:
             g, w = g.view(np.int32), w.view(np.int32)
         np.testing.assert_array_equal(g, w, err_msg=k)
 
 
-def drive(ref, port, steps):
-    """(batch | watermark) steps on both; every advance's rows equal in
-    order, and the final flush. Returns the number of rows."""
+def drive(port, steps, recorded, columns):
+    """(batch | watermark) steps on the port against the reference's
+    recorded run: the same upload choice after every batch, every
+    advance's rows equal in order with exactly ``columns``, the final
+    flush and the final counts. Returns the number of rows."""
+    out, counts, _ = recorded
+    assert list(out[-1]) == COLUMNS["lanes"]
     n = 0
-    for step in steps:
+    for step, want in zip(steps, out):
         if step[0] == "batch":
-            _, keys, ts, data = step
-            ref.process_batch(keys, ts, data)
-            port.process_batch(keys, ts, data)
-            assert port._split_upload == ref._split_upload
+            port.process_batch(*step[1:])
+            assert port._split_upload == want
         else:
             got = dict(port.advance_watermark(step[1]))
-            assert_same(got, dict(ref.advance_watermark(step[1])))
+            assert_same(got, want, columns)
             n += len(got["key"])
     got = dict(port.advance_watermark(port.final_watermark()))
-    assert_same(got, dict(ref.advance_watermark(ref.final_watermark())))
-    np.testing.assert_array_equal(port.state.counts.numpy(),
-                                  np.asarray(ref.state.counts))
+    assert_same(got, out[-1], columns)
+    np.testing.assert_array_equal(port.state.counts.numpy(), counts)
     return n + len(got["key"])
 
 
@@ -165,32 +209,44 @@ def per_record_steps(rng, n_batches, batch, n_keys, pane_ms, spread,
 
 @pytest.mark.parametrize("agg", list(AGGS))
 def test_split_taken_at_32769_rows_and_ring_32(numpy_host_paths, split_calls,
-                                                agg):
-    # the bid-aggregate jobs' state: 128 x 256 slots, 10 s / 1 s windows
-    # over a 32-column ring
-    ref, port = make_pair(agg, (10_000, 1_000), 128, 256, 17_000)
+                                                reference_run, agg):
+    # the bid-aggregate jobs' state: 128 x 256 slots over a 32-column
+    # ring (1 s windows, 26 s out of order); every fire of the run
+    # completes at most one window per call of the reference's program
+    layout = ((1_000, None), 128, 256, 26_000)
+    port = make_port(agg, *layout)
     assert port.layout.rows == 32_769 and port.plan.ring == 32
-    assert ref._split_upload and port._split_upload
-    steps = per_record_steps(np.random.default_rng(3), 4, 512, 30_000,
-                             1_000, 3_000)
-    assert drive(ref, port, steps) > 0
+    assert port._split_upload
+    steps = per_record_steps(np.random.default_rng(3), 2, 512, 30_000,
+                             1_000, 1_000)
+    recorded = reference_run("32769", make_ref(*layout), steps)
+    assert recorded[0][0] is True
+    assert drive(port, steps, recorded, COLUMNS[agg]) > 0
     assert split_calls and all(r == 32 for _, r in split_calls)
 
 
-def test_split_not_taken_at_65537_rows(numpy_host_paths, split_calls):
-    ref, port = make_pair("lanes", (1_000, None), 128, 512, 0)
+def test_split_not_taken_at_65537_rows(numpy_host_paths, split_calls,
+                                       reference_run):
+    layout = ((1_000, None), 128, 512, 0)
+    port = make_port("lanes", *layout)
     assert port.layout.rows == 65_537
-    assert not ref._split_upload and not port._split_upload
-    steps = per_record_steps(np.random.default_rng(4), 3, 512, 30_000,
+    assert not port._split_upload
+    steps = per_record_steps(np.random.default_rng(4), 2, 512, 30_000,
                              1_000, 1_000)
-    assert drive(ref, port, steps) > 0
+    recorded = reference_run("65537", make_ref(*layout), steps)
+    assert recorded[0][0] is False
+    assert drive(port, steps, recorded, COLUMNS["lanes"]) > 0
     assert split_calls == []
 
 
 @pytest.mark.parametrize("agg", list(AGGS))
 def test_ring_growth_past_256_switches_back(numpy_host_paths, split_calls,
-                                            agg):
-    ref, port = make_pair(agg, (10, None), 16, 32, 0)
+                                            reference_run, agg):
+    # 10 ms panes (gcd of 1000 and 990) in windows 990 ms apart: the
+    # ring starts at 105 columns and a wide span of live panes fires
+    # only a few windows
+    layout = ((1_000, 990), 16, 32, 0)
+    port = make_port(agg, *layout)
     assert port._split_upload and port.plan.ring <= 256
     rng = np.random.default_rng(5)
     keys = rng.integers(0, 60, 256).astype(np.int64)
@@ -201,9 +257,10 @@ def test_ring_growth_past_256_switches_back(numpy_host_paths, split_calls,
     steps = [("batch", keys, narrow, data), ("batch", keys, wide, data),
              ("wm", 5_100)]
     steps += per_record_steps(rng, 2, 256, 60, 10, 30, start=5_200)
-    assert drive(ref, port, steps) > 0
-    assert port.plan.ring == ref.plan.ring == 512
-    assert not ref._split_upload and not port._split_upload
+    recorded = reference_run("growth", make_ref(*layout), steps)
+    assert drive(port, steps, recorded, COLUMNS[agg]) > 0
+    assert port.plan.ring == recorded[2] == 512
+    assert not port._split_upload
     # the first batch only, at the ring it started with
     assert len(split_calls) == 1 and split_calls[0][0] == 256
     assert split_calls[0][1] <= 256

@@ -38,6 +38,7 @@ from flink_tpu_torch.config import Configuration
 from flink_tpu_torch.ops import aggregates as ta
 from flink_tpu_torch.ops.window import WindowOperator
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 U = 2.0 ** -24
 KEY_COLS = ("key", "window_start", "window_end", "count")
@@ -291,15 +292,15 @@ def test_unported_aggregates_are_refused():
                            name="opaque", fields=None)
     with pytest.raises(NotImplementedError, match="record fields"):
         WindowOperator(TumblingEventTimeWindows.of(1000), bad, device="cpu")
-    changelog = ta.LaneAggregate(1, 0, 0, ta.count().lift,
-                                 ta.count().finalize, name="changelog_sum",
-                                 fields=("__op__", "x"))
-    with pytest.raises(NotImplementedError, match="changelog"):
-        WindowOperator(TumblingEventTimeWindows.of(1000), changelog,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="top-n"):
+    # changelog max and min cannot retract, as in the reference
+    with pytest.raises(NotImplementedError, match="MAX"):
+        ta.changelog_max_of("x")
+    with pytest.raises(NotImplementedError, match="MIN"):
+        ta.changelog_min_of("x")
+    # a top-n ranks by one of the aggregate's result fields
+    with pytest.raises(ValueError, match="top-n"):
         WindowOperator(TumblingEventTimeWindows.of(1000), AGGS["avg"](ta),
-                       top_n=("count", 1), device="cpu")
+                       top_n=("max_price", 1), device="cpu")
 
 
 # -- end to end through env.execute ----------------------------------------------

@@ -25,6 +25,7 @@ from flink_tpu_torch.api.windowing import (
 )
 from flink_tpu_torch.ops.aggregates import count
 from flink_tpu_torch.ops.window import WindowOperator
+from test_torch_threads import capped_torch_threads  # noqa: F401
 
 COLS = ("key", "window_start", "window_end", "count")
 
@@ -275,8 +276,11 @@ def test_topn_tie_explosion_raises_loudly():
 def test_operator_refuses_unported_shapes(monkeypatch):
     from flink_tpu_torch.ops.aggregates import max_of, multi
 
-    with pytest.raises(NotImplementedError, match="top-n by 'max_price'"):
-        WindowOperator(TumblingEventTimeWindows.of(1000),
+    class ProcessingTimeWindows(TumblingEventTimeWindows):
+        is_processing_time = True
+
+    with pytest.raises(NotImplementedError, match="processing-time"):
+        WindowOperator(ProcessingTimeWindows.of(1000),
                        multi(count(), max_of("price")),
                        top_n=("max_price", 1), device="cpu")
     # the default device is the card; without one the operator refuses
