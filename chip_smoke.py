@@ -47,7 +47,12 @@ Phases, one JSON line each:
    2^20-bid batch's 3-byte upload into 32,769 x 32; the top-n lane
    kernels at job T's shapes: ``window_lanes`` (32,769 x 32, 11 windows
    of 10 panes, a sum and a max lane) and ``topn_select_lanes`` (top-1
-   by the max, two result columns), each bit for bit.
+   by the max, two result columns), each bit for bit; the element path's
+   ``segment_lanes`` at job E's fire (~10,000 segments, each auction's
+   last 100 of a window's 2^20 bids, ~750k elements, the lanes of
+   ``multi(count(), avg_of(price), max_of(price))``) and on an edge case
+   (planted +/-NaN with payloads, +/-inf, +/-0, one-element segments, a
+   5,000-element one), bit for bit.
 3. ``q5``      — Nexmark Q5 hot items, host-fed, through the port's
    ``StreamExecutionEnvironment.execute()`` at the conf of
    ``confs/bench_q5_host_fed.conf`` on 16 batches of 2^20 bids, through
@@ -107,6 +112,22 @@ Phases, one JSON line each:
    slots), 8 batches of 2^20 bids: the keys past the slots aggregate in
    the host spill store and re-rank with the device's winners at every
    fire; rows against Q5's numpy golden, ``records_spilled`` printed.
+11. ``element_window`` — the element path on the host-fed bids, keyed
+   by auction, 10 s tumbling windows: job E
+   ``.evictor(CountEvictor.of(100)).aggregate(multi(count(),
+   avg_of(price), max_of(price)))`` on 4 batches of 2^20 bids (each fire
+   ~10,000 windows, ~750k survivors, one ``segment_lanes``), and job E2
+   ``.trigger(CountTrigger.of(1000)).aggregate(multi(count(),
+   sum_of(price), min_of(price)))`` on 2 batches (mid-window fires of
+   growing prefixes, reduced per batch); each against a numpy golden
+   (each window's last 100 bids in arrival order; each prefix at every
+   1,000th bid): counts, max and min exactly, averages and sums within
+   ``agg_rel_bound``; ``segment_lanes``' share of device time printed.
+12. ``proc_time`` — job P: Q5's count by auction over
+   ``TumblingProcessingTimeWindows.of(1 s)`` on 16 batches of 2^20
+   host-fed bids (the native lane; every record of a batch takes the
+   clock's pane): each auction's counts add up to its bids, each
+   (auction, window) fires once, and the path's kernels launched.
 
 In the pipeline phases every kernel's launch counter is zeroed just
 before the run and read just after; each kernel of the path must have
@@ -147,12 +168,19 @@ WC_VOCAB = 30_000
 AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
 CW_SIZE = 250                   # WindowWordCount.java countWindow(250, 150)
 KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels",
-                  "fused_kernels", "count_window_kernels", "topn_lanes_kernels")
+                  "fused_kernels", "count_window_kernels", "topn_lanes_kernels",
+                  "element_kernels")
 TOPN_BATCHES = 16               # job T, 2^20 bids each
 CHANGELOG_BATCHES = 16          # job C
 SPILL_BATCHES = 8               # job S
 SPILL_AUCTIONS = 100_000        # job S's key domain, ~3 x the 32,768 slots
 SIDE_BATCHES = 4                # the profiled runs of jobs T, C and S
+ELEMENT_BATCHES = 4             # job E (evictor), 2^20 bids each
+ELEMENT_TRIGGER_BATCHES = 2     # job E2 (count trigger)
+ELEMENT_SIDE_BATCHES = 2        # the profiled runs of jobs E and E2
+PROC_BATCHES = 16               # job P (processing time)
+E_KEEP = 100                    # job E's CountEvictor.of(100)
+E2_EVERY = 1000                 # job E2's CountTrigger.of(1000)
 Q5_SIDE_BATCHES = 4             # the numpy-lane, hot-key and profiled runs
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
@@ -177,6 +205,7 @@ PROFILED_KERNELS = {
     "window_lanes": ("window_lanes_kernel",),
     "topn_select_lanes": ("lanes_threshold_kernel", "lanes_count_kernel",
                           "lanes_write_kernel"),
+    "segment_lanes": ("segment_lanes_kernel",),
 }
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
@@ -355,13 +384,16 @@ def phase_kernels(torch, np):
     written = int(r1[0, 0])
     check(written >= W and int(r1[0, 1]) == 0, f"ring head {r1[0].tolist()}")
     r3, r4 = emit_ring.clone(), emit_ring.clone()
+    wct = wc.T.contiguous()
     record("topn_select_append", "flink_tpu/ops/window.py:547", err,
            time_ms(torch, lambda: wk.topn_select_append(
                wc, used, ends, w_valid, anchor, n_top, sel_cap, r3)),
            time_ms(torch, lambda: wk.topn_select_append_plain(
                wc, used, ends, w_valid, anchor, n_top, sel_cap, r4)),
-           None, rows * W * 4 + rows + W * 9 + written * 12 + 8,
+           time_ms(torch, lambda: torch.topk(wct, n_top, dim=1)),
+           rows * W * 4 + rows + W * 9 + written * 12 + 8,
            rows * W * (2 * n_top + 2))
+    out[-1]["library_call"] = "torch.topk(wcounts.T, n), the threshold only"
 
     # K4: ring_columns — the per-advance purge (11 dead columns), and a
     # ring growth 16 -> 32 checked for equality
@@ -402,6 +434,8 @@ def phase_kernels(torch, np):
     extra.update(count_window_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     extra.update(topn_lanes_kernel_cases(torch, np, dev, record, out))
+    wk.check_errors(dev)
+    extra.update(element_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
@@ -527,6 +561,18 @@ def lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, widths, hot=0):
     return counts, sums, maxs, mins
 
 
+def colmask_matmul_ms(torch, lk, lane, ends, ring, pane_lo, pane_hi, ppw):
+    """Time of one f32 ``(rows, ring) @ (ring, W)`` column-mask matmul
+    with TF32 off: the reference's form of a fire's window sums."""
+    colmask = lk._live_columns(ends, ring, pane_lo, pane_hi, ppw).T.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return time_ms(torch, lambda: lane @ colmask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def lane_kernel_cases(torch, np, dev, record, out):
     """fire_pack, scatter_lanes, scatter_pair_lanes and the f32-lane
     ring_columns against their plain versions at this slice's shapes:
@@ -571,12 +617,18 @@ def lane_kernel_cases(torch, np, dev, record, out):
           "fire_pack (packed2) differs from its plain version")
     ms = time_ms(torch, lambda: lk.fire_pack(*args))
     plain = time_ms(torch, lambda: lk.fire_pack_plain(*args), iters=10)
+    # the library yardstick: the lane (here the count lane, as f32) times
+    # the (ring, W) column mask in one matmul, TF32 off
+    lib_ms = colmask_matmul_ms(torch, lk, c_t.float(), ends, ring, pane_lo,
+                               pane_hi, ppw)
     # reads: the count lane's live columns once, the used mask; writes
     # the head and n 2-column rows
-    record("fire_pack", "flink_tpu/ops/window.py:384", 0, ms, plain, None,
+    record("fire_pack", "flink_tpu/ops/window.py:384", 0, ms, plain, lib_ms,
            rows * W * 4 + rows + W * 9 + (n + 1) * 8, rows * W * (ppw + 2),
            source="lane_kernels.cu")
     out[-1]["rows_per_fire"] = n
+    out[-1]["library_call"] = ("counts.float() @ colmask (TF32 off): the "
+                               "WordCount form's one lane")
     extra["fire_pack_wordcount_rows"] = n
 
     # L1 fire_pack, bid-aggregate shape: count + sum + max + min lanes,
@@ -618,7 +670,11 @@ def lane_kernel_cases(torch, np, dev, record, out):
         "ms": time_ms(torch, lambda: lk.fire_pack(*args)),
         "plain_ms": time_ms(torch, lambda: lk.fire_pack_plain(*args),
                             iters=10),
-        "bound_ms": b, "bound_by": by, "live_panes": live}
+        "bound_ms": b, "bound_by": by, "live_panes": live,
+        "library_ms": colmask_matmul_ms(
+            torch, lk, lanes_args[1][:, :, 0].contiguous(), ends, ring,
+            pane_lo, pane_hi, ppw),
+        "library_call": "sums @ colmask (TF32 off), the sum lane"}
 
     # L2 scatter_lanes: one 2^20-bid batch of the bid-aggregate job (a)
     # into its state: 10,000 auctions, hot ratio 4, 100 bids/ms
@@ -1291,6 +1347,7 @@ def profile_run(torch, run):
             "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
                                   if busy_ms > 0 else "not measured"),
             "device_ms_per_call": device_ms_per_call(by_name),
+            "device_ms_by_wrapper": device_ms_by_wrapper(by_name),
             "ranged_per_call": ranged_per_call(torch, prof.events()),
             "top_device_ms": dict(top)}
 
@@ -1341,6 +1398,18 @@ def profile_devgen(torch, np, conf_path, cfg):
         torch, np, Configuration.from_file(conf_path), cfg,
         "q5-devgen-profiled")[3])
     return {"logical_batches": cfg.n_batches, **out}
+
+
+def device_ms_by_wrapper(by_name):
+    """Each wrapper's CUDA kernels' device ms over the profiled run."""
+    out = {}
+    for name, kernels in PROFILED_KERNELS.items():
+        ms = sum(v["device_ms"] for k, v in by_name.items()
+                 if any(f"::{kn}(" in k or f"::{kn}<" in k
+                        or k.startswith(kn + "(") for kn in kernels))
+        if ms:
+            out[name] = ms
+    return out
 
 
 def device_ms_per_call(by_name):
@@ -2055,10 +2124,11 @@ def bids_cfg(n_batches, n_auctions=10_000):
 
 
 def run_window_job(torch, np, source, window, agg, label, top=None,
-                   ooo_ms=1_000):
+                   ooo_ms=1_000, shape=None):
     """A keyed-by-auction window job on ``source`` through
     ``env.execute()`` at confs/bench_q5_host_fed.conf: (rows as columns,
-    launches, JobResult, wall seconds)."""
+    launches, JobResult, wall seconds). ``shape`` adds a trigger or an
+    evictor to the windowed stream."""
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
     from flink_tpu_torch.config import Configuration
@@ -2068,9 +2138,12 @@ def run_window_job(torch, np, source, window, agg, label, top=None,
     env = StreamExecutionEnvironment(Configuration.from_file(
         os.path.join(ROOT, "confs", "bench_q5_host_fed.conf")))
     parts = []
-    stream = (env.from_source(
+    windowed = (env.from_source(
         source, WatermarkStrategy.for_bounded_out_of_orderness(ooo_ms))
-        .key_by("auction").window(window).aggregate(agg))
+        .key_by("auction").window(window))
+    if shape is not None:
+        windowed = shape(windowed)
+    stream = windowed.aggregate(agg)
     if top is not None:
         stream = stream.top(top[1], by=top[0])
     stream.add_sink(FnSink(lambda b: parts.append(
@@ -2325,6 +2398,323 @@ def phase_q5_spill(torch, np):
     return launches, prof["device_ms_per_call"]
 
 
+def exact_bits(torch, a, b) -> bool:
+    """Equal shapes and equal bits (NaN payloads and signs included)."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def job_e_survivors(np, data):
+    """One 10 s window of job E at its fire: each auction's last
+    ``E_KEEP`` bids in arrival order, grouped by auction (ascending).
+    Returns (lengths, indices of the survivors into the batch)."""
+    keep = E_KEEP
+    a = data["auction"]
+    order = np.argsort(a, kind="stable")
+    n = np.bincount(a)
+    lens = np.minimum(n[n > 0], keep)
+    start = np.concatenate([[0], np.cumsum(n[n > 0])[:-1]])
+    pos = np.arange(len(a)) - np.repeat(start, n[n > 0])
+    survive = pos >= np.repeat(n[n > 0] - lens, n[n > 0])
+    return lens, order[survive]
+
+
+def element_kernel_cases(torch, np, dev, record, out):
+    """segment_lanes against its plain version on the card, bit for bit,
+    at job E's shape: one fire of a 10 s window (one batch of 2^20 bids,
+    ~10,000 auctions, each keeping its last 100 bids: ~750k survivors),
+    the lanes of ``multi(count(), avg_of("price"), max_of("price"))``
+    lifted on the card; then an edge case with planted +/-NaN (payloads),
+    +/-inf and +/-0 in every lane, one-element segments and a
+    5,000-element one. Its library yardstick: one
+    ``torch.segment_reduce`` sum over the sum lane (``index_add_`` by
+    segment id where that call is missing)."""
+    from flink_tpu_torch.kernels import element_kernels as ek
+    from flink_tpu_torch.nexmark.generator import bid_batch
+    from flink_tpu_torch.ops import aggregates as ta
+
+    data, _ = bid_batch(bids_cfg(1), 0, 2)
+    lens, idx = job_e_survivors(np, data)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    agg = ta.multi(ta.count(), ta.avg_of("price"), ta.max_of("price"))
+    price = torch.from_numpy(data["price"][idx]).to(dev)
+    s, mx, mn = agg.lift_masked({"price": price},
+                                torch.ones(len(idx), dtype=torch.bool,
+                                           device=dev))
+    off_t = torch.from_numpy(offsets).to(dev)
+    args = (off_t, s.contiguous(), mx.contiguous(), mn.contiguous())
+    got = ek.segment_lanes(*args)
+    plain = ek.segment_lanes_plain(*args)
+    torch.cuda.synchronize()
+    check(all(exact_bits(torch, x, y) for x, y in zip(got, plain)),
+          "segment_lanes differs from its plain version at job E's shape")
+    check(got[3].cpu().numpy().tolist() == lens.tolist(),
+          "segment_lanes counts differ from the segment lengths")
+    n_seg, n_el = len(lens), len(idx)
+    lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
+    try:
+        lib = torch.segment_reduce(args[1], "sum", lengths=lens_t, axis=0)
+        lib_call = "torch.segment_reduce(sums, 'sum', lengths=...)"
+
+        def lib_fn():
+            return torch.segment_reduce(args[1], "sum", lengths=lens_t, axis=0)
+    except (AttributeError, RuntimeError, NotImplementedError):
+        seg_id = torch.repeat_interleave(
+            torch.arange(n_seg, device=dev), lens_t)
+        lib_call = "zeros(W, S).index_add_(0, segment id, sums)"
+
+        def lib_fn():
+            return torch.zeros((n_seg, 1), device=dev).index_add_(
+                0, seg_id, args[1])
+        lib = lib_fn()
+    bound = (2.0 * lens_t[:, None] + 4) * 2.0 ** -24 * got[0]
+    check(bool(((lib - got[0]).abs() <= bound).all()),
+          "the library yardstick does not compute segment_lanes' sums")
+    widths = sum(t.shape[1] for t in args[1:])
+    record("segment_lanes", "flink_tpu/api/datastream.py:443", 0,
+           time_ms(torch, lambda: ek.segment_lanes(*args)),
+           time_ms(torch, lambda: ek.segment_lanes_plain(*args), iters=3,
+                   warmup=1),
+           time_ms(torch, lib_fn),
+           n_el * widths * 4 + (n_seg + 1) * 8 + n_seg * (widths + 1) * 4,
+           n_el * widths, source="element_kernels.cu")
+    out[-1]["library_call"] = lib_call
+    out[-1]["segments"], out[-1]["elements"] = n_seg, n_el
+
+    # the edge case: every lane the same planted column
+    rng = np.random.default_rng(SEED + 7)
+    e_lens = rng.integers(1, 40, 300)
+    e_lens[[3, 10, 200]] = [1, 5000, 1]
+    e_off = np.concatenate([[0], np.cumsum(e_lens)]).astype(np.int64)
+    x = (rng.random(int(e_off[-1])) * 200 - 100).astype(np.float32)
+    bits = x.view(np.uint32)
+    plant = {0: [0x7FC00005], 1: [0xFFC0004D], 2: [0x7F800000, 0xFF800000],
+             4: [0x00000000, 0x80000000], 5: [0x80000000], 10: [0x7FC00063,
+             0x7F800000, 0x80000000, 0xFFC00001]}
+    for w, vals in plant.items():
+        pos = e_off[w] + np.linspace(0, e_lens[w] - 1, len(vals)).astype(int)
+        bits[pos] = vals
+    bits[e_off[7]:e_off[8]] = 0x80000000          # a segment of -0 only
+    xt = torch.from_numpy(x)[:, None].to(dev)
+    e_args = (torch.from_numpy(e_off).to(dev), xt, xt, xt)
+    got_e = ek.segment_lanes(*e_args)
+    plain_e = ek.segment_lanes_plain(*e_args)
+    torch.cuda.synchronize()
+    check(all(exact_bits(torch, a, b) for a, b in zip(got_e, plain_e)),
+          "segment_lanes differs from its plain version on the edge case")
+    mxb = got_e[1][:, 0].cpu().view(torch.int32).numpy().view(np.uint32)
+    mnb = got_e[2][:, 0].cpu().view(torch.int32).numpy().view(np.uint32)
+    check(mxb[0] == mnb[0] == 0x7FC00005 and mxb[1] == mnb[1] == 0xFFC0004D
+          and mxb[10] == 0xFFC00001 and mnb[10] == 0x7FC00063
+          and mxb[7] == mnb[7] == 0x80000000,
+          "segment_lanes' NaN or signed-zero rule is not the reference's")
+    return {"segment_lanes_job_e": {"segments": n_seg, "elements": n_el},
+            "segment_lanes_edge": {"segments": len(e_lens),
+                                   "longest": int(e_lens.max())}}
+
+
+def element_golden(np, n_batches):
+    """Job E's and E2's input grouped by (auction, 10 s window) in arrival
+    order: (cell id of each group, group starts, lengths, prices in
+    group order, number of windows)."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    parts = [bid_batch(bids_cfg(n_batches), 0, i) for i in range(n_batches)]
+    a = np.concatenate([d["auction"] for d, _ in parts])
+    ts = np.concatenate([t for _, t in parts])
+    price = np.concatenate([d["price"] for d, _ in parts])
+    n_w = int(ts.max()) // 10_000 + 1
+    cell = a * n_w + ts // 10_000
+    order = np.argsort(cell, kind="stable")
+    cells, start, lens = np.unique(cell[order], return_index=True,
+                                   return_counts=True)
+    return cells, start, lens, price[order], n_w
+
+
+def check_job_e(np, rows, n_batches, label):
+    """Each (auction, window) once, with its last ``E_KEEP`` bids: count
+    and max exactly, the average within ``agg_rel_bound``."""
+    keep = E_KEEP
+    cells, start, lens, price, n_w = element_golden(np, n_batches)
+    c = rows["key"].astype(np.int64) * n_w + rows["window_start"] // 10_000
+    check(len(np.unique(c)) == len(c), f"{label}: duplicate rows")
+    check(np.array_equal(np.sort(c), cells),
+          f"{label}: {len(c)} rows, expected {len(cells)}")
+    g = np.searchsorted(cells, c)
+    n = np.minimum(lens, keep)
+    pos = np.arange(len(price)) - np.repeat(start, lens)
+    surv = pos >= np.repeat(lens - n, lens)
+    grp = np.repeat(np.arange(len(cells)), lens)[surv]
+    tot = np.bincount(grp, weights=price[surv].astype(np.float64))
+    mx = np.full(len(cells), -np.inf, np.float32)
+    np.maximum.at(mx, grp, price[surv])
+    check(np.array_equal(rows["count"], n[g]), f"{label}: counts differ")
+    check(np.array_equal(rows["max_price"], mx[g]), f"{label}: max differs")
+    want = tot[g] / n[g]
+    rel = np.abs(rows["avg_price"].astype(np.float64) - want) / want
+    check(bool((rel <= agg_rel_bound(n[g])).all()),
+          f"{label}: averages outside the bound")
+    return int(n.sum()), float(rel.max())
+
+
+def check_job_e2(np, rows, n_batches, label):
+    """A row for each (auction, window) at each ``E2_EVERY``-th bid, over
+    the prefix so far: count and min exactly, the sum within
+    ``agg_rel_bound``."""
+    every = E2_EVERY
+    cells, start, lens, price, n_w = element_golden(np, n_batches)
+    want = {}
+    for g in np.flatnonzero(lens >= every).tolist():
+        p = price[start[g]:start[g] + lens[g]]
+        for j in range(every, int(lens[g]) + 1, every):
+            want[(int(cells[g]), j)] = (float(p[:j].astype(np.float64).sum()),
+                                        p[:j].min())
+    c = rows["key"].astype(np.int64) * n_w + rows["window_start"] // 10_000
+    got = list(zip(c.tolist(), rows["count"].tolist()))
+    check(len(set(got)) == len(got) and set(got) == set(want),
+          f"{label}: {len(got)} fires, expected {len(want)}")
+    share = 0.0
+    for (cg, j), s_, m_ in zip(got, rows["sum_price"].tolist(),
+                               rows["min_price"].tolist()):
+        ws, wm = want[(cg, j)]
+        check(np.float32(m_) == wm, f"{label}: min differs")
+        share = max(share, abs(s_ - ws) / (agg_rel_bound(j) * ws))
+    check(share <= 1.0, f"{label}: sums outside the bound")
+    return len(want), share
+
+
+def run_job_e(torch, np, n_batches, label):
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.evicting_window import CountEvictor
+
+    return run_window_job(
+        torch, np, bid_stream(bids_cfg(n_batches)),
+        TumblingEventTimeWindows.of(10_000),
+        ta.multi(ta.count(), ta.avg_of("price"), ta.max_of("price")), label,
+        shape=lambda ws: ws.evictor(CountEvictor.of(E_KEEP)))
+
+
+def run_job_e2(torch, np, n_batches, label):
+    from flink_tpu_torch.api.windowing import (
+        CountTrigger, TumblingEventTimeWindows)
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.ops import aggregates as ta
+
+    return run_window_job(
+        torch, np, bid_stream(bids_cfg(n_batches)),
+        TumblingEventTimeWindows.of(10_000),
+        ta.multi(ta.count(), ta.sum_of("price"), ta.min_of("price")), label,
+        shape=lambda ws: ws.trigger(CountTrigger.of(E2_EVERY)))
+
+
+def phase_element_window(torch, np):
+    """Jobs E (count evictor) and E2 (count trigger) on the element path,
+    each against its numpy golden; segment_lanes must have launched."""
+    out = {"phase": "element_window", "conf": "confs/bench_q5_host_fed.conf",
+           "rel_bound": "(2 * count + 34) * 2^-24"}
+    per_call, launches_e = {}, None
+    jobs = (("E", run_job_e, ELEMENT_BATCHES, check_job_e,
+             "key_by(auction).window(10 s tumbling).evictor(CountEvictor"
+             ".of(100)).aggregate(multi(count(), avg_of(price), "
+             "max_of(price)))"),
+            ("E2", run_job_e2, ELEMENT_TRIGGER_BATCHES, check_job_e2,
+             "key_by(auction).window(10 s tumbling).trigger(CountTrigger"
+             ".of(1000)).aggregate(multi(count(), sum_of(price), "
+             "min_of(price)))"))
+    runs = []
+    for name, run, n_batches, _, job in jobs:
+        run(torch, np, 1, f"element-{name}-warmup")
+        rows, launches, res, wall = run(torch, np, n_batches, f"element-{name}")
+        check(launches["segment_lanes"] > 0,
+              f"job {name}: segment_lanes never launched")
+        check(int(res.metrics["late_records"]) == 0,
+              f"job {name}: late records")
+        prof = profile_run(torch, lambda: run(
+            torch, np, ELEMENT_SIDE_BATCHES, f"element-{name}-profiled")[3])
+        for k, v in prof["device_ms_per_call"].items():
+            per_call.setdefault(k, v)
+        launches_e = launches_e or launches
+        runs.append((name, n_batches, rows, launches, res, wall, prof, job))
+    # the goldens' numpy work comes after the timed runs
+    for (name, n_batches, rows, launches, res, wall, prof, job), \
+            (_, _, _, check_fn, _) in zip(runs, jobs):
+        reduced, worst = check_fn(np, rows, n_batches, f"job {name}")
+        busy_ms = prof["device_busy_ms"]
+        out[name] = {
+            "job": job,
+            **phase_summary(len(rows["key"]), launches, res, wall,
+                            Q5_BATCH * n_batches, n_batches, prof),
+            "windows": int(len(np.unique(rows["window_end"]))),
+            ("elements_reduced" if name == "E" else "fires"): reduced,
+            ("max_rel_err" if name == "E" else "max_share_of_sum_bound"): worst,
+            "segment_lanes_share_of_device_ms": (
+                prof["device_ms_by_wrapper"].get("segment_lanes", 0.0)
+                / busy_ms if busy_ms else "not measured"),
+            "host_s": {k: v for k, v in res.metrics.items()
+                       if k.startswith("profile.") and "op" in k}}
+        out[name]["profiled"]["batches"] = ELEMENT_SIDE_BATCHES
+    out["card"] = card_line()
+    emit(out)
+    return launches_e, per_call
+
+
+def run_proc_time(torch, np, n_batches, label):
+    from flink_tpu_torch.api.windowing import TumblingProcessingTimeWindows
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.ops import aggregates as ta
+
+    return run_window_job(
+        torch, np, bid_stream(bids_cfg(n_batches)),
+        TumblingProcessingTimeWindows.of(1_000), ta.count(), label)
+
+
+# the kernels job P's path launches: the native lane's pair apply (every
+# record of a batch takes the clock's one pane), the packed fire and the
+# purge
+PROC_TIME_KERNELS = ("apply_pairs_u32", "fire_pack", "ring_columns")
+
+
+def phase_proc_time(torch, np):
+    """Job P: Q5's count by auction over 1 s processing-time windows on
+    16 batches of 2^20 host-fed bids: each auction's counts add up to its
+    bids, each (auction, window) fires once."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    run_proc_time(torch, np, 2, "proc-time-warmup")
+    rows, launches, res, wall = run_proc_time(torch, np, PROC_BATCHES,
+                                              "proc-time")
+    missing = [k for k in PROC_TIME_KERNELS if launches[k] == 0]
+    check(not missing, f"proc_time: kernels not launched: {missing}")
+    prof = profile_run(torch, lambda: run_proc_time(
+        torch, np, SIDE_BATCHES, "proc-time-profiled")[3])
+    cfg = bids_cfg(PROC_BATCHES)
+    want = np.zeros(cfg.num_active_auctions, np.int64)
+    for i in range(PROC_BATCHES):
+        want += np.bincount(bid_batch(cfg, 0, i)[0]["auction"],
+                            minlength=cfg.num_active_auctions)
+    a = rows["key"].astype(np.int64)
+    pairs = set(zip(a.tolist(), rows["window_start"].tolist()))
+    check(len(pairs) == len(a), "proc_time: an (auction, window) fired twice")
+    got = np.bincount(a, weights=rows["count"],
+                      minlength=cfg.num_active_auctions).astype(np.int64)
+    check(np.array_equal(got, want),
+          "proc_time: an auction's counts do not add up to its bids")
+    out = {"phase": "proc_time", "conf": "confs/bench_q5_host_fed.conf",
+           "job": "key_by(auction).window(TumblingProcessingTimeWindows"
+                  ".of(1 s)).count()",
+           "kernels_on_path": list(PROC_TIME_KERNELS),
+           **phase_summary(len(a), launches, res, wall,
+                           Q5_BATCH * PROC_BATCHES, PROC_BATCHES, prof),
+           "windows": int(len(np.unique(rows["window_start"]))),
+           "card": card_line()}
+    emit(out)
+    return launches, prof["device_ms_per_call"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2349,19 +2739,23 @@ def main() -> int:
         topn_lanes, tl_per_call = phase_topn_lanes(torch, np)
         changelog, cl_per_call = phase_changelog(torch, np)
         q5_spill, sp_per_call = phase_q5_spill(torch, np)
+        element, el_per_call = phase_element_window(torch, np)
+        proc_time, pt_per_call = phase_proc_time(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
                  "bid_aggs_b": aggs["b"], "window_wordcount": window_wc,
                  "topn_lanes": topn_lanes, "changelog": changelog,
-                 "q5_spill": q5_spill}
+                 "q5_spill": q5_spill, "element_window": element,
+                 "proc_time": proc_time}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
         # lane, apply_pairs_u16 on its hot keys; apply_pairs_u32 and
         # fire_pack on WordCount; the two lane scatters and the split
         # upload's decode on their bid-aggregate job; count_fire on
-        # WindowWordCount; the top-n lane kernels on job T's first run
+        # WindowWordCount; the top-n lane kernels on job T's first run;
+        # segment_lanes on job E
         own_path = {"scatter_counts": "q5_numpy_lane",
                     "fused_step": "q5_host_fed",
                     "apply_pairs_u16": "q5_hot_keys",
@@ -2371,7 +2765,8 @@ def main() -> int:
                     "split_cells": "bid_aggs_a",
                     "count_fire": "window_wordcount",
                     "window_lanes": "topn_lanes",
-                    "topn_select_lanes": "topn_lanes"}
+                    "topn_select_lanes": "topn_lanes",
+                    "segment_lanes": "element_window"}
         for row in table:
             name = row["name"]
             # device time per call inside the profiled pipeline runs (the
@@ -2383,7 +2778,9 @@ def main() -> int:
                                          or ww_per_call.get(name)
                                          or tl_per_call.get(name)
                                          or cl_per_call.get(name)
-                                         or sp_per_call.get(name))
+                                         or sp_per_call.get(name)
+                                         or el_per_call.get(name)
+                                         or pt_per_call.get(name))
             path = own_path.get(name, "q5_devgen")
             row["launches"] = paths[path][name] or host_fed[name]
             row["launches_path"] = path

@@ -1,25 +1,35 @@
 """The fluent DataStream API: each call appends a transformation;
 nothing runs until ``StreamExecutionEnvironment.execute()``. The port
-has map, key_by, window (with allowed_lateness), count_window,
-count/sum/max/min/aggregate, top and add_sink. ``aggregate`` takes a
-``LaneAggregate``; a user ``AggregateFunction`` goes through
-``ops.aggregates.lower_aggregate`` first, as in the JAX package.
-Triggers and the other operators are in ROADMAP.md."""
+has map, map_with_timestamps, filter, flat_map,
+assign_timestamps_and_watermarks, union, key_by (a column or a key
+function), print, collect and add_sink; window (with allowed_lateness,
+trigger and evictor), count_window, count/sum/max/min/aggregate, apply
+and top. ``aggregate`` takes a ``LaneAggregate``; a user
+``AggregateFunction`` goes through ``ops.aggregates.lower_aggregate``
+first, as in the JAX package. An evictor, or a trigger outside the pane
+kernels' families, routes a window onto the element path
+(``ops/evicting_window.py``). The partitioners, async I/O, connect,
+sessions and window_all are in ROADMAP.md."""
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Union
+
+import numpy as np
 
 from flink_tpu_torch.api.functions import as_batch_fn
-from flink_tpu_torch.api.windowing import WindowAssigner
+from flink_tpu_torch.api.windowing import Trigger, WindowAssigner
 from flink_tpu_torch.graph.transformations import (
     CountWindowAggregateTransformation,
+    EvictingWindowTransformation,
     KeyByTransformation,
     MapTransformation,
     SinkTransformation,
     Transformation,
+    UnionTransformation,
     WindowAggregateTransformation,
 )
 from flink_tpu_torch.ops.aggregates import LaneAggregate
+from flink_tpu_torch.time.watermarks import WatermarkStrategy
 
 
 class DataStream:
@@ -37,18 +47,74 @@ class DataStream:
 
         return self._append(MapTransformation(name, (self.transform,), fn=op))
 
-    def key_by(self, key: str, name: str = "keyBy") -> "KeyedStream":
-        """Key by an int64 column."""
-        if not isinstance(key, str):
-            raise NotImplementedError(
-                "key_by with a key function is not ported yet (ROADMAP.md); "
-                "pass an int64 column name")
-        t = KeyByTransformation(name, (self.transform,), key_field=key)
+    def map_with_timestamps(self, fn: Callable,
+                            name: str = "map_ts") -> "DataStream":
+        """``fn(data, ts, valid) -> (data, ts, valid)``: a map that may
+        also rewrite the timestamps and the valid mask."""
+        return self._append(MapTransformation(name, (self.transform,), fn=fn))
+
+    def filter(self, pred: Callable, name: str = "filter") -> "DataStream":
+        """``pred(data) -> (B,) bool``, ANDed into the valid mask."""
+
+        def op(data, ts, valid):
+            return data, ts, valid & np.asarray(pred(data), bool)
+
+        return self._append(MapTransformation(name, (self.transform,), fn=op,
+                                              kind="filter"))
+
+    def flat_map(self, fn: Callable, name: str = "flat_map") -> "DataStream":
+        """``fn(data, ts, valid) -> (data', ts', valid')`` of any length;
+        runs on the host like every chain function."""
+        return self._append(MapTransformation(name, (self.transform,), fn=fn,
+                                              kind="flatmap"))
+
+    def assign_timestamps_and_watermarks(
+            self, strategy: WatermarkStrategy, ts_field: Optional[str] = None,
+            name: str = "assign_ts") -> "DataStream":
+        """Set the job's watermark strategy; with ``ts_field`` the records'
+        timestamps are re-read from that column."""
+        self.env._watermark_strategy = strategy
+        if ts_field is None:
+            return self
+
+        def op(data, ts, valid):
+            return data, np.asarray(data[ts_field]).astype(np.int64), valid
+
+        return self._append(MapTransformation(name, (self.transform,), fn=op))
+
+    def union(self, *others: "DataStream") -> "DataStream":
+        inputs = (self.transform,) + tuple(o.transform for o in others)
+        return self._append(UnionTransformation("union", inputs))
+
+    def key_by(self, key: Union[str, Callable],
+               name: str = "keyBy") -> "KeyedStream":
+        """Key by an int64 column, or by ``key(data) -> (B,)`` int64,
+        written to a column of the keyBy's own (two keyBys off one
+        stream never share it)."""
+        if callable(key):
+            t = KeyByTransformation(name, (self.transform,), key_fn=key)
+            t.key_field = f"__key_{t.id}__"
+        else:
+            t = KeyByTransformation(name, (self.transform,), key_field=key)
         self.env._register(t)
         return KeyedStream(self.env, t)
 
     def add_sink(self, sink: Any, name: str = "sink") -> "DataStream":
         return self._append(SinkTransformation(name, (self.transform,), sink=sink))
+
+    def print(self, prefix: str = "", limit: Optional[int] = None) -> "DataStream":
+        from flink_tpu_torch.api.sinks import PrintSink
+
+        return self.add_sink(PrintSink(prefix, limit), name="print")
+
+    def collect(self):
+        """Attach a ``CollectSink`` and return it; its rows fill during
+        ``execute()``."""
+        from flink_tpu_torch.api.sinks import CollectSink
+
+        sink = CollectSink()
+        self.add_sink(sink, name="collect")
+        return sink
 
     def _append(self, t: Transformation) -> "DataStream":
         self.env._register(t)
@@ -97,6 +163,8 @@ class WindowedStream(_AggregateShortcuts):
         self.keyed = keyed
         self.assigner = assigner
         self._lateness = 0
+        self._trigger: Optional[Trigger] = None
+        self._evictor = None
 
     def allowed_lateness(self, ms: int) -> "WindowedStream":
         """Keep each window's state ``ms`` past its end: a late record
@@ -104,14 +172,132 @@ class WindowedStream(_AggregateShortcuts):
         self._lateness = ms
         return self
 
-    def aggregate(self, agg: LaneAggregate,
-                  name: str = "window_agg") -> "WindowedAggregateStream":
+    def trigger(self, trigger: Trigger) -> "WindowedStream":
+        self._trigger = trigger
+        return self
+
+    def evictor(self, evictor) -> "WindowedStream":
+        """Evict before the window function: routes the window onto the
+        element path, which keeps the window's elements until it fires."""
+        self._evictor = evictor
+        return self
+
+    def _element_path(self) -> bool:
+        """Whether the window runs on the element path: an evictor is
+        set, or the trigger is outside the pane kernels' families (a
+        user trigger, a count trigger on time windows, a purging
+        event-time trigger with lateness)."""
+        from flink_tpu_torch.api.windowing import (
+            EventTimeTrigger, ProcessingTimeTrigger, PurgingTrigger)
+
+        if self._evictor is not None:
+            return True
+        t = self._trigger
+        if t is None or isinstance(t, (EventTimeTrigger, ProcessingTimeTrigger)):
+            return False
+        return not (isinstance(t, PurgingTrigger)
+                    and isinstance(t.inner, EventTimeTrigger)
+                    and self._lateness == 0)
+
+    def apply(self, window_fn, name: str = "evicting_window") -> DataStream:
+        """``window_fn(elements) -> row fields`` over each fired window's
+        surviving elements (field arrays plus ``__ts__``), on the
+        element path."""
+        self._check_element_path()
+        kt = self.keyed.transform
+        t = EvictingWindowTransformation(
+            name, (kt,), assigner=self.assigner, window_fn=window_fn,
+            trigger=self._trigger, evictor=self._evictor,
+            allowed_lateness_ms=self._lateness, key_field=kt.key_field)
+        self.keyed.env._register(t)
+        return DataStream(self.keyed.env, t)
+
+    def _check_element_path(self) -> None:
+        """The element path assigns and fires on event time: refuse a
+        processing-time assigner or trigger there."""
+        from flink_tpu_torch.api.windowing import (
+            ProcessingTimeTrigger, PurgingTrigger)
+
+        if self.assigner.is_processing_time:
+            raise NotImplementedError(
+                "processing-time window assigners are not supported on "
+                "the element-buffer (evictor/custom-trigger) path — it "
+                "assigns and fires on event time; use an event-time "
+                "assigner or drop the evictor/custom trigger")
+        t = self._trigger
+        inner = t.inner if isinstance(t, PurgingTrigger) else t
+        if isinstance(inner, ProcessingTimeTrigger):
+            raise NotImplementedError(
+                "ProcessingTimeTrigger is not supported on the element-"
+                "buffer (evictor/custom-trigger) path — fires are "
+                "driven by the event watermark there")
+
+    def _check_trigger(self) -> None:
+        """Refuse, at build time, a trigger and window pair the pane
+        kernels cannot run."""
+        from flink_tpu_torch.api.windowing import (
+            CountTrigger, EventTimeTrigger, ProcessingTimeTrigger,
+            PurgingTrigger)
+
+        proc = self.assigner.is_processing_time
+        if proc and self._lateness:
+            raise NotImplementedError(
+                "allowed lateness is an event-time concept; processing-"
+                "time windows cannot see late records")
+        t = self._trigger
+        if isinstance(t, ProcessingTimeTrigger):
+            if proc:
+                return  # the processing-time assigners' default trigger
+            raise NotImplementedError(
+                "ProcessingTimeTrigger requires a processing-time window "
+                "assigner (Tumbling/SlidingProcessingTimeWindows)")
+        if proc and isinstance(t, EventTimeTrigger):
+            raise NotImplementedError(
+                "EventTimeTrigger on processing-time windows is not "
+                "supported — the window's time axis is the clock")
+        if t is None or isinstance(t, EventTimeTrigger):
+            return
+        if isinstance(t, PurgingTrigger) and isinstance(t.inner,
+                                                        EventTimeTrigger):
+            # with no lateness the state is purged at the fire anyway
+            if self._lateness == 0:
+                return
+            raise NotImplementedError(
+                "PurgingTrigger(EventTimeTrigger) with allowed lateness "
+                "> 0 is not supported (late records would need "
+                "fresh-state semantics); drop the lateness or the "
+                "purging wrapper")
+        inner = t.inner if isinstance(t, PurgingTrigger) else t
+        if isinstance(inner, CountTrigger):
+            raise NotImplementedError(
+                "count triggers on time windows are not supported; use "
+                "key_by(...).count_window(n)")
+        raise NotImplementedError(
+            f"unsupported trigger {type(t).__name__} for time windows")
+
+    def aggregate(self, agg: LaneAggregate, name: str = "window_agg"):
+        """A ``WindowedAggregateStream`` over the pane kernels, or, on the
+        element path, a ``DataStream`` whose windows reduce through
+        ``segment_lanes``."""
+        if self._element_path():
+            return self.apply(_element_window_fn(agg), name=name)
+        self._check_trigger()
         kt = self.keyed.transform
         t = WindowAggregateTransformation(
             name, (kt,), assigner=self.assigner, aggregate=agg,
-            key_field=kt.key_field, allowed_lateness_ms=self._lateness)
+            key_field=kt.key_field, allowed_lateness_ms=self._lateness,
+            trigger=self._trigger)
         self.keyed.env._register(t)
         return WindowedAggregateStream(self.keyed.env, t)
+
+
+def _element_window_fn(agg: LaneAggregate):
+    """A lane aggregate as the element path's window function: the
+    operator recognises it and reduces all pending fires' survivors in
+    one ``segment_lanes`` launch, then finalizes them on the grid."""
+    from flink_tpu_torch.ops.evicting_window import ElementAggregate
+
+    return ElementAggregate(agg)
 
 
 class CountWindowedStream(_AggregateShortcuts):

@@ -1,8 +1,9 @@
 """User functions: the map path, and incremental aggregation. A map is
-a batch function over a dict of field → (B,) numpy arrays; an
+a batch function over a dict of field → (B,) numpy arrays (filters and
+flat maps are batch functions too, see ``api/datastream.py``); an
 ``AggregateFunction`` lowers to lanes through
-``ops.aggregates.lower_aggregate``. Per-record functions, filters, flat
-maps and reduce functions are in ROADMAP.md."""
+``ops.aggregates.lower_aggregate``. Per-record functions and reduce
+functions are in ROADMAP.md."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Union

@@ -4,7 +4,7 @@ ROADMAP.md with checkpointing."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -33,6 +33,22 @@ class CollectSink(Sink):
 
     def write(self, batch: Dict[str, np.ndarray]) -> None:
         self.rows.extend(rows_of(batch))
+
+
+@dataclasses.dataclass
+class PrintSink(Sink):
+    """Print each row as ``prefix`` + its dict, up to ``limit`` rows."""
+
+    prefix: str = ""
+    limit: Optional[int] = None
+    _printed: int = 0
+
+    def write(self, batch: Dict[str, np.ndarray]) -> None:
+        for row in rows_of(batch):
+            if self.limit is not None and self._printed >= self.limit:
+                return
+            print(f"{self.prefix}{row}")
+            self._printed += 1
 
 
 @dataclasses.dataclass

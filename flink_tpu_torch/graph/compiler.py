@@ -1,20 +1,26 @@
 """Lower the transformation DAG to the plan the driver walks per batch:
-source → chain (fused host map functions) → window or count window →
-chain → sink. KeyBy folds into the window node that consumes it. A
-transformation the port does not have yet raises, naming its
+source → chain (fused host map, filter and flat-map functions) → window,
+element-path window or count window → chain → sink, with union nodes
+merging streams. KeyBy folds into the window node that consumes it; a
+key function becomes a chain function that writes the derived key
+column. A transformation the port does not have yet raises, naming its
 ROADMAP.md item."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
+
 from flink_tpu_torch.graph.transformations import (
     CountWindowAggregateTransformation,
+    EvictingWindowTransformation,
     KeyByTransformation,
     MapTransformation,
     SinkTransformation,
     SourceTransformation,
     Transformation,
+    UnionTransformation,
     WindowAggregateTransformation,
 )
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
@@ -23,7 +29,8 @@ from flink_tpu_torch.time.watermarks import WatermarkStrategy
 @dataclasses.dataclass
 class ExecNode:
     id: int
-    kind: str                 # source | chain | window | count_window | sink
+    # source | chain | union | window | evicting_window | count_window | sink
+    kind: str
     downstream: List[int] = dataclasses.field(default_factory=list)
     source: Any = None
     watermark_strategy: Optional[WatermarkStrategy] = None
@@ -77,13 +84,32 @@ def compile_job(transforms: Sequence[Transformation],
         elif isinstance(t, KeyByTransformation):
             up = node_for(t.inputs[0])
             t2node[t.id] = up
-            return up
-        elif isinstance(t, WindowAggregateTransformation):
+            if t.key_fn is None:
+                return up
+
+            # the key column, written by a chain function: fused into the
+            # upstream chain when this keyBy is its only consumer (a
+            # sibling branch must not see the column), else its own node
+            def add_key(data, ts, valid, _fn=t.key_fn, _kf=t.key_field):
+                data = dict(data)
+                data[_kf] = np.asarray(_fn(data), np.int64)
+                return data, ts, valid
+
+            upn = nodes[up]
+            if upn.kind == "chain" and len(consumers.get(t.inputs[0].id, [])) == 1:
+                upn.fns.append(add_key)
+                return up
+            n = new_node("chain", "key_extract", fns=[add_key])
+            upn.downstream.append(n.id)
+        elif isinstance(t, (WindowAggregateTransformation,
+                            EvictingWindowTransformation)):
             if not isinstance(t.inputs[0], KeyByTransformation):
                 raise NotImplementedError(
                     "a window aggregate must follow key_by in this port")
             up = node_for(t.inputs[0])
-            n = new_node("window", t.name, window_transform=t,
+            kind = ("window" if isinstance(t, WindowAggregateTransformation)
+                    else "evicting_window")
+            n = new_node(kind, t.name, window_transform=t,
                          key_field=t.key_field)
             nodes[up].downstream.append(n.id)
         elif isinstance(t, CountWindowAggregateTransformation):
@@ -98,6 +124,10 @@ def compile_job(transforms: Sequence[Transformation],
             up = node_for(t.inputs[0])
             n = new_node("sink", t.name, sink=t.sink)
             nodes[up].downstream.append(n.id)
+        elif isinstance(t, UnionTransformation):
+            n = new_node("union", t.name)
+            for inp in t.inputs:
+                nodes[node_for(inp)].downstream.append(n.id)
         else:
             raise NotImplementedError(
                 f"transformation {type(t).__name__} is not ported yet "
@@ -111,7 +141,7 @@ def compile_job(transforms: Sequence[Transformation],
     if not sources:
         raise ValueError("job has no sources")
     if not any(n.kind == "sink" for n in nodes.values()):
-        raise ValueError("job has no sinks (add_sink/collect)")
+        raise ValueError("job has no sinks (add_sink/print/collect)")
     return ExecutionPlan(nodes=nodes, sources=sources,
                          topo_order=_topo_order(nodes),
                          watermark_strategy=default_wm)

@@ -6,7 +6,7 @@ import dataclasses
 import itertools
 from typing import Any, Callable, Optional, Tuple
 
-from flink_tpu_torch.api.windowing import WindowAssigner
+from flink_tpu_torch.api.windowing import Trigger, WindowAssigner
 from flink_tpu_torch.ops.aggregates import LaneAggregate
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
 
@@ -36,7 +36,8 @@ class SourceTransformation(Transformation):
 
 @dataclasses.dataclass(eq=False)
 class MapTransformation(Transformation):
-    """fn(data, ts, valid) -> (data, ts, valid), run on the host."""
+    """fn(data, ts, valid) -> (data, ts, valid), run on the host; ``kind``
+    is map, filter or flatmap (all chain alike)."""
 
     fn: Optional[Callable] = None
     kind: str = "map"
@@ -44,9 +45,11 @@ class MapTransformation(Transformation):
 
 @dataclasses.dataclass(eq=False)
 class KeyByTransformation(Transformation):
-    """Hash partition by an int64 key column."""
+    """Hash partition by an int64 key column; ``key_fn(data) -> (B,)``
+    derives that column first when given."""
 
     key_field: str = "key"
+    key_fn: Optional[Callable] = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -60,6 +63,20 @@ class WindowAggregateTransformation(Transformation):
     key_field: str = "key"
     top_n: Optional[Tuple[str, int]] = None
     allowed_lateness_ms: int = 0
+    trigger: Optional[Trigger] = None
+
+
+@dataclasses.dataclass(eq=False)
+class EvictingWindowTransformation(Transformation):
+    """Keyed window with an evictor or a trigger outside the pane
+    kernels' families: the element path (``ops/evicting_window.py``)."""
+
+    assigner: Optional[WindowAssigner] = None
+    window_fn: Any = None        # fn(elements incl. __ts__) -> row, or ElementAggregate
+    trigger: Optional[Trigger] = None
+    evictor: Any = None
+    allowed_lateness_ms: int = 0
+    key_field: str = "key"
 
 
 @dataclasses.dataclass(eq=False)
@@ -76,3 +93,8 @@ class CountWindowAggregateTransformation(Transformation):
 @dataclasses.dataclass(eq=False)
 class SinkTransformation(Transformation):
     sink: Any = None
+
+
+@dataclasses.dataclass(eq=False)
+class UnionTransformation(Transformation):
+    """Merge of several streams with one schema."""

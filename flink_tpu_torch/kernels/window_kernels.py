@@ -20,7 +20,8 @@ the kernel, the plain version and the JAX reference agree bit for bit.
 The launch counts, the error word, the library loader and the argument
 checks here serve every kernel module of the port
 (``devgen_kernels.py``, ``lane_kernels.py``, ``fused_kernels.py``,
-``count_window_kernels.py`` and ``topn_lanes_kernels.py`` too).
+``count_window_kernels.py``, ``topn_lanes_kernels.py`` and
+``element_kernels.py`` too).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "count_fire": 0,
     "window_lanes": 0,
     "topn_select_lanes": 0,
+    "segment_lanes": 0,
 }
 
 
@@ -65,7 +67,8 @@ ERROR_BITS = {1: "scatter_counts: cell index outside counts",
               16: "scatter_pair_lanes: pair index outside the pane state",
               32: "fire_pack: more selected rows than the buffer holds",
               64: "split_cells: slot or ring column outside the state",
-              128: "count_fire: more fired rows than the buffer holds"}
+              128: "count_fire: more fired rows than the buffer holds",
+              256: "segment_lanes: offsets outside the lifted lanes"}
 _error_words: Dict[torch.device, torch.Tensor] = {}
 
 

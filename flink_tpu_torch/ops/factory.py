@@ -1,7 +1,7 @@
 """Operator factories: build the runtime operator of a plan node. The
-window and count-window operators are ported; the state backend
-(``hbm`` or ``spill``) and the drop policy reach them through the
-context."""
+window, element-path window and count-window operators are ported; the
+state backend (``hbm`` or ``spill``) and the drop policy reach them
+through the context."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,3 +59,12 @@ def _count_window_factory(node, ctx: OperatorBuildContext):
     )
     op.allow_drops = ctx.allow_drops
     return op
+
+
+def _evicting_window_factory(node, ctx: OperatorBuildContext):
+    from flink_tpu_torch.ops.evicting_window import EvictingWindowOperator
+
+    t = node.window_transform
+    return EvictingWindowOperator(
+        t.assigner, t.window_fn, trigger=t.trigger, evictor=t.evictor,
+        allowed_lateness_ms=t.allowed_lateness_ms, device=ctx.device)

@@ -62,7 +62,10 @@ Host control flow (watermark clock, ring bookkeeping, lateness, late
 re-firing, the key directory, the device-made ingest's stash, flush and
 reconciliation) mirrors ``flink_tpu/ops/window.py`` rule for rule, so
 both packages fire the same windows and emit the same rows in the same
-order. Processing time and the mesh are in ROADMAP.md.
+order. A processing-time assigner stamps each record with the
+operator's clock (``op.clock``, injectable) at ingest, and
+``advance_processing_time`` fires what the clock has passed, over the
+same kernels. The mesh is in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -90,6 +93,7 @@ from flink_tpu_torch.records import device_cast
 from flink_tpu_torch.state.keyed import (
     KeyDirectory, PaneState, PaneStateLayout, account_full_drop, init_state)
 from flink_tpu_torch.state.spill import HostSpillStore
+from flink_tpu_torch.time.clock import SystemProcessingTimeService
 from flink_tpu_torch.time.watermarks import LONG_MIN
 
 # host-fed advances fire in chunks of this many windows, each chunk one
@@ -495,11 +499,23 @@ class WindowOperator:
         fire_gate: bool = PipelineOptions.FIRE_GATE.default,
         device: "str | torch.device" = "cuda",
     ) -> None:
-        if getattr(assigner, "is_processing_time", False) \
-                or not getattr(assigner, "is_event_time", True):
+        # processing-time mode: records are stamped with the operator's
+        # clock at ingest and fires ride advance_processing_time — the
+        # same panes with the clock as the time axis, so nothing is late
+        # or out of order
+        self.uses_processing_time = bool(assigner.is_processing_time)
+        if not (assigner.is_event_time or self.uses_processing_time):
             raise NotImplementedError(
-                "only event-time window assigners are ported (processing-"
-                "time windows are in ROADMAP.md)")
+                f"{type(assigner).__name__} is not pane-decomposable: a "
+                "global window needs a count window or a trigger")
+        self.clock = None
+        if self.uses_processing_time:
+            self.clock = SystemProcessingTimeService()
+            if allowed_lateness_ms:
+                raise ValueError(
+                    "allowed lateness is event-time-only; processing-"
+                    "time windows cannot see late records")
+            max_out_of_orderness_ms = 0
         if agg.fields is None:
             raise NotImplementedError(
                 f"aggregate {agg.name!r} does not declare the record fields "
@@ -614,7 +630,10 @@ class WindowOperator:
                       data: Dict[str, np.ndarray],
                       valid: Optional[np.ndarray] = None) -> None:
         """Fold a batch in. Late-beyond-lateness rows are dropped and
-        counted; late-within-lateness rows schedule re-fires."""
+        counted; late-within-lateness rows schedule re-fires. In
+        processing-time mode every record takes the clock's time."""
+        if self.uses_processing_time:
+            ts = np.full(len(np.asarray(ts)), self.clock.now_ms(), np.int64)
         if (self._spill is None and self._preagg_lanes() == ()
                 and (valid is None or bool(np.all(valid)))
                 and self._process_batch_fused(keys, ts)):
@@ -1149,6 +1168,10 @@ class WindowOperator:
                 (st.mins, float("inf")), (st.counts, 0))
 
     # -- time path --------------------------------------------------------
+    def advance_processing_time(self) -> "FiredWindows":
+        """Fire the windows the processing-time clock has passed."""
+        return self.advance_watermark(self.clock.now_ms() - 1)
+
     def advance_watermark(self, wm: int) -> "FiredWindows":
         """Advance event time; fire newly complete windows plus pending
         re-fires; purge dead panes. Returns a lazy ``FiredWindows``."""
@@ -1540,7 +1563,7 @@ class WindowOperator:
         # miss repair's probe needs the C key table, as in the reference;
         # with spill the reference feeds the batches from the host too
         if self._topn is None or self._topn_lanes or self._spill is not None \
-                or self._preagg_lanes() != () \
+                or self._preagg_lanes() != () or self.uses_processing_time \
                 or self.plan.ring > 64 or not self.directory.native():
             return False
         d = getattr(spec, "key_domain", None)

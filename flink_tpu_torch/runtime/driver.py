@@ -20,7 +20,11 @@ watermark advance (its native lane's fused step); the end-of-input
 A count window (``count_window``) fires per batch, not per watermark:
 the driver takes its fires right after each batch and delivers them at
 once, and leaves it out of the watermark advance (it is blind to event
-time).
+time). An element-path window (``evicting_window``) fires both ways:
+per batch (its triggers, late re-fires) and on the watermark. A
+processing-time window ignores the event watermark: each pass fires
+what the operator's clock has passed, and the end of input fires
+everything seen.
 
 Fired windows are delivered from the same thread, in fire order: after
 every loop pass the driver polls the operators' emit rings for copies
@@ -51,6 +55,7 @@ PREFETCH_DEPTH = 2
 Batch = Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]  # data, ts, valid
 
 _FINAL = int(np.iinfo(np.int64).max)  # end-of-input watermark
+_STATEFUL = ("window", "evicting_window", "count_window")
 
 
 class Driver:
@@ -79,6 +84,12 @@ class Driver:
         self._base_inflight = int(
             config.get(PipelineOptions.MAX_INFLIGHT_STEPS))
         self._build_ops()
+        # a window feeding another stateful operator delivers each fire
+        # at once, as the reference does, so the next stage has the rows
+        # before its own watermark passes them
+        self._deliver_at_fire = any(
+            n.kind in _STATEFUL and self._reaches_stateful(n.id)
+            for n in plan.nodes.values())
         # source id -> (window node id, the source as chained, its
         # sub-batch factor)
         self._dev_chains: Dict[int, Tuple[int, DeviceGeneratorSource, int]] = {}
@@ -93,9 +104,23 @@ class Driver:
                 "only a device-made source chained into its window "
                 "operator runs sub-batches")
 
+    def _reaches_stateful(self, nid: int) -> bool:
+        todo = list(self.plan.node(nid).downstream)
+        seen = set()
+        while todo:
+            d = todo.pop()
+            if d in seen:
+                continue
+            seen.add(d)
+            if self.plan.node(d).kind in _STATEFUL:
+                return True
+            todo.extend(self.plan.node(d).downstream)
+        return False
+
     def _build_ops(self) -> None:
         from flink_tpu_torch.ops.factory import (
-            OperatorBuildContext, _count_window_factory, _window_factory)
+            OperatorBuildContext, _count_window_factory,
+            _evicting_window_factory, _window_factory)
 
         ooo = [self.plan.watermark_strategy.max_out_of_orderness_ms]
         for n in self.plan.nodes.values():
@@ -118,6 +143,8 @@ class Driver:
                 self._ops[n.id] = _window_factory(n, ctx)
             elif n.kind == "count_window":
                 self._ops[n.id] = _count_window_factory(n, ctx)
+            elif n.kind == "evicting_window":
+                self._ops[n.id] = _evicting_window_factory(n, ctx)
 
     def _maybe_chain_device_source(self, sid: int, n) -> None:
         """Chain a device-made source into its consuming window operator
@@ -274,12 +301,18 @@ class Driver:
             for fn in n.fns:
                 data, ts, valid = fn(data, ts, valid)
             self._push_downstream(nid, (data, ts, valid))
+        elif n.kind == "union":
+            self._push_downstream(nid, batch)
         elif n.kind == "window":
             keys = np.asarray(data[n.key_field], np.int64)
             self._ops[nid].process_batch(keys, ts, data, valid)
-        elif n.kind == "count_window":
+        elif n.kind in ("count_window", "evicting_window"):
             op = self._ops[nid]
             keys = np.asarray(data[n.key_field], np.int64)
+            if n.kind == "evicting_window":
+                # the element buffers keep the numeric columns only
+                data = {k: v for k, v in data.items()
+                        if np.asarray(v).dtype != object}
             op.process_batch(keys, ts, data, valid)
             fired = op.take_fired()
             if fired is not None:
@@ -305,11 +338,22 @@ class Driver:
             in_wm = min(self._out_wm[u] for u in ups) if ups else LONG_MIN
             # count_window is left out: it fires per batch, and an
             # advance would only queue empty fires
-            if n.kind == "window":
+            if n.kind in ("window", "evicting_window"):
                 op = self._ops[nid]
-                wm = op.final_watermark() if in_wm == _FINAL else in_wm
-                if wm > op.watermark or final:
-                    self._pending_emits.append((nid, op.advance_watermark(wm)))
+                if getattr(op, "uses_processing_time", False):
+                    # the clock drives the fires; end of input fires
+                    # everything seen
+                    self._pending_emits.append((nid, (
+                        op.advance_watermark(op.final_watermark())
+                        if in_wm == _FINAL or final
+                        else op.advance_processing_time())))
+                else:
+                    wm = op.final_watermark() if in_wm == _FINAL else in_wm
+                    if wm > op.watermark or final:
+                        self._pending_emits.append(
+                            (nid, op.advance_watermark(wm)))
+                if self._deliver_at_fire:
+                    self._drain_emits(barrier=True)
             self._out_wm[nid] = in_wm
 
     def _drain_emits(self, barrier: bool) -> None:

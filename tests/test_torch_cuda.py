@@ -1014,3 +1014,120 @@ def test_changelog_lanes_on_the_card_match_the_cpu(dev):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert wk.LAUNCHES["scatter_lanes"] == 3
+
+
+def _segment_case(rng, lengths, widths):
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    e = int(offsets[-1])
+    lanes = [(rng.random((e, w)) * 900 + 50).astype(np.float32)
+             for w in widths]
+    return offsets, lanes
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and np.array_equal(
+        a.cpu().contiguous().view(torch.int32).numpy(),
+        b.cpu().contiguous().view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("widths", [(1, 1, 0), (0, 0, 0), (2, 1, 3)])
+def test_segment_lanes_matches_its_plain_version(dev, widths):
+    """Every output bit for bit against the plain version on the card and
+    on the CPU (both add in element order), segments of 1 to 5,000."""
+    from flink_tpu_torch.kernels import element_kernels as ek
+
+    rng = np.random.default_rng(29)
+    lengths = rng.integers(1, 200, 3000)
+    lengths[[5, 77]] = [5000, 1]
+    offsets, lanes = _segment_case(rng, lengths, widths)
+    wk.reset_launch_counts()
+    got = ek.segment_lanes(_t(offsets, dev), *[_t(x, dev) for x in lanes])
+    plain = ek.segment_lanes_plain(_t(offsets, dev),
+                                   *[_t(x, dev) for x in lanes])
+    cpu = ek.segment_lanes(torch.from_numpy(offsets),
+                           *[torch.from_numpy(x) for x in lanes])
+    torch.cuda.synchronize()
+    wk.check_errors(dev)
+    assert wk.LAUNCHES["segment_lanes"] == 1
+    for a, b, c in zip(got, plain, cpu):
+        assert _same_bits(a, b) and _same_bits(a, c)
+    assert got[3].tolist() == lengths.tolist()
+
+
+def test_segment_lanes_edge_values(dev):
+    """Planted NaN of both signs with payloads, infinities and signed
+    zeros: the max keeps the last NaN, the min the first, -0 < +0."""
+    from flink_tpu_torch.kernels import element_kernels as ek
+
+    nan = lambda bits: np.array([bits], np.uint32).view(np.float32)[0]  # noqa: E731
+    segs = [[1.0, nan(0x7FC00005), 2.0, nan(0xFFC00007)],
+            [0.0, -0.0, 0.0], [-0.0, -0.0], [np.inf, -np.inf, 3.0],
+            [nan(0xFFC0004D)], [5.0]]
+    x = np.concatenate([np.asarray(s, np.float32) for s in segs])[:, None]
+    offsets = np.concatenate([[0], np.cumsum([len(s) for s in segs])])
+    args = [_t(offsets.astype(np.int64), dev)] + [_t(x, dev)] * 3
+    got = ek.segment_lanes(*args)
+    plain = ek.segment_lanes_plain(*args)
+    cpu = ek.segment_lanes(*[a.cpu() for a in args])
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert _same_bits(a, b)
+    # max, min and counts copy bits, so the CPU agrees bit for bit; a sum
+    # with a NaN term is NaN everywhere, its bits the adder's (the card's
+    # canonical NaN, the CPU's operand)
+    for a, b in zip(got[1:], cpu[1:]):
+        assert _same_bits(a, b)
+    s_card, s_cpu = got[0].cpu(), cpu[0]
+    nan = torch.isnan(s_cpu)
+    assert torch.equal(torch.isnan(s_card), nan)
+    assert _same_bits(s_card[~nan], s_cpu[~nan])
+    bits = got[1][:, 0].view(torch.int32).cpu().numpy().view(np.uint32)
+    assert bits.tolist()[:3] == [0xFFC00007, 0x00000000, 0x80000000]
+    bits = got[2][:, 0].view(torch.int32).cpu().numpy().view(np.uint32)
+    assert bits.tolist()[:3] == [0x7FC00005, 0x80000000, 0x80000000]
+    assert float(got[1][3, 0]) == np.inf and float(got[2][3, 0]) == -np.inf
+
+
+def test_segment_lanes_bad_offsets_set_the_error_word(dev):
+    from flink_tpu_torch.kernels import element_kernels as ek
+
+    x = torch.ones((4, 1), device=dev)
+    wk.check_errors(dev)
+    ek.segment_lanes(torch.tensor([0, 5], device=dev), x, x, x)
+    with pytest.raises(IndexError, match="segment_lanes"):
+        wk.check_errors(dev)
+
+
+def test_element_window_on_the_card_matches_the_cpu(dev):
+    """A count-evictor job's fires on the card and on the CPU: the same
+    rows in the same order, every column bit for bit."""
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.api.datastream import _element_window_fn
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.evicting_window import (
+        CountEvictor, EvictingWindowOperator)
+
+    agg = ta.multi(ta.count(), ta.avg_of("price"), ta.max_of("price"))
+    ops = [EvictingWindowOperator(
+        TumblingEventTimeWindows.of(1_000), _element_window_fn(agg),
+        evictor=CountEvictor.of(50), device=d) for d in ("cpu", dev)]
+    rng = np.random.default_rng(31)
+    wk.reset_launch_counts()
+    outs = [[], []]
+    for i in range(3):
+        n = 20_000
+        keys = rng.integers(0, 300, n)
+        ts = i * 1_000 + rng.integers(0, 1_000, n)
+        data = {"price": rng.random(n) * 1000}
+        for op, out in zip(ops, outs):
+            op.process_batch(keys, ts, data)
+            out.append(dict(op.advance_watermark(i * 1_000 + 999)))
+    for a, b in zip(*outs):
+        assert list(a) == list(b) and len(a["key"]) > 0
+        for k in a:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            assert x.dtype == y.dtype, k
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            np.testing.assert_array_equal(x, y, err_msg=k)
+    assert wk.LAUNCHES["segment_lanes"] == 3

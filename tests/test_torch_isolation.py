@@ -53,6 +53,11 @@ def test_scan_covers_the_package():
     assert "flink_tpu_torch/ops/count_window.py" in files
     assert "flink_tpu_torch/kernels/topn_lanes_kernels.py" in files
     assert "flink_tpu_torch/state/spill.py" in files
+    assert "flink_tpu_torch/kernels/element_kernels.py" in files
+    assert "flink_tpu_torch/ops/evicting_window.py" in files
+    assert "flink_tpu_torch/api/datastream.py" in files
+    assert "flink_tpu_torch/api/windowing.py" in files
+    assert "flink_tpu_torch/api/sinks.py" in files
     assert "flink_tpu_torch/native_codec.py" in files
     assert "flink_tpu_torch/nexmark/generator.py" in files
     assert "chip_smoke.py" in files

@@ -276,11 +276,17 @@ def test_topn_tie_explosion_raises_loudly():
 def test_operator_refuses_unported_shapes(monkeypatch):
     from flink_tpu_torch.ops.aggregates import max_of, multi
 
-    class ProcessingTimeWindows(TumblingEventTimeWindows):
-        is_processing_time = True
+    from flink_tpu_torch.api.windowing import (
+        GlobalWindows, TumblingProcessingTimeWindows)
 
-    with pytest.raises(NotImplementedError, match="processing-time"):
-        WindowOperator(ProcessingTimeWindows.of(1000),
+    # processing time is ported (the clock's panes); a global window
+    # has no panes and is refused
+    op = WindowOperator(TumblingProcessingTimeWindows.of(1000),
+                        multi(count(), max_of("price")),
+                        top_n=("max_price", 1), device="cpu")
+    assert op.uses_processing_time and op.clock is not None
+    with pytest.raises(NotImplementedError, match="pane-decomposable"):
+        WindowOperator(GlobalWindows.create(),
                        multi(count(), max_of("price")),
                        top_n=("max_price", 1), device="cpu")
     # the default device is the card; without one the operator refuses
