@@ -136,6 +136,22 @@ the phase prints events/s and the device's idle share (CUDA events
 around each launch group; a ``torch.profiler`` run beside gives kernel
 time by name).
 
+13. ``mesh`` — the key-sharded window operator on a mesh of four blocks
+   on ``cuda:0`` (``env.execute(mesh_plan=...)``): job M1 Q5 hot items
+   at confs/bench_q5_host_fed.conf on 16 x 2^20 bids (rows against the
+   golden and the ``q5`` phase's single-block rows), M2 the
+   bid-aggregate job (a) per record (4 batches), M3 1,000 hot auctions
+   under ``pipeline.exchange-capacity: 16384`` (the host splitter, no
+   overflow), M4 the ring exchange (4 batches); each with its rate, idle
+   share, launches and exchange bytes. The ``kernels`` phase holds the
+   path's ``bucket_records``, ``hash_keys`` and the distributed top-n
+   modes bit for bit against their plain versions at M1's shapes.
+
+With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
+of one block per visible card (16 x 2^20 bids, then 4 batches with the
+ring exchange), checked against the golden: the exchange's copies
+between cards.
+
 Then the card's name and power limit (nvidia-smi), the kernel table as
 one JSON object, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without that last line; so does a machine with
@@ -169,7 +185,7 @@ AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
 CW_SIZE = 250                   # WindowWordCount.java countWindow(250, 150)
 KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels",
                   "fused_kernels", "count_window_kernels", "topn_lanes_kernels",
-                  "element_kernels")
+                  "element_kernels", "exchange_kernels")
 TOPN_BATCHES = 16               # job T, 2^20 bids each
 CHANGELOG_BATCHES = 16          # job C
 SPILL_BATCHES = 8               # job S
@@ -182,6 +198,14 @@ PROC_BATCHES = 16               # job P (processing time)
 E_KEEP = 100                    # job E's CountEvictor.of(100)
 E2_EVERY = 1000                 # job E2's CountTrigger.of(1000)
 Q5_SIDE_BATCHES = 4             # the numpy-lane, hot-key and profiled runs
+MESH_BLOCKS = 4                 # the mesh phase's device blocks, on cuda:0
+MESH_SIDE_BATCHES = 4           # jobs M2, M3, M4 and the profiled M1 run
+MESH_XCAP = 16_384              # job M3's pipeline.exchange-capacity
+# the kernels the key-sharded path adds; their per-call device time comes
+# from the mesh phase's profiled run only (topn_select_given shares its
+# two kernels with topn_select_append)
+MESH_KERNELS = ("bucket_records", "topn_candidates", "topn_global_threshold",
+                "topn_select_given")
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
     "scatter_counts": ("scatter_counts_kernel",),
@@ -206,6 +230,11 @@ PROFILED_KERNELS = {
     "topn_select_lanes": ("lanes_threshold_kernel", "lanes_count_kernel",
                           "lanes_write_kernel"),
     "segment_lanes": ("segment_lanes_kernel",),
+    "bucket_records": ("bucket_count_kernel", "bucket_write_kernel"),
+    "hash_keys": ("hash_keys_kernel",),
+    "topn_candidates": ("topn_candidates_kernel",),
+    "topn_global_threshold": ("topn_global_threshold_kernel",),
+    "topn_select_given": ("topn_count_kernel", "topn_write_kernel"),
 }
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
@@ -223,6 +252,8 @@ CALL_KERNELS = {
     "fused_step": ("fused_header_kernel",),
     "count_fire": ("count_fire_count_kernel",),
     "topn_select_lanes": ("lanes_threshold_kernel",),
+    "bucket_records": ("bucket_count_kernel",),
+    "topn_select_given": ("topn_count_kernel",),
 }
 
 
@@ -436,6 +467,9 @@ def phase_kernels(torch, np):
     extra.update(topn_lanes_kernel_cases(torch, np, dev, record, out))
     wk.check_errors(dev)
     extra.update(element_kernel_cases(torch, np, dev, record, out))
+    wk.check_errors(dev)
+    extra.update(mesh_kernel_cases(torch, np, dev, record, out, wc, used,
+                                   ends))
     wk.check_errors(dev)
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
@@ -1148,12 +1182,15 @@ def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
     return expect
 
 
-def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None):
+def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None,
+                    mesh=None, conf_extra=None):
     """Q5 on host-made bids through ``env.execute()`` at
     confs/bench_q5_host_fed.conf: (rows in commit order, launches,
     JobResult, wall seconds). ``numpy_lane`` runs it with the numpy key
     table (``NativeHashTable.create`` returning None, as the tests select
-    it), so no native lane; ``backend`` sets ``state.backend``."""
+    it), so no native lane; ``backend`` sets ``state.backend``; ``mesh``
+    runs the window over that mesh of device blocks; ``conf_extra`` sets
+    further options."""
     from flink_tpu_torch import native_codec
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
@@ -1166,6 +1203,8 @@ def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None):
         os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
     if backend is not None:
         conf.set("state.backend", backend)
+    for k, v in (conf_extra or {}).items():
+        conf.set(k, v)
     parts = []
     env = StreamExecutionEnvironment(conf)
     q5_hot_items(env, bid_stream(cfg), FnSink(
@@ -1179,7 +1218,7 @@ def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None):
         torch.cuda.synchronize()
         wk.reset_launch_counts()
         t0 = time.perf_counter()
-        res = env.execute(label, device="cuda")
+        res = env.execute(label, device="cuda", mesh_plan=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1275,7 +1314,7 @@ def phase_q5(torch, np):
     ranged = prof["ranged_per_call"].get("fused_step")
     if ranged and ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS:
         per_call["fused_step"] = ranged["device_ms"]
-    return launches, n_launches, h_launches, per_call
+    return launches, n_launches, h_launches, per_call, rows
 
 
 def run_devgen_q5(torch, np, conf, cfg, label):
@@ -1684,11 +1723,12 @@ def agg_rel_bound(count):
     return (2.0 * count + 34.0) * 2.0 ** -24
 
 
-def run_bid_agg(torch, np, which, n_batches, label):
+def run_bid_agg(torch, np, which, n_batches, label, mesh=None):
     """Job (a) multi(count, sum, max, min) or (b) multi(count, avg) of
     price per auction, sliding 10 s / 1 s, 1 s out-of-orderness, on the
-    Q5 host-fed bids at confs/bench_q5_host_fed.conf: (rows, launches,
-    JobResult, wall)."""
+    Q5 host-fed bids at confs/bench_q5_host_fed.conf (over ``mesh``, a
+    mesh of device blocks, when given): (rows, launches, JobResult,
+    wall)."""
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
     from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
@@ -1716,7 +1756,7 @@ def run_bid_agg(torch, np, which, n_batches, label):
     torch.cuda.synchronize()
     wk.reset_launch_counts()
     t0 = time.perf_counter()
-    res = env.execute(label, device="cuda")
+    res = env.execute(label, device="cuda", mesh_plan=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
@@ -2515,6 +2555,206 @@ def element_kernel_cases(torch, np, dev, record, out):
                                    "longest": int(e_lens.max())}}
 
 
+def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
+    """The key-sharded path's kernels against their plain versions on the
+    card, bit for bit, at job M1's shapes (4 blocks of 8,192 slots + a
+    dump row, a 32-column ring): ``bucket_records`` on one source block
+    of a 2^20-bid chunk (2^18 records, 10,000 auctions over the global
+    slots, 1 % invalid; capacity 2^18) and with job M2's three lifted
+    lanes; ``hash_keys`` on a batch's 2^20 auction keys with extreme keys
+    planted, also against ``hash_keys_numpy``; the distributed top-1 on
+    the K2 grid (the host-fed Q5 fire, 11 windows) cut into the 4 blocks:
+    ``topn_candidates`` per block, ``topn_global_threshold`` over the
+    gathered candidates, ``topn_select_given`` per block, whose rows must
+    be the single-device ``topn_select_append``'s, in its order; and
+    ``fire_pack``'s row offset and the scatters' skip of invalid cells on
+    a block's received records."""
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import bid_batch
+    from flink_tpu_torch.records import hash_keys_numpy
+
+    rng = np.random.default_rng(SEED + 8)
+    n_blk, ring = MESH_BLOCKS, 32
+    spd = 128 * 256 // n_blk
+    L = Q5_BATCH // n_blk
+    extra = {}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b)
+                   if x is not None or y is not None)
+
+    # X1 bucket_records, count only (job M1) and with three lanes (M2)
+    keys = rng.choice(n_blk * spd, 10_000, replace=False)
+    slots = keys[rng.integers(0, 10_000, L)]
+    cells_np = (slots * ring + rng.integers(0, ring, L)).astype(np.int32)
+    cells_np[rng.random(L) < 0.01] = -1
+    cells, lanes = t(cells_np), t(rng.random((L, 3)).astype(np.float32))
+    for payload, label in ((None, "count"), (lanes, "lanes")):
+        args = (cells, payload, n_blk, L, spd, ring)
+        got, plain = xk.bucket_records(*args), xk.bucket_records_plain(*args)
+        torch.cuda.synchronize()
+        check(same(got, plain),
+              f"bucket_records ({label}) differs from its plain version")
+        C = 0 if payload is None else payload.shape[1]
+        ms = time_ms(torch, lambda: xk.bucket_records(*args))
+        plain_ms = time_ms(torch, lambda: xk.bucket_records_plain(*args),
+                           iters=10)
+        # each record read once, every bucket position (the padded layout)
+        # written once: its cell, valid byte and lanes
+        nbytes = L * 4 * (1 + C) + n_blk * L * (5 + 4 * C) + n_blk * 4
+        if payload is None:
+            record("bucket_records", "flink_tpu/exchange/keyby.py:37", 0,
+                   ms, plain_ms, None, nbytes, L * n_blk,
+                   source="exchange_kernels.cu")
+            out[-1]["library_call"] = None
+            out[-1]["records"] = L
+        else:
+            extra["bucket_records_lanes"] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms(nbytes, L * n_blk)[0], "lanes": C}
+    extra["bucket_records_per_dest"] = got[2].sum(dim=1).tolist()
+
+    # X2 hash_keys
+    data, _ = bid_batch(bids_cfg(1), 0, 0)
+    i64 = np.iinfo(np.int64)
+    keys_np = data["auction"].astype(np.int64)
+    keys_np[:6] = [0, -1, i64.max, i64.min, i64.min + 1, 1 << 40]
+    kt = t(keys_np)
+    got, plain = xk.hash_keys(kt), xk.hash_keys_plain(kt)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain)
+          and np.array_equal(got.cpu().numpy(), hash_keys_numpy(keys_np)),
+          "hash_keys differs from its plain version or hash_keys_numpy")
+    n = len(keys_np)
+    record("hash_keys", "flink_tpu/records.py:204", 0,
+           time_ms(torch, lambda: xk.hash_keys(kt)),
+           time_ms(torch, lambda: xk.hash_keys_plain(kt)), None, 16 * n,
+           10 * n, source="exchange_kernels.cu")
+    out[-1]["library_call"] = None
+
+    # K3's distributed mode on the K2 grid cut into the blocks
+    W, k, sel_cap, anchor = wc.shape[1], 1, 256, 1000
+    w_valid = torch.ones(W, dtype=torch.bool, device=dev)
+    zero_w = torch.zeros((1, W), dtype=wc.dtype, device=dev)
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+    wcs = [torch.cat([wc[b * spd:(b + 1) * spd], zero_w]).contiguous()
+           for b in range(n_blk)]
+    useds = [torch.cat([used[b * spd:(b + 1) * spd], no]).contiguous()
+             for b in range(n_blk)]
+    rows = spd + 1
+    cands = [wk.topn_candidates(w, u, w_valid, k) for w, u in zip(wcs, useds)]
+    cands_p = [wk.topn_candidates_plain(w, u, w_valid, k)
+               for w, u in zip(wcs, useds)]
+    gathered = torch.cat(cands, dim=1)
+    thresh = wk.topn_global_threshold(gathered, k)
+    thresh_p = wk.topn_global_threshold_plain(gathered, k)
+    rings = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    for b in range(n_blk):
+        wk.topn_select_given(wcs[b], useds[b], ends, w_valid, anchor, thresh,
+                             b * rows, sel_cap, rings[0])
+        wk.topn_select_given_plain(wcs[b], useds[b], ends, w_valid, anchor,
+                                   thresh, b * rows, sel_cap, rings[1])
+    single = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    wk.topn_select_append(wc, used, ends, w_valid, anchor, k, 4 * sel_cap,
+                          single)
+    torch.cuda.synchronize()
+    check(same(cands, cands_p) and torch.equal(thresh, thresh_p)
+          and torch.equal(rings[0], rings[1]),
+          "the distributed top-n differs from its plain versions")
+    dist, one = rings[0].cpu().numpy(), single.cpu().numpy()
+    n_rows = int(one[0, 0])
+    body = dist[1:1 + int(dist[0, 0])].copy()
+    body[:, 0] -= body[:, 0] // rows           # global row -> slot
+    check(int(dist[0, 0]) == n_rows and n_rows >= W
+          and np.array_equal(body, one[1:1 + n_rows]),
+          "the distributed top-1 rows differ from the single-device ones")
+    extra["topn_distributed_rows"] = n_rows
+    v = [torch.where((w > 0) & u[:, None], w.float(),
+                     torch.full((), -float("inf"), device=dev)).T.contiguous()
+         for w, u in zip(wcs, useds)]
+    record("topn_candidates", "flink_tpu/ops/window.py:1585", 0,
+           time_ms(torch, lambda: wk.topn_candidates(wcs[0], useds[0],
+                                                     w_valid, k)),
+           time_ms(torch, lambda: wk.topn_candidates_plain(
+               wcs[0], useds[0], w_valid, k)),
+           time_ms(torch, lambda: torch.topk(v[0], k, dim=1)),
+           rows * W * 4 + rows + W + W * k * 4, rows * W * 2 * k)
+    out[-1]["library_call"] = "torch.topk(v.T, k) on the masked grid"
+    out[-1]["per"] = "block"
+    record("topn_global_threshold", "flink_tpu/ops/window.py:1608", 0,
+           time_ms(torch, lambda: wk.topn_global_threshold(gathered, k)),
+           time_ms(torch, lambda: wk.topn_global_threshold_plain(gathered,
+                                                                 k)),
+           time_ms(torch, lambda: torch.topk(gathered, k, dim=1)),
+           gathered.numel() * 4 + W * 4, gathered.numel() * 2 * k)
+    out[-1]["library_call"] = "torch.topk(gathered, k)"
+    scratch = [r.clone() for r in rings]
+    written = int(dist[0, 0]) // n_blk + 1
+    record("topn_select_given", "flink_tpu/ops/window.py:1585", 0,
+           time_ms(torch, lambda: wk.topn_select_given(
+               wcs[0], useds[0], ends, w_valid, anchor, thresh, 0, sel_cap,
+               scratch[0])),
+           time_ms(torch, lambda: wk.topn_select_given_plain(
+               wcs[0], useds[0], ends, w_valid, anchor, thresh, 0, sel_cap,
+               scratch[1])), None,
+           rows * W * 4 + rows + W * 13 + written * 12 + 8, rows * W * 2)
+    out[-1]["per"] = "block"
+
+    # fire_pack's row offset on one block; the scatters skip the -1 cells
+    # of a block's received records
+    from flink_tpu_torch.state.keyed import PaneStateLayout, init_state
+    pane_lo, pane_hi, ppw = 1000, 1020, 10
+    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi,
+                    rng.choice(spd, 2_500, replace=False), (1, 1, 1))
+    stt = [t(x) for x in st]
+    used_b = t(np.r_[np.ones(spd, bool), False])
+    fargs = (stt[0], stt[1], stt[2], stt[3], ends[:4].contiguous(),
+             w_valid[:4].contiguous(), used_b, pane_lo, pane_hi, ppw, 1 << 14,
+             False)
+    a = lk.fire_pack(*fargs, row_offset=2 * rows)
+    b = lk.fire_pack_plain(*fargs, row_offset=2 * rows)
+    torch.cuda.synchronize()
+    nf = int(a[0][0, 0])
+    check(nf > 0 and torch.equal(a[0][:nf + 1], b[0][:nf + 1])
+          and torch.equal(a[1][:nf], b[1][:nf])
+          and int(a[0][1:nf + 1, 0].min()) >= 2 * rows,
+          "fire_pack with a row offset differs from its plain version")
+    recv = torch.where(t(rng.random(n_blk * L) < 0.75),
+                       torch.full((), -1, dtype=torch.int32, device=dev),
+                       t(rng.integers(0, spd * ring, n_blk * L)
+                         .astype(np.int32)))
+    lay = PaneStateLayout(spd, ring, 1, 1, 1)
+    on_card, on_cpu = init_state(lay, dev), init_state(lay, torch.device("cpu"))
+    lanes3 = t(rng.random((n_blk * L, 3)).astype(np.float32))
+    wk.scatter_counts(on_card.counts, recv, skip_negative=True)
+    c_plain = init_state(lay, dev).counts
+    wk.scatter_counts_plain(c_plain, recv, skip_negative=True)
+    lk.scatter_lanes(on_card.counts, on_card.sums, on_card.maxs, on_card.mins,
+                     recv, *(lanes3[:, i:i + 1].contiguous() for i in range(3)),
+                     skip_negative=True)
+    cpu = recv.cpu()
+    wk.scatter_counts_plain(on_cpu.counts, cpu, skip_negative=True)
+    lk.scatter_lanes_plain(on_cpu.counts, on_cpu.sums, on_cpu.maxs,
+                           on_cpu.mins, cpu,
+                           *(lanes3[:, i:i + 1].cpu().contiguous()
+                             for i in range(3)), skip_negative=True)
+    torch.cuda.synchronize()
+    check(torch.equal(c_plain * 2, on_card.counts)
+          and all(exact_bits(torch, x.cpu(), y) for x, y in (
+              (on_card.counts, on_cpu.counts), (on_card.sums, on_cpu.sums),
+              (on_card.maxs, on_cpu.maxs), (on_card.mins, on_cpu.mins))),
+          "the scatters' skip of invalid cells differs from the plain ones")
+    extra["fire_pack_row_offset_rows"] = nf
+    extra["received_cells_valid"] = int((recv >= 0).sum())
+    return extra
+
+
 def element_golden(np, n_batches):
     """Job E's and E2's input grouped by (auction, 10 s window) in arrival
     order: (cell id of each group, group starts, lengths, prices in
@@ -2715,6 +2955,122 @@ def phase_proc_time(torch, np):
     return launches, prof["device_ms_per_call"]
 
 
+MESH_PATH = ("split_cells", "bucket_records", "window_counts",
+             "topn_candidates", "topn_global_threshold", "topn_select_given",
+             "ring_columns")
+
+
+def by_window(rows):
+    """Committed rows stably in window order: one drain reads each block's
+    rows of every fire it covers in turn, so the order across windows is
+    the drain cadence's; within a window it is the rows' (ascending slot)
+    on one block or many."""
+    return sorted(rows, key=lambda r: r[1])
+
+
+def mesh_summary(rows_n, launches, res, wall, n_batches):
+    busy, host = busy_and_host(res)
+    events = Q5_BATCH * n_batches
+    return {"events": events, "batches": n_batches, "wall_s": wall,
+            "events_per_s": events / wall, "rows": rows_n,
+            "launches": {k: v for k, v in launches.items() if v},
+            "exchange_bytes": res.metrics["exchange_bytes"],
+            "exchange_overflow": res.metrics["exchange_overflow"],
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+            "host_profile_s": host}
+
+
+def phase_mesh(torch, np, local_rows):
+    """The key-sharded window operator on a mesh of MESH_BLOCKS blocks on
+    cuda:0 (``env.execute(mesh_plan=...)``): job M1 Q5 hot items at
+    confs/bench_q5_host_fed.conf on 16 x 2^20 bids, against the golden
+    and the single-block native-lane run's rows (``local_rows``); M2 the
+    bid-aggregate job (a) per record (``fire_pack`` on every block), 4
+    batches; M3 1,000 hot auctions under ``pipeline.exchange-capacity:
+    16384`` (the host splitter; no record may overflow), 4 batches; M4
+    Q5 with ``exchange.impl: ring``, 4 batches; and a profiled M1 run of
+    4 batches."""
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+    mesh = make_mesh_plan(128, 256, ["cuda:0"] * MESH_BLOCKS)
+    cfg = bids_cfg(Q5_BATCHES)
+    side = bids_cfg(MESH_SIDE_BATCHES)
+    hot = dataclasses.replace(side, num_active_auctions=1_000, hot_ratio=2)
+    rows, launches, res, wall = run_q5_host_fed(torch, np, cfg, "mesh-q5",
+                                                mesh=mesh)
+    missing = [k for k in MESH_PATH + ("scatter_counts",) if not launches[k]]
+    check(not missing, f"M1: kernels not launched on the mesh: {missing}")
+    check(launches["fused_step"] == 0 and launches["apply_pairs_u32"] == 0,
+          "M1 took the one-device native lane")
+    a_rows, a_launches, a_res, a_wall, a_cfg = run_bid_agg(
+        torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a", mesh=mesh)
+    missing = [k for k in ("split_cells", "bucket_records", "scatter_lanes",
+                           "fire_pack", "ring_columns") if not a_launches[k]]
+    check(not missing, f"M2: kernels not launched on the mesh: {missing}")
+    h_rows, h_launches, h_res, h_wall = run_q5_host_fed(
+        torch, np, hot, "mesh-q5-hot-capacity", mesh=mesh,
+        conf_extra={"pipeline.exchange-capacity": MESH_XCAP})
+    check(h_res.metrics["exchange_overflow"] == 0, "M3: records overflowed")
+    r_rows, r_launches, r_res, r_wall = run_q5_host_fed(
+        torch, np, side, "mesh-q5-ring", mesh=mesh,
+        conf_extra={"exchange.impl": "ring"})
+    prof = profile_run(torch, lambda: run_q5_host_fed(
+        torch, np, side, "mesh-q5-profiled", mesh=mesh)[3])
+    # the goldens' numpy work comes after the timed runs
+    check_q5_rows(np, rows, cfg, "M1")
+    check(by_window(rows) == by_window(local_rows),
+          "M1: rows differ from the single-block run's")
+    rel, share = check_bid_agg(np, "a", a_rows, bid_golden(np, a_cfg), "M2")
+    check_q5_rows(np, h_rows, hot, "M3")
+    check_q5_rows(np, r_rows, side, "M4")
+    out = {"phase": "mesh", "blocks": MESH_BLOCKS,
+           "devices": [str(d) for d in mesh.devices],
+           "conf": "confs/bench_q5_host_fed.conf",
+           "M1": mesh_summary(len(rows), launches, res, wall, Q5_BATCHES),
+           "M2": {**mesh_summary(len(a_rows["key"]), a_launches, a_res,
+                                 a_wall, MESH_SIDE_BATCHES),
+                  "max_rel_err": rel, "max_share_of_bound": share},
+           "M3": {**mesh_summary(len(h_rows), h_launches, h_res, h_wall,
+                                 MESH_SIDE_BATCHES),
+                  "auctions": hot.num_active_auctions,
+                  "exchange_capacity": MESH_XCAP,
+                  "dispatches": h_launches["bucket_records"] // MESH_BLOCKS},
+           "M4": {**mesh_summary(len(r_rows), r_launches, r_res, r_wall,
+                                 MESH_SIDE_BATCHES), "exchange_impl": "ring"},
+           "profiled": {"batches": MESH_SIDE_BATCHES, **prof},
+           "card": card_line()}
+    emit(out)
+    return launches, prof["device_ms_per_call"]
+
+
+def phase_mesh_cards(torch, np):
+    """``--mesh-cards``: Q5 over a mesh of one block per visible card
+    (the exchange's peer copies between cards), 16 x 2^20 bids, then the
+    ring exchange on 4 batches; rows against the golden."""
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+    n = torch.cuda.device_count()
+    check(n > 1, f"--mesh-cards needs several cards, {n} visible")
+    mesh = make_mesh_plan(128, 256, [f"cuda:{i}" for i in range(n)])
+    cfg, side = bids_cfg(Q5_BATCHES), bids_cfg(MESH_SIDE_BATCHES)
+    rows, launches, res, wall = run_q5_host_fed(torch, np, cfg,
+                                                "mesh-cards-q5", mesh=mesh)
+    missing = [k for k in MESH_PATH + ("scatter_counts",) if not launches[k]]
+    check(not missing, f"kernels not launched on the cards: {missing}")
+    r_rows, r_launches, r_res, r_wall = run_q5_host_fed(
+        torch, np, side, "mesh-cards-ring", mesh=mesh,
+        conf_extra={"exchange.impl": "ring"})
+    check_q5_rows(np, rows, cfg, "Q5 over the cards")
+    check_q5_rows(np, r_rows, side, "Q5 over the cards, ring")
+    emit({"phase": "mesh_cards", "devices": [str(d) for d in mesh.devices],
+          "cards": [torch.cuda.get_device_name(i) for i in range(n)],
+          "q5": mesh_summary(len(rows), launches, res, wall, Q5_BATCHES),
+          "ring": mesh_summary(len(r_rows), r_launches, r_res, r_wall,
+                               MESH_SIDE_BATCHES),
+          "card": card_line()})
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2728,10 +3084,23 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--mesh-cards" in sys.argv[1:]:
+        try:
+            phase_build()
+            phase_mesh_cards(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     try:
         phase_build()
         table = phase_kernels(torch, np)
-        host_fed, numpy_lane, hot_keys, q5_per_call = phase_q5(torch, np)
+        (host_fed, numpy_lane, hot_keys, q5_per_call,
+         q5_rows) = phase_q5(torch, np)
         devgen, per_call = phase_q5_devgen(torch, np)
         wordcount, wc_per_call = phase_wordcount(torch, np)
         aggs, agg_per_call = phase_bid_aggs(torch, np)
@@ -2741,13 +3110,14 @@ def main() -> int:
         q5_spill, sp_per_call = phase_q5_spill(torch, np)
         element, el_per_call = phase_element_window(torch, np)
         proc_time, pt_per_call = phase_proc_time(torch, np)
+        mesh, mesh_per_call = phase_mesh(torch, np, q5_rows)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
                  "bid_aggs_b": aggs["b"], "window_wordcount": window_wc,
                  "topn_lanes": topn_lanes, "changelog": changelog,
                  "q5_spill": q5_spill, "element_window": element,
-                 "proc_time": proc_time}
+                 "proc_time": proc_time, "mesh_q5": mesh}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
@@ -2755,7 +3125,7 @@ def main() -> int:
         # fire_pack on WordCount; the two lane scatters and the split
         # upload's decode on their bid-aggregate job; count_fire on
         # WindowWordCount; the top-n lane kernels on job T's first run;
-        # segment_lanes on job E
+        # segment_lanes on job E; the key-sharded path's kernels on job M1
         own_path = {"scatter_counts": "q5_numpy_lane",
                     "fused_step": "q5_host_fed",
                     "apply_pairs_u16": "q5_hot_keys",
@@ -2766,12 +3136,28 @@ def main() -> int:
                     "count_fire": "window_wordcount",
                     "window_lanes": "topn_lanes",
                     "topn_select_lanes": "topn_lanes",
-                    "segment_lanes": "element_window"}
+                    "segment_lanes": "element_window",
+                    **{k: "mesh_q5" for k in MESH_KERNELS}}
         for row in table:
             name = row["name"]
+            if name == "hash_keys":
+                # no path of either package calls it (the reference's
+                # tests only): held against its plain version and
+                # hash_keys_numpy in the kernels phase, and its count over
+                # every path's run must stay 0
+                row["launches_by_path"] = {p: l[name]
+                                           for p, l in paths.items()}
+                row["launches"] = sum(row["launches_by_path"].values())
+                row["launches_path"] = None
+                row["pipeline_device_ms"] = None
+                check(row["launches"] == 0,
+                      "hash_keys launched on a path that should not call it")
+                continue
             # device time per call inside the profiled pipeline runs (the
             # "ms" above is a launch loop, host-bound for short kernels)
-            row["pipeline_device_ms"] = (per_call.get(name)
+            row["pipeline_device_ms"] = (mesh_per_call.get(name)
+                                         if name in MESH_KERNELS else
+                                         per_call.get(name)
                                          or wc_per_call.get(name)
                                          or agg_per_call.get(name)
                                          or q5_per_call.get(name)

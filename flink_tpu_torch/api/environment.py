@@ -1,6 +1,8 @@
 """StreamExecutionEnvironment: program entry; ``execute()`` lowers the
 DAG and runs it on the local driver, on the card unless the caller asks
-for the CPU."""
+for the CPU. With ``cluster.mesh-devices`` set and more than one device
+visible, the driver runs each keyed window over a mesh of device blocks
+(``build_mesh_plan``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional
@@ -10,7 +12,9 @@ import torch
 
 from flink_tpu_torch.api.datastream import DataStream
 from flink_tpu_torch.api.sources import CollectionSource, Source
-from flink_tpu_torch.config import Configuration, PipelineOptions
+from flink_tpu_torch.config import (
+    ClusterOptions, Configuration, PipelineOptions, StateOptions)
+from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.transformations import SourceTransformation, Transformation
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
 
@@ -42,14 +46,64 @@ class StreamExecutionEnvironment:
         self._transforms.append(t)
 
     def execute(self, job_name: str = "job",
-                device: "str | torch.device" = "cuda") -> "JobResult":
+                device: "str | torch.device" = "cuda",
+                mesh_plan=None) -> "JobResult":
         """Lower and run to completion on ``device`` ("cuda" by default;
-        raises when there is no CUDA device — pass "cpu" explicitly)."""
+        raises when there is no CUDA device — pass "cpu" explicitly).
+        ``mesh_plan`` (``parallel.mesh.make_mesh_plan``) places the keyed
+        windows' device blocks explicitly, several on one device if need
+        be; without it ``cluster.mesh-devices`` decides."""
         from flink_tpu_torch.graph.compiler import compile_job
         from flink_tpu_torch.runtime.driver import Driver
 
         plan = compile_job(self._transforms, self._watermark_strategy)
-        return Driver(plan, self.config, device=device).run(job_name)
+        if mesh_plan is None:
+            mesh_plan = self.build_mesh_plan(device)
+        return Driver(plan, self.config, device=device,
+                      mesh_plan=mesh_plan).run(job_name)
+
+    def build_mesh_plan(self, device: "str | torch.device" = "cuda"):
+        """The mesh of ``cluster.mesh-devices`` over the devices of
+        ``device``'s kind that this process sees (``visible_devices``):
+        None for local execution (the option empty, or one device)."""
+        from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+        spec = str(self.config.get(ClusterOptions.MESH_DEVICES)).strip()
+        if not spec:
+            return None
+        devices = visible_devices(device)
+        if spec != "all":
+            n = int(spec)
+            if n < 1:
+                raise ValueError(
+                    f"cluster.mesh-devices must be 'all' or a positive "
+                    f"integer, got {spec!r}")
+            if n > len(devices):
+                raise ValueError(
+                    f"cluster.mesh-devices={n} but only {len(devices)} "
+                    "devices are visible")
+            devices = devices[:n]
+        if len(devices) == 1:
+            return None  # a one-device mesh is local execution
+        if int(self.config.get(ClusterOptions.NUM_PROCESSES)) > 1:
+            raise NotImplementedError(
+                "cluster.num-processes > 1 (the hybrid mesh across "
+                "processes, exchange/dcn.py) is still to port: ROADMAP.md "
+                "queue 1 item 9")
+        return make_mesh_plan(
+            int(self.config.get(StateOptions.NUM_KEY_SHARDS)),
+            int(self.config.get(StateOptions.SLOTS_PER_SHARD)), devices)
+
+
+def visible_devices(device: "str | torch.device" = "cuda"
+                    ) -> List[torch.device]:
+    """Every device of ``device``'s kind this process sees: each CUDA card,
+    or the one CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 class JobResult:

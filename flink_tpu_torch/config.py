@@ -63,6 +63,15 @@ class PipelineOptions:
         "sizes its fire to the ends it has. Committed output is the same "
         "either way; false runs the fire and purge at full width on every "
         "step.")
+    EXCHANGE_CAPACITY = ConfigOption(
+        "pipeline.exchange-capacity", 0,
+        "Per-(source, destination) bucket capacity of the keyBy "
+        "exchange of a key-sharded operator, in records. Bounds the "
+        "exchange buffer to devices x capacity per device. 0 = auto "
+        "(per-device block size: can never overflow). When set, batches "
+        "are SPLIT on the host so no bucket can exceed it — skewed keys "
+        "cost extra steps, never data (ref: credit-based flow control's "
+        "no-loss property).")
 
 
 class StateOptions:
@@ -87,6 +96,30 @@ class StateOptions:
 
 
 BACKENDS = ("hbm", "spill", "lsm")
+
+
+class ClusterOptions:
+    MESH_DEVICES = ConfigOption(
+        "cluster.mesh-devices", "",
+        "Operator parallelism over a mesh of device blocks: '' = "
+        "single-device local execution, 'all' = every visible device, "
+        "an integer N = the first N devices. Each block owns "
+        "num-key-shards/N contiguous key shards (the key-group range of "
+        "its 'subtask'); keyed records reach their owner through the "
+        "keyBy exchange (ref: parallelism.default + slot assignment, "
+        "KeyGroupRangeAssignment).")
+    NUM_PROCESSES = ConfigOption(
+        "cluster.num-processes", 1,
+        "Host-process count of ONE job. Only 1 is ported: the hybrid "
+        "mesh across processes (the DCN tier) is still to port.")
+    EXCHANGE_IMPL = ConfigOption(
+        "exchange.impl", "all-to-all",
+        "Keyed-exchange pattern (the Shuffle SPI seam, ref: "
+        "runtime/shuffle ShuffleMaster/ShuffleEnvironment): "
+        "'all-to-all' = every block's buckets straight to their owners; "
+        "'ring' = N neighbour hops around the ring of blocks. "
+        "Third-party implementations register via "
+        "exchange.spi.register_shuffle.")
 
 
 class AnalysisOptions:
@@ -167,6 +200,11 @@ class Configuration:
                 f"pipeline.sub-batches ({k}) must divide "
                 f"pipeline.microbatch-size ({mb}): sub-batches are equal "
                 "slices of the logical batch")
+        xcap = int(self.get(PipelineOptions.EXCHANGE_CAPACITY))
+        if xcap < 0:
+            raise ValueError(
+                f"pipeline.exchange-capacity must be >= 0 (0 = auto), "
+                f"got {xcap}")
         for opt in (PipelineOptions.MICROBATCH_SIZE,
                     PipelineOptions.MAX_INFLIGHT_STEPS,
                     StateOptions.NUM_KEY_SHARDS,

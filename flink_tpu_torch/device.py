@@ -3,6 +3,7 @@ for the CPU: asking for CUDA where there is none raises, it never
 silently picks the CPU."""
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -22,3 +23,11 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
+
+
+def on_device(device: torch.device):
+    """A context in which kernels launch on ``device``'s current stream:
+    the current CUDA device for a card, nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

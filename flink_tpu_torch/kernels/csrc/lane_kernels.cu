@@ -56,7 +56,9 @@ static_assert(kThreads == kRadixDigits, "one thread per radix digit");
 // selected cells, the window's lane values. Row 0 of the buffer is the
 // head [n selected, 0, ...]; rows 1..min(n, cap) are [row, end - pane_lo,
 // count] — or, in the count-only packed2 layout, [(row << 8) | delta,
-// count]. The lanes go to a (cap, S + M + m) f32 buffer in the same row
+// count]. ``row_offset`` is added to the row column of the 3-column
+// layout: a key-sharded operator's device block passes its first global
+// row (flink_tpu/ops/window.py:1552 fire_shard). The lanes go to a (cap, S + M + m) f32 buffer in the same row
 // order; the aggregate's finalize runs on them in torch.
 //
 // Bound: bytes — the count lane's live columns once, each selected cell's
@@ -99,8 +101,8 @@ __global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, 
                                   const float* __restrict__ maxs, int32_t mw,
                                   const float* __restrict__ mins, int32_t nw,
                                   int32_t* __restrict__ out, int32_t out_cols, int32_t out_cap,
-                                  int32_t packed2, float* __restrict__ lanes,
-                                  int32_t* __restrict__ err) {
+                                  int32_t packed2, int32_t row_offset,
+                                  float* __restrict__ lanes, int32_t* __restrict__ err) {
   const int32_t L = sw + mw + nw;
   compact_write(
       rows * (int64_t)W, block_counts, n_blocks, out_cap,
@@ -115,7 +117,7 @@ __global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, 
           dst[0] = ((int32_t)r << 8) | delta;
           dst[1] = wc[i];
         } else {
-          dst[0] = (int32_t)r;
+          dst[0] = (int32_t)r + row_offset;
           dst[1] = delta;
           dst[2] = wc[i];
         }
@@ -178,19 +180,23 @@ __global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, 
 // the equal digits before it in the tile (a warp's ranks from
 // __match_any_sync, warps in record order), which keeps the sort stable.
 // An index outside the state takes the sentinel cell n_cells, sorts last,
-// is skipped, and sets kErrScatterLanes.
+// is skipped, and sets kErrScatterLanes; with skip_negative a negative
+// index (an invalid record of a key-sharded block's received buckets)
+// takes the sentinel without the error.
 //
 // Bound: bytes — idx once, each record's lanes once, each touched cell's
 // lanes and count read and written once. The sort's own passes (~24 bytes
 // a record a pass) and the run fold's gathers come on top.
 
 __global__ void lanes_prep_kernel(const int32_t* __restrict__ idx, int64_t n, int64_t n_cells,
-                                  int32_t* __restrict__ keys, int32_t* __restrict__ vals,
-                                  int32_t* __restrict__ err) {
+                                  int32_t skip_negative, int32_t* __restrict__ keys,
+                                  int32_t* __restrict__ vals, int32_t* __restrict__ err) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     int32_t c = idx[i];
-    if (c < 0 || (int64_t)c >= n_cells) {
+    if (c < 0 && skip_negative) {
+      c = (int32_t)n_cells;  // an invalid record: sorts last, is skipped
+    } else if (c < 0 || (int64_t)c >= n_cells) {
       atomicOr(err, kErrScatterLanes);
       c = (int32_t)n_cells;
     }
@@ -433,7 +439,8 @@ int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float*
                  const float* maxs, int32_t mw, const float* mins, int32_t nw,
                  const int64_t* end_panes, const uint8_t* w_valid, int32_t W, int64_t pane_lo,
                  int64_t pane_hi, int32_t ppw, const uint8_t* used, int32_t* out,
-                 int32_t out_cols, int32_t out_cap, int32_t packed2, float* lanes, int32_t* wc,
+                 int32_t out_cols, int32_t out_cap, int32_t packed2, int32_t row_offset,
+                 float* lanes, int32_t* wc,
                  int32_t* block_counts, int32_t* err, void* stream) {
   const int64_t K = rows * (int64_t)W;
   if (K <= 0) return (int)cudaGetLastError();
@@ -446,7 +453,7 @@ int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float*
   fire_write_kernel<<<n_blocks, kThreads, 0, s>>>(wc, rows, W, used, block_counts, n_blocks,
                                                   end_panes, pane_lo, pane_hi, ppw, ring, sums,
                                                   sw, maxs, mw, mins, nw, out, out_cols, out_cap,
-                                                  packed2, lanes, err);
+                                                  packed2, row_offset, lanes, err);
   return (int)cudaGetLastError();
 }
 
@@ -457,12 +464,13 @@ int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float*
 int lk_scatter_lanes(int32_t* counts, float* sums, int32_t sw, float* maxs, int32_t mw,
                      float* mins, int32_t nw, int64_t n_cells, const int32_t* idx,
                      const float* s_in, const float* mx_in, const float* mn_in, int64_t n,
-                     int32_t bits, int32_t* keys_a, int32_t* vals_a, int32_t* keys_b,
+                     int32_t skip_negative, int32_t bits, int32_t* keys_a, int32_t* vals_a, int32_t* keys_b,
                      int32_t* vals_b, int32_t* hist, int32_t* chunk, int32_t* head_of,
                      float* sorted, int32_t* err, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  lanes_prep_kernel<<<grid_for(n), kThreads, 0, s>>>(idx, n, n_cells, keys_a, vals_a, err);
+  lanes_prep_kernel<<<grid_for(n), kThreads, 0, s>>>(idx, n, n_cells, skip_negative, keys_a,
+                                                     vals_a, err);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int32_t n_blocks = (int32_t)((n + kRadixTile - 1) / kRadixTile);

@@ -230,7 +230,7 @@ __global__ void lanes_write_kernel(const int32_t* __restrict__ wcounts,
                                    int32_t ring_cols) {
   topn_ring_append(
       rows, W, wcounts, block_counts, n_blocks, *old_total, end_panes, anchor, sel_cap, ring,
-      row_cap, ring_cols,
+      row_cap, ring_cols, 0,
       [&](int64_t i) { return lanes_selected(wcounts, v, i, W, used, w_valid, thresh); },
       [&](int64_t i, int32_t* dst) {
         for (int32_t f = 0; f < F; ++f) dst[f] = cols[i * F + f];

@@ -159,12 +159,17 @@ __global__ void topn_threshold_kernel(const int32_t* __restrict__ wcounts, int64
   if (threadIdx.x == 0) thresh[w] = result;
 }
 
+// ``old_total`` non-null (the distributed mode, which has no threshold
+// pass): block 0 also takes the ring head's snapshot.
 __global__ void topn_count_kernel(const int32_t* __restrict__ wcounts, int64_t rows, int32_t W,
                                   const uint8_t* __restrict__ used,
                                   const uint8_t* __restrict__ w_valid,
                                   const float* __restrict__ thresh,
-                                  int32_t* __restrict__ block_counts, FireSource src) {
+                                  int32_t* __restrict__ block_counts, FireSource src,
+                                  const int32_t* __restrict__ ring,
+                                  long long* __restrict__ old_total) {
   if (src.skip()) return;
+  if (old_total != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *old_total = ring[0];
   compact_count(
       rows * (int64_t)W,
       [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
@@ -179,11 +184,11 @@ __global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t r
                                   const long long* __restrict__ old_total,
                                   const int64_t* __restrict__ end_panes, FireSource src,
                                   int32_t sel_cap, int32_t* __restrict__ ring,
-                                  int32_t row_cap, int32_t ring_cols) {
+                                  int32_t row_cap, int32_t ring_cols, int32_t row_offset) {
   if (src.skip()) return;
   topn_ring_append(
       rows, W, wcounts, block_counts, n_blocks, *old_total, end_panes, src.get().anchor, sel_cap,
-      ring, row_cap, ring_cols,
+      ring, row_cap, ring_cols, row_offset,
       [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
       [](int64_t, int32_t*) {});
 }
@@ -203,12 +208,119 @@ inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const ui
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   topn_count_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
-                                                   block_counts, src);
+                                                   block_counts, src, nullptr, nullptr);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
   topn_write_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
                                                    block_counts, n_blocks, old_total, end_panes,
-                                                   src, sel_cap, ring, ring_rows - 2, ring_cols);
+                                                   src, sel_cap, ring, ring_rows - 2, ring_cols,
+                                                   0);
+  return (int)cudaGetLastError();
+}
+
+// ---- K3 distributed mode (a key-sharded operator's top-n) -----------------
+// The reference's topn_shard (flink_tpu/ops/window.py:1585-1626): each
+// device block ranks its own rows, the blocks' top-k values per window are
+// gathered, the global threshold is the k-th largest of them, and each
+// block selects its rows against that global threshold and appends them,
+// with their global row ids, to its own emit ring. Three kernels:
+//   topn_candidates_kernel  (a) one block per window: the window's top k
+//      candidate values of this device block, descending, each repeated
+//      as often as it occurs, -inf past the candidates (lax.top_k's
+//      (W, k) output over the -inf-masked values);
+//   topn_global_threshold_kernel  one block per window: the k-th largest
+//      of the gathered (W, M) candidates, ties counted, -inf when fewer
+//      than k are finite;
+//   (b) K3's count and write kernels with that threshold and the block's
+//      row offset (launch_topn_given).
+// Bound: bytes — (a) reads the (rows x W) window counts and the used
+// mask once per round (one round for Q5's top-1), the rest is a few
+// hundred bytes; (b) as K3.
+
+__global__ void topn_candidates_kernel(const int32_t* __restrict__ wcounts, int64_t rows,
+                                       int32_t W, const uint8_t* __restrict__ used,
+                                       const uint8_t* __restrict__ w_valid, int32_t k,
+                                       float* __restrict__ cand) {
+  __shared__ float s_max[kWarps];
+  __shared__ long long s_sum[kWarps];
+  const int32_t w = blockIdx.x;
+  float* out = cand + (int64_t)w * k;
+  int32_t filled = 0;
+  if (w_valid[w]) {
+    float ceiling = INFINITY;  // each round looks only below it
+    while (filled < k) {
+      float m = -INFINITY;
+      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int32_t c = wcounts[r * W + w];
+        if (c > 0 && used[r]) {
+          const float v = (float)c;
+          if (v < ceiling && v > m) m = v;
+        }
+      }
+      m = block_max(m, s_max);
+      if (m == -INFINITY) break;  // no candidate left
+      long long cnt = 0;
+      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int32_t c = wcounts[r * W + w];
+        if (c > 0 && used[r] && (float)c == m) ++cnt;
+      }
+      cnt = block_sum(cnt, s_sum);
+      const int32_t take = cnt < (long long)(k - filled) ? (int32_t)cnt : k - filled;
+      for (int32_t j = threadIdx.x; j < take; j += blockDim.x) out[filled + j] = m;
+      filled += take;
+      ceiling = m;
+    }
+  }
+  for (int32_t j = filled + threadIdx.x; j < k; j += blockDim.x) out[j] = -INFINITY;
+}
+
+__global__ void topn_global_threshold_kernel(const float* __restrict__ cand, int32_t M,
+                                             int32_t k, float* __restrict__ thresh) {
+  __shared__ float s_max[kWarps];
+  __shared__ long long s_sum[kWarps];
+  const float* row = cand + (int64_t)blockIdx.x * M;
+  float result = -INFINITY;
+  float ceiling = INFINITY;
+  long long need = k;
+  for (int32_t round = 0; round < k; ++round) {
+    float m = -INFINITY;
+    for (int32_t i = threadIdx.x; i < M; i += blockDim.x) {
+      const float v = row[i];
+      if (v < ceiling && v > m) m = v;
+    }
+    m = block_max(m, s_max);
+    if (m == -INFINITY) break;  // fewer than k finite candidates
+    long long c = 0;
+    for (int32_t i = threadIdx.x; i < M; i += blockDim.x) c += row[i] == m;
+    need -= block_sum(c, s_sum);
+    if (need <= 0) {
+      result = m;
+      break;
+    }
+    ceiling = m;
+  }
+  if (threadIdx.x == 0) thresh[blockIdx.x] = result;
+}
+
+// (b): scratch block_counts (ceil(rows*W / kTile) int32), old_total (one
+// int64); ``thresh`` is the global threshold on this block's device
+inline int launch_topn_given(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
+                             const int64_t* end_panes, const uint8_t* w_valid, int64_t anchor,
+                             const float* thresh, int32_t row_offset, int32_t sel_cap,
+                             int32_t* ring, int32_t ring_rows, int32_t ring_cols,
+                             int32_t* block_counts, long long* old_total, cudaStream_t s) {
+  const int64_t K = rows * (int64_t)W;
+  if (K <= 0 || W <= 0) return (int)cudaGetLastError();
+  const int32_t n_blocks = compact_blocks(K);
+  const FireSource src = host_fire(0, 0, anchor);
+  topn_count_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
+                                                   block_counts, src, ring, old_total);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  topn_write_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
+                                                   block_counts, n_blocks, old_total, end_panes,
+                                                   src, sel_cap, ring, ring_rows - 2, ring_cols,
+                                                   row_offset);
   return (int)cudaGetLastError();
 }
 

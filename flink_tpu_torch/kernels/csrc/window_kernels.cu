@@ -21,7 +21,11 @@
 // K2 window_counts        replaces flink_tpu/ops/window.py:286 fire_kernel
 //                         count output (:355-365)
 // K3 topn_select_append   replaces flink_tpu/ops/window.py:547
-//                         _ring_append_topn_core + :456 _topn_select_append
+//                         _ring_append_topn_core + :456 _topn_select_append;
+//                         its distributed mode (topn_candidates,
+//                         topn_global_threshold, topn_select_given)
+//                         replaces :1585 topn_shard's top_k, all_gather
+//                         threshold and select
 // K4 ring_columns         replaces flink_tpu/ops/window.py:825 clear_kernel
 //                         and :888 ring_remap_kernel (every lane)
 // K7 split_cells          replaces flink_tpu/ops/window.py:101 split_decode
@@ -52,14 +56,17 @@ constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
 // well under a microsecond of HBM time, so the launch dominates. Design:
 // one thread per entry, integer atomicAdd (exact in any order, so no
 // sort or segment pass is needed). An out-of-range index is not written
-// (a malformed upload cannot corrupt memory) and sets kErrScatterIndex.
+// (a malformed upload cannot corrupt memory) and sets kErrScatterIndex;
+// with skip_negative a negative index is an invalid record, skipped
+// silently (a key-sharded block's received buckets pad with -1).
 __global__ void scatter_counts_kernel(int32_t* __restrict__ counts, int64_t n_cells,
                                       const int32_t* __restrict__ idx,
                                       const int32_t* __restrict__ cnt, int64_t n,
-                                      int32_t* __restrict__ err) {
+                                      int32_t skip_negative, int32_t* __restrict__ err) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int32_t c = idx[i];
+    if (c < 0 && skip_negative) continue;
     if (c < 0 || (int64_t)c >= n_cells) {
       atomicOr(err, kErrScatterIndex);
       continue;
@@ -106,10 +113,10 @@ const char* fk_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 int fk_topn_tile() { return kTile; }
 
 int fk_scatter_counts(int32_t* counts, int64_t n_cells, const int32_t* idx, const int32_t* cnt,
-                      int64_t n, int32_t* err, void* stream) {
+                      int64_t n, int32_t skip_negative, int32_t* err, void* stream) {
   if (n > 0) {
-    scatter_counts_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(counts, n_cells,
-                                                                              idx, cnt, n, err);
+    scatter_counts_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        counts, n_cells, idx, cnt, n, skip_negative, err);
   }
   return (int)cudaGetLastError();
 }
@@ -141,6 +148,35 @@ int fk_topn_select_append(const int32_t* wcounts, int64_t rows, int32_t W, const
   return launch_topn(wcounts, rows, W, used, end_panes, w_valid, host_fire(0, 0, anchor), n,
                      sel_cap, ring, ring_rows, ring_cols, thresh, block_counts, old_total,
                      (cudaStream_t)stream);
+}
+
+int fk_topn_candidates(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
+                       const uint8_t* w_valid, int32_t k, float* cand, void* stream) {
+  if (W > 0 && k > 0) {
+    topn_candidates_kernel<<<W, kThreads, 0, (cudaStream_t)stream>>>(wcounts, rows, W, used,
+                                                                    w_valid, k, cand);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fk_topn_global_threshold(const float* cand, int32_t W, int32_t M, int32_t k, float* thresh,
+                             void* stream) {
+  if (W > 0) {
+    topn_global_threshold_kernel<<<W, kThreads, 0, (cudaStream_t)stream>>>(cand, M, k, thresh);
+  }
+  return (int)cudaGetLastError();
+}
+
+// scratch: block_counts (ceil(rows*W / kTile) int32), old_total (one
+// int64) — allocated by the caller
+int fk_topn_select_given(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
+                         const int64_t* end_panes, const uint8_t* w_valid, int64_t anchor,
+                         const float* thresh, int32_t row_offset, int32_t sel_cap, int32_t* ring,
+                         int32_t ring_rows, int32_t ring_cols, int32_t* block_counts,
+                         long long* old_total, void* stream) {
+  return launch_topn_given(wcounts, rows, W, used, end_panes, w_valid, anchor, thresh, row_offset,
+                           sel_cap, ring, ring_rows, ring_cols, block_counts, old_total,
+                           (cudaStream_t)stream);
 }
 
 int fk_ring_columns(const int32_t* src, int32_t src_ring, int32_t* dst, int32_t dst_ring,

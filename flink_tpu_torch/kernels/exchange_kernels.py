@@ -1,0 +1,164 @@
+"""The key-sharded window operator's two exchange-side device functions:
+a CUDA kernel each (``csrc/exchange_kernels.cu``) and a plain PyTorch
+version each, with the same signature.
+
+- ``bucket_records`` (X1): one source block's records into padded
+  ``(n_dest, capacity)`` buckets by owner block, each record's cell
+  rebased to its owner's block, in arrival order within a bucket, with
+  the overflow per destination.
+- ``hash_keys`` (X2): the splitmix64 key mix that routes keys to key
+  shards, bit-identical to ``records.hash_keys_numpy``.
+
+As in ``window_kernels.py``: a wrapper takes the plain version only for
+tensors on the CPU and launches the kernel (or raises) for CUDA
+tensors; ``window_kernels.LAUNCHES`` counts the launches. Both are
+integer work or copies: kernel, plain version and JAX reference agree
+bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from flink_tpu_torch.kernels import devgen_kernels as dk
+from flink_tpu_torch.kernels import window_kernels as wk
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "xk_bucket_records": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P,
+                          _P, _P, _P, _P],
+    "xk_hash_keys": [_P, _I64, _P, _P],
+    "xk_bucket_tile": [],
+    "xk_error_string": [ctypes.c_int],
+}
+# the largest destination count one bucket_records launch takes (the
+# kernel's shared-memory tables, csrc kMaxDest)
+MAX_DEST = 64
+
+
+def _lib() -> ctypes.CDLL:
+    return wk.load_library("exchange_kernels", _SIGNATURES, "xk_error_string")
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    wk.launch(_lib(), "xk_error_string", name, fn, *args)
+
+
+# -- X1 ------------------------------------------------------------------------
+
+def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
+                   n_dest: int, capacity: int, spd: int, ring: int
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                              torch.Tensor, torch.Tensor]:
+    """Bucket one source block's records by owner block.
+
+    ``cells`` is ``(B,)`` int32, each ``slot * ring + col`` over the
+    mesh's global slots; a cell outside ``[0, n_dest * spd * ring)``
+    (``-1``) is an invalid record and goes nowhere. ``payload`` is ``(B,
+    C)`` of a 4-byte dtype (the records' lifted lanes) or None. Record i
+    goes to block ``d = slot // spd`` at the next free position of its
+    bucket, in arrival order, as the cell ``(slot - d * spd) * ring +
+    col`` of d's block. Returns ``(cells (n_dest, capacity) int32, payload
+    (n_dest, capacity, C) or None, valid (n_dest, capacity) bool, overflow
+    (n_dest,) int32)``: positions past a bucket's records hold cell -1, a
+    zero payload and valid False; ``overflow[d] = max(count_d - capacity,
+    0)`` records past the capacity are dropped."""
+    wk.check_tensor(cells, "cells", torch.int32, 1)
+    B = cells.numel()
+    C = 0
+    if payload is not None:
+        if payload.dim() != 2 or payload.shape[0] != B \
+                or payload.element_size() != 4 or not payload.is_contiguous():
+            raise ValueError(
+                f"payload must be a contiguous (B, C) tensor of a 4-byte "
+                f"dtype, got {tuple(payload.shape)} {payload.dtype}")
+        C = payload.shape[1]
+    if not 1 <= n_dest <= MAX_DEST:
+        raise ValueError(f"bucket_records takes 1..{MAX_DEST} destinations, "
+                         f"got {n_dest}")
+    if capacity < 1 or spd < 1 or ring < 1:
+        raise ValueError("capacity, spd and ring must be >= 1")
+    if n_dest * spd * ring >= 2 ** 31 or n_dest * capacity >= 2 ** 31:
+        raise ValueError("bucket_records: cell or bucket index beyond int32")
+    if not wk.on_cuda("bucket_records", cells, payload):
+        return bucket_records_plain(cells, payload, n_dest, capacity, spd, ring)
+    dev = cells.device
+    out_cells = torch.empty((n_dest, capacity), dtype=torch.int32, device=dev)
+    out_payload = (torch.empty((n_dest, capacity, C), dtype=payload.dtype,
+                               device=dev) if payload is not None else None)
+    valid = torch.empty((n_dest, capacity), dtype=torch.bool, device=dev)
+    overflow = torch.empty(n_dest, dtype=torch.int32, device=dev)
+    # scratch may be freed as soon as this returns: the caching allocator
+    # hands it out again only to work queued later on the same stream
+    n_tiles = max(1, math.ceil(B / _lib().xk_bucket_tile()))
+    tile_counts = torch.empty(n_tiles * n_dest, dtype=torch.int32, device=dev)
+    _launch("bucket_records", "xk_bucket_records", cells.data_ptr(),
+            payload.data_ptr() if C else None, B, C, int(n_dest),
+            int(capacity), int(ring), int(spd), tile_counts.data_ptr(),
+            out_cells.data_ptr(), out_payload.data_ptr() if C else None,
+            valid.data_ptr(), overflow.data_ptr(), wk.stream_of(cells))
+    return out_cells, out_payload, valid, overflow
+
+
+def bucket_records_plain(cells, payload, n_dest, capacity, spd, ring):
+    dev = cells.device
+    B = cells.numel()
+    c = cells.long()
+    ok = (c >= 0) & (c < n_dest * spd * ring)
+    slot = torch.where(ok, c // ring, torch.zeros_like(c))
+    dest = torch.where(ok, slot // spd, torch.full_like(c, n_dest))
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    counts = torch.bincount(dest, minlength=n_dest + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    within = torch.arange(B, device=dev) - starts[sorted_dest]
+    keep = (sorted_dest < n_dest) & (within < capacity)
+    flat = torch.where(keep, sorted_dest * capacity + within,
+                       torch.full_like(within, n_dest * capacity))
+    local = (slot - dest.clamp(max=n_dest - 1) * spd) * ring + c % ring
+    out_cells = torch.full((n_dest * capacity + 1,), -1, dtype=torch.int32,
+                           device=dev)
+    out_cells[flat] = torch.where(keep, local[order],
+                                  torch.full_like(within, -1)).to(torch.int32)
+    valid = torch.zeros(n_dest * capacity + 1, dtype=torch.bool, device=dev)
+    valid[flat] = keep
+    out_payload = None
+    if payload is not None:
+        C = payload.shape[1]
+        out_payload = torch.zeros((n_dest * capacity + 1, C),
+                                  dtype=payload.dtype, device=dev)
+        out_payload[flat] = torch.where(keep[:, None], payload[order],
+                                        torch.zeros_like(payload[order]))
+        out_payload = out_payload[:-1].reshape(n_dest, capacity, C)
+    overflow = (counts[:n_dest] - capacity).clamp(min=0).to(torch.int32)
+    return (out_cells[:-1].reshape(n_dest, capacity), out_payload,
+            valid[:-1].reshape(n_dest, capacity), overflow)
+
+
+# -- X2 ------------------------------------------------------------------------
+
+def hash_keys(keys: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 keys → (n,) int64 splitmix64 mixes masked to 63 bits
+    (non-negative), bit-identical to ``records.hash_keys_numpy``."""
+    wk.check_tensor(keys, "keys", torch.int64, 1)
+    if not wk.on_cuda("hash_keys", keys):
+        return hash_keys_plain(keys)
+    out = torch.empty_like(keys)
+    _launch("hash_keys", "xk_hash_keys", keys.data_ptr(), keys.numel(),
+            out.data_ptr(), wk.stream_of(keys))
+    return out
+
+
+def hash_keys_plain(keys):
+    # splitmix64's finalizer on int64 bits (devgen's helpers: a logical
+    # shift, the constants as signed int64)
+    x = keys.clone()
+    x = (x ^ dk._shr(x, 30)) * dk._i64(dk._MUL1)
+    x = (x ^ dk._shr(x, 27)) * dk._i64(dk._MUL2)
+    x = x ^ dk._shr(x, 31)
+    return x & 0x7FFFFFFFFFFFFFFF

@@ -43,11 +43,11 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "lk_fire_pack": [_P, _I64, _I32, _P, _I32, _P, _I32, _P, _I32, _P, _P,
-                     _I32, _I64, _I64, _I32, _P, _P, _I32, _I32, _I32, _P,
-                     _P, _P, _P, _P],
+                     _I32, _I64, _I64, _I32, _P, _P, _I32, _I32, _I32, _I32,
+                     _P, _P, _P, _P, _P],
     "lk_scatter_lanes": [_P, _P, _I32, _P, _I32, _P, _I32, _I64, _P, _P, _P,
-                         _P, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P],
+                         _P, _I64, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P],
     "lk_scatter_pair_lanes": [_P, _P, _I32, _I64, _P, _I64, _I32, _P, _P],
     "lk_fire_tile": [],
     "lk_radix_tile": [],
@@ -117,7 +117,7 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
               maxs: Optional[torch.Tensor], mins: Optional[torch.Tensor],
               end_panes: torch.Tensor, w_valid: torch.Tensor,
               used_mask: torch.Tensor, pane_lo: int, pane_hi: int, ppw: int,
-              out_cap: int, packed2: bool
+              out_cap: int, packed2: bool, row_offset: int = 0
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fire windows ``end_panes`` over every lane and pack the selected
     cells.
@@ -135,7 +135,10 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
     mins over the window's live panes ``[end_w - ppw, end_w)`` ∩
     ``[pane_lo, pane_hi]``. Rows past n hold no data. More than
     ``out_cap`` selected cells keep the first ``out_cap`` (the kernel
-    also sets a bit in ``error_word``); the head still counts all."""
+    also sets a bit in ``error_word``); the head still counts all.
+    ``row_offset`` is added to each body row's ``r`` (a device block's
+    first global row in a key-sharded operator); the packed2 layout
+    takes none."""
     _check_lanes(counts, sums, maxs, mins)
     wk.check_tensor(end_panes, "end_panes", torch.int64, 1)
     wk.check_tensor(w_valid, "w_valid", torch.bool, 1)
@@ -149,11 +152,13 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
     L = _width(sums) + _width(maxs) + _width(mins)
     if packed2 and L:
         raise ValueError("the packed2 layout is for count-only aggregates")
+    if packed2 and row_offset:
+        raise ValueError("the packed2 layout takes no row offset")
     if not wk.on_cuda("fire_pack", counts, sums, maxs, mins, end_panes,
                       w_valid, used_mask):
         return fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid,
                                used_mask, pane_lo, pane_hi, ppw, out_cap,
-                               packed2)
+                               packed2, row_offset)
     dev = counts.device
     cols = 2 if packed2 else 3
     buf = torch.empty((out_cap + 1, cols), dtype=torch.int32, device=dev)
@@ -169,7 +174,7 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
             _width(mins), end_panes.data_ptr(), w_valid.data_ptr(), W,
             int(pane_lo), int(pane_hi), int(ppw), used_mask.data_ptr(),
             buf.data_ptr(), cols, int(out_cap), int(bool(packed2)),
-            _ptr(lanes), wc.data_ptr(), block_counts.data_ptr(),
+            int(row_offset), _ptr(lanes), wc.data_ptr(), block_counts.data_ptr(),
             wk.error_word(dev).data_ptr(), wk.stream_of(counts))
     return buf, lanes
 
@@ -188,7 +193,7 @@ def _live_columns(end_panes: torch.Tensor, ring: int, pane_lo: int,
 
 
 def fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid, used_mask,
-                    pane_lo, pane_hi, ppw, out_cap, packed2):
+                    pane_lo, pane_hi, ppw, out_cap, packed2, row_offset=0):
     dev = counts.device
     rows, ring = counts.shape
     W = end_panes.numel()
@@ -210,7 +215,7 @@ def fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid, used_mask,
         buf[1:m + 1, 0] = (r32 << 8) | delta
         buf[1:m + 1, 1] = cnt
     else:
-        buf[1:m + 1] = torch.stack([r32, delta, cnt], dim=1)
+        buf[1:m + 1] = torch.stack([r32 + int(row_offset), delta, cnt], dim=1)
     L = _width(sums) + _width(maxs) + _width(mins)
     if not L:
         return buf, None
@@ -239,7 +244,7 @@ def fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid, used_mask,
 def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
                   maxs: Optional[torch.Tensor], mins: Optional[torch.Tensor],
                   idx: torch.Tensor, s: torch.Tensor, mx: torch.Tensor,
-                  mn: torch.Tensor) -> None:
+                  mn: torch.Tensor, skip_negative: bool = False) -> None:
     """Fold records into the pane state, in place: for record i at flat
     cell ``idx[i]`` (``row * ring + column``), the count adds 1, each sum
     lane adds ``s[i]`` (a cell's records in record order), each max lane
@@ -247,7 +252,8 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     with ``mn[i]``. ``s``/``mx``/``mn`` are ``(B, width)`` f32 of the
     state's widths (zero-width where a lane family is None). An index
     outside the state raises (the kernel skips it and reports it through
-    ``error_word``)."""
+    ``error_word``) — except, with ``skip_negative``, a negative index,
+    which is an invalid record and touches nothing."""
     _check_lanes(counts, sums, maxs, mins)
     wk.check_tensor(idx, "idx", torch.int32, 1)
     B = idx.numel()
@@ -258,7 +264,8 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
                              f"{_width(lane)})")
     if not wk.on_cuda("scatter_lanes", counts, sums, maxs, mins, idx, s, mx,
                       mn):
-        return scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn)
+        return scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn,
+                                   skip_negative)
     if B == 0:
         return None
     dev = counts.device
@@ -276,7 +283,8 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     _launch("scatter_lanes", "lk_scatter_lanes", counts.data_ptr(),
             _ptr(sums), _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
             _width(mins), n_cells, idx.data_ptr(), s.data_ptr(), mx.data_ptr(),
-            mn.data_ptr(), B, bits, scratch[0].data_ptr(),
+            mn.data_ptr(), B, int(bool(skip_negative)), bits,
+            scratch[0].data_ptr(),
             scratch[1].data_ptr(), scratch[2].data_ptr(),
             scratch[3].data_ptr(), hist.data_ptr(), chunk.data_ptr(),
             head_of.data_ptr(), ordered.data_ptr(),
@@ -284,7 +292,11 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     return None
 
 
-def scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn):
+def scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn,
+                        skip_negative=False):
+    if skip_negative:
+        ok = idx >= 0
+        idx, s, mx, mn = idx[ok], s[ok], mx[ok], mn[ok]
     if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= counts.numel()):
         wk.raise_for_error_bits(8)
     ix = idx.long()

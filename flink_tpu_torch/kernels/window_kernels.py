@@ -20,8 +20,8 @@ the kernel, the plain version and the JAX reference agree bit for bit.
 The launch counts, the error word, the library loader and the argument
 checks here serve every kernel module of the port
 (``devgen_kernels.py``, ``lane_kernels.py``, ``fused_kernels.py``,
-``count_window_kernels.py``, ``topn_lanes_kernels.py`` and
-``element_kernels.py`` too).
+``count_window_kernels.py``, ``topn_lanes_kernels.py``,
+``element_kernels.py`` and ``exchange_kernels.py`` too).
 """
 from __future__ import annotations
 
@@ -51,6 +51,11 @@ LAUNCHES: Dict[str, int] = {
     "window_lanes": 0,
     "topn_select_lanes": 0,
     "segment_lanes": 0,
+    "topn_candidates": 0,
+    "topn_global_threshold": 0,
+    "topn_select_given": 0,
+    "bucket_records": 0,
+    "hash_keys": 0,
 }
 
 
@@ -104,11 +109,15 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    "fk_scatter_counts": [_P, _I64, _P, _P, _I64, _P, _P],
+    "fk_scatter_counts": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
     "fk_split_cells": [_P, _I64, _I32, _I32, _P, _P, _P],
     "fk_window_counts": [_P, _I64, _I32, _P, _P, _I32, _I64, _I64, _I32, _P, _P],
     "fk_topn_select_append": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I32, _P,
                               _I32, _I32, _P, _P, _P, _P],
+    "fk_topn_candidates": [_P, _I64, _I32, _P, _P, _I32, _P, _P],
+    "fk_topn_global_threshold": [_P, _I32, _I32, _I32, _P, _P],
+    "fk_topn_select_given": [_P, _I64, _I32, _P, _P, _P, _I64, _P, _I32, _I32,
+                             _P, _I32, _I32, _P, _P, _P],
     "fk_ring_columns": [_P, _I32, _P, _I32, _I64, _P, _P, _P, _P],
     "fk_ring_columns_f32": [_P, _I32, _P, _I32, _I64, _I32, _P, _P,
                             ctypes.c_float, _P, _P],
@@ -183,11 +192,14 @@ def stream_of(t: torch.Tensor) -> int:
 # -- K1 ----------------------------------------------------------------------
 
 def scatter_counts(counts: torch.Tensor, idx: torch.Tensor,
-                   cnt: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   cnt: Optional[torch.Tensor] = None,
+                   skip_negative: bool = False) -> torch.Tensor:
     """``counts.view(-1)[idx[i]] += cnt[i]`` (``+= 1`` without ``cnt``),
     in place. ``idx`` is the int32 flat cell index ``row * ring + col``;
     an entry outside the tensor raises (the kernel skips it and reports
-    it through ``error_word``). Returns ``counts``."""
+    it through ``error_word``) — except, with ``skip_negative``, a
+    negative entry, which is an invalid record and touches nothing.
+    Returns ``counts``."""
     check_tensor(counts, "counts", torch.int32, 2)
     check_tensor(idx, "idx", torch.int32, 1)
     if cnt is not None:
@@ -195,15 +207,20 @@ def scatter_counts(counts: torch.Tensor, idx: torch.Tensor,
         if cnt.numel() != idx.numel():
             raise ValueError("cnt and idx differ in length")
     if not on_cuda("scatter_counts", counts, idx, cnt):
-        return scatter_counts_plain(counts, idx, cnt)
+        return scatter_counts_plain(counts, idx, cnt, skip_negative)
     _launch("scatter_counts", "fk_scatter_counts", counts.data_ptr(),
             counts.numel(), idx.data_ptr(),
             cnt.data_ptr() if cnt is not None else None, idx.numel(),
-            error_word(counts.device).data_ptr(), stream_of(counts))
+            int(bool(skip_negative)), error_word(counts.device).data_ptr(),
+            stream_of(counts))
     return counts
 
 
-def scatter_counts_plain(counts, idx, cnt=None):
+def scatter_counts_plain(counts, idx, cnt=None, skip_negative=False):
+    if skip_negative:
+        ok = idx >= 0
+        idx = idx[ok]
+        cnt = cnt[ok] if cnt is not None else None
     if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= counts.numel()):
         raise_for_error_bits(1)
     add = (cnt if cnt is not None
@@ -345,8 +362,127 @@ def topn_select_append_plain(wcounts, used_mask, end_panes, w_valid, anchor,
                     torch.full((), -math.inf, device=wcounts.device))
     k = min(n, rows)
     thresh = torch.topk(v.T, k, dim=1).values[:, k - 1]           # (W,)
-    flat = torch.nonzero((cand & (v >= thresh[None, :])).reshape(-1))
-    flat = flat.reshape(-1)                                        # row-major
+    _ring_append(wcounts, cand & (v >= thresh[None, :]), end_panes, anchor,
+                 0, sel_cap, emit_ring)
+    return emit_ring
+
+
+# -- K3, distributed mode ------------------------------------------------------
+# A key-sharded operator's top-n (the reference's topn_shard): each device
+# block's top-k candidates per window (topn_candidates), gathered across
+# the blocks into (W, n_blocks * k), the global k-th of them
+# (topn_global_threshold), then each block's select against it with its
+# first global row as the row offset (topn_select_given).
+
+def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
+                    w_valid: torch.Tensor, k: int) -> torch.Tensor:
+    """(W, k) f32: each window's top ``k`` candidate values (``wcounts >
+    0`` on a ``used_mask`` row of a valid window, as f32), descending,
+    each as often as it occurs; -inf past a window's candidates."""
+    check_tensor(wcounts, "wcounts", torch.int32, 2)
+    check_tensor(used_mask, "used_mask", torch.bool, 1)
+    check_tensor(w_valid, "w_valid", torch.bool, 1)
+    rows, W = wcounts.shape
+    if used_mask.numel() != rows or w_valid.numel() != W:
+        raise ValueError("used_mask/w_valid do not match wcounts")
+    if not 1 <= k <= rows:
+        raise ValueError(f"topn_candidates needs 1 <= k <= rows, got {k}")
+    if not on_cuda("topn_candidates", wcounts, used_mask, w_valid):
+        return topn_candidates_plain(wcounts, used_mask, w_valid, k)
+    cand = torch.empty((W, k), dtype=torch.float32, device=wcounts.device)
+    _launch("topn_candidates", "fk_topn_candidates", wcounts.data_ptr(), rows,
+            W, used_mask.data_ptr(), w_valid.data_ptr(), int(k),
+            cand.data_ptr(), stream_of(wcounts))
+    return cand
+
+
+def topn_candidates_plain(wcounts, used_mask, w_valid, k):
+    cand = (wcounts > 0) & used_mask[:, None] & w_valid[None, :]
+    v = torch.where(cand, wcounts.to(torch.float32),
+                    torch.full((), -math.inf, device=wcounts.device))
+    return torch.topk(v.T, k, dim=1).values
+
+
+def topn_global_threshold(cands: torch.Tensor, k: int) -> torch.Tensor:
+    """(W,) f32: the ``k``-th largest of each row of the gathered ``(W,
+    M)`` candidates, ties counted; -inf when a row has fewer than ``k``
+    finite values."""
+    check_tensor(cands, "cands", torch.float32, 2)
+    W, M = cands.shape
+    if not 1 <= k <= M:
+        raise ValueError(f"topn_global_threshold needs 1 <= k <= {M}, got {k}")
+    if not on_cuda("topn_global_threshold", cands):
+        return topn_global_threshold_plain(cands, k)
+    thresh = torch.empty(W, dtype=torch.float32, device=cands.device)
+    _launch("topn_global_threshold", "fk_topn_global_threshold",
+            cands.data_ptr(), W, M, int(k), thresh.data_ptr(),
+            stream_of(cands))
+    return thresh
+
+
+def topn_global_threshold_plain(cands, k):
+    return torch.topk(cands, k, dim=1).values[:, k - 1].contiguous()
+
+
+def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
+                      end_panes: torch.Tensor, w_valid: torch.Tensor,
+                      anchor: int, thresh: torch.Tensor, row_offset: int,
+                      sel_cap: int, emit_ring: torch.Tensor) -> torch.Tensor:
+    """``topn_select_append`` against a given per-window threshold
+    ``thresh`` ((W,) f32, the global one): candidates with ``count >=
+    thresh[w]`` are appended in row-major (row, window) order as ``[row +
+    row_offset, end_pane - anchor, count]``, the head moved the same
+    way. In place; returns ``emit_ring``."""
+    check_tensor(wcounts, "wcounts", torch.int32, 2)
+    check_tensor(used_mask, "used_mask", torch.bool, 1)
+    check_tensor(end_panes, "end_panes", torch.int64, 1)
+    check_tensor(w_valid, "w_valid", torch.bool, 1)
+    check_tensor(thresh, "thresh", torch.float32, 1)
+    check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+    rows, W = wcounts.shape
+    if used_mask.numel() != rows or end_panes.numel() != W \
+            or w_valid.numel() != W or thresh.numel() != W:
+        raise ValueError("used_mask/end_panes/w_valid/thresh do not match "
+                         "wcounts")
+    if emit_ring.shape[1] != 3 or emit_ring.shape[0] < 3:
+        raise ValueError(
+            f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
+    if sel_cap < 1:
+        raise ValueError("sel_cap must be >= 1")
+    if not on_cuda("topn_select_given", wcounts, used_mask, end_panes,
+                    w_valid, thresh, emit_ring):
+        return topn_select_given_plain(wcounts, used_mask, end_panes, w_valid,
+                                       anchor, thresh, row_offset, sel_cap,
+                                       emit_ring)
+    dev = wcounts.device
+    n_blocks = max(1, math.ceil(rows * W / _lib().fk_topn_tile()))
+    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+    old_total = torch.empty(1, dtype=torch.int64, device=dev)
+    _launch("topn_select_given", "fk_topn_select_given", wcounts.data_ptr(),
+            rows, W, used_mask.data_ptr(), end_panes.data_ptr(),
+            w_valid.data_ptr(), int(anchor), thresh.data_ptr(),
+            int(row_offset), int(sel_cap), emit_ring.data_ptr(),
+            emit_ring.shape[0], emit_ring.shape[1], block_counts.data_ptr(),
+            old_total.data_ptr(), stream_of(wcounts))
+    return emit_ring
+
+
+def topn_select_given_plain(wcounts, used_mask, end_panes, w_valid, anchor,
+                            thresh, row_offset, sel_cap, emit_ring):
+    rows, W = wcounts.shape
+    cand = (wcounts > 0) & used_mask[:, None] & w_valid[None, :]
+    sel = cand & (wcounts.to(torch.float32) >= thresh[None, :])
+    _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,
+                 emit_ring)
+    return emit_ring
+
+
+def _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,
+                 emit_ring):
+    """Append the selected (row, window) cells in row-major order: the
+    plain versions' half of compact.cuh's ``topn_ring_append``."""
+    W = wcounts.shape[1]
+    flat = torch.nonzero(sel.reshape(-1)).reshape(-1)            # row-major
     total_sel = flat.numel()
     m = min(total_sel, sel_cap)
     r = flat[:m] // W
@@ -355,11 +491,10 @@ def topn_select_append_plain(wcounts, used_mask, end_panes, w_valid, anchor,
     total = int(emit_ring[0, 0])
     pos = (total + torch.arange(m, device=wcounts.device)) % row_cap + 1
     emit_ring[pos] = torch.stack(
-        [r.to(torch.int32), (end_panes[w] - int(anchor)).to(torch.int32),
-         wcounts[r, w]], dim=1)
+        [r.to(torch.int32) + int(row_offset),
+         (end_panes[w] - int(anchor)).to(torch.int32), wcounts[r, w]], dim=1)
     emit_ring[0, 0] = total + m
     emit_ring[0, 1] += total_sel - m
-    return emit_ring
 
 
 # -- K4 ----------------------------------------------------------------------

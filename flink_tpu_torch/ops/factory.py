@@ -1,10 +1,12 @@
 """Operator factories: build the runtime operator of a plan node. The
 window, element-path window and count-window operators are ported; the
-state backend (``hbm`` or ``spill``) and the drop policy reach them
-through the context."""
+state backend (``hbm`` or ``spill``), the drop policy and, for a keyed
+window over a mesh of device blocks, the mesh plan and its exchange's
+capacity and pattern reach them through the context."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -25,6 +27,12 @@ class OperatorBuildContext:
     # state.allow-drops: drop and count a full shard's records instead
     # of failing the job
     allow_drops: bool = False
+    # cluster.mesh-devices: the mesh of device blocks a keyed window runs
+    # over (None = one device), pipeline.exchange-capacity (None = auto)
+    # and exchange.impl
+    mesh_plan: Optional[Any] = None
+    exchange_capacity: Optional[int] = None
+    exchange_impl: str = "all-to-all"
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
@@ -42,6 +50,9 @@ def _window_factory(node, ctx: OperatorBuildContext):
         max_inflight_steps=ctx.max_inflight_steps,
         fire_gate=ctx.fire_gate,
         device=ctx.device,
+        mesh_plan=ctx.mesh_plan,
+        exchange_capacity=ctx.exchange_capacity,
+        exchange_impl=ctx.exchange_impl,
     )
     op.allow_drops = ctx.allow_drops
     return op

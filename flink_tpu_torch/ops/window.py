@@ -65,7 +65,27 @@ both packages fire the same windows and emit the same rows in the same
 order. A processing-time assigner stamps each record with the
 operator's clock (``op.clock``, injectable) at ingest, and
 ``advance_processing_time`` fires what the clock has passed, over the
-same kernels. The mesh is in ROADMAP.md.
+same kernels.
+
+With a ``mesh_plan`` (``cluster.mesh-devices``) the operator is sharded
+by key, as the reference's ``_build_sharded_kernels`` is: the pane state is
+one block of ``rows_per_device`` rows per device of the plan, each
+block's key slots a contiguous range of the global slots. A batch takes
+the per-record path with global cells (3 bytes a record while the global
+slot fits uint16 and the ring 256 columns, decoded by ``split_cells``),
+split on the host so that no exchange bucket overflows
+(``_split_for_exchange``); source block j is records ``[j L, (j + 1)
+L)`` of the padded chunk. Each source block's records are lifted,
+bucketed by owner with ``bucket_records`` and exchanged
+(``exchange/spi.py``); each block folds what it received into its own
+state with ``scatter_counts`` / ``scatter_lanes``. A fire without top-n
+runs ``fire_pack`` on every block with its first global row as the row
+offset; a count top-n runs ``window_counts`` and ``topn_candidates`` on
+every block, ``topn_global_threshold`` over the gathered candidates, and
+``topn_select_given`` on every block into that block's own emit ring,
+which the drain reads in block order. Purge and growth run on every
+block. Snapshots hold the blocks end to end (the reference's global row
+layout) and restore across block counts.
 """
 from __future__ import annotations
 
@@ -82,13 +102,15 @@ import torch
 from flink_tpu_torch import native_codec as nc
 from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.config import PipelineOptions
-from flink_tpu_torch.device import resolve_device
+from flink_tpu_torch.device import on_device, resolve_device
+from flink_tpu_torch.exchange.spi import get_shuffle
 from flink_tpu_torch.kernels import devgen_kernels as dk
 from flink_tpu_torch.kernels import fused_kernels as fk
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import topn_lanes_kernels as tk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
+from flink_tpu_torch.parallel.mesh import row_to_slot, slot_to_row
 from flink_tpu_torch.records import device_cast
 from flink_tpu_torch.state.keyed import (
     KeyDirectory, PaneState, PaneStateLayout, account_full_drop, init_state)
@@ -476,9 +498,10 @@ class DeviceTimer:
 
 class WindowOperator:
     """Drives the window kernels for one keyed event-time window
-    aggregation on one device: with ``.top(n)`` through the emit ring,
-    without through packed fires; keys past the directory's slots on
-    the host with ``spill``."""
+    aggregation on one device, or key-sharded over a mesh of device
+    blocks: with ``.top(n)`` through the emit ring, without through
+    packed fires; keys past the directory's slots on the host with
+    ``spill``."""
 
     # rows of the device emit ring between host polls; overflow is
     # detected from the ring's monotone head counter and raises
@@ -498,6 +521,9 @@ class WindowOperator:
         max_inflight_steps: int = PipelineOptions.MAX_INFLIGHT_STEPS.default,
         fire_gate: bool = PipelineOptions.FIRE_GATE.default,
         device: "str | torch.device" = "cuda",
+        mesh_plan: Optional[Any] = None,
+        exchange_capacity: Optional[int] = None,
+        exchange_impl: str = "all-to-all",
     ) -> None:
         # processing-time mode: records are stamped with the operator's
         # clock at ingest and fires ride advance_processing_time — the
@@ -539,18 +565,50 @@ class WindowOperator:
             self._topn_lanes = not (
                 by == "count" and sorted(res) == ["count"]
                 and (agg.sum_width, agg.max_width, agg.min_width) == (0, 0, 0))
-        self.device = resolve_device(device)
+        if exchange_capacity is not None and exchange_capacity < 0:
+            raise ValueError(
+                f"exchange_capacity must be >= 0, got {exchange_capacity}")
+        # 0 means auto, as the configuration option does
+        self.exchange_capacity = exchange_capacity or None
+        self.exchange_overflow = 0
+        # bytes the exchange copied between distinct device blocks
+        self.exchange_bytes = 0
+        # one device-side overflow total per sharded push, resolved lazily
+        self._overflow_markers: collections.deque = collections.deque()
+        self.mesh_plan = mesh_plan
+        if mesh_plan is not None:
+            if self._topn_lanes:
+                raise NotImplementedError(
+                    "top-n by a result field over lanes on a device mesh "
+                    "(the lane form of the reference's topn_shard) is still "
+                    "to port: ROADMAP.md queue 1 item 9.1; a mesh ranks "
+                    "count() by its count")
+            if spill:
+                raise NotImplementedError(
+                    "state.backend='spill' on a device mesh is still to "
+                    "port: ROADMAP.md queue 1 item 9.2")
+            self._shuffle = get_shuffle(exchange_impl)
+            num_shards = mesh_plan.num_shards
+            slots_per_shard = mesh_plan.slots_per_shard
+            self._devices = [resolve_device(d) for d in mesh_plan.devices]
+        else:
+            self._devices = [resolve_device(device)]
+        # the home device: host uploads, the emit ring's first block,
+        # the timer's spans
+        self.device = self._devices[0]
         self.plan = WindowPlan.plan(
             assigner, allowed_lateness_ms=allowed_lateness_ms,
             max_out_of_orderness_ms=max_out_of_orderness_ms)
         self.directory = KeyDirectory(num_shards, slots_per_shard)
-        self.layout = PaneStateLayout(slots=self.directory.local_slots,
-                                      ring=self.plan.ring,
-                                      sum_width=agg.sum_width,
-                                      max_width=agg.max_width,
-                                      min_width=agg.min_width)
+        self.layout = PaneStateLayout(
+            slots=(mesh_plan.slots_per_device if mesh_plan is not None
+                   else self.directory.local_slots),
+            ring=self.plan.ring, sum_width=agg.sum_width,
+            max_width=agg.max_width, min_width=agg.min_width)
         self._check_cell_index()
-        self.state = init_state(self.layout, self.device)
+        # the pane state: one block per device of the mesh (one block
+        # without a mesh, ``state``)
+        self._blocks = [init_state(self.layout, d) for d in self._devices]
         # result fields in packed-buffer column order, which are ints,
         # and their empty columns for a fire with no rows
         self._res_fields = sorted(res)
@@ -589,15 +647,16 @@ class WindowOperator:
         self._stash: Optional[Tuple[int, np.ndarray]] = None
         self._pairs = PinnedStage(self.device, PAIR_SLOTS, PAIR_SLOT_BYTES)
         self._preagg_ws: Optional[nc.PreaggWorkspace] = None
-        # device emit ring: row 0 = head [total appended, truncated, 0],
-        # rows 1..EMIT_RING_ROWS = data, last row reserved
-        self._emit_ring: Optional[torch.Tensor] = None
-        self._ring_drained = 0
+        # device emit ring, one per block: row 0 = head [total appended,
+        # truncated, 0], rows 1..EMIT_RING_ROWS = data, last row reserved;
+        # the rows drained of each
+        self._emit_rings: Optional[List[torch.Tensor]] = None
+        self._ring_drained = [0] * len(self._devices)
         self._ring_anchor: Optional[int] = None
-        # announced ring versions (version_no, host copy, host copy of
-        # the kernels' error word, CUDA event; both None on the CPU):
-        # each row-carrying fire starts a non-blocking device→host copy;
-        # a poll reads the newest copy that landed
+        # announced ring versions (version_no, per block (host copy, host
+        # copy of its device's error word, CUDA event; both None on the
+        # CPU)): each row-carrying fire starts a non-blocking device→host
+        # copy; a poll reads the newest copy that landed
         self._ring_versions: collections.deque = collections.deque(maxlen=4)
         self._ring_version_no = 0
         self._used_pushed = -1
@@ -619,6 +678,24 @@ class WindowOperator:
         self._stash_devgen: Optional[Tuple[int, int, int, bool]] = None
         self._devstats_pending: collections.deque = collections.deque()
 
+    @property
+    def state(self) -> PaneState:
+        """The pane state of an operator on one device."""
+        return self._blocks[0]
+
+    @state.setter
+    def state(self, value: PaneState) -> None:
+        self._blocks = [value]
+
+    @property
+    def _emit_ring(self) -> Optional[torch.Tensor]:
+        return self._emit_rings[0] if self._emit_rings else None
+
+    def _on_blocks(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """``t`` on each block's device (itself where it lies there)."""
+        return [t if t.device == d else t.to(d, non_blocking=True)
+                for d in self._devices]
+
     # -- sizes ------------------------------------------------------------
     def _topn_cap(self) -> int:
         """Winner capacity of one fire: n rows per window plus generous
@@ -634,7 +711,8 @@ class WindowOperator:
         processing-time mode every record takes the clock's time."""
         if self.uses_processing_time:
             ts = np.full(len(np.asarray(ts)), self.clock.now_ms(), np.int64)
-        if (self._spill is None and self._preagg_lanes() == ()
+        if (self.mesh_plan is None and self._spill is None
+                and self._preagg_lanes() == ()
                 and (valid is None or bool(np.all(valid)))
                 and self._process_batch_fused(keys, ts)):
             return
@@ -690,6 +768,10 @@ class WindowOperator:
             valid = valid & ~bad & ~full
         t2 = time.perf_counter()
         ring = self.plan.ring
+        if self.mesh_plan is not None:
+            self._apply_sharded(slots, panes, valid, data, t2)
+            self._throttle()
+            return
         lanes_f = self._preagg_lanes()
         cap = (self._preagg_gate(panes, valid, lanes_f)
                if lanes_f is not None else 0)
@@ -719,9 +801,12 @@ class WindowOperator:
     @property
     def _split_upload(self) -> bool:
         """The per-record upload goes as 3 bytes a record while the slot
-        id fits uint16 with 0xFFFF reserved (dump row included) and the
-        ring column fits a byte: the reference's rule, current after
-        every ring growth."""
+        id fits uint16 with 0xFFFF reserved (dump row included; under a
+        mesh the global slot id, below 0xFFFF) and the ring column fits a
+        byte: the reference's rule, current after every ring growth."""
+        if self.mesh_plan is not None:
+            return (len(self._devices) * self.layout.slots
+                    < wk.INVALID_SLOT_U16 and self.plan.ring <= 256)
         return (self.layout.rows <= wk.INVALID_SLOT_U16
                 and self.plan.ring <= 256)
 
@@ -796,9 +881,11 @@ class WindowOperator:
 
     # -- native lane --------------------------------------------------------
     def _fused_ok(self) -> bool:
-        """The fused step exists for count-only top-n operators without
-        spill whose ring fits the header's 64-bit clear mask."""
-        return (self._topn is not None and not self._topn_lanes
+        """The fused step exists for count-only top-n operators on one
+        device without spill whose ring fits the header's 64-bit clear
+        mask."""
+        return (self.mesh_plan is None
+                and self._topn is not None and not self._topn_lanes
                 and self._spill is None
                 and self.plan.ring <= fk.MAX_FUSED_RING)
 
@@ -1016,8 +1103,8 @@ class WindowOperator:
         ends_f, cleared_after = filled
         self._stash = None
         self._pairs.hold(None)
-        used = self._used_mask_device()
-        ring_buf = self._ensure_ring()
+        used = self._used_mask_device()[0]
+        ring_buf = self._ensure_ring()[0]
         with self.timer.span("step"):
             fk.fused_step(self.state.counts, ring_buf,
                           self._pairs.upload_slot(slot, 0, 4 * len(buf))
@@ -1031,8 +1118,9 @@ class WindowOperator:
         return self._ring_after_fire(len(ends_f))
 
     def _check_cell_index(self) -> None:
-        """Cell indices (row * ring + column) travel as int32."""
-        if self.layout.rows * self.plan.ring >= 2 ** 31:
+        """Cell indices (row * ring + column) travel as int32; a mesh's
+        packed upload carries the global cell, over every block's rows."""
+        if len(self._devices) * self.layout.rows * self.plan.ring >= 2 ** 31:
             raise NotImplementedError(
                 "pane state beyond 2^31 cells needs a 64-bit cell index "
                 "(ROADMAP.md)")
@@ -1097,6 +1185,154 @@ class WindowOperator:
         self._note_dispatch()
         self.prof["pb_dispatch"] += time.perf_counter() - t0
 
+    # -- key-sharded ingest -------------------------------------------------
+    def _apply_sharded(self, slots: np.ndarray, panes: np.ndarray,
+                       valid: np.ndarray, data: Dict[str, np.ndarray],
+                       t2: float) -> None:
+        """A batch over the mesh: global cells ``slot * ring + column``
+        (-1 invalid) with the fields the aggregate reads, split so that
+        no exchange bucket overflows, each chunk padded to its dispatch
+        length and pushed through ``_dispatch_sharded``; one device-side
+        overflow total per batch."""
+        ring = self.plan.ring
+        packed = (slots * ring + ring_column(panes, ring)).astype(np.int32)
+        packed[~valid] = -1
+        fields = {k: device_cast(data[k]) for k in self.agg.fields}
+        t3 = time.perf_counter()
+        self.prof["pb_pack"] += t3 - t2
+        n_dev = len(self._devices)
+        overflow = None
+        for pk, chunk, target in self._split_for_exchange(packed, fields,
+                                                          n_dev):
+            pad = target - len(pk)
+            if pad:
+                # the padded layout the splitter checked: source block j
+                # is records [j L, (j + 1) L) of it
+                pk = np.concatenate([pk, np.full(pad, -1, np.int32)])
+                chunk = {k: np.concatenate(
+                    [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                    for k, v in chunk.items()}
+            ov = self._dispatch_sharded(pk, chunk)
+            overflow = ov if overflow is None else overflow + ov
+        if overflow is not None:
+            self._overflow_markers.append(overflow)
+        self.prof["pb_dispatch"] += time.perf_counter() - t3
+
+    def _dispatch_sharded(self, pk: np.ndarray,
+                          fields: Dict[str, np.ndarray]) -> torch.Tensor:
+        """One padded chunk: each source block's cells uploaded to its
+        device (as 3 bytes a record while the split upload holds, decoded
+        by ``split_cells`` with the row past every block as the invalid
+        one), its fields lifted there, then the exchange and each block's
+        fold of what it received. Returns the chunk's overflow total (a
+        device scalar on the home device)."""
+        devs, n = self._devices, len(self._devices)
+        ring, spd = self.plan.ring, self.layout.slots
+        L = len(pk) // n
+        cap = self.exchange_capacity or L
+        lay = self.layout
+        widths = (lay.sum_width, lay.max_width, lay.min_width)
+        lanes = sum(widths)
+        split = self._split_upload
+        cells, payload = [], []
+        with self.timer.span("apply"):
+            for j, dev in enumerate(devs):
+                blk = pk[j * L:(j + 1) * L]
+                with on_device(dev):
+                    if split:
+                        ok = blk >= 0
+                        sc = split_encode(np.where(ok, blk // ring, 0),
+                                          np.where(ok, blk % ring,
+                                                   0).astype(np.uint8), ok)
+                        cells.append(wk.split_cells(
+                            small_upload(sc, dev), ring, n * spd))
+                    else:
+                        cells.append(small_upload(blk, dev))
+                    if not lanes:
+                        payload.append(None)
+                        continue
+                    data = {k: small_upload(v[j * L:(j + 1) * L], dev)
+                            for k, v in fields.items()}
+                    ones = torch.ones(L, dtype=torch.bool, device=dev)
+                    payload.append(torch.cat(self.agg.lift_masked(data, ones),
+                                             dim=1).contiguous())
+            recv, overflow, moved = self._shuffle(
+                cells, payload, devices=devs, capacity=cap, spd=spd,
+                ring=ring)
+            for st, dev, (r_cells, r_lanes, _) in zip(self._blocks, devs,
+                                                      recv):
+                with on_device(dev):
+                    if not lanes:
+                        wk.scatter_counts(st.counts, r_cells,
+                                          skip_negative=True)
+                        continue
+                    s, mx, mn = torch.split(r_lanes, widths, dim=1)
+                    lk.scatter_lanes(st.counts, st.sums, st.maxs, st.mins,
+                                     r_cells, s.contiguous(), mx.contiguous(),
+                                     mn.contiguous(), skip_negative=True)
+            total = sum(ov.to(self.device).sum() for ov in overflow)
+        # bytes the exchange copied between distinct blocks
+        self.exchange_bytes += moved
+        self._note_dispatch()
+        return total
+
+    @staticmethod
+    def _pow2_target(b: int, n_dev: int) -> int:
+        """Dispatch length of a ``b``-record chunk: the next power of two,
+        then aligned to the block count (the reference's rule)."""
+        t = max(n_dev, _next_pow2(max(b, 1)))
+        return t + (-t) % n_dev
+
+    def _split_for_exchange(self, packed: np.ndarray,
+                            data: Dict[str, np.ndarray], n_dev: int
+                            ) -> List[Tuple[np.ndarray, Dict, int]]:
+        """Split a batch so that no (source block, destination) bucket of
+        the exchange exceeds ``exchange_capacity``: data loss becomes
+        impossible instead of counted (a skewed key costs more steps).
+        Yields ``(chunk, data, target)``, ``target`` the padded dispatch
+        length; the check runs against the same padded block layout the
+        dispatch uses (block length ``target // n_dev``). Capacity None =
+        block-sized buckets, which cannot overflow: one chunk, no check.
+        A one-record chunk is always accepted (capacity >= 1). The
+        reference's splitter, rule for rule."""
+        cap = self.exchange_capacity
+        if cap is None:
+            return [(packed, data, self._pow2_target(len(packed), n_dev))]
+        ring, spd = self.plan.ring, self.layout.slots
+        out: List[Tuple[np.ndarray, Dict, int]] = []
+        stack = [(packed, data)]
+        while stack:
+            pk, dt = stack.pop()
+            b = len(pk)
+            if not b:
+                continue
+            target = self._pow2_target(b, n_dev)
+            L = target // n_dev
+            ok = pk >= 0
+            dest = np.where(ok, (pk // ring) // spd, 0)
+            block = np.arange(b) // L
+            flat = np.where(ok, block * n_dev + dest, n_dev * n_dev)
+            counts = np.bincount(flat, minlength=n_dev * n_dev + 1)
+            if counts[:n_dev * n_dev].max(initial=0) <= cap or b <= 1:
+                out.append((pk, dt, target))
+            else:
+                mid = b // 2
+                stack.append((pk[mid:], {k: v[mid:] for k, v in dt.items()}))
+                stack.append((pk[:mid], {k: v[:mid] for k, v in dt.items()}))
+        return out
+
+    def _resolve_overflow(self, bound: int = 0) -> None:
+        """Fold pending overflow totals (beyond the newest ``bound``) into
+        ``exchange_overflow``. With the host-side split any record lost
+        is a routing fault: raise, never under-count."""
+        while len(self._overflow_markers) > bound:
+            self.exchange_overflow += int(self._overflow_markers.popleft())
+        if self.exchange_overflow:
+            raise RuntimeError(
+                f"exchange overflow: {self.exchange_overflow} records "
+                "dropped by the keyBy exchange despite the host-side split "
+                "— per-destination routing fault")
+
     def _note_dispatch(self) -> None:
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
@@ -1109,6 +1345,7 @@ class WindowOperator:
         t0 = time.perf_counter()
         while len(self._inflight) > self.max_inflight_steps:
             self._inflight.popleft().synchronize()
+        self._resolve_overflow(bound=self.max_inflight_steps)
         self.timer.collect()
         self.prof["pb_throttle_wait"] += time.perf_counter() - t0
 
@@ -1122,9 +1359,11 @@ class WindowOperator:
         self._flush_stash()
         while self._inflight:
             self._inflight.popleft().synchronize()
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-            wk.check_errors(self.device)
+        for dev in dict.fromkeys(self._devices):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+                wk.check_errors(dev)
+        self._resolve_overflow()
         self.timer.collect(block=True)
 
     def _grow_ring(self, need: int, applied_min: Optional[int],
@@ -1144,26 +1383,34 @@ class WindowOperator:
         if hi >= lo:
             ps = np.arange(lo, hi + 1)
             cmap[ps % new_ring] = ps % old_ring
-        src_col = self._stage.upload(np.maximum(cmap, 0).astype(np.int32))
-        keep = self._stage.upload(cmap >= 0)
+        src_cols = self._on_blocks(
+            self._stage.upload(np.maximum(cmap, 0).astype(np.int32)))
+        keeps = self._on_blocks(self._stage.upload(cmap >= 0))
+        blocks = []
         with self.timer.span("grow"):
-            moved = []
-            for lane, fill in self._lanes_with_fills():
-                if lane is None:
-                    moved.append(None)
-                    continue
-                dst = torch.empty((lane.shape[0], new_ring) + lane.shape[2:],
-                                  dtype=lane.dtype, device=self.device)
-                moved.append(wk.ring_columns(lane, dst, src_col, keep, fill))
-        self.state = PaneState(*moved)
+            for st, dev, src_col, keep in zip(self._blocks, self._devices,
+                                              src_cols, keeps):
+                moved = []
+                with on_device(dev):
+                    for lane, fill in self._lanes_with_fills(st):
+                        if lane is None:
+                            moved.append(None)
+                            continue
+                        dst = torch.empty(
+                            (lane.shape[0], new_ring) + lane.shape[2:],
+                            dtype=lane.dtype, device=dev)
+                        moved.append(wk.ring_columns(lane, dst, src_col,
+                                                     keep, fill))
+                blocks.append(PaneState(*moved))
+        self._blocks = blocks
         self.plan = dataclasses.replace(self.plan, ring=new_ring)
         self.layout = dataclasses.replace(self.layout, ring=new_ring)
         self._check_cell_index()
 
-    def _lanes_with_fills(self):
-        """Every lane of the state (None at zero width) with its identity,
-        in ``PaneState`` order."""
-        st = self.state
+    @staticmethod
+    def _lanes_with_fills(st: PaneState):
+        """Every lane of a state block (None at zero width) with its
+        identity, in ``PaneState`` order."""
         return ((st.sums, 0.0), (st.maxs, -float("inf")),
                 (st.mins, float("inf")), (st.counts, 0))
 
@@ -1227,15 +1474,18 @@ class WindowOperator:
         clear, cleared_after = self._purge_columns(wm)
         if clear is not None:
             ring = self.plan.ring
-            if self._ident_cols is None or len(self._ident_cols) != ring:
-                self._ident_cols = torch.arange(ring, dtype=torch.int32,
-                                                device=self.device)
-            keep_t = self._stage.upload(~clear)
+            if self._ident_cols is None or len(self._ident_cols[0]) != ring:
+                self._ident_cols = self._on_blocks(torch.arange(
+                    ring, dtype=torch.int32, device=self.device))
+            keeps = self._on_blocks(self._stage.upload(~clear))
             with self.timer.span("purge"):
-                for lane, fill in self._lanes_with_fills():
-                    if lane is not None:
-                        wk.ring_columns(lane, lane, self._ident_cols,
-                                        keep_t, fill)
+                for st, dev, ident, keep_t in zip(
+                        self._blocks, self._devices, self._ident_cols, keeps):
+                    with on_device(dev):
+                        for lane, fill in self._lanes_with_fills(st):
+                            if lane is not None:
+                                wk.ring_columns(lane, lane, ident, keep_t,
+                                                fill)
         if self._spill is not None and cleared_after > self._cleared_below:
             self._spill.purge_below(cleared_after)
         self._cleared_below = cleared_after
@@ -1284,7 +1534,7 @@ class WindowOperator:
             return self._fire_packs(ends, lo, hi, used)
         if self._ring_anchor is None:
             self._ring_anchor = lo
-        ring_buf = self._ensure_ring()
+        rings = self._ensure_ring()
         step = (len(ends) if whole and len(ends) <= MIN_FIRE_PAD
                 else MAX_FIRE_CHUNK_RING)
         for c0 in range(0, len(ends), step):
@@ -1292,16 +1542,47 @@ class WindowOperator:
             end_t = self._stage.upload(np.asarray(chunk, np.int64))
             w_valid = self._w_valid[:len(chunk)]
             with self.timer.span("fire"):
+                if self.mesh_plan is not None:
+                    self._topn_sharded(end_t, w_valid, lo, hi, used, rings)
+                    continue
                 wc = wk.window_counts(self.state.counts, end_t, w_valid, lo,
                                       hi, ppw)
                 if self._topn_lanes:
-                    self._topn_lanes_fire(wc, end_t, w_valid, lo, hi, used,
-                                          ring_buf)
+                    self._topn_lanes_fire(wc, end_t, w_valid, lo, hi, used[0],
+                                          rings[0])
                 else:
-                    wk.topn_select_append(wc, used, end_t, w_valid,
+                    wk.topn_select_append(wc, used[0], end_t, w_valid,
                                           self._ring_anchor, self._topn[1],
-                                          self._topn_cap(), ring_buf)
+                                          self._topn_cap(), rings[0])
         return self._ring_after_fire(len(ends))
+
+    def _topn_sharded(self, end_t: torch.Tensor, w_valid: torch.Tensor,
+                      lo: int, hi: int, used: List[torch.Tensor],
+                      rings: List[torch.Tensor]) -> None:
+        """A count top-n chunk over the mesh (the reference's topn_shard):
+        each block's window counts and its top-k candidates per window,
+        k = min(n, rows_per_device); the candidates gathered on the home
+        device and their global k-th; each block's rows at or above it
+        appended to its own emit ring with their global row ids."""
+        ppw, rows = self.plan.panes_per_window, self.layout.rows
+        k = min(self._topn[1], rows)
+        ends, wvs = self._on_blocks(end_t), self._on_blocks(w_valid)
+        wcs, cands = [], []
+        for st, dev, e, wv, u in zip(self._blocks, self._devices, ends, wvs,
+                                     used):
+            with on_device(dev):
+                wc = wk.window_counts(st.counts, e, wv, lo, hi, ppw)
+                wcs.append(wc)
+                cands.append(wk.topn_candidates(wc, u, wv, k))
+        gathered = torch.cat([c.to(self.device, non_blocking=True)
+                              for c in cands], dim=1)
+        thresh = wk.topn_global_threshold(gathered, k)
+        for b, (dev, wc, e, wv, u, t, ring_b) in enumerate(zip(
+                self._devices, wcs, ends, wvs, used, self._on_blocks(thresh),
+                rings)):
+            with on_device(dev):
+                wk.topn_select_given(wc, u, e, wv, self._ring_anchor, t,
+                                     b * rows, self._topn_cap(), ring_b)
 
     def _topn_lanes_fire(self, wc: torch.Tensor, end_t: torch.Tensor,
                          w_valid: torch.Tensor, lo: int, hi: int,
@@ -1337,15 +1618,19 @@ class WindowOperator:
             chunk = ends[c0:c0 + MAX_FIRE_CHUNK]
             end_t = self._stage.upload(np.asarray(chunk, np.int64))
             cap = self._fire_cap(_next_pow2(len(chunk)))
-            st = self.state
-            with self.timer.span("fire"):
-                buf, lanes = lk.fire_pack(
-                    st.counts, st.sums, st.maxs, st.mins, end_t,
-                    self._w_valid[:len(chunk)], used, lo, hi,
-                    self.plan.panes_per_window, cap, packed2)
-                if not packed2:
-                    buf = self._finalize_pack(buf, lanes, cap)
-            packs.append((lo,) + copy_to_host(buf, self.timer))
+            # one buffer per block, in block order, its rows global
+            for b, (st, dev, e, wv, u) in enumerate(zip(
+                    self._blocks, self._devices, self._on_blocks(end_t),
+                    self._on_blocks(self._w_valid[:len(chunk)]), used)):
+                with on_device(dev):
+                    with self.timer.span("fire"):
+                        buf, lanes = lk.fire_pack(
+                            st.counts, st.sums, st.maxs, st.mins, e, wv, u,
+                            lo, hi, self.plan.panes_per_window, cap, packed2,
+                            row_offset=b * self.layout.rows)
+                        if not packed2:
+                            buf = self._finalize_pack(buf, lanes, cap)
+                    packs.append((lo,) + copy_to_host(buf, self.timer))
         return FiredWindows(op=self, packs=packs)
 
     def _finalize_pack(self, buf: torch.Tensor, lanes: Optional[torch.Tensor],
@@ -1381,8 +1666,10 @@ class WindowOperator:
 
     def _fire_packed2(self) -> bool:
         """The 2-column ``[(row << 8) | delta, count]`` layout: a
-        count-only result, slot ids < 2^23, end deltas < 2^8."""
-        return (not self._pack_fields() and self.layout.slots < (1 << 23)
+        count-only result on one device, slot ids < 2^23, end deltas <
+        2^8."""
+        return (self.mesh_plan is None and not self._pack_fields()
+                and self.layout.slots < (1 << 23)
                 and self.plan.ring + self.plan.panes_per_window < (1 << 8))
 
     def _pack_fields(self) -> List[str]:
@@ -1424,7 +1711,8 @@ class WindowOperator:
         end_pane = np.concatenate(ep_l)
         window_end = end_pane * self.plan.pane_ms + self.plan.offset_ms
         out: Dict[str, np.ndarray] = {
-            "key": self.directory.key_of_slots(rows),
+            "key": self.directory.key_of_slots(
+                row_to_slot(rows, self.layout.rows)),
             "window_start": window_end - self.plan.size_ms,
             "window_end": window_end,
             "count": np.ascontiguousarray(np.concatenate(cnt_l)),
@@ -1444,21 +1732,24 @@ class WindowOperator:
         return FiredWindows(op=self, ring=True, ring_no=self._ring_version_no)
 
     def _announce_ring(self) -> None:
-        """Start a non-blocking copy of the live emit ring, and of the
-        kernels' error word, to the host."""
-        self._ring_versions.append(
-            (self._ring_version_no,) + copy_to_host(self._emit_ring, self.timer))
+        """Start a non-blocking copy of each block's emit ring, and of its
+        device's error word, to the host."""
+        copies = []
+        for ring_b in self._emit_rings:
+            with on_device(ring_b.device):
+                copies.append(copy_to_host(ring_b, self.timer))
+        self._ring_versions.append((self._ring_version_no, copies))
 
-    def _ensure_ring(self) -> torch.Tensor:
-        """The emit ring, made at first use: row 0 the head, rows 1 ..
-        EMIT_RING_ROWS the data, the last row reserved; ``3 + F`` columns
-        (``[row, end - anchor, count]`` and the result fields but the
-        count)."""
-        if self._emit_ring is None:
-            self._emit_ring = torch.zeros(
+    def _ensure_ring(self) -> List[torch.Tensor]:
+        """The emit rings, one per block, made at first use: row 0 the
+        head, rows 1 .. EMIT_RING_ROWS the data, the last row reserved;
+        ``3 + F`` columns (``[row, end - anchor, count]`` and the result
+        fields but the count)."""
+        if self._emit_rings is None:
+            self._emit_rings = [torch.zeros(
                 (self.EMIT_RING_ROWS + 2, 3 + len(self._pack_fields())),
-                dtype=torch.int32, device=self.device)
-        return self._emit_ring
+                dtype=torch.int32, device=d) for d in self._devices]
+        return self._emit_rings
 
     def drain_ring(self, min_no: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Decode every emit-ring row appended since the previous drain.
@@ -1471,51 +1762,62 @@ class WindowOperator:
         # the host store's rows of the fires this drain reads
         extras = list(self._pending_ring_extras)
         self._pending_ring_extras.clear()
-        if self._emit_ring is None or self._ring_anchor is None:
+        if self._emit_rings is None or self._ring_anchor is None:
             return self._merge_extras(dict(self._empty()), extras)
         t0 = time.perf_counter()
         need = self._ring_version_no if min_no is None else min_no
         acceptable = [v for v in self._ring_versions if v[0] >= need]
-        host = err = None
-        for _, cand, cand_err, ev in reversed(acceptable):
-            if ev is None or ev.query():
-                host, err = cand, cand_err
+        copies = None
+        for _, cand in reversed(acceptable):
+            if all(ev is None or ev.query() for _, _, ev in cand):
+                copies = cand
                 break
-        if host is None:
+        if copies is None:
             if min_no == 0:
                 return self._merge_extras(dict(self._empty()), extras)
             if not acceptable:
                 self._announce_ring()
                 acceptable = [self._ring_versions[-1]]
-            _, host, err, ev = acceptable[0]
-            if ev is not None:
-                ev.synchronize()
-        if err is not None:
-            wk.raise_for_error_bits(int(err[0]))
-        arr = host.numpy()
+            copies = acceptable[0][1]
+            for _, _, ev in copies:
+                if ev is not None:
+                    ev.synchronize()
+        for _, err, _ in copies:
+            if err is not None:
+                wk.raise_for_error_bits(int(err[0]))
         self.prof["drain_fetch"] += time.perf_counter() - t0
-        total = int(arr[0, 0])
-        truncated = int(arr[0, 1])
-        if truncated > 0:
-            raise RuntimeError(
-                f"top-n winner-buffer truncation: {truncated} selected rows "
-                "exceeded the per-fire selection capacity (tie explosion at "
-                "the n-th value); raise n or aggregate first")
         row_cap = self.EMIT_RING_ROWS
-        new = total - self._ring_drained
-        if new > row_cap:
-            raise RuntimeError(
-                f"emit ring overflow: {new} rows appended since last drain "
-                f"> capacity {row_cap}; drain more often or raise "
-                "EMIT_RING_ROWS")
-        # a fetched ring decodes even when it holds no new row, so an
-        # empty drain has the decoded rows' columns (the reference's)
-        body = arr[(self._ring_drained + np.arange(max(new, 0))) % row_cap + 1]
-        self._ring_drained = max(total, self._ring_drained)
+        bodies = []
+        # block by block, each from its own drained count (block-major
+        # order, the reference's sharded drain)
+        for b, (host, _, _) in enumerate(copies):
+            arr = host.numpy()
+            total = int(arr[0, 0])
+            truncated = int(arr[0, 1])
+            if truncated > 0:
+                raise RuntimeError(
+                    f"top-n winner-buffer truncation: {truncated} selected "
+                    "rows exceeded the per-fire selection capacity (tie "
+                    "explosion at the n-th value); raise n or aggregate "
+                    "first")
+            drained = self._ring_drained[b]
+            new = total - drained
+            if new > row_cap:
+                raise RuntimeError(
+                    f"emit ring overflow: {new} rows appended since last "
+                    f"drain > capacity {row_cap}; drain more often or "
+                    "raise EMIT_RING_ROWS")
+            # a fetched ring decodes even when it holds no new row, so an
+            # empty drain has the decoded rows' columns (the reference's)
+            bodies.append(arr[(drained + np.arange(max(new, 0))) % row_cap
+                              + 1])
+            self._ring_drained[b] = max(total, drained)
+        body = np.concatenate(bodies)
         end_pane = self._ring_anchor + body[:, 1].astype(np.int64)
         window_end = end_pane * self.plan.pane_ms + self.plan.offset_ms
         out = {
-            "key": self.directory.key_of_slots(body[:, 0]),
+            "key": self.directory.key_of_slots(
+                row_to_slot(body[:, 0], self.layout.rows)),
             "window_start": window_end - self.plan.size_ms,
             "window_end": window_end,
             "count": np.ascontiguousarray(body[:, 2]),
@@ -1531,14 +1833,21 @@ class WindowOperator:
         return (drain_merge_extras(out, extras, self._topn) if extras
                 else out)
 
-    def _used_mask_device(self) -> torch.Tensor:
-        """(rows,) bool on the device marking registered-key rows,
-        re-uploaded only after new keys registered."""
+    def _used_mask_device(self) -> List[torch.Tensor]:
+        """Per block, (rows,) bool on its device marking registered-key
+        rows, re-uploaded only after new keys registered."""
         nk = self.directory.num_keys()
         if self._used_pushed != nk or self._used_dev is None:
-            used = np.zeros(self.layout.rows, dtype=bool)
-            used[:self.layout.slots] = self.directory.used_mask()
-            self._used_dev = self._stage.upload(used)
+            rows = self.layout.rows
+            used = np.zeros(len(self._devices) * rows, dtype=bool)
+            used[slot_to_row(np.flatnonzero(self.directory.used_mask()),
+                             self.layout.slots)] = True
+            parts = [used[b * rows:(b + 1) * rows]
+                     for b in range(len(self._devices))]
+            self._used_dev = [
+                self._stage.upload(part) if dev == self.device
+                else small_upload(part, dev)
+                for part, dev in zip(parts, self._devices)]
             self._used_pushed = nk
         return self._used_dev
 
@@ -1561,8 +1870,10 @@ class WindowOperator:
         this operator cannot host it; the driver then feeds the batches
         from the host."""
         # miss repair's probe needs the C key table, as in the reference;
-        # with spill the reference feeds the batches from the host too
-        if self._topn is None or self._topn_lanes or self._spill is not None \
+        # with spill or a mesh the reference feeds the batches from the
+        # host too
+        if self.mesh_plan is not None \
+                or self._topn is None or self._topn_lanes or self._spill is not None \
                 or self._preagg_lanes() != () or self.uses_processing_time \
                 or self.plan.ring > 64 or not self.directory.native():
             return False
@@ -1714,12 +2025,14 @@ class WindowOperator:
         if self._devstats_pending:
             self._reconcile_devstats()
         self._flush_stash()
+        self._resolve_overflow()  # a checkpoint must not hide a loss
         return {
             "spill": (self._spill.snapshot() if self._spill is not None
                       else None),
-            "n_dev": 1,
+            "n_dev": len(self._devices),
             "ring": self.plan.ring,
-            "panes": self.state.clone(),
+            # the blocks end to end: the reference's global row layout
+            "panes": self._global_panes(),
             "directory": self.directory.snapshot(),
             "watermark": self.watermark,
             "cleared_below": self._cleared_below,
@@ -1731,6 +2044,16 @@ class WindowOperator:
             "records_dropped_full": self.records_dropped_full,
         }
 
+    def _global_panes(self) -> PaneState:
+        """A copy of the pane state with the blocks end to end on the
+        home device (the reference's global row layout)."""
+        if len(self._blocks) == 1:
+            return self.state.clone()
+        return PaneState(*(
+            None if getattr(self._blocks[0], k) is None else torch.cat(
+                [getattr(b, k).to(self.device) for b in self._blocks])
+            for k in ("sums", "maxs", "mins", "counts")))
+
     @property
     def records_spilled(self) -> int:
         return self._spill.records_spilled if self._spill is not None else 0
@@ -1738,9 +2061,10 @@ class WindowOperator:
     def restore_state(self, snap: Dict[str, Any]) -> None:
         """Restore from ``snapshot_state()`` output — this package's, or
         the reference package's once its panes are host arrays (see
-        ``load_jax_snapshot``). Host-spill state restores into an
-        operator with spill; an operator without refuses it rather than
-        lose it."""
+        ``load_jax_snapshot``). A snapshot taken over another number of
+        device blocks is re-blocked (``reblock_panes``). Host-spill state
+        restores into an operator with spill; an operator without refuses
+        it rather than lose it."""
         snap_spill = snap.get("spill")
         if self._spill is None and snap_spill and snap_spill.get("panes"):
             raise ValueError(
@@ -1756,7 +2080,11 @@ class WindowOperator:
                 v = torch.from_numpy(np.array(v))
             lanes[k] = v
         ring = int(snap.get("ring", lanes["counts"].shape[1]))
-        rows = self.layout.rows
+        n_blocks = len(self._devices)
+        snap_dev = int(snap.get("n_dev", 1))
+        if snap_dev != n_blocks:
+            lanes = reblock_panes(lanes, snap_dev, n_blocks)
+        rows = n_blocks * self.layout.rows
         lay = self.layout
         want = {"sums": (lay.sum_width, torch.float32),
                 "maxs": (lay.max_width, torch.float32),
@@ -1778,10 +2106,11 @@ class WindowOperator:
             # the snapshotted operator had grown its pane ring
             self.plan = dataclasses.replace(self.plan, ring=ring)
             self.layout = dataclasses.replace(self.layout, ring=ring)
-        self.state = PaneState(*(
+        per = self.layout.rows
+        self._blocks = [PaneState(*(
             None if lanes[k] is None
-            else lanes[k].to(self.device).contiguous().clone()
-            for k in names))
+            else lanes[k][b * per:(b + 1) * per].to(dev).contiguous().clone()
+            for k in names)) for b, dev in enumerate(self._devices)]
         self.directory = KeyDirectory.restore(
             self.directory.num_shards, self.directory.slots_per_shard,
             snap["directory"])
@@ -1804,10 +2133,11 @@ class WindowOperator:
         self._devstats_pending.clear()
         self._inflight.clear()
         self._used_pushed = -1
+        self._overflow_markers.clear()
         # the emit ring restarts: a checkpoint delivers its rows first,
         # and replay re-fires
-        self._emit_ring = None
-        self._ring_drained = 0
+        self._emit_rings = None
+        self._ring_drained = [0] * len(self._devices)
         self._ring_anchor = None
         self._ring_versions.clear()
 
@@ -1817,9 +2147,9 @@ class WindowOperator:
         ``panes`` fetched to host arrays (``np.asarray`` per lane) — pane
         counts and sum/max/min lanes, key directory, watermark,
         cleared/fired frontiers, pane range, re-fire set and ring size.
-        The lanes must be this operator's aggregate's."""
-        if snap.get("n_dev", 1) != 1:
-            raise ValueError("only single-device snapshots can be loaded")
+        The lanes must be this operator's aggregate's. A snapshot of the
+        reference's sharded operator (its blocks end to end, ``n_dev``
+        of them) loads into any number of blocks."""
         spill = snap.get("spill")
         if spill and (spill.get("kind") == "lsm" or spill.get("runs")):
             raise ValueError("snapshot carries lsm state (state.backend="
@@ -1831,6 +2161,34 @@ class WindowOperator:
                 "(state.allow-drops is false), so it cannot carry that "
                 "state on")
         self.restore_state(snap)
+
+
+def reblock_panes(lanes: Dict[str, Optional[torch.Tensor]], old_dev: int,
+                  new_dev: int) -> Dict[str, Optional[torch.Tensor]]:
+    """Pane lanes laid out as ``old_dev`` blocks (each its slots then a
+    dump row) re-cut into ``new_dev`` blocks, every slot kept in order
+    and each new block given a fresh dump row at the lane's identity
+    (the reference's ``_reblock_panes``)."""
+    fills = {"sums": 0.0, "maxs": -float("inf"), "mins": float("inf"),
+             "counts": 0}
+
+    def reblock(arr: torch.Tensor, fill) -> torch.Tensor:
+        per = arr.shape[0] // old_dev
+        logical = torch.cat([arr[d * per:(d + 1) * per - 1]
+                             for d in range(old_dev)])
+        if logical.shape[0] % new_dev:
+            raise ValueError(
+                f"cannot reshard {logical.shape[0]} slots onto {new_dev} "
+                "devices — num_shards * slots_per_shard must be divisible "
+                "by the device count (the key-group contract)")
+        n = logical.shape[0] // new_dev
+        dump = torch.full((1,) + tuple(arr.shape[1:]), fill, dtype=arr.dtype,
+                          device=arr.device)
+        return torch.cat([torch.cat([logical[d * n:(d + 1) * n], dump])
+                          for d in range(new_dev)])
+
+    return {k: None if v is None else reblock(v, fills[k])
+            for k, v in lanes.items()}
 
 
 def empty_fired(res_empty: Dict[str, np.ndarray]) -> "FiredWindows":

@@ -1,10 +1,12 @@
 """Host record helpers: the timestamp convention, the changelog op
 column, the key hash that routes keys to key shards (bit-identical to
 ``flink_tpu.records.hash_keys_numpy``, so both packages assign the same
-slots to the same keys) and the cast of record fields for upload."""
+slots to the same keys; ``hash_keys_device`` is the same mix on the
+card) and the cast of record fields for upload."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Timestamps are epoch milliseconds, int64. MIN_TS marks "no timestamp".
 MIN_TS = np.int64(np.iinfo(np.int64).min)
@@ -29,6 +31,14 @@ def hash_keys_numpy(keys: np.ndarray) -> np.ndarray:
         x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
         x = x ^ (x >> np.uint64(31))
     return (x & np.uint64(0x7FFFFFFFFFFFFFFF)).astype(np.int64)
+
+
+def hash_keys_device(keys: torch.Tensor) -> torch.Tensor:
+    """``hash_keys_numpy`` on a tensor of int64 keys, on its device: the
+    ``hash_keys`` kernel on the card, its plain version on the CPU."""
+    from flink_tpu_torch.kernels.exchange_kernels import hash_keys
+
+    return hash_keys(keys.contiguous())
 
 
 def device_cast(arr: np.ndarray) -> np.ndarray:

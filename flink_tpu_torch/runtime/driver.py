@@ -44,7 +44,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from flink_tpu_torch.api.sources import DeviceGeneratorSource
-from flink_tpu_torch.config import Configuration, PipelineOptions, StateOptions
+from flink_tpu_torch.config import (
+    ClusterOptions, Configuration, PipelineOptions, StateOptions)
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.compiler import ExecutionPlan
 from flink_tpu_torch.time.watermarks import LONG_MIN, make_generator
@@ -59,14 +60,16 @@ _STATEFUL = ("window", "evicting_window", "count_window")
 
 
 class Driver:
-    """Single-process execution of a lowered plan on one device."""
+    """Single-process execution of a lowered plan on one device, or with
+    ``mesh_plan`` its keyed windows over a mesh of device blocks."""
 
     def __init__(self, plan: ExecutionPlan, config: Configuration,
-                 device="cuda") -> None:
+                 device="cuda", mesh_plan=None) -> None:
         config.validate()
         self.plan = plan
         self.config = config
         self.device = resolve_device(device)
+        self.mesh_plan = mesh_plan
         self._upstream: Dict[int, List[int]] = {nid: [] for nid in plan.nodes}
         for n in plan.nodes.values():
             for d in n.downstream:
@@ -137,11 +140,19 @@ class Driver:
             max_out_of_orderness_ms=max(ooo),
             fire_gate=bool(self.config.get(PipelineOptions.FIRE_GATE)),
             backend=str(self.config.get(StateOptions.BACKEND)).strip().lower(),
-            allow_drops=bool(self.config.get(StateOptions.ALLOW_DROPS)))
+            allow_drops=bool(self.config.get(StateOptions.ALLOW_DROPS)),
+            mesh_plan=self.mesh_plan,
+            exchange_capacity=int(self.config.get(
+                PipelineOptions.EXCHANGE_CAPACITY)) or None,
+            exchange_impl=str(self.config.get(ClusterOptions.EXCHANGE_IMPL)))
         for n in self.plan.nodes.values():
             if n.kind == "window":
                 self._ops[n.id] = _window_factory(n, ctx)
             elif n.kind == "count_window":
+                if self.mesh_plan is not None:
+                    raise NotImplementedError(
+                        "count windows on a device mesh are not yet "
+                        "supported; run without cluster.mesh-devices")
                 self._ops[n.id] = _count_window_factory(n, ctx)
             elif n.kind == "evicting_window":
                 self._ops[n.id] = _evicting_window_factory(n, ctx)
@@ -271,9 +282,12 @@ class Driver:
         out["wall_s"] = time.perf_counter() - t_start
         out["device"] = str(self.device)
         for counter in ("late_records", "records_dropped_full",
-                        "records_spilled"):
+                        "records_spilled", "exchange_overflow",
+                        "exchange_bytes"):
             out[counter] = sum(getattr(op, counter, 0)
                                for op in self._ops.values())
+        if self.mesh_plan is not None:
+            out["mesh_devices"] = [str(d) for d in self.mesh_plan.devices]
         for k, v in self.prof.items():
             out[f"profile.driver.{k}"] = v
         for nid, op in self._ops.items():

@@ -1024,7 +1024,7 @@ def _segment_case(rng, lengths, widths):
     return offsets, lanes
 
 
-def _same_bits(a, b):
+def _exact_bits(a, b):
     return a.shape == b.shape and np.array_equal(
         a.cpu().contiguous().view(torch.int32).numpy(),
         b.cpu().contiguous().view(torch.int32).numpy())
@@ -1050,7 +1050,7 @@ def test_segment_lanes_matches_its_plain_version(dev, widths):
     wk.check_errors(dev)
     assert wk.LAUNCHES["segment_lanes"] == 1
     for a, b, c in zip(got, plain, cpu):
-        assert _same_bits(a, b) and _same_bits(a, c)
+        assert _exact_bits(a, b) and _exact_bits(a, c)
     assert got[3].tolist() == lengths.tolist()
 
 
@@ -1071,16 +1071,16 @@ def test_segment_lanes_edge_values(dev):
     cpu = ek.segment_lanes(*[a.cpu() for a in args])
     torch.cuda.synchronize()
     for a, b in zip(got, plain):
-        assert _same_bits(a, b)
+        assert _exact_bits(a, b)
     # max, min and counts copy bits, so the CPU agrees bit for bit; a sum
     # with a NaN term is NaN everywhere, its bits the adder's (the card's
     # canonical NaN, the CPU's operand)
     for a, b in zip(got[1:], cpu[1:]):
-        assert _same_bits(a, b)
+        assert _exact_bits(a, b)
     s_card, s_cpu = got[0].cpu(), cpu[0]
     nan = torch.isnan(s_cpu)
     assert torch.equal(torch.isnan(s_card), nan)
-    assert _same_bits(s_card[~nan], s_cpu[~nan])
+    assert _exact_bits(s_card[~nan], s_cpu[~nan])
     bits = got[1][:, 0].view(torch.int32).cpu().numpy().view(np.uint32)
     assert bits.tolist()[:3] == [0xFFC00007, 0x00000000, 0x80000000]
     bits = got[2][:, 0].view(torch.int32).cpu().numpy().view(np.uint32)
@@ -1131,3 +1131,76 @@ def test_element_window_on_the_card_matches_the_cpu(dev):
                 x, y = x.view(np.int32), y.view(np.int32)
             np.testing.assert_array_equal(x, y, err_msg=k)
     assert wk.LAUNCHES["segment_lanes"] == 3
+
+
+@pytest.mark.parametrize("C,capacity", [(0, 4096), (3, 4096), (2, 300)])
+def test_bucket_records_matches_its_plain_version(dev, C, capacity):
+    """Every output bit for bit, overflow included (capacity 300)."""
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+
+    rng = np.random.default_rng(C + capacity)
+    n_dest, spd, ring, B = 5, 700, 16, 4096
+    cells = rng.integers(-1, n_dest * spd * ring + 40, B).astype(np.int32)
+    payload = (_t(rng.random((B, C)).astype(np.float32), dev) if C else None)
+    got = xk.bucket_records(_t(cells, dev), payload, n_dest, capacity, spd,
+                            ring)
+    want = xk.bucket_records_plain(_t(cells, dev), payload, n_dest, capacity,
+                                   spd, ring)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert (int(got[3].sum()) > 0) == (capacity == 300)
+
+
+def test_hash_keys_matches_numpy(dev):
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.records import hash_keys_numpy
+
+    i64 = np.iinfo(np.int64)
+    keys = np.concatenate([[0, -1, i64.max, i64.min], np.random.default_rng(
+        3).integers(i64.min, i64.max, 10_000, dtype=np.int64)])
+    assert np.array_equal(xk.hash_keys(_t(keys, dev)).cpu().numpy(),
+                          hash_keys_numpy(keys))
+
+
+def test_sharded_operator_on_the_card_matches_the_cpu(dev):
+    """Four blocks on one card against four blocks on the CPU: Q5's top-2
+    and a lane aggregate with a tiny exchange capacity and the ring."""
+    from flink_tpu_torch.api.windowing import (
+        SlidingEventTimeWindows, TumblingEventTimeWindows)
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+    rng = np.random.default_rng(8)
+    for assigner, agg, kw in (
+            (SlidingEventTimeWindows.of(10_000, 1_000), ta.count(),
+             dict(top_n=("count", 2))),
+            (TumblingEventTimeWindows.of(2_000),
+             ta.multi(ta.count(), ta.sum_of("v"), ta.max_of("v")),
+             dict(exchange_capacity=64, exchange_impl="ring"))):
+        wk.reset_launch_counts()
+        ops = [WindowOperator(
+            assigner, agg, max_out_of_orderness_ms=1_000, device=d,
+            mesh_plan=make_mesh_plan(32, 256, [d] * 4), **kw)
+            for d in ("cpu", "cuda:0")]
+        t = 0
+        for _ in range(5):
+            n = int(rng.integers(100, 20_000))
+            keys = rng.zipf(1.5, n) % 3000
+            ts = t + rng.integers(-900, 4_000, n)
+            t += 4_000
+            data = {"v": rng.random(n).astype(np.float32)}
+            outs = []
+            for op in ops:
+                op.process_batch(keys, ts, data)
+                f = dict(op.advance_watermark(int(ts.max()) - 1_001))
+                outs.append({k: np.asarray(v) for k, v in f.items()})
+            for k in outs[0]:
+                if k.startswith("sum"):
+                    np.testing.assert_allclose(outs[1][k], outs[0][k],
+                                               rtol=1e-5)
+                else:
+                    np.testing.assert_array_equal(outs[1][k], outs[0][k])
+        assert all(wk.LAUNCHES[k] > 0 for k in ("bucket_records",
+                                                "split_cells", "ring_columns"))
+        assert ops[1].exchange_overflow == 0

@@ -1,0 +1,301 @@
+"""The keyBy exchange of the port's key-sharded operator, against the JAX
+package's: ``bucket_records``' plain version against
+``bucket_by_destination`` (with the apply step's rebase to the owner's
+block, and overflow), the port's exchange against ``keyby_exchange``
+under ``shard_map`` on the reference's eight forced CPU devices, the ring
+shuffle against the all-to-all, ``hash_keys`` against
+``hash_keys_numpy`` / ``hash_keys_device`` on extreme keys, and the
+plain versions of the distributed top-n modes, ``fire_pack``'s row
+offset and the scatters' skip of invalid records. Everything here is
+integer work or copies: results must be equal exactly."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from flink_tpu.exchange.keyby import bucket_by_destination, keyby_exchange
+from flink_tpu.parallel.mesh import AXIS
+from flink_tpu.parallel.mesh import make_mesh_plan as jax_mesh_plan
+from flink_tpu.records import hash_keys_device as jax_hash_keys_device
+from flink_tpu.records import hash_keys_numpy as jax_hash_keys_numpy
+from flink_tpu.utils.jaxcompat import shard_map
+from flink_tpu_torch import records
+from flink_tpu_torch.exchange import keyby, spi
+from flink_tpu_torch.kernels import exchange_kernels as ek
+from flink_tpu_torch.kernels import lane_kernels as lk
+from flink_tpu_torch.kernels import window_kernels as wk
+from flink_tpu_torch.parallel.mesh import (
+    HybridMeshPlan, make_hybrid_mesh_plan, make_mesh_plan)
+from test_torch_threads import capped_torch_threads  # noqa: F401
+
+N_DEV, SHARDS, SLOTS, RING = 8, 32, 16, 8
+SPD = SHARDS // N_DEV * SLOTS
+
+
+def cells_case(seed, n, n_dest=N_DEV, spd=SPD, ring=RING, hot=0.0):
+    """Packed global cells with ~10 % invalid (-1) records; a ``hot``
+    share of them on slot 0."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, n_dest * spd, n)
+    slots = np.where(rng.random(n) < hot, 0, slots)
+    cells = (slots * ring + rng.integers(0, ring, n)).astype(np.int32)
+    cells[rng.random(n) < 0.1] = -1
+    return cells, rng.random((n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("capacity,hot", [(64, 0.0), (5, 0.6)])
+def test_bucket_records_plain_matches_bucket_by_destination(capacity, hot):
+    n_dest, spd, ring = 3, 20, 4
+    cells, lanes = cells_case(1, 64, n_dest, spd, ring, hot)
+    valid = cells >= 0
+    dest = np.where(valid, (np.maximum(cells, 0) // ring) // spd, 0)
+    ref, ref_valid, ref_over = bucket_by_destination(
+        jnp.asarray(dest, jnp.int32), jnp.asarray(valid),
+        {"__sp__": jnp.asarray(cells),
+         **{f"x{i}": jnp.asarray(lanes[:, i]) for i in range(3)}},
+        n_dest=n_dest, capacity=capacity)
+    got_cells, got_lanes, got_valid, got_over = ek.bucket_records(
+        torch.from_numpy(cells), torch.from_numpy(lanes), n_dest, capacity,
+        spd, ring)
+    rv = np.asarray(ref_valid)
+    np.testing.assert_array_equal(got_valid.numpy(), rv)
+    np.testing.assert_array_equal(got_over.numpy(), np.asarray(ref_over))
+    if hot:
+        assert got_over.numpy().max() > 0
+    # the sender writes each cell rebased to its owner's block, as the
+    # reference's apply_shard rebases on receipt
+    sp = np.asarray(ref["__sp__"])
+    owner = np.arange(n_dest)[:, None]
+    rebased = (sp // ring - owner * spd) * ring + sp % ring
+    np.testing.assert_array_equal(got_cells.numpy(), np.where(rv, rebased, -1))
+    ref_lanes = np.stack([np.asarray(ref[f"x{i}"]) for i in range(3)], -1)
+    np.testing.assert_array_equal(got_lanes.numpy(),
+                                  np.where(rv[..., None], ref_lanes, 0))
+
+
+def test_bucket_records_edge_cases():
+    """No records, every record invalid, a record on the row past every
+    block (the split upload's invalid one), and argument checks."""
+    empty = torch.zeros(0, dtype=torch.int32)
+    c, p, v, o = ek.bucket_records(empty, None, 2, 3, 4, 2)
+    assert c.shape == (2, 3) and p is None and not v.any()
+    assert (c == -1).all() and o.tolist() == [0, 0]
+    past = torch.tensor([-1, 2 * 4 * 2, 2 * 4 * 2 + 1, 5], dtype=torch.int32)
+    c, _, v, o = ek.bucket_records(past, None, 2, 4, 4, 2)
+    assert v.sum() == 1 and c[0, 0] == 5 and o.tolist() == [0, 0]
+    with pytest.raises(ValueError, match="destinations"):
+        ek.bucket_records(empty, None, ek.MAX_DEST + 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="payload"):
+        ek.bucket_records(past, torch.zeros((4, 1), dtype=torch.int64), 2, 4,
+                          4, 2)
+
+
+@pytest.fixture(scope="module")
+def jax_exchange():
+    """The reference's exchange under shard_map on its 8 CPU devices:
+    (the batch, per device its received (global packed cells, lanes,
+    valid))."""
+    mp = jax_mesh_plan(num_shards=SHARDS, slots_per_shard=SLOTS)
+    assert mp.n_devices == N_DEV
+    b_per_dev = 32
+    cells, lanes = cells_case(2, N_DEV * b_per_dev)
+
+    def step(sp, x):
+        valid = sp >= 0
+        dest = jnp.where(valid, (jnp.maximum(sp, 0) // RING) // SPD,
+                         0).astype(jnp.int32)
+        recv, rv, _ = keyby_exchange(
+            dest, valid, {"sp": sp, **{f"x{i}": x[:, i] for i in range(3)}},
+            n_devices=N_DEV, capacity=b_per_dev)
+        return recv["sp"], jnp.stack([recv[f"x{i}"] for i in range(3)],
+                                     -1), rv
+
+    fn = jax.jit(shard_map(step, mesh=mp.mesh, in_specs=(P(AXIS), P(AXIS)),
+                           out_specs=(P(AXIS), P(AXIS), P(AXIS))))
+    sp, x, rv = (np.asarray(a) for a in fn(jnp.asarray(cells),
+                                           jnp.asarray(lanes)))
+    n = N_DEV * b_per_dev
+    return (cells, lanes, b_per_dev,
+            [(sp[d * n:(d + 1) * n], x[d * n:(d + 1) * n], rv[d * n:(d + 1) * n])
+             for d in range(N_DEV)])
+
+
+def port_exchange(impl, cells, lanes, L):
+    devs = [torch.device("cpu")] * N_DEV
+    return spi.get_shuffle(impl)(
+        [torch.from_numpy(cells[j * L:(j + 1) * L]) for j in range(N_DEV)],
+        [torch.from_numpy(lanes[j * L:(j + 1) * L]) for j in range(N_DEV)],
+        devices=devs, capacity=L, spd=SPD, ring=RING)
+
+
+@pytest.mark.parametrize("impl", ["all-to-all", "ring"])
+def test_exchange_matches_keyby_exchange(jax_exchange, impl):
+    """Every block receives the reference device's records, in its
+    layout (row j from block j), each at its owner."""
+    cells, lanes, L, ref = jax_exchange
+    recv, overflow, _ = port_exchange(impl, cells, lanes, L)
+    assert sum(int(o.sum()) for o in overflow) == 0
+    n_recv = 0
+    for d, ((r_cells, r_lanes, r_valid), (sp, x, rv)) in enumerate(
+            zip(recv, ref)):
+        np.testing.assert_array_equal(r_valid.numpy(), rv)
+        local = r_cells.numpy()
+        # every received record is at its owner: a cell of this block
+        assert ((local[rv] >= 0) & (local[rv] < SPD * RING)).all()
+        glob = (local // RING + d * SPD) * RING + local % RING
+        np.testing.assert_array_equal(glob[rv], sp[rv])
+        np.testing.assert_array_equal(r_lanes.numpy()[rv], x[rv])
+        n_recv += int(rv.sum())
+    assert n_recv == int((cells >= 0).sum())
+
+
+def test_ring_shuffle_equals_all_to_all():
+    cells, lanes = cells_case(3, N_DEV * 24, hot=0.3)
+    a, oa, ma = port_exchange("all-to-all", cells, lanes, 24)
+    b, ob, mb = port_exchange("ring", cells, lanes, 24)
+    for x, y in zip(a + [tuple(oa)], b + [tuple(ob)]):
+        for u, v in zip(x, y):
+            assert torch.equal(u, v)
+    # bytes between distinct blocks, one bucket being 24 cells (int32),
+    # 24 x 3 lanes (f32) and 24 valid flags: all-to-all copies each
+    # block's n - 1 foreign buckets once; ring hops each whole block of n
+    # buckets n - 1 times
+    bucket = 24 * (4 + 3 * 4 + 1)
+    assert ma == N_DEV * (N_DEV - 1) * bucket
+    assert mb == N_DEV * N_DEV * (N_DEV - 1) * bucket
+
+
+def test_shuffle_registry():
+    assert spi.get_shuffle("ring") is spi.ring_shuffle
+    with pytest.raises(ValueError, match="unknown exchange"):
+        spi.get_shuffle("carrier-pigeon")
+    spi.register_shuffle("mine", spi.all_to_all_shuffle)
+    try:
+        assert spi.get_shuffle("mine") is spi.all_to_all_shuffle
+    finally:
+        spi._IMPLS.pop("mine")
+
+
+def test_hash_keys_matches_the_reference():
+    i64 = np.iinfo(np.int64)
+    rng = np.random.default_rng(5)
+    keys = np.concatenate([
+        np.array([0, 1, -1, 2, -2, i64.max, i64.min, i64.min + 1,
+                  i64.max - 1, 1 << 32, -(1 << 32), 0x7FFFFFFF], np.int64),
+        rng.integers(i64.min, i64.max, 5000, dtype=np.int64)])
+    want = jax_hash_keys_numpy(keys)
+    np.testing.assert_array_equal(np.asarray(jax_hash_keys_device(
+        jnp.asarray(keys))), want)
+    np.testing.assert_array_equal(records.hash_keys_numpy(keys), want)
+    got = ek.hash_keys(torch.from_numpy(keys))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        records.hash_keys_device(torch.from_numpy(keys)).numpy(), want)
+    assert (got >= 0).all()
+
+
+def test_mesh_plan_matches_the_reference():
+    ref = jax_mesh_plan(num_shards=SHARDS, slots_per_shard=SLOTS)
+    mp = make_mesh_plan(SHARDS, SLOTS, ["cpu"] * N_DEV)
+    for attr in ("n_devices", "shards_per_device", "slots_per_device",
+                 "total_slots", "rows_per_device"):
+        assert getattr(mp, attr) == getattr(ref, attr), attr
+    assert [mp.shard_range(d) for d in range(N_DEV)] == \
+        [ref.shard_range(d) for d in range(N_DEV)]
+    slots = np.arange(mp.total_slots)
+    np.testing.assert_array_equal(mp.device_of_slot(slots),
+                                  ref.device_of_slot(slots))
+    np.testing.assert_array_equal(mp.global_slot_to_row(slots),
+                                  ref.global_slot_to_row(slots))
+    with pytest.raises(ValueError, match="multiple of the device count"):
+        make_mesh_plan(30, SLOTS, ["cpu"] * N_DEV)
+    for make in (lambda: make_hybrid_mesh_plan(32, 16, 2, 0),
+                 lambda: HybridMeshPlan((torch.device("cpu"),), 32, 16)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        keyby.intra_slice_exchange()
+
+
+def split_grid(seed, rows=40, W=5, n_blocks=4):
+    rng = np.random.default_rng(seed)
+    wc = rng.integers(0, 6, (rows * n_blocks, W)).astype(np.int32)
+    used = rng.random(rows * n_blocks) < 0.8
+    return wc, used
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_distributed_topn_plain_matches_the_reference_shard(n):
+    """Block candidates, their global k-th and each block's select give
+    the reference topn_shard's rows: lax.top_k per block, the k-th of the
+    gathered candidates, ``v >= thresh`` per block, block-major."""
+    rows, W, nb = 40, 5, 4
+    wc, used = split_grid(7, rows, W, nb)
+    w_valid = np.array([True, True, False, True, True])
+    ends = torch.arange(100, 100 + W, dtype=torch.int64)
+    k = min(n, rows)
+    cands = []
+    for b in range(nb):
+        sl = slice(b * rows, (b + 1) * rows)
+        c = wk.topn_candidates(torch.from_numpy(wc[sl]),
+                               torch.from_numpy(used[sl]),
+                               torch.from_numpy(w_valid), k)
+        nz = (wc[sl] > 0) & used[sl][:, None] & w_valid[None, :]
+        v = np.where(nz, wc[sl].astype(np.float32), -np.inf)
+        np.testing.assert_array_equal(
+            c.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(v.T), k)[0]))
+        cands.append(c)
+    gathered = torch.cat(cands, dim=1)
+    thresh = wk.topn_global_threshold(gathered, k)
+    np.testing.assert_array_equal(
+        thresh.numpy(),
+        np.asarray(jax.lax.top_k(jnp.asarray(gathered.numpy()), k)[0])[:, k - 1])
+    ring = torch.zeros((256 + 2, 3), dtype=torch.int32)
+    want = []
+    for b in range(nb):
+        sl = slice(b * rows, (b + 1) * rows)
+        wk.topn_select_given(torch.from_numpy(wc[sl]),
+                             torch.from_numpy(used[sl]), ends,
+                             torch.from_numpy(w_valid), 90, thresh,
+                             b * rows, 256, ring)
+        nz = (wc[sl] > 0) & used[sl][:, None] & w_valid[None, :]
+        r, w = np.nonzero(nz & (wc[sl] >= thresh.numpy()[None, :]))
+        want += [[b * rows + rr, 100 + ww - 90, wc[sl][rr, ww]]
+                 for rr, ww in zip(r, w)]
+    assert int(ring[0, 0]) == len(want) and int(ring[0, 1]) == 0
+    np.testing.assert_array_equal(ring[1:1 + len(want)].numpy(),
+                                  np.asarray(want, np.int32).reshape(-1, 3))
+
+
+def test_fire_pack_row_offset_and_skipping_scatters():
+    rng = np.random.default_rng(8)
+    counts = torch.from_numpy(rng.integers(0, 3, (9, 4)).astype(np.int32))
+    args = (counts, None, None, None, torch.tensor([3, 4], dtype=torch.int64),
+            torch.ones(2, dtype=torch.bool), torch.ones(9, dtype=torch.bool),
+            0, 3, 2, 64, False)
+    base, _ = lk.fire_pack(*args)
+    off, _ = lk.fire_pack(*args, row_offset=27)
+    n = int(base[0, 0])
+    assert torch.equal(off[0], base[0])
+    assert torch.equal(off[1:1 + n, 0], base[1:1 + n, 0] + 27)
+    assert torch.equal(off[1:1 + n, 1:], base[1:1 + n, 1:])
+    with pytest.raises(ValueError, match="row offset"):
+        lk.fire_pack(*args[:-1], True, row_offset=1)
+    # a negative cell is an invalid record when asked, an error otherwise
+    idx = torch.tensor([3, -1, 3, 5, -1], dtype=torch.int32)
+    a, b = torch.zeros(16, dtype=torch.int32).view(4, 4), None
+    wk.scatter_counts(a, idx, skip_negative=True)
+    assert a.view(-1)[3] == 2 and a.view(-1)[5] == 1 and int(a.sum()) == 3
+    with pytest.raises(IndexError):
+        wk.scatter_counts(a, idx)
+    sums = torch.zeros((4, 4, 1))
+    b = torch.zeros((4, 4), dtype=torch.int32)
+    s = torch.arange(5, dtype=torch.float32)[:, None]
+    empty = torch.zeros((5, 0))
+    lk.scatter_lanes(b, sums, None, None, idx, s, empty, empty,
+                     skip_negative=True)
+    assert torch.equal(b, a) and float(sums.view(-1)[3]) == 2.0
+    with pytest.raises(IndexError):
+        lk.scatter_lanes(b, sums, None, None, idx, s, empty, empty)
