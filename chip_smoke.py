@@ -32,7 +32,10 @@ Phases, one JSON line each:
    state (65,537 x 16, 4-window chunks, ~28k words per window) and on
    bid-aggregate state (32,769 x 32 x 1 sum + 1 max + 1 min lane, and
    1 sum lane alone, job (b)'s layout), ``scatter_lanes`` on a 2^20-bid
-   batch, ``scatter_pair_lanes`` on its ~110k host-combined pairs,
+   batch and on the same batch with 2^18 of its records in one cell (each
+   bit for bit against its plain version on the CPU, with its kernels'
+   device time by name, ``index_add_`` and a stable ``torch.sort`` of the
+   cells beside), ``scatter_pair_lanes`` on its ~110k host-combined pairs,
    ``ring_columns`` over an f32 lane; and the count-lane kernels in
    WordCount's forms: ``scatter_counts`` per record on a 2^20-word batch
    into 65,537 x 16 state, ``ring_columns`` growing 6 to 16 columns; the
@@ -147,6 +150,9 @@ time by name).
    path's ``bucket_records``, ``hash_keys`` and the distributed top-n
    modes bit for bit against their plain versions at M1's shapes.
 
+With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
+the two ``scatter_lanes`` cases above (one JSON line).
+
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
 ring exchange), checked against the golden: the exchange's copies
@@ -216,10 +222,7 @@ PROFILED_KERNELS = {
     "nexmark_bids": ("nexmark_bids_kernel",),
     "devgen_ingest": ("devgen_ingest_kernel",),
     "fire_pack": ("fire_count_kernel", "fire_write_kernel"),
-    "scatter_lanes": ("lanes_prep_kernel", "radix_upsweep_kernel",
-                      "scan_chunk_sums_kernel", "scan_chunks_kernel",
-                      "scan_apply_kernel", "radix_downsweep_kernel",
-                      "lanes_gather_kernel", "lanes_heads_kernel",
+    "scatter_lanes": ("lanes_hist_kernel", "lanes_sort_kernel",
                       "lanes_fold_kernel"),
     "scatter_pair_lanes": ("pair_lanes_kernel",),
     "apply_pairs_u32": ("apply_pairs_u32_kernel",),
@@ -242,13 +245,13 @@ PROFILED_KERNELS = {
 # kernels launched inside that range
 RANGED_WRAPPERS = ("fused_step",)
 # the CUDA kernels of which one wrapper call launches exactly one: the
-# profile's count of wrapper calls (scatter_lanes runs its radix passes
-# several times a call)
+# profile's count of wrapper calls (scatter_lanes runs its sort kernel
+# once a digit pass)
 CALL_KERNELS = {
     "topn_select_append": ("topn_threshold_kernel",),
     "ring_columns": ("ring_columns_kernel",),
     "fire_pack": ("fire_count_kernel",),
-    "scatter_lanes": ("lanes_prep_kernel",),
+    "scatter_lanes": ("lanes_hist_kernel",),
     "fused_step": ("fused_header_kernel",),
     "count_fire": ("count_fire_count_kernel",),
     "topn_select_lanes": ("lanes_threshold_kernel",),
@@ -607,6 +610,173 @@ def colmask_matmul_ms(torch, lk, lane, ends, ring, pane_lo, pane_hi, ppw):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def scatter_lanes_batch(np, ring):
+    """One 2^20-bid batch of the bid-aggregate job (a): 10,000 auctions,
+    hot ratio 4, 100 bids/ms, keyed into 128 x 256 slots; its flat cells
+    ``slot * ring + pane % ring``."""
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=1, events_per_ms=100,
+                        num_active_auctions=10_000, hot_ratio=4)
+    data, ts = bid_batch(cfg, 0, 5)
+    slots = KeyDirectory(128, 256).assign(data["auction"])
+    idx_np = (slots * ring + (ts // 1000) % ring).astype(np.int32)
+    return data, ts, slots, idx_np
+
+
+def kernel_stages(torch, fn, calls: int = 10):
+    """``torch.profiler`` over ``calls`` calls of ``fn`` (after one
+    warm-up): each device entry's time and count per call, by name (a
+    kernel's name without its namespace and arguments; memsets and
+    copies as the profiler names them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.replace("(anonymous namespace)::", "")
+        if name.startswith("void "):
+            name = name[5:]
+        depth = 0
+        for i, ch in enumerate(name):
+            depth += (ch == "<") - (ch == ">")
+            if ch == "(" and depth == 0 and i > 0:
+                name = name[:i]
+                break
+        row = stages.setdefault(name, {"ms_per_call": 0.0, "per_call": 0.0})
+        row["ms_per_call"] += us / 1e3 / calls
+        row["per_call"] += e.count / calls
+    return stages
+
+
+def scatter_lanes_cases(torch, np, dev, st, idx_np, price_np):
+    """``scatter_lanes`` on the bid-aggregate state ``st`` (32,769 x 32 x
+    one sum, max and min lane) with the batch's cells ``idx_np`` and
+    prices as every lane: the uniform case (the batch as it is: ~110k
+    distinct cells, the hottest ~250 records) and the hot-cell case (2^18
+    of its records, at seeded positions, moved into one cell). Each: two
+    kernel runs bit-equal; counts, max and min equal to the plain version
+    on the card; every lane bit-equal to the plain version on the CPU
+    (record order); sums against the plain version on the card within
+    the bound of another order (its index_add_ adds in no fixed order
+    there). Then the times: the kernel, the plain version, ``index_add_``
+    on the sum lane, ``scatter_reduce_`` amax on the max lane and a
+    stable ``torch.sort`` of the cells (a yardstick for the sort stage
+    alone; the port never calls it), and the kernels of one call by name
+    from ``torch.profiler``."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(SEED + 9)
+    hot_idx = idx_np.copy()
+    hot_idx[rng.choice(len(idx_np), 1 << 18, replace=False)] = idx_np[0]
+    out = {}
+    for case, cells_np in (("uniform", idx_np), ("hot_cell", hot_idx)):
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+        idx = t(cells_np)
+        n = idx.numel()
+        price = t(price_np)[:, None].contiguous()
+        state = [t(x) for x in st]
+        runs = []
+        for fn in (lk.scatter_lanes, lk.scatter_lanes, lk.scatter_lanes_plain):
+            s_ = [x.clone() for x in state]
+            fn(*s_, idx, price, price, price)
+            runs.append(s_)
+        torch.cuda.synchronize()
+        check(all(same_bits(torch, x, y) for x, y in zip(runs[0], runs[1])),
+              f"scatter_lanes ({case}): two runs differ")
+        check(all(same_bits(torch, runs[0][k], runs[2][k]) for k in (0, 2, 3)),
+              f"scatter_lanes ({case}): counts or max/min differ from the "
+              "plain version")
+        cpu_state = [torch.from_numpy(x.copy()) for x in st]
+        price_cpu = torch.from_numpy(price_np[:, None].copy())
+        lk.scatter_lanes_plain(*cpu_state, torch.from_numpy(cells_np),
+                               price_cpu, price_cpu, price_cpu)
+        check(all(same_bits(torch, x, y) for x, y in zip(runs[0], cpu_state)),
+              f"scatter_lanes ({case}) differs from the plain version's "
+              "record order (the plain version on the CPU)")
+        n_cell = torch.zeros(runs[0][0].numel(), dtype=torch.float64,
+                             device=dev)
+        n_cell.index_add_(0, idx.long(), torch.ones(n, dtype=torch.float64,
+                                                    device=dev))
+        got = runs[0][1].reshape(-1).double()
+        want = runs[2][1].reshape(-1).double()
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs()
+                    <= 2 * (n_cell + 1) * 2.0 ** -24 * want.abs()).all()),
+              f"scatter_lanes ({case}) sums differ from the plain version "
+              f"by {err}")
+        cells = int(torch.unique(idx).numel())
+        scratch = [x.clone() for x in state]
+        plain_scratch = [x.clone() for x in state]
+        sum_flat = scratch[1].view(-1, 1)
+        max_flat = scratch[2].view(-1)
+        idx_long = idx.long()
+        p1 = price.view(-1)
+        # reads: idx and the three lanes once; each touched cell's count
+        # and lanes read and written once
+        nbytes, nops = n * (4 + 12) + cells * 16 * 2, n * 4
+        b, by = bound_ms(nbytes, nops)
+        out[case] = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: lk.scatter_lanes(
+                *scratch, idx, price, price, price)),
+            "plain_ms": time_ms(torch, lambda: lk.scatter_lanes_plain(
+                *plain_scratch, idx, price, price, price), iters=10),
+            "library_ms": time_ms(torch, lambda: sum_flat.index_add_(
+                0, idx_long, price)),
+            "library_call": "index_add_ (the sum lane)",
+            "library_amax_ms": time_ms(torch, lambda: max_flat.scatter_reduce_(
+                0, idx_long, p1, "amax")),
+            "library_sort_ms": time_ms(torch, lambda: torch.sort(
+                idx, stable=True)),
+            "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": nops,
+            "records": n, "distinct_cells": cells,
+            "largest_cell": int(torch.bincount(idx_long).max()),
+            "stages": kernel_stages(torch, lambda: lk.scatter_lanes(
+                *scratch, idx, price, price, price))}
+        stages = out[case]["stages"]
+        out[case]["device_ms_per_call"] = sum(v["ms_per_call"]
+                                              for v in stages.values())
+        out[case]["device_ops_per_call"] = sum(v["per_call"]
+                                               for v in stages.values())
+    return out
+
+
+def phase_scatter_lanes(torch, np):
+    """``--scatter-lanes``: build ``lane_kernels`` alone and run
+    ``scatter_lanes_cases`` at the bid-aggregate shape: the quick check
+    and stage profile of that one kernel."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all(("lane_kernels",))
+    log = build.BUILD_LOG["lane_kernels"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    rows, ring, pane_lo, pane_hi = 32_769, 32, 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, (1, 1, 1),
+                    hot=100)
+    data, _, _, idx_np = scatter_lanes_batch(np, ring)
+    emit({"phase": "scatter_lanes", "build_s": time.perf_counter() - t0,
+          "ptxas": [ln.strip() for ln in log["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln or "smem" in ln],
+          **scatter_lanes_cases(torch, np, dev, st, idx_np, data["price"]),
+          "card": card_line()})
+
+
 def lane_kernel_cases(torch, np, dev, record, out):
     """fire_pack, scatter_lanes, scatter_pair_lanes and the f32-lane
     ring_columns against their plain versions at this slice's shapes:
@@ -711,69 +881,18 @@ def lane_kernel_cases(torch, np, dev, record, out):
         "library_call": "sums @ colmask (TF32 off), the sum lane"}
 
     # L2 scatter_lanes: one 2^20-bid batch of the bid-aggregate job (a)
-    # into its state: 10,000 auctions, hot ratio 4, 100 bids/ms
-    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
-    from flink_tpu_torch.state.keyed import KeyDirectory
-
-    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=1, events_per_ms=100,
-                        num_active_auctions=10_000, hot_ratio=4)
-    data, ts = bid_batch(cfg, 0, 5)
-    directory = KeyDirectory(128, 256)
-    slots = directory.assign(data["auction"])
-    idx_np = (slots * ring + (ts // 1000) % ring).astype(np.int32)
-    idx = t(idx_np)
-    price = t(data["price"])[:, None].contiguous()
+    # into its state, then the same batch with 2^18 records in one cell
+    data, ts, slots, idx_np = scatter_lanes_batch(np, ring)
     state = [t(x) for x in st]
-    runs = []
-    for fn in (lk.scatter_lanes, lk.scatter_lanes, lk.scatter_lanes_plain):
-        s_ = [x.clone() for x in state]
-        fn(*s_, idx, price, price, price)
-        runs.append(s_)
-    torch.cuda.synchronize()
-    check(all(same_bits(torch, x, y) for x, y in zip(runs[0], runs[1])),
-          "scatter_lanes: two runs differ")
-    check(all(same_bits(torch, runs[0][k], runs[2][k]) for k in (0, 2, 3)),
-          "scatter_lanes: counts or max/min differ from the plain version")
-    # the kernel adds each cell's records in record order: the plain
-    # version on the CPU (index_add_ there adds in index order) gives the
-    # same bits in every lane
-    cpu_state = [x.cpu() for x in state]
-    price_cpu = price.cpu()
-    lk.scatter_lanes_plain(*cpu_state, idx.cpu(), price_cpu, price_cpu,
-                           price_cpu)
-    check(all(same_bits(torch, x, y) for x, y in zip(runs[0], cpu_state)),
-          "scatter_lanes differs from the plain version's record order "
-          "(the plain version on the CPU)")
-    # sums against the plain version on the card: its index_add_ adds in
-    # no fixed order there; the bound of two orders of n_cell + 1
-    # positive terms
-    n_cell = torch.zeros(rows * ring, dtype=torch.float64, device=dev)
-    n_cell.index_add_(0, idx.long(), torch.ones(Q5_BATCH, dtype=torch.float64,
-                                                device=dev))
-    got, want = runs[0][1].reshape(-1).double(), runs[2][1].reshape(-1).double()
-    err = float((got - want).abs().max())
-    check(bool(((got - want).abs()
-                <= 2 * (n_cell + 1) * 2.0 ** -24 * want.abs()).all()),
-          f"scatter_lanes sums differ from the plain version by {err}")
-    cells = int(torch.unique(idx).numel())
-    scratch = [x.clone() for x in state]
-    plain_scratch = [x.clone() for x in state]
-    sum_flat = scratch[1].view(-1, 1)
-    max_flat = scratch[2].view(-1)
-    idx_long = idx.long()
-    p1 = price.view(-1)
-    record("scatter_lanes", "flink_tpu/ops/window.py:62", err,
-           time_ms(torch, lambda: lk.scatter_lanes(*scratch, idx, price, price,
-                                                   price)),
-           time_ms(torch, lambda: lk.scatter_lanes_plain(
-               *plain_scratch, idx, price, price, price), iters=10),
-           time_ms(torch, lambda: sum_flat.index_add_(0, idx_long, price)),
-           Q5_BATCH * (4 + 12) + cells * 16 * 2, Q5_BATCH * 4,
+    cases = scatter_lanes_cases(torch, np, dev, st, idx_np, data["price"])
+    u = cases["uniform"]
+    record("scatter_lanes", "flink_tpu/ops/window.py:62", u["max_abs_err"],
+           u["ms"], u["plain_ms"], u["library_ms"], u["bytes"], u["ops"],
            source="lane_kernels.cu")
-    out[-1]["library_call"] = "index_add_ (the sum lane)"
-    out[-1]["library_amax_ms"] = time_ms(
-        torch, lambda: max_flat.scatter_reduce_(0, idx_long, p1, "amax"))
-    out[-1]["distinct_cells"] = cells
+    out[-1].update({k: v for k, v in u.items()
+                    if k not in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by", "bytes", "ops")})
+    out[-1]["hot_cell"] = cases["hot_cell"]
 
     # L3 scatter_pair_lanes: the same batch host-combined (job (b)'s
     # upload: one [pair, count, f32 sum] row per distinct cell)
@@ -3017,6 +3136,9 @@ def phase_mesh(torch, np, local_rows):
         conf_extra={"exchange.impl": "ring"})
     prof = profile_run(torch, lambda: run_q5_host_fed(
         torch, np, side, "mesh-q5-profiled", mesh=mesh)[3])
+    a_prof = profile_run(torch, lambda: run_bid_agg(
+        torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a-profiled",
+        mesh=mesh)[3])
     # the goldens' numpy work comes after the timed runs
     check_q5_rows(np, rows, cfg, "M1")
     check(by_window(rows) == by_window(local_rows),
@@ -3030,7 +3152,8 @@ def phase_mesh(torch, np, local_rows):
            "M1": mesh_summary(len(rows), launches, res, wall, Q5_BATCHES),
            "M2": {**mesh_summary(len(a_rows["key"]), a_launches, a_res,
                                  a_wall, MESH_SIDE_BATCHES),
-                  "max_rel_err": rel, "max_share_of_bound": share},
+                  "max_rel_err": rel, "max_share_of_bound": share,
+                  "profiled": {"batches": MESH_SIDE_BATCHES, **a_prof}},
            "M3": {**mesh_summary(len(h_rows), h_launches, h_res, h_wall,
                                  MESH_SIDE_BATCHES),
                   "auctions": hot.num_active_auctions,
@@ -3041,7 +3164,7 @@ def phase_mesh(torch, np, local_rows):
            "profiled": {"batches": MESH_SIDE_BATCHES, **prof},
            "card": card_line()}
     emit(out)
-    return launches, prof["device_ms_per_call"]
+    return launches, prof["device_ms_per_call"], a_prof["device_ms_per_call"]
 
 
 def phase_mesh_cards(torch, np):
@@ -3084,6 +3207,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--scatter-lanes" in sys.argv[1:]:
+        try:
+            phase_scatter_lanes(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--mesh-cards" in sys.argv[1:]:
         try:
             phase_build()
@@ -3110,7 +3244,7 @@ def main() -> int:
         q5_spill, sp_per_call = phase_q5_spill(torch, np)
         element, el_per_call = phase_element_window(torch, np)
         proc_time, pt_per_call = phase_proc_time(torch, np)
-        mesh, mesh_per_call = phase_mesh(torch, np, q5_rows)
+        mesh, mesh_per_call, m2_per_call = phase_mesh(torch, np, q5_rows)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
@@ -3167,6 +3301,17 @@ def main() -> int:
                                          or sp_per_call.get(name)
                                          or el_per_call.get(name)
                                          or pt_per_call.get(name))
+            if name == "scatter_lanes":
+                # device ms a call on every path that folds records per
+                # record: the profiled runs count one hist kernel a call
+                row["pipeline_device_ms_by_path"] = by_path = {
+                    "bid_aggs_a": agg_per_call.get(name),
+                    "window_wordcount": ww_per_call.get(name),
+                    "topn_lanes": tl_per_call.get(name),
+                    "changelog": cl_per_call.get(name),
+                    "mesh_m2": m2_per_call.get(name)}
+                check(all(by_path.values()),
+                      f"scatter_lanes has no device time a call on {by_path}")
             path = own_path.get(name, "q5_devgen")
             row["launches"] = paths[path][name] or host_fed[name]
             row["launches_path"] = path

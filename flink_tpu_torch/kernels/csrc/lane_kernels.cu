@@ -36,18 +36,10 @@
 
 namespace {
 
-// L2 radix sort: 8-bit digits, kRadixItems records per thread per pass
-constexpr int kRadixBits = 8;
-constexpr int kRadixDigits = 1 << kRadixBits;
-constexpr int kRadixItems = 16;
-constexpr int kRadixTile = kThreads * kRadixItems;
-constexpr int kScanThreads = 1024;
 // error-word bits (window_kernels.py ERROR_BITS decodes them)
 constexpr int32_t kErrScatterLanes = 8;
 constexpr int32_t kErrPairLanes = 16;
 constexpr int32_t kErrFireCap = 32;
-
-static_assert(kThreads == kRadixDigits, "one thread per radix digit");
 
 // ---- L1: fire_pack ---------------------------------------------------------
 // For every (row, window) cell of a chunk of W window ends: the window's
@@ -167,235 +159,624 @@ __global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, 
 // flat cell idx[i], sums[cell] += s[i], maxs[cell] = max(maxs[cell],
 // mx[i]), mins[cell] = min(mins[cell], mn[i]), counts[cell] += 1 — each
 // cell's records in record order, as the reference's XLA scatter adds
-// them (so the f32 sums come out bit for bit equal).
+// them (so the f32 sums come out bit for bit equal). No float atomics:
+// every cell is written by one thread, so a rerun gives the same bits.
 //
-// Design: a stable LSD radix sort of (cell, record index) by cell, 8 bits
-// a pass over the bits a cell index needs (3 passes at 2^20 cells), a
-// gather of the records' lanes into that order, then the thread at each
-// run's end folds the run (from its head, noted by a first pass) in order
-// over consecutive addresses. No float
-// atomics; no atomics at all on the state. A pass: A counts each block's
-// digits (shared-memory atomics, order-free), B scans the (digit, block)
-// table, C places each record at its digit's offset plus its rank among
-// the equal digits before it in the tile (a warp's ranks from
-// __match_any_sync, warps in record order), which keeps the sort stable.
-// An index outside the state takes the sentinel cell n_cells, sorts last,
-// is skipped, and sets kErrScatterLanes; with skip_negative a negative
-// index (an invalid record of a key-sharded block's received buckets)
-// takes the sentinel without the error.
+// Bound: bytes — idx and each record's lanes once, each touched cell's
+// count and lanes read and written once (~20 MB at 2^20 records into
+// the bid-aggregate state, 0.006 ms). The order costs a sort on top.
 //
-// Bound: bytes — idx once, each record's lanes once, each touched cell's
-// lanes and count read and written once. The sort's own passes (~24 bytes
-// a record a pass) and the run fold's gathers come on top.
+// Design, one memset and 2 + passes launches on the caller's stream:
+//   H  lanes_hist_kernel reads idx once, a block a sort tile: the range
+//      check (an index outside the state, or a negative one unless
+//      skip_negative, sets kErrScatterLanes and is dropped), the count
+//      of valid records and the digit histogram of every pass, into the
+//      zeroed ctrl block.
+//   S  lanes_sort_kernel, once per digit pass: a stable LSD radix pass of
+//      (cell, record index) over tiles of kSortTile records, each tile's
+//      digit offsets from a chained scan with decoupled look-back
+//      (Merrill & Garland 2016, as Onesweep uses it for sorting, Adinets
+//      & Merrill 2022): a tile publishes its digit counts, sums its
+//      predecessors' (kLookback words a read) until one has published an
+//      inclusive prefix, then publishes its own; the global digit bases
+//      come from H's histogram. No scan launches. Inside a tile a
+//      record's rank among its warp's records of its digit comes from
+//      __match_any_sync, warps in record order, so the pass is stable
+//      (ranking by a ballot a digit bit measured no faster); the tile is
+//      ordered in shared memory first, so the writes to device memory run
+//      in digit runs. The first pass reads idx and keeps only the valid
+//      records.
+//   F  lanes_fold_kernel: each thread owns kFoldSpan sorted places and
+//      folds every run that ends among them, from the run's head (found
+//      by a galloping search back over the sorted cells when the run
+//      started in an earlier span) to its end: count, sums, maxes and
+//      mins in one walk, in record order, each record's lanes read from
+//      the caller's arrays by its index, a chunk of records' loads in
+//      flight together. A run longer than kLongRun is folded by the
+//      span's whole warp instead: coalesced index loads two rounds ahead,
+//      maxes and mins across the lanes, the sums in record order from
+//      shuffles. Max and min compare order-preserving int keys (IEEE
+//      754-2019: NaN wins, -0 < +0), one integer op on the chain.
+//
+// The lanes are read in the fold, not placed by the last pass: a last
+// pass that gathered them by index ran about three times as long as a
+// pass that moves indices (random reads from a block at 2 an SM), and
+// carrying them through every pass in shared memory doubled each pass;
+// the fold waits on its loads anyway. Digits: at most 8 bits
+// (kMaxDigitBits), passes = ceil(bits / 8) with the bits spread evenly
+// (21 key bits: 3 passes of 7), so one thread of the 256 owns each digit
+// in the look-back and the scans; the per-warp digit table (8 KB) and
+// the tile's staging (32 KB) fit in 48 KB of static shared memory. Wider
+// digits (11 bits, 2 passes) would need 2048 counters a warp and 8
+// look-back chains a thread. Tiles of 2048 records measured slower than
+// 4096 (the per-tile scans and look-back dominate at 2^20 records). A
+// cell's records form one run whose sum is one dependent chain of f32
+// adds in record order: a batch with most records in one cell (2^18 in
+// chip_smoke.py's hot-cell case) waits for that chain, which is the
+// contract's cost; the maxes, mins and count add no chain of their own.
+// The wrapper keeps the workspace (ctrl, look-back words, two cell and
+// two index buffers) per device and stream.
+constexpr int kSortItems = 16;
+constexpr int kSortTile = kThreads * kSortItems;
+constexpr int kMaxDigitBits = 8;
+constexpr int kMaxRadix = 1 << kMaxDigitBits;
+constexpr int kMaxPasses = 4;
+// predecessors' look-back words read at once
+constexpr int kLookback = 8;
+// a fold thread's sorted places, and the records it loads at once
+constexpr int kFoldSpan = 16;
+constexpr int kFoldChunk = 8;
+constexpr int kFoldLanes = 8;
+// a run longer than kLongRun is folded by its span's whole warp,
+// kWarpBatch records a lane a round
+constexpr int kLongRun = 32;
+constexpr int kWarpBatch = 4;
+// the ctrl block at the head of the zeroed workspace: each pass's digit
+// histogram, each pass's tile counter, the valid records; 256-byte rounded
+constexpr int kCtrlTiles = kMaxPasses * kMaxRadix;
+constexpr int kCtrlValid = kCtrlTiles + kMaxPasses;
+constexpr int kCtrlInts = (kCtrlValid + 1 + 63) / 64 * 64;
+// a look-back word: a flag in the top two bits, a record count below
+constexpr uint32_t kFlagAgg = 1u << 30;
+constexpr uint32_t kFlagInc = 2u << 30;
+constexpr uint32_t kCountMask = kFlagAgg - 1u;
 
-__global__ void lanes_prep_kernel(const int32_t* __restrict__ idx, int64_t n, int64_t n_cells,
-                                  int32_t skip_negative, int32_t* __restrict__ keys,
-                                  int32_t* __restrict__ vals, int32_t* __restrict__ err) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    int32_t c = idx[i];
-    if (c < 0 && skip_negative) {
-      c = (int32_t)n_cells;  // an invalid record: sorts last, is skipped
-    } else if (c < 0 || (int64_t)c >= n_cells) {
-      atomicOr(err, kErrScatterLanes);
-      c = (int32_t)n_cells;
+static_assert(kMaxRadix == kThreads, "one thread per digit");
+
+__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// order-preserving int32 keys of f32 values (-0 < +0); NaN takes the top
+// key for a maximum and the bottom one for a minimum, so it wins
+__device__ __forceinline__ int32_t max_key(float x) {
+  const int32_t b = __float_as_int(x);
+  return isnan(x) ? 0x7fffffff : b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ int32_t min_key(float x) {
+  const int32_t b = __float_as_int(x);
+  return isnan(x) ? (int32_t)0x80000000 : b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float from_key(int32_t k) {
+  if (k == 0x7fffffff || k == (int32_t)0x80000000) return __int_as_float(0x7fc00000);
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    lanes_hist_kernel(const int32_t* __restrict__ idx, int64_t n, int64_t n_cells,
+                      int32_t skip_negative, int32_t passes, int32_t digit_bits,
+                      int32_t* __restrict__ ctrl, int32_t* __restrict__ err) {
+  __shared__ int s_h[kMaxPasses * kMaxRadix];
+  __shared__ long long s_sum[kWarps];
+  for (int e = threadIdx.x; e < kMaxPasses * kMaxRadix; e += kThreads) s_h[e] = 0;
+  __syncthreads();
+  const uint32_t mask = (1u << digit_bits) - 1u;
+  // block b reads the records of sort tile b, all its loads in flight
+  // before the first count
+  const int64_t base = (int64_t)blockIdx.x * kSortTile + threadIdx.x;
+  int32_t c[kSortItems];
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int64_t i = base + (int64_t)j * kThreads;
+    c[j] = i < n ? idx[i] : -1;
+  }
+  int valid = 0;
+  int bad = 0;
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    if (base + (int64_t)j * kThreads >= n) break;
+    if (c[j] < 0 && skip_negative) continue;  // an invalid record: touches nothing
+    if (c[j] < 0 || (int64_t)c[j] >= n_cells) {
+      bad = 1;
+      continue;
     }
-    keys[i] = c;
-    vals[i] = (int32_t)i;
+    ++valid;
+    for (int p = 0; p < passes; ++p)
+      atomicAdd(&s_h[p * kMaxRadix + (((uint32_t)c[j] >> (p * digit_bits)) & mask)], 1);
   }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(err, kErrScatterLanes);
+  for (int e = threadIdx.x; e < passes * kMaxRadix; e += kThreads)
+    if (s_h[e]) atomicAdd(&ctrl[e], s_h[e]);
+  const long long total = block_sum(valid, s_sum);
+  if (threadIdx.x == 0 && total) atomicAdd(&ctrl[kCtrlValid], (int32_t)total);
 }
 
-__global__ void radix_upsweep_kernel(const int32_t* __restrict__ keys, int64_t n, int32_t shift,
-                                     int32_t* __restrict__ hist, int32_t n_blocks) {
-  __shared__ int s_h[kRadixDigits];
-  s_h[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t base = (int64_t)blockIdx.x * kRadixTile;
-  for (int j = 0; j < kRadixItems; ++j) {
-    const int64_t i = base + (int64_t)j * kThreads + threadIdx.x;
-    if (i < n) atomicAdd(&s_h[((uint32_t)keys[i] >> shift) & (kRadixDigits - 1)], 1);
-  }
-  __syncthreads();
-  hist[(int64_t)threadIdx.x * n_blocks + blockIdx.x] = s_h[threadIdx.x];
-}
-
-// exclusive prefix sum of v over a block of kScanThreads threads
-__device__ __forceinline__ int scan_block_1024(int v, int* s_w) {
+// One stable digit pass over the records' cells and indices. kFirst:
+// the cells come from idx (a record outside the state is dropped) and a
+// record's index is its position; else both come from the previous pass
+// (n_valid of them). status: this pass's look-back words, tile-major.
+template <bool kFirst>
+__global__ void __launch_bounds__(kThreads)
+    lanes_sort_kernel(const int32_t* __restrict__ keys_in, const int32_t* __restrict__ vals_in,
+                      int64_t n, int64_t n_cells, int32_t pass, int32_t digit_bits,
+                      int32_t* __restrict__ ctrl, uint32_t* __restrict__ status,
+                      int32_t* __restrict__ keys_out, int32_t* __restrict__ vals_out) {
+  __shared__ int s_tile, s_tile_n;
+  __shared__ int s_warp[kWarps][kMaxRadix];  // digit counts, then offsets, a warp
+  __shared__ int s_start[kMaxRadix];         // a digit's first place in the tile
+  __shared__ int s_gofs[kMaxRadix];          // its global place less s_start
+  __shared__ int s_scan[kWarps];
+  __shared__ int32_t s_key[kSortTile];
+  __shared__ int32_t s_val[kSortTile];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int u = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += u;
-  }
-  __syncthreads();  // s_w may still be read by a previous call
-  if (lane == 31) s_w[warp] = incl;
+  const int radix = 1 << digit_bits;
+  const int shift = pass * digit_bits;
+  const uint32_t mask = (uint32_t)radix - 1u;
+  // tiles in the order blocks start, so a tile's predecessors are running
+  if (threadIdx.x == 0) s_tile = atomicAdd(&ctrl[kCtrlTiles + pass], 1);
+  for (int e = threadIdx.x; e < kWarps * kMaxRadix; e += kThreads) (&s_warp[0][0])[e] = 0;
   __syncthreads();
-  if (warp == 0) {
-    const int t = s_w[lane];
-    int u = t;
-    for (int o = 1; o < 32; o <<= 1) {
-      int x = __shfl_up_sync(0xffffffffu, u, o);
-      if (lane >= o) u += x;
-    }
-    s_w[lane] = u - t;
-  }
-  __syncthreads();
-  return s_w[warp] + incl - v;
-}
-
-// exclusive scan of the (digit-major) hist table in place, in three
-// launches: A the sum of each kScanThreads-entry chunk, B an exclusive
-// scan of those sums (one block, looping when there are more chunks
-// than threads), C each chunk's own scan plus its prefix
-__global__ void scan_chunk_sums_kernel(const int32_t* __restrict__ hist, int64_t m,
-                                       int32_t* __restrict__ chunk) {
-  __shared__ int s_w[kScanThreads / 32];
-  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
-  const int v = i < m ? hist[i] : 0;
-  const int before = scan_block_1024(v, s_w);
-  if (threadIdx.x == kScanThreads - 1) chunk[blockIdx.x] = before + v;
-}
-
-__global__ void scan_chunks_kernel(int32_t* __restrict__ chunk, int64_t n_chunks) {
-  __shared__ int s_w[kScanThreads / 32];
-  __shared__ int s_carry;
-  if (threadIdx.x == 0) s_carry = 0;
-  for (int64_t base = 0; base < n_chunks; base += kScanThreads) {
-    const int64_t i = base + threadIdx.x;
-    const int v = i < n_chunks ? chunk[i] : 0;
-    __syncthreads();
-    const int carry = s_carry;
-    const int before = scan_block_1024(v, s_w);
-    if (i < n_chunks) chunk[i] = carry + before;
-    __syncthreads();
-    if (threadIdx.x == kScanThreads - 1) s_carry = carry + before + v;
-  }
-}
-
-__global__ void scan_apply_kernel(int32_t* __restrict__ hist, int64_t m,
-                                  const int32_t* __restrict__ chunk) {
-  __shared__ int s_w[kScanThreads / 32];
-  const int64_t i = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
-  const int v = i < m ? hist[i] : 0;
-  const int before = scan_block_1024(v, s_w);
-  if (i < m) hist[i] = chunk[blockIdx.x] + before;
-}
-
-__global__ void radix_downsweep_kernel(const int32_t* __restrict__ keys_in,
-                                       const int32_t* __restrict__ vals_in, int64_t n,
-                                       int32_t shift, const int32_t* __restrict__ hist,
-                                       int32_t n_blocks, int32_t* __restrict__ keys_out,
-                                       int32_t* __restrict__ vals_out) {
-  __shared__ int s_cnt[kWarps][kRadixDigits];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = threadIdx.x; d < kWarps * kRadixDigits; d += blockDim.x) (&s_cnt[0][0])[d] = 0;
-  __syncthreads();
-  // warp w owns records [wbase, wbase + 32 * kRadixItems) of the tile, in
+  const int tile = s_tile;
+  const int64_t n_in = kFirst ? n : (int64_t)ctrl[kCtrlValid];
+  const int64_t base = (int64_t)tile * kSortTile;
+  if (base >= n_in) return;
+  // warp w ranks records [wbase, wbase + 32 * kSortItems) of the tile, in
   // rounds of 32 consecutive records
-  const int64_t wbase = (int64_t)blockIdx.x * kRadixTile + (int64_t)warp * 32 * kRadixItems;
-  int32_t key[kRadixItems];
-  uint32_t dig[kRadixItems];
-  for (int j = 0; j < kRadixItems; ++j) {
-    const int64_t i = wbase + (int64_t)j * 32 + lane;
-    key[j] = i < n ? keys_in[i] : 0;
-    // past the end: a value no real digit has, so it never joins a group
-    dig[j] = i < n ? ((uint32_t)key[j] >> shift) & (kRadixDigits - 1) : kRadixDigits;
-    const uint32_t peers = __match_any_sync(0xffffffffu, dig[j]);
-    if (dig[j] < kRadixDigits && lane == __ffs(peers) - 1) s_cnt[warp][dig[j]] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  {
-    // digit d: the global offset of this block's first d, then each
-    // warp's start within it
-    const int d = threadIdx.x;
-    int run = hist[(int64_t)d * n_blocks + blockIdx.x];
-    for (int w = 0; w < kWarps; ++w) {
-      const int t = s_cnt[w][d];
-      s_cnt[w][d] = run;
-      run += t;
-    }
-  }
-  __syncthreads();
+  const int64_t wbase = base + (int64_t)warp * 32 * kSortItems;
   const uint32_t lt = (1u << lane) - 1u;
-  for (int j = 0; j < kRadixItems; ++j) {
+  int32_t key[kSortItems], val[kSortItems];
+  int rank[kSortItems];  // among the warp's records of its digit; -1: none
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
     const int64_t i = wbase + (int64_t)j * 32 + lane;
-    const uint32_t peers = __match_any_sync(0xffffffffu, dig[j]);
-    int pos = 0;
-    if (dig[j] < kRadixDigits) pos = s_cnt[warp][dig[j]] + __popc(peers & lt);
+    bool ok = i < n_in;
+    const int32_t c = ok ? keys_in[i] : 0;
+    if (kFirst) ok = ok && c >= 0 && (int64_t)c < n_cells;
+    key[j] = c;
+    val[j] = kFirst ? (int32_t)i : (ok ? vals_in[i] : 0);
+    // kMaxRadix: a value no digit has, so a missing record joins no group
+    const uint32_t dig = ok ? ((uint32_t)c >> shift) & mask : (uint32_t)kMaxRadix;
+    const uint32_t peers = __match_any_sync(0xffffffffu, dig);
+    rank[j] = ok ? s_warp[warp][dig] + __popc(peers & lt) : -1;
     __syncwarp();
-    if (dig[j] < kRadixDigits) {
-      keys_out[pos] = key[j];
-      vals_out[pos] = vals_in[i];
-      if (lane == __ffs(peers) - 1) s_cnt[warp][dig[j]] += __popc(peers);
-    }
+    if (ok && lane == __ffs(peers) - 1) s_warp[warp][dig] += __popc(peers);
     __syncwarp();
   }
-}
-
-// the records' lanes in sorted order, lane-major: sorted[l * n + k] is
-// lane l (sums, then maxs, then mins) of the k-th record in cell order,
-// so a run's fold reads consecutive addresses
-__global__ void lanes_gather_kernel(const int32_t* __restrict__ vals, int64_t n,
-                                    const float* __restrict__ s_in, int32_t sw,
-                                    const float* __restrict__ mx_in, int32_t mw,
-                                    const float* __restrict__ mn_in, int32_t nw,
-                                    float* __restrict__ sorted) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
-    const int64_t i = vals[k];
-    for (int32_t s = 0; s < sw; ++s) sorted[s * n + k] = s_in[i * sw + s];
-    for (int32_t s = 0; s < mw; ++s) sorted[(sw + s) * n + k] = mx_in[i * mw + s];
-    for (int32_t s = 0; s < nw; ++s) sorted[(sw + mw + s) * n + k] = mn_in[i * nw + s];
+  __syncthreads();
+  const int d = threadIdx.x;  // the digit this thread owns
+  int total = 0;
+  if (d < radix) {
+    for (int w = 0; w < kWarps; ++w) {
+      const int t = s_warp[w][d];
+      s_warp[w][d] = total;
+      total += t;
+    }
+    st_relaxed(&status[(int64_t)tile * radix + d], (tile ? kFlagAgg : kFlagInc) | (uint32_t)total);
+  }
+  const int start = block_exclusive_scan(d < radix ? total : 0, s_scan);
+  const int gbase = block_exclusive_scan(d < radix ? ctrl[pass * kMaxRadix + d] : 0, s_scan);
+  if (d < radix) {
+    int excl = 0;
+    if (tile) {
+      // read kLookback predecessors' words at once, nearest first; add
+      // them up to the first inclusive one, or stop at the first one not
+      // yet published and read again from there
+      for (int64_t p = tile - 1;;) {
+        uint32_t w[kLookback];
+#pragma unroll
+        for (int i = 0; i < kLookback; ++i)
+          w[i] = p - i >= 0 ? ld_relaxed(&status[(p - i) * radix + d]) : kFlagInc;
+        int used = 0;
+        bool inclusive = false;
+#pragma unroll
+        for (int i = 0; i < kLookback; ++i) {
+          if (inclusive || used < i || w[i] < kFlagAgg) continue;
+          excl += (int)(w[i] & kCountMask);
+          inclusive = (w[i] & kFlagInc) != 0;
+          used = i + 1;
+        }
+        if (inclusive) break;
+        p -= used;
+      }
+      st_relaxed(&status[(int64_t)tile * radix + d], kFlagInc | (uint32_t)(excl + total));
+    }
+    s_start[d] = start;
+    s_gofs[d] = gbase + excl - start;
+    if (d == radix - 1) s_tile_n = start + total;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    if (rank[j] < 0) continue;
+    const int dg = ((uint32_t)key[j] >> shift) & mask;
+    const int at = s_start[dg] + s_warp[warp][dg] + rank[j];
+    s_key[at] = key[j];
+    s_val[at] = val[j];
+  }
+  __syncthreads();
+  // the tile in digit order: runs of one digit land on consecutive places
+  const int tile_n = s_tile_n;
+  for (int k = threadIdx.x; k < tile_n; k += kThreads) {
+    const int32_t c = s_key[k];
+    const int64_t g = (int64_t)s_gofs[((uint32_t)c >> shift) & mask] + k;
+    keys_out[g] = c;
+    vals_out[g] = s_val[k];
   }
 }
 
-// each run's first position, at its cell (head_of has n_cells entries;
-// only cells that have a run in this batch are written, then read)
-__global__ void lanes_heads_kernel(const int32_t* __restrict__ keys, int64_t n, int64_t n_cells,
-                                   int32_t* __restrict__ head_of) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
-    const int32_t cell = keys[k];
-    if ((int64_t)cell != n_cells && (k == 0 || keys[k - 1] != cell)) head_of[cell] = (int32_t)k;
+// the first sorted place of cell's run, given keys[hi] == cell: gallop
+// back, then bisect
+__device__ __forceinline__ int64_t run_head(const int32_t* __restrict__ keys, int64_t hi,
+                                            int32_t cell) {
+  int64_t lo = -1;
+  for (int64_t step = 1;; step <<= 1) {
+    const int64_t p = hi - step;
+    if (p < 0) break;
+    if (keys[p] != cell) {
+      lo = p;
+      break;
+    }
+    hi = p;
+  }
+  while (hi - lo > 1) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (keys[mid] == cell)
+      hi = mid;
+    else
+      lo = mid;
+  }
+  return hi;
+}
+
+// one record's lanes v into the accumulators, widths known at compile time
+template <int SW, int MW, int NW>
+__device__ __forceinline__ void fold_one(const float (&v)[SW + MW + NW], float* as, int32_t* ax,
+                                         int32_t* an) {
+#pragma unroll
+  for (int j = 0; j < SW; ++j) as[j] += v[j];
+#pragma unroll
+  for (int j = 0; j < MW; ++j) ax[j] = max(ax[j], max_key(v[SW + j]));
+#pragma unroll
+  for (int j = 0; j < NW; ++j) an[j] = min(an[j], min_key(v[SW + MW + j]));
+}
+
+// the lanes of record r, widths known at compile time
+template <int SW, int MW, int NW>
+__device__ __forceinline__ void load_record(float (&v)[SW + MW + NW], int64_t r,
+                                            const float* __restrict__ s_in,
+                                            const float* __restrict__ mx_in,
+                                            const float* __restrict__ mn_in) {
+#pragma unroll
+  for (int j = 0; j < SW; ++j) v[j] = s_in[r * SW + j];
+#pragma unroll
+  for (int j = 0; j < MW; ++j) v[SW + j] = mx_in[r * MW + j];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) v[SW + MW + j] = mn_in[r * NW + j];
+}
+
+// fold the sorted records [head, end) of one cell (record indices
+// vals[head..end)), widths known at compile time: a chunk of up to
+// kFoldChunk records' indices, then their lanes, are loaded before they
+// are added, so the walk waits twice a chunk and not on each record
+template <int SW, int MW, int NW>
+__device__ __forceinline__ void fold_run_fixed(int32_t cell, int64_t head, int64_t end,
+                                               const int32_t* __restrict__ vals,
+                                               const float* __restrict__ s_in,
+                                               const float* __restrict__ mx_in,
+                                               const float* __restrict__ mn_in,
+                                               float* __restrict__ sums,
+                                               float* __restrict__ maxs,
+                                               float* __restrict__ mins) {
+  constexpr int L = SW + MW + NW;
+  if constexpr (L > 0) {
+    float as[SW > 0 ? SW : 1];
+    int32_t ax[MW > 0 ? MW : 1], an[NW > 0 ? NW : 1];
+#pragma unroll
+    for (int j = 0; j < SW; ++j) as[j] = sums[(int64_t)cell * SW + j];
+#pragma unroll
+    for (int j = 0; j < MW; ++j) ax[j] = max_key(maxs[(int64_t)cell * MW + j]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) an[j] = min_key(mins[(int64_t)cell * NW + j]);
+    for (int64_t q = head; q < end; q += kFoldChunk) {
+      const int m = end - q < kFoldChunk ? (int)(end - q) : kFoldChunk;
+      int32_t r[kFoldChunk];
+#pragma unroll
+      for (int k = 0; k < kFoldChunk; ++k)
+        if (k < m) r[k] = vals[q + k];
+      float v[kFoldChunk][L];
+#pragma unroll
+      for (int k = 0; k < kFoldChunk; ++k)
+        if (k < m) load_record<SW, MW, NW>(v[k], r[k], s_in, mx_in, mn_in);
+#pragma unroll
+      for (int k = 0; k < kFoldChunk; ++k)
+        if (k < m) fold_one<SW, MW, NW>(v[k], as, ax, an);
+    }
+#pragma unroll
+    for (int j = 0; j < SW; ++j) sums[(int64_t)cell * SW + j] = as[j];
+#pragma unroll
+    for (int j = 0; j < MW; ++j) maxs[(int64_t)cell * MW + j] = from_key(ax[j]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) mins[(int64_t)cell * NW + j] = from_key(an[j]);
   }
 }
 
-// the thread at each run's last position folds the run, in order
-__global__ void lanes_fold_kernel(const int32_t* __restrict__ keys, int64_t n, int64_t n_cells,
-                                  const int32_t* __restrict__ head_of,
-                                  const float* __restrict__ sorted, int32_t sw, int32_t mw,
-                                  int32_t nw, int32_t* __restrict__ counts,
-                                  float* __restrict__ sums, float* __restrict__ maxs,
-                                  float* __restrict__ mins) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
-    const int32_t cell = keys[k];
-    if ((int64_t)cell == n_cells || (k + 1 < n && keys[k + 1] == cell)) continue;
-    const int64_t head = head_of[cell], end = k + 1;
-    counts[cell] += (int32_t)(end - head);
-    for (int32_t s = 0; s < sw; ++s) {
-      const float* x = sorted + (int64_t)s * n;
-      float acc = sums[(int64_t)cell * sw + s];
-#pragma unroll 8
-      for (int64_t q = head; q < end; ++q) acc += x[q];
-      sums[(int64_t)cell * sw + s] = acc;
+// lane l of record r, widths at run time; kind: 0 sum, 1 max, 2 min
+__device__ __forceinline__ float record_lane(int64_t r, int32_t l, int32_t sw, int32_t mw,
+                                             int32_t nw, const float* __restrict__ s_in,
+                                             const float* __restrict__ mx_in,
+                                             const float* __restrict__ mn_in) {
+  return l < sw        ? s_in[r * sw + l]
+         : l < sw + mw ? mx_in[r * mw + l - sw]
+                       : mn_in[r * nw + l - sw - mw];
+}
+
+// the same with the widths at run time, kFoldLanes lanes a walk
+__device__ __forceinline__ void fold_run_any(int32_t cell, int64_t head, int64_t end,
+                                             const int32_t* __restrict__ vals,
+                                             const float* __restrict__ s_in,
+                                             const float* __restrict__ mx_in,
+                                             const float* __restrict__ mn_in, int32_t sw,
+                                             int32_t mw, int32_t nw, float* __restrict__ sums,
+                                             float* __restrict__ maxs,
+                                             float* __restrict__ mins) {
+  const int32_t L = sw + mw + nw;
+  for (int32_t g0 = 0; g0 < L; g0 += kFoldLanes) {
+    int32_t acc[kFoldLanes];
+#pragma unroll
+    for (int j = 0; j < kFoldLanes; ++j) {
+      const int32_t l = g0 + j;
+      acc[j] = l < sw        ? __float_as_int(sums[(int64_t)cell * sw + l])
+               : l < sw + mw ? max_key(maxs[(int64_t)cell * mw + l - sw])
+               : l < L       ? min_key(mins[(int64_t)cell * nw + l - sw - mw])
+                             : 0;
     }
-    for (int32_t s = 0; s < mw; ++s) {
-      const float* x = sorted + (int64_t)(sw + s) * n;
-      float acc = maxs[(int64_t)cell * mw + s];
-#pragma unroll 8
-      for (int64_t q = head; q < end; ++q) acc = max_ieee(acc, x[q]);
-      maxs[(int64_t)cell * mw + s] = acc;
+    for (int64_t q = head; q < end; ++q) {
+      const int64_t r = vals[q];
+#pragma unroll
+      for (int j = 0; j < kFoldLanes; ++j) {
+        const int32_t l = g0 + j;
+        if (l >= L) continue;
+        const float x = record_lane(r, l, sw, mw, nw, s_in, mx_in, mn_in);
+        if (l < sw)
+          acc[j] = __float_as_int(__int_as_float(acc[j]) + x);
+        else if (l < sw + mw)
+          acc[j] = max(acc[j], max_key(x));
+        else
+          acc[j] = min(acc[j], min_key(x));
+      }
     }
-    for (int32_t s = 0; s < nw; ++s) {
-      const float* x = sorted + (int64_t)(sw + mw + s) * n;
-      float acc = mins[(int64_t)cell * nw + s];
-#pragma unroll 8
-      for (int64_t q = head; q < end; ++q) acc = min_ieee(acc, x[q]);
-      mins[(int64_t)cell * nw + s] = acc;
+#pragma unroll
+    for (int j = 0; j < kFoldLanes; ++j) {
+      const int32_t l = g0 + j;
+      if (l < sw)
+        sums[(int64_t)cell * sw + l] = __int_as_float(acc[j]);
+      else if (l < sw + mw)
+        maxs[(int64_t)cell * mw + l - sw] = from_key(acc[j]);
+      else if (l < L)
+        mins[(int64_t)cell * nw + l - sw - mw] = from_key(acc[j]);
     }
   }
+}
+
+// a long run [head, end) of one cell folded by the whole warp, widths
+// known at compile time: each round every lane loads kWarpBatch records
+// (their indices coalesced, the next round's loads in flight), takes
+// their maxes and mins into its own accumulators, and every lane adds
+// the round's records into the sums in record order, each value from its
+// lane by a shuffle; lane 0 writes the cell
+template <int SW, int MW, int NW>
+__device__ __forceinline__ void warp_fold_fixed(int32_t cell, int64_t head, int64_t end,
+                                                const int32_t* __restrict__ vals,
+                                                const float* __restrict__ s_in,
+                                                const float* __restrict__ mx_in,
+                                                const float* __restrict__ mn_in,
+                                                float* __restrict__ sums,
+                                                float* __restrict__ maxs,
+                                                float* __restrict__ mins) {
+  constexpr int L = SW + MW + NW;
+  if constexpr (L > 0) {
+    const int lane = threadIdx.x & 31;
+    float as[SW > 0 ? SW : 1];
+    int32_t ax[MW > 0 ? MW : 1], an[NW > 0 ? NW : 1];
+#pragma unroll
+    for (int j = 0; j < SW; ++j) as[j] = sums[(int64_t)cell * SW + j];
+#pragma unroll
+    for (int j = 0; j < MW; ++j) ax[j] = max_key(maxs[(int64_t)cell * MW + j]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) an[j] = min_key(mins[(int64_t)cell * NW + j]);
+    // two rounds in flight: the next round's lanes, the one after's indices
+    constexpr int kRound = 32 * kWarpBatch;
+    float v[kWarpBatch][L];
+    int32_t nidx[kWarpBatch];
+#pragma unroll
+    for (int r = 0; r < kWarpBatch; ++r) {
+      const int64_t q = head + r * 32 + lane;
+      if (q < end) load_record<SW, MW, NW>(v[r], vals[q], s_in, mx_in, mn_in);
+      nidx[r] = q + kRound < end ? vals[q + kRound] : 0;
+    }
+    for (int64_t q0 = head; q0 < end; q0 += kRound) {
+      float w[kWarpBatch][L];
+#pragma unroll
+      for (int r = 0; r < kWarpBatch; ++r) {
+        const int64_t q = q0 + kRound + r * 32 + lane;
+        if (q < end) load_record<SW, MW, NW>(w[r], nidx[r], s_in, mx_in, mn_in);
+        nidx[r] = q + kRound < end ? vals[q + kRound] : 0;
+      }
+#pragma unroll
+      for (int r = 0; r < kWarpBatch; ++r) {
+        const int64_t qr = q0 + r * 32;
+        if (qr + lane < end) {
+#pragma unroll
+          for (int j = 0; j < MW; ++j) ax[j] = max(ax[j], max_key(v[r][SW + j]));
+#pragma unroll
+          for (int j = 0; j < NW; ++j) an[j] = min(an[j], min_key(v[r][SW + MW + j]));
+        }
+        if constexpr (SW > 0) {
+          const int cnt = end - qr < 32 ? (int)(end - qr) : 32;
+#pragma unroll
+          for (int src = 0; src < 32; ++src) {
+#pragma unroll
+            for (int j = 0; j < SW; ++j) {
+              const float x = __shfl_sync(0xffffffffu, v[r][j], src);
+              if (src < cnt) as[j] += x;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kWarpBatch; ++r)
+#pragma unroll
+        for (int e = 0; e < L; ++e) v[r][e] = w[r][e];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < MW; ++j) ax[j] = max(ax[j], __shfl_xor_sync(0xffffffffu, ax[j], o));
+#pragma unroll
+      for (int j = 0; j < NW; ++j) an[j] = min(an[j], __shfl_xor_sync(0xffffffffu, an[j], o));
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < SW; ++j) sums[(int64_t)cell * SW + j] = as[j];
+#pragma unroll
+      for (int j = 0; j < MW; ++j) maxs[(int64_t)cell * MW + j] = from_key(ax[j]);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) mins[(int64_t)cell * NW + j] = from_key(an[j]);
+    }
+  }
+}
+
+// the same with the widths at run time, one lane of the record a walk
+__device__ __forceinline__ void warp_fold_any(int32_t cell, int64_t head, int64_t end,
+                                              const int32_t* __restrict__ vals,
+                                              const float* __restrict__ s_in,
+                                              const float* __restrict__ mx_in,
+                                              const float* __restrict__ mn_in, int32_t sw,
+                                              int32_t mw, int32_t nw, float* __restrict__ sums,
+                                              float* __restrict__ maxs,
+                                              float* __restrict__ mins) {
+  const int lane = threadIdx.x & 31;
+  const int32_t L = sw + mw + nw;
+  for (int32_t l = 0; l < L; ++l) {
+    const int kind = l < sw ? 0 : l < sw + mw ? 1 : 2;  // sum, max, min
+    int32_t acc = kind == 0   ? __float_as_int(sums[(int64_t)cell * sw + l])
+                  : kind == 1 ? max_key(maxs[(int64_t)cell * mw + l - sw])
+                              : min_key(mins[(int64_t)cell * nw + l - sw - mw]);
+    for (int64_t q0 = head; q0 < end; q0 += 32) {
+      const int64_t q = q0 + lane;
+      const float x = q < end ? record_lane(vals[q], l, sw, mw, nw, s_in, mx_in, mn_in) : 0.0f;
+      if (kind == 0) {
+        const int cnt = end - q0 < 32 ? (int)(end - q0) : 32;
+        float a = __int_as_float(acc);
+#pragma unroll
+        for (int src = 0; src < 32; ++src) {
+          const float y = __shfl_sync(0xffffffffu, x, src);
+          if (src < cnt) a += y;
+        }
+        acc = __float_as_int(a);
+      } else if (q < end) {
+        acc = kind == 1 ? max(acc, max_key(x)) : min(acc, min_key(x));
+      }
+    }
+    if (kind != 0) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const int32_t y = __shfl_xor_sync(0xffffffffu, acc, o);
+        acc = kind == 1 ? max(acc, y) : min(acc, y);
+      }
+    }
+    if (lane == 0) {
+      if (kind == 0)
+        sums[(int64_t)cell * sw + l] = __int_as_float(acc);
+      else if (kind == 1)
+        maxs[(int64_t)cell * mw + l - sw] = from_key(acc);
+      else
+        mins[(int64_t)cell * nw + l - sw - mw] = from_key(acc);
+    }
+  }
+}
+
+// SW < 0: the widths come at run time (sw, mw, nw)
+template <int SW, int MW, int NW>
+__global__ void __launch_bounds__(kThreads)
+    lanes_fold_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ vals,
+                      const float* __restrict__ s_in, const float* __restrict__ mx_in,
+                      const float* __restrict__ mn_in, const int32_t* __restrict__ ctrl, int32_t sw, int32_t mw, int32_t nw,
+                      int32_t* __restrict__ counts, float* __restrict__ sums,
+                      float* __restrict__ maxs, float* __restrict__ mins) {
+  const int64_t nv = ctrl[kCtrlValid];
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  // a warp's 32 spans a round, so its threads meet at the warp folds
+  for (int64_t t0 = (int64_t)blockIdx.x * kThreads + (threadIdx.x - lane); t0 * kFoldSpan < nv;
+       t0 += stride) {
+    const int64_t a = (t0 + lane) * kFoldSpan;
+    const int64_t b = a + kFoldSpan < nv ? a + kFoldSpan : nv;
+    bool has_long = false;  // at most one a span: a long run covers its start
+    int32_t long_cell = 0;
+    long long long_head = 0, long_end = 0;
+    for (int64_t k = a; k < b;) {
+      const int32_t cell = keys[k];
+      int64_t e = k + 1;  // the run's end, or b
+      while (e < b && keys[e] == cell) ++e;
+      if (e == b && b < nv && keys[b] == cell) break;  // a later span folds it
+      const int64_t head = k == a && a > 0 && keys[a - 1] == cell ? run_head(keys, a - 1, cell) : k;
+      if (e - head > kLongRun) {
+        has_long = true;
+        long_cell = cell;
+        long_head = head;
+        long_end = e;
+      } else {
+        counts[cell] += (int32_t)(e - head);
+        if constexpr (SW >= 0)
+          fold_run_fixed<SW, MW, NW>(cell, head, e, vals, s_in, mx_in, mn_in, sums, maxs, mins);
+        else
+          fold_run_any(cell, head, e, vals, s_in, mx_in, mn_in, sw, mw, nw, sums, maxs, mins);
+      }
+      k = e;
+    }
+    for (uint32_t pend = __ballot_sync(0xffffffffu, has_long); pend; pend &= pend - 1) {
+      const int src = __ffs(pend) - 1;
+      const int32_t cell = __shfl_sync(0xffffffffu, long_cell, src);
+      const int64_t head = __shfl_sync(0xffffffffu, long_head, src);
+      const int64_t end = __shfl_sync(0xffffffffu, long_end, src);
+      if (lane == 0) counts[cell] += (int32_t)(end - head);
+      if constexpr (SW >= 0)
+        warp_fold_fixed<SW, MW, NW>(cell, head, end, vals, s_in, mx_in, mn_in, sums, maxs,
+                                    mins);
+      else
+        warp_fold_any(cell, head, end, vals, s_in, mx_in, mn_in, sw, mw, nw, sums, maxs, mins);
+    }
+  }
+}
+
+template <int SW, int MW, int NW>
+bool fold_if(int32_t sw, int32_t mw, int32_t nw, int32_t blocks, cudaStream_t s,
+             const int32_t* keys, const int32_t* vals, const float* s_in, const float* mx_in,
+             const float* mn_in, const int32_t* ctrl, int32_t* counts, float* sums, float* maxs,
+             float* mins) {
+  if (SW >= 0 && (sw != SW || mw != MW || nw != NW)) return false;
+  lanes_fold_kernel<SW, MW, NW><<<blocks, kThreads, 0, s>>>(
+      keys, vals, s_in, mx_in, mn_in, ctrl, sw, mw, nw, counts, sums, maxs, mins);
+  return true;
 }
 
 // ---- L3: scatter_pair_lanes ------------------------------------------------
@@ -432,8 +813,6 @@ const char* lk_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 
 int lk_fire_tile() { return kTile; }
 
-int lk_radix_tile() { return kRadixTile; }
-
 // scratch: wc (rows * W int32), block_counts (ceil(rows * W / kTile) int32)
 int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float* sums, int32_t sw,
                  const float* maxs, int32_t mw, const float* mins, int32_t nw,
@@ -457,50 +836,53 @@ int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float*
   return (int)cudaGetLastError();
 }
 
-// scratch: keys_a, vals_a, keys_b, vals_b (n int32 each), hist
-// (kRadixDigits * ceil(n / kRadixTile) int32), chunk (ceil(hist size /
-// kScanThreads) int32), head_of (n_cells int32), sorted ((sw + mw + nw) *
-// n f32); bits: the bit length of n_cells (the sentinel), at most 31
+// the plan (lane_kernels.py _scatter_plan): passes digit passes of
+// digit_bits each over tiles of kSortTile records (a hist block and a
+// sort block a tile), fold_blocks fold blocks; work: the zeroed region
+// (the ctrl block, then passes * tiles << digit_bits look-back words),
+// zero_ints long; keys0, vals0, keys1, vals1: n int32 each
 int lk_scatter_lanes(int32_t* counts, float* sums, int32_t sw, float* maxs, int32_t mw,
                      float* mins, int32_t nw, int64_t n_cells, const int32_t* idx,
                      const float* s_in, const float* mx_in, const float* mn_in, int64_t n,
-                     int32_t skip_negative, int32_t bits, int32_t* keys_a, int32_t* vals_a, int32_t* keys_b,
-                     int32_t* vals_b, int32_t* hist, int32_t* chunk, int32_t* head_of,
-                     float* sorted, int32_t* err, void* stream) {
+                     int32_t skip_negative, int32_t passes, int32_t digit_bits, int32_t tiles,
+                     int32_t fold_blocks, int32_t* work, int64_t zero_ints, int32_t* keys0,
+                     int32_t* vals0, int32_t* keys1, int32_t* vals1, int32_t* err,
+                     void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
+  const int64_t status_pass = (int64_t)tiles << digit_bits;
+  if (passes < 1 || passes > kMaxPasses || digit_bits < 1 || digit_bits > kMaxDigitBits ||
+      (int64_t)tiles * kSortTile < n || n > (int64_t)kCountMask ||
+      zero_ints < kCtrlInts + passes * status_pass || fold_blocks < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  lanes_prep_kernel<<<grid_for(n), kThreads, 0, s>>>(idx, n, n_cells, skip_negative, keys_a,
-                                                     vals_a, err);
-  int rc = (int)cudaGetLastError();
+  int rc = (int)cudaMemsetAsync(work, 0, (size_t)zero_ints * sizeof(int32_t), s);
   if (rc) return rc;
-  const int32_t n_blocks = (int32_t)((n + kRadixTile - 1) / kRadixTile);
-  const int64_t m = (int64_t)kRadixDigits * n_blocks;
-  const int32_t n_chunks = (int32_t)((m + kScanThreads - 1) / kScanThreads);
-  for (int32_t shift = 0; shift < bits; shift += kRadixBits) {
-    radix_upsweep_kernel<<<n_blocks, kThreads, 0, s>>>(keys_a, n, shift, hist, n_blocks);
-    scan_chunk_sums_kernel<<<n_chunks, kScanThreads, 0, s>>>(hist, m, chunk);
-    scan_chunks_kernel<<<1, kScanThreads, 0, s>>>(chunk, n_chunks);
-    scan_apply_kernel<<<n_chunks, kScanThreads, 0, s>>>(hist, m, chunk);
-    radix_downsweep_kernel<<<n_blocks, kThreads, 0, s>>>(keys_a, vals_a, n, shift, hist,
-                                                         n_blocks, keys_b, vals_b);
+  lanes_hist_kernel<<<tiles, kThreads, 0, s>>>(idx, n, n_cells, skip_negative, passes, digit_bits,
+                                               work, err);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  uint32_t* status = (uint32_t*)(work + kCtrlInts);
+  const int32_t* k_in = idx;
+  const int32_t* v_in = nullptr;
+  for (int32_t p = 0; p < passes; ++p) {
+    int32_t* k_out = p % 2 ? keys1 : keys0;
+    int32_t* v_out = p % 2 ? vals1 : vals0;
+    auto* kernel = p ? &lanes_sort_kernel<false> : &lanes_sort_kernel<true>;
+    kernel<<<tiles, kThreads, 0, s>>>(k_in, v_in, n, n_cells, p, digit_bits, work,
+                                      status + p * status_pass, k_out, v_out);
     rc = (int)cudaGetLastError();
     if (rc) return rc;
-    int32_t* t = keys_a;
-    keys_a = keys_b;
-    keys_b = t;
-    t = vals_a;
-    vals_a = vals_b;
-    vals_b = t;
+    k_in = k_out;
+    v_in = v_out;
   }
-  if (sw + mw + nw > 0) {
-    lanes_gather_kernel<<<grid_for(n), kThreads, 0, s>>>(vals_a, n, s_in, sw, mx_in, mw, mn_in, nw,
-                                                         sorted);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
-  lanes_heads_kernel<<<grid_for(n), kThreads, 0, s>>>(keys_a, n, n_cells, head_of);
-  lanes_fold_kernel<<<grid_for(n), kThreads, 0, s>>>(keys_a, n, n_cells, head_of, sorted, sw, mw,
-                                                     nw, counts, sums, maxs, mins);
+  // the main paths' widths at compile time (window-wordcount's sum, job
+  // T, the bid aggregates, job C's changelog), any other at run time
+#define LK_FOLD(a, b, c)                                                                   \
+  fold_if<a, b, c>(sw, mw, nw, fold_blocks, s, k_in, v_in, s_in, mx_in, mn_in, work, counts, \
+                   sums, maxs, mins)
+  if (!LK_FOLD(1, 0, 0) && !LK_FOLD(1, 1, 0) && !LK_FOLD(1, 1, 1) && !LK_FOLD(4, 0, 0))
+    LK_FOLD(-1, -1, -1);
+#undef LK_FOLD
   return (int)cudaGetLastError();
 }
 

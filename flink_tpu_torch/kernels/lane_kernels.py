@@ -31,8 +31,9 @@ version gets that from an order-preserving integer key, since
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,11 +47,10 @@ _SIGNATURES = {
                      _I32, _I64, _I64, _I32, _P, _P, _I32, _I32, _I32, _I32,
                      _P, _P, _P, _P, _P],
     "lk_scatter_lanes": [_P, _P, _I32, _P, _I32, _P, _I32, _I64, _P, _P, _P,
-                         _P, _I64, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P],
+                         _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _I64,
+                         _P, _P, _P, _P, _P, _P],
     "lk_scatter_pair_lanes": [_P, _P, _I32, _I64, _P, _I64, _I32, _P, _P],
     "lk_fire_tile": [],
-    "lk_radix_tile": [],
     "lk_error_string": [ctypes.c_int],
 }
 
@@ -241,6 +241,82 @@ def fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid, used_mask,
 
 # -- L2 ------------------------------------------------------------------------
 
+# csrc/lane_kernels.cu's constants (tests/test_torch_scatter_plan.py reads
+# them from the source; the entry point rejects a plan that does not
+# cover the batch): a sort tile, the widest digit, the most passes, the
+# ctrl block's int32 words, a fold thread's sorted places, threads a block
+_SORT_TILE = 4096
+_MAX_DIGIT_BITS = 8
+_MAX_PASSES = 4
+_CTRL_INTS = 1088
+_FOLD_SPAN = 16
+_THREADS = 256
+_MAX_BLOCKS = 132 * 8       # window_common.cuh kMaxBlocks
+_MAX_RECORDS = (1 << 30) - 1  # a look-back word counts records in 30 bits
+_ALIGN = 64                 # int32 words: each workspace region 256-byte aligned
+
+
+class ScatterPlan(NamedTuple):
+    """How ``scatter_lanes`` sorts and folds ``n`` records into
+    ``n_cells`` cells: the launch shapes and the workspace (int32 words,
+    each region 256-byte aligned). The fold reads each record's lanes
+    from the caller's arrays by its index, so no lanes are staged."""
+    key_bits: int       # bits of the largest cell index
+    passes: int         # stable digit passes, least significant first
+    digit_bits: int     # bits a pass (the last may have fewer)
+    tiles: int          # tiles of _SORT_TILE records: a hist and a sort block each
+    fold_blocks: int
+    zero_ints: int      # ctrl block + passes * tiles << digit_bits words
+    key_ints: int       # each of keys0, vals0, keys1, vals1: a pass's
+                        # cells and record indices
+    offsets: Tuple[int, ...]  # keys0, vals0, keys1, vals1
+    total_ints: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=64)
+def _scatter_plan(n: int, n_cells: int) -> ScatterPlan:
+    """The plan for ``n`` >= 1 records into ``n_cells`` >= 1 cells: as
+    few digit passes of at most 8 bits as cover the cell index's bits,
+    the bits spread evenly over them (21 bits: 3 passes of 7)."""
+    if not 1 <= n <= _MAX_RECORDS:
+        raise ValueError(f"scatter_lanes takes 1 to {_MAX_RECORDS} records "
+                         f"a call, got {n}")
+    key_bits = max(1, int(n_cells).bit_length())
+    passes = -(-key_bits // _MAX_DIGIT_BITS)
+    if passes > _MAX_PASSES:
+        raise ValueError(f"{n_cells} cells need more than {_MAX_PASSES} "
+                         "digit passes")
+    digit_bits = -(-key_bits // passes)
+    tiles = -(-n // _SORT_TILE)
+    fold_blocks = min(-(-n // (_FOLD_SPAN * _THREADS)), _MAX_BLOCKS)
+    zero_ints = _CTRL_INTS + passes * (tiles << digit_bits)
+    offsets, at = [], _round_up(zero_ints, _ALIGN)
+    for _ in range(4):
+        offsets.append(at)
+        at += _round_up(n, _ALIGN)
+    return ScatterPlan(key_bits, passes, digit_bits, tiles, fold_blocks,
+                       zero_ints, n, tuple(offsets), at)
+
+
+# per (device, stream): the int32 workspace the last call needed, grown
+# when a batch needs more; work queued on one stream runs in order, so
+# calls on it can share one
+_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, stream: int, ints: int) -> torch.Tensor:
+    key = (dev, stream)
+    work = _workspaces.get(key)
+    if work is None or work.numel() < ints:
+        work = _workspaces[key] = torch.empty(ints, dtype=torch.int32,
+                                              device=dev)
+    return work
+
+
 def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
                   maxs: Optional[torch.Tensor], mins: Optional[torch.Tensor],
                   idx: torch.Tensor, s: torch.Tensor, mx: torch.Tensor,
@@ -269,26 +345,19 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     if B == 0:
         return None
     dev = counts.device
-    n_cells = counts.numel()
-    bits = int(n_cells).bit_length()        # the sentinel n_cells fits
-    tile = _lib().lk_radix_tile()
-    n_blocks = math.ceil(B / tile)
-    scratch = torch.empty((4, B), dtype=torch.int32, device=dev)
-    hist = torch.empty(256 * n_blocks, dtype=torch.int32, device=dev)
-    chunk = torch.empty(math.ceil(256 * n_blocks / 1024), dtype=torch.int32,
-                        device=dev)
-    head_of = torch.empty(n_cells, dtype=torch.int32, device=dev)
-    L = _width(sums) + _width(maxs) + _width(mins)
-    ordered = torch.empty(max(L, 1) * B, dtype=torch.float32, device=dev)
+    sw, mw, nw = _width(sums), _width(maxs), _width(mins)
+    plan = _scatter_plan(B, counts.numel())
+    stream = wk.stream_of(counts)
+    work = _workspace(dev, stream, plan.total_ints)
+    base = work.data_ptr()
+    k0, v0, k1, v1 = (base + 4 * off for off in plan.offsets)
     _launch("scatter_lanes", "lk_scatter_lanes", counts.data_ptr(),
-            _ptr(sums), _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
-            _width(mins), n_cells, idx.data_ptr(), s.data_ptr(), mx.data_ptr(),
-            mn.data_ptr(), B, int(bool(skip_negative)), bits,
-            scratch[0].data_ptr(),
-            scratch[1].data_ptr(), scratch[2].data_ptr(),
-            scratch[3].data_ptr(), hist.data_ptr(), chunk.data_ptr(),
-            head_of.data_ptr(), ordered.data_ptr(),
-            wk.error_word(dev).data_ptr(), wk.stream_of(counts))
+            _ptr(sums), sw, _ptr(maxs), mw, _ptr(mins), nw, counts.numel(),
+            idx.data_ptr(), s.data_ptr(), mx.data_ptr(), mn.data_ptr(), B,
+            int(bool(skip_negative)), plan.passes, plan.digit_bits,
+            plan.tiles, plan.fold_blocks, base,
+            plan.zero_ints, k0, v0, k1, v1, wk.error_word(dev).data_ptr(),
+            stream)
     return None
 
 

@@ -488,6 +488,149 @@ def test_scatter_lanes(dev, hot):
     assert bool(ok.all())
 
 
+def _scatter_both(dev, shape, widths, idx, vals=None, skip_negative=False,
+                  seed=0, state=None):
+    """``scatter_lanes`` twice on the card and ``scatter_lanes_plain`` on
+    the CPU (record order) from one state; returns the card's first
+    result after checking that every lane of all three is bit-equal.
+    ``vals``: (B, sw + mw + nw) f32 record lanes (seeded when None)."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(seed)
+    rows, ring = shape
+    sw, mw, nw = widths
+    if state is None:
+        state = _lane_state(rng, rows, ring, 0, ring - 1, sw, mw, nw)
+    B = len(idx)
+    if vals is None:
+        vals = (rng.standard_normal((B, sw + mw + nw)) * 1e3).astype(np.float32)
+    parts = np.split(vals, [sw, sw + mw], axis=1)
+
+    def run(device, fn):
+        c, *lanes = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in state]
+        lanes = [t if w else None for t, w in zip(lanes, widths)]
+        recs = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in parts]
+        fn(c, *lanes, torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(
+            device), *recs, skip_negative=skip_negative)
+        return [c] + [t for t in lanes if t is not None]
+
+    a = run(dev, lk.scatter_lanes)
+    b = run(dev, lk.scatter_lanes)
+    cpu = run("cpu", lk.scatter_lanes_plain)
+    for x, y, z in zip(a, b, cpu):
+        assert _same_bits(x, y), "two runs differ"
+        assert _same_bits(x, z), "differs from the plain version on the CPU"
+    return a
+
+
+@pytest.mark.parametrize("n", ["1", "tile-1", "tile", "tile+1"])
+def test_scatter_lanes_tile_edges(dev, n):
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    tile = lk._SORT_TILE
+    B = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}[n]
+    rng = np.random.default_rng(B)
+    idx = rng.integers(0, 4097 * 32, B)
+    idx[: B // 3] = 17                       # a run across the tile's spans
+    _scatter_both(dev, (4097, 32), (1, 1, 1), idx, seed=B)
+
+
+def test_scatter_lanes_one_cell_holds_every_record(dev):
+    """2^16 records in one cell: the run crosses every fold span and every
+    sort tile; its sum is one chain in record order."""
+    B = 1 << 16
+    out = _scatter_both(dev, (4097, 32), (1, 1, 1), np.full(B, 4097 * 16 + 5),
+                        seed=3)
+    assert int(out[0].view(-1)[4097 * 16 + 5]) >= B
+
+
+@pytest.mark.parametrize("rows,passes", [((1 << 16) - 1, 2), (1 << 16, 3)])
+def test_scatter_lanes_digit_boundary(dev, rows, passes):
+    """The cell index's bits fall exactly on a digit boundary (16 bits: 2
+    passes of 8) and one past it (17 bits: 3 passes)."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    B = 300_000
+    assert lk._scatter_plan(B, rows).passes == passes
+    rng = np.random.default_rng(rows)
+    idx = rng.integers(0, rows, B)
+    idx[:1000] = rows - 1                    # the top cell, every bit set
+    idx[1000:2000] = 0
+    _scatter_both(dev, (rows, 1), (1, 0, 1), idx, seed=rows)
+
+
+def test_scatter_lanes_skip_negative_mesh_layout(dev):
+    """The key-sharded owner's layout: 3/4 of the records are -1 (padded
+    buckets) and touch nothing; no error."""
+    rng = np.random.default_rng(5)
+    B = 1 << 18
+    idx = np.where(rng.random(B) < 0.75, -1, rng.integers(0, 8193 * 32, B))
+    try:
+        _scatter_both(dev, (8193, 32), (1, 1, 1), idx, skip_negative=True)
+        assert int(wk.error_word(dev).item()) == 0
+    finally:
+        wk.error_word(dev).zero_()
+
+
+@pytest.mark.parametrize("widths", [(0, 0, 0), (4, 0, 0), (2, 1, 3), (9, 0, 1)])
+def test_scatter_lanes_widths(dev, widths):
+    """Count only (zero-width lanes), four sum lanes (job C's changelog
+    layout), and widths the kernel takes at run time."""
+    rng = np.random.default_rng(sum(widths))
+    idx = rng.integers(0, 2049 * 16, 100_000)
+    idx[:5000] = 3
+    _scatter_both(dev, (2049, 16), widths, idx, seed=len(widths))
+
+
+def test_scatter_lanes_signed_zero_nan_inf(dev):
+    """IEEE 754-2019 maximum / minimum: NaN wins, -0 < +0, +-inf; the
+    state's own NaN and zeros too."""
+    rng = np.random.default_rng(6)
+    rows, ring, B = 65, 8, 20_000
+    state = list(_lane_state(rng, rows, ring, 0, ring - 1, 1, 2, 2))
+    state[2][1, 0] = [0.0, -0.0]
+    state[3][1, 0] = [-0.0, 0.0]
+    state[2][2, 0] = [np.nan, -np.inf]
+    state[3][2, 0] = [np.inf, np.nan]
+    idx = rng.integers(0, rows * ring, B)
+    idx[:64] = np.repeat([ring + 0, 2 * ring + 0, 3 * ring, 4 * ring], 16)
+    specials = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0,
+                         -1.0], np.float32)
+    vals = (rng.standard_normal((B, 5)) * 10).astype(np.float32)
+    vals[:64] = rng.choice(specials, (64, 5))
+    vals[rng.random((B, 5)) < 0.01] = -0.0
+    _scatter_both(dev, (rows, ring), (1, 2, 2), idx, vals=vals, state=state)
+
+
+def test_scatter_lanes_out_of_range_sets_error_and_folds_the_rest(dev):
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(7)
+    rows, ring, B = 1025, 8, 50_000
+    state = _lane_state(rng, rows, ring, 0, ring - 1, 1, 1, 1)
+    idx = rng.integers(0, rows * ring, B)
+    bad = rng.random(B) < 0.01
+    idx[bad] = np.where(rng.random(int(bad.sum())) < 0.5, -5, rows * ring + 9)
+    vals = rng.standard_normal((B, 3)).astype(np.float32)
+    t = [_t(a, dev) for a in state]
+    recs = [_t(vals[:, k:k + 1], dev) for k in range(3)]
+    try:
+        lk.scatter_lanes(*t, _t(idx.astype(np.int32), dev), *recs)
+        with pytest.raises(IndexError, match="scatter_lanes"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+    ok = ~bad
+    cpu = [torch.from_numpy(a.copy()) for a in state]
+    lk.scatter_lanes_plain(*cpu, torch.from_numpy(idx[ok].astype(np.int32)),
+                           *[torch.from_numpy(vals[ok, k:k + 1].copy())
+                             for k in range(3)])
+    for x, y in zip(t, cpu):
+        assert _same_bits(x, y)
+
+
 def test_scatter_pair_lanes(dev):
     from flink_tpu_torch.kernels import lane_kernels as lk
 
