@@ -35,8 +35,13 @@ Phases, one JSON line each:
    batch and on the same batch with 2^18 of its records in one cell (each
    bit for bit against its plain version on the CPU, with its kernels'
    device time by name, ``index_add_`` and a stable ``torch.sort`` of the
-   cells beside), ``scatter_pair_lanes`` on its ~110k host-combined pairs,
-   ``ring_columns`` over an f32 lane; and the count-lane kernels in
+   cells beside), ``scatter_pair_lanes`` on its ~110k host-combined pairs
+   (in the C combine's first-seen order, and ascending beside it),
+   ``ring_columns`` over an f32 lane and over a whole four-lane state
+   block in one launch (the purge of a cleared run that wraps past the
+   ring's end, and a growth 32 -> 64; NaN payloads, -NaN and -0.0 in
+   kept cells moved bit for bit), both kernels beside their library calls
+   as loop ms, device ms and host µs a call; and the count-lane kernels in
    WordCount's forms: ``scatter_counts`` per record on a 2^20-word batch
    into 65,537 x 16 state, ``ring_columns`` growing 6 to 16 columns; the
    native lane's kernels at the host-fed Q5 shapes: ``apply_pairs_u32``
@@ -153,6 +158,11 @@ time by name).
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
 the two ``scatter_lanes`` cases above (one JSON line).
 
+With ``--ring-pairs`` it builds ``window_kernels`` and ``lane_kernels``
+alone and runs only ``scatter_pair_lanes`` and ``ring_columns`` beside
+their library calls, each as loop ms, device ms and host µs a call (one
+JSON line).
+
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
 ring exchange), checked against the golden: the exchange's copies
@@ -224,7 +234,7 @@ PROFILED_KERNELS = {
     "fire_pack": ("fire_count_kernel", "fire_write_kernel"),
     "scatter_lanes": ("lanes_hist_kernel", "lanes_sort_kernel",
                       "lanes_fold_kernel"),
-    "scatter_pair_lanes": ("pair_lanes_kernel",),
+    "scatter_pair_lanes": ("pair_lanes_kernel", "pair_lanes_any_kernel"),
     "apply_pairs_u32": ("apply_pairs_u32_kernel",),
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
     "split_cells": ("split_cells_kernel",),
@@ -474,6 +484,15 @@ def phase_kernels(torch, np):
     extra.update(mesh_kernel_cases(torch, np, dev, record, out, wc, used,
                                    ends))
     wk.check_errors(dev)
+    # K4 and L3 beside their library calls as loop ms, device ms and host
+    # µs a call: the block-wide purge and growth, L3 on both row orders
+    split = ring_pair_cases(torch, np, dev)
+    row = next(r for r in out if r["name"] == "ring_columns")
+    row["split"] = {k: v for k, v in split.items()
+                    if k.startswith("ring_columns")}
+    row = next(r for r in out if r["name"] == "scatter_pair_lanes")
+    row["split"] = {k: v for k, v in split.items()
+                    if k.startswith("scatter_pair_lanes")}
     emit({"phase": "kernels", **extra, "kernels": [
         {k: v for k, v in r.items() if k != "launches"} for r in out]})
     return out
@@ -777,6 +796,215 @@ def phase_scatter_lanes(torch, np):
           "card": card_line()})
 
 
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host µs a call: the host clock around ``calls`` calls with no
+    synchronise between them (the enqueue cost, while the card keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def split_times(torch, fn) -> dict:
+    """A call's loop ms (CUDA events around 50 back-to-back calls),
+    device ms (``torch.profiler`` over 10 calls: the device entries a
+    call, by name) and host µs a call."""
+    stages = kernel_stages(torch, fn)
+    return {"loop_ms": time_ms(torch, fn),
+            "device_ms": sum(v["ms_per_call"] for v in stages.values()),
+            "device_ops": sum(v["per_call"] for v in stages.values()),
+            "host_us": host_us(torch, fn), "stages": stages}
+
+
+# the identity fills of a state block's lanes, in PaneState order
+BLOCK_FILLS = (0.0, -float("inf"), float("inf"), 0)
+
+
+def ring_block_fn(wk, src, dst, src_col, keep):
+    """One purge or growth of every lane of a state block: the block
+    entry where the tree has one, else one ``ring_columns`` call a lane
+    (the parent's form)."""
+    if hasattr(wk, "ring_columns_block"):
+        return lambda: wk.ring_columns_block(src, dst, src_col, keep)
+    return lambda: [wk.ring_columns(s, d, src_col, keep, f)
+                    for s, d, f in zip(src, dst, BLOCK_FILLS)]
+
+
+def pair_rows(np, slots, ts, price, ring, order):
+    """Job (b)'s host-combined upload of one batch: ``[pair, count, f32
+    sum]`` rows ascending (the numpy lane's ``np.unique``) or in the
+    order each pair is first seen (the C combine's)."""
+    from flink_tpu_torch.ops.window import preagg_combine, preagg_encode_i32
+
+    cols = (ts // 1000) % ring
+    pairs, cnts, lanes = preagg_combine(slots, cols, np.ones(len(ts), bool),
+                                        ring, {"price": price}, ("price",))
+    buf = preagg_encode_i32(pairs, cnts, lanes)
+    if order == "first_seen":
+        pk = (slots * ring + cols).astype(np.int32)
+        _, first = np.unique(pk, return_index=True)
+        buf = buf[np.argsort(first, kind="stable")]
+    return np.ascontiguousarray(buf)
+
+
+def ring_pair_cases(torch, np, dev):
+    """``scatter_pair_lanes`` and ``ring_columns`` beside their library
+    calls at the ``kernels`` phase's shapes, each as loop ms, device ms
+    and host µs a call (``split_times``): L3 on one bid-aggregate batch's
+    ~110k host-combined pairs in both row orders against ``index_add_``
+    on the sum lane; K4's count-lane purge (32,769 x 32, 11 columns
+    cleared in a run that wraps) against ``index_fill_``; the purge of a
+    four-lane state block (count, sum, max, min) against four
+    ``index_fill_`` calls; the count-lane growth 6 -> 16 at 65,537 rows
+    and a four-lane growth 32 -> 64. Each result is first held bit for
+    bit against the plain version, with NaN payloads, -NaN and -0.0 in
+    kept cells of the f32 lanes."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    rng = np.random.default_rng(SEED + 3)
+    rows, ring, pane_lo, pane_hi = 32_769, 32, 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, (1, 1, 1),
+                    hot=100)
+    data, ts, slots, _ = scatter_lanes_batch(np, ring)
+    out = {"kernel_api": ("block" if hasattr(wk, "ring_columns_block")
+                          else "per_lane")}
+    # kept cells (live panes 1000..1020, columns 8..28) that must move bit
+    # for bit: NaNs with payloads, -NaN, -0.0
+    specials = [st[i].copy() for i in range(1, 4)]
+    live_cols = np.arange(pane_lo, pane_hi + 1) % ring
+    nan_bits = np.array([0x7FC01234, 0xFFC00001, 0x7F800001], np.uint32)
+    for lane in specials:
+        lane[keys[:3, None], live_cols[None, ::7], 0] = nan_bits.view(
+            np.float32)[:, None]
+        lane[keys[3:6], live_cols[1], 0] = -0.0
+    block_np = (*specials, st[0])                        # PaneState order
+
+    for order in ("first_seen", "ascending"):
+        buf = t(pair_rows(np, slots, ts, data["price"], ring, order))
+        P = buf.shape[0]
+        pstate = [t(st[0]), t(st[1])]
+        a_ = [x.clone() for x in pstate]
+        b_ = [x.clone() for x in pstate]
+        lk.scatter_pair_lanes(*a_, buf)
+        lk.scatter_pair_lanes_plain(*b_, buf)
+        torch.cuda.synchronize()
+        check(same_bits(torch, a_[0], b_[0]) and same_bits(torch, a_[1], b_[1]),
+              f"scatter_pair_lanes ({order}) differs from its plain version")
+        ps = [x.clone() for x in pstate]
+        pair_long = buf[:, 0].long()
+        pair_sums = buf[:, 2:].contiguous().view(torch.float32)
+        psum_flat = ps[1].view(-1, 1)
+        b, by = bound_ms(P * 12 + P * 8 * 2, P * 2)
+        out[f"scatter_pair_lanes_{order}"] = {
+            "pairs": P, "bound_ms": b, "bound_by": by,
+            "kernel": split_times(torch, lambda: lk.scatter_pair_lanes(*ps, buf)),
+            "library": split_times(torch, lambda: psum_flat.index_add_(
+                0, pair_long, pair_sums)),
+            "library_call": "index_add_ (the sum lane)"}
+
+    # the purge of an advance: 11 dead columns, a run that wraps past the
+    # ring's end (columns 29..31, 0..7)
+    keep_np = np.ones(ring, bool)
+    keep_np[np.arange(pane_lo - 11, pane_lo) % ring] = False
+    keep, ident = t(keep_np), torch.arange(ring, dtype=torch.int32, device=dev)
+    cleared = t(np.flatnonzero(~keep_np).astype(np.int64))
+    n_cleared = int((~keep_np).sum())
+    block = [t(x) for x in block_np]
+    x, y = block[3].clone(), block[3].clone()
+    wk.ring_columns(x, x, ident, keep)
+    wk.ring_columns_plain(y, y, ident, keep)
+    xs = [v.clone() for v in block]
+    ys = [v.clone() for v in block]
+    ring_block_fn(wk, xs, xs, ident, keep)()
+    for v, f in zip(ys, BLOCK_FILLS):
+        wk.ring_columns_plain(v, v, ident, keep, f)
+    torch.cuda.synchronize()
+    payload = int(np.array(0x7FC01234, np.uint32).view(np.int32))
+    check(exact_bits(torch, x, y) and all(exact_bits(torch, p, q)
+                                          for p, q in zip(xs, ys))
+          and int((xs[1].view(torch.int32) == payload).sum()) == 3,
+          "ring_columns (purge) differs from its plain version")
+    b, by = bound_ms(rows * n_cleared * 4 + ring * 5, 0)
+    out["ring_columns_count_purge"] = {
+        "shape": [rows, ring], "cleared": n_cleared, "bound_ms": b,
+        "bound_by": by,
+        "kernel": split_times(torch, lambda: wk.ring_columns(x, x, ident, keep)),
+        "library": split_times(torch, lambda: y.index_fill_(1, cleared, 0)),
+        "library_call": "index_fill_"}
+    b, by = bound_ms(4 * rows * n_cleared * 4 + ring * 5, 0)
+    out["ring_columns_block_purge"] = {
+        "lanes": 4, "shape": [rows, ring, 1], "cleared": n_cleared,
+        "bound_ms": b, "bound_by": by,
+        "kernel": split_times(torch, ring_block_fn(wk, xs, xs, ident, keep)),
+        "library": split_times(torch, lambda: [
+            v.index_fill_(1, cleared, f) for v, f in zip(ys, BLOCK_FILLS)]),
+        "library_call": "index_fill_ a lane"}
+
+    # growths: the count lane 6 -> 16 at WordCount's 65,537 rows (panes
+    # 3..8 applied), and the four-lane block 32 -> 64 (panes 1000..1020)
+    old = t(np.random.default_rng(SEED + 5).integers(0, 40, (65_537, 6),
+                                                      dtype=np.int32))
+    cmap = np.full(16, -1, np.int64)
+    cmap[np.arange(3, 9) % 16] = np.arange(3, 9) % 6
+    g_src, g_keep = t(np.maximum(cmap, 0).astype(np.int32)), t(cmap >= 0)
+    g1 = torch.empty((65_537, 16), dtype=torch.int32, device=dev)
+    g2 = torch.empty_like(g1)
+    wk.ring_columns(old, g1, g_src, g_keep)
+    wk.ring_columns_plain(old, g2, g_src, g_keep)
+    cmap = np.full(64, -1, np.int64)
+    live = np.arange(pane_lo, pane_hi + 1)
+    cmap[live % 64] = live % ring
+    b_src, b_keep = t(np.maximum(cmap, 0).astype(np.int32)), t(cmap >= 0)
+    d1 = [torch.empty((rows, 64) + tuple(v.shape[2:]), dtype=v.dtype,
+                      device=dev) for v in block]
+    d2 = [torch.empty_like(v) for v in d1]
+    ring_block_fn(wk, block, d1, b_src, b_keep)()
+    for s_, d_, f in zip(block, d2, BLOCK_FILLS):
+        wk.ring_columns_plain(s_, d_, b_src, b_keep, f)
+    torch.cuda.synchronize()
+    check(torch.equal(g1, g2) and all(exact_bits(torch, p, q)
+                                      for p, q in zip(d1, d2))
+          and int((d1[1].view(torch.int32) == payload).sum()) == 3,
+          "ring_columns (growth) differs from its plain version")
+    b, by = bound_ms(65_537 * 6 * 4 + 65_537 * 16 * 4 + 16 * 5, 0)
+    out["ring_columns_count_growth"] = {
+        "shape": [65_537, 6, 16], "kept": 6, "bound_ms": b, "bound_by": by,
+        "kernel": split_times(torch, lambda: wk.ring_columns(old, g1, g_src,
+                                                             g_keep))}
+    b, by = bound_ms(4 * rows * len(live) * 4 + 4 * rows * 64 * 4 + 64 * 5, 0)
+    out["ring_columns_block_growth"] = {
+        "lanes": 4, "shape": [rows, ring, 64], "kept": len(live),
+        "bound_ms": b, "bound_by": by,
+        "kernel": split_times(torch, ring_block_fn(wk, block, d1, b_src,
+                                                   b_keep))}
+    wk.check_errors(dev)
+    return out
+
+
+def phase_ring_pairs(torch, np):
+    """``--ring-pairs``: build ``window_kernels`` and ``lane_kernels``
+    alone and run ``ring_pair_cases`` (one JSON line)."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all(("window_kernels", "lane_kernels"))
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in ("window_kernels", "lane_kernels")}
+    emit({"phase": "ring_pairs", "build_s": time.perf_counter() - t0,
+          "ptxas": ptxas, **ring_pair_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
+
+
 def lane_kernel_cases(torch, np, dev, record, out):
     """fire_pack, scatter_lanes, scatter_pair_lanes and the f32-lane
     ring_columns against their plain versions at this slice's shapes:
@@ -895,13 +1123,9 @@ def lane_kernel_cases(torch, np, dev, record, out):
     out[-1]["hot_cell"] = cases["hot_cell"]
 
     # L3 scatter_pair_lanes: the same batch host-combined (job (b)'s
-    # upload: one [pair, count, f32 sum] row per distinct cell)
-    from flink_tpu_torch.ops.window import preagg_combine, preagg_encode_i32
-
-    pairs, cnts, lanes = preagg_combine(
-        slots, (ts // 1000) % ring, np.ones(len(ts), bool), ring,
-        {"price": data["price"]}, ("price",))
-    buf = t(preagg_encode_i32(pairs, cnts, lanes))
+    # upload: one [pair, count, f32 sum] row per distinct cell, in the
+    # order the C combine emits them, first seen first)
+    buf = t(pair_rows(np, slots, ts, data["price"], ring, "first_seen"))
     P = buf.shape[0]
     pstate = [t(st[0]), t(st[1])]
     a_ = [x.clone() for x in pstate]
@@ -924,6 +1148,7 @@ def lane_kernel_cases(torch, np, dev, record, out):
            P * 12 + P * 8 * 2, P * 2, source="lane_kernels.cu")
     out[-1]["library_call"] = "index_add_ (the sum lane)"
     out[-1]["pairs"] = P
+    out[-1]["row_order"] = "first_seen"
     extra["scatter_pair_lanes_pairs"] = P
 
     # K4 over the f32 lanes: the purge of 11 dead columns of each
@@ -1977,6 +2202,12 @@ def phase_bid_aggs(torch, np):
                           1.0 - sum(busy.values()) / (wall * 1e3),
                       "host_profile_s": host,
                       "profiled": {"batches": 4, **prof}}
+    # one ring_columns launch a purge or growth of the state block,
+    # whatever its lanes: the same count for job (a)'s four lanes as for
+    # job (b)'s two (the same bids, conf and watermarks)
+    purges = {k: v["ring_columns"] for k, v in launches_by_job.items()}
+    check(purges["a"] == purges["b"],
+          f"ring_columns launches differ between the jobs: {purges}")
     golden = bid_golden(np, runs["a"][1])
     for which, (rows, _) in runs.items():
         rel, share = check_bid_agg(np, which, rows, golden, f"job ({which})")
@@ -3218,6 +3449,17 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--ring-pairs" in sys.argv[1:]:
+        try:
+            phase_ring_pairs(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--mesh-cards" in sys.argv[1:]:
         try:
             phase_build()
@@ -3312,6 +3554,15 @@ def main() -> int:
                     "mesh_m2": m2_per_call.get(name)}
                 check(all(by_path.values()),
                       f"scatter_lanes has no device time a call on {by_path}")
+            if name == "ring_columns":
+                # device ms a call where the purge moves one lane (devgen
+                # Q5, WordCount) and where it moves a four-lane block
+                # (bid-aggs (a)) or two (job T)
+                row["pipeline_device_ms_by_path"] = {
+                    "q5_devgen": per_call.get(name),
+                    "wordcount": wc_per_call.get(name),
+                    "bid_aggs_a": agg_per_call.get(name),
+                    "topn_lanes": tl_per_call.get(name)}
             path = own_path.get(name, "q5_devgen")
             row["launches"] = paths[path][name] or host_fed[name]
             row["launches_path"] = path

@@ -195,8 +195,16 @@ int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* bu
   rc = launch_topn(wcounts, rows, fire_pad, used, p->end_panes, p->w_valid, fire, n, sel_cap,
                    emit_ring, ring_rows, ring_cols, thresh, block_counts, old_total, s);
   if (rc) return rc;
-  return launch_ring_columns<int32_t>(counts, ring, counts, ring, rows, 1, p->src_col, p->keep, 0,
-                                      err, &p->clear, s);
+  RingParams purge{};
+  purge.lane[0] = RingLane{(const uint32_t*)counts, (uint32_t*)counts, 1, 0u};
+  purge.n_lanes = 1;
+  purge.rows = (int32_t)rows;
+  purge.src_ring = purge.dst_ring = ring;
+  purge.src_col = p->src_col;
+  purge.keep = p->keep;
+  purge.err = err;
+  purge.run = &p->clear;
+  return launch_ring_columns(purge, s);
 }
 
 }  // extern "C"

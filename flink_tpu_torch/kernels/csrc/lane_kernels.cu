@@ -782,27 +782,99 @@ bool fold_if(int32_t sw, int32_t mw, int32_t nw, int32_t blocks, cudaStream_t s,
 // ---- L3: scatter_pair_lanes ------------------------------------------------
 // One host-combined row per distinct (slot, ring column) pair:
 // [pair, count, f32 bits of each pre-summed sum lane]; pair < 0 marks
-// padding and touches nothing. The host's combine makes the pairs of one
-// upload distinct, so each cell takes at most one add per launch: one
-// thread per row adds without atomics (the int count takes an integer
-// atomic anyway, exact in any order). Bound: bytes — the rows once and
-// one read-modify-write of each touched cell's count and sums.
-__global__ void pair_lanes_kernel(const int32_t* __restrict__ buf, int64_t P, int32_t C,
-                                  int64_t n_cells, int32_t* __restrict__ counts,
-                                  float* __restrict__ sums, int32_t sw,
-                                  int32_t* __restrict__ err) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < P; p += stride) {
+// padding and touches nothing, a pair at or past n_cells sets
+// kErrPairLanes. The host's combine makes the pairs of one upload
+// distinct, so each cell takes at most one add per launch: a sum is one
+// plain add, no atomics (the int count takes an integer RED anyway, exact
+// in any order).
+//
+// Bound: bytes — the rows once and one read-modify-write of each touched
+// cell's count and sums; at ~110k pairs that is under a microsecond of
+// HBM time, so the kernel is bound by latency: a row's load, then its
+// cell's sum load, then the store, over random sectors when the pairs
+// come in the C combine's first-seen order (the numpy lane's ascending
+// order keeps a warp's cells together). Design: each warp copies its 32
+// rows into shared memory with coalesced 16-byte loads, then each thread
+// folds one row: the count's RED, then every sum load before any add.
+// One row a thread measured faster than four with all their loads in
+// flight (PERF.md §6): more threads keep more random sectors in
+// flight. Widths 0, 1 and 4 (the main paths' avg and sum layouts) are
+// compile-time; any other takes the run-time kernel below, which reads
+// each row where it lies. Index math is 32-bit: the wrapper keeps the
+// state and the rows below 2^31 words.
+constexpr int kPairThreads = 128;
+constexpr int kPairWarps = kPairThreads / 32;
+
+__device__ __forceinline__ bool pair_in_state(int32_t pair, int32_t n_cells,
+                                              int32_t* __restrict__ err) {
+  if (pair < 0) return false;
+  if (pair >= n_cells) {
+    atomicOr(err, kErrPairLanes);
+    return false;
+  }
+  return true;
+}
+
+template <int SW>
+__global__ void __launch_bounds__(kPairThreads)
+    pair_lanes_kernel(const int32_t* __restrict__ buf, int32_t P, int32_t n_cells,
+                      int32_t* __restrict__ counts, float* __restrict__ sums,
+                      int32_t* __restrict__ err) {
+  constexpr int C = 2 + SW;
+  constexpr int kWarpWords = 32 * C;  // a multiple of 4
+  __shared__ __align__(16) int32_t stage[kPairWarps][kWarpWords];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t* rows = stage[warp];
+  const int32_t n_blocks = (P + 31) / 32;
+  const bool aligned = ((uintptr_t)buf & 15) == 0;
+  for (int32_t b = blockIdx.x * kPairWarps + warp; b < n_blocks; b += gridDim.x * kPairWarps) {
+    const int32_t n = min(32, P - b * 32);
+    const int32_t* src = buf + b * kWarpWords;
+    if (n == 32 && aligned) {
+      const int4* s4 = reinterpret_cast<const int4*>(src);
+      int4* d4 = reinterpret_cast<int4*>(rows);
+#pragma unroll
+      for (int i = lane; i < kWarpWords / 4; i += 32) d4[i] = s4[i];
+    } else {
+      for (int i = lane; i < n * C; i += 32) rows[i] = src[i];
+    }
+    __syncwarp();
+    const int32_t* row = rows + lane * C;
+    const int32_t pair = lane < n ? row[0] : -1;
+    if (pair_in_state(pair, n_cells, err)) {
+      atomicAdd(&counts[pair], row[1]);
+      float cur[SW > 0 ? SW : 1];
+#pragma unroll
+      for (int s = 0; s < SW; ++s) cur[s] = sums[pair * SW + s];
+#pragma unroll
+      for (int s = 0; s < SW; ++s) sums[pair * SW + s] = cur[s] + __int_as_float(row[2 + s]);
+    }
+    __syncwarp();  // the stage is rewritten next round
+  }
+}
+
+// any other width: one row a thread, read where it lies
+__global__ void __launch_bounds__(kPairThreads)
+    pair_lanes_any_kernel(const int32_t* __restrict__ buf, int32_t P, int32_t C,
+                          int32_t n_cells, int32_t* __restrict__ counts,
+                          float* __restrict__ sums, int32_t sw, int32_t* __restrict__ err) {
+  for (int32_t p = blockIdx.x * kPairThreads + threadIdx.x; p < P; p += gridDim.x * kPairThreads) {
     const int32_t* row = buf + p * C;
     const int32_t pair = row[0];
-    if (pair < 0) continue;
-    if ((int64_t)pair >= n_cells) {
-      atomicOr(err, kErrPairLanes);
-      continue;
-    }
+    if (!pair_in_state(pair, n_cells, err)) continue;
     atomicAdd(&counts[pair], row[1]);
-    for (int32_t s = 0; s < sw; ++s) sums[(int64_t)pair * sw + s] += __int_as_float(row[2 + s]);
+    for (int32_t s = 0; s < sw; ++s) sums[pair * sw + s] += __int_as_float(row[2 + s]);
   }
+}
+
+template <int SW>
+bool pair_lanes_if(int32_t sw, const int32_t* buf, int32_t P, int32_t n_cells, int32_t* counts,
+                   float* sums, int32_t* err, cudaStream_t s) {
+  if (sw != SW) return false;
+  const int64_t blocks = ((int64_t)P + kPairThreads - 1) / kPairThreads;
+  pair_lanes_kernel<SW><<<(int)(blocks < kMaxBlocks ? blocks : kMaxBlocks), kPairThreads, 0, s>>>(
+      buf, P, n_cells, counts, sums, err);
+  return true;
 }
 
 }  // namespace
@@ -886,11 +958,30 @@ int lk_scatter_lanes(int32_t* counts, float* sums, int32_t sw, float* maxs, int3
   return (int)cudaGetLastError();
 }
 
-int lk_scatter_pair_lanes(int32_t* counts, float* sums, int32_t sw, int64_t n_cells,
-                          const int32_t* buf, int64_t P, int32_t C, int32_t* err, void* stream) {
-  if (P > 0) {
-    pair_lanes_kernel<<<grid_for(P), kThreads, 0, (cudaStream_t)stream>>>(buf, P, C, n_cells,
-                                                                         counts, sums, sw, err);
+// the wrapper's argument block (lane_kernels.py _PAIR_ARGS), every field
+// 64 bits
+struct PairArgs {
+  int64_t counts, sums, sw, n_cells, buf, P, C, err;
+};
+
+int lk_scatter_pair_lanes(const PairArgs* a, void* stream) {
+  int32_t* counts = (int32_t*)a->counts;
+  float* sums = (float*)a->sums;
+  int32_t* err = (int32_t*)a->err;
+  const int32_t* buf = (const int32_t*)a->buf;
+  const int64_t sw = a->sw, n_cells = a->n_cells, P = a->P, C = a->C;
+  if (P <= 0) return (int)cudaGetLastError();
+  if (sw < 0 || C != 2 + sw || n_cells >= (1ll << 31) || n_cells * (sw > 1 ? sw : 1) >= (1ll << 31) ||
+      P * C >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t p = (int32_t)P, cells = (int32_t)n_cells;
+  if (!pair_lanes_if<1>(sw, buf, p, cells, counts, sums, err, s) &&
+      !pair_lanes_if<0>(sw, buf, p, cells, counts, sums, err, s) &&
+      !pair_lanes_if<4>(sw, buf, p, cells, counts, sums, err, s)) {
+    const int64_t blocks = ((int64_t)P + kPairThreads - 1) / kPairThreads;
+    pair_lanes_any_kernel<<<(int)(blocks < kMaxBlocks ? blocks : kMaxBlocks), kPairThreads, 0,
+                            s>>>(buf, p, (int32_t)C, cells, counts, sums, (int32_t)sw, err);
   }
   return (int)cudaGetLastError();
 }

@@ -325,53 +325,200 @@ inline int launch_topn_given(const int32_t* wcounts, int64_t rows, int32_t W, co
 }
 
 // ---- K4: ring_columns ----------------------------------------------------
-// dst[r, j, l] = keep[j] ? src[r, src_col[j], l] : fill, over a
-// (rows, ring, width) lane: the int32 count lane (width 1, fill 0) or an
-// f32 sum, max or min lane with its identity (0, -inf, +inf) as the fill.
-// The purge is the in-place case (src == dst, src_col[j] == j, keep =
-// ~clear_mask): kept cells are not touched, so only the cleared cells
-// cost a write. Ring growth is the out-of-place case (new width). Bound:
-// bytes — rows x cleared columns x width x 4 written for the purge; one
-// read of the kept columns plus one write of the new tensor for a growth.
-// A kept column whose src_col lies outside the source is written as the
-// fill and sets kErrRingColumn. ``run`` (null from a host launch) gates
-// the fused step's purge: nothing happens when *run == 0.
-template <typename T>
-__global__ void ring_columns_kernel(const T* src, int32_t src_ring, T* dst, int32_t dst_ring,
-                                    int64_t rows, int32_t width,
-                                    const int32_t* __restrict__ src_col,
-                                    const uint8_t* __restrict__ keep, T fill,
-                                    int32_t* __restrict__ err, const int32_t* __restrict__ run) {
-  if (run != nullptr && *run == 0) return;
-  const int64_t total = rows * (int64_t)dst_ring * width;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const bool in_place = src == dst;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const int64_t cell = width == 1 ? t : t / width;
-    const int32_t l = (int32_t)(t - cell * width);
-    const int64_t r = cell / dst_ring;
-    const int32_t j = (int32_t)(cell - r * dst_ring);
-    const int32_t s = src_col[j];
-    if (!keep[j]) {
-      dst[t] = fill;
-    } else if (s < 0 || s >= src_ring) {
-      dst[t] = fill;  // never read outside the source
-      if (r == 0 && l == 0) atomicOr(err, kErrRingColumn);
-    } else if (!(in_place && s == j)) {
-      dst[t] = src[(r * src_ring + s) * width + l];
+// dst[r, j, l] = keep[j] ? src[r, src_col[j], l] : fill, over every lane
+// of a state block in one launch: the int32 count lane (width 1, fill 0)
+// and any f32 sum, max and min lanes (width >= 1) with their identities
+// (0, -inf, +inf) as fills. Lanes move as 32-bit words, so every bit
+// (NaN payloads, -0.0) is copied as it is. The purge is the in-place case
+// (src == dst on every lane, src_col[j] == j where kept); a ring growth
+// the out-of-place case (new tensors, a new ring width). A kept column
+// whose src_col lies outside the source is written as the fill and sets
+// kErrRingColumn. ``run`` (null from a host launch) gates the fused step's
+// purge: nothing happens when *run == 0.
+//
+// Bound: bytes — rows x cleared columns x width x 4 written a lane for a
+// purge; one read of the kept columns and one write of the new tensor a
+// lane for a growth. At the main path's shapes that is under two
+// microseconds, so the kernel is bound by its own latency: what comes
+// before the first store, and how many dependent steps each store takes.
+// Design: every warp lists, with ballots over coalesced reads of keep
+// and src_col, the destination columns that need a write (in place: the
+// cleared ones only; kept cells are neither read nor written), each with
+// its source column or -1 for the fill, into its own slice of shared
+// memory — no block barrier. Then each warp takes whole
+// rows of each lane in turn: a row's listed words (or 16-byte groups of
+// them) go to neighbouring threads, several rows a pass when a row has
+// fewer than 32, so a listed run of columns, or a whole growing row, is
+// written contiguously. Indices are 32-bit, and a thread works out its
+// place in a row (a division by the lane's width) once, before the row
+// loop, wherever a row's units fit a warp. A group
+// of four words is written with one 16-byte store where it is contiguous
+// in the destination and aligned (a lane width that is a multiple of 4,
+// or every column of a row listed). A cleared run that wraps past the
+// ring's end is two runs of the list, and a row's last run meets the
+// next row's first.
+
+// a state block's lanes at most (sums, maxs, mins, counts)
+constexpr int kRingLanes = 4;
+// destination columns a warp lists in shared memory at a time
+constexpr int32_t kRingChunk = 256;
+
+struct RingLane {
+  const uint32_t* src;  // (rows, src_ring, width) words
+  uint32_t* dst;        // (rows, dst_ring, width) words; src itself in place
+  int32_t width;
+  uint32_t fill;        // the fill's bits
+};
+
+struct RingParams {
+  RingLane lane[kRingLanes];
+  int32_t n_lanes, rows, src_ring, dst_ring;
+  const int32_t* src_col;
+  const uint8_t* keep;
+  int32_t* err;
+  const int32_t* run;
+};
+
+// Word u of a row's listed words (4-word group u where ``vec``): its
+// destination offset in the row, and each word's source offset in the
+// source row or -1 for the fill.
+template <bool kVec>
+__device__ __forceinline__ uint32_t ring_unit(const RingLane& L, const int32_t* s_dst,
+                                              const int32_t* s_src, uint32_t u,
+                                              int32_t (&from)[kVec ? 4 : 1]) {
+  const uint32_t w = (uint32_t)L.width, k = kVec ? u * 4 : u;
+  uint32_t c = w == 1 ? k : k / w, e = k - c * w;
+  const uint32_t at = (uint32_t)s_dst[c] * w + e;
+#pragma unroll
+  for (int i = 0; i < (kVec ? 4 : 1); ++i) {
+    const int32_t s = s_src[c];
+    from[i] = s < 0 ? -1 : (int32_t)((uint32_t)s * w + e);
+    if (++e == w) {
+      e = 0;
+      ++c;
+    }
+  }
+  return at;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void ring_store(const RingLane& L, const uint32_t* src, uint32_t* dst,
+                                           uint32_t at, const int32_t (&from)[kVec ? 4 : 1]) {
+  if (kVec) {
+    uint32_t v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = from[i] < 0 ? L.fill : src[from[i]];
+    *reinterpret_cast<uint4*>(dst + at) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    dst[at] = from[0] < 0 ? L.fill : src[from[0]];
+  }
+}
+
+// One lane's listed words, n columns of the warp's list (s_dst, s_src)
+// a row; rows go to warps. While a row's units (words, or 4-word groups)
+// fit a warp, each pass takes several rows and every thread keeps one
+// unit, its offsets worked out once; a longer row is swept 32 units at a
+// time.
+template <bool kVec>
+__device__ __forceinline__ void ring_lane_rows(const RingLane& L, const RingParams& p,
+                                               const int32_t* s_dst, const int32_t* s_src,
+                                               uint32_t n, uint32_t warp_id, uint32_t n_warps) {
+  const uint32_t w = (uint32_t)L.width, lane = threadIdx.x & 31;
+  const uint32_t dst_row = (uint32_t)p.dst_ring * w, src_row = (uint32_t)p.src_ring * w;
+  const uint32_t units = kVec ? n * w / 4 : n * w, rows = (uint32_t)p.rows;
+  int32_t from[kVec ? 4 : 1];
+  if (units < 32) {
+    const uint32_t per_pass = 32 / units, lane_row = lane / units;
+    if (lane_row >= per_pass) return;
+    const uint32_t at = ring_unit<kVec>(L, s_dst, s_src, lane - lane_row * units, from);
+    for (uint32_t r = warp_id * per_pass + lane_row; r < rows; r += n_warps * per_pass)
+      ring_store<kVec>(L, L.src + r * src_row, L.dst + r * dst_row, at, from);
+    return;
+  }
+  for (uint32_t r = warp_id; r < rows; r += n_warps) {
+    for (uint32_t u = lane; u < units; u += 32) {
+      const uint32_t at = ring_unit<kVec>(L, s_dst, s_src, u, from);
+      ring_store<kVec>(L, L.src + r * src_row, L.dst + r * dst_row, at, from);
     }
   }
 }
 
-template <typename T>
-int launch_ring_columns(const T* src, int32_t src_ring, T* dst, int32_t dst_ring, int64_t rows,
-                        int32_t width, const int32_t* src_col, const uint8_t* keep, T fill,
-                        int32_t* err, const int32_t* run, cudaStream_t s) {
-  const int64_t total = rows * (int64_t)dst_ring * width;
-  if (total > 0) {
-    ring_columns_kernel<T><<<grid_for(total), kThreads, 0, s>>>(
-        src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill, err, run);
+__global__ void __launch_bounds__(kThreads)
+    ring_columns_kernel(const __grid_constant__ RingParams p) {
+  if (p.run != nullptr && *p.run == 0) return;
+  // each warp's list: destination columns ascending, each one's source
+  // column or -1 for the fill
+  __shared__ int32_t s_dst[kWarps][kRingChunk];
+  __shared__ int32_t s_src[kWarps][kRingChunk];
+  const bool in_place = p.lane[0].src == p.lane[0].dst;
+  const uint32_t lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t warp_id = blockIdx.x * kWarps + warp, n_warps = gridDim.x * kWarps;
+  for (int32_t j0 = 0; j0 < p.dst_ring; j0 += kRingChunk) {
+    const int32_t chunk = min(kRingChunk, p.dst_ring - j0);
+    uint32_t n = 0;
+    bool bad = false;
+    for (int32_t c0 = 0; c0 < chunk; c0 += 32) {
+      const int32_t c = c0 + (int32_t)lane;
+      int32_t src = -1;
+      bool listed = false;
+      if (c < chunk) {
+        const int32_t j = j0 + c, s = p.src_col[j];
+        const bool kept = p.keep[j] != 0, inside = s >= 0 && s < p.src_ring;
+        bad |= kept && !inside;
+        src = kept && inside ? s : -1;
+        listed = !in_place || src != j;
+      }
+      const uint32_t ballot = __ballot_sync(0xffffffffu, listed);
+      if (listed) {
+        const uint32_t at = n + __popc(ballot & ((1u << lane) - 1u));
+        s_dst[warp][at] = j0 + c;
+        s_src[warp][at] = src;
+      }
+      n += __popc(ballot);
+    }
+    if (bad && warp_id == 0) atomicOr(p.err, kErrRingColumn);
+    __syncwarp();
+#pragma unroll
+    for (int l = 0; l < kRingLanes; ++l) {
+      if (l >= p.n_lanes || n == 0) continue;
+      const RingLane& L = p.lane[l];
+      const uint32_t w = (uint32_t)L.width;
+      // 4-word groups where each is contiguous in the destination and
+      // 16-byte aligned: a width that is a multiple of 4, or whole rows
+      if (((uintptr_t)L.dst & 15) == 0 &&
+          (w % 4 == 0 || (n == (uint32_t)p.dst_ring && ((uint32_t)p.dst_ring * w) % 4 == 0)))
+        ring_lane_rows<true>(L, p, s_dst[warp], s_src[warp], n, warp_id, n_warps);
+      else
+        ring_lane_rows<false>(L, p, s_dst[warp], s_src[warp], n, warp_id, n_warps);
+    }
+    __syncwarp();  // the next chunk rewrites the list
   }
+}
+
+// Validates the lanes (1..kRingLanes, widths >= 1, every lane in place
+// or none, each lane's words below 2^31) and launches one kernel for all.
+inline int launch_ring_columns(const RingParams& p, cudaStream_t s) {
+  if (p.n_lanes < 1 || p.n_lanes > kRingLanes || p.rows < 0 || p.src_ring < 0 || p.dst_ring < 0)
+    return (int)cudaErrorInvalidValue;
+  const bool in_place = p.lane[0].src == p.lane[0].dst;
+  if (in_place && p.src_ring != p.dst_ring) return (int)cudaErrorInvalidValue;
+  int64_t most = 0;
+  for (int l = 0; l < p.n_lanes; ++l) {
+    const RingLane& L = p.lane[l];
+    const int64_t words = (int64_t)p.rows * (p.src_ring > p.dst_ring ? p.src_ring : p.dst_ring) *
+                          L.width;
+    if (L.width < 1 || (L.src == L.dst) != in_place || words >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
+    if (words > most) most = words;
+  }
+  // a warp a row at most, and 2 blocks an SM: every warp lists the
+  // columns before its first store, so more warps only add listing (the
+  // purge and WordCount's count-lane growth measured fastest so; a
+  // four-lane growth was faster with 8 an SM, PERF.md §6)
+  int64_t blocks = ((int64_t)p.rows + kWarps - 1) / kWarps;
+  if (blocks > kMaxBlocks / 4) blocks = kMaxBlocks / 4;
+  if (most > 0 && p.dst_ring > 0)
+    ring_columns_kernel<<<(int)(blocks > 0 ? blocks : 1), kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,9 @@
 // + 1 dump row, ring = pane ring columns). Integer sums are exact in any
 // order, so every result here is bit-identical to the plain PyTorch
 // version beside it and to the JAX reference, atomics or not. K4 moves or
-// clears ring columns of the count lane and, in its f32 form, of each
-// (rows, ring, width) sum/max/min lane: pure copies and fills, exact too.
+// clears ring columns of every lane of a state block in one launch (the
+// count lane and each (rows, ring, width) f32 sum/max/min lane): pure
+// copies and fills of 32-bit words, exact too.
 //
 // K1 scatter_counts       replaces flink_tpu/ops/window.py:190
 //                         _apply_preagg_u32_core (and the count lane of
@@ -179,18 +180,34 @@ int fk_topn_select_given(const int32_t* wcounts, int64_t rows, int32_t W, const 
                            (cudaStream_t)stream);
 }
 
-int fk_ring_columns(const int32_t* src, int32_t src_ring, int32_t* dst, int32_t dst_ring,
-                    int64_t rows, const int32_t* src_col, const uint8_t* keep, int32_t* err,
-                    void* stream) {
-  return launch_ring_columns<int32_t>(src, src_ring, dst, dst_ring, rows, 1, src_col, keep, 0, err,
-                                      nullptr, (cudaStream_t)stream);
-}
+// the wrapper's argument block (window_kernels.py _RING_ARGS), every
+// field 64 bits: lanes in PaneState order with their words' width and
+// fill bits, unused lanes dropped
+struct RingArgs {
+  int64_t rows, src_ring, dst_ring, n_lanes;
+  int64_t src_col, keep, err;
+  int64_t src[kRingLanes], dst[kRingLanes], width[kRingLanes], fill[kRingLanes];
+};
 
-int fk_ring_columns_f32(const float* src, int32_t src_ring, float* dst, int32_t dst_ring,
-                        int64_t rows, int32_t width, const int32_t* src_col, const uint8_t* keep,
-                        float fill, int32_t* err, void* stream) {
-  return launch_ring_columns<float>(src, src_ring, dst, dst_ring, rows, width, src_col, keep, fill,
-                                    err, nullptr, (cudaStream_t)stream);
+int fk_ring_columns(const RingArgs* a, void* stream) {
+  if (a->rows >= (1ll << 31) || a->src_ring >= (1ll << 31) || a->dst_ring >= (1ll << 31) ||
+      a->n_lanes < 1 || a->n_lanes > kRingLanes)
+    return (int)cudaErrorInvalidValue;
+  RingParams p{};
+  p.n_lanes = (int32_t)a->n_lanes;
+  p.rows = (int32_t)a->rows;
+  p.src_ring = (int32_t)a->src_ring;
+  p.dst_ring = (int32_t)a->dst_ring;
+  p.src_col = (const int32_t*)a->src_col;
+  p.keep = (const uint8_t*)a->keep;
+  p.err = (int32_t*)a->err;
+  p.run = nullptr;
+  for (int l = 0; l < p.n_lanes; ++l) {
+    if (a->width[l] < 1 || a->width[l] >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    p.lane[l] = RingLane{(const uint32_t*)a->src[l], (uint32_t*)a->dst[l], (int32_t)a->width[l],
+                         (uint32_t)a->fill[l]};
+  }
+  return launch_ring_columns(p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -49,10 +50,16 @@ _SIGNATURES = {
     "lk_scatter_lanes": [_P, _P, _I32, _P, _I32, _P, _I32, _I64, _P, _P, _P,
                          _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _I64,
                          _P, _P, _P, _P, _P, _P],
-    "lk_scatter_pair_lanes": [_P, _P, _I32, _I64, _P, _I64, _I32, _P, _P],
+    "lk_scatter_pair_lanes": [ctypes.c_char_p, _P],
     "lk_fire_tile": [],
     "lk_error_string": [ctypes.c_int],
 }
+
+# scatter_pair_lanes' entry point, resolved at its first launch, and its
+# argument block (csrc/lane_kernels.cu PairArgs): counts, sums, sum
+# width, cells, rows, row count, columns, error word
+_pair_fn = None
+_PAIR_ARGS = struct.Struct("<8q")
 
 _CANON_NAN = 0x7FC00000
 _I32_MAX = 2 ** 31 - 1
@@ -398,20 +405,54 @@ def scatter_pair_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     ``row * ring + column``, distinct within one call; pair < 0 marks
     padding. A pair outside the state raises (the kernel skips it and
     reports it through ``error_word``)."""
+    cs, bs = counts.shape, buf.shape
+    ss = sums.shape if sums is not None else (0, 0, 0)
+    sw = ss[-1]
+    index = counts.get_device()
+    # the lean launch path: one combined test, the detailed checks (and
+    # their messages) only when it fails
+    if not (counts.dtype is torch.int32 and buf.dtype is torch.int32
+            and len(cs) == 2 and len(bs) == 2 and bs[1] == 2 + sw
+            and counts.is_contiguous() and buf.is_contiguous()
+            and buf.get_device() == index
+            and (sums is None or (
+                sums.dtype is torch.float32 and len(ss) == 3
+                and ss[0] == cs[0] and ss[1] == cs[1]
+                and sums.is_contiguous() and sums.get_device() == index))):
+        _pair_lanes_checks(counts, sums, buf, sw)
+    if index < 0:
+        wk.on_cuda("scatter_pair_lanes", counts, sums, buf)
+        return scatter_pair_lanes_plain(counts, sums, buf)
+    n_cells, P = cs[0] * cs[1], bs[0]
+    if P == 0:
+        return None
+    if n_cells * max(sw, 1) >= 2 ** 31 or P * (2 + sw) >= 2 ** 31:
+        raise ValueError("scatter_pair_lanes: state or rows of 2^31 words "
+                         "or more")
+    err, stream = wk.launch_context(index)
+    global _pair_fn
+    if _pair_fn is None:
+        _pair_fn = _lib().lk_scatter_pair_lanes
+    rc = _pair_fn(_PAIR_ARGS.pack(
+        counts.data_ptr(), sums.data_ptr() if sw else 0, sw, n_cells,
+        buf.data_ptr(), P, 2 + sw, err), stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_pair_lanes: CUDA launch failed ({rc}: "
+                           f"{_lib().lk_error_string(rc).decode()})")
+    wk.LAUNCHES["scatter_pair_lanes"] += 1
+    return None
+
+
+def _pair_lanes_checks(counts, sums, buf, sw) -> None:
+    """``scatter_pair_lanes``' checks one by one: raises with the first
+    that fails."""
     wk.check_tensor(counts, "counts", torch.int32, 2)
     wk.check_tensor(buf, "buf", torch.int32, 2)
-    sw = _width(sums)
     if sums is not None:
         _check_lanes(counts, sums, None, None)
     if buf.shape[1] != 2 + sw:
         raise ValueError(f"buf has {buf.shape[1]} columns, expected {2 + sw}")
-    if not wk.on_cuda("scatter_pair_lanes", counts, sums, buf):
-        return scatter_pair_lanes_plain(counts, sums, buf)
-    _launch("scatter_pair_lanes", "lk_scatter_pair_lanes", counts.data_ptr(),
-            _ptr(sums), sw, counts.numel(), buf.data_ptr(), buf.shape[0],
-            buf.shape[1], wk.error_word(counts.device).data_ptr(),
-            wk.stream_of(counts))
-    return None
+    wk.on_cuda("scatter_pair_lanes", counts, sums, buf)
 
 
 def scatter_pair_lanes_plain(counts, sums, buf):

@@ -1,7 +1,8 @@
 """The window operator's count-lane device functions and the split
 upload's decode: a CUDA kernel each (``csrc/window_kernels.cu``) and a
 plain PyTorch version each, with the same signature (``ring_columns``
-also moves the f32 sum/max/min lanes).
+also moves the f32 sum/max/min lanes, and ``ring_columns_block`` every
+lane of a state block in one launch).
 
 A wrapper takes the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts
@@ -27,7 +28,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+import struct
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -118,9 +120,7 @@ _SIGNATURES = {
     "fk_topn_global_threshold": [_P, _I32, _I32, _I32, _P, _P],
     "fk_topn_select_given": [_P, _I64, _I32, _P, _P, _P, _I64, _P, _I32, _I32,
                              _P, _I32, _I32, _P, _P, _P],
-    "fk_ring_columns": [_P, _I32, _P, _I32, _I64, _P, _P, _P, _P],
-    "fk_ring_columns_f32": [_P, _I32, _P, _I32, _I64, _I32, _P, _P,
-                            ctypes.c_float, _P, _P],
+    "fk_ring_columns": [ctypes.c_char_p, _P],
     "fk_topn_tile": [],
     "fk_error_string": [ctypes.c_int],
 }
@@ -187,6 +187,26 @@ def _launch(name: str, fn: str, *args) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the current stream's handle of a CUDA device index, by one C call where
+# this PyTorch has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_error_ptrs: Dict[int, int] = {}
+
+
+def launch_context(index: int) -> Tuple[int, int]:
+    """The lean launch path's ``(error word address, stream handle)`` on
+    CUDA device ``index``. The address is cached once a device; the
+    stream is read at every call, so a launch under ``torch.cuda.stream``
+    and on each device of a mesh goes to that device's current stream."""
+    err = _error_ptrs.get(index)
+    if err is None:
+        err = _error_ptrs[index] = error_word(
+            torch.device("cuda", index)).data_ptr()
+    if _raw_stream is not None:
+        return err, _raw_stream(index)
+    return err, torch.cuda.current_stream(index).cuda_stream
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -499,6 +519,20 @@ def _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,
 
 # -- K4 ----------------------------------------------------------------------
 
+# the identity fills of a state block's lanes, in PaneState order (sums,
+# maxs, mins, counts)
+LANE_FILLS = (0.0, -math.inf, math.inf, 0)
+# fk_ring_columns' argument block (csrc/window_kernels.cu RingArgs):
+# rows, src_ring, dst_ring, n_lanes, src_col, keep, err, then the source
+# pointers, destination pointers, widths and fill bits of 4 lane slots
+_RING_ARGS = struct.Struct("<23q")
+_RING_SLOTS = 4
+# the unused slots' zeros, by the number of lanes used
+_RING_PAD = [(0,) * (_RING_SLOTS - n) for n in range(_RING_SLOTS + 1)]
+_fill_bits: Dict[float, int] = {}
+_ring_fn = None
+
+
 def ring_columns(src: torch.Tensor, dst: torch.Tensor, src_col: torch.Tensor,
                  keep: torch.Tensor, fill: float = 0) -> torch.Tensor:
     """``dst[:, j] = src[:, src_col[j]] if keep[j] else fill``, over the
@@ -508,34 +542,126 @@ def ring_columns(src: torch.Tensor, dst: torch.Tensor, src_col: torch.Tensor,
     pane purge; a ring growth writes a new ``dst``. ``src_col`` entries
     where ``keep`` lie in ``[0, src ring)``; one that does not raises
     (the kernel writes the fill there and reports it through
-    ``error_word``). Returns ``dst``."""
-    lane = src.dim() == 3
-    if lane:
-        check_tensor(src, "src", torch.float32, 3)
-        check_tensor(dst, "dst", torch.float32, 3)
-    else:
-        check_tensor(src, "src", torch.int32, 2)
-        check_tensor(dst, "dst", torch.int32, 2)
-        if fill != 0:
-            raise ValueError("ring_columns: the count lane's fill is 0")
-    check_tensor(src_col, "src_col", torch.int32, 1)
-    check_tensor(keep, "keep", torch.bool, 1)
-    if dst.shape[0] != src.shape[0] or src_col.numel() != dst.shape[1] \
-            or keep.numel() != dst.shape[1] or dst.shape[2:] != src.shape[2:]:
-        raise ValueError("ring_columns: shapes do not line up")
-    if not on_cuda("ring_columns", src, dst, src_col, keep):
-        return ring_columns_plain(src, dst, src_col, keep, fill)
-    err = error_word(src.device).data_ptr()
-    if lane:
-        _launch("ring_columns", "fk_ring_columns_f32", src.data_ptr(),
-                src.shape[1], dst.data_ptr(), dst.shape[1], dst.shape[0],
-                dst.shape[2], src_col.data_ptr(), keep.data_ptr(),
-                float(fill), err, stream_of(src))
-    else:
-        _launch("ring_columns", "fk_ring_columns", src.data_ptr(),
-                src.shape[1], dst.data_ptr(), dst.shape[1], dst.shape[0],
-                src_col.data_ptr(), keep.data_ptr(), err, stream_of(src))
+    ``error_word``). Returns ``dst``. One lane of ``ring_columns_block``,
+    in one launch."""
+    _ring_lanes(((src, dst, fill),), src_col, keep)
     return dst
+
+
+def ring_columns_block(src, dst, src_col: torch.Tensor,
+                       keep: torch.Tensor):
+    """``ring_columns`` over every lane of a state block in one launch:
+    ``src`` and ``dst`` are ``(sums, maxs, mins, counts)`` in
+    ``PaneState`` order, None where the block has no such lane, and each
+    lane takes its identity (``LANE_FILLS``) as the fill. The purge
+    passes ``dst = src`` (every lane in place), a growth new tensors at
+    the new ring width (every lane out of place). Returns ``dst``."""
+    lanes = []
+    for s, d, fill in zip(src, dst, LANE_FILLS):
+        if (s is None) != (d is None):
+            raise ValueError("ring_columns_block: src and dst hold different "
+                             "lanes")
+        if s is not None:
+            lanes.append((s, d, fill))
+    _ring_lanes(lanes, src_col, keep)
+    return dst
+
+
+def _ring_lanes(lanes, src_col: torch.Tensor, keep: torch.Tensor) -> None:
+    """Check ``(src, dst, fill)`` lanes in one pass, then the plain
+    version (CPU tensors) or one launch (CUDA tensors). The checks read
+    each tensor's shape, type, layout and device once: this path runs
+    once a watermark advance, and its host time is most of the call."""
+    n_lanes = len(lanes)
+    if not 1 <= n_lanes <= _RING_SLOTS:
+        raise ValueError(f"ring_columns: 1 to {_RING_SLOTS} lanes, got "
+                         f"{n_lanes}")
+    s0, d0, _ = lanes[0]
+    in_place = d0 is s0
+    shape0, dshape0 = s0.shape, d0.shape
+    if len(shape0) < 2 or len(dshape0) < 2:
+        raise ValueError("ring_columns: shapes do not line up")
+    rows, src_ring, dst_ring = shape0[0], shape0[1], dshape0[1]
+    index = s0.get_device()
+    widths = []
+    for s, d, fill in lanes:
+        ss, dt = s.shape, s.dtype
+        if dt is torch.float32:
+            width = ss[2] if len(ss) == 3 else -1
+        elif dt is torch.int32:
+            width = 1 if len(ss) == 2 else -1
+            if fill != 0:
+                raise ValueError("ring_columns: the count lane's fill is 0")
+        else:
+            raise TypeError(f"ring_columns: a lane is {dt}, expected int32 "
+                            "(counts) or float32")
+        if width < 0 or ss[0] != rows or ss[1] != src_ring:
+            raise ValueError("ring_columns: shapes do not line up")
+        if not s.is_contiguous():
+            raise ValueError("ring_columns: lanes must be contiguous")
+        if s.get_device() != index:
+            raise ValueError("ring_columns: tensors on different devices")
+        if d is not s:
+            if in_place:
+                raise ValueError("ring_columns: every lane in place or none")
+            if d.dtype is not dt:
+                raise TypeError(f"ring_columns: dst is {d.dtype}, src {dt}")
+            ds = d.shape
+            if len(ds) != len(ss) or ds[0] != rows or ds[1] != dst_ring \
+                    or (width != 1 or dt is torch.float32) and ds[2] != width:
+                raise ValueError("ring_columns: shapes do not line up")
+            if not d.is_contiguous():
+                raise ValueError("ring_columns: lanes must be contiguous")
+            if d.get_device() != index:
+                raise ValueError("ring_columns: tensors on different devices")
+        elif not in_place:
+            raise ValueError("ring_columns: every lane in place or none")
+        widths.append(width)
+    if src_col.dtype is not torch.int32 or keep.dtype is not torch.bool:
+        raise TypeError(f"ring_columns: src_col {src_col.dtype} and keep "
+                        f"{keep.dtype}, expected int32 and bool")
+    if src_col.dim() != 1 or keep.dim() != 1 \
+            or src_col.shape[0] != dst_ring or keep.shape[0] != dst_ring \
+            or not (src_col.is_contiguous() and keep.is_contiguous()):
+        raise ValueError(f"ring_columns: src_col and keep must be "
+                         f"contiguous ({dst_ring},) tensors")
+    if src_col.get_device() != index or keep.get_device() != index:
+        raise ValueError("ring_columns: tensors on different devices")
+    if index < 0:
+        if s0.device.type != "cpu":
+            raise ValueError(f"ring_columns: unsupported device {s0.device}")
+        for s, d, fill in lanes:
+            ring_columns_plain(s, d, src_col, keep, fill)
+        return
+    if rows == 0 or dst_ring == 0:
+        return
+    if rows * max(src_ring, dst_ring) * max(widths) >= 2 ** 31:
+        raise ValueError("ring_columns: a lane of 2^31 elements or more")
+    pad = _RING_PAD[n_lanes]
+    err, stream = launch_context(index)
+    global _ring_fn
+    if _ring_fn is None:
+        _ring_fn = _lib().fk_ring_columns
+    rc = _ring_fn(_RING_ARGS.pack(
+        rows, src_ring, dst_ring, n_lanes, src_col.data_ptr(),
+        keep.data_ptr(), err, *[s.data_ptr() for s, _, _ in lanes], *pad,
+        *[d.data_ptr() for _, d, _ in lanes], *pad, *widths, *pad,
+        *[_f32_bits(f) for _, _, f in lanes], *pad), stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_columns: CUDA launch failed ({rc}: "
+                           f"{_lib().fk_error_string(rc).decode()})")
+    LAUNCHES["ring_columns"] += 1
+
+
+def _f32_bits(fill: float) -> int:
+    """The f32 bit pattern of a fill (0 for the count lane's 0)."""
+    if fill == 0:
+        return 0x80000000 if math.copysign(1.0, fill) < 0 else 0
+    bits = _fill_bits.get(fill)
+    if bits is None:
+        bits = _fill_bits[fill] = struct.unpack(
+            "<I", struct.pack("<f", fill))[0]
+    return bits
 
 
 def ring_columns_plain(src, dst, src_col, keep, fill=0):

@@ -38,9 +38,10 @@ with its result columns (emit ring ``3 + F`` wide). Without top-n:
 ``MAX_FIRE_CHUNK`` windows into packed buffers (every non-empty
 (key, window) cell, with its lanes), the aggregate's ``finalize`` runs
 on them in torch, and each buffer starts its device→host copy into
-pinned memory at once, with a CUDA event. Either way ``ring_columns``
-purges panes no window can need any more, every lane (and remaps the
-ring when it grows).
+pinned memory at once, with a CUDA event. Either way
+``ring_columns_block`` purges panes no window can need any more, every
+lane of a state block in one launch (and remaps the ring when it grows,
+the same way).
 
 A device-made source (``attach_device_source``) skips the host ingest:
 its batch index is stashed, and the next watermark advance makes the
@@ -143,6 +144,12 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _lanes(st: PaneState) -> Tuple[Optional[torch.Tensor], ...]:
+    """A state block's lanes in ``PaneState`` order, None at zero width:
+    what ``ring_columns_block`` takes."""
+    return (st.sums, st.maxs, st.mins, st.counts)
 
 
 def preagg_combine(slots: np.ndarray, cols: np.ndarray, valid: np.ndarray,
@@ -1390,29 +1397,19 @@ class WindowOperator:
         with self.timer.span("grow"):
             for st, dev, src_col, keep in zip(self._blocks, self._devices,
                                               src_cols, keeps):
-                moved = []
+                lanes = _lanes(st)
                 with on_device(dev):
-                    for lane, fill in self._lanes_with_fills(st):
-                        if lane is None:
-                            moved.append(None)
-                            continue
-                        dst = torch.empty(
+                    moved = tuple(
+                        None if lane is None else torch.empty(
                             (lane.shape[0], new_ring) + lane.shape[2:],
                             dtype=lane.dtype, device=dev)
-                        moved.append(wk.ring_columns(lane, dst, src_col,
-                                                     keep, fill))
+                        for lane in lanes)
+                    wk.ring_columns_block(lanes, moved, src_col, keep)
                 blocks.append(PaneState(*moved))
         self._blocks = blocks
         self.plan = dataclasses.replace(self.plan, ring=new_ring)
         self.layout = dataclasses.replace(self.layout, ring=new_ring)
         self._check_cell_index()
-
-    @staticmethod
-    def _lanes_with_fills(st: PaneState):
-        """Every lane of a state block (None at zero width) with its
-        identity, in ``PaneState`` order."""
-        return ((st.sums, 0.0), (st.maxs, -float("inf")),
-                (st.mins, float("inf")), (st.counts, 0))
 
     # -- time path --------------------------------------------------------
     def advance_processing_time(self) -> "FiredWindows":
@@ -1482,10 +1479,8 @@ class WindowOperator:
                 for st, dev, ident, keep_t in zip(
                         self._blocks, self._devices, self._ident_cols, keeps):
                     with on_device(dev):
-                        for lane, fill in self._lanes_with_fills(st):
-                            if lane is not None:
-                                wk.ring_columns(lane, lane, ident, keep_t,
-                                                fill)
+                        lanes = _lanes(st)
+                        wk.ring_columns_block(lanes, lanes, ident, keep_t)
         if self._spill is not None and cleared_after > self._cleared_below:
             self._spill.purge_below(cleared_after)
         self._cleared_below = cleared_after

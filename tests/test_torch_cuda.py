@@ -686,6 +686,239 @@ def test_lane_kernels_report_out_of_range_entries(dev):
         wk.error_word(dev).zero_()
 
 
+# -- ring_columns_block and the redesigned scatter_pair_lanes ------------------
+
+def _bits(t):
+    """A tensor's 32-bit words on the CPU: bit-exact comparison, NaN
+    payloads and signed zeros included."""
+    t = t.cpu().contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _block_state(rng, rows, ring, widths):
+    """A four-lane state block (numpy, PaneState order) with live data,
+    NaNs with payloads, -NaN, +/-inf and -0.0 planted in its f32 lanes."""
+    counts, sums, maxs, mins = _lane_state(rng, rows, ring, 0, ring - 1,
+                                           *widths)
+    specials = np.array([0x7FC01234, 0xFFC00001, 0x7F800000, 0xFF800000,
+                         0x80000000, 0x7F800001], np.uint32).view(np.float32)
+    for lane in (sums, maxs, mins):
+        if lane.shape[2]:
+            at = rng.integers(0, lane.size, 64)
+            lane.reshape(-1)[at] = specials[at % len(specials)]
+    return sums, maxs, mins, counts
+
+
+def _block_case(dev, rows, ring, new_ring, widths, keep_np, src_np):
+    """ring_columns_block against ring_columns_plain a lane, on the card:
+    in place when new_ring is None (the purge), else into new tensors."""
+    rng = np.random.default_rng(rows + ring + sum(widths))
+    arrs = _block_state(rng, rows, ring, widths)
+    src = tuple(_t(a, dev) if a.ndim == 2 or a.shape[2] else None for a in arrs)
+    keep, src_col = _t(keep_np, dev), _t(src_np.astype(np.int32), dev)
+    if new_ring is None:
+        got = tuple(None if x is None else x.clone() for x in src)
+        want = tuple(None if x is None else x.clone() for x in src)
+        wk.ring_columns_block(got, got, src_col, keep)
+        for w, f in zip(want, wk.LANE_FILLS):
+            if w is not None:
+                wk.ring_columns_plain(w, w, src_col, keep, f)
+    else:
+        def new():
+            return tuple(None if x is None else torch.full(
+                (rows, new_ring) + tuple(x.shape[2:]), 3, dtype=x.dtype,
+                device=dev) for x in src)
+        got, want = new(), new()
+        wk.ring_columns_block(src, got, src_col, keep)
+        for x, w, f in zip(src, want, wk.LANE_FILLS):
+            if x is not None:
+                wk.ring_columns_plain(x, w, src_col, keep, f)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("ring,widths", [
+    (32, (1, 1, 1)), (16, (3, 0, 3)), (24, (4, 4, 0)), (32, (0, 0, 0)),
+    (7, (2, 5, 1)), (1100, (1, 0, 1))])
+def test_ring_columns_block_purge(dev, ring, widths):
+    """The purge of every lane in one launch, bit for bit against the plain
+    version a lane: a cleared run that wraps past the ring's end (and, at
+    ring 1100, one past the kernel's 1024-column chunk)."""
+    keep = np.ones(ring, bool)
+    keep[np.arange(ring - 3, ring + max(ring // 3, 4)) % ring] = False
+    if ring > 1024:
+        keep[1000:1060] = False
+    wk.reset_launch_counts()
+    _block_case(dev, 4097 if ring < 1024 else 129, ring, None, widths, keep,
+                np.arange(ring))
+    assert wk.LAUNCHES["ring_columns"] == 1
+
+
+@pytest.mark.parametrize("old,new,widths", [
+    (6, 16, (1, 1, 1)), (16, 32, (3, 3, 3)), (32, 64, (4, 0, 0)),
+    (24, 40, (1, 2, 0)), (5, 7, (0, 0, 0)), (1000, 2048, (1, 0, 0))])
+def test_ring_columns_block_growth(dev, old, new, widths):
+    """A growth of every lane into new tensors in one launch, bit for bit:
+    each live pane p from column p % old to p % new (the 16-byte store
+    path where a row's words allow it, the word path elsewhere)."""
+    rows = 2049 if new < 1024 else 65
+    lo = 7 * old + 3
+    cmap = np.full(new, -1, np.int64)
+    ps = np.arange(lo, lo + old - 1)
+    cmap[ps % new] = ps % old
+    wk.reset_launch_counts()
+    _block_case(dev, rows, old, new, widths, cmap >= 0, np.maximum(cmap, 0))
+    assert wk.LAUNCHES["ring_columns"] == 1
+
+
+def test_ring_columns_block_bad_column_sets_the_error_word(dev):
+    """A kept src_col outside the source: that column takes each lane's
+    fill, the others move, and the error word raises once."""
+    wk.check_errors(dev)
+    rng = np.random.default_rng(11)
+    arrs = _block_state(rng, 33, 8, (1, 1, 1))
+    src = tuple(_t(a, dev) for a in arrs)
+    dst = tuple(torch.empty_like(x) for x in src)
+    src_col = torch.arange(8, dtype=torch.int32, device=dev)
+    src_col[5] = 8
+    try:
+        wk.ring_columns_block(src, dst, src_col,
+                              torch.ones(8, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize()
+        for x, d, f in zip(src, dst, wk.LANE_FILLS):
+            assert bool((d[:, 5] == f).all())
+            assert torch.equal(_bits(d[:, :5]), _bits(x[:, :5]))
+        with pytest.raises(IndexError, match="ring_columns"):
+            wk.check_errors(dev)
+        wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
+def test_lean_wrappers_launch_on_the_current_stream(dev):
+    """Captured into a CUDA graph under torch.cuda.graph's own stream (a
+    launch on any other stream would break the capture), then replayed:
+    ring_columns_block and scatter_pair_lanes give the plain versions'
+    bits; and under a non-default torch.cuda.stream the launch queues on
+    that stream."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(12)
+    arrs = _block_state(rng, 1025, 16, (1, 1, 1))
+    lanes = tuple(_t(a, dev) for a in arrs)
+    want = tuple(x.clone() for x in lanes)
+    keep = _t(rng.random(16) < 0.5, dev)
+    ident = torch.arange(16, dtype=torch.int32, device=dev)
+    c, s = _t(arrs[3], dev), _t(arrs[0], dev)
+    c2, s2 = c.clone(), s.clone()
+    pairs = rng.choice(1024 * 16, 3000, replace=False).astype(np.int32)
+    buf = np.zeros((3000, 3), np.int32)
+    buf[:, 0], buf[:, 1] = pairs, rng.integers(1, 9, 3000)
+    buf[:, 2] = (rng.random(3000) * 100).astype(np.float32).view(np.int32)
+    buf = _t(buf, dev)
+    # warm-up outside the capture: builds, loads, makes the error word
+    wk.ring_columns_block(tuple(x.clone() for x in lanes),
+                          tuple(x.clone() for x in lanes), ident, keep)
+    lk.scatter_pair_lanes(c.clone(), s.clone(), buf)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        wk.ring_columns_block(lanes, lanes, ident, keep)
+        lk.scatter_pair_lanes(c, s, buf)
+    graph.replay()
+    for w, f in zip(want, wk.LANE_FILLS):
+        wk.ring_columns_plain(w, w, ident, keep, f)
+    lk.scatter_pair_lanes_plain(c2, s2, buf)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(x), _bits(w)) for x, w in zip(lanes, want))
+    assert torch.equal(c, c2) and torch.equal(_bits(s), _bits(s2))
+    # under torch.cuda.stream: the launch waits behind a sleep on that
+    # stream, so the default stream still reads the old counts. Every
+    # kernel of the check runs once before it: the first launch of a
+    # kernel loads it, and that waits for the whole card.
+    x = _t(arrs[3], dev)
+    drop = ~keep
+    torch.cuda._sleep(1000)
+    x.clone()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        wk.ring_columns_block((None, None, None, x), (None, None, None, x),
+                              ident, drop)
+    early = x.clone()            # on the default stream: runs at once
+    torch.cuda.synchronize()
+    assert torch.equal(early.cpu(), torch.from_numpy(arrs[3]))
+    cleared = keep.nonzero().view(-1)
+    assert int(x[:, cleared].abs().sum()) == 0
+    assert int(x.sum()) == int(arrs[3].sum() - arrs[3][:, cleared.cpu().numpy()].sum())
+
+
+@pytest.mark.parametrize("sw,order", [(0, "first_seen"), (1, "first_seen"),
+                                      (1, "ascending"), (2, "first_seen"),
+                                      (4, "ascending"), (70, "first_seen")])
+def test_scatter_pair_lanes_widths_and_orders(dev, sw, order):
+    """Each compile-time width (0, 1, 4), the run-time path (2, and 70: a
+    row too wide to stage), on both row orders, with padding rows and a
+    partial last warp block: counts and sums bit for bit."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(sw)
+    rows, ring, P = 4097, 32, 20_011
+    c, s, _, _ = _lane_state(rng, rows, ring, 0, 31, sw, 0, 0)
+    pairs = rng.choice((rows - 1) * ring, P, replace=False).astype(np.int32)
+    if order == "ascending":
+        pairs.sort()
+    buf = np.zeros((P + 37, 2 + sw), np.int32)
+    buf[:, 0] = -1
+    buf[:P, 0] = pairs
+    buf[:P, 1] = rng.integers(1, 50, P)
+    buf[:P, 2:] = (rng.random((P, sw)) * 1e4).astype(np.float32).view(np.int32)
+    a = [_t(c, dev), _t(s, dev) if sw else None]
+    b = [x.clone() if x is not None else None for x in a]
+    lk.scatter_pair_lanes(*a, _t(buf, dev))
+    lk.scatter_pair_lanes_plain(*b, _t(buf, dev))
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0])
+    assert sw == 0 or torch.equal(_bits(a[1]), _bits(b[1]))
+
+
+def test_scatter_pair_lanes_edges(dev):
+    """P = 0 launches nothing and changes nothing; rows at an offset that
+    is not 16-byte aligned take the word copy; a pair outside the state
+    sets the error word while the other rows fold."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    c = torch.zeros((65, 16), dtype=torch.int32, device=dev)
+    s = torch.zeros((65, 16, 1), device=dev)
+    wk.reset_launch_counts()
+    lk.scatter_pair_lanes(c, s, torch.zeros((0, 3), dtype=torch.int32,
+                                            device=dev))
+    assert wk.LAUNCHES["scatter_pair_lanes"] == 0 and int(c.abs().sum()) == 0
+    rows = np.zeros((301, 3), np.int32)
+    rows[:, 0] = np.arange(301) * 3
+    rows[:, 1] = 2
+    rows[:, 2] = np.float32(1.5).view(np.int32)
+    big = _t(np.concatenate([np.zeros((1, 3), np.int32), rows]), dev)
+    lk.scatter_pair_lanes(c, s, big[1:])          # 12 bytes past the start
+    torch.cuda.synchronize()
+    assert int(c.sum()) == 602 and float(s.sum()) == 451.5
+    try:
+        wk.check_errors(dev)
+        bad = _t(np.array([[4, 1, 0], [65 * 16, 7, 0], [-1, 9, 0], [5, 1, 0]],
+                          np.int32), dev)
+        lk.scatter_pair_lanes(c, s, bad)
+        torch.cuda.synchronize()
+        assert int(c.sum()) == 604
+        with pytest.raises(IndexError, match="scatter_pair_lanes"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
 @pytest.mark.parametrize("agg_name", ["count", "lanes", "avg"])
 def test_window_aggregates_on_the_card_match_the_cpu(dev, agg_name):
     """Packed fires through the operator on the card and on the CPU: rows

@@ -219,6 +219,37 @@ def test_ring_columns_growth_matches_ring_remap(old_ring, new_ring):
     np.testing.assert_array_equal(dst.numpy(), np.asarray(ref.counts))
 
 
+@pytest.mark.parametrize("ring", RING_ROWS)
+@pytest.mark.parametrize("mode", ["purge", "growth"])
+def test_ring_columns_block_count_only(mode, ring):
+    """A count() job's state block (the count lane alone, the other lanes
+    None) through ring_columns_block: the purge of a cleared run that
+    wraps == clear_kernel, a growth to twice the ring == ring_remap_kernel
+    (exact)."""
+    rng = np.random.default_rng(7 * ring)
+    counts = rng.integers(0, 100, (257, ring)).astype(np.int32)
+    src = torch.from_numpy(counts.copy())
+    lanes = (None, None, None, src)
+    if mode == "purge":
+        mask = np.zeros(64, np.int32)
+        mask[np.arange(ring - 2, ring + 3) % ring] = 1
+        ref = jw.clear_kernel(_jax_state(counts), jnp.asarray(mask))
+        wk.ring_columns_block(lanes, lanes, torch.arange(ring, dtype=torch.int32),
+                              torch.from_numpy(mask[:ring] == 0))
+        np.testing.assert_array_equal(src.numpy(), np.asarray(ref.counts))
+        return
+    cmap = np.full(2 * ring, -1, np.int64)
+    ps = np.arange(7 * ring + 3, 8 * ring + 1)
+    cmap[ps % (2 * ring)] = ps % ring
+    col = np.maximum(cmap, 0).astype(np.int32)
+    ref = jw.ring_remap_kernel(_jax_state(counts), jnp.asarray(col),
+                               jnp.asarray(cmap >= 0))
+    dst = (None, None, None, torch.empty((257, 2 * ring), dtype=torch.int32))
+    wk.ring_columns_block(lanes, dst, torch.from_numpy(col),
+                          torch.from_numpy(cmap >= 0))
+    np.testing.assert_array_equal(dst[3].numpy(), np.asarray(ref.counts))
+
+
 def test_wrappers_reject_bad_inputs():
     c = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(TypeError):

@@ -11,6 +11,7 @@ adding the same terms in another order: |port - ref| <= 2 * n * 2^-24 *
 sum(|terms|) for n terms. (The scatters add in the reference's order on
 the CPU; the reference's jitted fire lets XLA's GEMM pick its order by
 shape. The bound counts on neither.)"""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -364,3 +365,150 @@ def test_ring_columns_lanes_match_clear_and_remap():
         wk.ring_columns(lane, dst, torch.from_numpy(src),
                         torch.from_numpy(cmap >= 0), fill)
         np.testing.assert_array_equal(dst.numpy(), np.asarray(want))
+
+
+# -- ring_columns_block: every lane of a state block in one call ---------------
+
+# the reference's purge, growth and pair fold jitted once a shape, as its
+# operator runs them (without donation, which the CPU does not take)
+CLEAR = jax.jit(jw.clear_kernel)
+REMAP = jax.jit(jw.ring_remap_kernel)
+PREAGG_I32 = jax.jit(jw.apply_preagg_i32_kernel,
+                     static_argnames=("sum_width", "ring", "dump_row"))
+
+def _jax_block(counts, sums, maxs, mins):
+    return JaxPaneState(jnp.asarray(sums), jnp.asarray(maxs), jnp.asarray(mins),
+                        jnp.asarray(counts))
+
+
+def _assert_block_equals(lanes, ref):
+    """Every lane bit for bit (NaN payloads and signed zeros included)."""
+    for got, want in zip(lanes, (ref.sums, ref.maxs, ref.mins, ref.counts)):
+        g, w = got.numpy(), np.asarray(want)
+        assert g.shape == w.shape
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("width", [1, 3])
+@pytest.mark.parametrize("ring", [16, 32])
+def test_ring_columns_block_purge_matches_clear_kernel(ring, width):
+    """The purge of a four-lane state block in one call == clear_kernel on
+    every lane (exact): a cleared run of 7 columns that wraps past the
+    ring's end, NaN and -0.0 in kept cells."""
+    rng = np.random.default_rng(ring + width)
+    pane_lo = 3 * ring - 3                       # column ring - 3
+    arrs = _live_state(rng, 33, ring, pane_lo, pane_lo + ring - 2, width,
+                       width, width, specials=True)
+    clear = np.zeros(64, np.int32)
+    clear[np.arange(pane_lo, pane_lo + 7) % ring] = 1     # ring-3 .. 3
+    ref = CLEAR(_jax_block(*arrs), jnp.asarray(clear))
+    tc, ts_, tm, tn = _tensors(*arrs)
+    lanes = (ts_, tm, tn, tc)
+    out = wk.ring_columns_block(lanes, lanes, torch.arange(ring, dtype=torch.int32),
+                                torch.from_numpy(clear[:ring] == 0))
+    assert out is lanes
+    _assert_block_equals(lanes, ref)
+
+
+@pytest.mark.parametrize("width", [1, 3])
+@pytest.mark.parametrize("old_ring,new_ring", [(6, 16), (16, 32)])
+def test_ring_columns_block_growth_matches_ring_remap(old_ring, new_ring,
+                                                      width):
+    """A growth of a four-lane state block into new tensors in one call ==
+    ring_remap_kernel on every lane (exact): each live pane p moves from
+    column p % old to p % new, the rest take the identities."""
+    rng = np.random.default_rng(old_ring * width)
+    lo = 5 * old_ring + 2
+    hi = lo + old_ring - 2
+    arrs = _live_state(rng, 33, old_ring, lo, hi, width, width, width,
+                       specials=True)
+    cmap = np.full(new_ring, -1, np.int64)
+    ps = np.arange(lo, hi + 1)
+    cmap[ps % new_ring] = ps % old_ring
+    src = np.maximum(cmap, 0).astype(np.int32)
+    ref = REMAP(_jax_block(*arrs), jnp.asarray(src), jnp.asarray(cmap >= 0))
+    tc, ts_, tm, tn = _tensors(*arrs)
+    lanes = (ts_, tm, tn, tc)
+    dst = tuple(torch.full((33, new_ring) + tuple(t.shape[2:]), 7,
+                           dtype=t.dtype) for t in lanes)
+    out = wk.ring_columns_block(lanes, dst, torch.from_numpy(src),
+                                torch.from_numpy(cmap >= 0))
+    assert out is dst
+    _assert_block_equals(dst, ref)
+
+
+def test_ring_columns_block_rejects_mixed_lanes():
+    """Every lane in place or none; src and dst name the same lanes; a
+    bad kept column raises before any lane moves."""
+    c = torch.zeros((3, 4), dtype=torch.int32)
+    s = torch.zeros((3, 4, 1))
+    ident = torch.arange(4, dtype=torch.int32)
+    keep = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="in place or none"):
+        wk.ring_columns_block((s, None, None, c), (torch.zeros_like(s), None,
+                                                   None, c), ident, keep)
+    with pytest.raises(ValueError, match="different lanes"):
+        wk.ring_columns_block((s, None, None, c), (None, None, None, c),
+                              ident, keep)
+    with pytest.raises(TypeError):
+        wk.ring_columns_block((s.double(), None, None, c),
+                              (s.double(), None, None, c), ident, keep)
+    bad = ident.clone()
+    bad[2] = 4
+    c[:] = 5
+    with pytest.raises(IndexError, match="ring_columns"):
+        wk.ring_columns_block((s, None, None, c), (s, None, None, c), bad, keep)
+    assert int(c.sum()) == 5 * 12
+
+
+# -- scatter_pair_lanes on both row orders --------------------------------------
+
+@pytest.mark.parametrize("order", ["shuffled", "ascending"])
+@pytest.mark.parametrize("sw", [0, 1, 4])
+def test_scatter_pair_lanes_row_orders_match_apply_preagg_i32(sw, order):
+    """Pair rows in the C combine's first-seen (here shuffled) order and in
+    the numpy lane's ascending order, with padding rows: counts exact,
+    sums within the bound of one add per cell."""
+    rng = np.random.default_rng(10 * sw + (order == "ascending"))
+    rows, ring, P = 129, 16, 700
+    counts, sums, _, _ = _live_state(rng, rows, ring, 0, 15, sw, 0, 0)
+    pairs = rng.choice((rows - 1) * ring, P, replace=False).astype(np.int32)
+    if order == "ascending":
+        pairs.sort()
+    cnts = rng.integers(1, 40, P).astype(np.int32)
+    lanes = [(rng.standard_normal(P) * 1e3).astype(np.float32)
+             for _ in range(sw)]
+    buf = jw.preagg_encode_i32(pairs, cnts, lanes, 768)
+    ref = PREAGG_I32(
+        JaxPaneState(jnp.asarray(sums) if sw else None, None, None,
+                     jnp.asarray(counts)),
+        jnp.asarray(buf), sum_width=sw, ring=ring, dump_row=rows - 1)
+    tc, ts_ = _tensors(counts, sums)
+    lk.scatter_pair_lanes(tc, ts_, torch.from_numpy(buf))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(ref.counts))
+    if not sw:
+        assert ts_ is None
+        return
+    abs_terms = np.abs(sums.reshape(-1, sw)).astype(np.float64)
+    for i in range(sw):
+        abs_terms[pairs, i] += np.abs(lanes[i])
+    assert_sums_within(ts_.numpy().reshape(-1, sw),
+                       np.asarray(ref.sums).reshape(-1, sw), abs_terms, 2)
+
+
+def test_scatter_pair_lanes_rejects_bad_inputs():
+    """The lean path's one combined test falls back to the checks one by
+    one, each with its own message."""
+    c = torch.zeros((3, 4), dtype=torch.int32)
+    s = torch.zeros((3, 4, 1))
+    with pytest.raises(TypeError):
+        lk.scatter_pair_lanes(c, s, torch.zeros((2, 3), dtype=torch.int64))
+    with pytest.raises(ValueError, match="columns"):
+        lk.scatter_pair_lanes(c, s, torch.zeros((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        lk.scatter_pair_lanes(c, torch.zeros((3, 5, 1)),
+                              torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.scatter_pair_lanes(c, s, torch.zeros((3, 2), dtype=torch.int32).T)
