@@ -155,8 +155,29 @@ time by name).
    path's ``bucket_records``, ``hash_keys`` and the distributed top-n
    modes bit for bit against their plain versions at M1's shapes.
 
+14. ``big_cells`` — a count + sum job on pane state past 2^31 cells:
+   1088 x 65,536 key slots + 1 dump row and a 32-column ring (2.28 G
+   cells, uploaded as int64 cells where the JAX package switches), four
+   2^20-bid batches with half the keys on rows past 2^26 (every cell of
+   theirs past 2^31), a fire of window ends 1..12 s with its purge, a
+   batch 40 s ahead that grows the ring to 64 columns (``ring_columns``
+   a block of rows a launch), then the end-of-input fire; every row
+   against a numpy golden, with its rows, ring, the bytes it held on the
+   card and its events/s.
+
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
 the two ``scatter_lanes`` cases above (one JSON line).
+
+With ``--window-lanes`` it builds ``topn_lanes_kernels`` alone and times
+``window_lanes`` at job T's shape beside ``sums @ colmask`` (the sum
+lane, and both lanes as one batched matmul, TF32 off), each as loop ms,
+device ms and host µs a call (one JSON line).
+
+With ``--launch-path`` it builds the kernels and prints every wrapper's
+host µs a call at a main-path shape and the loop ms of ``SPEED_ROWS``
+(one JSON line); run beside a parent tree to compare.
+
+With ``--big-cells`` it builds the kernels and runs only phase 14.
 
 With ``--ring-pairs`` it builds ``window_kernels`` and ``lane_kernels``
 alone and runs only ``scatter_pair_lanes`` and ``ring_columns`` beside
@@ -199,6 +220,9 @@ WC_RUNS = 3
 WC_VOCAB = 30_000
 AGG_BATCHES = 16                # the bid-aggregate jobs, 2^20 bids each
 CW_SIZE = 250                   # WindowWordCount.java countWindow(250, 150)
+BIG_SHARDS, BIG_SPD = 1088, 65_536  # --big-cells: 71,303,169 rows x 32 columns
+BIG_BATCH, BIG_BATCHES = 1 << 20, 4
+BIG_KEYS = 1 << 16
 KERNEL_SOURCES = ("window_kernels", "devgen_kernels", "lane_kernels",
                   "fused_kernels", "count_window_kernels", "topn_lanes_kernels",
                   "element_kernels", "exchange_kernels")
@@ -239,7 +263,8 @@ PROFILED_KERNELS = {
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
     "split_cells": ("split_cells_kernel",),
     "count_fire": ("count_fire_count_kernel", "count_fire_write_kernel"),
-    "window_lanes": ("window_lanes_kernel",),
+    # the register form (rings up to 64 columns) or the staged-tile form
+    "window_lanes": ("window_lanes_reg_kernel", "window_lanes_kernel"),
     "topn_select_lanes": ("lanes_threshold_kernel", "lanes_count_kernel",
                           "lanes_write_kernel"),
     "segment_lanes": ("segment_lanes_kernel",),
@@ -1002,6 +1027,329 @@ def phase_ring_pairs(torch, np):
              for name in ("window_kernels", "lane_kernels")}
     emit({"phase": "ring_pairs", "build_s": time.perf_counter() - t0,
           "ptxas": ptxas, **ring_pair_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
+
+
+def window_lane_cases(torch, np, dev):
+    """``window_lanes`` at job T's shape (32,769 rows, a 32-column ring,
+    11 windows of 10 panes, one sum and one max lane) beside its library
+    calls, each as loop ms, device ms and host µs a call
+    (``split_times``): the sum lane times the (ring, W) column mask in
+    one f32 matmul, and the same product over both lanes the kernel
+    computes (one batched matmul), TF32 off. The kernel's lanes are
+    first held bit for bit against the plain version."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    rng = np.random.default_rng(SEED + 6)
+    rows, ring, ppw, W = 32_769, 32, 10, 11
+    pane_lo, pane_hi = 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    _, sums, maxs, _ = lane_state(np, rng, rows, ring, pane_lo, pane_hi,
+                                  keys, (1, 1, 0), hot=100)
+    s_t = torch.from_numpy(sums).to(dev)
+    m_t = torch.from_numpy(maxs).to(dev)
+    ends = torch.arange(pane_hi - W + 2, pane_hi + 2, dtype=torch.int64,
+                        device=dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    args = (s_t, m_t, None, ends, valid, pane_lo, pane_hi, ppw, rows)
+    a = tk.window_lanes(*args)
+    b = tk.window_lanes_plain(*args)
+    torch.cuda.synchronize()
+    check(all(x.shape == y.shape and same_bits(torch, x, y)
+              for x, y in zip(a, b)),
+          "window_lanes differs from its plain version")
+    colmask = lk._live_columns(ends, ring, pane_lo, pane_hi, ppw).T.float()
+    s2 = s_t[:, :, 0].contiguous()
+    both = torch.stack([s2, m_t[:, :, 0]]).contiguous()     # (2, rows, ring)
+    live_cols = int((colmask.sum(dim=1) > 0).sum())
+    b_live, by = bound_ms(rows * live_cols * 4 * 2 + rows * W * 4 * 2 + W * 9,
+                          0)
+    b_all, _ = bound_ms(rows * ring * 4 * 2 + rows * W * 4 * 2 + W * 9, 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {"shape": [rows, ring, W], "lanes": 2,
+               "bound_ms": b_live, "bound_ms_every_column": b_all,
+               "bound_by": by,
+               "kernel": split_times(torch, lambda: tk.window_lanes(*args)),
+               "library_sum_lane": split_times(torch, lambda: s2 @ colmask),
+               "library_both_lanes": split_times(torch,
+                                                 lambda: both @ colmask),
+               "library_call": "sums @ colmask (TF32 off); both lanes as "
+                               "one batched matmul"}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_window_lanes(torch, np):
+    """``--window-lanes``: build ``topn_lanes_kernels`` alone and run
+    ``window_lane_cases`` (one JSON line)."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all(("topn_lanes_kernels",))
+    log = build.BUILD_LOG["topn_lanes_kernels"]
+    emit({"phase": "window_lanes", "build_s": time.perf_counter() - t0,
+          "ptxas": [ln.strip() for ln in log["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln or "smem" in ln],
+          **window_lane_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
+
+
+def launch_path_cases(torch, np, dev):
+    """Every kernel wrapper at a main-path shape, as a call that launches
+    it once: 32,769 x 32 Q5 state with 11 windows of 10 panes, ~110k
+    host-combined pairs, 2^20-record batches."""
+    from flink_tpu_torch.kernels import count_window_kernels as cw
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+    from flink_tpu_torch.kernels import element_kernels as ek
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    rng = np.random.default_rng(SEED + 9)
+    rows, ring, ppw, W, lo, hi = 32_769, 32, 10, 11, 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    c_np, s_np, m_np, n_np = lane_state(np, rng, rows, ring, lo, hi, keys,
+                                        (1, 1, 1), hot=100)
+    counts, sums, maxs, mins = t(c_np), t(s_np), t(m_np), t(n_np)
+    ends = torch.arange(hi - W + 2, hi + 2, dtype=torch.int64, device=dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    used_np = np.zeros(rows, bool)
+    used_np[keys] = True
+    used = t(used_np)
+    P, B = 110_000, 1 << 20
+    pairs = rng.choice((rows - 1) * ring, P, replace=False)
+    cnt = rng.integers(1, 4000, P)
+    idx, cnt_t = t(pairs.astype(np.int32)), t(cnt.astype(np.int32))
+    words = t(((pairs << 12) | cnt).astype(np.uint32).view(np.int32))
+    tri = np.empty((P, 3), np.uint16)
+    tri[:, 0], tri[:, 1], tri[:, 2] = pairs & 0xFFFF, pairs >> 16, cnt
+    tri = t(tri)
+    rec_cells = t(rng.integers(0, (rows - 1) * ring, B).astype(np.int32))
+    rec = t(rng.random((B, 1)).astype(np.float32))
+    sc = np.zeros((B, 3), np.uint8)
+    slots = rng.integers(0, rows - 1, B)
+    sc[:, 0], sc[:, 1], sc[:, 2] = slots & 0xFF, slots >> 8, slots % ring
+    sc = t(sc)
+    wc = wk.window_counts(counts, ends, valid, lo, hi, ppw)
+    ring0 = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    ring5 = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
+    cands = wk.topn_candidates(wc, used, valid, 1)
+    thresh = wk.topn_global_threshold(cands, 1)
+    v = t(rng.random((rows, W)).astype(np.float32))
+    cols = t(rng.integers(-9, 9, (rows, W, 2)).astype(np.int32))
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([lo, hi, lo], np.int64).view(np.int32)
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[:W] = np.arange(hi - W + 2, hi + 2) - lo
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas
+    fbuf = torch.cat([t(hdr), words])
+    bkeys = t(rng.integers(0, 10_000, B).astype(np.int64))
+    bts = t(rng.integers(lo * 1000, (hi + 1) * 1000, B).astype(np.int64))
+    dg_counts = torch.zeros((rows, 64), dtype=torch.int32, device=dev)
+    offsets = t(np.linspace(0, 1 << 18, 4097).astype(np.int64))
+    el = [t(rng.random((1 << 18, 1)).astype(np.float32)) for _ in range(3)]
+    cw_counts = t(rng.integers(0, 300, 65_537).astype(np.int32))
+    cw_sums = t(rng.random((65_537, 1)).astype(np.float32))
+    xcells = t(rng.integers(0, 4 * 8192 * ring, 1 << 18).astype(np.int32))
+    xpay = t(rng.random((1 << 18, 3)).astype(np.float32))
+    pbuf = np.empty((P, 3), np.int32)
+    pbuf[:, 0], pbuf[:, 1] = pairs, cnt
+    pbuf[:, 2] = rng.random(P).astype(np.float32).view(np.int32)
+    pbuf = t(pbuf)
+    keep = torch.ones(ring, dtype=torch.bool, device=dev)
+    keep[:11] = False
+    ident = torch.arange(ring, dtype=torch.int32, device=dev)
+    block = (sums, maxs, mins, counts)
+    return {
+        "scatter_counts": lambda: wk.scatter_counts(counts, idx, cnt_t),
+        "apply_pairs_u16": lambda: fk.apply_pairs_u16(counts, tri),
+        "topn_global_threshold": lambda: wk.topn_global_threshold(cands, 1),
+        "fire_pack": lambda: lk.fire_pack(counts, sums, None, None, ends[:4],
+                                          valid[:4], used, lo, hi, ppw,
+                                          1 << 16, False),
+        "topn_select_lanes": lambda: tk.topn_select_lanes(
+            wc, v, cols, used, ends, valid, lo, 1, 256, ring5),
+        "window_counts": lambda: wk.window_counts(counts, ends, valid, lo, hi,
+                                                  ppw),
+        "apply_pairs_u32": lambda: fk.apply_pairs_u32(counts, words, rows - 1),
+        "topn_select_append": lambda: wk.topn_select_append(
+            wc, used, ends, valid, lo, 1, 256, ring0),
+        "topn_candidates": lambda: wk.topn_candidates(wc, used, valid, 1),
+        "topn_select_given": lambda: wk.topn_select_given(
+            wc, used, ends, valid, lo, thresh, 0, 256, ring0),
+        "split_cells": lambda: wk.split_cells(sc, ring, rows - 1),
+        "scatter_lanes": lambda: lk.scatter_lanes(
+            counts, sums, None, None, rec_cells, rec, rec[:, :0], rec[:, :0]),
+        "scatter_pair_lanes": lambda: lk.scatter_pair_lanes(counts, sums, pbuf),
+        "ring_columns": lambda: wk.ring_columns_block(block, block, ident,
+                                                      keep),
+        "window_lanes": lambda: tk.window_lanes(sums, maxs, None, ends, valid,
+                                                lo, hi, ppw, rows),
+        "fused_step": lambda: fk.fused_step(counts, ring0, fbuf, used, ppw=ppw,
+                                            n=1, sel_cap=256,
+                                            dump_row=rows - 1, fire_gate=True,
+                                            fire_pad=16),
+        "nexmark_bids": lambda: dk.nexmark_bids(3, 0, B, B, 100, 4, 100,
+                                                10_000, dev),
+        "devgen_ingest": lambda: dk.devgen_ingest(
+            dg_counts, bkeys, bts, key_domain=10_000, pane_ms=1000,
+            offset_ms=0, dead_below=lo, refire_below=lo, dump_row=rows - 1),
+        "count_fire": lambda: cw.count_fire(cw_counts, None, cw_sums, None,
+                                            None, 250, 1 << 16),
+        "segment_lanes": lambda: ek.segment_lanes(offsets, *el),
+        "bucket_records": lambda: xk.bucket_records(xcells, xpay, 4, 1 << 17,
+                                                    8192, ring),
+        "hash_keys": lambda: xk.hash_keys(bkeys),
+    }
+
+
+# the kernels slower than their library call that a host path might
+# explain (ROADMAP.md's speed table as the launch path found it)
+SPEED_ROWS = ("scatter_counts", "apply_pairs_u16", "topn_global_threshold",
+              "fire_pack", "topn_select_lanes", "window_counts",
+              "apply_pairs_u32")
+
+
+def phase_launch_path(torch, np):
+    """``--launch-path``: build the kernels and print each wrapper's host
+    µs a call (1,000 calls without a sync), and the loop ms (CUDA events
+    around 50 calls) of ``SPEED_ROWS`` (one JSON line)."""
+    phase_build()
+    cases = launch_path_cases(torch, np, torch.device("cuda"))
+    out = {}
+    for name, fn in cases.items():
+        row = {"host_us": host_us(torch, fn)}
+        if name in SPEED_ROWS:
+            row["loop_ms"] = time_ms(torch, fn)
+        out[name] = row
+    emit({"phase": "launch_path", "wrappers": out, "card": card_line()})
+
+
+def big_cells_keys(np):
+    """BIG_KEYS keys, half of them hashed into shards 1024 and up, whose
+    slots (2^26 and up) put every cell of theirs past 2^31."""
+    from flink_tpu_torch.records import hash_keys_numpy
+
+    cand = np.arange(1, 24 * BIG_KEYS, dtype=np.int64)
+    shard = hash_keys_numpy(cand) % BIG_SHARDS
+    high = cand[shard >= 1024][:BIG_KEYS // 2]
+    check(len(high) == BIG_KEYS // 2, "too few keys in the high shards")
+    return np.concatenate([cand[shard < 1024][:BIG_KEYS // 2], high])
+
+
+def big_cells_batches(np, keys):
+    """BIG_BATCHES batches of 2^20 bids over ``keys``: three over event
+    time [0, 9 s), then one over [12 s, 15 s) with an eighth of it 40 s
+    ahead (the ring grows 32 -> 64); prices in whole cents."""
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for i in range(BIG_BATCHES):
+        k = keys[rng.integers(0, len(keys), BIG_BATCH)]
+        last = i == BIG_BATCHES - 1
+        ts = (12_000 if last else 3_000 * i) + rng.integers(0, 3_000, BIG_BATCH)
+        if last:
+            ts[:BIG_BATCH // 8] += 40_000
+        price = (rng.integers(100, 100_000, BIG_BATCH) / 100).astype(np.float32)
+        out.append((k, ts.astype(np.int64), price))
+    return out
+
+
+def big_cells_golden(np, batches):
+    """Per (window end, key) of the 10 s / 1 s windows: the bid count
+    and the f64 price sum, ordered by (end, key)."""
+    k = np.concatenate([b[0] for b in batches])
+    pane = np.concatenate([b[1] for b in batches]) // 1000
+    price = np.concatenate([b[2] for b in batches]).astype(np.float64)
+    kp, inv = np.unique(k * 4096 + pane, return_inverse=True)
+    cnt = np.bincount(inv).astype(np.int64)
+    tot = np.bincount(inv, weights=price)
+    key, pane = kp // 4096, kp % 4096
+    ends = (pane[:, None] + np.arange(1, 11)[None, :]).reshape(-1)
+    ke, inv = np.unique(ends * (1 << 40) + np.repeat(key, 10),
+                        return_inverse=True)
+    return (ke >> 40, ke & ((1 << 40) - 1),
+            np.bincount(inv, weights=np.repeat(cnt, 10)).astype(np.int64),
+            np.bincount(inv, weights=np.repeat(tot, 10)))
+
+
+def run_big_cells(torch, np):
+    """The count + sum job on a state past 2^31 cells (BIG_SHARDS x
+    BIG_SPD slots + 1 dump row, a 32-column ring): four 2^20-bid batches,
+    a fire of window ends 1..12 s with the purge of panes 0..2, a ring
+    growth 32 -> 64, then the end-of-input fire; rows against a numpy
+    golden (counts exactly, sums within agg_rel_bound). Prints its rows,
+    ring, the bytes it held on the card and its events/s."""
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+
+    keys = big_cells_keys(np)
+    batches = big_cells_batches(np, keys)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    op = WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000),
+                        ta.multi(ta.count(), ta.sum_of("price")),
+                        num_shards=BIG_SHARDS, slots_per_shard=BIG_SPD,
+                        max_out_of_orderness_ms=17_000, device="cuda")
+    rows, ring0 = op.layout.rows, op.plan.ring
+    cell_dtype = op._cell_dtype().__name__
+    check(rows * ring0 >= 2 ** 31 and cell_dtype == "int64",
+          f"big-cells state {rows} x {ring0} cells as {cell_dtype}")
+    fired = []
+    t1 = time.perf_counter()
+    for i, (k, ts, price) in enumerate(batches):
+        op.process_batch(k, ts, {"price": price})
+        if i == BIG_BATCHES - 2:
+            fired.append(dict(op.advance_watermark(12_000)))
+    fired.append(dict(op.advance_watermark(op.final_watermark())))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(wk.LAUNCHES)
+    held = torch.cuda.max_memory_allocated()
+    ring1 = op.plan.ring
+    del op
+    torch.cuda.empty_cache()
+    got = {f: np.concatenate([np.asarray(d[f]) for d in fired])
+           for f in ("window_end", "key", "count", "sum_price")}
+    order = np.lexsort((got["key"], got["window_end"]))
+    g_end, g_key, g_cnt, g_sum = big_cells_golden(np, batches)
+    check(len(order) == len(g_end)
+          and np.array_equal(got["window_end"][order], g_end * 1000)
+          and np.array_equal(got["key"][order], g_key)
+          and np.array_equal(got["count"][order], g_cnt),
+          "big-cells rows differ from the golden")
+    err = np.abs(got["sum_price"][order].astype(np.float64) - g_sum)
+    check(bool((err <= agg_rel_bound(g_cnt) * np.abs(g_sum)).all()),
+          "big-cells sums outside their bound")
+    check(ring0 == 32 and ring1 == 64 and launches["ring_columns"] >= 3,
+          f"big-cells ring {ring0} -> {ring1}, ring_columns "
+          f"{launches['ring_columns']}")
+    n = BIG_BATCH * BIG_BATCHES
+    return {"rows": rows, "ring": [ring0, ring1], "cells": rows * ring1,
+            "cell_dtype": cell_dtype, "state_bytes_after_growth":
+            rows * ring1 * 8, "max_memory_allocated": held,
+            "events": n, "fired_rows": int(len(order)), "wall_s": wall,
+            "setup_s": t1 - t0, "events_per_s": n / wall,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_big_cells(torch, np):
+    """``--big-cells``: build the kernels and run ``run_big_cells`` (one
+    JSON line)."""
+    phase_build()
+    emit({"phase": "big_cells", **run_big_cells(torch, np),
           "card": card_line()})
 
 
@@ -3449,6 +3797,39 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--window-lanes" in sys.argv[1:]:
+        try:
+            phase_window_lanes(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--launch-path" in sys.argv[1:]:
+        try:
+            phase_launch_path(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--big-cells" in sys.argv[1:]:
+        try:
+            phase_big_cells(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--ring-pairs" in sys.argv[1:]:
         try:
             phase_ring_pairs(torch, np)
@@ -3487,13 +3868,17 @@ def main() -> int:
         element, el_per_call = phase_element_window(torch, np)
         proc_time, pt_per_call = phase_proc_time(torch, np)
         mesh, mesh_per_call, m2_per_call = phase_mesh(torch, np, q5_rows)
+        big = run_big_cells(torch, np)
+        emit({"phase": "big_cells", **big, "card": card_line()})
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
                  "bid_aggs_b": aggs["b"], "window_wordcount": window_wc,
                  "topn_lanes": topn_lanes, "changelog": changelog,
                  "q5_spill": q5_spill, "element_window": element,
-                 "proc_time": proc_time, "mesh_q5": mesh}
+                 "proc_time": proc_time, "mesh_q5": mesh,
+                 "big_cells": {k: big["launches"].get(k, 0)
+                               for k in host_fed}}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy

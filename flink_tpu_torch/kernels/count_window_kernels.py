@@ -27,19 +27,21 @@ import torch
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.kernels.lane_kernels import _ptr, _width
 
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "cw_count_fire": [_P, _P, _I64, _P, _I32, _P, _I32, _P, _I32, _I32, _P,
-                      _I32, _P, _P, _P],
-    "cw_fire_tile": [],
     "cw_error_string": [ctypes.c_int],
 }
 
 
+# csrc/window_common.cuh kTile: the rows of a count_fire compaction block
+FIRE_TILE = 1024
+
+
 def _lib() -> ctypes.CDLL:
     return wk.load_library("count_window_kernels", _SIGNATURES,
+                           "cw_error_string")
+
+
+_COUNT_FIRE = wk.LeanEntry(_lib, "cw_count_fire", "count_fire", 14,
                            "cw_error_string")
 
 
@@ -61,35 +63,41 @@ def count_fire(counts: torch.Tensor, base: Optional[torch.Tensor],
     otherwise ``base[row] = counts[row]``. Rows past ``out_cap`` stay as
     they were (the plain version raises; the kernel sets a bit in the
     error word)."""
-    wk.check_tensor(counts, "counts", torch.int32, 1)
+    index = wk.fast_index((counts, torch.int32, 1), (base, torch.int32, 1),
+                          (sums, torch.float32, 2), (maxs, torch.float32, 2),
+                          (mins, torch.float32, 2))
+    if index is None:
+        wk.check_tensor(counts, "counts", torch.int32, 1)
     rows = counts.shape[0]
     if base is not None:
-        wk.check_tensor(base, "base", torch.int32, 1)
+        if index is None:
+            wk.check_tensor(base, "base", torch.int32, 1)
         if base.shape[0] != rows:
             raise ValueError("base does not match counts")
     for name, t in (("sums", sums), ("maxs", maxs), ("mins", mins)):
         if t is None:
             continue
-        wk.check_tensor(t, name, torch.float32, 2)
+        if index is None:
+            wk.check_tensor(t, name, torch.float32, 2)
         if t.shape[0] != rows:
             raise ValueError(f"{name} {tuple(t.shape)} does not match counts "
                              f"({rows},)")
     if size < 1 or out_cap < 1:
         raise ValueError("size and out_cap must be >= 1")
-    if not wk.on_cuda("count_fire", counts, base, sums, maxs, mins):
-        return count_fire_plain(counts, base, sums, maxs, mins, size, out_cap)
+    if index is None:
+        if not wk.on_cuda("count_fire", counts, base, sums, maxs, mins):
+            return count_fire_plain(counts, base, sums, maxs, mins, size,
+                                    out_cap)
+        index = counts.get_device()
     dev = counts.device
     cols = 2 + _width(sums) + _width(maxs) + _width(mins)
     out = torch.empty((out_cap + 1, cols), dtype=torch.int32, device=dev)
-    # scratch may be freed as soon as this returns: the caching allocator
-    # hands it out again only to work queued later on the same stream
-    block_counts = torch.empty(max(1, math.ceil(rows / _lib().cw_fire_tile())),
-                               dtype=torch.int32, device=dev)
-    wk.launch(_lib(), "cw_error_string", "count_fire", "cw_count_fire",
-              counts.data_ptr(), _ptr(base), rows, _ptr(sums), _width(sums),
-              _ptr(maxs), _width(maxs), _ptr(mins), _width(mins), int(size),
-              out.data_ptr(), int(out_cap), block_counts.data_ptr(),
-              wk.error_word(dev).data_ptr(), wk.stream_of(counts))
+    _held, block_counts = wk.scratch(dev, max(1, -(-rows // FIRE_TILE)))
+    err, stream = wk.launch_context(index)
+    _COUNT_FIRE(stream, counts.data_ptr(), _ptr(base), rows,
+                _ptr(sums), _width(sums), _ptr(maxs), _width(maxs),
+                _ptr(mins), _width(mins), int(size), out.data_ptr(),
+                int(out_cap), block_counts, err)
     return out
 
 

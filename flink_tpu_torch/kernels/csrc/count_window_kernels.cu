@@ -103,8 +103,6 @@ extern "C" {
 
 const char* cw_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int cw_fire_tile() { return kTile; }
-
 // base null: a purging window. scratch: block_counts (ceil(rows / kTile)
 // int32)
 int cw_count_fire(int32_t* counts, int32_t* base, int64_t rows, float* sums, int32_t sw,
@@ -121,6 +119,17 @@ int cw_count_fire(int32_t* counts, int32_t* base, int64_t rows, float* sums, int
                                                         counts, base, sums, sw, maxs, mw, mins,
                                                         nw, out, out_cap, err);
   return (int)cudaGetLastError();
+}
+
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// cw_count_fire from one packed block of 14 64-bit words
+int cw_count_fire_packed(const int64_t* a, void* stream) {
+  return cw_count_fire(
+      (int32_t*)(intptr_t)a[0], (int32_t*)(intptr_t)a[1], (int64_t)a[2], (float*)(intptr_t)a[3],
+      (int32_t)a[4], (float*)(intptr_t)a[5], (int32_t)a[6], (float*)(intptr_t)a[7],
+      (int32_t)a[8], (int32_t)a[9], (int32_t*)(intptr_t)a[10], (int32_t)a[11],
+      (int32_t*)(intptr_t)a[12], (int32_t*)(intptr_t)a[13], stream);
 }
 
 }  // extern "C"

@@ -167,4 +167,23 @@ int dg_devgen_ingest(int32_t* counts, int64_t n_cells, const int64_t* keys, cons
   return (int)cudaGetLastError();
 }
 
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// dg_nexmark_bids from one packed block of 10 64-bit words
+int dg_nexmark_bids_packed(const int64_t* a, void* stream) {
+  return dg_nexmark_bids(
+      (int64_t*)(intptr_t)a[0], (int64_t*)(intptr_t)a[1], (int64_t)a[2], (int64_t)a[3],
+      (int64_t)a[4], (int64_t)a[5], (int64_t)a[6], (int64_t)a[7], (int64_t)a[8], (int64_t)a[9],
+      stream);
+}
+
+// dg_devgen_ingest from one packed block of 14 64-bit words
+int dg_devgen_ingest_packed(const int64_t* a, void* stream) {
+  return dg_devgen_ingest(
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (const int64_t*)(intptr_t)a[2],
+      (const int64_t*)(intptr_t)a[3], (int64_t)a[4], (int64_t)a[5], (int64_t)a[6], (int64_t)a[7],
+      (int32_t)a[8], (int64_t)a[9], (int64_t)a[10], (int64_t)a[11], (int32_t*)(intptr_t)a[12],
+      (int32_t*)(intptr_t)a[13], stream);
+}
+
 }  // extern "C"

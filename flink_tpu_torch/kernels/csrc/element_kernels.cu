@@ -108,4 +108,15 @@ int ek_segment_lanes(const int64_t* offsets, int64_t n_seg, int64_t n_elem, cons
   return (int)cudaGetLastError();
 }
 
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// ek_segment_lanes from one packed block of 14 64-bit words
+int ek_segment_lanes_packed(const int64_t* a, void* stream) {
+  return ek_segment_lanes(
+      (const int64_t*)(intptr_t)a[0], (int64_t)a[1], (int64_t)a[2], (const float*)(intptr_t)a[3],
+      (int32_t)a[4], (const float*)(intptr_t)a[5], (int32_t)a[6], (const float*)(intptr_t)a[7],
+      (int32_t)a[8], (float*)(intptr_t)a[9], (float*)(intptr_t)a[10], (float*)(intptr_t)a[11],
+      (int32_t*)(intptr_t)a[12], (int32_t*)(intptr_t)a[13], stream);
+}
+
 }  // extern "C"

@@ -27,10 +27,13 @@ constexpr int kMaxDest = 64;
 // mesh's slots: [0, n_dest * spd * ring). Anything else (-1, or the row
 // past every block that the split upload's decode gives an invalid
 // record) is dropped, as the reference's bucket drops an invalid row.
-__device__ __forceinline__ int32_t dest_of(int32_t c, int64_t n_cells, int32_t ring, int32_t spd,
+// Cells are int32, or int64 once the mesh's cells reach 2^31 (the
+// operator's upload switches where the reference's does); a bucket's
+// cells take the type of the upload's.
+__device__ __forceinline__ int32_t dest_of(int64_t c, int64_t n_cells, int32_t ring, int32_t spd,
                                            int32_t n_dest) {
-  if (c < 0 || (int64_t)c >= n_cells) return n_dest;
-  return (c / ring) / spd;
+  if (c < 0 || c >= n_cells) return n_dest;
+  return (int32_t)((c / ring) / spd);
 }
 
 // ---- X1: bucket_records ------------------------------------------------------
@@ -59,7 +62,8 @@ __device__ __forceinline__ int32_t dest_of(int32_t c, int64_t n_cells, int32_t r
 //      bucket position; then the tiles fill the positions past every
 //      bucket's records in a grid-stride loop. Block 0 writes overflow.
 
-__global__ void bucket_count_kernel(const int32_t* __restrict__ cells, int64_t B, int32_t n_dest,
+template <typename Cell>
+__global__ void bucket_count_kernel(const Cell* __restrict__ cells, int64_t B, int32_t n_dest,
                                     int32_t ring, int32_t spd,
                                     int32_t* __restrict__ tile_counts) {
   __shared__ int s_h[kMaxDest];
@@ -79,11 +83,12 @@ __global__ void bucket_count_kernel(const int32_t* __restrict__ cells, int64_t B
   }
 }
 
-__global__ void bucket_write_kernel(const int32_t* __restrict__ cells,
+template <typename Cell>
+__global__ void bucket_write_kernel(const Cell* __restrict__ cells,
                                     const int32_t* __restrict__ payload, int64_t B, int32_t C,
                                     int32_t n_dest, int32_t cap, int32_t ring, int32_t spd,
                                     const int32_t* __restrict__ tile_counts, int32_t n_tiles,
-                                    int32_t* __restrict__ out_cells,
+                                    Cell* __restrict__ out_cells,
                                     int32_t* __restrict__ out_payload,
                                     uint8_t* __restrict__ out_valid,
                                     int32_t* __restrict__ overflow) {
@@ -126,10 +131,10 @@ __global__ void bucket_write_kernel(const int32_t* __restrict__ cells,
       if (dst[j] != d) continue;
       if (pos < cap) {
         const int64_t i = base + j;
-        const int32_t c = cells[i];
-        const int32_t slot = c / ring;
+        const int64_t c = cells[i];
+        const int64_t slot = c / ring;
         const int64_t o = (int64_t)d * cap + pos;
-        out_cells[o] = (slot - d * spd) * ring + (c - slot * ring);
+        out_cells[o] = (Cell)((slot - (int64_t)d * spd) * ring + (c - slot * ring));
         out_valid[o] = 1;
         for (int32_t k = 0; k < C; ++k) out_payload[o * C + k] = payload[i * C + k];
       }
@@ -163,29 +168,46 @@ __global__ void hash_keys_kernel(const int64_t* __restrict__ keys, int64_t n,
   }
 }
 
+// one source block's buckets: the two launches
+template <typename Cell>
+int bucket_records(const Cell* cells, const int32_t* payload, int64_t B, int32_t C,
+                   int32_t n_dest, int32_t cap, int32_t ring, int32_t spd, int32_t* tile_counts,
+                   Cell* out_cells, int32_t* out_payload, uint8_t* out_valid, int32_t* overflow,
+                   cudaStream_t s) {
+  int64_t t = (B + kTile - 1) / kTile;
+  const int32_t n_tiles = (int32_t)(t < 1 ? 1 : t);
+  bucket_count_kernel<Cell><<<n_tiles, kThreads, 0, s>>>(cells, B, n_dest, ring, spd,
+                                                         tile_counts);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  bucket_write_kernel<Cell><<<n_tiles, kThreads, 0, s>>>(cells, payload, B, C, n_dest, cap, ring,
+                                                         spd, tile_counts, n_tiles, out_cells,
+                                                         out_payload, out_valid, overflow);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* xk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int xk_bucket_tile() { return kTile; }
-
-// scratch: tile_counts (max(1, ceil(B / kTile)) * n_dest int32)
-int xk_bucket_records(const int32_t* cells, const int32_t* payload, int64_t B, int32_t C,
-                      int32_t n_dest, int32_t cap, int32_t ring, int32_t spd,
-                      int32_t* tile_counts, int32_t* out_cells, int32_t* out_payload,
+// scratch: tile_counts (max(1, ceil(B / kTile)) * n_dest int32); cells
+// and out_cells are int32 (cell_bytes 4) or int64 (8)
+int xk_bucket_records(const void* cells, int32_t cell_bytes, const int32_t* payload, int64_t B,
+                      int32_t C, int32_t n_dest, int32_t cap, int32_t ring, int32_t spd,
+                      int32_t* tile_counts, void* out_cells, int32_t* out_payload,
                       uint8_t* out_valid, int32_t* overflow, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int64_t t = (B + kTile - 1) / kTile;
-  const int32_t n_tiles = (int32_t)(t < 1 ? 1 : t);
-  bucket_count_kernel<<<n_tiles, kThreads, 0, s>>>(cells, B, n_dest, ring, spd, tile_counts);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  bucket_write_kernel<<<n_tiles, kThreads, 0, s>>>(cells, payload, B, C, n_dest, cap, ring, spd,
-                                                   tile_counts, n_tiles, out_cells, out_payload,
-                                                   out_valid, overflow);
-  return (int)cudaGetLastError();
+  if (cell_bytes == 8)
+    return bucket_records<int64_t>((const int64_t*)cells, payload, B, C, n_dest, cap, ring, spd,
+                                   tile_counts, (int64_t*)out_cells, out_payload, out_valid,
+                                   overflow, s);
+  if (cell_bytes == 4)
+    return bucket_records<int32_t>((const int32_t*)cells, payload, B, C, n_dest, cap, ring, spd,
+                                   tile_counts, (int32_t*)out_cells, out_payload, out_valid,
+                                   overflow, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int xk_hash_keys(const int64_t* keys, int64_t n, int64_t* out, void* stream) {
@@ -193,6 +215,23 @@ int xk_hash_keys(const int64_t* keys, int64_t n, int64_t* out, void* stream) {
     hash_keys_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(keys, n, out);
   }
   return (int)cudaGetLastError();
+}
+
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// xk_bucket_records from one packed block of 14 64-bit words
+int xk_bucket_records_packed(const int64_t* a, void* stream) {
+  return xk_bucket_records(
+      (const void*)(intptr_t)a[0], (int32_t)a[1], (const int32_t*)(intptr_t)a[2], (int64_t)a[3],
+      (int32_t)a[4], (int32_t)a[5], (int32_t)a[6], (int32_t)a[7], (int32_t)a[8],
+      (int32_t*)(intptr_t)a[9], (void*)(intptr_t)a[10], (int32_t*)(intptr_t)a[11],
+      (uint8_t*)(intptr_t)a[12], (int32_t*)(intptr_t)a[13], stream);
+}
+
+// xk_hash_keys from one packed block of 3 64-bit words
+int xk_hash_keys_packed(const int64_t* a, void* stream) {
+  return xk_hash_keys(
+      (const int64_t*)(intptr_t)a[0], (int64_t)a[1], (int64_t*)(intptr_t)a[2], stream);
 }
 
 }  // extern "C"

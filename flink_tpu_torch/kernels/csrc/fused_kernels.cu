@@ -149,8 +149,6 @@ const char* ff_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 
 int ff_params_bytes() { return (int)sizeof(FusedParams); }
 
-int ff_topn_tile() { return kTile; }
-
 int ff_apply_pairs_u32(int32_t* counts, int64_t limit, const int32_t* words, int64_t n,
                        void* stream) {
   if (n > 0) {
@@ -205,6 +203,32 @@ int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* bu
   purge.err = err;
   purge.run = &p->clear;
   return launch_ring_columns(purge, s);
+}
+
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// ff_apply_pairs_u32 from one packed block of 4 64-bit words
+int ff_apply_pairs_u32_packed(const int64_t* a, void* stream) {
+  return ff_apply_pairs_u32(
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (const int32_t*)(intptr_t)a[2], (int64_t)a[3],
+      stream);
+}
+
+// ff_apply_pairs_u16 from one packed block of 4 64-bit words
+int ff_apply_pairs_u16_packed(const int64_t* a, void* stream) {
+  return ff_apply_pairs_u16(
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (const uint16_t*)(intptr_t)a[2], (int64_t)a[3],
+      stream);
+}
+
+// ff_fused_step from one packed block of 21 64-bit words
+int ff_fused_step_packed(const int64_t* a, void* stream) {
+  return ff_fused_step(
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const int32_t*)(intptr_t)a[3],
+      (int64_t)a[4], (const uint8_t*)(intptr_t)a[5], (int32_t)a[6], (int32_t)a[7], (int32_t)a[8],
+      (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (int32_t)a[12], (int32_t)a[13],
+      (int32_t)a[14], (void*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16], (float*)(intptr_t)a[17],
+      (int32_t*)(intptr_t)a[18], (long long*)(intptr_t)a[19], (int32_t*)(intptr_t)a[20], stream);
 }
 
 }  // extern "C"

@@ -800,12 +800,13 @@ bool fold_if(int32_t sw, int32_t mw, int32_t nw, int32_t blocks, cudaStream_t s,
 // flight (PERF.md §6): more threads keep more random sectors in
 // flight. Widths 0, 1 and 4 (the main paths' avg and sum layouts) are
 // compile-time; any other takes the run-time kernel below, which reads
-// each row where it lies. Index math is 32-bit: the wrapper keeps the
-// state and the rows below 2^31 words.
+// each row where it lies. A pair is an int32 (the upload's format); the
+// sums' and the rows' offsets are 64-bit, so a state of 2^31 words or
+// more takes the same path.
 constexpr int kPairThreads = 128;
 constexpr int kPairWarps = kPairThreads / 32;
 
-__device__ __forceinline__ bool pair_in_state(int32_t pair, int32_t n_cells,
+__device__ __forceinline__ bool pair_in_state(int32_t pair, int64_t n_cells,
                                               int32_t* __restrict__ err) {
   if (pair < 0) return false;
   if (pair >= n_cells) {
@@ -817,7 +818,7 @@ __device__ __forceinline__ bool pair_in_state(int32_t pair, int32_t n_cells,
 
 template <int SW>
 __global__ void __launch_bounds__(kPairThreads)
-    pair_lanes_kernel(const int32_t* __restrict__ buf, int32_t P, int32_t n_cells,
+    pair_lanes_kernel(const int32_t* __restrict__ buf, int32_t P, int64_t n_cells,
                       int32_t* __restrict__ counts, float* __restrict__ sums,
                       int32_t* __restrict__ err) {
   constexpr int C = 2 + SW;
@@ -829,7 +830,7 @@ __global__ void __launch_bounds__(kPairThreads)
   const bool aligned = ((uintptr_t)buf & 15) == 0;
   for (int32_t b = blockIdx.x * kPairWarps + warp; b < n_blocks; b += gridDim.x * kPairWarps) {
     const int32_t n = min(32, P - b * 32);
-    const int32_t* src = buf + b * kWarpWords;
+    const int32_t* src = buf + (int64_t)b * kWarpWords;
     if (n == 32 && aligned) {
       const int4* s4 = reinterpret_cast<const int4*>(src);
       int4* d4 = reinterpret_cast<int4*>(rows);
@@ -845,9 +846,10 @@ __global__ void __launch_bounds__(kPairThreads)
       atomicAdd(&counts[pair], row[1]);
       float cur[SW > 0 ? SW : 1];
 #pragma unroll
-      for (int s = 0; s < SW; ++s) cur[s] = sums[pair * SW + s];
+      for (int s = 0; s < SW; ++s) cur[s] = sums[(int64_t)pair * SW + s];
 #pragma unroll
-      for (int s = 0; s < SW; ++s) sums[pair * SW + s] = cur[s] + __int_as_float(row[2 + s]);
+      for (int s = 0; s < SW; ++s)
+        sums[(int64_t)pair * SW + s] = cur[s] + __int_as_float(row[2 + s]);
     }
     __syncwarp();  // the stage is rewritten next round
   }
@@ -856,19 +858,19 @@ __global__ void __launch_bounds__(kPairThreads)
 // any other width: one row a thread, read where it lies
 __global__ void __launch_bounds__(kPairThreads)
     pair_lanes_any_kernel(const int32_t* __restrict__ buf, int32_t P, int32_t C,
-                          int32_t n_cells, int32_t* __restrict__ counts,
+                          int64_t n_cells, int32_t* __restrict__ counts,
                           float* __restrict__ sums, int32_t sw, int32_t* __restrict__ err) {
   for (int32_t p = blockIdx.x * kPairThreads + threadIdx.x; p < P; p += gridDim.x * kPairThreads) {
-    const int32_t* row = buf + p * C;
+    const int32_t* row = buf + (int64_t)p * C;
     const int32_t pair = row[0];
     if (!pair_in_state(pair, n_cells, err)) continue;
     atomicAdd(&counts[pair], row[1]);
-    for (int32_t s = 0; s < sw; ++s) sums[pair * sw + s] += __int_as_float(row[2 + s]);
+    for (int32_t s = 0; s < sw; ++s) sums[(int64_t)pair * sw + s] += __int_as_float(row[2 + s]);
   }
 }
 
 template <int SW>
-bool pair_lanes_if(int32_t sw, const int32_t* buf, int32_t P, int32_t n_cells, int32_t* counts,
+bool pair_lanes_if(int32_t sw, const int32_t* buf, int32_t P, int64_t n_cells, int32_t* counts,
                    float* sums, int32_t* err, cudaStream_t s) {
   if (sw != SW) return false;
   const int64_t blocks = ((int64_t)P + kPairThreads - 1) / kPairThreads;
@@ -882,8 +884,6 @@ bool pair_lanes_if(int32_t sw, const int32_t* buf, int32_t P, int32_t n_cells, i
 extern "C" {
 
 const char* lk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-int lk_fire_tile() { return kTile; }
 
 // scratch: wc (rows * W int32), block_counts (ceil(rows * W / kTile) int32)
 int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float* sums, int32_t sw,
@@ -971,11 +971,11 @@ int lk_scatter_pair_lanes(const PairArgs* a, void* stream) {
   const int32_t* buf = (const int32_t*)a->buf;
   const int64_t sw = a->sw, n_cells = a->n_cells, P = a->P, C = a->C;
   if (P <= 0) return (int)cudaGetLastError();
-  if (sw < 0 || C != 2 + sw || n_cells >= (1ll << 31) || n_cells * (sw > 1 ? sw : 1) >= (1ll << 31) ||
-      P * C >= (1ll << 31))
+  if (sw < 0 || sw >= (1ll << 31) || C != 2 + sw || P >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int32_t p = (int32_t)P, cells = (int32_t)n_cells;
+  const int32_t p = (int32_t)P;
+  const int64_t cells = n_cells;
   if (!pair_lanes_if<1>(sw, buf, p, cells, counts, sums, err, s) &&
       !pair_lanes_if<0>(sw, buf, p, cells, counts, sums, err, s) &&
       !pair_lanes_if<4>(sw, buf, p, cells, counts, sums, err, s)) {
@@ -984,6 +984,33 @@ int lk_scatter_pair_lanes(const PairArgs* a, void* stream) {
                             s>>>(buf, p, (int32_t)C, cells, counts, sums, (int32_t)sw, err);
   }
   return (int)cudaGetLastError();
+}
+
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// lk_fire_pack from one packed block of 25 64-bit words
+int lk_fire_pack_packed(const int64_t* a, void* stream) {
+  return lk_fire_pack(
+      (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const float*)(intptr_t)a[3],
+      (int32_t)a[4], (const float*)(intptr_t)a[5], (int32_t)a[6], (const float*)(intptr_t)a[7],
+      (int32_t)a[8], (const int64_t*)(intptr_t)a[9], (const uint8_t*)(intptr_t)a[10],
+      (int32_t)a[11], (int64_t)a[12], (int64_t)a[13], (int32_t)a[14],
+      (const uint8_t*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16], (int32_t)a[17], (int32_t)a[18],
+      (int32_t)a[19], (int32_t)a[20], (float*)(intptr_t)a[21], (int32_t*)(intptr_t)a[22],
+      (int32_t*)(intptr_t)a[23], (int32_t*)(intptr_t)a[24], stream);
+}
+
+// lk_scatter_lanes from one packed block of 25 64-bit words
+int lk_scatter_lanes_packed(const int64_t* a, void* stream) {
+  return lk_scatter_lanes(
+      (int32_t*)(intptr_t)a[0], (float*)(intptr_t)a[1], (int32_t)a[2], (float*)(intptr_t)a[3],
+      (int32_t)a[4], (float*)(intptr_t)a[5], (int32_t)a[6], (int64_t)a[7],
+      (const int32_t*)(intptr_t)a[8], (const float*)(intptr_t)a[9],
+      (const float*)(intptr_t)a[10], (const float*)(intptr_t)a[11], (int64_t)a[12],
+      (int32_t)a[13], (int32_t)a[14], (int32_t)a[15], (int32_t)a[16], (int32_t)a[17],
+      (int32_t*)(intptr_t)a[18], (int64_t)a[19], (int32_t*)(intptr_t)a[20],
+      (int32_t*)(intptr_t)a[21], (int32_t*)(intptr_t)a[22], (int32_t*)(intptr_t)a[23],
+      (int32_t*)(intptr_t)a[24], stream);
 }
 
 }  // extern "C"

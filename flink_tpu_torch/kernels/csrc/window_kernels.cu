@@ -51,7 +51,9 @@ constexpr int32_t kErrSplitCell = 64;
 constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
 
 // ---- K1: scatter_counts --------------------------------------------------
-// counts.flat[idx[i]] += cnt[i] (or += 1 when cnt is null).
+// counts.flat[idx[i]] += cnt[i] (or += 1 when cnt is null); idx is int32,
+// or int64 once the state reaches 2^31 cells (the operator's upload
+// switches where the reference's does).
 // Bound: bytes — the idx/cnt stream plus one 4-byte read-modify-write per
 // entry; at the Q5 shape (~110k host-combined pairs) that is ~1.8 MB,
 // well under a microsecond of HBM time, so the launch dominates. Design:
@@ -60,15 +62,16 @@ constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
 // (a malformed upload cannot corrupt memory) and sets kErrScatterIndex;
 // with skip_negative a negative index is an invalid record, skipped
 // silently (a key-sharded block's received buckets pad with -1).
+template <typename Idx>
 __global__ void scatter_counts_kernel(int32_t* __restrict__ counts, int64_t n_cells,
-                                      const int32_t* __restrict__ idx,
+                                      const Idx* __restrict__ idx,
                                       const int32_t* __restrict__ cnt, int64_t n,
                                       int32_t skip_negative, int32_t* __restrict__ err) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int32_t c = idx[i];
+    const int64_t c = idx[i];
     if (c < 0 && skip_negative) continue;
-    if (c < 0 || (int64_t)c >= n_cells) {
+    if (c < 0 || c >= n_cells) {
       atomicOr(err, kErrScatterIndex);
       continue;
     }
@@ -111,13 +114,18 @@ extern "C" {
 
 const char* fk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int fk_topn_tile() { return kTile; }
-
-int fk_scatter_counts(int32_t* counts, int64_t n_cells, const int32_t* idx, const int32_t* cnt,
-                      int64_t n, int32_t skip_negative, int32_t* err, void* stream) {
+int fk_scatter_counts(int32_t* counts, int64_t n_cells, const void* idx, int32_t idx_bytes,
+                      const int32_t* cnt, int64_t n, int32_t skip_negative, int32_t* err,
+                      void* stream) {
+  if (idx_bytes != 4 && idx_bytes != 8) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    scatter_counts_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        counts, n_cells, idx, cnt, n, skip_negative, err);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (idx_bytes == 8)
+      scatter_counts_kernel<int64_t><<<grid_for(n), kThreads, 0, s>>>(
+          counts, n_cells, (const int64_t*)idx, cnt, n, skip_negative, err);
+    else
+      scatter_counts_kernel<int32_t><<<grid_for(n), kThreads, 0, s>>>(
+          counts, n_cells, (const int32_t*)idx, cnt, n, skip_negative, err);
   }
   return (int)cudaGetLastError();
 }
@@ -208,6 +216,66 @@ int fk_ring_columns(const RingArgs* a, void* stream) {
                          (uint32_t)a->fill[l]};
   }
   return launch_ring_columns(p, (cudaStream_t)stream);
+}
+
+// the lean launch path (window_kernels.py LeanEntry): each entry
+// above from one packed block of 64-bit words, the stream beside
+// fk_scatter_counts from one packed block of 8 64-bit words
+int fk_scatter_counts_packed(const int64_t* a, void* stream) {
+  return fk_scatter_counts(
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (const void*)(intptr_t)a[2], (int32_t)a[3],
+      (const int32_t*)(intptr_t)a[4], (int64_t)a[5], (int32_t)a[6], (int32_t*)(intptr_t)a[7],
+      stream);
+}
+
+// fk_split_cells from one packed block of 6 64-bit words
+int fk_split_cells_packed(const int64_t* a, void* stream) {
+  return fk_split_cells(
+      (const uint8_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (int32_t)a[3],
+      (int32_t*)(intptr_t)a[4], (int32_t*)(intptr_t)a[5], stream);
+}
+
+// fk_window_counts from one packed block of 10 64-bit words
+int fk_window_counts_packed(const int64_t* a, void* stream) {
+  return fk_window_counts(
+      (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
+      (const int64_t*)(intptr_t)a[3], (const uint8_t*)(intptr_t)a[4], (int32_t)a[5],
+      (int64_t)a[6], (int64_t)a[7], (int32_t)a[8], (int32_t*)(intptr_t)a[9], stream);
+}
+
+// fk_topn_select_append from one packed block of 15 64-bit words
+int fk_topn_select_append_packed(const int64_t* a, void* stream) {
+  return fk_topn_select_append(
+      (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
+      (const uint8_t*)(intptr_t)a[3], (const int64_t*)(intptr_t)a[4],
+      (const uint8_t*)(intptr_t)a[5], (int64_t)a[6], (int32_t)a[7], (int32_t)a[8],
+      (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (float*)(intptr_t)a[12],
+      (int32_t*)(intptr_t)a[13], (long long*)(intptr_t)a[14], stream);
+}
+
+// fk_topn_candidates from one packed block of 7 64-bit words
+int fk_topn_candidates_packed(const int64_t* a, void* stream) {
+  return fk_topn_candidates(
+      (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
+      (const uint8_t*)(intptr_t)a[3], (const uint8_t*)(intptr_t)a[4], (int32_t)a[5],
+      (float*)(intptr_t)a[6], stream);
+}
+
+// fk_topn_global_threshold from one packed block of 5 64-bit words
+int fk_topn_global_threshold_packed(const int64_t* a, void* stream) {
+  return fk_topn_global_threshold(
+      (const float*)(intptr_t)a[0], (int32_t)a[1], (int32_t)a[2], (int32_t)a[3],
+      (float*)(intptr_t)a[4], stream);
+}
+
+// fk_topn_select_given from one packed block of 15 64-bit words
+int fk_topn_select_given_packed(const int64_t* a, void* stream) {
+  return fk_topn_select_given(
+      (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
+      (const uint8_t*)(intptr_t)a[3], (const int64_t*)(intptr_t)a[4],
+      (const uint8_t*)(intptr_t)a[5], (int64_t)a[6], (const float*)(intptr_t)a[7], (int32_t)a[8],
+      (int32_t)a[9], (int32_t*)(intptr_t)a[10], (int32_t)a[11], (int32_t)a[12],
+      (int32_t*)(intptr_t)a[13], (long long*)(intptr_t)a[14], stream);
 }
 
 }  // extern "C"

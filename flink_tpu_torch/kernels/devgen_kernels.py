@@ -38,14 +38,7 @@ _MUL1 = 0xBF58476D1CE4E5B9
 _MUL2 = 0x94D049BB133111EB
 _SEED_MUL = 0xD1342543DE82EF95
 
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "dg_nexmark_bids": [_P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                        _P],
-    "dg_devgen_ingest": [_P, _I64, _P, _P, _I64, _I64, _I64, _I64, _I32, _I64,
-                         _I64, _I64, _P, _P, _P],
     "dg_error_string": [ctypes.c_int],
 }
 
@@ -54,8 +47,12 @@ def _lib() -> ctypes.CDLL:
     return wk.load_library("devgen_kernels", _SIGNATURES, "dg_error_string")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    wk.launch(_lib(), "dg_error_string", name, fn, *args)
+def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
+    return wk.LeanEntry(_lib, fn, name, n_words, "dg_error_string")
+
+
+_NEXMARK_BIDS = _entry("dg_nexmark_bids", "nexmark_bids", 10)
+_DEVGEN_INGEST = _entry("dg_devgen_ingest", "devgen_ingest", 14)
 
 
 def _i64(v: int) -> int:
@@ -88,14 +85,16 @@ def nexmark_bids(logical: int, off: int, n: int, batch_total: int,
             f"n={n}, events_per_ms={events_per_ms}, hot_ratio={hot_ratio}, "
             f"n_hot={n_hot}, n_auctions={n_auctions})")
     device = torch.device(device)
-    keys = torch.empty(n, dtype=torch.int64, device=device)
-    ts = torch.empty(n, dtype=torch.int64, device=device)
-    if not wk.on_cuda("nexmark_bids", keys, ts):
+    out = torch.empty(2 * n, dtype=torch.int64, device=device)
+    keys, ts = out[:n], out[n:]
+    index = out.get_device()
+    if index < 0:
+        wk.on_cuda("nexmark_bids", keys, ts)
         return nexmark_bids_plain(logical, off, n, batch_total, events_per_ms,
                                   hot_ratio, n_hot, n_auctions, device)
-    _launch("nexmark_bids", "dg_nexmark_bids", keys.data_ptr(), ts.data_ptr(),
-            n, logical, off, batch_total, events_per_ms, hot_ratio, n_hot,
-            n_auctions, wk.stream_of(keys))
+    _, stream = wk.launch_context(index)
+    _NEXMARK_BIDS(stream, keys.data_ptr(), ts.data_ptr(), n, logical, off,
+                  batch_total, events_per_ms, hot_ratio, n_hot, n_auctions)
     return keys, ts
 
 
@@ -136,27 +135,31 @@ def devgen_ingest(counts: torch.Tensor, keys: torch.Tensor, ts: torch.Tensor,
     below ``dead_below``; valid records add 1 at ``(key, pane mod
     ring)``, the others at ``(dump_row, 0)``; a valid record below
     ``refire_below`` is a refire candidate."""
-    wk.check_tensor(counts, "counts", torch.int32, 2)
-    wk.check_tensor(keys, "keys", torch.int64, 1)
-    wk.check_tensor(ts, "ts", torch.int64, 1)
+    index = wk.fast_index((counts, torch.int32, 2), (keys, torch.int64, 1),
+                          (ts, torch.int64, 1))
+    if index is None:
+        wk.check_tensor(counts, "counts", torch.int32, 2)
+        wk.check_tensor(keys, "keys", torch.int64, 1)
+        wk.check_tensor(ts, "ts", torch.int64, 1)
     if keys.numel() != ts.numel():
         raise ValueError("keys and ts differ in length")
     if pane_ms < 1:
         raise ValueError("pane_ms must be >= 1")
     stats = (torch.zeros(STATS_WORDS, dtype=torch.int32, device=counts.device)
              if with_stats else None)
-    if not wk.on_cuda("devgen_ingest", counts, keys, ts):
-        return devgen_ingest_plain(counts, keys, ts, key_domain, pane_ms,
-                                   offset_ms, dead_below, refire_below,
-                                   dump_row, stats)
+    if index is None:
+        if not wk.on_cuda("devgen_ingest", counts, keys, ts):
+            return devgen_ingest_plain(counts, keys, ts, key_domain, pane_ms,
+                                       offset_ms, dead_below, refire_below,
+                                       dump_row, stats)
+        index = counts.get_device()
     rows, ring = counts.shape
-    _launch("devgen_ingest", "dg_devgen_ingest", counts.data_ptr(),
-            counts.numel(), keys.data_ptr(), ts.data_ptr(), keys.numel(),
-            int(key_domain), int(pane_ms), int(offset_ms), ring,
-            int(dead_below), int(refire_below), int(dump_row),
-            stats.data_ptr() if stats is not None else None,
-            wk.error_word(counts.device).data_ptr(),
-            wk.stream_of(counts))
+    err, stream = wk.launch_context(index)
+    _DEVGEN_INGEST(stream, counts.data_ptr(), counts.numel(), keys.data_ptr(),
+                   ts.data_ptr(), keys.numel(), int(key_domain), int(pane_ms),
+                   int(offset_ms), ring, int(dead_below), int(refire_below),
+                   int(dump_row), stats.data_ptr() if stats is not None else 0,
+                   err)
     return stats
 
 

@@ -35,12 +35,7 @@ import torch
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.kernels.lane_kernels import _width
 
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "ek_segment_lanes": [_P, _I64, _I64, _P, _I32, _P, _I32, _P, _I32, _P, _P,
-                         _P, _P, _P, _P],
     "ek_error_string": [ctypes.c_int],
 }
 
@@ -49,6 +44,10 @@ Lanes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def _lib() -> ctypes.CDLL:
     return wk.load_library("element_kernels", _SIGNATURES, "ek_error_string")
+
+
+_SEGMENT_LANES = wk.LeanEntry(_lib, "ek_segment_lanes", "segment_lanes", 14,
+                              "ek_error_string")
 
 
 def _check(offsets: torch.Tensor, sums: torch.Tensor, maxs: torch.Tensor,
@@ -69,21 +68,31 @@ def segment_lanes(offsets: torch.Tensor, sums: torch.Tensor,
     lanes ``sums (E, S)``, ``maxs (E, M)``, ``mins (E, N)`` (f32, any
     width 0). Returns ``(sums (W, S), maxs (W, M), mins (W, N), counts
     (W,) int32)``."""
-    _check(offsets, sums, maxs, mins)
-    if not wk.on_cuda("segment_lanes", offsets, sums, maxs, mins):
-        return segment_lanes_plain(offsets, sums, maxs, mins)
+    index = wk.fast_index((offsets, torch.int64, 1), (sums, torch.float32, 2),
+                          (maxs, torch.float32, 2), (mins, torch.float32, 2))
+    n_elem = sums.shape[0]
+    if index is None or offsets.numel() < 1 or maxs.shape[0] != n_elem \
+            or mins.shape[0] != n_elem:
+        _check(offsets, sums, maxs, mins)
+        if not wk.on_cuda("segment_lanes", offsets, sums, maxs, mins):
+            return segment_lanes_plain(offsets, sums, maxs, mins)
+        index = offsets.get_device()
     dev = offsets.device
     n_seg = offsets.numel() - 1
-    out_s = torch.empty((n_seg, _width(sums)), dtype=torch.float32, device=dev)
-    out_m = torch.empty((n_seg, _width(maxs)), dtype=torch.float32, device=dev)
-    out_n = torch.empty((n_seg, _width(mins)), dtype=torch.float32, device=dev)
-    counts = torch.empty(n_seg, dtype=torch.int32, device=dev)
-    wk.launch(_lib(), "ek_error_string", "segment_lanes", "ek_segment_lanes",
-              offsets.data_ptr(), n_seg, sums.shape[0], sums.data_ptr(),
-              _width(sums), maxs.data_ptr(), _width(maxs), mins.data_ptr(),
-              _width(mins), out_s.data_ptr(), out_m.data_ptr(),
-              out_n.data_ptr(), counts.data_ptr(),
-              wk.error_word(dev).data_ptr(), wk.stream_of(offsets))
+    sw, mw, nw = sums.shape[1], maxs.shape[1], mins.shape[1]
+    # the four outputs in one allocation: the lanes as f32, then counts
+    buf = torch.empty(n_seg * (sw + mw + nw + 1), dtype=torch.float32,
+                      device=dev)
+    a, b, c = n_seg * sw, n_seg * (sw + mw), n_seg * (sw + mw + nw)
+    out_s = buf.as_strided((n_seg, sw), (sw, 1), 0)
+    out_m = buf.as_strided((n_seg, mw), (mw, 1), a)
+    out_n = buf.as_strided((n_seg, nw), (nw, 1), b)
+    counts = buf[c:].view(torch.int32)
+    err, stream = wk.launch_context(index)
+    _SEGMENT_LANES(stream, offsets.data_ptr(), n_seg, n_elem, sums.data_ptr(),
+                   sw, maxs.data_ptr(), mw, mins.data_ptr(), nw,
+                   out_s.data_ptr(), out_m.data_ptr(), out_n.data_ptr(),
+                   counts.data_ptr(), err)
     return out_s, out_m, out_n, counts
 
 

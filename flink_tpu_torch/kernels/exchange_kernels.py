@@ -18,7 +18,6 @@ bit for bit.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,14 +25,7 @@ import torch
 from flink_tpu_torch.kernels import devgen_kernels as dk
 from flink_tpu_torch.kernels import window_kernels as wk
 
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "xk_bucket_records": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P,
-                          _P, _P, _P, _P],
-    "xk_hash_keys": [_P, _I64, _P, _P],
-    "xk_bucket_tile": [],
     "xk_error_string": [ctypes.c_int],
 }
 # the largest destination count one bucket_records launch takes (the
@@ -45,8 +37,14 @@ def _lib() -> ctypes.CDLL:
     return wk.load_library("exchange_kernels", _SIGNATURES, "xk_error_string")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    wk.launch(_lib(), "xk_error_string", name, fn, *args)
+def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
+    return wk.LeanEntry(_lib, fn, name, n_words, "xk_error_string")
+
+
+_BUCKET_RECORDS = _entry("xk_bucket_records", "bucket_records", 14)
+_HASH_KEYS = _entry("xk_hash_keys", "hash_keys", 3)
+# csrc/window_common.cuh kTile: the records of a bucketing tile
+BUCKET_TILE = 1024
 
 
 # -- X1 ------------------------------------------------------------------------
@@ -57,18 +55,23 @@ def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
                               torch.Tensor, torch.Tensor]:
     """Bucket one source block's records by owner block.
 
-    ``cells`` is ``(B,)`` int32, each ``slot * ring + col`` over the
-    mesh's global slots; a cell outside ``[0, n_dest * spd * ring)``
+    ``cells`` is ``(B,)`` int32 (int64 once the mesh's cells reach
+    2^31), each ``slot * ring + col`` over the mesh's global slots; a cell outside ``[0, n_dest * spd * ring)``
     (``-1``) is an invalid record and goes nowhere. ``payload`` is ``(B,
     C)`` of a 4-byte dtype (the records' lifted lanes) or None. Record i
     goes to block ``d = slot // spd`` at the next free position of its
     bucket, in arrival order, as the cell ``(slot - d * spd) * ring +
-    col`` of d's block. Returns ``(cells (n_dest, capacity) int32, payload
+    col`` of d's block. Returns ``(cells (n_dest, capacity) of the
+    input's dtype, payload
     (n_dest, capacity, C) or None, valid (n_dest, capacity) bool, overflow
     (n_dest,) int32)``: positions past a bucket's records hold cell -1, a
     zero payload and valid False; ``overflow[d] = max(count_d - capacity,
     0)`` records past the capacity are dropped."""
-    wk.check_tensor(cells, "cells", torch.int32, 1)
+    index = wk.fast_index((cells, torch.int64 if cells.dtype is torch.int64
+                           else torch.int32, 1))
+    if index is None:
+        wk.check_tensor(cells, "cells", torch.int64
+                        if cells.dtype is torch.int64 else torch.int32, 1)
     B = cells.numel()
     C = 0
     if payload is not None:
@@ -83,25 +86,28 @@ def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
                          f"got {n_dest}")
     if capacity < 1 or spd < 1 or ring < 1:
         raise ValueError("capacity, spd and ring must be >= 1")
-    if n_dest * spd * ring >= 2 ** 31 or n_dest * capacity >= 2 ** 31:
-        raise ValueError("bucket_records: cell or bucket index beyond int32")
-    if not wk.on_cuda("bucket_records", cells, payload):
-        return bucket_records_plain(cells, payload, n_dest, capacity, spd, ring)
+    if capacity >= 2 ** 31:
+        raise ValueError("bucket_records: a bucket of 2^31 records or more")
+    if index is None or (payload is not None
+                         and payload.get_device() != index):
+        if not wk.on_cuda("bucket_records", cells, payload):
+            return bucket_records_plain(cells, payload, n_dest, capacity, spd,
+                                        ring)
+        index = cells.get_device()
     dev = cells.device
-    out_cells = torch.empty((n_dest, capacity), dtype=torch.int32, device=dev)
+    out_cells = torch.empty((n_dest, capacity), dtype=cells.dtype, device=dev)
     out_payload = (torch.empty((n_dest, capacity, C), dtype=payload.dtype,
                                device=dev) if payload is not None else None)
     valid = torch.empty((n_dest, capacity), dtype=torch.bool, device=dev)
     overflow = torch.empty(n_dest, dtype=torch.int32, device=dev)
-    # scratch may be freed as soon as this returns: the caching allocator
-    # hands it out again only to work queued later on the same stream
-    n_tiles = max(1, math.ceil(B / _lib().xk_bucket_tile()))
-    tile_counts = torch.empty(n_tiles * n_dest, dtype=torch.int32, device=dev)
-    _launch("bucket_records", "xk_bucket_records", cells.data_ptr(),
-            payload.data_ptr() if C else None, B, C, int(n_dest),
-            int(capacity), int(ring), int(spd), tile_counts.data_ptr(),
-            out_cells.data_ptr(), out_payload.data_ptr() if C else None,
-            valid.data_ptr(), overflow.data_ptr(), wk.stream_of(cells))
+    n_tiles = max(1, -(-B // BUCKET_TILE))
+    _held, tile_counts = wk.scratch(dev, n_tiles * n_dest)
+    _, stream = wk.launch_context(index)
+    _BUCKET_RECORDS(stream, cells.data_ptr(), cells.element_size(),
+                    payload.data_ptr() if C else 0, B, C, int(n_dest),
+                    int(capacity), int(ring), int(spd), tile_counts,
+                    out_cells.data_ptr(), out_payload.data_ptr() if C else 0,
+                    valid.data_ptr(), overflow.data_ptr())
     return out_cells, out_payload, valid, overflow
 
 
@@ -121,10 +127,10 @@ def bucket_records_plain(cells, payload, n_dest, capacity, spd, ring):
     flat = torch.where(keep, sorted_dest * capacity + within,
                        torch.full_like(within, n_dest * capacity))
     local = (slot - dest.clamp(max=n_dest - 1) * spd) * ring + c % ring
-    out_cells = torch.full((n_dest * capacity + 1,), -1, dtype=torch.int32,
+    out_cells = torch.full((n_dest * capacity + 1,), -1, dtype=cells.dtype,
                            device=dev)
     out_cells[flat] = torch.where(keep, local[order],
-                                  torch.full_like(within, -1)).to(torch.int32)
+                                  torch.full_like(within, -1)).to(cells.dtype)
     valid = torch.zeros(n_dest * capacity + 1, dtype=torch.bool, device=dev)
     valid[flat] = keep
     out_payload = None
@@ -145,12 +151,15 @@ def bucket_records_plain(cells, payload, n_dest, capacity, spd, ring):
 def hash_keys(keys: torch.Tensor) -> torch.Tensor:
     """(n,) int64 keys → (n,) int64 splitmix64 mixes masked to 63 bits
     (non-negative), bit-identical to ``records.hash_keys_numpy``."""
-    wk.check_tensor(keys, "keys", torch.int64, 1)
-    if not wk.on_cuda("hash_keys", keys):
-        return hash_keys_plain(keys)
+    index = wk.fast_index((keys, torch.int64, 1))
+    if index is None:
+        wk.check_tensor(keys, "keys", torch.int64, 1)
+        if not wk.on_cuda("hash_keys", keys):
+            return hash_keys_plain(keys)
+        index = keys.get_device()
     out = torch.empty_like(keys)
-    _launch("hash_keys", "xk_hash_keys", keys.data_ptr(), keys.numel(),
-            out.data_ptr(), wk.stream_of(keys))
+    _, stream = wk.launch_context(index)
+    _HASH_KEYS(stream, keys.data_ptr(), keys.numel(), out.data_ptr())
     return out
 
 

@@ -27,7 +27,6 @@ plain version and JAX reference agree bit for bit.
 """
 from __future__ import annotations
 
-import math
 
 import torch
 
@@ -45,17 +44,8 @@ MAX_FUSED_RING = 64
 # counts, the three top-n kernels, purge
 FUSED_STEP_KERNELS = 7
 
-_P = wk._P
-_I32 = wk._I32
-_I64 = wk._I64
 _SIGNATURES = {
-    "ff_apply_pairs_u32": [_P, _I64, _P, _I64, _P],
-    "ff_apply_pairs_u16": [_P, _I64, _P, _I64, _P],
-    "ff_fused_step": [_P, _I64, _I32, _P, _I64, _P, _I32, _I32, _I32, _P,
-                      _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
-                      _P],
     "ff_params_bytes": [],
-    "ff_topn_tile": [],
     "ff_error_string": [wk.ctypes.c_int],
 }
 
@@ -64,8 +54,16 @@ def _lib():
     return wk.load_library("fused_kernels", _SIGNATURES, "ff_error_string")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    wk.launch(_lib(), "ff_error_string", name, fn, *args)
+def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
+    return wk.LeanEntry(_lib, fn, name, n_words, "ff_error_string")
+
+
+_APPLY_PAIRS_U32 = _entry("ff_apply_pairs_u32", "apply_pairs_u32", 4)
+_APPLY_PAIRS_U16 = _entry("ff_apply_pairs_u16", "apply_pairs_u16", 4)
+_FUSED_STEP = _entry("ff_fused_step", "fused_step", 21)
+# the fused step's parameter block, int32 words (ff_params_bytes), read
+# at its first launch
+_params_words = None
 
 
 # -- F1 ----------------------------------------------------------------------
@@ -76,13 +74,16 @@ def apply_pairs_u32(counts: torch.Tensor, words: torch.Tensor,
     | count`` (a logical shift), in place. A word with count 0xFFF (the
     padding word 0xFFFFFFFF) or a pair at or beyond ``dump_row * ring``
     goes to no cell. Returns ``counts``."""
-    wk.check_tensor(counts, "counts", torch.int32, 2)
-    wk.check_tensor(words, "words", torch.int32, 1)
-    if not wk.on_cuda("apply_pairs_u32", counts, words):
-        return apply_pairs_u32_plain(counts, words, dump_row)
-    _launch("apply_pairs_u32", "ff_apply_pairs_u32", counts.data_ptr(),
-            int(dump_row) * counts.shape[1], words.data_ptr(), words.numel(),
-            wk.stream_of(counts))
+    index = wk.fast_index((counts, torch.int32, 2), (words, torch.int32, 1))
+    if index is None:
+        wk.check_tensor(counts, "counts", torch.int32, 2)
+        wk.check_tensor(words, "words", torch.int32, 1)
+        if not wk.on_cuda("apply_pairs_u32", counts, words):
+            return apply_pairs_u32_plain(counts, words, dump_row)
+        index = counts.get_device()
+    _, stream = wk.launch_context(index)
+    _APPLY_PAIRS_U32(stream, counts.data_ptr(), int(dump_row) * counts.shape[1],
+                     words.data_ptr(), words.numel())
     return counts
 
 
@@ -101,15 +102,19 @@ def apply_pairs_u16(counts: torch.Tensor, triples: torch.Tensor) -> torch.Tensor
     pair hi16, count]``, in place. The pair reads as an int32: the
     padding row 0xFFFF/0xFFFF is -1, and it and any pair beyond the
     state go to no cell. Returns ``counts``."""
-    wk.check_tensor(counts, "counts", torch.int32, 2)
-    wk.check_tensor(triples, "triples", torch.uint16, 2)
+    index = wk.fast_index((counts, torch.int32, 2), (triples, torch.uint16, 2))
+    if index is None:
+        wk.check_tensor(counts, "counts", torch.int32, 2)
+        wk.check_tensor(triples, "triples", torch.uint16, 2)
     if triples.shape[1] != 3:
         raise ValueError(f"triples must be (P, 3), got {tuple(triples.shape)}")
-    if not wk.on_cuda("apply_pairs_u16", counts, triples):
-        return apply_pairs_u16_plain(counts, triples)
-    _launch("apply_pairs_u16", "ff_apply_pairs_u16", counts.data_ptr(),
-            counts.numel(), triples.data_ptr(), triples.shape[0],
-            wk.stream_of(counts))
+    if index is None:
+        if not wk.on_cuda("apply_pairs_u16", counts, triples):
+            return apply_pairs_u16_plain(counts, triples)
+        index = counts.get_device()
+    _, stream = wk.launch_context(index)
+    _APPLY_PAIRS_U16(stream, counts.data_ptr(), counts.numel(),
+                     triples.data_ptr(), triples.shape[0])
     return counts
 
 
@@ -140,10 +145,13 @@ def fused_step(counts: torch.Tensor, emit_ring: torch.Tensor,
     ``emit_ring`` at ``anchor``) and purges the masked columns
     (``ring_columns``). ``fire_gate`` skips the fire when no slot is
     valid and the purge when the mask is empty. Returns ``emit_ring``."""
-    wk.check_tensor(counts, "counts", torch.int32, 2)
-    wk.check_tensor(emit_ring, "emit_ring", torch.int32, 2)
-    wk.check_tensor(buf, "buf", torch.int32, 1)
-    wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+    index = wk.fast_index((counts, torch.int32, 2), (emit_ring, torch.int32, 2),
+                          (buf, torch.int32, 1), (used_mask, torch.bool, 1))
+    if index is None:
+        wk.check_tensor(counts, "counts", torch.int32, 2)
+        wk.check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+        wk.check_tensor(buf, "buf", torch.int32, 1)
+        wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
     rows, ring = counts.shape
     if ring > MAX_FUSED_RING:
         raise ValueError(f"fused_step: ring {ring} > {MAX_FUSED_RING}, beyond "
@@ -159,27 +167,30 @@ def fused_step(counts: torch.Tensor, emit_ring: torch.Tensor,
             f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
     if n < 1 or sel_cap < 1:
         raise ValueError("n and sel_cap must be >= 1")
-    if not wk.on_cuda("fused_step", counts, emit_ring, buf, used_mask):
-        return fused_step_plain(counts, emit_ring, buf, used_mask, ppw=ppw,
-                                n=n, sel_cap=sel_cap, dump_row=dump_row,
-                                fire_gate=fire_gate, fire_pad=fire_pad)
-    lib = _lib()
-    dev = counts.device
-    n_blocks = max(1, math.ceil(rows * fire_pad / lib.ff_topn_tile()))
-    # scratch may be freed as soon as this returns: the caching allocator
-    # hands it out again only to work queued later on the same stream
-    params = torch.empty(lib.ff_params_bytes(), dtype=torch.uint8, device=dev)
-    wcounts = torch.empty(rows * fire_pad, dtype=torch.int32, device=dev)
-    thresh = torch.empty(fire_pad, dtype=torch.float32, device=dev)
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    old_total = torch.empty(1, dtype=torch.int64, device=dev)
-    _launch("fused_step", "ff_fused_step", counts.data_ptr(), rows, ring,
-            buf.data_ptr(), buf.numel(), used_mask.data_ptr(), int(ppw),
-            int(n), int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
-            emit_ring.shape[1], int(dump_row), int(bool(fire_gate)),
-            int(fire_pad), params.data_ptr(), wcounts.data_ptr(),
-            thresh.data_ptr(), block_counts.data_ptr(), old_total.data_ptr(),
-            wk.error_word(dev).data_ptr(), wk.stream_of(counts))
+    if index is None:
+        if not wk.on_cuda("fused_step", counts, emit_ring, buf, used_mask):
+            return fused_step_plain(counts, emit_ring, buf, used_mask,
+                                    ppw=ppw, n=n, sel_cap=sel_cap,
+                                    dump_row=dump_row, fire_gate=fire_gate,
+                                    fire_pad=fire_pad)
+        index = counts.get_device()
+    global _params_words
+    if _params_words is None:
+        _params_words = -(-_lib().ff_params_bytes() // 8) * 2
+    # scratch in one allocation, in int32 words: old_total (2), the
+    # parameter block, thresh (fire_pad), block_counts, wcounts
+    n_blocks = max(1, -(-rows * fire_pad // wk.TOPN_TILE))
+    at_thresh = 2 + _params_words
+    at_blocks = at_thresh + fire_pad
+    at_wc = at_blocks + n_blocks
+    _held, base = wk.scratch(counts.device, at_wc + rows * fire_pad)
+    err, stream = wk.launch_context(index)
+    _FUSED_STEP(stream, counts.data_ptr(), rows, ring, buf.data_ptr(),
+                buf.numel(), used_mask.data_ptr(), int(ppw), int(n),
+                int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
+                emit_ring.shape[1], int(dump_row), int(bool(fire_gate)),
+                int(fire_pad), base + 8, base + 4 * at_wc,
+                base + 4 * at_thresh, base + 4 * at_blocks, base, err)
     return emit_ring
 
 

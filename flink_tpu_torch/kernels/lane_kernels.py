@@ -41,17 +41,8 @@ import torch
 from flink_tpu_torch.kernels import window_kernels as wk
 
 _P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "lk_fire_pack": [_P, _I64, _I32, _P, _I32, _P, _I32, _P, _I32, _P, _P,
-                     _I32, _I64, _I64, _I32, _P, _P, _I32, _I32, _I32, _I32,
-                     _P, _P, _P, _P, _P],
-    "lk_scatter_lanes": [_P, _P, _I32, _P, _I32, _P, _I32, _I64, _P, _P, _P,
-                         _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _I64,
-                         _P, _P, _P, _P, _P, _P],
     "lk_scatter_pair_lanes": [ctypes.c_char_p, _P],
-    "lk_fire_tile": [],
     "lk_error_string": [ctypes.c_int],
 }
 
@@ -70,24 +61,34 @@ def _lib() -> ctypes.CDLL:
     return wk.load_library("lane_kernels", _SIGNATURES, "lk_error_string")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    wk.launch(_lib(), "lk_error_string", name, fn, *args)
+def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
+    return wk.LeanEntry(_lib, fn, name, n_words, "lk_error_string")
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return t.data_ptr() if t is not None else None
+_FIRE_PACK = _entry("lk_fire_pack", "fire_pack", 25)
+_SCATTER_LANES = _entry("lk_scatter_lanes", "scatter_lanes", 25)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    """A tensor's address for a packed argument block; 0 for none."""
+    return t.data_ptr() if t is not None else 0
 
 
 def _width(t: Optional[torch.Tensor]) -> int:
     return t.shape[-1] if t is not None else 0
 
 
-def _check_lanes(counts: torch.Tensor, sums, maxs, mins) -> None:
-    wk.check_tensor(counts, "counts", torch.int32, 2)
+def _check_lanes(counts: torch.Tensor, sums, maxs, mins,
+                 checked: bool = False) -> None:
+    """The state's lanes line up with ``counts``; each tensor's dtype,
+    rank and layout too unless the lean path's pass ``checked`` them."""
+    if not checked:
+        wk.check_tensor(counts, "counts", torch.int32, 2)
     for name, t in (("sums", sums), ("maxs", maxs), ("mins", mins)):
         if t is None:
             continue
-        wk.check_tensor(t, name, torch.float32, 3)
+        if not checked:
+            wk.check_tensor(t, name, torch.float32, 3)
         if t.shape[:2] != counts.shape:
             raise ValueError(f"{name} {tuple(t.shape)} does not match counts "
                              f"{tuple(counts.shape)}")
@@ -146,10 +147,15 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
     ``row_offset`` is added to each body row's ``r`` (a device block's
     first global row in a key-sharded operator); the packed2 layout
     takes none."""
-    _check_lanes(counts, sums, maxs, mins)
-    wk.check_tensor(end_panes, "end_panes", torch.int64, 1)
-    wk.check_tensor(w_valid, "w_valid", torch.bool, 1)
-    wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+    index = wk.fast_index((counts, torch.int32, 2), (sums, torch.float32, 3),
+                          (maxs, torch.float32, 3), (mins, torch.float32, 3),
+                          (end_panes, torch.int64, 1), (w_valid, torch.bool, 1),
+                          (used_mask, torch.bool, 1))
+    if index is None:
+        wk.check_tensor(end_panes, "end_panes", torch.int64, 1)
+        wk.check_tensor(w_valid, "w_valid", torch.bool, 1)
+        wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+    _check_lanes(counts, sums, maxs, mins, index is not None)
     rows, ring = counts.shape
     W = end_panes.numel()
     if w_valid.numel() != W or used_mask.numel() != rows:
@@ -161,28 +167,29 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
         raise ValueError("the packed2 layout is for count-only aggregates")
     if packed2 and row_offset:
         raise ValueError("the packed2 layout takes no row offset")
-    if not wk.on_cuda("fire_pack", counts, sums, maxs, mins, end_panes,
-                      w_valid, used_mask):
-        return fire_pack_plain(counts, sums, maxs, mins, end_panes, w_valid,
-                               used_mask, pane_lo, pane_hi, ppw, out_cap,
-                               packed2, row_offset)
+    if index is None:
+        if not wk.on_cuda("fire_pack", counts, sums, maxs, mins, end_panes,
+                          w_valid, used_mask):
+            return fire_pack_plain(counts, sums, maxs, mins, end_panes,
+                                   w_valid, used_mask, pane_lo, pane_hi, ppw,
+                                   out_cap, packed2, row_offset)
+        index = counts.get_device()
     dev = counts.device
     cols = 2 if packed2 else 3
     buf = torch.empty((out_cap + 1, cols), dtype=torch.int32, device=dev)
     lanes = (torch.empty((out_cap, L), dtype=torch.float32, device=dev)
              if L else None)
-    # scratch may be freed as soon as this returns: the caching allocator
-    # hands it out again only to work queued later on the same stream
-    n_blocks = max(1, math.ceil(rows * W / _lib().lk_fire_tile()))
-    wc = torch.empty(rows * W, dtype=torch.int32, device=dev)
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    _launch("fire_pack", "lk_fire_pack", counts.data_ptr(), rows, ring,
-            _ptr(sums), _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
-            _width(mins), end_panes.data_ptr(), w_valid.data_ptr(), W,
-            int(pane_lo), int(pane_hi), int(ppw), used_mask.data_ptr(),
-            buf.data_ptr(), cols, int(out_cap), int(bool(packed2)),
-            int(row_offset), _ptr(lanes), wc.data_ptr(), block_counts.data_ptr(),
-            wk.error_word(dev).data_ptr(), wk.stream_of(counts))
+    # scratch in one allocation: block_counts, then wc
+    n_blocks = max(1, -(-rows * W // wk.TOPN_TILE))
+    _held, base = wk.scratch(dev, n_blocks + rows * W)
+    err, stream = wk.launch_context(index)
+    _FIRE_PACK(stream, counts.data_ptr(), rows, ring, _ptr(sums),
+               _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
+               _width(mins), end_panes.data_ptr(), w_valid.data_ptr(), W,
+               int(pane_lo), int(pane_hi), int(ppw), used_mask.data_ptr(),
+               buf.data_ptr(), cols, int(out_cap), int(bool(packed2)),
+               int(row_offset), _ptr(lanes), base + 4 * n_blocks, base,
+               err)
     return buf, lanes
 
 
@@ -333,38 +340,84 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     lane adds ``s[i]`` (a cell's records in record order), each max lane
     takes the IEEE maximum with ``mx[i]`` and each min lane the minimum
     with ``mn[i]``. ``s``/``mx``/``mn`` are ``(B, width)`` f32 of the
-    state's widths (zero-width where a lane family is None). An index
-    outside the state raises (the kernel skips it and reports it through
+    state's widths (zero-width where a lane family is None). ``idx`` is
+    int32, or int64 for a state of 2^31 cells or more
+    (``_scatter_lanes_by_rows``). An index outside the state raises (the kernel skips it and reports it through
     ``error_word``) — except, with ``skip_negative``, a negative index,
     which is an invalid record and touches nothing."""
-    _check_lanes(counts, sums, maxs, mins)
-    wk.check_tensor(idx, "idx", torch.int32, 1)
+    if idx.dtype is torch.int64:
+        _check_lanes(counts, sums, maxs, mins)
+        wk.check_tensor(idx, "idx", torch.int64, 1)
+        return _scatter_lanes_by_rows(counts, sums, maxs, mins, idx, s, mx,
+                                      mn, skip_negative)
+    index = wk.fast_index((counts, torch.int32, 2), (sums, torch.float32, 3),
+                          (maxs, torch.float32, 3), (mins, torch.float32, 3),
+                          (idx, torch.int32, 1), (s, torch.float32, 2),
+                          (mx, torch.float32, 2), (mn, torch.float32, 2))
+    _check_lanes(counts, sums, maxs, mins, index is not None)
+    if index is None:
+        wk.check_tensor(idx, "idx", torch.int32, 1)
     B = idx.numel()
     for name, t, lane in (("s", s, sums), ("mx", mx, maxs), ("mn", mn, mins)):
-        wk.check_tensor(t, name, torch.float32, 2)
+        if index is None:
+            wk.check_tensor(t, name, torch.float32, 2)
         if t.shape != (B, _width(lane)):
             raise ValueError(f"{name} {tuple(t.shape)} must be ({B}, "
                              f"{_width(lane)})")
-    if not wk.on_cuda("scatter_lanes", counts, sums, maxs, mins, idx, s, mx,
-                      mn):
-        return scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx, mn,
-                                   skip_negative)
+    if index is None:
+        if not wk.on_cuda("scatter_lanes", counts, sums, maxs, mins, idx, s,
+                          mx, mn):
+            return scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx,
+                                       mn, skip_negative)
+        index = counts.get_device()
     if B == 0:
         return None
     dev = counts.device
     sw, mw, nw = _width(sums), _width(maxs), _width(mins)
     plan = _scatter_plan(B, counts.numel())
-    stream = wk.stream_of(counts)
+    err, stream = wk.launch_context(index)
     work = _workspace(dev, stream, plan.total_ints)
     base = work.data_ptr()
     k0, v0, k1, v1 = (base + 4 * off for off in plan.offsets)
-    _launch("scatter_lanes", "lk_scatter_lanes", counts.data_ptr(),
-            _ptr(sums), sw, _ptr(maxs), mw, _ptr(mins), nw, counts.numel(),
-            idx.data_ptr(), s.data_ptr(), mx.data_ptr(), mn.data_ptr(), B,
-            int(bool(skip_negative)), plan.passes, plan.digit_bits,
-            plan.tiles, plan.fold_blocks, base,
-            plan.zero_ints, k0, v0, k1, v1, wk.error_word(dev).data_ptr(),
-            stream)
+    _SCATTER_LANES(stream, counts.data_ptr(), _ptr(sums), sw,
+                   _ptr(maxs), mw, _ptr(mins), nw, counts.numel(),
+                   idx.data_ptr(), s.data_ptr(), mx.data_ptr(), mn.data_ptr(),
+                   B, int(bool(skip_negative)), plan.passes, plan.digit_bits,
+                   plan.tiles, plan.fold_blocks, base, plan.zero_ints, k0, v0,
+                   k1, v1, err)
+    return None
+
+
+# cells of the state block one launch addresses with int32 cells (an
+# int64 upload goes through in blocks of rows below it)
+CELL_BLOCK = 2 ** 31
+
+
+def _scatter_lanes_by_rows(counts, sums, maxs, mins, idx, s, mx, mn,
+                           skip_negative):
+    """``scatter_lanes`` with int64 cells: the state in blocks of rows of
+    fewer than ``CELL_BLOCK`` cells, each block's records as int32 cells
+    of the block (-1, skipped, elsewhere), one call a block. A cell's
+    records all fall in one block and keep their order, so every lane
+    folds as in one call. An entry outside the state (or negative without
+    ``skip_negative``) goes to the first block past its end, where it
+    raises as it would in one call."""
+    rows, ring = counts.shape
+    per = max(1, (CELL_BLOCK - 1) // max(ring, 1))
+    bad = idx >= rows * ring
+    if not skip_negative:
+        bad |= idx < 0
+    for r0 in range(0, rows, per):
+        r1 = min(rows, r0 + per)
+        lo, hi = r0 * ring, r1 * ring
+        local = torch.where((idx >= lo) & (idx < hi), idx - lo,
+                            torch.full_like(idx, -1))
+        if r0 == 0:
+            local = torch.where(bad, torch.full_like(idx, _I32_MAX), local)
+        scatter_lanes(counts[r0:r1], None if sums is None else sums[r0:r1],
+                      None if maxs is None else maxs[r0:r1],
+                      None if mins is None else mins[r0:r1],
+                      local.to(torch.int32), s, mx, mn, skip_negative=True)
     return None
 
 
@@ -426,9 +479,8 @@ def scatter_pair_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     n_cells, P = cs[0] * cs[1], bs[0]
     if P == 0:
         return None
-    if n_cells * max(sw, 1) >= 2 ** 31 or P * (2 + sw) >= 2 ** 31:
-        raise ValueError("scatter_pair_lanes: state or rows of 2^31 words "
-                         "or more")
+    if P >= 2 ** 31:
+        raise ValueError("scatter_pair_lanes: 2^31 rows or more a call")
     err, stream = wk.launch_context(index)
     global _pair_fn
     if _pair_fn is None:

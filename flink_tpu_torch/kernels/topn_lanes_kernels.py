@@ -30,23 +30,18 @@ comparison: a NaN threshold selects nothing, -0 and +0 tie.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+import struct
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
 
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "tl_window_lanes": [_P, _I32, _P, _I32, _P, _I32, _I64, _I32, _P, _P, _I32,
-                        _I64, _I64, _I32, _P, _P, _P, _P],
-    "tl_topn_select_lanes": [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _I64,
-                             _I32, _I32, _P, _I32, _I32, _P, _P, _P, _P],
-    "tl_tile": [],
+    "tl_window_lanes": [ctypes.c_char_p, ctypes.c_void_p],
     "tl_error_string": [ctypes.c_int],
 }
 
@@ -55,8 +50,8 @@ def _lib() -> ctypes.CDLL:
     return wk.load_library("topn_lanes_kernels", _SIGNATURES, "tl_error_string")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    wk.launch(_lib(), "tl_error_string", name, fn, *args)
+_TOPN_SELECT_LANES = wk.LeanEntry(_lib, "tl_topn_select_lanes",
+                                  "topn_select_lanes", 18, "tl_error_string")
 
 
 def _check_fire_args(end_panes: torch.Tensor, w_valid: torch.Tensor) -> None:
@@ -68,6 +63,52 @@ def _check_fire_args(end_panes: torch.Tensor, w_valid: torch.Tensor) -> None:
 
 # -- TA ------------------------------------------------------------------------
 
+# csrc/topn_lanes_kernels.cu's launch limits (tests/test_torch_topn_lanes.py
+# reads them from the source; the entry point rejects a plan past them):
+# outputs a block, windows a block, f32 words of the staged tile
+_LANES_OUT = 256
+_LANES_WINDOWS = 64
+_LANES_SMEM_FLOATS = 11264
+_LANES_TILE_ROWS = 128
+# window_lanes' entry point, resolved at its first launch, and its
+# argument block (csrc/topn_lanes_kernels.cu LanesArgs)
+_lanes_fn = None
+_LANES_ARGS = struct.Struct("<21q")
+
+
+class LanesPlan(NamedTuple):
+    """How ``window_lanes`` cuts its work into blocks. The staged-tile
+    form (rings past 64 columns): rows a tile, windows and lanes a block
+    (one output a thread), ring columns a staged chunk. The register
+    form (up to 64 columns) reads only ``win_group``, the windows a
+    block."""
+    tile_rows: int
+    win_group: int
+    lane_group: int
+    col_chunk: int
+
+
+@functools.lru_cache(maxsize=256)
+def _lanes_plan(ring: int, W: int, L: int) -> LanesPlan:
+    """The plan for ``ring`` columns, ``W`` windows and ``L`` lanes: at
+    most 64 windows and 256 outputs a block, as many rows a tile as that
+    leaves (up to 128), and the whole ring staged at once when a tile of
+    it fits in shared memory; else one row a tile and the ring in
+    chunks."""
+    win_group = min(W, _LANES_WINDOWS)
+    lane_group = min(L, max(1, _LANES_OUT // win_group))
+    tile_rows = max(1, min(_LANES_TILE_ROWS,
+                           _LANES_OUT // (win_group * lane_group)))
+    # a row of the staged tile: the chunk's columns of each group lane,
+    # each family's stride made odd
+    stride = ring * lane_group + 3
+    if stride <= _LANES_SMEM_FLOATS:
+        return LanesPlan(min(tile_rows, _LANES_SMEM_FLOATS // stride),
+                         win_group, lane_group, ring)
+    return LanesPlan(1, win_group, lane_group,
+                     (_LANES_SMEM_FLOATS - 3) // lane_group)
+
+
 def window_lanes(sums: Optional[torch.Tensor], maxs: Optional[torch.Tensor],
                  mins: Optional[torch.Tensor], end_panes: torch.Tensor,
                  w_valid: torch.Tensor, pane_lo: int, pane_hi: int, ppw: int,
@@ -77,8 +118,69 @@ def window_lanes(sums: Optional[torch.Tensor], maxs: Optional[torch.Tensor],
     0/1 live bit), ``(rows, W, M)`` IEEE maxes and ``(rows, W, N)`` IEEE
     mins over them (-inf / +inf when none). Column c is live for window
     w when it holds a pane of ``[end_w - ppw, end_w)`` ∩ ``[pane_lo,
-    pane_hi]``; an invalid window gets the identities. A lane family
-    that is None gives a zero-width result."""
+    pane_hi]``; an invalid window gets 0 sums and the identities. A lane
+    family that is None gives a zero-width result. On the card the three
+    results are views of one allocation."""
+    es, vs = end_panes.shape, w_valid.shape
+    index = end_panes.get_device()
+    ring, widths, ok = -1, [], (
+        end_panes.dtype is torch.int64 and w_valid.dtype is torch.bool
+        and len(es) == 1 and len(vs) == 1 and vs[0] == es[0]
+        and end_panes.is_contiguous() and w_valid.is_contiguous()
+        and w_valid.get_device() == index)
+    for t in (sums, maxs, mins):
+        if t is None:
+            widths.append(0)
+            continue
+        ts = t.shape
+        if not (t.dtype is torch.float32 and len(ts) == 3 and ts[0] == rows
+                and (ring < 0 or ts[1] == ring) and t.is_contiguous()
+                and t.get_device() == index):
+            ok = False
+            break
+        ring = ts[1]
+        widths.append(ts[2])
+    # the lean launch path: one combined test, the detailed checks (and
+    # their messages) only when it fails
+    if not ok:
+        _window_lanes_checks(sums, maxs, mins, end_panes, w_valid, rows)
+    if index < 0:
+        wk.on_cuda("window_lanes", sums, maxs, mins, end_panes, w_valid)
+        return window_lanes_plain(sums, maxs, mins, end_panes, w_valid,
+                                  pane_lo, pane_hi, ppw, rows)
+    W = es[0]
+    sw, mw, nw = widths
+    L = sw + mw + nw
+    buf = torch.empty(rows * W * L, dtype=torch.float32,
+                      device=end_panes.device)
+    n_s, n_x = rows * W * sw, rows * W * mw
+    outs = (buf.as_strided((rows, W, sw), (W * sw, sw, 1), 0),
+            buf.as_strided((rows, W, mw), (W * mw, mw, 1), n_s),
+            buf.as_strided((rows, W, nw), (W * nw, nw, 1), n_s + n_x))
+    if not (L and rows and W):
+        return outs
+    plan = _lanes_plan(ring, W, L)
+    _, stream = wk.launch_context(index)
+    global _lanes_fn
+    if _lanes_fn is None:
+        _lanes_fn = _lib().tl_window_lanes
+    base = buf.data_ptr()
+    rc = _lanes_fn(_LANES_ARGS.pack(
+        sums.data_ptr() if sw else 0, maxs.data_ptr() if mw else 0,
+        mins.data_ptr() if nw else 0, sw, mw, nw, rows, ring,
+        end_panes.data_ptr(), w_valid.data_ptr(), W, int(pane_lo),
+        int(pane_hi), int(ppw), base, base + 4 * n_s, base + 4 * (n_s + n_x),
+        *plan), stream)
+    if rc != 0:
+        raise RuntimeError(f"window_lanes: CUDA launch failed ({rc}: "
+                           f"{_lib().tl_error_string(rc).decode()})")
+    wk.LAUNCHES["window_lanes"] += 1
+    return outs
+
+
+def _window_lanes_checks(sums, maxs, mins, end_panes, w_valid, rows) -> None:
+    """``window_lanes``' checks one by one: raises with the first that
+    fails."""
     for name, t in (("sums", sums), ("maxs", maxs), ("mins", mins)):
         if t is not None:
             wk.check_tensor(t, name, torch.float32, 3)
@@ -88,22 +190,7 @@ def window_lanes(sums: Optional[torch.Tensor], maxs: Optional[torch.Tensor],
     lanes = [t for t in (sums, maxs, mins) if t is not None]
     if len({t.shape[1] for t in lanes}) > 1:
         raise ValueError("sums/maxs/mins differ in ring size")
-    if not wk.on_cuda("window_lanes", sums, maxs, mins, end_panes, w_valid):
-        return window_lanes_plain(sums, maxs, mins, end_panes, w_valid,
-                                  pane_lo, pane_hi, ppw, rows)
-    dev = end_panes.device
-    W = end_panes.numel()
-    outs = [torch.empty((rows, W, lk._width(t)), dtype=torch.float32,
-                        device=dev) for t in (sums, maxs, mins)]
-    if not lanes:
-        return tuple(outs)
-    ring = lanes[0].shape[1]
-    _launch("window_lanes", "tl_window_lanes", lk._ptr(sums), lk._width(sums),
-            lk._ptr(maxs), lk._width(maxs), lk._ptr(mins), lk._width(mins),
-            rows, ring, end_panes.data_ptr(), w_valid.data_ptr(), W,
-            int(pane_lo), int(pane_hi), int(ppw), outs[0].data_ptr(),
-            outs[1].data_ptr(), outs[2].data_ptr(), wk.stream_of(end_panes))
-    return tuple(outs)
+    wk.on_cuda("window_lanes", sums, maxs, mins, end_panes, w_valid)
 
 
 def window_lanes_plain(sums, maxs, mins, end_panes, w_valid, pane_lo,
@@ -172,12 +259,19 @@ def topn_select_lanes(wcounts: torch.Tensor, v: torch.Tensor,
     bits) at ``(total + i) % row_cap + 1`` for the first ``sel_cap``
     selected cells; then head ``[0, 0] += written`` and ``[0, 1] +=
     selected - written``. The last row of the ring is never written."""
-    wk.check_tensor(wcounts, "wcounts", torch.int32, 2)
-    wk.check_tensor(v, "v", torch.float32, 2)
-    wk.check_tensor(cols, "cols", torch.int32, 3)
-    wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
-    _check_fire_args(end_panes, w_valid)
-    wk.check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+    index = wk.fast_index((wcounts, torch.int32, 2), (v, torch.float32, 2),
+                          (cols, torch.int32, 3), (used_mask, torch.bool, 1),
+                          (end_panes, torch.int64, 1), (w_valid, torch.bool, 1),
+                          (emit_ring, torch.int32, 2))
+    if index is None:
+        wk.check_tensor(wcounts, "wcounts", torch.int32, 2)
+        wk.check_tensor(v, "v", torch.float32, 2)
+        wk.check_tensor(cols, "cols", torch.int32, 3)
+        wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+        _check_fire_args(end_panes, w_valid)
+        wk.check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+    elif w_valid.numel() != end_panes.numel():
+        raise ValueError("w_valid and end_panes differ in length")
     rows, W = wcounts.shape
     F = cols.shape[2]
     if v.shape != wcounts.shape or cols.shape[:2] != wcounts.shape:
@@ -189,24 +283,23 @@ def topn_select_lanes(wcounts: torch.Tensor, v: torch.Tensor,
                          f"{tuple(emit_ring.shape)}")
     if n < 1 or sel_cap < 1:
         raise ValueError("n and sel_cap must be >= 1")
-    if not wk.on_cuda("topn_select_lanes", wcounts, v, cols, used_mask,
-                      end_panes, w_valid, emit_ring):
-        return topn_select_lanes_plain(wcounts, v, cols, used_mask, end_panes,
-                                       w_valid, anchor, n, sel_cap, emit_ring)
-    dev = wcounts.device
-    n_blocks = max(1, math.ceil(rows * W / _lib().tl_tile()))
-    # scratch may be freed as soon as this returns: the caching allocator
-    # hands it out again only to work queued later on the same stream
-    thresh = torch.empty(W, dtype=torch.float32, device=dev)
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    old_total = torch.empty(1, dtype=torch.int64, device=dev)
-    _launch("topn_select_lanes", "tl_topn_select_lanes", wcounts.data_ptr(),
-            v.data_ptr(), cols.data_ptr(), F, rows, W, used_mask.data_ptr(),
-            end_panes.data_ptr(), w_valid.data_ptr(), int(anchor),
-            min(int(n), rows), int(sel_cap), emit_ring.data_ptr(),
-            emit_ring.shape[0], emit_ring.shape[1], thresh.data_ptr(),
-            block_counts.data_ptr(), old_total.data_ptr(),
-            wk.stream_of(wcounts))
+    if index is None:
+        if not wk.on_cuda("topn_select_lanes", wcounts, v, cols, used_mask,
+                          end_panes, w_valid, emit_ring):
+            return topn_select_lanes_plain(wcounts, v, cols, used_mask,
+                                           end_panes, w_valid, anchor, n,
+                                           sel_cap, emit_ring)
+        index = wcounts.get_device()
+    # scratch (old_total, thresh, block_counts) in one allocation
+    n_blocks = max(1, -(-rows * W // wk.TOPN_TILE))
+    _held, base = wk.scratch(wcounts.device, 2 + W + n_blocks)
+    _, stream = wk.launch_context(index)
+    _TOPN_SELECT_LANES(stream, wcounts.data_ptr(), v.data_ptr(),
+                       cols.data_ptr(), F, rows, W, used_mask.data_ptr(),
+                       end_panes.data_ptr(), w_valid.data_ptr(), int(anchor),
+                       min(int(n), rows), int(sel_cap), emit_ring.data_ptr(),
+                       emit_ring.shape[0], emit_ring.shape[1], base + 8,
+                       base + 8 + 4 * W, base)
     return emit_ring
 
 

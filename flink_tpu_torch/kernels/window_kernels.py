@@ -107,24 +107,14 @@ def check_errors(device: torch.device) -> None:
     raise_for_error_bits(bits)
 
 
-_P = ctypes.c_void_p
-_I32 = ctypes.c_int32
-_I64 = ctypes.c_int64
 _SIGNATURES = {
-    "fk_scatter_counts": [_P, _I64, _P, _P, _I64, _I32, _P, _P],
-    "fk_split_cells": [_P, _I64, _I32, _I32, _P, _P, _P],
-    "fk_window_counts": [_P, _I64, _I32, _P, _P, _I32, _I64, _I64, _I32, _P, _P],
-    "fk_topn_select_append": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I32, _P,
-                              _I32, _I32, _P, _P, _P, _P],
-    "fk_topn_candidates": [_P, _I64, _I32, _P, _P, _I32, _P, _P],
-    "fk_topn_global_threshold": [_P, _I32, _I32, _I32, _P, _P],
-    "fk_topn_select_given": [_P, _I64, _I32, _P, _P, _P, _I64, _P, _I32, _I32,
-                             _P, _I32, _I32, _P, _P, _P],
-    "fk_ring_columns": [ctypes.c_char_p, _P],
-    "fk_topn_tile": [],
+    "fk_ring_columns": [ctypes.c_char_p, ctypes.c_void_p],
     "fk_error_string": [ctypes.c_int],
 }
 _libs: Dict[str, ctypes.CDLL] = {}
+# words of a lane one ring_columns launch addresses (its offsets are
+# 32-bit): a larger state goes through in blocks of rows
+RING_BLOCK_WORDS = 2 ** 31
 
 
 def load_library(name: str, signatures: Dict[str, list],
@@ -170,25 +160,6 @@ def check_tensor(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> N
         raise ValueError(f"{what}: must be contiguous")
 
 
-def launch(lib: ctypes.CDLL, error_string: str, name: str, fn: str,
-           *args) -> None:
-    """Call entry point ``fn``; raise on a non-zero CUDA error code,
-    else count one launch of ``name``."""
-    rc = getattr(lib, fn)(*args)
-    if rc != 0:
-        msg = getattr(lib, error_string)(rc).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    LAUNCHES[name] += 1
-
-
-def _launch(name: str, fn: str, *args) -> None:
-    launch(_lib(), "fk_error_string", name, fn, *args)
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 # the current stream's handle of a CUDA device index, by one C call where
 # this PyTorch has it
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
@@ -209,30 +180,118 @@ def launch_context(index: int) -> Tuple[int, int]:
     return err, torch.cuda.current_stream(index).cuda_stream
 
 
+def fast_index(*specs) -> Optional[int]:
+    """The lean launch path's one pass of checks: ``specs`` are
+    ``(tensor or None, dtype, ndim)``. Returns the CUDA device index when
+    every tensor given has its dtype and rank, is contiguous and lies on
+    that one CUDA device; else None, and the wrapper runs its checks one
+    by one (which raise on bad input) or takes the plain version on the
+    CPU."""
+    index = -1
+    for t, dtype, ndim in specs:
+        if t is None:
+            continue
+        if t.dtype is not dtype or t.dim() != ndim or not t.is_contiguous():
+            return None
+        d = t.get_device()
+        if d < 0 or (index >= 0 and d != index):
+            return None
+        index = d
+    return index if index >= 0 else None
+
+
+class LeanEntry:
+    """A kernel entry point on the lean launch path: the C adapter
+    ``<fn>_packed(const int64_t* words, void* stream)``, resolved at its
+    first launch, called with one packed block of 64-bit words (pointers
+    as ints, 0 for none) and a stream handle from ``launch_context``.
+    A non-zero CUDA error code raises; each launch counts one of
+    ``name`` in ``LAUNCHES``."""
+
+    __slots__ = ("_lib", "_fn_name", "name", "_struct", "_fn", "_decode")
+
+    def __init__(self, lib, fn_name: str, name: str, n_words: int,
+                 error_string: str) -> None:
+        self._lib = lib
+        self._fn_name = fn_name + "_packed"
+        self.name = name
+        self._struct = struct.Struct(f"<{n_words}q")
+        self._fn = None
+        self._decode = error_string
+
+    def __call__(self, stream: int, *words: int) -> None:
+        fn = self._fn
+        if fn is None:
+            lib = self._lib()
+            fn = getattr(lib, self._fn_name)
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = fn(self._struct.pack(*words), stream)
+        if rc != 0:
+            msg = getattr(self._lib(), self._decode)(rc).decode()
+            raise RuntimeError(f"{self.name}: CUDA launch failed ({rc}: {msg})")
+        LAUNCHES[self.name] += 1
+
+
+def scratch(device: torch.device, words: int) -> Tuple[torch.Tensor, int]:
+    """``words`` int32 words of device scratch in one allocation (8-byte
+    aligned) and its address, for a launch queued while the caller holds
+    the tensor: once it is dropped the caching allocator hands the block
+    out again only to work queued later on the same stream."""
+    t = torch.empty(words, dtype=torch.int32, device=device)
+    return t, t.data_ptr()
+
+
+# csrc/window_common.cuh kTile: the cells of a compaction block
+TOPN_TILE = 1024
+
+
+def _entry(fn: str, name: str, n_words: int) -> LeanEntry:
+    return LeanEntry(_lib, fn, name, n_words, "fk_error_string")
+
+
+_SCATTER_COUNTS = _entry("fk_scatter_counts", "scatter_counts", 8)
+_SPLIT_CELLS = _entry("fk_split_cells", "split_cells", 6)
+_WINDOW_COUNTS = _entry("fk_window_counts", "window_counts", 10)
+_TOPN_SELECT_APPEND = _entry("fk_topn_select_append", "topn_select_append", 15)
+_TOPN_CANDIDATES = _entry("fk_topn_candidates", "topn_candidates", 7)
+_TOPN_GLOBAL_THRESHOLD = _entry("fk_topn_global_threshold",
+                                "topn_global_threshold", 5)
+_TOPN_SELECT_GIVEN = _entry("fk_topn_select_given", "topn_select_given", 15)
+
+
 # -- K1 ----------------------------------------------------------------------
 
 def scatter_counts(counts: torch.Tensor, idx: torch.Tensor,
                    cnt: Optional[torch.Tensor] = None,
                    skip_negative: bool = False) -> torch.Tensor:
     """``counts.view(-1)[idx[i]] += cnt[i]`` (``+= 1`` without ``cnt``),
-    in place. ``idx`` is the int32 flat cell index ``row * ring + col``;
-    an entry outside the tensor raises (the kernel skips it and reports
-    it through ``error_word``) — except, with ``skip_negative``, a
-    negative entry, which is an invalid record and touches nothing.
-    Returns ``counts``."""
-    check_tensor(counts, "counts", torch.int32, 2)
-    check_tensor(idx, "idx", torch.int32, 1)
-    if cnt is not None:
-        check_tensor(cnt, "cnt", torch.int32, 1)
-        if cnt.numel() != idx.numel():
-            raise ValueError("cnt and idx differ in length")
-    if not on_cuda("scatter_counts", counts, idx, cnt):
-        return scatter_counts_plain(counts, idx, cnt, skip_negative)
-    _launch("scatter_counts", "fk_scatter_counts", counts.data_ptr(),
-            counts.numel(), idx.data_ptr(),
-            cnt.data_ptr() if cnt is not None else None, idx.numel(),
-            int(bool(skip_negative)), error_word(counts.device).data_ptr(),
-            stream_of(counts))
+    in place. ``idx`` is the flat cell index ``row * ring + col``, int32,
+    or int64 for a state of 2^31 cells or more; an entry outside the
+    tensor raises (the kernel skips it and reports it through
+    ``error_word``) — except, with ``skip_negative``, a negative entry,
+    which is an invalid record and touches nothing. Returns ``counts``."""
+    wide = idx.dtype is torch.int64
+    index = fast_index((counts, torch.int32, 2),
+                       (idx, torch.int64 if wide else torch.int32, 1),
+                       (cnt, torch.int32, 1))
+    if index is None:
+        check_tensor(counts, "counts", torch.int32, 2)
+        check_tensor(idx, "idx", torch.int64 if wide else torch.int32, 1)
+        if cnt is not None:
+            check_tensor(cnt, "cnt", torch.int32, 1)
+    if cnt is not None and cnt.numel() != idx.numel():
+        raise ValueError("cnt and idx differ in length")
+    if index is None:
+        if not on_cuda("scatter_counts", counts, idx, cnt):
+            return scatter_counts_plain(counts, idx, cnt, skip_negative)
+        index = counts.get_device()
+    err, stream = launch_context(index)
+    _SCATTER_COUNTS(stream, counts.data_ptr(), counts.numel(), idx.data_ptr(),
+                    8 if wide else 4,
+                    cnt.data_ptr() if cnt is not None else 0, idx.numel(),
+                    int(bool(skip_negative)), err)
     return counts
 
 
@@ -260,18 +319,22 @@ def split_cells(sc: torch.Tensor, ring: int, dump_row: int) -> torch.Tensor:
     column; slot ``INVALID_SLOT_U16`` goes to the dump row. A slot past
     ``dump_row`` or a column past the ring raises (the kernel writes
     cell -1 and reports it through ``error_word``)."""
-    check_tensor(sc, "sc", torch.uint8, 2)
+    index = fast_index((sc, torch.uint8, 2))
+    if index is None:
+        check_tensor(sc, "sc", torch.uint8, 2)
     if sc.shape[1] != 3:
         raise ValueError(f"sc must be (B, 3), got {tuple(sc.shape)}")
     if not 1 <= ring <= 256 or not 0 <= dump_row < INVALID_SLOT_U16:
         raise ValueError(f"split upload needs ring <= 256 and dump_row < "
                          f"0xFFFF, got ring {ring}, dump_row {dump_row}")
-    if not on_cuda("split_cells", sc):
-        return split_cells_plain(sc, ring, dump_row)
+    if index is None:
+        if not on_cuda("split_cells", sc):
+            return split_cells_plain(sc, ring, dump_row)
+        index = sc.get_device()
     cells = torch.empty(sc.shape[0], dtype=torch.int32, device=sc.device)
-    _launch("split_cells", "fk_split_cells", sc.data_ptr(), sc.shape[0],
-            int(ring), int(dump_row), cells.data_ptr(),
-            error_word(sc.device).data_ptr(), stream_of(sc))
+    err, stream = launch_context(index)
+    _SPLIT_CELLS(stream, sc.data_ptr(), sc.shape[0], int(ring), int(dump_row),
+                 cells.data_ptr(), err)
     return cells
 
 
@@ -294,20 +357,26 @@ def window_counts(counts: torch.Tensor, end_panes: torch.Tensor,
     """(rows, W) int32: the sum of ``counts[r, p % ring]`` over panes p in
     ``[end_w - ppw, end_w)`` ∩ ``[pane_lo, min(pane_hi, pane_lo + ring -
     1)]``, and 0 where ``w_valid[w]`` is False."""
-    check_tensor(counts, "counts", torch.int32, 2)
-    check_tensor(end_panes, "end_panes", torch.int64, 1)
-    check_tensor(w_valid, "w_valid", torch.bool, 1)
+    index = fast_index((counts, torch.int32, 2), (end_panes, torch.int64, 1),
+                       (w_valid, torch.bool, 1))
+    if index is None:
+        check_tensor(counts, "counts", torch.int32, 2)
+        check_tensor(end_panes, "end_panes", torch.int64, 1)
+        check_tensor(w_valid, "w_valid", torch.bool, 1)
     if w_valid.numel() != end_panes.numel():
         raise ValueError("w_valid and end_panes differ in length")
-    if not on_cuda("window_counts", counts, end_panes, w_valid):
-        return window_counts_plain(counts, end_panes, w_valid, pane_lo,
-                                   pane_hi, ppw)
+    if index is None:
+        if not on_cuda("window_counts", counts, end_panes, w_valid):
+            return window_counts_plain(counts, end_panes, w_valid, pane_lo,
+                                       pane_hi, ppw)
+        index = counts.get_device()
     rows, ring = counts.shape
     W = end_panes.numel()
     out = torch.empty((rows, W), dtype=torch.int32, device=counts.device)
-    _launch("window_counts", "fk_window_counts", counts.data_ptr(), rows,
-            ring, end_panes.data_ptr(), w_valid.data_ptr(), W, int(pane_lo),
-            int(pane_hi), int(ppw), out.data_ptr(), stream_of(counts))
+    _, stream = launch_context(index)
+    _WINDOW_COUNTS(stream, counts.data_ptr(), rows, ring, end_panes.data_ptr(),
+                   w_valid.data_ptr(), W, int(pane_lo), int(pane_hi), int(ppw),
+                   out.data_ptr())
     return out
 
 
@@ -339,11 +408,15 @@ def topn_select_append(wcounts: torch.Tensor, used_mask: torch.Tensor,
     ``sel_cap`` selected cells; then head ``[0, 0] += written`` and
     ``[0, 1] += selected - written``. Rows ``1 .. row_cap`` are the data
     ring; the last row is reserved and never written."""
-    check_tensor(wcounts, "wcounts", torch.int32, 2)
-    check_tensor(used_mask, "used_mask", torch.bool, 1)
-    check_tensor(end_panes, "end_panes", torch.int64, 1)
-    check_tensor(w_valid, "w_valid", torch.bool, 1)
-    check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+    index = fast_index((wcounts, torch.int32, 2), (used_mask, torch.bool, 1),
+                       (end_panes, torch.int64, 1), (w_valid, torch.bool, 1),
+                       (emit_ring, torch.int32, 2))
+    if index is None:
+        check_tensor(wcounts, "wcounts", torch.int32, 2)
+        check_tensor(used_mask, "used_mask", torch.bool, 1)
+        check_tensor(end_panes, "end_panes", torch.int64, 1)
+        check_tensor(w_valid, "w_valid", torch.bool, 1)
+        check_tensor(emit_ring, "emit_ring", torch.int32, 2)
     rows, W = wcounts.shape
     if used_mask.numel() != rows or end_panes.numel() != W \
             or w_valid.numel() != W:
@@ -353,24 +426,22 @@ def topn_select_append(wcounts: torch.Tensor, used_mask: torch.Tensor,
             f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
     if n < 1 or sel_cap < 1:
         raise ValueError("n and sel_cap must be >= 1")
-    if not on_cuda("topn_select_append", wcounts, used_mask, end_panes,
-                    w_valid, emit_ring):
-        return topn_select_append_plain(wcounts, used_mask, end_panes,
-                                        w_valid, anchor, n, sel_cap, emit_ring)
-    dev = wcounts.device
-    tile = _lib().fk_topn_tile()
-    n_blocks = max(1, math.ceil(rows * W / tile))
-    # scratch may be freed as soon as this returns: the caching allocator
-    # hands it out again only to work queued later on the same stream
-    thresh = torch.empty(W, dtype=torch.float32, device=dev)
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    old_total = torch.empty(1, dtype=torch.int64, device=dev)
-    _launch("topn_select_append", "fk_topn_select_append",
-            wcounts.data_ptr(), rows, W, used_mask.data_ptr(),
-            end_panes.data_ptr(), w_valid.data_ptr(), int(anchor), int(n),
-            int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
-            emit_ring.shape[1], thresh.data_ptr(), block_counts.data_ptr(),
-            old_total.data_ptr(), stream_of(wcounts))
+    if index is None:
+        if not on_cuda("topn_select_append", wcounts, used_mask, end_panes,
+                       w_valid, emit_ring):
+            return topn_select_append_plain(wcounts, used_mask, end_panes,
+                                            w_valid, anchor, n, sel_cap,
+                                            emit_ring)
+        index = wcounts.get_device()
+    # scratch (old_total, thresh, block_counts) in one allocation
+    n_blocks = max(1, -(-rows * W // TOPN_TILE))
+    _held, base = scratch(wcounts.device, 2 + W + n_blocks)
+    _, stream = launch_context(index)
+    _TOPN_SELECT_APPEND(stream, wcounts.data_ptr(), rows, W,
+                        used_mask.data_ptr(), end_panes.data_ptr(),
+                        w_valid.data_ptr(), int(anchor), int(n), int(sel_cap),
+                        emit_ring.data_ptr(), emit_ring.shape[0],
+                        emit_ring.shape[1], base + 8, base + 8 + 4 * W, base)
     return emit_ring
 
 
@@ -399,20 +470,25 @@ def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
     """(W, k) f32: each window's top ``k`` candidate values (``wcounts >
     0`` on a ``used_mask`` row of a valid window, as f32), descending,
     each as often as it occurs; -inf past a window's candidates."""
-    check_tensor(wcounts, "wcounts", torch.int32, 2)
-    check_tensor(used_mask, "used_mask", torch.bool, 1)
-    check_tensor(w_valid, "w_valid", torch.bool, 1)
+    index = fast_index((wcounts, torch.int32, 2), (used_mask, torch.bool, 1),
+                       (w_valid, torch.bool, 1))
+    if index is None:
+        check_tensor(wcounts, "wcounts", torch.int32, 2)
+        check_tensor(used_mask, "used_mask", torch.bool, 1)
+        check_tensor(w_valid, "w_valid", torch.bool, 1)
     rows, W = wcounts.shape
     if used_mask.numel() != rows or w_valid.numel() != W:
         raise ValueError("used_mask/w_valid do not match wcounts")
     if not 1 <= k <= rows:
         raise ValueError(f"topn_candidates needs 1 <= k <= rows, got {k}")
-    if not on_cuda("topn_candidates", wcounts, used_mask, w_valid):
-        return topn_candidates_plain(wcounts, used_mask, w_valid, k)
+    if index is None:
+        if not on_cuda("topn_candidates", wcounts, used_mask, w_valid):
+            return topn_candidates_plain(wcounts, used_mask, w_valid, k)
+        index = wcounts.get_device()
     cand = torch.empty((W, k), dtype=torch.float32, device=wcounts.device)
-    _launch("topn_candidates", "fk_topn_candidates", wcounts.data_ptr(), rows,
-            W, used_mask.data_ptr(), w_valid.data_ptr(), int(k),
-            cand.data_ptr(), stream_of(wcounts))
+    _, stream = launch_context(index)
+    _TOPN_CANDIDATES(stream, wcounts.data_ptr(), rows, W, used_mask.data_ptr(),
+                     w_valid.data_ptr(), int(k), cand.data_ptr())
     return cand
 
 
@@ -427,16 +503,20 @@ def topn_global_threshold(cands: torch.Tensor, k: int) -> torch.Tensor:
     """(W,) f32: the ``k``-th largest of each row of the gathered ``(W,
     M)`` candidates, ties counted; -inf when a row has fewer than ``k``
     finite values."""
-    check_tensor(cands, "cands", torch.float32, 2)
+    index = fast_index((cands, torch.float32, 2))
+    if index is None:
+        check_tensor(cands, "cands", torch.float32, 2)
     W, M = cands.shape
     if not 1 <= k <= M:
         raise ValueError(f"topn_global_threshold needs 1 <= k <= {M}, got {k}")
-    if not on_cuda("topn_global_threshold", cands):
-        return topn_global_threshold_plain(cands, k)
+    if index is None:
+        if not on_cuda("topn_global_threshold", cands):
+            return topn_global_threshold_plain(cands, k)
+        index = cands.get_device()
     thresh = torch.empty(W, dtype=torch.float32, device=cands.device)
-    _launch("topn_global_threshold", "fk_topn_global_threshold",
-            cands.data_ptr(), W, M, int(k), thresh.data_ptr(),
-            stream_of(cands))
+    _, stream = launch_context(index)
+    _TOPN_GLOBAL_THRESHOLD(stream, cands.data_ptr(), W, M, int(k),
+                           thresh.data_ptr())
     return thresh
 
 
@@ -453,12 +533,16 @@ def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
     thresh[w]`` are appended in row-major (row, window) order as ``[row +
     row_offset, end_pane - anchor, count]``, the head moved the same
     way. In place; returns ``emit_ring``."""
-    check_tensor(wcounts, "wcounts", torch.int32, 2)
-    check_tensor(used_mask, "used_mask", torch.bool, 1)
-    check_tensor(end_panes, "end_panes", torch.int64, 1)
-    check_tensor(w_valid, "w_valid", torch.bool, 1)
-    check_tensor(thresh, "thresh", torch.float32, 1)
-    check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+    index = fast_index((wcounts, torch.int32, 2), (used_mask, torch.bool, 1),
+                       (end_panes, torch.int64, 1), (w_valid, torch.bool, 1),
+                       (thresh, torch.float32, 1), (emit_ring, torch.int32, 2))
+    if index is None:
+        check_tensor(wcounts, "wcounts", torch.int32, 2)
+        check_tensor(used_mask, "used_mask", torch.bool, 1)
+        check_tensor(end_panes, "end_panes", torch.int64, 1)
+        check_tensor(w_valid, "w_valid", torch.bool, 1)
+        check_tensor(thresh, "thresh", torch.float32, 1)
+        check_tensor(emit_ring, "emit_ring", torch.int32, 2)
     rows, W = wcounts.shape
     if used_mask.numel() != rows or end_panes.numel() != W \
             or w_valid.numel() != W or thresh.numel() != W:
@@ -469,21 +553,22 @@ def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
             f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
     if sel_cap < 1:
         raise ValueError("sel_cap must be >= 1")
-    if not on_cuda("topn_select_given", wcounts, used_mask, end_panes,
-                    w_valid, thresh, emit_ring):
-        return topn_select_given_plain(wcounts, used_mask, end_panes, w_valid,
-                                       anchor, thresh, row_offset, sel_cap,
-                                       emit_ring)
-    dev = wcounts.device
-    n_blocks = max(1, math.ceil(rows * W / _lib().fk_topn_tile()))
-    block_counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    old_total = torch.empty(1, dtype=torch.int64, device=dev)
-    _launch("topn_select_given", "fk_topn_select_given", wcounts.data_ptr(),
-            rows, W, used_mask.data_ptr(), end_panes.data_ptr(),
-            w_valid.data_ptr(), int(anchor), thresh.data_ptr(),
-            int(row_offset), int(sel_cap), emit_ring.data_ptr(),
-            emit_ring.shape[0], emit_ring.shape[1], block_counts.data_ptr(),
-            old_total.data_ptr(), stream_of(wcounts))
+    if index is None:
+        if not on_cuda("topn_select_given", wcounts, used_mask, end_panes,
+                       w_valid, thresh, emit_ring):
+            return topn_select_given_plain(wcounts, used_mask, end_panes,
+                                           w_valid, anchor, thresh,
+                                           row_offset, sel_cap, emit_ring)
+        index = wcounts.get_device()
+    # scratch (old_total, block_counts) in one allocation
+    n_blocks = max(1, -(-rows * W // TOPN_TILE))
+    _held, base = scratch(wcounts.device, 2 + n_blocks)
+    _, stream = launch_context(index)
+    _TOPN_SELECT_GIVEN(stream, wcounts.data_ptr(), rows, W,
+                       used_mask.data_ptr(), end_panes.data_ptr(),
+                       w_valid.data_ptr(), int(anchor), thresh.data_ptr(),
+                       int(row_offset), int(sel_cap), emit_ring.data_ptr(),
+                       emit_ring.shape[0], emit_ring.shape[1], base + 8, base)
     return emit_ring
 
 
@@ -635,22 +720,29 @@ def _ring_lanes(lanes, src_col: torch.Tensor, keep: torch.Tensor) -> None:
         return
     if rows == 0 or dst_ring == 0:
         return
-    if rows * max(src_ring, dst_ring) * max(widths) >= 2 ** 31:
-        raise ValueError("ring_columns: a lane of 2^31 elements or more")
     pad = _RING_PAD[n_lanes]
     err, stream = launch_context(index)
     global _ring_fn
     if _ring_fn is None:
         _ring_fn = _lib().fk_ring_columns
-    rc = _ring_fn(_RING_ARGS.pack(
-        rows, src_ring, dst_ring, n_lanes, src_col.data_ptr(),
-        keep.data_ptr(), err, *[s.data_ptr() for s, _, _ in lanes], *pad,
-        *[d.data_ptr() for _, d, _ in lanes], *pad, *widths, *pad,
-        *[_f32_bits(f) for _, _, f in lanes], *pad), stream)
-    if rc != 0:
-        raise RuntimeError(f"ring_columns: CUDA launch failed ({rc}: "
-                           f"{_lib().fk_error_string(rc).decode()})")
-    LAUNCHES["ring_columns"] += 1
+    srcs = [s.data_ptr() for s, _, _ in lanes]
+    dsts = [d.data_ptr() for _, d, _ in lanes]
+    fills = [_f32_bits(f) for _, _, f in lanes]
+    # the kernel's word offsets are 32-bit: a state of 2^31 words a lane
+    # or more goes through in blocks of rows, one launch each
+    per = max(1, (RING_BLOCK_WORDS - 1) // (max(src_ring, dst_ring)
+                                            * max(widths)))
+    for r0 in range(0, rows, per):
+        rc = _ring_fn(_RING_ARGS.pack(
+            min(per, rows - r0), src_ring, dst_ring, n_lanes,
+            src_col.data_ptr(), keep.data_ptr(), err,
+            *[p + 4 * r0 * src_ring * w for p, w in zip(srcs, widths)], *pad,
+            *[p + 4 * r0 * dst_ring * w for p, w in zip(dsts, widths)], *pad,
+            *widths, *pad, *fills, *pad), stream)
+        if rc != 0:
+            raise RuntimeError(f"ring_columns: CUDA launch failed ({rc}: "
+                               f"{_lib().fk_error_string(rc).decode()})")
+        LAUNCHES["ring_columns"] += 1
 
 
 def _f32_bits(fill: float) -> int:

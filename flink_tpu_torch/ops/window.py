@@ -21,8 +21,10 @@ the numpy key table in numpy, then an int32 index + count upload to
 otherwise one cell per record goes up with the fields the aggregate
 reads — 3 bytes (slot, ring column) while the slot id fits uint16 and
 the ring 256 columns, which ``split_cells`` decodes on the device, else
-an int32 flat index — ``lift_masked`` lifts the fields on the device and
-``scatter_counts`` (count only) or ``scatter_lanes`` folds them in.
+a flat index, int32 below ``CELL_INDEX_LIMIT`` cells and int64 past it
+(as the reference packs them) — ``lift_masked`` lifts the fields on the
+device and ``scatter_counts`` (count only) or ``scatter_lanes`` folds
+them in.
 
 A watermark advance fires every window it completes (over a stashed
 native-lane batch, inside its fused step). With ``.top(n)``:
@@ -134,6 +136,10 @@ MAX_FIRE_CHUNK = 4
 # the host pre-combine runs only while the (slot, ring column) pair
 # domain stays this small
 PREAGG_MAX_DOMAIN = 1 << 23
+# flat cells (row * ring + column) travel as int32 below this many (a
+# mesh's global cells, with the reference's one spare row), as int64 at
+# or past it: the reference's switch (flink_tpu/ops/window.py:1762)
+CELL_INDEX_LIMIT = 2 ** 31
 # refire bitmap span of the device-made ingest (panes above
 # dead_below); a longer lateness span sends the batch to the host path
 DEVGEN_REFIRE_BITS = dk.REFIRE_BITS
@@ -612,7 +618,6 @@ class WindowOperator:
                    else self.directory.local_slots),
             ring=self.plan.ring, sum_width=agg.sum_width,
             max_width=agg.max_width, min_width=agg.min_width)
-        self._check_cell_index()
         # the pane state: one block per device of the mesh (one block
         # without a mesh, ``state``)
         self._blocks = [init_state(self.layout, d) for d in self._devices]
@@ -787,13 +792,13 @@ class WindowOperator:
         else:
             # per-record: one cell per valid record (plus the fields the
             # aggregate reads), as 3 bytes while the split upload holds,
-            # else an int32 flat index; invalid records never leave the
-            # host
+            # else a flat index (int32, int64 past CELL_INDEX_LIMIT);
+            # invalid records never leave the host
             cols = ring_column(panes, ring)
             if self._split_upload:
                 idx = split_encode(slots, cols, valid)
             else:
-                idx = (slots * ring + cols).astype(np.int32)
+                idx = (slots * ring + cols).astype(self._cell_dtype())
             fields = {k: device_cast(data[k]) for k in self.agg.fields}
             if not valid.all():
                 idx = idx[valid]
@@ -810,7 +815,11 @@ class WindowOperator:
         """The per-record upload goes as 3 bytes a record while the slot
         id fits uint16 with 0xFFFF reserved (dump row included; under a
         mesh the global slot id, below 0xFFFF) and the ring column fits a
-        byte: the reference's rule, current after every ring growth."""
+        byte: the reference's rule, current after every ring growth. Its
+        cells (under 2^24) always stay below the real
+        ``CELL_INDEX_LIMIT``; past a lowered one the flat upload goes."""
+        if self._cell_dtype() is not np.int32:
+            return False
         if self.mesh_plan is not None:
             return (len(self._devices) * self.layout.slots
                     < wk.INVALID_SLOT_U16 and self.plan.ring <= 256)
@@ -1124,16 +1133,17 @@ class WindowOperator:
         self._cleared_below = cleared_after
         return self._ring_after_fire(len(ends_f))
 
-    def _check_cell_index(self) -> None:
-        """Cell indices (row * ring + column) travel as int32; a mesh's
-        packed upload carries the global cell, over every block's rows."""
-        if len(self._devices) * self.layout.rows * self.plan.ring >= 2 ** 31:
-            raise NotImplementedError(
-                "pane state beyond 2^31 cells needs a 64-bit cell index "
-                "(ROADMAP.md)")
+    def _cell_dtype(self) -> type:
+        """The dtype of an upload's flat cells (row * ring + column; a
+        mesh's global cells over every block's rows): int32 while they
+        stay below ``CELL_INDEX_LIMIT``, else int64 — where the reference
+        switches. Current after every ring growth."""
+        rows = len(self._devices) * self.layout.rows + 1
+        return (np.int32 if rows * self.plan.ring < CELL_INDEX_LIMIT
+                else np.int64)
 
     def _cells_on_device(self, cells_h: torch.Tensor) -> torch.Tensor:
-        """Staged cells as int32 flat indices on the device: an int32
+        """Staged cells as flat indices on the device: a flat
         upload as it is, a split upload's (B, 3) bytes through
         ``split_cells``."""
         cells = cells_h.to(self.device, non_blocking=True)
@@ -1142,7 +1152,7 @@ class WindowOperator:
         return cells
 
     def _apply_cells(self, idx: np.ndarray, cnt: Optional[np.ndarray]) -> None:
-        """Count-lane cells: int32 flat indices, or a split upload's
+        """Count-lane cells: flat indices, or a split upload's
         (B, 3) bytes (per record, no counts); ``scatter_counts``."""
         if len(idx) == 0:
             return
@@ -1159,7 +1169,7 @@ class WindowOperator:
 
     def _apply_records(self, idx: np.ndarray,
                        fields: Dict[str, np.ndarray]) -> None:
-        """Per-record lanes: upload the cells (int32 flat indices or a
+        """Per-record lanes: upload the cells (flat indices or a
         split upload's bytes) and the fields the aggregate reads, lift
         them on the device, ``scatter_lanes``."""
         if len(idx) == 0:
@@ -1202,7 +1212,8 @@ class WindowOperator:
         length and pushed through ``_dispatch_sharded``; one device-side
         overflow total per batch."""
         ring = self.plan.ring
-        packed = (slots * ring + ring_column(panes, ring)).astype(np.int32)
+        packed = (slots * ring + ring_column(panes, ring)).astype(
+            self._cell_dtype())
         packed[~valid] = -1
         fields = {k: device_cast(data[k]) for k in self.agg.fields}
         t3 = time.perf_counter()
@@ -1215,7 +1226,7 @@ class WindowOperator:
             if pad:
                 # the padded layout the splitter checked: source block j
                 # is records [j L, (j + 1) L) of it
-                pk = np.concatenate([pk, np.full(pad, -1, np.int32)])
+                pk = np.concatenate([pk, np.full(pad, -1, pk.dtype)])
                 chunk = {k: np.concatenate(
                     [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
                     for k, v in chunk.items()}
@@ -1409,7 +1420,6 @@ class WindowOperator:
         self._blocks = blocks
         self.plan = dataclasses.replace(self.plan, ring=new_ring)
         self.layout = dataclasses.replace(self.layout, ring=new_ring)
-        self._check_cell_index()
 
     # -- time path --------------------------------------------------------
     def advance_processing_time(self) -> "FiredWindows":

@@ -1270,6 +1270,104 @@ def test_window_lanes(dev, sw, mw, nw, W):
         assert x.shape == y.shape and _same_bits(x, y)
 
 
+def _exact_bits(a, b):
+    """Equal bit for bit, NaN payloads and signed zeros included."""
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _window_lanes_case(dev, rng, rows, ring, W, widths):
+    """Random lanes in every column (live and dead) with NaN, -NaN, +-inf
+    and -0.0 planted in both; windows around the live range, one that
+    wraps the ring's end, and invalid ones (not the first)."""
+    lo = 1000 if ring <= 32 else 5000
+    hi = lo + max(ring - 3, 0) if ring > 1 else lo
+    ppw = 10 if ring <= 32 else 600
+    specials = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 0.0],
+                        np.float32)
+    lanes = []
+    for k in widths:
+        x = rng.standard_normal((rows, ring, k)).astype(np.float32)
+        n = max(1, x.size // 50)
+        flat = x.reshape(-1)
+        if flat.size:
+            flat[rng.integers(0, flat.size, n)] = rng.choice(specials, n)
+        lanes.append(_t(x, dev) if k else None)
+    ends = rng.integers(lo - 2, hi + ppw + 2, W).astype(np.int64)
+    ends[0] = lo + ppw + (ring - lo % ring) % ring  # a span over the ring's end
+    valid = rng.random(W) < 0.8
+    valid[0] = True
+    return lanes, _t(ends, dev), _t(valid, dev), lo, hi, ppw
+
+
+@pytest.mark.parametrize("ring,W,widths,rows", [
+    (32, 11, (1, 1, 0), 32769), (32, 1, (3, 0, 1), 1000),
+    (32, 64, (0, 3, 3), 777), (1, 11, (1, 1, 1), 501),
+    (1100, 64, (70, 70, 70), 37), (1100, 11, (1, 0, 3), 53),
+    (32, 11, (70, 1, 0), 300), (1, 1, (0, 0, 70), 99),
+    (1100, 1, (70, 70, 70), 29), (32, 11, (0, 0, 0), 100),
+    (64, 11, (1, 2, 1), 777), (37, 64, (1, 1, 3), 333)])
+def test_window_lanes_bit_for_bit(dev, ring, W, widths, rows):
+    """The tiled kernel against the plain version on the card, every
+    output bit for bit: rings of 1, 32, 37, 64 and 1100 columns (up to 64
+    the register form, 1100 the staged tiles), 1, 11 and 64 windows, lane
+    widths 0 / 1 / 3 / 70 in
+    each family (70 in each family at W = 1 staging the 1100-column ring in
+    chunks), row counts that are no multiple of the tile, NaN, +-inf
+    and -0.0 in live and in dead columns (a NaN or inf in a dead column
+    poisons the sum), invalid windows and a span that wraps the ring."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    rng = np.random.default_rng(ring * 131 + W * 7 + sum(widths))
+    lanes, e, v, lo, hi, ppw = _window_lanes_case(dev, rng, rows, ring, W,
+                                                  widths)
+    wk.reset_launch_counts()
+    a = tk.window_lanes(*lanes, e, v, lo, hi, ppw, rows)
+    b = tk.window_lanes_plain(*lanes, e, v, lo, hi, ppw, rows)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["window_lanes"] == (1 if sum(widths) else 0)
+    for x, y, k in zip(a, b, widths):
+        assert x.shape == (rows, W, k)
+        assert _exact_bits(x, y)
+
+
+def test_window_lanes_on_a_stream_and_in_a_graph(dev):
+    """Captured into a CUDA graph and replayed, window_lanes gives the
+    plain version's bits; under a non-default torch.cuda.stream it
+    queues on that stream (every kernel of the check warmed first: a
+    kernel's first launch loads it and waits for the whole card)."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    rng = np.random.default_rng(44)
+    lanes, e, v, lo, hi, ppw = _window_lanes_case(dev, rng, 4097, 32, 11,
+                                                  (1, 2, 1))
+    want = tk.window_lanes_plain(*lanes, e, v, lo, hi, ppw, 4097)
+    tk.window_lanes(*lanes, e, v, lo, hi, ppw, 4097)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tk.window_lanes(*lanes, e, v, lo, hi, ppw, 4097)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(_exact_bits(x, y) for x, y in zip(got, want))
+    # the side stream's next allocation of the outputs' size reuses a
+    # block filled with -7.0 there
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        junk = torch.full((4097 * 11 * 4,), -7.0, device=dev)
+    del junk
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        late = tk.window_lanes(*lanes, e, v, lo, hi, ppw, 4097)
+    early = late[0].clone()      # on the default stream: runs at once
+    torch.cuda.synchronize()
+    assert bool((early == -7.0).all())
+    assert all(_exact_bits(x, y) for x, y in zip(late, want))
+
+
 def _topn_lanes(dev, seed, rows, W, n, sel_cap, F=2, fill=0, specials=True,
                 spread=20_000):
     """Both versions on one random ranking grid; ``spread`` sets how
@@ -1580,3 +1678,300 @@ def test_sharded_operator_on_the_card_matches_the_cpu(dev):
         assert all(wk.LAUNCHES[k] > 0 for k in ("bucket_records",
                                                 "split_cells", "ring_columns"))
         assert ops[1].exchange_overflow == 0
+
+
+# -- pane state past 2^31 cells -------------------------------------------------
+
+def test_pane_state_past_2_31_cells(dev):
+    """count + sum over 1088 x 65,536 slots + 1 dump row and a 32-column
+    ring (2.28 G cells): int64 cells from the upload on, three 2^20-bid
+    batches over event time [0, 9 s) with half the keys on rows past
+    2^26 (every cell of theirs past 2^31), a fire of window ends 1..12 s
+    with its purge, a batch 40 s ahead that grows the ring 32 -> 64 (K4
+    in blocks of rows), then the end-of-input fire: every row equal to a
+    numpy golden (counts exactly, sums within their ordering bound)."""
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.ops import aggregates as ta
+    from flink_tpu_torch.ops.window import WindowOperator
+    from flink_tpu_torch.records import hash_keys_numpy
+
+    shards, spd, B = 1088, 65_536, 1 << 20
+    cand = np.arange(1, 1 << 20, dtype=np.int64)
+    shard = hash_keys_numpy(cand) % shards
+    keys = np.concatenate([cand[shard < 1024][:1 << 15],
+                           cand[shard >= 1024][:1 << 15]])
+    rng = np.random.default_rng(31)
+    batches = []
+    for i in range(4):
+        ts = (12_000 if i == 3 else 3_000 * i) + rng.integers(0, 3_000, B)
+        if i == 3:
+            ts[:B // 8] += 40_000
+        batches.append((keys[rng.integers(0, len(keys), B)], ts,
+                        (rng.integers(100, 100_000, B) / 100).astype(np.float32)))
+    torch.cuda.empty_cache()
+    wk.reset_launch_counts()
+    op = WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000),
+                        ta.multi(ta.count(), ta.sum_of("price")),
+                        num_shards=shards, slots_per_shard=spd,
+                        max_out_of_orderness_ms=17_000, device="cuda")
+    assert op.layout.rows * op.plan.ring >= 2 ** 31 and op.plan.ring == 32
+    assert op._cell_dtype() is np.int64
+    fired = []
+    for i, (k, ts, price) in enumerate(batches):
+        op.process_batch(k, ts, {"price": price})
+        if i == 2:
+            fired.append(dict(op.advance_watermark(12_000)))
+    fired.append(dict(op.advance_watermark(op.final_watermark())))
+    torch.cuda.synchronize()
+    assert op.plan.ring == 64 and op.late_records == 0
+    assert wk.LAUNCHES["ring_columns"] >= 3 and wk.LAUNCHES["scatter_lanes"] >= 8
+    del op
+    torch.cuda.empty_cache()
+    got = {f: np.concatenate([np.asarray(d[f]) for d in fired])
+           for f in ("window_end", "key", "count", "sum_price")}
+    order = np.lexsort((got["key"], got["window_end"]))
+    # golden: per (key, pane), then each pane into its 10 windows
+    k = np.concatenate([b[0] for b in batches])
+    pane = np.concatenate([b[1] for b in batches]) // 1000
+    price = np.concatenate([b[2] for b in batches]).astype(np.float64)
+    kp, inv = np.unique(k * 4096 + pane, return_inverse=True)
+    cnt, tot = np.bincount(inv), np.bincount(inv, weights=price)
+    ends = (kp % 4096)[:, None] + np.arange(1, 11)[None, :]
+    ke, inv = np.unique(ends.reshape(-1) * (1 << 40) + np.repeat(kp // 4096, 10),
+                        return_inverse=True)
+    g_cnt = np.bincount(inv, weights=np.repeat(cnt, 10)).astype(np.int64)
+    g_sum = np.bincount(inv, weights=np.repeat(tot, 10))
+    np.testing.assert_array_equal(got["window_end"][order], (ke >> 40) * 1000)
+    np.testing.assert_array_equal(got["key"][order], ke & ((1 << 40) - 1))
+    np.testing.assert_array_equal(got["count"][order], g_cnt)
+    bound = (2.0 * g_cnt + 34.0) * 2.0 ** -24 * np.abs(g_sum)
+    assert (np.abs(got["sum_price"][order] - g_sum) <= bound).all()
+
+
+# -- the lean launch path: every wrapper on a stream and in a graph ---------------
+
+def _lean_cases(dev):
+    """name -> (make, plain): ``make()`` returns a fresh launch of the
+    wrapper (a closure over fresh inputs) that returns its outputs;
+    ``plain`` the same call through the plain version. Small shapes; each
+    wrapper's outputs are tensors (in-place wrappers return the state
+    they wrote)."""
+    from flink_tpu_torch.kernels import count_window_kernels as cw
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+    from flink_tpu_torch.kernels import element_kernels as ek
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    rng = np.random.default_rng(77)
+    rows, ring, W, lo, hi, ppw = 1025, 16, 5, 1000, 1010, 4
+    counts = _t(_live_counts(rng, rows, ring, lo, hi), dev)
+    _, s1, mx1, mn1 = _lane_state(rng, rows, ring, lo, hi, 1, 1, 1)
+    s1, mx1, mn1 = _t(s1, dev), _t(mx1, dev), _t(mn1, dev)
+    ends = _t(np.arange(lo + 2, lo + 2 + W, dtype=np.int64), dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    used = _t(rng.random(rows) < 0.9, dev)
+    idx = _t(rng.integers(0, rows * ring, 5000).astype(np.int32), dev)
+    cnt = _t(rng.integers(1, 9, 5000).astype(np.int32), dev)
+    rec = _t(rng.random((5000, 1)).astype(np.float32), dev)
+    wc = wk.window_counts_plain(counts, ends, valid, lo, hi, ppw)
+    ring0 = torch.zeros((256 + 2, 3), dtype=torch.int32, device=dev)
+    ring5 = torch.zeros((256 + 2, 5), dtype=torch.int32, device=dev)
+    sc = np.zeros((3000, 3), np.uint8)
+    slots = rng.integers(0, rows - 1, 3000)
+    sc[:, 0], sc[:, 1] = slots & 0xFF, slots >> 8
+    sc[:, 2] = rng.integers(0, ring, 3000)
+    sc = _t(sc, dev)
+    words = np.full(4096, -1, np.int32)
+    pairs = rng.choice((rows - 1) * ring, 3000, replace=False)
+    words[:3000] = ((pairs << 12) | rng.integers(1, 4000, 3000)).astype(
+        np.uint32).view(np.int32)
+    words = _t(words, dev)
+    tri = np.full((4096, 3), 0xFFFF, np.uint16)
+    tri[:3000, 0], tri[:3000, 1] = pairs & 0xFFFF, pairs >> 16
+    tri[:3000, 2] = rng.integers(1, 60000, 3000)
+    tri = _t(tri, dev)
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([lo, hi, lo], np.int64).view(np.int32)
+    hdr[7] = 0b111
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[:3] = [3, 5, 8]
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas
+    fbuf = _t(np.concatenate([hdr, words.cpu().numpy()]), dev)
+    keys = _t(rng.integers(0, 900, 4000).astype(np.int64), dev)
+    kts = _t(rng.integers(lo * 1000, (hi + 1) * 1000, 4000).astype(np.int64), dev)
+    offsets = _t(np.array([0, 7, 7, 300, 4000], np.int64), dev)
+    el = [_t(rng.standard_normal((4000, k)).astype(np.float32), dev)
+          for k in (2, 1, 1)]
+    cw_counts = _t(rng.integers(0, 9, 2049).astype(np.int32), dev)
+    cw_sums = _t(rng.random((2049, 1)).astype(np.float32), dev)
+    cells = _t(np.where(rng.random(4096) < 0.9,
+                        rng.integers(0, 4 * 256 * ring, 4096), -1).astype(np.int32), dev)
+    payload = _t(rng.random((4096, 2)).astype(np.float32), dev)
+    cands = wk.topn_candidates_plain(wc, used, valid, 3)
+    thresh = wk.topn_global_threshold_plain(cands, 3)
+    v = _t(rng.random((rows, W)).astype(np.float32), dev)
+    cols = _t(rng.integers(-9, 9, (rows, W, 2)).astype(np.int32), dev)
+    args_fp = (counts, s1, mx1, mn1, ends, valid, used, lo, hi, ppw, 4096, False)
+
+    def inplace(fn, *state):
+        def make():
+            st = [x.clone() for x in state]
+            return lambda: (fn(*st), st)
+        return make
+
+    def after(fn, *state):
+        st = [x.clone() for x in state]
+        return fn(*st), st
+
+    def pure(fn):
+        return lambda: fn
+
+    return {
+        "scatter_counts": (inplace(lambda c: wk.scatter_counts(c, idx, cnt), counts),
+                           lambda: after(lambda c: wk.scatter_counts_plain(
+                               c, idx, cnt), counts)),
+        "split_cells": (pure(lambda: wk.split_cells(sc, ring, rows - 1)),
+                        lambda: wk.split_cells_plain(sc, ring, rows - 1)),
+        "window_counts": (pure(lambda: wk.window_counts(counts, ends, valid, lo, hi, ppw)),
+                          lambda: wc),
+        "topn_select_append": (
+            inplace(lambda r: wk.topn_select_append(wc, used, ends, valid, lo, 2, 200, r),
+                    ring0),
+            lambda: after(lambda r: wk.topn_select_append_plain(
+                wc, used, ends, valid, lo, 2, 200, r), ring0)),
+        "topn_candidates": (pure(lambda: wk.topn_candidates(wc, used, valid, 3)),
+                            lambda: cands),
+        "topn_global_threshold": (pure(lambda: wk.topn_global_threshold(cands, 3)),
+                                  lambda: thresh),
+        "topn_select_given": (
+            inplace(lambda r: wk.topn_select_given(wc, used, ends, valid, lo, thresh,
+                                                   7, 200, r), ring0),
+            lambda: after(lambda r: wk.topn_select_given_plain(
+                wc, used, ends, valid, lo, thresh, 7, 200, r), ring0)),
+        "nexmark_bids": (pure(lambda: dk.nexmark_bids(3, 100, 5000, 1 << 20, 50, 4, 100,
+                                                      10_000, dev)),
+                         lambda: dk.nexmark_bids_plain(3, 100, 5000, 1 << 20, 50, 4,
+                                                       100, 10_000, dev)),
+        "devgen_ingest": (
+            inplace(lambda c: dk.devgen_ingest(c, keys, kts, key_domain=1000,
+                                               pane_ms=1000, offset_ms=0,
+                                               dead_below=lo, refire_below=lo + 2,
+                                               dump_row=rows - 1), counts),
+            lambda: after(lambda c: dk.devgen_ingest_plain(
+                c, keys, kts, 1000, 1000, 0, lo, lo + 2, rows - 1,
+                torch.zeros(dk.STATS_WORDS, dtype=torch.int32, device=dev)),
+                counts)),
+        "fire_pack": (pure(lambda: lk.fire_pack(*args_fp)),
+                      lambda: lk.fire_pack_plain(*args_fp)),
+        "scatter_lanes": (
+            inplace(lambda c, s_: lk.scatter_lanes(c, s_, None, None, idx, rec,
+                                                   rec[:, :0], rec[:, :0]),
+                    counts, s1),
+            # the plain version on the card adds with atomics: its order is
+            # the CPU's
+            lambda: after(lambda c, s_: lk.scatter_lanes_plain(
+                c, s_, None, None, idx.cpu(), rec.cpu(), rec[:, :0].cpu(),
+                rec[:, :0].cpu()), counts.cpu(), s1.cpu())),
+        "apply_pairs_u32": (inplace(lambda c: fk.apply_pairs_u32(c, words, rows - 1),
+                                    counts),
+                            lambda: after(lambda c: fk.apply_pairs_u32_plain(
+                                c, words, rows - 1), counts)),
+        "apply_pairs_u16": (inplace(lambda c: fk.apply_pairs_u16(c, tri), counts),
+                            lambda: after(lambda c: fk.apply_pairs_u16_plain(
+                                c, tri), counts)),
+        "fused_step": (
+            inplace(lambda c, r: fk.fused_step(c, r, fbuf, used, ppw=ppw, n=2,
+                                               sel_cap=200, dump_row=rows - 1,
+                                               fire_gate=True, fire_pad=4),
+                    counts, ring0),
+            lambda: after(lambda c, r: fk.fused_step_plain(
+                c, r, fbuf, used, ppw=ppw, n=2, sel_cap=200, dump_row=rows - 1,
+                fire_gate=True, fire_pad=4), counts, ring0)),
+        "count_fire": (
+            inplace(lambda c, s_: cw.count_fire(c, None, s_, None, None, 5, 4096),
+                    cw_counts, cw_sums),
+            lambda: after(lambda c, s_: cw.count_fire_plain(
+                c, None, s_, None, None, 5, 4096), cw_counts, cw_sums)),
+        "segment_lanes": (pure(lambda: ek.segment_lanes(offsets, *el)),
+                          lambda: ek.segment_lanes_plain(offsets, *el)),
+        "bucket_records": (pure(lambda: xk.bucket_records(cells, payload, 4, 2048,
+                                                          256, ring)),
+                           lambda: xk.bucket_records_plain(cells, payload, 4, 2048,
+                                                           256, ring)),
+        "hash_keys": (pure(lambda: xk.hash_keys(keys)),
+                      lambda: xk.hash_keys_plain(keys)),
+        "topn_select_lanes": (
+            inplace(lambda r: tk.topn_select_lanes(wc, v, cols, used, ends, valid,
+                                                   lo, 2, 200, r), ring5),
+            lambda: after(lambda r: tk.topn_select_lanes_plain(
+                wc, v, cols, used, ends, valid, lo, 2, 200, r), ring5)),
+    }
+
+
+LEAN_WRAPPERS = ("scatter_counts", "split_cells", "window_counts",
+                 "topn_select_append", "topn_candidates", "topn_global_threshold",
+                 "topn_select_given", "nexmark_bids", "devgen_ingest", "fire_pack",
+                 "scatter_lanes", "apply_pairs_u32", "apply_pairs_u16", "fused_step",
+                 "count_fire", "segment_lanes", "bucket_records", "hash_keys",
+                 "topn_select_lanes")
+
+
+def _flat(out):
+    if out is None:
+        return []
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [x for o in out for x in _flat(o)]
+
+
+def _outputs_equal(got, want):
+    got, want = _flat(got), _flat(want)
+    return len(got) == len(want) and all(
+        g.shape == w.shape and _exact_bits(g.float() if g.dtype == torch.bool
+                                           else g, w.float() if w.dtype == torch.bool
+                                           else w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", LEAN_WRAPPERS)
+def test_lean_wrapper_queues_on_the_current_stream(dev, name, monkeypatch):
+    """Under a non-default torch.cuda.stream each wrapper hands that
+    stream's handle to its launch, and its outputs equal the plain
+    version's (every kernel warmed first: a kernel's first launch loads it
+    and waits for the whole card)."""
+    make, plain = _lean_cases(dev)[name]
+    make()()
+    torch.cuda.synchronize()
+    seen = []
+    orig = wk.LeanEntry.__call__
+
+    def spy(self, stream, *words):
+        seen.append(stream)
+        return orig(self, stream, *words)
+    monkeypatch.setattr(wk.LeanEntry, "__call__", spy)
+    launch = make()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(10_000_000)
+        got = launch()
+    torch.cuda.synchronize()
+    assert seen and set(seen) == {side.cuda_stream}
+    assert _outputs_equal(got, plain())
+
+
+@pytest.mark.parametrize("name", LEAN_WRAPPERS)
+def test_lean_wrapper_captures_into_a_graph(dev, name):
+    """Captured into a CUDA graph (a launch on any other stream than the
+    capture's would break it) and replayed once, each wrapper's outputs
+    equal the plain version's."""
+    make, plain = _lean_cases(dev)[name]
+    make()()
+    torch.cuda.synchronize()
+    launch = make()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _outputs_equal(got, plain())

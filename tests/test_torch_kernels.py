@@ -253,7 +253,7 @@ def test_ring_columns_block_count_only(mode, ring):
 def test_wrappers_reject_bad_inputs():
     c = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
-        wk.scatter_counts(c, torch.zeros(3, dtype=torch.int64))
+        wk.scatter_counts(c, torch.zeros(3, dtype=torch.int16))
     with pytest.raises(ValueError):
         wk.scatter_counts(c.T, torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):

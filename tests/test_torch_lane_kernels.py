@@ -11,6 +11,8 @@ adding the same terms in another order: |port - ref| <= 2 * n * 2^-24 *
 sum(|terms|) for n terms. (The scatters add in the reference's order on
 the CPU; the reference's jitted fire lets XLA's GEMM pick its order by
 shape. The bound counts on neither.)"""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -243,6 +245,10 @@ def test_scatter_lanes_signed_zero_and_nan_order():
     """Max/min of -0/+0 and NaN arriving in every order at one cell match
     the reference's IEEE maximum/minimum."""
     vals = np.array([-0.0, 0.0, -0.0, 1.0, np.nan, -1.0], np.float32)
+    agg = ja.multi(ja.max_of("v"), ja.min_of("v"))
+    # the reference's apply, compiled once a batch length
+    apply = jax.jit(functools.partial(jw.apply_kernel, agg=agg, ring=1,
+                                      dump_row=1))
     for order in ([0, 1], [1, 0], [0, 2], [1, 1], [4, 3], [3, 4], [5, 0, 1],
                   [1, 5, 0], [2, 4, 5]):
         v = vals[order]
@@ -251,10 +257,7 @@ def test_scatter_lanes_signed_zero_and_nan_order():
             st = JaxPaneState(None, jnp.full((2, 1, 1), init, jnp.float32),
                               jnp.full((2, 1, 1), -init, jnp.float32),
                               jnp.zeros((2, 1), jnp.int32))
-            agg = ja.multi(ja.max_of("v"), ja.min_of("v"))
-            ref = jw.apply_kernel(st, jnp.asarray(idx),
-                                  {"v": jnp.asarray(v)}, agg=agg, ring=1,
-                                  dump_row=1)
+            ref = apply(st, jnp.asarray(idx), {"v": jnp.asarray(v)})
             tm = torch.full((2, 1, 1), init)
             tn = torch.full((2, 1, 1), -init)
             tc = torch.zeros((2, 1), dtype=torch.int32)

@@ -48,22 +48,28 @@ def seeded_bids(batch_size, n_batches, events_per_ms, n_auctions, seed):
 
 
 def golden(gen, window_ms, slide_ms):
-    counts = {}
-    i = 0
+    """Each window's top auctions by bid count (ties kept), as
+    ``{(auction, window_end, count)}``, counted in numpy: every bid goes
+    to the windows ``[ws, ws + window_ms)`` holding it."""
+    auction, ts, i = [], [], 0
     while (b := gen("0", i)) is not None:
-        data, ts = b
-        for a, t in zip(data["auction"].tolist(), ts.tolist()):
-            start = (t // slide_ms) * slide_ms
-            ws = start
-            while ws > t - window_ms:
-                key = (a, ws + window_ms)
-                counts[key] = counts.get(key, 0) + 1
-                ws -= slide_ms
+        auction.append(b[0]["auction"])
+        ts.append(b[1])
         i += 1
-    best = {}
-    for (a, wend), c in counts.items():
-        best[wend] = max(best.get(wend, 0), c)
-    return {(a, wend, c) for (a, wend), c in counts.items() if c == best[wend]}
+    a, t = np.concatenate(auction), np.concatenate(ts)
+    start = (t // slide_ms) * slide_ms
+    k = -(-window_ms // slide_ms)
+    ws = start[:, None] - slide_ms * np.arange(k)[None, :]
+    keep = ws > t[:, None] - window_ms
+    pairs = np.stack([np.repeat(a, k)[keep.reshape(-1)],
+                      (ws + window_ms)[keep]], axis=1)
+    keys, counts = np.unique(pairs, axis=0, return_counts=True)
+    ends, inv = np.unique(keys[:, 1], return_inverse=True)
+    best = np.zeros(len(ends), np.int64)
+    np.maximum.at(best, inv, counts)
+    top = counts == best[inv]
+    return {(int(x), int(e), int(c))
+            for (x, e), c in zip(keys[top].tolist(), counts[top].tolist())}
 
 
 def run_both(gen, conf, window_ms, slide_ms, ooo_ms):

@@ -424,3 +424,48 @@ def test_emit_ring_overflow_raises_loudly():
     port.process_batch(keys, keys * 250, {"price": keys.astype(np.float32)})
     with pytest.raises(RuntimeError, match="emit ring overflow"):
         port.advance_watermark(12_000).materialize()
+
+
+def _constexpr(text, name):
+    import re
+    return int(re.search(rf"constexpr (?:int|int64_t) {name} = ([\d *]+);",
+                         text).group(1).replace(" ", "").split("*")[0])
+
+
+def test_wrapper_constants_match_the_kernel_sources():
+    """The wrappers' copies of the kernels' launch constants, read from
+    the CUDA sources: the compaction tile the top-n, fire and bucketing
+    scratch is sized by, and window_lanes' windows a block and staged
+    tile."""
+    import os
+
+    from flink_tpu_torch.kernels import count_window_kernels as cw
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+
+    csrc = os.path.join(os.path.dirname(tk.__file__), "csrc")
+    with open(os.path.join(csrc, "window_common.cuh")) as f:
+        common = f.read()
+    with open(os.path.join(csrc, "topn_lanes_kernels.cu")) as f:
+        cu = f.read()
+    tile = _constexpr(common, "kThreads") * _constexpr(common, "kItems")
+    assert "constexpr int kTile = kThreads * kItems;" in common
+    assert tile == wk.TOPN_TILE == cw.FIRE_TILE == xk.BUCKET_TILE
+    assert _constexpr(cu, "kLanesWindows") == tk._LANES_WINDOWS
+    assert _constexpr(cu, "kLanesSmemFloats") == tk._LANES_SMEM_FLOATS
+
+
+@pytest.mark.parametrize("ring,W,L", [(32, 11, 2), (1, 11, 3), (64, 64, 6),
+                                      (1100, 1, 210), (1100, 64, 210),
+                                      (32, 1, 1), (5000, 3, 70)])
+def test_window_lanes_plan_fits_the_kernel(ring, W, L):
+    """Every plan stays inside the kernel's tables: at most 64 windows a
+    block, 256 outputs a block (one a thread), a staged tile of the
+    plan's rows within the shared memory it reserves, and chunks that
+    cover the ring."""
+    p = tk._lanes_plan(ring, W, L)
+    assert 1 <= p.win_group <= min(W, tk._LANES_WINDOWS)
+    assert 1 <= p.lane_group <= L
+    assert p.tile_rows * p.win_group * p.lane_group <= 256
+    assert p.tile_rows * (p.col_chunk * p.lane_group + 3) \
+        <= tk._LANES_SMEM_FLOATS
+    assert 1 <= p.col_chunk <= ring
