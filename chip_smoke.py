@@ -142,7 +142,9 @@ before the run and read just after; each kernel of the path must have
 launched, the committed rows must equal the phase's numpy golden, and
 the phase prints events/s and the device's idle share (CUDA events
 around each launch group; a ``torch.profiler`` run beside gives kernel
-time by name).
+time by name, and ``fire_pack``'s and ``topn_select_lanes``' device
+kernels a call, which must be one, and two at top-1 or one (five where
+the radix select does not fit the card at once) at top-n).
 
 13. ``mesh`` — the key-sharded window operator on a mesh of four blocks
    on ``cuda:0`` (``env.execute(mesh_plan=...)``): job M1 Q5 hot items
@@ -183,6 +185,12 @@ With ``--ring-pairs`` it builds ``window_kernels`` and ``lane_kernels``
 alone and runs only ``scatter_pair_lanes`` and ``ring_columns`` beside
 their library calls, each as loop ms, device ms and host µs a call (one
 JSON line).
+
+With ``--fire-kernels`` it builds ``lane_kernels`` and
+``topn_lanes_kernels`` alone and runs only ``fire_pack`` (the three
+``kernels`` cases) and ``topn_select_lanes`` (job T's top-1 and the
+planted top-3) beside their library calls, each as loop ms, device ms
+and host µs a call (one JSON line).
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -255,7 +263,7 @@ PROFILED_KERNELS = {
     "ring_columns": ("ring_columns_kernel",),
     "nexmark_bids": ("nexmark_bids_kernel",),
     "devgen_ingest": ("devgen_ingest_kernel",),
-    "fire_pack": ("fire_count_kernel", "fire_write_kernel"),
+    "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel", "lanes_sort_kernel",
                       "lanes_fold_kernel"),
     "scatter_pair_lanes": ("pair_lanes_kernel", "pair_lanes_any_kernel"),
@@ -265,8 +273,10 @@ PROFILED_KERNELS = {
     "count_fire": ("count_fire_count_kernel", "count_fire_write_kernel"),
     # the register form (rings up to 64 columns) or the staged-tile form
     "window_lanes": ("window_lanes_reg_kernel", "window_lanes_kernel"),
-    "topn_select_lanes": ("lanes_threshold_kernel", "lanes_count_kernel",
-                          "lanes_write_kernel"),
+    # the top-1 max, or the top-n radix select (one cooperative launch, or
+    # a launch a pass), then the selection
+    "topn_select_lanes": ("lanes_max_kernel", "lanes_radix_all_kernel",
+                          "lanes_radix_kernel", "lanes_select_kernel"),
     "segment_lanes": ("segment_lanes_kernel",),
     "bucket_records": ("bucket_count_kernel", "bucket_write_kernel"),
     "hash_keys": ("hash_keys_kernel",),
@@ -274,6 +284,9 @@ PROFILED_KERNELS = {
     "topn_global_threshold": ("topn_global_threshold_kernel",),
     "topn_select_given": ("topn_count_kernel", "topn_write_kernel"),
 }
+# the wrappers whose device kernels a call the profiled runs count against
+# their launch counts (no other wrapper launches their kernels)
+ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes")
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
 # wrap each call in a profiler range and charge it only the device
@@ -285,11 +298,11 @@ RANGED_WRAPPERS = ("fused_step",)
 CALL_KERNELS = {
     "topn_select_append": ("topn_threshold_kernel",),
     "ring_columns": ("ring_columns_kernel",),
-    "fire_pack": ("fire_count_kernel",),
+    "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel",),
     "fused_step": ("fused_header_kernel",),
     "count_fire": ("count_fire_count_kernel",),
-    "topn_select_lanes": ("lanes_threshold_kernel",),
+    "topn_select_lanes": ("lanes_select_kernel", "lanes_radix_all_kernel"),
     "bucket_records": ("bucket_count_kernel",),
     "topn_select_given": ("topn_count_kernel",),
 }
@@ -642,16 +655,113 @@ def lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, widths, hot=0):
     return counts, sums, maxs, mins
 
 
-def colmask_matmul_ms(torch, lk, lane, ends, ring, pane_lo, pane_hi, ppw):
-    """Time of one f32 ``(rows, ring) @ (ring, W)`` column-mask matmul
-    with TF32 off: the reference's form of a fire's window sums."""
+def colmask_matmul_fn(torch, lk, lane, ends, ring, pane_lo, pane_hi, ppw):
+    """One f32 ``(rows, ring) @ (ring, W)`` column-mask matmul, the
+    reference's form of a fire's window sums, as a call (time it under
+    ``tf32_off``)."""
     colmask = lk._live_columns(ends, ring, pane_lo, pane_hi, ppw).T.float()
+    return lambda: lane @ colmask
+
+
+def tf32_off(torch, fn):
+    """``fn()`` with TF32 matmuls off, as the reference's f32 product."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return time_ms(torch, lambda: lane @ colmask)
+        return fn()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def fire_pack_cases(torch, np, dev):
+    """The ``kernels`` phase's three ``fire_pack`` inputs, each with its
+    library call and its bound's byte and operation counts as a function
+    of the rows it fires: WordCount's form (65,537 x 16 count lane after
+    its first growth, packed2, 4 windows of 1 pane, ~28k words a window,
+    cap 2^17), the bid-aggregate job (a)'s (32,769 x 32, count + sum +
+    max + min, 4 windows of 10 panes, cap 2^16) and job (b)'s (one sum
+    lane). Also the bid-aggregate state, for the kernels that follow."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    # WordCount: count only, packed2, 4 windows of 1 pane; ~28k words fire
+    # per window
+    rows, ring, W, ppw, cap = 65_537, 16, 4, 1, 1 << 17
+    pane_lo, pane_hi = 7, 17
+    keys = rng.choice(rows - 1, 30_000, replace=False)
+    counts, _, _, _ = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys,
+                                 (0, 0, 0))
+    counts[keys, :] *= rng.random((len(keys), 1)) < 0.94   # ~28k fire
+    used_np = np.zeros(rows, bool)
+    used_np[keys] = True
+    c_t = t(counts)
+    ends = torch.arange(pane_lo + 1, pane_lo + 1 + W, dtype=torch.int64,
+                        device=dev)
+    valid = torch.ones(W, dtype=torch.bool, device=dev)
+    cases = [{
+        "name": "wordcount",
+        "args": (c_t, None, None, None, ends, valid, t(used_np), pane_lo,
+                 pane_hi, ppw, cap, True),
+        # the lane (here the count lane, as f32) times the (ring, W)
+        # column mask in one matmul
+        "library": colmask_matmul_fn(torch, lk, c_t.float(), ends, ring,
+                                     pane_lo, pane_hi, ppw),
+        "library_call": ("counts.float() @ colmask (TF32 off): the "
+                         "WordCount form's one lane"),
+        # reads: the count lane's live columns once, the used mask; writes
+        # the head and n 2-column rows
+        "bytes_ops": lambda n, rows=rows, W=W, ppw=ppw: (
+            rows * W * 4 + rows + W * 9 + (n + 1) * 8, rows * W * (ppw + 2))}]
+
+    # the bid-aggregate state: count + sum + max + min lanes, 4 windows of
+    # 10 panes
+    rows, ring, ppw = 32_769, 32, 10
+    pane_lo, pane_hi = 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, (1, 1, 1),
+                    hot=100)
+    used_np = np.zeros(rows, bool)
+    used_np[keys] = True
+    lanes = [t(x) for x in st]
+    ends = torch.arange(pane_hi - 2, pane_hi + 2, dtype=torch.int64,
+                        device=dev)
+    cap = 1 << 16
+    spans = [range(max(e - ppw, pane_lo), min(e - 1, pane_hi) + 1)
+             for e in ends.tolist()]
+    live = sum(len(sp) for sp in spans)
+    live_cols = len({p % ring for sp in spans for p in sp})
+    sum_lib = colmask_matmul_fn(torch, lk, lanes[1][:, :, 0].contiguous(),
+                                ends, ring, pane_lo, pane_hi, ppw)
+    nk = len(keys)
+    cases.append({
+        "name": "bid_aggs_a",
+        "args": (*lanes, ends, valid, t(used_np), pane_lo, pane_hi, ppw,
+                 cap, False),
+        "library": sum_lib, "live_panes": live,
+        "library_call": "sums @ colmask (TF32 off), the sum lane",
+        # reads: the count lane's live columns and the used mask once;
+        # each firing row's sum lane whole (every column times its mask
+        # bit) and its max/min lanes' live columns; writes the head, n
+        # rows of 3 and n rows of lanes
+        "bytes_ops": lambda n: (
+            rows * live_cols * 4 + rows + nk * (ring + 2 * live_cols) * 4
+            + (n + 1) * 12 + n * 12,
+            rows * live + n * (ring + 2 * live // W))})
+    cases.append({
+        "name": "bid_aggs_b",
+        "args": (lanes[0], lanes[1], None, None, ends, valid, t(used_np),
+                 pane_lo, pane_hi, ppw, cap, False),
+        "library": sum_lib, "live_panes": live,
+        "library_call": "sums @ colmask (TF32 off), the sum lane",
+        "bytes_ops": lambda n: (
+            rows * live_cols * 4 + rows + nk * ring * 4 + (n + 1) * 12
+            + n * 4, rows * live + n * ring)})
+    return {"cases": cases, "state": st, "rows": rows, "ring": ring,
+            "pane_lo": pane_lo, "pane_hi": pane_hi}
 
 
 def scatter_lanes_batch(np, ring):
@@ -1083,6 +1193,86 @@ def window_lane_cases(torch, np, dev):
     return out
 
 
+def fire_kernel_cases(torch, np, dev):
+    """``fire_pack`` and ``topn_select_lanes`` at the ``kernels`` phase's
+    shapes beside their library calls, each as loop ms, device ms and
+    host µs a call (``split_times``), after a bit-for-bit check against
+    the plain version: fire_pack's three cases (``fire_pack_cases``)
+    against the count or sum lane's column-mask matmul (TF32 off), and
+    topn_select_lanes top-1 by max_price and the planted top-3 by
+    avg_price at job T's fire (``topn_select_cases``) against
+    ``torch.topk(v.T, n)``. The bound's byte counts are the kernels
+    phase's."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    out = {}
+    for case in fire_pack_cases(torch, np, dev)["cases"]:
+        args = case["args"]
+        a_buf, a_lanes = lk.fire_pack(*args)
+        b_buf, b_lanes = lk.fire_pack_plain(*args)
+        torch.cuda.synchronize()
+        n = int(b_buf[0, 0])
+        check(int(a_buf[0, 0]) == n
+              and torch.equal(a_buf[:n + 1], b_buf[:n + 1])
+              and (a_lanes is None or same_bits(torch, a_lanes[:n],
+                                                b_lanes[:n])),
+              f"fire_pack ({case['name']}) differs from its plain version")
+        b, by = bound_ms(*case["bytes_ops"](n))
+        out["fire_pack_" + case["name"]] = {
+            "rows": n, "bound_ms": b, "bound_by": by,
+            "kernel": split_times(torch, lambda: lk.fire_pack(*args)),
+            "library": tf32_off(torch, lambda: split_times(torch,
+                                                           case["library"])),
+            "library_call": case["library_call"]}
+    inp = topn_lanes_inputs(torch, np, dev)
+    rows, W = inp["rows"], inp["W"]
+    lanes = tk.window_lanes(*inp["lane_args"])
+    wc = wk.window_counts_plain(inp["counts"], inp["ends"], inp["valid"],
+                                inp["pane_lo"], inp["pane_hi"], inp["ppw"])
+    sel = topn_select_cases(torch, np, dev, inp, lanes, wc)
+    emit_ring = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
+    for name, n, v in (("top1", 1, sel["v"]), ("top3", 3, sel["v3"])):
+        args = sel[name]
+        r1, r2, r3 = (emit_ring.clone() for _ in range(3))
+        tk.topn_select_lanes(*args, r1)
+        tk.topn_select_lanes_plain(*args, r2)
+        torch.cuda.synchronize()
+        check(torch.equal(r1[:-1], r2[:-1]),
+              f"topn_select_lanes ({name}) differs from its plain version")
+        written = int(r1[0, 0])
+        if name == "top3":
+            check_top3_plants(np, r1, sel["plant"],
+                              inp["pane_lo"] - int(inp["ends"][0]))
+        vt = v.T.contiguous()
+        b, by = bound_ms(*topn_select_bytes_ops(rows, W, n, written))
+        out["topn_select_lanes_" + name] = {
+            "rows": written, "bound_ms": b, "bound_by": by,
+            "kernel": split_times(torch, lambda: tk.topn_select_lanes(
+                *args, r3)),
+            "library": split_times(torch, lambda: torch.topk(vt, n, dim=1)),
+            "library_call": "torch.topk(v.T, n), the threshold only"}
+    wk.check_errors(dev)
+    return out
+
+
+def phase_fire_kernels(torch, np):
+    """``--fire-kernels``: build ``lane_kernels`` and ``topn_lanes_kernels``
+    alone and run ``fire_kernel_cases`` (one JSON line)."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    names = ("lane_kernels", "topn_lanes_kernels")
+    build.build_all(names)
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in names}
+    emit({"phase": "fire_kernels", "build_s": time.perf_counter() - t0,
+          "ptxas": ptxas, **fire_kernel_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
+
+
 def phase_window_lanes(torch, np):
     """``--window-lanes``: build ``topn_lanes_kernels`` alone and run
     ``window_lane_cases`` (one JSON line)."""
@@ -1367,94 +1557,44 @@ def lane_kernel_cases(torch, np, dev, record, out):
     from flink_tpu_torch.kernels import lane_kernels as lk
     from flink_tpu_torch.kernels import window_kernels as wk
 
-    rng = np.random.default_rng(SEED + 3)
     extra = {}
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    # L1 fire_pack, WordCount shape: count only, packed2, 4 windows of 1
-    # pane; ~28k words fire per window
-    rows, ring, W, ppw, cap = 65_537, 16, 4, 1, 1 << 17
-    pane_lo, pane_hi = 7, 17
-    keys = rng.choice(rows - 1, 30_000, replace=False)
-    counts, _, _, _ = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys,
-                                 (0, 0, 0))
-    counts[keys, :] *= rng.random((len(keys), 1)) < 0.94   # ~28k fire
-    used_np = np.zeros(rows, bool)
-    used_np[keys] = True
-    c_t, used = t(counts), t(used_np)
-    ends = torch.arange(pane_lo + 1, pane_lo + 1 + W, dtype=torch.int64,
-                        device=dev)
-    valid = torch.ones(W, dtype=torch.bool, device=dev)
-    args = (c_t, None, None, None, ends, valid, used, pane_lo, pane_hi, ppw,
-            cap, True)
-    a_buf, _ = lk.fire_pack(*args)
-    b_buf, _ = lk.fire_pack_plain(*args)
-    torch.cuda.synchronize()
-    n = int(b_buf[0, 0])
-    check(int(a_buf[0, 0]) == n and torch.equal(a_buf[:n + 1], b_buf[:n + 1]),
-          "fire_pack (packed2) differs from its plain version")
-    ms = time_ms(torch, lambda: lk.fire_pack(*args))
-    plain = time_ms(torch, lambda: lk.fire_pack_plain(*args), iters=10)
-    # the library yardstick: the lane (here the count lane, as f32) times
-    # the (ring, W) column mask in one matmul, TF32 off
-    lib_ms = colmask_matmul_ms(torch, lk, c_t.float(), ends, ring, pane_lo,
-                               pane_hi, ppw)
-    # reads: the count lane's live columns once, the used mask; writes
-    # the head and n 2-column rows
-    record("fire_pack", "flink_tpu/ops/window.py:384", 0, ms, plain, lib_ms,
-           rows * W * 4 + rows + W * 9 + (n + 1) * 8, rows * W * (ppw + 2),
-           source="lane_kernels.cu")
-    out[-1]["rows_per_fire"] = n
-    out[-1]["library_call"] = ("counts.float() @ colmask (TF32 off): the "
-                               "WordCount form's one lane")
-    extra["fire_pack_wordcount_rows"] = n
-
-    # L1 fire_pack, bid-aggregate shape: count + sum + max + min lanes,
-    # 4 windows of 10 panes
-    rows, ring, ppw = 32_769, 32, 10
-    pane_lo, pane_hi = 1000, 1020
-    keys = rng.choice(rows - 1, 10_000, replace=False)
-    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, (1, 1, 1),
-                    hot=100)
-    used_np = np.zeros(rows, bool)
-    used_np[keys] = True
-    lanes_args = [t(x) for x in st]
-    ends = torch.arange(pane_hi - 2, pane_hi + 2, dtype=torch.int64,
-                        device=dev)
-    cap = 1 << 16
-    args = (*lanes_args, ends, valid, t(used_np), pane_lo, pane_hi, ppw, cap,
-            False)
-    a_buf, a_lanes = lk.fire_pack(*args)
-    b_buf, b_lanes = lk.fire_pack_plain(*args)
-    torch.cuda.synchronize()
-    n = int(b_buf[0, 0])
-    check(int(a_buf[0, 0]) == n and torch.equal(a_buf[:n + 1], b_buf[:n + 1])
-          and same_bits(torch, a_lanes[:n], b_lanes[:n]),
-          "fire_pack (lanes) differs from its plain version")
-    spans = [range(max(e - ppw, pane_lo), min(e - 1, pane_hi) + 1)
-             for e in ends.tolist()]
-    live = sum(len(sp) for sp in spans)
-    live_cols = len({p % ring for sp in spans for p in sp})
-    # reads: the count lane's live columns and the used mask once; each
-    # firing row's sum lane whole (every column times its mask bit) and
-    # its max/min lanes' live columns; writes the head, n rows of 3 and
-    # n rows of lanes
-    b, by = bound_ms(rows * live_cols * 4 + rows
-                     + len(keys) * (ring + 2 * live_cols) * 4
-                     + (n + 1) * 12 + n * 12,
-                     rows * live + n * (ring + 2 * live // W))
-    extra["fire_pack_lanes"] = {
-        "rows": n, "max_abs_err": 0.0,
-        "ms": time_ms(torch, lambda: lk.fire_pack(*args)),
-        "plain_ms": time_ms(torch, lambda: lk.fire_pack_plain(*args),
-                            iters=10),
-        "bound_ms": b, "bound_by": by, "live_panes": live,
-        "library_ms": colmask_matmul_ms(
-            torch, lk, lanes_args[1][:, :, 0].contiguous(), ends, ring,
-            pane_lo, pane_hi, ppw),
-        "library_call": "sums @ colmask (TF32 off), the sum lane"}
+    # L1 fire_pack at WordCount's shape and the bid-aggregate job (a)'s;
+    # job (b)'s layout after the bid-aggregate kernels below
+    fp = fire_pack_cases(torch, np, dev)
+    for case in fp["cases"][:2]:
+        args = case["args"]
+        a_buf, a_lanes = lk.fire_pack(*args)
+        b_buf, b_lanes = lk.fire_pack_plain(*args)
+        torch.cuda.synchronize()
+        n = int(b_buf[0, 0])
+        check(int(a_buf[0, 0]) == n
+              and torch.equal(a_buf[:n + 1], b_buf[:n + 1])
+              and (a_lanes is None or same_bits(torch, a_lanes[:n],
+                                                b_lanes[:n])),
+              f"fire_pack ({case['name']}) differs from its plain version")
+        nbytes, nops = case["bytes_ops"](n)
+        ms = time_ms(torch, lambda: lk.fire_pack(*args))
+        plain = time_ms(torch, lambda: lk.fire_pack_plain(*args), iters=10)
+        lib_ms = tf32_off(torch, lambda: time_ms(torch, case["library"]))
+        if case["name"] == "wordcount":
+            record("fire_pack", "flink_tpu/ops/window.py:384", 0, ms, plain,
+                   lib_ms, nbytes, nops, source="lane_kernels.cu")
+            out[-1]["rows_per_fire"] = n
+            out[-1]["library_call"] = case["library_call"]
+            extra["fire_pack_wordcount_rows"] = n
+        else:
+            b, by = bound_ms(nbytes, nops)
+            extra["fire_pack_lanes"] = {
+                "rows": n, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": by,
+                "live_panes": case["live_panes"], "library_ms": lib_ms,
+                "library_call": case["library_call"]}
+    st, rows, ring = fp["state"], fp["rows"], fp["ring"]
+    pane_lo, pane_hi = fp["pane_lo"], fp["pane_hi"]
 
     # L2 scatter_lanes: one 2^20-bid batch of the bid-aggregate job (a)
     # into its state, then the same batch with 2^18 records in one cell
@@ -1534,19 +1674,18 @@ def lane_kernel_cases(torch, np, dev, record, out):
         "bound_ms": b, "bound_by": by, "shape": [rows, ring, 1]}
 
     # L1 fire_pack in job (b)'s layout: one sum lane, no max or min lane
-    sum_args = (lanes_args[0], lanes_args[1], None, None, ends, valid,
-                t(used_np), pane_lo, pane_hi, ppw, cap, False)
+    case = fp["cases"][2]
+    sum_args = case["args"]
     a_buf, a_lanes = lk.fire_pack(*sum_args)
     b_buf, b_lanes = lk.fire_pack_plain(*sum_args)
     torch.cuda.synchronize()
     n = int(b_buf[0, 0])
     check(n > 0 and int(a_buf[0, 0]) == n
           and torch.equal(a_buf[:n + 1], b_buf[:n + 1])
-          and tuple(a_lanes.shape) == (cap, 1)
+          and tuple(a_lanes.shape) == (sum_args[10], 1)
           and same_bits(torch, a_lanes[:n], b_lanes[:n]),
           "fire_pack (one sum lane) differs from its plain version")
-    b, by = bound_ms(rows * live_cols * 4 + rows + len(keys) * ring * 4
-                     + (n + 1) * 12 + n * 4, rows * live + n * ring)
+    b, by = bound_ms(*case["bytes_ops"](n))
     extra["fire_pack_sum_lane"] = {
         "rows": n, "max_abs_err": 0.0, "widths": [1, 0, 0],
         "ms": time_ms(torch, lambda: lk.fire_pack(*sum_args)),
@@ -2079,6 +2218,7 @@ def profile_run(torch, run):
                                   if busy_ms > 0 else "not measured"),
             "device_ms_per_call": device_ms_per_call(by_name),
             "device_ms_by_wrapper": device_ms_by_wrapper(by_name),
+            "kernels_per_call": kernels_per_call(by_name),
             "ranged_per_call": ranged_per_call(torch, prof.events()),
             "top_device_ms": dict(top)}
 
@@ -2131,30 +2271,49 @@ def profile_devgen(torch, np, conf_path, cfg):
     return {"logical_batches": cfg.n_batches, **out}
 
 
+def kernel_hits(by_name, names):
+    """The profiler's entries of the CUDA kernels ``names``."""
+    return [v for k, v in by_name.items()
+            if any(f"::{kn}(" in k or f"::{kn}<" in k
+                   or k.startswith(kn + "(") for kn in names)]
+
+
 def device_ms_by_wrapper(by_name):
     """Each wrapper's CUDA kernels' device ms over the profiled run."""
     out = {}
     for name, kernels in PROFILED_KERNELS.items():
-        ms = sum(v["device_ms"] for k, v in by_name.items()
-                 if any(f"::{kn}(" in k or f"::{kn}<" in k
-                        or k.startswith(kn + "(") for kn in kernels))
+        ms = sum(v["device_ms"] for v in kernel_hits(by_name, kernels))
         if ms:
             out[name] = ms
     return out
 
 
+def kernels_per_call(by_name):
+    """Device kernels a wrapper call over the profiled run, for the
+    wrappers whose kernels no other wrapper launches: their profiled
+    count over the run's ``window_kernels.LAUNCHES`` (one a wrapper call;
+    every run zeroes them at its start)."""
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    out = {}
+    for name in ONE_CALL_WRAPPERS:
+        calls = wk.LAUNCHES[name]
+        if calls:
+            out[name] = sum(v["count"] for v in kernel_hits(
+                by_name, PROFILED_KERNELS[name])) / calls
+    return out
+
+
 def device_ms_per_call(by_name):
     """Device ms per wrapper call: its CUDA kernels' total over the calls
-    (topn_select_append and fire_pack launch several kernels a call)."""
+    (topn_select_append and topn_select_lanes launch several a call)."""
     per_call = {}
     for name, kernels in PROFILED_KERNELS.items():
-        def hits(names):
-            return [v for k, v in by_name.items()
-                    if any(f"::{kn}(" in k or f"::{kn}<" in k
-                           or k.startswith(kn + "(") for kn in names)]
-        calls = sum(v["count"] for v in hits(CALL_KERNELS.get(name, kernels)))
+        calls = sum(v["count"] for v in kernel_hits(
+            by_name, CALL_KERNELS.get(name, kernels)))
         if calls:
-            per_call[name] = sum(v["device_ms"] for v in hits(kernels)) / calls
+            per_call[name] = sum(v["device_ms"] for v in kernel_hits(
+                by_name, kernels)) / calls
     return per_call
 
 
@@ -2391,6 +2550,8 @@ def phase_wordcount(torch, np):
     busy, host = busy_and_host(res)
     prof = profile_run(torch, lambda: run_wordcount(
         torch, np, WC_WARMUP_BATCHES, "wordcount-profiled")[3])
+    check(prof["kernels_per_call"].get("fire_pack") == 1,
+          f"wordcount: fire_pack kernels a call {prof['kernels_per_call']}")
     out = {"phase": "wordcount", "conf": "confs/bench_wordcount.conf",
            "events": events, "batches": WC_BATCHES, "runs": WC_RUNS,
            "events_per_s_runs": [events / r[0] for r in runs],
@@ -2539,6 +2700,9 @@ def phase_bid_aggs(torch, np):
         busy, host = busy_and_host(res)
         prof = profile_run(torch, lambda: run_bid_agg(
             torch, np, which, 4, f"bid-agg-{which}-profiled")[3])
+        check(prof["kernels_per_call"].get("fire_pack") == 1,
+              f"job ({which}): fire_pack kernels a call "
+              f"{prof['kernels_per_call']}")
         for k, v in prof["device_ms_per_call"].items():
             per_call.setdefault(k, v)
         launches_by_job[which] = launches
@@ -2709,19 +2873,11 @@ def phase_window_wordcount(torch, np):
     return launches, prof["device_ms_per_call"]
 
 
-def topn_lanes_kernel_cases(torch, np, dev, record, out):
-    """window_lanes and topn_select_lanes against their plain versions at
-    job T's shapes: 32,769 rows, the 32-column ring and 11-window fires
-    of 10 s / 1 s windows after the first batch's growth, the lanes of
-    ``multi(max_of("price"), avg_of("price"))`` (one sum, one max) for
-    10,000 auctions, top-1 by max_price. Every lane and the whole emit
-    ring bit for bit (kernel and plain version add the sums in column
-    order)."""
-    from flink_tpu_torch.kernels import lane_kernels as lk
-    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
-    from flink_tpu_torch.kernels import window_kernels as wk
-    from flink_tpu_torch.ops import aggregates as ta
-
+def topn_lanes_inputs(torch, np, dev):
+    """Job T's fire at the ``kernels`` phase's shapes: 32,769 rows, the
+    32-column ring and 11-window fires of 10 s / 1 s windows after the
+    first batch's growth, the lanes of ``multi(max_of("price"),
+    avg_of("price"))`` (one sum, one max) for 10,000 auctions."""
     rng = np.random.default_rng(SEED + 6)
     rows, ring, ppw, W = 32_769, 32, 10, 11
     pane_lo, pane_hi = 1000, 1020
@@ -2734,71 +2890,37 @@ def topn_lanes_kernel_cases(torch, np, dev, record, out):
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    c_t, s_t, m_t, used = t(counts), t(sums), t(maxs), t(used_np)
     ends = torch.arange(pane_hi - W + 2, pane_hi + 2, dtype=torch.int64,
                         device=dev)
     valid = torch.ones(W, dtype=torch.bool, device=dev)
-    lane_args = (s_t, m_t, None, ends, valid, pane_lo, pane_hi, ppw, rows)
-    a = tk.window_lanes(*lane_args)
-    b = tk.window_lanes_plain(*lane_args)
-    torch.cuda.synchronize()
-    check(all(x.shape == y.shape and same_bits(torch, x, y)
-              for x, y in zip(a, b)),
-          "window_lanes differs from its plain version")
-    # the library yardstick: the sum lane times the (ring, W) column mask
-    # in one f32 matmul, TF32 off (the reference's form of the sums)
-    colmask = lk._live_columns(ends, ring, pane_lo, pane_hi, ppw).T.float()
-    s2 = s_t[:, :, 0].contiguous()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        lib_ms = time_ms(torch, lambda: s2 @ colmask)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    live = int(colmask.sum())                # live (pane, window) pairs
-    live_cols = int((colmask.sum(dim=1) > 0).sum())
-    lanes = 2
-    record("window_lanes", "flink_tpu/ops/window.py:318", 0,
-           time_ms(torch, lambda: tk.window_lanes(*lane_args)),
-           time_ms(torch, lambda: tk.window_lanes_plain(*lane_args), iters=10),
-           lib_ms, rows * live_cols * 4 * lanes + rows * W * 4 * lanes + W * 9,
-           rows * live * lanes, source="topn_lanes_kernels.cu")
-    out[-1]["library_call"] = "sums @ colmask (TF32 off), the sum lane"
+    return {"rows": rows, "ring": ring, "ppw": ppw, "W": W,
+            "pane_lo": pane_lo, "pane_hi": pane_hi, "counts": t(counts),
+            "sums": t(sums), "maxs": t(maxs), "used": t(used_np),
+            "ends": ends, "valid": valid,
+            "lane_args": (t(sums), t(maxs), None, ends, valid, pane_lo,
+                          pane_hi, ppw, rows)}
 
-    # TB: the operator's finalize on the grid, then the selection
-    wc = wk.window_counts(c_t, ends, valid, pane_lo, pane_hi, ppw)
+
+def topn_select_cases(torch, np, dev, inp, lanes, wc):
+    """``topn_select_lanes``' two inputs at job T's fire (``inp``, its
+    lanes ``lanes`` and window counts ``wc``): top-1 by max_price (the
+    operator's finalize on the grid, two result columns) and job T's
+    second run, top-3 by avg_price, which takes the threshold's later
+    places; planted in the ranked lane: a +NaN above window 0's best,
+    window 1's 3rd value tied on another candidate, window 2's 3rd place
+    a +0.0 tied (IEEE) with a -0.0 below it, every other candidate there
+    negative, and a -NaN for window 3's best. Each ``(args without the
+    ring, n, plant)``; ``plant[w]`` is window w's candidates, best first."""
+    from flink_tpu_torch.ops import aggregates as ta
+
+    used, ends, valid = inp["used"], inp["ends"], inp["valid"]
     res = ta.multi(ta.max_of("price"), ta.avg_of("price")).finalize(
-        a[0], a[1], a[2], wc)
+        lanes[0], lanes[1], lanes[2], wc)
     cols = torch.stack([res[f].to(torch.float32).view(torch.int32)
                         for f in ("avg_price", "max_price")], dim=2).contiguous()
     v = res["max_price"].contiguous()
-    n_top, sel_cap = 1, 256
-    emit_ring = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
-    sel_args = (wc, v, cols, used, ends, valid, pane_lo, n_top, sel_cap)
-    r1, r2 = emit_ring.clone(), emit_ring.clone()
-    tk.topn_select_lanes(*sel_args, r1)
-    tk.topn_select_lanes_plain(*sel_args, r2)
-    torch.cuda.synchronize()
-    check(torch.equal(r1[:-1], r2[:-1]),
-          "topn_select_lanes differs from its plain version")
-    written = int(r1[0, 0])
-    check(written >= W and int(r1[0, 1]) == 0, f"ring head {r1[0].tolist()}")
-    r3, r4 = emit_ring.clone(), emit_ring.clone()
-    vt = v.T.contiguous()
-    record("topn_select_lanes", "flink_tpu/ops/window.py:547", 0,
-           time_ms(torch, lambda: tk.topn_select_lanes(*sel_args, r3)),
-           time_ms(torch, lambda: tk.topn_select_lanes_plain(*sel_args, r4),
-                   iters=10),
-           time_ms(torch, lambda: torch.topk(vt, n_top, dim=1)),
-           rows * W * 8 + rows + W * 9 + written * 5 * 4 + 8,
-           rows * W * (2 * n_top + 2), source="topn_lanes_kernels.cu")
-    out[-1]["library_call"] = "torch.topk(v.T, n), the threshold only"
-
-    # job T's second run: top-3 by avg_price, which takes the threshold's
-    # later rounds; planted in the ranked lane: a +NaN above window 0's
-    # best, window 1's 3rd value tied on another candidate, window 2's
-    # 3rd place a +0.0 tied (IEEE) with a -0.0 below it, every other
-    # candidate there negative, and a -NaN for window 3's best
+    sel_cap = 256
+    top1 = (wc, v, cols, used, ends, valid, inp["pane_lo"], 1, sel_cap)
     v3 = res["avg_price"].clone()
     cand = ((wc > 0) & used[:, None]).cpu().numpy()
     plant = {}
@@ -2817,7 +2939,73 @@ def topn_lanes_kernel_cases(torch, np, dev, record, out):
     cols3 = torch.stack([v3.view(torch.int32),
                          res["max_price"].view(torch.int32)],
                         dim=2).contiguous()
-    sel3 = (wc, v3, cols3, used, ends, valid, pane_lo, 3, sel_cap)
+    top3 = (wc, v3, cols3, used, ends, valid, inp["pane_lo"], 3, sel_cap)
+    return {"top1": top1, "top3": top3, "plant": plant, "v": v, "v3": v3}
+
+
+def topn_lanes_kernel_cases(torch, np, dev, record, out):
+    """window_lanes and topn_select_lanes against their plain versions at
+    job T's shapes (``topn_lanes_inputs``), top-1 by max_price and the
+    planted top-3 by avg_price (``topn_select_cases``). Every lane and the
+    whole emit ring bit for bit (kernel and plain version add the sums in
+    column order)."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    inp = topn_lanes_inputs(torch, np, dev)
+    rows, ring, ppw, W = inp["rows"], inp["ring"], inp["ppw"], inp["W"]
+    pane_lo, pane_hi = inp["pane_lo"], inp["pane_hi"]
+    c_t, s_t, used = inp["counts"], inp["sums"], inp["used"]
+    ends, valid = inp["ends"], inp["valid"]
+    lane_args = inp["lane_args"]
+    a = tk.window_lanes(*lane_args)
+    b = tk.window_lanes_plain(*lane_args)
+    torch.cuda.synchronize()
+    check(all(x.shape == y.shape and same_bits(torch, x, y)
+              for x, y in zip(a, b)),
+          "window_lanes differs from its plain version")
+    # the library yardstick: the sum lane times the (ring, W) column mask
+    # in one f32 matmul, TF32 off (the reference's form of the sums)
+    colmask = lk._live_columns(ends, ring, pane_lo, pane_hi, ppw).T.float()
+    s2 = s_t[:, :, 0].contiguous()
+    lib_ms = tf32_off(torch, lambda: time_ms(torch, lambda: s2 @ colmask))
+    live = int(colmask.sum())                # live (pane, window) pairs
+    live_cols = int((colmask.sum(dim=1) > 0).sum())
+    lanes = 2
+    record("window_lanes", "flink_tpu/ops/window.py:318", 0,
+           time_ms(torch, lambda: tk.window_lanes(*lane_args)),
+           time_ms(torch, lambda: tk.window_lanes_plain(*lane_args), iters=10),
+           lib_ms, rows * live_cols * 4 * lanes + rows * W * 4 * lanes + W * 9,
+           rows * live * lanes, source="topn_lanes_kernels.cu")
+    out[-1]["library_call"] = "sums @ colmask (TF32 off), the sum lane"
+
+    # TB: the operator's finalize on the grid, then the selection
+    wc = wk.window_counts(c_t, ends, valid, pane_lo, pane_hi, ppw)
+    sel = topn_select_cases(torch, np, dev, inp, a, wc)
+    sel_args, v, n_top = sel["top1"], sel["v"], 1
+    emit_ring = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
+    r1, r2 = emit_ring.clone(), emit_ring.clone()
+    tk.topn_select_lanes(*sel_args, r1)
+    tk.topn_select_lanes_plain(*sel_args, r2)
+    torch.cuda.synchronize()
+    check(torch.equal(r1[:-1], r2[:-1]),
+          "topn_select_lanes differs from its plain version")
+    written = int(r1[0, 0])
+    check(written >= W and int(r1[0, 1]) == 0, f"ring head {r1[0].tolist()}")
+    r3, r4 = emit_ring.clone(), emit_ring.clone()
+    vt = v.T.contiguous()
+    record("topn_select_lanes", "flink_tpu/ops/window.py:547", 0,
+           time_ms(torch, lambda: tk.topn_select_lanes(*sel_args, r3)),
+           time_ms(torch, lambda: tk.topn_select_lanes_plain(*sel_args, r4),
+                   iters=10),
+           time_ms(torch, lambda: torch.topk(vt, n_top, dim=1)),
+           *topn_select_bytes_ops(rows, W, n_top, written),
+           source="topn_lanes_kernels.cu")
+    out[-1]["library_call"] = "torch.topk(v.T, n), the threshold only"
+
+    # job T's second run, top-3 by avg_price, with the planted cells
+    sel3, plant = sel["top3"], sel["plant"]
     r5, r6 = emit_ring.clone(), emit_ring.clone()
     tk.topn_select_lanes(*sel3, r5)
     tk.topn_select_lanes_plain(*sel3, r6)
@@ -2828,16 +3016,31 @@ def topn_lanes_kernel_cases(torch, np, dev, record, out):
     written3 = int(r5[0, 0])
     check(written3 >= 2 * W and int(r5[0, 1]) == 0,
           f"top-3 ring head {r5[0].tolist()}")
-    got = r5[1:1 + written3, :2].cpu().numpy()
-    got = set(zip(got[:, 0].tolist(),
-                  (got[:, 1] + pane_lo - int(ends[0])).tolist()))
+    check_top3_plants(np, r5, plant, pane_lo - int(ends[0]))
+    return {"window_lanes_cells": rows * W, "topn_select_lanes_rows": written,
+            "topn_select_lanes_top3_rows": written3}
+
+
+def topn_select_bytes_ops(rows, W, n, written):
+    """``topn_select_lanes``' bound counts: reads the (rows, W) counts and
+    ranking values and the used mask once, writes each appended row of 5
+    words and the head."""
+    return (rows * W * 8 + rows + W * 9 + written * 5 * 4 + 8,
+            rows * W * (2 * n + 2))
+
+
+def check_top3_plants(np, ring, plant, delta0):
+    """The planted top-3 cells selected as the reference's rule does:
+    window 0's +NaN out and its 2nd in, window 1's tie in, window 2's
+    +0.0 and the -0.0 tied with it in, window 3's -NaN out."""
+    written = int(ring[0, 0])
+    got = ring[1:1 + written, :2].cpu().numpy()
+    got = set(zip(got[:, 0].tolist(), (got[:, 1] + delta0).tolist()))
     check((int(plant[0][-1]), 0) not in got and (int(plant[0][1]), 0) in got
           and (int(plant[1][-1]), 1) in got and (int(plant[2][2]), 2) in got
           and (int(plant[2][-1]), 2) in got and (int(plant[3][0]), 3) not in got,
           "top-3: the planted NaN, tie and signed-zero cells did not select "
           "as the reference's rule does")
-    return {"window_lanes_cells": rows * W, "topn_select_lanes_rows": written,
-            "topn_select_lanes_top3_rows": written3}
 
 
 def phase_summary(rows_n, launches, res, wall, events, batches, prof):
@@ -2980,6 +3183,13 @@ def phase_topn_lanes(torch, np):
               f"top {n} by {by} took a count-only kernel: {launches}")
         prof = profile_run(torch, lambda: run_topn_lanes(
             torch, np, SIDE_BATCHES, by, n, f"topn-{by}-profiled")[3])
+        # the max pass and the selection at top-1; above, the radix select
+        # and the selection in one cooperative launch (five launches where
+        # the grid does not fit the card at once)
+        check(prof["kernels_per_call"].get("topn_select_lanes")
+              in ((2,) if n == 1 else (1, 5)),
+              f"top {n} by {by}: topn_select_lanes kernels a call "
+              f"{prof['kernels_per_call']}")
         for k, v in prof["device_ms_per_call"].items():
             per_call.setdefault(k, v)
         runs.append((by, n, rows, launches, res, wall, prof))
@@ -3629,6 +3839,8 @@ def phase_proc_time(torch, np):
     check(not missing, f"proc_time: kernels not launched: {missing}")
     prof = profile_run(torch, lambda: run_proc_time(
         torch, np, SIDE_BATCHES, "proc-time-profiled")[3])
+    check(prof["kernels_per_call"].get("fire_pack") == 1,
+          f"proc_time: fire_pack kernels a call {prof['kernels_per_call']}")
     cfg = bids_cfg(PROC_BATCHES)
     want = np.zeros(cfg.num_active_auctions, np.int64)
     for i in range(PROC_BATCHES):
@@ -3833,6 +4045,17 @@ def main() -> int:
     if "--ring-pairs" in sys.argv[1:]:
         try:
             phase_ring_pairs(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--fire-kernels" in sys.argv[1:]:
+        try:
+            phase_fire_kernels(torch, np)
             print(card_line(), flush=True)
         except Exception:
             traceback.print_exc()

@@ -1,9 +1,9 @@
 // Ordered compaction in two launches, shared by the fire kernels that
 // pack selected items for the host in the reference's order (its stable
-// argsort or cumsum): topn_select_append (window_fire.cuh),
-// topn_select_lanes (topn_lanes_kernels.cu) and fire_pack
-// (lane_kernels.cu) over (row, window) cells, count_fire
-// (count_window_kernels.cu) over rows.
+// argsort or cumsum): topn_select_append and topn_select_given
+// (window_fire.cuh) over (row, window) cells, count_fire
+// (count_window_kernels.cu) over rows. fire_pack and topn_select_lanes
+// compact in one launch instead (lookback.cuh).
 //
 //   A  one block per kTile items, each thread testing kItems consecutive
 //      items: compact_count stores the block's selected count;
@@ -76,8 +76,8 @@ __device__ __forceinline__ void compact_write(int64_t K, const int32_t* __restri
 
 inline int32_t compact_blocks(int64_t K) { return (int32_t)((K + kTile - 1) / kTile); }
 
-// Pass B of the top-n fires (window_fire.cuh's count form,
-// topn_lanes_kernels.cu's lane form) over a row-major (rows, W) grid:
+// Pass B of the count-only top-n fires (window_fire.cuh) over a
+// row-major (rows, W) grid:
 // the first ``sel_cap`` selected cells i = (r, w), in cell order, become
 // emit-ring rows (total + pos) % row_cap + 1 = [r + row_offset,
 // end_panes[w] - anchor, wcounts[i], then ``extra(i, dst + 3)``'s

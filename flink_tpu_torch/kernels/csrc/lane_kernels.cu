@@ -31,7 +31,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "compact.cuh"
+#include "lookback.cuh"
 #include "window_common.cuh"
 
 namespace {
@@ -46,112 +46,356 @@ constexpr int32_t kErrFireCap = 32;
 // count over its live panes, selection (count > 0, row in use, window
 // valid), stable row-major compaction into an int32 buffer and, for the
 // selected cells, the window's lane values. Row 0 of the buffer is the
-// head [n selected, 0, ...]; rows 1..min(n, cap) are [row, end - pane_lo,
-// count] — or, in the count-only packed2 layout, [(row << 8) | delta,
-// count]. ``row_offset`` is added to the row column of the 3-column
-// layout: a key-sharded operator's device block passes its first global
-// row (flink_tpu/ops/window.py:1552 fire_shard). The lanes go to a (cap, S + M + m) f32 buffer in the same row
-// order; the aggregate's finalize runs on them in torch.
+// head [n selected, 0, ...]; rows 1..min(n, cap) are [row + row_offset,
+// end - pane_lo, count] — or, in the count-only packed2 layout,
+// [(row << 8) | delta, count]. ``row_offset`` is a key-sharded operator's
+// device block's first global row (flink_tpu/ops/window.py:1552
+// fire_shard). The lanes go to a (cap, S + M + m) f32 buffer in the same
+// row order; the aggregate's finalize runs on them in torch.
 //
 // Bound: bytes — the count lane's live columns once, each selected cell's
 // lane columns once (the sums row is read whole, since the reference adds
-// every column times its mask bit), the output rows once. Design, the
-// two launches of compact.cuh's ordered compaction on one stream:
-//   A  window counts into a (rows, W) scratch and each block's selected
-//      count;
-//   B  each selected cell's row and lanes at its position; block 0
-//      writes the head. The rows land in exactly the order of the
-//      reference's stable argsort.
+// every column times its mask bit), the output rows once.
+//
+// Design, one launch, no per-cell scratch in device memory: a block
+// takes a tile of tile_cells consecutive cells of the row-major (row,
+// window) grid, which spans at most tile_rows rows.
+//   1  The tile's rows' count columns, contiguous in memory, and their
+//      used flags go into shared memory by cp.async (16 bytes a copy for
+//      the aligned body); each window's first live column and run lengths
+//      come from a table worked out once a block.
+//   2  Each thread counts its consecutive cells from shared memory and
+//      selects them; a block scan ranks them in row-major order, and the
+//      tile publishes its count at once (lookback.cuh lb_publish).
+//   3  With lanes: the rows of the tile that hold a selected cell get
+//      their lane rows staged, a warp a row, in flight through step 4.
+//   4  The tile's offset among all selected cells comes from
+//      lookback.cuh's decoupled look-back in the same launch; the grid's
+//      last tile writes the head and advances the workspace's epoch.
+//   5  The tile's rows are built in shared memory and stored as one
+//      contiguous run, neighbouring threads on neighbouring words.
+//   6  With lanes: each thread computes one (cell, lane) output within
+//      the cap, in the lanes buffer's order, so the stores coalesce. Sums
+//      add every column in column order from 0.0f, each times its 0/1
+//      live bit, dead columns included (an inf or NaN there gives NaN, as
+//      the reference's column-mask product and the plain version do); max
+//      and min fold the live columns only (max_ieee / min_ieee).
+// The tile size is the wrapper's (lane_kernels.py _fire_plan): as many
+// cells (up to kFireCells) as leave the staged rows within kFireSmem
+// bytes of shared memory; a ring too long to stage reads its rows where
+// they lie (the plan's stage flags). Row and cell offsets are 64-bit, so
+// a state of 2^31 count cells or more takes the same path.
+constexpr int kFireItems = 4;                      // cells a thread at most
+constexpr int kFireCells = kThreads * kFireItems;  // cells a tile at most
+constexpr int kFireWinTable = 64;                  // windows of the block's table
+constexpr int kFireSmem = 44 * 1024;  // dynamic shared memory a block (+ static < 48 KB)
 
-__global__ void fire_count_kernel(const int32_t* __restrict__ counts, int64_t rows, int32_t ring,
-                                  const int64_t* __restrict__ end_panes,
-                                  const uint8_t* __restrict__ w_valid, int32_t W,
-                                  int64_t pane_lo, int64_t pane_hi, int32_t ppw,
-                                  const uint8_t* __restrict__ used, int32_t* __restrict__ wc,
-                                  int32_t* __restrict__ block_counts) {
-  const int64_t hi_cap = live_hi_cap(pane_lo, pane_hi, ring);
-  compact_count(
-      rows * (int64_t)W,
-      [&](int64_t i) {
-        const int64_t r = i / W;
-        const int32_t w = (int32_t)(i - r * W);
-        const int32_t v = w_valid[w] ? window_count(counts + r * ring, ring, end_panes[w],
-                                                    pane_lo, hi_cap, ppw)
-                                     : 0;
-        wc[i] = v;
-        return v > 0 && used[r];
-      },
-      block_counts);
+struct FireParams {
+  const int32_t* counts;
+  const float* lane[3];
+  int32_t width[3];
+  int64_t rows;
+  int32_t ring, W, ppw;
+  const int64_t* end_panes;
+  const uint8_t* w_valid;
+  const uint8_t* used;
+  int64_t pane_lo, pane_hi;
+  int32_t* out;
+  int32_t out_cols, out_cap, packed2, row_offset;
+  float* lanes;
+  int32_t* err;
+  uint32_t* epoch;
+  unsigned long long* desc;
+  int32_t tile_cells, tile_rows, stage_counts, stage_lanes;
+  int64_t tiles;
+};
+
+__host__ __device__ __forceinline__ int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }
+
+// a staged lane row: each family's columns and one pad word after each,
+// the row's stride made odd so neighbouring rows fall on distinct banks
+__host__ __device__ __forceinline__ int64_t fire_lane_stride(int64_t ring, int64_t L) {
+  const int64_t s = ring * L + 3;
+  return s % 2 ? s : s + 1;
 }
 
-__global__ void fire_write_kernel(const int32_t* __restrict__ wc, int64_t rows, int32_t W,
-                                  const uint8_t* __restrict__ used,
-                                  const int32_t* __restrict__ block_counts, int32_t n_blocks,
-                                  const int64_t* __restrict__ end_panes, int64_t pane_lo,
-                                  int64_t pane_hi, int32_t ppw, int32_t ring,
-                                  const float* __restrict__ sums, int32_t sw,
-                                  const float* __restrict__ maxs, int32_t mw,
-                                  const float* __restrict__ mins, int32_t nw,
-                                  int32_t* __restrict__ out, int32_t out_cols, int32_t out_cap,
-                                  int32_t packed2, int32_t row_offset,
-                                  float* __restrict__ lanes, int32_t* __restrict__ err) {
-  const int32_t L = sw + mw + nw;
-  compact_write(
-      rows * (int64_t)W, block_counts, n_blocks, out_cap,
-      [&](int64_t i) { return wc[i] > 0 && used[i / W]; },
-      [&](int64_t i, long long pos) {
-        const int64_t r = i / W;
-        const int32_t w = (int32_t)(i - r * W);
-        const int64_t e = end_panes[w];
-        const int32_t delta = (int32_t)(e - pane_lo);
-        int32_t* dst = out + (pos + 1) * out_cols;
-        if (packed2) {
-          dst[0] = ((int32_t)r << 8) | delta;
-          dst[1] = wc[i];
+// the block's shared memory, in 32-bit words: the out rows, then the
+// selected cells, the rows' slots, the rows' used flags (bytes, by
+// aligned words), the staged count rows (3 words of room for the
+// alignment shift; copied as they lie, 16 bytes a copy: an odd row stride
+// for distinct banks took 4-byte copies and staged 3.3 x slower at
+// WordCount's fire) and the staged lane rows
+struct FireLayout {
+  int64_t sel, slot, used, cnt, lane, words;
+};
+
+__host__ __device__ __forceinline__ FireLayout fire_layout(int64_t cells, int64_t tile_rows,
+                                                           int64_t ring, int64_t L, int64_t cols,
+                                                           bool stage_counts, bool stage_lanes) {
+  FireLayout f;
+  f.sel = round4(cells * cols);
+  f.slot = f.sel + (L ? round4(cells) : 0);
+  f.used = f.slot + (L && stage_lanes ? round4(tile_rows) : 0);
+  f.cnt = f.used + round4((tile_rows + 6) / 4 + 1);
+  f.lane = f.cnt + (stage_counts ? round4(tile_rows * ring + 3) : 0);
+  f.words = f.lane + (L && stage_lanes ? tile_rows * fire_lane_stride(ring, L) : 0);
+  return f;
+}
+
+// a window's live columns, mod ring: the count's [c0, c0 + ncnt) (0 for
+// an invalid window) and the lanes' [c0, c0 + span] (span -1: none);
+// delta = end - pane_lo
+struct FireWin {
+  int32_t c0, ncnt, span, delta;
+};
+
+__device__ __forceinline__ FireWin fire_window(const FireParams& p, int32_t w, int64_t hi_cap) {
+  const int64_t e = p.end_panes[w];
+  const int64_t lo = e - p.ppw > p.pane_lo ? e - p.ppw : p.pane_lo;
+  const int64_t hc = e - 1 < hi_cap ? e - 1 : hi_cap;
+  const int64_t hl = e - 1 < p.pane_hi ? e - 1 : p.pane_hi;
+  const int64_t span = hl - lo;
+  FireWin f;
+  f.c0 = (int32_t)floor_mod(lo, p.ring);
+  f.ncnt = p.w_valid[w] && lo <= hc ? (int32_t)(hc - lo + 1) : 0;
+  f.span = span < 0 ? -1 : (span >= p.ring - 1 ? p.ring - 1 : (int32_t)span);
+  f.delta = (int32_t)(e - p.pane_lo);
+  return f;
+}
+
+// the column-order sum of x's ring columns (stride wf), each times its
+// live bit: live are [c0, c0 + span] mod ring
+__device__ __forceinline__ float fire_sum(const float* x, int32_t wf, int32_t ring, int32_t c0,
+                                          int32_t span) {
+  const int32_t end = c0 + span + 1;
+  const int32_t e1 = end > ring ? end - ring : 0, e3 = end < ring ? end : ring;
+  float acc = 0.0f;
+  int32_t c = 0;
+  for (; c < e1; ++c) acc += x[c * wf] * 1.0f;
+  for (; c < c0; ++c) acc += x[c * wf] * 0.0f;
+  for (; c < e3; ++c) acc += x[c * wf] * 1.0f;
+  for (; c < ring; ++c) acc += x[c * wf] * 0.0f;
+  return acc;
+}
+
+// the IEEE maximum (kMax) or minimum of the live columns only
+template <bool kMax>
+__device__ __forceinline__ float fire_fold(const float* x, int32_t wf, int32_t ring, int32_t c0,
+                                           int32_t span) {
+  const int32_t end = c0 + span + 1;
+  const int32_t e1 = end > ring ? end - ring : 0, e3 = end < ring ? end : ring;
+  float acc = kMax ? -INFINITY : INFINITY;
+  for (int32_t c = 0; c < e1; ++c)
+    acc = kMax ? max_ieee(acc, x[c * wf]) : min_ieee(acc, x[c * wf]);
+  for (int32_t c = c0; c < e3; ++c)
+    acc = kMax ? max_ieee(acc, x[c * wf]) : min_ieee(acc, x[c * wf]);
+  return acc;
+}
+
+// a window's table entry: from the block's table (kTable: W <=
+// kFireWinTable) or worked out where it is used (a run-time choice let
+// the compiler load both sides)
+template <bool kTable>
+__device__ __forceinline__ FireWin fire_win(const FireParams& p, const FireWin* s_win, int32_t w,
+                                            int64_t hi_cap) {
+  if constexpr (kTable)
+    return s_win[w];
+  else
+    return fire_window(p, w, hi_cap);
+}
+
+template <bool kTable>
+__global__ void __launch_bounds__(kThreads) fire_pack_kernel(const FireParams p) {
+  extern __shared__ __align__(16) uint32_t fire_smem[];
+  __shared__ FireWin s_win[kFireWinTable];
+  __shared__ int s_scan[kWarps];
+  __shared__ int s_total, s_slots, s_min[kWarps];
+  __shared__ long long s_sum[kWarps];
+  __shared__ uint32_t s_epoch;
+  const int64_t tile = blockIdx.x;
+  const int32_t W = p.W, ring = p.ring, C = p.tile_cells;
+  const int32_t L = p.width[0] + p.width[1] + p.width[2];
+  const int cols = p.out_cols;
+  const bool stage_lanes = L && p.stage_lanes;
+  const int64_t a = tile * C, K = p.rows * (int64_t)W;
+  const int32_t nc = (int32_t)(K - a < C ? K - a : C);
+  const int64_t r_lo = a / W;
+  const int32_t a_off = (int32_t)(a - r_lo * W);  // the tile's first window
+  const int32_t nr = (a_off + nc - 1) / W + 1;    // the rows it spans
+  const FireLayout lay = fire_layout(C, p.tile_rows, ring, L, cols, p.stage_counts, stage_lanes);
+  int32_t* s_out = (int32_t*)fire_smem;
+  int32_t* s_sel = (int32_t*)fire_smem + lay.sel;
+  int32_t* s_slot = (int32_t*)fire_smem + lay.slot;
+  float* s_lane = (float*)fire_smem + lay.lane;
+  const int64_t hi_cap = live_hi_cap(p.pane_lo, p.pane_hi, ring);
+
+  // 1: the count rows in flight, then this thread's rows' used flags, the
+  // window table and the rows' flags while they land
+  const int32_t* crow = p.counts + r_lo * ring;
+  const int32_t* cnt = crow;
+  if (p.stage_counts)
+    cnt = (const int32_t*)fire_smem + lay.cnt +
+          stage_words(fire_smem + lay.cnt, (const uint32_t*)crow, (int64_t)nr * ring);
+  // the rows' used flags: their bytes by aligned words (the words around
+  // them lie in the same allocation)
+  const uint8_t* ub = p.used + r_lo;
+  const int ushift = (int)((uintptr_t)ub & 3);
+  const uint32_t* uw = (const uint32_t*)(ub - ushift);
+  for (int32_t i = threadIdx.x; i < (ushift + nr + 3) / 4; i += kThreads)
+    cp_async_4(fire_smem + lay.used + i, uw + i);
+  const uint8_t* s_used = (const uint8_t*)(fire_smem + lay.used) + ushift;
+  const int32_t ipt = (C + kThreads - 1) / kThreads;
+  const int32_t first = threadIdx.x * ipt;
+  const int32_t x0 = a_off + first;
+  const int32_t rl0 = x0 / W, w0 = x0 - rl0 * W;
+  if (kTable)
+    for (int32_t w = threadIdx.x; w < W; w += kThreads) s_win[w] = fire_window(p, w, hi_cap);
+  if (stage_lanes)
+    for (int32_t r = threadIdx.x; r < nr; r += kThreads) s_slot[r] = 0;
+  if (threadIdx.x == 0) s_epoch = *(volatile const uint32_t*)p.epoch;
+  cp_async_wait();
+  __syncthreads();
+  const uint32_t epoch = s_epoch;
+
+  // 2: count and select this thread's cells
+  int32_t v[kFireItems];
+  uint32_t sel = 0;
+  {
+    int32_t rl = rl0, w = w0;
+#pragma unroll
+    for (int j = 0; j < kFireItems; ++j) {
+      v[j] = 0;
+      if (j < ipt && first + j < nc && s_used[rl]) {
+        const FireWin f = fire_win<kTable>(p, s_win, w, hi_cap);
+        const int32_t* row = cnt + (int64_t)rl * ring;
+        const int32_t end = f.c0 + f.ncnt, e3 = end < ring ? end : ring;
+        int32_t c = 0;
+        for (int32_t k = f.c0; k < e3; ++k) c += row[k];
+        for (int32_t k = 0; k < end - ring; ++k) c += row[k];
+        v[j] = c;
+        if (c > 0) sel |= 1u << j;
+      }
+      if (++w == W) {
+        w = 0;
+        ++rl;
+      }
+    }
+  }
+  const int before = block_scan_total(__popc(sel), s_scan, &s_total);
+  const int32_t tile_n = s_total;
+  lb_publish(p.desc, tile, tile_n, epoch);
+
+  // 3: with lanes, each selected cell's place and the lane rows of the
+  // tile's rows that hold one, in flight through the look-back
+  // a staged lane row: each family's columns from base_f, then a pad word
+  const int32_t sw = p.width[0], mw = p.width[1];
+  const int64_t stride = fire_lane_stride(ring, L);
+  const int64_t base_m = (int64_t)ring * sw + 1, base_n = base_m + (int64_t)ring * mw + 1;
+  if (L && tile_n > 0) {  // uniform over the block
+    int32_t rl = rl0, q = before;
+#pragma unroll
+    for (int j = 0; j < kFireItems; ++j) {
+      if ((sel >> j) & 1) {
+        s_sel[q++] = first + j;
+        if (stage_lanes) s_slot[rl] = 1;
+      }
+      rl += (w0 + j + 1) % W == 0;
+    }
+    __syncthreads();
+    if (stage_lanes) {
+      // the flagged rows' slots, in row order
+      const int32_t per = (nr + kThreads - 1) / kThreads, r0 = threadIdx.x * per;
+      int flagged = 0;
+      for (int32_t i = 0; i < per && r0 + i < nr; ++i) flagged += s_slot[r0 + i];
+      int slot = block_scan_total(flagged, s_scan, &s_slots);
+      for (int32_t i = 0; i < per && r0 + i < nr; ++i)
+        s_slot[r0 + i] = s_slot[r0 + i] ? slot++ : -1;
+      __syncthreads();
+      // a warp a row: each family's columns, coalesced
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      for (int32_t r = warp; r < nr; r += kWarps) {
+        const int32_t sl = s_slot[r];
+        if (sl < 0) continue;
+#pragma unroll
+        for (int f = 0; f < 3; ++f) {
+          const int64_t n = (int64_t)ring * p.width[f];
+          const float* src = p.lane[f] + (r_lo + r) * n;
+          float* d = s_lane + sl * stride + (f == 0 ? 0 : f == 1 ? base_m : base_n);
+          for (int64_t e = lane; e < n; e += 32) cp_async_4(d + e, src + e);
+        }
+      }
+    }
+  }
+
+  // 4: the tile's place among all selected cells; the last tile's head
+  // and the next call's epoch
+  const long long excl = lookback_exclusive(p.desc, tile, tile_n, epoch, s_sum, s_min);
+  if (tile == p.tiles - 1 && threadIdx.x == 0) {
+    const long long all = excl + tile_n;
+    p.out[0] = (int32_t)all;
+    for (int c = 1; c < cols; ++c) p.out[c] = 0;
+    if (all > p.out_cap) atomicOr(p.err, kErrFireCap);
+    lb_advance(p.epoch, epoch);
+  }
+  const long long room = p.out_cap - excl;
+  const int32_t n_w = room <= 0 ? 0 : (room < tile_n ? (int32_t)room : tile_n);
+
+  if (n_w > 0) {  // uniform over the block
+    // 5: the rows, built in shared memory, stored as one run
+    int32_t rl = rl0, w = w0, q = before;
+#pragma unroll
+    for (int j = 0; j < kFireItems; ++j) {
+      if (((sel >> j) & 1) && q < n_w) {
+        const int32_t delta = fire_win<kTable>(p, s_win, w, hi_cap).delta;
+        const int32_t r = (int32_t)(r_lo + rl);
+        int32_t* d = s_out + q * cols;
+        if (p.packed2) {
+          d[0] = (r << 8) | delta;
+          d[1] = v[j];
         } else {
-          dst[0] = (int32_t)r + row_offset;
-          dst[1] = delta;
-          dst[2] = wc[i];
+          d[0] = r + p.row_offset;
+          d[1] = delta;
+          d[2] = v[j];
         }
-        if (L == 0) return;
-        // the window's live panes [lo_w, hi_w]; column c is live when it
-        // holds one of them (span < ring: one live pane per column)
-        const int64_t lo_w = e - ppw > pane_lo ? e - ppw : pane_lo;
-        const int64_t hi_w = e - 1 < pane_hi ? e - 1 : pane_hi;
-        const int64_t span = hi_w - lo_w;
-        const int32_t c0 = (int32_t)floor_mod(lo_w, ring);
-        const int32_t span32 = span < 0 ? -1 : (span >= ring - 1 ? ring - 1 : (int32_t)span);
-        float* lo_out = lanes + pos * L;
-        for (int32_t s = 0; s < sw; ++s) {
-          float acc = 0.0f;
-          for (int32_t c = 0; c < ring; ++c) {
-            const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
-            acc += sums[(r * ring + c) * sw + s] * (d <= span32 ? 1.0f : 0.0f);
-          }
-          lo_out[s] = acc;
-        }
-        for (int32_t s = 0; s < mw; ++s) {
-          float acc = -INFINITY;
-          for (int32_t c = 0; c < ring; ++c) {
-            const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
-            if (d <= span32) acc = max_ieee(acc, maxs[(r * ring + c) * mw + s]);
-          }
-          lo_out[sw + s] = acc;
-        }
-        for (int32_t s = 0; s < nw; ++s) {
-          float acc = INFINITY;
-          for (int32_t c = 0; c < ring; ++c) {
-            const int32_t d = c >= c0 ? c - c0 : c - c0 + ring;
-            if (d <= span32) acc = min_ieee(acc, mins[(r * ring + c) * nw + s]);
-          }
-          lo_out[sw + mw + s] = acc;
-        }
-      },
-      [&](long long all) {
-        out[0] = (int32_t)all;
-        for (int32_t c = 1; c < out_cols; ++c) out[c] = 0;
-        if (all > out_cap) atomicOr(err, kErrFireCap);
-      });
+      }
+      q += (sel >> j) & 1;
+      if (++w == W) {
+        w = 0;
+        ++rl;
+      }
+    }
+    __syncthreads();
+    int32_t* dst = p.out + (excl + 1) * cols;
+    for (int32_t i = threadIdx.x; i < n_w * cols; i += kThreads) dst[i] = s_out[i];
+
+    // 6: the lanes, one (cell, lane) output a thread, in the buffer's order
+    if (L) {
+      cp_async_wait();
+      __syncthreads();
+      float* lo_out = p.lanes + excl * L;
+      for (int32_t e = threadIdx.x; e < n_w * L; e += kThreads) {
+        const int32_t qi = e / L, l = e - qi * L;
+        const int32_t x = a_off + s_sel[qi];
+        const int32_t rr = x / W, ww = x - rr * W;
+        const FireWin f = fire_win<kTable>(p, s_win, ww, hi_cap);
+        // the lane's family, index in it and width, by selects (an index
+        // into the parameter block would copy it to local memory)
+        const int fam = l < sw ? 0 : l < sw + mw ? 1 : 2;
+        const int32_t j = fam == 0 ? l : fam == 1 ? l - sw : l - sw - mw;
+        const int32_t wf = fam == 0 ? sw : fam == 1 ? mw : p.width[2];
+        const float* xs =
+            stage_lanes
+                ? s_lane + s_slot[rr] * stride + (fam == 0 ? 0 : fam == 1 ? base_m : base_n) + j
+                : (fam == 0 ? p.lane[0] : fam == 1 ? p.lane[1] : p.lane[2]) +
+                      (r_lo + rr) * ring * wf + j;
+        lo_out[e] = fam == 0   ? fire_sum(xs, wf, ring, f.c0, f.span)
+                    : fam == 1 ? fire_fold<true>(xs, wf, ring, f.c0, f.span)
+                               : fire_fold<false>(xs, wf, ring, f.c0, f.span);
+      }
+    }
+  }
+
+  cp_async_wait();  // a tile past the cap may still have lane rows in flight
 }
 
 // ---- L2: scatter_lanes -----------------------------------------------------
@@ -885,26 +1129,71 @@ extern "C" {
 
 const char* lk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// scratch: wc (rows * W int32), block_counts (ceil(rows * W / kTile) int32)
-int lk_fire_pack(const int32_t* counts, int64_t rows, int32_t ring, const float* sums, int32_t sw,
-                 const float* maxs, int32_t mw, const float* mins, int32_t nw,
-                 const int64_t* end_panes, const uint8_t* w_valid, int32_t W, int64_t pane_lo,
-                 int64_t pane_hi, int32_t ppw, const uint8_t* used, int32_t* out,
-                 int32_t out_cols, int32_t out_cap, int32_t packed2, int32_t row_offset,
-                 float* lanes, int32_t* wc,
-                 int32_t* block_counts, int32_t* err, void* stream) {
-  const int64_t K = rows * (int64_t)W;
+// fire_pack's argument block (lane_kernels.py _FIRE_PACK), every field
+// 64 bits: the state and its widths, the fire, the outputs, the clean
+// workspace (lookback.cuh; work_words int64 words: the epoch, then a
+// descriptor a tile) and the plan (_fire_plan)
+struct FireArgs {
+  int64_t counts, rows, ring, sums, sw, maxs, mw, mins, nw;
+  int64_t end_panes, w_valid, W, pane_lo, pane_hi, ppw, used;
+  int64_t out, out_cols, out_cap, packed2, row_offset, lanes, err;
+  int64_t work, work_words, tile_cells, tile_rows, stage_counts, stage_lanes;
+};
+
+int lk_fire_pack_packed(const FireArgs* a, void* stream) {
+  const int64_t K = a->rows * a->W;
   if (K <= 0) return (int)cudaGetLastError();
-  const int32_t n_blocks = compact_blocks(K);
-  cudaStream_t s = (cudaStream_t)stream;
-  fire_count_kernel<<<n_blocks, kThreads, 0, s>>>(counts, rows, ring, end_panes, w_valid, W,
-                                                  pane_lo, pane_hi, ppw, used, wc, block_counts);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  fire_write_kernel<<<n_blocks, kThreads, 0, s>>>(wc, rows, W, used, block_counts, n_blocks,
-                                                  end_panes, pane_lo, pane_hi, ppw, ring, sums,
-                                                  sw, maxs, mw, mins, nw, out, out_cols, out_cap,
-                                                  packed2, row_offset, lanes, err);
+  const int64_t L = a->sw + a->mw + a->nw, C = a->tile_cells;
+  const int64_t tiles = (K + C - 1) / C;
+  const bool stage_lanes = L && a->stage_lanes;
+  // the plan must fit this kernel: cells a tile, the rows a tile spans,
+  // the shared memory it reserves, the workspace's descriptors
+  if (a->ring < 1 || a->ring >= (1ll << 31) || a->W >= (1ll << 31) || C < 1 || C > kFireCells ||
+      a->tile_rows != (C + a->W - 2) / a->W + 1 || tiles >= (1ll << 31) ||
+      a->work_words < tiles + 1 || (a->out_cols != 2 && a->out_cols != 3) ||
+      fire_layout(C, a->tile_rows, a->ring, L, a->out_cols, a->stage_counts != 0, stage_lanes)
+                  .words * 4 > kFireSmem)
+    return (int)cudaErrorInvalidValue;
+  FireParams p{};
+  p.counts = (const int32_t*)a->counts;
+  p.lane[0] = (const float*)a->sums;
+  p.lane[1] = (const float*)a->maxs;
+  p.lane[2] = (const float*)a->mins;
+  p.width[0] = (int32_t)a->sw;
+  p.width[1] = (int32_t)a->mw;
+  p.width[2] = (int32_t)a->nw;
+  p.rows = a->rows;
+  p.ring = (int32_t)a->ring;
+  p.W = (int32_t)a->W;
+  p.ppw = (int32_t)a->ppw;
+  p.end_panes = (const int64_t*)a->end_panes;
+  p.w_valid = (const uint8_t*)a->w_valid;
+  p.used = (const uint8_t*)a->used;
+  p.pane_lo = a->pane_lo;
+  p.pane_hi = a->pane_hi;
+  p.out = (int32_t*)a->out;
+  p.out_cols = (int32_t)a->out_cols;
+  p.out_cap = (int32_t)a->out_cap;
+  p.packed2 = (int32_t)a->packed2;
+  p.row_offset = (int32_t)a->row_offset;
+  p.lanes = (float*)a->lanes;
+  p.err = (int32_t*)a->err;
+  p.epoch = (uint32_t*)a->work;
+  p.desc = (unsigned long long*)a->work + 1;
+  p.tile_cells = (int32_t)C;
+  p.tile_rows = (int32_t)a->tile_rows;
+  p.stage_counts = (int32_t)a->stage_counts;
+  p.stage_lanes = (int32_t)stage_lanes;
+  p.tiles = tiles;
+  const size_t smem =
+      (size_t)fire_layout(C, a->tile_rows, a->ring, L, a->out_cols, a->stage_counts != 0,
+                          stage_lanes)
+          .words *
+      4;
+  if (a->W <= kFireWinTable)
+    fire_pack_kernel<true><<<(unsigned)tiles, kThreads, smem, (cudaStream_t)stream>>>(p);
+  else
+    fire_pack_kernel<false><<<(unsigned)tiles, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -988,18 +1277,6 @@ int lk_scatter_pair_lanes(const PairArgs* a, void* stream) {
 
 // the lean launch path (window_kernels.py LeanEntry): each entry
 // above from one packed block of 64-bit words, the stream beside
-// lk_fire_pack from one packed block of 25 64-bit words
-int lk_fire_pack_packed(const int64_t* a, void* stream) {
-  return lk_fire_pack(
-      (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const float*)(intptr_t)a[3],
-      (int32_t)a[4], (const float*)(intptr_t)a[5], (int32_t)a[6], (const float*)(intptr_t)a[7],
-      (int32_t)a[8], (const int64_t*)(intptr_t)a[9], (const uint8_t*)(intptr_t)a[10],
-      (int32_t)a[11], (int64_t)a[12], (int64_t)a[13], (int32_t)a[14],
-      (const uint8_t*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16], (int32_t)a[17], (int32_t)a[18],
-      (int32_t)a[19], (int32_t)a[20], (float*)(intptr_t)a[21], (int32_t*)(intptr_t)a[22],
-      (int32_t*)(intptr_t)a[23], (int32_t*)(intptr_t)a[24], stream);
-}
-
 // lk_scatter_lanes from one packed block of 25 64-bit words
 int lk_scatter_lanes_packed(const int64_t* a, void* stream) {
   return lk_scatter_lanes(

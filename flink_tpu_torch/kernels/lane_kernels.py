@@ -65,7 +65,7 @@ def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
     return wk.LeanEntry(_lib, fn, name, n_words, "lk_error_string")
 
 
-_FIRE_PACK = _entry("lk_fire_pack", "fire_pack", 25)
+_FIRE_PACK = _entry("lk_fire_pack", "fire_pack", 29)
 _SCATTER_LANES = _entry("lk_scatter_lanes", "scatter_lanes", 25)
 
 
@@ -162,7 +162,8 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
         raise ValueError("w_valid/used_mask do not match end_panes/counts")
     if out_cap < 1:
         raise ValueError("out_cap must be >= 1")
-    L = _width(sums) + _width(maxs) + _width(mins)
+    sw, mw, nw = _width(sums), _width(maxs), _width(mins)
+    L = sw + mw + nw
     if packed2 and L:
         raise ValueError("the packed2 layout is for count-only aggregates")
     if packed2 and row_offset:
@@ -174,23 +175,99 @@ def fire_pack(counts: torch.Tensor, sums: Optional[torch.Tensor],
                                    w_valid, used_mask, pane_lo, pane_hi, ppw,
                                    out_cap, packed2, row_offset)
         index = counts.get_device()
-    dev = counts.device
     cols = 2 if packed2 else 3
-    buf = torch.empty((out_cap + 1, cols), dtype=torch.int32, device=dev)
-    lanes = (torch.empty((out_cap, L), dtype=torch.float32, device=dev)
-             if L else None)
-    # scratch in one allocation: block_counts, then wc
-    n_blocks = max(1, -(-rows * W // wk.TOPN_TILE))
-    _held, base = wk.scratch(dev, n_blocks + rows * W)
+    head = (out_cap + 1) * cols
+    if L:
+        # buf and lanes in one allocation
+        mem = torch.empty(head + out_cap * L, dtype=torch.int32,
+                          device=counts.device)
+        buf = mem.as_strided((out_cap + 1, cols), (cols, 1), 0)
+        lanes = mem.as_strided((out_cap, L), (L, 1), head).view(torch.float32)
+    else:
+        mem = buf = torch.empty((out_cap + 1, cols), dtype=torch.int32,
+                                device=counts.device)
+        lanes = None
+    plan = _fire_plan(ring, max(W, 1), L, cols)
+    tiles = -(-rows * W // plan.tile_cells)
     err, stream = wk.launch_context(index)
-    _FIRE_PACK(stream, counts.data_ptr(), rows, ring, _ptr(sums),
-               _width(sums), _ptr(maxs), _width(maxs), _ptr(mins),
-               _width(mins), end_panes.data_ptr(), w_valid.data_ptr(), W,
-               int(pane_lo), int(pane_hi), int(ppw), used_mask.data_ptr(),
-               buf.data_ptr(), cols, int(out_cap), int(bool(packed2)),
-               int(row_offset), _ptr(lanes), base + 4 * n_blocks, base,
-               err)
+    work, (cap_tiles,) = wk.clean_workspace("fire_pack", index, stream,
+                                            (tiles,), _fire_work_words)
+    try:
+        _FIRE_PACK(stream, counts.data_ptr(), rows, ring, _ptr(sums), sw,
+                   _ptr(maxs), mw, _ptr(mins), nw, end_panes.data_ptr(),
+                   w_valid.data_ptr(), W, int(pane_lo), int(pane_hi),
+                   int(ppw), used_mask.data_ptr(),
+                   mem.data_ptr(), cols, int(out_cap), int(bool(packed2)),
+                   int(row_offset), mem.data_ptr() + 4 * head, err, work,
+                   _fire_work_words(cap_tiles), *plan)
+    except RuntimeError:
+        wk.drop_workspace("fire_pack", index, stream)
+        raise
     return buf, lanes
+
+
+# csrc/lane_kernels.cu's fire_pack limits (tests/test_torch_fire_plan.py
+# reads them from the source; the entry point rejects a plan past them):
+# cells a tile, shared memory a block in bytes
+_FIRE_CELLS = 1024
+_FIRE_SMEM = 44 * 1024
+# the fewest cells a tile that stages its rows; below, the rows are read
+# where they lie
+_FIRE_MIN_STAGED = 128
+
+
+def _fire_work_words(tiles: int) -> int:
+    """fire_pack's workspace in int64 words: the epoch, then a descriptor
+    a tile (csrc/lookback.cuh)."""
+    return 1 + tiles
+
+
+class FirePlan(NamedTuple):
+    """How ``fire_pack`` cuts the (row, window) grid into tiles: cells a
+    tile, the rows a tile spans at most, and whether a tile's count rows
+    and lane rows go into shared memory."""
+    tile_cells: int
+    tile_rows: int
+    stage_counts: int
+    stage_lanes: int
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _fire_smem_words(cells: int, tile_rows: int, ring: int, L: int, cols: int,
+                     stage_counts: bool, stage_lanes: bool) -> int:
+    """csrc/lane_kernels.cu ``fire_layout``: a tile's shared memory in
+    32-bit words (the out rows, the selected cells, the rows' slots, the
+    rows' used bytes by aligned words, the staged count rows, the staged
+    lane rows with an odd stride)."""
+    stride = ring * L + 3
+    stride += 1 - stride % 2
+    words = _round4(cells * cols)
+    words += _round4(cells) if L else 0
+    words += _round4(tile_rows) if L and stage_lanes else 0
+    words += _round4((tile_rows + 6) // 4 + 1)
+    words += _round4(tile_rows * ring + 3) if stage_counts else 0
+    return words + (tile_rows * stride if L and stage_lanes else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _fire_plan(ring: int, W: int, L: int, cols: int) -> FirePlan:
+    """The plan for ``ring`` columns, ``W`` windows, ``L`` lanes and
+    ``cols`` out columns: the most cells a tile (a power of two, up to
+    1024) whose count and lane rows fit the shared memory; else its count
+    rows alone, the lanes read where they lie; else 1024 cells a tile
+    with every row read where it lies."""
+    for stage_lanes in ((1, 0) if L else (0,)):
+        cells = _FIRE_CELLS
+        while cells >= _FIRE_MIN_STAGED:
+            tile_rows = (cells + W - 2) // W + 1
+            if 4 * _fire_smem_words(cells, tile_rows, ring, L, cols, True,
+                                    bool(stage_lanes)) <= _FIRE_SMEM:
+                return FirePlan(cells, tile_rows, 1, stage_lanes)
+            cells //= 2
+    return FirePlan(_FIRE_CELLS, (_FIRE_CELLS + W - 2) // W + 1, 0, 0)
 
 
 def _live_columns(end_panes: torch.Tensor, ring: int, pane_lo: int,

@@ -290,16 +290,20 @@ def topn_select_lanes(wcounts: torch.Tensor, v: torch.Tensor,
                                            end_panes, w_valid, anchor, n,
                                            sel_cap, emit_ring)
         index = wcounts.get_device()
-    # scratch (old_total, thresh, block_counts) in one allocation
-    n_blocks = max(1, -(-rows * W // wk.TOPN_TILE))
-    _held, base = wk.scratch(wcounts.device, 2 + W + n_blocks)
     _, stream = wk.launch_context(index)
-    _TOPN_SELECT_LANES(stream, wcounts.data_ptr(), v.data_ptr(),
-                       cols.data_ptr(), F, rows, W, used_mask.data_ptr(),
-                       end_panes.data_ptr(), w_valid.data_ptr(), int(anchor),
-                       min(int(n), rows), int(sel_cap), emit_ring.data_ptr(),
-                       emit_ring.shape[0], emit_ring.shape[1], base + 8,
-                       base + 8 + 4 * W, base)
+    work, (cap_w, cap_tiles) = wk.clean_workspace(
+        "topn_select_lanes", index, stream,
+        (max(W, 1), -(-rows * W // _SEL_CELLS)), _select_work_words)
+    try:
+        _TOPN_SELECT_LANES(stream, wcounts.data_ptr(), v.data_ptr(),
+                           cols.data_ptr(), F, rows, W, used_mask.data_ptr(),
+                           end_panes.data_ptr(), w_valid.data_ptr(),
+                           int(anchor), min(int(n), rows), int(sel_cap),
+                           emit_ring.data_ptr(), emit_ring.shape[0],
+                           emit_ring.shape[1], work, cap_w, cap_tiles)
+    except RuntimeError:
+        wk.drop_workspace("topn_select_lanes", index, stream)
+        raise
     return emit_ring
 
 
@@ -329,3 +333,18 @@ def topn_select_lanes_plain(wcounts, v, cols, used_mask, end_panes, w_valid,
     emit_ring[0, 0] = total + m
     emit_ring[0, 1] += total_sel - m
     return emit_ring
+
+
+# csrc/topn_lanes_kernels.cu kSelCells: the cells of a selection tile
+# (tests/test_torch_fire_plan.py reads it from the source)
+_SEL_CELLS = 1024
+
+
+def _select_work_words(W: int, tiles: int) -> int:
+    """csrc/topn_lanes_kernels.cu ``select_work_words``: the workspace's
+    int64 words cut for ``W`` windows and ``tiles`` selection tiles (the
+    ring's old head; the done counter and the epoch; the grid barrier's
+    words; a tagged threshold a window; a window's radix prefix, count
+    still needed, non-candidate count and 256 bins, 32 bits each; a
+    descriptor a tile)."""
+    return 3 + W + (W * (3 + 256) + 1) // 2 + tiles

@@ -243,6 +243,53 @@ def scratch(device: torch.device, words: int) -> Tuple[torch.Tensor, int]:
     return t, t.data_ptr()
 
 
+class _Workspace:
+    """One stream's clean workspace: the tensor, its address, the sizes
+    its layout is cut for, and the calls it has served."""
+    __slots__ = ("tensor", "ptr", "dims", "calls")
+
+    def __init__(self, tensor: torch.Tensor, dims: Tuple[int, ...]) -> None:
+        self.tensor, self.ptr, self.dims, self.calls = (
+            tensor, tensor.data_ptr(), dims, 0)
+
+
+_workspaces: Dict[Tuple[str, int, int], _Workspace] = {}
+# calls a workspace serves before a zeroed one replaces it: well inside
+# csrc/lookback.cuh's 24-bit epoch, so no descriptor of an older call can
+# pass for the current one's
+WORKSPACE_CALLS = 1 << 22
+
+
+def clean_workspace(name: str, index: int, stream: int, dims: Tuple[int, ...],
+                    words_of) -> Tuple[int, Tuple[int, ...]]:
+    """``name``'s device scratch on CUDA device ``index`` and ``stream``
+    for a call of sizes ``dims`` (one or two: tiles, or windows and
+    tiles): its address and the sizes its layout is cut for (each at
+    least the call's). It is zeroed when allocated (``words_of(*sizes)``
+    int64 words), and the kernels leave it fit for the next call without
+    clearing it (csrc/lookback.cuh's epoch); a call past its sizes, or
+    its ``WORKSPACE_CALLS``-th call, gets a larger or fresh one, zeroed on
+    that stream."""
+    key = (name, index, stream)
+    ws = _workspaces.get(key)
+    # dims has one or two sizes: [0] and [-1] cover both
+    if (ws is None or ws.calls >= WORKSPACE_CALLS or dims[0] > ws.dims[0]
+            or dims[-1] > ws.dims[-1]):
+        sizes = tuple(max(d, c) for d, c in zip(
+            dims, ws.dims if ws is not None else dims))
+        ws = _workspaces[key] = _Workspace(torch.zeros(
+            words_of(*sizes), dtype=torch.int64,
+            device=torch.device("cuda", index)), sizes)
+    ws.calls += 1
+    return ws.ptr, ws.dims
+
+
+def drop_workspace(name: str, index: int, stream: int) -> None:
+    """Forget a workspace whose launch failed part way (it may not be
+    fit for another call): the next call allocates a zeroed one."""
+    _workspaces.pop((name, index, stream), None)
+
+
 # csrc/window_common.cuh kTile: the cells of a compaction block
 TOPN_TILE = 1024
 

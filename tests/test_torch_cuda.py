@@ -442,6 +442,120 @@ def test_fire_pack_overflow_sets_the_error_word(dev):
         wk.error_word(dev).zero_()
 
 
+def _fire_case(dev, rng, rows, ring, W, widths, density=0.5):
+    """Counts with empty and non-empty cells in every column, and
+    ``_window_lanes_case``'s lanes (NaN, -NaN, +-inf, -0.0 in live and dead
+    columns), windows (one that wraps the ring, invalid ones) and range;
+    the last row unused. Returns the fire's arguments up to ``out_cap``."""
+    lanes, ends, valid, lo, hi, ppw = _window_lanes_case(dev, rng, rows, ring,
+                                                         W, widths)
+    counts = (rng.integers(1, 5, (rows, ring))
+              * (rng.random((rows, ring)) < density)).astype(np.int32)
+    used = rng.random(rows) < 0.9
+    used[-1] = False
+    return [_t(counts, dev), *lanes, ends, valid, _t(used, dev), lo, hi, ppw]
+
+
+def _fire_both(args, cap, packed2, row_offset=0):
+    """fire_pack against its plain version: the head, the first
+    min(n, cap) rows and their lanes bit for bit. Returns n."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    a_buf, a_lanes = lk.fire_pack(*args, cap, packed2, row_offset)
+    b_buf, b_lanes = lk.fire_pack_plain(*args, cap, packed2, row_offset)
+    n = int(b_buf[0, 0])
+    m = min(n, cap)
+    assert int(a_buf[0, 0]) == n
+    assert torch.equal(a_buf[:m + 1].cpu(), b_buf[:m + 1].cpu())
+    if b_lanes is None:
+        assert a_lanes is None
+    else:
+        assert a_lanes.shape == b_lanes.shape
+        assert _exact_bits(a_lanes[:m], b_lanes[:m])
+    return n
+
+
+FIRE_SHAPES = [(ring, W) for ring in (1, 16, 32, 37, 64, 1100)
+               for W in (1, 4, 11, 64)]
+FIRE_WIDTHS = [(0, 0, 0), (1, 0, 0), (1, 1, 1), (4, 0, 0)]
+
+
+@pytest.mark.parametrize("shape", range(len(FIRE_SHAPES)))
+def test_fire_pack_bit_for_bit(dev, shape):
+    """The one-launch kernel against the plain version on the card, rows
+    and lanes bit for bit: rings of 1, 16, 32, 37, 64 and 1100 columns
+    (count and lane rows staged, count rows alone, or read where they
+    lie), 1, 4, 11 and 64 windows, every lane layout of the main paths
+    (none, one sum, sum + max + min, four sums), row counts that are no
+    multiple of a tile, NaN, +-inf and -0.0 in live and dead columns, a
+    window that wraps the ring and invalid ones; count-only in both
+    layouts."""
+    ring, W = FIRE_SHAPES[shape]
+    widths = FIRE_WIDTHS[shape % len(FIRE_WIDTHS)]
+    rows = 3001 if ring < 1100 else 203
+    args = _fire_case(dev, np.random.default_rng(300 + shape), rows, ring, W,
+                      widths)
+    for packed2 in ((False, True) if not any(widths) else (False,)):
+        assert _fire_both(args, 1 << 16, packed2) > 0
+
+
+def test_fire_pack_one_row_tiles(dev):
+    """Tiles shorter than a row (1100 columns and 64 windows stage two
+    rows at most, W = 300 spans a tile over one or two rows) and a
+    single-row state."""
+    rng = np.random.default_rng(17)
+    for rows, ring, W, widths in ((41, 1100, 64, (1, 0, 0)),
+                                  (57, 40, 300, (1, 1, 1)),
+                                  (1, 32, 4, (1, 1, 1))):
+        args = _fire_case(dev, rng, rows, ring, W, widths, density=0.9)
+        args[6][:] = True                        # every row in use
+        _fire_both(args, 1 << 15, False)
+
+
+def test_fire_pack_truncates_at_out_cap_with_a_row_offset(dev):
+    """More selected cells than out_cap: the first out_cap rows and lanes,
+    the head counting all, the error bit set; with a row offset, and in
+    the packed2 layout."""
+    rng = np.random.default_rng(23)
+    args = _fire_case(dev, rng, 5000, 32, 11, (1, 1, 1))
+    try:
+        assert _fire_both(args, 1000, False, row_offset=4096) > 1000
+        with pytest.raises(IndexError, match="fire_pack"):
+            wk.check_errors(dev)
+        count_only = [args[0], None, None, None, *args[4:]]
+        assert _fire_both(count_only, 777, True) > 777
+        with pytest.raises(IndexError, match="fire_pack"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
+def test_fire_pack_many_tiles_and_a_clean_workspace(dev):
+    """A grid of ~1,200 tiles whose selected counts change band by band
+    (empty, full, sparse, half), so the look-back adds aggregates and
+    inclusive counts of every size; then smaller and larger fires in
+    turn on the same stream, each on the workspace the one before left."""
+    rng = np.random.default_rng(31)
+    rows, ring, lo, hi = 300_001, 16, 7, 17
+    counts = np.zeros((rows, ring), np.int32)
+    density = np.array([0.0, 1.0, 0.01, 0.5])[(np.arange(rows) // 5000) % 4]
+    for p in range(lo, hi + 1):
+        counts[:, p % ring] = rng.integers(1, 9, rows) * (
+            rng.random(rows) < density)
+    used = _t(rng.random(rows) < 0.95, dev)
+    ends = _t(np.arange(lo + 1, lo + 5, dtype=np.int64), dev)
+    valid = torch.ones(4, dtype=torch.bool, device=dev)
+    c = _t(counts, dev)
+    big = [c, None, None, None, ends, valid, used, lo, hi, 1]
+    small = [c[5000:5999], None, None, None, ends[:3], valid[:3],
+             used[5000:5999], lo, hi, 3]
+    sums = _t(rng.standard_normal((rows, ring, 1)).astype(np.float32), dev)
+    lanes = [c, sums, None, None, ends, valid, used, lo, hi, 4]
+    for args, packed2 in ((big, True), (small, False), (lanes, False),
+                          (small, True), (big, False)):
+        assert _fire_both(args, 1 << 20, packed2) > 0
+
+
 @pytest.mark.parametrize("hot", [0.0, 0.3, 1.0])
 def test_scatter_lanes(dev, hot):
     """2^20 records into 32,769 x 32 state: every lane equals the plain
@@ -1414,6 +1528,72 @@ def test_topn_select_lanes_truncates_past_sel_cap(dev):
     in head[0, 1]."""
     r = _topn_lanes(dev, 3, 4097, 4, 1, 8, specials=False, spread=20)
     assert int(r[0, 0]) == 8 and int(r[0, 1]) > 0
+
+
+@pytest.mark.parametrize("n,W", [(1, 11), (2, 11), (3, 11), (17, 4),
+                                 (256, 4), (1, 100), (3, 100)])
+def test_topn_select_lanes_radix_and_max(dev, n, W):
+    """The whole-card threshold at n = 1 (one max pass) and above (four
+    radix passes), on 11 windows (one block's table, one histogram group)
+    and 100 (past both), into a ring that wraps, with +NaN on top, -NaN,
+    -inf, +-0 ties in the ranked grid."""
+    r = _topn_lanes(dev, 7 * n + W, 4097, W, n, 2048, fill=2040)
+    assert int(r[0, 0]) > 2040 and int(r[0, 1]) == 0
+
+
+def test_topn_select_lanes_n_at_or_past_the_rows(dev):
+    """n >= rows: k = rows, so every window's threshold is its smallest
+    key (-inf where a row is no candidate): every candidate but a NaN
+    selects."""
+    r = _topn_lanes(dev, 5, 50, 4, 256, 2048)
+    assert int(r[0, 0]) > 0
+
+
+def _topn_grid(dev, rows, W, v, n, sel_cap=256, valid=None, wc=None):
+    """Both versions on a given ranking grid, every row in use; returns
+    the kernel's ring."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    wc = np.ones((rows, W), np.int32) if wc is None else wc
+    valid = np.ones(W, bool) if valid is None else valid
+    cols = np.arange(rows * W * 2, dtype=np.int32).reshape(rows, W, 2)
+    args = [_t(wc, dev), _t(v.astype(np.float32), dev), _t(cols, dev),
+            torch.ones(rows, dtype=torch.bool, device=dev),
+            _t(np.arange(100, 100 + W, dtype=np.int64), dev), _t(valid, dev),
+            90, n, sel_cap]
+    r1 = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
+    r2 = r1.clone()
+    tk.topn_select_lanes(*args, r1)
+    tk.topn_select_lanes_plain(*args, r2)
+    assert torch.equal(r1[:-1], r2[:-1])
+    return r1
+
+
+def test_topn_select_lanes_ties_nan_at_the_kth_and_signed_zeros(dev):
+    """All cells tied (every one selected); a -NaN at the k-th place
+    (k = rows: the NaN threshold selects nothing in that window); a +0.0
+    and a -0.0 at the top two places (k = 2: both select, IEEE >=)."""
+    rows, W = 64, 3
+    v = np.full((rows, W), 3.0, np.float32)
+    v[10, 1] = -np.nan
+    v[:, 2] = -1.0
+    v[0, 2], v[1, 2] = 0.0, -0.0
+    r = _topn_grid(dev, rows, W, v, 2)
+    assert int(r[0, 0]) == 64 + 63 + 2        # window 1's -NaN row is out
+    r = _topn_grid(dev, rows, W, v, rows)
+    assert int(r[0, 0]) == 64 + 64            # window 1 selects nothing
+
+
+def test_topn_select_lanes_invalid_windows_and_sparse_candidates(dev):
+    """Invalid windows select nothing; a window with fewer candidates
+    than n takes them all (its threshold is -inf)."""
+    rng = np.random.default_rng(8)
+    rows, W = 2000, 40
+    v = rng.standard_normal((rows, W)).astype(np.float32)
+    wc = (rng.random((rows, W)) < 0.002).astype(np.int32) * 3
+    valid = rng.random(W) < 0.7
+    for n in (1, 5):
+        _topn_grid(dev, rows, W, v, n, sel_cap=2048, valid=valid, wc=wc)
 
 
 @pytest.mark.parametrize("by", ["max_price", "avg_price", "count"])
