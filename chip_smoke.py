@@ -144,7 +144,10 @@ the phase prints events/s and the device's idle share (CUDA events
 around each launch group; a ``torch.profiler`` run beside gives kernel
 time by name, and ``fire_pack``'s and ``topn_select_lanes``' device
 kernels a call, which must be one, and two at top-1 or one (five where
-the radix select does not fit the card at once) at top-n).
+the radix select does not fit the card at once) at top-n; likewise two
+a ``topn_select_append`` call at top-1 on the devgen path, six a
+``fused_step`` on the native lane and one a ``topn_select_given`` on the
+mesh).
 
 13. ``mesh`` — the key-sharded window operator on a mesh of four blocks
    on ``cuda:0`` (``env.execute(mesh_plan=...)``): job M1 Q5 hot items
@@ -191,6 +194,14 @@ With ``--fire-kernels`` it builds ``lane_kernels`` and
 ``kernels`` cases) and ``topn_select_lanes`` (job T's top-1 and the
 planted top-3) beside their library calls, each as loop ms, device ms
 and host µs a call (one JSON line).
+
+With ``--count-topn`` it builds ``window_kernels``, ``fused_kernels`` and
+``devgen_kernels`` alone and runs only ``topn_select_append`` (the
+``kernels`` phase's top-1 and a planted top-3), ``fused_step`` (the fire
+of 11 ends, gate on), ``topn_select_given`` (job M1's first block) and
+``devgen_ingest`` (the headline sub-batch, without and with stats)
+beside their library calls, each as loop ms, device ms and host µs a
+call (one JSON line).
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -250,16 +261,17 @@ MESH_BLOCKS = 4                 # the mesh phase's device blocks, on cuda:0
 MESH_SIDE_BATCHES = 4           # jobs M2, M3, M4 and the profiled M1 run
 MESH_XCAP = 16_384              # job M3's pipeline.exchange-capacity
 # the kernels the key-sharded path adds; their per-call device time comes
-# from the mesh phase's profiled run only (topn_select_given shares its
-# two kernels with topn_select_append)
+# from the mesh phase's profiled run only
 MESH_KERNELS = ("bucket_records", "topn_candidates", "topn_global_threshold",
                 "topn_select_given")
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
     "scatter_counts": ("scatter_counts_kernel",),
     "window_counts": ("window_counts_kernel",),
-    "topn_select_append": ("topn_threshold_kernel", "topn_count_kernel",
-                           "topn_write_kernel"),
+    # the top-1 max, or the top-n radix select (one cooperative launch, or
+    # a launch a pass), then the selection; the fused step launches them too
+    "topn_select_append": ("topn_max_kernel", "topn_radix_all_kernel",
+                           "topn_radix_kernel", "topn_select_kernel"),
     "ring_columns": ("ring_columns_kernel",),
     "nexmark_bids": ("nexmark_bids_kernel",),
     "devgen_ingest": ("devgen_ingest_kernel",),
@@ -282,11 +294,13 @@ PROFILED_KERNELS = {
     "hash_keys": ("hash_keys_kernel",),
     "topn_candidates": ("topn_candidates_kernel",),
     "topn_global_threshold": ("topn_global_threshold_kernel",),
-    "topn_select_given": ("topn_count_kernel", "topn_write_kernel"),
+    "topn_select_given": ("topn_given_kernel",),
 }
 # the wrappers whose device kernels a call the profiled runs count against
-# their launch counts (no other wrapper launches their kernels)
-ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes")
+# their launch counts (no other wrapper launches their kernels;
+# topn_select_append shares its with the fused step, so the devgen profile,
+# where no fused step runs, counts it by itself)
+ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes", "topn_select_given")
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
 # wrap each call in a profiler range and charge it only the device
@@ -296,7 +310,7 @@ RANGED_WRAPPERS = ("fused_step",)
 # profile's count of wrapper calls (scatter_lanes runs its sort kernel
 # once a digit pass)
 CALL_KERNELS = {
-    "topn_select_append": ("topn_threshold_kernel",),
+    "topn_select_append": ("topn_select_kernel", "topn_radix_all_kernel"),
     "ring_columns": ("ring_columns_kernel",),
     "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel",),
@@ -304,7 +318,7 @@ CALL_KERNELS = {
     "count_fire": ("count_fire_count_kernel",),
     "topn_select_lanes": ("lanes_select_kernel", "lanes_radix_all_kernel"),
     "bucket_records": ("bucket_count_kernel",),
-    "topn_select_given": ("topn_count_kernel",),
+    "topn_select_given": ("topn_given_kernel",),
 }
 
 
@@ -357,11 +371,11 @@ def phase_build():
     emit(out)
 
 
-def phase_kernels(torch, np):
-    """Each kernel against its plain version at the Q5 shapes."""
-    from flink_tpu_torch.kernels import window_kernels as wk
-
-    dev = torch.device("cuda")
+def q5_kernel_state(torch, np, dev):
+    """The ``kernels`` phase's Q5 state: 128 x 256 key slots + 1 dump
+    row, a 32-column ring with 21 live panes, 10,000 keys at Poisson 9.5
+    a pane (the first 100 of them 26x), one batch's host-combined pairs
+    (every key x its 11 newest panes) and 11 window ends of 10 panes."""
     rng = np.random.default_rng(SEED)
     slots, ring, ppw, W, n_keys = 128 * 256, 32, 10, 11, 10_000
     rows = slots + 1
@@ -373,18 +387,31 @@ def phase_kernels(torch, np):
     for p in range(pane_lo, pane_hi + 1):
         counts_np[key_rows, p % ring] = rng.poisson(9.5, n_keys)
     counts_np[key_rows[:100], :] *= 26       # the hot auctions
-    # one batch's host-combined pairs: every key x 11 panes
     batch_panes = np.arange(pane_hi - 10, pane_hi + 1)
     pairs = (key_rows[:, None] * ring + batch_panes[None, :] % ring).reshape(-1)
     idx_np = rng.permutation(pairs).astype(np.int32)
     cnt_np = (rng.poisson(9.5, len(idx_np)) + 1).astype(np.int32)
+    return {"slots": slots, "ring": ring, "ppw": ppw, "W": W,
+            "pane_lo": pane_lo, "pane_hi": pane_hi,
+            "counts": torch.from_numpy(counts_np).to(dev),
+            "idx": torch.from_numpy(idx_np).to(dev),
+            "cnt": torch.from_numpy(cnt_np).to(dev),
+            "used": torch.from_numpy(used_np).to(dev),
+            "ends": torch.arange(pane_hi - W + 2, pane_hi + 2,
+                                 dtype=torch.int64, device=dev),
+            "w_valid": torch.ones(W, dtype=torch.bool, device=dev)}
 
-    counts = torch.from_numpy(counts_np).to(dev)
-    idx = torch.from_numpy(idx_np).to(dev)
-    cnt = torch.from_numpy(cnt_np).to(dev)
-    used = torch.from_numpy(used_np).to(dev)
-    ends = torch.arange(pane_hi - W + 2, pane_hi + 2, dtype=torch.int64, device=dev)
-    w_valid = torch.ones(W, dtype=torch.bool, device=dev)
+
+def phase_kernels(torch, np):
+    """Each kernel against its plain version at the Q5 shapes."""
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    dev = torch.device("cuda")
+    q = q5_kernel_state(torch, np, dev)
+    slots, ring, ppw, W = q["slots"], q["ring"], q["ppw"], q["W"]
+    rows, pane_lo, pane_hi = slots + 1, q["pane_lo"], q["pane_hi"]
+    counts, idx, cnt, used = q["counts"], q["idx"], q["cnt"], q["used"]
+    ends, w_valid = q["ends"], q["w_valid"]
     emit_ring = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
     n_top, sel_cap, anchor = 1, 256, pane_lo
     out = []
@@ -1273,6 +1300,159 @@ def phase_fire_kernels(torch, np):
           "card": card_line()})
 
 
+def count_topn_cases(torch, np, dev):
+    """The count-form top-n and the devgen ingest beside their library
+    calls, each as loop ms, device ms and host µs a call
+    (``split_times``), after a bit-for-bit check against the plain
+    version: ``topn_select_append`` top-1 on the ``kernels`` phase's
+    grid (32,769 x 11 windows) and top-3 on it with four rows planted a
+    window (the third and fourth tied), against ``torch.topk(wcounts.T,
+    n)`` (the threshold only); ``fused_step`` with the fire of 11 ends,
+    gate on (``fused_inputs``); ``topn_select_given`` on job M1's first
+    block (8,193 rows) against the global top-1; ``devgen_ingest`` at
+    the headline shape (a 2^20-bid sub-batch into 32,769 x 64, 10,000
+    auctions, hot ratio 4), without and with stats, against
+    ``index_add_`` on the cells computed in advance."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    q = q5_kernel_state(torch, np, dev)
+    W, rows = q["W"], q["slots"] + 1
+    used, ends, w_valid, anchor = q["used"], q["ends"], q["w_valid"], 1000
+    state = q["counts"].clone()
+    wk.scatter_counts_plain(state, q["idx"], q["cnt"])
+    wc = wk.window_counts_plain(state, ends, w_valid, q["pane_lo"],
+                                q["pane_hi"], q["ppw"])
+    rng = np.random.default_rng(SEED + 13)
+    planted = wc.clone()
+    plant = {}
+    for w in range(W):
+        r = rng.choice(np.flatnonzero(used.cpu().numpy()), 4, replace=False)
+        planted[torch.from_numpy(r).to(dev), w] = torch.tensor(
+            [5_000_000, 4_000_000, 3_000_000, 3_000_000], dtype=torch.int32,
+            device=dev)
+        plant[w] = set(r.tolist())
+    ring0 = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    out = {}
+    for name, grid, n in (("top1", wc, 1), ("top3", planted, 3)):
+        args = (grid, used, ends, w_valid, anchor, n, 256)
+        r1, r2, r3 = (ring0.clone() for _ in range(3))
+        wk.topn_select_append(*args, r1)
+        wk.topn_select_append_plain(*args, r2)
+        torch.cuda.synchronize()
+        check(torch.equal(r1[:-1], r2[:-1]),
+              f"topn_select_append ({name}) differs from its plain version")
+        written = int(r1[0, 0])
+        if name == "top3":
+            got = {}
+            for r, e, _ in r1[1:1 + written].tolist():
+                got.setdefault(e + anchor - int(ends[0]), set()).add(r)
+            check(got == plant, "topn_select_append (top3): the rows are "
+                  "not the planted ones")
+        gt = grid.T.contiguous()
+        b, by = bound_ms(rows * W * 4 + rows + W * 9 + written * 12 + 8,
+                         rows * W * (2 * n + 2))
+        out["topn_select_append_" + name] = {
+            "rows": written, "bound_ms": b, "bound_by": by,
+            "kernel": split_times(torch, lambda: wk.topn_select_append(
+                *args, r3)),
+            "library": split_times(torch, lambda: torch.topk(gt, n, dim=1)),
+            "library_call": "torch.topk(wcounts.T, n), the threshold only"}
+
+    f = fused_inputs(torch, np, dev)
+    buf = f["upload"](11)
+    kw = dict(ppw=f["ppw"], n=1, sel_cap=256, dump_row=f["slots"],
+              fire_gate=True, fire_pad=16)
+    st = [f["base"].clone() for _ in range(3)]
+    er = [ring0.clone() for _ in range(3)]
+    fk.fused_step(st[0], er[0], buf, f["used"], **kw)
+    fk.fused_step_plain(st[1], er[1], buf, f["used"], **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(st[0], st[1]) and torch.equal(er[0][:-1], er[1][:-1]),
+          "fused_step (11 ends, gate on) differs from its plain version")
+    out["fused_step_ends11_gate_on"] = {
+        "rows": int(er[0][0, 0]),
+        "kernel": split_times(torch, lambda: fk.fused_step(
+            st[2], er[2], buf, f["used"], **kw)),
+        "library": None, "library_call": "none: no single call"}
+
+    # job M1's first block of the grid, against the global top-1
+    spd = (rows - 1) // MESH_BLOCKS
+    blocks = [(torch.cat([wc[b * spd:(b + 1) * spd], wc[-1:] * 0]),
+               torch.cat([used[b * spd:(b + 1) * spd], used[-1:] & False]))
+              for b in range(MESH_BLOCKS)]
+    thresh = wk.topn_global_threshold_plain(torch.cat(
+        [wk.topn_candidates_plain(w, u, w_valid, 1) for w, u in blocks],
+        dim=1), 1)
+    args = (*blocks[0], ends, w_valid, anchor, thresh, 0, 256)
+    r1, r2, r3 = (ring0.clone() for _ in range(3))
+    wk.topn_select_given(*args, r1)
+    wk.topn_select_given_plain(*args, r2)
+    torch.cuda.synchronize()
+    check(torch.equal(r1[:-1], r2[:-1]),
+          "topn_select_given differs from its plain version")
+    written = int(r1[0, 0])
+    b, by = bound_ms((spd + 1) * W * 4 + spd + 1 + W * 13 + written * 12 + 8,
+                     (spd + 1) * W * 2)
+    out["topn_select_given_m1_block"] = {
+        "rows": written, "bound_ms": b, "bound_by": by,
+        "kernel": split_times(torch, lambda: wk.topn_select_given(*args, r3)),
+        "library": None, "library_call": "none: no single call"}
+
+    # devgen_ingest at the headline shape (devgen_kernel_cases' batch)
+    n, total, key_domain, ring = 1 << 20, 1 << 22, 10_000, 64
+    keys, ts = dk.nexmark_bids(5, n, n, total, 100, 4, key_domain // 100,
+                               key_domain, dev)
+    pane_lo = int(ts.min()) // 1000
+    kw = dict(key_domain=key_domain, pane_ms=1000, offset_ms=0,
+              dead_below=pane_lo - 1, refire_below=-(2 ** 63),
+              dump_row=rows - 1)
+    flat = keys * ring + torch.remainder(torch.div(ts, 1000,
+                                                   rounding_mode="floor"), ring)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    n_cells = int(torch.unique(flat).numel())
+    b, by = bound_ms(16 * n + 8 * n_cells, 15 * n)
+    for stats in (False, True):
+        a = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+        c = a.clone()
+        sa = dk.devgen_ingest(a, keys, ts, with_stats=stats, **kw)
+        sc = dk.devgen_ingest_plain(
+            c, keys, ts, kw["key_domain"], kw["pane_ms"], kw["offset_ms"],
+            kw["dead_below"], kw["refire_below"], kw["dump_row"],
+            torch.zeros_like(sa) if stats else None)
+        torch.cuda.synchronize()
+        check(torch.equal(a, c) and (not stats or torch.equal(sa, sc)),
+              f"devgen_ingest (stats {stats}) differs from its plain version")
+        out["devgen_ingest_" + ("stats" if stats else "no_stats")] = {
+            "records": n, "distinct_cells": n_cells, "bound_ms": b,
+            "bound_by": by,
+            "kernel": split_times(torch, lambda: dk.devgen_ingest(
+                a, keys, ts, with_stats=stats, **kw)),
+            "library": split_times(torch, lambda: c.view(-1).index_add_(
+                0, flat, ones)),
+            "library_call": "index_add_ on the cells computed in advance"}
+    wk.check_errors(dev)
+    return out
+
+
+def phase_count_topn(torch, np):
+    """``--count-topn``: build ``window_kernels``, ``fused_kernels`` and
+    ``devgen_kernels`` alone and run ``count_topn_cases`` (one JSON
+    line)."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    names = ("window_kernels", "fused_kernels", "devgen_kernels")
+    build.build_all(names)
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name in names}
+    emit({"phase": "count_topn", "build_s": time.perf_counter() - t0,
+          "ptxas": ptxas, **count_topn_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
+
+
 def phase_window_lanes(torch, np):
     """``--window-lanes``: build ``topn_lanes_kernels`` alone and run
     ``window_lane_cases`` (one JSON line)."""
@@ -1867,15 +2047,16 @@ def count_window_kernel_cases(torch, np, dev, record, out):
     return extra
 
 
-def fused_kernel_cases(torch, np, dev, record):
-    """The native lane's kernels at the host-fed Q5 shapes (128 x 256 key
-    slots + 1 dump row, a 32-column ring, 10,000 auctions, one batch's
-    ~110k host-combined pairs padded to 2^17 words): ``apply_pairs_u32``;
-    ``apply_pairs_u16`` on the same pairs with every 50th count raised
-    past 0xFFF; ``fused_step`` on the header + words upload with 1 and
-    with 11 window ends, the fire gate on and off. All exact."""
+def fused_inputs(torch, np, dev):
+    """The native lane's state and batch at the host-fed Q5 shapes (128
+    x 256 key slots + 1 dump row, a 32-column ring with 21 live panes,
+    10,000 auctions, the first 100 of them 26x; the batch's pairs: every
+    key x its 11 newest panes, host-combined, padded to 2^17 words), and
+    ``upload(n_ends)``: the fused step's header (the fire of the
+    ``n_ends`` newest window ends, the purge of one column) + the
+    words."""
     from flink_tpu_torch.kernels import fused_kernels as fk
-    from flink_tpu_torch.ops.window import preagg_encode_u16, preagg_encode_u32
+    from flink_tpu_torch.ops.window import preagg_encode_u32
 
     rng = np.random.default_rng(SEED + 7)
     slots, ring, ppw, n_keys = 128 * 256, 32, 10, 10_000
@@ -1888,14 +2069,44 @@ def fused_kernel_cases(torch, np, dev, record):
     for p in range(pane_lo, pane_hi + 1):
         counts_np[key_rows, p % ring] = rng.poisson(9.5, n_keys)
     counts_np[key_rows[:100], :] *= 26
-    base = torch.from_numpy(counts_np).to(dev)
-    # the batch's pairs: every key x its 11 newest panes, host-combined
     batch_panes = np.arange(pane_hi - 10, pane_hi + 1)
     pairs = np.sort((key_rows[:, None] * ring
                      + batch_panes[None, :] % ring).reshape(-1))
     cnts = rng.poisson(9.5, len(pairs)) + 1
     cap = 1 << 17
     words = torch.from_numpy(preagg_encode_u32(pairs, cnts, cap)).to(dev)
+
+    def upload(n_ends):
+        hdr = np.zeros(fk.FUSED_HDR, np.int32)
+        hdr[:6] = np.array([pane_lo, pane_hi, pane_lo], np.int64).view(np.int32)
+        cw = np.array([1 << ((pane_lo - 1) % ring)], np.uint64).view(np.int32)
+        hdr[7], hdr[6] = cw[0], cw[1]
+        deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+        deltas[:n_ends] = np.arange(pane_hi + 2 - n_ends, pane_hi + 2) - pane_lo
+        hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+        return torch.cat([torch.from_numpy(hdr).to(dev), words])
+
+    return {"slots": slots, "ring": ring, "ppw": ppw,
+            "pane_lo": pane_lo, "pane_hi": pane_hi, "used": used,
+            "base": torch.from_numpy(counts_np).to(dev), "pairs": pairs,
+            "cnts": cnts, "cap": cap, "words": words, "upload": upload}
+
+
+def fused_kernel_cases(torch, np, dev, record):
+    """The native lane's kernels at the host-fed Q5 shapes (128 x 256 key
+    slots + 1 dump row, a 32-column ring, 10,000 auctions, one batch's
+    ~110k host-combined pairs padded to 2^17 words): ``apply_pairs_u32``;
+    ``apply_pairs_u16`` on the same pairs with every 50th count raised
+    past 0xFFF; ``fused_step`` on the header + words upload with 1 and
+    with 11 window ends, the fire gate on and off. All exact."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.ops.window import preagg_encode_u16
+
+    f = fused_inputs(torch, np, dev)
+    slots, ring, ppw = f["slots"], f["ring"], f["ppw"]
+    rows, pane_lo, pane_hi = slots + 1, f["pane_lo"], f["pane_hi"]
+    used, base, pairs, cnts = f["used"], f["base"], f["pairs"], f["cnts"]
+    cap, words, upload = f["cap"], f["words"], f["upload"]
 
     def max_err(a, b):
         return int((a.long() - b.long()).abs().max())
@@ -1929,17 +2140,8 @@ def fused_kernel_cases(torch, np, dev, record):
               triples, cnts_used, 6 * cap + 8 * len(pairs),
               "flink_tpu/ops/window.py:145")
 
-    # F2: one upload of header + words; the purge clears one column
-    def upload(n_ends):
-        hdr = np.zeros(fk.FUSED_HDR, np.int32)
-        hdr[:6] = np.array([pane_lo, pane_hi, pane_lo], np.int64).view(np.int32)
-        cw = np.array([1 << ((pane_lo - 1) % ring)], np.uint64).view(np.int32)
-        hdr[7], hdr[6] = cw[0], cw[1]
-        deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
-        deltas[:n_ends] = np.arange(pane_hi + 2 - n_ends, pane_hi + 2) - pane_lo
-        hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
-        return torch.cat([torch.from_numpy(hdr).to(dev), words])
-
+    # F2: one upload of header + words (``upload``); the purge clears
+    # one column
     cases = {}
     for n_ends in (11, 1):
         buf = upload(n_ends)
@@ -2140,11 +2342,13 @@ def phase_q5(torch, np):
     emit(out)
     per_call = dict(h_prof["device_ms_per_call"])
     per_call.update(prof["device_ms_per_call"])
-    # the fused step's own kernels only, if the profiler linked all of
-    # each step's launches to its range
+    # the fused step's own kernels only: the profiler links each step's
+    # launches to its range
     ranged = prof["ranged_per_call"].get("fused_step")
-    if ranged and ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS:
-        per_call["fused_step"] = ranged["device_ms"]
+    check(ranged is not None
+          and ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS,
+          f"q5: fused_step kernels a step {ranged}")
+    per_call["fused_step"] = ranged["device_ms"]
     return launches, n_launches, h_launches, per_call, rows
 
 
@@ -2174,7 +2378,7 @@ def run_devgen_q5(torch, np, conf, cfg, label):
     return rows, launches, res, wall
 
 
-def profile_run(torch, run):
+def profile_run(torch, run, own=()):
     """Kernel time by name from ``torch.profiler`` over ``run()`` (which
     returns its wall seconds): the device's busy share without the launch
     gaps that CUDA event spans count as busy. The profiler slows the
@@ -2218,7 +2422,7 @@ def profile_run(torch, run):
                                   if busy_ms > 0 else "not measured"),
             "device_ms_per_call": device_ms_per_call(by_name),
             "device_ms_by_wrapper": device_ms_by_wrapper(by_name),
-            "kernels_per_call": kernels_per_call(by_name),
+            "kernels_per_call": kernels_per_call(by_name, own),
             "ranged_per_call": ranged_per_call(torch, prof.events()),
             "top_device_ms": dict(top)}
 
@@ -2267,7 +2471,7 @@ def profile_devgen(torch, np, conf_path, cfg):
 
     out = profile_run(torch, lambda: run_devgen_q5(
         torch, np, Configuration.from_file(conf_path), cfg,
-        "q5-devgen-profiled")[3])
+        "q5-devgen-profiled")[3], own=("topn_select_append",))
     return {"logical_batches": cfg.n_batches, **out}
 
 
@@ -2288,15 +2492,16 @@ def device_ms_by_wrapper(by_name):
     return out
 
 
-def kernels_per_call(by_name):
+def kernels_per_call(by_name, own=()):
     """Device kernels a wrapper call over the profiled run, for the
-    wrappers whose kernels no other wrapper launches: their profiled
-    count over the run's ``window_kernels.LAUNCHES`` (one a wrapper call;
-    every run zeroes them at its start)."""
+    wrappers whose kernels no other wrapper launches (and ``own``, whose
+    kernels no other wrapper launches on this run): their profiled count
+    over the run's ``window_kernels.LAUNCHES`` (one a wrapper call; every
+    run zeroes them at its start)."""
     from flink_tpu_torch.kernels import window_kernels as wk
 
     out = {}
-    for name in ONE_CALL_WRAPPERS:
+    for name in ONE_CALL_WRAPPERS + tuple(own):
         calls = wk.LAUNCHES[name]
         if calls:
             out[name] = sum(v["count"] for v in kernel_hits(
@@ -2319,6 +2524,7 @@ def device_ms_per_call(by_name):
 
 def phase_q5_devgen(torch, np):
     from flink_tpu_torch.config import Configuration, PipelineOptions
+    from flink_tpu_torch.kernels import window_kernels as wk
     from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream_device
 
     path = os.path.join(ROOT, "confs", "bench_q5_headline.conf")
@@ -2417,6 +2623,10 @@ def phase_q5_devgen(torch, np):
                   == sorted(r4, key=lambda r: r[1]))
     check(per_window, "K=1 and K=4 rows differ window by window")
     out["profiled"] = profile_devgen(torch, np, path, short)
+    # the whole-card top-1: its max and its selection, two kernels a call
+    per = out["profiled"]["kernels_per_call"].get("topn_select_append")
+    check(per == wk.topn_plan(128 * 256 + 1, 11, 1).kernels,
+          f"q5_devgen: topn_select_append kernels a call {per}")
     out["k_compare"] = {
         "logical_batches": DEVGEN_K_BATCHES, "rows": len(r1),
         "equal_window_by_window": per_window,
@@ -3927,6 +4137,8 @@ def phase_mesh(torch, np, local_rows):
         conf_extra={"exchange.impl": "ring"})
     prof = profile_run(torch, lambda: run_q5_host_fed(
         torch, np, side, "mesh-q5-profiled", mesh=mesh)[3])
+    check(prof["kernels_per_call"].get("topn_select_given") == 1,
+          f"M1: topn_select_given kernels a call {prof['kernels_per_call']}")
     a_prof = profile_run(torch, lambda: run_bid_agg(
         torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a-profiled",
         mesh=mesh)[3])
@@ -4056,6 +4268,17 @@ def main() -> int:
     if "--fire-kernels" in sys.argv[1:]:
         try:
             phase_fire_kernels(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--count-topn" in sys.argv[1:]:
+        try:
+            phase_count_topn(torch, np)
             print(card_line(), flush=True)
         except Exception:
             traceback.print_exc()

@@ -1,9 +1,7 @@
-// Ordered compaction in two launches, shared by the fire kernels that
-// pack selected items for the host in the reference's order (its stable
-// argsort or cumsum): topn_select_append and topn_select_given
-// (window_fire.cuh) over (row, window) cells, count_fire
-// (count_window_kernels.cu) over rows. fire_pack and topn_select_lanes
-// compact in one launch instead (lookback.cuh).
+// Ordered compaction in two launches, for count_fire
+// (count_window_kernels.cu), which packs its fired rows for the host in
+// the reference's order (its cumsum). fire_pack and the top-n selections
+// (topn_select.cuh) compact in one launch instead (lookback.cuh).
 //
 //   A  one block per kTile items, each thread testing kItems consecutive
 //      items: compact_count stores the block's selected count;
@@ -75,39 +73,5 @@ __device__ __forceinline__ void compact_write(int64_t K, const int32_t* __restri
 }
 
 inline int32_t compact_blocks(int64_t K) { return (int32_t)((K + kTile - 1) / kTile); }
-
-// Pass B of the count-only top-n fires (window_fire.cuh) over a
-// row-major (rows, W) grid:
-// the first ``sel_cap`` selected cells i = (r, w), in cell order, become
-// emit-ring rows (total + pos) % row_cap + 1 = [r + row_offset,
-// end_panes[w] - anchor, wcounts[i], then ``extra(i, dst + 3)``'s
-// columns]; then ring[0] = total + written and ring[1] += selected -
-// written. Row 0 is the head; the last row (the dump row) is never
-// written. ``row_offset`` is a device block's first global row (0 on one
-// device).
-template <class Sel, class Extra>
-__device__ __forceinline__ void topn_ring_append(
-    int64_t rows, int32_t W, const int32_t* __restrict__ wcounts,
-    const int32_t* __restrict__ block_counts, int32_t n_blocks, long long total,
-    const int64_t* __restrict__ end_panes, int64_t anchor, int32_t sel_cap,
-    int32_t* __restrict__ ring, int32_t row_cap, int32_t ring_cols, int32_t row_offset, Sel sel,
-    Extra extra) {
-  compact_write(
-      rows * (int64_t)W, block_counts, n_blocks, sel_cap, sel,
-      [&](int64_t i, long long pos) {
-        const int64_t r = i / W;
-        const int32_t w = (int32_t)(i - r * W);
-        int32_t* dst = ring + ((total + pos) % row_cap + 1) * ring_cols;
-        dst[0] = (int32_t)r + row_offset;
-        dst[1] = (int32_t)(end_panes[w] - anchor);
-        dst[2] = wcounts[i];
-        extra(i, dst + 3);
-      },
-      [&](long long all) {
-        const long long written = all < sel_cap ? all : sel_cap;
-        ring[0] = (int32_t)(total + written);
-        ring[1] += (int32_t)(all - written);
-      });
-}
 
 }  // namespace

@@ -12,8 +12,9 @@
 //                   refire bitmap and the stats words)
 //
 // Both are exact: K5 is integer arithmetic in native uint64, K6 adds
-// int32 ones with atomics (integer sums do not depend on order), so each
-// equals its plain PyTorch version and the JAX reference bit for bit.
+// int32 counts with atomics, shared and global (integer sums do not
+// depend on order), so each equals its plain PyTorch version and the JAX
+// reference bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,43 +76,127 @@ __global__ void nexmark_bids_kernel(int64_t* __restrict__ keys, int64_t* __restr
 // stats pointer skips the bitmap and the counters (the host needs them
 // only when a batch can be late, re-fire or miss). A cell outside
 // counts is not written and sets kErrIngestCell.
+//
 // Bound: bytes — 16 B read per record plus a 4-byte read and write of
-// each distinct cell the batch touches (the atomics of one cell meet in
-// L2; the 4-8 MB state fits there). Design: one thread per record,
-// grid-stride; the four counters go through a warp reduce
-// (__reduce_add_sync), shared-memory per-warp partials and one global
-// atomicAdd per block and counter. Hot cells take many same-address
-// atomics (records arrive in ts order, so a warp mostly shares a pane);
-// warp-aggregating them is later work (ROADMAP.md).
-__global__ void devgen_ingest_kernel(int32_t* __restrict__ counts, int64_t n_cells,
-                                     const int64_t* __restrict__ keys,
-                                     const int64_t* __restrict__ ts, int64_t n,
-                                     int64_t key_domain, int64_t pane_ms, int64_t offset_ms,
-                                     int32_t ring, int64_t dead_below, int64_t refire_below,
-                                     int64_t dump_row, int32_t* __restrict__ stats,
-                                     int32_t* __restrict__ err) {
-  __shared__ int32_t s_part[4][kWarps];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int32_t c_valid = 0, c_late = 0, c_miss = 0, c_refire = 0;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int64_t key = keys[i];
-    const int64_t pane = floor_div(ts[i] - offset_ms, pane_ms);
-    const bool hit = key >= 0 && key < key_domain;
-    const bool late = hit && pane < dead_below;
-    const bool valid = hit && !late;
-    const int64_t cell = valid ? key * ring + floor_mod(pane, ring) : dump_row * ring;
-    if (cell < 0 || cell >= n_cells) {
-      atomicOr(err, kErrIngestCell);
-    } else {
-      atomicAdd(&counts[cell], 1);
+// each distinct cell the batch touches. What held it back (PERF.md §6,
+// PR 13): one global atomic a record, ~3 x the bound and no faster than
+// index_add_ on cells computed in advance. Each of those atomics is its
+// own L2 transaction, and their rate sets the pace: 2^20 of them take
+// ~0.015 ms, the batch's ~110,000 distinct cells once each (in order)
+// 0.0023 ms. Dropping the two int64 divisions moved nothing.
+// Design: a block takes a contiguous chunk of kIngestChunk records — a
+// sub-batch is in time order, so a chunk lies in one pane, or two at a
+// pane's edge — and counts it in a shared-memory histogram before any
+// global write:
+//   - every record of a thread (kIngestItems, neighbouring threads on
+//     neighbouring records) is loaded before the first is used;
+//   - the pane by comparison with the thread's running pane (from the
+//     chunk's first record's, p0), a floor division only for a record
+//     outside it; the column carried from that pane's;
+//   - the histogram is direct-mapped by key over pane p0 (slot = key):
+//     one shared atomicAdd a valid record, no probing; the invalid
+//     records a warp's ballot, one add a warp;
+//   - then one global atomicAdd a non-zero slot. At the headline mix
+//     (10,000 auctions, a quarter of the bids on 100 hot ones) a chunk
+//     of 8,192 records touches ~4,700 cells, so ~57 % of the records'
+//     atomics remain, and a hot cell's ~240 adds a sub-batch become ~12.
+// A record of another pane than p0, and every record where the key
+// domain is too wide for the histogram (key_domain + 1 > kHistWords),
+// takes one global atomicAdd. Integer adds, exact in any order: the
+// state equals the plain version's bit for bit. Measured slower on the
+// H100 (PERF.md §6, PR 13): one atomic a warp's group of equal cells; a
+// shared-memory hash table of the chunk's cells (probing); a histogram
+// over two panes; a cluster of 2-8 blocks adding their histograms
+// through distributed shared memory, or adding each record into one
+// histogram dealt round the cluster. The four counters go through a warp
+// reduce, per-warp partials and one global atomicAdd a block and
+// counter; the bitmap's words are plain stores of 1.
+constexpr int kIngestThreads = 1024;
+constexpr int kIngestWarps = kIngestThreads / 32;
+constexpr int kIngestItems = 8;                              // records a thread
+constexpr int kIngestChunk = kIngestThreads * kIngestItems;  // records a block
+constexpr int kHistWords = 48 * 1024;                        // 192 KB at most
+
+__global__ void __launch_bounds__(kIngestThreads)
+    devgen_ingest_kernel(int32_t* __restrict__ counts, int64_t n_cells,
+                         const int64_t* __restrict__ keys, const int64_t* __restrict__ ts,
+                         int64_t n, int64_t key_domain, int64_t pane_ms, int64_t offset_ms,
+                         int32_t ring, int64_t dead_below, int64_t refire_below, int64_t dump_row,
+                         int32_t* __restrict__ stats, int32_t* __restrict__ err) {
+  extern __shared__ uint32_t s_hist[];  // a slot a key of pane p0, then the dump's
+  __shared__ int32_t s_part[4][kIngestWarps];
+  // the grid's choice
+  const bool hist = key_domain >= 0 && key_domain + 1 <= kHistWords;
+  const int32_t hw = hist ? (int32_t)(key_domain + 1) : 0;
+  const int64_t chunk = (int64_t)blockIdx.x * kIngestChunk;
+  const int64_t first = chunk + threadIdx.x;
+  const int64_t t_first = chunk < n ? ts[chunk] : 0;
+  int64_t key[kIngestItems], t[kIngestItems];
+#pragma unroll
+  for (int j = 0; j < kIngestItems; ++j) {
+    const int64_t i = first + (int64_t)j * kIngestThreads;
+    key[j] = i < n ? keys[i] : 0;
+    t[j] = i < n ? ts[i] : 0;
+  }
+  for (int32_t e = threadIdx.x; e < hw; e += kIngestThreads) s_hist[e] = 0;
+  // the chunk's first pane, and the running pane from it: its number,
+  // its first ms (offset-relative), its column
+  const int64_t p0 = floor_div(t_first - offset_ms, pane_ms);
+  int64_t pane = p0, pane_at = p0 * pane_ms, col = floor_mod(p0, ring);
+  __syncthreads();
+  int32_t c_valid = 0, c_late = 0, c_miss = 0, c_refire = 0, c_dump = 0;
+#pragma unroll
+  for (int j = 0; j < kIngestItems; ++j) {
+    const bool in = first + (int64_t)j * kIngestThreads < n;
+    const int64_t d = t[j] - offset_ms;
+    const int64_t rel = d - pane_at;
+    if (in && (rel < 0 || rel >= pane_ms)) {
+      pane = floor_div(d, pane_ms);
+      pane_at = pane * pane_ms;
+      col = floor_mod(pane, ring);
     }
+    const bool hit = key[j] >= 0 && key[j] < key_domain;
+    const bool late = hit && pane < dead_below;
+    const bool valid = in && hit && !late;
+    if (valid) {
+      if (hist && pane == p0) {
+        atomicAdd(&s_hist[key[j]], 1u);
+      } else {
+        const int64_t cell = key[j] * ring + col;
+        if (cell >= n_cells) atomicOr(err, kErrIngestCell);
+        else atomicAdd(&counts[cell], 1);
+      }
+      if (pane < refire_below) {
+        ++c_refire;
+        const int64_t bit = pane - dead_below;
+        if (stats != nullptr && bit >= 0 && bit < kRefireBits) stats[kStatsHead + bit] = 1;
+      }
+    }
+    // the invalid records of the warp, one add
+    const unsigned dumped = __ballot_sync(0xffffffffu, in && !valid);
+    if ((threadIdx.x & 31) == 0) c_dump += __popc(dumped);
     c_valid += valid;
-    c_late += late;
-    c_miss += !hit;
-    if (valid && pane < refire_below) {
-      ++c_refire;
-      const int64_t bit = pane - dead_below;
-      if (stats != nullptr && bit >= 0 && bit < kRefireBits) stats[kStatsHead + bit] = 1;
+    c_late += in && late;
+    c_miss += in && !hit;
+  }
+  if (c_dump) {
+    if (hist) {
+      atomicAdd(&s_hist[hw - 1], (uint32_t)c_dump);
+    } else {
+      const int64_t cell = dump_row * ring;
+      if (cell < 0 || cell >= n_cells) atomicOr(err, kErrIngestCell);
+      else atomicAdd(&counts[cell], c_dump);
+    }
+  }
+  if (hist) {
+    __syncthreads();  // every record of the chunk counted
+    const int64_t c0 = floor_mod(p0, ring);
+    for (int32_t e = threadIdx.x; e < hw; e += kIngestThreads) {
+      const uint32_t c = s_hist[e];
+      if (c == 0) continue;
+      const int64_t cell = e == hw - 1 ? dump_row * ring : (int64_t)e * ring + c0;
+      if (cell < 0 || cell >= n_cells) atomicOr(err, kErrIngestCell);
+      else atomicAdd(&counts[cell], (int32_t)c);
     }
   }
   if (stats == nullptr) return;  // the same for every thread of the grid
@@ -129,7 +214,7 @@ __global__ void devgen_ingest_kernel(int32_t* __restrict__ counts, int64_t n_cel
   __syncthreads();
   if (threadIdx.x < 4) {
     int32_t sum = 0;
-    for (int w = 0; w < kWarps; ++w) sum += s_part[threadIdx.x][w];
+    for (int w = 0; w < kIngestWarps; ++w) sum += s_part[threadIdx.x][w];
     // words 0, 1, 2 and 4 (3 and 5 are the reference's ring head)
     const int word = threadIdx.x < 3 ? threadIdx.x : 4;
     if (sum) atomicAdd(&stats[word], sum);
@@ -159,11 +244,26 @@ int dg_devgen_ingest(int32_t* counts, int64_t n_cells, const int64_t* keys, cons
                      int64_t n, int64_t key_domain, int64_t pane_ms, int64_t offset_ms,
                      int32_t ring, int64_t dead_below, int64_t refire_below, int64_t dump_row,
                      int32_t* stats, int32_t* err, void* stream) {
-  if (n > 0) {
-    devgen_ingest_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        counts, n_cells, keys, ts, n, key_domain, pane_ms, offset_ms, ring, dead_below,
-        refire_below, dump_row, stats, err);
+  if (n <= 0) return (int)cudaGetLastError();
+  static bool smem_set[64];
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    rc = (int)cudaFuncSetAttribute(devgen_ingest_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kHistWords * (int)sizeof(uint32_t));
+    if (rc) return rc;
+    smem_set[dev] = true;
   }
+  const int64_t blocks = (n + kIngestChunk - 1) / kIngestChunk;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      key_domain >= 0 && key_domain + 1 <= kHistWords ? (size_t)(key_domain + 1) * 4 : 0;
+  devgen_ingest_kernel<<<(unsigned)blocks, kIngestThreads, smem, (cudaStream_t)stream>>>(
+      counts, n_cells, keys, ts, n, key_domain, pane_ms, offset_ms, ring, dead_below,
+      refire_below, dump_row, stats, err);
   return (int)cudaGetLastError();
 }
 

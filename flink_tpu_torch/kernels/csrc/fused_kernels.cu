@@ -94,13 +94,14 @@ __global__ void apply_pairs_u16_kernel(int32_t* __restrict__ counts, int64_t n_c
 //     fire = any valid end among the fire_pad slots, clear = a non-zero
 //     clear word (with the gate off both are 1);
 //   2 apply_pairs_u32_kernel folds the pairs in (F1);
-//   3 window_counts_kernel, 4-6 the three top-n kernels (K2, K3), which
-//     return at once when the fire word is 0;
-//   7 ring_columns_kernel in place (K4), the purge, which returns at once
+//   3 window_counts_kernel, 4-5 the top-n's two kernels at top-1 (K2, K3;
+//     above top-1 the radix select's one cooperative launch or five),
+//     which write nothing when the fire word is 0;
+//   6 ring_columns_kernel in place (K4), the purge, which returns at once
 //     when the clear word is 0.
 // Skipping changes no byte: with no valid end the top-n selects no row
-// and rewrites the ring head with its own value, and an all-zero clear
-// mask keeps every column.
+// (and a skipped one leaves the ring and its workspace's epoch as they
+// are), and an all-zero clear mask keeps every column.
 struct FusedParams {
   FireScalars s;
   int32_t fire;
@@ -168,13 +169,14 @@ int ff_apply_pairs_u16(int32_t* counts, int64_t n_cells, const uint16_t* triples
 }
 
 // scratch (allocated by the caller): params (ff_params_bytes()), wcounts
-// (rows * fire_pad int32), thresh (fire_pad floats), block_counts
-// (ceil(rows * fire_pad / kTile) int32), old_total (one int64)
+// (rows * fire_pad int32); work: the step's clean workspace
+// (window_kernels.py clean_workspace), cut for work_windows windows and
+// work_tiles selection tiles (select_work_words)
 int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* buf,
                   int64_t n_words, const uint8_t* used, int32_t ppw, int32_t n, int32_t sel_cap,
                   int32_t* emit_ring, int32_t ring_rows, int32_t ring_cols, int32_t dump_row,
                   int32_t fire_gate, int32_t fire_pad, void* params, int32_t* wcounts,
-                  float* thresh, int32_t* block_counts, long long* old_total, int32_t* err,
+                  int64_t* work, int64_t work_windows, int64_t work_tiles, int32_t* err,
                   void* stream) {
   if (ring < 1 || ring > kMaxRing || fire_pad < 1 || fire_pad > kMaxFirePad || n_words < kHdr)
     return (int)cudaErrorInvalidValue;
@@ -190,8 +192,8 @@ int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* bu
                        s);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  rc = launch_topn(wcounts, rows, fire_pad, used, p->end_panes, p->w_valid, fire, n, sel_cap,
-                   emit_ring, ring_rows, ring_cols, thresh, block_counts, old_total, s);
+  rc = launch_topn(wcounts, rows, fire_pad, used, p->end_panes, p->w_valid, fire, n, nullptr, 0,
+                   sel_cap, emit_ring, ring_rows, ring_cols, work, work_windows, work_tiles, s);
   if (rc) return rc;
   RingParams purge{};
   purge.lane[0] = RingLane{(const uint32_t*)counts, (uint32_t*)counts, 1, 0u};
@@ -227,8 +229,8 @@ int ff_fused_step_packed(const int64_t* a, void* stream) {
       (int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const int32_t*)(intptr_t)a[3],
       (int64_t)a[4], (const uint8_t*)(intptr_t)a[5], (int32_t)a[6], (int32_t)a[7], (int32_t)a[8],
       (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (int32_t)a[12], (int32_t)a[13],
-      (int32_t)a[14], (void*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16], (float*)(intptr_t)a[17],
-      (int32_t*)(intptr_t)a[18], (long long*)(intptr_t)a[19], (int32_t*)(intptr_t)a[20], stream);
+      (int32_t)a[14], (void*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16], (int64_t*)(intptr_t)a[17],
+      (int64_t)a[18], (int64_t)a[19], (int32_t*)(intptr_t)a[20], stream);
 }
 
 }  // extern "C"

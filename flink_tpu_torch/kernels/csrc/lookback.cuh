@@ -1,13 +1,13 @@
 // Ordered compaction in one launch, by decoupled look-back (Merrill &
 // Garland 2016, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back"), shared by the fire kernels redesigned for Hopper:
-// fire_pack (lane_kernels.cu) and topn_select_lanes
-// (topn_lanes_kernels.cu). A block ranks the selected items of its tile,
+// fire_pack (lane_kernels.cu) and the top-n selections of topn_select.cuh
+// (topn_select_lanes, topn_select_append, the fused step's fire tail and
+// topn_select_given). A block ranks the selected items of its tile,
 // publishes the tile's count and takes its global offset from the tiles
 // before it in the same launch, so no per-item scratch goes through
 // device memory and no second launch reads it back. compact.cuh's
-// two-launch form stays for the kernels not redesigned (K3's
-// topn_select_append and topn_select_given, count_fire).
+// two-launch form stays for count_fire.
 //
 // Tile t is block t: the scheduler starts blocks in index order, so a
 // tile's predecessors are running or done when it waits on them (CUB's
@@ -67,12 +67,21 @@ __device__ __forceinline__ int block_min_int(int v, int* smem) {
   return r;
 }
 
+// Descriptor t lies at desc[t * kStride] (64-bit words): 1 packs them;
+// kLbLine gives each its own 128-byte line, so a wave of tiles polling
+// them spreads over the L2 instead of queueing on a few lines (the
+// top-n selections' look-back measured 1.5 against 3.0 us a tile,
+// PERF.md §6, PR 13).
+constexpr int kLbLine = 16;
+
 // A tile's own count, published as soon as the block knows it (thread 0;
 // before lookback_exclusive, and before any other work the tile can do
 // first, so its successors wait less).
+template <int kStride = 1>
 __device__ __forceinline__ void lb_publish(unsigned long long* __restrict__ desc, int64_t tile,
                                            long long agg, uint32_t epoch) {
-  if (threadIdx.x == 0) lb_store(desc + tile, lb_word(epoch, tile ? kLbAgg : kLbInc, agg));
+  if (threadIdx.x == 0)
+    lb_store(desc + tile * kStride, lb_word(epoch, tile ? kLbAgg : kLbInc, agg));
 }
 
 // The count of the items selected in the tiles before ``tile``, given its
@@ -84,6 +93,7 @@ __device__ __forceinline__ void lb_publish(unsigned long long* __restrict__ desc
 // grid running at once (one wave: ~260 tiles at WordCount's fire) a tile
 // waits for its predecessors' aggregates, not for a chain of inclusive
 // counts; thread 0 then publishes its own inclusive count.
+template <int kStride = 1>
 __device__ long long lookback_exclusive(unsigned long long* __restrict__ desc, int64_t tile,
                                         long long agg, uint32_t epoch, long long* s_sum,
                                         int* s_min) {
@@ -95,13 +105,13 @@ __device__ long long lookback_exclusive(unsigned long long* __restrict__ desc, i
       unsigned long long d = lb_word(epoch, kLbInc, 0);
       if (q >= 0)
         do {
-          d = lb_load(desc + q);
+          d = lb_load(desc + q * kStride);
         } while (!lb_published(d, epoch));
       const int nearest = block_min_int((d & kLbInc) ? (int)threadIdx.x : kThreads, s_min);
       excl += block_sum((int)threadIdx.x <= nearest ? (long long)(d & kLbCount) : 0, s_sum);
       if (nearest < kThreads) break;
     }
-    if (threadIdx.x == 0) lb_store(desc + tile, lb_word(epoch, kLbInc, excl + agg));
+    if (threadIdx.x == 0) lb_store(desc + tile * kStride, lb_word(epoch, kLbInc, excl + agg));
   }
   return excl;
 }

@@ -1,9 +1,10 @@
 // Top-n fires over lane aggregates, hand-written for Hopper (sm_90a):
 // top-n by any result field of any aggregate, beside the count-only form
-// of window_fire.cuh (K3), which stays as it is. Plain C interface, bound
-// from Python with ctypes (flink_tpu_torch/kernels/topn_lanes_kernels.py);
-// every entry point launches on the caller's stream, allocates nothing
-// (the wrapper passes scratch) and returns cudaGetLastError().
+// of window_fire.cuh (K3); both select with topn_select.cuh. Plain C
+// interface, bound from Python with ctypes
+// (flink_tpu_torch/kernels/topn_lanes_kernels.py); every entry point
+// launches on the caller's stream, allocates nothing (the wrapper passes
+// scratch) and returns cudaGetLastError().
 //
 // TA window_lanes         replaces flink_tpu/ops/window.py:318-346, the
 //                         sum / max / min lanes of fire_kernel over the
@@ -35,6 +36,7 @@
 #include <stdint.h>
 
 #include "lookback.cuh"
+#include "topn_select.cuh"
 #include "window_common.cuh"
 
 namespace {
@@ -450,499 +452,30 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- TB: topn_select_lanes ---------------------------------------------------
-// Candidates: cells with count > 0 on a registered row of a valid window.
-// Per window, the threshold is the k-th largest ranking key (k = min(n,
-// rows)) with ties counted, non-candidates keyed as -inf; a candidate at
-// or above it (IEEE >=) is selected. Selected cells are compacted in
-// row-major (row, window) order and appended to the emit ring as [row,
-// end_pane - anchor, count, result columns...].
-//
-// Bound: bytes — the (rows x W) counts and ranking values read once, the
-// used mask, and the appended rows (3 + F words each).
-//
-// Design: every kernel reads the row-major grid in tiles over the whole
-// card, neighbouring threads on neighbouring cells, every load of a
-// thread in flight before the first test (a block a window would hold W
-// of the 132 SMs and read one word of each row's W). A cell's key is its
-// total-order key (total_key) with the sign bit flipped, so unsigned
-// order is IEEE total order; a non-candidate's is -inf's (kNonCand).
-//   k = 1   lanes_max_kernel: a block's per-window maximum of its
-//           candidates in shared memory (and a flag when it saw a
-//           non-candidate), then one 64-bit atomicMax a window of (epoch,
-//           key) into the workspace: exact, in any order, and an older
-//           call's value always loses.
-//   k > 1   an MSB-first radix select on the keys, 8 bits a digit, four
-//           passes. Pass p histograms, per window, digit p of the
-//           candidates' keys whose higher digits equal the window's prefix
-//           so far (shared-memory atomics, merged by global atomics); the
-//           non-candidates are counted once (rows less the candidates) and
-//           stand in -inf's bin while -inf matches the prefix. The last
-//           block to finish a pass picks each window's digit and the count
-//           still needed below it, a warp a window, and clears the bins.
-//           After four passes the prefix is the k-th key. Where the grid's
-//           blocks fit on the card at once, lanes_radix_all_kernel runs
-//           the passes and the selection in one cooperative launch (grid
-//           barriers between passes, the keys kept in registers); else
-//           lanes_radix_kernel runs a launch a pass.
-//   then    select_tile: the selection and the append in the same launch,
-//           each tile's place from lookback.cuh's look-back; the grid's
-//           last tile updates the ring's head and advances the epoch
-//           (lanes_select_kernel after the max or the per-pass passes).
-// Launches a call: 2 at k = 1; above, 1 (cooperative) or 5. A small grid
-// takes the same kernels with few blocks (no single-block form is kept).
-//   The rules are the plain version's: a -NaN candidate at the k-th place
-// gives a NaN threshold (nothing selected), as lax.top_k over the masked
-// grid does; a window with fewer candidates than k gets -inf.
-//   The workspace (window_kernels.py clean_workspace; its layout by the
-// capacities it was allocated for, select_work_words) holds the ring's
-// old head, the radix passes' done counter, the epoch, the grid
-// barrier's words, each window's tagged threshold, radix prefix, count
-// still needed, non-candidate count and bins, and a descriptor a
-// selection tile.
-constexpr int kThrItems = 8;                     // cells a thread, threshold passes
-constexpr int kThrCells = kThreads * kThrItems;  // cells a threshold block
-constexpr int kSelItems = 4;                     // cells a thread, lanes_select_kernel
-constexpr int kSelCells = kThreads * kSelItems;  // cells a selection tile (8 a thread
-                                                 // measured slower: 0.0078 against 0.0067 ms)
-constexpr int kSelWinTable = 64;                 // windows of a block's table
-constexpr int kRadixWindows = 32;                // windows a radix block histograms
-
-struct SelParams {
-  const int32_t* wcounts;
-  const float* v;
-  const int32_t* cols;
-  int32_t F;
-  int64_t rows;
-  int32_t W, k, sel_cap, row_cap, ring_cols;
-  const uint8_t* used;
-  const int64_t* end_panes;
-  const uint8_t* w_valid;
-  int64_t anchor;
-  int32_t* ring;
-  // the workspace
-  long long* old_total;
-  unsigned int* done;
-  uint32_t* epoch;
-  unsigned long long* thresh;  // (epoch << 32) | key, a window
-  uint32_t* prefix;
-  uint32_t* need;
-  uint32_t* noncand;
-  uint32_t* hist;     // 256 a window
-  unsigned int* bar;  // the grid barrier's count and generation
-  unsigned long long* desc;
-  int64_t tiles;
-};
-
-// int32 key whose integer order is IEEE total order on f32
-__device__ __forceinline__ int32_t total_key(float x) {
-  const int32_t b = __float_as_int(x);
-  return b >= 0 ? b : b ^ 0x7FFFFFFF;
-}
-
-__device__ __forceinline__ float from_total_key(int32_t k) {
-  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
-}
-
-// the unsigned key of -inf, every non-candidate's
-constexpr uint32_t kNonCand = 0x007FFFFFu;  // total_key(-inf) ^ 0x80000000
-
-// the workspace's unsigned threshold key as the f32 it ranks
-__device__ __forceinline__ float thresh_value(unsigned long long t) {
-  return from_total_key((int32_t)((uint32_t)t ^ 0x80000000u));
-}
-
-// a threshold block's cells: thread t takes cells a + t + kThreads * j,
-// so each load of the block reads consecutive words; (r, w) of each
-// step follow without a division
-struct GridWalk {
-  int64_t i, r;
-  int32_t w, dr, dw, W;
-  __device__ __forceinline__ GridWalk(int64_t i0, int32_t W_) : i(i0), W(W_) {
-    r = i0 / W_;
-    w = (int32_t)(i0 - r * W_);
-    dr = kThreads / W_;
-    dw = kThreads % W_;
-  }
-  __device__ __forceinline__ void next() {
-    i += kThreads;
-    r += dr;
-    w += dw;
-    if (w >= W) {
-      w -= W;
-      ++r;
-    }
-  }
-};
-
-// a threshold block's cells of windows [g0, g0 + gw): win = the window
-// less g0 (-1: a cell outside them or the grid), cand = a candidate, key
-// its unsigned key; every load in flight before the first test
-__device__ __forceinline__ void walk_keys(const SelParams& p, int32_t g0, int32_t gw,
-                                          uint32_t (&key)[kThrItems], int32_t (&win)[kThrItems],
-                                          bool (&cand)[kThrItems]) {
-  const int64_t K = p.rows * (int64_t)p.W;
-  GridWalk g((int64_t)blockIdx.x * kThrCells + threadIdx.x, p.W);
-  int32_t wc[kThrItems];
-  float v[kThrItems];
-  uint8_t used[kThrItems], valid[kThrItems];
-#pragma unroll
-  for (int j = 0; j < kThrItems; ++j) {
-    const int32_t wl = g.w - g0;
-    win[j] = g.i < K && wl >= 0 && wl < gw ? wl : -1;
-    wc[j] = 0;
-    v[j] = 0.0f;
-    used[j] = valid[j] = 0;
-    if (win[j] >= 0) {
-      wc[j] = p.wcounts[g.i];
-      v[j] = p.v[g.i];
-      used[j] = p.used[g.r];
-      valid[j] = p.w_valid[g.w];
-    }
-    g.next();
-  }
-#pragma unroll
-  for (int j = 0; j < kThrItems; ++j) {
-    cand[j] = win[j] >= 0 && wc[j] > 0 && valid[j] && used[j];
-    key[j] = (uint32_t)total_key(v[j]) ^ 0x80000000u;
-  }
-}
-
+// topn_select.cuh's lane form: candidates rank by the ranking grid v, and
+// each appended row carries the cell's F result columns. Bound and design
+// there; the count form (window_fire.cuh K3) runs the same bodies.
 __global__ void __launch_bounds__(kThreads) lanes_max_kernel(const SelParams p) {
-  __shared__ uint32_t s_max[kSelWinTable];
-  __shared__ uint8_t s_seen[kSelWinTable], s_nc[kSelWinTable];
-  __shared__ uint32_t s_epoch;
-  const int32_t W = p.W;
-  const bool table = W <= kSelWinTable;
-  uint32_t key[kThrItems];
-  int32_t win[kThrItems];
-  bool cand[kThrItems];
-  walk_keys(p, 0, W, key, win, cand);
-  if (table)
-    for (int32_t w = threadIdx.x; w < W; w += kThreads) {
-      s_max[w] = 0;
-      s_seen[w] = s_nc[w] = 0;
-    }
-  if (threadIdx.x == 0) {
-    s_epoch = *(volatile const uint32_t*)p.epoch;
-    if (blockIdx.x == 0) *p.old_total = p.ring[0];
-  }
-  __syncthreads();
-  const unsigned long long tag = (unsigned long long)s_epoch << 32;
-#pragma unroll
-  for (int j = 0; j < kThrItems; ++j) {
-    if (win[j] < 0) continue;
-    const uint32_t k = cand[j] ? key[j] : kNonCand;
-    if (!table) {
-      atomicMax(&p.thresh[win[j]], tag | k);
-    } else if (cand[j]) {
-      atomicMax(&s_max[win[j]], k);
-      s_seen[win[j]] = 1;
-    } else {
-      s_nc[win[j]] = s_seen[win[j]] = 1;
-    }
-  }
-  __syncthreads();
-  if (table)
-    for (int32_t w = threadIdx.x; w < W; w += kThreads)
-      if (s_seen[w])
-        atomicMax(&p.thresh[w], tag | (s_nc[w] && s_max[w] < kNonCand ? kNonCand : s_max[w]));
+  sel_max<false>(p);
 }
 
-// A radix pick for one window, a warp: pass ``pass``'s bins h (lane l
-// holds bins 255 - 8l down to 248 - 8l), the prefix so far, the count
-// still needed and (past pass 0) the window's non-candidate count. The
-// non-candidates stand in -inf's bin while -inf matches the prefix (pass
-// 0 counts them: the rows less the candidates); the lane whose bins hold
-// the key still needed walks them. Every lane gets the new prefix, the
-// count still needed below it and the non-candidate count.
-struct RadixPick {
-  uint32_t prefix, need, noncand;
-};
-
-__device__ __forceinline__ RadixPick radix_pick(const uint32_t* h, int pass, uint32_t pre,
-                                                uint32_t need, uint32_t nc, int64_t rows) {
-  const int lane = threadIdx.x & 31;
-  const int shift = 24 - 8 * pass;
-  const uint32_t above = pass ? 0xFFFFFFFFu << (shift + 8) : 0u;
-  uint32_t b[8];
-  uint32_t sum = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    b[i] = __ldcg(h + 255 - 8 * lane - i);
-    sum += b[i];
-  }
-  if (pass == 0) {
-    uint32_t cands = sum;
-    for (int o = 16; o > 0; o >>= 1) cands += __shfl_xor_sync(0xffffffffu, cands, o);
-    nc = (uint32_t)(rows - cands);
-  }
-  if ((kNonCand & above) == (pre & above)) {
-    const int at = 255 - (int)((kNonCand >> shift) & 255);  // 8 lane + i
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (8 * lane + i == at) {
-        b[i] += nc;
-        sum += nc;
-      }
-  }
-  uint32_t incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t n = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += n;
-  }
-  const uint32_t higher = incl - sum;  // keys in the higher bins
-  const bool mine = higher < need && need <= incl;
-  const unsigned who = __ballot_sync(0xffffffffu, mine);
-  uint32_t digit = 0, left = need;
-  if (mine) {
-    uint32_t c = higher;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (c + b[i] >= need) {
-        digit = 255 - 8 * lane - i;
-        left = need - c;
-        break;
-      }
-      c += b[i];
-    }
-  }
-  const int src = who ? __ffs(who) - 1 : 0;
-  RadixPick r;
-  r.prefix = pre | (__shfl_sync(0xffffffffu, digit, src) << shift);
-  r.need = __shfl_sync(0xffffffffu, left, src);
-  r.noncand = nc;
-  return r;
-}
-
-// a block's histogram of pass ``pass`` over its cells (windows [g0, g0 +
-// gw), pre: their prefixes in shared memory), merged into h
-__device__ __forceinline__ void radix_histogram(uint32_t* s_hist, const uint32_t* s_pre,
-                                                const uint32_t (&key)[kThrItems],
-                                                const int32_t (&win)[kThrItems],
-                                                const bool (&cand)[kThrItems], int pass,
-                                                int32_t gw, uint32_t* h) {
-  const int shift = 24 - 8 * pass;
-  // the digits above this pass's must equal the window's prefix
-  const uint32_t above = pass ? 0xFFFFFFFFu << (shift + 8) : 0u;
-  for (int32_t e = threadIdx.x; e < gw * 256; e += kThreads) s_hist[e] = 0;
-  __syncthreads();
-  // (a warp's atomics on one bin merged by __match_any_sync measured
-  // slower: 2.3 against 1.1 us a pass at job T's top-3)
-#pragma unroll
-  for (int j = 0; j < kThrItems; ++j)
-    if (cand[j] && (key[j] & above) == (s_pre[win[j]] & above))
-      atomicAdd(&s_hist[win[j] * 256 + ((key[j] >> shift) & 255)], 1u);
-  __syncthreads();
-  for (int32_t e = threadIdx.x; e < gw * 256; e += kThreads)
-    if (s_hist[e]) atomicAdd(&h[e], s_hist[e]);
-}
-
-// the last radix block's picks of pass ``pass`` for every window, a warp
-// a window: into the workspace's prefix, need and non-candidate count
-// (the thresholds after pass 3); each window's bins cleared
-__device__ __forceinline__ void radix_pick_all(const SelParams& p, int pass, uint32_t epoch) {
-  const unsigned long long tag = (unsigned long long)epoch << 32;
-  for (int32_t w = threadIdx.x >> 5; w < p.W; w += kWarps) {
-    uint32_t* h = p.hist + (int64_t)w * 256;
-    const RadixPick r = radix_pick(h, pass, pass ? __ldcg(p.prefix + w) : 0u,
-                                   pass ? __ldcg(p.need + w) : (uint32_t)p.k,
-                                   pass ? __ldcg(p.noncand + w) : 0u, p.rows);
-    for (int i = threadIdx.x & 31; i < 256; i += 32) h[i] = 0;
-    if ((threadIdx.x & 31) == 0) {
-      p.prefix[w] = r.prefix;
-      p.need[w] = r.need;
-      p.noncand[w] = r.noncand;
-      if (pass == 3) p.thresh[w] = tag | r.prefix;
-    }
-  }
-}
-
-// k > 1 otherwise: one launch a pass (windows in groups of
-// kRadixWindows on the grid's y), the bins H_0 only; the last block to
-// finish picks every window's digit into the workspace and clears the
-// bins.
 __global__ void __launch_bounds__(kThreads) lanes_radix_kernel(const SelParams p, int pass) {
-  __shared__ uint32_t s_hist[kRadixWindows * 256];
-  __shared__ uint32_t s_pre[kRadixWindows];
-  __shared__ uint32_t s_epoch;
-  __shared__ int s_flag;
-  const int32_t W = p.W, g0 = blockIdx.y * kRadixWindows;
-  const int32_t gw = W - g0 < kRadixWindows ? W - g0 : kRadixWindows;
-  // the prefixes and the epoch in flight with the grid's loads
-  const uint32_t pre = pass && (int32_t)threadIdx.x < gw ? p.prefix[g0 + threadIdx.x] : 0u;
-  const uint32_t epoch = threadIdx.x == 0 ? *(volatile const uint32_t*)p.epoch : 0u;
-  uint32_t key[kThrItems];
-  int32_t win[kThrItems];
-  bool cand[kThrItems];
-  walk_keys(p, g0, gw, key, win, cand);
-  if ((int32_t)threadIdx.x < gw) s_pre[threadIdx.x] = pre;
-  if (threadIdx.x == 0) {
-    s_epoch = epoch;
-    if (pass == 0 && blockIdx.x == 0 && blockIdx.y == 0) *p.old_total = p.ring[0];
-  }
-  radix_histogram(s_hist, s_pre, key, win, cand, pass, gw, p.hist + (int64_t)g0 * 256);
-  if (last_block(p.done, gridDim.x * gridDim.y, &s_flag)) radix_pick_all(p, pass, s_epoch);
+  sel_radix<false>(p, pass);
 }
 
-// One selection tile (kItems consecutive cells a thread, tile =
-// blockIdx.x): the test against the thresholds, the rank in the tile, the
-// place among all p.tiles tiles by the look-back, the appended rows; the
-// grid's last tile updates the ring's head and advances the epoch.
-// kTable: W <= kSelWinTable, the thresholds in a block table (a run-time
-// choice let the compiler load both sides).
-template <bool kTable, int kItems>
-__device__ __forceinline__ void select_tile(const SelParams& p) {
-  __shared__ float s_thr[kSelWinTable];
-  __shared__ int s_scan[kWarps];
-  __shared__ int s_total, s_min[kWarps];
-  __shared__ long long s_sum[kWarps];
-  __shared__ uint32_t s_epoch;
-  const int32_t W = p.W;
-  const int64_t tile = blockIdx.x, K = p.rows * (int64_t)W;
-  const int64_t first = (tile * kThreads + threadIdx.x) * kItems;
-  const int64_t r0 = first / W;
-  const int32_t w0 = (int32_t)(first - r0 * W);
-  uint32_t sel = 0;
-  {
-    // every load in flight before the first test
-    int32_t wc[kItems];
-    float v[kItems];
-    uint8_t used[kItems], valid[kItems];
-    int64_t r = r0;
-    int32_t w = w0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int64_t i = first + j;
-      wc[j] = 0;
-      v[j] = 0.0f;
-      used[j] = valid[j] = 0;
-      if (i < K) {
-        wc[j] = p.wcounts[i];
-        v[j] = p.v[i];
-        used[j] = p.used[r];
-        valid[j] = p.w_valid[w];
-      }
-      if (++w == W) {
-        w = 0;
-        ++r;
-      }
-    }
-    if (kTable)
-      for (int32_t x = threadIdx.x; x < W; x += kThreads)
-        s_thr[x] = thresh_value(__ldcg(p.thresh + x));
-    if (threadIdx.x == 0) s_epoch = *(volatile const uint32_t*)p.epoch;
-    __syncthreads();
-    w = w0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (wc[j] > 0 && valid[j] && used[j] &&
-          v[j] >= (kTable ? s_thr[w] : thresh_value(__ldcg(p.thresh + w))))
-        sel |= 1u << j;
-      if (++w == W) w = 0;
-    }
-  }
-  const uint32_t epoch = s_epoch;
-  const int before = block_scan_total(__popc(sel), s_scan, &s_total);
-  const int tile_n = s_total;
-  lb_publish(p.desc, tile, tile_n, epoch);
-  const long long excl = lookback_exclusive(p.desc, tile, tile_n, epoch, s_sum, s_min);
-  const long long total = __ldcg(p.old_total);
-  if (tile == p.tiles - 1 && threadIdx.x == 0) {
-    const long long all = excl + tile_n;
-    const long long written = all < p.sel_cap ? all : p.sel_cap;
-    p.ring[0] = (int32_t)(total + written);
-    p.ring[1] += (int32_t)(all - written);
-    lb_advance(p.epoch, epoch);
-  }
-  if (sel) {
-    long long pos = excl + before;
-    int64_t r = r0;
-    int32_t w = w0;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (((sel >> j) & 1) && pos < p.sel_cap) {
-        const int64_t i = first + j;
-        int32_t* dst = p.ring + ((total + pos) % p.row_cap + 1) * p.ring_cols;
-        dst[0] = (int32_t)r;
-        dst[1] = (int32_t)(p.end_panes[w] - p.anchor);
-        dst[2] = p.wcounts[i];
-        for (int32_t f = 0; f < p.F; ++f) dst[3 + f] = p.cols[i * p.F + f];
-      }
-      pos += (sel >> j) & 1;
-      if (++w == W) {
-        w = 0;
-        ++r;
-      }
-    }
-  }
+__global__ void __launch_bounds__(kThreads) lanes_radix_all_kernel(const SelParams p) {
+  sel_radix_all<false>(p);
 }
 
 template <bool kTable>
 __global__ void __launch_bounds__(kThreads) lanes_select_kernel(const SelParams p) {
-  select_tile<kTable, kSelItems>(p);
+  select_tile<false, kTable, kSelItems>(p);
 }
 
-// k > 1, when the threshold blocks fit on the card at once (a
-// cooperative launch) and W <= kRadixWindows: the four passes and the
-// selection in one launch. Each block loads its cells once and keeps their keys in
-// registers. After each pass's histogram the blocks meet at a grid
-// barrier whose last arrival picks every window's digit (as the last
-// block of lanes_radix_kernel does) before it releases the others, who
-// then read the windows' new prefixes; after the last, every block
-// selects its own cells (select_tile, a tile of kThrCells). The four passes alone took 0.0263 ms
-// at job T's top-3 on the H100; two other forms measured slower there:
-// every block picking from the merged bins itself (0.0369 ms: the bins'
-// lines hot in L2, 3-5 us a pick), and a launch a pass
-// (lanes_radix_kernel, kept for the grids that do not fit: 0.0324-0.0355
-// ms). PERF.md §6 has the figures.
-__global__ void __launch_bounds__(kThreads) lanes_radix_all_kernel(const SelParams p) {
-  __shared__ uint32_t s_hist[kRadixWindows * 256];
-  __shared__ uint32_t s_pre[kRadixWindows];
-  __shared__ uint32_t s_epoch;
-  __shared__ int s_flag;
-  const int32_t W = p.W;
-  unsigned int* count = p.bar;
-  unsigned int* gen = p.bar + 1;
-  uint32_t key[kThrItems];
-  int32_t win[kThrItems];
-  bool cand[kThrItems];
-  walk_keys(p, 0, W, key, win, cand);
-  for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = 0;
-  if (threadIdx.x == 0) {
-    s_epoch = *(volatile const uint32_t*)p.epoch;
-    if (blockIdx.x == 0) *p.old_total = p.ring[0];
-  }
-  for (int pass = 0; pass < 4; ++pass) {
-    radix_histogram(s_hist, s_pre, key, win, cand, pass, W, p.hist);
-    // the grid barrier; its last arrival picks, then releases the others
-    __syncthreads();
-    unsigned int g = 0;
-    if (threadIdx.x == 0) {
-      g = *(volatile unsigned int*)gen;
-      __threadfence();
-      s_flag = atomicAdd(count, 1u) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (s_flag) {
-      __threadfence();
-      radix_pick_all(p, pass, s_epoch);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        *(volatile unsigned int*)count = 0;
-        __threadfence();
-        atomicAdd(gen, 1u);
-      }
-    } else if (threadIdx.x == 0) {
-      while (*(volatile unsigned int*)gen == g) __nanosleep(32);
-      __threadfence();
-    }
-    __syncthreads();
-    if (pass < 3)
-      for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = __ldcg(p.prefix + w);
-  }
-  select_tile<true, kThrItems>(p);
-}
+int g_lanes_capacity[64];
+const SelKernels kLanesKernels{lanes_max_kernel,           lanes_radix_kernel,
+                               lanes_radix_all_kernel,     lanes_select_kernel<true>,
+                               lanes_select_kernel<false>, g_lanes_capacity};
 
 }  // namespace
 
@@ -1026,41 +559,8 @@ struct SelectArgs {
   int64_t ring, ring_rows, ring_cols, work, work_windows, work_tiles;
 };
 
-// the workspace's int64 words for Wc windows and Tc selection tiles: the
-// ring's old head; the done counter and the epoch; the grid barrier's two
-// words; a tagged threshold a window; each window's prefix, count still
-// needed, non-candidate count and 256 bins (32-bit words); a descriptor
-// a tile (topn_lanes_kernels.py _select_work_words)
-inline int64_t select_work_words(int64_t Wc, int64_t Tc) {
-  return 3 + Wc + (Wc * (3 + 256) + 1) / 2 + Tc;
-}
-
-// the threshold blocks the card holds at once for lanes_radix_all_kernel
-// (its cooperative launch), once a device
-int radix_all_capacity() {
-  static int capacity[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (!capacity[dev]) {
-    int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lanes_radix_all_kernel, kThreads,
-                                                      0) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    capacity[dev] = per_sm * sms;
-  }
-  return capacity[dev];
-}
-
 int tl_topn_select_lanes_packed(const SelectArgs* a, void* stream) {
-  const int64_t K = a->rows * a->W;
-  if (K <= 0 || a->W <= 0 || a->k <= 0) return (int)cudaGetLastError();
-  const int64_t tiles = (K + kSelCells - 1) / kSelCells;
-  const int64_t blocks = (K + kThrCells - 1) / kThrCells;
-  const int64_t groups = (a->W + kRadixWindows - 1) / kRadixWindows;
-  const int64_t Wc = a->work_windows, Tc = a->work_tiles;
-  if (a->W >= (1ll << 31) || a->rows >= (1ll << 32) || tiles >= (1ll << 31) ||
-      blocks >= (1ll << 31) || groups > 65535 || a->ring_rows < 3 || Wc < a->W || Tc < tiles)
+  if (a->W >= (1ll << 31) || a->k >= (1ll << 31) || a->ring_rows < 3)
     return (int)cudaErrorInvalidValue;
   SelParams p{};
   p.wcounts = (const int32_t*)a->wcounts;
@@ -1076,43 +576,10 @@ int tl_topn_select_lanes_packed(const SelectArgs* a, void* stream) {
   p.used = (const uint8_t*)a->used;
   p.end_panes = (const int64_t*)a->end_panes;
   p.w_valid = (const uint8_t*)a->w_valid;
-  p.anchor = a->anchor;
+  p.src = host_fire(0, 0, a->anchor);
   p.ring = (int32_t*)a->ring;
-  int64_t* work = (int64_t*)a->work;
-  p.old_total = (long long*)work;
-  p.done = (unsigned int*)(work + 1);
-  p.epoch = (uint32_t*)(work + 1) + 1;
-  p.bar = (unsigned int*)(work + 2);
-  p.thresh = (unsigned long long*)(work + 3);
-  p.prefix = (uint32_t*)(work + 3 + Wc);
-  p.need = p.prefix + Wc;
-  p.noncand = p.need + Wc;
-  p.hist = p.noncand + Wc;
-  p.desc = (unsigned long long*)(work + 3 + Wc + (Wc * (3 + 256) + 1) / 2);
-  p.tiles = tiles;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a->k > 1 && a->W <= kRadixWindows && blocks <= radix_all_capacity()) {
-    p.tiles = blocks;  // it selects a threshold block's cells a tile
-    void* args[] = {(void*)&p};
-    return (int)cudaLaunchCooperativeKernel((const void*)lanes_radix_all_kernel,
-                                            dim3((unsigned)blocks), dim3(kThreads), args, 0, s);
-  }
-  if (a->k == 1) {
-    lanes_max_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(p);
-  } else {
-    for (int pass = 0; pass < 4; ++pass) {
-      lanes_radix_kernel<<<dim3((unsigned)blocks, (unsigned)groups), kThreads, 0, s>>>(p, pass);
-      const int rc = (int)cudaGetLastError();
-      if (rc) return rc;
-    }
-  }
-  const int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  if (a->W <= kSelWinTable)
-    lanes_select_kernel<true><<<(unsigned)tiles, kThreads, 0, s>>>(p);
-  else
-    lanes_select_kernel<false><<<(unsigned)tiles, kThreads, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return launch_select(p, (int64_t*)a->work, a->work_windows, a->work_tiles, kLanesKernels,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,694 @@
+// The top-n selection of a fire over a row-major (rows x W) grid, shared
+// by both forms of the reference's _ring_append_topn_core
+// (flink_tpu/ops/window.py:547) + _topn_select_append (:456): the count
+// form (window_fire.cuh K3: topn_select_append, the fused step's fire tail
+// and topn_select_given, the key-sharded mode's select against a given
+// threshold) and the lane form (topn_lanes_kernels.cu TB:
+// topn_select_lanes). One body each; the form is a template flag
+// (kCount) and the including source declares its own __global__ kernels,
+// so the profiler names them apart. Include once, after
+// window_common.cuh and lookback.cuh.
+//
+// Candidates: cells with count > 0 on a registered row of a valid window.
+// They rank by a key: the count form's is the count as f32 (what
+// count().finalize gives the reference, so counts past 2^24 tie as its
+// f32 ranking does), the lane form's the ranking grid v. Per window, the
+// threshold is the k-th largest key (k = min(n, rows)) in IEEE total
+// order with ties counted, non-candidates keyed as -inf; a candidate at
+// or above it (IEEE >=) is selected. Selected cells are compacted in
+// row-major (row, window) order and appended to the emit ring as [row +
+// row_offset, end_pane - anchor, count, result columns...].
+//
+// Bound: bytes — the (rows x W) counts (and ranking values) read once,
+// the used mask, and the appended rows (3 + F words each).
+//
+// Design: every kernel reads the row-major grid in tiles over the whole
+// card, neighbouring threads on neighbouring cells, every load of a
+// thread in flight before the first test (a block a window would hold W
+// of the 132 SMs and read one word of each row's W). A cell's key is its
+// total-order key (total_key) with the sign bit flipped, so unsigned
+// order is IEEE total order; a non-candidate's is -inf's (kNonCand).
+//   k = 1   sel_max: a block's per-window maximum (a thread's cells all
+//           of one window) in shared memory, then one 64-bit atomicMax a
+//           window of (epoch, key) into the workspace: exact, in any
+//           order, and an older call's value always loses.
+//   k > 1   an MSB-first radix select on the keys, 8 bits a digit, four
+//           passes. Pass p histograms, per window, digit p of the
+//           candidates' keys whose higher digits equal the window's prefix
+//           so far (shared-memory atomics, merged by global atomics); the
+//           non-candidates are counted once (rows less the candidates) and
+//           stand in -inf's bin while -inf matches the prefix. The last
+//           block to finish a pass picks each window's digit and the count
+//           still needed below it, a warp a window, and clears the bins.
+//           After four passes the prefix is the k-th key. Where the grid's
+//           blocks fit on the card at once, sel_radix_all runs the passes
+//           and the selection in one cooperative launch (grid barriers
+//           between passes, the keys kept in registers); else sel_radix
+//           runs a launch a pass.
+//   then    select_tile: the selection and the append in the same launch,
+//           each tile's place from lookback.cuh's look-back (a descriptor
+//           a 128-byte line); the grid's last tile updates the ring's head
+//           and advances the epoch.
+//   given   (topn_select_given) select_tile alone against a given f32
+//           threshold a window: one launch. Each tile reads the ring's
+//           head itself before it publishes its count, so the last tile's
+//           new head (written after its look-back) comes after every read.
+// Launches a call: 2 at k = 1; above, 1 (cooperative) or 5; 1 given. A
+// small grid takes the same kernels with few blocks.
+//   The rules are the plain versions': a -NaN candidate at the k-th place
+// gives a NaN threshold (nothing selected), as lax.top_k over the masked
+// grid does; a window with fewer candidates than k gets -inf.
+//   A FireSource gates the kernels and gives the anchor: the fused step's
+// skip every write (nothing appended, the epoch not advanced) when its
+// fire word is 0, and read the anchor from its parameter block.
+//   The workspace (window_kernels.py clean_workspace, one per entry point
+// and stream; its layout by the capacities it was allocated for,
+// select_work_words) holds the ring's old head, the radix passes' done
+// counter, the epoch, the grid barrier's words, each window's tagged
+// threshold, radix prefix, count still needed, non-candidate count and
+// bins, and a descriptor a selection tile.
+#pragma once
+
+#include "lookback.cuh"
+#include "window_common.cuh"
+
+namespace {
+
+constexpr int kThrItems = 8;                     // cells a thread, threshold passes
+constexpr int kThrCells = kThreads * kThrItems;  // cells a threshold block
+constexpr int kSelItems = 4;                     // cells a thread, select kernels
+constexpr int kSelCells = kThreads * kSelItems;  // cells a selection tile (8 a thread
+                                                 // measured slower: 0.0078 against 0.0067 ms)
+constexpr int kSelWinTable = 64;                 // windows of a block's table
+constexpr int kRadixWindows = 32;                // windows a radix block histograms
+
+struct SelParams {
+  const int32_t* wcounts;
+  const float* v;       // the lane form's ranking grid (the count form: null)
+  const int32_t* cols;  // (rows, W, F) result columns
+  int32_t F;
+  int64_t rows;
+  int32_t W, k, sel_cap, row_cap, ring_cols, row_offset;
+  const uint8_t* used;
+  const int64_t* end_panes;
+  const uint8_t* w_valid;
+  FireSource src;       // the gate and the anchor
+  const float* given;   // a given threshold a window (topn_select_given), else null
+  int32_t* ring;
+  // the workspace
+  long long* old_total;  // null in the given mode (each tile reads the head)
+  unsigned int* done;
+  uint32_t* epoch;
+  unsigned long long* thresh;  // (epoch << 32) | key, a window
+  uint32_t* prefix;
+  uint32_t* need;
+  uint32_t* noncand;
+  uint32_t* hist;     // 256 a window
+  unsigned int* bar;  // the grid barrier's count and generation
+  unsigned long long* desc;
+  int64_t tiles;
+};
+
+// int32 key whose integer order is IEEE total order on f32
+__device__ __forceinline__ int32_t total_key(float x) {
+  const int32_t b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7FFFFFFF;
+}
+
+__device__ __forceinline__ float from_total_key(int32_t k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
+}
+
+// the unsigned key of -inf, every non-candidate's
+constexpr uint32_t kNonCand = 0x007FFFFFu;  // total_key(-inf) ^ 0x80000000
+
+// the workspace's unsigned threshold key as the f32 it ranks
+__device__ __forceinline__ float thresh_value(unsigned long long t) {
+  return from_total_key((int32_t)((uint32_t)t ^ 0x80000000u));
+}
+
+// a threshold block's cells: thread t takes cells a + t + kThreads * j,
+// so each load of the block reads consecutive words; (r, w) of each
+// step follow without a division
+struct GridWalk {
+  int64_t i, r;
+  int32_t w, dr, dw, W;
+  __device__ __forceinline__ GridWalk(int64_t i0, int32_t W_) : i(i0), W(W_) {
+    r = i0 / W_;
+    w = (int32_t)(i0 - r * W_);
+    dr = kThreads / W_;
+    dw = kThreads % W_;
+  }
+  __device__ __forceinline__ void next() {
+    i += kThreads;
+    r += dr;
+    w += dw;
+    if (w >= W) {
+      w -= W;
+      ++r;
+    }
+  }
+};
+
+// a threshold block's cells of windows [g0, g0 + gw): win = the window
+// less g0 (-1: a cell outside them or the grid), cand = a candidate, key
+// its unsigned key; every load in flight before the first test
+template <bool kCount>
+__device__ __forceinline__ void walk_keys(const SelParams& p, int32_t g0, int32_t gw,
+                                          uint32_t (&key)[kThrItems], int32_t (&win)[kThrItems],
+                                          bool (&cand)[kThrItems]) {
+  const int64_t K = p.rows * (int64_t)p.W;
+  GridWalk g((int64_t)blockIdx.x * kThrCells + threadIdx.x, p.W);
+  int32_t wc[kThrItems];
+  float v[kThrItems];
+  uint8_t used[kThrItems], valid[kThrItems];
+#pragma unroll
+  for (int j = 0; j < kThrItems; ++j) {
+    const int32_t wl = g.w - g0;
+    win[j] = g.i < K && wl >= 0 && wl < gw ? wl : -1;
+    wc[j] = 0;
+    v[j] = 0.0f;
+    used[j] = valid[j] = 0;
+    if (win[j] >= 0) {
+      wc[j] = p.wcounts[g.i];
+      if (!kCount) v[j] = p.v[g.i];
+      used[j] = p.used[g.r];
+      valid[j] = p.w_valid[g.w];
+    }
+    g.next();
+  }
+#pragma unroll
+  for (int j = 0; j < kThrItems; ++j) {
+    cand[j] = win[j] >= 0 && wc[j] > 0 && valid[j] && used[j];
+    key[j] = (uint32_t)total_key(kCount ? (float)wc[j] : v[j]) ^ 0x80000000u;
+  }
+}
+
+// k = 1: each block's per-window maxima into the tagged thresholds (a
+// non-candidate keyed as -inf), then one 64-bit atomicMax a window of the
+// block's. Where W <= kThreads a block's cells are max_span(W) x kThrItems
+// consecutive ones and thread t < max_span(W) takes cells t, t + span,
+// ... (span a multiple of W), all of one window: its maximum stays in a
+// register, neighbouring threads still read neighbouring cells, and a
+// warp's lanes of one window (l, l + W, ...) fold by shuffles where W <=
+// 32, so a block makes a few shared atomics, not one a cell (a cell each,
+// on W words, measured 0.0035 ms a call at 32,769 x 11). A window none of
+// whose cells the block holds adds its epoch's tag with the lowest key,
+// which no cell's key is below.
+__host__ __device__ __forceinline__ int32_t max_span(int32_t W) {
+  return W <= kThreads ? kThreads / W * W : kThreads;
+}
+
+template <bool kCount>
+__device__ __forceinline__ void sel_max(const SelParams& p) {
+  __shared__ uint32_t s_max[kSelWinTable];
+  __shared__ uint32_t s_epoch;
+  const bool skip = p.src.skip();  // in flight with the grid's loads
+  const int32_t W = p.W, span = max_span(W);
+  const bool table = W <= kSelWinTable;
+  const int64_t K = p.rows * (int64_t)W;
+  const int64_t i0 = (int64_t)blockIdx.x * span * kThrItems + threadIdx.x;
+  const int64_t r0 = i0 / W;
+  const int32_t w0 = (int32_t)(i0 - r0 * W);
+  const int32_t dr = span / W;  // rows a step (W <= kThreads)
+  // every load in flight before the first test
+  int32_t wc[kThrItems];
+  float v[kThrItems];
+  uint8_t used[kThrItems], valid[kThrItems];
+  int32_t win[kThrItems];
+  {
+    int64_t i = i0, r = r0;
+    int32_t w = w0;
+#pragma unroll
+    for (int j = 0; j < kThrItems; ++j) {
+      const bool in = (int32_t)threadIdx.x < span && i < K;
+      win[j] = in ? w : -1;
+      wc[j] = in ? p.wcounts[i] : 0;
+      v[j] = in && !kCount ? p.v[i] : 0.0f;
+      used[j] = in ? p.used[r] : 0;
+      valid[j] = in ? p.w_valid[w] : 0;
+      i += span;
+      if (W <= kThreads) {
+        r += dr;
+      } else {
+        r = i / W;
+        w = (int32_t)(i - r * W);
+      }
+    }
+  }
+  if (skip) return;
+  if (table)
+    for (int32_t w = threadIdx.x; w < W; w += kThreads) s_max[w] = 0;
+  if (threadIdx.x == 0) {
+    s_epoch = __ldcg(p.epoch);
+    if (blockIdx.x == 0) *p.old_total = p.ring[0];
+  }
+  __syncthreads();
+  const unsigned long long tag = (unsigned long long)s_epoch << 32;
+  uint32_t key[kThrItems];
+#pragma unroll
+  for (int j = 0; j < kThrItems; ++j)
+    key[j] = win[j] < 0 ? 0u
+             : wc[j] > 0 && valid[j] && used[j]
+                 ? (uint32_t)total_key(kCount ? (float)wc[j] : v[j]) ^ 0x80000000u
+                 : kNonCand;
+  if (W <= kThreads) {
+    // one window a thread: its maximum, then the block's
+    uint32_t m = 0;
+#pragma unroll
+    for (int j = 0; j < kThrItems; ++j) m = max(m, key[j]);
+    const int lane = threadIdx.x & 31;
+    if (W <= 32) {
+      for (int32_t d = W; d < 32; d <<= 1) {
+        const uint32_t o = __shfl_down_sync(0xffffffffu, m, d);
+        if (lane + d < 32) m = max(m, o);
+      }
+      if (lane < W && m) atomicMax(&s_max[win[0]], m);
+    } else if (m && table) {
+      atomicMax(&s_max[win[0]], m);
+    } else if (m) {
+      atomicMax(&p.thresh[win[0]], tag | m);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kThrItems; ++j)
+      if (win[j] >= 0) atomicMax(&p.thresh[win[j]], tag | key[j]);
+  }
+  __syncthreads();
+  if (table)
+    for (int32_t w = threadIdx.x; w < W; w += kThreads) atomicMax(&p.thresh[w], tag | s_max[w]);
+}
+
+// A radix pick for one window, a warp: pass ``pass``'s bins h (lane l
+// holds bins 255 - 8l down to 248 - 8l), the prefix so far, the count
+// still needed and (past pass 0) the window's non-candidate count. The
+// non-candidates stand in -inf's bin while -inf matches the prefix (pass
+// 0 counts them: the rows less the candidates); the lane whose bins hold
+// the key still needed walks them. Every lane gets the new prefix, the
+// count still needed below it and the non-candidate count.
+struct RadixPick {
+  uint32_t prefix, need, noncand;
+};
+
+__device__ __forceinline__ RadixPick radix_pick(const uint32_t* h, int pass, uint32_t pre,
+                                                uint32_t need, uint32_t nc, int64_t rows) {
+  const int lane = threadIdx.x & 31;
+  const int shift = 24 - 8 * pass;
+  const uint32_t above = pass ? 0xFFFFFFFFu << (shift + 8) : 0u;
+  uint32_t b[8];
+  uint32_t sum = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    b[i] = __ldcg(h + 255 - 8 * lane - i);
+    sum += b[i];
+  }
+  if (pass == 0) {
+    uint32_t cands = sum;
+    for (int o = 16; o > 0; o >>= 1) cands += __shfl_xor_sync(0xffffffffu, cands, o);
+    nc = (uint32_t)(rows - cands);
+  }
+  if ((kNonCand & above) == (pre & above)) {
+    const int at = 255 - (int)((kNonCand >> shift) & 255);  // 8 lane + i
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (8 * lane + i == at) {
+        b[i] += nc;
+        sum += nc;
+      }
+  }
+  uint32_t incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  const uint32_t higher = incl - sum;  // keys in the higher bins
+  const bool mine = higher < need && need <= incl;
+  const unsigned who = __ballot_sync(0xffffffffu, mine);
+  uint32_t digit = 0, left = need;
+  if (mine) {
+    uint32_t c = higher;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (c + b[i] >= need) {
+        digit = 255 - 8 * lane - i;
+        left = need - c;
+        break;
+      }
+      c += b[i];
+    }
+  }
+  const int src = who ? __ffs(who) - 1 : 0;
+  RadixPick r;
+  r.prefix = pre | (__shfl_sync(0xffffffffu, digit, src) << shift);
+  r.need = __shfl_sync(0xffffffffu, left, src);
+  r.noncand = nc;
+  return r;
+}
+
+// a block's histogram of pass ``pass`` over its cells (windows [g0, g0 +
+// gw), pre: their prefixes in shared memory), merged into h
+__device__ __forceinline__ void radix_histogram(uint32_t* s_hist, const uint32_t* s_pre,
+                                                const uint32_t (&key)[kThrItems],
+                                                const int32_t (&win)[kThrItems],
+                                                const bool (&cand)[kThrItems], int pass,
+                                                int32_t gw, uint32_t* h) {
+  const int shift = 24 - 8 * pass;
+  // the digits above this pass's must equal the window's prefix
+  const uint32_t above = pass ? 0xFFFFFFFFu << (shift + 8) : 0u;
+  for (int32_t e = threadIdx.x; e < gw * 256; e += kThreads) s_hist[e] = 0;
+  __syncthreads();
+  // (a warp's atomics on one bin merged by __match_any_sync measured
+  // slower: 2.3 against 1.1 us a pass at job T's top-3)
+#pragma unroll
+  for (int j = 0; j < kThrItems; ++j)
+    if (cand[j] && (key[j] & above) == (s_pre[win[j]] & above))
+      atomicAdd(&s_hist[win[j] * 256 + ((key[j] >> shift) & 255)], 1u);
+  __syncthreads();
+  for (int32_t e = threadIdx.x; e < gw * 256; e += kThreads)
+    if (s_hist[e]) atomicAdd(&h[e], s_hist[e]);
+}
+
+// the last radix block's picks of pass ``pass`` for every window, a warp
+// a window: into the workspace's prefix, need and non-candidate count
+// (the thresholds after pass 3); each window's bins cleared
+__device__ __forceinline__ void radix_pick_all(const SelParams& p, int pass, uint32_t epoch) {
+  const unsigned long long tag = (unsigned long long)epoch << 32;
+  for (int32_t w = threadIdx.x >> 5; w < p.W; w += kWarps) {
+    uint32_t* h = p.hist + (int64_t)w * 256;
+    const RadixPick r = radix_pick(h, pass, pass ? __ldcg(p.prefix + w) : 0u,
+                                   pass ? __ldcg(p.need + w) : (uint32_t)p.k,
+                                   pass ? __ldcg(p.noncand + w) : 0u, p.rows);
+    for (int i = threadIdx.x & 31; i < 256; i += 32) h[i] = 0;
+    if ((threadIdx.x & 31) == 0) {
+      p.prefix[w] = r.prefix;
+      p.need[w] = r.need;
+      p.noncand[w] = r.noncand;
+      if (pass == 3) p.thresh[w] = tag | r.prefix;
+    }
+  }
+}
+
+// k > 1 otherwise: one launch a pass (windows in groups of
+// kRadixWindows on the grid's y), the bins H_0 only; the last block to
+// finish picks every window's digit into the workspace and clears the
+// bins.
+template <bool kCount>
+__device__ __forceinline__ void sel_radix(const SelParams& p, int pass) {
+  __shared__ uint32_t s_hist[kRadixWindows * 256];
+  __shared__ uint32_t s_pre[kRadixWindows];
+  __shared__ uint32_t s_epoch;
+  __shared__ int s_flag;
+  const bool skip = p.src.skip();
+  const int32_t W = p.W, g0 = blockIdx.y * kRadixWindows;
+  const int32_t gw = W - g0 < kRadixWindows ? W - g0 : kRadixWindows;
+  // the prefixes and the epoch in flight with the grid's loads
+  const uint32_t pre = pass && (int32_t)threadIdx.x < gw ? p.prefix[g0 + threadIdx.x] : 0u;
+  const uint32_t epoch = threadIdx.x == 0 ? __ldcg(p.epoch) : 0u;
+  uint32_t key[kThrItems];
+  int32_t win[kThrItems];
+  bool cand[kThrItems];
+  walk_keys<kCount>(p, g0, gw, key, win, cand);
+  if (skip) return;
+  if ((int32_t)threadIdx.x < gw) s_pre[threadIdx.x] = pre;
+  if (threadIdx.x == 0) {
+    s_epoch = epoch;
+    if (pass == 0 && blockIdx.x == 0 && blockIdx.y == 0) *p.old_total = p.ring[0];
+  }
+  radix_histogram(s_hist, s_pre, key, win, cand, pass, gw, p.hist + (int64_t)g0 * 256);
+  if (last_block(p.done, gridDim.x * gridDim.y, &s_flag)) radix_pick_all(p, pass, s_epoch);
+}
+
+// One selection tile (kItems consecutive cells a thread, tile =
+// blockIdx.x): the test against the thresholds (the workspace's, or the
+// given ones), the rank in the tile, the place among all p.tiles tiles by
+// the look-back, the appended rows; the grid's last tile updates the
+// ring's head and advances the epoch. Everything a row needs besides its
+// place (the ring's head, the anchor, the window ends where W <=
+// kSelWinTable, the cell's count) is read before the look-back, in
+// flight with the tile's loads. kTable: W <= kSelWinTable, the thresholds
+// and ends in a block table (a run-time choice let the compiler load both
+// sides).
+template <bool kCount, bool kTable, int kItems>
+__device__ __forceinline__ void select_tile(const SelParams& p) {
+  __shared__ float s_thr[kSelWinTable];
+  __shared__ int64_t s_end[kSelWinTable];
+  __shared__ int s_scan[kWarps];
+  __shared__ int s_total, s_min[kWarps];
+  __shared__ long long s_sum[kWarps], s_head;
+  __shared__ int64_t s_anchor;
+  __shared__ uint32_t s_epoch;
+  const int32_t W = p.W;
+  const int64_t tile = blockIdx.x, K = p.rows * (int64_t)W;
+  const int64_t first = (tile * kThreads + threadIdx.x) * kItems;
+  const int64_t r0 = first / W;
+  const int32_t w0 = (int32_t)(first - r0 * W);
+  const bool skip = p.src.skip();
+  // every load in flight before the first test
+  int32_t wc[kItems];
+  uint32_t sel = 0;
+  {
+    float v[kItems];
+    uint8_t used[kItems], valid[kItems];
+    int64_t r = r0;
+    int32_t w = w0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int64_t i = first + j;
+      wc[j] = 0;
+      v[j] = 0.0f;
+      used[j] = valid[j] = 0;
+      if (i < K) {
+        wc[j] = p.wcounts[i];
+        if (!kCount) v[j] = p.v[i];
+        used[j] = p.used[r];
+        valid[j] = p.w_valid[w];
+      }
+      if (++w == W) {
+        w = 0;
+        ++r;
+      }
+    }
+    if (skip) return;
+    if (kTable)
+      for (int32_t x = threadIdx.x; x < W; x += kThreads) {
+        s_thr[x] = p.given != nullptr ? p.given[x] : thresh_value(__ldcg(p.thresh + x));
+        s_end[x] = p.end_panes[x];
+      }
+    if (threadIdx.x == 0) {
+      // from L2, all three in flight at once (the epoch and the head were
+      // written by an earlier launch; in the given mode the head by none
+      // before this tile's count is out)
+      s_epoch = __ldcg(p.epoch);
+      s_head = p.old_total != nullptr ? __ldcg(p.old_total) : __ldcg(p.ring);
+      s_anchor = p.src.get().anchor;
+    }
+    __syncthreads();
+    w = w0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const float t = kTable ? s_thr[w]
+                             : (p.given != nullptr ? p.given[w]
+                                                   : thresh_value(__ldcg(p.thresh + w)));
+      if (wc[j] > 0 && valid[j] && used[j] && (kCount ? (float)wc[j] : v[j]) >= t)
+        sel |= 1u << j;
+      if (++w == W) w = 0;
+    }
+  }
+  const uint32_t epoch = s_epoch;
+  const long long total = s_head;
+  const int before = block_scan_total(__popc(sel), s_scan, &s_total);
+  const int tile_n = s_total;
+  // the given mode: this tile's read of the head is done before any tile
+  // can see its count (and so before the last tile writes the head)
+  if (p.old_total == nullptr && threadIdx.x == 0) __threadfence();
+  lb_publish<kLbLine>(p.desc, tile, tile_n, epoch);
+  const long long excl = lookback_exclusive<kLbLine>(p.desc, tile, tile_n, epoch, s_sum, s_min);
+  if (tile == p.tiles - 1 && threadIdx.x == 0) {
+    const long long all = excl + tile_n;
+    const long long written = all < p.sel_cap ? all : p.sel_cap;
+    __threadfence();  // every tile's read of the head, seen through its count, comes first
+    p.ring[0] = (int32_t)(total + written);
+    p.ring[1] += (int32_t)(all - written);
+    lb_advance(p.epoch, epoch);
+  }
+  if (sel) {
+    const int64_t anchor = s_anchor;
+    long long pos = excl + before;
+    int64_t r = r0;
+    int32_t w = w0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (((sel >> j) & 1) && pos < p.sel_cap) {
+        int32_t* dst = p.ring + ((total + pos) % p.row_cap + 1) * p.ring_cols;
+        dst[0] = (int32_t)r + p.row_offset;
+        dst[1] = (int32_t)((kTable ? s_end[w] : p.end_panes[w]) - anchor);
+        dst[2] = wc[j];
+        const int64_t i = first + j;
+        for (int32_t f = 0; f < p.F; ++f) dst[3 + f] = p.cols[i * p.F + f];
+      }
+      pos += (sel >> j) & 1;
+      if (++w == W) {
+        w = 0;
+        ++r;
+      }
+    }
+  }
+}
+
+// k > 1, when the threshold blocks fit on the card at once (a
+// cooperative launch) and W <= kRadixWindows: the four passes and the
+// selection in one launch. Each block loads its cells once and keeps their
+// keys in registers. After each pass's histogram the blocks meet at a
+// grid barrier whose last arrival picks every window's digit (as the last
+// block of sel_radix does) before it releases the others, who then read
+// the windows' new prefixes; after the last, every block selects its own
+// cells (select_tile, a tile of kThrCells). The four passes alone took
+// 0.0263 ms at job T's top-3 on the H100; two other forms measured slower
+// there: every block picking from the merged bins itself (0.0369 ms: the
+// bins' lines hot in L2, 3-5 us a pick), and a launch a pass (sel_radix,
+// kept for the grids that do not fit: 0.0324-0.0355 ms). PERF.md §6 has
+// the figures.
+template <bool kCount>
+__device__ __forceinline__ void sel_radix_all(const SelParams& p) {
+  __shared__ uint32_t s_hist[kRadixWindows * 256];
+  __shared__ uint32_t s_pre[kRadixWindows];
+  __shared__ uint32_t s_epoch;
+  __shared__ int s_flag;
+  const bool skip = p.src.skip();
+  const int32_t W = p.W;
+  unsigned int* count = p.bar;
+  unsigned int* gen = p.bar + 1;
+  uint32_t key[kThrItems];
+  int32_t win[kThrItems];
+  bool cand[kThrItems];
+  walk_keys<kCount>(p, 0, W, key, win, cand);
+  if (skip) return;  // every block of the grid: no barrier is met
+  for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = 0;
+  if (threadIdx.x == 0) {
+    s_epoch = __ldcg(p.epoch);
+    if (blockIdx.x == 0) *p.old_total = p.ring[0];
+  }
+  for (int pass = 0; pass < 4; ++pass) {
+    radix_histogram(s_hist, s_pre, key, win, cand, pass, W, p.hist);
+    // the grid barrier; its last arrival picks, then releases the others
+    __syncthreads();
+    unsigned int g = 0;
+    if (threadIdx.x == 0) {
+      g = *(volatile unsigned int*)gen;
+      __threadfence();
+      s_flag = atomicAdd(count, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (s_flag) {
+      __threadfence();
+      radix_pick_all(p, pass, s_epoch);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        *(volatile unsigned int*)count = 0;
+        __threadfence();
+        atomicAdd(gen, 1u);
+      }
+    } else if (threadIdx.x == 0) {
+      while (*(volatile unsigned int*)gen == g) __nanosleep(32);
+      __threadfence();
+    }
+    __syncthreads();
+    if (pass < 3)
+      for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = __ldcg(p.prefix + w);
+  }
+  select_tile<kCount, true, kThrItems>(p);
+}
+
+// The kernels of one form, each a __global__ wrapper of the bodies above
+// declared by the including source, and the cooperative kernel's
+// capacity (blocks the card holds at once), cached a device.
+struct SelKernels {
+  void (*max)(const SelParams);
+  void (*radix)(const SelParams, int);
+  void (*radix_all)(const SelParams);
+  void (*select_table)(const SelParams);
+  void (*select_wide)(const SelParams);
+  int* capacity;  // 64 devices
+};
+
+// the workspace's int64 words for Wc windows and Tc selection tiles: the
+// ring's old head; the done counter and the epoch; the grid barrier's two
+// words; a tagged threshold a window; each window's prefix, count still
+// needed, non-candidate count and 256 bins (32-bit words); then, from a
+// 128-byte boundary, a descriptor a tile, each on its own 128-byte line
+// (window_kernels.py select_work_words)
+inline int64_t select_desc_word(int64_t Wc) {
+  return (3 + Wc + (Wc * (3 + 256) + 1) / 2 + kLbLine - 1) / kLbLine * kLbLine;
+}
+
+inline int64_t select_work_words(int64_t Wc, int64_t Tc) {
+  return select_desc_word(Wc) + kLbLine * Tc;
+}
+
+inline int radix_all_capacity(const SelKernels& k) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!k.capacity[dev]) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.radix_all, kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    k.capacity[dev] = per_sm * sms;
+  }
+  return k.capacity[dev];
+}
+
+// One selection: binds the workspace (select_work_words(Wc, Tc) int64
+// words, zeroed when allocated) into p and launches the form's kernels
+// (the selection alone where p.given is set); returns the first launch
+// error. p's grid, fire and ring fields are set by the caller.
+inline int launch_select(SelParams p, int64_t* work, int64_t Wc, int64_t Tc,
+                         const SelKernels& k, cudaStream_t s) {
+  const int64_t K = p.rows * (int64_t)p.W;
+  if (K <= 0 || p.W <= 0 || p.k <= 0) return (int)cudaGetLastError();
+  const int64_t tiles = (K + kSelCells - 1) / kSelCells;
+  const int64_t blocks = (K + kThrCells - 1) / kThrCells;
+  const int64_t groups = (p.W + kRadixWindows - 1) / kRadixWindows;
+  if (p.rows >= (1ll << 32) || tiles >= (1ll << 31) || blocks >= (1ll << 31) ||
+      groups > 65535 || p.row_cap < 1 || Wc < p.W || Tc < tiles || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  p.old_total = (long long*)work;
+  p.done = (unsigned int*)(work + 1);
+  p.epoch = (uint32_t*)(work + 1) + 1;
+  p.bar = (unsigned int*)(work + 2);
+  p.thresh = (unsigned long long*)(work + 3);
+  p.prefix = (uint32_t*)(work + 3 + Wc);
+  p.need = p.prefix + Wc;
+  p.noncand = p.need + Wc;
+  p.hist = p.noncand + Wc;
+  p.desc = (unsigned long long*)(work + select_desc_word(Wc));
+  p.tiles = tiles;
+  if (p.given != nullptr) {
+    p.old_total = nullptr;  // each tile reads the head
+  } else if (p.k > 1 && p.W <= kRadixWindows && blocks <= radix_all_capacity(k)) {
+    p.tiles = blocks;  // it selects a threshold block's cells a tile
+    void* args[] = {(void*)&p};
+    return (int)cudaLaunchCooperativeKernel((const void*)k.radix_all, dim3((unsigned)blocks),
+                                            dim3(kThreads), args, 0, s);
+  } else if (p.k == 1) {
+    const int64_t span_cells = (int64_t)max_span(p.W) * kThrItems;
+    k.max<<<(unsigned)((K + span_cells - 1) / span_cells), kThreads, 0, s>>>(p);
+  } else {
+    for (int pass = 0; pass < 4; ++pass) {
+      k.radix<<<dim3((unsigned)blocks, (unsigned)groups), kThreads, 0, s>>>(p, pass);
+      const int rc = (int)cudaGetLastError();
+      if (rc) return rc;
+    }
+  }
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  if (p.W <= kSelWinTable)
+    k.select_table<<<(unsigned)tiles, kThreads, 0, s>>>(p);
+  else
+    k.select_wide<<<(unsigned)tiles, kThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

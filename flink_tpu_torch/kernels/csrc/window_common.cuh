@@ -1,8 +1,9 @@
 // Device helpers shared by the window-operator kernel sources
 // (window_kernels.cu, lane_kernels.cu, devgen_kernels.cu,
 // topn_lanes_kernels.cu, ...): the launch shape, block-wide sum and scan,
-// the window-count rule (which panes of a window are live) and IEEE
-// maximum / minimum. Each .cu file includes this once, inside no
+// a fire's scalars and where a fire kernel reads them (FireSource), the
+// window-count rule (which panes of a window are live) and IEEE maximum /
+// minimum. Each .cu file includes this once, inside no
 // namespace of its own; everything here has internal linkage.
 #pragma once
 
@@ -45,6 +46,28 @@ __device__ __forceinline__ float min_ieee(float a, float b) {
   if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
   if (a == b) return signbit(a) ? a : b;
   return a < b ? a : b;
+}
+
+// A fire's pane bounds and emit-ring anchor.
+struct FireScalars {
+  int64_t pane_lo, pane_hi, anchor;
+};
+
+// Where a fire kernel takes its scalars from, and whether it runs: the
+// values of a host launch (dev and run null), or the fused step's
+// parameter block in device memory (dev), with its gate word (run: the
+// kernel does nothing when *run == 0).
+struct FireSource {
+  FireScalars imm;
+  const FireScalars* dev;
+  const int32_t* run;
+
+  __device__ __forceinline__ FireScalars get() const { return dev != nullptr ? *dev : imm; }
+  __device__ __forceinline__ bool skip() const { return run != nullptr && *run == 0; }
+};
+
+inline FireSource host_fire(int64_t pane_lo, int64_t pane_hi, int64_t anchor) {
+  return FireSource{{pane_lo, pane_hi, anchor}, nullptr, nullptr};
 }
 
 // ---- block reductions / scan (kThreads threads) ---------------------------

@@ -9,35 +9,13 @@
 
 #include <math.h>
 
-#include "compact.cuh"
+#include "topn_select.cuh"
 #include "window_common.cuh"
 
 namespace {
 
 // error-word bit of ring_columns (window_kernels.py ERROR_BITS decodes it)
 constexpr int32_t kErrRingColumn = 2;
-
-// A fire's pane bounds and emit-ring anchor.
-struct FireScalars {
-  int64_t pane_lo, pane_hi, anchor;
-};
-
-// Where a fire kernel takes its scalars from, and whether it runs: the
-// values of a host launch (dev and run null), or the fused step's
-// parameter block in device memory (dev), with its gate word (run: the
-// kernel does nothing when *run == 0).
-struct FireSource {
-  FireScalars imm;
-  const FireScalars* dev;
-  const int32_t* run;
-
-  __device__ __forceinline__ FireScalars get() const { return dev != nullptr ? *dev : imm; }
-  __device__ __forceinline__ bool skip() const { return run != nullptr && *run == 0; }
-};
-
-inline FireSource host_fire(int64_t pane_lo, int64_t pane_hi, int64_t anchor) {
-  return FireSource{{pane_lo, pane_hi, anchor}, nullptr, nullptr};
-}
 
 // ---- block max (kThreads threads) ----------------------------------------
 
@@ -92,130 +70,80 @@ inline void launch_window_counts(const int32_t* counts, int64_t rows, int32_t ri
 // ---- K3: topn_select_append ----------------------------------------------
 // Per window: candidates are cells with count > 0 on a registered row;
 // they rank by the count as f32 (what count().finalize gives the JAX
-// kernel). The threshold is the n-th largest candidate value with ties
-// counted (lax.top_k semantics), -inf when a window has fewer than n
-// candidates. Cells at or above it are selected, compacted in row-major
-// (row, window) order and appended to the emit ring.
+// kernel, so counts past 2^24 tie as their f32 values do). The threshold
+// is the n-th largest candidate value with ties counted, -inf when a
+// window has fewer than n candidates. Cells at or above it are selected,
+// compacted in row-major (row, window) order and appended to the emit
+// ring as [row + row_offset, end_pane - anchor, count].
 //
 // Bound: bytes — one read of the (rows x W) window counts plus the used
-// mask, and a few hundred bytes of appended rows. Design, three
-// launches on one stream:
-//   A  one block per window: up to n max-and-count rounds (n = 1 for Q5:
-//      one max and one count pass over the window's column);
-//   B, C  compact.cuh's ordered compaction of the selected cells: each
-//      block's count, then each block's rows at their positions; block
-//      0 also moves the ring head. Rows land in exactly the order the
-//      JAX kernel's stable argsort gives.
-
-__device__ __forceinline__ bool topn_selected(const int32_t* __restrict__ wcounts, int64_t i,
-                                              int32_t W, const uint8_t* __restrict__ used,
-                                              const uint8_t* __restrict__ w_valid,
-                                              const float* __restrict__ thresh) {
-  const int64_t r = i / W;
-  const int32_t w = (int32_t)(i - r * W);
-  const int32_t c = wcounts[i];
-  return c > 0 && w_valid[w] && used[r] && (float)c >= thresh[w];
+// mask, and a few hundred bytes of appended rows. Design: topn_select.cuh's
+// count form, the threshold over the whole card in tiles (a block a
+// window would hold W = 11 of the 132 SMs and read one word in W of every
+// row): at top-1 two launches (each block's per-window maxima into a
+// 64-bit (epoch, key) atomicMax a window, then the selection and the ring
+// append in one launch by the look-back); above, the radix select (one
+// cooperative launch, else five); against a given threshold
+// (topn_select_given) the selection alone, one launch. The fused step
+// (fused_kernels.cu) runs the same kernels, gated by its fire word, with
+// the anchor from its parameter block.
+__global__ void __launch_bounds__(kThreads) topn_max_kernel(const SelParams p) {
+  sel_max<true>(p);
 }
 
-__global__ void topn_threshold_kernel(const int32_t* __restrict__ wcounts, int64_t rows,
-                                      int32_t W, const uint8_t* __restrict__ used,
-                                      const uint8_t* __restrict__ w_valid, int32_t n,
-                                      float* __restrict__ thresh,
-                                      const int32_t* __restrict__ ring,
-                                      long long* __restrict__ old_total, FireSource src) {
-  __shared__ float s_max[kWarps];
-  __shared__ long long s_sum[kWarps];
-  if (src.skip()) return;
-  const int32_t w = blockIdx.x;
-  if (w == 0 && threadIdx.x == 0) *old_total = ring[0];
-  float result = -INFINITY;
-  if (w_valid[w]) {
-    float ceiling = INFINITY;  // this round looks only below it
-    long long need = n;
-    for (int32_t round = 0; round < n; ++round) {
-      float m = -INFINITY;
-      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
-        const int32_t c = wcounts[r * W + w];
-        if (c > 0 && used[r]) {
-          const float v = (float)c;
-          if (v < ceiling && v > m) m = v;
-        }
-      }
-      m = block_max(m, s_max);
-      if (m == -INFINITY) break;  // fewer than n candidates
-      long long k = 0;
-      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
-        const int32_t c = wcounts[r * W + w];
-        if (c > 0 && used[r] && (float)c == m) ++k;
-      }
-      need -= block_sum(k, s_sum);
-      if (need <= 0) {
-        result = m;
-        break;
-      }
-      ceiling = m;
-    }
-  }
-  if (threadIdx.x == 0) thresh[w] = result;
+__global__ void __launch_bounds__(kThreads) topn_radix_kernel(const SelParams p, int pass) {
+  sel_radix<true>(p, pass);
 }
 
-// ``old_total`` non-null (the distributed mode, which has no threshold
-// pass): block 0 also takes the ring head's snapshot.
-__global__ void topn_count_kernel(const int32_t* __restrict__ wcounts, int64_t rows, int32_t W,
-                                  const uint8_t* __restrict__ used,
-                                  const uint8_t* __restrict__ w_valid,
-                                  const float* __restrict__ thresh,
-                                  int32_t* __restrict__ block_counts, FireSource src,
-                                  const int32_t* __restrict__ ring,
-                                  long long* __restrict__ old_total) {
-  if (src.skip()) return;
-  if (old_total != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *old_total = ring[0];
-  compact_count(
-      rows * (int64_t)W,
-      [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
-      block_counts);
+__global__ void __launch_bounds__(kThreads) topn_radix_all_kernel(const SelParams p) {
+  sel_radix_all<true>(p);
 }
 
-__global__ void topn_write_kernel(const int32_t* __restrict__ wcounts, int64_t rows, int32_t W,
-                                  const uint8_t* __restrict__ used,
-                                  const uint8_t* __restrict__ w_valid,
-                                  const float* __restrict__ thresh,
-                                  const int32_t* __restrict__ block_counts, int32_t n_blocks,
-                                  const long long* __restrict__ old_total,
-                                  const int64_t* __restrict__ end_panes, FireSource src,
-                                  int32_t sel_cap, int32_t* __restrict__ ring,
-                                  int32_t row_cap, int32_t ring_cols, int32_t row_offset) {
-  if (src.skip()) return;
-  topn_ring_append(
-      rows, W, wcounts, block_counts, n_blocks, *old_total, end_panes, src.get().anchor, sel_cap,
-      ring, row_cap, ring_cols, row_offset,
-      [&](int64_t i) { return topn_selected(wcounts, i, W, used, w_valid, thresh); },
-      [](int64_t, int32_t*) {});
+template <bool kTable>
+__global__ void __launch_bounds__(kThreads) topn_select_kernel(const SelParams p) {
+  select_tile<true, kTable, kSelItems>(p);
 }
 
-// scratch: thresh (W floats), block_counts (ceil(rows*W / kTile) int32),
-// old_total (one int64); returns the first launch error
+// the selection against a given threshold (the same body; its own name
+// in a profile)
+template <bool kTable>
+__global__ void __launch_bounds__(kThreads) topn_given_kernel(const SelParams p) {
+  select_tile<true, kTable, kSelItems>(p);
+}
+
+int g_topn_capacity[64];
+const SelKernels kTopnKernels{topn_max_kernel,           topn_radix_kernel,
+                              topn_radix_all_kernel,     topn_select_kernel<true>,
+                              topn_select_kernel<false>, g_topn_capacity};
+const SelKernels kTopnGivenKernels{nullptr, nullptr, nullptr, topn_given_kernel<true>,
+                                   topn_given_kernel<false>, g_topn_capacity};
+
+// One count-form selection into the emit ring: each window's top n
+// against the whole-card threshold, or (``given`` non-null, f32 a window)
+// against the given thresholds; ``work`` is the entry point's clean
+// workspace, cut for Wc windows and Tc selection tiles
+// (select_work_words). Returns the first launch error.
 inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
                        const int64_t* end_panes, const uint8_t* w_valid, FireSource src,
-                       int32_t n, int32_t sel_cap, int32_t* ring, int32_t ring_rows,
-                       int32_t ring_cols, float* thresh, int32_t* block_counts,
-                       long long* old_total, cudaStream_t s) {
-  const int64_t K = rows * (int64_t)W;
-  if (K <= 0 || W <= 0 || n <= 0) return (int)cudaGetLastError();
-  const int32_t n_blocks = compact_blocks(K);
-  topn_threshold_kernel<<<W, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, n, thresh, ring,
-                                               old_total, src);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  topn_count_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
-                                                   block_counts, src, nullptr, nullptr);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  topn_write_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
-                                                   block_counts, n_blocks, old_total, end_panes,
-                                                   src, sel_cap, ring, ring_rows - 2, ring_cols,
-                                                   0);
-  return (int)cudaGetLastError();
+                       int32_t n, const float* given, int32_t row_offset, int32_t sel_cap,
+                       int32_t* ring, int32_t ring_rows, int32_t ring_cols, int64_t* work,
+                       int64_t Wc, int64_t Tc, cudaStream_t s) {
+  SelParams p{};
+  p.wcounts = wcounts;
+  p.rows = rows;
+  p.W = W;
+  p.k = given != nullptr ? 1 : (int32_t)(n < rows ? n : rows);
+  p.sel_cap = sel_cap;
+  p.row_cap = ring_rows - 2;
+  p.ring_cols = ring_cols;
+  p.row_offset = row_offset;
+  p.used = used;
+  p.end_panes = end_panes;
+  p.w_valid = w_valid;
+  p.src = src;
+  p.given = given;
+  p.ring = ring;
+  return launch_select(p, work, Wc, Tc, given != nullptr ? kTopnGivenKernels : kTopnKernels, s);
 }
 
 // ---- K3 distributed mode (a key-sharded operator's top-n) -----------------
@@ -231,8 +159,8 @@ inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const ui
 //   topn_global_threshold_kernel  one block per window: the k-th largest
 //      of the gathered (W, M) candidates, ties counted, -inf when fewer
 //      than k are finite;
-//   (b) K3's count and write kernels with that threshold and the block's
-//      row offset (launch_topn_given).
+//   (b) K3's selection against that threshold with the block's row
+//      offset (launch_topn with ``given``: one launch).
 // Bound: bytes — (a) reads the (rows x W) window counts and the used
 // mask once per round (one round for Q5's top-1), the rest is a few
 // hundred bytes; (b) as K3.
@@ -300,28 +228,6 @@ __global__ void topn_global_threshold_kernel(const float* __restrict__ cand, int
     ceiling = m;
   }
   if (threadIdx.x == 0) thresh[blockIdx.x] = result;
-}
-
-// (b): scratch block_counts (ceil(rows*W / kTile) int32), old_total (one
-// int64); ``thresh`` is the global threshold on this block's device
-inline int launch_topn_given(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
-                             const int64_t* end_panes, const uint8_t* w_valid, int64_t anchor,
-                             const float* thresh, int32_t row_offset, int32_t sel_cap,
-                             int32_t* ring, int32_t ring_rows, int32_t ring_cols,
-                             int32_t* block_counts, long long* old_total, cudaStream_t s) {
-  const int64_t K = rows * (int64_t)W;
-  if (K <= 0 || W <= 0) return (int)cudaGetLastError();
-  const int32_t n_blocks = compact_blocks(K);
-  const FireSource src = host_fire(0, 0, anchor);
-  topn_count_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
-                                                   block_counts, src, ring, old_total);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  topn_write_kernel<<<n_blocks, kThreads, 0, s>>>(wcounts, rows, W, used, w_valid, thresh,
-                                                   block_counts, n_blocks, old_total, end_panes,
-                                                   src, sel_cap, ring, ring_rows - 2, ring_cols,
-                                                   row_offset);
-  return (int)cudaGetLastError();
 }
 
 // ---- K4: ring_columns ----------------------------------------------------

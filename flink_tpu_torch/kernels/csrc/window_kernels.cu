@@ -147,16 +147,17 @@ int fk_window_counts(const int32_t* counts, int64_t rows, int32_t ring, const in
   return (int)cudaGetLastError();
 }
 
-// scratch: thresh (W floats), block_counts (ceil(rows*W / kTile) int32),
-// old_total (one int64) — allocated by the caller
+// work: the entry point's clean workspace (window_kernels.py
+// clean_workspace), cut for work_windows windows and work_tiles selection
+// tiles (select_work_words)
 int fk_topn_select_append(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
                           const int64_t* end_panes, const uint8_t* w_valid, int64_t anchor,
                           int32_t n, int32_t sel_cap, int32_t* ring, int32_t ring_rows,
-                          int32_t ring_cols, float* thresh, int32_t* block_counts,
-                          long long* old_total, void* stream) {
+                          int32_t ring_cols, int64_t* work, int64_t work_windows,
+                          int64_t work_tiles, void* stream) {
   return launch_topn(wcounts, rows, W, used, end_panes, w_valid, host_fire(0, 0, anchor), n,
-                     sel_cap, ring, ring_rows, ring_cols, thresh, block_counts, old_total,
-                     (cudaStream_t)stream);
+                     nullptr, 0, sel_cap, ring, ring_rows, ring_cols, work, work_windows,
+                     work_tiles, (cudaStream_t)stream);
 }
 
 int fk_topn_candidates(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
@@ -176,16 +177,15 @@ int fk_topn_global_threshold(const float* cand, int32_t W, int32_t M, int32_t k,
   return (int)cudaGetLastError();
 }
 
-// scratch: block_counts (ceil(rows*W / kTile) int32), old_total (one
-// int64) — allocated by the caller
+// work: as fk_topn_select_append's
 int fk_topn_select_given(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
                          const int64_t* end_panes, const uint8_t* w_valid, int64_t anchor,
                          const float* thresh, int32_t row_offset, int32_t sel_cap, int32_t* ring,
-                         int32_t ring_rows, int32_t ring_cols, int32_t* block_counts,
-                         long long* old_total, void* stream) {
-  return launch_topn_given(wcounts, rows, W, used, end_panes, w_valid, anchor, thresh, row_offset,
-                           sel_cap, ring, ring_rows, ring_cols, block_counts, old_total,
-                           (cudaStream_t)stream);
+                         int32_t ring_rows, int32_t ring_cols, int64_t* work,
+                         int64_t work_windows, int64_t work_tiles, void* stream) {
+  return launch_topn(wcounts, rows, W, used, end_panes, w_valid, host_fire(0, 0, anchor), 1,
+                     thresh, row_offset, sel_cap, ring, ring_rows, ring_cols, work, work_windows,
+                     work_tiles, (cudaStream_t)stream);
 }
 
 // the wrapper's argument block (window_kernels.py _RING_ARGS), every
@@ -249,8 +249,8 @@ int fk_topn_select_append_packed(const int64_t* a, void* stream) {
       (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
       (const uint8_t*)(intptr_t)a[3], (const int64_t*)(intptr_t)a[4],
       (const uint8_t*)(intptr_t)a[5], (int64_t)a[6], (int32_t)a[7], (int32_t)a[8],
-      (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (float*)(intptr_t)a[12],
-      (int32_t*)(intptr_t)a[13], (long long*)(intptr_t)a[14], stream);
+      (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (int64_t*)(intptr_t)a[12],
+      (int64_t)a[13], (int64_t)a[14], stream);
 }
 
 // fk_topn_candidates from one packed block of 7 64-bit words
@@ -268,14 +268,14 @@ int fk_topn_global_threshold_packed(const int64_t* a, void* stream) {
       (float*)(intptr_t)a[4], stream);
 }
 
-// fk_topn_select_given from one packed block of 15 64-bit words
+// fk_topn_select_given from one packed block of 16 64-bit words
 int fk_topn_select_given_packed(const int64_t* a, void* stream) {
   return fk_topn_select_given(
       (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
       (const uint8_t*)(intptr_t)a[3], (const int64_t*)(intptr_t)a[4],
       (const uint8_t*)(intptr_t)a[5], (int64_t)a[6], (const float*)(intptr_t)a[7], (int32_t)a[8],
       (int32_t)a[9], (int32_t*)(intptr_t)a[10], (int32_t)a[11], (int32_t)a[12],
-      (int32_t*)(intptr_t)a[13], (long long*)(intptr_t)a[14], stream);
+      (int64_t*)(intptr_t)a[13], (int64_t)a[14], (int64_t)a[15], stream);
 }
 
 }  // extern "C"

@@ -40,9 +40,9 @@ DELTA_SENTINEL = -(2 ** 30)
 END_SENTINEL = -(2 ** 62)
 # the widest ring whose clear mask the header carries (two words)
 MAX_FUSED_RING = 64
-# kernel launches of one fused step: header decode, apply, window
-# counts, the three top-n kernels, purge
-FUSED_STEP_KERNELS = 7
+# kernel launches of one fused step at top-1: header decode, apply,
+# window counts, the top-n's two kernels (wk.topn_plan), purge
+FUSED_STEP_KERNELS = 6
 
 _SIGNATURES = {
     "ff_params_bytes": [],
@@ -177,20 +177,20 @@ def fused_step(counts: torch.Tensor, emit_ring: torch.Tensor,
     global _params_words
     if _params_words is None:
         _params_words = -(-_lib().ff_params_bytes() // 8) * 2
-    # scratch in one allocation, in int32 words: old_total (2), the
-    # parameter block, thresh (fire_pad), block_counts, wcounts
-    n_blocks = max(1, -(-rows * fire_pad // wk.TOPN_TILE))
-    at_thresh = 2 + _params_words
-    at_blocks = at_thresh + fire_pad
-    at_wc = at_blocks + n_blocks
-    _held, base = wk.scratch(counts.device, at_wc + rows * fire_pad)
+    # scratch in one allocation, in int32 words: the parameter block, then
+    # the window counts; the top-n's workspace is the step's own
+    _held, base = wk.scratch(counts.device, _params_words + rows * fire_pad)
     err, stream = wk.launch_context(index)
-    _FUSED_STEP(stream, counts.data_ptr(), rows, ring, buf.data_ptr(),
-                buf.numel(), used_mask.data_ptr(), int(ppw), int(n),
-                int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
-                emit_ring.shape[1], int(dump_row), int(bool(fire_gate)),
-                int(fire_pad), base + 8, base + 4 * at_wc,
-                base + 4 * at_thresh, base + 4 * at_blocks, base, err)
+    work = wk.select_workspace("fused_step", index, stream, rows, fire_pad)
+    try:
+        _FUSED_STEP(stream, counts.data_ptr(), rows, ring, buf.data_ptr(),
+                    buf.numel(), used_mask.data_ptr(), int(ppw), int(n),
+                    int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
+                    emit_ring.shape[1], int(dump_row), int(bool(fire_gate)),
+                    int(fire_pad), base, base + 4 * _params_words, *work, err)
+    except RuntimeError:
+        wk.drop_workspace("fused_step", index, stream)
+        raise
     return emit_ring
 
 

@@ -12,7 +12,8 @@ the same signature.
   any aggregate.
 
 The aggregate's finalize runs between the two, in torch, on the grid.
-Count-only top-n keeps ``window_kernels.topn_select_append``.
+Count-only top-n is ``window_kernels.topn_select_append``, whose kernels
+share TB's bodies (``csrc/topn_select.cuh``).
 
 As in ``window_kernels.py``: a wrapper takes the plain version only for
 tensors on the CPU and launches the kernel (or raises) for CUDA
@@ -291,16 +292,14 @@ def topn_select_lanes(wcounts: torch.Tensor, v: torch.Tensor,
                                            sel_cap, emit_ring)
         index = wcounts.get_device()
     _, stream = wk.launch_context(index)
-    work, (cap_w, cap_tiles) = wk.clean_workspace(
-        "topn_select_lanes", index, stream,
-        (max(W, 1), -(-rows * W // _SEL_CELLS)), _select_work_words)
+    work = wk.select_workspace("topn_select_lanes", index, stream, rows, W)
     try:
         _TOPN_SELECT_LANES(stream, wcounts.data_ptr(), v.data_ptr(),
                            cols.data_ptr(), F, rows, W, used_mask.data_ptr(),
                            end_panes.data_ptr(), w_valid.data_ptr(),
                            int(anchor), min(int(n), rows), int(sel_cap),
                            emit_ring.data_ptr(), emit_ring.shape[0],
-                           emit_ring.shape[1], work, cap_w, cap_tiles)
+                           emit_ring.shape[1], *work)
     except RuntimeError:
         wk.drop_workspace("topn_select_lanes", index, stream)
         raise
@@ -333,18 +332,3 @@ def topn_select_lanes_plain(wcounts, v, cols, used_mask, end_panes, w_valid,
     emit_ring[0, 0] = total + m
     emit_ring[0, 1] += total_sel - m
     return emit_ring
-
-
-# csrc/topn_lanes_kernels.cu kSelCells: the cells of a selection tile
-# (tests/test_torch_fire_plan.py reads it from the source)
-_SEL_CELLS = 1024
-
-
-def _select_work_words(W: int, tiles: int) -> int:
-    """csrc/topn_lanes_kernels.cu ``select_work_words``: the workspace's
-    int64 words cut for ``W`` windows and ``tiles`` selection tiles (the
-    ring's old head; the done counter and the epoch; the grid barrier's
-    words; a tagged threshold a window; a window's radix prefix, count
-    still needed, non-candidate count and 256 bins, 32 bits each; a
-    descriptor a tile)."""
-    return 3 + W + (W * (3 + 256) + 1) // 2 + tiles

@@ -29,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -290,8 +290,72 @@ def drop_workspace(name: str, index: int, stream: int) -> None:
     _workspaces.pop((name, index, stream), None)
 
 
-# csrc/window_common.cuh kTile: the cells of a compaction block
-TOPN_TILE = 1024
+# csrc/topn_select.cuh's launch constants (tests/test_torch_fire_plan.py
+# and tests/test_torch_count_topn.py read them from the source): the cells
+# of a selection tile and of a threshold block, the windows of a block's
+# threshold table and of a radix block's histograms
+SEL_CELLS = 1024
+THR_CELLS = 2048
+SEL_WIN_TABLE = 64
+RADIX_WINDOWS = 32
+
+
+class TopnPlan(NamedTuple):
+    """csrc/topn_select.cuh ``launch_select``'s launches for one call."""
+    tiles: int     # selection tiles (a look-back descriptor each)
+    blocks: int    # threshold blocks
+    kernels: int   # device kernels a call
+    table: bool    # each block holds the thresholds in a table (W <= 64)
+
+
+def topn_plan(rows: int, W: int, n: int, *, given: bool = False,
+              fits: bool = True) -> TopnPlan:
+    """The top-n selection's launches over a (rows, W) grid at top ``n``
+    (k = min(n, rows)): one against given thresholds; two at k = 1 (the
+    per-window maxima, then the selection); above, the radix select and
+    the selection in one cooperative launch where W <= RADIX_WINDOWS and
+    the threshold blocks fit on the card at once (``fits``, the card's
+    occupancy), else a launch a radix pass and the selection."""
+    K = rows * W
+    tiles, blocks = max(1, -(-K // SEL_CELLS)), max(1, -(-K // THR_CELLS))
+    if given:
+        kernels = 1
+    elif min(n, rows) == 1:
+        kernels = 2
+    elif W <= RADIX_WINDOWS and fits:
+        kernels = 1
+    else:
+        kernels = 5
+    return TopnPlan(tiles, blocks, kernels, W <= SEL_WIN_TABLE)
+
+
+# csrc/lookback.cuh kLbLine: a look-back descriptor's 64-bit words (one
+# 128-byte line each)
+LB_LINE = 16
+
+
+def select_work_words(W: int, tiles: int) -> int:
+    """csrc/topn_select.cuh ``select_work_words``: the top-n workspace's
+    int64 words cut for ``W`` windows and ``tiles`` selection tiles (the
+    ring's old head; the done counter and the epoch; the grid barrier's
+    words; a tagged threshold a window; a window's radix prefix, count
+    still needed, non-candidate count and 256 bins, 32 bits each; then,
+    from a 128-byte boundary, a descriptor a tile on its own 128-byte
+    line)."""
+    head = 3 + W + (W * (3 + 256) + 1) // 2
+    return -(-head // LB_LINE) * LB_LINE + LB_LINE * tiles
+
+
+def select_workspace(name: str, index: int, stream: int, rows: int,
+                     W: int) -> Tuple[int, int, int]:
+    """Top-n entry point ``name``'s clean workspace on CUDA device
+    ``index`` and ``stream`` for a (rows, W) grid: its address and the
+    windows and selection tiles its layout is cut for."""
+    # topn_plan's tiles, worked out here: this runs at every call
+    ptr, (cap_w, cap_tiles) = clean_workspace(
+        name, index, stream, (max(W, 1), max(1, -(-rows * W // SEL_CELLS))),
+        select_work_words)
+    return ptr, cap_w, cap_tiles
 
 
 def _entry(fn: str, name: str, n_words: int) -> LeanEntry:
@@ -305,7 +369,7 @@ _TOPN_SELECT_APPEND = _entry("fk_topn_select_append", "topn_select_append", 15)
 _TOPN_CANDIDATES = _entry("fk_topn_candidates", "topn_candidates", 7)
 _TOPN_GLOBAL_THRESHOLD = _entry("fk_topn_global_threshold",
                                 "topn_global_threshold", 5)
-_TOPN_SELECT_GIVEN = _entry("fk_topn_select_given", "topn_select_given", 15)
+_TOPN_SELECT_GIVEN = _entry("fk_topn_select_given", "topn_select_given", 16)
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -480,15 +544,17 @@ def topn_select_append(wcounts: torch.Tensor, used_mask: torch.Tensor,
                                             w_valid, anchor, n, sel_cap,
                                             emit_ring)
         index = wcounts.get_device()
-    # scratch (old_total, thresh, block_counts) in one allocation
-    n_blocks = max(1, -(-rows * W // TOPN_TILE))
-    _held, base = scratch(wcounts.device, 2 + W + n_blocks)
     _, stream = launch_context(index)
-    _TOPN_SELECT_APPEND(stream, wcounts.data_ptr(), rows, W,
-                        used_mask.data_ptr(), end_panes.data_ptr(),
-                        w_valid.data_ptr(), int(anchor), int(n), int(sel_cap),
-                        emit_ring.data_ptr(), emit_ring.shape[0],
-                        emit_ring.shape[1], base + 8, base + 8 + 4 * W, base)
+    work = select_workspace("topn_select_append", index, stream, rows, W)
+    try:
+        _TOPN_SELECT_APPEND(stream, wcounts.data_ptr(), rows, W,
+                            used_mask.data_ptr(), end_panes.data_ptr(),
+                            w_valid.data_ptr(), int(anchor), int(n),
+                            int(sel_cap), emit_ring.data_ptr(),
+                            emit_ring.shape[0], emit_ring.shape[1], *work)
+    except RuntimeError:
+        drop_workspace("topn_select_append", index, stream)
+        raise
     return emit_ring
 
 
@@ -607,15 +673,17 @@ def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
                                            w_valid, anchor, thresh,
                                            row_offset, sel_cap, emit_ring)
         index = wcounts.get_device()
-    # scratch (old_total, block_counts) in one allocation
-    n_blocks = max(1, -(-rows * W // TOPN_TILE))
-    _held, base = scratch(wcounts.device, 2 + n_blocks)
     _, stream = launch_context(index)
-    _TOPN_SELECT_GIVEN(stream, wcounts.data_ptr(), rows, W,
-                       used_mask.data_ptr(), end_panes.data_ptr(),
-                       w_valid.data_ptr(), int(anchor), thresh.data_ptr(),
-                       int(row_offset), int(sel_cap), emit_ring.data_ptr(),
-                       emit_ring.shape[0], emit_ring.shape[1], base + 8, base)
+    work = select_workspace("topn_select_given", index, stream, rows, W)
+    try:
+        _TOPN_SELECT_GIVEN(stream, wcounts.data_ptr(), rows, W,
+                           used_mask.data_ptr(), end_panes.data_ptr(),
+                           w_valid.data_ptr(), int(anchor), thresh.data_ptr(),
+                           int(row_offset), int(sel_cap), emit_ring.data_ptr(),
+                           emit_ring.shape[0], emit_ring.shape[1], *work)
+    except RuntimeError:
+        drop_workspace("topn_select_given", index, stream)
+        raise
     return emit_ring
 
 
@@ -632,7 +700,7 @@ def topn_select_given_plain(wcounts, used_mask, end_panes, w_valid, anchor,
 def _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,
                  emit_ring):
     """Append the selected (row, window) cells in row-major order: the
-    plain versions' half of compact.cuh's ``topn_ring_append``."""
+    plain versions' half of csrc/topn_select.cuh's ``select_tile``."""
     W = wcounts.shape[1]
     flat = torch.nonzero(sel.reshape(-1)).reshape(-1)            # row-major
     total_sel = flat.numel()

@@ -2155,3 +2155,274 @@ def test_lean_wrapper_captures_into_a_graph(dev, name):
     graph.replay()
     torch.cuda.synchronize()
     assert _outputs_equal(got, plain())
+
+
+# -- K3's count top-n over the whole card, and K6's folded ingest -------------
+
+def _count_topn_both(dev, wc, used, valid, n, sel_cap, row_cap=2048, fill=0,
+                     given=None, row_offset=0):
+    """``topn_select_append`` (or, with ``given`` thresholds,
+    ``topn_select_given``) and its plain version on one grid; the rings
+    (their last row excepted) must be equal. Returns the kernel's ring."""
+    rows, W = wc.shape
+    ends = _t(np.arange(100, 100 + W, dtype=np.int64), dev)
+    args = [_t(wc.astype(np.int32), dev), _t(used, dev), ends, _t(valid, dev),
+            90]
+    r1 = torch.zeros((row_cap + 2, 3), dtype=torch.int32, device=dev)
+    r1[0, 0] = fill
+    r2 = r1.clone()
+    if given is None:
+        wk.topn_select_append(*args, n, sel_cap, r1)
+        wk.topn_select_append_plain(*args, n, sel_cap, r2)
+    else:
+        g = _t(np.asarray(given, np.float32), dev)
+        wk.topn_select_given(*args, g, row_offset, sel_cap, r1)
+        wk.topn_select_given_plain(*args, g, row_offset, sel_cap, r2)
+    assert torch.equal(r1[:-1], r2[:-1])
+    return r1
+
+
+@pytest.mark.parametrize("W", [1, 11, 64, 65])
+@pytest.mark.parametrize("n", [1, 3, "rows+1"])
+def test_count_topn_widths_and_n(dev, W, n):
+    """The whole-card threshold at 1, 11 and 64 windows (one block's
+    table) and 65 (past it: no table, a launch a radix pass), top-1 (the
+    max), top-3 (the radix select) and n past the rows (k = rows)."""
+    rng = np.random.default_rng(W * 10 + (n if isinstance(n, int) else 7))
+    rows = 4097 if n != "rows+1" else 300
+    wc = rng.integers(0, 40, (rows, W)) * (rng.random((rows, W)) < 0.4)
+    used = rng.random(rows) < 0.9
+    used[-1] = False
+    nn = rows + 1 if n == "rows+1" else n
+    # the ring wraps once (a second wrap would land two rows on one slot)
+    r = _count_topn_both(dev, wc, used, np.ones(W, bool), nn, 1 << 16,
+                         row_cap=1 << 16, fill=(1 << 16) - 100)
+    assert int(r[0, 1]) == 0 and int(r[0, 0]) > (1 << 16) - 100
+
+
+def test_count_topn_ties_past_2_24(dev):
+    """Counts 2^24 and 2^24 + 1 are one f32 value: at top-1 both rows
+    select, as the plain version's and the reference's f32 ranking has
+    them, and a count just below (2^24 - 1) does not; 2^24 + 3 and
+    2^24 + 4 round to one value too."""
+    rows, W = 1000, 3
+    wc = np.ones((rows, W), np.int64)
+    wc[10, 0], wc[700, 0], wc[5, 0] = 2 ** 24, 2 ** 24 + 1, 2 ** 24 - 1
+    wc[3, 1], wc[4, 1], wc[9, 1] = 2 ** 24 + 3, 2 ** 24 + 4, 2 ** 24 + 2
+    r = _count_topn_both(dev, wc, np.ones(rows, bool), np.ones(W, bool), 1,
+                         4096)
+    got = r[1:1 + int(r[0, 0])].cpu().numpy()
+    assert sorted(got[got[:, 1] == 10, 0].tolist()) == [10, 700]
+    assert got[got[:, 1] == 11, 0].tolist() == [3, 4]
+    assert int((got[:, 1] == 12).sum()) == rows        # all ones tie
+
+
+def test_count_topn_sparse_invalid_and_unused(dev):
+    """A window with fewer candidates than n takes them all; invalid
+    windows and unused rows select nothing."""
+    rng = np.random.default_rng(21)
+    rows, W = 3000, 20
+    wc = (rng.random((rows, W)) < 0.002) * rng.integers(1, 9, (rows, W))
+    wc[:, 3] = rng.integers(1, 100, rows)
+    used = rng.random(rows) < 0.7
+    valid = rng.random(W) < 0.7
+    valid[3] = False
+    for n in (1, 5):
+        r = _count_topn_both(dev, wc, used, valid, n, 2048)
+        got = r[1:1 + int(r[0, 0])].cpu().numpy()
+        assert not (got[:, 1] == 13).any()
+        assert used[got[:, 0]].all() and valid[got[:, 1] - 10].all()
+
+
+def test_count_topn_sel_cap_and_ring_wrap(dev):
+    """Ties past sel_cap land the first sel_cap rows in row-major order
+    and count the rest as truncated; appends wrap the ring."""
+    rng = np.random.default_rng(22)
+    rows, W = 32769, 4
+    wc = rng.integers(1, 3, (rows, W))
+    r = _count_topn_both(dev, wc, np.ones(rows, bool), np.ones(W, bool), 1,
+                         300, row_cap=512, fill=400)
+    assert int(r[0, 0]) == 700 and int(r[0, 1]) > 0
+
+
+def test_count_topn_given_row_offsets_and_minus_inf(dev):
+    """topn_select_given: the given thresholds, a block's row offset,
+    and a -inf threshold (every candidate of that window selects)."""
+    rng = np.random.default_rng(23)
+    rows, W = 8193, 11
+    wc = rng.integers(0, 60, (rows, W)) * (rng.random((rows, W)) < 0.5)
+    used = rng.random(rows) < 0.8
+    given = rng.integers(40, 60, W).astype(np.float32)
+    given[4] = -np.inf
+    for off in (0, 8193, 3 * 8193):
+        r = _count_topn_both(dev, wc, used, np.ones(W, bool), 1, 1 << 16,
+                             row_cap=1 << 16, given=given, row_offset=off)
+        got = r[1:1 + int(r[0, 0])].cpu().numpy()
+        assert int(got[:, 0].min()) >= off
+        assert int((got[:, 1] == 14).sum()) == int(((wc[:, 4] > 0)
+                                                    & used).sum())
+
+
+def test_count_topn_renews_its_workspace(dev, monkeypatch):
+    """With WORKSPACE_CALLS lowered, the workspace is replaced by a
+    zeroed one every few calls, and every call stays equal to the plain
+    version (no descriptor or threshold of an older call counts)."""
+    monkeypatch.setattr(wk, "WORKSPACE_CALLS", 3)
+    rng = np.random.default_rng(24)
+    rows, W = 20_000, 11
+    seen = []
+    for call in range(8):
+        # few ties: each call's rows fit the ring without a second wrap
+        wc = (rng.integers(0, 1_000_000, (rows, W))
+              * (rng.random((rows, W)) < 0.5))
+        _count_topn_both(dev, wc, np.ones(rows, bool), np.ones(W, bool),
+                         1 + call % 3, 4096)
+        seen.append(wk._workspaces[("topn_select_append", dev.index or 0,
+                                    torch.cuda.current_stream().cuda_stream)])
+    assert len({id(ws) for ws in seen}) >= 3
+
+
+def _fused_gate_case(dev, n_ends, anchor):
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    rng = np.random.default_rng(25)
+    slots, ring, ppw, pane_lo = 4096, 32, 10, 500
+    pane_hi = pane_lo + 20
+    counts = _t(_live_counts(rng, slots + 1, ring, pane_lo, pane_hi), dev)
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([pane_lo, pane_hi, anchor], np.int64).view(np.int32)
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[:n_ends] = np.arange(pane_hi + 2 - n_ends, pane_hi + 2) - pane_lo
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+    words = _pair_words(rng, slots, ring, 20_000, 1 << 15)
+    buf = _t(np.concatenate([hdr, words]), dev)
+    used = _t(rng.random(slots + 1) < 0.6, dev)
+    kw = dict(ppw=ppw, n=1, sel_cap=256, dump_row=slots, fire_gate=True,
+              fire_pad=16)
+    return counts, buf, used, kw
+
+
+def test_fused_step_gate_off_leaves_ring_and_epoch(dev):
+    """A fused step with no valid end (its fire word 0) writes nothing:
+    the emit ring keeps its bytes and the step's workspace its epoch;
+    a firing step after it (anchor from the device block, not pane_lo)
+    still equals the plain version."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    counts, buf, used, kw = _fused_gate_case(dev, 11, 493)
+    ring = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    fk.fused_step(counts.clone(), ring, buf, used, **kw)
+    key = ("fused_step", dev.index or 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    epoch = int(wk._workspaces[key].tensor[1]) >> 32
+    assert epoch >= 1 and int(ring[0, 0]) >= 11
+    before = ring.clone()
+    off_counts, off_buf, off_used, _ = _fused_gate_case(dev, 0, 493)
+    states = [off_counts.clone(), off_counts.clone()]
+    rings = [ring, before.clone()]
+    fk.fused_step(states[0], rings[0], off_buf, off_used, **kw)
+    fk.fused_step_plain(states[1], rings[1], off_buf, off_used, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rings[0], before) and torch.equal(states[0], states[1])
+    assert int(wk._workspaces[key].tensor[1]) >> 32 == epoch
+    states = [counts.clone(), counts.clone()]
+    rings = [ring.clone(), ring.clone()]
+    fk.fused_step(states[0], rings[0], buf, used, **kw)
+    fk.fused_step_plain(states[1], rings[1], buf, used, **kw)
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(rings[0][:-1], rings[1][:-1])
+    got = rings[0][1:].cpu().numpy()
+    assert int(got[:, 1].max()) == 521 - 493
+
+
+def _ingest_case(dev, keys, ts, rows, ring, with_stats=True, **kw):
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    a = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+    b = a.clone()
+    k, t = _t(np.asarray(keys, np.int64), dev), _t(np.asarray(ts, np.int64), dev)
+    sa = dk.devgen_ingest(a, k, t, with_stats=with_stats, **kw)
+    sb = dk.devgen_ingest_plain(b, k, t, kw["key_domain"], kw["pane_ms"],
+                                kw["offset_ms"], kw["dead_below"],
+                                kw["refire_below"], kw["dump_row"],
+                                torch.zeros_like(sa) if with_stats else None)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    if with_stats:
+        assert torch.equal(sa, sb)
+    return a, sa
+
+
+def test_devgen_ingest_one_cell_takes_every_record(dev):
+    """2^20 records on one cell: the block histograms fold them, and the
+    cell holds the exact count."""
+    n = 1 << 20
+    a, stats = _ingest_case(dev, np.full(n, 7), np.full(n, 123_456), 32769,
+                            64, key_domain=10_000, pane_ms=1000, offset_ms=0,
+                            dead_below=0, refire_below=-(2 ** 63),
+                            dump_row=32768)
+    assert int(a[7, 123 % 64]) == n and int(stats[0]) == n
+
+
+@pytest.mark.parametrize("ring,pane_ms,offset", [(64, 1000, 0), (48, 700, 333),
+                                                 (37, 1, -5), (1, 999, 10)])
+def test_devgen_ingest_chunks_panes_and_rings(dev, ring, pane_ms, offset):
+    """Pane boundaries inside a block's chunk and between a thread's
+    records (a pane of a few hundred records), chunk edges (a batch that
+    is not a multiple of the chunk), a ring that is no power of two, an
+    odd pane_ms, and ts below offset_ms (negative panes)."""
+    rng = np.random.default_rng(ring + pane_ms)
+    n = 3 * 8192 + 1234
+    ts = np.sort(rng.integers(-3 * pane_ms, 40 * pane_ms, n)) + offset
+    keys = rng.integers(0, 1000, n)
+    keys[rng.random(n) < 0.3] = rng.integers(0, 5)
+    lo = int(np.floor((ts.min() - offset) / pane_ms))
+    _ingest_case(dev, keys, ts, 1001, ring, key_domain=1000, pane_ms=pane_ms,
+                 offset_ms=offset, dead_below=lo, refire_below=-(2 ** 63),
+                 dump_row=1000)
+
+
+def test_devgen_ingest_late_miss_and_unsorted(dev):
+    """Out-of-domain, negative and late keys with stats and the re-fire
+    bitmap, on records out of time order."""
+    rng = np.random.default_rng(26)
+    n = 200_003
+    ts = rng.integers(0, 60_000, n)
+    keys = rng.integers(-50, 12_000, n)
+    for stats in (True, False):
+        a, s = _ingest_case(dev, keys, ts, 10_001, 64, with_stats=stats,
+                            key_domain=10_000, pane_ms=1000, offset_ms=0,
+                            dead_below=10, refire_below=30, dump_row=10_000)
+        if stats:
+            head = s[:8].tolist()
+            assert head[1] > 0 and head[2] > 0 and head[4] > 0
+            assert int(s[8:].sum()) == 20
+
+
+def test_devgen_ingest_wide_key_domain(dev):
+    """A key domain too wide for a block's histogram (60,001 slots past
+    its 48 K words): one global atomic a record, the same counts."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    keys, ts = dk.nexmark_bids(3, 0, 1 << 18, 1 << 22, 100, 4, 600, 60_000,
+                               dev)
+    _ingest_case(dev, keys.cpu().numpy(), ts.cpu().numpy(), 60_001, 64,
+                 key_domain=60_000, pane_ms=1000, offset_ms=0,
+                 dead_below=int(ts.min()) // 1000, refire_below=-(2 ** 63),
+                 dump_row=60_000)
+
+
+def test_devgen_ingest_cell_outside_the_state_sets_the_error_word(dev):
+    """A dump row past the state (through the table): the invalid
+    records are not written and the error bit is set."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    wk.check_errors(dev)
+    c = torch.zeros((40, 8), dtype=torch.int32, device=dev)
+    keys = _t(np.r_[np.arange(20_000) % 30, [99, 98]].astype(np.int64), dev)
+    ts = _t(np.arange(20_002, dtype=np.int64), dev)
+    dk.devgen_ingest(c, keys, ts, key_domain=30, pane_ms=1000, offset_ms=0,
+                     dead_below=0, refire_below=-(2 ** 63), dump_row=40)
+    assert int(c.sum()) == 20_000
+    with pytest.raises(IndexError, match="devgen_ingest"):
+        wk.check_errors(dev)

@@ -1,6 +1,6 @@
 """The plans behind the one-launch fire kernels: ``fire_pack``'s tiles
-(``lane_kernels.py`` ``_fire_plan``) and ``topn_select_lanes``'
-workspace (``topn_lanes_kernels.py`` ``_select_work_words``). The
+(``lane_kernels.py`` ``_fire_plan``) and the top-n selections'
+workspace (``window_kernels.py`` ``select_work_words``). The
 kernels run only on the card (``tests/test_torch_cuda.py``); their tile
 shapes and shared-memory and workspace sizes are plain Python, checked
 here against the sources' constants for the shapes the port gives
@@ -12,6 +12,7 @@ import pytest
 
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+from flink_tpu_torch.kernels import window_kernels as wk
 
 CSRC = os.path.join(os.path.dirname(lk.__file__), "csrc")
 
@@ -36,13 +37,17 @@ def test_plan_constants_match_the_kernel_sources():
     # the wrapper's argument block: one word a FireArgs field
     fields = re.search(r"struct FireArgs \{(.*?)\};", cu, re.S).group(1)
     assert len(re.findall(r"\w+(?=[,;])", fields)) == lk._FIRE_PACK._struct.size // 8
+    sel = _source("topn_select.cuh")
+    assert _constexpr(sel, "kSelCells") == "kThreads * kSelItems"
+    assert threads * int(_constexpr(sel, "kSelItems")) == wk.SEL_CELLS
     tl = _source("topn_lanes_kernels.cu")
-    assert _constexpr(tl, "kSelCells") == "kThreads * kSelItems"
-    assert threads * int(_constexpr(tl, "kSelItems")) == tk._SEL_CELLS
     fields = re.search(r"struct SelectArgs \{(.*?)\};", tl, re.S).group(1)
     assert len(re.findall(r"\w+(?=[,;])", fields)) == \
         tk._TOPN_SELECT_LANES._struct.size // 8
-    assert "return 3 + Wc + (Wc * (3 + 256) + 1) / 2 + Tc;" in tl
+    assert ("return (3 + Wc + (Wc * (3 + 256) + 1) / 2 + kLbLine - 1) / kLbLine * kLbLine;"
+            in sel)
+    assert "return select_desc_word(Wc) + kLbLine * Tc;" in sel
+    assert _constexpr(_source("lookback.cuh"), "kLbLine") == str(wk.LB_LINE)
 
 
 RINGS = [1, 16, 32, 37, 64, 1100]
@@ -93,8 +98,8 @@ def test_select_workspace_covers_the_fire(W, rows):
     """The workspace: the head, the done and epoch words, the grid
     barrier's words, a tagged threshold a window, each window's prefix,
     need, non-candidate count and 256 bins, and a descriptor a selection
-    tile."""
-    tiles = -(-rows * W // tk._SEL_CELLS)
-    words = tk._select_work_words(W, tiles)
-    assert 8 * words >= 24 + 8 * W + 4 * W * (3 + 256) + 8 * tiles
+    tile, each on its own 128-byte line."""
+    tiles = -(-rows * W // wk.SEL_CELLS)
+    words = wk.select_work_words(W, tiles)
+    assert 8 * words >= 24 + 8 * W + 4 * W * (3 + 256) + 128 * tiles
     assert lk._fire_work_words(tiles) == 1 + tiles

@@ -434,9 +434,9 @@ def _constexpr(text, name):
 
 def test_wrapper_constants_match_the_kernel_sources():
     """The wrappers' copies of the kernels' launch constants, read from
-    the CUDA sources: the compaction tile the top-n, fire and bucketing
-    scratch is sized by, and window_lanes' windows a block and staged
-    tile."""
+    the CUDA sources: the compaction tile the count-window fire and
+    bucketing scratch is sized by, and window_lanes' windows a block and
+    staged tile."""
     import os
 
     from flink_tpu_torch.kernels import count_window_kernels as cw
@@ -449,7 +449,7 @@ def test_wrapper_constants_match_the_kernel_sources():
         cu = f.read()
     tile = _constexpr(common, "kThreads") * _constexpr(common, "kItems")
     assert "constexpr int kTile = kThreads * kItems;" in common
-    assert tile == wk.TOPN_TILE == cw.FIRE_TILE == xk.BUCKET_TILE
+    assert tile == cw.FIRE_TILE == xk.BUCKET_TILE
     assert _constexpr(cu, "kLanesWindows") == tk._LANES_WINDOWS
     assert _constexpr(cu, "kLanesSmemFloats") == tk._LANES_SMEM_FLOATS
 
