@@ -52,7 +52,9 @@ Phases, one JSON line each:
    WindowWordCount's state (65,537 rows, each word's count after one real
    2^20-word batch, one sum lane) and with a sum, a max and a min lane,
    each timed on a fresh copy of the state; ``split_cells`` on a
-   2^20-bid batch's 3-byte upload into 32,769 x 32; the top-n lane
+   2^20-bid batch's 3-byte upload into 32,769 x 32, and
+   ``scatter_split_counts`` (the count lane's decode and count in one
+   launch) on the same upload; the top-n lane
    kernels at job T's shapes: ``window_lanes`` (32,769 x 32, 11 windows
    of 10 panes, a sum and a max lane) and ``topn_select_lanes`` (top-1
    by the max, two result columns), each bit for bit; the element path's
@@ -120,6 +122,8 @@ Phases, one JSON line each:
    slots), 8 batches of 2^20 bids: the keys past the slots aggregate in
    the host spill store and re-rank with the device's winners at every
    fire; rows against Q5's numpy golden, ``records_spilled`` printed.
+   Its batches go per record as the 3-byte split upload, each decoded
+   and counted in one ``scatter_split_counts`` launch.
 11. ``element_window`` — the element path on the host-fed bids, keyed
    by auction, 10 s tumbling windows: job E
    ``.evictor(CountEvictor.of(100)).aggregate(multi(count(),
@@ -203,6 +207,14 @@ of 11 ends, gate on), ``topn_select_given`` (job M1's first block) and
 beside their library calls, each as loop ms, device ms and host µs a
 call (one JSON line).
 
+With ``--count-lane`` it builds ``window_kernels`` and ``fused_kernels``
+alone and runs only the count lane's ``window_counts`` (the host launch
+at the ``kernels`` phase's Q5 shape and one pass of 64 ends), the fused
+step's fire of 11 ends, and ``scatter_counts`` on Q5's pairs, per record
+on WordCount's words and on the split upload's bytes, beside their
+library calls, each as loop ms, device ms and host µs a call (one JSON
+line).
+
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
 ring exchange), checked against the golden: the exchange's copies
@@ -214,6 +226,7 @@ failure exits non-zero without that last line; so does a machine with
 no CUDA device, and a directory without the package.
 """
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -266,7 +279,10 @@ MESH_KERNELS = ("bucket_records", "topn_candidates", "topn_global_threshold",
                 "topn_select_given")
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
-    "scatter_counts": ("scatter_counts_kernel",),
+    # host-combined pairs (a thread an entry), per record (a block's chunk
+    # in a shared histogram)
+    "scatter_counts": ("scatter_counts_kernel", "count_records_kernel"),
+    "scatter_split_counts": ("split_counts_kernel",),
     "window_counts": ("window_counts_kernel",),
     # the top-1 max, or the top-n radix select (one cooperative launch, or
     # a launch a pass), then the selection; the fused step launches them too
@@ -474,13 +490,16 @@ def phase_kernels(torch, np):
         lib_ms = time_ms(torch, lambda: a_f @ colmask)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    # timed as the operator's fire calls it: into its reused buffer
+    wc_out = torch.empty_like(wc)
     record("window_counts", "flink_tpu/ops/window.py:286", err,
            time_ms(torch, lambda: wk.window_counts(a, ends, w_valid, pane_lo,
-                                                   pane_hi, ppw)),
+                                                   pane_hi, ppw, wc_out)),
            time_ms(torch, lambda: wk.window_counts_plain(a, ends, w_valid,
                                                          pane_lo, pane_hi, ppw)),
            lib_ms, rows * live_cols * 4 + rows * W * 4 + W * 9, rows * live)
     out[-1]["library_call"] = "counts.float() @ colmask (TF32 off)"
+    out[-1]["call"] = "into a reused (rows, W) buffer, as the operator's fire"
 
     # K3: topn_select_append
     r1, r2 = emit_ring.clone(), emit_ring.clone()
@@ -1453,6 +1472,238 @@ def phase_count_topn(torch, np):
           "card": card_line()})
 
 
+def count_lane_cases(torch, np, dev):
+    """The count lane's ``window_counts`` (K2) and ``scatter_counts`` (K1)
+    in the forms the main paths give them, beside their library calls,
+    each as loop ms, device ms and host µs a call (``split_times``),
+    after a bit-for-bit check against the plain version:
+
+    - K2 as the host launches it: the ``kernels`` phase's Q5 state
+      (32,769 x 32, 21 live panes, 11 windows of 10 panes), beside
+      ``counts.float() @ colmask`` (TF32 off); where the wrapper takes an
+      ``out`` tensor (the operator's reused buffer), that call too;
+    - K2 in one pass of 64 ends, as ``_fire_ends`` runs it after a
+      devgen batch (32,769 x 64, 52 live panes), beside the same matmul;
+    - F2's fused step with the fire of 11 ends, gate on (kernels a
+      call, and the window counts' share of its device time);
+    - K1 on Q5's ~110k host-combined pairs, beside ``index_add_``;
+    - K1 per record on WordCount's first 2^20 words into 65,537 x 16,
+      beside ``index_add_`` with a ones vector;
+    - the per-record split upload of a 2^20-bid batch into 32,769 x 32
+      as (B, 3) bytes: ``split_cells`` + ``scatter_counts`` (two
+      launches) in a tree without the one-launch entry, else
+      ``scatter_split_counts``; beside ``index_add_`` on the cells
+      computed in advance and beside ``split_cells_plain`` +
+      ``index_add_``."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
+    from flink_tpu_torch.ops.window import split_encode
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    takes_out = "out" in inspect.signature(wk.window_counts).parameters
+    one_launch = hasattr(wk, "scatter_split_counts")
+    out = {"window_counts_takes_out": takes_out,
+           "split_upload_one_launch": one_launch}
+
+    def k2_case(name, counts, ends, w_valid, lo, hi, ppw):
+        rows, ring = counts.shape
+        W = ends.numel()
+        got = wk.window_counts(counts, ends, w_valid, lo, hi, ppw)
+        want = wk.window_counts_plain(counts, ends, w_valid, lo, hi, ppw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"window_counts ({name}) differs from its plain version")
+        hi_cap = min(hi, lo + ring - 1)
+        spans = [range(max(e - ppw, lo), min(e - 1, hi_cap) + 1)
+                 for e, ok in zip(ends.tolist(), w_valid.tolist()) if ok]
+        live_cols = len({p % ring for sp in spans for p in sp})
+        b, by = bound_ms(rows * live_cols * 4 + rows * W * 4 + W * 9,
+                         rows * sum(len(sp) for sp in spans))
+        counts_f = counts.float()
+        mm = colmask_matmul_fn(torch, lk, counts_f, ends, ring, lo, hi, ppw)
+        check(int(got.max()) < 2 ** 24
+              and torch.equal(tf32_off(torch, mm).to(torch.int32), got),
+              f"window_counts ({name}): the matmul yardstick differs")
+        row = {"shape": [rows, ring, W], "bound_ms": b, "bound_by": by,
+               "kernel": split_times(torch, lambda: wk.window_counts(
+                   counts, ends, w_valid, lo, hi, ppw)),
+               "library": tf32_off(torch, lambda: split_times(torch, mm)),
+               "library_call": "counts.float() @ colmask (TF32 off)"}
+        if takes_out:
+            buf = torch.empty((rows, W), dtype=torch.int32, device=dev)
+            row["kernel_out"] = split_times(torch, lambda: wk.window_counts(
+                counts, ends, w_valid, lo, hi, ppw, out=buf))
+        out["window_counts_" + name] = row
+
+    q = q5_kernel_state(torch, np, dev)
+    state = q["counts"].clone()
+    wk.scatter_counts_plain(state, q["idx"], q["cnt"])
+    k2_case("q5_w11", state, q["ends"], q["w_valid"], q["pane_lo"],
+            q["pane_hi"], q["ppw"])
+    # after a devgen batch: a 64-column ring, 52 live panes, 64 ends
+    rng = np.random.default_rng(SEED + 17)
+    rows, ring, lo, hi = q["slots"] + 1, 64, 1000, 1051
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    c64 = lane_state(np, rng, rows, ring, lo, hi, keys, (0, 0, 0), hot=100)[0]
+    ends = torch.arange(lo + 1, lo + 65, dtype=torch.int64, device=dev)
+    k2_case("devgen_w64", torch.from_numpy(c64).to(dev), ends,
+            torch.ones(64, dtype=torch.bool, device=dev), lo, hi, q["ppw"])
+
+    f = fused_inputs(torch, np, dev)
+    buf = f["upload"](11)
+    kw = dict(ppw=f["ppw"], n=1, sel_cap=256, dump_row=f["slots"],
+              fire_gate=True, fire_pad=16)
+    ring0 = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    st = [f["base"].clone() for _ in range(3)]
+    er = [ring0.clone() for _ in range(3)]
+    fk.fused_step(st[0], er[0], buf, f["used"], **kw)
+    fk.fused_step_plain(st[1], er[1], buf, f["used"], **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(st[0], st[1]) and torch.equal(er[0][:-1], er[1][:-1]),
+          "fused_step (11 ends, gate on) differs from its plain version")
+    t = split_times(torch, lambda: fk.fused_step(st[2], er[2], buf, f["used"],
+                                                 **kw))
+    out["fused_step_ends11_gate_on"] = {
+        "kernel": t, "window_counts_device_ms": sum(
+            v["ms_per_call"] for k, v in t["stages"].items()
+            if k.startswith("window_counts"))}
+
+    # K1, pairs: Q5's host-combined pairs with their counts
+    idx, cnt = q["idx"], q["cnt"]
+    a, b = q["counts"].clone(), q["counts"].clone()
+    wk.scatter_counts(a, idx, cnt)
+    wk.scatter_counts_plain(b, idx, cnt)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "scatter_counts (pairs) differs from its plain "
+          "version")
+    n = idx.numel()
+    idx_long = idx.long()
+    b_ms, by = bound_ms(16 * n, n)
+    # the wrapper's host µs in parts: its checks, the launch context, the
+    # packed C entry with the kernel's launch, and a bare ctypes call
+    specs = ((a, torch.int32, 2), (idx, torch.int32, 1), (cnt, torch.int32, 1))
+    err_ptr, stream = wk.launch_context(0)
+    rows_a, ring_a = a.shape
+    # the parent's packed block had the cell count where this one has the
+    # rows and the ring
+    words = ((a.data_ptr(), a.numel(), idx.data_ptr(), 4, cnt.data_ptr(), n,
+              0, err_ptr) if wk._SCATTER_COUNTS._struct.size == 64 else
+             (a.data_ptr(), rows_a, ring_a, idx.data_ptr(), 4, cnt.data_ptr(),
+              n, 0, err_ptr))
+    lib = wk._lib()
+    out["scatter_counts_pairs"] = {
+        "entries": n, "bound_ms": b_ms, "bound_by": by,
+        "kernel": split_times(torch, lambda: wk.scatter_counts(a, idx, cnt)),
+        "library": split_times(torch, lambda: b.view(-1).index_add_(
+            0, idx_long, cnt)),
+        "library_call": "index_add_",
+        "host_us_parts": {
+            "fast_index": host_us(torch, lambda: wk.fast_index(*specs)),
+            "launch_context": host_us(torch, lambda: wk.launch_context(0)),
+            "entry_and_launch": host_us(torch, lambda: wk._SCATTER_COUNTS(
+                stream, *words)),
+            "bare_ctypes_call": host_us(torch, lambda: lib.fk_error_string(0))}}
+
+    # K1, per record: WordCount's first 2^20 words into 65,537 x 16
+    rows, ring = 128 * 512 + 1, 16
+    _, gen = wordcount_source(np, 1)
+    data, ts = gen("0", 0)
+    slots = KeyDirectory(128, 512).assign(data["word"])
+    idx = torch.from_numpy((slots * ring + (ts // 1000) % ring).astype(
+        np.int32)).to(dev)
+    base = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+    a, b = base.clone(), base.clone()
+    wk.scatter_counts(a, idx, None)
+    wk.scatter_counts_plain(b, idx, None)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b) and int(a.sum()) == WC_BATCH,
+          "scatter_counts (per record) differs from its plain version")
+    idx_long = idx.long()
+    ones = torch.ones(WC_BATCH, dtype=torch.int32, device=dev)
+    cells = int(torch.unique(idx).numel())
+    b_ms, by = bound_ms(WC_BATCH * 4 + cells * 8, WC_BATCH)
+    out["scatter_counts_per_record"] = {
+        "records": WC_BATCH, "distinct_cells": cells,
+        "distinct_share_a_chunk": chunk_distinct_share(np, idx.cpu().numpy()),
+        "largest_cell": int(torch.bincount(idx_long).max()),
+        "bound_ms": b_ms, "bound_by": by,
+        "kernel": split_times(torch, lambda: wk.scatter_counts(a, idx, None)),
+        "library": split_times(torch, lambda: b.view(-1).index_add_(
+            0, idx_long, ones)),
+        "library_call": "index_add_ with a ones vector"}
+
+    # the per-record split upload: a 2^20-bid batch of job (a)'s stream
+    cfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=1, events_per_ms=100,
+                        num_active_auctions=10_000, hot_ratio=4)
+    data, ts = bid_batch(cfg, 0, 5)
+    slots = KeyDirectory(128, 256).assign(data["auction"])
+    ring, dump_row = 32, 128 * 256
+    cols = ((ts // 1000) % ring).astype(np.uint8)
+    sc = torch.from_numpy(split_encode(slots, cols, np.ones(len(ts), bool))
+                          ).to(dev)
+    base = torch.zeros((dump_row + 1, ring), dtype=torch.int32, device=dev)
+    if one_launch:
+        def split_fn(c):
+            return wk.scatter_split_counts(c, sc, dump_row)
+    else:
+        def split_fn(c):
+            return wk.scatter_counts(c, wk.split_cells(sc, ring, dump_row),
+                                     None)
+    a, b = base.clone(), base.clone()
+    split_fn(a)
+    wk.scatter_counts_plain(b, wk.split_cells_plain(sc, ring, dump_row), None)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b) and int(a.sum()) == Q5_BATCH,
+          "the split upload's scatter differs from its plain version")
+    flat = torch.from_numpy((slots * ring + cols).astype(np.int64)).to(dev)
+    ones = torch.ones(Q5_BATCH, dtype=torch.int32, device=dev)
+    cells = int(torch.unique(flat).numel())
+    b_ms, by = bound_ms(Q5_BATCH * 3 + cells * 8, Q5_BATCH * 4)
+    out["split_upload_per_record"] = {
+        "records": Q5_BATCH, "distinct_cells": cells,
+        "distinct_share_a_chunk": chunk_distinct_share(
+            np, flat.cpu().numpy()),
+        "largest_cell": int(torch.bincount(flat).max()),
+        "bound_ms": b_ms, "bound_by": by,
+        "kernel": split_times(torch, lambda: split_fn(a)),
+        "library": split_times(torch, lambda: b.view(-1).index_add_(
+            0, flat, ones)),
+        "library_call": "index_add_ on the cells computed in advance",
+        "plain_decode_then_library": split_times(
+            torch, lambda: b.view(-1).index_add_(0, wk.split_cells_plain(
+                sc, ring, dump_row).long(), ones))}
+    wk.check_errors(dev)
+    return out
+
+
+def chunk_distinct_share(np, cells, chunk: int = 8192) -> float:
+    """The share of a batch's records that stay distinct cells within
+    each block's chunk (the per-record count's global atomics over its
+    records, at the plan's 8,192-record chunk of a 2^20 batch)."""
+    kept = sum(len(np.unique(cells[k:k + chunk]))
+               for k in range(0, len(cells), chunk))
+    return kept / len(cells)
+
+
+def phase_count_lane(torch, np):
+    """``--count-lane``: build ``window_kernels`` and ``fused_kernels``
+    alone and run ``count_lane_cases`` (one JSON line)."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    names = ("window_kernels", "fused_kernels")
+    build.build_all(names)
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
+                    .splitlines() if "registers" in ln or "spill" in ln
+                    or "smem" in ln]
+             for name in names}
+    emit({"phase": "count_lane", "build_s": time.perf_counter() - t0,
+          "ptxas": ptxas, **count_lane_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
+
+
 def phase_window_lanes(torch, np):
     """``--window-lanes``: build ``topn_lanes_kernels`` alone and run
     ``window_lane_cases`` (one JSON line)."""
@@ -1557,6 +1808,8 @@ def launch_path_cases(torch, np, dev):
         "topn_select_given": lambda: wk.topn_select_given(
             wc, used, ends, valid, lo, thresh, 0, 256, ring0),
         "split_cells": lambda: wk.split_cells(sc, ring, rows - 1),
+        "scatter_split_counts": lambda: wk.scatter_split_counts(counts, sc,
+                                                                rows - 1),
         "scatter_lanes": lambda: lk.scatter_lanes(
             counts, sums, None, None, rec_cells, rec, rec[:, :0], rec[:, :0]),
         "scatter_pair_lanes": lambda: lk.scatter_pair_lanes(counts, sums, pbuf),
@@ -2044,6 +2297,28 @@ def count_window_kernel_cases(torch, np, dev, record, out):
     out[-1].update({"records": Q5_BATCH, "shape": [dump_row + 1, ring],
                     "library_call": "none (no single torch call decodes "
                                     "the 3-byte records)"})
+
+    # the count lane's split upload: decode and count in one launch
+    base = torch.zeros((dump_row + 1, ring), dtype=torch.int32, device=dev)
+    a, b = base.clone(), base.clone()
+    wk.scatter_split_counts(a, sc, dump_row)
+    wk.scatter_split_counts_plain(b, sc, dump_row)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b) and int(a.sum()) == Q5_BATCH,
+          "scatter_split_counts differs from its plain version")
+    flat = want.long()
+    ones = torch.ones(Q5_BATCH, dtype=torch.int32, device=dev)
+    cells = int(torch.unique(flat).numel())
+    record("scatter_split_counts", "flink_tpu/ops/window.py:122", 0,
+           time_ms(torch, lambda: wk.scatter_split_counts(a, sc, dump_row)),
+           time_ms(torch, lambda: wk.scatter_split_counts_plain(b, sc,
+                                                                dump_row)),
+           time_ms(torch, lambda: b.view(-1).index_add_(0, flat, ones)),
+           Q5_BATCH * 3 + cells * 8, Q5_BATCH * 4)
+    out[-1].update({"records": Q5_BATCH, "distinct_cells": cells,
+                    "shape": [dump_row + 1, ring],
+                    "library_call": "index_add_ on the cells computed in "
+                                    "advance"})
     return extra
 
 
@@ -3532,8 +3807,12 @@ def phase_q5_spill(torch, np):
     rows, launches, res, wall = run_q5_host_fed(torch, np, cfg, "q5-spill",
                                                 backend="spill")
     missing = [k for k in ("window_counts", "topn_select_append",
-                           "ring_columns") if launches[k] == 0]
+                           "ring_columns", "scatter_split_counts")
+               if launches[k] == 0]
     check(not missing, f"q5_spill: kernels not launched: {missing}")
+    # the count lane's split upload is one launch a batch
+    check(launches["split_cells"] == 0,
+          "q5_spill: the count lane decoded its split upload apart")
     check(launches["fused_step"] == 0, "a fused step ran with spill")
     spilled = int(res.metrics["records_spilled"])
     check(spilled > 0, "q5_spill: no record was spilled")
@@ -4287,6 +4566,17 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
         return 0
+    if "--count-lane" in sys.argv[1:]:
+        try:
+            phase_count_lane(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if "--mesh-cards" in sys.argv[1:]:
         try:
             phase_build()
@@ -4340,6 +4630,7 @@ def main() -> int:
                     "scatter_lanes": "bid_aggs_a",
                     "scatter_pair_lanes": "bid_aggs_b",
                     "split_cells": "bid_aggs_a",
+                    "scatter_split_counts": "q5_spill",
                     "count_fire": "window_wordcount",
                     "window_lanes": "topn_lanes",
                     "topn_select_lanes": "topn_lanes",

@@ -136,7 +136,7 @@ __global__ void fused_header_kernel(const int32_t* __restrict__ hdr, int32_t rin
   }
   const int any_valid = __syncthreads_or(valid);
   if (t == 0) {
-    p->s = FireScalars{pane_lo, hdr_i64(hdr, 2), hdr_i64(hdr, 4)};
+    p->s = FireScalars{pane_lo, hdr_i64(hdr, 2), hdr_i64(hdr, 4), floor_mod(pane_lo, ring)};
     p->fire = !fire_gate || any_valid;
     p->clear = !fire_gate || (clear_lo | clear_hi) != 0;
   }
@@ -188,9 +188,8 @@ int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* bu
   rc = ff_apply_pairs_u32(counts, (int64_t)dump_row * ring, buf + kHdr, n_words - kHdr, stream);
   if (rc) return rc;
   const FireSource fire{{0, 0, 0}, &p->s, &p->fire};
-  launch_window_counts(counts, rows, ring, p->end_panes, p->w_valid, fire_pad, fire, ppw, wcounts,
-                       s);
-  rc = (int)cudaGetLastError();
+  rc = launch_window_counts(counts, rows, ring, p->end_panes, p->w_valid, fire_pad, fire, ppw,
+                            wcounts, s);
   if (rc) return rc;
   rc = launch_topn(wcounts, rows, fire_pad, used, p->end_panes, p->w_valid, fire, n, nullptr, 0,
                    sel_cap, emit_ring, ring_rows, ring_cols, work, work_windows, work_tiles, s);

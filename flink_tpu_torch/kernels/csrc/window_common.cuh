@@ -29,7 +29,7 @@ inline int grid_for(int64_t n) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
+__host__ __device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {
   int64_t r = a % m;
   return r < 0 ? r + m : r;
 }
@@ -48,9 +48,10 @@ __device__ __forceinline__ float min_ieee(float a, float b) {
   return a < b ? a : b;
 }
 
-// A fire's pane bounds and emit-ring anchor.
+// A fire's pane bounds, emit-ring anchor and pane_lo's ring column
+// (pane_lo mod ring, for window_counts; 0 where a kernel reads none).
 struct FireScalars {
-  int64_t pane_lo, pane_hi, anchor;
+  int64_t pane_lo, pane_hi, anchor, lo_col;
 };
 
 // Where a fire kernel takes its scalars from, and whether it runs: the
@@ -66,8 +67,9 @@ struct FireSource {
   __device__ __forceinline__ bool skip() const { return run != nullptr && *run == 0; }
 };
 
-inline FireSource host_fire(int64_t pane_lo, int64_t pane_hi, int64_t anchor) {
-  return FireSource{{pane_lo, pane_hi, anchor}, nullptr, nullptr};
+inline FireSource host_fire(int64_t pane_lo, int64_t pane_hi, int64_t anchor,
+                            int64_t lo_col = 0) {
+  return FireSource{{pane_lo, pane_hi, anchor, lo_col}, nullptr, nullptr};
 }
 
 // ---- block reductions / scan (kThreads threads) ---------------------------

@@ -32,39 +32,316 @@ __device__ __forceinline__ float block_max(float v, float* smem) {
 
 // ---- K2: window_counts ---------------------------------------------------
 // out[r, w] = sum of counts[r, p mod ring] over panes p in
-// [end_w - ppw, end_w) ∩ [pane_lo, min(pane_hi, pane_lo + ring - 1)],
-// 0 where !w_valid[w]. The JAX kernel gets the same numbers from a ring
-// roll + cumsum + prefix difference (a TPU-friendly form); here each
-// thread owns one output cell and adds its window's live panes directly.
-// Bound: bytes — counts read once (rows x ring x 4) and the
-// (rows x W) output written once; neighbouring threads share a row, so
-// the repeated pane reads of overlapping windows hit L1/L2, not HBM.
-__global__ void window_counts_kernel(const int32_t* __restrict__ counts, int64_t rows,
-                                     int32_t ring, const int64_t* __restrict__ end_panes,
-                                     const uint8_t* __restrict__ w_valid, int32_t W,
-                                     FireSource src, int32_t ppw, int32_t* __restrict__ out) {
-  if (src.skip()) return;
-  const FireScalars s = src.get();
-  const int64_t total = rows * (int64_t)W;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t hi_cap = live_hi_cap(s.pane_lo, s.pane_hi, ring);
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const int64_t r = t / W;
-    const int32_t w = (int32_t)(t - r * W);
-    out[t] = w_valid[w]
-                 ? window_count(counts + r * ring, ring, end_panes[w], s.pane_lo, hi_cap, ppw)
-                 : 0;
+// [end_w - ppw, end_w) ∩ [pane_lo, hi_cap], hi_cap = min(pane_hi,
+// pane_lo + ring - 1); 0 where !w_valid[w]. The reference's form
+// (flink_tpu/ops/window.py:355-365): each row's live panes summed once,
+// in pane order, into a prefix P (P[0] = 0, P[j] = the first j live
+// panes), and each window one difference, P[min(e - 1, hi_cap) -
+// pane_lo + 1] - P[max(e - ppw, pane_lo) - pane_lo].
+// Bound: bytes — each row's live columns read once and the (rows x W)
+// output written once (at the Q5 fire, 32,769 x 21 live columns and
+// 32,769 x 11 windows: 4.2 MB, 1.25 µs of HBM time).
+// Design: a block takes a tile of up to kWcRows consecutive rows, one
+// contiguous span of the row-major state. It asks for its first window
+// table's inputs, stages the tile's live columns in pane order (16-byte
+// loads of the 4-column chunks that hold a live column where the ring
+// is whole chunks; the dead columns are not read), then works out the
+// table once (each window's two prefix positions: the 64-bit arithmetic
+// is done there and nowhere per output). One thread a row sums the
+// row's prefix in place; then the block's threads take the (rows x
+// windows) outputs in row-major order, each one difference, stored
+// straight to the output (consecutive threads, consecutive words). A
+// staged row's stride is odd, so a warp's rows hit distinct banks. Any
+// W: the table holds kWcWindows windows a pass. Any ring: a row's live
+// panes are staged WcPlan::seg at a time, each segment adding its share
+// of every window with the row's running carry (one segment wherever a
+// tile holds more than one row). The fused step's launch (its scalars
+// on the card) stores only the valid windows' columns: its top-n reads
+// w_valid before any count (topn_select.cuh), so the others' scratch
+// words are never read.
+constexpr int kWcThreads = 256;
+constexpr int kWcRows = 128;
+constexpr int kWcWindows = 64;
+// a block's shared words at most: the window table (3 x kWcWindows), the
+// rows' carries (kWcRows), then the staged prefix rows and, for rings
+// staged in segments, the partial outputs (96 KB: the launch opts in
+// past 48 KB)
+constexpr int kWcSmemWords = 24576;
+
+struct WcPlan {
+  int32_t tile_rows;  // rows a block (a power of two, at most kWcRows)
+  int32_t seg;        // live panes a row stages at once
+  int32_t pstride;    // words of a staged prefix row (odd, >= seg + 1)
+  int32_t wchunk;     // windows a pass (at most kWcWindows)
+  int32_t smem_bytes;
+  int32_t vec;        // 16-byte loads (see wc_stage)
+  int64_t tiles;
+};
+
+// window_kernels.py window_counts_plan mirrors this; the tests hold the
+// two together
+inline WcPlan wc_plan(int64_t rows, int32_t ring, int32_t W) {
+  WcPlan p{};
+  p.wchunk = W < kWcWindows ? W : kWcWindows;
+  const int32_t budget = kWcSmemWords - 3 * kWcWindows - kWcRows;
+  int32_t t = kWcRows;
+  while (t > 1 && (int64_t)t * (((ring + 1) | 1) + p.wchunk) > budget) t >>= 1;
+  p.tile_rows = t;
+  const int32_t room = budget / t - p.wchunk;  // words a row's prefix may take
+  int32_t seg = ring < room - 1 ? ring : room - 1;
+  if (((seg + 1) | 1) > room) --seg;
+  p.seg = seg;
+  p.pstride = (seg + 1) | 1;
+  p.smem_bytes = 4 * (3 * kWcWindows + kWcRows + t * (p.pstride + p.wchunk));
+  p.tiles = (rows + t - 1) / t;
+  return p;
+}
+
+// P[t][1 + d] = tile[t][(c0 + s0 + d) mod ring] for the tile's T rows
+// and the segment's positions d < ns (its live columns in pane order):
+// with ``vec`` (a ring of whole 16-byte chunks whose count divides
+// kWcThreads, a 16-byte aligned state) 16-byte loads of each chunk that
+// holds a live column of the segment, up to eight in flight a thread;
+// else 4-byte loads of the live columns, four in flight
+__device__ __forceinline__ void wc_stage(const int32_t* __restrict__ tile, int32_t ring,
+                                         int32_t T, uint32_t c0, int32_t s0, int32_t ns,
+                                         uint32_t* P, int32_t pstride, bool vec) {
+  if (ns <= 0) return;
+  const uint32_t uring = (uint32_t)ring, uns = (uint32_t)ns;
+  uint32_t cs = c0 + (uint32_t)s0;  // the segment's first column (s0 < nl <= ring, c0 < ring)
+  if (cs >= uring) cs -= uring;
+  const int32_t tid = (int32_t)threadIdx.x;
+  if (vec) {
+    // a thread keeps one chunk column k and takes every
+    // (kWcThreads / cpr)-th row: its positions are worked out once
+    const int32_t cpr = ring >> 2;  // chunks a row, dividing kWcThreads
+    const uint4* src = (const uint4*)tile;
+    const int32_t rstep = kWcThreads / cpr;
+    const int32_t k = tid % cpr;
+    uint32_t d = 4u * (uint32_t)k + uring - cs;
+    if (d >= uring) d -= uring;
+    uint32_t pos[4];
+    bool in[4], any = false;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      pos[c] = d + c >= uring ? d + c - uring : d + c;
+      in[c] = pos[c] < uns;
+      any = any || in[c];
+    }
+    if (!any) return;
+    for (int32_t t0 = tid / cpr; t0 < T; t0 += 8 * rstep) {
+      uint4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int32_t t = t0 + u * rstep;
+        if (t < T) v[u] = __ldg(src + t * cpr + k);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int32_t t = t0 + u * rstep;
+        if (t >= T) continue;
+        uint32_t* dst = P + t * pstride + 1;
+        if (in[0]) dst[pos[0]] = v[u].x;
+        if (in[1]) dst[pos[1]] = v[u].y;
+        if (in[2]) dst[pos[2]] = v[u].z;
+        if (in[3]) dst[pos[3]] = v[u].w;
+      }
+    }
+    return;
+  }
+  const int32_t total = T * ns;  // < 2^31 (wc_plan)
+  const int32_t dt = kWcThreads / ns, dj = kWcThreads - dt * ns;
+  int32_t t = tid / ns, j = tid - t * ns;
+  for (int32_t i = tid; i < total; i += 4 * kWcThreads) {
+    uint32_t v[4];
+    int32_t at[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t col = cs + (uint32_t)j;
+      if (col >= uring) col -= uring;
+      at[u] = i + u * kWcThreads < total ? t * pstride + 1 + j : -1;
+      if (at[u] >= 0) v[u] = (uint32_t)__ldg(tile + t * ring + col);
+      t += dt;
+      j += dj;
+      if (j >= ns) {
+        j -= ns;
+        ++t;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (at[u] >= 0) P[at[u]] = v[u];
   }
 }
 
-inline void launch_window_counts(const int32_t* counts, int64_t rows, int32_t ring,
-                                 const int64_t* end_panes, const uint8_t* w_valid, int32_t W,
-                                 FireSource src, int32_t ppw, int32_t* out, cudaStream_t s) {
-  const int64_t total = rows * (int64_t)W;
-  if (total > 0) {
-    window_counts_kernel<<<grid_for(total), kThreads, 0, s>>>(counts, rows, ring, end_panes,
-                                                             w_valid, W, src, ppw, out);
+// two blocks an SM at least (at most 128 registers a thread): the Q5
+// fire's 257 tiles then run in one wave of the 132 SMs
+__global__ void __launch_bounds__(kWcThreads, 2)
+    window_counts_kernel(const int32_t* __restrict__ counts, int64_t rows, int32_t ring,
+                         const int64_t* __restrict__ end_panes,
+                         const uint8_t* __restrict__ w_valid, int32_t W, FireSource src,
+                         int32_t ppw, int32_t* __restrict__ out, WcPlan plan) {
+  if (src.skip()) return;
+  extern __shared__ uint32_t wc_smem[];
+  int2* AB = (int2*)wc_smem;                 // a window's first live position, one past its last
+  int32_t* V = (int32_t*)(AB + kWcWindows);  // its column is stored
+  uint32_t* C = wc_smem + 3 * kWcWindows;    // a row's carry: its earlier segments' sum
+  uint32_t* P = C + kWcRows;                 // tile_rows x pstride prefix
+  uint32_t* O = P + plan.tile_rows * plan.pstride;  // tile_rows x wchunk partial outputs
+  const int32_t tid = threadIdx.x;
+  // the first window table's inputs, asked for first: their latency
+  // hides behind the stage
+  int64_t e_first = 0;
+  uint8_t ok_first = 0;
+  if (tid < plan.wchunk) {
+    ok_first = w_valid[tid];
+    e_first = end_panes[tid];
   }
+  const FireScalars s = src.get();
+  const int64_t hi_cap = live_hi_cap(s.pane_lo, s.pane_hi, ring);
+  // live panes [pane_lo, hi_cap]: at most ring, none when pane_hi < pane_lo
+  const int32_t nl = hi_cap >= s.pane_lo ? (int32_t)(hi_cap - s.pane_lo + 1) : 0;
+  const uint32_t c0 = (uint32_t)s.lo_col;
+  const int64_t r0 = (int64_t)blockIdx.x * plan.tile_rows;
+  const int32_t T = rows - r0 < plan.tile_rows ? (int32_t)(rows - r0) : plan.tile_rows;
+  const int32_t* tile = counts + r0 * ring;
+  const bool store_invalid = src.dev == nullptr;
+  const int32_t nsegs = nl > plan.seg ? (nl + plan.seg - 1) / plan.seg : 1;
+  // one segment: its loads fly while the first window table is built
+  if (nsegs == 1) wc_stage(tile, ring, T, c0, 0, nl, P, plan.pstride, plan.vec);
+  for (int32_t w0 = 0; w0 < W; w0 += plan.wchunk) {
+    const int32_t Wn = W - w0 < plan.wchunk ? W - w0 : plan.wchunk;
+    if (tid < Wn) {
+      const bool ok = (w0 == 0 ? ok_first : w_valid[w0 + tid]) != 0;
+      const int64_t e = w0 == 0 ? e_first : end_panes[w0 + tid];
+      int32_t a = 0, b = 0;
+      if (ok) {
+        const int64_t lo = e - ppw > s.pane_lo ? e - ppw : s.pane_lo;
+        const int64_t hi = e - 1 < hi_cap ? e - 1 : hi_cap;
+        if (lo <= hi) {
+          a = (int32_t)(lo - s.pane_lo);
+          b = (int32_t)(hi - s.pane_lo + 1);
+        }
+      }
+      AB[tid] = make_int2(a, b);
+      V[tid] = ok || store_invalid;
+    }
+    int32_t* dst = out + r0 * W + w0;  // T * W < 2^31 (launch_window_counts)
+    const int32_t total = T * Wn;
+    const int32_t dt = kWcThreads / Wn, dw = kWcThreads - dt * Wn;
+    uint32_t carry = 0;  // the row's, in its prefix thread
+    for (int32_t sg = 0; sg < nsegs; ++sg) {
+      const int32_t s0 = sg * plan.seg;
+      const int32_t ns = nl - s0 < plan.seg ? nl - s0 : plan.seg;
+      // the prefix rows stay staged across window passes when one
+      // segment holds every live pane
+      const bool stage = nsegs > 1 || w0 == 0;
+      if (nsegs > 1) wc_stage(tile, ring, T, c0, s0, ns, P, plan.pstride, plan.vec);
+      __syncthreads();  // the staged rows (and the window table) are in
+      if (stage && tid < T) {
+        // the row's prefix in place, eight loads in flight at a time
+        uint32_t* row = P + tid * plan.pstride;
+        uint32_t acc = 0;
+        row[0] = 0;
+        int32_t j = 1;
+        for (; j + 7 <= ns; j += 8) {
+          uint32_t v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) v[u] = row[j + u];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            acc += v[u];
+            row[j + u] = acc;
+          }
+        }
+        for (; j <= ns; ++j) {
+          acc += row[j];
+          row[j] = acc;
+        }
+        C[tid] = carry;
+        carry += acc;
+      }
+      __syncthreads();  // the prefix rows and carries are in
+      // the (T x Wn) outputs in row-major order: output i is row t,
+      // window w
+      int32_t t = tid / Wn, w = tid - t * Wn;
+      if (nsegs == 1) {
+        for (int32_t i = tid; i < total; i += 2 * kWcThreads) {
+          uint32_t v[2];
+          int32_t at[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            at[u] = -1;
+            if (i + u * kWcThreads < total) {
+              const int2 ab = AB[w];
+              const uint32_t* pr = P + t * plan.pstride;
+              v[u] = pr[ab.y] - pr[ab.x];
+              if (V[w]) at[u] = t * W + w;
+            }
+            t += dt;
+            w += dw;
+            if (w >= Wn) {
+              w -= Wn;
+              ++t;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            if (at[u] >= 0) dst[at[u]] = (int32_t)v[u];
+        }
+      } else {
+        // position x lies in this segment when s0 <= x < s0 + ns, or it
+        // is nl and this is the last one; P[x] = carry + row[x - s0]
+        const int32_t s1 = s0 + ns;
+        const bool last = sg == nsegs - 1;
+        for (int32_t i = tid; i < total; i += kWcThreads) {
+          const int2 ab = AB[w];
+          const uint32_t* pr = P + t * plan.pstride;
+          uint32_t v = sg == 0 ? 0u : O[i];
+          if (ab.y >= s0 && (ab.y < s1 || last)) v += C[t] + pr[ab.y - s0];
+          if (ab.x >= s0 && (ab.x < s1 || last)) v -= C[t] + pr[ab.x - s0];
+          if (!last)
+            O[i] = v;
+          else if (V[w])
+            dst[t * W + w] = (int32_t)v;
+          t += dt;
+          w += dw;
+          if (w >= Wn) {
+            w -= Wn;
+            ++t;
+          }
+        }
+      }
+      __syncthreads();  // the segment's rows, the carries and the table are free
+    }
+  }
+}
+
+// Returns the first launch error (a W past 2^31 / kWcRows windows is
+// refused).
+inline int launch_window_counts(const int32_t* counts, int64_t rows, int32_t ring,
+                                const int64_t* end_panes, const uint8_t* w_valid, int32_t W,
+                                FireSource src, int32_t ppw, int32_t* out, cudaStream_t s) {
+  if (ring < 1 || (int64_t)W * kWcRows >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || W <= 0) return (int)cudaGetLastError();
+  WcPlan p = wc_plan(rows, ring, W);
+  p.vec = ring % 4 == 0 && kWcThreads % (ring / 4) == 0 && ((uintptr_t)counts & 15) == 0;
+  // the opt-in past 48 KB, once a device (each source has its own copy
+  // of the kernel)
+  static uint64_t opted = 0;
+  if (p.smem_bytes > 48 * 1024) {
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess && (dev >= 64 || !((opted >> dev) & 1u))) {
+      rc = cudaFuncSetAttribute(window_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                4 * kWcSmemWords);
+      if (rc == cudaSuccess && dev < 64) opted |= 1ull << dev;
+    }
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  window_counts_kernel<<<(unsigned)p.tiles, kWcThreads, p.smem_bytes, s>>>(
+      counts, rows, ring, end_panes, w_valid, W, src, ppw, out, p);
+  return (int)cudaGetLastError();
 }
 
 // ---- K3: topn_select_append ----------------------------------------------

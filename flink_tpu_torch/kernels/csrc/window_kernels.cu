@@ -31,7 +31,11 @@
 //                         and :888 ring_remap_kernel (every lane)
 // K7 split_cells          replaces flink_tpu/ops/window.py:101 split_decode
 //                         and the decode of :122 apply_kernel_split (the
-//                         scatter itself is K1 or lane_kernels.cu's L2)
+//                         lane scatter itself is lane_kernels.cu's L2);
+//                         the key-sharded ingest and the lanes use it
+// K1s scatter_split_counts replaces :122 apply_kernel_split's count lane:
+//                         K1's per-record form decoding the split upload
+//                         itself (K7's decode and error rule, one launch)
 //
 // K2-K4's kernels live in window_fire.cuh, which fused_kernels.cu (the
 // one-upload fused step) launches too.
@@ -53,15 +57,16 @@ constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
 // ---- K1: scatter_counts --------------------------------------------------
 // counts.flat[idx[i]] += cnt[i] (or += 1 when cnt is null); idx is int32,
 // or int64 once the state reaches 2^31 cells (the operator's upload
-// switches where the reference's does).
-// Bound: bytes — the idx/cnt stream plus one 4-byte read-modify-write per
-// entry; at the Q5 shape (~110k host-combined pairs) that is ~1.8 MB,
-// well under a microsecond of HBM time, so the launch dominates. Design:
-// one thread per entry, integer atomicAdd (exact in any order, so no
-// sort or segment pass is needed). An out-of-range index is not written
-// (a malformed upload cannot corrupt memory) and sets kErrScatterIndex;
-// with skip_negative a negative index is an invalid record, skipped
-// silently (a key-sharded block's received buckets pad with -1).
+// switches where the reference's does). An out-of-range index is not
+// written (a malformed upload cannot corrupt memory) and sets
+// kErrScatterIndex; with skip_negative a negative index is an invalid
+// record, skipped silently (a key-sharded block's received buckets pad
+// with -1).
+//
+// Host-combined pairs (cnt given; ~110k distinct cells at the Q5 shape,
+// each once): one thread per entry, integer atomicAdd (exact in any
+// order). Bound: bytes — the idx/cnt stream plus one 4-byte
+// read-modify-write a cell, ~1.8 MB, so the launch dominates.
 template <typename Idx>
 __global__ void scatter_counts_kernel(int32_t* __restrict__ counts, int64_t n_cells,
                                       const Idx* __restrict__ idx,
@@ -78,6 +83,216 @@ __global__ void scatter_counts_kernel(int32_t* __restrict__ counts, int64_t n_ce
     const int32_t v = cnt != nullptr ? cnt[i] : 1;
     if (v != 0) atomicAdd(&counts[c], v);
   }
+}
+
+// Per record (cnt null; 2^20 WordCount words, ~294k distinct cells, the
+// hottest 623 records; or the split upload's 3 bytes a record, decoded
+// here — K7's decode folded in, one launch and no cell array): the pace
+// is the L2's rate of scattered atomics, one transaction each, and the
+// serial chains on the hot cells. Bound: bytes — 4 (or 3) bytes a record
+// read once, each distinct cell read and written once.
+// Design: a block takes a contiguous chunk of fewer than 2^16 records
+// and counts them in a shared-memory histogram of the state's rows,
+// 16-bit counters, two rows a word, for one ring column: the column of
+// the chunk's middle record (records arrive about in time order, so a
+// chunk's records share their pane); a record of another column goes
+// to its cell with a global atomic. Then one global atomic a counted
+// row. A chunk of at most 65,535 records cannot carry a counter into its
+// neighbour. The chunk comes from count_plan (window_kernels.py
+// count_plan mirrors it): a wave of ~132 chunks did best at 2^20
+// records on the card (chunks of 2,048 to 63,488 records measured, and
+// ranges of rows a block each, which reread their chunk: slower). The
+// fold pays where a chunk repeats its cells (the bid stream's hot
+// auctions: 57 % of a chunk's records stay distinct); WordCount's spread
+// words leave 80 % distinct, so there it is no faster than an atomic a
+// record. States past kHistMaxRows rows, or past 2^31 cells, take the
+// per-entry kernel above.
+constexpr int kCountThreads = 512;
+constexpr int32_t kCountMaxChunk = 65535;
+// rows of the largest histogram (its 16-bit counters in about 200 KB)
+constexpr int64_t kHistMaxRows = 100000;
+// blocks the plan aims at: a wave of the 132-SM card
+constexpr int64_t kCountBlocks = 132;
+
+// n / d for 0 <= n < 2^31 and a divisor fixed a launch, by a multiply
+// and a shift (the round-up reciprocal, as CUTLASS's FastDivmod)
+struct FastDiv {
+  uint32_t d, m, s;
+};
+
+inline FastDiv fast_div(uint32_t d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    uint32_t l = 0;
+    while ((1ull << l) < d) ++l;  // ceil(log2 d)
+    const uint32_t p = 31 + l;
+    f.m = (uint32_t)(((1ull << p) + d - 1) / d);
+    f.s = p - 32;
+  }
+  return f;
+}
+
+__device__ __forceinline__ uint32_t div_of(uint32_t n, const FastDiv& f) {
+  return f.d > 1 ? __umulhi(n, f.m) >> f.s : n;
+}
+
+// a record's row and ring column: 1 to count it, 0 to skip it, -1 for an
+// entry outside the state (the error bit, nothing written)
+template <typename Idx>
+struct FlatRecords {
+  const Idx* idx;
+  int64_t n_cells;
+  FastDiv ring;
+  int32_t skip_negative;
+  static constexpr int32_t kErr = kErrScatterIndex;
+
+  __device__ __forceinline__ int64_t load(int64_t i) const {
+    if constexpr (sizeof(Idx) == 8)
+      return (int64_t)__ldg((const long long*)idx + i);
+    else
+      return (int64_t)__ldg((const int*)idx + i);
+  }
+  __device__ __forceinline__ int decode(int64_t c, int32_t& row, int32_t& col) const {
+    if (c < 0 && skip_negative) return 0;
+    if (c < 0 || c >= n_cells) return -1;
+    const uint32_t r = div_of((uint32_t)c, ring);
+    row = (int32_t)r;
+    col = (int32_t)((uint32_t)c - r * ring.d);
+    return 1;
+  }
+};
+
+// the split upload: bytes 0-1 the little-endian slot, byte 2 the ring
+// column; K7's rule for the row (slot 0xFFFF the dump row) and its error
+// (a row past the dump row or a column past the ring); an invalid
+// record then adds nothing, as the reference's apply_kernel_split adds
+// its 0 to the dump row
+struct SplitRecords {
+  const uint8_t* sc;
+  int32_t ring;
+  int32_t dump_row;
+  static constexpr int32_t kErr = kErrSplitCell;
+
+  __device__ __forceinline__ int64_t load(int64_t i) const {
+    const uint8_t* r = sc + 3 * i;
+    return (int64_t)((uint32_t)__ldg(r) | ((uint32_t)__ldg(r + 1) << 8) |
+                     ((uint32_t)__ldg(r + 2) << 16));
+  }
+  __device__ __forceinline__ int decode(int64_t v, int32_t& row, int32_t& col) const {
+    const uint32_t slot = (uint32_t)v & 0xFFFFu;
+    col = (int32_t)((uint32_t)v >> 16);
+    row = slot == kInvalidSlotU16 ? dump_row : (int32_t)slot;
+    if (row > dump_row || col >= ring) return -1;
+    return slot == kInvalidSlotU16 ? 0 : 1;
+  }
+};
+
+struct CountPlan {
+  int32_t chunk;   // records a block (a multiple of 4 x kCountThreads, < 2^16)
+  int32_t groups;  // 16-byte groups of the histogram (8 rows each)
+  int64_t chunks;
+};
+
+inline CountPlan count_plan(int64_t n, int64_t rows) {
+  CountPlan p{};
+  const int64_t step = 4 * kCountThreads;
+  const int64_t want = (n + kCountBlocks - 1) / kCountBlocks;
+  int64_t chunk = (want + step - 1) / step * step;
+  if (chunk > kCountMaxChunk) chunk = kCountMaxChunk / step * step;
+  p.chunk = (int32_t)chunk;
+  p.groups = (int32_t)((rows + 7) / 8);
+  p.chunks = (n + chunk - 1) / chunk;
+  return p;
+}
+
+// the body of both per-record kernels (their own names in a profile)
+template <class Rec>
+__device__ __forceinline__ void count_records(int32_t* __restrict__ counts, int32_t ring,
+                                              const Rec& rec, int64_t n, const CountPlan& plan,
+                                              int32_t* __restrict__ err) {
+  extern __shared__ uint4 hist4[];  // rows / 2 words, 16-byte groups
+  uint32_t* hist = (uint32_t*)hist4;
+  __shared__ int32_t ref_col;
+  for (int32_t k = threadIdx.x; k < plan.groups; k += kCountThreads)
+    hist4[k] = make_uint4(0, 0, 0, 0);
+  const int64_t i0 = (int64_t)blockIdx.x * plan.chunk;
+  const int64_t i1 = i0 + plan.chunk < n ? i0 + plan.chunk : n;
+  if (threadIdx.x == 0) {
+    int32_t r = 0, c = 0;
+    ref_col = rec.decode(rec.load(i0 + (i1 - i0) / 2), r, c) > 0 ? c : 0;
+  }
+  __syncthreads();
+  const int32_t ref = ref_col;
+  for (int64_t base = i0 + threadIdx.x; base < i1; base += 4 * kCountThreads) {
+    int64_t v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int64_t i = base + u * kCountThreads;
+      v[u] = i < i1 ? rec.load(i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (base + u * kCountThreads >= i1) continue;
+      int32_t r = 0, c = 0;
+      const int k = rec.decode(v[u], r, c);
+      if (k < 0) {
+        atomicOr(err, Rec::kErr);
+        continue;
+      }
+      if (k == 0) continue;
+      if (c == ref)
+        atomicAdd(&hist[r >> 1], 1u << ((r & 1) << 4));
+      else
+        atomicAdd(&counts[(int64_t)r * ring + c], 1);
+    }
+  }
+  __syncthreads();
+  // one global atomic a counted row, read four words (eight rows) at a
+  // time
+  for (int32_t k = threadIdx.x; k < plan.groups; k += kCountThreads) {
+    const uint4 g = hist4[k];
+    const uint32_t h[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (h[u] == 0) continue;
+      const int64_t r = 8 * (int64_t)k + 2 * u;
+      if (h[u] & 0xFFFFu) atomicAdd(&counts[r * ring + ref], (int32_t)(h[u] & 0xFFFFu));
+      if (h[u] >> 16) atomicAdd(&counts[(r + 1) * ring + ref], (int32_t)(h[u] >> 16));
+    }
+  }
+}
+
+template <typename Idx>
+__global__ void __launch_bounds__(kCountThreads)
+    count_records_kernel(int32_t* __restrict__ counts, int32_t ring, FlatRecords<Idx> rec,
+                         int64_t n, CountPlan plan, int32_t* __restrict__ err) {
+  count_records(counts, ring, rec, n, plan, err);
+}
+
+__global__ void __launch_bounds__(kCountThreads)
+    split_counts_kernel(int32_t* __restrict__ counts, int32_t ring, SplitRecords rec, int64_t n,
+                        CountPlan plan, int32_t* __restrict__ err) {
+  count_records(counts, ring, rec, n, plan, err);
+}
+
+template <class Rec>
+int launch_count_records(void (*kernel)(int32_t*, int32_t, Rec, int64_t, CountPlan, int32_t*),
+                         int32_t* counts, int64_t rows, int32_t ring, const Rec& rec, int64_t n,
+                         int32_t* err, cudaStream_t s) {
+  const CountPlan p = count_plan(n, rows);
+  // the opt-in past 48 KB, once a kernel and device
+  static uint64_t opted = 0;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return (int)rc;
+  if (dev >= 64 || !((opted >> dev) & 1u)) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(16 * ((kHistMaxRows + 7) / 8)));
+    if (rc != cudaSuccess) return (int)rc;
+    if (dev < 64) opted |= 1ull << dev;
+  }
+  kernel<<<(unsigned)p.chunks, kCountThreads, 16 * p.groups, s>>>(counts, ring, rec, n, p, err);
+  return (int)cudaGetLastError();
 }
 
 // ---- K7: split_cells -----------------------------------------------------
@@ -114,20 +329,44 @@ extern "C" {
 
 const char* fk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int fk_scatter_counts(int32_t* counts, int64_t n_cells, const void* idx, int32_t idx_bytes,
-                      const int32_t* cnt, int64_t n, int32_t skip_negative, int32_t* err,
-                      void* stream) {
+int fk_scatter_counts(int32_t* counts, int64_t rows, int32_t ring, const void* idx,
+                      int32_t idx_bytes, const int32_t* cnt, int64_t n, int32_t skip_negative,
+                      int32_t* err, void* stream) {
   if (idx_bytes != 4 && idx_bytes != 8) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t n_cells = rows * ring;
+  if (cnt == nullptr && rows <= kHistMaxRows && n_cells < (1ll << 31)) {
     if (idx_bytes == 8)
-      scatter_counts_kernel<int64_t><<<grid_for(n), kThreads, 0, s>>>(
-          counts, n_cells, (const int64_t*)idx, cnt, n, skip_negative, err);
-    else
-      scatter_counts_kernel<int32_t><<<grid_for(n), kThreads, 0, s>>>(
-          counts, n_cells, (const int32_t*)idx, cnt, n, skip_negative, err);
+      return launch_count_records(
+          count_records_kernel<int64_t>, counts, rows, ring,
+          FlatRecords<int64_t>{(const int64_t*)idx, n_cells, fast_div((uint32_t)ring),
+                               skip_negative},
+          n, err, s);
+    return launch_count_records(
+        count_records_kernel<int32_t>, counts, rows, ring,
+        FlatRecords<int32_t>{(const int32_t*)idx, n_cells, fast_div((uint32_t)ring),
+                             skip_negative},
+        n, err, s);
   }
+  if (idx_bytes == 8)
+    scatter_counts_kernel<int64_t><<<grid_for(n), kThreads, 0, s>>>(
+        counts, n_cells, (const int64_t*)idx, cnt, n, skip_negative, err);
+  else
+    scatter_counts_kernel<int32_t><<<grid_for(n), kThreads, 0, s>>>(
+        counts, n_cells, (const int32_t*)idx, cnt, n, skip_negative, err);
   return (int)cudaGetLastError();
+}
+
+// the split upload's per-record count: K1's per-record form decoding the
+// (n, 3) bytes itself (rows of counts: at least dump_row + 1)
+int fk_scatter_split_counts(int32_t* counts, int64_t rows, int32_t ring, const uint8_t* sc,
+                            int64_t n, int32_t dump_row, int32_t* err, void* stream) {
+  if (dump_row < 0 || dump_row >= rows || dump_row >= (int32_t)kInvalidSlotU16 || ring < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  return launch_count_records(split_counts_kernel, counts, (int64_t)dump_row + 1, ring,
+                              SplitRecords{sc, ring, dump_row}, n, err, (cudaStream_t)stream);
 }
 
 int fk_split_cells(const uint8_t* sc, int64_t n, int32_t ring, int32_t dump_row, int32_t* cells,
@@ -142,9 +381,10 @@ int fk_split_cells(const uint8_t* sc, int64_t n, int32_t ring, int32_t dump_row,
 int fk_window_counts(const int32_t* counts, int64_t rows, int32_t ring, const int64_t* end_panes,
                      const uint8_t* w_valid, int32_t W, int64_t pane_lo, int64_t pane_hi,
                      int32_t ppw, int32_t* out, void* stream) {
-  launch_window_counts(counts, rows, ring, end_panes, w_valid, W, host_fire(pane_lo, pane_hi, 0),
-                       ppw, out, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  if (ring < 1) return (int)cudaErrorInvalidValue;
+  return launch_window_counts(counts, rows, ring, end_panes, w_valid, W,
+                              host_fire(pane_lo, pane_hi, 0, floor_mod(pane_lo, ring)), ppw,
+                              out, (cudaStream_t)stream);
 }
 
 // work: the entry point's clean workspace (window_kernels.py
@@ -220,12 +460,19 @@ int fk_ring_columns(const RingArgs* a, void* stream) {
 
 // the lean launch path (window_kernels.py LeanEntry): each entry
 // above from one packed block of 64-bit words, the stream beside
-// fk_scatter_counts from one packed block of 8 64-bit words
+// fk_scatter_counts from one packed block of 9 64-bit words
 int fk_scatter_counts_packed(const int64_t* a, void* stream) {
   return fk_scatter_counts(
-      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (const void*)(intptr_t)a[2], (int32_t)a[3],
-      (const int32_t*)(intptr_t)a[4], (int64_t)a[5], (int32_t)a[6], (int32_t*)(intptr_t)a[7],
-      stream);
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const void*)(intptr_t)a[3],
+      (int32_t)a[4], (const int32_t*)(intptr_t)a[5], (int64_t)a[6], (int32_t)a[7],
+      (int32_t*)(intptr_t)a[8], stream);
+}
+
+// fk_scatter_split_counts from one packed block of 7 64-bit words
+int fk_scatter_split_counts_packed(const int64_t* a, void* stream) {
+  return fk_scatter_split_counts(
+      (int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const uint8_t*)(intptr_t)a[3],
+      (int64_t)a[4], (int32_t)a[5], (int32_t*)(intptr_t)a[6], stream);
 }
 
 // fk_split_cells from one packed block of 6 64-bit words

@@ -49,6 +49,7 @@ LAUNCHES: Dict[str, int] = {
     "apply_pairs_u16": 0,
     "fused_step": 0,
     "split_cells": 0,
+    "scatter_split_counts": 0,
     "count_fire": 0,
     "window_lanes": 0,
     "topn_select_lanes": 0,
@@ -362,7 +363,9 @@ def _entry(fn: str, name: str, n_words: int) -> LeanEntry:
     return LeanEntry(_lib, fn, name, n_words, "fk_error_string")
 
 
-_SCATTER_COUNTS = _entry("fk_scatter_counts", "scatter_counts", 8)
+_SCATTER_COUNTS = _entry("fk_scatter_counts", "scatter_counts", 9)
+_SCATTER_SPLIT_COUNTS = _entry("fk_scatter_split_counts",
+                               "scatter_split_counts", 7)
 _SPLIT_CELLS = _entry("fk_split_cells", "split_cells", 6)
 _WINDOW_COUNTS = _entry("fk_window_counts", "window_counts", 10)
 _TOPN_SELECT_APPEND = _entry("fk_topn_select_append", "topn_select_append", 15)
@@ -398,8 +401,9 @@ def scatter_counts(counts: torch.Tensor, idx: torch.Tensor,
         if not on_cuda("scatter_counts", counts, idx, cnt):
             return scatter_counts_plain(counts, idx, cnt, skip_negative)
         index = counts.get_device()
+    rows, ring = counts.shape
     err, stream = launch_context(index)
-    _SCATTER_COUNTS(stream, counts.data_ptr(), counts.numel(), idx.data_ptr(),
+    _SCATTER_COUNTS(stream, counts.data_ptr(), rows, ring, idx.data_ptr(),
                     8 if wide else 4,
                     cnt.data_ptr() if cnt is not None else 0, idx.numel(),
                     int(bool(skip_negative)), err)
@@ -417,6 +421,76 @@ def scatter_counts_plain(counts, idx, cnt=None, skip_negative=False):
            else torch.ones(idx.numel(), dtype=torch.int32, device=idx.device))
     counts.view(-1).index_add_(0, idx.long(), add)
     return counts
+
+
+def scatter_split_counts(counts: torch.Tensor, sc: torch.Tensor,
+                         dump_row: int) -> torch.Tensor:
+    """``scatter_counts`` per record from a ``(B, 3)`` uint8 split upload
+    (``split_cells``' bytes), decoded in the same launch: ``counts[slot,
+    col] += 1`` for each record, in place. Slot ``INVALID_SLOT_U16`` is
+    an invalid record and adds nothing (the reference's 0 to the dump
+    row); a slot past ``dump_row`` or a column past the ring raises
+    (``split_cells``' rule; the kernel skips the record and reports it
+    through ``error_word``). Returns ``counts``."""
+    index = fast_index((counts, torch.int32, 2), (sc, torch.uint8, 2))
+    if index is None:
+        check_tensor(counts, "counts", torch.int32, 2)
+        check_tensor(sc, "sc", torch.uint8, 2)
+    rows, ring = counts.shape
+    if sc.shape[1] != 3:
+        raise ValueError(f"sc must be (B, 3), got {tuple(sc.shape)}")
+    if not 1 <= ring <= 256 or not 0 <= dump_row < min(rows, INVALID_SLOT_U16):
+        raise ValueError(f"split upload needs ring <= 256 and dump_row below "
+                         f"the rows and 0xFFFF, got ring {ring}, dump_row "
+                         f"{dump_row}, rows {rows}")
+    if index is None:
+        if not on_cuda("scatter_split_counts", counts, sc):
+            return scatter_split_counts_plain(counts, sc, dump_row)
+        index = counts.get_device()
+    err, stream = launch_context(index)
+    _SCATTER_SPLIT_COUNTS(stream, counts.data_ptr(), rows, ring, sc.data_ptr(),
+                          sc.shape[0], int(dump_row), err)
+    return counts
+
+
+def scatter_split_counts_plain(counts, sc, dump_row):
+    ring = counts.shape[1]
+    b = sc.to(torch.int32)
+    slot = b[:, 0] | (b[:, 1] << 8)
+    col = b[:, 2]
+    ok = slot != INVALID_SLOT_U16
+    row = torch.where(ok, slot, torch.full_like(slot, dump_row))
+    if row.numel() and (int(row.max()) > dump_row or int(col.max()) >= ring):
+        raise_for_error_bits(64)
+    cells = (row * ring + col)[ok]
+    counts.view(-1).index_add_(0, cells.long(), torch.ones_like(cells))
+    return counts
+
+
+# csrc/window_kernels.cu's per-record launch constants (the tests read
+# them from the source): threads a block, the longest chunk, the rows of
+# the largest histogram and the blocks a plan aims at
+COUNT_THREADS = 512
+COUNT_MAX_CHUNK = 65535
+HIST_MAX_ROWS = 100000
+COUNT_BLOCKS = 132
+
+
+class CountPlan(NamedTuple):
+    """csrc/window_kernels.cu ``count_plan``: the per-record count's
+    launch over ``n`` records into ``rows`` rows."""
+    chunk: int    # records a block
+    groups: int   # 16-byte groups of its histogram (8 rows each)
+    chunks: int
+
+
+def count_plan(n: int, rows: int) -> CountPlan:
+    step = 4 * COUNT_THREADS
+    want = -(-n // COUNT_BLOCKS)
+    chunk = -(-want // step) * step
+    if chunk > COUNT_MAX_CHUNK:
+        chunk = COUNT_MAX_CHUNK // step * step
+    return CountPlan(chunk, -(-rows // 8), -(-n // chunk))
 
 
 # -- K7 ----------------------------------------------------------------------
@@ -462,28 +536,74 @@ def split_cells_plain(sc, ring, dump_row):
 
 # -- K2 ----------------------------------------------------------------------
 
+# csrc/window_fire.cuh's window_counts constants (the tests read them from
+# the source): threads a block, the most rows of a tile (a prefix thread
+# each), windows of a block's table, the most shared words of a block
+WC_THREADS = 256
+WC_ROWS = 128
+WC_WINDOWS = 64
+WC_SMEM_WORDS = 24576
+
+
+class WindowCountsPlan(NamedTuple):
+    """csrc/window_fire.cuh ``wc_plan``: ``window_counts``' launch over a
+    (rows, ring) state and W windows."""
+    tile_rows: int   # rows a block
+    seg: int         # live panes a row stages at once
+    pstride: int     # words of a staged prefix row (odd)
+    wchunk: int      # windows a pass
+    smem_bytes: int
+    tiles: int
+
+
+def window_counts_plan(rows: int, ring: int, W: int) -> WindowCountsPlan:
+    wchunk = min(W, WC_WINDOWS)
+    budget = WC_SMEM_WORDS - 3 * WC_WINDOWS - WC_ROWS
+    t = WC_ROWS
+    while t > 1 and t * (((ring + 1) | 1) + wchunk) > budget:
+        t >>= 1
+    room = budget // t - wchunk
+    seg = min(ring, room - 1)
+    if ((seg + 1) | 1) > room:
+        seg -= 1
+    pstride = (seg + 1) | 1
+    return WindowCountsPlan(
+        t, seg, pstride, wchunk,
+        4 * (3 * WC_WINDOWS + WC_ROWS + t * (pstride + wchunk)),
+        -(-rows // t))
+
+
 def window_counts(counts: torch.Tensor, end_panes: torch.Tensor,
                   w_valid: torch.Tensor, pane_lo: int, pane_hi: int,
-                  ppw: int) -> torch.Tensor:
+                  ppw: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(rows, W) int32: the sum of ``counts[r, p % ring]`` over panes p in
     ``[end_w - ppw, end_w)`` ∩ ``[pane_lo, min(pane_hi, pane_lo + ring -
-    1)]``, and 0 where ``w_valid[w]`` is False."""
+    1)]``, and 0 where ``w_valid[w]`` is False. Into ``out`` (a
+    contiguous (rows, W) int32 tensor, returned) where given, else a new
+    tensor: a caller that reuses one buffer for every call (the
+    operator's fire) saves the allocation."""
     index = fast_index((counts, torch.int32, 2), (end_panes, torch.int64, 1),
-                       (w_valid, torch.bool, 1))
+                       (w_valid, torch.bool, 1), (out, torch.int32, 2))
     if index is None:
         check_tensor(counts, "counts", torch.int32, 2)
         check_tensor(end_panes, "end_panes", torch.int64, 1)
         check_tensor(w_valid, "w_valid", torch.bool, 1)
-    if w_valid.numel() != end_panes.numel():
-        raise ValueError("w_valid and end_panes differ in length")
-    if index is None:
-        if not on_cuda("window_counts", counts, end_panes, w_valid):
-            return window_counts_plain(counts, end_panes, w_valid, pane_lo,
-                                       pane_hi, ppw)
-        index = counts.get_device()
+        if out is not None:
+            check_tensor(out, "out", torch.int32, 2)
     rows, ring = counts.shape
     W = end_panes.numel()
-    out = torch.empty((rows, W), dtype=torch.int32, device=counts.device)
+    if w_valid.numel() != W:
+        raise ValueError("w_valid and end_panes differ in length")
+    if out is not None and out.shape != (rows, W):
+        raise ValueError(f"out must be ({rows}, {W}), got {tuple(out.shape)}")
+    if index is None:
+        if not on_cuda("window_counts", counts, end_panes, w_valid, out):
+            wc = window_counts_plain(counts, end_panes, w_valid, pane_lo,
+                                     pane_hi, ppw)
+            return wc if out is None else out.copy_(wc)
+        index = counts.get_device()
+    if out is None:
+        out = torch.empty((rows, W), dtype=torch.int32, device=counts.device)
     _, stream = launch_context(index)
     _WINDOW_COUNTS(stream, counts.data_ptr(), rows, ring, end_panes.data_ptr(),
                    w_valid.data_ptr(), W, int(pane_lo), int(pane_hi), int(ppw),

@@ -20,11 +20,12 @@ the numpy key table in numpy, then an int32 index + count upload to
 ``scatter_counts`` — and ``scatter_pair_lanes`` folds sum lanes in;
 otherwise one cell per record goes up with the fields the aggregate
 reads — 3 bytes (slot, ring column) while the slot id fits uint16 and
-the ring 256 columns, which ``split_cells`` decodes on the device, else
-a flat index, int32 below ``CELL_INDEX_LIMIT`` cells and int64 past it
-(as the reference packs them) — ``lift_masked`` lifts the fields on the
-device and ``scatter_counts`` (count only) or ``scatter_lanes`` folds
-them in.
+the ring 256 columns, else a flat index, int32 below
+``CELL_INDEX_LIMIT`` cells and int64 past it (as the reference packs
+them). Count only, ``scatter_split_counts`` decodes the 3 bytes and
+counts them in one launch (``scatter_counts`` takes a flat index); with
+lanes, ``split_cells`` decodes them, ``lift_masked`` lifts the fields on
+the device and ``scatter_lanes`` folds them in.
 
 A watermark advance fires every window it completes (over a stashed
 native-lane batch, inside its fused step). With ``.top(n)``:
@@ -679,6 +680,9 @@ class WindowOperator:
         self._w_valid = torch.ones(MIN_FIRE_PAD, dtype=torch.bool,
                                    device=self.device)
         self._ident_cols: Optional[torch.Tensor] = None
+        # the host-driven fire's (rows, W) window counts, a buffer a width
+        # (_wc_out)
+        self._wc_bufs: Dict[int, torch.Tensor] = {}
         self.prof: Dict[str, float] = collections.defaultdict(float)
         self.timer = DeviceTimer(self.device)
         # device-made source (attach_device_source): its spec, the batch
@@ -1152,18 +1156,24 @@ class WindowOperator:
         return cells
 
     def _apply_cells(self, idx: np.ndarray, cnt: Optional[np.ndarray]) -> None:
-        """Count-lane cells: flat indices, or a split upload's
-        (B, 3) bytes (per record, no counts); ``scatter_counts``."""
+        """Count-lane cells: flat indices (``scatter_counts``), or a split
+        upload's (B, 3) bytes, per record with no counts
+        (``scatter_split_counts``, one launch)."""
         if len(idx) == 0:
             return
         t0 = time.perf_counter()
         idx_h = staged(idx, self.device)
         cnt_h = staged(cnt, self.device) if cnt is not None else None
         with self.timer.span("apply"):
-            idx_d = self._cells_on_device(idx_h)
-            cnt_d = (cnt_h.to(self.device, non_blocking=True)
-                     if cnt_h is not None else None)
-            wk.scatter_counts(self.state.counts, idx_d, cnt_d)
+            idx_d = idx_h.to(self.device, non_blocking=True)
+            if idx_d.dtype == torch.uint8:
+                # the split upload's bytes, decoded inside the count
+                wk.scatter_split_counts(self.state.counts, idx_d,
+                                        self.layout.slots)
+            else:
+                cnt_d = (cnt_h.to(self.device, non_blocking=True)
+                         if cnt_h is not None else None)
+                wk.scatter_counts(self.state.counts, idx_d, cnt_d)
         self._note_dispatch()
         self.prof["pb_dispatch"] += time.perf_counter() - t0
 
@@ -1551,7 +1561,7 @@ class WindowOperator:
                     self._topn_sharded(end_t, w_valid, lo, hi, used, rings)
                     continue
                 wc = wk.window_counts(self.state.counts, end_t, w_valid, lo,
-                                      hi, ppw)
+                                      hi, ppw, self._wc_out(len(chunk)))
                 if self._topn_lanes:
                     self._topn_lanes_fire(wc, end_t, w_valid, lo, hi, used[0],
                                           rings[0])
@@ -1560,6 +1570,18 @@ class WindowOperator:
                                           self._ring_anchor, self._topn[1],
                                           self._topn_cap(), rings[0])
         return self._ring_after_fire(len(ends))
+
+    def _wc_out(self, W: int) -> torch.Tensor:
+        """The one-device fire's (rows, W) window-count buffer, one a
+        width, reused by every fire: a chunk's counts are read only by
+        the top-n launched right after them on the same stream, so the
+        next chunk's counts, queued later, cannot overwrite them early.
+        (The mesh holds every block's counts at once and allocates.)"""
+        buf = self._wc_bufs.get(W)
+        if buf is None:
+            buf = self._wc_bufs[W] = torch.empty(
+                (self.layout.rows, W), dtype=torch.int32, device=self.device)
+        return buf
 
     def _topn_sharded(self, end_t: torch.Tensor, w_valid: torch.Tensor,
                       lo: int, hi: int, used: List[torch.Tensor],

@@ -61,14 +61,16 @@ def lowered(monkeypatch):
 
 @pytest.fixture
 def uploads(monkeypatch):
-    """The cell dtypes ``scatter_counts`` and ``scatter_lanes`` were
-    handed (the per-record and per-block calls alike)."""
+    """The cell dtypes ``scatter_counts``, ``scatter_split_counts`` (the
+    split upload's uint8 bytes) and ``scatter_lanes`` were handed (the
+    per-record and per-block calls alike)."""
     seen = []
-    for mod, name in ((wk, "scatter_counts"), (lk, "scatter_lanes")):
+    for mod, name in ((wk, "scatter_counts"), (wk, "scatter_split_counts"),
+                      (lk, "scatter_lanes")):
         orig = getattr(mod, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
-            idx = a[1] if _name == "scatter_counts" else a[4]
+            idx = a[4] if _name == "scatter_lanes" else a[1]
             seen.append((_name, idx.dtype))
             return _orig(*a, **k)
         monkeypatch.setattr(mod, name, spy)
@@ -185,11 +187,13 @@ def test_sharded_operator_on_four_blocks_past_the_limit(lowered, uploads):
 
 def test_cells_below_the_limit_upload_as_today(uploads):
     """At the real limit the same jobs upload as today: the 3-byte split
-    while the rows fit 16 bits, int32 cells past them."""
+    while the rows fit 16 bits (count only, its bytes go straight to
+    ``scatter_split_counts``), int32 cells past them."""
     ref, port = pair(lambda m: m.count(), ("sliding", 10_000, 1_000))
     assert port._cell_dtype() is np.int32 and port._split_upload
     drive(ref, port, batches(5, n_batches=2))
-    assert {d for _, d in uploads} == {pw.torch.int32}
+    assert uploads and set(uploads) == {("scatter_split_counts",
+                                         pw.torch.uint8)}
     wide = pw.WindowOperator(TumblingEventTimeWindows.of(1_000), ta.count(),
                              num_shards=256, slots_per_shard=256, device="cpu")
     assert not wide._split_upload and wide._cell_dtype() is np.int32

@@ -60,6 +60,174 @@ def test_window_counts(dev, ring, W):
                        wk.window_counts_plain(counts, e, v, pane_lo, pane_hi, ppw))
 
 
+@pytest.mark.parametrize("rows,ring,W,valid", [
+    (32_769, 32, 11, "some"),    # the Q5 fire: 257 tiles, the last of one row
+    (1000, 1, 1, "all"),         # ring 1, one window
+    (4097, 64, 64, "some"),      # one pass of 64 windows
+    (4097, 64, 65, "some"),      # a second pass of one window
+    (777, 32, 11, "none"),       # every window invalid: all zeros
+    (50, 40_000, 5, "all"),      # one row a tile, the live panes in segments
+])
+def test_window_counts_tiles_passes_and_segments(dev, rows, ring, W, valid):
+    """K2 bit for bit against its plain version: rows not a multiple of
+    the tile, W past the window table, rings 1 to past a staged row,
+    ends below pane_lo and past hi_cap, sentinel ends; into a new tensor
+    and into a reused out tensor."""
+    rng = np.random.default_rng(rows + ring + W)
+    # past a staged row, windows of 5,000 panes straddle the segments
+    ppw = 5_000 if ring > 24_000 else min(10, ring)
+    pane_lo = 10_000 + int(rng.integers(0, ring))
+    pane_hi = pane_lo + max(ring - 2, 0)
+    counts = _t(_live_counts(rng, rows, ring, pane_lo, pane_hi,
+                             hi=1 << 16), dev)
+    ends = rng.integers(pane_lo - 3, pane_hi + ppw + 3, W).astype(np.int64)
+    ok = {"all": np.ones(W, bool), "none": np.zeros(W, bool),
+          "some": rng.random(W) < 0.8}[valid]
+    ends = np.where(ok, ends, -(2 ** 62))
+    e, v = _t(ends, dev), _t(ok, dev)
+    want = wk.window_counts_plain(counts, e, v, pane_lo, pane_hi, ppw)
+    assert torch.equal(wk.window_counts(counts, e, v, pane_lo, pane_hi, ppw),
+                       want)
+    out = torch.full((rows, W), -7, dtype=torch.int32, device=dev)
+    assert wk.window_counts(counts, e, v, pane_lo, pane_hi, ppw, out) is out
+    assert torch.equal(out, want)
+    if valid == "none":
+        assert not want.any()
+
+
+@pytest.mark.parametrize("n_ends", [0, 11])
+def test_fused_step_window_counts_store_only_valid_windows(dev, monkeypatch,
+                                                           n_ends):
+    """F2's window counts in its scratch: with no valid end the gated
+    kernel writes nothing; with ends, each valid window's column equals
+    the plain counts and the invalid columns are never written (the top-n
+    reads w_valid first)."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    rng = np.random.default_rng(29 + n_ends)
+    slots, ring, ppw, pane_lo, pane_hi = 4096, 32, 10, 500, 520
+    counts = _t(_live_counts(rng, slots + 1, ring, pane_lo, pane_hi), dev)
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([pane_lo, pane_hi, pane_lo], np.int64).view(np.int32)
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[:n_ends] = np.arange(pane_hi + 2 - n_ends, pane_hi + 2) - pane_lo
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+    words = np.full(256, -1, np.int32)      # padding words only
+    buf = _t(np.concatenate([hdr, words]), dev)
+    used = torch.ones(slots + 1, dtype=torch.bool, device=dev)
+    held = []
+    real = wk.scratch
+
+    def marked(device, n_words):
+        t, ptr = real(device, n_words)
+        t.fill_(-123)
+        held.append(t)
+        return t, ptr
+    monkeypatch.setattr(wk, "scratch", marked)
+    fire_pad = 16
+    ring_buf = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    fk.fused_step(counts.clone(), ring_buf, buf, used, ppw=ppw, n=1,
+                  sel_cap=256, dump_row=slots, fire_gate=True,
+                  fire_pad=fire_pad)
+    torch.cuda.synchronize()
+    params = -(-fk._lib().ff_params_bytes() // 8) * 2
+    wc = held[0][params:params + (slots + 1) * fire_pad].view(slots + 1,
+                                                               fire_pad)
+    e = _t(np.where(deltas[:fire_pad] > fk.DELTA_SENTINEL,
+                    pane_lo + deltas[:fire_pad], -(2 ** 62)), dev)
+    v = _t(deltas[:fire_pad] > fk.DELTA_SENTINEL, dev)
+    want = wk.window_counts_plain(counts, e, v, pane_lo, pane_hi, ppw)
+    assert torch.equal(wc[:, :n_ends], want[:, :n_ends])
+    assert bool((wc[:, n_ends:] == -123).all())
+
+
+@pytest.mark.parametrize("case", ["one_cell", "wordcount_head", "int64",
+                                  "skip_negative", "straddle"])
+def test_scatter_counts_per_record_forms(dev, case):
+    """K1 per record bit for bit against its plain version: every record
+    on one cell (the hot limit), WordCount's floor(u^2 * 30,000) head in
+    one pane, int64 cells, the mesh's -1 padding, a batch over two panes
+    (chunks whose records differ from their reference column); at 2^20
+    + 5 records (8,192-record chunks and a short last one) and at 70,000
+    (2,048-record chunks)."""
+    rng = np.random.default_rng(len(case))
+    rows, ring, n = 65_537, 16, (1 << 20) + 5
+    if case == "one_cell":
+        cells = np.full(n, 40_000 * ring + 3, np.int64)
+    else:
+        words = (rng.random(n) ** 2 * 30_000).astype(np.int64)
+        slot = rng.permutation(rows - 1)[words]
+        col = np.where(np.arange(n) < 700_000, 5, 6) if case == "straddle" \
+            else np.full(n, 5)
+        cells = slot * ring + col
+    if case == "skip_negative":
+        cells[rng.random(n) < 0.3] = -1
+    idx = _t(cells.astype(np.int64 if case == "int64" else np.int32), dev)
+    base = _t(rng.integers(0, 9, (rows, ring)).astype(np.int32), dev)
+    want = wk.scatter_counts_plain(base.clone(), idx, None,
+                                   skip_negative=case == "skip_negative")
+    got = wk.scatter_counts(base.clone(), idx, None,
+                            skip_negative=case == "skip_negative")
+    assert torch.equal(got, want)
+    few = idx[:70_000].contiguous()
+    assert torch.equal(
+        wk.scatter_counts(base.clone(), few, None,
+                          skip_negative=case == "skip_negative"),
+        wk.scatter_counts_plain(base.clone(), few, None,
+                                skip_negative=case == "skip_negative"))
+    wk.check_errors(dev)
+
+
+def test_scatter_counts_per_record_out_of_range(dev):
+    """An index outside the state sets bit 1 and is not written; the rest
+    are counted."""
+    wk.check_errors(dev)
+    c = torch.zeros((300, 8), dtype=torch.int32, device=dev)
+    idx = np.full(5000, 17, np.int32)
+    idx[[3, 4000]] = [2400, -2]
+    wk.scatter_counts(c, _t(idx, dev))
+    assert int(c.view(-1)[17]) == 4998 and int(c.sum()) == 4998
+    with pytest.raises(IndexError, match="scatter_counts"):
+        wk.check_errors(dev)
+    wk.check_errors(dev)
+
+
+@pytest.mark.parametrize("ring", [1, 32, 256])
+def test_scatter_split_counts(dev, ring):
+    """The split upload's one-launch count bit for bit against its plain
+    version (invalid slots add nothing, the dump row's own slot counts),
+    and against split_cells + scatter_counts on the valid records; a slot
+    past the dump row sets bit 64 and is not written."""
+    from flink_tpu_torch.ops.window import split_encode
+
+    rng = np.random.default_rng(ring + 5)
+    n, dump_row = (1 << 20) + 3, 32_768
+    sl = (rng.random(n) ** 2 * dump_row).astype(np.int64)
+    sl[:5] = dump_row
+    valid = rng.random(n) < 0.95
+    sc = _t(split_encode(sl, rng.integers(0, ring, n).astype(np.uint8),
+                         valid), dev)
+    base = _t(rng.integers(0, 9, (dump_row + 1, ring)).astype(np.int32), dev)
+    want = wk.scatter_split_counts_plain(base.clone(), sc, dump_row)
+    assert torch.equal(wk.scatter_split_counts(base.clone(), sc, dump_row),
+                       want)
+    two = base.clone()
+    ok = _t(valid, dev)
+    wk.scatter_counts(two, wk.split_cells(sc, ring, dump_row)[ok])
+    assert torch.equal(two, want)
+    wk.check_errors(dev)
+    bad = split_encode(np.array([3, dump_row + 1, 3]),
+                       np.zeros(3, np.uint8), np.ones(3, bool))
+    c = torch.zeros((dump_row + 1, ring), dtype=torch.int32, device=dev)
+    try:
+        wk.scatter_split_counts(c, _t(bad, dev), dump_row)
+        assert int(c[3, 0]) == 2 and int(c.sum()) == 2
+        with pytest.raises(IndexError, match="split_cells"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+
+
 def _topn(dev, seed, rows, W, n, sel_cap, *, fill=0, hi=30, density=0.4,
           row_cap=2048):
     rng = np.random.default_rng(seed)
@@ -188,8 +356,9 @@ def test_window_operator_on_the_card_matches_the_cpu(dev):
     assert np.array_equal(ends[0]["key"], ends[1]["key"])
     assert np.array_equal(ends[0]["count"], ends[1]["count"])
     assert torch.equal(ops[0].state.counts, ops[1].state.counts.cpu())
+    # per record, the count takes the split upload's bytes in one launch
     assert all(wk.LAUNCHES[k] > 0 for k in (
-        "scatter_counts", "window_counts", "topn_select_append",
+        "scatter_split_counts", "window_counts", "topn_select_append",
         "ring_columns"))
 
 
@@ -2014,6 +2183,10 @@ def _lean_cases(dev):
                                c, idx, cnt), counts)),
         "split_cells": (pure(lambda: wk.split_cells(sc, ring, rows - 1)),
                         lambda: wk.split_cells_plain(sc, ring, rows - 1)),
+        "scatter_split_counts": (
+            inplace(lambda c: wk.scatter_split_counts(c, sc, rows - 1), counts),
+            lambda: after(lambda c: wk.scatter_split_counts_plain(
+                c, sc, rows - 1), counts)),
         "window_counts": (pure(lambda: wk.window_counts(counts, ends, valid, lo, hi, ppw)),
                           lambda: wc),
         "topn_select_append": (
@@ -2090,7 +2263,8 @@ def _lean_cases(dev):
     }
 
 
-LEAN_WRAPPERS = ("scatter_counts", "split_cells", "window_counts",
+LEAN_WRAPPERS = ("scatter_counts", "split_cells", "scatter_split_counts",
+                 "window_counts",
                  "topn_select_append", "topn_candidates", "topn_global_threshold",
                  "topn_select_given", "nexmark_bids", "devgen_ingest", "fire_pack",
                  "scatter_lanes", "apply_pairs_u32", "apply_pairs_u16", "fused_step",

@@ -1,7 +1,8 @@
 """The split upload on the per-record path: 3 bytes a record (a
 little-endian uint16 slot id and a uint8 ring column, 0xFFFF for an
 invalid record) instead of an int32 flat cell, decoded on the device by
-``split_cells``. The port's host encode and device decode against the
+``split_cells`` (with lanes) or inside ``scatter_split_counts`` (count
+only). The port's host encode and device decode against the
 JAX package's ``split_encode`` / ``split_decode``, and the window
 operator's choice of upload against the reference's: the split while
 the state's rows (dump row included) fit below 0xFFFF and the ring fits
@@ -44,14 +45,22 @@ def numpy_host_paths(monkeypatch):
 
 @pytest.fixture
 def split_calls(monkeypatch):
-    """Records the (B, ring) of every split_cells call of the port."""
+    """Records the (B, ring) of every split upload the port decodes on
+    the device: ``split_cells`` (lanes) and ``scatter_split_counts``
+    (count only, the decode inside the count)."""
     seen = []
     orig = wk.split_cells
+    orig_count = wk.scatter_split_counts
 
     def spy(sc, ring, dump_row):
         seen.append((sc.shape[0], ring))
         return orig(sc, ring, dump_row)
+
+    def spy_count(counts, sc, dump_row):
+        seen.append((sc.shape[0], counts.shape[1]))
+        return orig_count(counts, sc, dump_row)
     monkeypatch.setattr(wk, "split_cells", spy)
+    monkeypatch.setattr(wk, "scatter_split_counts", spy_count)
     return seen
 
 
