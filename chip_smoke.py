@@ -160,9 +160,14 @@ mesh).
    bid-aggregate job (a) per record (4 batches), M3 1,000 hot auctions
    under ``pipeline.exchange-capacity: 16384`` (the host splitter, no
    overflow), M4 the ring exchange (4 batches); each with its rate, idle
-   share, launches and exchange bytes. The ``kernels`` phase holds the
-   path's ``bucket_records``, ``hash_keys`` and the distributed top-n
-   modes bit for bit against their plain versions at M1's shapes.
+   share, launches and exchange bytes (M1's and M4's against the bytes
+   their layout moves between blocks). The profiled M1 run must show one
+   kernel a ``bucket_records`` and a top-1 ``topn_candidates`` call and
+   no device-to-device copy: on one card each source block's buckets go
+   straight into the owners' receive rows. The ``kernels`` phase holds
+   the path's ``bucket_records``, ``hash_keys``, one chunk's exchange
+   and the distributed top-n modes bit for bit against their plain
+   versions at M1's shapes.
 
 14. ``big_cells`` — a count + sum job on pane state past 2^31 cells:
    1088 x 65,536 key slots + 1 dump row and a 32-column ring (2.28 G
@@ -214,6 +219,18 @@ step's fire of 11 ends, and ``scatter_counts`` on Q5's pairs, per record
 on WordCount's words and on the split upload's bytes, beside their
 library calls, each as loop ms, device ms and host µs a call (one JSON
 line).
+
+With ``--mesh-kernels`` it builds ``exchange_kernels`` and
+``window_kernels`` alone and runs only the key-sharded path's
+``bucket_records`` (M1's source block count only, with M2's three lanes,
+M3's 1,000 hot auctions at capacity 16,384, and int64 cells), one
+chunk's whole exchange as the operator runs it (``keyby_exchange`` over
+four blocks of ``cuda:0``) and ``topn_candidates`` at M1's fire (8,193
+rows x 11 windows, top-1 and top-3, beside ``torch.topk`` on the masked
+grid), each held bit for bit against its plain version first, then as
+loop ms, device ms and host µs a call beside its bound (one JSON line).
+To compare with a parent, unpack it under ``_archive/`` with this file
+copied in and run both in one call, in turns.
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -306,9 +323,13 @@ PROFILED_KERNELS = {
     "topn_select_lanes": ("lanes_max_kernel", "lanes_radix_all_kernel",
                           "lanes_radix_kernel", "lanes_select_kernel"),
     "segment_lanes": ("segment_lanes_kernel",),
-    "bucket_records": ("bucket_count_kernel", "bucket_write_kernel"),
+    "bucket_records": ("bucket_records_kernel",),
     "hash_keys": ("hash_keys_kernel",),
-    "topn_candidates": ("topn_candidates_kernel",),
+    # the top-1 max (its last block writes the output), or the radix
+    # select with the collect and sort (one cooperative launch, or six)
+    "topn_candidates": ("cand_max_kernel", "cand_radix_all_kernel",
+                        "cand_radix_kernel", "cand_collect_kernel",
+                        "cand_sort_kernel"),
     "topn_global_threshold": ("topn_global_threshold_kernel",),
     "topn_select_given": ("topn_given_kernel",),
 }
@@ -316,7 +337,8 @@ PROFILED_KERNELS = {
 # their launch counts (no other wrapper launches their kernels;
 # topn_select_append shares its with the fused step, so the devgen profile,
 # where no fused step runs, counts it by itself)
-ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes", "topn_select_given")
+ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes", "topn_select_given",
+                     "bucket_records", "topn_candidates")
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
 # wrap each call in a profiler range and charge it only the device
@@ -333,7 +355,9 @@ CALL_KERNELS = {
     "fused_step": ("fused_header_kernel",),
     "count_fire": ("count_fire_count_kernel",),
     "topn_select_lanes": ("lanes_select_kernel", "lanes_radix_all_kernel"),
-    "bucket_records": ("bucket_count_kernel",),
+    "bucket_records": ("bucket_records_kernel",),
+    "topn_candidates": ("cand_max_kernel", "cand_radix_all_kernel",
+                        "cand_sort_kernel"),
     "topn_select_given": ("topn_given_kernel",),
 }
 
@@ -2692,6 +2716,7 @@ def profile_run(torch, run, own=()):
             by_name[e.key] = {"device_ms": us / 1e3, "count": e.count}
     busy_ms = sum(v["device_ms"] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:12]
+    copies = {k: v for k, v in by_name.items() if k.startswith("Memcpy")}
     return {"wall_s": wall, "device_busy_ms": busy_ms,
             "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
                                   if busy_ms > 0 else "not measured"),
@@ -2699,7 +2724,7 @@ def profile_run(torch, run, own=()):
             "device_ms_by_wrapper": device_ms_by_wrapper(by_name),
             "kernels_per_call": kernels_per_call(by_name, own),
             "ranged_per_call": ranged_per_call(torch, prof.events()),
-            "top_device_ms": dict(top)}
+            "copies": copies, "top_device_ms": dict(top)}
 
 
 RANGE_PREFIX = "chip_smoke:"
@@ -3952,6 +3977,17 @@ def element_kernel_cases(torch, np, dev, record, out):
                                    "longest": int(e_lens.max())}}
 
 
+def mesh_cells(np, rng, n_auctions, n, slots, ring):
+    """A source block's n global int32 cells: ``n_auctions`` keys on
+    distinct slots of ``slots``, each record on one of them at a random
+    ring column, 1 % invalid (-1)."""
+    keys = rng.choice(slots, n_auctions, replace=False)
+    cells = keys[rng.integers(0, n_auctions, n)] * ring + rng.integers(
+        0, ring, n)
+    cells[rng.random(n) < 0.01] = -1
+    return cells.astype(np.int32)
+
+
 def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
     """The key-sharded path's kernels against their plain versions on the
     card, bit for bit, at job M1's shapes (4 blocks of 8,192 slots + a
@@ -3986,10 +4022,7 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
                    if x is not None or y is not None)
 
     # X1 bucket_records, count only (job M1) and with three lanes (M2)
-    keys = rng.choice(n_blk * spd, 10_000, replace=False)
-    slots = keys[rng.integers(0, 10_000, L)]
-    cells_np = (slots * ring + rng.integers(0, ring, L)).astype(np.int32)
-    cells_np[rng.random(L) < 0.01] = -1
+    cells_np = mesh_cells(np, rng, 10_000, L, n_blk * spd, ring)
     cells, lanes = t(cells_np), t(rng.random((L, 3)).astype(np.float32))
     for payload, label in ((None, "count"), (lanes, "lanes")):
         args = (cells, payload, n_blk, L, spd, ring)
@@ -4015,6 +4048,30 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms(nbytes, L * n_blk)[0], "lanes": C}
     extra["bucket_records_per_dest"] = got[2].sum(dim=1).tolist()
+
+    # one chunk's exchange on blocks of one card (each source block's
+    # buckets straight into the owners' receive rows, no copy) against
+    # the same exchange on the CPU (the plain versions)
+    from flink_tpu_torch.exchange import keyby
+    src = [cells] + [t(mesh_cells(np, rng, 10_000, L, n_blk * spd, ring))
+                     for _ in range(n_blk - 1)]
+    pays = [t(rng.random((L, 3)).astype(np.float32)) for _ in range(n_blk)]
+    for payload, label in (([None] * n_blk, "count"), (pays, "lanes")):
+        got = keyby.keyby_exchange(src, payload, devices=[dev] * n_blk,
+                                   capacity=L, spd=spd, ring=ring)
+        want = keyby.keyby_exchange(
+            [c.cpu() for c in src],
+            [None if x is None else x.cpu() for x in payload],
+            devices=[torch.device("cpu")] * n_blk, capacity=L, spd=spd,
+            ring=ring)
+        torch.cuda.synchronize()
+        check(got[2] == want[2]
+              and all(same([x.cpu() for x in a if x is not None],
+                           [x for x in b if x is not None])
+                      for a, b in zip(got[0], want[0]))
+              and same([o.cpu() for o in got[1]], want[1]),
+              f"the one-card exchange ({label}) differs from the CPU's")
+    extra["exchange_chunk_bytes"] = got[2]
 
     # X2 hash_keys
     data, _ = bid_batch(bids_cfg(1), 0, 0)
@@ -4150,6 +4207,153 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
     extra["fire_pack_row_offset_rows"] = nf
     extra["received_cells_valid"] = int((recv >= 0).sum())
     return extra
+
+
+def mesh_split_cases(torch, np, dev):
+    """``--mesh-kernels``: the key-sharded path's ``bucket_records`` and
+    ``topn_candidates`` at job M1's shapes (4 blocks of 8,192 slots + a
+    dump row, a 32-column ring), each held bit for bit against its plain
+    version, then as loop ms (CUDA events, 50 calls), device ms and the
+    device entries a call (``torch.profiler``, 10 calls) and host µs a
+    call (1,000 calls without a sync; 200 for the exchange) beside its
+    bound: X1 on one source block of a 2^20-bid chunk (2^18 records,
+    10,000 auctions, 1 % invalid, capacity 2^18) count only, with M2's
+    three lanes and with int64 cells, and at M3's shape (1,000 hot
+    auctions, a 2^17-record chunk's block of 2^15 at capacity 16,384);
+    one chunk's whole exchange as the operator runs it
+    (``keyby.keyby_exchange`` over four blocks of the card, count only:
+    the buckets and any copies, against the CPU's exchange); and
+    ``topn_candidates`` on block 0 of the host-fed Q5 fire's window
+    counts (8,193 rows x 11 windows) at top-1 and top-3, beside
+    ``torch.topk`` on the -inf-masked grid."""
+    from flink_tpu_torch.exchange import keyby
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    rng = np.random.default_rng(SEED + 15)
+    n_blk, ring = MESH_BLOCKS, 32
+    spd = 128 * 256 // n_blk
+    L = Q5_BATCH // n_blk
+    out = {}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def flat(x):
+        if x is None:
+            return []
+        if isinstance(x, torch.Tensor):
+            return [x.cpu()]
+        if isinstance(x, int):
+            return [torch.tensor(x)]
+        return [y for v in x for y in flat(v)]
+
+    def same(a, b):
+        a, b = flat(a), flat(b)
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    def timed(name, fn, plain, nbytes, nops=0, calls=1000, library=None):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        check(same(got, want), f"{name} differs from its plain version")
+        stages = kernel_stages(torch, fn)
+        row = {"loop_ms": time_ms(torch, fn),
+               "device_ms": sum(v["ms_per_call"] for v in stages.values()),
+               "device_ops": sum(v["per_call"] for v in stages.values()),
+               "host_us": host_us(torch, fn, calls),
+               "bound_ms": bound_ms(nbytes, nops)[0], "stages": stages}
+        if library is not None:
+            row["library"] = {"loop_ms": time_ms(torch, library),
+                              "device_ms": sum(
+                                  v["ms_per_call"] for v in
+                                  kernel_stages(torch, library).values())}
+        out[name] = row
+        return got
+
+    m1 = mesh_cells(np, rng, 10_000, L, n_blk * spd, ring)
+    m3 = mesh_cells(np, rng, 1_000, 1 << 15, n_blk * spd, ring)
+    lanes = t(rng.random((L, 3)).astype(np.float32))
+    for name, cells_np, payload, cap in (
+            ("bucket_m1", m1, None, L), ("bucket_m2_lanes", m1, lanes, L),
+            ("bucket_m3", m3, None, MESH_XCAP),
+            ("bucket_int64", m1.astype(np.int64), None, L)):
+        cells = t(cells_np)
+        args = (cells, payload, n_blk, cap, spd, ring)
+        C = 0 if payload is None else payload.shape[1]
+        cb = cells.element_size()
+        got = timed(name, lambda a=args: xk.bucket_records(*a),
+                    lambda a=args: xk.bucket_records_plain(*a),
+                    len(cells_np) * (cb + 4 * C)
+                    + n_blk * cap * (cb + 1 + 4 * C) + 4 * n_blk,
+                    len(cells_np) * n_blk)
+        out[name]["records"] = len(cells_np)
+        out[name]["capacity"] = cap
+        out[name]["overflow"] = got[3].tolist()
+
+    # one chunk's exchange as the operator runs it (count only, M1)
+    src = [t(m1)] + [t(mesh_cells(np, rng, 10_000, L, n_blk * spd, ring))
+                     for _ in range(n_blk - 1)]
+    cpu_src = [c.cpu() for c in src]
+    want = keyby.keyby_exchange(cpu_src, [None] * n_blk,
+                                devices=[torch.device("cpu")] * n_blk,
+                                capacity=L, spd=spd, ring=ring)
+
+    def exchange():
+        return keyby.keyby_exchange(src, [None] * n_blk,
+                                    devices=[dev] * n_blk, capacity=L,
+                                    spd=spd, ring=ring)
+
+    got = timed("exchange_m1", exchange, lambda: want,
+                n_blk * L * 4 + n_blk * n_blk * L * 5 + 4 * n_blk * n_blk,
+                n_blk * L * n_blk, calls=200)
+    out["exchange_m1"]["exchange_bytes"] = got[2]
+    out["exchange_m1"]["copies_per_call"] = sum(
+        v["per_call"] for k, v in out["exchange_m1"]["stages"].items()
+        if k.startswith("Memcpy"))
+
+    # topn_candidates at M1's fire: block 0 of the K2 grid
+    st = q5_kernel_state(torch, np, dev)
+    wc = wk.window_counts(st["counts"], st["ends"], st["w_valid"],
+                          st["pane_lo"], st["pane_hi"], st["ppw"])
+    W = wc.shape[1]
+    wc0 = torch.cat([wc[:spd], torch.zeros((1, W), dtype=wc.dtype,
+                                           device=dev)]).contiguous()
+    used0 = torch.cat([st["used"][:spd], torch.zeros(
+        1, dtype=torch.bool, device=dev)]).contiguous()
+    rows, w_valid = spd + 1, st["w_valid"]
+    v = torch.where((wc0 > 0) & used0[:, None], wc0.float(),
+                    torch.full((), -float("inf"), device=dev)).T.contiguous()
+    for k in (1, 3):
+        got = timed(f"topn_candidates_top{k}",
+                    lambda k=k: wk.topn_candidates(wc0, used0, w_valid, k),
+                    lambda k=k: wk.topn_candidates_plain(wc0, used0,
+                                                         w_valid, k),
+                    rows * W * 4 + rows + W + W * k * 4, rows * W * 2 * k,
+                    library=lambda k=k: torch.topk(v, k, dim=1))
+        check(torch.equal(got, torch.topk(v, k, dim=1).values),
+              f"topn_candidates top-{k} differs from torch.topk")
+        out[f"topn_candidates_top{k}"]["rows"] = rows
+    return out
+
+
+def phase_mesh_kernels(torch, np):
+    """``--mesh-kernels``: build ``exchange_kernels`` and
+    ``window_kernels`` alone and run ``mesh_split_cases`` (one JSON
+    line)."""
+    from flink_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    names = ("exchange_kernels", "window_kernels")
+    build.build_all(names)
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
+                    .splitlines() if "registers" in ln or "spill" in ln
+                    or "smem" in ln]
+             for name in names}
+    emit({"phase": "mesh_kernels", "root": ROOT,
+          "build_s": time.perf_counter() - t0, "ptxas": ptxas,
+          **mesh_split_cases(torch, np, torch.device("cuda")),
+          "card": card_line()})
 
 
 def element_golden(np, n_batches):
@@ -4416,8 +4620,14 @@ def phase_mesh(torch, np, local_rows):
         conf_extra={"exchange.impl": "ring"})
     prof = profile_run(torch, lambda: run_q5_host_fed(
         torch, np, side, "mesh-q5-profiled", mesh=mesh)[3])
-    check(prof["kernels_per_call"].get("topn_select_given") == 1,
-          f"M1: topn_select_given kernels a call {prof['kernels_per_call']}")
+    per_call = prof["kernels_per_call"]
+    check(all(per_call.get(k) == 1 for k in ("topn_select_given",
+                                             "bucket_records",
+                                             "topn_candidates")),
+          f"M1: kernels a call {per_call} (topn_select_given, bucket_records "
+          f"and the top-1 topn_candidates one each)")
+    dtod = {k: v for k, v in prof["copies"].items() if "DtoD" in k}
+    check(not dtod, f"M1: device-to-device copies on one card: {dtod}")
     a_prof = profile_run(torch, lambda: run_bid_agg(
         torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a-profiled",
         mesh=mesh)[3])
@@ -4428,6 +4638,16 @@ def phase_mesh(torch, np, local_rows):
     rel, share = check_bid_agg(np, "a", a_rows, bid_golden(np, a_cfg), "M2")
     check_q5_rows(np, h_rows, hot, "M3")
     check_q5_rows(np, r_rows, side, "M4")
+    # the bytes that crossed between distinct blocks: a 2^20-bid batch is
+    # one chunk of MESH_BLOCKS blocks of L records (int32 cells and a
+    # valid byte a position); all-to-all moves each block's n - 1 foreign
+    # rows of L, ring n - 1 hops of each block's whole n rows
+    L, n = Q5_BATCH // MESH_BLOCKS, MESH_BLOCKS
+    check(res.metrics["exchange_bytes"] == n * (n - 1) * L * 5 * Q5_BATCHES
+          and r_res.metrics["exchange_bytes"]
+          == n * n * (n - 1) * L * 5 * MESH_SIDE_BATCHES,
+          f"exchange bytes M1 {res.metrics['exchange_bytes']}, M4 "
+          f"{r_res.metrics['exchange_bytes']}")
     out = {"phase": "mesh", "blocks": MESH_BLOCKS,
            "devices": [str(d) for d in mesh.devices],
            "conf": "confs/bench_q5_host_fed.conf",
@@ -4569,6 +4789,17 @@ def main() -> int:
     if "--count-lane" in sys.argv[1:]:
         try:
             phase_count_lane(torch, np)
+            print(card_line(), flush=True)
+        except Exception:
+            traceback.print_exc()
+            return 1
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if "--mesh-kernels" in sys.argv[1:]:
+        try:
+            phase_mesh_kernels(torch, np)
             print(card_line(), flush=True)
         except Exception:
             traceback.print_exc()

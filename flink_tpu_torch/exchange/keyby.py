@@ -12,11 +12,17 @@ over a list of blocks:
    source block (records in arrival order within a bucket, each cell
    already rebased to its owner's block, overflow counted);
 2. ``all_to_all_records``: block copies, ``recv[d][j] = buckets[j][d]``
-   (``Tensor.copy_``: a copy on one card, a peer copy between cards), so
-   row j of what block d receives came from block j; it counts the bytes
-   it copied between distinct blocks (the operator's ``exchange_bytes``);
+   (``Tensor.copy_``: a peer copy between cards), so row j of what block
+   d receives came from block j; it counts the bytes it copied between
+   distinct blocks (the operator's ``exchange_bytes``);
 3. the flatten: block d's received cells, payload and valid mask as one
    ``(n_src * capacity,)`` run each.
+
+Where every block lies on one device, ``keyby_exchange`` fuses 1 and 2:
+each source block's ``bucket_records_into`` launch writes its buckets
+straight into row j of the owners' receive blocks (one allocation for
+all of them), so the exchange is one launch a source block and no copy,
+with the same received layout and the same byte count.
 
 A record past its bucket's capacity is dropped and counted, never
 silently; the operator splits a batch on the host so that no bucket
@@ -100,11 +106,15 @@ def keyby_exchange(cells: Sequence[torch.Tensor],
                    devices: Sequence[torch.device], capacity: int, spd: int,
                    ring: int
                    ) -> Tuple[List[Block], List[torch.Tensor], int]:
-    """bucket → all-to-all → flatten. ``cells[j]`` / ``payload[j]`` are
-    source block j's records on ``devices[j]``. Returns (per block, its
+    """bucket → all-to-all → flatten (on blocks of one device, bucket
+    straight into the owners' receive rows). ``cells[j]`` / ``payload[j]``
+    are source block j's records on ``devices[j]``. Returns (per block, its
     received ``(cells, payload, valid)``; per source block, its overflow
     per destination; the bytes copied between distinct blocks)."""
     n = len(devices)
+    if len({torch.device(d) for d in devices}) == 1:
+        return _exchange_one_device(cells, payload, torch.device(devices[0]),
+                                    capacity, spd, ring)
     buckets, overflow = [], []
     for j in range(n):
         with on_device(devices[j]):
@@ -115,6 +125,31 @@ def keyby_exchange(cells: Sequence[torch.Tensor],
         overflow.append(ov)
     recv, moved = all_to_all_records(buckets, devices)
     return recv, overflow, moved
+
+
+def _exchange_one_device(cells, payload, device, capacity, spd, ring):
+    """``keyby_exchange`` over blocks of one device: each source block's
+    buckets written by its ``bucket_records_into`` launch straight into
+    row j of every owner's receive block. The bytes counted are those
+    that crossed between distinct blocks, as the copies would have
+    moved: row j of block d for every j != d."""
+    n = len(cells)
+    pay = payload[0]
+    with on_device(device):
+        r_cells = torch.empty((n, n, capacity), dtype=cells[0].dtype,
+                              device=device)
+        r_payload = None if pay is None else torch.empty(
+            (n, n, capacity) + pay.shape[1:], dtype=pay.dtype, device=device)
+        r_valid = torch.empty((n, n, capacity), dtype=torch.bool,
+                              device=device)
+        recv = (r_cells, r_payload, r_valid)
+        overflow = [ek.bucket_records_into(cells[j], payload[j], n, capacity,
+                                           spd, ring, recv, j)
+                    for j in range(n)]
+    row = sum(t[0, 0].numel() * t.element_size() for t in recv
+              if t is not None)
+    return ([_flatten(tuple(None if t is None else t[d] for t in recv))
+             for d in range(n)], overflow, n * (n - 1) * row)
 
 
 def intra_slice_exchange(*args, **kwargs):

@@ -87,15 +87,15 @@ struct LanesParams {
 
 // n / d for the small n and d of a staged tile (n * d < 2^32): one
 // multiply-high by a magic number worked out once a block
-struct FastDiv {
+struct SmallDiv {
   uint32_t d, m;
 };
 
-__device__ __forceinline__ FastDiv fast_div(uint32_t d) {
-  return FastDiv{d, d > 1 ? 0xFFFFFFFFu / d + 1 : 0u};
+__device__ __forceinline__ SmallDiv small_div(uint32_t d) {
+  return SmallDiv{d, d > 1 ? 0xFFFFFFFFu / d + 1 : 0u};
 }
 
-__device__ __forceinline__ uint32_t div_by(uint32_t n, FastDiv f) {
+__device__ __forceinline__ uint32_t div_by(uint32_t n, SmallDiv f) {
   return f.d > 1 ? __umulhi(n, f.m) : n;
 }
 
@@ -203,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) window_lanes_kernel(const LanesParam
       if (nf[g] == 0) continue;
       const int64_t S = p.width[g];
       const uint32_t row_len = (uint32_t)(cn * nf[g]), n_el = (uint32_t)nr * row_len;
-      const FastDiv by_row = fast_div(row_len), by_lane = fast_div((uint32_t)nf[g]);
+      const SmallDiv by_row = small_div(row_len), by_lane = small_div((uint32_t)nf[g]);
       const float* src = p.lane[g] + (r0 * ring + cc0) * S + j0[g];
       for (uint32_t e = threadIdx.x; e < n_el; e += kThreads) {
         const uint32_t r = div_by(e, by_row), i = e - r * row_len;
@@ -442,7 +442,7 @@ __global__ void __launch_bounds__(kThreads)
     // the block's pairs' outputs are out_f[i0 * W, (i0 + n) * W)
     const int64_t n = n_i - i0 < kThreads ? n_i - i0 : kThreads;
     const uint32_t total = (uint32_t)(n * nwin);
-    const FastDiv by_w = fast_div((uint32_t)nwin);
+    const SmallDiv by_w = small_div((uint32_t)nwin);
     float* out = out_f + i0 * nwin;
     for (uint32_t e = threadIdx.x; e < total; e += kThreads) {
       const uint32_t q = div_by(e, by_w);

@@ -94,9 +94,13 @@ struct SelParams {
   const uint8_t* w_valid;
   FireSource src;       // the gate and the anchor
   const float* given;   // a given threshold a window (topn_select_given), else null
-  int32_t* ring;
+  int32_t* ring;        // the emit ring (topn_candidates: null)
+  // topn_candidates: the (W, k) output, and at k > 1 the (W, k) list of
+  // each window's keys above its k-th (null otherwise)
+  float* cand_out;
+  uint32_t* cand_list;
   // the workspace
-  long long* old_total;  // null in the given mode (each tile reads the head)
+  long long* old_total;  // null in the given mode and for topn_candidates
   unsigned int* done;
   uint32_t* epoch;
   unsigned long long* thresh;  // (epoch << 32) | key, a window
@@ -122,9 +126,13 @@ __device__ __forceinline__ float from_total_key(int32_t k) {
 // the unsigned key of -inf, every non-candidate's
 constexpr uint32_t kNonCand = 0x007FFFFFu;  // total_key(-inf) ^ 0x80000000
 
-// the workspace's unsigned threshold key as the f32 it ranks
+// an unsigned key (the workspace's threshold's low word) as the f32 it ranks
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return from_total_key((int32_t)(key ^ 0x80000000u));
+}
+
 __device__ __forceinline__ float thresh_value(unsigned long long t) {
-  return from_total_key((int32_t)((uint32_t)t ^ 0x80000000u));
+  return key_value((uint32_t)t);
 }
 
 // a threshold block's cells: thread t takes cells a + t + kThreads * j,
@@ -199,28 +207,27 @@ __host__ __device__ __forceinline__ int32_t max_span(int32_t W) {
   return W <= kThreads ? kThreads / W * W : kThreads;
 }
 
-template <bool kCount>
-__device__ __forceinline__ void sel_max(const SelParams& p) {
-  __shared__ uint32_t s_max[kSelWinTable];
-  __shared__ uint32_t s_epoch;
-  const bool skip = p.src.skip();  // in flight with the grid's loads
+// a block's cells in max_span's layout (kN a thread; block b starts at
+// cell b * span * kN): each one's window (-1 outside the grid) and its
+// unsigned key (a non-candidate's kNonCand, 0 outside the grid), every
+// load in flight before the first test
+template <bool kCount, int kN>
+__device__ __forceinline__ void span_keys(const SelParams& p, uint32_t (&key)[kN],
+                                          int32_t (&win)[kN]) {
   const int32_t W = p.W, span = max_span(W);
-  const bool table = W <= kSelWinTable;
   const int64_t K = p.rows * (int64_t)W;
-  const int64_t i0 = (int64_t)blockIdx.x * span * kThrItems + threadIdx.x;
+  const int64_t i0 = (int64_t)blockIdx.x * span * kN + threadIdx.x;
   const int64_t r0 = i0 / W;
   const int32_t w0 = (int32_t)(i0 - r0 * W);
   const int32_t dr = span / W;  // rows a step (W <= kThreads)
-  // every load in flight before the first test
-  int32_t wc[kThrItems];
-  float v[kThrItems];
-  uint8_t used[kThrItems], valid[kThrItems];
-  int32_t win[kThrItems];
+  int32_t wc[kN];
+  float v[kN];
+  uint8_t used[kN], valid[kN];
   {
     int64_t i = i0, r = r0;
     int32_t w = w0;
 #pragma unroll
-    for (int j = 0; j < kThrItems; ++j) {
+    for (int j = 0; j < kN; ++j) {
       const bool in = (int32_t)threadIdx.x < span && i < K;
       win[j] = in ? w : -1;
       wc[j] = in ? p.wcounts[i] : 0;
@@ -236,27 +243,38 @@ __device__ __forceinline__ void sel_max(const SelParams& p) {
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    key[j] = win[j] < 0 ? 0u
+             : wc[j] > 0 && valid[j] && used[j]
+                 ? (uint32_t)total_key(kCount ? (float)wc[j] : v[j]) ^ 0x80000000u
+                 : kNonCand;
+}
+
+template <bool kCount, int kN = kThrItems>
+__device__ __forceinline__ void sel_max(const SelParams& p) {
+  __shared__ uint32_t s_max[kSelWinTable];
+  __shared__ uint32_t s_epoch;
+  const bool skip = p.src.skip();  // in flight with the grid's loads
+  const int32_t W = p.W;
+  const bool table = W <= kSelWinTable;
+  uint32_t key[kN];
+  int32_t win[kN];
+  span_keys<kCount, kN>(p, key, win);
   if (skip) return;
   if (table)
     for (int32_t w = threadIdx.x; w < W; w += kThreads) s_max[w] = 0;
   if (threadIdx.x == 0) {
     s_epoch = __ldcg(p.epoch);
-    if (blockIdx.x == 0) *p.old_total = p.ring[0];
+    if (blockIdx.x == 0 && p.old_total != nullptr) *p.old_total = p.ring[0];
   }
   __syncthreads();
   const unsigned long long tag = (unsigned long long)s_epoch << 32;
-  uint32_t key[kThrItems];
-#pragma unroll
-  for (int j = 0; j < kThrItems; ++j)
-    key[j] = win[j] < 0 ? 0u
-             : wc[j] > 0 && valid[j] && used[j]
-                 ? (uint32_t)total_key(kCount ? (float)wc[j] : v[j]) ^ 0x80000000u
-                 : kNonCand;
   if (W <= kThreads) {
     // one window a thread: its maximum, then the block's
     uint32_t m = 0;
 #pragma unroll
-    for (int j = 0; j < kThrItems; ++j) m = max(m, key[j]);
+    for (int j = 0; j < kN; ++j) m = max(m, key[j]);
     const int lane = threadIdx.x & 31;
     if (W <= 32) {
       for (int32_t d = W; d < 32; d <<= 1) {
@@ -271,7 +289,7 @@ __device__ __forceinline__ void sel_max(const SelParams& p) {
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kThrItems; ++j)
+    for (int j = 0; j < kN; ++j)
       if (win[j] >= 0) atomicMax(&p.thresh[win[j]], tag | key[j]);
   }
   __syncthreads();
@@ -371,7 +389,9 @@ __device__ __forceinline__ void radix_histogram(uint32_t* s_hist, const uint32_t
 
 // the last radix block's picks of pass ``pass`` for every window, a warp
 // a window: into the workspace's prefix, need and non-candidate count
-// (the thresholds after pass 3); each window's bins cleared
+// (the thresholds after pass 3; topn_candidates then takes the
+// non-candidate count, no longer needed, as its collect count from 0);
+// each window's bins cleared
 __device__ __forceinline__ void radix_pick_all(const SelParams& p, int pass, uint32_t epoch) {
   const unsigned long long tag = (unsigned long long)epoch << 32;
   for (int32_t w = threadIdx.x >> 5; w < p.W; w += kWarps) {
@@ -383,7 +403,7 @@ __device__ __forceinline__ void radix_pick_all(const SelParams& p, int pass, uin
     if ((threadIdx.x & 31) == 0) {
       p.prefix[w] = r.prefix;
       p.need[w] = r.need;
-      p.noncand[w] = r.noncand;
+      p.noncand[w] = pass == 3 && p.cand_out != nullptr ? 0u : r.noncand;
       if (pass == 3) p.thresh[w] = tag | r.prefix;
     }
   }
@@ -413,7 +433,8 @@ __device__ __forceinline__ void sel_radix(const SelParams& p, int pass) {
   if ((int32_t)threadIdx.x < gw) s_pre[threadIdx.x] = pre;
   if (threadIdx.x == 0) {
     s_epoch = epoch;
-    if (pass == 0 && blockIdx.x == 0 && blockIdx.y == 0) *p.old_total = p.ring[0];
+    if (pass == 0 && blockIdx.x == 0 && blockIdx.y == 0 && p.old_total != nullptr)
+      *p.old_total = p.ring[0];
   }
   radix_histogram(s_hist, s_pre, key, win, cand, pass, gw, p.hist + (int64_t)g0 * 256);
   if (last_block(p.done, gridDim.x * gridDim.y, &s_flag)) radix_pick_all(p, pass, s_epoch);
@@ -536,6 +557,38 @@ __device__ __forceinline__ void select_tile(const SelParams& p) {
   }
 }
 
+// A barrier of the whole (cooperative) grid: every block arrives, the
+// last arrival runs on_last() with what every block wrote before it
+// visible, then releases the others (bar: the count and the generation,
+// left as it found them but the generation).
+template <typename F>
+__device__ __forceinline__ void grid_barrier(unsigned int* bar, int* s_flag, F on_last) {
+  unsigned int* count = bar;
+  unsigned int* gen = bar + 1;
+  __syncthreads();
+  unsigned int g = 0;
+  if (threadIdx.x == 0) {
+    g = *(volatile unsigned int*)gen;
+    __threadfence();
+    *s_flag = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (*s_flag) {
+    __threadfence();
+    on_last();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      *(volatile unsigned int*)count = 0;
+      __threadfence();
+      atomicAdd(gen, 1u);
+    }
+  } else if (threadIdx.x == 0) {
+    while (*(volatile unsigned int*)gen == g) __nanosleep(32);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // k > 1, when the threshold blocks fit on the card at once (a
 // cooperative launch) and W <= kRadixWindows: the four passes and the
 // selection in one launch. Each block loads its cells once and keeps their
@@ -557,8 +610,6 @@ __device__ __forceinline__ void sel_radix_all(const SelParams& p) {
   __shared__ int s_flag;
   const bool skip = p.src.skip();
   const int32_t W = p.W;
-  unsigned int* count = p.bar;
-  unsigned int* gen = p.bar + 1;
   uint32_t key[kThrItems];
   int32_t win[kThrItems];
   bool cand[kThrItems];
@@ -571,29 +622,7 @@ __device__ __forceinline__ void sel_radix_all(const SelParams& p) {
   }
   for (int pass = 0; pass < 4; ++pass) {
     radix_histogram(s_hist, s_pre, key, win, cand, pass, W, p.hist);
-    // the grid barrier; its last arrival picks, then releases the others
-    __syncthreads();
-    unsigned int g = 0;
-    if (threadIdx.x == 0) {
-      g = *(volatile unsigned int*)gen;
-      __threadfence();
-      s_flag = atomicAdd(count, 1u) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (s_flag) {
-      __threadfence();
-      radix_pick_all(p, pass, s_epoch);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        *(volatile unsigned int*)count = 0;
-        __threadfence();
-        atomicAdd(gen, 1u);
-      }
-    } else if (threadIdx.x == 0) {
-      while (*(volatile unsigned int*)gen == g) __nanosleep(32);
-      __threadfence();
-    }
-    __syncthreads();
+    grid_barrier(p.bar, &s_flag, [&] { radix_pick_all(p, pass, s_epoch); });
     if (pass < 3)
       for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = __ldcg(p.prefix + w);
   }
@@ -626,18 +655,38 @@ inline int64_t select_work_words(int64_t Wc, int64_t Tc) {
   return select_desc_word(Wc) + kLbLine * Tc;
 }
 
-inline int radix_all_capacity(const SelKernels& k) {
+// the blocks of a cooperative kernel the card holds at once, cached a
+// device in capacity[64]
+inline int coop_capacity(const void* kernel, int* capacity) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (!k.capacity[dev]) {
+  if (!capacity[dev]) {
     int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.radix_all, kThreads, 0) !=
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
             cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return 0;
-    k.capacity[dev] = per_sm * sms;
+    capacity[dev] = per_sm * sms;
   }
-  return k.capacity[dev];
+  return capacity[dev];
+}
+
+inline int radix_all_capacity(const SelKernels& k) {
+  return coop_capacity((const void*)k.radix_all, k.capacity);
+}
+
+// the workspace (select_work_words(Wc, Tc) int64 words) bound into p
+inline void bind_select_work(SelParams& p, int64_t* work, int64_t Wc) {
+  p.old_total = (long long*)work;
+  p.done = (unsigned int*)(work + 1);
+  p.epoch = (uint32_t*)(work + 1) + 1;
+  p.bar = (unsigned int*)(work + 2);
+  p.thresh = (unsigned long long*)(work + 3);
+  p.prefix = (uint32_t*)(work + 3 + Wc);
+  p.need = p.prefix + Wc;
+  p.noncand = p.need + Wc;
+  p.hist = p.noncand + Wc;
+  p.desc = (unsigned long long*)(work + select_desc_word(Wc));
 }
 
 // One selection: binds the workspace (select_work_words(Wc, Tc) int64
@@ -654,16 +703,7 @@ inline int launch_select(SelParams p, int64_t* work, int64_t Wc, int64_t Tc,
   if (p.rows >= (1ll << 32) || tiles >= (1ll << 31) || blocks >= (1ll << 31) ||
       groups > 65535 || p.row_cap < 1 || Wc < p.W || Tc < tiles || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  p.old_total = (long long*)work;
-  p.done = (unsigned int*)(work + 1);
-  p.epoch = (uint32_t*)(work + 1) + 1;
-  p.bar = (unsigned int*)(work + 2);
-  p.thresh = (unsigned long long*)(work + 3);
-  p.prefix = (uint32_t*)(work + 3 + Wc);
-  p.need = p.prefix + Wc;
-  p.noncand = p.need + Wc;
-  p.hist = p.noncand + Wc;
-  p.desc = (unsigned long long*)(work + select_desc_word(Wc));
+  bind_select_work(p, work, Wc);
   p.tiles = tiles;
   if (p.given != nullptr) {
     p.old_total = nullptr;  // each tile reads the head
@@ -688,6 +728,311 @@ inline int launch_select(SelParams p, int64_t* work, int64_t Wc, int64_t Tc,
     k.select_table<<<(unsigned)tiles, kThreads, 0, s>>>(p);
   else
     k.select_wide<<<(unsigned)tiles, kThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---- topn_candidates: a block's top k a window -----------------------------
+// The key-sharded top-n's candidates (flink_tpu/ops/window.py:1585
+// topn_shard's lax.top_k(v.T, k) over the -inf-masked counts): out[w] =
+// the window's k largest keys, descending, each as often as it occurs,
+// -inf past its candidates. The grid is read in tiles over the whole card
+// (kCandItems cells a thread in max_span's layout, ~90 blocks at M1's
+// 8,193 x 11), with its own tails:
+//   k = 1   sel_max, then the grid's last block (last_block) writes each
+//           window's maximum key as the (W, 1) output: one launch.
+//   k <= kCandSmallK (W <= kThreads)  cand_merge: each thread's top k of
+//           its cells (all of one window) in registers, a warp a window
+//           merges the block's lists (butterfly shuffles) into the
+//           caller's (blocks, W, k) scratch, and the grid's last block
+//           merges the blocks' lists a window into the output: one launch,
+//           no histogram (the radix passes below took 0.0278 ms at M1's
+//           top-3 on the H100, PERF.md §6: their shared-memory bins
+//           for the top digits of small counts are a few hot words).
+//   k > 1 otherwise  the radix select finds each window's k-th key T (need: how
+//           many of the k equal it); cand_collect appends each window's
+//           candidates above T (fewer than k) to its list in the caller's
+//           (W, k) scratch, counting them in the non-candidate words
+//           (zeroed by the last pick); cand_sort_window ranks a window's
+//           list (each key: the keys above it, then the equal ones before
+//           it) and writes it, then T into the rest. Where the threshold
+//           blocks fit on the card and W <= kRadixWindows, one cooperative
+//           launch (cand_radix_all: the passes, the collect and a grid
+//           barrier, then a block's windows sorted); else four radix
+//           launches, the collect and the sort (a block a window).
+// The top-1 and radix forms tag the workspace's thresholds with the
+// call's epoch; their last block (block 0 after the last barrier, or of
+// the sort launch) advances it, so the next call's tags win. The merge
+// tags nothing.
+
+constexpr uint32_t kSortChunk = kRadixWindows * 256;  // keys staged a round (s_hist's words)
+constexpr int kCandItems = 4;    // cells a thread, top-1 and the merge
+constexpr int kCandSmallK = 16;  // the merge's largest k
+constexpr int kCandBatch = 4;    // blocks' lists a lane loads at once, the last merge
+
+// x into v, the top k (descending; k <= KS) of what v held and x
+template <int KS>
+__device__ __forceinline__ void topk_insert(uint32_t (&v)[KS], int k, uint32_t x) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+    if (i < k && x > v[i]) {
+      const uint32_t t = v[i];
+      v[i] = x;
+      x = t;
+    }
+}
+
+// every lane's list the top k of the warp's 32 lists (a butterfly: each
+// step merges two disjoint groups' lists)
+template <int KS>
+__device__ __forceinline__ void topk_warp_merge(uint32_t (&v)[KS], int k) {
+  for (int o = 16; o > 0; o >>= 1) {
+    uint32_t other[KS];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) other[i] = __shfl_xor_sync(0xffffffffu, v[i], o);
+#pragma unroll
+    for (int i = 0; i < KS; ++i)
+      if (i < k) topk_insert(v, k, other[i]);
+  }
+}
+
+// 1 < k <= KS <= kCandSmallK, W <= kThreads: a block's top k a window
+// into part (blocks, W, k), then the last block's merge into the output.
+// A list's empty places hold 0, below every cell's key (kNonCand and up).
+template <int KS>
+__device__ __forceinline__ void cand_merge(const SelParams& p) {
+  __shared__ uint32_t s_list[KS * kThreads];
+  __shared__ int s_flag;
+  const int32_t W = p.W, k = p.k, span = max_span(W);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* part = p.cand_list;
+  uint32_t key[kCandItems];
+  int32_t win[kCandItems];
+  span_keys<true, kCandItems>(p, key, win);
+  uint32_t v[KS];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) v[i] = 0;
+#pragma unroll
+  for (int j = 0; j < kCandItems; ++j) topk_insert(v, k, key[j]);
+#pragma unroll
+  for (int i = 0; i < KS; ++i) s_list[i * kThreads + threadIdx.x] = v[i];
+  __syncthreads();
+  // window w's lists: threads w, w + W, ... below the span
+  for (int32_t w = warp; w < W; w += kWarps) {
+    uint32_t u[KS];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) u[i] = 0;
+    for (int32_t t = w + W * lane; t < span; t += W * 32)
+#pragma unroll
+      for (int i = 0; i < KS; ++i)
+        if (i < k) topk_insert(u, k, s_list[i * kThreads + t]);
+    topk_warp_merge(u, k);
+    if (lane < k) {
+      uint32_t mine = u[0];
+#pragma unroll
+      for (int i = 1; i < KS; ++i)
+        if (i == lane) mine = u[i];
+      part[((int64_t)blockIdx.x * W + w) * k + lane] = mine;
+    }
+  }
+  __threadfence();  // each lane's list before the last block reads it
+  if (!last_block(p.done, gridDim.x, &s_flag)) return;
+  for (int32_t w = warp; w < W; w += kWarps) {
+    uint32_t u[KS];
+#pragma unroll
+    for (int i = 0; i < KS; ++i) u[i] = 0;
+    // kCandBatch blocks' lists a lane in flight at once
+    for (int64_t b0 = lane; b0 < gridDim.x; b0 += 32 * kCandBatch) {
+      uint32_t got[kCandBatch][KS];
+#pragma unroll
+      for (int m = 0; m < kCandBatch; ++m) {
+        const int64_t b = b0 + 32 * m;
+#pragma unroll
+        for (int i = 0; i < KS; ++i)
+          got[m][i] = b < gridDim.x && i < k ? __ldcg(part + (b * W + w) * k + i) : 0u;
+      }
+#pragma unroll
+      for (int m = 0; m < kCandBatch; ++m)
+#pragma unroll
+        for (int i = 0; i < KS; ++i)
+          if (i < k) topk_insert(u, k, got[m][i]);
+    }
+    topk_warp_merge(u, k);
+    if (lane < k) {
+      uint32_t mine = u[0];
+#pragma unroll
+      for (int i = 1; i < KS; ++i)
+        if (i == lane) mine = u[i];
+      p.cand_out[(int64_t)w * k + lane] = key_value(mine);
+    }
+  }
+}
+
+// k = 1: sel_max's tail, in the grid's last block
+__device__ __forceinline__ void cand_max_tail(const SelParams& p) {
+  __shared__ int s_flag;
+  if (!last_block(p.done, gridDim.x * gridDim.y, &s_flag)) return;
+  for (int32_t w = threadIdx.x; w < p.W; w += kThreads)
+    p.cand_out[w] = thresh_value(__ldcg(p.thresh + w));
+  __syncthreads();
+  if (threadIdx.x == 0) lb_advance(p.epoch, __ldcg(p.epoch));
+}
+
+// a block's cells above their window's k-th key (t: each window's, in
+// shared memory or the workspace) appended to the windows' lists
+__device__ __forceinline__ void cand_collect(const SelParams& p, const uint32_t (&key)[kThrItems],
+                                             const int32_t (&win)[kThrItems],
+                                             const bool (&cand)[kThrItems], const uint32_t* t) {
+#pragma unroll
+  for (int j = 0; j < kThrItems; ++j)
+    if (cand[j] && key[j] > t[win[j]]) {
+      const uint32_t slot = atomicAdd(p.noncand + win[j], 1u);
+      p.cand_list[(int64_t)win[j] * p.k + slot] = key[j];
+    }
+  __threadfence();  // before the barrier's last arrival releases the sort
+}
+
+// window w's output from its list: m keys above T ranked descending (a
+// key's place: the keys above it, then the equal ones before it; staged
+// kSortChunk at a time), then T into the rest
+__device__ void cand_sort_window(const SelParams& p, int32_t w, uint32_t* s_keys) {
+  const int32_t k = p.k;
+  const uint32_t m = __ldcg(p.noncand + w);
+  const uint32_t t = __ldcg(p.prefix + w);
+  const uint32_t* list = p.cand_list + (int64_t)w * k;
+  float* out = p.cand_out + (int64_t)w * k;
+  for (uint32_t i0 = 0; i0 < m; i0 += kThreads) {
+    const uint32_t i = i0 + threadIdx.x;
+    const uint32_t key = i < m ? __ldcg(list + i) : 0u;
+    uint32_t pos = 0;
+    for (uint32_t c0 = 0; c0 < m; c0 += kSortChunk) {
+      const uint32_t n = m - c0 < kSortChunk ? m - c0 : kSortChunk;
+      __syncthreads();
+      for (uint32_t e = threadIdx.x; e < n; e += kThreads) s_keys[e] = __ldcg(list + c0 + e);
+      __syncthreads();
+      if (i < m)
+        for (uint32_t e = 0; e < n; ++e) {
+          const uint32_t o = s_keys[e];
+          pos += o > key || (o == key && c0 + e < i);
+        }
+    }
+    if (i < m) out[pos] = key_value(key);
+  }
+  for (int32_t i = (int32_t)m + threadIdx.x; i < k; i += kThreads) out[i] = key_value(t);
+}
+
+// k > 1, the threshold blocks resident at once and W <= kRadixWindows:
+// sel_radix_all's passes, the collect, a grid barrier, then each block
+// sorts windows blockIdx.x, + gridDim.x, ...
+__device__ __forceinline__ void cand_radix_all(const SelParams& p) {
+  __shared__ uint32_t s_hist[kRadixWindows * 256];
+  __shared__ uint32_t s_pre[kRadixWindows];
+  __shared__ uint32_t s_epoch;
+  __shared__ int s_flag;
+  const int32_t W = p.W;
+  uint32_t key[kThrItems];
+  int32_t win[kThrItems];
+  bool cand[kThrItems];
+  walk_keys<true>(p, 0, W, key, win, cand);
+  for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = 0;
+  if (threadIdx.x == 0) s_epoch = __ldcg(p.epoch);
+  for (int pass = 0; pass < 4; ++pass) {
+    radix_histogram(s_hist, s_pre, key, win, cand, pass, W, p.hist);
+    grid_barrier(p.bar, &s_flag, [&] { radix_pick_all(p, pass, s_epoch); });
+    for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = __ldcg(p.prefix + w);
+  }
+  __syncthreads();
+  cand_collect(p, key, win, cand, s_pre);
+  grid_barrier(p.bar, &s_flag, [] {});
+  for (int32_t w = blockIdx.x; w < W; w += gridDim.x) cand_sort_window(p, w, s_hist);
+  if (blockIdx.x == 0 && threadIdx.x == 0) lb_advance(p.epoch, s_epoch);
+}
+
+// k > 1 otherwise, after the four sel_radix launches: the collect over
+// the threshold blocks' cells (each window's T from the workspace, written
+// by the last launch)
+__device__ __forceinline__ void cand_collect_all(const SelParams& p) {
+  uint32_t key[kThrItems];
+  int32_t win[kThrItems];
+  bool cand[kThrItems];
+  walk_keys<true>(p, 0, p.W, key, win, cand);
+  cand_collect(p, key, win, cand, p.prefix);
+}
+
+// then a block a window; block 0 advances the epoch (the launches before
+// it on the stream are done)
+__device__ __forceinline__ void cand_sort_all(const SelParams& p) {
+  __shared__ uint32_t s_keys[kSortChunk];
+  for (int32_t w = blockIdx.x; w < p.W; w += gridDim.x) cand_sort_window(p, w, s_keys);
+  if (blockIdx.x == 0 && threadIdx.x == 0) lb_advance(p.epoch, __ldcg(p.epoch));
+}
+
+struct CandKernels {
+  void (*max)(const SelParams);
+  void (*merge4)(const SelParams);   // cand_merge<4>: k <= 4
+  void (*merge16)(const SelParams);  // cand_merge<kCandSmallK>
+  void (*radix)(const SelParams, int);
+  void (*radix_all)(const SelParams);
+  void (*collect)(const SelParams);
+  void (*sort)(const SelParams);
+  int* capacity;  // 64 devices
+};
+
+// the blocks of the top-1 and merge launches (max_span's layout,
+// kCandItems cells a thread)
+inline int64_t cand_blocks(int64_t rows, int32_t W) {
+  const int64_t span_cells = (int64_t)max_span(W) * kCandItems;
+  return (rows * W + span_cells - 1) / span_cells;
+}
+
+// the uint32 words of the caller's scratch a call needs: none at top-1,
+// the blocks' lists for the merge, else a list a window
+inline int64_t cand_list_words(int64_t rows, int32_t W, int32_t k) {
+  if (k <= 1) return 0;
+  if (k <= kCandSmallK && W <= kThreads) return cand_blocks(rows, W) * W * k;
+  return (int64_t)W * k;
+}
+
+// One topn_candidates call: p's grid fields, k, cand_out (and cand_list,
+// list_words uint32 words, at k > 1) set by the caller; work the entry
+// point's clean workspace (select_work_words(Wc, Tc)). Returns the first
+// launch error.
+inline int launch_candidates(SelParams p, int64_t list_words, int64_t* work, int64_t Wc,
+                             int64_t Tc, const CandKernels& k, cudaStream_t s) {
+  const int64_t K = p.rows * (int64_t)p.W;
+  if (K <= 0 || p.W <= 0) return (int)cudaGetLastError();
+  const int64_t blocks = (K + kThrCells - 1) / kThrCells;
+  const int64_t groups = (p.W + kRadixWindows - 1) / kRadixWindows;
+  const int64_t tiles = (K + kSelCells - 1) / kSelCells;
+  if (p.rows >= (1ll << 32) || blocks >= (1ll << 31) || groups > 65535 || p.k < 1 ||
+      p.k > p.rows || Wc < p.W || Tc < tiles || work == nullptr || p.cand_out == nullptr ||
+      (p.k > 1 && p.cand_list == nullptr) || list_words < cand_list_words(p.rows, p.W, p.k))
+    return (int)cudaErrorInvalidValue;
+  bind_select_work(p, work, Wc);
+  p.old_total = nullptr;
+  if (p.k == 1 || (p.k <= kCandSmallK && p.W <= kThreads)) {
+    const unsigned grid = (unsigned)cand_blocks(p.rows, p.W);
+    if (p.k == 1)
+      k.max<<<grid, kThreads, 0, s>>>(p);
+    else if (p.k <= 4)
+      k.merge4<<<grid, kThreads, 0, s>>>(p);
+    else
+      k.merge16<<<grid, kThreads, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
+  if (p.W <= kRadixWindows && blocks <= coop_capacity((const void*)k.radix_all, k.capacity)) {
+    void* args[] = {(void*)&p};
+    return (int)cudaLaunchCooperativeKernel((const void*)k.radix_all, dim3((unsigned)blocks),
+                                            dim3(kThreads), args, 0, s);
+  }
+  for (int pass = 0; pass < 4; ++pass) {
+    k.radix<<<dim3((unsigned)blocks, (unsigned)groups), kThreads, 0, s>>>(p, pass);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  k.collect<<<(unsigned)blocks, kThreads, 0, s>>>(p);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  k.sort<<<(unsigned)(p.W < 65535 ? p.W : 65535), kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Device helpers shared by the window-operator kernel sources
 // (window_kernels.cu, lane_kernels.cu, devgen_kernels.cu,
 // topn_lanes_kernels.cu, ...): the launch shape, block-wide sum and scan,
-// a fire's scalars and where a fire kernel reads them (FireSource), the
+// division by a divisor fixed a launch (FastDiv), a fire's scalars and
+// where a fire kernel reads them (FireSource), the
 // window-count rule (which panes of a window are live) and IEEE maximum /
 // minimum. Each .cu file includes this once, inside no
 // namespace of its own; everything here has internal linkage.
@@ -27,6 +28,28 @@ inline int grid_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   if (b < 1) b = 1;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+// n / d for 0 <= n < 2^31 and a divisor fixed a launch, by a multiply
+// and a shift (the round-up reciprocal, as CUTLASS's FastDivmod)
+struct FastDiv {
+  uint32_t d, m, s;
+};
+
+inline FastDiv fast_div(uint32_t d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    uint32_t l = 0;
+    while ((1ull << l) < d) ++l;  // ceil(log2 d)
+    const uint32_t p = 31 + l;
+    f.m = (uint32_t)(((1ull << p) + d - 1) / d);
+    f.s = p - 32;
+  }
+  return f;
+}
+
+__device__ __forceinline__ uint32_t div_of(uint32_t n, const FastDiv& f) {
+  return f.d > 1 ? __umulhi(n, f.m) >> f.s : n;
 }
 
 __host__ __device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t m) {

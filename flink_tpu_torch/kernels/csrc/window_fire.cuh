@@ -428,56 +428,19 @@ inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const ui
 // device block ranks its own rows, the blocks' top-k values per window are
 // gathered, the global threshold is the k-th largest of them, and each
 // block selects its rows against that global threshold and appends them,
-// with their global row ids, to its own emit ring. Three kernels:
-//   topn_candidates_kernel  (a) one block per window: the window's top k
-//      candidate values of this device block, descending, each repeated
-//      as often as it occurs, -inf past the candidates (lax.top_k's
-//      (W, k) output over the -inf-masked values);
+// with their global row ids, to its own emit ring. Three steps:
+//   (a) topn_candidates: the window's top k candidate values of this
+//      device block, descending, each repeated as often as it occurs,
+//      -inf past the candidates (lax.top_k's (W, k) output over the
+//      -inf-masked values) — topn_select.cuh's whole-card threshold with
+//      its own tails, launched from window_kernels.cu (cand_* kernels);
 //   topn_global_threshold_kernel  one block per window: the k-th largest
 //      of the gathered (W, M) candidates, ties counted, -inf when fewer
 //      than k are finite;
 //   (b) K3's selection against that threshold with the block's row
 //      offset (launch_topn with ``given``: one launch).
 // Bound: bytes — (a) reads the (rows x W) window counts and the used
-// mask once per round (one round for Q5's top-1), the rest is a few
-// hundred bytes; (b) as K3.
-
-__global__ void topn_candidates_kernel(const int32_t* __restrict__ wcounts, int64_t rows,
-                                       int32_t W, const uint8_t* __restrict__ used,
-                                       const uint8_t* __restrict__ w_valid, int32_t k,
-                                       float* __restrict__ cand) {
-  __shared__ float s_max[kWarps];
-  __shared__ long long s_sum[kWarps];
-  const int32_t w = blockIdx.x;
-  float* out = cand + (int64_t)w * k;
-  int32_t filled = 0;
-  if (w_valid[w]) {
-    float ceiling = INFINITY;  // each round looks only below it
-    while (filled < k) {
-      float m = -INFINITY;
-      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
-        const int32_t c = wcounts[r * W + w];
-        if (c > 0 && used[r]) {
-          const float v = (float)c;
-          if (v < ceiling && v > m) m = v;
-        }
-      }
-      m = block_max(m, s_max);
-      if (m == -INFINITY) break;  // no candidate left
-      long long cnt = 0;
-      for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
-        const int32_t c = wcounts[r * W + w];
-        if (c > 0 && used[r] && (float)c == m) ++cnt;
-      }
-      cnt = block_sum(cnt, s_sum);
-      const int32_t take = cnt < (long long)(k - filled) ? (int32_t)cnt : k - filled;
-      for (int32_t j = threadIdx.x; j < take; j += blockDim.x) out[filled + j] = m;
-      filled += take;
-      ceiling = m;
-    }
-  }
-  for (int32_t j = filled + threadIdx.x; j < k; j += blockDim.x) out[j] = -INFINITY;
-}
+// mask once, the rest is a few hundred bytes; (b) as K3.
 
 __global__ void topn_global_threshold_kernel(const float* __restrict__ cand, int32_t M,
                                              int32_t k, float* __restrict__ thresh) {

@@ -114,28 +114,6 @@ constexpr int64_t kHistMaxRows = 100000;
 // blocks the plan aims at: a wave of the 132-SM card
 constexpr int64_t kCountBlocks = 132;
 
-// n / d for 0 <= n < 2^31 and a divisor fixed a launch, by a multiply
-// and a shift (the round-up reciprocal, as CUTLASS's FastDivmod)
-struct FastDiv {
-  uint32_t d, m, s;
-};
-
-inline FastDiv fast_div(uint32_t d) {
-  FastDiv f{d, 0u, 0u};
-  if (d > 1) {
-    uint32_t l = 0;
-    while ((1ull << l) < d) ++l;  // ceil(log2 d)
-    const uint32_t p = 31 + l;
-    f.m = (uint32_t)(((1ull << p) + d - 1) / d);
-    f.s = p - 32;
-  }
-  return f;
-}
-
-__device__ __forceinline__ uint32_t div_of(uint32_t n, const FastDiv& f) {
-  return f.d > 1 ? __umulhi(n, f.m) >> f.s : n;
-}
-
 // a record's row and ring column: 1 to count it, 0 to skip it, -1 for an
 // entry outside the state (the error bit, nothing written)
 template <typename Idx>
@@ -323,6 +301,46 @@ __global__ void split_cells_kernel(const uint8_t* __restrict__ sc, int64_t n, in
   }
 }
 
+// ---- K3 distributed mode (a): topn_candidates -----------------------------
+// A device block's top k candidate values a window (window_fire.cuh's
+// distributed mode, topn_select.cuh's cand_* bodies): the (rows x W) grid
+// read in tiles over the whole card, not a CUDA block a window. Top-1 is
+// one launch (the per-window maxima, the last block writes the output),
+// and so is k <= 16 (each block's top k a window, the last block's
+// merge); above, one cooperative launch (the radix passes, the collect of
+// the keys above each window's k-th, the sort), else six.
+__global__ void __launch_bounds__(kThreads) cand_max_kernel(const SelParams p) {
+  sel_max<true, kCandItems>(p);
+  cand_max_tail(p);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(kThreads) cand_merge_kernel(const SelParams p) {
+  cand_merge<KS>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) cand_radix_kernel(const SelParams p, int pass) {
+  sel_radix<true>(p, pass);
+}
+
+__global__ void __launch_bounds__(kThreads) cand_radix_all_kernel(const SelParams p) {
+  cand_radix_all(p);
+}
+
+__global__ void __launch_bounds__(kThreads) cand_collect_kernel(const SelParams p) {
+  cand_collect_all(p);
+}
+
+__global__ void __launch_bounds__(kThreads) cand_sort_kernel(const SelParams p) {
+  cand_sort_all(p);
+}
+
+int g_cand_capacity[64];
+const CandKernels kCandKernels{cand_max_kernel,          cand_merge_kernel<4>,
+                               cand_merge_kernel<kCandSmallK>, cand_radix_kernel,
+                               cand_radix_all_kernel,    cand_collect_kernel,
+                               cand_sort_kernel,         g_cand_capacity};
+
 }  // namespace
 
 extern "C" {
@@ -400,13 +418,23 @@ int fk_topn_select_append(const int32_t* wcounts, int64_t rows, int32_t W, const
                      work_tiles, (cudaStream_t)stream);
 }
 
+// list: list_words of uint32 scratch at k > 1 (cand_list_words; null at
+// k = 1); work: as fk_topn_select_append's
 int fk_topn_candidates(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
-                       const uint8_t* w_valid, int32_t k, float* cand, void* stream) {
-  if (W > 0 && k > 0) {
-    topn_candidates_kernel<<<W, kThreads, 0, (cudaStream_t)stream>>>(wcounts, rows, W, used,
-                                                                    w_valid, k, cand);
-  }
-  return (int)cudaGetLastError();
+                       const uint8_t* w_valid, int32_t k, float* cand, uint32_t* list,
+                       int64_t list_words, int64_t* work, int64_t work_windows,
+                       int64_t work_tiles, void* stream) {
+  SelParams p{};
+  p.wcounts = wcounts;
+  p.rows = rows;
+  p.W = W;
+  p.k = k;
+  p.used = used;
+  p.w_valid = w_valid;
+  p.cand_out = cand;
+  p.cand_list = list;
+  return launch_candidates(p, list_words, work, work_windows, work_tiles, kCandKernels,
+                           (cudaStream_t)stream);
 }
 
 int fk_topn_global_threshold(const float* cand, int32_t W, int32_t M, int32_t k, float* thresh,
@@ -500,12 +528,13 @@ int fk_topn_select_append_packed(const int64_t* a, void* stream) {
       (int64_t)a[13], (int64_t)a[14], stream);
 }
 
-// fk_topn_candidates from one packed block of 7 64-bit words
+// fk_topn_candidates from one packed block of 12 64-bit words
 int fk_topn_candidates_packed(const int64_t* a, void* stream) {
   return fk_topn_candidates(
       (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
       (const uint8_t*)(intptr_t)a[3], (const uint8_t*)(intptr_t)a[4], (int32_t)a[5],
-      (float*)(intptr_t)a[6], stream);
+      (float*)(intptr_t)a[6], (uint32_t*)(intptr_t)a[7], (int64_t)a[8],
+      (int64_t*)(intptr_t)a[9], (int64_t)a[10], (int64_t)a[11], stream);
 }
 
 // fk_topn_global_threshold from one packed block of 5 64-bit words

@@ -5,7 +5,9 @@ version each, with the same signature.
 - ``bucket_records`` (X1): one source block's records into padded
   ``(n_dest, capacity)`` buckets by owner block, each record's cell
   rebased to its owner's block, in arrival order within a bucket, with
-  the overflow per destination.
+  the overflow per destination; ``bucket_records_into`` is the same
+  launch writing each bucket straight into its owner's receive row
+  (the exchange on blocks of one device, with no copy).
 - ``hash_keys`` (X2): the splitmix64 key mix that routes keys to key
   shards, bit-identical to ``records.hash_keys_numpy``.
 
@@ -41,32 +43,26 @@ def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
     return wk.LeanEntry(_lib, fn, name, n_words, "xk_error_string")
 
 
-_BUCKET_RECORDS = _entry("xk_bucket_records", "bucket_records", 14)
+_BUCKET_RECORDS = _entry("xk_bucket_records", "bucket_records", 16)
 _HASH_KEYS = _entry("xk_hash_keys", "hash_keys", 3)
 # csrc/window_common.cuh kTile: the records of a bucketing tile
 BUCKET_TILE = 1024
 
 
+def bucket_work_words(tiles: int, n_dest: int) -> int:
+    """csrc/exchange_kernels.cu's workspace of one ``bucket_records``
+    launch over ``tiles`` tiles of BUCKET_TILE records, in int64 words:
+    the epoch on its own 128-byte line, then a look-back descriptor a
+    (tile, destination), each tile's on whole 128-byte lines."""
+    line = wk.LB_LINE
+    return line + tiles * (-(-n_dest // line) * line)
+
+
 # -- X1 ------------------------------------------------------------------------
 
-def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
-                   n_dest: int, capacity: int, spd: int, ring: int
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                              torch.Tensor, torch.Tensor]:
-    """Bucket one source block's records by owner block.
-
-    ``cells`` is ``(B,)`` int32 (int64 once the mesh's cells reach
-    2^31), each ``slot * ring + col`` over the mesh's global slots; a cell outside ``[0, n_dest * spd * ring)``
-    (``-1``) is an invalid record and goes nowhere. ``payload`` is ``(B,
-    C)`` of a 4-byte dtype (the records' lifted lanes) or None. Record i
-    goes to block ``d = slot // spd`` at the next free position of its
-    bucket, in arrival order, as the cell ``(slot - d * spd) * ring +
-    col`` of d's block. Returns ``(cells (n_dest, capacity) of the
-    input's dtype, payload
-    (n_dest, capacity, C) or None, valid (n_dest, capacity) bool, overflow
-    (n_dest,) int32)``: positions past a bucket's records hold cell -1, a
-    zero payload and valid False; ``overflow[d] = max(count_d - capacity,
-    0)`` records past the capacity are dropped."""
+def _check_bucket(cells, payload, n_dest, capacity, spd, ring):
+    """One pass of ``bucket_records``' checks: the CUDA device index (or
+    None for CPU tensors, after the checks that raise) and C."""
     index = wk.fast_index((cells, torch.int64 if cells.dtype is torch.int64
                            else torch.int32, 1))
     if index is None:
@@ -91,24 +87,116 @@ def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
     if index is None or (payload is not None
                          and payload.get_device() != index):
         if not wk.on_cuda("bucket_records", cells, payload):
-            return bucket_records_plain(cells, payload, n_dest, capacity, spd,
-                                        ring)
+            return None, C
         index = cells.get_device()
+    return index, C
+
+
+def _launch_bucket(index, cells, payload, C, n_dest, capacity, spd, ring,
+                   out_cells, out_payload, valid, overflow, dstride):
+    _, stream = wk.launch_context(index)
+    need = bucket_work_words(max(1, -(-cells.numel() // BUCKET_TILE)), n_dest)
+    work, (words,) = wk.clean_workspace("bucket_records", index, stream,
+                                        (need,), int)
+    try:
+        _BUCKET_RECORDS(stream, cells.data_ptr(), cells.element_size(),
+                        payload.data_ptr() if C else 0, cells.numel(), C,
+                        int(n_dest), int(capacity), int(ring), int(spd), work,
+                        words, out_cells, out_payload if C else 0, valid,
+                        overflow.data_ptr(), int(dstride))
+    except RuntimeError:
+        wk.drop_workspace("bucket_records", index, stream)
+        raise
+
+
+def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
+                   n_dest: int, capacity: int, spd: int, ring: int
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                              torch.Tensor, torch.Tensor]:
+    """Bucket one source block's records by owner block.
+
+    ``cells`` is ``(B,)`` int32 (int64 once the mesh's cells reach
+    2^31), each ``slot * ring + col`` over the mesh's global slots; a cell outside ``[0, n_dest * spd * ring)``
+    (``-1``) is an invalid record and goes nowhere. ``payload`` is ``(B,
+    C)`` of a 4-byte dtype (the records' lifted lanes) or None. Record i
+    goes to block ``d = slot // spd`` at the next free position of its
+    bucket, in arrival order, as the cell ``(slot - d * spd) * ring +
+    col`` of d's block. Returns ``(cells (n_dest, capacity) of the
+    input's dtype, payload
+    (n_dest, capacity, C) or None, valid (n_dest, capacity) bool, overflow
+    (n_dest,) int32)``: positions past a bucket's records hold cell -1, a
+    zero payload and valid False; ``overflow[d] = max(count_d - capacity,
+    0)`` records past the capacity are dropped."""
+    index, C = _check_bucket(cells, payload, n_dest, capacity, spd, ring)
+    if index is None:
+        return bucket_records_plain(cells, payload, n_dest, capacity, spd,
+                                    ring)
     dev = cells.device
     out_cells = torch.empty((n_dest, capacity), dtype=cells.dtype, device=dev)
     out_payload = (torch.empty((n_dest, capacity, C), dtype=payload.dtype,
                                device=dev) if payload is not None else None)
     valid = torch.empty((n_dest, capacity), dtype=torch.bool, device=dev)
     overflow = torch.empty(n_dest, dtype=torch.int32, device=dev)
-    n_tiles = max(1, -(-B // BUCKET_TILE))
-    _held, tile_counts = wk.scratch(dev, n_tiles * n_dest)
-    _, stream = wk.launch_context(index)
-    _BUCKET_RECORDS(stream, cells.data_ptr(), cells.element_size(),
-                    payload.data_ptr() if C else 0, B, C, int(n_dest),
-                    int(capacity), int(ring), int(spd), tile_counts,
-                    out_cells.data_ptr(), out_payload.data_ptr() if C else 0,
-                    valid.data_ptr(), overflow.data_ptr())
+    _launch_bucket(index, cells, payload, C, n_dest, capacity, spd, ring,
+                   out_cells.data_ptr(),
+                   out_payload.data_ptr() if C else 0, valid.data_ptr(),
+                   overflow, capacity)
     return out_cells, out_payload, valid, overflow
+
+
+def bucket_records_into(cells: torch.Tensor, payload: Optional[torch.Tensor],
+                        n_dest: int, capacity: int, spd: int, ring: int,
+                        recv: Tuple[torch.Tensor, Optional[torch.Tensor],
+                                    torch.Tensor], j: int) -> torch.Tensor:
+    """``bucket_records`` of source block ``j`` written straight into its
+    owners' receive rows: ``recv`` is ``(cells (n_dest, n_src, capacity),
+    payload (n_dest, n_src, capacity, C) or None, valid (n_dest, n_src,
+    capacity))`` on the source's device, owner d's received block being
+    ``recv[...][d]``; row ``j`` of each owner's block gets what bucket d
+    would hold. Returns the overflow per destination, as
+    ``bucket_records``. On blocks of one device the exchange is then one
+    launch a source block and no copy."""
+    index, C = _check_bucket(cells, payload, n_dest, capacity, spd, ring)
+    r_cells, r_payload, r_valid = recv
+    n_src = r_cells.shape[1] if r_cells.dim() == 3 else 0
+    if (r_cells.dtype != cells.dtype or r_valid.dtype != torch.bool
+            or tuple(r_cells.shape) != (n_dest, n_src, capacity)
+            or tuple(r_valid.shape) != (n_dest, n_src, capacity)
+            or (payload is None) != (r_payload is None)
+            or (r_payload is not None and (
+                r_payload.dtype != payload.dtype
+                or tuple(r_payload.shape) != (n_dest, n_src, capacity, C)))
+            or not all(t.is_contiguous() for t in recv if t is not None)):
+        raise ValueError(
+            "recv must be contiguous (n_dest, n_src, capacity) cells and "
+            "valid (and payload (..., C)) of the records' dtypes")
+    if not 0 <= j < n_src:
+        raise ValueError(f"source block {j} outside 0..{n_src - 1}")
+    if index is None:
+        if any(t.device != cells.device for t in recv if t is not None):
+            raise ValueError("bucket_records_into: tensors on different "
+                             "devices")
+        return bucket_records_into_plain(cells, payload, n_dest, capacity,
+                                         spd, ring, recv, j)
+    if any(t.get_device() != index for t in recv if t is not None):
+        raise ValueError("bucket_records_into: tensors on different devices")
+    overflow = torch.empty(n_dest, dtype=torch.int32, device=cells.device)
+    row = j * capacity
+    _launch_bucket(index, cells, payload, C, n_dest, capacity, spd, ring,
+                   r_cells.data_ptr() + row * r_cells.element_size(),
+                   r_payload.data_ptr() + row * C * 4 if C else 0,
+                   r_valid.data_ptr() + row, overflow, n_src * capacity)
+    return overflow
+
+
+def bucket_records_into_plain(cells, payload, n_dest, capacity, spd, ring,
+                              recv, j):
+    b_cells, b_payload, b_valid, overflow = bucket_records_plain(
+        cells, payload, n_dest, capacity, spd, ring)
+    for dst, src in zip(recv, (b_cells, b_payload, b_valid)):
+        if dst is not None:
+            dst[:, j] = src
+    return overflow
 
 
 def bucket_records_plain(cells, payload, n_dest, capacity, spd, ring):

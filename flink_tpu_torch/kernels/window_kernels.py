@@ -369,7 +369,7 @@ _SCATTER_SPLIT_COUNTS = _entry("fk_scatter_split_counts",
 _SPLIT_CELLS = _entry("fk_split_cells", "split_cells", 6)
 _WINDOW_COUNTS = _entry("fk_window_counts", "window_counts", 10)
 _TOPN_SELECT_APPEND = _entry("fk_topn_select_append", "topn_select_append", 15)
-_TOPN_CANDIDATES = _entry("fk_topn_candidates", "topn_candidates", 7)
+_TOPN_CANDIDATES = _entry("fk_topn_candidates", "topn_candidates", 12)
 _TOPN_GLOBAL_THRESHOLD = _entry("fk_topn_global_threshold",
                                 "topn_global_threshold", 5)
 _TOPN_SELECT_GIVEN = _entry("fk_topn_select_given", "topn_select_given", 16)
@@ -698,11 +698,47 @@ def topn_select_append_plain(wcounts, used_mask, end_panes, w_valid, anchor,
 # (topn_global_threshold), then each block's select against it with its
 # first global row as the row offset (topn_select_given).
 
+# csrc/topn_select.cuh's topn_candidates constants: cells a thread of the
+# top-1 and merge launches, and the merge's largest k
+CAND_ITEMS = 4
+CAND_SMALL_K = 16
+
+
+class CandidatesPlan(NamedTuple):
+    """csrc/topn_select.cuh ``launch_candidates``' launches for one
+    ``topn_candidates`` call."""
+    blocks: int      # blocks of the top-1 and merge launches
+    kernels: int     # device kernels a call
+    list_words: int  # uint32 words of the call's scratch
+
+
+def candidates_plan(rows: int, W: int, k: int, *,
+                    fits: bool = True) -> CandidatesPlan:
+    """One launch at top-1 (the per-window maxima, the last block
+    writing the output) and up to top-CAND_SMALL_K where W <= 256 (each
+    block's top k a window into a (blocks, W, k) scratch, the last
+    block's merge); above, the radix select: one cooperative launch
+    where W <= RADIX_WINDOWS and the threshold blocks fit on the card at
+    once (``fits``), else four radix passes, the collect and the sort
+    (a (W, k) scratch)."""
+    k = min(k, rows)
+    span = 256 // W * W if W <= 256 else 256
+    blocks = -(-rows * W // (span * CAND_ITEMS))
+    if k == 1:
+        return CandidatesPlan(blocks, 1, 0)
+    if k <= CAND_SMALL_K and W <= 256:
+        return CandidatesPlan(blocks, 1, blocks * W * k)
+    return CandidatesPlan(blocks, 1 if W <= RADIX_WINDOWS and fits else 6,
+                          W * k)
+
+
 def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
                     w_valid: torch.Tensor, k: int) -> torch.Tensor:
     """(W, k) f32: each window's top ``k`` candidate values (``wcounts >
     0`` on a ``used_mask`` row of a valid window, as f32), descending,
-    each as often as it occurs; -inf past a window's candidates."""
+    each as often as it occurs; -inf past a window's candidates. The
+    kernel reads the grid over the whole card (``candidates_plan``'s
+    launches) with its own clean workspace."""
     index = fast_index((wcounts, torch.int32, 2), (used_mask, torch.bool, 1),
                        (w_valid, torch.bool, 1))
     if index is None:
@@ -720,8 +756,18 @@ def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
         index = wcounts.get_device()
     cand = torch.empty((W, k), dtype=torch.float32, device=wcounts.device)
     _, stream = launch_context(index)
-    _TOPN_CANDIDATES(stream, wcounts.data_ptr(), rows, W, used_mask.data_ptr(),
-                     w_valid.data_ptr(), int(k), cand.data_ptr())
+    work = select_workspace("topn_candidates", index, stream, rows, W)
+    # above top-1: the blocks' lists, or each window's keys above its k-th
+    # (held until the launch is queued)
+    words = candidates_plan(rows, W, k).list_words if k > 1 else 0
+    _held, lst = scratch(wcounts.device, words) if words else (None, 0)
+    try:
+        _TOPN_CANDIDATES(stream, wcounts.data_ptr(), rows, W,
+                         used_mask.data_ptr(), w_valid.data_ptr(), int(k),
+                         cand.data_ptr(), lst, words, *work)
+    except RuntimeError:
+        drop_workspace("topn_candidates", index, stream)
+        raise
     return cand
 
 

@@ -118,7 +118,7 @@ def test_window_counts_plan_at_the_main_path_shapes():
 
 
 def fast_div(d):
-    """csrc/window_kernels.cu ``fast_div``, step by step: the multiplier
+    """csrc/window_common.cuh ``fast_div``, step by step: the multiplier
     and shift that divide ``0 <= n < 2^31`` by ``d`` as ``(n * m) >> 32
     >> s`` (``d == 1``: ``n`` itself)."""
     if d <= 1:
@@ -129,7 +129,7 @@ def fast_div(d):
 
 
 def test_fast_div_mirrors_the_source():
-    cu = _source("window_kernels.cu")
+    cu = _source("window_common.cuh")
     body = re.search(r"inline FastDiv fast_div\(uint32_t d\) \{(.*?)\n\}", cu,
                      re.S).group(1)
     for line in ("while ((1ull << l) < d) ++l;",
@@ -141,7 +141,8 @@ def test_fast_div_mirrors_the_source():
 
 
 @pytest.mark.parametrize("d", list(range(1, 70)) + [97, 255, 256, 1000,
-                                                     4095, 65_535, 65_536])
+                                                     4095, 65_535, 65_536,
+                                                     262_144])
 def test_fast_div_is_floor_division(d):
     m, s = fast_div(d)
     rng = np.random.default_rng(d)

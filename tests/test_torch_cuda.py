@@ -1974,6 +1974,127 @@ def test_bucket_records_matches_its_plain_version(dev, C, capacity):
     assert (int(got[3].sum()) > 0) == (capacity == 300)
 
 
+@pytest.mark.parametrize("case", ["empty", "all_invalid", "one_dest",
+                                  "max_dest", "capacity_1", "ragged",
+                                  "many_tiles", "int64"])
+def test_bucket_records_edges(dev, case):
+    """The one-launch bucketing against its plain version, bit for bit: an
+    empty block, every record invalid, one destination, 64 destinations,
+    capacity 1, a ragged last tile, more tiles than the card holds blocks
+    at once (each block walks several, the look-back across rounds) and
+    int64 cells past 2^31; then the same launch into receive rows."""
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+
+    rng = np.random.default_rng(len(case))
+    n_dest, spd, ring, B, cap, C = 4, 8192, 32, 3 * 1024 + 37, 4096, 2
+    dtype = np.int32
+    if case == "empty":
+        B = 0
+    elif case == "one_dest":
+        n_dest = 1
+    elif case == "max_dest":
+        n_dest, spd = xk.MAX_DEST, 512
+    elif case == "capacity_1":
+        cap = 1
+    elif case == "ragged":
+        B, cap = 1024 * 7 + 1, 3000
+    elif case == "many_tiles":
+        B, cap, C = 1 << 22, 1 << 20, 1
+    elif case == "int64":
+        spd, ring, dtype = 1 << 27, 32, np.int64
+    cells = rng.integers(-1, n_dest * spd * ring + 40, B).astype(dtype)
+    if case == "all_invalid":
+        cells[:] = -1
+    payload = _t(rng.random((B, C)).astype(np.float32), dev)
+    args = (_t(cells, dev), payload, n_dest, cap, spd, ring)
+    got = xk.bucket_records(*args)
+    want = xk.bucket_records_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n_src = 3
+    recv = (torch.full((n_dest, n_src, cap), 5, dtype=args[0].dtype, device=dev),
+            torch.full((n_dest, n_src, cap, C), 5.0, device=dev),
+            torch.ones((n_dest, n_src, cap), dtype=torch.bool, device=dev))
+    plain = tuple(r.clone() for r in recv)
+    over = xk.bucket_records_into(*args, recv, 1)
+    over_p = xk.bucket_records_into_plain(*args, plain, 1)
+    assert torch.equal(over, over_p) and torch.equal(over, want[3])
+    for a, b in zip(recv, plain):
+        assert torch.equal(a, b)   # rows 0 and 2 untouched in both
+
+
+def test_one_card_exchange_launches_no_copy(dev):
+    """keyby_exchange over four blocks of one card: one bucket_records
+    launch a source block straight into the owners' receive rows and no
+    device-to-device copy (profiled); the received blocks equal the CPU's
+    exchange."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch.exchange import keyby
+
+    rng = np.random.default_rng(4)
+    n, spd, ring, L = 4, 8192, 32, 1 << 16
+    src = [rng.integers(-1, n * spd * ring, L).astype(np.int32) for _ in range(n)]
+    pay = [rng.random((L, 3)).astype(np.float32) for _ in range(n)]
+    run = lambda: keyby.keyby_exchange(  # noqa: E731
+        [_t(c, dev) for c in src], [_t(p, dev) for p in pay],
+        devices=[dev] * n, capacity=L, spd=spd, ring=ring)
+    run()
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    assert wk.LAUNCHES["bucket_records"] == n
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [k for k in names if "DtoD" in k], names
+    assert sum(e.count for e in prof.key_averages()
+               if "bucket_records_kernel" in e.key
+               and e.device_type == torch.autograd.DeviceType.CUDA) == n
+    want = keyby.keyby_exchange(
+        [torch.from_numpy(c) for c in src], [torch.from_numpy(p) for p in pay],
+        devices=[torch.device("cpu")] * n, capacity=L, spd=spd, ring=ring)
+    assert got[2] == want[2]
+    for a, b in zip(got[0] + [tuple(got[1])], want[0] + [tuple(want[1])]):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("rows,W,k", [
+    (8193, 11, 1), (8193, 11, 3),      # M1's fire: one launch each
+    (8193, 11, 16),                    # the merge's largest k
+    (8193, 11, 8193), (2000, 2, 2000),  # k = rows: the radix, one launch
+    (300, 40, 3),                      # the merge past 32 windows
+    (300, 40, 17), (100, 300, 5),      # the radix in six launches
+    (5, 3, 2), (1, 1, 1)])
+def test_topn_candidates_matches_its_plain_version(dev, rows, W, k):
+    """Bit for bit against torch.topk on the masked grid, with ties at the
+    k-th place, counts past 2^24 (which tie as f32), unused rows, an
+    invalid window and a window without candidates, in every launch form
+    (``candidates_plan``); twice, so the second call runs on the
+    workspace the first left."""
+    rng = np.random.default_rng(rows + W + k)
+    wc = rng.integers(0, 6, (rows, W)).astype(np.int32)
+    wc[: min(rows, 3), 0] = (1 << 24) + 1
+    wc[rows // 2, W - 1] = 1 << 24
+    used = rng.random(rows) < 0.9
+    used[0] = True
+    valid = np.ones(W, bool)
+    if W > 2:
+        valid[1] = False
+        wc[:, 2] = 0
+    args = (_t(wc, dev), _t(used, dev), _t(valid, dev), k)
+    for _ in range(2):
+        got = wk.topn_candidates(*args)
+        want = wk.topn_candidates_plain(*args)
+        assert torch.equal(got, want)
+    v = torch.where(args[0] > 0, args[0].float(), torch.tensor(-float("inf"), device=dev))
+    v = torch.where(args[1][:, None] & args[2][None, :], v,
+                    torch.tensor(-float("inf"), device=dev))
+    assert torch.equal(got, torch.topk(v.T, k, dim=1).values)
+
+
 def test_hash_keys_matches_numpy(dev):
     from flink_tpu_torch.kernels import exchange_kernels as xk
     from flink_tpu_torch.records import hash_keys_numpy

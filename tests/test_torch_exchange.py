@@ -6,8 +6,18 @@ under ``shard_map`` on the reference's eight forced CPU devices, the ring
 shuffle against the all-to-all, ``hash_keys`` against
 ``hash_keys_numpy`` / ``hash_keys_device`` on extreme keys, and the
 plain versions of the distributed top-n modes, ``fire_pack``'s row
-offset and the scatters' skip of invalid records. Everything here is
+offset and the scatters' skip of invalid records; the exchange on blocks
+of one device (``bucket_records_into``, each source block's buckets
+straight into the owners' receive rows) against the reference's
+``bucket_by_destination`` + ``all_to_all_records`` under ``shard_map``
+on 1 and 3 devices, ``topn_candidates``' plain version against
+``lax.top_k`` on the masked grid at k = 1, 3 and the rows, and the two
+kernels' launch plans read against the CUDA sources. Everything here is
 integer work or copies: results must be equal exactly."""
+import functools
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +25,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
-from flink_tpu.exchange.keyby import bucket_by_destination, keyby_exchange
+from flink_tpu.exchange.keyby import (
+    all_to_all_records, bucket_by_destination, keyby_exchange)
 from flink_tpu.parallel.mesh import AXIS
 from flink_tpu.parallel.mesh import make_mesh_plan as jax_mesh_plan
 from flink_tpu.records import hash_keys_device as jax_hash_keys_device
@@ -299,3 +310,198 @@ def test_fire_pack_row_offset_and_skipping_scatters():
     assert torch.equal(b, a) and float(sums.view(-1)[3]) == 2.0
     with pytest.raises(IndexError):
         lk.scatter_lanes(b, sums, None, None, idx, s, empty, empty)
+
+
+# -- the exchange on blocks of one device ----------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _reference_exchange(n, capacity, block_cells, C):
+    """The reference's bucket_by_destination + all_to_all_records under
+    shard_map over the first ``n`` of the conftest's CPU devices: per
+    device its received global cells, lanes and valid, and its overflow."""
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]), (AXIS,))
+
+    def step(sp, x):
+        valid = (sp >= 0) & (sp < n * block_cells)
+        dest = jnp.where(valid, sp // block_cells, 0).astype(jnp.int32)
+        buckets, bv, over = bucket_by_destination(
+            dest, valid, {"sp": sp, **{f"x{i}": x[:, i] for i in range(C)}},
+            n_dest=n, capacity=capacity)
+        recv, rv = all_to_all_records(buckets, bv)
+        lanes = (jnp.stack([recv[f"x{i}"] for i in range(C)], -1) if C
+                 else jnp.zeros((n * capacity, 0), jnp.float32))
+        return recv["sp"], lanes, rv, over
+
+    return jax.jit(shard_map(step, mesh=mesh, in_specs=(P(AXIS), P(AXIS)),
+                             out_specs=(P(AXIS),) * 4))
+
+
+@pytest.mark.parametrize("n,L,capacity,hot,wide,C", [
+    (3, 48, 48, 0.0, False, 2),    # block-sized buckets
+    (3, 48, 6, 0.6, False, 2),     # a small capacity, hot keys, overflow
+    (3, 48, 48, 0.3, True, 0),     # int64 cells past 2^31
+    (1, 40, 40, 0.0, False, 3),    # one destination
+    (1, 40, 7, 0.0, True, 1),      # one destination, overflow, int64
+])
+def test_one_device_exchange_matches_the_reference(n, L, capacity, hot, wide,
+                                                   C):
+    """keyby_exchange over blocks of one device (``bucket_records_into``'s
+    plain version a source block, no copy): every block's received cells
+    (rebased), lanes and valid mask, each source's overflow and the bytes
+    counted equal the reference's exchange and the copies' count."""
+    spd, ring = (1 << 29, 4) if wide else (20, 4)
+    rng = np.random.default_rng(L + capacity + n)
+    slots = rng.integers(0, n * spd, n * L)
+    slots = np.where(rng.random(n * L) < hot, slots[0], slots)
+    cells = slots * ring + rng.integers(0, ring, n * L)
+    cells[rng.random(n * L) < 0.1] = -1
+    cells = cells.astype(np.int64 if wide else np.int32)
+    lanes = rng.random((n * L, C)).astype(np.float32)
+    sp, x, rv, over = (np.asarray(a) for a in _reference_exchange(
+        n, capacity, spd * ring, C)(jnp.asarray(cells), jnp.asarray(lanes)))
+    recv, overflow, moved = keyby.keyby_exchange(
+        [torch.from_numpy(cells[j * L:(j + 1) * L]) for j in range(n)],
+        [torch.from_numpy(lanes[j * L:(j + 1) * L]) if C else None
+         for j in range(n)],
+        devices=[torch.device("cpu")] * n, capacity=capacity, spd=spd,
+        ring=ring)
+    np.testing.assert_array_equal(
+        np.concatenate([o.numpy() for o in overflow]), over)
+    if capacity < L and not wide:
+        assert over.max() > 0
+    m = n * capacity
+    for d, (r_cells, r_lanes, r_valid) in enumerate(recv):
+        ok = rv[d * m:(d + 1) * m]
+        np.testing.assert_array_equal(r_valid.numpy(), ok)
+        assert r_cells.dtype == torch.from_numpy(cells).dtype
+        want = np.where(ok, sp[d * m:(d + 1) * m] - d * spd * ring, -1)
+        np.testing.assert_array_equal(r_cells.numpy(), want)
+        if C:
+            np.testing.assert_array_equal(
+                r_lanes.numpy(), np.where(ok[:, None], x[d * m:(d + 1) * m], 0))
+        else:
+            assert r_lanes is None
+    row = capacity * (cells.itemsize + 1 + 4 * C)
+    assert moved == n * (n - 1) * row
+
+
+def test_copy_exchange_equals_the_one_device_exchange():
+    """The exchange between distinct devices (each block's buckets, then
+    ``all_to_all_records``' row copies), run here on CPU blocks, receives
+    what the one-device form writes straight into the receive rows, and
+    counts the same bytes."""
+    n, L, spd, ring = 3, 40, 20, 4
+    cells, lanes = cells_case(6, n * L, n, spd, ring, hot=0.4)
+    src = [torch.from_numpy(cells[j * L:(j + 1) * L]) for j in range(n)]
+    pay = [torch.from_numpy(lanes[j * L:(j + 1) * L]) for j in range(n)]
+    devs = [torch.device("cpu")] * n
+    buckets = [keyby.bucket_by_destination(src[j], pay[j], n_dest=n,
+                                           capacity=L, spd=spd, ring=ring)[0]
+               for j in range(n)]
+    copied, moved = keyby.all_to_all_records(buckets, devs)
+    direct, _, direct_moved = keyby.keyby_exchange(
+        src, pay, devices=devs, capacity=L, spd=spd, ring=ring)
+    assert moved == direct_moved
+    for a, b in zip(copied, direct):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_bucket_records_into_is_the_buckets_transposed():
+    """Each source's direct form writes row j of every owner's block with
+    what its bucket d holds, at the most destinations a launch takes; bad
+    receive rows raise."""
+    n, L, spd, ring = ek.MAX_DEST, 300, 3, 2
+    rng = np.random.default_rng(11)
+    recv = (torch.full((n, 2, L), 7, dtype=torch.int32),
+            torch.full((n, 2, L, 1), 7, dtype=torch.int32),
+            torch.zeros((n, 2, L), dtype=torch.bool))
+    for j in range(2):
+        cells = torch.from_numpy(rng.integers(-1, n * spd * ring + 5, L)
+                                 .astype(np.int32))
+        pay = torch.from_numpy(rng.integers(0, 9, (L, 1)).astype(np.int32))
+        over = ek.bucket_records_into(cells, pay, n, L, spd, ring, recv, j)
+        b_cells, b_pay, b_valid, b_over = ek.bucket_records(
+            cells, pay, n, L, spd, ring)
+        assert torch.equal(over, b_over)
+        assert torch.equal(recv[0][:, j], b_cells)
+        assert torch.equal(recv[1][:, j], b_pay)
+        assert torch.equal(recv[2][:, j], b_valid)
+    with pytest.raises(ValueError, match="recv"):
+        ek.bucket_records_into(cells, None, n, L, spd, ring, recv, 0)
+    with pytest.raises(ValueError, match="source block"):
+        ek.bucket_records_into(cells, pay, n, L, spd, ring, recv, 2)
+
+
+# -- topn_candidates' plain version against lax.top_k ------------------------------
+
+@pytest.fixture(scope="module")
+def candidate_grid():
+    """A (rows, W) count grid with unused rows and an invalid window: a
+    window whose 3rd value is a three-way tie, one with counts past 2^24
+    (2^24 + 1 and 2^24 tie as f32), one with two candidates, and the
+    masked values lax.top_k ranks."""
+    rows, W = 40, 6
+    rng = np.random.default_rng(21)
+    wc = rng.integers(0, 50, (rows, W)).astype(np.int32)
+    used = rng.random(rows) < 0.85
+    used[:8] = True
+    w_valid = np.array([True, True, True, False, True, True])
+    wc[:, 0] = np.minimum(wc[:, 0], 5)
+    wc[:5, 0] = [9, 8, 6, 6, 6]
+    wc[:4, 1] = [(1 << 24) + 1, 1 << 24, (1 << 24) + 3, 1 << 25]
+    wc[:, 2] = 0
+    wc[6:8, 2] = [3, 3]
+    cand = (wc > 0) & used[:, None] & w_valid[None, :]
+    v = np.where(cand, wc.astype(np.float32), -np.inf)
+    return wc, used, w_valid, v
+
+
+@pytest.mark.parametrize("k", [1, 3, 40])
+def test_topn_candidates_plain_matches_lax_top_k(candidate_grid, k):
+    wc, used, w_valid, v = candidate_grid
+    got = wk.topn_candidates(torch.from_numpy(wc), torch.from_numpy(used),
+                             torch.from_numpy(w_valid), k)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(v.T), k)[0])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.shape == (wc.shape[1], k)
+    assert np.isneginf(want[3]).all() and np.isneginf(want[2, 2:]).all()
+
+
+# -- the launch plans against the sources ------------------------------------------
+
+def _csrc(name):
+    with open(os.path.join(os.path.dirname(ek.__file__), "csrc", name)) as f:
+        return f.read()
+
+
+def test_bucket_and_candidate_plans_match_the_sources():
+    """bucket_records: MAX_DEST and the tile are the kernel's, its
+    workspace an epoch line and a tile's descriptors on whole 128-byte
+    lines; topn_candidates one kernel at top-1 and up to top-16 (each
+    block's top k, then the last block's merge), the radix select above
+    (one cooperative launch, six past 32 windows or where it does not
+    fit); both entry points' argument blocks a word a C argument."""
+    xs, ws = _csrc("exchange_kernels.cu"), _csrc("window_kernels.cu")
+    assert f"constexpr int kMaxDest = {ek.MAX_DEST};" in xs
+    assert "constexpr int kLbLine = 16;" in _csrc("lookback.cuh")
+    for tiles, n_dest, want in ((256, 4, 16 + 256 * 16), (1, 1, 32),
+                                (2, 17, 16 + 2 * 32), (32, 64, 16 + 32 * 64)):
+        assert ek.bucket_work_words(tiles, n_dest) == want
+    for fn, entry in (("xk_bucket_records", ek._BUCKET_RECORDS),):
+        sig = re.search(rf"int {fn}\((.*?)\)", xs, re.S).group(1)
+        assert sig.count(",") == entry._struct.size // 8   # + the stream
+    sig = re.search(r"int fk_topn_candidates\((.*?)\)", ws, re.S).group(1)
+    assert sig.count(",") == wk._TOPN_CANDIDATES._struct.size // 8
+    sel = _csrc("topn_select.cuh")
+    assert f"constexpr int kCandItems = {wk.CAND_ITEMS};" in sel
+    assert f"constexpr int kCandSmallK = {wk.CAND_SMALL_K};" in sel
+    for rows, W, k, fits, want in (
+            (8193, 11, 1, True, (90, 1, 0)),            # M1's fire
+            (8193, 11, 3, True, (90, 1, 90 * 11 * 3)),  # its top-3: the merge
+            (8193, 11, 17, True, (90, 1, 11 * 17)),     # the radix, one launch
+            (8193, 11, 17, False, (90, 6, 11 * 17)),
+            (8193, 33, 17, True, (293, 6, 33 * 17)),
+            (300, 300, 3, True, (88, 6, 900)),          # past 256 windows
+            (1, 40, 5, True, (1, 1, 0))):
+        assert tuple(wk.candidates_plan(rows, W, k, fits=fits)) == want
