@@ -27,7 +27,12 @@ Phases, one JSON line each:
    pairs); ``nexmark_bids`` and ``devgen_ingest`` at the headline shapes
    (a 2^20-bid sub-batch, 32,769 x 64 state, 10,000 auctions, hot ratio
    4), plus a ``devgen_ingest`` case with out-of-domain and late
-   records that compares the stats vector and re-fire bitmap too; the
+   records that compares the stats vector and re-fire bitmap too, and
+   ``devgen_ingest``'s Nexmark form (the bids made in registers, the
+   devgen path's one launch a sub-batch; its row's time) steady and with
+   late and re-fire records against ``nexmark_bids_plain`` then
+   ``devgen_ingest_plain`` (no path launches ``nexmark_bids`` itself:
+   its count over every path must stay 0); the
    lane kernels at this slice's shapes: ``fire_pack`` on WordCount
    state (65,537 x 16, 4-window chunks, ~28k words per window) and on
    bid-aggregate state (32,769 x 32 x 1 sum + 1 max + 1 min lane, and
@@ -77,9 +82,11 @@ Phases, one JSON line each:
    ``confs/bench_q5_headline.conf`` (2^22-bid logical batches in 4
    sub-batches, 128 x 256 key slots) on 16 logical batches (67,108,864
    bids): one short warm-up run, then five timed runs, each checked in
-   full; the median run's numbers are printed beside every run's rate.
-   Then 4 logical batches at 1 and at 4 sub-batches (the first with a
-   64-column pane ring), whose rows must agree window by window.
+   full (one ``devgen_ingest`` launch a sub-batch, its bids made inside
+   it, and no ``nexmark_bids``); the median run's numbers are printed
+   beside every run's rate. Then 4 logical batches at 1 and at 4
+   sub-batches (the first with a 64-column pane ring), whose rows must
+   agree window by window.
 5. ``wordcount`` — BASELINE.json config #0 (``bench.py:441-478``) at
    ``confs/bench_wordcount.conf``: 2^20-word batches, 128 x 512 slots,
    a 1 s tumbling count fired through ``fire_pack``. One warm-up run of
@@ -193,44 +200,38 @@ host µs a call at a main-path shape and the loop ms of ``SPEED_ROWS``
 
 With ``--big-cells`` it builds the kernels and runs only phase 14.
 
-With ``--ring-pairs`` it builds ``window_kernels`` and ``lane_kernels``
-alone and runs only ``scatter_pair_lanes`` and ``ring_columns`` beside
-their library calls, each as loop ms, device ms and host µs a call (one
-JSON line).
+With ``--cases NAME[,NAME...]`` it runs rows of one case table
+(``KERNEL_CASES``): each row builds only the sources it needs and prints
+one JSON line of its kernels held bit for bit against their plain
+versions, then timed as loop ms (CUDA events, 50 calls), device ms and
+device entries a call (``torch.profiler``, 10 calls) and host µs a call
+(1,000 calls without a sync) beside their bounds and library calls. To
+compare with a parent, unpack it under ``_archive/`` with this file
+copied in and run both in one call, in turns. The rows:
 
-With ``--fire-kernels`` it builds ``lane_kernels`` and
-``topn_lanes_kernels`` alone and runs only ``fire_pack`` (the three
-``kernels`` cases) and ``topn_select_lanes`` (job T's top-1 and the
-planted top-3) beside their library calls, each as loop ms, device ms
-and host µs a call (one JSON line).
-
-With ``--count-topn`` it builds ``window_kernels``, ``fused_kernels`` and
-``devgen_kernels`` alone and runs only ``topn_select_append`` (the
-``kernels`` phase's top-1 and a planted top-3), ``fused_step`` (the fire
-of 11 ends, gate on), ``topn_select_given`` (job M1's first block) and
-``devgen_ingest`` (the headline sub-batch, without and with stats)
-beside their library calls, each as loop ms, device ms and host µs a
-call (one JSON line).
-
-With ``--count-lane`` it builds ``window_kernels`` and ``fused_kernels``
-alone and runs only the count lane's ``window_counts`` (the host launch
-at the ``kernels`` phase's Q5 shape and one pass of 64 ends), the fused
-step's fire of 11 ends, and ``scatter_counts`` on Q5's pairs, per record
-on WordCount's words and on the split upload's bytes, beside their
-library calls, each as loop ms, device ms and host µs a call (one JSON
-line).
-
-With ``--mesh-kernels`` it builds ``exchange_kernels`` and
-``window_kernels`` alone and runs only the key-sharded path's
-``bucket_records`` (M1's source block count only, with M2's three lanes,
-M3's 1,000 hot auctions at capacity 16,384, and int64 cells), one
-chunk's whole exchange as the operator runs it (``keyby_exchange`` over
-four blocks of ``cuda:0``) and ``topn_candidates`` at M1's fire (8,193
-rows x 11 windows, top-1 and top-3, beside ``torch.topk`` on the masked
-grid), each held bit for bit against its plain version first, then as
-loop ms, device ms and host µs a call beside its bound (one JSON line).
-To compare with a parent, unpack it under ``_archive/`` with this file
-copied in and run both in one call, in turns.
+- ``ring_pairs`` (also ``--ring-pairs``): ``scatter_pair_lanes`` and
+  ``ring_columns`` beside their library calls;
+- ``fire_kernels`` (``--fire-kernels``): ``fire_pack`` (the three
+  ``kernels`` cases) and ``topn_select_lanes`` (job T's top-1 and the
+  planted top-3);
+- ``count_topn`` (``--count-topn``): ``topn_select_append`` (top-1 and a
+  planted top-3), ``fused_step`` (the fire of 11 ends, gate on),
+  ``topn_select_given`` (job M1's first block);
+- ``count_lane`` (``--count-lane``): the count lane's ``window_counts``
+  (the Q5 fire and one pass of 64 ends), the fused step's fire of 11
+  ends, and ``scatter_counts`` on Q5's pairs, per record on WordCount's
+  words and on the split upload's bytes;
+- ``mesh_kernels`` (``--mesh-kernels``): the key-sharded path's
+  ``bucket_records`` (M1's source block count only, with M2's three
+  lanes, M3's 1,000 hot auctions at capacity 16,384, and int64 cells),
+  one chunk's whole exchange (``keyby_exchange`` over four blocks of
+  ``cuda:0``) and ``topn_candidates`` at M1's fire (top-1 and top-3);
+- ``count_fire``: ``count_fire`` at WindowWordCount's fire, the ``sum``
+  and ``lanes`` shapes, held purging and not, timed apart from the
+  state's restore;
+- ``devgen_ingest``: a headline sub-batch's make and ingest, without
+  and with stats: the pair (``nexmark_bids`` then ``devgen_ingest``),
+  the memory form alone and the Nexmark form (one launch).
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -307,6 +308,8 @@ PROFILED_KERNELS = {
                            "topn_radix_kernel", "topn_select_kernel"),
     "ring_columns": ("ring_columns_kernel",),
     "nexmark_bids": ("nexmark_bids_kernel",),
+    # devgen_ingest_kernel<true> (the Nexmark form, the bids made in
+    # registers: the devgen path) or <false> (records from memory)
     "devgen_ingest": ("devgen_ingest_kernel",),
     "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel", "lanes_sort_kernel",
@@ -315,7 +318,7 @@ PROFILED_KERNELS = {
     "apply_pairs_u32": ("apply_pairs_u32_kernel",),
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
     "split_cells": ("split_cells_kernel",),
-    "count_fire": ("count_fire_count_kernel", "count_fire_write_kernel"),
+    "count_fire": ("count_fire_kernel",),
     # the register form (rings up to 64 columns) or the staged-tile form
     "window_lanes": ("window_lanes_reg_kernel", "window_lanes_kernel"),
     # the top-1 max, or the top-n radix select (one cooperative launch, or
@@ -338,7 +341,7 @@ PROFILED_KERNELS = {
 # topn_select_append shares its with the fused step, so the devgen profile,
 # where no fused step runs, counts it by itself)
 ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes", "topn_select_given",
-                     "bucket_records", "topn_candidates")
+                     "bucket_records", "topn_candidates", "count_fire")
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
 # wrap each call in a profiler range and charge it only the device
@@ -353,7 +356,7 @@ CALL_KERNELS = {
     "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel",),
     "fused_step": ("fused_header_kernel",),
-    "count_fire": ("count_fire_count_kernel",),
+    "count_fire": ("count_fire_kernel",),
     "topn_select_lanes": ("lanes_select_kernel", "lanes_radix_all_kernel"),
     "bucket_records": ("bucket_records_kernel",),
     "topn_candidates": ("cand_max_kernel", "cand_radix_all_kernel",
@@ -670,6 +673,27 @@ def devgen_kernel_cases(torch, np, dev, record):
     head = stats2[:8].tolist()
     check(head[1] > 0 and head[2] > 0 and head[4] > 0
           and int(stats2[8:].sum()) > 0, f"edge case stats {head}")
+    # the Nexmark form (the devgen path's: the bids made in registers),
+    # steady and with late and re-fire records, against nexmark_bids_plain
+    # then devgen_ingest_plain
+    for kw_n, with_stats in ((kw, False), (kw, True), (kw_late, True)):
+        a = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+        b = a.clone()
+        sa = dk.devgen_ingest_nexmark(a, args, with_stats=with_stats, **kw_n)
+        sb = dk.devgen_ingest_nexmark_plain(
+            b, args, kw_n["key_domain"], kw_n["pane_ms"], kw_n["offset_ms"],
+            kw_n["dead_below"], kw_n["refire_below"], kw_n["dump_row"],
+            torch.zeros_like(sa) if with_stats else None)
+        torch.cuda.synchronize()
+        err3 = int((a - b).abs().max())
+        if with_stats:
+            err3 = max(err3, int((sa - sb).abs().max()))
+        check(err3 == 0 and (kw_n is kw_late or torch.equal(a, state)),
+              f"devgen_ingest's Nexmark form (stats {with_stats}, late "
+              f"{kw_n is kw_late}) differs from its plain version by {err3}")
+        if kw_n is kw_late:
+            check(int(sa[1]) > 0 and int(sa[4]) > 0,
+                  f"Nexmark form edge case stats {sa[:8].tolist()}")
     # the cells the steady batch adds into (every record valid here)
     flat = torch.where(keys < key_domain, keys * ring + torch.remainder(
         torch.div(ts, 1000, rounding_mode="floor"), ring), kw["dump_row"] * ring)
@@ -677,20 +701,21 @@ def devgen_kernel_cases(torch, np, dev, record):
     ones = torch.ones(n, dtype=torch.int32, device=dev)
     scratch = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
     plain_scratch = scratch.clone()
-    # timed in the headline path's form, without the stats vector. The
-    # bound reads each record's key and ts once and reads and writes each
-    # distinct cell once (the ~1e5 cells' atomics meet in L2, where the
-    # whole 8.4 MB state fits)
+    # timed in the headline path's form: the Nexmark form without the
+    # stats vector. The bound reads and writes each distinct cell once
+    # (the ~1e5 cells' atomics meet in L2, where the whole 8.4 MB state
+    # fits) and counts the generator's and the ingest's integer work; the
+    # plain version is nexmark_bids_plain then devgen_ingest_plain
     record("devgen_ingest", "flink_tpu/ops/window.py:712",
-           max(err, err0, err2),
-           time_ms(torch, lambda: dk.devgen_ingest(scratch, keys, ts,
-                                                   with_stats=False, **kw)),
-           time_ms(torch, lambda: dk.devgen_ingest_plain(
-               plain_scratch, keys, ts, kw["key_domain"], kw["pane_ms"],
+           max(err, err0, err2, err3),
+           time_ms(torch, lambda: dk.devgen_ingest_nexmark(
+               scratch, args, with_stats=False, **kw)),
+           time_ms(torch, lambda: dk.devgen_ingest_nexmark_plain(
+               plain_scratch, args, kw["key_domain"], kw["pane_ms"],
                kw["offset_ms"], kw["dead_below"], kw["refire_below"],
                kw["dump_row"], None)),
            time_ms(torch, lambda: scratch.view(-1).index_add_(0, flat, ones)),
-           16 * n + 8 * n_cells, 15 * n, source="devgen_kernels.cu")
+           8 * n_cells, 37 * n, source="devgen_kernels.cu")
     return {"devgen_ingest_distinct_cells": n_cells}
 
 
@@ -1195,21 +1220,6 @@ def ring_pair_cases(torch, np, dev):
     return out
 
 
-def phase_ring_pairs(torch, np):
-    """``--ring-pairs``: build ``window_kernels`` and ``lane_kernels``
-    alone and run ``ring_pair_cases`` (one JSON line)."""
-    from flink_tpu_torch.kernels import build
-
-    t0 = time.perf_counter()
-    build.build_all(("window_kernels", "lane_kernels"))
-    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
-                    .splitlines() if "registers" in ln or "spill" in ln]
-             for name in ("window_kernels", "lane_kernels")}
-    emit({"phase": "ring_pairs", "build_s": time.perf_counter() - t0,
-          "ptxas": ptxas, **ring_pair_cases(torch, np, torch.device("cuda")),
-          "card": card_line()})
-
-
 def window_lane_cases(torch, np, dev):
     """``window_lanes`` at job T's shape (32,769 rows, a 32-column ring,
     11 windows of 10 panes, one sum and one max lane) beside its library
@@ -1327,36 +1337,15 @@ def fire_kernel_cases(torch, np, dev):
     return out
 
 
-def phase_fire_kernels(torch, np):
-    """``--fire-kernels``: build ``lane_kernels`` and ``topn_lanes_kernels``
-    alone and run ``fire_kernel_cases`` (one JSON line)."""
-    from flink_tpu_torch.kernels import build
-
-    t0 = time.perf_counter()
-    names = ("lane_kernels", "topn_lanes_kernels")
-    build.build_all(names)
-    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
-                    .splitlines() if "registers" in ln or "spill" in ln]
-             for name in names}
-    emit({"phase": "fire_kernels", "build_s": time.perf_counter() - t0,
-          "ptxas": ptxas, **fire_kernel_cases(torch, np, torch.device("cuda")),
-          "card": card_line()})
-
-
 def count_topn_cases(torch, np, dev):
-    """The count-form top-n and the devgen ingest beside their library
-    calls, each as loop ms, device ms and host µs a call
+    """The count-form top-n beside its library calls, each as loop ms, device ms and host µs a call
     (``split_times``), after a bit-for-bit check against the plain
     version: ``topn_select_append`` top-1 on the ``kernels`` phase's
     grid (32,769 x 11 windows) and top-3 on it with four rows planted a
     window (the third and fourth tied), against ``torch.topk(wcounts.T,
     n)`` (the threshold only); ``fused_step`` with the fire of 11 ends,
     gate on (``fused_inputs``); ``topn_select_given`` on job M1's first
-    block (8,193 rows) against the global top-1; ``devgen_ingest`` at
-    the headline shape (a 2^20-bid sub-batch into 32,769 x 64, 10,000
-    auctions, hot ratio 4), without and with stats, against
-    ``index_add_`` on the cells computed in advance."""
-    from flink_tpu_torch.kernels import devgen_kernels as dk
+    block (8,193 rows) against the global top-1."""
     from flink_tpu_torch.kernels import fused_kernels as fk
     from flink_tpu_torch.kernels import window_kernels as wk
 
@@ -1443,57 +1432,8 @@ def count_topn_cases(torch, np, dev):
         "kernel": split_times(torch, lambda: wk.topn_select_given(*args, r3)),
         "library": None, "library_call": "none: no single call"}
 
-    # devgen_ingest at the headline shape (devgen_kernel_cases' batch)
-    n, total, key_domain, ring = 1 << 20, 1 << 22, 10_000, 64
-    keys, ts = dk.nexmark_bids(5, n, n, total, 100, 4, key_domain // 100,
-                               key_domain, dev)
-    pane_lo = int(ts.min()) // 1000
-    kw = dict(key_domain=key_domain, pane_ms=1000, offset_ms=0,
-              dead_below=pane_lo - 1, refire_below=-(2 ** 63),
-              dump_row=rows - 1)
-    flat = keys * ring + torch.remainder(torch.div(ts, 1000,
-                                                   rounding_mode="floor"), ring)
-    ones = torch.ones(n, dtype=torch.int32, device=dev)
-    n_cells = int(torch.unique(flat).numel())
-    b, by = bound_ms(16 * n + 8 * n_cells, 15 * n)
-    for stats in (False, True):
-        a = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
-        c = a.clone()
-        sa = dk.devgen_ingest(a, keys, ts, with_stats=stats, **kw)
-        sc = dk.devgen_ingest_plain(
-            c, keys, ts, kw["key_domain"], kw["pane_ms"], kw["offset_ms"],
-            kw["dead_below"], kw["refire_below"], kw["dump_row"],
-            torch.zeros_like(sa) if stats else None)
-        torch.cuda.synchronize()
-        check(torch.equal(a, c) and (not stats or torch.equal(sa, sc)),
-              f"devgen_ingest (stats {stats}) differs from its plain version")
-        out["devgen_ingest_" + ("stats" if stats else "no_stats")] = {
-            "records": n, "distinct_cells": n_cells, "bound_ms": b,
-            "bound_by": by,
-            "kernel": split_times(torch, lambda: dk.devgen_ingest(
-                a, keys, ts, with_stats=stats, **kw)),
-            "library": split_times(torch, lambda: c.view(-1).index_add_(
-                0, flat, ones)),
-            "library_call": "index_add_ on the cells computed in advance"}
     wk.check_errors(dev)
     return out
-
-
-def phase_count_topn(torch, np):
-    """``--count-topn``: build ``window_kernels``, ``fused_kernels`` and
-    ``devgen_kernels`` alone and run ``count_topn_cases`` (one JSON
-    line)."""
-    from flink_tpu_torch.kernels import build
-
-    t0 = time.perf_counter()
-    names = ("window_kernels", "fused_kernels", "devgen_kernels")
-    build.build_all(names)
-    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
-                    .splitlines() if "registers" in ln or "spill" in ln]
-             for name in names}
-    emit({"phase": "count_topn", "build_s": time.perf_counter() - t0,
-          "ptxas": ptxas, **count_topn_cases(torch, np, torch.device("cuda")),
-          "card": card_line()})
 
 
 def count_lane_cases(torch, np, dev):
@@ -1711,23 +1651,6 @@ def chunk_distinct_share(np, cells, chunk: int = 8192) -> float:
     return kept / len(cells)
 
 
-def phase_count_lane(torch, np):
-    """``--count-lane``: build ``window_kernels`` and ``fused_kernels``
-    alone and run ``count_lane_cases`` (one JSON line)."""
-    from flink_tpu_torch.kernels import build
-
-    t0 = time.perf_counter()
-    names = ("window_kernels", "fused_kernels")
-    build.build_all(names)
-    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
-                    .splitlines() if "registers" in ln or "spill" in ln
-                    or "smem" in ln]
-             for name in names}
-    emit({"phase": "count_lane", "build_s": time.perf_counter() - t0,
-          "ptxas": ptxas, **count_lane_cases(torch, np, torch.device("cuda")),
-          "card": card_line()})
-
-
 def phase_window_lanes(torch, np):
     """``--window-lanes``: build ``topn_lanes_kernels`` alone and run
     ``window_lane_cases`` (one JSON line)."""
@@ -1850,6 +1773,10 @@ def launch_path_cases(torch, np, dev):
         "devgen_ingest": lambda: dk.devgen_ingest(
             dg_counts, bkeys, bts, key_domain=10_000, pane_ms=1000,
             offset_ms=0, dead_below=lo, refire_below=lo, dump_row=rows - 1),
+        "devgen_ingest_nexmark": lambda: dk.devgen_ingest_nexmark(
+            dg_counts, (3, 0, B, B, 100, 4, 100, 10_000), key_domain=10_000,
+            pane_ms=1000, offset_ms=0, dead_below=lo, refire_below=lo,
+            dump_row=rows - 1),
         "count_fire": lambda: cw.count_fire(cw_counts, None, cw_sums, None,
                                             None, 250, 1 << 16),
         "segment_lanes": lambda: ek.segment_lanes(offsets, *el),
@@ -2225,13 +2152,60 @@ def wordcount_kernel_cases(torch, np, dev, out):
     return {"wordcount_scatter_distinct_cells": cells}
 
 
+def count_fire_state(np):
+    """WindowWordCount's count-window state at a fire: 65,537 rows (128 x
+    512 key slots + the dump row) holding each word's count after one
+    real 2^20-word batch, the operator's output cap, and two lane shapes:
+    ``sum`` (one sum lane holding the counts, as ``count_window(250)
+    .sum("n")`` leaves it) and ``lanes`` (a sum, a max and a min lane)."""
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    rows = 128 * 512 + 1
+    _, gen = wordcount_source(np, 1)
+    words, _ = gen("0", 0)
+    directory = KeyDirectory(128, 512)
+    slots = directory.assign(words["word"])
+    counts = np.bincount(slots, minlength=rows).astype(np.int32)
+    cap = 1 << (directory.num_keys() - 1).bit_length()   # the operator's
+    rng = np.random.default_rng(SEED + 7)
+    price = (rng.random(rows) * 900 + 50).astype(np.float32)
+    shapes = {"sum": (counts.astype(np.float32)[:, None], None, None),
+              "lanes": ((counts * price)[:, None], (price * 3)[:, None],
+                        (price / 3)[:, None])}
+    return rows, counts, cap, shapes
+
+
+def count_fire_tensors(torch, np, dev, counts, lanes, base=None):
+    """``[counts, base, sums, maxs, mins]`` on ``dev`` (None where a lane
+    or the base is absent) and a function that copies that state back in
+    (a fire resets the rows it packs)."""
+    saved = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             if x is not None else None
+             for x in (counts, base, *[None if x is None else
+                                       x.astype(np.float32) for x in lanes])]
+    state = [None if x is None else x.clone() for x in saved]
+
+    def restore():
+        for x, y in zip(state, saved):
+            if x is not None:
+                x.copy_(y)
+    return state, restore
+
+
+def count_fire_bytes(rows, n, L, base=False):
+    """count_fire's bytes: the counts (and base) read once, each fired
+    row's lanes read once, the head and n rows of 2 + L words written,
+    then each fired row reset (its count and lanes, or its base)."""
+    reset = n * 4 if base else n * (1 + L) * 4
+    return (rows * (8 if base else 4) + n * L * 4 + (n + 1) * (2 + L) * 4
+            + reset)
+
+
 def count_window_kernel_cases(torch, np, dev, record, out):
-    """``count_fire`` on WindowWordCount's state (65,537 rows; each
-    word's count after one real 2^20-word batch, one sum lane holding
-    the same, as ``count_window(250).sum("n")`` leaves it) and on a
-    max/min/avg shape (those counts with 1 sum, 1 max and 1 min lane);
-    ``split_cells`` on a 2^20-bid batch of the bid-aggregate job (a)
-    into 32,769 x 32. Both exact: count_fire copies lanes as bits."""
+    """``count_fire`` on WindowWordCount's state (``count_fire_state``:
+    the ``sum`` and the ``lanes`` shape); ``split_cells`` on a 2^20-bid
+    batch of the bid-aggregate job (a) into 32,769 x 32. Both exact:
+    count_fire copies lanes as bits."""
     from flink_tpu_torch.kernels import count_window_kernels as cwk
     from flink_tpu_torch.kernels import window_kernels as wk
     from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
@@ -2239,32 +2213,13 @@ def count_window_kernel_cases(torch, np, dev, record, out):
     from flink_tpu_torch.state.keyed import KeyDirectory
 
     extra = {}
-    rows = 128 * 512 + 1
-    _, gen = wordcount_source(np, 1)
-    words, _ = gen("0", 0)
-    directory = KeyDirectory(128, 512)
-    slots = directory.assign(words["word"])
-    counts_np = np.bincount(slots, minlength=rows).astype(np.int32)
-    cap = 1 << (directory.num_keys() - 1).bit_length()   # the operator's
-    rng = np.random.default_rng(SEED + 7)
-    price = (rng.random(rows) * 900 + 50).astype(np.float32)
-    shapes = {"sum": (counts_np.astype(np.float32)[:, None], None, None),
-              "lanes": ((counts_np * price)[:, None], (price * 3)[:, None],
-                        (price / 3)[:, None])}
+    rows, counts_np, cap, shapes = count_fire_state(np)
     for name, lanes in shapes.items():
-        saved = [torch.from_numpy(counts_np).to(dev)] + [
-            None if x is None else torch.from_numpy(
-                np.ascontiguousarray(x, np.float32)).to(dev) for x in lanes]
-        kern = [None if x is None else x.clone() for x in saved]
-        plain = [None if x is None else x.clone() for x in saved]
-
-        def restore(st):
-            for x, y in zip(st, saved):
-                if x is not None:
-                    x.copy_(y)
-
-        a = cwk.count_fire(kern[0], None, *kern[1:], CW_SIZE, cap)
-        b = cwk.count_fire_plain(plain[0], None, *plain[1:], CW_SIZE, cap)
+        kern, restore = count_fire_tensors(torch, np, dev, counts_np, lanes)
+        plain, restore_plain = count_fire_tensors(torch, np, dev, counts_np,
+                                                  lanes)
+        a = cwk.count_fire(*kern, CW_SIZE, cap)
+        b = cwk.count_fire_plain(*plain, CW_SIZE, cap)
         torch.cuda.synchronize()
         n = int(b[0, 0])
         check(n > 0 and int(a[0, 0]) == n
@@ -2274,16 +2229,15 @@ def count_window_kernel_cases(torch, np, dev, record, out):
               f"count_fire ({name}) differs from its plain version")
         # each timed call fires on a fresh copy of the state (a fire
         # resets its rows); the copy loop alone is timed and subtracted
-        copy_ms = time_ms(torch, lambda: restore(kern))
-        ms = time_ms(torch, lambda: (restore(kern), cwk.count_fire(
-            kern[0], None, *kern[1:], CW_SIZE, cap))) - copy_ms
-        plain_ms = time_ms(torch, lambda: (restore(plain), cwk.count_fire_plain(
-            plain[0], None, *plain[1:], CW_SIZE, cap)), iters=10) - copy_ms
+        copy_ms = time_ms(torch, restore)
+        ms = time_ms(torch, lambda: (restore(), cwk.count_fire(
+            *kern, CW_SIZE, cap))) - copy_ms
+        plain_ms = time_ms(torch, lambda: (restore_plain(),
+                                           cwk.count_fire_plain(
+                                               *plain, CW_SIZE, cap)),
+                           iters=10) - copy_ms
         L = sum(1 for x in lanes if x is not None)
-        # reads: the counts once and each fired row's lanes once; writes:
-        # the head and n rows of 2 + L words, then each fired row's count
-        # and lanes reset
-        nbytes = rows * 4 + n * L * 4 + (n + 1) * (2 + L) * 4 + n * (1 + L) * 4
+        nbytes = count_fire_bytes(rows, n, L)
         if name == "sum":
             record("count_fire", "flink_tpu/ops/count_window.py:106", 0, ms,
                    plain_ms, None, nbytes, rows,
@@ -2771,7 +2725,7 @@ def profile_devgen(torch, np, conf_path, cfg):
 
     out = profile_run(torch, lambda: run_devgen_q5(
         torch, np, Configuration.from_file(conf_path), cfg,
-        "q5-devgen-profiled")[3], own=("topn_select_append",))
+        "q5-devgen-profiled")[3], own=("topn_select_append", "devgen_ingest"))
     return {"logical_batches": cfg.n_batches, **out}
 
 
@@ -2849,8 +2803,8 @@ def phase_q5_devgen(torch, np):
                   dataclasses.replace(cfg, n_batches=2), "q5-devgen-warmup")
     n_steps = DEVGEN_BATCHES * DEVGEN_SUB
     events = DEVGEN_BATCH * DEVGEN_BATCHES
-    on_path = ("nexmark_bids", "devgen_ingest", "window_counts",
-               "topn_select_append", "ring_columns")
+    on_path = ("devgen_ingest", "window_counts", "topn_select_append",
+               "ring_columns")
     runs = []
     for i in range(DEVGEN_RUNS):
         rows, launches, res, wall = run_devgen_q5(torch, np, conf, cfg,
@@ -2858,10 +2812,11 @@ def phase_q5_devgen(torch, np):
         missing = [k for k in on_path if launches[k] == 0]
         check(not missing,
               f"kernels not launched on the devgen path: {missing}")
-        check(launches["nexmark_bids"] == n_steps
-              and launches["devgen_ingest"] == n_steps,
-              f"expected {n_steps} launches of nexmark_bids and "
-              f"devgen_ingest, got {launches}")
+        # a sub-batch's bids made inside its ingest: one launch
+        check(launches["devgen_ingest"] == n_steps
+              and launches["nexmark_bids"] == 0,
+              f"expected {n_steps} launches of devgen_ingest and none of "
+              f"nexmark_bids, got {launches}")
         check(res.metrics["devgen_host_batches"] == 0,
               f"{res.metrics['devgen_host_batches']} batches went to the host")
         check(res.metrics["records_in"] == events,
@@ -2906,8 +2861,10 @@ def phase_q5_devgen(torch, np):
         r, l, rk, w = run_devgen_q5(torch, np, ck, short, f"q5-devgen-k{k}")
         check(rk.metrics["devgen_host_batches"] == 0,
               f"K={k}: {rk.metrics['devgen_host_batches']} host batches")
-        check(l["nexmark_bids"] == DEVGEN_K_BATCHES * k,
-              f"K={k}: {l['nexmark_bids']} nexmark_bids launches")
+        check(l["devgen_ingest"] == DEVGEN_K_BATCHES * k
+              and l["nexmark_bids"] == 0,
+              f"K={k}: {l['devgen_ingest']} devgen_ingest and "
+              f"{l['nexmark_bids']} nexmark_bids launches")
         by_k[k] = (r, w)
     expect4 = golden(DEVGEN_K_BATCHES)
     r1, r4 = by_k[1][0], by_k[DEVGEN_SUB][0]
@@ -2927,6 +2884,12 @@ def phase_q5_devgen(torch, np):
     per = out["profiled"]["kernels_per_call"].get("topn_select_append")
     check(per == wk.topn_plan(128 * 256 + 1, 11, 1).kernels,
           f"q5_devgen: topn_select_append kernels a call {per}")
+    # the ingest makes its bids: one kernel a sub-batch, no generator's
+    per = out["profiled"]["kernels_per_call"].get("devgen_ingest")
+    gen = out["profiled"]["device_ms_by_wrapper"].get("nexmark_bids")
+    check(per == 1 and gen is None,
+          f"q5_devgen: devgen_ingest kernels a call {per}, "
+          f"nexmark_bids_kernel device ms {gen}")
     out["k_compare"] = {
         "logical_batches": DEVGEN_K_BATCHES, "rows": len(r1),
         "equal_window_by_window": per_window,
@@ -3357,6 +3320,8 @@ def phase_window_wordcount(torch, np):
     busy, host = busy_and_host(res)
     prof = profile_run(torch, lambda: run_window_wordcount(
         torch, np, WC_WARMUP_BATCHES, "window-wordcount-profiled")[3])
+    per = prof["kernels_per_call"].get("count_fire")
+    check(per == 1, f"window_wordcount: count_fire kernels a call {per}")
     c_parts, c_launches, _, c_wall = run_window_wordcount(
         torch, np, WC_WARMUP_BATCHES, "window-wordcount-count", agg="count")
     c_rows = check_window_wordcount(
@@ -4337,23 +4302,175 @@ def mesh_split_cases(torch, np, dev):
     return out
 
 
-def phase_mesh_kernels(torch, np):
-    """``--mesh-kernels``: build ``exchange_kernels`` and
-    ``window_kernels`` alone and run ``mesh_split_cases`` (one JSON
-    line)."""
+def count_fire_cases(torch, np, dev):
+    """``count_fire`` at WindowWordCount's fire (``count_fire_state``, the
+    ``sum`` and the ``lanes`` shape), first held bit for bit against its
+    plain version, purging and not (a base of half the counts), then,
+    purging as the job runs it, as the kernel apart from the state's
+    restore: loop ms (CUDA events around 50 restores and fires, less 50
+    restores), device ms and kernels a call (``torch.profiler`` over 10
+    restores and fires, the ``count_fire`` kernels only) and host µs a
+    call (1,000 fires without a sync, on the state already fired, so
+    nothing fires: the enqueue cost). No single torch call fires, packs
+    and resets."""
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    rows, counts_np, cap, shapes = count_fire_state(np)
+    out = {}
+    for name, lanes in shapes.items():
+        L = sum(1 for x in lanes if x is not None)
+        for base_np in (None, counts_np // 2):
+            runs = []
+            for fn in (cwk.count_fire, cwk.count_fire_plain):
+                st, _ = count_fire_tensors(torch, np, dev, counts_np, lanes,
+                                           base_np)
+                runs.append((fn(*st, CW_SIZE, cap), st))
+            torch.cuda.synchronize()
+            (a, sa), (b, sb) = runs
+            n = int(b[0, 0])
+            check(n > 0 and int(a[0, 0]) == n
+                  and same_bits(torch, a[:n + 1], b[:n + 1])
+                  and all(x is None or same_bits(torch, x, y)
+                          for x, y in zip(sa, sb)),
+                  f"count_fire ({name}, purge {base_np is None}) differs "
+                  "from its plain version")
+            if base_np is None:
+                fired = n
+            else:
+                out[f"count_fire_{name}_keep_fired_rows"] = n
+        st, restore = count_fire_tensors(torch, np, dev, counts_np, lanes)
+
+        def fire():
+            return cwk.count_fire(*st, CW_SIZE, cap)
+
+        def restore_fire():
+            restore()
+            return fire()
+
+        stages = kernel_stages(torch, restore_fire)
+        mine = {k: v for k, v in stages.items() if k.startswith("count_fire")}
+        restore_ms = time_ms(torch, restore)
+        both_ms = time_ms(torch, restore_fire)
+        b, by = bound_ms(count_fire_bytes(rows, fired, L), rows)
+        out["count_fire_" + name] = {
+            "rows": rows, "fired_rows": fired, "lanes": L, "out_cap": cap,
+            "bound_ms": b, "bound_by": by,
+            "tile_rows": cwk.FIRE_TILE,
+            "loop_ms": both_ms - restore_ms, "loop_ms_with_restore": both_ms,
+            "restore_loop_ms": restore_ms,
+            "device_ms": sum(v["ms_per_call"] for v in mine.values()),
+            "device_kernels": sum(v["per_call"] for v in mine.values()),
+            "restore_device_ms": sum(v["ms_per_call"] for k, v in
+                                     stages.items() if k not in mine),
+            "host_us": host_us(torch, fire), "stages": stages}
+    wk.check_errors(dev)
+    return out
+
+
+def devgen_ingest_cases(torch, np, dev):
+    """The devgen path's make and ingest of one headline sub-batch
+    (sub-batch 1 of logical batch 5: 2^20 bids of a 2^22 batch, 100
+    bids/ms, 10,000 auctions, hot ratio 4, into 32,769 x 64), without and
+    with stats, each first held bit for bit against the composed plain
+    version (``nexmark_bids_plain``, then ``devgen_ingest_plain``), then
+    as loop ms, device ms and host µs a call (``split_times``): the pair
+    of launches (``nexmark_bids`` into device memory, ``devgen_ingest``
+    reading it back), ``devgen_ingest`` alone on records already made
+    (the memory form, as any other device source's ingest runs it) and
+    the Nexmark form of ``devgen_ingest`` (one launch, the bids made in
+    registers: the devgen path's), beside
+    ``index_add_`` on the cells computed in advance."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    n, total, key_domain, rows, ring = 1 << 20, 1 << 22, 10_000, 32_769, 64
+    gen = (5, n, n, total, 100, 4, key_domain // 100, key_domain)
+    keys, ts = dk.nexmark_bids_plain(*gen, dev)
+    kw = dict(key_domain=key_domain, pane_ms=1000, offset_ms=0,
+              dead_below=int(ts.min()) // 1000 - 1,
+              refire_below=-(2 ** 63), dump_row=rows - 1)
+    flat = keys * ring + torch.remainder(torch.div(ts, 1000,
+                                                   rounding_mode="floor"), ring)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    n_cells = int(torch.unique(flat).numel())
+    forms = {"pair": lambda c, stats: dk.devgen_ingest(
+        c, *dk.nexmark_bids(*gen, dev), with_stats=stats, **kw),
+             "memory": lambda c, stats: dk.devgen_ingest(
+        c, keys, ts, with_stats=stats, **kw),
+             "fused": lambda c, stats: dk.devgen_ingest_nexmark(
+        c, gen, with_stats=stats, **kw)}
+    out = {"records": n, "distinct_cells": n_cells}
+    for stats in (False, True):
+        want = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+        want_stats = dk.devgen_ingest_plain(
+            want, keys, ts, kw["key_domain"], kw["pane_ms"], kw["offset_ms"],
+            kw["dead_below"], kw["refire_below"], kw["dump_row"],
+            torch.zeros(dk.STATS_WORDS, dtype=torch.int32, device=dev)
+            if stats else None)
+        lib = want.clone()
+        for form, fn in forms.items():
+            c = torch.zeros_like(want)
+            got = fn(c, stats)
+            torch.cuda.synchronize()
+            check(torch.equal(c, want)
+                  and (not stats or torch.equal(got, want_stats)),
+                  f"devgen_ingest ({form}, stats {stats}) differs from the "
+                  "composed plain version")
+            # the pair moves the records through HBM (16 B a record written
+            # and read), the memory form reads them; each reads and writes
+            # each cell once
+            nbytes = {"pair": 32, "memory": 16}.get(form, 0) * n + 8 * n_cells
+            b, by = bound_ms(nbytes, (15 if form == "memory" else 37) * n)
+            out[f"{form}_{'stats' if stats else 'no_stats'}"] = {
+                "bound_ms": b, "bound_by": by,
+                "kernel": split_times(torch, lambda: fn(c, stats))}
+        out["library_" + ("stats" if stats else "no_stats")] = split_times(
+            torch, lambda: lib.view(-1).index_add_(0, flat, ones))
+    out["library_call"] = "index_add_ on the cells computed in advance"
+    wk.check_errors(dev)
+    return out
+
+
+# --cases NAME[,NAME...]: kernel cases, parent and change in turns. A row
+# names the CUDA sources it needs (built alone) and its function (torch,
+# np, dev) -> dict, printed as one JSON line under the row's name; the
+# older flags each run one row (--ring-pairs: ring_pairs, ...). To compare
+# with a parent, unpack it under _archive/ with this file copied in and
+# run both in one call, in turns.
+KERNEL_CASES = {
+    "ring_pairs": (("window_kernels", "lane_kernels"), ring_pair_cases),
+    "fire_kernels": (("lane_kernels", "topn_lanes_kernels"),
+                     fire_kernel_cases),
+    "count_topn": (("window_kernels", "fused_kernels"), count_topn_cases),
+    "count_lane": (("window_kernels", "fused_kernels"), count_lane_cases),
+    "mesh_kernels": (("exchange_kernels", "window_kernels"),
+                     mesh_split_cases),
+    "count_fire": (("count_window_kernels",), count_fire_cases),
+    "devgen_ingest": (("devgen_kernels",), devgen_ingest_cases),
+}
+
+
+def phase_cases(torch, np, names):
+    """Build the named rows' sources (one nvcc a source, together) and run
+    each row: one JSON line a row, with the build's time and ptxas lines."""
     from flink_tpu_torch.kernels import build
 
+    unknown = [n for n in names if n not in KERNEL_CASES]
+    check(not unknown, f"unknown case rows {unknown}; known: "
+          f"{sorted(KERNEL_CASES)}")
+    sources = sorted({s for n in names for s in KERNEL_CASES[n][0]})
     t0 = time.perf_counter()
-    names = ("exchange_kernels", "window_kernels")
-    build.build_all(names)
-    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG[name]["ptxas"]
-                    .splitlines() if "registers" in ln or "spill" in ln
-                    or "smem" in ln]
-             for name in names}
-    emit({"phase": "mesh_kernels", "root": ROOT,
-          "build_s": time.perf_counter() - t0, "ptxas": ptxas,
-          **mesh_split_cases(torch, np, torch.device("cuda")),
-          "card": card_line()})
+    build.build_all(sources)
+    build_s = time.perf_counter() - t0
+    for name in names:
+        srcs, fn = KERNEL_CASES[name]
+        ptxas = {s: [ln.strip() for ln in build.BUILD_LOG[s]["ptxas"]
+                     .splitlines() if "registers" in ln or "spill" in ln
+                     or "smem" in ln] for s in srcs}
+        emit({"phase": name, "root": ROOT, "build_s": build_s,
+              "ptxas": ptxas, **fn(torch, np, torch.device("cuda")),
+              "card": card_line()})
 
 
 def element_golden(np, n_batches):
@@ -4709,109 +4826,27 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    if "--scatter-lanes" in sys.argv[1:]:
+    argv = sys.argv[1:]
+    # a flag runs its phase alone: the phase's JSON line, the card line,
+    # then the ok line
+    modes = {
+        "--scatter-lanes": phase_scatter_lanes,
+        "--window-lanes": phase_window_lanes,
+        "--launch-path": phase_launch_path,
+        "--big-cells": phase_big_cells,
+        "--mesh-cards": lambda torch, np: (phase_build(),
+                                           phase_mesh_cards(torch, np)),
+        "--cases": lambda torch, np: phase_cases(
+            torch, np, argv[argv.index("--cases") + 1].split(",")),
+        **{"--" + name.replace("_", "-"): (
+            lambda torch, np, name=name: phase_cases(torch, np, [name]))
+           for name in ("ring_pairs", "fire_kernels", "count_topn",
+                        "count_lane", "mesh_kernels")},
+    }
+    flag = next((a for a in argv if a in modes), None)
+    if flag is not None:
         try:
-            phase_scatter_lanes(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--window-lanes" in sys.argv[1:]:
-        try:
-            phase_window_lanes(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--launch-path" in sys.argv[1:]:
-        try:
-            phase_launch_path(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--big-cells" in sys.argv[1:]:
-        try:
-            phase_big_cells(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--ring-pairs" in sys.argv[1:]:
-        try:
-            phase_ring_pairs(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--fire-kernels" in sys.argv[1:]:
-        try:
-            phase_fire_kernels(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--count-topn" in sys.argv[1:]:
-        try:
-            phase_count_topn(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--count-lane" in sys.argv[1:]:
-        try:
-            phase_count_lane(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--mesh-kernels" in sys.argv[1:]:
-        try:
-            phase_mesh_kernels(torch, np)
-            print(card_line(), flush=True)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    if "--mesh-cards" in sys.argv[1:]:
-        try:
-            phase_build()
-            phase_mesh_cards(torch, np)
+            modes[flag](torch, np)
             print(card_line(), flush=True)
         except Exception:
             traceback.print_exc()
@@ -4869,18 +4904,19 @@ def main() -> int:
                     **{k: "mesh_q5" for k in MESH_KERNELS}}
         for row in table:
             name = row["name"]
-            if name == "hash_keys":
-                # no path of either package calls it (the reference's
-                # tests only): held against its plain version and
-                # hash_keys_numpy in the kernels phase, and its count over
-                # every path's run must stay 0
+            if name in ("hash_keys", "nexmark_bids"):
+                # no path calls them: hash_keys no path of either package
+                # (the reference's tests only), nexmark_bids none since the
+                # devgen path's ingest makes its bids itself; each is held
+                # against its plain version in the kernels phase, and its
+                # count over every path's run must stay 0
                 row["launches_by_path"] = {p: l[name]
                                            for p, l in paths.items()}
                 row["launches"] = sum(row["launches_by_path"].values())
                 row["launches_path"] = None
                 row["pipeline_device_ms"] = None
                 check(row["launches"] == 0,
-                      "hash_keys launched on a path that should not call it")
+                      f"{name} launched on a path that should not call it")
                 continue
             # device time per call inside the profiled pipeline runs (the
             # "ms" above is a launch loop, host-bound for short kernels)

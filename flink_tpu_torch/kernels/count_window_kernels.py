@@ -13,8 +13,11 @@ As in ``window_kernels.py``: the wrapper takes the plain version only
 for tensors on the CPU and launches the kernel (or raises) for CUDA
 tensors; ``window_kernels.LAUNCHES`` counts the launches; a buffer too
 small for the fired rows makes the plain version raise and the kernel
-set a bit in the device's error word. The kernel copies lanes as bits
-and adds nothing, so it agrees with the plain version bit for bit.
+set a bit in the device's error word. The kernel is one launch (an
+ordered compaction by decoupled look-back, over a clean workspace a
+device and stream, ``window_kernels.clean_workspace``); it copies lanes
+as bits and adds nothing, so it agrees with the plain version bit for
+bit.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ _SIGNATURES = {
 }
 
 
-# csrc/window_common.cuh kTile: the rows of a count_fire compaction block
-FIRE_TILE = 1024
+# csrc/count_window_kernels.cu kFireTile: the rows a block takes (256
+# threads times 2 rows a thread), which sizes the workspace
+FIRE_TILE = 512
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,8 +45,15 @@ def _lib() -> ctypes.CDLL:
                            "cw_error_string")
 
 
-_COUNT_FIRE = wk.LeanEntry(_lib, "cw_count_fire", "count_fire", 14,
+_COUNT_FIRE = wk.LeanEntry(_lib, "cw_count_fire", "count_fire", 15,
                            "cw_error_string")
+
+
+def _fire_work_words(tiles: int) -> int:
+    """count_fire's workspace in int64 words: the epoch, then from word
+    ``LB_LINE`` a descriptor a tile, each on its own 128-byte line
+    (csrc/lookback.cuh); the kernels leave it clean for the next call."""
+    return wk.LB_LINE * (1 + tiles)
 
 
 def count_fire(counts: torch.Tensor, base: Optional[torch.Tensor],
@@ -92,12 +103,18 @@ def count_fire(counts: torch.Tensor, base: Optional[torch.Tensor],
     dev = counts.device
     cols = 2 + _width(sums) + _width(maxs) + _width(mins)
     out = torch.empty((out_cap + 1, cols), dtype=torch.int32, device=dev)
-    _held, block_counts = wk.scratch(dev, max(1, -(-rows // FIRE_TILE)))
     err, stream = wk.launch_context(index)
-    _COUNT_FIRE(stream, counts.data_ptr(), _ptr(base), rows,
-                _ptr(sums), _width(sums), _ptr(maxs), _width(maxs),
-                _ptr(mins), _width(mins), int(size), out.data_ptr(),
-                int(out_cap), block_counts, err)
+    work, (cap_tiles,) = wk.clean_workspace(
+        "count_fire", index, stream, (max(1, -(-rows // FIRE_TILE)),),
+        _fire_work_words)
+    try:
+        _COUNT_FIRE(stream, counts.data_ptr(), _ptr(base), rows,
+                    _ptr(sums), _width(sums), _ptr(maxs), _width(maxs),
+                    _ptr(mins), _width(mins), int(size), out.data_ptr(),
+                    int(out_cap), work, _fire_work_words(cap_tiles), err)
+    except RuntimeError:
+        wk.drop_workspace("count_fire", index, stream)
+        raise
     return out
 
 

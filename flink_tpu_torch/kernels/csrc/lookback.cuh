@@ -1,13 +1,13 @@
 // Ordered compaction in one launch, by decoupled look-back (Merrill &
 // Garland 2016, "Single-pass Parallel Prefix Scan with Decoupled
 // Look-back"), shared by the fire kernels redesigned for Hopper:
-// fire_pack (lane_kernels.cu) and the top-n selections of topn_select.cuh
-// (topn_select_lanes, topn_select_append, the fused step's fire tail and
-// topn_select_given). A block ranks the selected items of its tile,
-// publishes the tile's count and takes its global offset from the tiles
-// before it in the same launch, so no per-item scratch goes through
-// device memory and no second launch reads it back. compact.cuh's
-// two-launch form stays for count_fire.
+// fire_pack (lane_kernels.cu), count_fire (count_window_kernels.cu) and
+// the top-n selections of topn_select.cuh (topn_select_lanes,
+// topn_select_append, the fused step's fire tail and topn_select_given).
+// A block ranks the selected items of its tile, publishes the tile's
+// count and takes its global offset from the tiles before it in the same
+// launch, so no per-item scratch goes through device memory and no
+// second launch reads it back (or has to select the same items again).
 //
 // Tile t is block t: the scheduler starts blocks in index order, so a
 // tile's predecessors are running or done when it waits on them (CUB's

@@ -6,6 +6,10 @@ same signature.
   event time for one (sub-)batch, made on the device.
 - ``devgen_ingest`` (K6): folds those records into the pane counts and
   writes the stats vector of ``flink_tpu``'s ``devgen_step_kernel``.
+  Its Nexmark form, ``devgen_ingest_nexmark``, makes K5's records in
+  registers inside the same launch (as the reference's step traces its
+  generator in), so the devgen path's bids never reach device memory;
+  it counts as a ``devgen_ingest`` launch.
 
 As in ``window_kernels.py``: a wrapper takes the plain version only for
 tensors on the CPU and launches the kernel (or raises) for CUDA
@@ -53,6 +57,8 @@ def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
 
 _NEXMARK_BIDS = _entry("dg_nexmark_bids", "nexmark_bids", 10)
 _DEVGEN_INGEST = _entry("dg_devgen_ingest", "devgen_ingest", 14)
+_DEVGEN_INGEST_NEXMARK = _entry("dg_devgen_ingest_nexmark", "devgen_ingest",
+                                19)
 
 
 def _i64(v: int) -> int:
@@ -69,6 +75,17 @@ def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
 
 # -- K5 ----------------------------------------------------------------------
 
+def _check_gen(name, logical, off, n, batch_total, events_per_ms, hot_ratio,
+               n_hot, n_auctions) -> None:
+    if n < 0 or off < 0 or logical < 0 or events_per_ms < 1 \
+            or hot_ratio < 1 or not 1 <= n_hot < 2 ** 31 \
+            or not 1 <= n_auctions < 2 ** 31:
+        raise ValueError(
+            f"{name}: bad arguments (logical={logical}, off={off}, "
+            f"n={n}, events_per_ms={events_per_ms}, hot_ratio={hot_ratio}, "
+            f"n_hot={n_hot}, n_auctions={n_auctions})")
+
+
 def nexmark_bids(logical: int, off: int, n: int, batch_total: int,
                  events_per_ms: int, hot_ratio: int, n_hot: int,
                  n_auctions: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,13 +94,8 @@ def nexmark_bids(logical: int, off: int, n: int, batch_total: int,
     int64 ``(auction, ts)`` tensors on ``device``. Auction is bit-exact
     with ``native/codec.cc`` ``nexmark_bids(seed=logical)``; ``ts`` is
     ``(logical * batch_total + off + i) // events_per_ms``."""
-    if n < 0 or off < 0 or logical < 0 or events_per_ms < 1 \
-            or hot_ratio < 1 or not 1 <= n_hot < 2 ** 31 \
-            or not 1 <= n_auctions < 2 ** 31:
-        raise ValueError(
-            f"nexmark_bids: bad arguments (logical={logical}, off={off}, "
-            f"n={n}, events_per_ms={events_per_ms}, hot_ratio={hot_ratio}, "
-            f"n_hot={n_hot}, n_auctions={n_auctions})")
+    _check_gen("nexmark_bids", logical, off, n, batch_total, events_per_ms,
+               hot_ratio, n_hot, n_auctions)
     device = torch.device(device)
     out = torch.empty(2 * n, dtype=torch.int64, device=device)
     keys, ts = out[:n], out[n:]
@@ -161,6 +173,49 @@ def devgen_ingest(counts: torch.Tensor, keys: torch.Tensor, ts: torch.Tensor,
                    int(dump_row), stats.data_ptr() if stats is not None else 0,
                    err)
     return stats
+
+
+def devgen_ingest_nexmark(counts: torch.Tensor, gen: Tuple[int, ...], *,
+                          key_domain: int, pane_ms: int, offset_ms: int,
+                          dead_below: int, refire_below: int, dump_row: int,
+                          with_stats: bool = True) -> Optional[torch.Tensor]:
+    """``devgen_ingest`` of the records ``nexmark_bids(*gen)`` makes, in
+    one launch that makes them in registers: ``gen`` is ``nexmark_bids``'
+    ``(logical, off, n, batch_total, events_per_ms, hot_ratio, n_hot,
+    n_auctions)``. The same counts and stats as ``nexmark_bids`` then
+    ``devgen_ingest``; the launch counts as ``devgen_ingest``."""
+    index = wk.fast_index((counts, torch.int32, 2))
+    if index is None:
+        wk.check_tensor(counts, "counts", torch.int32, 2)
+    _check_gen("devgen_ingest_nexmark", *gen)
+    if pane_ms < 1:
+        raise ValueError("pane_ms must be >= 1")
+    stats = (torch.zeros(STATS_WORDS, dtype=torch.int32, device=counts.device)
+             if with_stats else None)
+    if index is None:
+        if not wk.on_cuda("devgen_ingest", counts):
+            return devgen_ingest_nexmark_plain(
+                counts, gen, key_domain, pane_ms, offset_ms, dead_below,
+                refire_below, dump_row, stats)
+        index = counts.get_device()
+    logical, off, n, batch_total, epm, hot_ratio, n_hot, n_auctions = gen
+    err, stream = wk.launch_context(index)
+    _DEVGEN_INGEST_NEXMARK(
+        stream, counts.data_ptr(), counts.numel(), n, logical, off,
+        batch_total, epm, hot_ratio, n_hot, n_auctions, int(key_domain),
+        int(pane_ms), int(offset_ms), counts.shape[1], int(dead_below),
+        int(refire_below), int(dump_row),
+        stats.data_ptr() if stats is not None else 0, err)
+    return stats
+
+
+def devgen_ingest_nexmark_plain(counts, gen, key_domain, pane_ms, offset_ms,
+                                dead_below, refire_below, dump_row, stats):
+    """``nexmark_bids_plain`` then ``devgen_ingest_plain``."""
+    keys, ts = nexmark_bids_plain(*gen, counts.device)
+    return devgen_ingest_plain(counts, keys, ts, key_domain, pane_ms,
+                               offset_ms, dead_below, refire_below, dump_row,
+                               stats)
 
 
 def devgen_ingest_plain(counts, keys, ts, key_domain, pane_ms, offset_ms,

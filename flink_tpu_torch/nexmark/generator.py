@@ -167,11 +167,25 @@ class NexmarkDeviceBidGen:
         kernel on a CUDA device, its plain version on the CPU."""
         from flink_tpu_torch.kernels import devgen_kernels as dk
 
+        return dk.nexmark_bids(*self._gen(batch_index), device)
+
+    def _gen(self, batch_index: int) -> Tuple[int, ...]:
+        """``nexmark_bids``' arguments for a batch index."""
         logical, off = self.split_index(int(batch_index))
-        return dk.nexmark_bids(
-            logical, off, self.batch_size, self.batch_size * self.sub_batches,
-            self.events_per_ms, self.hot_ratio, self.n_hot, self.n_auctions,
-            device)
+        return (logical, off, self.batch_size,
+                self.batch_size * self.sub_batches, self.events_per_ms,
+                self.hot_ratio, self.n_hot, self.n_auctions)
+
+    def ingest_into(self, counts, batch_index: int, **ingest):
+        """Make the batch and fold it into ``counts`` in one step, as the
+        reference's step traces its generator in: ``devgen_ingest``'s
+        Nexmark form (one launch on the card, the bids in registers; its
+        plain version on the CPU). ``ingest`` is ``devgen_ingest``'s
+        keywords; returns its stats vector (or None)."""
+        from flink_tpu_torch.kernels import devgen_kernels as dk
+
+        return dk.devgen_ingest_nexmark(counts, self._gen(batch_index),
+                                        **ingest)
 
 
 def bid_stream_device(cfg: NexmarkConfig,

@@ -48,8 +48,10 @@ the same way).
 
 A device-made source (``attach_device_source``) skips the host ingest:
 its batch index is stashed, and the next watermark advance makes the
-records on the card (the source's ``device_keys_ts``, ``nexmark_bids``
-for Nexmark), folds them in with ``devgen_ingest`` and then fires every
+records on the card and folds them in with ``devgen_ingest`` (for the
+Nexmark bids in one launch that makes them in registers, the
+generator's ``ingest_into``; any other source's ``device_keys_ts``
+first, into memory), and then fires every
 window end of the advance in one ``window_counts`` +
 ``topn_select_append`` pair, as the reference's one-dispatch step does.
 The ingest's stats vector is made and copied back only when the batch
@@ -1972,22 +1974,31 @@ class WindowOperator:
 
     def _flush_devgen(self) -> None:
         """Make a stashed device-made batch on the card and fold it in
-        (``devgen_ingest``). An advance calls this before its fires;
-        so does every other consumer of up-to-date state (snapshots,
-        quiesce, ring growth)."""
+        (``devgen_ingest``; one launch for the Nexmark bids, which its
+        Nexmark form makes in registers). An advance calls this before
+        its fires; so does every other consumer of up-to-date state
+        (snapshots, quiesce, ring growth)."""
         if self._stash_devgen is None:
             return
         batch_index, dead, refire_below, need_stats = self._stash_devgen
         self._stash_devgen = None
         spec = self._devgen_spec
-        with self.timer.span("gen"):
-            keys, ts = spec.device_keys_ts(batch_index, self.device)
-        with self.timer.span("ingest"):
-            stats = dk.devgen_ingest(
-                self.state.counts, keys, ts, key_domain=int(spec.key_domain),
-                pane_ms=self.plan.pane_ms, offset_ms=self.plan.offset_ms,
-                dead_below=dead, refire_below=refire_below,
-                dump_row=self.layout.slots, with_stats=need_stats)
+        ingest = dict(key_domain=int(spec.key_domain),
+                      pane_ms=self.plan.pane_ms, offset_ms=self.plan.offset_ms,
+                      dead_below=dead, refire_below=refire_below,
+                      dump_row=self.layout.slots, with_stats=need_stats)
+        # a generator that can make its batch inside the ingest (the
+        # Nexmark bids) does; any other makes it first, into memory
+        ingest_into = getattr(spec.device_keys_ts, "ingest_into", None)
+        if ingest_into is not None:
+            with self.timer.span("ingest"):
+                stats = ingest_into(self.state.counts, batch_index, **ingest)
+        else:
+            with self.timer.span("gen"):
+                keys, ts = spec.device_keys_ts(batch_index, self.device)
+            with self.timer.span("ingest"):
+                stats = dk.devgen_ingest(self.state.counts, keys, ts,
+                                         **ingest)
         if need_stats:
             if self.device.type == "cpu":
                 self._devstats_pending.append((batch_index, dead, stats, None))

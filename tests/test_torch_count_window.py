@@ -271,6 +271,23 @@ def test_count_fire_plain_on_a_state_made_by_hand():
     assert wk.LAUNCHES["count_fire"] == 0
 
 
+def test_count_fire_is_one_lookback_launch():
+    """The count-window fire compacts in one launch on lookback.cuh's
+    decoupled look-back: its source includes it, and no source includes
+    the two-launch compact.cuh, which is gone."""
+    import os
+
+    csrc = os.path.join(os.path.dirname(cwk.__file__), "csrc")
+    with open(os.path.join(csrc, "count_window_kernels.cu")) as f:
+        cu = f.read()
+    assert '#include "lookback.cuh"' in cu
+    assert cu.count("<<<") == 1 and "lookback_exclusive" in cu
+    assert not os.path.exists(os.path.join(csrc, "compact.cuh"))
+    for name in os.listdir(csrc):
+        with open(os.path.join(csrc, name)) as f:
+            assert "compact.cuh" not in f.read(), name
+
+
 # -- jobs through env.execute -------------------------------------------------
 
 def _conf(cls):

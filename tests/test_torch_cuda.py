@@ -527,7 +527,8 @@ def test_devgen_q5_on_the_card_matches_the_cpu(dev, k):
         rows.append([(int(r["auction"]), int(r["window_end"]),
                       int(r["bid_count"])) for r in sink.rows])
     assert rows[0] == rows[1] and len(rows[0]) > 100
-    assert wk.LAUNCHES["nexmark_bids"] == 4 * k
+    # each sub-batch's bids made inside its ingest: one launch a step
+    assert wk.LAUNCHES["nexmark_bids"] == 0
     assert wk.LAUNCHES["devgen_ingest"] == 4 * k
 
 
@@ -1418,16 +1419,104 @@ def test_count_fire(dev, purge, widths):
 
 
 def test_count_fire_overflow_sets_the_error_word(dev):
+    """3,000 rows, every one but the dump row due: a cap of 2,999 is met
+    exactly (no error), a cap of 1,024 is exceeded: the head counts them
+    all, the first 1,024 rows are packed and reset as the plain
+    version's, the rest are neither written nor reset, and the error word
+    reports it."""
     from flink_tpu_torch.kernels import count_window_kernels as cwk
 
-    counts = torch.full((3000,), 9, dtype=torch.int32, device=dev)
+    wk.check_errors(dev)
+    base = torch.full((3000,), 9, dtype=torch.int32, device=dev)
+    met = _count_fire_both(dev, base, None, [None] * 3, 3, 2999)
+    assert met == 2999
+    wk.check_errors(dev)
+    counts = base.clone()
     try:
         buf = cwk.count_fire(counts, None, None, None, None, 3, 1024)
+        want = cwk.count_fire_plain(base.clone(), None, None, None, None, 3,
+                                    2999)
         assert int(buf[0, 0]) == 2999
+        assert torch.equal(buf[1:], want[1:1025])
+        assert int(counts[:1024].abs().sum()) == 0
+        assert bool((counts[1024:] == 9).all())
         with pytest.raises(IndexError, match="count_fire"):
             wk.check_errors(dev)
     finally:
         wk.error_word(dev).zero_()
+
+
+def _count_fire_both(dev, counts, base, lanes, size, cap):
+    """``count_fire`` and its plain version on copies of one state: the
+    packed rows, the head and the state after the resets bit for bit;
+    returns the rows fired."""
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+
+    runs = []
+    for fn in (cwk.count_fire, cwk.count_fire_plain):
+        st = [x if x is None else x.clone() for x in [counts, base, *lanes]]
+        runs.append((fn(*st, size, cap), st))
+    torch.cuda.synchronize()
+    (a, sa), (b, sb) = runs
+    n = int(b[0, 0])
+    assert int(a[0, 0]) == n
+    assert _same_bits(a[:n + 1], b[:n + 1])
+    for x, y in zip(sa, sb):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert _same_bits(x, y)
+    return n
+
+
+@pytest.mark.parametrize("purge", [True, False])
+@pytest.mark.parametrize("case", ["none", "all", "first_tile", "last_tile",
+                                  "ragged_tile", "dump_only", "cap_met"])
+def test_count_fire_tiles_and_edges(dev, purge, case):
+    """Where rows fire against the kernel's tiles of ``FIRE_TILE`` rows:
+    none, all, only in the first, the last full or the ragged last tile,
+    only the dump row (which never fires), and exactly the cap's worth;
+    purging or not, with a sum, a max and a min lane (NaN, signed zeros,
+    infinities in them): bit for bit against the plain version."""
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+
+    tile = cwk.FIRE_TILE
+    rng = np.random.default_rng(len(case) + 7 * purge)
+    rows, size = 3 * tile + 517, 50
+    since = rng.integers(0, size, rows).astype(np.int32)
+    due = {"none": [], "all": np.arange(rows),
+           "first_tile": rng.choice(tile, 40, replace=False),
+           "last_tile": 2 * tile + rng.choice(tile, 40, replace=False),
+           "ragged_tile": 3 * tile + np.r_[0, rng.choice(516, 30), 516],
+           "dump_only": [rows - 1],
+           "cap_met": rng.choice(rows - 1, 300, replace=False)}[case]
+    since[np.asarray(due, np.int64)] = size + rng.integers(0, 9, len(due))
+    base = None if purge else rng.integers(-5, 5000, rows).astype(np.int32)
+    counts = since if purge else (base + since).astype(np.int32)
+    lanes = [rng.standard_normal((rows, w)).astype(np.float32) for w in (1, 2, 1)]
+    lanes[1][:8, 0] = [np.nan, -0.0, 0.0, np.inf, -np.inf, 1e-45, -1e38, 3]
+    cap = 300 if case == "cap_met" else rows
+    n = _count_fire_both(dev, _t(counts, dev), None if base is None
+                         else _t(base, dev), [_t(x, dev) for x in lanes],
+                         size, cap)
+    want = len(set(np.asarray(due, np.int64).tolist()) - {rows - 1})
+    assert n == want
+    wk.check_errors(dev)
+
+
+def test_count_fire_past_2_16_tiles(dev):
+    """More than 2^16 tiles of ``FIRE_TILE`` rows (33,555,969 rows at
+    512): rows fire in a scattered pattern through every tile range and
+    in the last tile."""
+    from flink_tpu_torch.kernels import count_window_kernels as cwk
+
+    rows = (1 << 16) * cwk.FIRE_TILE + 3 * cwk.FIRE_TILE + 1
+    counts = torch.zeros(rows, dtype=torch.int32, device=dev)
+    counts[::4099] = 7
+    counts[-300:] = 9
+    want = int((counts[:-1] >= 5).sum())
+    sums = torch.arange(rows, dtype=torch.float32, device=dev)[:, None]
+    n = _count_fire_both(dev, counts, None, [sums, None, None], 5, 1 << 16)
+    assert n == want > rows // 4099
 
 
 @pytest.mark.parametrize("ring", [1, 32, 256])
@@ -2337,6 +2426,16 @@ def _lean_cases(dev):
                 c, keys, kts, 1000, 1000, 0, lo, lo + 2, rows - 1,
                 torch.zeros(dk.STATS_WORDS, dtype=torch.int32, device=dev)),
                 counts)),
+        "devgen_ingest_nexmark": (
+            inplace(lambda c: dk.devgen_ingest_nexmark(
+                c, (3, 100, 5000, 1 << 20, 50, 4, 100, 1000), key_domain=900,
+                pane_ms=1000, offset_ms=0, dead_below=lo, refire_below=lo + 2,
+                dump_row=rows - 1), counts),
+            lambda: after(lambda c: dk.devgen_ingest_nexmark_plain(
+                c, (3, 100, 5000, 1 << 20, 50, 4, 100, 1000), 900, 1000, 0, lo,
+                lo + 2, rows - 1,
+                torch.zeros(dk.STATS_WORDS, dtype=torch.int32, device=dev)),
+                counts)),
         "fire_pack": (pure(lambda: lk.fire_pack(*args_fp)),
                       lambda: lk.fire_pack_plain(*args_fp)),
         "scatter_lanes": (
@@ -2387,7 +2486,8 @@ def _lean_cases(dev):
 LEAN_WRAPPERS = ("scatter_counts", "split_cells", "scatter_split_counts",
                  "window_counts",
                  "topn_select_append", "topn_candidates", "topn_global_threshold",
-                 "topn_select_given", "nexmark_bids", "devgen_ingest", "fire_pack",
+                 "topn_select_given", "nexmark_bids", "devgen_ingest",
+                 "devgen_ingest_nexmark", "fire_pack",
                  "scatter_lanes", "apply_pairs_u32", "apply_pairs_u16", "fused_step",
                  "count_fire", "segment_lanes", "bucket_records", "hash_keys",
                  "topn_select_lanes")
@@ -2721,3 +2821,83 @@ def test_devgen_ingest_cell_outside_the_state_sets_the_error_word(dev):
     assert int(c.sum()) == 20_000
     with pytest.raises(IndexError, match="devgen_ingest"):
         wk.check_errors(dev)
+
+
+# -- K6's Nexmark form: the bids made inside the ingest -----------------------
+
+def _nexmark_ingest_both(dev, gen, rows, ring, with_stats=True, **kw):
+    """``devgen_ingest_nexmark`` against ``nexmark_bids_plain`` then
+    ``devgen_ingest_plain`` on the card: counts and stats bit for bit."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    a = torch.zeros((rows, ring), dtype=torch.int32, device=dev)
+    b = a.clone()
+    sa = dk.devgen_ingest_nexmark(a, gen, with_stats=with_stats, **kw)
+    keys, ts = dk.nexmark_bids_plain(*gen, dev)
+    sb = dk.devgen_ingest_plain(b, keys, ts, kw["key_domain"], kw["pane_ms"],
+                                kw["offset_ms"], kw["dead_below"],
+                                kw["refire_below"], kw["dump_row"],
+                                torch.zeros_like(sa) if with_stats else None)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and int(a.sum()) == gen[2]
+    if with_stats:
+        assert torch.equal(sa, sb)
+    else:
+        assert sa is None
+    return a, sa, ts
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("gen,domain,ring,pane_ms,offset", [
+    # n not a multiple of the 8,192-record chunk
+    ((3, 0, 3 * 8192 + 1234, 1 << 22, 100, 4, 100, 10_000), 10_000, 64, 1000, 0),
+    # the headline's sub-batches 1 and 3 of a logical batch (K = 4)
+    ((5, 1 << 20, 1 << 20, 1 << 22, 100, 4, 100, 10_000), 10_000, 64, 1000, 0),
+    ((5, 3 << 20, 1 << 20, 1 << 22, 100, 4, 100, 10_000), 10_000, 1, 1000, 0),
+    # a pane every 4,900 records: chunks straddle pane edges; offset_ms
+    ((2, 5000, 200_003, 1 << 20, 7, 4, 10, 1_000), 1_000, 37, 700, 333),
+    # every bid hot (5 auctions, 2 of them past a domain of 3: misses), a
+    # pane every 13 records, ts below offset_ms
+    ((1, 0, 100_000, 100_000, 1, 1, 5, 500), 3, 16, 13, 20_000),
+    # events_per_ms past the fast division's reach; hot_ratio past 256
+    ((0, 0, 50_000, 50_000, (1 << 31) - 1, 300, 7, 40), 40, 8, 1, 0),
+])
+def test_devgen_ingest_nexmark_form(dev, gen, domain, ring, pane_ms, offset,
+                                    with_stats):
+    """The Nexmark form against the composed plain version: chunk and
+    pane edges, offsets, rings of 1 and 64, the K = 4 offsets, late and
+    re-fire records (panes below the dead and fired frontiers), misses,
+    with and without stats."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    keys, ts = dk.nexmark_bids_plain(*gen, dev)
+    lo = (int(ts.min()) - offset) // pane_ms
+    hi = (int(ts.max()) - offset) // pane_ms
+    kw = dict(key_domain=domain, pane_ms=pane_ms, offset_ms=offset,
+              dead_below=lo + (hi - lo) // 4, refire_below=lo + (hi - lo) // 2,
+              dump_row=1000 if gen[-1] <= 1000 else 10_000)
+    rows = kw["dump_row"] + 1
+    _, stats, _ = _nexmark_ingest_both(dev, gen, rows, ring, with_stats, **kw)
+    if with_stats and hi - lo >= 4:
+        head = stats[:8].tolist()
+        assert head[1] > 0 and head[4] > 0
+        assert head[0] + head[1] + head[2] == gen[2]
+    wk.check_errors(dev)
+
+
+def test_devgen_ingest_nexmark_form_cell_outside_the_state(dev):
+    """A dump row past the state: the misses are not written and the
+    error word reports it, as the memory form does."""
+    from flink_tpu_torch.kernels import devgen_kernels as dk
+
+    wk.check_errors(dev)
+    c = torch.zeros((301, 8), dtype=torch.int32, device=dev)
+    gen = (2, 0, 20_000, 20_000, 10, 4, 5, 500)
+    dk.devgen_ingest_nexmark(c, gen, key_domain=300, pane_ms=1000,
+                             offset_ms=0, dead_below=0,
+                             refire_below=-(2 ** 63), dump_row=301)
+    keys, _ = dk.nexmark_bids_plain(*gen, dev)
+    assert int(c.sum()) == int((keys < 300).sum()) < 20_000
+    with pytest.raises(IndexError, match="devgen_ingest"):
+        wk.check_errors(dev)
+    wk.check_errors(dev)

@@ -300,6 +300,81 @@ def test_devgen_ingest_without_stats_folds_the_same_counts(case):
     assert torch.equal(a, b) and int(a.sum()) == len(keys)
 
 
+# -- (b') the Nexmark form: the bids made inside the ingest ------------------
+
+# the same stream at 1 bid/ms: sub-batch s of K covers ts s * 4096 / K
+# onwards; panes below 21 are late, below 23 re-fire candidates
+NEXMARK_STEPS = [(1, 5), (4, 20), (4, 21), (4, 23)]
+
+
+@pytest.mark.parametrize("k,batch", NEXMARK_STEPS)
+def test_nexmark_form_matches_jit_devgen_step(k, batch):
+    """The Nexmark form of ``devgen_ingest`` (the generator's
+    ``ingest_into``, its plain version here) against the reference's
+    step with its ``_NexmarkDeviceBidGen`` traced in, at K = 1 and at
+    sub-batches 0, 1 and 3 of a logical batch at K = 4: counts on every
+    row and the whole stats vector equal, late and re-fire records in
+    the mix."""
+    cfg = dict(CFG, events_per_ms=1, num_active_auctions=400)
+    ref_src, port_src = both_sources(cfg, k)
+    domain, ring, slots, dead, refire_below = 400, 16, 1024, 21, 23
+    hdr = step_header(batch, dead, refire_below)
+    used = np.zeros(slots + 1, bool)
+    used[:domain] = True
+    counts0 = np.zeros((slots + 1, ring), np.int32)
+    counts0[:domain, 21 % ring] = np.arange(domain) % 7
+    st, _, stats_j = jw._JIT_DEVGEN_STEP(
+        JaxPaneState(None, None, None, jnp.asarray(counts0)),
+        jnp.zeros((2050, 3), jnp.int32), jnp.asarray(hdr), jnp.asarray(used),
+        gen=ref_src.device_keys_ts, key_domain=domain, agg=jax_count(),
+        panes_per_window=10, ring=ring, sel_cap=256, by="count", topn=1,
+        dump_row=slots, pane_ms=1000, offset_ms=0, fire_gate=True)
+    counts = torch.from_numpy(counts0.copy())
+    stats = port_src.device_keys_ts.ingest_into(
+        counts, batch, key_domain=domain, pane_ms=1000, offset_ms=0,
+        dead_below=dead, refire_below=refire_below, dump_row=slots)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(st.counts))
+    np.testing.assert_array_equal(stats.numpy(), np.asarray(stats_j))
+    head = stats.numpy()[:8]
+    assert head[0] + head[1] == 4096 // k and head[2] == 0
+    # the memory form on the generator's own records folds the same
+    mem = torch.from_numpy(counts0.copy())
+    keys, ts = port_src.device_keys_ts(batch, torch.device("cpu"))
+    dk.devgen_ingest(mem, keys, ts, key_domain=domain, pane_ms=1000,
+                     offset_ms=0, dead_below=dead, refire_below=refire_below,
+                     dump_row=slots)
+    assert torch.equal(mem, counts)
+
+
+def test_nexmark_form_refuses_bad_generator_arguments():
+    counts = torch.zeros((11, 4), dtype=torch.int32)
+    kw = dict(key_domain=10, pane_ms=1000, offset_ms=0, dead_below=0,
+              refire_below=0, dump_row=10)
+    for gen in ((0, 0, 100, 100, 0, 4, 1, 10), (0, -1, 100, 100, 1, 4, 1, 10),
+                (0, 0, 100, 100, 1, 4, 0, 10), (0, 0, 100, 100, 1, 4, 1, 2 ** 31)):
+        with pytest.raises(ValueError, match="devgen_ingest_nexmark"):
+            dk.devgen_ingest_nexmark(counts, gen, **kw)
+    with pytest.raises(ValueError, match="pane_ms"):
+        dk.devgen_ingest_nexmark(counts, (0, 0, 100, 100, 1, 4, 1, 10),
+                                 **dict(kw, pane_ms=0))
+
+
+def test_devgen_sources_share_one_generator():
+    """``nexmark_bids``' kernel and the ingest's Nexmark form make their
+    records with the same device functions (csrc/nexmark_gen.cuh)."""
+    import os
+
+    csrc = os.path.join(os.path.dirname(dk.__file__), "csrc")
+    with open(os.path.join(csrc, "devgen_kernels.cu")) as f:
+        cu = f.read()
+    assert '#include "nexmark_gen.cuh"' in cu
+    k5 = cu[cu.index("__global__ void nexmark_bids_kernel"):]
+    k6 = cu[cu.index("devgen_ingest_kernel(const IngestParams p)"):]
+    for body in (k5, k6):
+        assert "nexmark_key" in body[:body.index("\n}\n")]
+    assert "0x9E3779B97F4A7C15ULL" not in cu
+
+
 # -- (d) the operator, both packages attached to one stream -----------------
 
 def make_ops(k=1, ooo=1_000, slots=128):
@@ -635,6 +710,63 @@ def test_late_batch_goes_to_the_host_like_the_reference(
     assert got == ref and len(got) > 0
     assert res.metrics["devgen_host_batches"] == 1
     assert res.metrics["late_records"] == jres.metrics["late_records"] > 0
+
+
+# -- (g') which ingest form a device source takes -----------------------------
+
+@needs_native
+@pytest.mark.parametrize("k", [1, 4])
+def test_operator_makes_nexmark_bids_inside_the_ingest(k, monkeypatch):
+    """The operator on a Nexmark device source takes the Nexmark form:
+    its plain version runs once a step (a stashed batch, flushed once),
+    neither ``nexmark_bids`` nor the memory form's ``devgen_ingest`` is
+    called, and the rows, state and ring equal the reference's."""
+    cfg = dict(CFG, batch_size=8192, events_per_ms=1)
+    srcs = both_sources(cfg, k)
+    ref, port = make_ops()
+    assert ref.attach_device_source(srcs[0])
+    assert port.attach_device_source(srcs[1])
+    steps, fused = [], dk.devgen_ingest_nexmark_plain
+
+    def spy(*args):
+        steps.append(args[1])
+        return fused(*args)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the Nexmark source went through memory")
+
+    monkeypatch.setattr(dk, "devgen_ingest_nexmark_plain", spy)
+    monkeypatch.setattr(dk, "nexmark_bids", refuse)
+    monkeypatch.setattr(dk, "devgen_ingest", refuse)
+    stashed, take = [], port.process_batch_device
+    monkeypatch.setattr(port, "process_batch_device",
+                        lambda i: stashed.append(i) or take(i))
+    fired = drive_devgen(ref, port, srcs, range(3 * k), {k - 1, 3 * k - 2})
+    assert sum(len(f) for f in fired) > 10
+    assert len(steps) == len(stashed) == 3 * k
+    assert [g[:3] for g in steps] == [
+        (i // k, (i % k) * 8192 // k, 8192 // k) for i in range(3 * k)]
+
+
+def test_other_device_sources_keep_the_memory_form(monkeypatch):
+    """A device source whose generator has no ``ingest_into``
+    (``PortOddGen``) makes its batch first (``device_keys_ts``) and folds
+    it with ``devgen_ingest``'s memory form, once a step."""
+    port = make_ops()[1]
+    src = odd_sources()[1]
+    assert port.attach_device_source(src)
+    calls, mem = [], dk.devgen_ingest
+
+    def refuse(*args, **kw):
+        raise AssertionError("the Nexmark form ran on another source")
+
+    monkeypatch.setattr(dk, "devgen_ingest",
+                        lambda *a, **kw: calls.append(1) or mem(*a, **kw))
+    monkeypatch.setattr(dk, "devgen_ingest_nexmark", refuse)
+    for i in range(3):
+        assert port.process_batch_device(i)
+    port.advance_watermark(src.ts_bounds(2)[1] - 1_001)
+    assert len(calls) == 3
 
 
 # -- (h) a reference snapshot carried across mid-stream ---------------------

@@ -434,9 +434,10 @@ def _constexpr(text, name):
 
 def test_wrapper_constants_match_the_kernel_sources():
     """The wrappers' copies of the kernels' launch constants, read from
-    the CUDA sources: the compaction tile the count-window fire and
-    bucketing scratch is sized by, and window_lanes' windows a block and
-    staged tile."""
+    the CUDA sources: the compaction tile the bucketing scratch is sized
+    by, the row tile the count-window fire's workspace is sized by (its
+    threads a block times its rows a thread), and window_lanes' windows a
+    block and staged tile."""
     import os
 
     from flink_tpu_torch.kernels import count_window_kernels as cw
@@ -447,9 +448,14 @@ def test_wrapper_constants_match_the_kernel_sources():
         common = f.read()
     with open(os.path.join(csrc, "topn_lanes_kernels.cu")) as f:
         cu = f.read()
+    with open(os.path.join(csrc, "count_window_kernels.cu")) as f:
+        cw_cu = f.read()
     tile = _constexpr(common, "kThreads") * _constexpr(common, "kItems")
     assert "constexpr int kTile = kThreads * kItems;" in common
-    assert tile == cw.FIRE_TILE == xk.BUCKET_TILE
+    assert tile == xk.BUCKET_TILE
+    assert "constexpr int kFireTile = kThreads * kFireRowItems;" in cw_cu
+    assert _constexpr(common, "kThreads") \
+        * _constexpr(cw_cu, "kFireRowItems") == cw.FIRE_TILE
     assert _constexpr(cu, "kLanesWindows") == tk._LANES_WINDOWS
     assert _constexpr(cu, "kLanesSmemFloats") == tk._LANES_SMEM_FLOATS
 
