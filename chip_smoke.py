@@ -156,8 +156,9 @@ around each launch group; a ``torch.profiler`` run beside gives kernel
 time by name, and ``fire_pack``'s and ``topn_select_lanes``' device
 kernels a call, which must be one, and two at top-1 or one (five where
 the radix select does not fit the card at once) at top-n; likewise two
-a ``topn_select_append`` call at top-1 on the devgen path, six a
-``fused_step`` on the native lane and one a ``topn_select_given`` on the
+a ``topn_select_append`` call at top-1 on the devgen path, five a
+``fused_step`` on the native lane (the first the apply's header form,
+whose profiled name is checked) and one a ``topn_select_given`` on the
 mesh).
 
 13. ``mesh`` — the key-sharded window operator on a mesh of four blocks
@@ -169,9 +170,12 @@ mesh).
    overflow), M4 the ring exchange (4 batches); each with its rate, idle
    share, launches and exchange bytes (M1's and M4's against the bytes
    their layout moves between blocks). The profiled M1 run must show one
-   kernel a ``bucket_records`` and a top-1 ``topn_candidates`` call and
-   no device-to-device copy: on one card each source block's buckets go
-   straight into the owners' receive rows. The ``kernels`` phase holds
+   kernel a ``bucket_records`` and a top-1 ``topn_candidates`` call, no
+   device-to-device copy (on one card each source block's buckets go
+   straight into the owners' receive rows) and no gather kernel (no
+   ``topn_global_threshold`` and no cat: the blocks' candidates land in
+   one buffer and each select works the global k-th out itself). The
+   ``kernels`` phase holds
    the path's ``bucket_records``, ``hash_keys``, one chunk's exchange
    and the distributed top-n modes bit for bit against their plain
    versions at M1's shapes.
@@ -231,7 +235,14 @@ copied in and run both in one call, in turns. The rows:
   state's restore;
 - ``devgen_ingest``: a headline sub-batch's make and ingest, without
   and with stats: the pair (``nexmark_bids`` then ``devgen_ingest``),
-  the memory form alone and the Nexmark form (one launch).
+  the memory form alone and the Nexmark form (one launch);
+- ``apply_threshold``: ``apply_pairs_u32`` at Q5 host-fed's and
+  WordCount's batches on the real and the padded words, the fused
+  step's fire of 11 ends on both uploads, and one sharded top-n chunk
+  at M1's fire (4 blocks of ``cuda:0``, top-1 and top-3) through the
+  tree's own ``_topn_sharded``, then each of its pieces alone (window
+  counts, candidates, the parent's cat, ``topn_global_threshold``
+  beside ``torch.topk``, ``topn_select_given``).
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -293,8 +304,7 @@ MESH_SIDE_BATCHES = 4           # jobs M2, M3, M4 and the profiled M1 run
 MESH_XCAP = 16_384              # job M3's pipeline.exchange-capacity
 # the kernels the key-sharded path adds; their per-call device time comes
 # from the mesh phase's profiled run only
-MESH_KERNELS = ("bucket_records", "topn_candidates", "topn_global_threshold",
-                "topn_select_given")
+MESH_KERNELS = ("bucket_records", "topn_candidates", "topn_select_given")
 # wrapper -> its CUDA kernels' names, to read the profiler's table
 PROFILED_KERNELS = {
     # host-combined pairs (a thread an entry), per record (a block's chunk
@@ -315,7 +325,8 @@ PROFILED_KERNELS = {
     "scatter_lanes": ("lanes_hist_kernel", "lanes_sort_kernel",
                       "lanes_fold_kernel"),
     "scatter_pair_lanes": ("pair_lanes_kernel", "pair_lanes_any_kernel"),
-    "apply_pairs_u32": ("apply_pairs_u32_kernel",),
+    # the plain form; the fused step's header form (<true>) is its own
+    "apply_pairs_u32": ("apply_pairs_u32_kernel<false>",),
     "apply_pairs_u16": ("apply_pairs_u16_kernel",),
     "split_cells": ("split_cells_kernel",),
     "count_fire": ("count_fire_kernel",),
@@ -336,6 +347,12 @@ PROFILED_KERNELS = {
     "topn_global_threshold": ("topn_global_threshold_kernel",),
     "topn_select_given": ("topn_given_kernel",),
 }
+# kernels that no path may launch (each held to its plain version in the
+# kernels phase): hash_keys no path of either package (the reference's
+# tests only), nexmark_bids none since the devgen path's ingest makes its
+# bids itself, topn_global_threshold none since the sharded top-n's
+# select works out the global k-th itself
+UNLAUNCHED = ("hash_keys", "nexmark_bids", "topn_global_threshold")
 # the wrappers whose device kernels a call the profiled runs count against
 # their launch counts (no other wrapper launches their kernels;
 # topn_select_append shares its with the fused step, so the devgen profile,
@@ -355,7 +372,8 @@ CALL_KERNELS = {
     "ring_columns": ("ring_columns_kernel",),
     "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel",),
-    "fused_step": ("fused_header_kernel",),
+    # the header form of the apply: its block 0 decodes the header
+    "fused_step": ("apply_pairs_u32_kernel<true>",),
     "count_fire": ("count_fire_kernel",),
     "topn_select_lanes": ("lanes_select_kernel", "lanes_radix_all_kernel"),
     "bucket_records": ("bucket_records_kernel",),
@@ -1414,10 +1432,10 @@ def count_topn_cases(torch, np, dev):
     blocks = [(torch.cat([wc[b * spd:(b + 1) * spd], wc[-1:] * 0]),
                torch.cat([used[b * spd:(b + 1) * spd], used[-1:] & False]))
               for b in range(MESH_BLOCKS)]
-    thresh = wk.topn_global_threshold_plain(torch.cat(
+    gathered = torch.cat(
         [wk.topn_candidates_plain(w, u, w_valid, 1) for w, u in blocks],
-        dim=1), 1)
-    args = (*blocks[0], ends, w_valid, anchor, thresh, 0, 256)
+        dim=1)
+    args = (*blocks[0], ends, w_valid, anchor, gathered, 1, 0, 256)
     r1, r2, r3 = (ring0.clone() for _ in range(3))
     wk.topn_select_given(*args, r1)
     wk.topn_select_given_plain(*args, r2)
@@ -1425,8 +1443,10 @@ def count_topn_cases(torch, np, dev):
     check(torch.equal(r1[:-1], r2[:-1]),
           "topn_select_given differs from its plain version")
     written = int(r1[0, 0])
-    b, by = bound_ms((spd + 1) * W * 4 + spd + 1 + W * 13 + written * 12 + 8,
-                     (spd + 1) * W * 2)
+    # the grid, the used mask, the ends, the gathered candidates read once
+    b, by = bound_ms((spd + 1) * W * 4 + spd + 1 + W * 9 + gathered.numel() * 4
+                     + written * 12 + 8,
+                     (spd + 1) * W * 2 + gathered.numel() * 2)
     out["topn_select_given_m1_block"] = {
         "rows": written, "bound_ms": b, "bound_by": by,
         "kernel": split_times(torch, lambda: wk.topn_select_given(*args, r3)),
@@ -1711,7 +1731,6 @@ def launch_path_cases(torch, np, dev):
     ring0 = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
     ring5 = torch.zeros((2048 + 2, 5), dtype=torch.int32, device=dev)
     cands = wk.topn_candidates(wc, used, valid, 1)
-    thresh = wk.topn_global_threshold(cands, 1)
     v = t(rng.random((rows, W)).astype(np.float32))
     cols = t(rng.integers(-9, 9, (rows, W, 2)).astype(np.int32))
     hdr = np.zeros(fk.FUSED_HDR, np.int32)
@@ -1753,7 +1772,7 @@ def launch_path_cases(torch, np, dev):
             wc, used, ends, valid, lo, 1, 256, ring0),
         "topn_candidates": lambda: wk.topn_candidates(wc, used, valid, 1),
         "topn_select_given": lambda: wk.topn_select_given(
-            wc, used, ends, valid, lo, thresh, 0, 256, ring0),
+            wc, used, ends, valid, lo, cands, 1, 0, 256, ring0),
         "split_cells": lambda: wk.split_cells(sc, ring, rows - 1),
         "scatter_split_counts": lambda: wk.scatter_split_counts(counts, sc,
                                                                 rows - 1),
@@ -2304,9 +2323,11 @@ def fused_inputs(torch, np, dev):
     """The native lane's state and batch at the host-fed Q5 shapes (128
     x 256 key slots + 1 dump row, a 32-column ring with 21 live panes,
     10,000 auctions, the first 100 of them 26x; the batch's pairs: every
-    key x its 11 newest panes, host-combined, padded to 2^17 words), and
-    ``upload(n_ends)``: the fused step's header (the fire of the
-    ``n_ends`` newest window ends, the purge of one column) + the
+    key x its 11 newest panes, host-combined, in no order of cells as the
+    C scan appends them, a word each, and the same padded to 2^17 words
+    as the reference pads them), and
+    ``upload(n_ends, padded=False)``: the fused step's header (the fire
+    of the ``n_ends`` newest window ends, the purge of one column) + the
     words."""
     from flink_tpu_torch.kernels import fused_kernels as fk
     from flink_tpu_torch.ops.window import preagg_encode_u32
@@ -2323,13 +2344,17 @@ def fused_inputs(torch, np, dev):
         counts_np[key_rows, p % ring] = rng.poisson(9.5, n_keys)
     counts_np[key_rows[:100], :] *= 26
     batch_panes = np.arange(pane_hi - 10, pane_hi + 1)
-    pairs = np.sort((key_rows[:, None] * ring
-                     + batch_panes[None, :] % ring).reshape(-1))
+    # in no order of cells, as the C scan hands them over (first seen)
+    pairs = rng.permutation((key_rows[:, None] * ring
+                             + batch_panes[None, :] % ring).reshape(-1))
     cnts = rng.poisson(9.5, len(pairs)) + 1
     cap = 1 << 17
-    words = torch.from_numpy(preagg_encode_u32(pairs, cnts, cap)).to(dev)
+    words = torch.from_numpy(preagg_encode_u32(pairs, cnts, len(pairs))).to(
+        dev)
+    padded_words = torch.from_numpy(preagg_encode_u32(pairs, cnts, cap)).to(
+        dev)
 
-    def upload(n_ends):
+    def upload(n_ends, padded=False):
         hdr = np.zeros(fk.FUSED_HDR, np.int32)
         hdr[:6] = np.array([pane_lo, pane_hi, pane_lo], np.int64).view(np.int32)
         cw = np.array([1 << ((pane_lo - 1) % ring)], np.uint64).view(np.int32)
@@ -2337,18 +2362,22 @@ def fused_inputs(torch, np, dev):
         deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
         deltas[:n_ends] = np.arange(pane_hi + 2 - n_ends, pane_hi + 2) - pane_lo
         hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
-        return torch.cat([torch.from_numpy(hdr).to(dev), words])
+        return torch.cat([torch.from_numpy(hdr).to(dev),
+                          padded_words if padded else words])
 
     return {"slots": slots, "ring": ring, "ppw": ppw,
             "pane_lo": pane_lo, "pane_hi": pane_hi, "used": used,
             "base": torch.from_numpy(counts_np).to(dev), "pairs": pairs,
-            "cnts": cnts, "cap": cap, "words": words, "upload": upload}
+            "cnts": cnts, "cap": cap, "words": words,
+            "padded_words": padded_words, "upload": upload}
 
 
 def fused_kernel_cases(torch, np, dev, record):
     """The native lane's kernels at the host-fed Q5 shapes (128 x 256 key
     slots + 1 dump row, a 32-column ring, 10,000 auctions, one batch's
-    ~110k host-combined pairs padded to 2^17 words): ``apply_pairs_u32``;
+    ~110k host-combined pairs, a word each as the native lane launches
+    them): ``apply_pairs_u32`` (and on the words padded to 2^17, checked
+    only);
     ``apply_pairs_u16`` on the same pairs with every 50th count raised
     past 0xFFF; ``fused_step`` on the header + words upload with 1 and
     with 11 window ends, the fire gate on and off. All exact."""
@@ -2380,11 +2409,18 @@ def fused_kernel_cases(torch, np, dev, record):
                time_ms(torch, lambda: s3.view(-1).index_add_(0, idx, add)),
                nbytes, buf.shape[0], source="fused_kernels.cu")
 
-    # F1
+    # F1, on the real words; the padding words skipped as the plain
+    # version skips them
+    a, b = base.clone(), base.clone()
+    fk.apply_pairs_u32(a, f["padded_words"], slots)
+    fk.apply_pairs_u32_plain(b, f["padded_words"], slots)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "apply_pairs_u32 on padded words differs from "
+          "its plain version")
     pair_case("apply_pairs_u32",
               lambda c, b: fk.apply_pairs_u32(c, b, slots),
               lambda c, b: fk.apply_pairs_u32_plain(c, b, slots), words, cnts,
-              4 * cap + 8 * len(pairs), "flink_tpu/ops/window.py:190")
+              12 * len(pairs), "flink_tpu/ops/window.py:190")
     # F3: every 50th pair past 0xFFF, as a hot key's in the u16 form
     cnts_used = cnts.copy()
     cnts_used[::50] += 4095
@@ -2601,6 +2637,11 @@ def phase_q5(torch, np):
     check(ranged is not None
           and ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS,
           f"q5: fused_step kernels a step {ranged}")
+    # the profiler's name of the header form: one a step
+    check(prof["call_kernel_counts"]["fused_step"] == ranged["calls"],
+          f"q5: {CALL_KERNELS['fused_step']} launches "
+          f"{prof['call_kernel_counts']['fused_step']} for {ranged['calls']} "
+          "fused steps")
     per_call["fused_step"] = ranged["device_ms"]
     return launches, n_launches, h_launches, per_call, rows
 
@@ -2631,14 +2672,15 @@ def run_devgen_q5(torch, np, conf, cfg, label):
     return rows, launches, res, wall
 
 
-def profile_run(torch, run, own=()):
+def profile_run(torch, run, own=(), names=False):
     """Kernel time by name from ``torch.profiler`` over ``run()`` (which
     returns its wall seconds): the device's busy share without the launch
     gaps that CUDA event spans count as busy. The profiler slows the
     host, so the run's wall (and idle share) is an upper bound. Each
     call of a ``RANGED_WRAPPERS`` wrapper runs inside a profiler range,
     and its device time per call is the sum of the kernels the profiler
-    links to that range (launched inside it), over the calls."""
+    links to that range (launched inside it), over the calls. With
+    ``names``, every device entry's name too."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2678,6 +2720,10 @@ def profile_run(torch, run, own=()):
             "device_ms_by_wrapper": device_ms_by_wrapper(by_name),
             "kernels_per_call": kernels_per_call(by_name, own),
             "ranged_per_call": ranged_per_call(torch, prof.events()),
+            "call_kernel_counts": {
+                w: sum(v["count"] for v in kernel_hits(by_name, names))
+                for w, names in CALL_KERNELS.items()},
+            **({"kernel_names": sorted(by_name)} if names else {}),
             "copies": copies, "top_device_ms": dict(top)}
 
 
@@ -3962,9 +4008,11 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
     lanes; ``hash_keys`` on a batch's 2^20 auction keys with extreme keys
     planted, also against ``hash_keys_numpy``; the distributed top-1 on
     the K2 grid (the host-fed Q5 fire, 11 windows) cut into the 4 blocks:
-    ``topn_candidates`` per block, ``topn_global_threshold`` over the
-    gathered candidates, ``topn_select_given`` per block, whose rows must
-    be the single-device ``topn_select_append``'s, in its order; and
+    ``topn_candidates`` per block into its columns of one gathered
+    buffer, ``topn_global_threshold`` over it (the global k-th alone: no
+    path launches it), ``topn_select_given`` per block against the
+    gathered candidates, whose rows must be the single-device
+    ``topn_select_append``'s, in its order; and
     ``fire_pack``'s row offset and the scatters' skip of invalid cells on
     a block's received records."""
     from flink_tpu_torch.kernels import exchange_kernels as xk
@@ -4066,19 +4114,22 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
     useds = [torch.cat([used[b * spd:(b + 1) * spd], no]).contiguous()
              for b in range(n_blk)]
     rows = spd + 1
-    cands = [wk.topn_candidates(w, u, w_valid, k) for w, u in zip(wcs, useds)]
+    # each block's candidates into its columns of one gathered buffer
+    gathered = torch.empty((W, n_blk * k), dtype=torch.float32, device=dev)
+    cands = [wk.topn_candidates(w, u, w_valid, k,
+                                out=gathered[:, b * k:(b + 1) * k])
+             for b, (w, u) in enumerate(zip(wcs, useds))]
     cands_p = [wk.topn_candidates_plain(w, u, w_valid, k)
                for w, u in zip(wcs, useds)]
-    gathered = torch.cat(cands, dim=1)
     thresh = wk.topn_global_threshold(gathered, k)
     thresh_p = wk.topn_global_threshold_plain(gathered, k)
     rings = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
              for _ in range(2)]
     for b in range(n_blk):
-        wk.topn_select_given(wcs[b], useds[b], ends, w_valid, anchor, thresh,
-                             b * rows, sel_cap, rings[0])
+        wk.topn_select_given(wcs[b], useds[b], ends, w_valid, anchor,
+                             gathered, k, b * rows, sel_cap, rings[0])
         wk.topn_select_given_plain(wcs[b], useds[b], ends, w_valid, anchor,
-                                   thresh, b * rows, sel_cap, rings[1])
+                                   gathered, k, b * rows, sel_cap, rings[1])
     single = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
     wk.topn_select_append(wc, used, ends, w_valid, anchor, k, 4 * sel_cap,
                           single)
@@ -4117,12 +4168,13 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
     written = int(dist[0, 0]) // n_blk + 1
     record("topn_select_given", "flink_tpu/ops/window.py:1585", 0,
            time_ms(torch, lambda: wk.topn_select_given(
-               wcs[0], useds[0], ends, w_valid, anchor, thresh, 0, sel_cap,
-               scratch[0])),
+               wcs[0], useds[0], ends, w_valid, anchor, gathered, k, 0,
+               sel_cap, scratch[0])),
            time_ms(torch, lambda: wk.topn_select_given_plain(
-               wcs[0], useds[0], ends, w_valid, anchor, thresh, 0, sel_cap,
-               scratch[1])), None,
-           rows * W * 4 + rows + W * 13 + written * 12 + 8, rows * W * 2)
+               wcs[0], useds[0], ends, w_valid, anchor, gathered, k, 0,
+               sel_cap, scratch[1])), None,
+           rows * W * 4 + rows + W * 9 + gathered.numel() * 4 + written * 12
+           + 8, rows * W * 2 + gathered.numel() * 2 * k)
     out[-1]["per"] = "block"
 
     # fire_pack's row offset on one block; the scatters skip the -1 cells
@@ -4432,6 +4484,256 @@ def devgen_ingest_cases(torch, np, dev):
     return out
 
 
+def wordcount_pair_words(np):
+    """WordCount's first 2^20-word batch as the native lane hands it to
+    ``apply_pairs_u32``: its (slot, pane) pairs in first-seen order (128
+    x 512 slots, a 16-column ring), each with its count (all below
+    0xFFF) as one word."""
+    from flink_tpu_torch.state.keyed import KeyDirectory
+
+    _, gen = wordcount_source(np, 1)
+    data, ts = gen("0", 0)
+    slots = KeyDirectory(128, 512).assign(data["word"])
+    cells = slots.astype(np.int64) * 16 + (ts // 1000) % 16
+    pairs, first, cnts = np.unique(cells, return_index=True,
+                                   return_counts=True)
+    order = np.argsort(first, kind="stable")
+    check(int(cnts.max()) < 0xFFF, "a WordCount pair count past 0xFFF")
+    return 128 * 512, 16, pairs[order], cnts[order]
+
+
+def apply_threshold_cases(torch, np, dev):
+    """``apply_pairs_u32`` and the key-sharded top-n's global k-th, parent
+    and change alike (the row reads which API its tree has), each held
+    bit for bit against its plain version, then as loop ms, device ms and
+    device entries a call and host µs a call (``split_times``):
+
+    - ``apply_pairs_u32`` at the host-fed Q5 batch (~110k pairs into
+      32,769 x 32, in the C scan's order and sorted by cell) and at
+      WordCount's first batch (~294k pairs into
+      65,537 x 16), on the real words and on the words padded to the
+      power of two at or above them (the parent's native lane launched
+      over the padded count, this tree's over the real one), beside
+      ``index_add_``; each also as device ms after a 96 MB write that
+      flushes the L2 (cold);
+    - the fused step's fire of 11 ends, gate on (``fused_inputs``), on
+      the padded and on the real upload, warm and cold;
+    - one sharded top-n chunk at job M1's fire: the host-fed Q5 fire's
+      state cut into 4 blocks of ``cuda:0`` (8,193 rows each, 11
+      windows), top-1 and top-3, through the tree's own
+      ``WindowOperator._topn_sharded`` (its window counts, candidates,
+      gather, global k-th and selects), its rows against the one-block
+      ``topn_select_append``'s; then each piece alone on block 0:
+      ``window_counts``, ``topn_candidates``, the parent's ``torch.cat``,
+      ``topn_global_threshold`` (beside ``torch.topk(gathered, k)``) and
+      ``topn_select_given``."""
+    import types
+
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.ops.window import WindowOperator, preagg_encode_u32
+
+    gathered_api = "k" in inspect.signature(wk.topn_select_given).parameters
+    out = {"gathered_select": gathered_api,
+           "fused_step_kernels": fk.FUSED_STEP_KERNELS}
+    # a 96 MB write before each call pushes the state and the words out of
+    # the 50 MB L2, as a pipeline's other work between two applies does
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+
+    def cold_ms(fn):
+        """Device ms a call of ``fn`` after an L2 flush (the flush's fill
+        kernel left out)."""
+        stages = kernel_stages(torch, lambda: (flush.fill_(1), fn()))
+        return sum(v["ms_per_call"] for k, v in stages.items()
+                   if "FillFunctor" not in k)
+
+    def pow2(n):
+        return 1 << max(n - 1, 255).bit_length()
+
+    # F1 at Q5 host-fed's and WordCount's batches
+    f = fused_inputs(torch, np, dev)
+    order = np.argsort(f["pairs"])
+    shapes = {"q5": (f["slots"], f["ring"], f["pairs"], f["cnts"],
+                     f["base"]),
+              # the same pairs in cell order: a warp's adds on few lines
+              "q5_sorted": (f["slots"], f["ring"], f["pairs"][order],
+                            f["cnts"][order], f["base"]),
+              "wordcount": (*wordcount_pair_words(np), None)}
+    for name, (slots, ring, pairs, cnts, base) in shapes.items():
+        if base is None:
+            base = torch.zeros((slots + 1, ring), dtype=torch.int32,
+                               device=dev)
+        n = len(pairs)
+        idx = torch.from_numpy(pairs.astype(np.int64)).to(dev)
+        add = torch.from_numpy(cnts.astype(np.int32)).to(dev)
+        lib_state = base.clone()
+        row = {"pairs": n, "padded_words": pow2(n),
+               "library": split_times(torch, lambda: lib_state.view(
+                   -1).index_add_(0, idx, add)),
+               "library_cold_device_ms": cold_ms(lambda: lib_state.view(
+                   -1).index_add_(0, idx, add)),
+               "library_call": "index_add_"}
+        for form, cap in (("real", n), ("padded", pow2(n))):
+            words = torch.from_numpy(preagg_encode_u32(pairs, cnts, cap)).to(
+                dev)
+            a, b = base.clone(), base.clone()
+            fk.apply_pairs_u32(a, words, slots)
+            fk.apply_pairs_u32_plain(b, words, slots)
+            want = base.clone()
+            want.view(-1).index_add_(0, idx, add)
+            torch.cuda.synchronize()
+            check(torch.equal(a, b) and torch.equal(a, want),
+                  f"apply_pairs_u32 ({name}, {form}) differs from its plain "
+                  "version or index_add_")
+            b_ms, by = bound_ms(4 * cap + 8 * n, cap)
+            row[form] = {"words": cap, "bound_ms": b_ms, "bound_by": by,
+                         "kernel": split_times(
+                             torch, lambda: fk.apply_pairs_u32(a, words,
+                                                               slots)),
+                         "cold_device_ms": cold_ms(
+                             lambda: fk.apply_pairs_u32(a, words, slots))}
+        out["apply_pairs_u32_" + name] = row
+
+    # F2: the fire of 11 ends on the padded and on the real upload
+    kw = dict(ppw=f["ppw"], n=1, sel_cap=256, dump_row=f["slots"],
+              fire_gate=True, fire_pad=16)
+    ring0 = torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+    for form, buf in (("padded", f["upload"](11, padded=True)),
+                      ("real", f["upload"](11))):
+        st = [f["base"].clone() for _ in range(3)]
+        er = [ring0.clone() for _ in range(3)]
+        fk.fused_step(st[0], er[0], buf, f["used"], **kw)
+        fk.fused_step_plain(st[1], er[1], buf, f["used"], **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(st[0], st[1]) and torch.equal(er[0][:-1], er[1][:-1]),
+              f"fused_step ({form}) differs from its plain version")
+        out["fused_step_ends11_" + form] = {
+            "words": buf.numel(), "rows": int(er[0][0, 0]),
+            "kernel": split_times(torch, lambda: fk.fused_step(
+                st[2], er[2], buf, f["used"], **kw)),
+            "cold_device_ms": cold_ms(lambda: fk.fused_step(
+                st[2], er[2], buf, f["used"], **kw))}
+
+    # the sharded top-n chunk at M1's fire: 4 blocks of cuda:0
+    q = q5_kernel_state(torch, np, dev)
+    state = q["counts"].clone()
+    wk.scatter_counts_plain(state, q["idx"], q["cnt"])
+    n_blk, W, ppw = MESH_BLOCKS, q["W"], q["ppw"]
+    lo, hi, anchor = q["pane_lo"], q["pane_hi"], 1000
+    spd = q["slots"] // n_blk
+    rows = spd + 1
+    ends, w_valid = q["ends"], q["w_valid"]
+    zero_row = torch.zeros((1, q["ring"]), dtype=torch.int32, device=dev)
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+    counts = [torch.cat([state[b * spd:(b + 1) * spd], zero_row]).contiguous()
+              for b in range(n_blk)]
+    used = [torch.cat([q["used"][b * spd:(b + 1) * spd], no]).contiguous()
+            for b in range(n_blk)]
+    wc_full = wk.window_counts_plain(state, ends, w_valid, lo, hi, ppw)
+    wcs = [wk.window_counts_plain(c, ends, w_valid, lo, hi, ppw)
+           for c in counts]
+    hi_cap = min(hi, lo + q["ring"] - 1)
+    spans = [range(max(e - ppw, lo), min(e - 1, hi_cap) + 1)
+             for e in ends.tolist()]
+    live_cols = len({p % q["ring"] for sp in spans for p in sp})
+    live = sum(len(sp) for sp in spans)
+
+    def operator(k):
+        """A stand-in with the fields ``_topn_sharded`` reads, calling the
+        tree's own methods."""
+        op = types.SimpleNamespace(
+            plan=types.SimpleNamespace(panes_per_window=ppw),
+            layout=types.SimpleNamespace(rows=rows), _topn=("count", k),
+            _blocks=[types.SimpleNamespace(counts=c) for c in counts],
+            _devices=[dev] * n_blk, device=dev, _ring_anchor=anchor,
+            _gathered_bufs={})
+        for m in ("_on_blocks", "_topn_cap", "_gathered"):
+            if hasattr(WindowOperator, m):
+                setattr(op, m, types.MethodType(getattr(WindowOperator, m),
+                                                op))
+        return op
+
+    for k in (1, 3):
+        op = operator(k)
+        rings = [ring0.clone() for _ in range(n_blk)]
+
+        def chunk():
+            WindowOperator._topn_sharded(op, ends, w_valid, lo, hi, used,
+                                         rings)
+        chunk()
+        single = ring0.clone()
+        wk.topn_select_append(wc_full, q["used"], ends, w_valid, anchor, k,
+                              4 * 256, single)
+        torch.cuda.synchronize()
+        one = single.cpu().numpy()
+        n_rows = int(one[0, 0])
+        got = np.concatenate([r[1:1 + int(r[0, 0])] for r in
+                              (x.cpu().numpy() for x in rings)])
+        got[:, 0] -= got[:, 0] // rows        # global row -> slot
+        check(n_rows >= W and len(got) == n_rows
+              and np.array_equal(got, one[1:1 + n_rows]),
+              f"the sharded top-{k} chunk's rows differ from the one-block "
+              "top-n's")
+        written = n_rows
+        b_ms, by = bound_ms(n_blk * rows * (live_cols * 4 + 1) + W * 9
+                            + written * 12 + 8 * n_blk,
+                            n_blk * rows * (live + W * 2 * k))
+        row = {"rows": written, "bound_ms": b_ms, "bound_by": by,
+               "chunk": split_times(torch, chunk)}
+        # each piece alone, block 0
+        cands = [wk.topn_candidates_plain(w, u, w_valid, k)
+                 for w, u in zip(wcs, used)]
+        gathered = torch.cat(cands, dim=1)
+        thresh = wk.topn_global_threshold(gathered, k)
+        thresh_p = wk.topn_global_threshold_plain(gathered, k)
+        torch.cuda.synchronize()
+        check(torch.equal(thresh, thresh_p)
+              and torch.equal(thresh, torch.topk(gathered, k, dim=1)
+                              .values[:, k - 1]),
+              f"topn_global_threshold (top-{k}) differs from its plain "
+              "version or torch.topk")
+        gb = torch.empty_like(gathered)
+        cand_out = {"out": gb[:, :k]} if gathered_api else {}
+        if gathered_api:
+            sel_args = (wcs[0], used[0], ends, w_valid, anchor, gathered, k,
+                        0, 256)
+        else:
+            sel_args = (wcs[0], used[0], ends, w_valid, anchor, thresh, 0,
+                        256)
+        r1, r2, r3 = (ring0.clone() for _ in range(3))
+        wk.topn_select_given(*sel_args, r1)
+        wk.topn_select_given_plain(*sel_args, r2)
+        c0 = wk.topn_candidates(wcs[0], used[0], w_valid, k, **cand_out)
+        torch.cuda.synchronize()
+        check(torch.equal(r1[:-1], r2[:-1]) and torch.equal(c0, cands[0]),
+              f"topn_select_given / topn_candidates (top-{k}) differ from "
+              "their plain versions")
+        sel_written = int(r1[0, 0])
+        row["pieces"] = {
+            "window_counts": split_times(torch, lambda: wk.window_counts(
+                counts[0], ends, w_valid, lo, hi, ppw)),
+            "topn_candidates": split_times(torch, lambda: wk.topn_candidates(
+                wcs[0], used[0], w_valid, k, **cand_out)),
+            "cat": split_times(torch, lambda: torch.cat(cands, dim=1)),
+            "topn_global_threshold": split_times(
+                torch, lambda: wk.topn_global_threshold(gathered, k)),
+            "torch_topk_gathered": split_times(
+                torch, lambda: torch.topk(gathered, k, dim=1)),
+            "topn_select_given": split_times(
+                torch, lambda: wk.topn_select_given(*sel_args, r3)),
+        }
+        row["topn_global_threshold_bound_ms"] = bound_ms(
+            gathered.numel() * 4 + W * 4, gathered.numel() * 2 * k)[0]
+        row["topn_select_given_bound_ms"] = bound_ms(
+            rows * W * 4 + rows + W * 9 + gathered.numel() * 4
+            + sel_written * 12 + 8, rows * W * 2 + W * gathered.shape[1] * 2
+            * k)[0]
+        row["topn_select_given_rows"] = sel_written
+        out[f"sharded_top{k}"] = row
+    wk.check_errors(dev)
+    return out
+
+
 # --cases NAME[,NAME...]: kernel cases, parent and change in turns. A row
 # names the CUDA sources it needs (built alone) and its function (torch,
 # np, dev) -> dict, printed as one JSON line under the row's name; the
@@ -4448,6 +4750,8 @@ KERNEL_CASES = {
                      mesh_split_cases),
     "count_fire": (("count_window_kernels",), count_fire_cases),
     "devgen_ingest": (("devgen_kernels",), devgen_ingest_cases),
+    "apply_threshold": (("window_kernels", "fused_kernels"),
+                        apply_threshold_cases),
 }
 
 
@@ -4676,8 +4980,7 @@ def phase_proc_time(torch, np):
 
 
 MESH_PATH = ("split_cells", "bucket_records", "window_counts",
-             "topn_candidates", "topn_global_threshold", "topn_select_given",
-             "ring_columns")
+             "topn_candidates", "topn_select_given", "ring_columns")
 
 
 def by_window(rows):
@@ -4723,6 +5026,8 @@ def phase_mesh(torch, np, local_rows):
     check(not missing, f"M1: kernels not launched on the mesh: {missing}")
     check(launches["fused_step"] == 0 and launches["apply_pairs_u32"] == 0,
           "M1 took the one-device native lane")
+    check(launches["topn_global_threshold"] == 0,
+          "M1 launched topn_global_threshold: the select works it out")
     a_rows, a_launches, a_res, a_wall, a_cfg = run_bid_agg(
         torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a", mesh=mesh)
     missing = [k for k in ("split_cells", "bucket_records", "scatter_lanes",
@@ -4736,7 +5041,7 @@ def phase_mesh(torch, np, local_rows):
         torch, np, side, "mesh-q5-ring", mesh=mesh,
         conf_extra={"exchange.impl": "ring"})
     prof = profile_run(torch, lambda: run_q5_host_fed(
-        torch, np, side, "mesh-q5-profiled", mesh=mesh)[3])
+        torch, np, side, "mesh-q5-profiled", mesh=mesh)[3], names=True)
     per_call = prof["kernels_per_call"]
     check(all(per_call.get(k) == 1 for k in ("topn_select_given",
                                              "bucket_records",
@@ -4745,6 +5050,10 @@ def phase_mesh(torch, np, local_rows):
           f"and the top-1 topn_candidates one each)")
     dtod = {k: v for k, v in prof["copies"].items() if "DtoD" in k}
     check(not dtod, f"M1: device-to-device copies on one card: {dtod}")
+    # the top-n fire gathers in place: no threshold kernel, no cat
+    gather = [k for k in prof.pop("kernel_names")
+              if "topn_global_threshold_kernel" in k or "CatArray" in k]
+    check(not gather, f"M1: the top-n fire's gather launched {gather}")
     a_prof = profile_run(torch, lambda: run_bid_agg(
         torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a-profiled",
         mesh=mesh)[3])
@@ -4904,12 +5213,10 @@ def main() -> int:
                     **{k: "mesh_q5" for k in MESH_KERNELS}}
         for row in table:
             name = row["name"]
-            if name in ("hash_keys", "nexmark_bids"):
-                # no path calls them: hash_keys no path of either package
-                # (the reference's tests only), nexmark_bids none since the
-                # devgen path's ingest makes its bids itself; each is held
-                # against its plain version in the kernels phase, and its
-                # count over every path's run must stay 0
+            if name in UNLAUNCHED:
+                # no path calls them (UNLAUNCHED); each is held against
+                # its plain version in the kernels phase, and its count
+                # over every path's run must stay 0
                 row["launches_by_path"] = {p: l[name]
                                            for p, l in paths.items()}
                 row["launches"] = sum(row["launches_by_path"].values())

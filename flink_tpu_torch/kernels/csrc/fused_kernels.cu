@@ -42,23 +42,33 @@ constexpr int64_t kEndSentinel = -(1LL << 62);
 // word = pair << 12 | count, decoded with a logical shift; the padding
 // word 0xFFFFFFFF decodes to count 0xFFF and is skipped, and so is a pair
 // at or beyond ``limit`` (= dump_row * ring: the reference sends it to no
-// cell). counts.flat[pair] += count. Bound: bytes — each word read once
-// and one 4-byte read-modify-write per pair (~110k pairs for a Q5 batch,
-// ~330k for WordCount: 1-4 MB, a microsecond of HBM time), so the launch
-// dominates. Design: one thread per word, integer atomicAdd.
+// cell). counts.flat[pair] += count, duplicates allowed (the plain
+// version's index_add_ takes them). Bound: bytes — each word read once and
+// one 4-byte read-modify-write per pair (~110k pairs for a Q5 batch,
+// ~294k for WordCount: 1-4 MB, a microsecond of HBM time); the scattered
+// adds, one L2 atomic each, set the time. Design: the caller passes the
+// real words only (the native lane's power-of-two padding is neither
+// uploaded nor read); a thread takes four words with one 16-byte load, a
+// block a tile of kApplyTile words, so Q5's batch is one wave of ~108
+// blocks (a persistent grid of 132 or 264 blocks walking the tiles
+// measured 5 % slower at WordCount's batch, PERF.md §6); a warp's 128 words pass through shared memory so that each of
+// its four add instructions takes 32 consecutive words (cells near each
+// other when the words come in cell order, as a thread's own four would
+// not); adds are integer atomicAdd with the result unused (a reduction,
+// RED, that waits for nothing). The words before the first 16-byte
+// boundary and after the last whole vector (0-3 each) take scalar loads
+// in the first tile's block. The header form (F2's first launch) gives
+// block 0 to the fused step's header decode; the kernel follows that
+// decode, under F2 below.
+constexpr int kApplyItems = 4;                       // words a thread: one 16-byte load
+constexpr int kApplyTile = kThreads * kApplyItems;   // words a block
+
 __device__ __forceinline__ void apply_pair_word(int32_t* __restrict__ counts, int64_t limit,
                                                 uint32_t word) {
   const uint32_t cnt = word & 0xFFFu;
   const uint32_t pair = word >> 12;
   if (cnt == 0xFFFu || (int64_t)pair >= limit) return;
   if (cnt != 0) atomicAdd(&counts[pair], (int32_t)cnt);
-}
-
-__global__ void apply_pairs_u32_kernel(int32_t* __restrict__ counts, int64_t limit,
-                                       const int32_t* __restrict__ words, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    apply_pair_word(counts, limit, (uint32_t)words[i]);
 }
 
 // ---- F3: apply_pairs_u16 --------------------------------------------------
@@ -88,16 +98,16 @@ __global__ void apply_pairs_u16_kernel(int32_t* __restrict__ counts, int64_t n_c
 //   words 8 .. 8 + 63 window-end deltas vs pane_lo, kDeltaSentinel unused.
 // A chain of launches on one stream, each reading what it needs from
 // device memory — no header field goes back to the host:
-//   1 fused_header_kernel decodes the header into a FusedParams block:
-//     the scalars, the first fire_pad end panes and valid flags, the
-//     purge's keep mask and identity column map, and two gate words —
-//     fire = any valid end among the fire_pad slots, clear = a non-zero
-//     clear word (with the gate off both are 1);
-//   2 apply_pairs_u32_kernel folds the pairs in (F1);
-//   3 window_counts_kernel, 4-5 the top-n's two kernels at top-1 (K2, K3;
+//   1 apply_pairs_u32_kernel<true>: block 0 decodes the header into a
+//     FusedParams block (the scalars, the first fire_pad end panes and
+//     valid flags, the purge's keep mask and identity column map, and
+//     two gate words — fire = any valid end among the fire_pad slots,
+//     clear = a non-zero clear word; with the gate off both are 1), the
+//     other blocks fold the pairs in (F1); it runs with no pairs too;
+//   2 window_counts_kernel, 3-4 the top-n's two kernels at top-1 (K2, K3;
 //     above top-1 the radix select's one cooperative launch or five),
 //     which write nothing when the fire word is 0;
-//   6 ring_columns_kernel in place (K4), the purge, which returns at once
+//   5 ring_columns_kernel in place (K4), the purge, which returns at once
 //     when the clear word is 0.
 // Skipping changes no byte: with no valid end the top-n selects no row
 // (and a skipped one leaves the ring and its workspace's epoch as they
@@ -112,34 +122,95 @@ struct FusedParams {
   uint8_t keep[kMaxRing];
 };
 
+// where the header form decodes from and to (unused by the plain form)
+struct HeaderArgs {
+  const int32_t* hdr;
+  int32_t ring, fire_pad, fire_gate;
+  FusedParams* p;
+};
+
 __device__ __forceinline__ int64_t hdr_i64(const int32_t* __restrict__ hdr, int i) {
   return (int64_t)(((uint64_t)(uint32_t)hdr[i + 1] << 32) | (uint64_t)(uint32_t)hdr[i]);
 }
 
-// one block of kMaxFirePad (== kMaxRing) threads
-__global__ void fused_header_kernel(const int32_t* __restrict__ hdr, int32_t ring,
-                                    int32_t fire_pad, int32_t fire_gate,
-                                    FusedParams* __restrict__ p) {
+// the header decode, one whole block (thread t < fire_pad its end slot,
+// t < ring its ring column)
+__device__ __forceinline__ void decode_header(const HeaderArgs& h) {
   const int t = threadIdx.x;
-  const int64_t pane_lo = hdr_i64(hdr, 0);
-  const int32_t d = t < fire_pad ? hdr[8 + t] : kDeltaSentinel;
+  FusedParams* p = h.p;
+  const int64_t pane_lo = hdr_i64(h.hdr, 0);
+  const int32_t d = t < h.fire_pad ? h.hdr[8 + t] : kDeltaSentinel;
   const bool valid = d > kDeltaSentinel;
-  if (t < fire_pad) {
+  if (t < h.fire_pad) {
     p->w_valid[t] = valid;
     p->end_panes[t] = valid ? pane_lo + d : kEndSentinel;
   }
-  const uint32_t clear_lo = (uint32_t)hdr[7], clear_hi = (uint32_t)hdr[6];
-  if (t < ring) {
+  const uint32_t clear_lo = (uint32_t)h.hdr[7], clear_hi = (uint32_t)h.hdr[6];
+  if (t < h.ring) {
     const uint32_t bit = t < 32 ? (clear_lo >> t) & 1u : (clear_hi >> (t - 32)) & 1u;
     p->keep[t] = bit == 0;
     p->src_col[t] = t;
   }
   const int any_valid = __syncthreads_or(valid);
   if (t == 0) {
-    p->s = FireScalars{pane_lo, hdr_i64(hdr, 2), hdr_i64(hdr, 4), floor_mod(pane_lo, ring)};
-    p->fire = !fire_gate || any_valid;
-    p->clear = !fire_gate || (clear_lo | clear_hi) != 0;
+    p->s = FireScalars{pane_lo, hdr_i64(h.hdr, 2), hdr_i64(h.hdr, 4), floor_mod(pane_lo, h.ring)};
+    p->fire = !h.fire_gate || any_valid;
+    p->clear = !h.fire_gate || (clear_lo | clear_hi) != 0;
   }
+}
+
+// F1 over n words: ``head`` scalar words up to the first 16-byte boundary,
+// ``vecs`` 16-byte vectors from there, then n - head - 4 vecs scalar words;
+// the header form's block 0 decodes the header instead
+static_assert(kThreads >= kMaxFirePad && kThreads >= kMaxRing,
+              "the header decode takes a thread an end slot and a ring column");
+
+// F1 over n words: ``head`` scalar words up to the first 16-byte boundary,
+// ``vecs`` 16-byte vectors from there (one a thread), then n - head - 4
+// vecs scalar words; the header form's block 0 decodes the header instead
+template <bool kHeader>
+__global__ void __launch_bounds__(kThreads) apply_pairs_u32_kernel(
+    int32_t* __restrict__ counts, int64_t limit, const int32_t* __restrict__ words, int64_t n,
+    int32_t head, int64_t vecs, HeaderArgs h) {
+  __shared__ int4 s_words[kThreads];
+  if (kHeader && blockIdx.x == 0) {
+    decode_header(h);
+    return;
+  }
+  const int64_t blk = kHeader ? blockIdx.x - 1 : blockIdx.x;
+  const int64_t v = blk * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // a lane past the words holds padding, which adds nothing
+  s_words[threadIdx.x] = v < vecs ? ((const int4*)(words + head))[v] : make_int4(-1, -1, -1, -1);
+  __syncwarp();
+  const uint32_t* w = (const uint32_t*)(s_words + (threadIdx.x & ~31));
+#pragma unroll
+  for (int j = 0; j < kApplyItems; ++j) apply_pair_word(counts, limit, w[32 * j + lane]);
+  if (blk == 0) {
+    const int64_t tail0 = head + 4 * vecs;  // the ragged end, 0-3 words
+    if ((int)threadIdx.x < head) apply_pair_word(counts, limit, (uint32_t)words[threadIdx.x]);
+    else if ((int)threadIdx.x >= 4 && tail0 + threadIdx.x - 4 < n)
+      apply_pair_word(counts, limit, (uint32_t)words[tail0 + threadIdx.x - 4]);
+  }
+}
+
+// F1's launch: a tile a block, and in the header form one block more;
+// with no words and no header, no launch
+template <bool kHeader>
+int launch_apply_u32(int32_t* counts, int64_t limit, const int32_t* words, int64_t n,
+                     const HeaderArgs& h, cudaStream_t s) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  // words before the first 16-byte boundary (a 4-byte aligned pointer)
+  int32_t head = (int32_t)((4 - (((uintptr_t)words >> 2) & 3)) & 3);
+  if (head > n) head = (int32_t)n;
+  const int64_t vecs = (n - head) / 4;
+  int64_t blocks = n > 0 ? (4 * vecs + kApplyTile - 1) / kApplyTile : 0;
+  if (n > 0 && blocks < 1) blocks = 1;
+  if (kHeader) ++blocks;
+  if (blocks > 0)
+    apply_pairs_u32_kernel<kHeader>
+        <<<(unsigned)blocks, kThreads, 0, s>>>(counts, limit, words, n, head, vecs, h);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -152,11 +223,7 @@ int ff_params_bytes() { return (int)sizeof(FusedParams); }
 
 int ff_apply_pairs_u32(int32_t* counts, int64_t limit, const int32_t* words, int64_t n,
                        void* stream) {
-  if (n > 0) {
-    apply_pairs_u32_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(counts, limit,
-                                                                               words, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_apply_u32<false>(counts, limit, words, n, HeaderArgs{}, (cudaStream_t)stream);
 }
 
 int ff_apply_pairs_u16(int32_t* counts, int64_t n_cells, const uint16_t* triples, int64_t n,
@@ -182,16 +249,14 @@ int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* bu
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   FusedParams* p = (FusedParams*)params;
-  fused_header_kernel<<<1, kMaxFirePad, 0, s>>>(buf, ring, fire_pad, fire_gate, p);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  rc = ff_apply_pairs_u32(counts, (int64_t)dump_row * ring, buf + kHdr, n_words - kHdr, stream);
+  int rc = launch_apply_u32<true>(counts, (int64_t)dump_row * ring, buf + kHdr, n_words - kHdr,
+                                  HeaderArgs{buf, ring, fire_pad, fire_gate, p}, s);
   if (rc) return rc;
   const FireSource fire{{0, 0, 0}, &p->s, &p->fire};
   rc = launch_window_counts(counts, rows, ring, p->end_panes, p->w_valid, fire_pad, fire, ppw,
                             wcounts, s);
   if (rc) return rc;
-  rc = launch_topn(wcounts, rows, fire_pad, used, p->end_panes, p->w_valid, fire, n, nullptr, 0,
+  rc = launch_topn(wcounts, rows, fire_pad, used, p->end_panes, p->w_valid, fire, n, nullptr, 0, 0,
                    sel_cap, emit_ring, ring_rows, ring_cols, work, work_windows, work_tiles, s);
   if (rc) return rc;
   RingParams purge{};

@@ -49,10 +49,14 @@
 //           each tile's place from lookback.cuh's look-back (a descriptor
 //           a 128-byte line); the grid's last tile updates the ring's head
 //           and advances the epoch.
-//   given   (topn_select_given) select_tile alone against a given f32
-//           threshold a window: one launch. Each tile reads the ring's
-//           head itself before it publishes its count, so the last tile's
-//           new head (written after its look-back) comes after every read.
+//   given   (topn_select_given) select_tile alone against the key-sharded
+//           mode's gathered candidates, (W, M) f32: each tile works out a
+//           window's threshold itself, the k-th of its M candidates
+//           (kth_windows: a thread or a warp a window, into the block's
+//           table), so no launch computes it first; W <= kSelWinTable.
+//           One launch. Each tile reads the ring's head itself before it
+//           publishes its count, so the last tile's new head (written
+//           after its look-back) comes after every read.
 // Launches a call: 2 at k = 1; above, 1 (cooperative) or 5; 1 given. A
 // small grid takes the same kernels with few blocks.
 //   The rules are the plain versions': a -NaN candidate at the k-th place
@@ -81,6 +85,7 @@ constexpr int kSelCells = kThreads * kSelItems;  // cells a selection tile (8 a 
                                                  // measured slower: 0.0078 against 0.0067 ms)
 constexpr int kSelWinTable = 64;                 // windows of a block's table
 constexpr int kRadixWindows = 32;                // windows a radix block histograms
+static_assert(kSelWinTable <= kThreads, "a table entry a thread");
 
 struct SelParams {
   const int32_t* wcounts;
@@ -93,11 +98,16 @@ struct SelParams {
   const int64_t* end_panes;
   const uint8_t* w_valid;
   FireSource src;       // the gate and the anchor
-  const float* given;   // a given threshold a window (topn_select_given), else null
+  // topn_select_given: the gathered candidates, (W, given_m) f32, whose
+  // k-th a window is its threshold (else null)
+  const float* given;
+  int32_t given_m;
   int32_t* ring;        // the emit ring (topn_candidates: null)
-  // topn_candidates: the (W, k) output, and at k > 1 the (W, k) list of
-  // each window's keys above its k-th (null otherwise)
+  // topn_candidates: the (W, k) output, row w at cand_out + w * cand_ld
+  // (a block's columns of a gathered buffer), and at k > 1 the (W, k)
+  // list of each window's keys above its k-th (null otherwise)
   float* cand_out;
+  int64_t cand_ld;
   uint32_t* cand_list;
   // the workspace
   long long* old_total;  // null in the given mode and for topn_candidates
@@ -133,6 +143,81 @@ __device__ __forceinline__ float key_value(uint32_t key) {
 
 __device__ __forceinline__ float thresh_value(unsigned long long t) {
   return key_value((uint32_t)t);
+}
+
+// The k-th largest of a window's M gathered candidates, ties counted, -inf
+// when fewer than k are finite: the global threshold of the key-sharded
+// top-n (the reference's lax.top_k(all_top, k)[0][:, k - 1]; counts as
+// f32 or -inf: no NaN, no +inf). The rule is the one-block kernel's it
+// replaces: round by round, the maximum below the value found last (the
+// first round: the maximum) and the count of values equal to it, a round
+// a distinct value, at most k; at k = 1 the maximum alone. Two forms:
+//   M <= kKthRegs (M1's 4 blocks up to top-4): a thread a window, its
+//   candidates in registers, loaded with the caller's other loads
+//   (kth_load), so the k-th waits on L2 once and on no other thread;
+//   M > kKthRegs: a warp a window (warp_kth), with shuffles.
+// kth_windows runs the one a block's windows need.
+constexpr int kKthRegs = 16;
+
+// v[i] = row[i] for i < M, -inf past it (M = 0: no load)
+__device__ __forceinline__ void kth_load(const float* __restrict__ row, int32_t M,
+                                         float (&v)[kKthRegs]) {
+#pragma unroll
+  for (int i = 0; i < kKthRegs; ++i) v[i] = i < M ? row[i] : -INFINITY;
+}
+
+__device__ __forceinline__ float kth_regs(const float (&v)[kKthRegs], int32_t M, int32_t k) {
+  float ceiling = INFINITY;
+  for (int32_t need = k;;) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kKthRegs; ++i)
+      if (i < M && v[i] < ceiling) m = fmaxf(m, v[i]);
+    if (m == -INFINITY || need == 1) return m;
+    int32_t c = 0;
+#pragma unroll
+    for (int i = 0; i < kKthRegs; ++i) c += i < M && v[i] == m;
+    need -= c;
+    if (need <= 0) return m;
+    ceiling = m;
+  }
+}
+
+// every lane of a warp calling: the k-th of row[0, M), lane l taking
+// row[l], row[l + 32], ... a round
+__device__ __forceinline__ float warp_kth(const float* __restrict__ row, int32_t M, int32_t k) {
+  const int lane = threadIdx.x & 31;
+  float ceiling = INFINITY;
+  for (int32_t need = k;;) {
+    float m = -INFINITY;
+    for (int32_t i = lane; i < M; i += 32) {
+      const float v = row[i];
+      if (v < ceiling) m = fmaxf(m, v);
+    }
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (m == -INFINITY || need == 1) return m;
+    int32_t c = 0;
+    for (int32_t i = lane; i < M; i += 32) c += row[i] == m;
+    need -= __reduce_add_sync(0xffffffffu, c);
+    if (need <= 0) return m;
+    ceiling = m;
+  }
+}
+
+// out[x] = the k-th of given[x * M, (x + 1) * M) for x < W <= kSelWinTable,
+// by the whole block (no barrier: the caller's comes before out is read);
+// v: kth_load(given + threadIdx.x * M, threadIdx.x < W ? M : 0) where M <=
+// kKthRegs (unused above)
+__device__ __forceinline__ void kth_windows(const float* __restrict__ given, int32_t W, int32_t M,
+                                            int32_t k, const float (&v)[kKthRegs], float* out) {
+  if (M <= kKthRegs) {
+    if ((int32_t)threadIdx.x < W) out[threadIdx.x] = kth_regs(v, M, k);
+    return;
+  }
+  for (int32_t x = threadIdx.x >> 5; x < W; x += kWarps) {  // the whole warp
+    const float t = warp_kth(given + (int64_t)x * M, M, k);
+    if ((threadIdx.x & 31) == 0) out[x] = t;
+  }
 }
 
 // a threshold block's cells: thread t takes cells a + t + kThreads * j,
@@ -449,7 +534,9 @@ __device__ __forceinline__ void sel_radix(const SelParams& p, int pass) {
 // kSelWinTable, the cell's count) is read before the look-back, in
 // flight with the tile's loads. kTable: W <= kSelWinTable, the thresholds
 // and ends in a block table (a run-time choice let the compiler load both
-// sides).
+// sides); the given mode's thresholds, each window's k-th of its gathered
+// candidates, are worked out into that table (kth_windows), and it takes
+// the table form only (launch_select refuses it past kSelWinTable).
 template <bool kCount, bool kTable, int kItems>
 __device__ __forceinline__ void select_tile(const SelParams& p) {
   __shared__ float s_thr[kSelWinTable];
@@ -465,6 +552,12 @@ __device__ __forceinline__ void select_tile(const SelParams& p) {
   const int64_t r0 = first / W;
   const int32_t w0 = (int32_t)(first - r0 * W);
   const bool skip = p.src.skip();
+  // the given mode (count form, table only): window threadIdx.x's
+  // gathered candidates, in flight with the grid's loads
+  const bool given = kCount && kTable && p.given != nullptr;
+  float kv[kKthRegs];
+  kth_load(p.given + (int64_t)threadIdx.x * p.given_m,
+           given && (int32_t)threadIdx.x < W && p.given_m <= kKthRegs ? p.given_m : 0, kv);
   // every load in flight before the first test
   int32_t wc[kItems];
   uint32_t sel = 0;
@@ -491,26 +584,37 @@ __device__ __forceinline__ void select_tile(const SelParams& p) {
       }
     }
     if (skip) return;
-    if (kTable)
-      for (int32_t x = threadIdx.x; x < W; x += kThreads) {
-        s_thr[x] = p.given != nullptr ? p.given[x] : thresh_value(__ldcg(p.thresh + x));
-        s_end[x] = p.end_panes[x];
-      }
+    // the table's entries (thread x its window x) and thread 0's scalars:
+    // every load issued before the first store, so that they wait on L2
+    // once (the epoch and the head were written by an earlier launch; in
+    // the given mode the head by none before this tile's count is out)
+    const bool tx = kTable && (int32_t)threadIdx.x < W;
+    const int64_t end_x = tx ? p.end_panes[threadIdx.x] : 0;
+    const float thr_x = tx && !given ? thresh_value(__ldcg(p.thresh + threadIdx.x)) : 0.0f;
+    uint32_t epoch = 0;
+    long long head = 0;
+    int64_t anchor = 0;
     if (threadIdx.x == 0) {
-      // from L2, all three in flight at once (the epoch and the head were
-      // written by an earlier launch; in the given mode the head by none
-      // before this tile's count is out)
-      s_epoch = __ldcg(p.epoch);
-      s_head = p.old_total != nullptr ? __ldcg(p.old_total) : __ldcg(p.ring);
-      s_anchor = p.src.get().anchor;
+      epoch = __ldcg(p.epoch);
+      head = p.old_total != nullptr ? __ldcg(p.old_total) : __ldcg(p.ring);
+      anchor = p.src.get().anchor;
+    }
+    if (tx) {
+      s_end[threadIdx.x] = end_x;
+      if (!given) s_thr[threadIdx.x] = thr_x;
+    }
+    // the given mode: each window's k-th of its gathered candidates
+    if (given) kth_windows(p.given, W, p.given_m, p.k, kv, s_thr);
+    if (threadIdx.x == 0) {
+      s_epoch = epoch;
+      s_head = head;
+      s_anchor = anchor;
     }
     __syncthreads();
     w = w0;
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const float t = kTable ? s_thr[w]
-                             : (p.given != nullptr ? p.given[w]
-                                                   : thresh_value(__ldcg(p.thresh + w)));
+      const float t = kTable ? s_thr[w] : thresh_value(__ldcg(p.thresh + w));
       if (wc[j] > 0 && valid[j] && used[j] && (kCount ? (float)wc[j] : v[j]) >= t)
         sel |= 1u << j;
       if (++w == W) w = 0;
@@ -701,7 +805,8 @@ inline int launch_select(SelParams p, int64_t* work, int64_t Wc, int64_t Tc,
   const int64_t blocks = (K + kThrCells - 1) / kThrCells;
   const int64_t groups = (p.W + kRadixWindows - 1) / kRadixWindows;
   if (p.rows >= (1ll << 32) || tiles >= (1ll << 31) || blocks >= (1ll << 31) ||
-      groups > 65535 || p.row_cap < 1 || Wc < p.W || Tc < tiles || work == nullptr)
+      groups > 65535 || p.row_cap < 1 || Wc < p.W || Tc < tiles || work == nullptr ||
+      (p.given != nullptr && (p.W > kSelWinTable || p.k > p.given_m)))
     return (int)cudaErrorInvalidValue;
   bind_select_work(p, work, Wc);
   p.tiles = tiles;
@@ -862,7 +967,7 @@ __device__ __forceinline__ void cand_merge(const SelParams& p) {
 #pragma unroll
       for (int i = 1; i < KS; ++i)
         if (i == lane) mine = u[i];
-      p.cand_out[(int64_t)w * k + lane] = key_value(mine);
+      p.cand_out[w * p.cand_ld + lane] = key_value(mine);
     }
   }
 }
@@ -872,7 +977,7 @@ __device__ __forceinline__ void cand_max_tail(const SelParams& p) {
   __shared__ int s_flag;
   if (!last_block(p.done, gridDim.x * gridDim.y, &s_flag)) return;
   for (int32_t w = threadIdx.x; w < p.W; w += kThreads)
-    p.cand_out[w] = thresh_value(__ldcg(p.thresh + w));
+    p.cand_out[w * p.cand_ld] = thresh_value(__ldcg(p.thresh + w));
   __syncthreads();
   if (threadIdx.x == 0) lb_advance(p.epoch, __ldcg(p.epoch));
 }
@@ -899,7 +1004,7 @@ __device__ void cand_sort_window(const SelParams& p, int32_t w, uint32_t* s_keys
   const uint32_t m = __ldcg(p.noncand + w);
   const uint32_t t = __ldcg(p.prefix + w);
   const uint32_t* list = p.cand_list + (int64_t)w * k;
-  float* out = p.cand_out + (int64_t)w * k;
+  float* out = p.cand_out + w * p.cand_ld;
   for (uint32_t i0 = 0; i0 < m; i0 += kThreads) {
     const uint32_t i = i0 + threadIdx.x;
     const uint32_t key = i < m ? __ldcg(list + i) : 0u;
@@ -992,8 +1097,9 @@ inline int64_t cand_list_words(int64_t rows, int32_t W, int32_t k) {
   return (int64_t)W * k;
 }
 
-// One topn_candidates call: p's grid fields, k, cand_out (and cand_list,
-// list_words uint32 words, at k > 1) set by the caller; work the entry
+// One topn_candidates call: p's grid fields, k, cand_out and its row
+// stride cand_ld (at least k; and cand_list, list_words uint32 words, at
+// k > 1) set by the caller; work the entry
 // point's clean workspace (select_work_words(Wc, Tc)). Returns the first
 // launch error.
 inline int launch_candidates(SelParams p, int64_t list_words, int64_t* work, int64_t Wc,
@@ -1005,6 +1111,7 @@ inline int launch_candidates(SelParams p, int64_t list_words, int64_t* work, int
   const int64_t tiles = (K + kSelCells - 1) / kSelCells;
   if (p.rows >= (1ll << 32) || blocks >= (1ll << 31) || groups > 65535 || p.k < 1 ||
       p.k > p.rows || Wc < p.W || Tc < tiles || work == nullptr || p.cand_out == nullptr ||
+      p.cand_ld < p.k ||
       (p.k > 1 && p.cand_list == nullptr) || list_words < cand_list_words(p.rows, p.W, p.k))
     return (int)cudaErrorInvalidValue;
   bind_select_work(p, work, Wc);

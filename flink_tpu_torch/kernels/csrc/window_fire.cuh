@@ -17,19 +17,6 @@ namespace {
 // error-word bit of ring_columns (window_kernels.py ERROR_BITS decodes it)
 constexpr int32_t kErrRingColumn = 2;
 
-// ---- block max (kThreads threads) ----------------------------------------
-
-__device__ __forceinline__ float block_max(float v, float* smem) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // smem may still be read by a previous call
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  float r = smem[0];
-  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, smem[i]);
-  return r;
-}
-
 // ---- K2: window_counts ---------------------------------------------------
 // out[r, w] = sum of counts[r, p mod ring] over panes p in
 // [end_w - ppw, end_w) ∩ [pane_lo, hi_cap], hi_cap = min(pane_hi,
@@ -360,8 +347,9 @@ inline int launch_window_counts(const int32_t* counts, int64_t rows, int32_t rin
 // row): at top-1 two launches (each block's per-window maxima into a
 // 64-bit (epoch, key) atomicMax a window, then the selection and the ring
 // append in one launch by the look-back); above, the radix select (one
-// cooperative launch, else five); against a given threshold
-// (topn_select_given) the selection alone, one launch. The fused step
+// cooperative launch, else five); against the key-sharded mode's gathered
+// candidates (topn_select_given) the selection alone, each tile working
+// out the windows' k-th itself, one launch. The fused step
 // (fused_kernels.cu) runs the same kernels, gated by its fire word, with
 // the anchor from its parameter block.
 __global__ void __launch_bounds__(kThreads) topn_max_kernel(const SelParams p) {
@@ -381,35 +369,36 @@ __global__ void __launch_bounds__(kThreads) topn_select_kernel(const SelParams p
   select_tile<true, kTable, kSelItems>(p);
 }
 
-// the selection against a given threshold (the same body; its own name
-// in a profile)
-template <bool kTable>
+// the selection against the gathered candidates (the same body; its own
+// name in a profile)
 __global__ void __launch_bounds__(kThreads) topn_given_kernel(const SelParams p) {
-  select_tile<true, kTable, kSelItems>(p);
+  select_tile<true, true, kSelItems>(p);
 }
 
 int g_topn_capacity[64];
 const SelKernels kTopnKernels{topn_max_kernel,           topn_radix_kernel,
                               topn_radix_all_kernel,     topn_select_kernel<true>,
                               topn_select_kernel<false>, g_topn_capacity};
-const SelKernels kTopnGivenKernels{nullptr, nullptr, nullptr, topn_given_kernel<true>,
-                                   topn_given_kernel<false>, g_topn_capacity};
+// the given mode takes the table form only (W <= kSelWinTable)
+const SelKernels kTopnGivenKernels{nullptr, nullptr, nullptr, topn_given_kernel, nullptr,
+                                   g_topn_capacity};
 
 // One count-form selection into the emit ring: each window's top n
-// against the whole-card threshold, or (``given`` non-null, f32 a window)
-// against the given thresholds; ``work`` is the entry point's clean
+// against the whole-card threshold, or (``given`` non-null: the gathered
+// (W, given_m) candidates, n their k) against each window's k-th of its
+// candidates; ``work`` is the entry point's clean
 // workspace, cut for Wc windows and Tc selection tiles
 // (select_work_words). Returns the first launch error.
 inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
                        const int64_t* end_panes, const uint8_t* w_valid, FireSource src,
-                       int32_t n, const float* given, int32_t row_offset, int32_t sel_cap,
-                       int32_t* ring, int32_t ring_rows, int32_t ring_cols, int64_t* work,
-                       int64_t Wc, int64_t Tc, cudaStream_t s) {
+                       int32_t n, const float* given, int32_t given_m, int32_t row_offset,
+                       int32_t sel_cap, int32_t* ring, int32_t ring_rows, int32_t ring_cols,
+                       int64_t* work, int64_t Wc, int64_t Tc, cudaStream_t s) {
   SelParams p{};
   p.wcounts = wcounts;
   p.rows = rows;
   p.W = W;
-  p.k = given != nullptr ? 1 : (int32_t)(n < rows ? n : rows);
+  p.k = given != nullptr ? n : (int32_t)(n < rows ? n : rows);
   p.sel_cap = sel_cap;
   p.row_cap = ring_rows - 2;
   p.ring_cols = ring_cols;
@@ -419,6 +408,7 @@ inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const ui
   p.w_valid = w_valid;
   p.src = src;
   p.given = given;
+  p.given_m = given_m;
   p.ring = ring;
   return launch_select(p, work, Wc, Tc, given != nullptr ? kTopnGivenKernels : kTopnKernels, s);
 }
@@ -428,46 +418,32 @@ inline int launch_topn(const int32_t* wcounts, int64_t rows, int32_t W, const ui
 // device block ranks its own rows, the blocks' top-k values per window are
 // gathered, the global threshold is the k-th largest of them, and each
 // block selects its rows against that global threshold and appends them,
-// with their global row ids, to its own emit ring. Three steps:
+// with their global row ids, to its own emit ring. Two steps:
 //   (a) topn_candidates: the window's top k candidate values of this
 //      device block, descending, each repeated as often as it occurs,
 //      -inf past the candidates (lax.top_k's (W, k) output over the
 //      -inf-masked values) — topn_select.cuh's whole-card threshold with
-//      its own tails, launched from window_kernels.cu (cand_* kernels);
-//   topn_global_threshold_kernel  one block per window: the k-th largest
-//      of the gathered (W, M) candidates, ties counted, -inf when fewer
-//      than k are finite;
-//   (b) K3's selection against that threshold with the block's row
-//      offset (launch_topn with ``given``: one launch).
-// Bound: bytes — (a) reads the (rows x W) window counts and the used
-// mask once, the rest is a few hundred bytes; (b) as K3.
+//      its own tails, launched from window_kernels.cu (cand_* kernels),
+//      written into the block's columns of the gathered (W, M) buffer;
+//   (b) K3's selection with the block's row offset against the gathered
+//      candidates (launch_topn with ``given``: one launch), each tile
+//      working out every window's k-th itself (kth_windows).
+// topn_global_threshold_kernel is the global k-th alone (:1606-1610),
+// kSelWinTable windows a block, a thread or a warp a window (kth_windows):
+// the port's counterpart of that step, held to its plain version; no path
+// launches it, since (b) folds it in. Bound: bytes — (a) reads the (rows
+// x W) window counts and the used mask once, the rest is a few hundred
+// bytes; (b) as K3, and the gathered candidates once a tile from L2.
 
-__global__ void topn_global_threshold_kernel(const float* __restrict__ cand, int32_t M,
-                                             int32_t k, float* __restrict__ thresh) {
-  __shared__ float s_max[kWarps];
-  __shared__ long long s_sum[kWarps];
-  const float* row = cand + (int64_t)blockIdx.x * M;
-  float result = -INFINITY;
-  float ceiling = INFINITY;
-  long long need = k;
-  for (int32_t round = 0; round < k; ++round) {
-    float m = -INFINITY;
-    for (int32_t i = threadIdx.x; i < M; i += blockDim.x) {
-      const float v = row[i];
-      if (v < ceiling && v > m) m = v;
-    }
-    m = block_max(m, s_max);
-    if (m == -INFINITY) break;  // fewer than k finite candidates
-    long long c = 0;
-    for (int32_t i = threadIdx.x; i < M; i += blockDim.x) c += row[i] == m;
-    need -= block_sum(c, s_sum);
-    if (need <= 0) {
-      result = m;
-      break;
-    }
-    ceiling = m;
-  }
-  if (threadIdx.x == 0) thresh[blockIdx.x] = result;
+__global__ void __launch_bounds__(kThreads) topn_global_threshold_kernel(
+    const float* __restrict__ cand, int32_t W, int32_t M, int32_t k, float* __restrict__ thresh) {
+  const int64_t x0 = (int64_t)blockIdx.x * kSelWinTable;
+  const int32_t n = W - x0 < kSelWinTable ? (int32_t)(W - x0) : kSelWinTable;
+  const float* rows = cand + x0 * M;
+  float v[kKthRegs];
+  kth_load(rows + (int64_t)threadIdx.x * M,
+           (int32_t)threadIdx.x < n && M <= kKthRegs ? M : 0, v);
+  kth_windows(rows, n, M, k, v, thresh + x0);
 }
 
 // ---- K4: ring_columns ----------------------------------------------------

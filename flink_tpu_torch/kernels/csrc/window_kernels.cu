@@ -24,9 +24,10 @@
 // K3 topn_select_append   replaces flink_tpu/ops/window.py:547
 //                         _ring_append_topn_core + :456 _topn_select_append;
 //                         its distributed mode (topn_candidates,
-//                         topn_global_threshold, topn_select_given)
-//                         replaces :1585 topn_shard's top_k, all_gather
-//                         threshold and select
+//                         topn_select_given with the global k-th folded in;
+//                         topn_global_threshold, that k-th alone) replaces
+//                         :1585 topn_shard's top_k, all_gather threshold
+//                         and select
 // K4 ring_columns         replaces flink_tpu/ops/window.py:825 clear_kernel
 //                         and :888 ring_remap_kernel (every lane)
 // K7 split_cells          replaces flink_tpu/ops/window.py:101 split_decode
@@ -414,15 +415,17 @@ int fk_topn_select_append(const int32_t* wcounts, int64_t rows, int32_t W, const
                           int32_t ring_cols, int64_t* work, int64_t work_windows,
                           int64_t work_tiles, void* stream) {
   return launch_topn(wcounts, rows, W, used, end_panes, w_valid, host_fire(0, 0, anchor), n,
-                     nullptr, 0, sel_cap, ring, ring_rows, ring_cols, work, work_windows,
+                     nullptr, 0, 0, sel_cap, ring, ring_rows, ring_cols, work, work_windows,
                      work_tiles, (cudaStream_t)stream);
 }
 
-// list: list_words of uint32 scratch at k > 1 (cand_list_words; null at
-// k = 1); work: as fk_topn_select_append's
+// cand: (W, k) with rows cand_ld floats apart (a block's columns of the
+// gathered (W, M) buffer, or its own (W, k) at cand_ld = k); list:
+// list_words of uint32 scratch at k > 1 (cand_list_words; null at k = 1);
+// work: as fk_topn_select_append's
 int fk_topn_candidates(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
-                       const uint8_t* w_valid, int32_t k, float* cand, uint32_t* list,
-                       int64_t list_words, int64_t* work, int64_t work_windows,
+                       const uint8_t* w_valid, int32_t k, float* cand, int64_t cand_ld,
+                       uint32_t* list, int64_t list_words, int64_t* work, int64_t work_windows,
                        int64_t work_tiles, void* stream) {
   SelParams p{};
   p.wcounts = wcounts;
@@ -432,6 +435,7 @@ int fk_topn_candidates(const int32_t* wcounts, int64_t rows, int32_t W, const ui
   p.used = used;
   p.w_valid = w_valid;
   p.cand_out = cand;
+  p.cand_ld = cand_ld;
   p.cand_list = list;
   return launch_candidates(p, list_words, work, work_windows, work_tiles, kCandKernels,
                            (cudaStream_t)stream);
@@ -439,21 +443,25 @@ int fk_topn_candidates(const int32_t* wcounts, int64_t rows, int32_t W, const ui
 
 int fk_topn_global_threshold(const float* cand, int32_t W, int32_t M, int32_t k, float* thresh,
                              void* stream) {
+  if (k < 1 || k > M) return (int)cudaErrorInvalidValue;
   if (W > 0) {
-    topn_global_threshold_kernel<<<W, kThreads, 0, (cudaStream_t)stream>>>(cand, M, k, thresh);
+    topn_global_threshold_kernel<<<(W + kSelWinTable - 1) / kSelWinTable, kThreads, 0,
+                                   (cudaStream_t)stream>>>(cand, W, M, k, thresh);
   }
   return (int)cudaGetLastError();
 }
 
-// work: as fk_topn_select_append's
+// cands: the gathered (W, M) candidates, each window's threshold their
+// k-th (W <= kSelWinTable, 1 <= k <= M); work: as fk_topn_select_append's
 int fk_topn_select_given(const int32_t* wcounts, int64_t rows, int32_t W, const uint8_t* used,
                          const int64_t* end_panes, const uint8_t* w_valid, int64_t anchor,
-                         const float* thresh, int32_t row_offset, int32_t sel_cap, int32_t* ring,
-                         int32_t ring_rows, int32_t ring_cols, int64_t* work,
-                         int64_t work_windows, int64_t work_tiles, void* stream) {
-  return launch_topn(wcounts, rows, W, used, end_panes, w_valid, host_fire(0, 0, anchor), 1,
-                     thresh, row_offset, sel_cap, ring, ring_rows, ring_cols, work, work_windows,
-                     work_tiles, (cudaStream_t)stream);
+                         const float* cands, int32_t M, int32_t k, int32_t row_offset,
+                         int32_t sel_cap, int32_t* ring, int32_t ring_rows, int32_t ring_cols,
+                         int64_t* work, int64_t work_windows, int64_t work_tiles, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  return launch_topn(wcounts, rows, W, used, end_panes, w_valid, host_fire(0, 0, anchor), k,
+                     cands, M, row_offset, sel_cap, ring, ring_rows, ring_cols, work,
+                     work_windows, work_tiles, (cudaStream_t)stream);
 }
 
 // the wrapper's argument block (window_kernels.py _RING_ARGS), every
@@ -528,13 +536,13 @@ int fk_topn_select_append_packed(const int64_t* a, void* stream) {
       (int64_t)a[13], (int64_t)a[14], stream);
 }
 
-// fk_topn_candidates from one packed block of 12 64-bit words
+// fk_topn_candidates from one packed block of 13 64-bit words
 int fk_topn_candidates_packed(const int64_t* a, void* stream) {
   return fk_topn_candidates(
       (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
       (const uint8_t*)(intptr_t)a[3], (const uint8_t*)(intptr_t)a[4], (int32_t)a[5],
-      (float*)(intptr_t)a[6], (uint32_t*)(intptr_t)a[7], (int64_t)a[8],
-      (int64_t*)(intptr_t)a[9], (int64_t)a[10], (int64_t)a[11], stream);
+      (float*)(intptr_t)a[6], (int64_t)a[7], (uint32_t*)(intptr_t)a[8], (int64_t)a[9],
+      (int64_t*)(intptr_t)a[10], (int64_t)a[11], (int64_t)a[12], stream);
 }
 
 // fk_topn_global_threshold from one packed block of 5 64-bit words
@@ -544,14 +552,14 @@ int fk_topn_global_threshold_packed(const int64_t* a, void* stream) {
       (float*)(intptr_t)a[4], stream);
 }
 
-// fk_topn_select_given from one packed block of 16 64-bit words
+// fk_topn_select_given from one packed block of 18 64-bit words
 int fk_topn_select_given_packed(const int64_t* a, void* stream) {
   return fk_topn_select_given(
       (const int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2],
       (const uint8_t*)(intptr_t)a[3], (const int64_t*)(intptr_t)a[4],
       (const uint8_t*)(intptr_t)a[5], (int64_t)a[6], (const float*)(intptr_t)a[7], (int32_t)a[8],
-      (int32_t)a[9], (int32_t*)(intptr_t)a[10], (int32_t)a[11], (int32_t)a[12],
-      (int64_t*)(intptr_t)a[13], (int64_t)a[14], (int64_t)a[15], stream);
+      (int32_t)a[9], (int32_t)a[10], (int32_t)a[11], (int32_t*)(intptr_t)a[12], (int32_t)a[13],
+      (int32_t)a[14], (int64_t*)(intptr_t)a[15], (int64_t)a[16], (int64_t)a[17], stream);
 }
 
 }  // extern "C"

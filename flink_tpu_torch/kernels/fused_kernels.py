@@ -40,9 +40,10 @@ DELTA_SENTINEL = -(2 ** 30)
 END_SENTINEL = -(2 ** 62)
 # the widest ring whose clear mask the header carries (two words)
 MAX_FUSED_RING = 64
-# kernel launches of one fused step at top-1: header decode, apply,
-# window counts, the top-n's two kernels (wk.topn_plan), purge
-FUSED_STEP_KERNELS = 6
+# kernel launches of one fused step at top-1: the header decode and the
+# apply in one, window counts, the top-n's two kernels (wk.topn_plan),
+# purge
+FUSED_STEP_KERNELS = 5
 
 _SIGNATURES = {
     "ff_params_bytes": [],
@@ -71,9 +72,11 @@ _params_words = None
 def apply_pairs_u32(counts: torch.Tensor, words: torch.Tensor,
                     dump_row: int) -> torch.Tensor:
     """``counts.view(-1)[pair] += count`` for each int32 word ``pair << 12
-    | count`` (a logical shift), in place. A word with count 0xFFF (the
-    padding word 0xFFFFFFFF) or a pair at or beyond ``dump_row * ring``
-    goes to no cell. Returns ``counts``."""
+    | count`` (a logical shift), in place; a pair may repeat. A word with
+    count 0xFFF (the padding word 0xFFFFFFFF) or a pair at or beyond
+    ``dump_row * ring`` goes to no cell. The kernel reads four words a
+    thread with 16-byte loads, any alignment and length of ``words``
+    taken. Returns ``counts``."""
     index = wk.fast_index((counts, torch.int32, 2), (words, torch.int32, 1))
     if index is None:
         wk.check_tensor(counts, "counts", torch.int32, 2)

@@ -312,7 +312,8 @@ class TopnPlan(NamedTuple):
 def topn_plan(rows: int, W: int, n: int, *, given: bool = False,
               fits: bool = True) -> TopnPlan:
     """The top-n selection's launches over a (rows, W) grid at top ``n``
-    (k = min(n, rows)): one against given thresholds; two at k = 1 (the
+    (k = min(n, rows)): one against the gathered candidates (``given``:
+    ``topn_select_given``, W <= SEL_WIN_TABLE); two at k = 1 (the
     per-window maxima, then the selection); above, the radix select and
     the selection in one cooperative launch where W <= RADIX_WINDOWS and
     the threshold blocks fit on the card at once (``fits``, the card's
@@ -369,10 +370,10 @@ _SCATTER_SPLIT_COUNTS = _entry("fk_scatter_split_counts",
 _SPLIT_CELLS = _entry("fk_split_cells", "split_cells", 6)
 _WINDOW_COUNTS = _entry("fk_window_counts", "window_counts", 10)
 _TOPN_SELECT_APPEND = _entry("fk_topn_select_append", "topn_select_append", 15)
-_TOPN_CANDIDATES = _entry("fk_topn_candidates", "topn_candidates", 12)
+_TOPN_CANDIDATES = _entry("fk_topn_candidates", "topn_candidates", 13)
 _TOPN_GLOBAL_THRESHOLD = _entry("fk_topn_global_threshold",
                                 "topn_global_threshold", 5)
-_TOPN_SELECT_GIVEN = _entry("fk_topn_select_given", "topn_select_given", 16)
+_TOPN_SELECT_GIVEN = _entry("fk_topn_select_given", "topn_select_given", 18)
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -694,9 +695,10 @@ def topn_select_append_plain(wcounts, used_mask, end_panes, w_valid, anchor,
 # -- K3, distributed mode ------------------------------------------------------
 # A key-sharded operator's top-n (the reference's topn_shard): each device
 # block's top-k candidates per window (topn_candidates), gathered across
-# the blocks into (W, n_blocks * k), the global k-th of them
-# (topn_global_threshold), then each block's select against it with its
-# first global row as the row offset (topn_select_given).
+# the blocks into (W, n_blocks * k) (on one card each block writes its own
+# columns), then each block's select against their global k-th with its
+# first global row as the row offset (topn_select_given, which works the
+# k-th out itself; topn_global_threshold is that k-th alone).
 
 # csrc/topn_select.cuh's topn_candidates constants: cells a thread of the
 # top-1 and merge launches, and the merge's largest k
@@ -733,12 +735,17 @@ def candidates_plan(rows: int, W: int, k: int, *,
 
 
 def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
-                    w_valid: torch.Tensor, k: int) -> torch.Tensor:
+                    w_valid: torch.Tensor, k: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(W, k) f32: each window's top ``k`` candidate values (``wcounts >
     0`` on a ``used_mask`` row of a valid window, as f32), descending,
     each as often as it occurs; -inf past a window's candidates. The
     kernel reads the grid over the whole card (``candidates_plan``'s
-    launches) with its own clean workspace."""
+    launches) with its own clean workspace. ``out``, when given, is a
+    (W, k) f32 view on the same device whose rows may lie further apart
+    than k (a block's columns of the gathered ``(W, M)`` buffer that
+    ``topn_select_given`` reads); the values land there and it is
+    returned."""
     index = fast_index((wcounts, torch.int32, 2), (used_mask, torch.bool, 1),
                        (w_valid, torch.bool, 1))
     if index is None:
@@ -750,11 +757,21 @@ def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
         raise ValueError("used_mask/w_valid do not match wcounts")
     if not 1 <= k <= rows:
         raise ValueError(f"topn_candidates needs 1 <= k <= rows, got {k}")
+    if out is not None and (out.dtype is not torch.float32
+                            or tuple(out.shape) != (W, k)
+                            or out.stride(1) != 1 or out.stride(0) < k
+                            or out.device != wcounts.device):
+        raise ValueError(
+            f"out must be a (W, k) = ({W}, {k}) float32 view with unit "
+            f"column stride on {wcounts.device}, got {tuple(out.shape)} "
+            f"{out.dtype} strides {out.stride()} on {out.device}")
     if index is None:
         if not on_cuda("topn_candidates", wcounts, used_mask, w_valid):
-            return topn_candidates_plain(wcounts, used_mask, w_valid, k)
+            cand = topn_candidates_plain(wcounts, used_mask, w_valid, k)
+            return cand if out is None else out.copy_(cand)
         index = wcounts.get_device()
-    cand = torch.empty((W, k), dtype=torch.float32, device=wcounts.device)
+    cand = (torch.empty((W, k), dtype=torch.float32, device=wcounts.device)
+            if out is None else out)
     _, stream = launch_context(index)
     work = select_workspace("topn_candidates", index, stream, rows, W)
     # above top-1: the blocks' lists, or each window's keys above its k-th
@@ -764,7 +781,7 @@ def topn_candidates(wcounts: torch.Tensor, used_mask: torch.Tensor,
     try:
         _TOPN_CANDIDATES(stream, wcounts.data_ptr(), rows, W,
                          used_mask.data_ptr(), w_valid.data_ptr(), int(k),
-                         cand.data_ptr(), lst, words, *work)
+                         cand.data_ptr(), cand.stride(0), lst, words, *work)
     except RuntimeError:
         drop_workspace("topn_candidates", index, stream)
         raise
@@ -781,7 +798,8 @@ def topn_candidates_plain(wcounts, used_mask, w_valid, k):
 def topn_global_threshold(cands: torch.Tensor, k: int) -> torch.Tensor:
     """(W,) f32: the ``k``-th largest of each row of the gathered ``(W,
     M)`` candidates, ties counted; -inf when a row has fewer than ``k``
-    finite values."""
+    finite values. The reference's global threshold on its own (the
+    key-sharded path folds it into ``topn_select_given``)."""
     index = fast_index((cands, torch.float32, 2))
     if index is None:
         check_tensor(cands, "cands", torch.float32, 2)
@@ -805,28 +823,40 @@ def topn_global_threshold_plain(cands, k):
 
 def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
                       end_panes: torch.Tensor, w_valid: torch.Tensor,
-                      anchor: int, thresh: torch.Tensor, row_offset: int,
-                      sel_cap: int, emit_ring: torch.Tensor) -> torch.Tensor:
-    """``topn_select_append`` against a given per-window threshold
-    ``thresh`` ((W,) f32, the global one): candidates with ``count >=
-    thresh[w]`` are appended in row-major (row, window) order as ``[row +
-    row_offset, end_pane - anchor, count]``, the head moved the same
-    way. In place; returns ``emit_ring``."""
+                      anchor: int, cands: torch.Tensor, k: int,
+                      row_offset: int, sel_cap: int,
+                      emit_ring: torch.Tensor) -> torch.Tensor:
+    """``topn_select_append`` against the key-sharded mode's global
+    threshold: ``cands`` is the gathered ``(W, M)`` f32 candidates (every
+    block's ``topn_candidates``), and window w's threshold is the ``k``-th
+    largest of its row, ties counted (-inf with fewer than ``k`` finite;
+    ``topn_global_threshold``), worked out in the kernel's own launch.
+    Candidates with ``count >= threshold`` are appended in row-major
+    (row, window) order as ``[row + row_offset, end_pane - anchor,
+    count]``, the head moved the same way. At most SEL_WIN_TABLE windows
+    (the sharded fire's chunks are at most MIN_FIRE_PAD). In place;
+    returns ``emit_ring``."""
     index = fast_index((wcounts, torch.int32, 2), (used_mask, torch.bool, 1),
                        (end_panes, torch.int64, 1), (w_valid, torch.bool, 1),
-                       (thresh, torch.float32, 1), (emit_ring, torch.int32, 2))
+                       (cands, torch.float32, 2), (emit_ring, torch.int32, 2))
     if index is None:
         check_tensor(wcounts, "wcounts", torch.int32, 2)
         check_tensor(used_mask, "used_mask", torch.bool, 1)
         check_tensor(end_panes, "end_panes", torch.int64, 1)
         check_tensor(w_valid, "w_valid", torch.bool, 1)
-        check_tensor(thresh, "thresh", torch.float32, 1)
+        check_tensor(cands, "cands", torch.float32, 2)
         check_tensor(emit_ring, "emit_ring", torch.int32, 2)
     rows, W = wcounts.shape
     if used_mask.numel() != rows or end_panes.numel() != W \
-            or w_valid.numel() != W or thresh.numel() != W:
-        raise ValueError("used_mask/end_panes/w_valid/thresh do not match "
+            or w_valid.numel() != W or cands.shape[0] != W:
+        raise ValueError("used_mask/end_panes/w_valid/cands do not match "
                          "wcounts")
+    if W > SEL_WIN_TABLE:
+        raise ValueError(f"topn_select_given takes at most {SEL_WIN_TABLE} "
+                         f"windows (one selection tile's table), got {W}")
+    if not 1 <= k <= cands.shape[1]:
+        raise ValueError(f"topn_select_given needs 1 <= k <= "
+                         f"{cands.shape[1]}, got {k}")
     if emit_ring.shape[1] != 3 or emit_ring.shape[0] < 3:
         raise ValueError(
             f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
@@ -834,9 +864,9 @@ def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
         raise ValueError("sel_cap must be >= 1")
     if index is None:
         if not on_cuda("topn_select_given", wcounts, used_mask, end_panes,
-                       w_valid, thresh, emit_ring):
+                       w_valid, cands, emit_ring):
             return topn_select_given_plain(wcounts, used_mask, end_panes,
-                                           w_valid, anchor, thresh,
+                                           w_valid, anchor, cands, k,
                                            row_offset, sel_cap, emit_ring)
         index = wcounts.get_device()
     _, stream = launch_context(index)
@@ -844,8 +874,9 @@ def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
     try:
         _TOPN_SELECT_GIVEN(stream, wcounts.data_ptr(), rows, W,
                            used_mask.data_ptr(), end_panes.data_ptr(),
-                           w_valid.data_ptr(), int(anchor), thresh.data_ptr(),
-                           int(row_offset), int(sel_cap), emit_ring.data_ptr(),
+                           w_valid.data_ptr(), int(anchor), cands.data_ptr(),
+                           cands.shape[1], int(k), int(row_offset),
+                           int(sel_cap), emit_ring.data_ptr(),
                            emit_ring.shape[0], emit_ring.shape[1], *work)
     except RuntimeError:
         drop_workspace("topn_select_given", index, stream)
@@ -854,8 +885,8 @@ def topn_select_given(wcounts: torch.Tensor, used_mask: torch.Tensor,
 
 
 def topn_select_given_plain(wcounts, used_mask, end_panes, w_valid, anchor,
-                            thresh, row_offset, sel_cap, emit_ring):
-    rows, W = wcounts.shape
+                            cands, k, row_offset, sel_cap, emit_ring):
+    thresh = topn_global_threshold_plain(cands, k)
     cand = (wcounts > 0) & used_mask[:, None] & w_valid[None, :]
     sel = cand & (wcounts.to(torch.float32) >= thresh[None, :])
     _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,

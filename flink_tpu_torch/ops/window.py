@@ -87,9 +87,11 @@ bucketed by owner with ``bucket_records`` and exchanged
 state with ``scatter_counts`` / ``scatter_lanes``. A fire without top-n
 runs ``fire_pack`` on every block with its first global row as the row
 offset; a count top-n runs ``window_counts`` and ``topn_candidates`` on
-every block, ``topn_global_threshold`` over the gathered candidates, and
-``topn_select_given`` on every block into that block's own emit ring,
-which the drain reads in block order. Purge and growth run on every
+every block, each block's candidates landing in its columns of one
+gathered buffer on the home device, and ``topn_select_given`` on every
+block against that buffer (each select works out the global k-th
+itself) into that block's own emit ring, which the drain reads in block
+order. Purge and growth run on every
 block. Snapshots hold the blocks end to end (the reference's global row
 layout) and restore across block counts.
 """
@@ -685,6 +687,9 @@ class WindowOperator:
         # the host-driven fire's (rows, W) window counts, a buffer a width
         # (_wc_out)
         self._wc_bufs: Dict[int, torch.Tensor] = {}
+        # the sharded top-n's gathered candidates, a buffer a (W, M)
+        # (_gathered)
+        self._gathered_bufs: Dict[Tuple[int, int], torch.Tensor] = {}
         self.prof: Dict[str, float] = collections.defaultdict(float)
         self.timer = DeviceTimer(self.device)
         # device-made source (attach_device_source): its spec, the batch
@@ -1002,11 +1007,12 @@ class WindowOperator:
         domain = self.layout.slots * self.plan.ring
         if cmax < 0xFFF and domain <= (1 << 20):
             # the words land in a pinned buffer behind FUSED_HDR header
-            # words, which the next advance fills for its fused step
+            # words, which the next advance fills for its fused step; the
+            # real pairs only (the reference pads them to a power of two
+            # to bound its recompiles), so no padding is uploaded or read
             slot, out = self._pairs.acquire()
             buf = nc.ingest_fused_finalize_u32_native(
-                res, ws, FUSED_HDR, _next_pow2(max(res.npairs, 256)),
-                out.view(np.int32))
+                res, ws, FUSED_HDR, res.npairs, out.view(np.int32))
             if self._fused_ok() and self._stash is None:
                 self._stash = (slot, buf)
                 self._pairs.hold(slot)
@@ -1040,14 +1046,15 @@ class WindowOperator:
         (``scatter_counts``)."""
         if len(pairs) == 0:
             return
-        cap = _next_pow2(max(len(pairs), 256))
         cmax = int(cnts.max())
         if cmax < 0xFFF and self.layout.slots * self.plan.ring <= (1 << 20):
-            buf, apply = preagg_encode_u32(pairs, cnts, cap), (
+            # a word a real pair, no padding
+            buf, apply = preagg_encode_u32(pairs, cnts, len(pairs)), (
                 lambda d: fk.apply_pairs_u32(self.state.counts, d,
                                              self.layout.slots))
         elif cmax <= 0xFFFF:
-            buf, apply = preagg_encode_u16(pairs, cnts, cap), (
+            buf, apply = preagg_encode_u16(
+                pairs, cnts, _next_pow2(max(len(pairs), 256))), (
                 lambda d: fk.apply_pairs_u16(self.state.counts, d))
         else:
             self._apply_cells(pairs, cnts)
@@ -1590,28 +1597,48 @@ class WindowOperator:
                       rings: List[torch.Tensor]) -> None:
         """A count top-n chunk over the mesh (the reference's topn_shard):
         each block's window counts and its top-k candidates per window,
-        k = min(n, rows_per_device); the candidates gathered on the home
-        device and their global k-th; each block's rows at or above it
+        k = min(n, rows_per_device), gathered into one (W, blocks * k)
+        buffer on the home device (a block there writes its own columns;
+        one on another card sends them); each block's rows at or above
+        the gathered candidates' k-th (worked out by the select itself)
         appended to its own emit ring with their global row ids."""
         ppw, rows = self.plan.panes_per_window, self.layout.rows
         k = min(self._topn[1], rows)
         ends, wvs = self._on_blocks(end_t), self._on_blocks(w_valid)
-        wcs, cands = [], []
-        for st, dev, e, wv, u in zip(self._blocks, self._devices, ends, wvs,
-                                     used):
+        gathered = self._gathered(end_t.numel(), len(self._blocks) * k)
+        wcs = []
+        for b, (st, dev, e, wv, u) in enumerate(zip(
+                self._blocks, self._devices, ends, wvs, used)):
+            cols = gathered[:, b * k:(b + 1) * k]
             with on_device(dev):
                 wc = wk.window_counts(st.counts, e, wv, lo, hi, ppw)
                 wcs.append(wc)
-                cands.append(wk.topn_candidates(wc, u, wv, k))
-        gathered = torch.cat([c.to(self.device, non_blocking=True)
-                              for c in cands], dim=1)
-        thresh = wk.topn_global_threshold(gathered, k)
-        for b, (dev, wc, e, wv, u, t, ring_b) in enumerate(zip(
-                self._devices, wcs, ends, wvs, used, self._on_blocks(thresh),
-                rings)):
+                if dev == self.device:
+                    wk.topn_candidates(wc, u, wv, k, out=cols)
+                else:
+                    cols.copy_(wk.topn_candidates(wc, u, wv, k),
+                               non_blocking=True)
+        for b, (dev, wc, e, wv, u, g, ring_b) in enumerate(zip(
+                self._devices, wcs, ends, wvs, used,
+                self._on_blocks(gathered), rings)):
             with on_device(dev):
-                wk.topn_select_given(wc, u, e, wv, self._ring_anchor, t,
+                wk.topn_select_given(wc, u, e, wv, self._ring_anchor, g, k,
                                      b * rows, self._topn_cap(), ring_b)
+
+    def _gathered(self, W: int, M: int) -> torch.Tensor:
+        """The sharded top-n's (W, M) gathered candidates on the home
+        device. On blocks of one card one buffer a shape, reused by every
+        chunk, as ``_wc_out``: one stream orders a chunk's selects before
+        the next chunk's candidates. Between cards a new one a chunk, as
+        its copies to the blocks run on other streams."""
+        if any(d != self.device for d in self._devices):
+            return torch.empty((W, M), dtype=torch.float32,
+                               device=self.device)
+        buf = self._gathered_bufs.get((W, M))
+        if buf is None:
+            buf = self._gathered_bufs[(W, M)] = torch.empty(
+                (W, M), dtype=torch.float32, device=self.device)
+        return buf
 
     def _topn_lanes_fire(self, wc: torch.Tensor, end_t: torch.Tensor,
                          w_valid: torch.Tensor, lo: int, hi: int,

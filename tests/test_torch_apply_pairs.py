@@ -38,6 +38,59 @@ def test_apply_pairs_u32_matches_preagg_u32(ring):
     assert not np.array_equal(got.numpy(), base)
 
 
+@pytest.fixture(scope="module")
+def real_words_case():
+    """One state and 1,025 real pair words (repeated pairs, pairs in the
+    dump row and past the state among them) padded to 2,048 with -1, and
+    the reference's counts after each prefix the cases below take, from
+    _JIT_PREAGG_U32 on the padded buffer (one compiled shape)."""
+    rng = np.random.default_rng(17)
+    slots, ring, cap = 500, 32, 2048
+    base = _state(rng, slots + 1, ring, 40, 40 + ring - 2)
+    pairs = rng.integers(0, slots * ring, 1025)
+    pairs[:40] = pairs[40:80]                     # each of these twice
+    pairs[[3, 500, 1024]] = [slots * ring, slots * ring + ring - 1,
+                             (slots + 2) * ring]  # the dump row and past
+    cnts = rng.integers(1, 0xFFF, 1025)
+    words = ((pairs << 12) | cnts).astype(np.uint32).view(np.int32)
+    ref = {}
+    for n in REAL_WORDS:
+        buf = np.full(cap, -1, np.int32)
+        buf[:n] = words[:n]
+        ref[n] = np.asarray(jw._JIT_PREAGG_U32(
+            JaxPaneState(None, None, None, jnp.asarray(base)),
+            jnp.asarray(buf), ring=ring, dump_row=slots).counts)
+    return base, words, slots, cap, ref
+
+
+REAL_WORDS = (0, 1, 3, 4, 1025)
+
+
+@pytest.mark.parametrize("n", REAL_WORDS)
+def test_apply_pairs_u32_real_words_match_the_padded_reference(
+        real_words_case, n):
+    """The native lane passes the real words only: the first n words,
+    as a view one word into its storage (off a 16-byte boundary, as the
+    kernel's scalar head takes it), give the reference's counts on the
+    same words padded to a power of two; so do the words with their
+    padding passed too (the plain version skips 0xFFFFFFFF and pairs at
+    the limit), and repeated pairs add up."""
+    base, words, slots, cap, ref = real_words_case
+    held = np.full(n + 1, 7, np.int32)
+    held[1:] = words[:n]
+    view = torch.from_numpy(held)[1:]
+    assert view.storage_offset() == 1 and view.numel() == n
+    got = fk.apply_pairs_u32(torch.from_numpy(base.copy()), view, slots)
+    np.testing.assert_array_equal(got.numpy(), ref[n])
+    padded = np.full(cap, -1, np.int32)
+    padded[:n] = words[:n]
+    got_padded = fk.apply_pairs_u32_plain(torch.from_numpy(base.copy()),
+                                          torch.from_numpy(padded), slots)
+    np.testing.assert_array_equal(got_padded.numpy(), ref[n])
+    if n == 1025:
+        assert not np.array_equal(ref[n], base)
+
+
 # -- F3 ------------------------------------------------------------------------
 
 def test_apply_pairs_u16_matches_preagg_u16():

@@ -42,9 +42,9 @@ def _constexpr(text, name):
 
 def test_plan_constants_match_the_sources():
     """The plan's tile, block, table and histogram sizes are the
-    kernels'; the fused step's launches are its five stages with the
-    top-n's two at top-1; the wrappers' argument blocks have a word a
-    C argument."""
+    kernels'; the fused step's launches are its four stages (the header
+    decode inside the apply's launch) with the top-n's two at top-1; the
+    wrappers' argument blocks have a word a C argument."""
     common, sel = _source("window_common.cuh"), _source("topn_select.cuh")
     threads = int(_constexpr(common, "kThreads"))
     assert _constexpr(sel, "kSelCells") == "kThreads * kSelItems"
@@ -53,7 +53,7 @@ def test_plan_constants_match_the_sources():
     assert threads * int(_constexpr(sel, "kThrItems")) == wk.THR_CELLS
     assert int(_constexpr(sel, "kSelWinTable")) == wk.SEL_WIN_TABLE
     assert int(_constexpr(sel, "kRadixWindows")) == wk.RADIX_WINDOWS
-    assert fk.FUSED_STEP_KERNELS == 4 + wk.topn_plan(32769, 11, 1).kernels
+    assert fk.FUSED_STEP_KERNELS == 3 + wk.topn_plan(32769, 11, 1).kernels
     win = _source("window_kernels.cu")
     for fn, entry in (("fk_topn_select_append", wk._TOPN_SELECT_APPEND),
                       ("fk_topn_select_given", wk._TOPN_SELECT_GIVEN)):

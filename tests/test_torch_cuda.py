@@ -1277,6 +1277,94 @@ def test_apply_pairs_u32(dev, ring):
     assert torch.equal(a, b) and not torch.equal(a, counts)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 1025, 120_001])
+def test_apply_pairs_u32_lengths_and_alignment(dev, n, offset):
+    """Four words a thread by 16-byte loads, the scalar head up to the
+    first 16-byte boundary and the ragged tail: n words at a view
+    ``offset`` words into its storage (one word off the boundary), with
+    repeated pairs, padding words and pairs at and past the limit among
+    them; bit for bit against the plain version."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    rng = np.random.default_rng(n * 2 + offset)
+    slots, ring = 4096, 32
+    counts = _t(rng.integers(0, 9, (slots + 1, ring)).astype(np.int32), dev)
+    pairs = rng.integers(0, slots * ring, max(n, 1))
+    pairs[: n // 4] = pairs[n // 4: 2 * (n // 4)]      # repeated pairs
+    words = ((pairs << 12) | rng.integers(1, 0xFFF, len(pairs))).astype(
+        np.uint32).view(np.int32)[:n].copy()
+    if n >= 4:
+        words[1] = -1                                     # padding
+        words[2] = np.array([(slots * ring) << 12 | 5], np.uint32).view(np.int32)[0]
+        words[3] = np.array([((slots + 1) * ring + 3) << 12 | 7],
+                            np.uint32).view(np.int32)[0]
+    held = torch.full((n + offset + 8,), 123, dtype=torch.int32, device=dev)
+    view = held[offset:offset + n]
+    view.copy_(_t(words, dev))
+    if n:  # an empty view has no address
+        assert (view.data_ptr() % 16 == 4) == (offset == 1)
+    a, b = counts.clone(), counts.clone()
+    fk.apply_pairs_u32(a, view, slots)
+    fk.apply_pairs_u32_plain(b, view, slots)
+    assert torch.equal(a, b)
+    assert torch.equal(a, counts) == (n == 0)
+
+
+def test_fused_step_header_form_with_no_pairs(dev, monkeypatch):
+    """A fused step with a header and no pair words: the apply's header
+    block still decodes the header into the parameter block (the
+    scalars, end panes, valid flags, keep mask, identity columns and the
+    gate words, as the plain decode reads them), and the step equals the
+    plain version."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    held = []
+    orig = wk.scratch
+
+    def spy(device, words):
+        t, ptr = orig(device, words)
+        held.append(t)
+        return t, ptr
+    monkeypatch.setattr(wk, "scratch", spy)
+    rng = np.random.default_rng(31)
+    slots, ring, ppw, pane_lo, pane_hi, anchor = 2048, 48, 10, 1000, 1030, 997
+    counts = _t(_live_counts(rng, slots + 1, ring, pane_lo, pane_hi), dev)
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([pane_lo, pane_hi, anchor], np.int64).view(np.int32)
+    clear = np.array([(1 << 3) | (1 << 31) | (1 << 40)], np.uint64).view(np.int32)
+    hdr[7], hdr[6] = clear
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[[0, 2, 5]] = [12, 20, 31]
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+    buf = _t(hdr, dev)
+    used = _t(rng.random(slots + 1) < 0.5, dev)
+    fire_pad = 8
+    kw = dict(ppw=ppw, n=1, sel_cap=256, dump_row=slots, fire_gate=True,
+              fire_pad=fire_pad)
+    rings = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    states = [counts.clone(), counts.clone()]
+    fk.fused_step(states[0], rings[0], buf, used, **kw)
+    torch.cuda.synchronize()
+    params = held[-1][:fk._params_words].cpu().numpy().view(np.uint8)
+    fk.fused_step_plain(states[1], rings[1], buf, used, **kw)
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(rings[0][:-1], rings[1][:-1])
+    # FusedParams: FireScalars (4 int64), fire, clear (int32), end_panes
+    # (64 int64), src_col (64 int32), w_valid, keep (64 bytes each)
+    lo, hi, anc, end_panes, w_valid, clr, any_clear = fk.decode_header(
+        buf.cpu(), ring, fire_pad)
+    scalars = params[:32].view(np.int64)
+    assert scalars.tolist() == [lo, hi, anc, lo % ring]
+    fire, clear_word = params[32:40].view(np.int32)
+    assert fire == int(bool(w_valid.any())) and clear_word == int(any_clear)
+    assert params[40:40 + 8 * fire_pad].view(np.int64).tolist() == end_panes.tolist()
+    assert params[552:552 + 4 * ring].view(np.int32).tolist() == list(range(ring))
+    assert params[808:808 + fire_pad].astype(bool).tolist() == w_valid.tolist()
+    assert params[872:872 + ring].astype(bool).tolist() == (~clr).tolist()
+
+
 def test_apply_pairs_u16(dev):
     from flink_tpu_torch.kernels import fused_kernels as fk
     from flink_tpu_torch.ops.window import preagg_encode_u16
@@ -2369,7 +2457,6 @@ def _lean_cases(dev):
                         rng.integers(0, 4 * 256 * ring, 4096), -1).astype(np.int32), dev)
     payload = _t(rng.random((4096, 2)).astype(np.float32), dev)
     cands = wk.topn_candidates_plain(wc, used, valid, 3)
-    thresh = wk.topn_global_threshold_plain(cands, 3)
     v = _t(rng.random((rows, W)).astype(np.float32), dev)
     cols = _t(rng.integers(-9, 9, (rows, W, 2)).astype(np.int32), dev)
     args_fp = (counts, s1, mx1, mn1, ends, valid, used, lo, hi, ppw, 4096, False)
@@ -2407,12 +2494,12 @@ def _lean_cases(dev):
         "topn_candidates": (pure(lambda: wk.topn_candidates(wc, used, valid, 3)),
                             lambda: cands),
         "topn_global_threshold": (pure(lambda: wk.topn_global_threshold(cands, 3)),
-                                  lambda: thresh),
+                                  lambda: wk.topn_global_threshold_plain(cands, 3)),
         "topn_select_given": (
-            inplace(lambda r: wk.topn_select_given(wc, used, ends, valid, lo, thresh,
-                                                   7, 200, r), ring0),
+            inplace(lambda r: wk.topn_select_given(wc, used, ends, valid, lo, cands,
+                                                   3, 7, 200, r), ring0),
             lambda: after(lambda r: wk.topn_select_given_plain(
-                wc, used, ends, valid, lo, thresh, 7, 200, r), ring0)),
+                wc, used, ends, valid, lo, cands, 3, 7, 200, r), ring0)),
         "nexmark_bids": (pure(lambda: dk.nexmark_bids(3, 100, 5000, 1 << 20, 50, 4, 100,
                                                       10_000, dev)),
                          lambda: dk.nexmark_bids_plain(3, 100, 5000, 1 << 20, 50, 4,
@@ -2557,8 +2644,10 @@ def test_lean_wrapper_captures_into_a_graph(dev, name):
 def _count_topn_both(dev, wc, used, valid, n, sel_cap, row_cap=2048, fill=0,
                      given=None, row_offset=0):
     """``topn_select_append`` (or, with ``given`` thresholds,
-    ``topn_select_given``) and its plain version on one grid; the rings
-    (their last row excepted) must be equal. Returns the kernel's ring."""
+    ``topn_select_given`` on them as (W, 1) gathered candidates at k = 1,
+    whose k-th is each itself) and its plain version on one grid; the
+    rings (their last row excepted) must be equal. Returns the kernel's
+    ring."""
     rows, W = wc.shape
     ends = _t(np.arange(100, 100 + W, dtype=np.int64), dev)
     args = [_t(wc.astype(np.int32), dev), _t(used, dev), ends, _t(valid, dev),
@@ -2570,9 +2659,9 @@ def _count_topn_both(dev, wc, used, valid, n, sel_cap, row_cap=2048, fill=0,
         wk.topn_select_append(*args, n, sel_cap, r1)
         wk.topn_select_append_plain(*args, n, sel_cap, r2)
     else:
-        g = _t(np.asarray(given, np.float32), dev)
-        wk.topn_select_given(*args, g, row_offset, sel_cap, r1)
-        wk.topn_select_given_plain(*args, g, row_offset, sel_cap, r2)
+        g = _t(np.asarray(given, np.float32)[:, None], dev)
+        wk.topn_select_given(*args, g, 1, row_offset, sel_cap, r1)
+        wk.topn_select_given_plain(*args, g, 1, row_offset, sel_cap, r2)
     assert torch.equal(r1[:-1], r2[:-1])
     return r1
 
@@ -2656,6 +2745,79 @@ def test_count_topn_given_row_offsets_and_minus_inf(dev):
         assert int(got[:, 0].min()) >= off
         assert int((got[:, 1] == 14).sum()) == int(((wc[:, 4] > 0)
                                                     & used).sum())
+
+
+@pytest.mark.parametrize("k,n_blocks,W", [
+    (1, 1, 1), (1, 4, 11), (2, 8, 16), (3, 4, 11), (5, 3, 64), (8, 2, 16),
+    (16, 4, 11), (16, 8, 64), (7, 5, 33), (1, 8, 64)])
+def test_gathered_select_matches_its_composed_plain_version(dev, k, n_blocks, W):
+    """topn_select_given against the gathered candidates of n_blocks
+    blocks (their top k each, written into the block's columns of one
+    buffer by topn_candidates): each block in turn, with its row offset,
+    into one ring started near its capacity, bit for bit against
+    topn_global_threshold_plain then the select's plain version; ties
+    across blocks at the k-th (window 0), a window with fewer than k
+    candidates in all (-inf: all its candidates), an invalid window."""
+    rng = np.random.default_rng(k * 100 + n_blocks * 10 + W)
+    rows = 4097
+    ends = _t(np.arange(100, 100 + W, dtype=np.int64), dev)
+    valid = np.ones(W, bool)
+    if W > 2:
+        valid[2] = False
+    valid_t = _t(valid, dev)
+    grids, useds = [], []
+    for _ in range(n_blocks):
+        wc = rng.integers(0, 30, (rows, W)) * (rng.random((rows, W)) < 0.3)
+        wc[:k, 0] = 1000                 # every block's k tied at the top
+        if W > 1:
+            wc[:, 1] = 0
+        used = rng.random(rows) < 0.9
+        used[:k] = True
+        grids.append(_t(wc.astype(np.int32), dev))
+        useds.append(_t(used, dev))
+    if W > 1:
+        grids[-1][5, 1] = 4                  # one candidate in all
+        useds[-1][5] = True
+    gathered = torch.full((W, n_blocks * k), 7.0, device=dev)
+    for b in range(n_blocks):
+        wk.topn_candidates(grids[b], useds[b], valid_t, k,
+                           out=gathered[:, b * k:(b + 1) * k])
+        assert torch.equal(gathered[:, b * k:(b + 1) * k],
+                           wk.topn_candidates_plain(grids[b], useds[b], valid_t, k))
+    thresh = wk.topn_global_threshold_plain(gathered, k)
+    assert float(thresh[0]) == 1000.0
+    if W > 1 and k > 1:
+        assert float(thresh[1]) == -float("inf")
+    r1 = torch.zeros((1 << 12) + 2, 3, dtype=torch.int32, device=dev)
+    r1[0, 0] = (1 << 12) - 50                # the appends wrap the ring
+    r2 = r1.clone()
+    for b in range(n_blocks):
+        args = (grids[b], useds[b], ends, valid_t, 90, gathered, k, b * rows,
+                1 << 12)
+        wk.topn_select_given(*args, r1)
+        wk.topn_select_given_plain(*args, r2)
+    assert torch.equal(r1[:-1], r2[:-1])
+    assert int(r1[0, 0]) - ((1 << 12) - 50) >= n_blocks * k
+    wk.check_errors(dev)
+
+
+@pytest.mark.parametrize("W,M,k", [
+    (1, 1, 1), (11, 4, 1), (11, 12, 3), (64, 64, 16), (64, 128, 16),
+    (33, 40, 40), (9, 100, 7), (64, 2, 2)])
+def test_topn_global_threshold_matches_torch_topk(dev, W, M, k):
+    """The warp-a-window kernel (several windows a block) against
+    torch.topk(cands, k)'s k-th and its plain version: values with ties,
+    -inf fills, rows with fewer than k finite values, a row of -inf."""
+    rng = np.random.default_rng(W * M + k)
+    c = rng.integers(0, 6, (W, M)).astype(np.float32)
+    c[rng.random((W, M)) < 0.3] = -np.inf
+    c[0] = -np.inf
+    if W > 1:
+        c[1, :] = 5.0                        # one value M times
+    cands = _t(c, dev)
+    got = wk.topn_global_threshold(cands, k)
+    assert torch.equal(got, torch.topk(cands, k, dim=1).values[:, k - 1])
+    assert torch.equal(got, wk.topn_global_threshold_plain(cands, k))
 
 
 def test_count_topn_renews_its_workspace(dev, monkeypatch):

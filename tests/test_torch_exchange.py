@@ -247,18 +247,18 @@ def test_distributed_topn_plain_matches_the_reference_shard(n):
     w_valid = np.array([True, True, False, True, True])
     ends = torch.arange(100, 100 + W, dtype=torch.int64)
     k = min(n, rows)
-    cands = []
+    # each block's candidates in its columns of one gathered buffer
+    gathered = torch.full((W, nb * k), 7.0)
     for b in range(nb):
         sl = slice(b * rows, (b + 1) * rows)
         c = wk.topn_candidates(torch.from_numpy(wc[sl]),
                                torch.from_numpy(used[sl]),
-                               torch.from_numpy(w_valid), k)
+                               torch.from_numpy(w_valid), k,
+                               out=gathered[:, b * k:(b + 1) * k])
         nz = (wc[sl] > 0) & used[sl][:, None] & w_valid[None, :]
         v = np.where(nz, wc[sl].astype(np.float32), -np.inf)
         np.testing.assert_array_equal(
             c.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(v.T), k)[0]))
-        cands.append(c)
-    gathered = torch.cat(cands, dim=1)
     thresh = wk.topn_global_threshold(gathered, k)
     np.testing.assert_array_equal(
         thresh.numpy(),
@@ -269,7 +269,7 @@ def test_distributed_topn_plain_matches_the_reference_shard(n):
         sl = slice(b * rows, (b + 1) * rows)
         wk.topn_select_given(torch.from_numpy(wc[sl]),
                              torch.from_numpy(used[sl]), ends,
-                             torch.from_numpy(w_valid), 90, thresh,
+                             torch.from_numpy(w_valid), 90, gathered, k,
                              b * rows, 256, ring)
         nz = (wc[sl] > 0) & used[sl][:, None] & w_valid[None, :]
         r, w = np.nonzero(nz & (wc[sl] >= thresh.numpy()[None, :]))
@@ -278,6 +278,114 @@ def test_distributed_topn_plain_matches_the_reference_shard(n):
     assert int(ring[0, 0]) == len(want) and int(ring[0, 1]) == 0
     np.testing.assert_array_equal(ring[1:1 + len(want)].numpy(),
                                   np.asarray(want, np.int32).reshape(-1, 3))
+
+
+def _gathered_case(seed, n_blocks, k, rows=20, W=6):
+    """Blocks of a (rows, W) count grid each: window 0 with the same top
+    values in every block (ties across blocks at the k-th place), window
+    1 with three candidates in all (fewer than k for k > 3: the global
+    threshold -inf), window 2 invalid, the rest small counts with many
+    ties; some rows unused."""
+    rng = np.random.default_rng(seed)
+    wc = rng.integers(0, 5, (n_blocks, rows, W)).astype(np.int32)
+    used = rng.random((n_blocks, rows)) < 0.85
+    used[:, :k] = True
+    wc[:, :k, 0] = 9
+    wc[:, :, 1] = 0
+    wc[0, 2, 1], wc[-1, 5, 1], wc[-1, 6, 1] = 4, 4, 2
+    used[0, 2] = used[-1, 5] = used[-1, 6] = True
+    w_valid = np.ones(W, bool)
+    w_valid[2] = False
+    return wc, used, w_valid
+
+
+@pytest.fixture(scope="module")
+def gathered_reference():
+    """The reference's topn_shard on every (blocks, k) case below, run
+    op by op: lax.top_k of each block's masked values, their gather,
+    lax.top_k(all_top, k)[0][:, k - 1], and _topn_select_append of each
+    block in turn into one ring with its row offset."""
+    from flink_tpu.ops import window as jw
+    from flink_tpu.ops.aggregates import count as jax_count
+
+    out = {}
+    for nb in GATHER_BLOCKS:
+        for k in GATHER_KS:
+            wc, used, w_valid = _gathered_case(nb * 100 + k, nb, k)
+            rows, W = wc.shape[1:]
+            ends = jnp.arange(100, 100 + W, dtype=jnp.int64)
+            nz = (wc > 0) & used[:, :, None] & w_valid[None, None, :]
+            v = np.where(nz, wc.astype(np.float32), -np.inf)
+            tops = [jax.lax.top_k(jnp.asarray(v[b].T), k)[0]
+                    for b in range(nb)]
+            all_top = jnp.concatenate(tops, axis=1)
+            thresh = jax.lax.top_k(all_top, k)[0][:, k - 1]
+            ring = jnp.zeros((512 + 2, 3), jnp.int32)
+            empty = jnp.zeros((rows, W, 0), jnp.float32)
+            for b in range(nb):
+                ring = jw._topn_select_append(
+                    ring, empty, empty, empty, jnp.asarray(wc[b]),
+                    jnp.asarray(nz[b]), jnp.asarray(v[b]), thresh, ends, 90,
+                    agg=jax_count(), sel_cap=256, row_offset=b * rows)
+            out[nb, k] = (np.asarray(all_top), np.asarray(thresh),
+                          np.asarray(ring))
+    return out
+
+
+GATHER_BLOCKS = (1, 2, 4)
+GATHER_KS = (1, 3, 16)
+
+
+@pytest.mark.parametrize("n_blocks", GATHER_BLOCKS)
+@pytest.mark.parametrize("k", GATHER_KS)
+def test_gathered_select_plain_matches_the_reference(gathered_reference,
+                                                     n_blocks, k):
+    """``topn_select_given``'s gathered form (each window's threshold the
+    k-th of the gathered candidates, worked out inside the select) on
+    each block in turn: the gathered buffer, the k-th (ties across
+    blocks counted each time, -inf with fewer than k candidates in all)
+    and the ring rows equal the reference's topn_shard."""
+    all_top, thresh, ref_ring = gathered_reference[n_blocks, k]
+    wc, used, w_valid = _gathered_case(n_blocks * 100 + k, n_blocks, k)
+    rows, W = wc.shape[1:]
+    ends = torch.arange(100, 100 + W, dtype=torch.int64)
+    gathered = torch.empty((W, n_blocks * k), dtype=torch.float32)
+    for b in range(n_blocks):
+        wk.topn_candidates(torch.from_numpy(wc[b]), torch.from_numpy(used[b]),
+                           torch.from_numpy(w_valid), k,
+                           out=gathered[:, b * k:(b + 1) * k])
+    np.testing.assert_array_equal(gathered.numpy(), all_top)
+    np.testing.assert_array_equal(
+        wk.topn_global_threshold(gathered, k).numpy(), thresh)
+    assert thresh[0] == 9 and (k <= 3 or np.isneginf(thresh[1]))
+    assert np.isneginf(thresh[2])
+    ring = torch.zeros((512 + 2, 3), dtype=torch.int32)
+    for b in range(n_blocks):
+        wk.topn_select_given(torch.from_numpy(wc[b]), torch.from_numpy(used[b]),
+                             ends, torch.from_numpy(w_valid), 90, gathered,
+                             k, b * rows, 256, ring)
+    n = int(ref_ring[0, 0])
+    assert n > 0 and int(ring[0, 0]) == n and int(ring[0, 1]) == 0
+    np.testing.assert_array_equal(ring[:1 + n].numpy(), ref_ring[:1 + n])
+    # every block's tied 9s in window 0 select, block-major
+    w0 = ring[1:1 + n].numpy()
+    assert int((w0[:, 1] == 10).sum()) == n_blocks * k
+
+
+def test_gathered_select_refusals():
+    wc = torch.ones((4, 65), dtype=torch.int32)
+    args = (torch.ones(4, dtype=torch.bool), torch.arange(65),
+            torch.ones(65, dtype=torch.bool), 0)
+    ring = torch.zeros((10, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 64 windows"):
+        wk.topn_select_given(wc, *args, torch.ones((65, 2)), 1, 0, 8, ring)
+    with pytest.raises(ValueError, match="1 <= k <= 2"):
+        wk.topn_select_given(wc[:, :3].contiguous(), args[0], args[1][:3],
+                             args[2][:3], 0, torch.ones((3, 2)), 3, 0, 8, ring)
+    buf = torch.empty((3, 6))
+    with pytest.raises(ValueError, match="out must be"):
+        wk.topn_candidates(wc[:, :3].contiguous(), args[0], args[2][:3], 2,
+                           out=buf[:, :3])
 
 
 def test_fire_pack_row_offset_and_skipping_scatters():

@@ -153,6 +153,37 @@ def test_sharded_operator_matches_the_reference(reference, case):
     assert op.exchange_overflow == 0 and op.exchange_bytes > 0
 
 
+def test_sharded_topn_folds_the_global_threshold(reference, monkeypatch):
+    """The sharded top-2 commits the reference's rows with no call of
+    ``topn_global_threshold`` and no gather copy: every block writes its
+    candidates into its columns of one (W, blocks * k) buffer, reused by
+    every chunk of a width, and each block's select takes that buffer
+    and k (the global k-th worked out inside it)."""
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    def never(*a, **k):
+        raise AssertionError("topn_global_threshold called on the path")
+    monkeypatch.setattr(wk, "topn_global_threshold", never)
+    seen = []
+    orig = wk.topn_select_given
+
+    def spy(wcounts, used, ends, valid, anchor, cands, k, *a, **kw):
+        seen.append((cands, k))
+        return orig(wcounts, used, ends, valid, anchor, cands, k, *a, **kw)
+    monkeypatch.setattr(wk, "topn_select_given", spy)
+    fires, _ = reference["sliding_top2"]
+    op = port_op("sliding_top2", port_mesh())
+    steps = batches()
+    got = feed(op, steps[:SNAP_AT]) + feed(op, steps[SNAP_AT:])
+    for g, r in zip(got, fires):
+        assert_rows_match(g, r)
+    assert len(seen) % N_DEV == 0 and seen
+    bufs = {id(c) for c, _ in seen}
+    assert bufs == {id(b) for b in op._gathered_bufs.values()}
+    for c, k in seen:
+        assert k == 2 and c.shape[1] == N_DEV * k
+
+
 @pytest.mark.parametrize("case", ["tumbling", "sliding"])
 def test_ring_exchange_and_snapshot_reshard(case):
     """A mid-stream snapshot restores into a twin of 8 blocks (ring

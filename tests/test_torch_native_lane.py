@@ -271,6 +271,58 @@ def test_wordcount_shape_without_top_n(calls):
     assert calls["apply_pairs_u32"] >= 4 and calls["fused_step"] == 0
 
 
+@pytest.mark.parametrize("n", [0, 2])
+def test_uploads_and_applies_take_the_real_pairs_only(monkeypatch, n):
+    """The finalize writes the header and the real pairs, no power-of-two
+    padding: each upload of the lane (``PinnedStage.upload_slot``) moves
+    4 * (FUSED_HDR + npairs) bytes for a fused step (top-n) or 4 * npairs
+    for ``apply_pairs_u32`` (none), and the device call takes that many
+    words; the general path's C combine (``_apply_combined``) hands
+    ``apply_pairs_u32`` a word a pair too. Rows and state equal the
+    reference's, which pads."""
+    from flink_tpu_torch import native_codec
+    from flink_tpu_torch.ops import window as pw
+
+    pairs, uploads, words = [], [], []
+    orig_final = native_codec.ingest_fused_finalize_u32_native
+
+    def final_spy(res, ws, hdr, cap_out, out=None):
+        pairs.append(res.npairs)
+        return orig_final(res, ws, hdr, cap_out, out)
+    monkeypatch.setattr(native_codec, "ingest_fused_finalize_u32_native",
+                        final_spy)
+    orig_upload = pw.PinnedStage.upload_slot
+
+    def upload_spy(self, i, lo, hi):
+        uploads.append(hi - lo)
+        return orig_upload(self, i, lo, hi)
+    monkeypatch.setattr(pw.PinnedStage, "upload_slot", upload_spy)
+    for name in ("fused_step", "apply_pairs_u32"):
+        orig = getattr(fk, name)
+
+        def spy(counts, *a, _orig=orig, _name=name, **k):
+            buf = a[1] if _name == "fused_step" else a[0]
+            words.append(buf.numel())
+            return _orig(counts, *a, **k)
+        monkeypatch.setattr(fk, name, spy)
+    rng = np.random.default_rng(11)
+    ref, port = make_pair(10_000, 1_000, n, ooo=1_000)
+    # the first batch registers the keys (the general path); the next
+    # three take the lane, the last growing the ring in its scan
+    steps = []
+    for i in range(4):
+        steps += [span_batch(rng, 20_000, 300, 4 * i, 4 * i + 7, 1_000),
+                  ("wm", (4 * i + 4) * 1_000 - 1)]
+    fired = drive(ref, port, steps)
+    assert len(fired) > 20 and len(pairs) == 3
+    want = [fk.FUSED_HDR + p if n else p for p in pairs]
+    # the general path's C combine of the first batch: a word a pair too
+    combined = words.pop(0)
+    assert words == want and uploads == [4 * w for w in want]
+    # not powers of two: padding would have shown
+    assert all(p & (p - 1) for p in pairs + [combined])
+
+
 # -- end to end through env.execute ---------------------------------------------
 
 def test_q5_end_to_end_in_order(calls):
