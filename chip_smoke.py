@@ -57,9 +57,12 @@ Phases, one JSON line each:
    WindowWordCount's state (65,537 rows, each word's count after one real
    2^20-word batch, one sum lane) and with a sum, a max and a min lane,
    each timed on a fresh copy of the state; ``split_cells`` on a
-   2^20-bid batch's 3-byte upload into 32,769 x 32, and
-   ``scatter_split_counts`` (the count lane's decode and count in one
-   launch) on the same upload; the top-n lane
+   2^20-bid batch's 3-byte upload into 32,769 x 32 (the decode alone,
+   which no path launches: every kernel that reads the upload decodes it
+   itself), and ``scatter_split_counts`` (the count lane's decode and
+   count in one launch) on the same upload; ``scatter_lanes`` on job
+   (a)'s batch as flat cells and as its split upload's bytes (the form
+   its path runs); the top-n lane
    kernels at job T's shapes: ``window_lanes`` (32,769 x 32, 11 windows
    of 10 panes, a sum and a max lane) and ``topn_select_lanes`` (top-1
    by the max, two result columns), each bit for bit; the element path's
@@ -97,8 +100,8 @@ Phases, one JSON line each:
    record, ``scatter_lanes``) and job (b) count + avg (host-combined,
    ``scatter_pair_lanes``), 16 batches of 2^20 bids each, checked
    against a numpy golden: counts, max and min exactly, sums and avgs
-   within ``agg_rel_bound``. Job (a) uploads 3 bytes a record
-   (``split_cells``).
+   within ``agg_rel_bound``. Job (a) uploads 3 bytes a record, decoded
+   inside ``scatter_lanes`` (no ``split_cells`` launch).
 7. ``window_wordcount`` — the upstream WindowWordCount example
    (``keyBy(word).countWindow(250, 150).sum(1)``; the port's count
    windows tumble, so the slide is dropped) as
@@ -110,7 +113,7 @@ Phases, one JSON line each:
 8. ``topn_lanes`` — job T: the host-fed Q5 bids and conf keyed by
    auction, sliding 10 s / 1 s, ``multi(max_of("price"),
    avg_of("price"))`` then ``.top(1, by="max_price")`` on 16 batches of
-   2^20 bids (per record through ``split_cells`` and ``scatter_lanes``;
+   2^20 bids (per record through ``scatter_lanes``' split form;
    each fire ``window_counts``, ``window_lanes``, the finalize in torch
    and ``topn_select_lanes``), then the same stream with ``.top(3,
    by="avg_price")``; the rows against a numpy golden (by max exactly;
@@ -242,7 +245,14 @@ copied in and run both in one call, in turns. The rows:
   at M1's fire (4 blocks of ``cuda:0``, top-1 and top-3) through the
   tree's own ``_topn_sharded``, then each of its pieces alone (window
   counts, candidates, the parent's cat, ``topn_global_threshold``
-  beside ``torch.topk``, ``topn_select_given``).
+  beside ``torch.topk``, ``topn_select_given``);
+- ``split_segment``: ``split_cells`` folded into its readers, at job
+  (a)'s batch (``split_cells``, ``scatter_lanes`` on flat cells, the two
+  in turn, and ``scatter_lanes``' split form where the tree has it) and
+  on one source block of a mesh chunk (the same with ``bucket_records``,
+  count only and with M2's lanes) and the chunk's whole exchange; and
+  ``segment_lanes`` at job E's fire, on the edge case and at job E2's
+  largest fire, in each group form the tree has.
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -351,8 +361,12 @@ PROFILED_KERNELS = {
 # kernels phase): hash_keys no path of either package (the reference's
 # tests only), nexmark_bids none since the devgen path's ingest makes its
 # bids itself, topn_global_threshold none since the sharded top-n's
-# select works out the global k-th itself
-UNLAUNCHED = ("hash_keys", "nexmark_bids", "topn_global_threshold")
+# select works out the global k-th itself, split_cells none since
+# scatter_lanes, scatter_split_counts and bucket_records decode the split
+# upload where they read it (it stays for a shuffle registered through
+# the exchange SPI, which takes flat cells)
+UNLAUNCHED = ("hash_keys", "nexmark_bids", "topn_global_threshold",
+              "split_cells")
 # the wrappers whose device kernels a call the profiled runs count against
 # their launch counts (no other wrapper launches their kernels;
 # topn_select_append shares its with the fused step, so the devgen profile,
@@ -890,6 +904,17 @@ def scatter_lanes_batch(np, ring):
     slots = KeyDirectory(128, 256).assign(data["auction"])
     idx_np = (slots * ring + (ts // 1000) % ring).astype(np.int32)
     return data, ts, slots, idx_np
+
+
+def split_bytes(np, cells, ring):
+    """The split upload's (B, 3) bytes of flat int32 cells ``slot * ring +
+    col`` (-1, an invalid record: slot 0xFFFF), as the operator encodes
+    them."""
+    from flink_tpu_torch.ops.window import split_encode
+
+    ok = cells >= 0
+    return split_encode(np.where(ok, cells // ring, 0),
+                        np.where(ok, cells % ring, 0).astype(np.uint8), ok)
 
 
 def kernel_stages(torch, fn, calls: int = 10):
@@ -2005,12 +2030,48 @@ def lane_kernel_cases(torch, np, dev, record, out):
     state = [t(x) for x in st]
     cases = scatter_lanes_cases(torch, np, dev, st, idx_np, data["price"])
     u = cases["uniform"]
-    record("scatter_lanes", "flink_tpu/ops/window.py:62", u["max_abs_err"],
-           u["ms"], u["plain_ms"], u["library_ms"], u["bytes"], u["ops"],
-           source="lane_kernels.cu")
+    # the form job (a)'s path launches: the batch's split upload, decoded
+    # inside the launches, bit for bit against the kernel on the flat
+    # cells and the plain version on the CPU; max_abs_err against the
+    # plain version on the card (its index_add_ adds in no fixed order)
+    dump_row = st[0].shape[0] - 1
+    sc_np = split_bytes(np, idx_np, ring)
+    sc, price = t(sc_np), t(data["price"][:, None])
+    runs = [[t(x.copy()) for x in st] for _ in range(3)]
+    lk.scatter_lanes(*runs[0], sc, price, price, price, dump_row=dump_row)
+    lk.scatter_lanes(*runs[1], t(idx_np), price, price, price)
+    lk.scatter_lanes_plain(*runs[2], wk.split_cells_plain(sc, ring, dump_row),
+                           price, price, price)
+    cpu = [torch.from_numpy(x.copy()) for x in st]
+    pc = torch.from_numpy(data["price"][:, None].copy())
+    lk.scatter_lanes(*cpu, torch.from_numpy(sc_np), pc, pc, pc,
+                     dump_row=dump_row)
+    torch.cuda.synchronize()
+    check(all(same_bits(torch, a, b) and same_bits(torch, a, c)
+              for a, b, c in zip(runs[0], runs[1], cpu)),
+          "scatter_lanes' split form differs from the flat form or from "
+          "its plain version on the CPU")
+    err = float((runs[0][1] - runs[2][1]).abs().max())
+    scratch = [t(x.copy()) for x in st]
+    plain_scratch = [t(x.copy()) for x in st]
+    n = len(idx_np)
+    record("scatter_lanes", "flink_tpu/ops/window.py:62", err,
+           time_ms(torch, lambda: lk.scatter_lanes(
+               *scratch, sc, price, price, price, dump_row=dump_row)),
+           time_ms(torch, lambda: lk.scatter_lanes_plain(
+               *plain_scratch, wk.split_cells_plain(sc, ring, dump_row),
+               price, price, price), iters=10),
+           u["library_ms"], n * (3 + 12) + u["distinct_cells"] * 16 * 2,
+           u["ops"], source="lane_kernels.cu")
     out[-1].update({k: v for k, v in u.items()
                     if k not in ("max_abs_err", "ms", "plain_ms", "library_ms",
-                                 "bound_ms", "bound_by", "bytes", "ops")})
+                                 "bound_ms", "bound_by", "bytes", "ops",
+                                 "stages", "device_ms_per_call",
+                                 "device_ops_per_call")})
+    out[-1]["form"] = "the split upload's (B, 3) bytes, dump row %d" % dump_row
+    out[-1]["flat_cells"] = {k: u[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "stages",
+        "device_ms_per_call", "device_ops_per_call")}
     out[-1]["hot_cell"] = cases["hot_cell"]
 
     # L3 scatter_pair_lanes: the same batch host-combined (job (b)'s
@@ -3209,12 +3270,16 @@ def phase_bid_aggs(torch, np):
         run_bid_agg(torch, np, which, 2, f"bid-agg-{which}-warmup")
         rows, launches, res, wall, cfg = run_bid_agg(
             torch, np, which, AGG_BATCHES, f"bid-agg-{which}")
-        # job (a) goes per record into 32,769 rows: the split upload
-        path_kernels = ((path_kernel, "split_cells") if which == "a"
-                        else (path_kernel,))
-        missing = [k for k in path_kernels + ("fire_pack", "ring_columns")
+        missing = [k for k in (path_kernel, "fire_pack", "ring_columns")
                    if launches[k] == 0]
         check(not missing, f"job ({which}): kernels not launched: {missing}")
+        if which == "a":
+            # per record into 32,769 rows: the split upload, its bytes
+            # decoded inside one scatter_lanes a batch
+            check(launches["split_cells"] == 0
+                  and launches["scatter_lanes"] == AGG_BATCHES,
+                  f"job (a): split_cells {launches['split_cells']}, "
+                  f"scatter_lanes {launches['scatter_lanes']} launches")
         runs[which] = (rows, cfg)
         busy, host = busy_and_host(res)
         prof = profile_run(torch, lambda: run_bid_agg(
@@ -3686,8 +3751,8 @@ def phase_topn_lanes(torch, np):
     """Job T: top-1 by max_price, then top-3 by avg_price, over
     ``multi(max_of("price"), avg_of("price"))`` on 16 batches of 2^20
     host-fed bids, each checked against the numpy golden."""
-    on_path = ("split_cells", "scatter_lanes", "window_counts",
-               "window_lanes", "topn_select_lanes", "ring_columns")
+    on_path = ("scatter_lanes", "window_counts", "window_lanes",
+               "topn_select_lanes", "ring_columns")
     out = {"phase": "topn_lanes", "conf": "confs/bench_q5_host_fed.conf",
            "job": 'key_by(auction).window(10 s / 1 s).aggregate(multi('
                   'max_of(price), avg_of(price))).top(n, by)',
@@ -3702,6 +3767,11 @@ def phase_topn_lanes(torch, np):
         check(launches["topn_select_append"] == 0
               and launches["fused_step"] == 0,
               f"top {n} by {by} took a count-only kernel: {launches}")
+        # the split upload decoded inside one scatter_lanes a batch
+        check(launches["split_cells"] == 0
+              and launches["scatter_lanes"] == TOPN_BATCHES,
+              f"top {n} by {by}: split_cells {launches['split_cells']}, "
+              f"scatter_lanes {launches['scatter_lanes']} launches")
         prof = profile_run(torch, lambda: run_topn_lanes(
             torch, np, SIDE_BATCHES, by, n, f"topn-{by}-profiled")[3])
         # the max pass and the selection at top-1; above, the radix select
@@ -3814,9 +3884,14 @@ def phase_changelog(torch, np):
     run_changelog(torch, np, 2, "changelog-warmup")
     rows, launches, res, wall = run_changelog(torch, np, CHANGELOG_BATCHES,
                                               "changelog")
-    missing = [k for k in ("split_cells", "scatter_lanes", "fire_pack",
-                           "ring_columns") if launches[k] == 0]
+    missing = [k for k in ("scatter_lanes", "fire_pack", "ring_columns")
+               if launches[k] == 0]
     check(not missing, f"changelog: kernels not launched: {missing}")
+    # the split upload decoded inside one scatter_lanes a batch
+    check(launches["split_cells"] == 0
+          and launches["scatter_lanes"] == CHANGELOG_BATCHES,
+          f"changelog: split_cells {launches['split_cells']}, scatter_lanes "
+          f"{launches['scatter_lanes']} launches")
     prof = profile_run(torch, lambda: run_changelog(
         torch, np, SIDE_BATCHES, "changelog-profiled")[3])
     share = check_changelog(np, rows, CHANGELOG_BATCHES, "changelog")
@@ -3894,17 +3969,11 @@ def job_e_survivors(np, data):
     return lens, order[survive]
 
 
-def element_kernel_cases(torch, np, dev, record, out):
-    """segment_lanes against its plain version on the card, bit for bit,
-    at job E's shape: one fire of a 10 s window (one batch of 2^20 bids,
-    ~10,000 auctions, each keeping its last 100 bids: ~750k survivors),
-    the lanes of ``multi(count(), avg_of("price"), max_of("price"))``
-    lifted on the card; then an edge case with planted +/-NaN (payloads),
-    +/-inf and +/-0 in every lane, one-element segments and a
-    5,000-element one. Its library yardstick: one
-    ``torch.segment_reduce`` sum over the sum lane (``index_add_`` by
-    segment id where that call is missing)."""
-    from flink_tpu_torch.kernels import element_kernels as ek
+def segment_job_e(torch, np, dev):
+    """segment_lanes' inputs at job E's fire: one 10 s window (one batch of
+    2^20 bids, ~10,000 auctions, each keeping its last 100 bids: ~750k
+    survivors), the lanes of ``multi(count(), avg_of("price"),
+    max_of("price"))`` lifted on the card. Returns (args, lengths)."""
     from flink_tpu_torch.nexmark.generator import bid_batch
     from flink_tpu_torch.ops import aggregates as ta
 
@@ -3917,7 +3986,45 @@ def element_kernel_cases(torch, np, dev, record, out):
                                 torch.ones(len(idx), dtype=torch.bool,
                                            device=dev))
     off_t = torch.from_numpy(offsets).to(dev)
-    args = (off_t, s.contiguous(), mx.contiguous(), mn.contiguous())
+    return (off_t, s.contiguous(), mx.contiguous(), mn.contiguous()), lens
+
+
+def segment_edge_case(torch, np, dev):
+    """segment_lanes' edge case: 300 segments of 1 to 40 elements, one of
+    5,000 and one of 30, every lane the same column with planted +/-NaN
+    (payloads; six NaNs and infinities and zeros in segment 20), +/-inf
+    and +/-0, and a segment of -0 only. Returns (args, lengths)."""
+    rng = np.random.default_rng(SEED + 7)
+    e_lens = rng.integers(1, 40, 300)
+    e_lens[[3, 10, 20, 200]] = [1, 5000, 30, 1]
+    e_off = np.concatenate([[0], np.cumsum(e_lens)]).astype(np.int64)
+    x = (rng.random(int(e_off[-1])) * 200 - 100).astype(np.float32)
+    bits = x.view(np.uint32)
+    plant = {0: [0x7FC00005], 1: [0xFFC0004D], 2: [0x7F800000, 0xFF800000],
+             4: [0x00000000, 0x80000000], 5: [0x80000000], 10: [0x7FC00063,
+             0x7F800000, 0x80000000, 0xFFC00001],
+             # several NaNs of both signs, with payloads, in one segment
+             20: [0xFFC00101, 0x7F800000, 0x7FC00202, 0x00000000,
+                  0xFFC00303, 0x7FC00404]}
+    for w, vals in plant.items():
+        pos = e_off[w] + np.linspace(0, e_lens[w] - 1, len(vals)).astype(int)
+        bits[pos] = vals
+    bits[e_off[7]:e_off[8]] = 0x80000000          # a segment of -0 only
+    xt = torch.from_numpy(x)[:, None].to(dev)
+    return (torch.from_numpy(e_off).to(dev), xt, xt, xt), e_lens
+
+
+def element_kernel_cases(torch, np, dev, record, out):
+    """segment_lanes against its plain version on the card, bit for bit,
+    at job E's fire (``segment_job_e``), then on the edge case
+    (``segment_edge_case``: planted +/-NaN with payloads, several in one
+    segment, +/-inf and +/-0 in every lane, one-element segments and a
+    5,000-element one). Its library yardstick: one
+    ``torch.segment_reduce`` sum over the sum lane (``index_add_`` by
+    segment id where that call is missing)."""
+    from flink_tpu_torch.kernels import element_kernels as ek
+
+    args, lens = segment_job_e(torch, np, dev)
     got = ek.segment_lanes(*args)
     plain = ek.segment_lanes_plain(*args)
     torch.cuda.synchronize()
@@ -3925,7 +4032,7 @@ def element_kernel_cases(torch, np, dev, record, out):
           "segment_lanes differs from its plain version at job E's shape")
     check(got[3].cpu().numpy().tolist() == lens.tolist(),
           "segment_lanes counts differ from the segment lengths")
-    n_seg, n_el = len(lens), len(idx)
+    n_seg, n_el = len(lens), int(lens.sum())
     lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
     try:
         lib = torch.segment_reduce(args[1], "sum", lengths=lens_t, axis=0)
@@ -3957,21 +4064,7 @@ def element_kernel_cases(torch, np, dev, record, out):
     out[-1]["segments"], out[-1]["elements"] = n_seg, n_el
 
     # the edge case: every lane the same planted column
-    rng = np.random.default_rng(SEED + 7)
-    e_lens = rng.integers(1, 40, 300)
-    e_lens[[3, 10, 200]] = [1, 5000, 1]
-    e_off = np.concatenate([[0], np.cumsum(e_lens)]).astype(np.int64)
-    x = (rng.random(int(e_off[-1])) * 200 - 100).astype(np.float32)
-    bits = x.view(np.uint32)
-    plant = {0: [0x7FC00005], 1: [0xFFC0004D], 2: [0x7F800000, 0xFF800000],
-             4: [0x00000000, 0x80000000], 5: [0x80000000], 10: [0x7FC00063,
-             0x7F800000, 0x80000000, 0xFFC00001]}
-    for w, vals in plant.items():
-        pos = e_off[w] + np.linspace(0, e_lens[w] - 1, len(vals)).astype(int)
-        bits[pos] = vals
-    bits[e_off[7]:e_off[8]] = 0x80000000          # a segment of -0 only
-    xt = torch.from_numpy(x)[:, None].to(dev)
-    e_args = (torch.from_numpy(e_off).to(dev), xt, xt, xt)
+    e_args, e_lens = segment_edge_case(torch, np, dev)
     got_e = ek.segment_lanes(*e_args)
     plain_e = ek.segment_lanes_plain(*e_args)
     torch.cuda.synchronize()
@@ -3983,9 +4076,16 @@ def element_kernel_cases(torch, np, dev, record, out):
           and mxb[10] == 0xFFC00001 and mnb[10] == 0x7FC00063
           and mxb[7] == mnb[7] == 0x80000000,
           "segment_lanes' NaN or signed-zero rule is not the reference's")
+    # several NaNs in one segment: NaN, as the reference's jnp.max / min /
+    # sum give; the max keeps the last, the min the first
+    check(mxb[20] == 0x7FC00404 and mnb[20] == 0xFFC00101
+          and bool(torch.isnan(got_e[0][20, 0])),
+          "segment_lanes with several NaNs in one segment is not NaN or "
+          "keeps another NaN than the rule's")
     return {"segment_lanes_job_e": {"segments": n_seg, "elements": n_el},
             "segment_lanes_edge": {"segments": len(e_lens),
-                                   "longest": int(e_lens.max())}}
+                                   "longest": int(e_lens.max()),
+                                   "nans_in_segment_20": 4}}
 
 
 def mesh_cells(np, rng, n_auctions, n, slots, ring):
@@ -4034,28 +4134,37 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
         return all(torch.equal(x, y) for x, y in zip(a, b)
                    if x is not None or y is not None)
 
-    # X1 bucket_records, count only (job M1) and with three lanes (M2)
+    # X1 bucket_records, count only (job M1) and with three lanes (M2), on
+    # the split upload's bytes (the form the path launches; its cells
+    # decode to the flat form's, checked too)
     cells_np = mesh_cells(np, rng, 10_000, L, n_blk * spd, ring)
     cells, lanes = t(cells_np), t(rng.random((L, 3)).astype(np.float32))
+    sc = t(split_bytes(np, cells_np, ring))
     for payload, label in ((None, "count"), (lanes, "lanes")):
-        args = (cells, payload, n_blk, L, spd, ring)
+        args = (sc, payload, n_blk, L, spd, ring)
+        flat = (cells, payload, n_blk, L, spd, ring)
         got, plain = xk.bucket_records(*args), xk.bucket_records_plain(*args)
+        got_flat = xk.bucket_records(*flat)
         torch.cuda.synchronize()
-        check(same(got, plain),
+        check(same(got, plain) and same(got_flat, plain),
               f"bucket_records ({label}) differs from its plain version")
         C = 0 if payload is None else payload.shape[1]
         ms = time_ms(torch, lambda: xk.bucket_records(*args))
         plain_ms = time_ms(torch, lambda: xk.bucket_records_plain(*args),
                            iters=10)
-        # each record read once, every bucket position (the padded layout)
-        # written once: its cell, valid byte and lanes
-        nbytes = L * 4 * (1 + C) + n_blk * L * (5 + 4 * C) + n_blk * 4
+        # each record read once (3 bytes and its lanes), every bucket
+        # position (the padded layout) written once: its cell, valid byte
+        # and lanes
+        nbytes = L * (3 + 4 * C) + n_blk * L * (5 + 4 * C) + n_blk * 4
         if payload is None:
             record("bucket_records", "flink_tpu/exchange/keyby.py:37", 0,
                    ms, plain_ms, None, nbytes, L * n_blk,
                    source="exchange_kernels.cu")
             out[-1]["library_call"] = None
             out[-1]["records"] = L
+            out[-1]["form"] = "the split upload's (B, 3) bytes"
+            out[-1]["flat_cells_ms"] = time_ms(
+                torch, lambda: xk.bucket_records(*flat))
         else:
             extra["bucket_records_lanes"] = {
                 "ms": ms, "plain_ms": plain_ms,
@@ -4068,9 +4177,10 @@ def mesh_kernel_cases(torch, np, dev, record, out, wc, used, ends):
     from flink_tpu_torch.exchange import keyby
     src = [cells] + [t(mesh_cells(np, rng, 10_000, L, n_blk * spd, ring))
                      for _ in range(n_blk - 1)]
+    src_sc = [t(split_bytes(np, c.cpu().numpy(), ring)) for c in src]
     pays = [t(rng.random((L, 3)).astype(np.float32)) for _ in range(n_blk)]
     for payload, label in (([None] * n_blk, "count"), (pays, "lanes")):
-        got = keyby.keyby_exchange(src, payload, devices=[dev] * n_blk,
+        got = keyby.keyby_exchange(src_sc, payload, devices=[dev] * n_blk,
                                    capacity=L, spd=spd, ring=ring)
         want = keyby.keyby_exchange(
             [c.cpu() for c in src],
@@ -4734,6 +4844,231 @@ def apply_threshold_cases(torch, np, dev):
     return out
 
 
+def split_segment_cases(torch, np, dev):
+    """The split upload's decode folded into the kernels that read it, and
+    ``segment_lanes``' redesign, parent and change alike (the row reads
+    which API its tree has), each held bit for bit, then as loop ms,
+    device ms and device entries a call and host µs a call
+    (``split_times``) beside its bound:
+
+    - job (a)'s bid-aggregate batch: a 2^20-bid split upload into 32,769
+      x 32 x (1 sum, 1 max, 1 min): ``split_cells`` alone,
+      ``scatter_lanes`` alone on the flat cells, the pair (the decode,
+      then the scatter: the parent's path) and, where the tree has it,
+      ``scatter_lanes``' split form (this tree's path);
+    - one source block of a mesh chunk (2^18 records, 1 % invalid, 4
+      blocks of 8,192 slots, ring 32), count only (M1) and with M2's
+      three lanes: ``split_cells`` alone, ``bucket_records`` alone on the
+      flat cells, the pair and the split form; and one chunk's exchange of
+      4 source blocks as ``keyby_exchange`` runs it on one card, from the
+      bytes (the pair: four decodes, then the exchange; or the split
+      form's exchange of the bytes);
+    - ``segment_lanes`` at job E's fire, on the edge case and at the
+      largest fire of a 2-batch job E2 run (its segment count and its
+      shortest, median and longest segment), and, where the tree has both
+      group forms, each forced (``SEGMENT_WARP_MEAN``)."""
+    from flink_tpu_torch.exchange import keyby
+    from flink_tpu_torch.kernels import element_kernels as ek
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.kernels import lane_kernels as lk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    lanes_split = "dump_row" in inspect.signature(lk.scatter_lanes).parameters
+    bucket_split = hasattr(xk, "bucket_cell_dtype")
+    groups = hasattr(ek, "SEGMENT_WARP_MEAN")
+    out = {"split_forms": lanes_split and bucket_split,
+           "segment_groups": groups}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def flat(x):
+        if x is None:
+            return []
+        if isinstance(x, torch.Tensor):
+            return [x.cpu()]
+        if isinstance(x, int):
+            return [torch.tensor(x)]
+        return [y for v in x for y in flat(v)]
+
+    def same(a, b):
+        a, b = flat(a), flat(b)
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    # -- K7 + L2 at job (a)'s batch
+    rng = np.random.default_rng(SEED + 3)
+    rows, ring, pane_lo, pane_hi = 32_769, 32, 1000, 1020
+    keys = rng.choice(rows - 1, 10_000, replace=False)
+    st = lane_state(np, rng, rows, ring, pane_lo, pane_hi, keys, (1, 1, 1),
+                    hot=100)
+    data, _, _, idx_np = scatter_lanes_batch(np, ring)
+    dump_row, B = rows - 1, len(idx_np)
+    sc, idx = t(split_bytes(np, idx_np, ring)), t(idx_np)
+    price = t(data["price"][:, None])
+    cells = int(np.unique(idx_np).size)
+
+    def state():
+        return [t(x.copy()) for x in st]
+
+    a = state()
+    lk.scatter_lanes(*a, wk.split_cells(sc, ring, dump_row), price, price,
+                     price)
+    cpu = [torch.from_numpy(x.copy()) for x in st]
+    pc = torch.from_numpy(data["price"][:, None].copy())
+    lk.scatter_lanes_plain(*cpu, wk.split_cells_plain(sc.cpu(), ring,
+                                                      dump_row), pc, pc, pc)
+    ok = all(same_bits(torch, x, y) for x, y in zip(a, cpu))
+    if lanes_split:
+        b = state()
+        lk.scatter_lanes(*b, sc, price, price, price, dump_row=dump_row)
+        ok = ok and all(same_bits(torch, x, y) for x, y in zip(a, b))
+    torch.cuda.synchronize()
+    check(ok, "job (a)'s split upload: the pair or the split form differs "
+              "from the plain version on the CPU")
+    s_l2, s_pair, s_split = state(), state(), state()
+    lanes_io = B * 12 + cells * 16 * 2
+    row = {"records": B, "distinct_cells": cells, "dump_row": dump_row,
+           "split_cells": split_times(
+               torch, lambda: wk.split_cells(sc, ring, dump_row)),
+           "split_cells_bound_ms": bound_ms(B * 7, B * 4)[0],
+           "scatter_lanes_flat": split_times(torch, lambda: lk.scatter_lanes(
+               *s_l2, idx, price, price, price)),
+           "scatter_lanes_flat_bound_ms": bound_ms(B * 4 + lanes_io, B * 4)[0],
+           "pair": split_times(torch, lambda: lk.scatter_lanes(
+               *s_pair, wk.split_cells(sc, ring, dump_row), price, price,
+               price)),
+           "bound_ms": bound_ms(B * 3 + lanes_io, B * 4)[0]}
+    if lanes_split:
+        row["split_form"] = split_times(torch, lambda: lk.scatter_lanes(
+            *s_split, sc, price, price, price, dump_row=dump_row))
+    out["bid_aggs_a"] = row
+
+    # -- K7 + X1 on one source block of a mesh chunk, and the chunk
+    rng = np.random.default_rng(SEED + 15)
+    n_blk = MESH_BLOCKS
+    spd = 128 * 256 // n_blk
+    L = Q5_BATCH // n_blk
+    m1 = mesh_cells(np, rng, 10_000, L, n_blk * spd, ring)
+    c1, sc1 = t(m1), t(split_bytes(np, m1, ring))
+    lanes3 = t(rng.random((L, 3)).astype(np.float32))
+    for label, payload in (("mesh_m1", None), ("mesh_m2_lanes", lanes3)):
+        C = 0 if payload is None else payload.shape[1]
+        f_args = (c1, payload, n_blk, L, spd, ring)
+
+        def pair(payload=payload):
+            return xk.bucket_records(wk.split_cells(sc1, ring, n_blk * spd),
+                                     payload, n_blk, L, spd, ring)
+        want = xk.bucket_records_plain(*f_args)
+        ok = same(pair(), want)
+        if bucket_split:
+            ok = ok and same(xk.bucket_records(sc1, payload, n_blk, L, spd,
+                                               ring), want)
+        torch.cuda.synchronize()
+        check(ok, f"{label}: the pair or the split form differs from "
+                  "bucket_records' plain version")
+        out_io = n_blk * L * (5 + 4 * C) + n_blk * 4
+        row = {"records": L, "lanes": C,
+               "split_cells": split_times(
+                   torch, lambda: wk.split_cells(sc1, ring, n_blk * spd)),
+               "bucket_records_flat": split_times(
+                   torch, lambda a=f_args: xk.bucket_records(*a)),
+               "bucket_records_flat_bound_ms": bound_ms(
+                   L * (4 + 4 * C) + out_io, L * n_blk)[0],
+               "pair": split_times(torch, pair),
+               "bound_ms": bound_ms(L * (3 + 4 * C) + out_io, L * n_blk)[0]}
+        if bucket_split:
+            row["split_form"] = split_times(
+                torch, lambda payload=payload: xk.bucket_records(
+                    sc1, payload, n_blk, L, spd, ring))
+        out[label] = row
+    src = [m1] + [mesh_cells(np, rng, 10_000, L, n_blk * spd, ring)
+                  for _ in range(n_blk - 1)]
+    src_sc = [t(split_bytes(np, c, ring)) for c in src]
+    devs = [dev] * n_blk
+
+    def chunk_pair():
+        return keyby.keyby_exchange(
+            [wk.split_cells(x, ring, n_blk * spd) for x in src_sc],
+            [None] * n_blk, devices=devs, capacity=L, spd=spd, ring=ring)
+
+    def chunk_split():
+        return keyby.keyby_exchange(src_sc, [None] * n_blk, devices=devs,
+                                    capacity=L, spd=spd, ring=ring)
+    want = keyby.keyby_exchange(
+        [torch.from_numpy(c) for c in src], [None] * n_blk,
+        devices=[torch.device("cpu")] * n_blk, capacity=L, spd=spd,
+        ring=ring)
+    ok = same(chunk_pair(), want)
+    if bucket_split:
+        ok = ok and same(chunk_split(), want)
+    torch.cuda.synchronize()
+    check(ok, "the chunk's exchange from the split bytes differs from the "
+              "CPU's")
+    out["mesh_chunk"] = {"blocks": n_blk, "records": n_blk * L,
+                         "pair": split_times(torch, chunk_pair)}
+    if bucket_split:
+        out["mesh_chunk"]["split_form"] = split_times(torch, chunk_split)
+
+    # -- segment_lanes: job E's fire, the edge case, job E2's largest fire
+    caught = {}
+    orig = ek.segment_lanes
+
+    def spy(offsets, sums, maxs, mins):
+        if sums.shape[0] > caught.get("elements", -1):
+            caught["elements"] = sums.shape[0]
+            caught["args"] = tuple(x.clone() for x in (offsets, sums, maxs,
+                                                       mins))
+        return orig(offsets, sums, maxs, mins)
+    ek.segment_lanes = spy
+    try:
+        run_job_e2(torch, np, ELEMENT_TRIGGER_BATCHES, "split-segment-e2")
+    finally:
+        ek.segment_lanes = orig
+    fires = {"job_e": segment_job_e(torch, np, dev)[0],
+             "edge": segment_edge_case(torch, np, dev)[0],
+             "job_e2": caught["args"]}
+    for name, args in fires.items():
+        lens = (args[0][1:] - args[0][:-1]).cpu().numpy()
+        n_el = int(lens.sum())
+        widths = sum(x.shape[1] for x in args[1:])
+        n_seg = len(lens)
+        forms = {"wrapper": None}
+        if groups:
+            forms.update({"group_8": 1 << 62, "group_32": 0})
+        row = {"segments": n_seg, "elements": n_el, "widths": [
+                   x.shape[1] for x in args[1:]],
+               "shortest": int(lens.min()), "median": float(np.median(lens)),
+               "longest": int(lens.max()),
+               "bound_ms": bound_ms(n_el * widths * 4 + (n_seg + 1) * 8
+                                    + n_seg * (widths + 1) * 4,
+                                    n_el * widths)[0]}
+        if groups:
+            row["group"] = ek.segment_group(n_seg, n_el, widths)
+        plain = ek.segment_lanes_plain(*args)
+        for form, mean in forms.items():
+            keep = getattr(ek, "SEGMENT_WARP_MEAN", None)
+            if mean is not None:
+                ek.SEGMENT_WARP_MEAN = mean
+            try:
+                got = ek.segment_lanes(*args)
+                torch.cuda.synchronize()
+                check(all(exact_bits(torch, x, y) for x, y in zip(got, plain)),
+                      f"segment_lanes ({name}, {form}) differs from its plain "
+                      "version")
+                row[form] = split_times(torch, lambda: ek.segment_lanes(*args))
+            finally:
+                if mean is not None:
+                    ek.SEGMENT_WARP_MEAN = keep
+        if name == "job_e":
+            lens_t = torch.from_numpy(lens.astype(np.int64)).to(dev)
+            row["library"] = split_times(torch, lambda: torch.segment_reduce(
+                args[1], "sum", lengths=lens_t, axis=0))
+        out[f"segment_lanes_{name}"] = row
+    wk.check_errors(dev)
+    return out
+
+
 # --cases NAME[,NAME...]: kernel cases, parent and change in turns. A row
 # names the CUDA sources it needs (built alone) and its function (torch,
 # np, dev) -> dict, printed as one JSON line under the row's name; the
@@ -4752,6 +5087,8 @@ KERNEL_CASES = {
     "devgen_ingest": (("devgen_kernels",), devgen_ingest_cases),
     "apply_threshold": (("window_kernels", "fused_kernels"),
                         apply_threshold_cases),
+    "split_segment": (("window_kernels", "lane_kernels", "exchange_kernels",
+                       "element_kernels"), split_segment_cases),
 }
 
 
@@ -4979,8 +5316,8 @@ def phase_proc_time(torch, np):
     return launches, prof["device_ms_per_call"]
 
 
-MESH_PATH = ("split_cells", "bucket_records", "window_counts",
-             "topn_candidates", "topn_select_given", "ring_columns")
+MESH_PATH = ("bucket_records", "window_counts", "topn_candidates",
+             "topn_select_given", "ring_columns")
 
 
 def by_window(rows):
@@ -5028,15 +5365,19 @@ def phase_mesh(torch, np, local_rows):
           "M1 took the one-device native lane")
     check(launches["topn_global_threshold"] == 0,
           "M1 launched topn_global_threshold: the select works it out")
+    check(launches["split_cells"] == 0,
+          "M1 launched split_cells: bucket_records decodes the bytes")
     a_rows, a_launches, a_res, a_wall, a_cfg = run_bid_agg(
         torch, np, "a", MESH_SIDE_BATCHES, "mesh-bid-agg-a", mesh=mesh)
-    missing = [k for k in ("split_cells", "bucket_records", "scatter_lanes",
-                           "fire_pack", "ring_columns") if not a_launches[k]]
+    missing = [k for k in ("bucket_records", "scatter_lanes", "fire_pack",
+                           "ring_columns") if not a_launches[k]]
     check(not missing, f"M2: kernels not launched on the mesh: {missing}")
     h_rows, h_launches, h_res, h_wall = run_q5_host_fed(
         torch, np, hot, "mesh-q5-hot-capacity", mesh=mesh,
         conf_extra={"pipeline.exchange-capacity": MESH_XCAP})
     check(h_res.metrics["exchange_overflow"] == 0, "M3: records overflowed")
+    check(a_launches["split_cells"] == h_launches["split_cells"] == 0,
+          "M2 / M3 launched split_cells: bucket_records decodes the bytes")
     r_rows, r_launches, r_res, r_wall = run_q5_host_fed(
         torch, np, side, "mesh-q5-ring", mesh=mesh,
         conf_extra={"exchange.impl": "ring"})
@@ -5112,6 +5453,9 @@ def phase_mesh_cards(torch, np):
     r_rows, r_launches, r_res, r_wall = run_q5_host_fed(
         torch, np, side, "mesh-cards-ring", mesh=mesh,
         conf_extra={"exchange.impl": "ring"})
+    check(launches["split_cells"] == r_launches["split_cells"] == 0,
+          "split_cells launched over the cards: bucket_records decodes "
+          "the bytes")
     check_q5_rows(np, rows, cfg, "Q5 over the cards")
     check_q5_rows(np, r_rows, side, "Q5 over the cards, ring")
     emit({"phase": "mesh_cards", "devices": [str(d) for d in mesh.devices],
@@ -5194,8 +5538,8 @@ def main() -> int:
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
         # lane, apply_pairs_u16 on its hot keys; apply_pairs_u32 and
-        # fire_pack on WordCount; the two lane scatters and the split
-        # upload's decode on their bid-aggregate job; count_fire on
+        # fire_pack on WordCount; the two lane scatters on their
+        # bid-aggregate job; count_fire on
         # WindowWordCount; the top-n lane kernels on job T's first run;
         # segment_lanes on job E; the key-sharded path's kernels on job M1
         own_path = {"scatter_counts": "q5_numpy_lane",
@@ -5204,7 +5548,6 @@ def main() -> int:
                     "apply_pairs_u32": "wordcount", "fire_pack": "wordcount",
                     "scatter_lanes": "bid_aggs_a",
                     "scatter_pair_lanes": "bid_aggs_b",
-                    "split_cells": "bid_aggs_a",
                     "scatter_split_counts": "q5_spill",
                     "count_fire": "window_wordcount",
                     "window_lanes": "topn_lanes",

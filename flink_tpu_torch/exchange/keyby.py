@@ -10,7 +10,9 @@ over a list of blocks:
 
 1. ``bucket_by_destination``: the ``bucket_records`` kernel on each
    source block (records in arrival order within a bucket, each cell
-   already rebased to its owner's block, overflow counted);
+   already rebased to its owner's block, overflow counted; the records
+   as flat cells or as the split upload's 3 bytes, decoded where the
+   kernel reads them);
 2. ``all_to_all_records``: block copies, ``recv[d][j] = buckets[j][d]``
    (``Tensor.copy_``: a peer copy between cards), so row j of what block
    d receives came from block j; it counts the bytes it copied between
@@ -44,7 +46,8 @@ Block = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
 def bucket_by_destination(cells: torch.Tensor, payload: Optional[torch.Tensor],
                           *, n_dest: int, capacity: int, spd: int, ring: int
                           ) -> Tuple[Block, torch.Tensor]:
-    """One source block's records into ``(n_dest, capacity)`` buckets:
+    """One source block's records (flat cells, or the split upload's
+    bytes) into ``(n_dest, capacity)`` buckets of flat cells:
     ``((cells, payload, valid), overflow)`` (see
     ``exchange_kernels.bucket_records``)."""
     b_cells, b_payload, valid, overflow = ek.bucket_records(
@@ -136,7 +139,9 @@ def _exchange_one_device(cells, payload, device, capacity, spd, ring):
     n = len(cells)
     pay = payload[0]
     with on_device(device):
-        r_cells = torch.empty((n, n, capacity), dtype=cells[0].dtype,
+        # the received cells are flat, whatever form the records came in
+        r_cells = torch.empty((n, n, capacity),
+                              dtype=ek.bucket_cell_dtype(cells[0]),
                               device=device)
         r_payload = None if pay is None else torch.empty(
             (n, n, capacity) + pay.shape[1:], dtype=pay.dtype, device=device)

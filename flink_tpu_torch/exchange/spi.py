@@ -12,8 +12,14 @@
 Both take and return what ``keyby.keyby_exchange`` does: the received
 blocks, the overflow per source block, and the bytes the implementation
 copied between distinct blocks (a ring hop moves a whole bucket block,
-so ``ring`` copies ``n`` times what ``all-to-all`` does). Third-party
-implementations register with ``register_shuffle``.
+so ``ring`` copies ``n`` times what ``all-to-all`` does). A source
+block's records come as int32 (int64) flat global cells, or, for the
+built-ins, as the split upload's ``(B, 3)`` uint8 bytes, which their
+``bucket_records`` launch decodes where it reads them
+(``takes_split_bytes``); either way the received cells are int32 (int64)
+flat cells of the owner's block. Third-party implementations register
+with ``register_shuffle`` and receive flat cells: the operator decodes a
+split upload for them with ``split_cells``.
 """
 from __future__ import annotations
 
@@ -77,6 +83,12 @@ _IMPLS: Dict[str, ShuffleFn] = {
 }
 
 
+def takes_split_bytes(fn: ShuffleFn) -> bool:
+    """Whether ``fn`` takes a source block's split upload bytes as they
+    are (the built-ins); a registered shuffle takes flat cells."""
+    return fn in (all_to_all_shuffle, ring_shuffle)
+
+
 def get_shuffle(name: str) -> ShuffleFn:
     if name not in _IMPLS:
         raise ValueError(
@@ -86,5 +98,7 @@ def get_shuffle(name: str) -> ShuffleFn:
 
 
 def register_shuffle(name: str, fn: ShuffleFn) -> None:
-    """The SPI hook: another exchange implementation registers here."""
+    """The SPI hook: another exchange implementation registers here. It
+    takes what ``all_to_all_shuffle`` takes, with each source block's
+    records as flat cells."""
     _IMPLS[name] = fn

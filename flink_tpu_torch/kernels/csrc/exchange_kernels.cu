@@ -7,8 +7,10 @@
 // X1 bucket_records  replaces flink_tpu/exchange/keyby.py:37
 //                    bucket_by_destination, with the routing and the
 //                    rebase of flink_tpu/ops/window.py:1483 apply_shard
-//                    (:1485-1503); on blocks of one card its direct form
-//                    also replaces keyby.py:75 all_to_all_records' copies
+//                    (:1485-1503) and, in its split form, the decode of
+//                    :1523 apply_shard_split; on blocks of one card its
+//                    direct form also replaces keyby.py:75
+//                    all_to_all_records' copies
 // X2 hash_keys       replaces flink_tpu/records.py:204 hash_keys_device
 //
 // Both are integer work and pure copies, so the kernel, the plain
@@ -48,7 +50,13 @@ static_assert(kItems * kWarps == 32, "bucket_records scans 32 (step, warp) count
 // so source j writes straight into each owner's receive row j and the
 // exchange copies nothing. Cells are int32, or int64 once the mesh's
 // cells reach 2^31 (the operator's upload switches where the reference's
-// does).
+// does). The split form (kSplit) reads the split upload's 3 bytes a record
+// instead and decodes each where the rank step loads it (window_common.cuh
+// SplitRecords, K7's rule) with the row past every block, n_dest * spd,
+// as the dump row: slot 0xFFFF and slot n_dest * spd decode past every
+// block and go nowhere, a slot beyond or a column past the ring sets
+// kErrSplitCell in the device's error word and goes nowhere too; the
+// output cells are int32, as split_cells' then the flat form's.
 //
 // Bound: bytes — the cells and payload read once, every row position
 // (filled or not: the padded layout the owners read) written once.
@@ -97,6 +105,8 @@ __host__ __device__ __forceinline__ int64_t bucket_desc_stride(int32_t n_dest) {
 template <typename Cell>
 struct BucketParams {
   const Cell* cells;
+  SplitRecords split;   // the split form's records (kSplit)
+  int32_t* err;         // the device's error word (the split form's bit)
   const uint32_t* payload;
   int64_t B;
   int32_t C, n_dest, dbits, cap;
@@ -195,7 +205,7 @@ __device__ __forceinline__ void fill_bytes(uint8_t* p, int64_t n, uint32_t word,
   for (int64_t i = head + (nb << 4) + t; i < n; i += stride) p[i] = (uint8_t)word;
 }
 
-template <typename Cell, int NB>
+template <typename Cell, int NB, bool kSplit>
 __global__ void __launch_bounds__(kThreads) bucket_records_kernel(const BucketParams<Cell> p) {
   __shared__ Cell s_cell[kTile];
   __shared__ uint16_t s_src[kTile];
@@ -218,10 +228,28 @@ __global__ void __launch_bounds__(kThreads) bucket_records_kernel(const BucketPa
   for (int64_t tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int64_t base = tile * kTile;
     Cell c[kItems];
+    if constexpr (kSplit) {
+      // a byte load each, neighbouring threads on neighbouring records: a
+      // warp's loads cover its 96 bytes in one or two sectors (a tile
+      // staged in shared memory by 16-byte copies, and a warp's words
+      // passed on by shuffles, each measured slower at M1's block)
+      int32_t raw[kItems];
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int64_t i = base + j * kThreads + tid;
-      c[j] = i < p.B ? p.cells[i] : (Cell)-1;
+      for (int j = 0; j < kItems; ++j) {
+        const int64_t i = base + j * kThreads + tid;
+        raw[j] = i < p.B ? (int32_t)p.split.load(i) : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        c[j] = raw[j] < 0 ? (Cell)-1 : (Cell)p.split.cell(raw[j]);
+        if (raw[j] >= 0 && c[j] < 0) atomicOr(p.err, kErrSplitCell);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int64_t i = base + j * kThreads + tid;
+        c[j] = i < p.B ? p.cells[i] : (Cell)-1;
+      }
     }
     int32_t d[kItems], rank[kItems];
     Cell local[kItems];
@@ -346,16 +374,17 @@ __global__ void __launch_bounds__(kThreads) bucket_records_kernel(const BucketPa
   }
 }
 
-// the blocks of bucket_records_kernel<Cell, NB> the card holds at once,
-// cached a device
-template <typename Cell, int NB>
+// the blocks of bucket_records_kernel<Cell, NB, kSplit> the card holds at
+// once, cached a device
+template <typename Cell, int NB, bool kSplit>
 int bucket_capacity() {
   static int cached[64];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (!cached[dev]) {
     int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bucket_records_kernel<Cell, NB>,
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      bucket_records_kernel<Cell, NB, kSplit>,
                                                       kThreads, 0) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return 0;
@@ -386,16 +415,39 @@ inline int bits_for(int32_t v) {  // bits of the ids 0..v
   return b;
 }
 
+// one cooperative launch of at most the blocks the card holds at once
+template <typename Cell, bool kSplit>
+int bucket_launch(const BucketParams<Cell>& p, bool few, cudaStream_t s) {
+  const int fit = few ? bucket_capacity<Cell, 3, kSplit>()
+                      : bucket_capacity<Cell, kDestBits, kSplit>();
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(p.tiles < fit ? p.tiles : fit);
+  void* args[] = {(void*)&p};
+  const void* kernel = few ? (const void*)bucket_records_kernel<Cell, 3, kSplit>
+                           : (const void*)bucket_records_kernel<Cell, kDestBits, kSplit>;
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, s);
+}
+
+// split: the records are the split upload's (B, 3) bytes (cells then
+// points at them; Cell int32), decoded with n_dest * spd as the dump row
 template <typename Cell>
-int bucket_records(const Cell* cells, const uint32_t* payload, int64_t B, int32_t C,
+int bucket_records(const Cell* cells, bool split, const uint32_t* payload, int64_t B, int32_t C,
                    int32_t n_dest, int32_t cap, int32_t ring, int32_t spd, int64_t* work,
                    int64_t work_words, Cell* out_cells, uint32_t* out_payload,
-                   uint8_t* out_valid, int32_t* overflow, int64_t dstride, cudaStream_t s) {
+                   uint8_t* out_valid, int32_t* overflow, int64_t dstride, int32_t* err,
+                   cudaStream_t s) {
   if (n_dest < 1 || n_dest > kMaxDest || cap < 1 || ring < 1 || spd < 1 || C < 0 ||
       dstride < cap || B < 0 || work == nullptr)
     return (int)cudaErrorInvalidValue;
+  // the split form: a byte's column, a 16-bit slot with n_dest * spd (the
+  // dump row) below 0xFFFF, and an error word for the bit
+  if (split && (sizeof(Cell) != 4 || ring > 256 || err == nullptr ||
+                (int64_t)n_dest * spd >= (int64_t)kInvalidSlotU16))
+    return (int)cudaErrorInvalidValue;
   BucketParams<Cell> p{};
-  p.cells = cells;
+  p.cells = split ? nullptr : cells;
+  p.split = SplitRecords{split ? (const uint8_t*)cells : nullptr, ring, n_dest * spd};
+  p.err = err;
   p.payload = payload;
   p.B = B;
   p.C = C;
@@ -419,13 +471,9 @@ int bucket_records(const Cell* cells, const uint32_t* payload, int64_t B, int32_
   // destination ids in 3 bits up to 7 destinations (the invalid id is
   // n_dest), else in kDestBits
   const bool few = n_dest <= 7;
-  const int fit = few ? bucket_capacity<Cell, 3>() : bucket_capacity<Cell, kDestBits>();
-  if (fit < 1) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)(p.tiles < fit ? p.tiles : fit);
-  void* args[] = {(void*)&p};
-  const void* kernel = few ? (const void*)bucket_records_kernel<Cell, 3>
-                           : (const void*)bucket_records_kernel<Cell, kDestBits>;
-  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, s);
+  if constexpr (sizeof(Cell) == 4)
+    if (split) return bucket_launch<Cell, true>(p, few, s);
+  return bucket_launch<Cell, false>(p, few, s);
 }
 
 }  // namespace
@@ -436,21 +484,24 @@ const char* xk_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 
 // work: the entry point's clean workspace (exchange_kernels.py
 // bucket_work_words), work_words int64 words; cells and out_cells are
-// int32 (cell_bytes 4) or int64 (8); destination d's row starts at record
-// d * dstride of the outputs
+// int32 (cell_bytes 4) or int64 (8), or cells the split upload's (B, 3)
+// bytes (cell_bytes 3) and out_cells int32; destination d's row starts at
+// record d * dstride of the outputs; err: the device's error word
 int xk_bucket_records(const void* cells, int32_t cell_bytes, const uint32_t* payload, int64_t B,
                       int32_t C, int32_t n_dest, int32_t cap, int32_t ring, int32_t spd,
                       int64_t* work, int64_t work_words, void* out_cells, uint32_t* out_payload,
-                      uint8_t* out_valid, int32_t* overflow, int64_t dstride, void* stream) {
+                      uint8_t* out_valid, int32_t* overflow, int64_t dstride, int32_t* err,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (cell_bytes == 8)
-    return bucket_records<int64_t>((const int64_t*)cells, payload, B, C, n_dest, cap, ring, spd,
-                                   work, work_words, (int64_t*)out_cells, out_payload, out_valid,
-                                   overflow, dstride, s);
-  if (cell_bytes == 4)
-    return bucket_records<int32_t>((const int32_t*)cells, payload, B, C, n_dest, cap, ring, spd,
-                                   work, work_words, (int32_t*)out_cells, out_payload, out_valid,
-                                   overflow, dstride, s);
+    return bucket_records<int64_t>((const int64_t*)cells, false, payload, B, C, n_dest, cap,
+                                   ring, spd, work, work_words, (int64_t*)out_cells,
+                                   out_payload, out_valid, overflow, dstride, err, s);
+  if (cell_bytes == 4 || cell_bytes == 3)
+    return bucket_records<int32_t>((const int32_t*)cells, cell_bytes == 3, payload, B, C,
+                                   n_dest, cap, ring, spd, work, work_words,
+                                   (int32_t*)out_cells, out_payload, out_valid, overflow,
+                                   dstride, err, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -463,14 +514,14 @@ int xk_hash_keys(const int64_t* keys, int64_t n, int64_t* out, void* stream) {
 
 // the lean launch path (window_kernels.py LeanEntry): each entry
 // above from one packed block of 64-bit words, the stream beside
-// xk_bucket_records from one packed block of 16 64-bit words
+// xk_bucket_records from one packed block of 17 64-bit words
 int xk_bucket_records_packed(const int64_t* a, void* stream) {
   return xk_bucket_records(
       (const void*)(intptr_t)a[0], (int32_t)a[1], (const uint32_t*)(intptr_t)a[2], (int64_t)a[3],
       (int32_t)a[4], (int32_t)a[5], (int32_t)a[6], (int32_t)a[7], (int32_t)a[8],
       (int64_t*)(intptr_t)a[9], (int64_t)a[10], (void*)(intptr_t)a[11],
       (uint32_t*)(intptr_t)a[12], (uint8_t*)(intptr_t)a[13], (int32_t*)(intptr_t)a[14],
-      (int64_t)a[15], stream);
+      (int64_t)a[15], (int32_t*)(intptr_t)a[16], stream);
 }
 
 // xk_hash_keys from one packed block of 3 64-bit words

@@ -415,7 +415,11 @@ __global__ void __launch_bounds__(kThreads) fire_pack_kernel(const FireParams p)
 //      check (an index outside the state, or a negative one unless
 //      skip_negative, sets kErrScatterLanes and is dropped), the count
 //      of valid records and the digit histogram of every pass, into the
-//      zeroed ctrl block.
+//      zeroed ctrl block. idx is the flat int32 cells, or the split
+//      upload's 3 bytes a record decoded where H and the first S pass load
+//      them (SplitCells: window_common.cuh's SplitRecords, K7's rule and
+//      error bit, so no cell array and no split_cells launch; H reads a
+//      thread's 16 consecutive records by 16-byte loads).
 //   S  lanes_sort_kernel, once per digit pass: a stable LSD radix pass of
 //      (cell, record index) over tiles of kSortTile records, each tile's
 //      digit offsets from a chained scan with decoupled look-back
@@ -514,9 +518,58 @@ __device__ __forceinline__ float from_key(int32_t k) {
   return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
 }
 
+// Where H and the first S pass read a record's cell: the flat int32 cells
+// (an index outside the state sets kErrScatterLanes; a negative one is an
+// invalid record under skip_negative), or the split upload's 3 bytes
+// (K7's decode and kErrSplitCell; slot 0xFFFF folds into the dump row, as
+// its split_cells cell did). load() is record i's raw word (read-only
+// loads: the first pass keeps every load of its 16 rounds in flight
+// across its shared-memory stores), cell() H's cell or -1 for a record
+// that touches nothing (bad set when it is outside the state), key() the
+// first pass's cell or -1 (H reported the bad ones). kWide: H, which only
+// counts, takes a thread's 16 consecutive records by three 16-byte loads
+// (SplitRecords::load16; a thread's 48 byte loads measured 0.0014 ms
+// slower at job (a)'s batch, the tile staged in shared memory 0.0011); the
+// first pass keeps the records' order and their byte loads (its rounds
+// wait on their scans, not on the loads).
+struct FlatCells {
+  const int32_t* idx;
+  int64_t n_cells;
+  int32_t skip_negative;
+  static constexpr int32_t kErr = kErrScatterLanes;
+  static constexpr bool kWide = false;
+
+  __device__ __forceinline__ int32_t load(int64_t i) const { return __ldg(idx + i); }
+  __device__ __forceinline__ int32_t cell(int32_t c, bool& bad) const {
+    if (c < 0 && skip_negative) return -1;
+    if (c < 0 || (int64_t)c >= n_cells) {
+      bad = true;
+      return -1;
+    }
+    return c;
+  }
+  __device__ __forceinline__ int32_t key(int32_t c) const {
+    return (int64_t)c < n_cells ? c : -1;
+  }
+};
+
+struct SplitCells {
+  SplitRecords rec;
+  static constexpr int32_t kErr = kErrSplitCell;
+  static constexpr bool kWide = true;
+
+  __device__ __forceinline__ int32_t load(int64_t i) const { return (int32_t)rec.load(i); }
+  __device__ __forceinline__ int32_t cell(int32_t v, bool& bad) const {
+    const int32_t c = rec.cell(v);
+    if (c < 0) bad = true;
+    return c;
+  }
+  __device__ __forceinline__ int32_t key(int32_t v) const { return rec.cell(v); }
+};
+
+template <class Src>
 __global__ void __launch_bounds__(kThreads)
-    lanes_hist_kernel(const int32_t* __restrict__ idx, int64_t n, int64_t n_cells,
-                      int32_t skip_negative, int32_t passes, int32_t digit_bits,
+    lanes_hist_kernel(const Src src, int64_t n, int32_t passes, int32_t digit_bits,
                       int32_t* __restrict__ ctrl, int32_t* __restrict__ err) {
   __shared__ int s_h[kMaxPasses * kMaxRadix];
   __shared__ long long s_sum[kWarps];
@@ -524,29 +577,33 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const uint32_t mask = (1u << digit_bits) - 1u;
   // block b reads the records of sort tile b, all its loads in flight
-  // before the first count
+  // before the first count: a thread's records j * kThreads + threadIdx.x
+  // of the tile, or with kWide its kSortItems consecutive ones
   const int64_t base = (int64_t)blockIdx.x * kSortTile + threadIdx.x;
-  int32_t c[kSortItems];
+  const int64_t wide0 = (int64_t)blockIdx.x * kSortTile + (int64_t)threadIdx.x * kSortItems;
+  int32_t v[kSortItems];
+  if constexpr (Src::kWide) {
+    static_assert(kSortItems == 16, "load16 takes 16 records");
+    src.rec.load16(wide0, n, v);
+  } else {
 #pragma unroll
-  for (int j = 0; j < kSortItems; ++j) {
-    const int64_t i = base + (int64_t)j * kThreads;
-    c[j] = i < n ? idx[i] : -1;
+    for (int j = 0; j < kSortItems; ++j) {
+      const int64_t i = base + (int64_t)j * kThreads;
+      v[j] = i < n ? src.load(i) : 0;
+    }
   }
   int valid = 0;
-  int bad = 0;
+  bool bad = false;
 #pragma unroll
   for (int j = 0; j < kSortItems; ++j) {
-    if (base + (int64_t)j * kThreads >= n) break;
-    if (c[j] < 0 && skip_negative) continue;  // an invalid record: touches nothing
-    if (c[j] < 0 || (int64_t)c[j] >= n_cells) {
-      bad = 1;
-      continue;
-    }
+    if ((Src::kWide ? wide0 + j : base + (int64_t)j * kThreads) >= n) break;
+    const int32_t c = src.cell(v[j], bad);
+    if (c < 0) continue;  // touches nothing
     ++valid;
     for (int p = 0; p < passes; ++p)
-      atomicAdd(&s_h[p * kMaxRadix + (((uint32_t)c[j] >> (p * digit_bits)) & mask)], 1);
+      atomicAdd(&s_h[p * kMaxRadix + (((uint32_t)c >> (p * digit_bits)) & mask)], 1);
   }
-  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(err, kErrScatterLanes);
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(err, Src::kErr);
   for (int e = threadIdx.x; e < passes * kMaxRadix; e += kThreads)
     if (s_h[e]) atomicAdd(&ctrl[e], s_h[e]);
   const long long total = block_sum(valid, s_sum);
@@ -554,13 +611,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // One stable digit pass over the records' cells and indices. kFirst:
-// the cells come from idx (a record outside the state is dropped) and a
-// record's index is its position; else both come from the previous pass
-// (n_valid of them). status: this pass's look-back words, tile-major.
-template <bool kFirst>
+// the cells come from src (a record that touches nothing is dropped) and
+// a record's index is its position; else both come from the previous
+// pass (n_valid of them). status: this pass's look-back words, tile-major.
+template <bool kFirst, class Src>
 __global__ void __launch_bounds__(kThreads)
-    lanes_sort_kernel(const int32_t* __restrict__ keys_in, const int32_t* __restrict__ vals_in,
-                      int64_t n, int64_t n_cells, int32_t pass, int32_t digit_bits,
+    lanes_sort_kernel(const Src src, const int32_t* __restrict__ keys_in,
+                      const int32_t* __restrict__ vals_in, int64_t n, int32_t pass,
+                      int32_t digit_bits,
                       int32_t* __restrict__ ctrl, uint32_t* __restrict__ status,
                       int32_t* __restrict__ keys_out, int32_t* __restrict__ vals_out) {
   __shared__ int s_tile, s_tile_n;
@@ -592,8 +650,13 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < kSortItems; ++j) {
     const int64_t i = wbase + (int64_t)j * 32 + lane;
     bool ok = i < n_in;
-    const int32_t c = ok ? keys_in[i] : 0;
-    if (kFirst) ok = ok && c >= 0 && (int64_t)c < n_cells;
+    int32_t c = 0;
+    if (kFirst) {
+      c = ok ? src.key(src.load(i)) : -1;
+      ok = c >= 0;
+    } else if (ok) {
+      c = keys_in[i];
+    }
     key[j] = c;
     val[j] = kFirst ? (int32_t)i : (ok ? vals_in[i] : 0);
     // kMaxRadix: a value no digit has, so a missing record joins no group
@@ -1123,6 +1186,32 @@ bool pair_lanes_if(int32_t sw, const int32_t* buf, int32_t P, int64_t n_cells, i
   return true;
 }
 
+// H, then the digit passes (the first reading the records through src):
+// the sorted cells and record indices end in keys0 / vals0 after an odd
+// number of passes, keys1 / vals1 after an even one
+template <class Src>
+int lanes_sort(const Src& src, int64_t n, int32_t passes, int32_t digit_bits, int32_t tiles,
+               int32_t* work, uint32_t* status, int64_t status_pass, int32_t* keys0,
+               int32_t* vals0, int32_t* keys1, int32_t* vals1, int32_t* err, cudaStream_t s) {
+  lanes_hist_kernel<Src><<<tiles, kThreads, 0, s>>>(src, n, passes, digit_bits, work, err);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const int32_t* k_in = nullptr;
+  const int32_t* v_in = nullptr;
+  for (int32_t p = 0; p < passes; ++p) {
+    int32_t* k_out = p % 2 ? keys1 : keys0;
+    int32_t* v_out = p % 2 ? vals1 : vals0;
+    auto* kernel = p ? &lanes_sort_kernel<false, Src> : &lanes_sort_kernel<true, Src>;
+    kernel<<<tiles, kThreads, 0, s>>>(src, k_in, v_in, n, p, digit_bits, work,
+                                      status + p * status_pass, k_out, v_out);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    k_in = k_out;
+    v_in = v_out;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1201,41 +1290,42 @@ int lk_fire_pack_packed(const FireArgs* a, void* stream) {
 // digit_bits each over tiles of kSortTile records (a hist block and a
 // sort block a tile), fold_blocks fold blocks; work: the zeroed region
 // (the ctrl block, then passes * tiles << digit_bits look-back words),
-// zero_ints long; keys0, vals0, keys1, vals1: n int32 each
+// zero_ints long; keys0, vals0, keys1, vals1: n int32 each. idx is n
+// int32 flat cells (split_ring 0), or the split upload's (n, 3) bytes
+// over a ring of split_ring columns (1..256) with its dump row.
 int lk_scatter_lanes(int32_t* counts, float* sums, int32_t sw, float* maxs, int32_t mw,
-                     float* mins, int32_t nw, int64_t n_cells, const int32_t* idx,
+                     float* mins, int32_t nw, int64_t n_cells, const void* idx,
                      const float* s_in, const float* mx_in, const float* mn_in, int64_t n,
                      int32_t skip_negative, int32_t passes, int32_t digit_bits, int32_t tiles,
                      int32_t fold_blocks, int32_t* work, int64_t zero_ints, int32_t* keys0,
                      int32_t* vals0, int32_t* keys1, int32_t* vals1, int32_t* err,
-                     void* stream) {
+                     int32_t split_ring, int32_t dump_row, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const int64_t status_pass = (int64_t)tiles << digit_bits;
   if (passes < 1 || passes > kMaxPasses || digit_bits < 1 || digit_bits > kMaxDigitBits ||
       (int64_t)tiles * kSortTile < n || n > (int64_t)kCountMask ||
       zero_ints < kCtrlInts + passes * status_pass || fold_blocks < 1)
     return (int)cudaErrorInvalidValue;
+  // a split record's cell lies below (dump_row + 1) * ring
+  if (split_ring && (split_ring < 1 || split_ring > 256 || dump_row < 0 ||
+                     dump_row >= (int32_t)kInvalidSlotU16 ||
+                     ((int64_t)dump_row + 1) * split_ring > n_cells))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc = (int)cudaMemsetAsync(work, 0, (size_t)zero_ints * sizeof(int32_t), s);
   if (rc) return rc;
-  lanes_hist_kernel<<<tiles, kThreads, 0, s>>>(idx, n, n_cells, skip_negative, passes, digit_bits,
-                                               work, err);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
   uint32_t* status = (uint32_t*)(work + kCtrlInts);
-  const int32_t* k_in = idx;
-  const int32_t* v_in = nullptr;
-  for (int32_t p = 0; p < passes; ++p) {
-    int32_t* k_out = p % 2 ? keys1 : keys0;
-    int32_t* v_out = p % 2 ? vals1 : vals0;
-    auto* kernel = p ? &lanes_sort_kernel<false> : &lanes_sort_kernel<true>;
-    kernel<<<tiles, kThreads, 0, s>>>(k_in, v_in, n, n_cells, p, digit_bits, work,
-                                      status + p * status_pass, k_out, v_out);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
-    k_in = k_out;
-    v_in = v_out;
-  }
+  rc = split_ring
+           ? lanes_sort(SplitCells{SplitRecords{(const uint8_t*)idx, split_ring, dump_row}}, n,
+                        passes, digit_bits, tiles, work, status, status_pass, keys0, vals0,
+                        keys1, vals1, err, s)
+           : lanes_sort(FlatCells{(const int32_t*)idx, n_cells, skip_negative}, n, passes,
+                        digit_bits, tiles, work, status, status_pass, keys0, vals0, keys1,
+                        vals1, err, s);
+  if (rc) return rc;
+  // the last pass's sorted cells and record indices
+  const int32_t* k_in = passes % 2 ? keys0 : keys1;
+  const int32_t* v_in = passes % 2 ? vals0 : vals1;
   // the main paths' widths at compile time (window-wordcount's sum, job
   // T, the bid aggregates, job C's changelog), any other at run time
 #define LK_FOLD(a, b, c)                                                                   \
@@ -1277,17 +1367,17 @@ int lk_scatter_pair_lanes(const PairArgs* a, void* stream) {
 
 // the lean launch path (window_kernels.py LeanEntry): each entry
 // above from one packed block of 64-bit words, the stream beside
-// lk_scatter_lanes from one packed block of 25 64-bit words
+// lk_scatter_lanes from one packed block of 27 64-bit words
 int lk_scatter_lanes_packed(const int64_t* a, void* stream) {
   return lk_scatter_lanes(
       (int32_t*)(intptr_t)a[0], (float*)(intptr_t)a[1], (int32_t)a[2], (float*)(intptr_t)a[3],
       (int32_t)a[4], (float*)(intptr_t)a[5], (int32_t)a[6], (int64_t)a[7],
-      (const int32_t*)(intptr_t)a[8], (const float*)(intptr_t)a[9],
+      (const void*)(intptr_t)a[8], (const float*)(intptr_t)a[9],
       (const float*)(intptr_t)a[10], (const float*)(intptr_t)a[11], (int64_t)a[12],
       (int32_t)a[13], (int32_t)a[14], (int32_t)a[15], (int32_t)a[16], (int32_t)a[17],
       (int32_t*)(intptr_t)a[18], (int64_t)a[19], (int32_t*)(intptr_t)a[20],
       (int32_t*)(intptr_t)a[21], (int32_t*)(intptr_t)a[22], (int32_t*)(intptr_t)a[23],
-      (int32_t*)(intptr_t)a[24], stream);
+      (int32_t*)(intptr_t)a[24], (int32_t)a[25], (int32_t)a[26], stream);
 }
 
 }  // extern "C"

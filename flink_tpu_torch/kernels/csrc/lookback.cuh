@@ -162,6 +162,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// the copies issued since the last commit as one group; wait until at
+// most one group of this thread is still in flight (a two-stage pipeline:
+// the next stage's copies run while the current one is read)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // n consecutive 32-bit words from src into shared memory, every thread
 // of the block taking part: 16-byte copies for the aligned body, 4-byte
 // ones for the head and tail. The words land at dst + shift, where shift

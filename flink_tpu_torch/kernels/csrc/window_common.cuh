@@ -3,8 +3,10 @@
 // topn_lanes_kernels.cu, ...): the launch shape, block-wide sum and scan,
 // division by a divisor fixed a launch (FastDiv), a fire's scalars and
 // where a fire kernel reads them (FireSource), the
-// window-count rule (which panes of a window are live) and IEEE maximum /
-// minimum. Each .cu file includes this once, inside no
+// window-count rule (which panes of a window are live), IEEE maximum /
+// minimum and the split upload's decode (SplitRecords: K7's rule, read
+// by split_cells, scatter_split_counts, scatter_lanes and bucket_records).
+// Each .cu file includes this once, inside no
 // namespace of its own; everything here has internal linkage.
 #pragma once
 
@@ -70,6 +72,68 @@ __device__ __forceinline__ float min_ieee(float a, float b) {
   if (a == b) return signbit(a) ? a : b;
   return a < b ? a : b;
 }
+
+// ---- the split upload ------------------------------------------------------
+// A record of 3 bytes, (B, 3) uint8: bytes 0-1 the little-endian slot id,
+// byte 2 the ring column; slot 0xFFFF is an invalid record and goes to
+// the dump row. K7's rule (window_kernels.cu split_cells), which every
+// kernel that reads the upload shares: a slot past the dump row or a
+// column past the ring sets kErrSplitCell and adds nothing.
+// (window_kernels.py ERROR_BITS decodes the bit.)
+constexpr int32_t kErrSplitCell = 64;
+constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
+
+struct SplitRecords {
+  const uint8_t* sc;
+  int32_t ring;
+  int32_t dump_row;
+  static constexpr int32_t kErr = kErrSplitCell;
+
+  // record i's three bytes as one value (slot | col << 16); neighbouring
+  // threads on neighbouring records read a warp's 96 bytes in one or two
+  // sectors, so byte loads are whole transactions
+  __device__ __forceinline__ int64_t load(int64_t i) const {
+    const uint8_t* r = sc + 3 * i;
+    return (int64_t)((uint32_t)__ldg(r) | ((uint32_t)__ldg(r + 1) << 8) |
+                     ((uint32_t)__ldg(r + 2) << 16));
+  }
+  // row and ring column of a loaded record: 1 a valid record, 0 slot
+  // 0xFFFF (row = the dump row), -1 outside the state (the error bit)
+  __device__ __forceinline__ int decode(int64_t v, int32_t& row, int32_t& col) const {
+    const uint32_t slot = (uint32_t)v & 0xFFFFu;
+    col = (int32_t)((uint32_t)v >> 16);
+    row = slot == kInvalidSlotU16 ? dump_row : (int32_t)slot;
+    if (row > dump_row || col >= ring) return -1;
+    return slot == kInvalidSlotU16 ? 0 : 1;
+  }
+  // K7's int32 flat cell row * ring + col of a loaded record (slot 0xFFFF
+  // at the dump row), or -1 for one outside the state
+  __device__ __forceinline__ int32_t cell(int64_t v) const {
+    int32_t row = 0, col = 0;
+    return decode(v, row, col) < 0 ? -1 : row * ring + col;
+  }
+  // load() of the 16 consecutive records first .. first + 15 (first a
+  // multiple of 16), 0 past record n: their 48 bytes by three 16-byte
+  // loads where the upload is 16-byte aligned and all 16 exist, each
+  // record cut out of the words by a funnel shift; byte loads otherwise
+  __device__ __forceinline__ void load16(int64_t first, int64_t n, int32_t (&v)[16]) const {
+    const uint8_t* g = sc + 3 * first;
+    if (first + 16 <= n && ((uintptr_t)g & 15) == 0) {
+      const uint4 a = __ldg((const uint4*)g), b = __ldg((const uint4*)g + 1),
+                  c = __ldg((const uint4*)g + 2);
+      const uint32_t w[13] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, 0u};
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int at = 3 * r;
+        v[r] = (int32_t)(__funnelshift_r(w[at >> 2], w[(at >> 2) + 1], 8 * (at & 3)) &
+                         0xFFFFFFu);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) v[r] = first + r < n ? (int32_t)load(first + r) : 0;
+    }
+  }
+};
 
 // A fire's pane bounds, emit-ring anchor and pane_lo's ring column
 // (pane_lo mod ring, for window_counts; 0 where a kernel reads none).

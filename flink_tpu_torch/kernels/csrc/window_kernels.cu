@@ -33,7 +33,8 @@
 // K7 split_cells          replaces flink_tpu/ops/window.py:101 split_decode
 //                         and the decode of :122 apply_kernel_split (the
 //                         lane scatter itself is lane_kernels.cu's L2);
-//                         the key-sharded ingest and the lanes use it
+//                         every kernel that reads the upload decodes it
+//                         itself, so no path launches it
 // K1s scatter_split_counts replaces :122 apply_kernel_split's count lane:
 //                         K1's per-record form decoding the split upload
 //                         itself (K7's decode and error rule, one launch)
@@ -48,12 +49,9 @@
 
 namespace {
 
-// error-word bits of scatter_counts and split_cells (window_kernels.py
-// ERROR_BITS decodes them)
+// error-word bit of scatter_counts (window_kernels.py ERROR_BITS decodes
+// it; split_cells' kErrSplitCell is window_common.cuh's)
 constexpr int32_t kErrScatterIndex = 1;
-constexpr int32_t kErrSplitCell = 64;
-// the slot id of an invalid record in a split upload
-constexpr uint32_t kInvalidSlotU16 = 0xFFFF;
 
 // ---- K1: scatter_counts --------------------------------------------------
 // counts.flat[idx[i]] += cnt[i] (or += 1 when cnt is null); idx is int32,
@@ -141,31 +139,6 @@ struct FlatRecords {
   }
 };
 
-// the split upload: bytes 0-1 the little-endian slot, byte 2 the ring
-// column; K7's rule for the row (slot 0xFFFF the dump row) and its error
-// (a row past the dump row or a column past the ring); an invalid
-// record then adds nothing, as the reference's apply_kernel_split adds
-// its 0 to the dump row
-struct SplitRecords {
-  const uint8_t* sc;
-  int32_t ring;
-  int32_t dump_row;
-  static constexpr int32_t kErr = kErrSplitCell;
-
-  __device__ __forceinline__ int64_t load(int64_t i) const {
-    const uint8_t* r = sc + 3 * i;
-    return (int64_t)((uint32_t)__ldg(r) | ((uint32_t)__ldg(r + 1) << 8) |
-                     ((uint32_t)__ldg(r + 2) << 16));
-  }
-  __device__ __forceinline__ int decode(int64_t v, int32_t& row, int32_t& col) const {
-    const uint32_t slot = (uint32_t)v & 0xFFFFu;
-    col = (int32_t)((uint32_t)v >> 16);
-    row = slot == kInvalidSlotU16 ? dump_row : (int32_t)slot;
-    if (row > dump_row || col >= ring) return -1;
-    return slot == kInvalidSlotU16 ? 0 : 1;
-  }
-};
-
 struct CountPlan {
   int32_t chunk;   // records a block (a multiple of 4 x kCountThreads, < 2^16)
   int32_t groups;  // 16-byte groups of the histogram (8 rows each)
@@ -248,6 +221,9 @@ __global__ void __launch_bounds__(kCountThreads)
   count_records(counts, ring, rec, n, plan, err);
 }
 
+// the split upload's records (SplitRecords); slot 0xFFFF decodes to 0
+// and adds nothing, as the reference's apply_kernel_split adds its 0 to
+// the dump row
 __global__ void __launch_bounds__(kCountThreads)
     split_counts_kernel(int32_t* __restrict__ counts, int32_t ring, SplitRecords rec, int64_t n,
                         CountPlan plan, int32_t* __restrict__ err) {
@@ -275,30 +251,24 @@ int launch_count_records(void (*kernel)(int32_t*, int32_t, Rec, int64_t, CountPl
 }
 
 // ---- K7: split_cells -----------------------------------------------------
-// The per-record upload of 3 bytes a record, (B, 3) uint8: bytes 0-1 the
-// little-endian slot id, byte 2 the ring column; slot 0xFFFF is an
-// invalid record and goes to the dump row. cells[i] = row * ring + col,
-// the int32 flat cell that scatter_counts / scatter_lanes take. A slot
-// past the dump row or a column past the ring writes cell -1 (which the
-// scatter then skips and reports too) and sets kErrSplitCell.
+// The per-record upload of 3 bytes a record (window_common.cuh
+// SplitRecords): cells[i] = row * ring + col, the int32 flat cell, slot
+// 0xFFFF at the dump row. A slot past the dump row or a column past the
+// ring writes cell -1 and sets kErrSplitCell. Every kernel that reads the
+// upload decodes it where it loads a record (scatter_split_counts,
+// scatter_lanes' and bucket_records' split forms), so no path launches
+// this one: it is the decode alone, for a shuffle registered through the
+// exchange SPI, which takes flat cells.
 // Bound: bytes — 3 read and 4 written a record. Design: one thread per
 // record reads its three bytes (records are 3-byte aligned, so no wider
 // load); the writes coalesce.
-__global__ void split_cells_kernel(const uint8_t* __restrict__ sc, int64_t n, int32_t ring,
-                                   int32_t dump_row, int32_t* __restrict__ cells,
+__global__ void split_cells_kernel(const SplitRecords rec, int64_t n, int32_t* __restrict__ cells,
                                    int32_t* __restrict__ err) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const uint8_t* rec = sc + 3 * i;
-    const uint32_t slot = (uint32_t)rec[0] | ((uint32_t)rec[1] << 8);
-    const int32_t col = rec[2];
-    const int32_t row = slot == kInvalidSlotU16 ? dump_row : (int32_t)slot;
-    if (row > dump_row || col >= ring) {
-      atomicOr(err, kErrSplitCell);
-      cells[i] = -1;
-      continue;
-    }
-    cells[i] = row * ring + col;
+    const int32_t c = rec.cell(rec.load(i));
+    if (c < 0) atomicOr(err, kErrSplitCell);
+    cells[i] = c;
   }
 }
 
@@ -391,8 +361,8 @@ int fk_scatter_split_counts(int32_t* counts, int64_t rows, int32_t ring, const u
 int fk_split_cells(const uint8_t* sc, int64_t n, int32_t ring, int32_t dump_row, int32_t* cells,
                    int32_t* err, void* stream) {
   if (n > 0) {
-    split_cells_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(sc, n, ring, dump_row,
-                                                                          cells, err);
+    split_cells_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        SplitRecords{sc, ring, dump_row}, n, cells, err);
   }
   return (int)cudaGetLastError();
 }

@@ -46,8 +46,31 @@ def _lib() -> ctypes.CDLL:
     return wk.load_library("element_kernels", _SIGNATURES, "ek_error_string")
 
 
-_SEGMENT_LANES = wk.LeanEntry(_lib, "ek_segment_lanes", "segment_lanes", 14,
+_SEGMENT_LANES = wk.LeanEntry(_lib, "ek_segment_lanes", "segment_lanes", 15,
                               "ek_error_string")
+
+# csrc/element_kernels.cu's staging (the tests read it from the source):
+# the floats of a warp's stage, split between the segments it takes at
+# once
+SEGMENT_STAGE = 512
+# a warp a segment where the drain's mean segment is longer than this many
+# elements (its stage then folds for longer than the next one takes to
+# arrive), else 8 lanes a segment, four a warp sharing the add chain's
+# instructions; a long mean (job E2's prefixes of thousands) or a short one
+# (job E's 10,000 windows of up to 100 elements) decides it
+SEGMENT_WARP_MEAN = 256
+
+
+def segment_group(n_seg: int, n_elem: int, cols: int) -> int:
+    """Lanes of the kernel's group a segment: 8 for short segments, 32
+    (a warp) for long ones or for rows too wide for a group's share of a
+    stage. Raises for rows too wide for a warp's."""
+    if cols > SEGMENT_STAGE:
+        raise ValueError(f"segment_lanes takes at most {SEGMENT_STAGE} lane "
+                         f"columns in all, got {cols}")
+    if cols > SEGMENT_STAGE // 4 or n_elem > SEGMENT_WARP_MEAN * n_seg:
+        return 32
+    return 8
 
 
 def _check(offsets: torch.Tensor, sums: torch.Tensor, maxs: torch.Tensor,
@@ -88,11 +111,15 @@ def segment_lanes(offsets: torch.Tensor, sums: torch.Tensor,
     out_m = buf.as_strided((n_seg, mw), (mw, 1), a)
     out_n = buf.as_strided((n_seg, nw), (nw, 1), b)
     counts = buf[c:].view(torch.int32)
+    if n_elem >= 2 ** 31:
+        raise ValueError(f"segment_lanes takes fewer than 2^31 elements, got "
+                         f"{n_elem}")
+    group = segment_group(n_seg, n_elem, sw + mw + nw)
     err, stream = wk.launch_context(index)
     _SEGMENT_LANES(stream, offsets.data_ptr(), n_seg, n_elem, sums.data_ptr(),
                    sw, maxs.data_ptr(), mw, mins.data_ptr(), nw,
                    out_s.data_ptr(), out_m.data_ptr(), out_n.data_ptr(),
-                   counts.data_ptr(), err)
+                   counts.data_ptr(), err, group)
     return out_s, out_m, out_n, counts
 
 

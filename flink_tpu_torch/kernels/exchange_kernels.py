@@ -7,7 +7,9 @@ version each, with the same signature.
   rebased to its owner's block, in arrival order within a bucket, with
   the overflow per destination; ``bucket_records_into`` is the same
   launch writing each bucket straight into its owner's receive row
-  (the exchange on blocks of one device, with no copy).
+  (the exchange on blocks of one device, with no copy). Both take the
+  records as flat cells or as the split upload's 3 bytes, decoded in the
+  same launch by ``split_cells``' rule.
 - ``hash_keys`` (X2): the splitmix64 key mix that routes keys to key
   shards, bit-identical to ``records.hash_keys_numpy``.
 
@@ -43,7 +45,7 @@ def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
     return wk.LeanEntry(_lib, fn, name, n_words, "xk_error_string")
 
 
-_BUCKET_RECORDS = _entry("xk_bucket_records", "bucket_records", 16)
+_BUCKET_RECORDS = _entry("xk_bucket_records", "bucket_records", 17)
 _HASH_KEYS = _entry("xk_hash_keys", "hash_keys", 3)
 # csrc/window_common.cuh kTile: the records of a bucketing tile
 BUCKET_TILE = 1024
@@ -60,15 +62,23 @@ def bucket_work_words(tiles: int, n_dest: int) -> int:
 
 # -- X1 ------------------------------------------------------------------------
 
+def bucket_cell_dtype(cells: torch.Tensor) -> torch.dtype:
+    """The dtype of the bucketed cells of ``cells``: int32 for the split
+    upload's bytes, else the cells' own."""
+    return torch.int32 if cells.dtype is torch.uint8 else cells.dtype
+
+
 def _check_bucket(cells, payload, n_dest, capacity, spd, ring):
     """One pass of ``bucket_records``' checks: the CUDA device index (or
     None for CPU tensors, after the checks that raise) and C."""
-    index = wk.fast_index((cells, torch.int64 if cells.dtype is torch.int64
-                           else torch.int32, 1))
+    split = cells.dtype is torch.uint8
+    dtype, ndim = ((torch.uint8, 2) if split else
+                   (torch.int64 if cells.dtype is torch.int64
+                    else torch.int32, 1))
+    index = wk.fast_index((cells, dtype, ndim))
     if index is None:
-        wk.check_tensor(cells, "cells", torch.int64
-                        if cells.dtype is torch.int64 else torch.int32, 1)
-    B = cells.numel()
+        wk.check_tensor(cells, "cells", dtype, ndim)
+    B = cells.shape[0]
     C = 0
     if payload is not None:
         if payload.dim() != 2 or payload.shape[0] != B \
@@ -84,6 +94,12 @@ def _check_bucket(cells, payload, n_dest, capacity, spd, ring):
         raise ValueError("capacity, spd and ring must be >= 1")
     if capacity >= 2 ** 31:
         raise ValueError("bucket_records: a bucket of 2^31 records or more")
+    if split and (cells.shape[1] != 3 or ring > 256
+                  or n_dest * spd >= wk.INVALID_SLOT_U16):
+        raise ValueError(
+            f"a split upload is (B, 3) bytes over a ring of at most 256 "
+            f"columns with n_dest * spd below 0xFFFF, got "
+            f"{tuple(cells.shape)}, ring {ring}, {n_dest} x {spd} slots")
     if index is None or (payload is not None
                          and payload.get_device() != index):
         if not wk.on_cuda("bucket_records", cells, payload):
@@ -94,16 +110,19 @@ def _check_bucket(cells, payload, n_dest, capacity, spd, ring):
 
 def _launch_bucket(index, cells, payload, C, n_dest, capacity, spd, ring,
                    out_cells, out_payload, valid, overflow, dstride):
-    _, stream = wk.launch_context(index)
-    need = bucket_work_words(max(1, -(-cells.numel() // BUCKET_TILE)), n_dest)
+    err, stream = wk.launch_context(index)
+    B = cells.shape[0]
+    need = bucket_work_words(max(1, -(-B // BUCKET_TILE)), n_dest)
     work, (words,) = wk.clean_workspace("bucket_records", index, stream,
                                         (need,), int)
     try:
-        _BUCKET_RECORDS(stream, cells.data_ptr(), cells.element_size(),
-                        payload.data_ptr() if C else 0, cells.numel(), C,
+        _BUCKET_RECORDS(stream, cells.data_ptr(),
+                        3 if cells.dtype is torch.uint8
+                        else cells.element_size(),
+                        payload.data_ptr() if C else 0, B, C,
                         int(n_dest), int(capacity), int(ring), int(spd), work,
                         words, out_cells, out_payload if C else 0, valid,
-                        overflow.data_ptr(), int(dstride))
+                        overflow.data_ptr(), int(dstride), err)
     except RuntimeError:
         wk.drop_workspace("bucket_records", index, stream)
         raise
@@ -117,12 +136,18 @@ def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
 
     ``cells`` is ``(B,)`` int32 (int64 once the mesh's cells reach
     2^31), each ``slot * ring + col`` over the mesh's global slots; a cell outside ``[0, n_dest * spd * ring)``
-    (``-1``) is an invalid record and goes nowhere. ``payload`` is ``(B,
+    (``-1``) is an invalid record and goes nowhere. ``cells`` may instead
+    be the split upload's ``(B, 3)`` uint8 bytes, decoded in the same
+    launch as ``split_cells(cells, ring, n_dest * spd)`` decodes them:
+    slot 0xFFFF and slot ``n_dest * spd`` go nowhere, a slot past that or
+    a column past the ring raises as ``split_cells`` does (the kernel sets
+    its bit in ``error_word``), and the bucketed cells are int32.
+    ``payload`` is ``(B,
     C)`` of a 4-byte dtype (the records' lifted lanes) or None. Record i
     goes to block ``d = slot // spd`` at the next free position of its
     bucket, in arrival order, as the cell ``(slot - d * spd) * ring +
-    col`` of d's block. Returns ``(cells (n_dest, capacity) of the
-    input's dtype, payload
+    col`` of d's block. Returns ``(cells (n_dest, capacity) of
+    ``bucket_cell_dtype(cells)``, payload
     (n_dest, capacity, C) or None, valid (n_dest, capacity) bool, overflow
     (n_dest,) int32)``: positions past a bucket's records hold cell -1, a
     zero payload and valid False; ``overflow[d] = max(count_d - capacity,
@@ -132,7 +157,8 @@ def bucket_records(cells: torch.Tensor, payload: Optional[torch.Tensor],
         return bucket_records_plain(cells, payload, n_dest, capacity, spd,
                                     ring)
     dev = cells.device
-    out_cells = torch.empty((n_dest, capacity), dtype=cells.dtype, device=dev)
+    out_cells = torch.empty((n_dest, capacity), dtype=bucket_cell_dtype(cells),
+                            device=dev)
     out_payload = (torch.empty((n_dest, capacity, C), dtype=payload.dtype,
                                device=dev) if payload is not None else None)
     valid = torch.empty((n_dest, capacity), dtype=torch.bool, device=dev)
@@ -159,7 +185,8 @@ def bucket_records_into(cells: torch.Tensor, payload: Optional[torch.Tensor],
     index, C = _check_bucket(cells, payload, n_dest, capacity, spd, ring)
     r_cells, r_payload, r_valid = recv
     n_src = r_cells.shape[1] if r_cells.dim() == 3 else 0
-    if (r_cells.dtype != cells.dtype or r_valid.dtype != torch.bool
+    if (r_cells.dtype != bucket_cell_dtype(cells)
+            or r_valid.dtype != torch.bool
             or tuple(r_cells.shape) != (n_dest, n_src, capacity)
             or tuple(r_valid.shape) != (n_dest, n_src, capacity)
             or (payload is None) != (r_payload is None)
@@ -168,8 +195,9 @@ def bucket_records_into(cells: torch.Tensor, payload: Optional[torch.Tensor],
                 or tuple(r_payload.shape) != (n_dest, n_src, capacity, C)))
             or not all(t.is_contiguous() for t in recv if t is not None)):
         raise ValueError(
-            "recv must be contiguous (n_dest, n_src, capacity) cells and "
-            "valid (and payload (..., C)) of the records' dtypes")
+            "recv must be contiguous (n_dest, n_src, capacity) cells of the "
+            "bucketed cells' dtype and valid (and payload (..., C)) of the "
+            "records' dtypes")
     if not 0 <= j < n_src:
         raise ValueError(f"source block {j} outside 0..{n_src - 1}")
     if index is None:
@@ -200,6 +228,8 @@ def bucket_records_into_plain(cells, payload, n_dest, capacity, spd, ring,
 
 
 def bucket_records_plain(cells, payload, n_dest, capacity, spd, ring):
+    if cells.dtype is torch.uint8:
+        cells = wk.split_cells_plain(cells, ring, n_dest * spd)
     dev = cells.device
     B = cells.numel()
     c = cells.long()

@@ -7,7 +7,9 @@ the same signature.
   row-major order and pack them for the host, with each selected
   cell's raw lane values beside.
 - ``scatter_lanes`` (L2): fold a batch of records into the count lane
-  and the f32 sum/max/min lanes, each cell's records in record order.
+  and the f32 sum/max/min lanes, each cell's records in record order;
+  the records come as flat cells or as the split upload's 3 bytes,
+  decoded in the same launches by ``split_cells``' rule.
 - ``scatter_pair_lanes`` (L3): fold host-combined ``[pair, count, sum
   lanes...]`` rows into the count and sum lanes.
 
@@ -66,7 +68,7 @@ def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
 
 
 _FIRE_PACK = _entry("lk_fire_pack", "fire_pack", 29)
-_SCATTER_LANES = _entry("lk_scatter_lanes", "scatter_lanes", 25)
+_SCATTER_LANES = _entry("lk_scatter_lanes", "scatter_lanes", 27)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -411,7 +413,8 @@ def _workspace(dev: torch.device, stream: int, ints: int) -> torch.Tensor:
 def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
                   maxs: Optional[torch.Tensor], mins: Optional[torch.Tensor],
                   idx: torch.Tensor, s: torch.Tensor, mx: torch.Tensor,
-                  mn: torch.Tensor, skip_negative: bool = False) -> None:
+                  mn: torch.Tensor, skip_negative: bool = False,
+                  dump_row: Optional[int] = None) -> None:
     """Fold records into the pane state, in place: for record i at flat
     cell ``idx[i]`` (``row * ring + column``), the count adds 1, each sum
     lane adds ``s[i]`` (a cell's records in record order), each max lane
@@ -421,20 +424,31 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     int32, or int64 for a state of 2^31 cells or more
     (``_scatter_lanes_by_rows``). An index outside the state raises (the kernel skips it and reports it through
     ``error_word``) — except, with ``skip_negative``, a negative index,
-    which is an invalid record and touches nothing."""
+    which is an invalid record and touches nothing.
+
+    ``idx`` may instead be the split upload's ``(B, 3)`` uint8 bytes
+    (``window_kernels.split_cells``' form) with its ``dump_row``, decoded
+    in the same launch by ``split_cells``' rule: exactly
+    ``scatter_lanes(..., split_cells(idx, ring, dump_row), ...)``, a slot
+    or column outside the state raising as ``split_cells`` does, with no
+    cell array and no ``split_cells`` launch."""
     if idx.dtype is torch.int64:
         _check_lanes(counts, sums, maxs, mins)
         wk.check_tensor(idx, "idx", torch.int64, 1)
         return _scatter_lanes_by_rows(counts, sums, maxs, mins, idx, s, mx,
                                       mn, skip_negative)
+    split = idx.dtype is torch.uint8
     index = wk.fast_index((counts, torch.int32, 2), (sums, torch.float32, 3),
                           (maxs, torch.float32, 3), (mins, torch.float32, 3),
-                          (idx, torch.int32, 1), (s, torch.float32, 2),
+                          (idx, torch.uint8, 2) if split
+                          else (idx, torch.int32, 1), (s, torch.float32, 2),
                           (mx, torch.float32, 2), (mn, torch.float32, 2))
     _check_lanes(counts, sums, maxs, mins, index is not None)
-    if index is None:
+    if split:
+        _check_split(counts, idx, dump_row, index is None)
+    elif index is None:
         wk.check_tensor(idx, "idx", torch.int32, 1)
-    B = idx.numel()
+    B = idx.shape[0]
     for name, t, lane in (("s", s, sums), ("mx", mx, maxs), ("mn", mn, mins)):
         if index is None:
             wk.check_tensor(t, name, torch.float32, 2)
@@ -444,6 +458,8 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
     if index is None:
         if not wk.on_cuda("scatter_lanes", counts, sums, maxs, mins, idx, s,
                           mx, mn):
+            if split:
+                idx = wk.split_cells_plain(idx, counts.shape[1], dump_row)
             return scatter_lanes_plain(counts, sums, maxs, mins, idx, s, mx,
                                        mn, skip_negative)
         index = counts.get_device()
@@ -461,8 +477,27 @@ def scatter_lanes(counts: torch.Tensor, sums: Optional[torch.Tensor],
                    idx.data_ptr(), s.data_ptr(), mx.data_ptr(), mn.data_ptr(),
                    B, int(bool(skip_negative)), plan.passes, plan.digit_bits,
                    plan.tiles, plan.fold_blocks, base, plan.zero_ints, k0, v0,
-                   k1, v1, err)
+                   k1, v1, err, counts.shape[1] if split else 0,
+                   int(dump_row) if split else 0)
     return None
+
+
+def _check_split(counts: torch.Tensor, idx: torch.Tensor,
+                 dump_row: Optional[int], full: bool) -> None:
+    """The split form's own checks (``full``: the tensor's dtype, rank and
+    layout too): ``(B, 3)`` bytes and a dump row below the state's rows
+    and 0xFFFF, over a ring of at most 256 columns."""
+    if full:
+        wk.check_tensor(idx, "idx", torch.uint8, 2)
+    if idx.shape[1] != 3:
+        raise ValueError(f"a split upload is (B, 3) bytes, got "
+                         f"{tuple(idx.shape)}")
+    rows, ring = counts.shape
+    if dump_row is None or not 1 <= ring <= 256 \
+            or not 0 <= dump_row < min(rows, wk.INVALID_SLOT_U16):
+        raise ValueError(f"a split upload needs ring <= 256 and a dump_row "
+                         f"below the rows and 0xFFFF, got ring {ring}, "
+                         f"dump_row {dump_row}, rows {rows}")
 
 
 # cells of the state block one launch addresses with int32 cells (an

@@ -24,8 +24,9 @@ the ring 256 columns, else a flat index, int32 below
 ``CELL_INDEX_LIMIT`` cells and int64 past it (as the reference packs
 them). Count only, ``scatter_split_counts`` decodes the 3 bytes and
 counts them in one launch (``scatter_counts`` takes a flat index); with
-lanes, ``split_cells`` decodes them, ``lift_masked`` lifts the fields on
-the device and ``scatter_lanes`` folds them in.
+lanes, ``lift_masked`` lifts the fields on the device and
+``scatter_lanes`` decodes the 3 bytes where it reads them and folds the
+records in.
 
 A watermark advance fires every window it completes (over a stashed
 native-lane batch, inside its fused step). With ``.top(n)``:
@@ -78,8 +79,9 @@ by key, as the reference's ``_build_sharded_kernels`` is: the pane state is
 one block of ``rows_per_device`` rows per device of the plan, each
 block's key slots a contiguous range of the global slots. A batch takes
 the per-record path with global cells (3 bytes a record while the global
-slot fits uint16 and the ring 256 columns, decoded by ``split_cells``),
-split on the host so that no exchange bucket overflows
+slot fits uint16 and the ring 256 columns, decoded by ``bucket_records``
+where it reads them, or by ``split_cells`` for a registered shuffle that
+takes flat cells), split on the host so that no exchange bucket overflows
 (``_split_for_exchange``); source block j is records ``[j L, (j + 1)
 L)`` of the padded chunk. Each source block's records are lifted,
 bucketed by owner with ``bucket_records`` and exchanged
@@ -111,7 +113,7 @@ from flink_tpu_torch import native_codec as nc
 from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.config import PipelineOptions
 from flink_tpu_torch.device import on_device, resolve_device
-from flink_tpu_torch.exchange.spi import get_shuffle
+from flink_tpu_torch.exchange.spi import get_shuffle, takes_split_bytes
 from flink_tpu_torch.kernels import devgen_kernels as dk
 from flink_tpu_torch.kernels import fused_kernels as fk
 from flink_tpu_torch.kernels import lane_kernels as lk
@@ -190,8 +192,8 @@ def split_encode(slots: np.ndarray, cols: np.ndarray,
                  valid: np.ndarray) -> np.ndarray:
     """The split upload's host half: (B,) slots + (B,) ring columns →
     (B, 3) uint8, bytes 0-1 the little-endian slot id and byte 2 the
-    column, with slot 0xFFFF marking an invalid row (``split_cells``
-    decodes it on the device)."""
+    column, with slot 0xFFFF marking an invalid row (the device's
+    kernels decode it by ``split_cells``' rule)."""
     n = len(slots)
     rec = np.empty(n, _SPLIT_RECORD)
     rec["slot"] = (slots if np.all(valid)
@@ -1155,15 +1157,6 @@ class WindowOperator:
         return (np.int32 if rows * self.plan.ring < CELL_INDEX_LIMIT
                 else np.int64)
 
-    def _cells_on_device(self, cells_h: torch.Tensor) -> torch.Tensor:
-        """Staged cells as flat indices on the device: a flat
-        upload as it is, a split upload's (B, 3) bytes through
-        ``split_cells``."""
-        cells = cells_h.to(self.device, non_blocking=True)
-        if cells.dtype == torch.uint8:
-            return wk.split_cells(cells, self.plan.ring, self.layout.slots)
-        return cells
-
     def _apply_cells(self, idx: np.ndarray, cnt: Optional[np.ndarray]) -> None:
         """Count-lane cells: flat indices (``scatter_counts``), or a split
         upload's (B, 3) bytes, per record with no counts
@@ -1189,22 +1182,26 @@ class WindowOperator:
     def _apply_records(self, idx: np.ndarray,
                        fields: Dict[str, np.ndarray]) -> None:
         """Per-record lanes: upload the cells (flat indices or a
-        split upload's bytes) and the fields the aggregate reads, lift
-        them on the device, ``scatter_lanes``."""
+        split upload's bytes, which ``scatter_lanes`` decodes in its own
+        launch) and the fields the aggregate reads, lift them on the
+        device, ``scatter_lanes``."""
         if len(idx) == 0:
             return
         t0 = time.perf_counter()
         idx_h = staged(idx, self.device)
         fields_h = {k: staged(v, self.device) for k, v in fields.items()}
         with self.timer.span("apply"):
-            idx_d = self._cells_on_device(idx_h)
+            idx_d = idx_h.to(self.device, non_blocking=True)
             data = {k: v.to(self.device, non_blocking=True)
                     for k, v in fields_h.items()}
             ones = torch.ones(len(idx), dtype=torch.bool, device=self.device)
             s, mx, mn = self.agg.lift_masked(data, ones)
             st = self.state
             lk.scatter_lanes(st.counts, st.sums, st.maxs, st.mins, idx_d,
-                             s.contiguous(), mx.contiguous(), mn.contiguous())
+                             s.contiguous(), mx.contiguous(), mn.contiguous(),
+                             dump_row=(self.layout.slots
+                                       if idx_d.dtype == torch.uint8
+                                       else None))
         self._note_dispatch()
         self.prof["pb_dispatch"] += time.perf_counter() - t0
 
@@ -1258,11 +1255,13 @@ class WindowOperator:
     def _dispatch_sharded(self, pk: np.ndarray,
                           fields: Dict[str, np.ndarray]) -> torch.Tensor:
         """One padded chunk: each source block's cells uploaded to its
-        device (as 3 bytes a record while the split upload holds, decoded
-        by ``split_cells`` with the row past every block as the invalid
-        one), its fields lifted there, then the exchange and each block's
-        fold of what it received. Returns the chunk's overflow total (a
-        device scalar on the home device)."""
+        device (as 3 bytes a record while the split upload holds, with
+        the row past every block as the invalid one: the built-in
+        shuffles' ``bucket_records`` decodes them where it reads them, a
+        registered shuffle gets them decoded by ``split_cells``), its
+        fields lifted there, then the exchange and each block's fold of
+        what it received. Returns the chunk's overflow total (a device
+        scalar on the home device)."""
         devs, n = self._devices, len(self._devices)
         ring, spd = self.plan.ring, self.layout.slots
         L = len(pk) // n
@@ -1271,6 +1270,7 @@ class WindowOperator:
         widths = (lay.sum_width, lay.max_width, lay.min_width)
         lanes = sum(widths)
         split = self._split_upload
+        flat_only = not takes_split_bytes(self._shuffle)
         cells, payload = [], []
         with self.timer.span("apply"):
             for j, dev in enumerate(devs):
@@ -1281,8 +1281,9 @@ class WindowOperator:
                         sc = split_encode(np.where(ok, blk // ring, 0),
                                           np.where(ok, blk % ring,
                                                    0).astype(np.uint8), ok)
-                        cells.append(wk.split_cells(
-                            small_upload(sc, dev), ring, n * spd))
+                        sc_d = small_upload(sc, dev)
+                        cells.append(wk.split_cells(sc_d, ring, n * spd)
+                                     if flat_only else sc_d)
                     else:
                         cells.append(small_upload(blk, dev))
                     if not lanes:

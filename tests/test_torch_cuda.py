@@ -1631,6 +1631,117 @@ def test_split_cells(dev, ring):
         wk.error_word(dev).zero_()
 
 
+def _split_records(rng, n, ring, rows, dump_row):
+    from flink_tpu_torch.ops.window import split_encode
+
+    slots = np.where(rng.random(n) < 0.2, rng.integers(0, 3, n),
+                     rng.integers(0, rows, n))
+    slots[1] = dump_row
+    valid = rng.random(n) > 0.05
+    valid[2] = False
+    return split_encode(slots, rng.integers(0, ring, n).astype(np.uint8),
+                        valid)
+
+
+@pytest.mark.parametrize("ring", [1, 32, 256])
+def test_split_scatter_lanes_matches_its_plain_version(dev, ring):
+    """scatter_lanes' split form (the 3 bytes decoded in its own
+    launches) against its plain version on the CPU, bit for bit (slot
+    0xFFFF and the dump row's own slot fold into the dump row), and
+    against the kernel on split_cells' cells; a slot past the dump row or
+    a column past the ring sets split_cells' bit and the rest folds."""
+    from flink_tpu_torch.kernels import lane_kernels as lk
+
+    rng = np.random.default_rng(ring + 1)
+    rows, B = 4097, 300_000
+    dump_row = rows - 1
+    state = _lane_state(rng, rows, ring, 0, ring - 1, 1, 1, 1)
+    sc = _split_records(rng, B, ring, rows, dump_row)
+    v = (rng.random(B) * 1e3).astype(np.float32)
+    v[:4] = [np.nan, -0.0, 0.0, np.inf]
+    x, xc = _t(v[:, None], dev), torch.from_numpy(v[:, None].copy())
+    wk.reset_launch_counts()
+    got = [_t(a, dev) for a in state]
+    lk.scatter_lanes(*got, _t(sc, dev), x, x, x, dump_row=dump_row)
+    assert wk.LAUNCHES["scatter_lanes"] == 1 and wk.LAUNCHES["split_cells"] == 0
+    flat = [_t(a, dev) for a in state]
+    lk.scatter_lanes(*flat, wk.split_cells(_t(sc, dev), ring, dump_row), x, x, x)
+    cpu = [torch.from_numpy(a.copy()) for a in state]
+    lk.scatter_lanes(*cpu, torch.from_numpy(sc), xc, xc, xc, dump_row=dump_row)
+    torch.cuda.synchronize()
+    wk.check_errors(dev)
+    for a, b, c in zip(got, flat, cpu):
+        assert _same_bits(a, b) and _same_bits(a, c)
+    bad = sc.copy()
+    bad[5, :2] = np.array([dump_row + 1], np.uint16).view(np.uint8)
+    if ring < 256:
+        bad[9, 2] = ring
+    ok = np.ones(B, bool)
+    ok[[5, 9] if ring < 256 else [5]] = False
+    got = [_t(a, dev) for a in state]
+    try:
+        lk.scatter_lanes(*got, _t(bad, dev), x, x, x, dump_row=dump_row)
+        with pytest.raises(IndexError, match="split_cells"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+    cpu = [torch.from_numpy(a.copy()) for a in state]
+    lk.scatter_lanes(*cpu, torch.from_numpy(sc[ok]),
+                     *[torch.from_numpy(v[ok, None].copy())] * 3,
+                     dump_row=dump_row)
+    for a, c in zip(got, cpu):
+        assert _same_bits(a, c)
+
+
+@pytest.mark.parametrize("C", [0, 3])
+def test_bucket_records_split_form_matches_its_plain_version(dev, C):
+    """bucket_records' split form (and bucket_records_into's) against its
+    plain version, bit for bit: slot 0xFFFF and slot n_dest * spd go
+    nowhere, int32 cells out, overflow at a small capacity; a slot past
+    that row sets split_cells' bit in the device's error word and the
+    record goes nowhere."""
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+
+    rng = np.random.default_rng(40 + C)
+    n_dest, spd, ring, B = 4, 8192, 32, (1 << 18) + 5
+    sc = _split_records(rng, B, ring, n_dest * spd + 1, n_dest * spd)
+    payload = _t(rng.random((B, C)).astype(np.float32), dev) if C else None
+    for cap in (B, 4096):
+        args = (_t(sc, dev), payload, n_dest, cap, spd, ring)
+        got = xk.bucket_records(*args)
+        want = xk.bucket_records_plain(*args)
+        assert got[0].dtype == torch.int32
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert (int(got[3].sum()) > 0) == (cap == 4096)
+    n_src = 2
+    recv = tuple(None if t is None else torch.full(
+        (n_dest, n_src) + t.shape[1:], 5, dtype=t.dtype, device=dev)
+        for t in got[:3])
+    plain = tuple(None if t is None else t.clone() for t in recv)
+    over = xk.bucket_records_into(*args, recv, 1)
+    over_p = xk.bucket_records_into_plain(*args, plain, 1)
+    assert torch.equal(over, over_p)
+    for a, b in zip(recv, plain):
+        assert (a is None and b is None) or torch.equal(a, b)
+    bad = sc.copy()
+    bad[7, :2] = np.array([n_dest * spd + 1], np.uint16).view(np.uint8)
+    ok = np.ones(B, bool)
+    ok[7] = False
+    try:
+        got = xk.bucket_records(_t(bad, dev), payload, n_dest, B, spd, ring)
+        with pytest.raises(IndexError, match="split_cells"):
+            wk.check_errors(dev)
+    finally:
+        wk.error_word(dev).zero_()
+    flat = wk.split_cells_plain(torch.from_numpy(sc), ring, n_dest * spd)
+    flat[7] = -1
+    want = xk.bucket_records_plain(_t(flat.numpy(), dev), payload, n_dest, B,
+                                   spd, ring)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
 @pytest.mark.parametrize("agg_name,purge", [("count", True), ("lanes", True),
                                             ("lanes", False)])
 def test_count_window_on_the_card_matches_the_cpu(dev, agg_name, purge):
@@ -1670,7 +1781,8 @@ def test_count_window_on_the_card_matches_the_cpu(dev, agg_name, purge):
 
 def test_split_upload_on_the_card_matches_the_cpu(dev):
     """Per-record lanes into 32,769 x 32 state: the card takes the split
-    upload (split_cells), and its rows equal the CPU's."""
+    upload (decoded inside scatter_lanes, no split_cells launch), and its
+    rows equal the CPU's."""
     from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
     from flink_tpu_torch.ops import aggregates as ta
     from flink_tpu_torch.ops.window import WindowOperator
@@ -1697,7 +1809,8 @@ def test_split_upload_on_the_card_matches_the_cpu(dev):
     for a, b in zip(*outs):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    assert wk.LAUNCHES["split_cells"] == 4
+    assert wk.LAUNCHES["split_cells"] == 0
+    assert wk.LAUNCHES["scatter_lanes"] == 4
 
 
 # -- top-n over lanes (window_lanes, topn_select_lanes) -------------------------
@@ -2088,6 +2201,72 @@ def test_segment_lanes_edge_values(dev):
     assert float(got[1][3, 0]) == np.inf and float(got[2][3, 0]) == -np.inf
 
 
+@pytest.mark.parametrize("group", [8, 32])
+def test_segment_lanes_at_job_e_shape(dev, group, monkeypatch):
+    """Job E's fire (~10,000 segments of 1 to 100 elements, a sum and a
+    max lane) and job E2's (a few hundred prefixes of 1,000 to 6,000), in
+    both group forms of the kernel (8 lanes a segment and a warp a
+    segment, forced through SEGMENT_WARP_MEAN): every output bit for bit
+    against the plain version on the card."""
+    from flink_tpu_torch.kernels import element_kernels as ek
+
+    monkeypatch.setattr(ek, "SEGMENT_WARP_MEAN", 1 << 30 if group == 8 else 0)
+    rng = np.random.default_rng(60 + group)
+    for lengths, widths in ((np.minimum(rng.integers(1, 160, 10_000), 100),
+                             (1, 1, 0)),
+                            (rng.integers(1, 7, 300) * 1000, (1, 0, 1))):
+        offsets, lanes = _segment_case(rng, lengths, widths)
+        assert ek.segment_group(len(lengths), int(offsets[-1]),
+                                sum(widths)) == group
+        args = [_t(offsets, dev)] + [_t(x, dev) for x in lanes]
+        got = ek.segment_lanes(*args)
+        plain = ek.segment_lanes_plain(*args)
+        torch.cuda.synchronize()
+        wk.check_errors(dev)
+        for a, b in zip(got, plain):
+            assert _exact_bits(a, b)
+
+
+@pytest.mark.parametrize("group", [8, 32])
+def test_segment_lanes_several_nans_in_one_segment(dev, group, monkeypatch):
+    """Segments holding several NaNs of both signs with payloads, among
+    infinities and signed zeros, long enough to span chunks and phases:
+    bit for bit against the plain version; the max keeps the segment's
+    last NaN, the min its first, and the sum is a NaN."""
+    from flink_tpu_torch.kernels import element_kernels as ek
+
+    monkeypatch.setattr(ek, "SEGMENT_WARP_MEAN", 1 << 30 if group == 8 else 0)
+    rng = np.random.default_rng(70 + group)
+    lengths = np.array([3, 40, 700, 5, 1, 2000, 64])
+    e = int(lengths.sum())
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    x = (rng.standard_normal((e, 2)) * 10).astype(np.float32)
+    b = x.view(np.uint32)
+    plants = {0: [0x7FC00011, 0xFFC00022], 1: [0xFFC00003, 0x7FC00004,
+                                                0xFFC00005],
+              2: [0x7F800001, 0xFFC00777, 0x7FC00100], 5: [0xFFC00031,
+                                                          0x7FC00032]}
+    for w, vals in plants.items():
+        pos = offsets[w] + np.linspace(1, lengths[w] - 1, len(vals)).astype(int)
+        b[pos, :] = np.array(vals, np.uint32)[:, None]
+        first, last = vals[0], vals[-1]
+        plants[w] = (first, last)
+    b[offsets[3]:offsets[4], 0] = 0x80000000
+    b[offsets[6]:offsets[6] + 8, 1] = [0x7F800000, 0xFF800000, 0, 0x80000000] * 2
+    xt = _t(x, dev)
+    args = (_t(offsets, dev), xt, xt, xt)
+    got = ek.segment_lanes(*args)
+    plain = ek.segment_lanes_plain(*args)
+    torch.cuda.synchronize()
+    for g, p in zip(got, plain):
+        assert _exact_bits(g, p)
+    mx = got[1].cpu().view(torch.int32).numpy().view(np.uint32)
+    mn = got[2].cpu().view(torch.int32).numpy().view(np.uint32)
+    for w, (first, last) in plants.items():
+        assert (mx[w] == last).all() and (mn[w] == first).all()
+        assert torch.isnan(got[0][w]).all()
+
+
 def test_segment_lanes_bad_offsets_set_the_error_word(dev):
     from flink_tpu_torch.kernels import element_kernels as ek
 
@@ -2322,8 +2501,10 @@ def test_sharded_operator_on_the_card_matches_the_cpu(dev):
                                                rtol=1e-5)
                 else:
                     np.testing.assert_array_equal(outs[1][k], outs[0][k])
+        # the split upload's bytes decoded inside bucket_records
         assert all(wk.LAUNCHES[k] > 0 for k in ("bucket_records",
-                                                "split_cells", "ring_columns"))
+                                                "ring_columns"))
+        assert wk.LAUNCHES["split_cells"] == 0
         assert ops[1].exchange_overflow == 0
 
 

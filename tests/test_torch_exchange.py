@@ -12,8 +12,13 @@ straight into the owners' receive rows) against the reference's
 ``bucket_by_destination`` + ``all_to_all_records`` under ``shard_map``
 on 1 and 3 devices, ``topn_candidates``' plain version against
 ``lax.top_k`` on the masked grid at k = 1, 3 and the rows, and the two
-kernels' launch plans read against the CUDA sources. Everything here is
-integer work or copies: results must be equal exactly."""
+kernels' launch plans read against the CUDA sources. The split upload's
+form of ``bucket_records`` (3 bytes a record, decoded in its launch)
+against ``split_cells`` then the flat form and against the reference's
+``apply_shard_split`` routing; the exchange receives int32 cells from
+it, and a shuffle registered through the SPI still receives flat cells.
+Everything here is integer work or copies: results must be equal
+exactly."""
 import functools
 import os
 import re
@@ -30,6 +35,7 @@ from flink_tpu.exchange.keyby import (
 from flink_tpu.parallel.mesh import AXIS
 from flink_tpu.parallel.mesh import make_mesh_plan as jax_mesh_plan
 from flink_tpu.records import hash_keys_device as jax_hash_keys_device
+from flink_tpu.ops.window import split_decode as jax_split_decode
 from flink_tpu.records import hash_keys_numpy as jax_hash_keys_numpy
 from flink_tpu.utils.jaxcompat import shard_map
 from flink_tpu_torch import records
@@ -37,6 +43,9 @@ from flink_tpu_torch.exchange import keyby, spi
 from flink_tpu_torch.kernels import exchange_kernels as ek
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
+from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+from flink_tpu_torch.ops import aggregates as ta
+from flink_tpu_torch.ops.window import WindowOperator, split_encode
 from flink_tpu_torch.parallel.mesh import (
     HybridMeshPlan, make_hybrid_mesh_plan, make_mesh_plan)
 from test_torch_threads import capped_torch_threads  # noqa: F401
@@ -539,6 +548,187 @@ def test_bucket_records_into_is_the_buckets_transposed():
         ek.bucket_records_into(cells, None, n, L, spd, ring, recv, 0)
     with pytest.raises(ValueError, match="source block"):
         ek.bucket_records_into(cells, pay, n, L, spd, ring, recv, 2)
+
+
+# -- the split upload's form of bucket_records ----------------------------------------
+
+def split_case(seed, n, n_dest=3, spd=20, ring=4):
+    """A source block's records as the split upload's bytes with ~10 %
+    invalid (slot 0xFFFF), some on the row past every block (slot n_dest
+    * spd) and a hot slot, its lifted lanes, and the global slots and
+    columns they encode."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, n_dest * spd, n)
+    slots = np.where(rng.random(n) < 0.2, slots[0], slots)
+    slots[rng.random(n) < 0.05] = n_dest * spd
+    slots[1] = n_dest * spd
+    cols = rng.integers(0, ring, n).astype(np.uint8)
+    valid = rng.random(n) > 0.1
+    valid[:3] = [True, True, False]
+    sc = split_encode(slots, cols, valid)
+    assert (sc[:, :2].view(np.uint16) == 0xFFFF).any()
+    assert (sc[:, :2].view(np.uint16) == n_dest * spd).any()
+    return sc, rng.random((n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_lanes,capacity", [(True, 64), (False, 64),
+                                                 (True, 7)])
+def test_bucket_records_split_form_is_the_decoded_form(with_lanes, capacity):
+    """The split form's plain version, and ``bucket_records_into``'s, equal
+    ``split_cells`` (the row past every block as the dump row) then the
+    flat form, bit for bit: int32 cells, slot 0xFFFF and slot n_dest * spd
+    going nowhere, overflow counted alike."""
+    n_dest, spd, ring = 3, 20, 4
+    sc, lanes = split_case(3, 64, n_dest, spd, ring)
+    sc_t = torch.from_numpy(sc)
+    pay = torch.from_numpy(lanes) if with_lanes else None
+    flat = wk.split_cells_plain(sc_t, ring, n_dest * spd)
+    got = ek.bucket_records(sc_t, pay, n_dest, capacity, spd, ring)
+    want = ek.bucket_records(flat, pay, n_dest, capacity, spd, ring)
+    assert got[0].dtype == torch.int32 == ek.bucket_cell_dtype(sc_t)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert int(got[2].sum()) < len(sc)   # the invalid and dump-row records
+    recv = tuple(None if t is None else torch.full(
+        (n_dest, 2) + t.shape[1:], 5, dtype=t.dtype) for t in got[:3])
+    over = ek.bucket_records_into(sc_t, pay, n_dest, capacity, spd, ring,
+                                  recv, 1)
+    assert torch.equal(over, want[3])
+    for r, b in zip(recv, want[:3]):
+        if r is not None:
+            assert torch.equal(r[:, 1], b)
+            assert torch.equal(r[:, 0], torch.full_like(r[:, 0], 5))
+
+
+def test_bucket_records_split_form_matches_apply_shard_split():
+    """Against the reference's routing of a split upload
+    (``apply_shard_split``: the decode to packed cells, -1 for slot
+    0xFFFF, then ``apply_shard``'s destination and rebase over
+    ``bucket_by_destination``): the same records in the same bucket
+    positions; slot n_dest * spd goes nowhere in both."""
+    n_dest, spd, ring, capacity = 3, 20, 4, 40
+    sc, lanes = split_case(4, 64, n_dest, spd, ring)
+    slot, col = (np.asarray(a) for a in jax_split_decode(jnp.asarray(sc)))
+    packed = np.where(slot == 0xFFFF, -1, slot.astype(np.int32) * ring
+                      + col.astype(np.int32)).astype(np.int32)
+    valid = packed >= 0
+    dest = np.where(valid, (np.maximum(packed, 0) // ring) // spd, 0)
+    ref, ref_valid, ref_over = bucket_by_destination(
+        jnp.asarray(dest, jnp.int32), jnp.asarray(valid),
+        {"__sp__": jnp.asarray(packed),
+         **{f"x{i}": jnp.asarray(lanes[:, i]) for i in range(3)}},
+        n_dest=n_dest, capacity=capacity)
+    got_cells, got_lanes, got_valid, got_over = ek.bucket_records(
+        torch.from_numpy(sc), torch.from_numpy(lanes), n_dest, capacity, spd,
+        ring)
+    rv = np.asarray(ref_valid)
+    np.testing.assert_array_equal(got_valid.numpy(), rv)
+    np.testing.assert_array_equal(got_over.numpy(), np.asarray(ref_over))
+    sp = np.asarray(ref["__sp__"])
+    owner = np.arange(n_dest)[:, None]
+    rebased = (sp // ring - owner * spd) * ring + sp % ring
+    np.testing.assert_array_equal(got_cells.numpy(), np.where(rv, rebased, -1))
+    ref_lanes = np.stack([np.asarray(ref[f"x{i}"]) for i in range(3)], -1)
+    np.testing.assert_array_equal(got_lanes.numpy(),
+                                  np.where(rv[..., None], ref_lanes, 0))
+
+
+def test_bucket_records_split_form_refusals():
+    """A slot past the row beyond every block, or a column past the ring,
+    raises naming ``split_cells``; a split upload over 0xFFFF or more
+    global slots, a ring past 256 columns or records not 3 bytes wide is
+    refused."""
+    n_dest, spd, ring = 3, 20, 4
+    for slots, cols in (([1, n_dest * spd + 1], [0, 1]), ([1, 2], [0, ring])):
+        bad = torch.from_numpy(split_encode(np.array(slots),
+                                            np.array(cols, np.uint8),
+                                            np.ones(2, bool)))
+        with pytest.raises(IndexError, match="split_cells"):
+            ek.bucket_records(bad, None, n_dest, 8, spd, ring)
+    sc = torch.from_numpy(split_case(5, 16)[0])
+    for args in ((3, 8, 0xFFFF // 3 + 1, 4), (3, 8, 20, 257)):
+        with pytest.raises(ValueError, match="split upload"):
+            ek.bucket_records(sc, None, *args)
+    with pytest.raises(ValueError, match="split upload"):
+        ek.bucket_records(torch.zeros((4, 2), dtype=torch.uint8), None, 3, 8,
+                          20, 4)
+
+
+def test_one_device_exchange_receives_int32_cells_from_split_bytes():
+    """``keyby_exchange`` over blocks of one device fed the split upload's
+    bytes receives int32 flat cells: what the exchange of the decoded
+    cells receives, with the same bytes counted."""
+    n, L, spd, ring = 3, 40, 20, 4
+    parts = [split_case(10 + j, L, n, spd, ring) for j in range(n)]
+    sc = [torch.from_numpy(p[0]) for p in parts]
+    pay = [torch.from_numpy(p[1]) for p in parts]
+    devs = [torch.device("cpu")] * n
+    got = keyby.keyby_exchange(sc, pay, devices=devs, capacity=L, spd=spd,
+                               ring=ring)
+    want = keyby.keyby_exchange(
+        [wk.split_cells_plain(c, ring, n * spd) for c in sc], pay,
+        devices=devs, capacity=L, spd=spd, ring=ring)
+    assert got[2] == want[2]
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[0], want[0]):
+        assert a[0].dtype == torch.int32
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    ring_got = spi.ring_shuffle(sc, pay, devices=devs, capacity=L, spd=spd,
+                                ring=ring)
+    for a, b in zip(ring_got[0], want[0]):
+        assert a[0].dtype == torch.int32
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_registered_shuffle_receives_flat_cells(monkeypatch):
+    """A shuffle registered through the SPI still receives each source
+    block's flat int32 cells (the operator decodes a split upload for it
+    with ``split_cells``), while the built-in shuffle's bucketing takes
+    the bytes themselves; both give the same rows."""
+    seen, bucketed = [], []
+
+    def flat_spy(cells, payload, **kw):
+        seen.extend((c.dtype, c.dim()) for c in cells)
+        return spi.all_to_all_shuffle(cells, payload, **kw)
+
+    into = ek.bucket_records_into
+
+    def into_spy(cells, *args):
+        bucketed.append(cells.dtype)
+        return into(cells, *args)
+
+    monkeypatch.setattr(ek, "bucket_records_into", into_spy)
+    spi.register_shuffle("flat-spy", flat_spy)
+    try:
+        rows = []
+        for impl in ("all-to-all", "flat-spy"):
+            op = WindowOperator(
+                TumblingEventTimeWindows.of(1000),
+                ta.multi(ta.count(), ta.max_of("v")), num_shards=SHARDS,
+                slots_per_shard=SLOTS, device="cpu",
+                mesh_plan=make_mesh_plan(SHARDS, SLOTS, ["cpu"] * 4),
+                exchange_impl=impl)
+            assert op._split_upload
+            rng = np.random.default_rng(8)
+            out = []
+            for i in range(3):
+                keys = rng.integers(0, 60, 200)
+                ts = i * 1000 + rng.integers(0, 1000, 200)
+                op.process_batch(keys, ts, {"v": rng.random(200).astype(
+                    np.float32)})
+                out.append(dict(op.advance_watermark(i * 1000 + 999)))
+            rows.append(out)
+    finally:
+        spi._IMPLS.pop("flat-spy")
+    assert seen and all(s == (torch.int32, 1) for s in seen)
+    assert torch.uint8 in bucketed and torch.int32 in bucketed
+    for a, b in zip(*rows):
+        assert list(a) == list(b) and len(a["key"]) > 0
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
 
 
 # -- topn_candidates' plain version against lax.top_k ------------------------------

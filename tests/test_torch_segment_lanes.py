@@ -22,6 +22,9 @@ two frameworks give a NaN from ``maximum`` different bits, so a NaN leaf
 there is compared as a NaN. Besides, the plain version must
 equal a float32 loop over each window in element order, bit for bit:
 the arithmetic the CUDA kernel repeats."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -223,3 +226,27 @@ def test_cpu_tensors_take_the_plain_version():
     x = torch.ones((3, 1))
     ek.segment_lanes(torch.tensor([0, 3]), x, x, x)
     assert wk.LAUNCHES["segment_lanes"] == 0
+
+
+def test_launch_constants_match_the_source():
+    """The kernel's staging and argument block as the wrapper mirrors
+    them, and the wrapper's choice of lanes a segment: 8 where the drain's
+    mean segment is short (job E's windows of up to 100 elements), a warp
+    where it is long (job E2's prefixes) or where a row is too wide for a
+    group's share of a stage; rows too wide for a warp's share raise."""
+    path = os.path.join(os.path.dirname(ek.__file__), "csrc",
+                        "element_kernels.cu")
+    with open(path) as f:
+        src = f.read()
+    assert f"constexpr int kSegStage = {ek.SEGMENT_STAGE};" in src
+    sig = re.search(r"int ek_segment_lanes\((.*?)\) \{", src, re.S).group(1)
+    assert sig.count(",") == ek._SEGMENT_LANES._struct.size // 8 == 15
+    assert "if (group == 8)" in src and "if (group == 32)" in src
+    assert ek.segment_group(10_000, 750_000, 2) == 8
+    assert ek.segment_group(40, 80_000, 2) == 32
+    mean = ek.SEGMENT_WARP_MEAN
+    assert ek.segment_group(10, 10 * mean, 3) == 8
+    assert ek.segment_group(10, 10 * mean + 1, 3) == 32
+    assert ek.segment_group(10_000, 10_000, ek.SEGMENT_STAGE // 4 + 1) == 32
+    with pytest.raises(ValueError, match="lane columns"):
+        ek.segment_group(1, 1, ek.SEGMENT_STAGE + 1)

@@ -1,13 +1,18 @@
 """The split upload on the per-record path: 3 bytes a record (a
 little-endian uint16 slot id and a uint8 ring column, 0xFFFF for an
-invalid record) instead of an int32 flat cell, decoded on the device by
-``split_cells`` (with lanes) or inside ``scatter_split_counts`` (count
-only). The port's host encode and device decode against the
+invalid record) instead of an int32 flat cell, decoded on the device
+inside ``scatter_lanes`` (with lanes) or ``scatter_split_counts`` (count
+only), by ``split_cells``' rule. The port's host encode and device decode against the
 JAX package's ``split_encode`` / ``split_decode``, and the window
 operator's choice of upload against the reference's: the split while
 the state's rows (dump row included) fit below 0xFFFF and the ring fits
 256 columns, checked again after a ring growth. Rows must equal the
 reference's in order, exactly (count, max and min only)."""
+import functools
+import os
+import re
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,13 +23,16 @@ from flink_tpu.api.windowing import (
     TumblingEventTimeWindows as JaxTumbling,
 )
 from flink_tpu.ops import aggregates as ja
+from flink_tpu.ops import window as jw
 from flink_tpu.ops.window import WindowOperator as JaxWindowOperator
 from flink_tpu.ops.window import split_decode as jax_split_decode
 from flink_tpu.ops.window import split_encode as jax_split_encode
+from flink_tpu.state.keyed import PaneState as JaxPaneState
 from flink_tpu_torch.api.windowing import (
     SlidingEventTimeWindows,
     TumblingEventTimeWindows,
 )
+from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops import aggregates as ta
 from flink_tpu_torch.ops.window import WindowOperator, split_encode
@@ -46,11 +54,14 @@ def numpy_host_paths(monkeypatch):
 @pytest.fixture
 def split_calls(monkeypatch):
     """Records the (B, ring) of every split upload the port decodes on
-    the device: ``split_cells`` (lanes) and ``scatter_split_counts``
-    (count only, the decode inside the count)."""
+    the device: ``scatter_lanes``' split form (lanes) and
+    ``scatter_split_counts`` (count only), each decoding inside its own
+    launch, and ``split_cells`` (the decode alone, which neither path
+    calls)."""
     seen = []
     orig = wk.split_cells
     orig_count = wk.scatter_split_counts
+    orig_lanes = lk.scatter_lanes
 
     def spy(sc, ring, dump_row):
         seen.append((sc.shape[0], ring))
@@ -59,8 +70,15 @@ def split_calls(monkeypatch):
     def spy_count(counts, sc, dump_row):
         seen.append((sc.shape[0], counts.shape[1]))
         return orig_count(counts, sc, dump_row)
+
+    def spy_lanes(counts, *args, **kwargs):
+        idx = args[3]
+        if idx.dtype == torch.uint8:
+            seen.append((idx.shape[0], counts.shape[1]))
+        return orig_lanes(counts, *args, **kwargs)
     monkeypatch.setattr(wk, "split_cells", spy)
     monkeypatch.setattr(wk, "scatter_split_counts", spy_count)
+    monkeypatch.setattr(lk, "scatter_lanes", spy_lanes)
     return seen
 
 
@@ -104,6 +122,143 @@ def test_split_cells_refuses_cells_outside_the_state():
         wk.split_cells(torch.from_numpy(sc[:1]), 32, 4)
     with pytest.raises(ValueError):
         wk.split_cells(torch.from_numpy(sc), 512, 100)
+
+
+# -- scatter_lanes' split form ----------------------------------------------------
+
+SPLIT_AGGS = (ja.multi(ja.count(), ja.sum_of("a"), ja.max_of("a"),
+                       ja.min_of("b")),
+              ta.multi(ta.count(), ta.sum_of("a"), ta.max_of("a"),
+                       ta.min_of("b")))
+
+
+def split_lane_case(ring, rows=40, n=600):
+    """A split upload into (rows, ring) lanes whose last row is the dump
+    row: hot cells, invalid records (slot 0xFFFF), records on the dump
+    row's own slot, signed zeros and a NaN; the lanes start from a few
+    live values."""
+    rng = np.random.default_rng(ring)
+    dump_row = rows - 1
+    slots = np.where(rng.random(n) < 0.3, rng.integers(0, 4, n),
+                     rng.integers(0, rows, n))
+    cols = rng.integers(0, ring, n).astype(np.uint8)
+    valid = rng.random(n) > 0.1
+    sc = split_encode(slots, cols, valid)
+    a = (rng.standard_normal(n) * 50).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    a[:4] = [-0.0, 0.0, np.nan, 7.0]
+    b[4:7] = [0.0, -0.0, np.nan]
+    counts = rng.integers(0, 3, (rows, ring)).astype(np.int32)
+    sums = (rng.standard_normal((rows, ring, 1)) * 10).astype(np.float32)
+    maxs = np.full((rows, ring, 1), -np.inf, np.float32)
+    mins = np.full((rows, ring, 1), np.inf, np.float32)
+    return sc, dump_row, {"a": a, "b": b}, (counts, sums, maxs, mins)
+
+
+def port_lanes(state, sc, dump_row, data, composed):
+    """The port's state after one split upload: the split form, or
+    ``split_cells_plain`` then ``scatter_lanes_plain`` (``composed``)."""
+    st = [torch.from_numpy(x.copy()) for x in state]
+    s, mx, mn = SPLIT_AGGS[1].lift_masked(
+        {k: torch.from_numpy(v) for k, v in data.items()},
+        torch.ones(len(sc), dtype=torch.bool))
+    sc_t = torch.from_numpy(sc)
+    if composed:
+        lk.scatter_lanes_plain(*st, wk.split_cells_plain(
+            sc_t, st[0].shape[1], dump_row), s, mx, mn)
+    else:
+        lk.scatter_lanes(*st, sc_t, s, mx, mn, dump_row=dump_row)
+    return [x.numpy() for x in st]
+
+
+def bits(x):
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("ring", [1, 32, 256])
+def test_split_scatter_lanes_is_split_cells_then_scatter_lanes(ring):
+    """The split form's plain version equals the decode then the flat
+    scatter bit for bit, dump row included (slot 0xFFFF folds there)."""
+    sc, dump_row, data, state = split_lane_case(ring)
+    assert (sc[:, :2].view(np.uint16) == wk.INVALID_SLOT_U16).any()
+    assert (sc[:, :2].view(np.uint16) == dump_row).any()
+    got = port_lanes(state, sc, dump_row, data, composed=False)
+    want = port_lanes(state, sc, dump_row, data, composed=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(bits(g), bits(w))
+
+
+@pytest.mark.parametrize("ring", [1, 32, 256])
+def test_split_scatter_lanes_matches_apply_kernel_split(ring):
+    """Against the reference's ``apply_kernel_split`` (jitted, as its
+    operator runs it): counts, max and min exactly (NaN and signed zeros
+    included), each sum within 2 n 2^-24 of its terms' absolute sum, on
+    every row the records address. The dump row differs by design: the
+    reference masks its invalid records to the lanes' identities there,
+    while the port's one-card path never uploads them (its host drops
+    them) and its decode folds any that arrive into that row as
+    ``split_cells`` + ``scatter_lanes`` do."""
+    sc, dump_row, data, state = split_lane_case(ring)
+    jagg = SPLIT_AGGS[0]
+    apply = jax.jit(functools.partial(jw.apply_kernel_split, agg=jagg,
+                                      dump_row=dump_row))
+    ref = apply(JaxPaneState(*(jnp.asarray(x) for x in state[1:]),
+                             jnp.asarray(state[0])), jnp.asarray(sc),
+                {k: jnp.asarray(v) for k, v in data.items()})
+    got = port_lanes(state, sc, dump_row, data, composed=False)
+    want = [np.asarray(x) for x in (ref.counts, ref.sums, ref.maxs, ref.mins)]
+    live = slice(0, dump_row)
+    for g, w in ((got[0], want[0]), (got[2], want[2]), (got[3], want[3])):
+        np.testing.assert_array_equal(bits(g[live]), bits(w[live]))
+    slot = sc[:, :2].view(np.uint16)[:, 0].astype(np.int64)
+    cell = np.where(slot == wk.INVALID_SLOT_U16, dump_row, slot) * ring \
+        + sc[:, 2]
+    terms = np.abs(state[1].reshape(-1)).astype(np.float64)
+    n_terms = np.ones(terms.size)
+    a = np.nan_to_num(data["a"].astype(np.float64))
+    np.add.at(terms, cell, np.abs(a))
+    np.add.at(n_terms, cell, 1)
+    g = got[1].reshape(-1).astype(np.float64)
+    w = want[1].reshape(-1).astype(np.float64)
+    ok = (np.isnan(g) & np.isnan(w)) | (np.abs(g - w)
+                                        <= 2 * n_terms * 2.0 ** -24 * terms)
+    assert ok[:dump_row * ring].all()
+
+
+def test_split_scatter_lanes_refusals():
+    """A slot past the dump row or a column past the ring raises naming
+    ``split_cells``; a missing dump row, a ring past 256 columns or a
+    record not 3 bytes wide is refused."""
+    sc, dump_row, data, state = split_lane_case(32, rows=10, n=20)
+    for slots, cols in (([2, dump_row + 1], [0, 1]), ([2, 3], [0, 32])):
+        bad = split_encode(np.array(slots), np.array(cols, np.uint8),
+                           np.ones(2, bool))
+        with pytest.raises(IndexError, match="split_cells"):
+            port_lanes(state, bad, dump_row, {k: v[:2] for k, v in
+                                              data.items()}, composed=False)
+    st = [torch.from_numpy(x.copy()) for x in state]
+    x = torch.zeros((20, 1))
+    with pytest.raises(ValueError, match="dump_row"):
+        lk.scatter_lanes(*st, torch.from_numpy(sc), x, x, x)
+    with pytest.raises(ValueError, match="3"):
+        lk.scatter_lanes(*st, torch.zeros((20, 4), dtype=torch.uint8), x, x,
+                         x, dump_row=dump_row)
+    wide = [torch.zeros((10, 512) + t.shape[2:], dtype=t.dtype) for t in st]
+    with pytest.raises(ValueError, match="256"):
+        lk.scatter_lanes(*wide, torch.from_numpy(sc), x, x, x,
+                         dump_row=dump_row)
+
+
+def test_split_scatter_lanes_argument_block_matches_the_source():
+    """The lean entry's packed block: one word an argument of
+    ``lk_scatter_lanes`` (the stream beside it)."""
+    path = os.path.join(os.path.dirname(lk.__file__), "csrc",
+                        "lane_kernels.cu")
+    with open(path) as f:
+        src = f.read()
+    sig = re.search(r"int lk_scatter_lanes\((.*?)\) \{", src, re.S).group(1)
+    assert sig.count(",") == lk._SCATTER_LANES._struct.size // 8 == 27
+    assert "(int32_t)a[25], (int32_t)a[26], stream" in src
 
 
 AGGS = {"count": lambda m: m.count(),
