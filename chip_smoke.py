@@ -335,9 +335,9 @@ PROFILED_KERNELS = {
     "scatter_lanes": ("lanes_hist_kernel", "lanes_sort_kernel",
                       "lanes_fold_kernel"),
     "scatter_pair_lanes": ("pair_lanes_kernel", "pair_lanes_any_kernel"),
-    # the plain form; the fused step's header form (<true>) is its own
+    # the plain forms; the fused step's header forms (<true>) are its own
     "apply_pairs_u32": ("apply_pairs_u32_kernel<false>",),
-    "apply_pairs_u16": ("apply_pairs_u16_kernel",),
+    "apply_pairs_u16": ("apply_pairs_u16_kernel<false>",),
     "split_cells": ("split_cells_kernel",),
     "count_fire": ("count_fire_kernel",),
     # the register form (rings up to 64 columns) or the staged-tile form
@@ -386,8 +386,10 @@ CALL_KERNELS = {
     "ring_columns": ("ring_columns_kernel",),
     "fire_pack": ("fire_pack_kernel",),
     "scatter_lanes": ("lanes_hist_kernel",),
-    # the header form of the apply: its block 0 decodes the header
-    "fused_step": ("apply_pairs_u32_kernel<true>",),
+    # the header form of the apply, words or triples: its block 0
+    # decodes the header
+    "fused_step": ("apply_pairs_u32_kernel<true>",
+                   "apply_pairs_u16_kernel<true>"),
     "count_fire": ("count_fire_kernel",),
     "topn_select_lanes": ("lanes_select_kernel", "lanes_radix_all_kernel"),
     "bucket_records": ("bucket_records_kernel",),
@@ -2440,8 +2442,10 @@ def fused_kernel_cases(torch, np, dev, record):
     them): ``apply_pairs_u32`` (and on the words padded to 2^17, checked
     only);
     ``apply_pairs_u16`` on the same pairs with every 50th count raised
-    past 0xFFF; ``fused_step`` on the header + words upload with 1 and
-    with 11 window ends, the fire gate on and off. All exact."""
+    past 0xFFF, the real triples as the native lane launches them;
+    ``fused_step`` on the header + words upload with 1 and with 11
+    window ends, the fire gate on and off, and on the header + those
+    triples (the hot-key form). All exact."""
     from flink_tpu_torch.kernels import fused_kernels as fk
     from flink_tpu_torch.ops.window import preagg_encode_u16
 
@@ -2482,12 +2486,13 @@ def fused_kernel_cases(torch, np, dev, record):
               lambda c, b: fk.apply_pairs_u32(c, b, slots),
               lambda c, b: fk.apply_pairs_u32_plain(c, b, slots), words, cnts,
               12 * len(pairs), "flink_tpu/ops/window.py:190")
-    # F3: every 50th pair past 0xFFF, as a hot key's in the u16 form
+    # F3: every 50th pair past 0xFFF, as a hot key's, the real triples
     cnts_used = cnts.copy()
     cnts_used[::50] += 4095
-    triples = torch.from_numpy(preagg_encode_u16(pairs, cnts_used, cap)).to(dev)
+    triples = torch.from_numpy(preagg_encode_u16(
+        pairs, cnts_used, len(pairs))).to(dev)
     pair_case("apply_pairs_u16", fk.apply_pairs_u16, fk.apply_pairs_u16_plain,
-              triples, cnts_used, 6 * cap + 8 * len(pairs),
+              triples, cnts_used, 14 * len(pairs),
               "flink_tpu/ops/window.py:145")
 
     # F2: one upload of header + words (``upload``); the purge clears
@@ -2535,6 +2540,28 @@ def fused_kernel_cases(torch, np, dev, record):
             if n_ends == 11 and gate:
                 record("fused_step", "flink_tpu/ops/window.py:587", err, ms,
                        plain_ms, None, nbytes, nops, source="fused_kernels.cu")
+    # F2 in the triple form: the header of 11 ends + the hot triples
+    hdr = upload(11)[:fk.FUSED_HDR]
+    n = len(pairs)
+    t = torch.full((2 * ((6 * n + 3) // 4),), 0xFFFF, dtype=torch.uint16,
+                   device=dev)
+    t[:3 * n] = triples.reshape(-1)
+    tbuf = torch.cat([hdr, t.view(torch.int32)])
+    kw = dict(ppw=ppw, n=1, sel_cap=256, dump_row=slots, fire_gate=True,
+              fire_pad=16, form=fk.FORM_TRIPLES)
+    st = [base.clone(), base.clone()]
+    er = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+          for _ in range(2)]
+    fk.fused_step(st[0], er[0], tbuf, used, **kw)
+    fk.fused_step_plain(st[1], er[1], tbuf, used, **kw)
+    torch.cuda.synchronize()
+    err = max(max_err(st[0], st[1]), max_err(er[0][:-1], er[1][:-1]))
+    check(err == 0, f"fused_step (triples) differs from its plain version by "
+          f"{err}")
+    s1, r1 = base.clone(), er[0].clone()
+    cases["ends11_gate_on_triples"] = {
+        "fire_pad": 16, "max_abs_err": err, "rows_appended": int(er[0][0, 0]),
+        "ms": time_ms(torch, lambda: fk.fused_step(s1, r1, tbuf, used, **kw))}
     return {"fused_step_cases": cases,
             "fused_step_kernels_per_step": fk.FUSED_STEP_KERNELS,
             "native_lane_pairs": len(pairs)}
@@ -2638,10 +2665,74 @@ def q5_run_summary(rows, launches, res, wall, n_batches):
                                   for k, v in host.items()}}
 
 
+def run_q5_count_only(torch, np, cfg, label):
+    """Q5's count per auction without the top-n (sliding 10 s / 1 s,
+    ``key_by(auction).window(...).count()``) through ``env.execute()`` at
+    confs/bench_q5_host_fed.conf: an operator the fused step does not
+    take, so a hot key's pairs fold in by ``apply_pairs_u16`` at once.
+    (rows as (auction, window_end, count), launches, JobResult, wall s)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    parts = []
+    env = StreamExecutionEnvironment(conf)
+    (env.from_source(bid_stream(cfg),
+                     WatermarkStrategy.for_bounded_out_of_orderness(1_000))
+        .key_by("auction")
+        .window(SlidingEventTimeWindows.of(10_000, 1_000)).count()
+        .add_sink(FnSink(lambda b: parts.append(
+            {k: np.asarray(v).copy() for k, v in b.items()}))))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(int(a), int(w), int(c)) for p in parts
+            for a, w, c in zip(p["key"], p["window_end"], p["count"])]
+    return rows, dict(wk.LAUNCHES), res, wall
+
+
+def check_q5_counts(np, rows, cfg, label):
+    """Every (auction, window end) of the 10 s / 1 s windows with a bid,
+    once, with its bid count."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    parts = [bid_batch(cfg, 0, i) for i in range(cfg.n_batches)]
+    auction = np.concatenate([d["auction"] for d, _ in parts])
+    pane = np.concatenate([t for _, t in parts]) // 1000
+    n_a, n_p = cfg.num_active_auctions, int(pane.max()) + 1
+    per_pane = np.bincount(auction * n_p + pane,
+                           minlength=n_a * n_p).reshape(n_a, n_p)
+    cs = np.concatenate([np.zeros((n_a, 1), np.int64),
+                         np.cumsum(per_pane, axis=1)], axis=1)
+    ends = np.arange(1, n_p + 10)
+    win = (cs[:, np.minimum(ends, n_p)]
+           - cs[:, np.maximum(ends - 10, 0)])          # (auctions, ends)
+    a_ix, e_ix = np.nonzero(win)
+    expect = set(zip(a_ix.tolist(), (ends[e_ix] * 1000).tolist(),
+                     win[a_ix, e_ix].tolist()))
+    check(len(rows) == len(set(rows)), f"{label}: duplicate committed rows")
+    got = set(rows)
+    check(got == expect,
+          f"{label}: rows differ from the golden: {len(got - expect)} extra, "
+          f"{len(expect - got)} missing of {len(expect)}")
+
+
 def phase_q5(torch, np):
     """Q5 host-fed at full width through the native lane (16 batches),
-    then 4 batches each on the numpy lane and on hot-key bids, and a
-    profiled native-lane run; every run checked against the golden."""
+    then 4 batches each on the numpy lane and on hot-key bids (one fused
+    step a batch on the triples, no apply_pairs_u16), the hot bids through
+    a count-only window without top-n (apply_pairs_u16), and 4 logical
+    batches at pipeline.sub-batches 1 and 4 (Q5's bids and the hot
+    ones), and profiled runs; every run checked against its golden."""
     from flink_tpu_torch.kernels import fused_kernels as fk
     from flink_tpu_torch.nexmark.generator import NexmarkConfig
 
@@ -2662,20 +2753,46 @@ def phase_q5(torch, np):
         torch, np, side, "q5-host-fed-numpy-lane", numpy_lane=True)
     check(n_launches["scatter_counts"] > 0 and n_launches["fused_step"] == 0,
           f"the numpy lane's launches {n_launches}")
-    # 1,000 auctions, half the bids on 10 of them: ~5,000 bids a pane
+    # 1,000 auctions, half the bids on 10 of them: ~5,000 bids a pane, so
+    # pair counts past 0xFFF: the triples ride each batch's fused step
     hot = dataclasses.replace(side, num_active_auctions=1_000, hot_ratio=2)
     h_rows, h_launches, h_res, h_wall = run_q5_host_fed(torch, np, hot,
                                                         "q5-hot-keys")
-    check(h_launches["apply_pairs_u16"] > 0,
-          f"no apply_pairs_u16 launch on hot keys: {h_launches}")
+    check(h_launches["fused_step"] >= Q5_SIDE_BATCHES - 1
+          and h_launches["apply_pairs_u16"] == 0,
+          f"hot keys: one fused step a batch after the first and no "
+          f"apply_pairs_u16 expected: {h_launches}")
+    # the hot bids without the top-n: no fused step, apply_pairs_u16
+    c_rows, c_launches, c_res, c_wall = run_q5_count_only(
+        torch, np, hot, "q5-hot-keys-count-only")
+    check(c_launches["apply_pairs_u16"] > 0 and c_launches["fused_step"] == 0,
+          f"count-only hot keys: apply_pairs_u16 expected: {c_launches}")
+    # host-plane sub-batches: 4 logical batches at K = 1 and K = 4
+    sub = {}
+    for name, c in (("q5", side), ("hot_keys", hot)):
+        for k in (1, 4):
+            r = run_q5_host_fed(torch, np, c, f"q5-{name}-sub-batches-{k}",
+                                conf_extra={"pipeline.sub-batches": k})
+            check(r[2].metrics["exchange_overflow"] == 0
+                  and r[2].metrics["batches"] == k * Q5_SIDE_BATCHES,
+                  f"{name} at K = {k}: overflow or batches {r[2].metrics}")
+            sub[(name, k)] = r
     prof = profile_run(torch, lambda: run_q5_host_fed(
         torch, np, side, "q5-host-fed-profiled")[3])
     h_prof = profile_run(torch, lambda: run_q5_host_fed(
         torch, np, hot, "q5-hot-keys-profiled")[3])
+    c_prof = profile_run(torch, lambda: run_q5_count_only(
+        torch, np, hot, "q5-hot-keys-count-only-profiled")[3])
     # the goldens' numpy work comes after the timed runs
     check_q5_rows(np, rows, cfg, "Q5 native lane")
     check_q5_rows(np, n_rows, side, "Q5 numpy lane")
     check_q5_rows(np, h_rows, hot, "Q5 hot keys")
+    check_q5_counts(np, c_rows, hot, "Q5 hot keys, count only")
+    for (name, k), r in sub.items():
+        check_q5_rows(np, r[0], side if name == "q5" else hot,
+                      f"Q5 {name} at K = {k}")
+        check(by_window(r[0]) == by_window(sub[(name, 1)][0]),
+              f"Q5 {name} at K = {k}: rows differ from the K = 1 run's")
     out = {"phase": "q5", "conf": "confs/bench_q5_host_fed.conf",
            **q5_run_summary(rows, launches, res, wall, Q5_BATCHES),
            "fused_steps_per_batch": launches["fused_step"] / Q5_BATCHES,
@@ -2686,11 +2803,26 @@ def phase_q5(torch, np):
                         "hot_ratio": hot.hot_ratio,
                         **q5_run_summary(h_rows, h_launches, h_res, h_wall,
                                          Q5_SIDE_BATCHES)},
+           "hot_keys_count_only": {
+               "job": "key_by(auction).window(10 s / 1 s sliding).count()",
+               **q5_run_summary(c_rows, c_launches, c_res, c_wall,
+                                Q5_SIDE_BATCHES)},
+           "sub_batches": {
+               f"{name}_k{k}": {
+                   "sub_batches": k,
+                   "fused_steps": r[1]["fused_step"],
+                   "late_records": r[2].metrics["late_records"],
+                   "exchange_overflow": r[2].metrics["exchange_overflow"],
+                   **q5_run_summary(r[0], r[1], r[2], r[3], Q5_SIDE_BATCHES)}
+               for (name, k), r in sub.items()},
            "profiled": {"batches": Q5_SIDE_BATCHES, **prof},
            "hot_keys_profiled": {"batches": Q5_SIDE_BATCHES, **h_prof},
+           "hot_keys_count_only_profiled": {"batches": Q5_SIDE_BATCHES,
+                                            **c_prof},
            "card": card_line()}
     emit(out)
-    per_call = dict(h_prof["device_ms_per_call"])
+    per_call = dict(c_prof["device_ms_per_call"])
+    per_call.update(h_prof["device_ms_per_call"])
     per_call.update(prof["device_ms_per_call"])
     # the fused step's own kernels only: the profiler links each step's
     # launches to its range
@@ -2698,13 +2830,18 @@ def phase_q5(torch, np):
     check(ranged is not None
           and ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS,
           f"q5: fused_step kernels a step {ranged}")
+    h_ranged = h_prof["ranged_per_call"].get("fused_step")
+    check(h_ranged is not None
+          and h_ranged["kernels_per_call"] == fk.FUSED_STEP_KERNELS,
+          f"q5 hot keys: fused_step kernels a step {h_ranged}")
     # the profiler's name of the header form: one a step
-    check(prof["call_kernel_counts"]["fused_step"] == ranged["calls"],
-          f"q5: {CALL_KERNELS['fused_step']} launches "
-          f"{prof['call_kernel_counts']['fused_step']} for {ranged['calls']} "
-          "fused steps")
+    for p_, r_ in ((prof, ranged), (h_prof, h_ranged)):
+        check(p_["call_kernel_counts"]["fused_step"] == r_["calls"],
+              f"q5: {CALL_KERNELS['fused_step']} launches "
+              f"{p_['call_kernel_counts']['fused_step']} for {r_['calls']} "
+              "fused steps")
     per_call["fused_step"] = ranged["device_ms"]
-    return launches, n_launches, h_launches, per_call, rows
+    return launches, n_launches, h_launches, c_launches, per_call, rows
 
 
 def run_devgen_q5(torch, np, conf, cfg, label):
@@ -5069,6 +5206,287 @@ def split_segment_cases(torch, np, dev):
     return out
 
 
+HW_BASE_BATCHES = 8     # hot_wide: distinct 2^20-bid batches, replayed
+HW_TIMED = 50           # hot_wide: the batches timed (loop ms, host µs)
+HW_PROFILED = 6         # hot_wide: the batches under torch.profiler
+
+
+def hot_wide_cases(torch, np, dev):
+    """The native lane's hot-key and wide Q5 batches, parent and change
+    alike (the row reads which form its tree's fused step takes), at
+    confs/bench_q5_host_fed.conf's operator (sliding 10 s / 1 s count,
+    top-1, 128 x 256 slots, 1 s out of order):
+
+    - ``hot``: q5-hot-keys' bids (1,000 auctions, half the bids on 10 of
+      them, 2^20 a batch) at ring 32: a pair count past 0xFFF, so the
+      parent folds each batch in with ``apply_pairs_u16`` and fires in
+      the chunked path, the change in one ``fused_step`` on triples;
+    - ``wide``: Q5's bids (10,000 auctions, hot ratio 4) with the ring
+      grown to 64 after the first batch: a pair domain of 2^21, the same
+      split.
+
+    Each batch's ingest (``process_batch``) and its advance, the
+    watermark 1 s behind the batch's newest bid: HW_BASE_BATCHES distinct
+    batches replayed with their event time shifted, two of warm-up, then
+    HW_TIMED timed (loop ms: CUDA events around them, over the batches;
+    host µs a batch: the operator's pb_preagg + pb_dispatch + aw_dispatch;
+    bytes uploaded a batch, through the operator's upload helpers), then
+    HW_PROFILED under ``torch.profiler`` (device ms, kernels and copies a
+    batch). A CPU twin runs the same batches on the plain versions: the
+    rows drained after each stage and the final state must be equal.
+    Then ``apply_pairs_u16`` alone on a hot batch's triples, padded to
+    the power of two at or above them (the parent's upload) and the real
+    ones (the change's), beside ``index_add_``, and in a tree whose fused
+    step takes triples the fused step on them, all bit for bit against
+    the plain versions."""
+    from flink_tpu_torch import native_codec as nc
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_batch
+    from flink_tpu_torch.ops import window as pw
+    from flink_tpu_torch.ops.aggregates import count
+    from torch.profiler import ProfilerActivity, profile
+
+    triple_form = "form" in inspect.signature(fk.fused_step).parameters
+    out = {"triple_form": triple_form,
+           "fused_step_kernels": fk.FUSED_STEP_KERNELS}
+    hot = NexmarkConfig(batch_size=Q5_BATCH, n_batches=HW_BASE_BATCHES,
+                        events_per_ms=100, num_active_auctions=1_000,
+                        hot_ratio=2)
+    wide = dataclasses.replace(hot, num_active_auctions=10_000, hot_ratio=4)
+    span_ms = Q5_BATCH // 100
+
+    def batches(cfg):
+        base = [bid_batch(cfg, 0, i) for i in range(HW_BASE_BATCHES)]
+        rep = HW_BASE_BATCHES * span_ms
+
+        def get(j):
+            d, ts = base[j % HW_BASE_BATCHES]
+            return (np.asarray(d["auction"], np.int64),
+                    np.asarray(ts, np.int64) + (j // HW_BASE_BATCHES) * rep)
+        return get
+
+    def make(device):
+        return pw.WindowOperator(
+            SlidingEventTimeWindows.of(10_000, 1_000), count(),
+            num_shards=128, slots_per_shard=256,
+            max_out_of_orderness_ms=1_000, top_n=("count", 1), device=device)
+
+    def step(op, get, j, ring):
+        keys, ts = get(j)
+        op.process_batch(keys, ts, {})
+        op.advance_watermark(int(ts.max()) - 1_001)
+        if op.plan.ring < ring:
+            op._grow_ring(ring - 4, op._min_pane_seen, op._max_pane_seen)
+
+    def drained(op):
+        op.quiesce()
+        d = op.drain_ring()
+        return sorted(zip(*(np.asarray(d[k]).tolist()
+                            for k in ("key", "window_end", "count"))))
+
+    uploaded = [0]
+    staged0, slot0 = pw.staged, pw.PinnedStage.upload_slot
+
+    def staged_spy(arr, device):
+        uploaded[0] += np.asarray(arr).nbytes
+        return staged0(arr, device)
+
+    def slot_spy(self, i, lo, hi):
+        uploaded[0] += hi - lo
+        return slot0(self, i, lo, hi)
+
+    # a batch's pairs: the native lane's scan, or where it declines (the
+    # wide batch's 10,000 keys x 64 columns) the general path's C combine
+    scans = []
+    scan0, combine0 = nc.ingest_fused_scan_native, nc.preagg_combine_native
+
+    def scan_spy(*a, **k):
+        r = scan0(*a, **k)
+        if r is not None:
+            scans.append(("scan", r[0].npairs))
+        return r
+
+    def combine_spy(*a, **k):
+        r = combine0(*a, **k)
+        if r is not None:
+            scans.append(("combine", len(r[0])))
+        return r
+
+    HOST = ("pb_preagg", "pb_dispatch", "aw_dispatch")
+    for name, cfg, ring in (("hot", hot, 32), ("wide", wide, 64)):
+        get = batches(cfg)
+        op = make(dev)
+        rows = {}
+        for j in range(2):
+            step(op, get, j, ring)
+        rows["warmup"] = drained(op)
+        torch.cuda.synchronize()
+        wk.reset_launch_counts()
+        prof0 = dict(op.prof)
+        uploaded[0] = 0
+        scans.clear()
+        pw.staged, pw.PinnedStage.upload_slot = staged_spy, slot_spy
+        nc.ingest_fused_scan_native = scan_spy
+        nc.preagg_combine_native = combine_spy
+        try:
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            for j in range(2, 2 + HW_TIMED):
+                step(op, get, j, ring)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pw.staged, pw.PinnedStage.upload_slot = staged0, slot0
+            nc.ingest_fused_scan_native = scan0
+            nc.preagg_combine_native = combine0
+        launches = {k: v for k, v in wk.LAUNCHES.items() if v}
+        host = {k: (v - prof0.get(k, 0.0)) / HW_TIMED * 1e6
+                for k, v in op.prof.items()}
+        rows["timed"] = drained(op)
+        ends = len({w for _, w, _ in rows["timed"]}) / HW_TIMED
+        # the scan's pairs a batch (a batch with misses scans twice: the
+        # second continues the first's pairs), else the combine's
+        last = {}
+        for j, (how, npairs) in enumerate(scans):
+            last[how] = last.get(how, []) + [npairs]
+        pairs = max((sum(v) / HW_TIMED if k == "combine" else
+                     sum(v) / len(v)) for k, v in last.items()) if last else 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for j in range(2 + HW_TIMED, 2 + HW_TIMED + HW_PROFILED):
+                step(op, get, j, ring)
+            torch.cuda.synchronize()
+        rows["profiled"] = drained(op)
+        kern = {"ms": 0.0, "n": 0}
+        copies = {"ms": 0.0, "n": 0}
+        by_name = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0)
+            if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            acc = copies if e.key.startswith(("Memcpy", "Memset")) else kern
+            acc["ms"] += us / 1e3 / HW_PROFILED
+            acc["n"] += e.count / HW_PROFILED
+            by_name[e.key[:80]] = {"per_batch": e.count / HW_PROFILED,
+                                   "ms_per_batch": us / 1e3 / HW_PROFILED}
+        # the CPU twin: the same batches on the plain versions
+        twin = make("cpu")
+        twin_rows = {}
+        for stage, lo, hi in (("warmup", 0, 2), ("timed", 2, 2 + HW_TIMED),
+                              ("profiled", 2 + HW_TIMED,
+                               2 + HW_TIMED + HW_PROFILED)):
+            for j in range(lo, hi):
+                step(twin, get, j, ring)
+            twin_rows[stage] = drained(twin)
+        check(twin_rows == rows, f"hot_wide {name}: rows differ from the CPU "
+              "twin's")
+        check(torch.equal(op.state.counts.cpu(), twin.state.counts),
+              f"hot_wide {name}: state differs from the CPU twin's")
+        rows_n = op.layout.rows
+        live_cols = min(ring, 10 + int(round(ends)) - 1)
+        # the least bytes a batch: its pairs' triples uploaded, each
+        # pair's cell read and written, the fire's live columns and used
+        # mask read, one purged column written, the appended rows
+        nbytes = (6 * pairs + 8 * pairs + 4 * rows_n * live_cols + rows_n
+                  + 4 * rows_n + 12 * ends)
+        b_ms, by = bound_ms(nbytes, pairs + rows_n * live_cols)
+        out[name] = {
+            "auctions": cfg.num_active_auctions, "ring": op.plan.ring,
+            "pairs_per_batch": pairs, "ends_per_batch": ends,
+            "loop_ms": e0.elapsed_time(e1) / HW_TIMED,
+            "wall_ms": wall * 1e3 / HW_TIMED,
+            "pair_source": sorted(last),
+            "host_us": host,
+            "host_us_sum": sum(host.get(k, 0.0) for k in HOST),
+            "uploaded_bytes_per_batch": uploaded[0] / HW_TIMED,
+            "launches_per_batch": {k: v / HW_TIMED
+                                   for k, v in launches.items()},
+            "device_ms": kern["ms"], "kernels_per_batch": kern["n"],
+            "copy_ms": copies["ms"], "copies_per_batch": copies["n"],
+            "device_entries": by_name, "bound_ms": b_ms, "bound_by": by,
+            "rows": sum(len(v) for v in rows.values())}
+
+    # F3 alone on a hot batch's triples (first-seen order, as the scan
+    # records them), padded and real
+    rng = np.random.default_rng(SEED + 19)
+    keys, ts = batches(hot)(3)
+    slot_of = rng.permutation(128 * 256)[:hot.num_active_auctions]
+    cells = slot_of[keys] * 32 + (ts // 1000) % 32
+    uniq, first, cnt = np.unique(cells, return_index=True, return_counts=True)
+    order = np.argsort(first)
+    pairs, cnts = uniq[order], cnt[order]
+    check(cnts.max() >= 0xFFF, "hot_wide: the hot batch has no hot pair")
+    base = torch.from_numpy(_hot_state(np, rng, slot_of)).to(dev)
+    idx = torch.from_numpy(pairs.astype(np.int64)).to(dev)
+    add = torch.from_numpy(cnts.astype(np.int32)).to(dev)
+    lib = base.clone()
+    f3 = {"pairs": len(pairs), "max_count": int(cnts.max()),
+          "library": split_times(torch, lambda: lib.view(-1).index_add_(
+              0, idx, add)), "library_call": "index_add_"}
+    want = base.clone()
+    want.view(-1).index_add_(0, idx, add)
+    for form, cap in (("padded", 1 << max(len(pairs) - 1, 255).bit_length()),
+                      ("real", len(pairs))):
+        tri = torch.from_numpy(pw.preagg_encode_u16(pairs, cnts, cap)).to(dev)
+        a, b = base.clone(), base.clone()
+        fk.apply_pairs_u16(a, tri)
+        fk.apply_pairs_u16_plain(b, tri)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b) and torch.equal(a, want),
+              f"apply_pairs_u16 ({form}) differs from its plain version or "
+              "index_add_")
+        b_ms, by = bound_ms(6 * cap + 8 * len(pairs), cap)
+        f3[form] = {"triples": cap, "uploaded_bytes": 6 * cap,
+                    "bound_ms": b_ms, "bound_by": by,
+                    "kernel": split_times(torch, lambda: fk.apply_pairs_u16(
+                        a, tri))}
+    out["apply_pairs_u16_hot"] = f3
+    if triple_form:
+        n = len(pairs)
+        t = np.full(2 * ((6 * n + 3) // 4), 0xFFFF, np.uint16)
+        t[:3 * n] = pw.preagg_encode_u16(pairs, cnts, n).reshape(-1)
+        hdr = np.zeros(fk.FUSED_HDR, np.int32)
+        p_lo, p_hi = int(ts.min() // 1000), int(ts.max() // 1000)
+        hdr[:6] = np.array([p_lo, p_hi, p_lo], np.int64).view(np.int32)
+        deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+        deltas[:11] = np.arange(p_hi - 9, p_hi + 2) - p_lo
+        hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+        buf = torch.from_numpy(np.concatenate([hdr, t.view(np.int32)])).to(dev)
+        used = torch.zeros(base.shape[0], dtype=torch.bool, device=dev)
+        used[torch.from_numpy(slot_of).to(dev)] = True
+        kw = dict(ppw=10, n=1, sel_cap=256, dump_row=base.shape[0] - 1,
+                  fire_gate=True, fire_pad=16, form=fk.FORM_TRIPLES)
+        st = [base.clone() for _ in range(3)]
+        er = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+              for _ in range(3)]
+        fk.fused_step(st[0], er[0], buf, used, **kw)
+        fk.fused_step_plain(st[1], er[1], buf, used, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(st[0], st[1]) and torch.equal(er[0][:-1], er[1][:-1]),
+              "fused_step (triples, the hot batch) differs from its plain "
+              "version")
+        out["fused_step_triples_hot"] = {
+            "words": buf.numel(), "rows": int(er[0][0, 0]),
+            "kernel": split_times(torch, lambda: fk.fused_step(
+                st[2], er[2], buf, used, **kw))}
+    wk.check_errors(dev)
+    return out
+
+
+def _hot_state(np, rng, slot_of):
+    """A 32,769 x 32 count lane with the hot auctions' rows live over 21
+    panes (1,000 to 1,020), the hot batch's pairs' rows among them."""
+    counts = np.zeros((128 * 256 + 1, 32), np.int32)
+    for p in range(1000, 1021):
+        counts[slot_of, p % 32] = rng.poisson(500, len(slot_of))
+    return counts
+
+
 # --cases NAME[,NAME...]: kernel cases, parent and change in turns. A row
 # names the CUDA sources it needs (built alone) and its function (torch,
 # np, dev) -> dict, printed as one JSON line under the row's name; the
@@ -5089,6 +5507,7 @@ KERNEL_CASES = {
                         apply_threshold_cases),
     "split_segment": (("window_kernels", "lane_kernels", "exchange_kernels",
                        "element_kernels"), split_segment_cases),
+    "hot_wide": (("window_kernels", "fused_kernels"), hot_wide_cases),
 }
 
 
@@ -5511,7 +5930,7 @@ def main() -> int:
     try:
         phase_build()
         table = phase_kernels(torch, np)
-        (host_fed, numpy_lane, hot_keys, q5_per_call,
+        (host_fed, numpy_lane, hot_keys, count_only, q5_per_call,
          q5_rows) = phase_q5(torch, np)
         devgen, per_call = phase_q5_devgen(torch, np)
         wordcount, wc_per_call = phase_wordcount(torch, np)
@@ -5526,7 +5945,8 @@ def main() -> int:
         big = run_big_cells(torch, np)
         emit({"phase": "big_cells", **big, "card": card_line()})
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
-                 "q5_hot_keys": hot_keys, "q5_devgen": devgen,
+                 "q5_hot_keys": hot_keys, "q5_count_only": count_only,
+                 "q5_devgen": devgen,
                  "wordcount": wordcount, "bid_aggs_a": aggs["a"],
                  "bid_aggs_b": aggs["b"], "window_wordcount": window_wc,
                  "topn_lanes": topn_lanes, "changelog": changelog,
@@ -5537,14 +5957,15 @@ def main() -> int:
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
-        # lane, apply_pairs_u16 on its hot keys; apply_pairs_u32 and
+        # lane, apply_pairs_u16 on its hot keys without the top-n (with it
+        # they ride the fused step); apply_pairs_u32 and
         # fire_pack on WordCount; the two lane scatters on their
         # bid-aggregate job; count_fire on
         # WindowWordCount; the top-n lane kernels on job T's first run;
         # segment_lanes on job E; the key-sharded path's kernels on job M1
         own_path = {"scatter_counts": "q5_numpy_lane",
                     "fused_step": "q5_host_fed",
-                    "apply_pairs_u16": "q5_hot_keys",
+                    "apply_pairs_u16": "q5_count_only",
                     "apply_pairs_u32": "wordcount", "fire_pack": "wordcount",
                     "scatter_lanes": "bid_aggs_a",
                     "scatter_pair_lanes": "bid_aggs_b",

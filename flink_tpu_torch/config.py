@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Generic, Mapping, Optional, TypeVar
+from typing import Any, Callable, Dict, Generic, Mapping, Optional, TypeVar
 
 T = TypeVar("T")
 
@@ -24,19 +24,48 @@ class ConfigOption(Generic[T]):
     key: str
     default: T
     description: str = ""
+    # how a string value reads (a duration); else the default's type
+    parse: Optional[Callable[[str], T]] = None
 
     def __post_init__(self) -> None:
         _REGISTRY[self.key] = self
 
     def coerce(self, raw: Any) -> T:
-        """File values arrive as strings; the default's type decides."""
+        """File values arrive as strings; ``parse``, else the default's
+        type, decides."""
         if not isinstance(raw, str):
             return raw
+        if self.parse is not None:
+            return self.parse(raw)
         if isinstance(self.default, bool):
             return raw.strip().lower() in ("1", "true", "yes", "on")  # type: ignore[return-value]
         if isinstance(self.default, int):
             return int(raw)  # type: ignore[return-value]
         return raw.strip()  # type: ignore[return-value]
+
+
+def parse_duration_ms(raw: str) -> int:
+    """'10 s', '500ms', '1 min' style durations in milliseconds; a bare
+    number is milliseconds (the JAX package's reading of Flink's
+    TimeUtils)."""
+    raw = raw.strip().lower()
+    units = (("milliseconds", 1), ("seconds", 1000), ("minutes", 60_000),
+             ("hours", 3_600_000), ("days", 86_400_000), ("min", 60_000),
+             ("sec", 1000), ("ms", 1), ("s", 1000), ("h", 3_600_000),
+             ("d", 86_400_000))
+    # the longest suffix first, so "ms" is not read as "s"
+    for suffix, mult in units:
+        if raw.endswith(suffix):
+            return int(float(raw[:-len(suffix)].strip()) * mult)
+    return int(float(raw))
+
+
+def duration_option(key: str, default_ms: int,
+                    description: str = "") -> ConfigOption[int]:
+    return ConfigOption(key, default_ms, description, parse=parse_duration_ms)
+
+
+READINESS_VALUES = ("piggyback", "probe")
 
 
 class PipelineOptions:
@@ -48,13 +77,47 @@ class PipelineOptions:
         "pipeline.sub-batches", 1,
         "Sub-batch steps per logical batch: a device-made source chained "
         "into its window operator runs each logical batch as this many "
-        "steps, each with its own watermark advance and fires. Must "
-        "divide pipeline.microbatch-size. Host-fed sources take only 1 "
-        "(host-plane sub-batching is still to port).")
+        "steps, each with its own watermark advance and fires; a host-fed "
+        "batch is pushed as this many contiguous slices, each followed by "
+        "a watermark advance and its fires (the same records in the same "
+        "order, so the same committed rows). Must divide "
+        "pipeline.microbatch-size.")
     MAX_INFLIGHT_STEPS = ConfigOption(
         "pipeline.max-inflight-steps", 3,
         "Device steps (uploads + apply launches) allowed in flight "
-        "before ingest waits on the oldest one's CUDA event.")
+        "before ingest waits on the oldest one's CUDA event; scaled by "
+        "pipeline.sub-batches, so the depth in logical batches stays.")
+    READINESS = ConfigOption(
+        "pipeline.readiness", "piggyback",
+        "How the ingest throttle learns that an in-flight step completed, "
+        "both by the CUDA event recorded behind the step: 'piggyback' "
+        "blocks on it (Event.synchronize) and rate-matches after every "
+        "sub-batch; 'probe' polls it (Event.query) and rate-matches a "
+        "device-made chain at the last sub-batch of each logical batch "
+        "only. Committed rows are the same either way.")
+    AUTO_WATERMARK_INTERVAL = duration_option(
+        "pipeline.auto-watermark-interval", 200,
+        "Read and checked (a duration >= 0) as the JAX package declares "
+        "it; neither driver reads it further: the watermark clock "
+        "advances after every (sub-)batch.")
+    OBJECT_REUSE = ConfigOption(
+        "pipeline.object-reuse", True,
+        "Read as the JAX package declares it (ingest buffers reused "
+        "between steps); in both packages it changes nothing: the native "
+        "lane's pinned buffers are reused either way, and a step's "
+        "upload is the device's once it is queued.")
+    SOURCE_PREFETCH = ConfigOption(
+        "pipeline.source-prefetch", 2,
+        "Batches each source split pulls ahead on a feeder thread, so "
+        "record generation overlaps the loop's keying, upload and "
+        "dispatch. 0 pulls each batch on the loop thread.")
+    EMIT_DEFER_MS = duration_option(
+        "pipeline.emit-defer", -1,
+        "-1 (auto) or 0: a fired batch is delivered at the first loop "
+        "pass after its device-to-host copy has landed, the auto value's "
+        "meaning on a CPU host. A deferral above 0 times the JAX "
+        "package's drain thread and is refused: the port has no drain "
+        "thread.")
     FIRE_GATE = ConfigOption(
         "pipeline.fire-gate", True,
         "Fire-gated fused steps: a host-fed top-n batch's one-upload "
@@ -200,6 +263,29 @@ class Configuration:
                 f"pipeline.sub-batches ({k}) must divide "
                 f"pipeline.microbatch-size ({mb}): sub-batches are equal "
                 "slices of the logical batch")
+        readiness = str(self.get(PipelineOptions.READINESS)).strip().lower()
+        if readiness not in READINESS_VALUES:
+            raise ValueError(
+                f"pipeline.readiness must be 'piggyback' or 'probe', "
+                f"got {readiness!r}")
+        if int(self.get(PipelineOptions.AUTO_WATERMARK_INTERVAL)) < 0:
+            raise ValueError("pipeline.auto-watermark-interval must be a "
+                             "duration >= 0")
+        if int(self.get(PipelineOptions.SOURCE_PREFETCH)) < 0:
+            raise ValueError("pipeline.source-prefetch must be >= 0 "
+                             "(0 = no feeder thread)")
+        defer = int(self.get(PipelineOptions.EMIT_DEFER_MS))
+        if defer < -1:
+            raise ValueError(f"pipeline.emit-defer must be -1 (auto) or a "
+                             f"duration >= 0, got {defer} ms")
+        if defer > 0:
+            raise NotImplementedError(
+                f"pipeline.emit-defer={defer} ms: a deferral times the JAX "
+                "package's emit drain thread, which lets a fired batch age "
+                "before its fetch; the port delivers fires from the loop "
+                "thread as soon as their device-to-host copies have landed "
+                "(flink_tpu_torch/runtime/driver.py), so there is no fetch "
+                "to defer. Use -1 (auto) or 0")
         xcap = int(self.get(PipelineOptions.EXCHANGE_CAPACITY))
         if xcap < 0:
             raise ValueError(

@@ -5,7 +5,9 @@
 //
 // The host's fused ingest scan (flink_tpu_torch/native/codec.cc) combines a
 // batch per (slot, ring column) pair and packs each pair into one word.
-// These kernels fold such uploads into the int32 count lane:
+// These kernels fold such uploads into the int32 count lane (a pair
+// count of 0xFFF or more, or a pair domain past 20 bits, takes uint16
+// triples in place of the words):
 //
 // F1 apply_pairs_u32  replaces flink_tpu/ops/window.py:190
 //                     _apply_preagg_u32_core (via :172 apply_preagg_u32_kernel)
@@ -37,6 +39,10 @@ constexpr int32_t kMaxRing = 64;
 // fire reads for it (_END_SENTINEL)
 constexpr int32_t kDeltaSentinel = -(1 << 30);
 constexpr int64_t kEndSentinel = -(1LL << 62);
+// the form of the pairs behind the header: F1's u32 words or F3's uint16
+// triples (a launch argument; the header's words keep their meaning)
+constexpr int32_t kFormWords = 0;
+constexpr int32_t kFormTriples = 1;
 
 // ---- F1: apply_pairs_u32 --------------------------------------------------
 // word = pair << 12 | count, decoded with a logical shift; the padding
@@ -73,24 +79,36 @@ __device__ __forceinline__ void apply_pair_word(int32_t* __restrict__ counts, in
 
 // ---- F3: apply_pairs_u16 --------------------------------------------------
 // (P, 3) uint16 triples [pair lo16, pair hi16, count]: the form for a pair
-// count of 0xFFF or more. The pair decodes as an int32, so the padding
-// triple 0xFFFF/0xFFFF is -1 and skipped; a pair beyond the state
-// (row >= rows) is skipped as the reference's scatter drops it.
-// counts.flat[pair] += count. Bound: bytes — 6 bytes a triple plus one
-// read-modify-write per pair. Design: one thread per triple, atomicAdd.
-__global__ void apply_pairs_u16_kernel(int32_t* __restrict__ counts, int64_t n_cells,
-                                       const uint16_t* __restrict__ triples, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const uint16_t* t = triples + 3 * i;
-    const int32_t pair = (int32_t)((uint32_t)t[0] | ((uint32_t)t[1] << 16));
-    if (pair < 0 || (int64_t)pair >= n_cells) continue;
-    if (t[2] != 0) atomicAdd(&counts[pair], (int32_t)t[2]);
-  }
+// count of 0xFFF or more, or a pair domain past 20 bits. The pair decodes
+// as an int32, so a padding triple 0xFFFF/0xFFFF is -1 and skipped; a pair
+// beyond the state (row >= rows, the dump row included in the state) is
+// skipped as the reference's scatter drops it. counts.flat[pair] += count.
+// Bound: bytes — 6 bytes a triple plus one 4-byte read-modify-write per
+// pair; the scattered L2 adds set the time, as in F1. Design: the caller
+// passes the real triples only (the C finalize writes them, no padding); a
+// warp takes a chunk of 32 triples (192 bytes) by twelve 16-byte loads,
+// one a lane, into shared memory, so that its add instruction takes 32
+// consecutive triples, one a lane; a block is kWarps chunks, so the hot
+// Q5 batch's ~11k triples are ~45 blocks (a warp of 256 triples, eight
+// adds a lane, left only ~6 blocks and ran 2 x slower, PERF.md §6). The
+// triples before the first 16-byte boundary (0-7, a triple start meets
+// one within eight) and after the last whole chunk take scalar loads in
+// the first tile's block. The header form (F2's first launch in the
+// triple form) gives block 0 to the fused step's header decode.
+constexpr int kTripleChunk = 32;                         // triples a warp
+constexpr int kTripleVecs = kTripleChunk * 6 / 16;       // 16-byte loads a chunk
+static_assert(kTripleVecs <= 32, "a chunk is at most one load a lane");
+
+__device__ __forceinline__ void apply_triple(int32_t* __restrict__ counts, int64_t n_cells,
+                                             uint32_t lo, uint32_t hi, uint32_t cnt) {
+  const int32_t pair = (int32_t)(lo | (hi << 16));
+  if (pair < 0 || (int64_t)pair >= n_cells || cnt == 0) return;
+  atomicAdd(&counts[pair], (int32_t)cnt);
 }
 
 // ---- F2: fused_step ---------------------------------------------------------
-// One upload per batch: the kHdr-word header, then the pair words. The
+// One upload per batch: the kHdr-word header, then the pairs, as F1's
+// words or as F3's triples (the form is a launch argument). The
 // header (flink_tpu/ops/window.py:570-584; the reference's _fused_fill_header
 // writes it, so does the port's):
 //   words 0-1 pane_lo, 2-3 pane_hi, 4-5 anchor (int64, little endian);
@@ -98,12 +116,14 @@ __global__ void apply_pairs_u16_kernel(int32_t* __restrict__ counts, int64_t n_c
 //   words 8 .. 8 + 63 window-end deltas vs pane_lo, kDeltaSentinel unused.
 // A chain of launches on one stream, each reading what it needs from
 // device memory — no header field goes back to the host:
-//   1 apply_pairs_u32_kernel<true>: block 0 decodes the header into a
-//     FusedParams block (the scalars, the first fire_pad end panes and
-//     valid flags, the purge's keep mask and identity column map, and
-//     two gate words — fire = any valid end among the fire_pad slots,
-//     clear = a non-zero clear word; with the gate off both are 1), the
-//     other blocks fold the pairs in (F1); it runs with no pairs too;
+//   1 apply_pairs_u32_kernel<true> (or apply_pairs_u16_kernel<true>):
+//     block 0 decodes the header into a FusedParams block (the scalars,
+//     the first fire_pad end panes and valid flags, the purge's keep mask
+//     and identity column map, and two gate words — fire = any valid end
+//     among the fire_pad slots, clear = a non-zero clear word; with the
+//     gate off both are 1), the other blocks fold the pairs in (F1, or
+//     F3 for a hot key's counts or a pair domain past 20 bits, so such a
+//     batch keeps its one upload and one step); it runs with no pairs;
 //   2 window_counts_kernel, 3-4 the top-n's two kernels at top-1 (K2, K3;
 //     above top-1 the radix select's one cooperative launch or five),
 //     which write nothing when the fire word is 0;
@@ -159,9 +179,6 @@ __device__ __forceinline__ void decode_header(const HeaderArgs& h) {
   }
 }
 
-// F1 over n words: ``head`` scalar words up to the first 16-byte boundary,
-// ``vecs`` 16-byte vectors from there, then n - head - 4 vecs scalar words;
-// the header form's block 0 decodes the header instead
 static_assert(kThreads >= kMaxFirePad && kThreads >= kMaxRing,
               "the header decode takes a thread an end slot and a ring column");
 
@@ -213,6 +230,64 @@ int launch_apply_u32(int32_t* counts, int64_t limit, const int32_t* words, int64
   return (int)cudaGetLastError();
 }
 
+// F3 over n triples: ``head`` scalar triples up to the first 16-byte
+// boundary, ``chunks`` whole warp chunks from there in the first
+// chunk_blocks blocks, then the rest; the head and the rest (at most 7 +
+// 31 triples, a thread each) take a block of their own, so that no
+// thread waits on two loads in a row; the header form's block 0 decodes
+// the header instead
+template <bool kHeader>
+__global__ void __launch_bounds__(kThreads) apply_pairs_u16_kernel(
+    int32_t* __restrict__ counts, int64_t n_cells, const uint16_t* __restrict__ triples,
+    int64_t n, int32_t head, int64_t chunks, int64_t chunk_blocks, HeaderArgs h) {
+  __shared__ int4 s_chunk[kWarps][kTripleVecs];
+  if (kHeader && blockIdx.x == 0) {
+    decode_header(h);
+    return;
+  }
+  const int64_t blk = kHeader ? blockIdx.x - 1 : blockIdx.x;
+  if (blk == chunk_blocks) {
+    const int64_t tail0 = head + chunks * kTripleChunk;  // the ragged end
+    const int64_t t = threadIdx.x;
+    const int64_t k = t < head ? t : tail0 + (t - head);
+    if (k < n)
+      apply_triple(counts, n_cells, triples[3 * k], triples[3 * k + 1], triples[3 * k + 2]);
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t c = blk * kWarps + warp;
+  if (c < chunks) {
+    const int4* src = (const int4*)(triples + 3 * (int64_t)head) + c * kTripleVecs;
+    if (lane < kTripleVecs) s_chunk[warp][lane] = src[lane];
+    __syncwarp();
+    const uint16_t* t = (const uint16_t*)s_chunk[warp] + 3 * lane;
+    apply_triple(counts, n_cells, t[0], t[1], t[2]);
+  }
+}
+
+// F3's launch: kWarps chunks a block, one block for the head and the
+// rest when there are any, and in the header form one block more; with
+// no triples and no header, no launch
+template <bool kHeader>
+int launch_apply_u16(int32_t* counts, int64_t n_cells, const uint16_t* triples, int64_t n,
+                     const HeaderArgs& h, cudaStream_t s) {
+  if (n < 0 || ((uintptr_t)triples & 1)) return (int)cudaErrorInvalidValue;
+  // triples before the first 16-byte boundary: a triple starts 6 bytes
+  // after the last, so one of the first eight starts on it
+  int32_t head = 0;
+  while (head < 8 && (((uintptr_t)triples + 6 * head) & 15)) ++head;
+  if (head > n) head = (int32_t)n;
+  const int64_t chunks = (n - head) / kTripleChunk;
+  const int64_t chunk_blocks = (chunks + kWarps - 1) / kWarps;
+  int64_t blocks = chunk_blocks + (n > head + chunks * kTripleChunk || head > 0 ? 1 : 0);
+  static_assert(7 + kTripleChunk - 1 <= kThreads, "the rest is at most a thread a triple");
+  if (kHeader) ++blocks;
+  if (blocks > 0)
+    apply_pairs_u16_kernel<kHeader><<<(unsigned)blocks, kThreads, 0, s>>>(
+        counts, n_cells, triples, n, head, chunks, chunk_blocks, h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -228,11 +303,7 @@ int ff_apply_pairs_u32(int32_t* counts, int64_t limit, const int32_t* words, int
 
 int ff_apply_pairs_u16(int32_t* counts, int64_t n_cells, const uint16_t* triples, int64_t n,
                        void* stream) {
-  if (n > 0) {
-    apply_pairs_u16_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(counts, n_cells,
-                                                                               triples, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_apply_u16<false>(counts, n_cells, triples, n, HeaderArgs{}, (cudaStream_t)stream);
 }
 
 // scratch (allocated by the caller): params (ff_params_bytes()), wcounts
@@ -240,17 +311,25 @@ int ff_apply_pairs_u16(int32_t* counts, int64_t n_cells, const uint16_t* triples
 // (window_kernels.py clean_workspace), cut for work_windows windows and
 // work_tiles selection tiles (select_work_words)
 int ff_fused_step(int32_t* counts, int64_t rows, int32_t ring, const int32_t* buf,
-                  int64_t n_words, const uint8_t* used, int32_t ppw, int32_t n, int32_t sel_cap,
-                  int32_t* emit_ring, int32_t ring_rows, int32_t ring_cols, int32_t dump_row,
-                  int32_t fire_gate, int32_t fire_pad, void* params, int32_t* wcounts,
-                  int64_t* work, int64_t work_windows, int64_t work_tiles, int32_t* err,
-                  void* stream) {
-  if (ring < 1 || ring > kMaxRing || fire_pad < 1 || fire_pad > kMaxFirePad || n_words < kHdr)
+                  int64_t n_words, int32_t form, const uint8_t* used, int32_t ppw, int32_t n,
+                  int32_t sel_cap, int32_t* emit_ring, int32_t ring_rows, int32_t ring_cols,
+                  int32_t dump_row, int32_t fire_gate, int32_t fire_pad, void* params,
+                  int32_t* wcounts, int64_t* work, int64_t work_windows, int64_t work_tiles,
+                  int32_t* err, void* stream) {
+  if (ring < 1 || ring > kMaxRing || fire_pad < 1 || fire_pad > kMaxFirePad || n_words < kHdr ||
+      (form != kFormWords && form != kFormTriples))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   FusedParams* p = (FusedParams*)params;
-  int rc = launch_apply_u32<true>(counts, (int64_t)dump_row * ring, buf + kHdr, n_words - kHdr,
-                                  HeaderArgs{buf, ring, fire_pad, fire_gate, p}, s);
+  const HeaderArgs hdr{buf, ring, fire_pad, fire_gate, p};
+  // the pairs behind the header: u32 words (F1's rule), or uint16 triples
+  // (F3's rule: every cell of the state, the dump row's too), as many
+  // whole triples as the words hold
+  int rc = form == kFormWords
+               ? launch_apply_u32<true>(counts, (int64_t)dump_row * ring, buf + kHdr,
+                                        n_words - kHdr, hdr, s)
+               : launch_apply_u16<true>(counts, rows * ring, (const uint16_t*)(buf + kHdr),
+                                        (n_words - kHdr) * 4 / 6, hdr, s);
   if (rc) return rc;
   const FireSource fire{{0, 0, 0}, &p->s, &p->fire};
   rc = launch_window_counts(counts, rows, ring, p->end_panes, p->w_valid, fire_pad, fire, ppw,
@@ -287,14 +366,15 @@ int ff_apply_pairs_u16_packed(const int64_t* a, void* stream) {
       stream);
 }
 
-// ff_fused_step from one packed block of 21 64-bit words
+// ff_fused_step from one packed block of 22 64-bit words (the form last)
 int ff_fused_step_packed(const int64_t* a, void* stream) {
   return ff_fused_step(
       (int32_t*)(intptr_t)a[0], (int64_t)a[1], (int32_t)a[2], (const int32_t*)(intptr_t)a[3],
-      (int64_t)a[4], (const uint8_t*)(intptr_t)a[5], (int32_t)a[6], (int32_t)a[7], (int32_t)a[8],
-      (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (int32_t)a[12], (int32_t)a[13],
-      (int32_t)a[14], (void*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16], (int64_t*)(intptr_t)a[17],
-      (int64_t)a[18], (int64_t)a[19], (int32_t*)(intptr_t)a[20], stream);
+      (int64_t)a[4], (int32_t)a[21], (const uint8_t*)(intptr_t)a[5], (int32_t)a[6], (int32_t)a[7],
+      (int32_t)a[8], (int32_t*)(intptr_t)a[9], (int32_t)a[10], (int32_t)a[11], (int32_t)a[12],
+      (int32_t)a[13], (int32_t)a[14], (void*)(intptr_t)a[15], (int32_t*)(intptr_t)a[16],
+      (int64_t*)(intptr_t)a[17], (int64_t)a[18], (int64_t)a[19], (int32_t*)(intptr_t)a[20],
+      stream);
 }
 
 }  // extern "C"

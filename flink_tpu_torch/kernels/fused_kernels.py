@@ -5,9 +5,11 @@ same signature.
 - ``apply_pairs_u32`` (F1): fold the host's packed pair words
   ``pair << 12 | count`` into the count lane.
 - ``apply_pairs_u16`` (F3): the same for ``[pair lo16, pair hi16,
-  count]`` uint16 triples, the form for a pair count of 0xFFF or more.
+  count]`` uint16 triples, the form for a pair count of 0xFFF or more or
+  a pair domain past 20 bits.
 - ``fused_step`` (F2): one upload per batch — a ``FUSED_HDR``-word
-  header, then F1's pair words — and one call: the pairs' apply, the
+  header, then the pairs as F1's words or as F3's triples (``form``) —
+  and one call: the pairs' apply, the
   fire of every window end the header lists with the top-n appended to
   the emit ring, and the purge of the columns its clear mask names.
   The card reads the header; the fire runs ``window_counts`` and
@@ -44,6 +46,11 @@ MAX_FUSED_RING = 64
 # apply in one, window counts, the top-n's two kernels (wk.topn_plan),
 # purge
 FUSED_STEP_KERNELS = 5
+# the form of a fused step's pairs behind its header: F1's u32 words, or
+# F3's uint16 triples (a launch argument; the header's words keep their
+# meaning)
+FORM_WORDS = 0
+FORM_TRIPLES = 1
 
 _SIGNATURES = {
     "ff_params_bytes": [],
@@ -61,7 +68,7 @@ def _entry(fn: str, name: str, n_words: int) -> wk.LeanEntry:
 
 _APPLY_PAIRS_U32 = _entry("ff_apply_pairs_u32", "apply_pairs_u32", 4)
 _APPLY_PAIRS_U16 = _entry("ff_apply_pairs_u16", "apply_pairs_u16", 4)
-_FUSED_STEP = _entry("ff_fused_step", "fused_step", 21)
+_FUSED_STEP = _entry("ff_fused_step", "fused_step", 22)
 # the fused step's parameter block, int32 words (ff_params_bytes), read
 # at its first launch
 _params_words = None
@@ -102,9 +109,11 @@ def apply_pairs_u32_plain(counts, words, dump_row):
 
 def apply_pairs_u16(counts: torch.Tensor, triples: torch.Tensor) -> torch.Tensor:
     """``counts.view(-1)[pair] += count`` for each uint16 row ``[pair lo16,
-    pair hi16, count]``, in place. The pair reads as an int32: the
-    padding row 0xFFFF/0xFFFF is -1, and it and any pair beyond the
-    state go to no cell. Returns ``counts``."""
+    pair hi16, count]``, in place; a pair may repeat. The pair reads as
+    an int32: the padding row 0xFFFF/0xFFFF is -1, and it and any pair
+    beyond the state go to no cell. The kernel stages a warp's 32
+    triples by 16-byte loads, any alignment and length of ``triples``
+    taken. Returns ``counts``."""
     index = wk.fast_index((counts, torch.int32, 2), (triples, torch.uint16, 2))
     if index is None:
         wk.check_tensor(counts, "counts", torch.int32, 2)
@@ -135,14 +144,17 @@ def apply_pairs_u16_plain(counts, triples):
 def fused_step(counts: torch.Tensor, emit_ring: torch.Tensor,
                buf: torch.Tensor, used_mask: torch.Tensor, *, ppw: int,
                n: int, sel_cap: int, dump_row: int, fire_gate: bool,
-               fire_pad: int) -> torch.Tensor:
+               fire_pad: int, form: int = FORM_WORDS) -> torch.Tensor:
     """One batch's fused step, in place on ``counts`` and ``emit_ring``.
 
     ``buf`` is the int32 upload: ``FUSED_HDR`` header words — ``[0:2]``
     pane_lo, ``[2:4]`` pane_hi, ``[4:6]`` anchor (int64), ``[7]`` / ``[6]``
     the clear mask of ring columns 0-31 / 32-63, ``[8:8 + 64]`` window-end
-    deltas vs pane_lo (``DELTA_SENTINEL`` unused) — then pair words as
-    for ``apply_pairs_u32``. The step applies the pairs, fires the ends
+    deltas vs pane_lo (``DELTA_SENTINEL`` unused) — then the pairs: with
+    ``form`` ``FORM_WORDS`` pair words as for ``apply_pairs_u32``, with
+    ``FORM_TRIPLES`` uint16 triples as for ``apply_pairs_u16`` (as many
+    whole triples as the words after the header hold; a 2-byte tail is
+    not read). The step applies the pairs, fires the ends
     among the first ``fire_pad`` delta slots (``window_counts``, then
     ``topn_select_append`` of the top ``n`` with ``sel_cap`` into
     ``emit_ring`` at ``anchor``) and purges the masked columns
@@ -170,12 +182,15 @@ def fused_step(counts: torch.Tensor, emit_ring: torch.Tensor,
             f"emit_ring must be (row_cap + 2, 3), got {tuple(emit_ring.shape)}")
     if n < 1 or sel_cap < 1:
         raise ValueError("n and sel_cap must be >= 1")
+    if form not in (FORM_WORDS, FORM_TRIPLES):
+        raise ValueError(f"fused_step: form {form} is neither FORM_WORDS nor "
+                         "FORM_TRIPLES")
     if index is None:
         if not wk.on_cuda("fused_step", counts, emit_ring, buf, used_mask):
             return fused_step_plain(counts, emit_ring, buf, used_mask,
                                     ppw=ppw, n=n, sel_cap=sel_cap,
                                     dump_row=dump_row, fire_gate=fire_gate,
-                                    fire_pad=fire_pad)
+                                    fire_pad=fire_pad, form=form)
         index = counts.get_device()
     global _params_words
     if _params_words is None:
@@ -190,7 +205,8 @@ def fused_step(counts: torch.Tensor, emit_ring: torch.Tensor,
                     buf.numel(), used_mask.data_ptr(), int(ppw), int(n),
                     int(sel_cap), emit_ring.data_ptr(), emit_ring.shape[0],
                     emit_ring.shape[1], int(dump_row), int(bool(fire_gate)),
-                    int(fire_pad), base, base + 4 * _params_words, *work, err)
+                    int(fire_pad), base, base + 4 * _params_words, *work, err,
+                    int(form))
     except RuntimeError:
         wk.drop_workspace("fused_step", index, stream)
         raise
@@ -212,10 +228,21 @@ def decode_header(buf: torch.Tensor, ring: int, fire_pad: int):
     return lo, hi, anchor, end_panes, w_valid, clear, words != 0
 
 
+def pair_triples(buf: torch.Tensor) -> torch.Tensor:
+    """The whole uint16 triples behind a fused-step upload's header, as a
+    ``(P, 3)`` view (``FORM_TRIPLES``)."""
+    t = buf[FUSED_HDR:].view(torch.uint16)
+    p = t.numel() // 3
+    return t[:3 * p].view(p, 3)
+
+
 def fused_step_plain(counts, emit_ring, buf, used_mask, *, ppw, n, sel_cap,
-                     dump_row, fire_gate, fire_pad):
+                     dump_row, fire_gate, fire_pad, form=FORM_WORDS):
     ring = counts.shape[1]
-    apply_pairs_u32_plain(counts, buf[FUSED_HDR:], dump_row)
+    if form == FORM_TRIPLES:
+        apply_pairs_u16_plain(counts, pair_triples(buf))
+    else:
+        apply_pairs_u32_plain(counts, buf[FUSED_HDR:], dump_row)
     lo, hi, anchor, end_panes, w_valid, clear, any_clear = decode_header(
         buf, ring, fire_pad)
     if not fire_gate or bool(w_valid.any()):

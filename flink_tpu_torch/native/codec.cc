@@ -5,7 +5,7 @@
 //
 // The port's own copy of the functions of native/codec.cc that the lane
 // runs, and nothing else: the key-directory hash table, the host pre-
-// combine, and the fused count-only ingest scan with its two finalizes.
+// combine, and the fused count-only ingest scan with its three finalizes.
 // The other codec functions (tokenizer, parsers, socket reader, CRC, the
 // Nexmark generator) come with the slices that need them.
 //
@@ -257,8 +257,32 @@ void ingest_fused_finalize_u32(
   for (int64_t j = hdr + np_; j < hdr + cap_out; ++j) out_u32[j] = -1;
 }
 
+// Finalize a fused scan into the fused step's triple form, in place:
+// ``hdr`` words of -1 (the header, filled at the advance), then
+// [pair lo16, pair hi16, count] as uint16 for the np_ recorded pairs, in
+// the order the scan recorded them — the real pairs only, no padding; when
+// np_ is odd the last word's upper half is 0xFFFF. Resets every touched
+// hist entry. The form for a count of 0xFFF or more or a pair domain
+// past 20 bits. Precondition: every count <= 0xFFFF (the caller checked
+// stats[7]) and every pair < 2^31.
+void ingest_fused_finalize_u16(
+    int64_t np_, int32_t* hist, const int32_t* out_pairs, int32_t* out,
+    int64_t hdr) {
+  for (int64_t j = 0; j < hdr; ++j) out[j] = -1;
+  uint16_t* t = (uint16_t*)(out + hdr);
+  for (int64_t j = 0; j < np_; ++j) {
+    uint32_t p = (uint32_t)out_pairs[j];
+    t[3 * j] = (uint16_t)(p & 0xFFFFu);
+    t[3 * j + 1] = (uint16_t)(p >> 16);
+    t[3 * j + 2] = (uint16_t)hist[p];
+    hist[p] = 0;
+  }
+  if (np_ & 1) t[3 * np_] = 0xFFFFu;
+}
+
 // Finalize into separate (pairs, counts) arrays — the fallback when a
-// count overflows the u32 pack's 12-bit field (u16/i32 encode paths).
+// count overflows the triples' 16-bit field (the int32 index + count
+// upload).
 void ingest_fused_finalize_pairs(
     int64_t np_, int32_t* hist, const int32_t* out_pairs,
     int32_t* out_counts) {

@@ -4,7 +4,7 @@ use and bound with ctypes.
 It holds what the window operator's native lane runs on the host: the
 C key table (``NativeHashTable``, the ``KeyDirectory`` probe), the host
 pre-combine (``preagg_combine_native``) and the fused count-only ingest
-scan (``ingest_fused_scan_native``) with its two finalizes. The library
+scan (``ingest_fused_scan_native``) with its three finalizes. The library
 is built from ``flink_tpu_torch/native/codec.cc`` alone into
 ``flink_tpu_torch/_build/`` under a name carrying a hash of the source
 and the flags, so an edited source never loads a stale build. A build
@@ -92,6 +92,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                     i64, i32p, i32p, i64, i64, i64p, u8p,
                                     i64, i64, i64p, i64]),
         "ingest_fused_finalize_u32": (None, [i64, i32p, i32p, i32p, i64, i64]),
+        "ingest_fused_finalize_u16": (None, [i64, i32p, i32p, i32p, i64]),
         "ingest_fused_finalize_pairs": (None, [i64, i32p, i32p, i32p]),
     }
     for name, (res, args) in sigs.items():
@@ -268,11 +269,32 @@ def ingest_fused_finalize_u32_native(
     return out[:need]
 
 
+def ingest_fused_finalize_u16_native(
+    res: IngestFusedResult, ws: PreaggWorkspace, hdr: int,
+    out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The fused step's triple form written by C: ``hdr`` words of -1
+    (the header, filled at the advance), then ``[pair lo16, pair hi16,
+    count]`` uint16 per pair, the real pairs only, as int32 words (the
+    last one half 0xFFFF when the pair count is odd); the workspace is
+    reset. ``out`` (int32, long enough) is written in place — a view of
+    a reused pinned buffer — else a new array is made. Every count must
+    be at most 0xFFFF (stats[7])."""
+    need = hdr + (6 * res.npairs + 3) // 4
+    if out is None:
+        out = np.empty(need, np.int32)
+    elif out.dtype != np.int32 or not out.flags.c_contiguous or len(out) < need:
+        raise ValueError(f"finalize buffer must be contiguous int32 of at "
+                         f"least {need} words")
+    load().ingest_fused_finalize_u16(
+        res.npairs, ws.hist, res.out_pairs, out, hdr)
+    return out[:need]
+
+
 def ingest_fused_finalize_pairs_native(
     res: IngestFusedResult, ws: PreaggWorkspace,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(pairs, counts) of a fused scan, resetting the workspace: the form
-    for counts too large for the u32 word's 12-bit field."""
+    for counts too large for the triples' 16-bit field."""
     counts = np.empty(max(res.npairs, 1), np.int32)
     load().ingest_fused_finalize_pairs(
         res.npairs, ws.hist, res.out_pairs, counts)

@@ -33,6 +33,8 @@ class OperatorBuildContext:
     mesh_plan: Optional[Any] = None
     exchange_capacity: Optional[int] = None
     exchange_impl: str = "all-to-all"
+    # pipeline.readiness: how a window's throttle waits on a step
+    readiness: str = "piggyback"
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
@@ -53,6 +55,7 @@ def _window_factory(node, ctx: OperatorBuildContext):
         mesh_plan=ctx.mesh_plan,
         exchange_capacity=ctx.exchange_capacity,
         exchange_impl=ctx.exchange_impl,
+        readiness=ctx.readiness,
     )
     op.allow_drops = ctx.allow_drops
     return op

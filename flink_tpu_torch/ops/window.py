@@ -6,13 +6,16 @@ Per batch the host assigns each record a key slot and a pane. A
 count-only batch first tries the native lane (``_process_batch_fused``,
 when the key directory holds the C table of the port's host codec): one
 C scan probes the keys, computes panes, late and re-fire accounting and
-the per-(slot, ring column) histogram, and C writes the pair words
-``pair << 12 | count`` into a reused pinned buffer. With top-n those
-words are stashed, and the next watermark advance fills the buffer's
-header and runs apply + fire + top-n + purge as one upload and one
-``fused_step`` call; without top-n ``apply_pairs_u32`` folds them in,
-and a pair count of 0xFFF or more goes up as uint16 triples to
-``apply_pairs_u16``. Otherwise (the general path): when every lane is a
+the per-(slot, ring column) histogram, and C writes the pairs into a
+reused pinned buffer: a word ``pair << 12 | count`` each, or, for a pair
+count of 0xFFF or more or a pair domain past 20 bits, a uint16 triple
+``[pair lo16, pair hi16, count]`` each (the real pairs only). With
+top-n those pairs are stashed, and the next watermark advance fills the
+buffer's header and runs apply + fire + top-n + purge as one upload and
+one ``fused_step`` call in either form; without top-n
+``apply_pairs_u32`` or ``apply_pairs_u16`` folds them in at once.
+Counts past 0xFFFF go up as an int32 index + count to
+``scatter_counts``. Otherwise (the general path): when every lane is a
 host-combinable sum (count, sum, avg) and the combined upload is
 decisively smaller, the host combines the batch per (slot, pane-ring
 column) pair — in C on the native lane, then the same word forms; with
@@ -111,7 +114,7 @@ import torch
 
 from flink_tpu_torch import native_codec as nc
 from flink_tpu_torch.api.windowing import WindowAssigner
-from flink_tpu_torch.config import PipelineOptions
+from flink_tpu_torch.config import READINESS_VALUES, PipelineOptions
 from flink_tpu_torch.device import on_device, resolve_device
 from flink_tpu_torch.exchange.spi import get_shuffle, takes_split_bytes
 from flink_tpu_torch.kernels import devgen_kernels as dk
@@ -470,10 +473,19 @@ def copy_to_host(buf: torch.Tensor, timer: "DeviceTimer"):
     return host, err, ev
 
 
-# the native lane's pair words: FUSED_HDR header words + up to 2^21 words
-# a batch; two slots, one of which a stash may hold
+# the native lane's pinned pair buffers: FUSED_HDR header words + up to
+# the scan's cap of 2^21 pairs a batch, as 4-byte words or 6-byte
+# triples; two slots, one of which a stash may hold
 PAIR_SLOTS = 2
-PAIR_SLOT_BYTES = 4 * (FUSED_HDR + (1 << 21))
+PAIR_SLOT_BYTES = 4 * FUSED_HDR + 6 * (1 << 21)
+
+
+class PairStash(collections.namedtuple("PairStash", "slot buf form")):
+    """A native-lane batch held for the next advance's fused step: its
+    pinned slot, the slot's int32 words written so far (``FUSED_HDR``
+    header words, then the pairs) and the pairs' form
+    (``fk.FORM_WORDS`` or ``fk.FORM_TRIPLES``)."""
+    __slots__ = ()
 
 
 class DeviceTimer:
@@ -544,6 +556,7 @@ class WindowOperator:
         mesh_plan: Optional[Any] = None,
         exchange_capacity: Optional[int] = None,
         exchange_impl: str = "all-to-all",
+        readiness: str = PipelineOptions.READINESS.default,
     ) -> None:
         # processing-time mode: records are stamped with the operator's
         # clock at ingest and fires ride advance_processing_time — the
@@ -655,15 +668,24 @@ class WindowOperator:
         # CUDA event once more than this many are outstanding
         self.max_inflight_steps = int(max_inflight_steps)
         self._inflight: collections.deque = collections.deque()
+        # pipeline.readiness: how that wait learns a step is done (see
+        # throttle); a driver that sets external_throttle calls throttle
+        # itself, at its own cadence
+        if readiness not in READINESS_VALUES:
+            raise ValueError(
+                f"pipeline.readiness must be 'piggyback' or 'probe', "
+                f"got {readiness!r}")
+        self.readiness = readiness
+        self.external_throttle = False
         # pipeline.fire-gate: a fused step skips its fire on the card when
         # the header lists no window end, and its purge when the clear
         # mask is empty; it also sizes the fire to the ends it has
         # (_fire_pad_bucket). The bytes are the same either way.
         self.fire_gate = bool(fire_gate)
-        # native lane: a count-only top-n batch's pair words (pinned slot,
-        # the buffer) waiting for the next advance's fused step, the
-        # pinned buffers, and the C scan's zeroed workspace
-        self._stash: Optional[Tuple[int, np.ndarray]] = None
+        # native lane: a count-only top-n batch's pairs (PairStash)
+        # waiting for the next advance's fused step, the pinned buffers,
+        # and the C scan's zeroed workspace
+        self._stash: Optional[PairStash] = None
         self._pairs = PinnedStage(self.device, PAIR_SLOTS, PAIR_SLOT_BYTES)
         self._preagg_ws: Optional[nc.PreaggWorkspace] = None
         # device emit ring, one per block: row 0 = head [total appended,
@@ -1007,20 +1029,28 @@ class WindowOperator:
             return True
         tc = time.perf_counter()
         domain = self.layout.slots * self.plan.ring
-        if cmax < 0xFFF and domain <= (1 << 20):
-            # the words land in a pinned buffer behind FUSED_HDR header
-            # words, which the next advance fills for its fused step; the
-            # real pairs only (the reference pads them to a power of two
-            # to bound its recompiles), so no padding is uploaded or read
+        if cmax <= 0xFFFF:
+            # C writes the pairs into a pinned buffer behind FUSED_HDR
+            # header words, which the next advance fills for its fused
+            # step: a u32 word a pair while every count < 0xFFF and the
+            # pair domain fits 20 bits (the reference's rule), else a
+            # uint16 triple a pair. The real pairs only (the reference
+            # pads them to a power of two to bound its recompiles), so no
+            # padding is uploaded or read
             slot, out = self._pairs.acquire()
-            buf = nc.ingest_fused_finalize_u32_native(
-                res, ws, FUSED_HDR, res.npairs, out.view(np.int32))
+            if cmax < 0xFFF and domain <= (1 << 20):
+                stash = PairStash(slot, nc.ingest_fused_finalize_u32_native(
+                    res, ws, FUSED_HDR, res.npairs, out.view(np.int32)),
+                    fk.FORM_WORDS)
+            else:
+                stash = PairStash(slot, nc.ingest_fused_finalize_u16_native(
+                    res, ws, FUSED_HDR, out.view(np.int32)), fk.FORM_TRIPLES)
             if self._fused_ok() and self._stash is None:
-                self._stash = (slot, buf)
+                self._stash = stash
                 self._pairs.hold(slot)
                 self.prof["pb_preagg"] += time.perf_counter() - tc
                 return True
-            self._apply_u32(slot, len(buf))
+            self._apply_stash(stash)
         else:
             self._apply_combined(
                 *nc.ingest_fused_finalize_pairs_native(res, ws))
@@ -1028,14 +1058,22 @@ class WindowOperator:
         self._throttle()
         return True
 
-    def _apply_u32(self, slot: int, n_words: int) -> None:
-        """Fold a pinned buffer's pair words (after its header) in with
-        ``apply_pairs_u32``."""
+    def _apply_stash(self, stash: PairStash) -> None:
+        """Fold a pinned buffer's pairs (after its header) in on their
+        own: words with ``apply_pairs_u32``, triples with
+        ``apply_pairs_u16``."""
         t0 = time.perf_counter()
+        lo = 4 * FUSED_HDR
         with self.timer.span("apply"):
-            words = self._pairs.upload_slot(
-                slot, 4 * FUSED_HDR, 4 * n_words).view(torch.int32)
-            fk.apply_pairs_u32(self.state.counts, words, self.layout.slots)
+            if stash.form == fk.FORM_WORDS:
+                words = self._pairs.upload_slot(
+                    stash.slot, lo, 4 * len(stash.buf)).view(torch.int32)
+                fk.apply_pairs_u32(self.state.counts, words, self.layout.slots)
+            else:
+                n = (4 * len(stash.buf) - lo) // 6
+                triples = self._pairs.upload_slot(stash.slot, lo, lo + 6 * n)
+                fk.apply_pairs_u16(self.state.counts,
+                                   triples.view(torch.uint16).view(n, 3))
         self._note_dispatch()
         self.prof["pb_dispatch"] += time.perf_counter() - t0
 
@@ -1045,55 +1083,77 @@ class WindowOperator:
         count < 0xFFF and the pair domain fits 20 bits
         (``apply_pairs_u32``), uint16 triples while counts fit 16 bits
         (``apply_pairs_u16``), else an int32 index + count upload
-        (``scatter_counts``)."""
-        if len(pairs) == 0:
+        (``scatter_counts``); the real pairs only, no padding. Triples
+        are written into a pinned slot, as the scan's finalize writes
+        them: on an operator that takes fused steps they are stashed for
+        the next advance's, so its count-only batches never launch
+        ``apply_pairs_u16``; words are applied at once, as the reference
+        applies them."""
+        n = len(pairs)
+        if n == 0:
             return
         cmax = int(cnts.max())
         if cmax < 0xFFF and self.layout.slots * self.plan.ring <= (1 << 20):
             # a word a real pair, no padding
-            buf, apply = preagg_encode_u32(pairs, cnts, len(pairs)), (
-                lambda d: fk.apply_pairs_u32(self.state.counts, d,
-                                             self.layout.slots))
+            t0 = time.perf_counter()
+            buf_h = staged(preagg_encode_u32(pairs, cnts, n), self.device)
+            with self.timer.span("apply"):
+                fk.apply_pairs_u32(self.state.counts,
+                                   buf_h.to(self.device, non_blocking=True),
+                                   self.layout.slots)
+            self._note_dispatch()
+            self.prof["pb_dispatch"] += time.perf_counter() - t0
         elif cmax <= 0xFFFF:
-            buf, apply = preagg_encode_u16(
-                pairs, cnts, _next_pow2(max(len(pairs), 256))), (
-                lambda d: fk.apply_pairs_u16(self.state.counts, d))
+            # the C combine holds at most 2^21 pairs (_preagg_dispatch), so
+            # they fit a slot
+            t0 = time.perf_counter()
+            slot, out = self._pairs.acquire()
+            words = out.view(np.int32)
+            words[:FUSED_HDR] = -1
+            t = words[FUSED_HDR:].view(np.uint16)
+            t[:3 * n] = preagg_encode_u16(pairs, cnts, n).reshape(-1)
+            t[3 * n:3 * n + (n & 1)] = 0xFFFF
+            stash = PairStash(slot, words[:FUSED_HDR + (6 * n + 3) // 4],
+                              fk.FORM_TRIPLES)
+            self.prof["pb_dispatch"] += time.perf_counter() - t0
+            if self._fused_ok() and self._stash is None:
+                self._stash = stash
+                self._pairs.hold(slot)
+            else:
+                self._apply_stash(stash)
         else:
             self._apply_cells(pairs, cnts)
-            return
-        t0 = time.perf_counter()
-        buf_h = staged(buf, self.device)
-        with self.timer.span("apply"):
-            apply(buf_h.to(self.device, non_blocking=True))
-        self._note_dispatch()
-        self.prof["pb_dispatch"] += time.perf_counter() - t0
 
     def _flush_stash(self) -> None:
-        """Fold a stashed native-lane batch in with ``apply_pairs_u32``.
-        Every consumer of up-to-date state calls this first: the general
-        ingest path, an advance that takes no fused step, ring growth,
-        quiesce and snapshots."""
-        if self._stash is None:
+        """Fold a stashed native-lane batch in on its own, in its form
+        (``apply_pairs_u32`` or ``apply_pairs_u16``). Every consumer of
+        up-to-date state calls this first: the general ingest path, an
+        advance that takes no fused step, ring growth (so the pairs land
+        under the ring they were counted for), quiesce and snapshots."""
+        stash = self._stash
+        if stash is None:
             return
-        slot, buf = self._stash
         self._stash = None
         self._pairs.hold(None)
-        self._apply_u32(slot, len(buf))
+        self._apply_stash(stash)
 
     def _fire_pad_bucket(self, n_ends: int) -> int:
-        """Delta slots a fused step reads: with the fire gate the power of
-        two at or above its end count (its fire's width), else all
-        MIN_FIRE_PAD."""
+        """Delta slots a fused step reads: with the fire gate its end
+        count, its fire's width (the reference rounds it up to a power of
+        two, which bounds its recompiles; the port compiles nothing per
+        width, and the unused slots cost the fire their windows), else
+        all MIN_FIRE_PAD."""
         if not self.fire_gate:
             return MIN_FIRE_PAD
-        return min(MIN_FIRE_PAD, _next_pow2(max(n_ends, 1)))
+        return min(MIN_FIRE_PAD, max(n_ends, 1))
 
-    def _fused_fill_header(self, wm: int, ends: List[int], buf: np.ndarray
+    def _fused_fill_header(self, wm: int, ends: List[int], buf: np.ndarray,
+                           max_ends: int = MIN_FIRE_PAD
                            ) -> Optional[Tuple[List[int], int]]:
         """Fill the stashed buffer's FUSED_HDR header in place: pane
         bounds, ring anchor, clear mask, window-end deltas (the layout
         ``fused_step`` documents). Returns (the ends it fires, the purge
-        frontier after it), or None when more than MIN_FIRE_PAD ends
+        frontier after it), or None when more than ``max_ends`` ends
         fire."""
         ppw = self.plan.panes_per_window
         if self._max_pane_seen is None:
@@ -1102,7 +1162,7 @@ class WindowOperator:
         else:
             lo = max(self._cleared_below, self._min_pane_seen)
             ends_f = [e for e in ends if e > lo and e - ppw <= self._max_pane_seen]
-        if len(ends_f) > MIN_FIRE_PAD:
+        if len(ends_f) > max_ends:
             return None
         # the purge, as advance_watermark's: its mask rides the header
         clear, cleared_after = self._purge_columns(wm)
@@ -1123,12 +1183,18 @@ class WindowOperator:
 
     def _advance_fused(self, wm: int, ends: List[int]) -> Optional["FiredWindows"]:
         """The advance over a stashed batch as one upload and one
-        ``fused_step`` call: the stash's apply, the fire of up to
-        MIN_FIRE_PAD window ends (rows row-major over all of them) and
-        the purge. None when more ends fire; the caller then flushes the
-        stash and takes the chunked path."""
-        slot, buf = self._stash
-        filled = self._fused_fill_header(wm, ends, buf)
+        ``fused_step`` call: the stash's apply in its form, the fire of
+        up to MIN_FIRE_PAD window ends (rows row-major over all of them)
+        and the purge. None when more ends fire; the caller then flushes
+        the stash and takes the chunked path. Triples take at most
+        MAX_FIRE_CHUNK_RING ends: the reference folds such a batch in at
+        once and fires in chunks of that many, and a fused step's rows
+        run row-major over all its ends, the same order only up to one
+        chunk."""
+        stash = self._stash
+        filled = self._fused_fill_header(
+            wm, ends, stash.buf, MIN_FIRE_PAD if stash.form == fk.FORM_WORDS
+            else MAX_FIRE_CHUNK_RING)
         if filled is None:
             return None
         ends_f, cleared_after = filled
@@ -1138,12 +1204,14 @@ class WindowOperator:
         ring_buf = self._ensure_ring()[0]
         with self.timer.span("step"):
             fk.fused_step(self.state.counts, ring_buf,
-                          self._pairs.upload_slot(slot, 0, 4 * len(buf))
+                          self._pairs.upload_slot(
+                              stash.slot, 0, 4 * len(stash.buf))
                           .view(torch.int32), used,
                           ppw=self.plan.panes_per_window, n=self._topn[1],
                           sel_cap=self._topn_cap(), dump_row=self.layout.slots,
                           fire_gate=self.fire_gate,
-                          fire_pad=self._fire_pad_bucket(len(ends_f)))
+                          fire_pad=self._fire_pad_bucket(len(ends_f)),
+                          form=stash.form)
         self._note_dispatch()
         self._cleared_below = cleared_after
         return self._ring_after_fire(len(ends_f))
@@ -1378,11 +1446,29 @@ class WindowOperator:
             self._inflight.append(ev)
 
     def _throttle(self) -> None:
+        """The ingest's own backpressure, unless a driver throttles."""
+        if not self.external_throttle:
+            self.throttle()
+
+    def throttle(self) -> None:
         """Backpressure: wait on the oldest outstanding step once more
-        than ``max_inflight_steps`` are in flight."""
+        than ``max_inflight_steps`` are in flight. Each step is the CUDA
+        event recorded on the stream right behind its launches
+        (``_note_dispatch``); ``readiness`` says how the wait learns
+        that the card has passed it. 'piggyback' blocks in
+        ``Event.synchronize()``, the host thread asleep in the CUDA
+        runtime until then; 'probe' polls ``Event.query()``, yielding
+        the thread between polls (the reference's is_ready spin on its
+        in-flight marker). Either way no copy or launch is added, and
+        the state and rows are the same."""
         t0 = time.perf_counter()
         while len(self._inflight) > self.max_inflight_steps:
-            self._inflight.popleft().synchronize()
+            ev = self._inflight.popleft()
+            if self.readiness == "piggyback":
+                ev.synchronize()
+            else:
+                while not ev.query():
+                    time.sleep(0)
         self._resolve_overflow(bound=self.max_inflight_steps)
         self.timer.collect()
         self.prof["pb_throttle_wait"] += time.perf_counter() - t0

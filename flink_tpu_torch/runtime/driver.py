@@ -11,7 +11,22 @@ batch on the card. With ``pipeline.sub-batches`` K > 1 the chained
 source is subdivided into K bit-exact slices per logical batch, each
 its own step with its own watermark advance. A batch the operator's
 devgen gates refuse is made on the host and fed normally (metric
-``devgen_host_batches``).
+``devgen_host_batches``), already at sub-batch size when the source was
+subdivided.
+
+With K > 1 a host-fed logical batch is pushed as K contiguous slices
+(host-plane sub-batching): after each slice the watermark clock
+advances, fires dispatch and landed fires are delivered, so rows reach
+the sinks at sub-batch cadence. Records keep their order, so committed
+rows are the K = 1 run's; only the grouping of fires is finer. The
+watermark's max timestamp is still taken per logical batch.
+
+The driver throttles its window operators (``external_throttle``): after
+every host-fed push (each slice), and after a device-made step at every
+sub-batch under ``pipeline.readiness`` 'piggyback' or at the last
+sub-batch of each logical batch under 'probe', as the reference's
+driver does. The in-flight credit is ``pipeline.max-inflight-steps`` x
+K, except for a device chain whose source cannot subdivide.
 
 A host-fed window operator may hold its last batch back for the next
 watermark advance (its native lane's fused step); the end-of-input
@@ -30,10 +45,11 @@ Fired windows are delivered from the same thread, in fire order: after
 every loop pass the driver polls the operators' emit rings for copies
 that have landed and delivers the packed fires whose copies have landed
 (never waiting on the device); at end of input it drains everything
-with a barrier. Checkpointing, the cross-host exchange, batch
-mode, rescaling, the debloater, savepoints and host-plane sub-batching
-are not ported (ROADMAP.md); the configuration check and the driver
-refuse confs that ask for them.
+with a barrier (``pipeline.emit-defer`` above 0, which times the
+reference's drain thread, is refused). Checkpointing, the cross-host
+exchange, batch mode, rescaling, the debloater and savepoints are not
+ported (ROADMAP.md); the configuration check and the driver refuse confs
+that ask for them.
 """
 from __future__ import annotations
 
@@ -49,9 +65,6 @@ from flink_tpu_torch.config import (
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.compiler import ExecutionPlan
 from flink_tpu_torch.time.watermarks import LONG_MIN, make_generator
-
-# source batches each split generates ahead on its feeder thread
-PREFETCH_DEPTH = 2
 
 Batch = Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]  # data, ts, valid
 
@@ -86,7 +99,16 @@ class Driver:
         self._sub_batches = int(config.get(PipelineOptions.SUB_BATCHES))
         self._base_inflight = int(
             config.get(PipelineOptions.MAX_INFLIGHT_STEPS))
+        self._readiness = str(
+            config.get(PipelineOptions.READINESS)).strip().lower()
+        # source batches each split generates ahead on its feeder thread
+        self._prefetch = int(config.get(PipelineOptions.SOURCE_PREFETCH))
         self._build_ops()
+        # the loop throttles its window operators at the reference's
+        # cadence (_throttle_ops)
+        for op in self._ops.values():
+            if hasattr(op, "throttle"):
+                op.external_throttle = True
         # a window feeding another stateful operator delivers each fire
         # at once, as the reference does, so the next stage has the rows
         # before its own watermark passes them
@@ -98,14 +120,6 @@ class Driver:
         self._dev_chains: Dict[int, Tuple[int, DeviceGeneratorSource, int]] = {}
         for sid in plan.sources:
             self._maybe_chain_device_source(sid, plan.node(sid))
-        unchained = [sid for sid in plan.sources if sid not in self._dev_chains]
-        if self._sub_batches > 1 and unchained:
-            raise NotImplementedError(
-                f"pipeline.sub-batches={self._sub_batches} with a host-fed "
-                "source: host-plane sub-batching (the reference driver's "
-                "_ingest_host_subbatched) is still to port (ROADMAP.md); "
-                "only a device-made source chained into its window "
-                "operator runs sub-batches")
 
     def _reaches_stateful(self, nid: int) -> bool:
         todo = list(self.plan.node(nid).downstream)
@@ -139,6 +153,7 @@ class Driver:
             max_inflight_steps=self._base_inflight * self._sub_batches,
             max_out_of_orderness_ms=max(ooo),
             fire_gate=bool(self.config.get(PipelineOptions.FIRE_GATE)),
+            readiness=self._readiness,
             backend=str(self.config.get(StateOptions.BACKEND)).strip().lower(),
             allow_drops=bool(self.config.get(StateOptions.ALLOW_DROPS)),
             mesh_plan=self.mesh_plan,
@@ -188,27 +203,39 @@ class Driver:
     def _push_device_batch(self, sid: int, split_ix: int,
                            marker: "_DevBatch") -> bool:
         """Hand a device-made batch to its operator; False when a devgen
-        gate closed and the batch must be fed from the host."""
+        gate closed and the batch must be fed from the host. Under
+        'probe' readiness a subdivided chain rate-matches at the last
+        sub-batch of each logical batch only (a probe a logical batch,
+        as the reference amortizes them); under 'piggyback' at every
+        sub-batch."""
         t0 = time.perf_counter()
-        wid, _, _ = self._dev_chains[sid]
+        wid, _, factor = self._dev_chains[sid]
         ok = self._ops[wid].process_batch_device(marker.index)
         if ok:
             self.metrics["records_in"] += marker.n
             self.metrics["batches"] += 1
+            if (factor == 1 or self._readiness == "piggyback"
+                    or (marker.index + 1) % factor == 0):
+                self._throttle_ops()
             self._wm_gens[sid][split_ix].on_batch(marker.ts_max)
         self.prof["push"] += time.perf_counter() - t0
         return ok
 
     def _host_batch_for(self, sid: int, marker: "_DevBatch"):
-        """The records of a device-made batch, made on the host."""
+        """(the records of a device-made batch, made on the host; whether
+        they are a sub-batch already). A subdivided source makes the
+        bit-exact sub-batch slice, which the host path must not slice K
+        ways again; a logical batch is sliced as any host-fed one."""
         _, src, factor = self._dev_chains[sid]
-        if factor == 1 and self._sub_batches > 1:
-            raise NotImplementedError(
-                "a devgen gate sent a logical batch to the host under "
-                "pipeline.sub-batches > 1: host-plane sub-batching is "
-                "still to port (ROADMAP.md)")
         self.metrics["devgen_host_batches"] += 1
-        return src.gen("0", marker.index)
+        return src.gen("0", marker.index), factor > 1
+
+    def _throttle_ops(self) -> None:
+        """Backpressure: every window operator waits on its oldest
+        in-flight step while it has more than its credit."""
+        for op in self._ops.values():
+            if hasattr(op, "throttle"):
+                op.throttle()
 
     # -- the streaming loop -------------------------------------------------
     def run(self, job_name: str = "job"):
@@ -230,8 +257,9 @@ class Driver:
                         srcs[sid][i] = _dev_batch_markers(
                             self._dev_chains[sid][1])
                         continue
-                    srcs[sid][i] = _Prefetcher(n.source.open_split(split, 0),
-                                               PREFETCH_DEPTH)
+                    it = n.source.open_split(split, 0)
+                    srcs[sid][i] = (_Prefetcher(it, self._prefetch)
+                                    if self._prefetch > 0 else iter(it))
             active = {sid: sorted(its) for sid, its in srcs.items()}
             while any(active.values()):
                 for sid, alive in active.items():
@@ -242,19 +270,22 @@ class Driver:
                         if nxt is None:
                             alive.remove(split_ix)
                             continue
+                        already_sub = False
                         if isinstance(nxt, _DevBatch):
                             if self._push_device_batch(sid, split_ix, nxt):
                                 continue
-                            nxt = self._host_batch_for(sid, nxt)
+                            nxt, already_sub = self._host_batch_for(sid, nxt)
                         data, ts = nxt
                         ts = np.asarray(ts, np.int64)
-                        self._push_source_batch(sid, data, ts)
+                        if self._sub_batches > 1 and not already_sub:
+                            self._ingest_host_subbatched(sid, split_ix, alive,
+                                                         data, ts)
+                        else:
+                            self._push_source_batch(sid, data, ts)
                         if len(ts):
                             self._wm_gens[sid][split_ix].on_batch(int(ts.max()))
                     # exhausted splits stop holding the watermark back
-                    gens = [self._wm_gens[sid][i] for i in alive] \
-                        or self._wm_gens[sid]
-                    self._out_wm[sid] = min(g.current() for g in gens)
+                    self._recombine_source_wm(sid, alive)
                     t3 = time.perf_counter()
                     self._propagate_watermarks()
                     self.prof["advance_wm"] += time.perf_counter() - t3
@@ -271,7 +302,9 @@ class Driver:
         finally:
             for its in srcs.values():
                 for it in its.values():
-                    it.close()
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        close()
         for n in self.plan.nodes.values():
             if n.kind == "sink":
                 n.sink.close()
@@ -298,11 +331,43 @@ class Driver:
         return out
 
     def _push_source_batch(self, sid: int, data, ts: np.ndarray) -> None:
+        """Push one host-fed batch (or slice) downstream, then throttle."""
         t0 = time.perf_counter()
         self.metrics["records_in"] += len(ts)
         self.metrics["batches"] += 1
         self._push_downstream(sid, (dict(data), ts, np.ones(len(ts), bool)))
+        self._throttle_ops()
         self.prof["push"] += time.perf_counter() - t0
+
+    def _recombine_source_wm(self, sid: int, alive) -> None:
+        """The source's watermark: the min over its live splits'
+        generators (over all of them once every split is exhausted)."""
+        gens = [self._wm_gens[sid][i] for i in alive] or self._wm_gens[sid]
+        self._out_wm[sid] = min(g.current() for g in gens)
+
+    def _ingest_host_subbatched(self, sid: int, split_ix: int, alive,
+                                data, ts: np.ndarray) -> None:
+        """Host-plane sub-batching (``pipeline.sub-batches`` = K > 1, the
+        reference driver's ``_ingest_host_subbatched``): the logical batch
+        is pushed as K contiguous slices (the last one ragged), and after
+        each slice the split's watermark generator sees the slice's
+        newest timestamp, the watermarks propagate (fires dispatch) and
+        landed fires are delivered. Record order is untouched, so the
+        watermark's meaning and the committed rows match the K = 1 run;
+        the caller still takes the logical batch's max timestamp."""
+        n = len(ts)
+        sub = max(1, -(-n // self._sub_batches))
+        for lo in range(0, n, sub):
+            hi = min(lo + sub, n)
+            self._push_source_batch(sid, {k: v[lo:hi] for k, v in data.items()},
+                                    ts[lo:hi])
+            if hi > lo:
+                self._wm_gens[sid][split_ix].on_batch(int(ts[lo:hi].max()))
+            self._recombine_source_wm(sid, alive)
+            t3 = time.perf_counter()
+            self._propagate_watermarks()
+            self.prof["advance_wm"] += time.perf_counter() - t3
+            self._drain_emits(barrier=False)
 
     def _push_downstream(self, nid: int, batch: Batch) -> None:
         for d in self.plan.node(nid).downstream:

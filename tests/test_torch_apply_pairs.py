@@ -118,3 +118,29 @@ def test_apply_pairs_u16_matches_preagg_u16():
     got = fk.apply_pairs_u16(torch.from_numpy(base.copy()), torch.from_numpy(buf))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref.counts))
     assert got.numpy()[slots].sum() > base[slots].sum()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 257, 5003])
+def test_apply_pairs_u16_real_triples_match_the_padded_reference(n):
+    """The native lane passes the real triples only: the first n triples,
+    as a view one triple into its storage (off a 16-byte boundary, as the
+    kernel's scalar head takes it), give the reference's counts on the
+    same triples padded as it pads them (one compiled shape, that of
+    test_apply_pairs_u16_matches_preagg_u16)."""
+    from flink_tpu_torch.ops.window import preagg_encode_u16
+
+    rng = np.random.default_rng(n + 1)
+    slots, ring, cap = 3000, 32, 8192
+    base = _state(rng, slots + 1, ring, 10, 30)
+    pairs = rng.integers(0, (slots + 1) * ring + 50, max(n, 1))
+    cnts = rng.integers(0, 0x10000, len(pairs))
+    held = np.full((n + 1, 3), 0x7777, np.uint16)
+    held[1:] = preagg_encode_u16(pairs[:n], cnts[:n], n)
+    view = torch.from_numpy(held)[1:]
+    assert view.storage_offset() == 3 and view.shape == (n, 3)
+    ref = jw._JIT_PREAGG_U16(JaxPaneState(None, None, None, jnp.asarray(base)),
+                             jnp.asarray(preagg_encode_u16(pairs[:n], cnts[:n],
+                                                           cap)),
+                             ring=ring, dump_row=slots)
+    got = fk.apply_pairs_u16(torch.from_numpy(base.copy()), view)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.counts))

@@ -1383,6 +1383,108 @@ def test_apply_pairs_u16(dev):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 7, 31, 32, 33, 257, 11_001, 110_000])
+def test_apply_pairs_u16_real_triples_lengths_and_alignment(dev, n, offset):
+    """A warp's 32 triples staged by 16-byte loads, the scalar head up to
+    the first 16-byte boundary and the ragged tail: n real triples at a
+    view ``offset`` triples into its storage (6 bytes off the boundary),
+    hot counts up to 0xFFFF, repeated pairs, padding triples and pairs in
+    the dump row and past the state among them; bit for bit against the
+    plain version."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.ops.window import preagg_encode_u16
+
+    rng = np.random.default_rng(n * 2 + offset)
+    slots, ring = 32768, 64
+    counts = _t(rng.integers(0, 9, (slots + 1, ring)).astype(np.int32), dev)
+    pairs = rng.integers(0, slots * ring, max(n, 1))
+    pairs[: n // 4] = pairs[n // 4: 2 * (n // 4)]      # repeated pairs
+    cnts = rng.integers(0, 0x10000, len(pairs))
+    if n >= 4:
+        pairs[1] = -1                                    # padding
+        pairs[2] = slots * ring + 5                      # the dump row
+        pairs[3] = (slots + 1) * ring + 3                # past the state
+        cnts[0] = 0xFFFF
+    tri = preagg_encode_u16(pairs[:n] & 0xFFFFFFFF, cnts[:n], n)
+    held = torch.full((n + offset + 4, 3), 0x1234, dtype=torch.uint16,
+                      device=dev)
+    view = held[offset:offset + n]
+    view.copy_(_t(tri, dev))
+    if n:
+        assert (view.data_ptr() % 16 == 6) == (offset == 1)
+    a, b = counts.clone(), counts.clone()
+    fk.apply_pairs_u16(a, view)
+    fk.apply_pairs_u16_plain(b, view)
+    assert torch.equal(a, b)
+    assert torch.equal(a, counts) == (n == 0)
+
+
+def _hot_wide_upload(rng, shape):
+    """The fused step's triple-form upload at the host-fed Q5 shapes: the
+    header (11 ends, one purged column) and the real triples of one
+    2^20-bid batch's pairs — ``hot``: 1,000 auctions at ring 32, ten of
+    them with half the bids (counts past 0xFFF); ``wide``: 10,000
+    auctions at ring 64 (a pair domain of 2^21)."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+    from flink_tpu_torch.ops.window import preagg_encode_u16
+
+    slots, pane_lo, pane_hi = 32768, 1000, 1020
+    ring, n_keys = (32, 1000) if shape == "hot" else (64, 10_000)
+    key_rows = rng.choice(slots, n_keys, replace=False)
+    panes = np.arange(pane_hi - 10, pane_hi + 1)
+    pairs = rng.permutation((key_rows[:, None] * ring
+                             + panes[None, :] % ring).reshape(-1))
+    cnts = rng.poisson((1 << 20) / len(pairs), len(pairs)) + 1
+    if shape == "hot":
+        cnts[:110] = rng.integers(0xFFF, 0x10000, 110)
+    n = len(pairs)
+    hdr = np.zeros(fk.FUSED_HDR, np.int32)
+    hdr[:6] = np.array([pane_lo, pane_hi, pane_lo], np.int64).view(np.int32)
+    cw = np.array([1 << ((pane_lo - 1) % ring)], np.uint64).view(np.int32)
+    hdr[7], hdr[6] = cw[0], cw[1]
+    deltas = np.full(fk.MIN_FIRE_PAD, fk.DELTA_SENTINEL, np.int64)
+    deltas[:11] = np.arange(pane_hi - 9, pane_hi + 2) - pane_lo
+    hdr[8:8 + fk.MIN_FIRE_PAD] = deltas.astype(np.int32)
+    t = np.full(2 * ((6 * n + 3) // 4), 0xFFFF, np.uint16)
+    t[:3 * n] = preagg_encode_u16(pairs, cnts, n).reshape(-1)
+    counts = _live_counts(rng, slots + 1, ring, pane_lo, pane_hi)
+    return counts, np.concatenate([hdr, t.view(np.int32)]), key_rows
+
+
+@pytest.mark.parametrize("shape", ["hot", "wide"])
+@pytest.mark.parametrize("gate", [True, False])
+def test_fused_step_triple_form(dev, shape, gate):
+    """The fused step on the triple form at the hot-key and wide Q5
+    shapes: state, emit ring (last row excepted) and the error word bit
+    for bit against the plain version, and the same counts as the
+    standalone F3 followed by the step on no pairs."""
+    from flink_tpu_torch.kernels import fused_kernels as fk
+
+    rng = np.random.default_rng(17 if shape == "hot" else 18)
+    counts_np, buf_np, key_rows = _hot_wide_upload(rng, shape)
+    counts, buf = _t(counts_np, dev), _t(buf_np, dev)
+    slots = counts.shape[0] - 1
+    used = torch.zeros(slots + 1, dtype=torch.bool, device=dev)
+    used[_t(key_rows, dev)] = True
+    kw = dict(ppw=10, n=1, sel_cap=256, dump_row=slots, fire_gate=gate,
+              fire_pad=16 if gate else 64, form=fk.FORM_TRIPLES)
+    rings = [torch.zeros((2048 + 2, 3), dtype=torch.int32, device=dev)
+             for _ in range(3)]
+    states = [counts.clone() for _ in range(3)]
+    fk.fused_step(states[0], rings[0], buf, used, **kw)
+    fk.fused_step_plain(states[1], rings[1], buf, used, **kw)
+    fk.apply_pairs_u16(states[2], fk.pair_triples(buf))
+    fk.fused_step(states[2], rings[2], buf[:fk.FUSED_HDR].contiguous(), used,
+                  **dict(kw, form=fk.FORM_WORDS))
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(rings[0][:-1], rings[1][:-1])
+    assert torch.equal(states[0], states[2])
+    assert torch.equal(rings[0][:-1], rings[2][:-1])
+    assert int(rings[0][0, 0]) >= 11
+    wk.check_errors(dev)
+
+
 @pytest.mark.parametrize("ring,n_ends,gate", [
     (16, 1, True), (32, 11, True), (32, 11, False), (32, 0, True),
     (32, 0, False), (64, 64, True), (64, 17, False)])

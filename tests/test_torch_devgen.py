@@ -613,12 +613,13 @@ def test_source_refusals():
 @pytest.mark.parametrize("conf,err,match", [
     ({"pipeline.sub-batches": 0}, ValueError, ">= 1"),
     ({"pipeline.sub-batches": 3}, ValueError, "divide"),
-    ({"pipeline.sub-batches": 4}, NotImplementedError,
-     "_ingest_host_subbatched"),
+    ({"pipeline.sub-batches": 4, "pipeline.readiness": "telepathy"},
+     ValueError, "pipeline.readiness"),
 ])
 def test_sub_batches_checks(conf, err, match):
-    """K must be >= 1 and divide the microbatch size; a host-fed source
-    with K > 1 still raises, naming host-plane sub-batching."""
+    """K must be >= 1 and divide the microbatch size, and the throttle's
+    readiness must be one the driver knows (a host-fed source with K > 1
+    runs: tests/test_torch_subbatch.py)."""
     gen_ = GeneratorSource(lambda split, i: None if i else (
         {"auction": np.arange(8)}, np.arange(8)))
     env = StreamExecutionEnvironment(Configuration(dict(

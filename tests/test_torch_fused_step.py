@@ -3,7 +3,9 @@ JAX function it replaces (``_JIT_FUSED_STEP``, flink_tpu/ops/window.py),
 run as the JAX tests run it (CPU XLA). On CPU tensors the wrapper takes
 its plain PyTorch version; tests/test_torch_cuda.py holds the CUDA
 kernels against the same plain version on the card. The lane's two
-pair applies (F1, F3) are in tests/test_torch_apply_pairs.py.
+pair applies (F1, F3) are in tests/test_torch_apply_pairs.py; the fused
+step's triple form (F3's triples behind the header) is held here against
+the reference's u16 apply followed by its step.
 
 Every comparison is exact (integer work on the count lane): the pane
 state and the emit ring, head row included, but for its last row — the
@@ -18,6 +20,7 @@ from flink_tpu.ops import window as jw
 from flink_tpu.ops.aggregates import count as jax_count
 from flink_tpu.state.keyed import PaneState as JaxPaneState
 from flink_tpu_torch.kernels import fused_kernels as fk
+from flink_tpu_torch.ops.window import preagg_encode_u16
 from test_torch_threads import capped_torch_threads  # noqa: F401
 
 HDR = fk.FUSED_HDR
@@ -132,6 +135,19 @@ def test_fused_step_every_fire_pad_bucket(fire_pad):
                              seed=fire_pad, clear=[7, 40]))
 
 
+def test_fused_step_fire_sized_to_its_ends():
+    """The operator sizes a gated step's fire to its end count (11 here,
+    where the reference rounds up to 16): the same state and rows as the
+    reference's step at that width and as the port's at 16."""
+    exact = _fused_pair(ring=64, n_ends=11, fire_pad=11, gate=True, seed=23,
+                        clear=[2, 50])
+    _assert_same(exact)
+    bucket = _fused_pair(ring=64, n_ends=11, fire_pad=16, gate=True, seed=23,
+                         clear=[2, 50])
+    np.testing.assert_array_equal(exact[1][0], bucket[1][0])
+    np.testing.assert_array_equal(exact[1][1], bucket[1][1])
+
+
 @pytest.mark.parametrize("n_ends", [0, 1, 64])
 @pytest.mark.parametrize("clear", [(), (4, 5)])
 def test_fused_step_gate_on_and_off_are_byte_identical(n_ends, clear):
@@ -152,6 +168,79 @@ def test_fused_step_gate_on_and_off_are_byte_identical(n_ends, clear):
         np.testing.assert_array_equal(rr[:-1], emit[:-1])
     else:
         assert rr[0, 0] > emit[0, 0]      # rows appended, wrapping the ring
+
+
+# -- F2 in the triple form ------------------------------------------------------
+
+def _triple_words(pairs, cnts):
+    """The C finalize's triple form after the header: ``[pair lo16, pair
+    hi16, count]`` uint16 a pair, as int32 words (0xFFFF fills the last
+    word's upper half for an odd count)."""
+    n = len(pairs)
+    t = np.full(2 * ((6 * n + 3) // 4), 0xFFFF, np.uint16)
+    t[:3 * n] = preagg_encode_u16(pairs, cnts, n).reshape(-1)
+    return t.view(np.int32)
+
+
+@pytest.mark.parametrize("ring,fire_pad,gate,n_pairs", [
+    (32, 8, True, 1201),       # an odd count: a 2-byte tail
+    (64, 16, True, 1200),
+    (64, 64, False, 1200)])
+def test_fused_step_triple_form_matches_preagg_u16_then_the_step(
+        ring, fire_pad, gate, n_pairs):
+    """The triple form (``FORM_TRIPLES``, the real triples behind the
+    header) against the reference's ``apply_preagg_u16_kernel`` on the
+    same triples padded as it pads them (flink_tpu/ops/window.py:145),
+    then its fused step with no pairs (:587): state and emit ring exact.
+    Counts of 0xFFF, 0xFFFE and 0xFFFF; a pair in the dump row (the u16
+    form adds it there) and one past the state (dropped). The reference
+    programs are the shapes ``_fused_pair`` compiles."""
+    rng = np.random.default_rng(ring + n_pairs)
+    slots, ppw, n_top = 600, 10, 2
+    rows = slots + 1
+    pane_lo = 1000 + ring
+    pane_hi = pane_lo + min(ring - 1, 60)
+    base = _state(rng, rows, ring, pane_lo, pane_hi)
+    live = np.arange(pane_lo, pane_hi + 1) % ring
+    cells = np.unique(rng.choice(slots, 4 * n_pairs).astype(np.int64) * ring
+                      + rng.choice(live, 4 * n_pairs))
+    pairs = rng.permutation(cells)[:n_pairs - 2]
+    cnts = rng.integers(1, 0x10000, len(pairs))
+    cnts[:3] = [0xFFF, 0xFFFE, 0xFFFF]
+    pairs = np.concatenate([pairs, [slots * ring + 1, rows * ring + 3]])
+    cnts = np.concatenate([cnts, [9, 9]])
+    order = rng.permutation(n_pairs)
+    pairs, cnts = pairs[order], cnts[order]
+    ends = sorted(rng.choice(np.arange(pane_lo - 2, pane_hi + ppw + 3),
+                             min(5, fire_pad), replace=False).tolist())
+    hdr = _header(pane_lo, pane_hi, pane_lo - 7, ends, [3, ring - 1])
+    used = rng.random(rows) < 0.9
+    used[slots] = False
+    emit = np.zeros((ROW_CAP + 2, 3), np.int32)
+    emit[1:ROW_CAP + 1] = rng.integers(-5, 5, (ROW_CAP, 3))
+    kw = dict(agg=jax_count(), panes_per_window=ppw, ring=ring, sel_cap=256,
+              by="count", topn=n_top, dump_row=slots, fire_gate=gate,
+              fire_pad=fire_pad)
+    st = jw._JIT_PREAGG_U16(JaxPaneState(None, None, None, jnp.asarray(base)),
+                            jnp.asarray(preagg_encode_u16(pairs, cnts, 4096)),
+                            ring=ring, dump_row=slots)
+    st, ref_ring, _ = jw._JIT_FUSED_STEP(
+        st, jnp.asarray(emit),
+        jnp.asarray(np.concatenate([hdr, np.full(4096, -1, np.int32)])),
+        jnp.asarray(used), **kw)
+    buf = np.concatenate([hdr, _triple_words(pairs, cnts)])
+    assert fk.pair_triples(torch.from_numpy(buf)).shape == (n_pairs, 3)
+    counts = torch.from_numpy(base.copy())
+    port_ring = torch.from_numpy(emit.copy())
+    fk.fused_step(counts, port_ring, torch.from_numpy(buf),
+                  torch.from_numpy(used), ppw=ppw, n=n_top, sel_cap=256,
+                  dump_row=slots, fire_gate=gate, fire_pad=fire_pad,
+                  form=fk.FORM_TRIPLES)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(st.counts))
+    np.testing.assert_array_equal(port_ring.numpy()[:-1],
+                                  np.asarray(ref_ring)[:-1])
+    assert counts.numpy()[slots, 1] == base[slots, 1] + 9  # the dump row
+    assert np.asarray(ref_ring)[0, 0] > 0
 
 
 def test_decode_header_reads_the_fields():
@@ -176,3 +265,6 @@ def test_fused_step_refuses_what_the_header_cannot_carry():
     with pytest.raises(ValueError, match="fire_pad"):
         fk.fused_step(counts[:, :16].contiguous(), ring, buf, used,
                       **dict(kw, fire_pad=65))
+    with pytest.raises(ValueError, match="form"):
+        fk.fused_step(counts[:, :16].contiguous(), ring, buf, used,
+                      **dict(kw, form=2))

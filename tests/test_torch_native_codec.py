@@ -2,8 +2,9 @@
 ``flink_tpu_torch.native_codec``) against its numpy key table and
 against the reference's codec (``flink_tpu.native_codec``) on the same
 inputs: table lookups and inserts, the splitmix64 hash, the host
-combine, the fused ingest scan with its miss list, and both finalizes —
-all exact, bit for bit. A failed build raises."""
+combine, the fused ingest scan with its miss list, and its three
+finalizes (the triple form against the reference's encoder) — all
+exact, bit for bit. A failed build raises."""
 import os
 
 import numpy as np
@@ -154,6 +155,54 @@ def test_finalize_pairs_and_u32_into_a_given_buffer():
         bufs.append(buf)
     np.testing.assert_array_equal(*bufs)
     assert (bufs[0][:128] == -1).all()
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_finalize_u16_writes_the_real_triples_of_the_reference_encoder(odd):
+    """The triple finalize against the reference's scan and its
+    ``preagg_encode_u16`` on the same (real) pairs, byte for byte: FUSED_HDR
+    words of -1, then ``[pair lo16, pair hi16, count]`` per pair in the
+    scan's order with no padding (a hot key past 0xFFF, counts up to
+    0xFFFF), the last word's upper half 0xFFFF for an odd pair count, the
+    caller's buffer untouched past them and the histogram left at
+    zero."""
+    from flink_tpu.ops.window import preagg_encode_u16 as ref_encode_u16
+
+    pane_ms, ring = 10, 8
+    keys, ts = _batch(8, 80_000, 45, 200, pane_ms)
+    keys += 5                                         # 45 x 8 pairs
+    keys[:0xFFFF] = 3                                 # one pair at 0xFFFF
+    ts[:0xFFFF] = 40
+    keys[0xFFFF:0xFFFF + 0x1000] = 4                  # one at 0x1000
+    ts[0xFFFF:0xFFFF + 0x1000] = 50
+    if odd:
+        keys[-1], ts[-1] = 2, 0                       # one pair more
+    known = np.arange(50, dtype=np.int64)
+    ours, theirs = _tables(known, known)
+    ws_ref = ref_nc.PreaggWorkspace(50 * ring, 0)
+    res, _ = ref_nc.ingest_fused_scan_native(
+        keys, ts, theirs, pane_ms, 0, ring, ws_ref, 1024, -10 ** 9, -2 ** 63, 0)
+    pairs, cnts = ref_nc.ingest_fused_finalize_pairs_native(res, ws_ref)
+    n = len(pairs)
+    assert n % 2 == odd and cnts.max() == 0xFFFF and 0x1000 in cnts
+    want = ref_encode_u16(pairs, cnts, n)
+    ws = nc.PreaggWorkspace(50 * ring, 0)
+    res, _ = nc.ingest_fused_scan_native(
+        keys, ts, ours, pane_ms, 0, ring, ws, 1024, -10 ** 9, -2 ** 63, 0)
+    out = np.full(128 + 4096, 77, np.int32)
+    buf = nc.ingest_fused_finalize_u16_native(res, ws, 128, out)
+    assert not ws.hist.any()
+    assert buf.base is out or buf.base is out.base
+    assert len(buf) == 128 + (6 * n + 3) // 4 and (buf[:128] == -1).all()
+    assert (out[len(buf):] == 77).all()
+    tail = buf[128:].view(np.uint16)
+    np.testing.assert_array_equal(tail[:3 * n], want.reshape(-1))
+    assert tail[3 * n:].tolist() == ([0xFFFF] if odd else [])
+    # a new array when no buffer is given, with the same words
+    res, _ = nc.ingest_fused_scan_native(
+        keys, ts, ours, pane_ms, 0, ring, ws, 1024, -10 ** 9, -2 ** 63, 0)
+    np.testing.assert_array_equal(
+        nc.ingest_fused_finalize_u16_native(res, ws, 128), buf)
 
 
 def test_scan_overflow_declines_and_rezeroes():

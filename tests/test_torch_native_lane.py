@@ -9,9 +9,11 @@ so must the pane state.
 
 Covered: an advance firing 16, 17, 64 and 65 windows (65 overflows the
 fused step's header, so both flush the stash and fire in chunks of 16),
-rings of 32 and 64 (at 64 the pair domain outgrows the u32 word and the
-batch goes up as u16 triples with no fused step), pair counts past
-0xFFF, late records with re-fires, ring growth inside the scan with a
+rings of 32 and 64 (at 64 the pair domain outgrows the u32 word: the
+reference sends the batch up as u16 triples and fires in chunks, the
+port stashes the triples for one fused step), pair counts past 0xFFF
+(the same split; without top-n both fold the triples in at once), late
+records with re-fires, ring growth inside the scan with a
 stash pending, snapshot and restore with a stash pending, the fire gate
 on and off, and Q5, WordCount and bid-aggregate jobs through
 ``env.execute``."""
@@ -88,7 +90,13 @@ def step_both(ref, port, step):
     if step[0] == "batch":
         ref.process_batch(step[1], step[2], {})
         port.process_batch(step[1], step[2], {})
-        assert (port._stash is not None) == (ref._stash_u32 is not None)
+        # both stash the u32 words alike; where the reference sends u16
+        # triples straight up, the port may stash them for a fused step
+        if ref._stash_u32 is not None:
+            assert port._stash is not None
+            assert port._stash.form == fk.FORM_WORDS
+        else:
+            assert port._stash is None or port._stash.form == fk.FORM_TRIPLES
         return []
     a = rows_of(ref.advance_watermark(step[1]))
     b = rows_of(port.advance_watermark(step[1]))
@@ -161,24 +169,37 @@ def test_q5_shaped_stream_in_order(calls, gate):
     assert port.plan.ring == 32 and calls["apply_pairs_u16"] == 0
 
 
-def test_ring_64_goes_up_as_u16_without_a_fused_step(calls):
+@pytest.mark.parametrize("advances", ["one_of_30_ends", "three_of_10_ends"])
+def test_ring_64_stashes_triples_for_fused_steps_of_up_to_16_ends(calls,
+                                                                  advances):
     """At ring 64 Q5's pair domain (32,768 slots x 64 = 2^21) outgrows the
-    u32 word's 20 bits: both packages send the batch as u16 triples and
-    fire through the chunked path."""
+    u32 word's 20 bits: the reference sends the batch as u16 triples and
+    fires in chunks of 16 ends; the port stashes the C-written triples.
+    An advance of up to 16 ends fires them in one fused step (rows
+    row-major over its ends: the chunk's order); a wider one flushes them
+    through ``apply_pairs_u16`` and fires in chunks, as the reference
+    does. Rows equal the reference's in order either way."""
     rng = np.random.default_rng(4)
     ref, port = make_pair(1_000, 100, 1, shards=128, slots=256)
-    steps = [span_batch(rng, 20_000, 100, 0, 30),
-             span_batch(rng, 20_000, 100, 0, 30), ("wm", 2_000)]
+    batches = [span_batch(rng, 20_000, 100, 0, 30),
+               span_batch(rng, 20_000, 100, 0, 30)]
+    if advances == "one_of_30_ends":
+        steps = batches + [("wm", 2_000)]
+    else:
+        steps = [batches[0], ("wm", 1_000), batches[1], ("wm", 2_000),
+                 ("wm", 2_999)]
     fired = drive(ref, port, steps)
     assert port.plan.ring == 64 and port.layout.slots * 64 == 1 << 21
-    assert calls["apply_pairs_u16"] >= 1 and calls["fused_step"] == 0
+    if advances == "one_of_30_ends":
+        assert calls["apply_pairs_u16"] >= 1 and calls["fused_step"] == 0
+    else:
+        assert calls["fused_step"] >= 1 and calls["apply_pairs_u16"] == 0
     assert len(fired) > 20
 
 
-def test_pair_counts_past_0xfff_take_u16(calls):
-    """A hot key with more than 0xFFF records in one pane."""
-    rng = np.random.default_rng(5)
-    ref, port = make_pair(1_000, None, 2)
+def hot_key_steps(rng):
+    """Four batches with one key holding more than 0xFFF records in a
+    pane, each followed by an advance."""
     steps = []
     for i in range(4):
         k = rng.integers(0, 40, 14_000).astype(np.int64)
@@ -186,8 +207,27 @@ def test_pair_counts_past_0xfff_take_u16(calls):
         k[:10_000] = 7
         ts[:10_000] = i * 3_000 + rng.integers(0, 2_000, 10_000)
         steps += [("batch", k, ts.astype(np.int64)), ("wm", i * 3_000 + 2_999)]
-    drive(ref, port, steps)
-    assert calls["apply_pairs_u16"] >= 2
+    return steps
+
+
+def test_pair_counts_past_0xfff_take_triples_in_a_fused_step(calls):
+    """A hot key with more than 0xFFF records in one pane: the reference
+    sends u16 triples and fires in chunks, the port fires the stashed
+    triples in one fused step a batch."""
+    rng = np.random.default_rng(5)
+    ref, port = make_pair(1_000, None, 2)
+    drive(ref, port, hot_key_steps(rng))
+    assert calls["fused_step"] >= 3 and calls["apply_pairs_u16"] == 0
+
+
+def test_pair_counts_past_0xfff_without_top_n_take_u16(calls):
+    """The same hot key on a count-only operator without top-n: no fused
+    step, so both fold the triples in at once (``apply_pairs_u16`` on
+    the C-written real triples)."""
+    rng = np.random.default_rng(5)
+    ref, port = make_pair(1_000, None, 0)
+    drive(ref, port, hot_key_steps(rng))
+    assert calls["apply_pairs_u16"] >= 3 and calls["fused_step"] == 0
 
 
 def test_late_records_refire_on_the_lane(calls):
