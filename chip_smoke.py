@@ -193,6 +193,22 @@ mesh).
    against a numpy golden, with its rows, ring, the bytes it held on the
    card and its events/s.
 
+15. ``checkpoint`` — exactly-once checkpoints: Q5 with bids made on the
+   card at the headline shape (16 x 2^22, 4 sub-batches), Q5 host-fed
+   (16 x 2^20, native lane) and WindowWordCount (8 x 2^20), each into a
+   ``TransactionalCollectSink`` without checkpoints, with one at every
+   batch boundary once the last is durable (interval 1 ms), under
+   faults (``faults.inject`` fails the third checkpoint write, a sink
+   fails its attempt at a third of the rows; ``run_with_recovery``,
+   fixed delay), then without and with again (the warm pair gives the
+   rates): every run's rows equal the golden, the chaos run's equal the
+   fault-free run's in commit order, and a retained devgen checkpoint
+   must hold a position in the middle of a logical batch. Printed: the
+   completed checkpoints, the loop thread's ms a checkpoint (the fire
+   drain and the freeze, p50 and max), the executor's persist ms (p50
+   and max), bytes a checkpoint, and events/s with checkpoints beside
+   without (smoke figures, not a benchmark).
+
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
 the two ``scatter_lanes`` cases above (one JSON line).
 
@@ -252,7 +268,15 @@ copied in and run both in one call, in turns. The rows:
   on one source block of a mesh chunk (the same with ``bucket_records``,
   count only and with M2's lanes) and the chunk's whole exchange; and
   ``segment_lanes`` at job E's fire, on the edge case and at job E2's
-  largest fire, in each group form the tree has.
+  largest fire, in each group form the tree has;
+- ``checkpoint_cost``: the headline devgen job (16 x 2^22, K = 4) in
+  turns without checkpoints, with them, and with the checkpoint
+  executor's steps swapped out one at a time (the JAX package's byte
+  assembly of the blobs, no fsync, 256 KiB writes, a sleep for the
+  write, no write, no encode, no fetch): wall seconds, checkpoints and
+  the final checkpoint's seconds a run, rows against the golden.
+
+With ``--checkpoint`` it builds the kernels and runs only phase 15.
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -3023,7 +3047,7 @@ def device_ms_per_call(by_name):
 def phase_q5_devgen(torch, np):
     from flink_tpu_torch.config import Configuration, PipelineOptions
     from flink_tpu_torch.kernels import window_kernels as wk
-    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream_device
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig
 
     path = os.path.join(ROOT, "confs", "bench_q5_headline.conf")
     conf = Configuration.from_file(path)
@@ -3035,10 +3059,7 @@ def phase_q5_devgen(torch, np):
                         hot_ratio=4)
 
     def golden(n_logical):
-        src = bid_stream_device(cfg)
-        return q5_golden(np, (src.keys_ts_host(i) for i in range(n_logical)),
-                         cfg.num_active_auctions, window_panes=10,
-                         pane_ms=1000)
+        return devgen_golden(np, dataclasses.replace(cfg, n_batches=n_logical))
 
     # one short warm-up run at the same shapes (first-use allocations:
     # pinned buffers, the emit ring, the caching allocator's blocks),
@@ -3142,6 +3163,283 @@ def phase_q5_devgen(torch, np):
                          for k, (_, w) in by_k.items()}}
     emit(out)
     return launches, out["profiled"]["device_ms_per_call"]
+
+
+CKPT_DEVGEN_BATCHES = 16        # the checkpoint phase: headline logical batches
+CKPT_HOST_BATCHES = 16          # Q5 host-fed, 2^20 bids each
+CKPT_WW_BATCHES = 8             # WindowWordCount, 2^20 words each
+CKPT_FAULT = "checkpoint.storage.write=raise x1 +2"
+_DEVGEN_GOLDEN = {}
+
+
+def devgen_golden(np, cfg):
+    """Q5's golden rows over ``cfg``'s device-made bids (kept: the
+    q5_devgen and checkpoint phases share it)."""
+    from flink_tpu_torch.nexmark.generator import bid_stream_device
+
+    key = (cfg.batch_size, cfg.n_batches, cfg.events_per_ms,
+           cfg.num_active_auctions, cfg.hot_ratio)
+    if key not in _DEVGEN_GOLDEN:
+        src = bid_stream_device(cfg)
+        _DEVGEN_GOLDEN[key] = q5_golden(
+            np, (src.keys_ts_host(i) for i in range(cfg.n_batches)),
+            cfg.num_active_auctions, window_panes=10, pane_ms=1000)
+    return _DEVGEN_GOLDEN[key]
+
+
+def ms_stats(np, values):
+    vals = [v for v in values if v is not None]
+    if not vals:
+        return {"n": 0, "p50": None, "max": None}
+    return {"n": len(vals), "p50": float(np.median(vals)),
+            "max": float(max(vals))}
+
+
+def run_checkpointed(torch, np, build, conf, label, root, mode, limit=0):
+    """One job through ``run_with_recovery`` into a
+    ``TransactionalCollectSink``: mode 'none' without checkpoints (the
+    final commit at end of input), 'clean' with a checkpoint at every
+    batch boundary once the last is durable (interval 1 ms), 'chaos'
+    the same with the storage fault ``CKPT_FAULT`` and a sink that fails
+    its attempt at ``limit`` rows; each failure restarts the job from
+    its latest checkpoint. Returns the committed rows in commit order,
+    the wall seconds, the launches and the checkpoint figures."""
+    from flink_tpu_torch import faults
+    from flink_tpu_torch.api.sinks import TransactionalCollectSink
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.obs.tracing import tracer
+    from flink_tpu_torch.runtime.supervisor import run_with_recovery
+
+    class PoisonedSink(TransactionalCollectSink):
+        seen = 0
+        fired = False
+
+        def write(self, batch):
+            super().write(batch)
+            self.seen += len(next(iter(batch.values())))
+            if mode == "chaos" and not self.fired and self.seen >= limit:
+                self.fired = True
+                raise RuntimeError(f"{label}: poisoned sink at {self.seen} rows")
+
+    values = dict(conf.to_dict(), **{
+        "execution.checkpointing.dir": root,
+        "execution.checkpointing.interval": 0 if mode == "none" else 1,
+        "restart-strategy.type": "fixed-delay",
+        "restart-strategy.fixed-delay.attempts": 5 if mode == "chaos" else 0,
+        "restart-strategy.fixed-delay.delay": 1})
+    if mode == "chaos":
+        values.update({"faults.inject": CKPT_FAULT, "faults.seed": SEED})
+    sink = PoisonedSink()
+    envs = []
+
+    def build_env(c):
+        envs.append(build(c, sink))
+        return envs[-1]
+
+    tracer.clear()
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = run_with_recovery(build_env, Configuration(values),
+                                job_name=label)
+        torch.cuda.synchronize()
+    finally:
+        faults.clear()
+    wall = time.perf_counter() - t0
+    launches = dict(wk.LAUNCHES)
+    barrier = [s["duration_ms"] for s in tracer.spans("checkpoint.barrier")]
+    freeze = [s["duration_ms"] for s in tracer.spans("checkpoint.freeze")]
+    persists = [s for s in tracer.spans("checkpoint.persist")
+                if "error" not in s["attributes"]]
+    positions = []
+    if mode != "none":
+        for h in FsCheckpointStorage(root, label).list_complete():
+            payload = FsCheckpointStorage.load(h)
+            positions.append({
+                "id": int(payload["checkpoint_id"]),
+                "sub_factors": {str(k): int(v) for k, v in
+                                payload.get("sub_factors", {}).items()},
+                "positions": [int(p) for pos in payload["sources"].values()
+                              for p in pos.values()]})
+    coord = envs[-1]._driver._coordinator
+    figures = {
+        "attempts": len(envs),
+        "recoveries": len(tracer.spans("recovery")),
+        "injected": [s["attributes"]["point"] for s in tracer.spans("fault")],
+        "checkpoints_completed": len(coord.stats) if coord else 0,
+        "checkpoints_failed": len([s for s in tracer.spans("checkpoint.persist")
+                                   if "error" in s["attributes"]]),
+        # the loop thread's part of each checkpoint: its fire drain
+        # (which waits for the steps in flight) and its freeze
+        "loop_ms": ms_stats(np, [a + b for a, b in zip(barrier, freeze)]),
+        "barrier_ms": ms_stats(np, barrier),
+        "freeze_ms": ms_stats(np, freeze),
+        # the last attempt's loop seconds in periodic checkpoints and in
+        # the synchronous end-of-input one
+        "loop_s": res.metrics.get("profile.driver.checkpoint_freeze", 0.0),
+        "final_checkpoint_s": res.metrics.get(
+            "profile.driver.checkpoint_final", 0.0),
+        "persist_ms": ms_stats(np, [s["duration_ms"] for s in persists]),
+        "bytes_per_checkpoint": ms_stats(
+            np, [s["attributes"].get("bytes") for s in persists]),
+        "retained": positions,
+    }
+    rows = [tuple(sorted((k, v.item() if hasattr(v, "item") else v)
+                         for k, v in r.items())) for r in sink.committed]
+    return rows, wall, launches, figures
+
+
+def checkpoint_job(torch, np, name, build, conf, events, check_rows, on_path,
+                   root):
+    """A job without checkpoints, with them, with them under faults,
+    without again and with again (the second, warm runs give the rates
+    printed side by side); the chaos run's committed rows must equal the
+    clean run's in order, and all of them the golden."""
+    runs = {}
+    for mode in ("none", "clean", "chaos", "none-again", "clean-again"):
+        m = mode.split("-")[0]
+        limit = (len(runs["clean"][0]) // 3) if m == "chaos" else 0
+        runs[mode] = run_checkpointed(
+            torch, np, build, conf, f"ckpt-{name}-{mode}",
+            os.path.join(root, f"{name}-{mode}"), m, limit=limit)
+    none_rows, none_wall, _, _ = runs["none-again"]
+    rows, wall, launches, fig = runs["clean-again"]
+    c_rows, c_wall, c_launches, c_fig = runs["chaos"]
+    check_rows(rows, f"checkpoint {name} clean")
+    check(rows == runs["none"][0] == none_rows == runs["clean"][0],
+          f"checkpoint {name}: rows with checkpoints differ from without")
+    check(c_rows == rows,
+          f"checkpoint {name}: the crashed and resumed run committed "
+          f"{len(c_rows)} rows, the fault-free run {len(rows)}, or another "
+          "order")
+    check(c_fig["recoveries"] >= 1 and "checkpoint.storage.write"
+          in c_fig["injected"],
+          f"checkpoint {name}: the chaos run did not crash as planned: {c_fig}")
+    check(fig["checkpoints_completed"] > 1,
+          f"checkpoint {name}: {fig['checkpoints_completed']} checkpoints")
+    missing = [k for k in on_path if launches[k] == 0 or c_launches[k] == 0]
+    check(not missing, f"checkpoint {name}: kernels not launched {missing}")
+    return {"job": name, "events": events, "rows": len(rows),
+            "events_per_s_with_checkpoints": events / wall,
+            "events_per_s_without": events / none_wall,
+            "events_per_s_first_runs": {
+                "without": events / runs["none"][1],
+                "with": events / runs["clean"][1]},
+            "wall_s": {m: r[1] for m, r in runs.items()},
+            "clean": fig, "clean_first_run": runs["clean"][3], "chaos": c_fig,
+            "launches": {k: launches[k] for k in on_path}}
+
+
+def phase_checkpoint(torch, np):
+    """Exactly-once checkpoints on the card: three jobs crash and resume
+    through the port's coordinator, storage and restart supervisor into
+    a TransactionalCollectSink (see the module docstring)."""
+    import shutil
+
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import (
+        NexmarkConfig, bid_stream, bid_stream_device)
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    jobs = []
+    q5_cols = ("auction", "window_end", "bid_count")
+
+    def q5_view(rows):
+        return [tuple(dict(r)[c] for c in q5_cols) for r in rows]
+
+    # 1. the headline: bids made on the card, 4 sub-batches
+    dcfg = NexmarkConfig(batch_size=DEVGEN_BATCH,
+                         n_batches=CKPT_DEVGEN_BATCHES, events_per_ms=100,
+                         num_active_auctions=10_000, hot_ratio=4)
+    dconf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_headline.conf"))
+
+    def build_devgen(c, sink):
+        env = StreamExecutionEnvironment(c)
+        q5_hot_items(env, bid_stream_device(dcfg), sink, window_ms=10_000,
+                     slide_ms=1_000, out_of_orderness_ms=1_000)
+        return env
+
+    def check_devgen(rows, label):
+        got = q5_view(rows)
+        check(len(got) == len(set(got)) and set(got) == devgen_golden(np, dcfg),
+              f"{label}: rows differ from the golden")
+
+    out = checkpoint_job(
+        torch, np, "q5_devgen", build_devgen, dconf,
+        DEVGEN_BATCH * CKPT_DEVGEN_BATCHES, check_devgen,
+        ("devgen_ingest", "window_counts", "topn_select_append",
+         "ring_columns"), root)
+    ran = ("clean_first_run", "clean", "chaos")
+    mid = sum(1 for r in ran for c in out[r]["retained"]
+              for p in c["positions"] if p % DEVGEN_SUB)
+    check(all(c["sub_factors"] == {"0": DEVGEN_SUB}
+              for r in ran for c in out[r]["retained"]),
+          "q5_devgen: a checkpoint without the sub-batch factor 4")
+    # a checkpoint's positions count sub-batches; the retained ones of a
+    # run are its last three, so the run's own record says it too
+    out["mid_logical_batch_checkpoints"] = mid
+    check(mid > 0, "q5_devgen: no completed checkpoint cut a logical batch")
+    jobs.append(out)
+
+    # 2. Q5 host-fed on the native lane
+    hcfg = NexmarkConfig(batch_size=Q5_BATCH, n_batches=CKPT_HOST_BATCHES,
+                         events_per_ms=100, num_active_auctions=10_000,
+                         hot_ratio=4)
+    hconf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+
+    def build_host(c, sink):
+        env = StreamExecutionEnvironment(c)
+        q5_hot_items(env, bid_stream(hcfg), sink, window_ms=10_000,
+                     slide_ms=1_000, out_of_orderness_ms=1_000)
+        return env
+
+    jobs.append(checkpoint_job(
+        torch, np, "q5_host_fed", build_host, hconf,
+        Q5_BATCH * CKPT_HOST_BATCHES,
+        lambda rows, label: check_q5_rows(np, q5_view(rows), hcfg, label),
+        ("fused_step", "apply_pairs_u32", "window_counts",
+         "topn_select_append", "ring_columns"), root))
+
+    # 3. WindowWordCount: count_window(250).sum("n"), the count window's
+    # five-array snapshot through the same storage
+    wconf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf"))
+
+    def build_ww(c, sink):
+        env = StreamExecutionEnvironment(c)
+        (env.from_source(window_wordcount_source(np, CKPT_WW_BATCHES),
+                         WatermarkStrategy.for_bounded_out_of_orderness(0))
+         .key_by("word").count_window(CW_SIZE).sum("n").add_sink(sink))
+        return env
+
+    def check_ww(rows, label):
+        want = sorted((int(k), int(c), float(c)) for keys, counts in
+                      window_wordcount_golden(np, CKPT_WW_BATCHES)
+                      for k, c in zip(keys, counts))
+        got = sorted((d["key"], d["count"], d["sum_n"])
+                     for d in map(dict, rows))
+        check(got == want, f"{label}: rows differ from the golden")
+
+    jobs.append(checkpoint_job(
+        torch, np, "window_wordcount", build_ww, wconf,
+        WC_BATCH * CKPT_WW_BATCHES, check_ww,
+        ("scatter_lanes", "count_fire"), root))
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "checkpoint", "jobs": jobs,
+          "note": "events/s with and without checkpoints are smoke "
+                  "figures of single runs, not a benchmark",
+          "fault": CKPT_FAULT, "phase_s": time.perf_counter() - t_phase,
+          "card": card_line()})
 
 
 def card_line() -> str:
@@ -5493,6 +5791,164 @@ def _hot_state(np, rng, slot_of):
 # older flags each run one row (--ring-pairs: ring_pairs, ...). To compare
 # with a parent, unpack it under _archive/ with this file copied in and
 # run both in one call, in turns.
+def checkpoint_cost_cases(torch, np, dev):
+    """Where a checkpoint's cost goes on the headline devgen job (16 x
+    2^22 bids, 4 sub-batches, a checkpoint at every batch boundary once
+    the last is durable), each variant run in turns, three rounds: no
+    checkpoints; the full path; the full path with the JAX package's
+    byte assembly of the blobs; the full path with every fsync skipped;
+    the full path writing each file in 256 KiB writes; the write replaced
+    by a 25 ms sleep; the executor's write skipped (the
+    fetch and the encode kept); the encode and the write skipped (the fetch
+    kept); the fetch, encode and write skipped (the loop's part and the
+    final commit only). A variant swaps the coordinator's or storage's
+    function for one that skips its step; the committed rows of every
+    run must equal the golden."""
+    import shutil
+
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import TransactionalCollectSink
+    from flink_tpu_torch import fs
+    from flink_tpu_torch.checkpoint import blobformat, coordinator, storage
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream_device
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+    from flink_tpu_torch.obs.tracing import tracer
+
+    cfg = NexmarkConfig(batch_size=DEVGEN_BATCH,
+                        n_batches=CKPT_DEVGEN_BATCHES, events_per_ms=100,
+                        num_active_auctions=10_000, hot_ratio=4)
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "checkpoints")
+    real_save = storage.FsCheckpointStorage.save_v2
+    real_fsync = os.fsync
+    real_write = fs._SyncOnClose.write
+
+    def chunked_write(self, data):
+        view = memoryview(data)
+        for lo in range(0, len(view), 1 << 18):
+            self._f.write(view[lo:lo + (1 << 18)])
+        return len(view)
+    real_blob_encode = blobformat.encode
+    real_mat = coordinator.materialize_snapshot
+
+    def no_write(self, cid, meta, blobs, reuse, savepoint=False):
+        return storage.CheckpointHandle(
+            cid, os.path.join(self.job_dir, f"chk-{cid}"), 0, savepoint,
+            size_bytes=sum(len(b) for b in blobs.values()), op_files={})
+
+    def host_only(obj):
+        if isinstance(obj, torch.Tensor):
+            return np.zeros(0, np.int32)
+        if isinstance(obj, dict):
+            return {k: host_only(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(host_only(v) for v in obj)
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            return dataclasses.replace(obj, **{
+                f.name: host_only(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)})
+        return obj
+
+    def bytearray_encode(payload):
+        """The JAX package's byte assembly of the same blob (a zeroed
+        bytearray, each array's ``tobytes`` copied in, then ``bytes``):
+        the same bytes, three more passes over the arrays."""
+        e = blobformat._Encoder()
+        tree = e.enc(payload)
+        offsets, pos = [], 0
+        for a in e.arrays:
+            pos = (pos + blobformat._ALIGN - 1) // blobformat._ALIGN * \
+                blobformat._ALIGN
+            offsets.append(pos)
+            pos += a.nbytes
+        header = json.dumps({
+            "tree": tree,
+            "arrays": [{"dtype": str(a.dtype), "shape": list(a.shape),
+                        "offset": off, "nbytes": a.nbytes}
+                       for a, off in zip(e.arrays, offsets)],
+            "pickle_escapes": e.pickle_escapes}).encode()
+        out = bytearray(blobformat.MAGIC)
+        out += len(header).to_bytes(4, "little") + header
+        base = len(out)
+        out += b"\0" * (pos if e.arrays else 0)
+        for a, off in zip(e.arrays, offsets):
+            out[base + off:base + off + a.nbytes] = a.tobytes()
+        return bytes(out)
+
+    probe = {"a": np.arange(1 << 20, dtype=np.int32), "t": (1, "x")}
+    check(bytearray_encode(probe) == real_blob_encode(probe),
+          "checkpoint_cost: the two byte assemblies differ")
+    def sleep_write(self, cid, meta, blobs, reuse, savepoint=False):
+        time.sleep(0.025)  # about the full path's write, GIL released
+        return no_write(self, cid, meta, blobs, reuse, savepoint)
+
+    variants = {
+        "none": {},
+        "full": {},
+        "full_bytearray_encode": {"encode": bytearray_encode},
+        "full_no_fsync": {"fsync": lambda fd: None},
+        "full_chunked_write": {"chunked": True},
+        "fetch_encode_sleep": {"save": sleep_write},
+        "fetch_encode": {"save": no_write},
+        "fetch": {"save": no_write, "encode": lambda payload: b""},
+        "loop_only": {"save": no_write, "encode": lambda payload: b"",
+                      "mat": host_only},
+    }
+    expect = devgen_golden(np, cfg)
+    out = {name: [] for name in variants}
+    for rnd in range(3):
+        for name, patch in variants.items():
+            shutil.rmtree(root, ignore_errors=True)
+            storage.FsCheckpointStorage.save_v2 = patch.get("save", real_save)
+            os.fsync = patch.get("fsync", real_fsync)
+            fs._SyncOnClose.write = (chunked_write if patch.get("chunked")
+                                     else real_write)
+            blobformat.encode = patch.get("encode", real_blob_encode)
+            coordinator.materialize_snapshot = patch.get("mat", real_mat)
+            try:
+                sink = TransactionalCollectSink()
+                env = StreamExecutionEnvironment(Configuration.from_file(
+                    os.path.join(ROOT, "confs", "bench_q5_headline.conf")).set(
+                    "execution.checkpointing.interval",
+                    0 if name == "none" else 1).set(
+                    "execution.checkpointing.dir", root))
+                q5_hot_items(env, bid_stream_device(cfg), sink,
+                             window_ms=10_000, slide_ms=1_000,
+                             out_of_orderness_ms=1_000)
+                tracer.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = env.execute(f"ckpt-cost-{name}", device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                storage.FsCheckpointStorage.save_v2 = real_save
+                os.fsync = real_fsync
+                fs._SyncOnClose.write = real_write
+                blobformat.encode = real_blob_encode
+                coordinator.materialize_snapshot = real_mat
+            got = {(int(r["auction"]), int(r["window_end"]),
+                    int(r["bid_count"])) for r in sink.committed}
+            check(got == expect, f"checkpoint_cost {name}: rows differ")
+            persist = [s["duration_ms"] for s in
+                       tracer.spans("checkpoint.persist")]
+            out[name].append({
+                "wall_s": wall,
+                "checkpoints": res.metrics.get("checkpoints_completed", 0),
+                "loop_s": res.metrics.get(
+                    "profile.driver.checkpoint_freeze", 0.0),
+                "final_s": res.metrics.get(
+                    "profile.driver.checkpoint_final", 0.0),
+                "persist_ms_p50": (float(np.median(persist))
+                                   if persist else None)})
+    shutil.rmtree(root, ignore_errors=True)
+    events = DEVGEN_BATCH * CKPT_DEVGEN_BATCHES
+    return {"events": events, "runs": out,
+            "events_per_s_median": {
+                name: events / float(np.median([r["wall_s"] for r in runs]))
+                for name, runs in out.items()}}
+
+
 KERNEL_CASES = {
     "ring_pairs": (("window_kernels", "lane_kernels"), ring_pair_cases),
     "fire_kernels": (("lane_kernels", "topn_lanes_kernels"),
@@ -5508,6 +5964,8 @@ KERNEL_CASES = {
     "split_segment": (("window_kernels", "lane_kernels", "exchange_kernels",
                        "element_kernels"), split_segment_cases),
     "hot_wide": (("window_kernels", "fused_kernels"), hot_wide_cases),
+    "checkpoint_cost": (("window_kernels", "devgen_kernels"),
+                        checkpoint_cost_cases),
 }
 
 
@@ -5906,6 +6364,8 @@ def main() -> int:
         "--window-lanes": phase_window_lanes,
         "--launch-path": phase_launch_path,
         "--big-cells": phase_big_cells,
+        "--checkpoint": lambda torch, np: (phase_build(),
+                                           phase_checkpoint(torch, np)),
         "--mesh-cards": lambda torch, np: (phase_build(),
                                            phase_mesh_cards(torch, np)),
         "--cases": lambda torch, np: phase_cases(
@@ -5944,6 +6404,7 @@ def main() -> int:
         mesh, mesh_per_call, m2_per_call = phase_mesh(torch, np, q5_rows)
         big = run_big_cells(torch, np)
         emit({"phase": "big_cells", **big, "card": card_line()})
+        phase_checkpoint(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,

@@ -59,8 +59,10 @@ class StreamExecutionEnvironment:
         plan = compile_job(self._transforms, self._watermark_strategy)
         if mesh_plan is None:
             mesh_plan = self.build_mesh_plan(device)
-        return Driver(plan, self.config, device=device,
-                      mesh_plan=mesh_plan).run(job_name)
+        driver = Driver(plan, self.config, device=device, mesh_plan=mesh_plan)
+        # the last run's driver (its checkpoint coordinator, registry)
+        self._driver = driver
+        return driver.run(job_name)
 
     def build_mesh_plan(self, device: "str | torch.device" = "cuda"):
         """The mesh of ``cluster.mesh-devices`` over the devices of

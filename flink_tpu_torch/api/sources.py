@@ -1,5 +1,7 @@
 """Sources: numbered host numpy batches per split, replayable from a
-position (the batch index)."""
+position (the batch index by default, ``Source.position_after``): a
+checkpoint records each split's position, and a restore reopens the
+split there."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +18,13 @@ class Source:
 
     def open_split(self, split: str, start_pos: int = 0) -> Iterator[Batch]:
         raise NotImplementedError
+
+    def position_after(self, pos: int, data, ts) -> int:
+        """Replay position after consuming one batch that started at
+        ``pos``. Positions are the source's to define; the default
+        counts batches (an offset-addressed source would count
+        records)."""
+        return pos + 1
 
 
 @dataclasses.dataclass

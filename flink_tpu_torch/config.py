@@ -6,7 +6,8 @@ ported. A key the port does not know raises (``Configuration.validate``)
 
 Values come from ``key: value`` / ``key=value`` files or JSON objects
 (``from_file``) and from explicit ``set``/constructor values, which
-win.
+win. A key of a module still to port raises with the ``ROADMAP.md``
+item that brings it (``LATER_KEYS``).
 """
 from __future__ import annotations
 
@@ -185,6 +186,88 @@ class ClusterOptions:
         "exchange.spi.register_shuffle.")
 
 
+class CheckpointingOptions:
+    INTERVAL = duration_option(
+        "execution.checkpointing.interval", 0,
+        "Checkpoint period in ms; 0 disables. The loop takes a checkpoint "
+        "at the first batch boundary after the period, and a bounded job "
+        "takes a final one at end of input.")
+    DIRECTORY = ConfigOption(
+        "execution.checkpointing.dir", "/tmp/flink-tpu-checkpoints",
+        "Checkpoint storage root: <dir>/<job name>/chk-<id>/.")
+    RETAINED = ConfigOption(
+        "execution.checkpointing.num-retained", 3,
+        "Completed checkpoints kept.")
+    INCREMENTAL = ConfigOption(
+        "execution.checkpointing.incremental", True,
+        "Hardlink the previous checkpoint's blob for an operator whose "
+        "state_version is unchanged since it; false re-serializes every "
+        "operator at every checkpoint.")
+    COMPRESSION = ConfigOption(
+        "execution.checkpointing.compression", "none",
+        "Compress checkpoint files: 'none' or 'zlib'. Applied on the "
+        "checkpoint executor's thread and recorded in the manifest.")
+    RESTORE = ConfigOption(
+        "execution.checkpointing.restore", "",
+        "'' (fresh start), 'latest' (the newest complete checkpoint of "
+        "this job) or a checkpoint/savepoint directory.")
+    TOLERABLE_FAILURES = ConfigOption(
+        "execution.checkpointing.tolerable-failures", 0,
+        "Consecutive periodic checkpoint persist/commit failures the job "
+        "rides out; the staged 2PC epoch commits with the next checkpoint "
+        "that succeeds. Savepoints and the final checkpoint never "
+        "tolerate a failure.")
+
+
+COMPRESSIONS = ("none", "zlib")
+
+
+class RestartOptions:
+    STRATEGY = ConfigOption(
+        "restart-strategy.type", "exponential-delay",
+        "fixed-delay | exponential-delay | failure-rate | none "
+        "(runtime/restart.py; read by runtime/supervisor.py).")
+    ATTEMPTS = ConfigOption(
+        "restart-strategy.fixed-delay.attempts", 3,
+        "Max restarts for the fixed-delay strategy.")
+    DELAY = duration_option(
+        "restart-strategy.fixed-delay.delay", 1_000,
+        "Delay between restarts for the fixed-delay strategy.")
+
+
+RESTART_STRATEGIES = ("fixed-delay", "exponential-delay", "failure-rate",
+                      "none")
+
+
+class MetricsOptions:
+    PORT = ConfigOption(
+        "metrics.port", 0,
+        "Serve /metrics (Prometheus text) on this port while a job runs; "
+        "0 disables.")
+    BIND = ConfigOption(
+        "metrics.bind-address", "127.0.0.1",
+        "Interface the /metrics endpoint binds; loopback by default.")
+
+
+class FaultOptions:
+    SEED = ConfigOption(
+        "faults.seed", 0,
+        "Seed of the fault plan's per-point PRNG streams (faults.py).")
+    INJECT = ConfigOption(
+        "faults.inject", "",
+        "Fault rules, ';'-separated: 'point=kind [@prob] [xCOUNT] "
+        "[+AFTER] [~DELAY_MS]', kind raise|drop|delay|crash. Empty = no "
+        "injection.")
+
+
+class MemoryOptions:
+    HBM_BUDGET = ConfigOption(
+        "memory.hbm-budget", 0,
+        "Plan-time per-device budget in bytes for the operators' device "
+        "tensors (pane lanes, emit rings, step buffers); a job over it "
+        "fails at build with a per-operator breakdown. 0 = unlimited.")
+
+
 class AnalysisOptions:
     FAIL_ON = ConfigOption(
         "analysis.fail-on", "error",
@@ -195,6 +278,45 @@ class AnalysisOptions:
 
 
 FAIL_ON_VALUES = ("error", "warn", "off")
+
+# keys of modules still to port, by prefix (or whole key), with the
+# ROADMAP.md item that brings each
+LATER_KEYS = (
+    ("pipeline.target-latency", "queue 1 item 2 (the debloater)"),
+    ("state.lsm.", "queue 1 item 4.5"),
+    ("state.memory-budget-bytes", "queue 1 item 4.5"),
+    ("host.", "queue 1 item 5"),
+    ("plugins.modules", "queue 1 item 6"),
+    ("cluster.rescale-from", "queue 1 item 6"),
+    ("table.", "queue 1 item 7"),
+    ("sql.", "queue 1 item 7"),
+    ("log.", "queue 1 item 8"),
+    ("storage.enospc-", "queue 1 item 8"),
+    ("execution.runtime-mode", "queue 1 item 8"),
+    ("execution.batch.", "queue 1 item 8"),
+    ("cluster.dcn-", "queue 1 item 9.3"),
+    ("cluster.process-id", "queue 1 item 9.3"),
+    ("session.", "queue 1 item 10"),
+    ("heartbeat.", "queue 1 item 10"),
+    ("high-availability.", "queue 1 item 10"),
+    ("rescale.", "queue 1 item 10"),
+    ("source.enumeration", "queue 1 item 10"),
+    ("cluster.attempt", "queue 1 item 10"),
+    ("cluster.coordinator", "queue 1 item 10"),
+    ("cluster.job-id", "queue 1 item 10"),
+    ("cluster.runner-id", "queue 1 item 10"),
+    ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
+    ("pipeline.profile-", "queue 1 item 11"),
+)
+
+
+def later_item(key: str) -> Optional[str]:
+    """The ROADMAP.md item that ports ``key``'s module, or None."""
+    for prefix, item in LATER_KEYS:
+        if key == prefix or (prefix.endswith((".", "-"))
+                             and key.startswith(prefix)):
+            return item
+    return None
 
 
 class Configuration:
@@ -226,6 +348,9 @@ class Configuration:
             return option.coerce(self._values[option.key])
         return option.default
 
+    def to_dict(self) -> Dict[str, Any]:
+        return dict(self._values)
+
     def set(self, option: "ConfigOption[Any] | str", value: Any) -> "Configuration":
         key = option.key if isinstance(option, ConfigOption) else option
         self._values[key] = value
@@ -234,6 +359,13 @@ class Configuration:
     def validate(self) -> None:
         """Raise on any key the port does not read, and on values it
         cannot run."""
+        later = {k: later_item(k) for k in self._values
+                 if k not in _REGISTRY and later_item(k)}
+        if later:
+            raise NotImplementedError(
+                "configuration keys of modules still to port: " + "; ".join(
+                    f"{k} (ROADMAP.md {item})"
+                    for k, item in sorted(later.items())))
         unknown = [k for k in self._values if k not in _REGISTRY]
         if unknown:
             raise ValueError(
@@ -291,6 +423,24 @@ class Configuration:
             raise ValueError(
                 f"pipeline.exchange-capacity must be >= 0 (0 = auto), "
                 f"got {xcap}")
+        comp = str(self.get(CheckpointingOptions.COMPRESSION))
+        if comp not in COMPRESSIONS:
+            raise ValueError(f"execution.checkpointing.compression must be "
+                             f"'none' or 'zlib', got {comp!r}")
+        if int(self.get(CheckpointingOptions.INTERVAL)) < 0:
+            raise ValueError("execution.checkpointing.interval must be a "
+                             "duration >= 0 (0 disables)")
+        if int(self.get(CheckpointingOptions.TOLERABLE_FAILURES)) < 0:
+            raise ValueError(
+                "execution.checkpointing.tolerable-failures must be >= 0")
+        strategy = str(self.get(RestartOptions.STRATEGY))
+        if strategy not in RESTART_STRATEGIES:
+            raise ValueError(f"restart-strategy.type must be one of "
+                             f"{RESTART_STRATEGIES}, got {strategy!r}")
+        if int(self.get(MemoryOptions.HBM_BUDGET)) < 0:
+            raise ValueError("memory.hbm-budget must be >= 0 (0 = unlimited)")
+        if not 0 <= int(self.get(MetricsOptions.PORT)) < 65536:
+            raise ValueError("metrics.port must be a port number (0 = off)")
         for opt in (PipelineOptions.MICROBATCH_SIZE,
                     PipelineOptions.MAX_INFLIGHT_STEPS,
                     StateOptions.NUM_KEY_SHARDS,

@@ -93,6 +93,10 @@ class CountWindowOperator:
         # counted instead of failing the job (account_full_drop)
         self.allow_drops = False
         self.records_dropped_full = 0
+        # bumped wherever the snapshotted state may change (the
+        # reference's sites): a checkpoint hardlinks the previous blob of
+        # an operator whose version it already holds
+        self.state_version = 0
         # fired buffers' host copies (host, error word, CUDA event) since
         # the last take_fired
         self._pending: collections.deque = collections.deque()
@@ -105,6 +109,7 @@ class CountWindowOperator:
                       valid: Optional[np.ndarray] = None) -> None:
         """Fold a batch in, fire every key whose count reached the size,
         and start the fired rows' copy to the host (``take_fired``)."""
+        self.state_version += 1
         t0 = time.perf_counter()
         keys = np.asarray(keys, dtype=np.int64)
         valid = (np.ones(len(keys), bool) if valid is None
@@ -225,6 +230,7 @@ class CountWindowOperator:
     def advance_watermark(self, wm: int) -> FiredWindows:
         if wm > self.watermark:
             self.watermark = wm
+            self.state_version += 1  # a snapshotted field changed
         return empty_fired(self._res_empty)
 
     def final_watermark(self) -> int:
@@ -242,6 +248,12 @@ class CountWindowOperator:
     def throttle(self) -> None:
         """Nothing to wait for: the driver takes each batch's fires at
         once."""
+
+    def hbm_bytes(self) -> int:
+        """Planned device bytes: the pane lanes and counts, and a
+        non-purging window's per-row count at its last fire."""
+        base = 0 if self.purge else 4 * self.layout.rows
+        return self.layout.bytes() + base
 
     # -- snapshots ----------------------------------------------------------
     def snapshot_state(self) -> Dict[str, Any]:

@@ -664,6 +664,10 @@ class WindowOperator:
         # instead of failing the job (account_full_drop)
         self.allow_drops = False
         self.records_dropped_full = 0
+        # bumped wherever the snapshotted state may change (the
+        # reference's five sites): a checkpoint hardlinks the previous
+        # blob of an operator whose version it already holds
+        self.state_version = 0
         # bounded in-flight dispatch: ingest waits on the oldest step's
         # CUDA event once more than this many are outstanding
         self.max_inflight_steps = int(max_inflight_steps)
@@ -765,6 +769,7 @@ class WindowOperator:
             return
         self._flush_stash()
         t0 = time.perf_counter()
+        self.state_version += 1
         keys = np.asarray(keys, dtype=np.int64)
         ts = np.asarray(ts, dtype=np.int64)
         valid = (np.ones(len(ts), bool) if valid is None
@@ -1014,6 +1019,7 @@ class WindowOperator:
                 self._grow_ring(live_hi - live_lo + 1, prev_min, prev_max)
                 continue
             break
+        self.state_version += 1
         self.prof["preagg_combine"] += time.perf_counter() - t_scan
         self.late_records += n_late
         if n_bad:
@@ -1543,6 +1549,7 @@ class WindowOperator:
         # enumerates its ends
         if self._devstats_pending:
             self._reconcile_devstats(force=False)
+        self.state_version += 1
         prev = self.watermark
         self.watermark = wm
         ends = sorted(set(self.plan.enumerate_fire_ends(
@@ -2073,6 +2080,7 @@ class WindowOperator:
                             prev_min, prev_max)
             if self.plan.ring > 64:
                 return False  # outgrew the clear bits: host path
+        self.state_version += 1
         self._min_pane_seen = new_min
         self._max_pane_seen = new_max
         # the stats can be non-zero only with an unproven key bound
@@ -2165,6 +2173,20 @@ class WindowOperator:
                 if (~refused).any():
                     self.process_batch(keys[out][~refused], ts[out][~refused],
                                        {})
+
+    def hbm_bytes(self) -> int:
+        """Planned device bytes on the busiest device (a block a device,
+        or several blocks of one): the pane lanes, with top-n the emit
+        ring, and with the native lane's fused step its pair uploads
+        (``PAIR_SLOTS`` slots in flight)."""
+        per_dev = collections.Counter(str(d) for d in self._devices)
+        blocks = max(per_dev.values())
+        ring = 0
+        if self._topn is not None:
+            ring = (self.EMIT_RING_ROWS + 2) * (3 + len(self._pack_fields())) * 4
+            if self.mesh_plan is None and not self._topn_lanes:
+                ring += PAIR_SLOTS * PAIR_SLOT_BYTES
+        return blocks * (self.layout.bytes() + ring)
 
     # -- snapshots ----------------------------------------------------------
     def snapshot_state(self) -> Dict[str, Any]:

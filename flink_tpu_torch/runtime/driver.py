@@ -46,22 +46,41 @@ every loop pass the driver polls the operators' emit rings for copies
 that have landed and delivers the packed fires whose copies have landed
 (never waiting on the device); at end of input it drains everything
 with a barrier (``pipeline.emit-defer`` above 0, which times the
-reference's drain thread, is refused). Checkpointing, the cross-host
-exchange, batch mode, rescaling, the debloater and savepoints are not
-ported (ROADMAP.md); the configuration check and the driver refuse confs
-that ask for them.
+reference's drain thread, is refused).
+
+Exactly-once checkpoints (``execution.checkpointing.*``): at a batch
+boundary, once the interval has passed and no checkpoint is in flight,
+the loop drains every fire with a barrier, has the sinks stage their
+epoch (``prepare_commit``) and freezes the snapshot: source positions
+(sub-batches on a subdivided device chain), watermark state, the
+sinks' staged epochs and each operator's state, whose device tensors
+are clones enqueued on the operator's stream (no synchronization). The
+checkpoint executor's thread fetches the clones, encodes and writes
+them (``checkpoint/``), manifest last; the loop commits the sinks'
+epoch once that is durable. A bounded job ends with a synchronous
+checkpoint (without checkpointing, a terminal commit). ``restore``
+('latest' or a path) resumes from a checkpoint of either package:
+positions, watermarks, operator state and the staged epochs it proved.
+A failed attempt abandons its in-flight checkpoint, drops its sinks'
+uncommitted rows and closes its feeder threads;
+``runtime/supervisor.py`` restarts it. Savepoints are
+``checkpoint_now(savepoint=True)``. The cross-host exchange, batch mode,
+rescaling and the debloater are not ported (ROADMAP.md); the
+configuration check and the driver refuse confs that ask for them.
 """
 from __future__ import annotations
 
 import collections
+import os
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from flink_tpu_torch.api.sources import DeviceGeneratorSource
 from flink_tpu_torch.config import (
-    ClusterOptions, Configuration, PipelineOptions, StateOptions)
+    CheckpointingOptions, ClusterOptions, Configuration, MemoryOptions,
+    MetricsOptions, PipelineOptions, StateOptions)
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.compiler import ExecutionPlan
 from flink_tpu_torch.time.watermarks import LONG_MIN, make_generator
@@ -89,13 +108,37 @@ class Driver:
                 self._upstream[d].append(n.id)
         self._out_wm: Dict[int, int] = {nid: LONG_MIN for nid in plan.nodes}
         self._wm_gens: Dict[int, List[Any]] = {}
+        self._max_ts: Dict[int, int] = {}
+        # source id -> split index -> replay position
+        self._positions: Dict[int, Dict[int, int]] = {}
         self.metrics: Dict[str, Any] = {
             "records_in": 0, "records_out": 0, "batches": 0,
             "fired_windows": 0, "devgen_host_batches": 0,
         }
-        self.prof: Dict[str, float] = collections.defaultdict(float)
-        self._pending_emits: List[Tuple[int, Any]] = []
         self._ops: Dict[int, Any] = {}
+        from flink_tpu_torch.obs.metrics import MetricRegistry
+
+        # the gauges read the driver's dicts, never the driver: a cycle
+        # through it would keep its operators' device tensors alive until
+        # the cyclic collector ran
+        self.registry = MetricRegistry()
+        g = self.registry.group("driver")
+        m, ops = self.metrics, self._ops
+        g.gauge("records_in", lambda: m["records_in"])
+        g.gauge("records_out", lambda: m["records_out"])
+        g.gauge("fired_windows", lambda: m["fired_windows"])
+        g.gauge("records_dropped_full", lambda: sum(
+            getattr(op, "records_dropped_full", 0) for op in ops.values()))
+        g.gauge("exchange_overflow", lambda: sum(
+            getattr(op, "exchange_overflow", 0) for op in ops.values()))
+        self._eps_meter = g.meter("records_per_sec")
+        # fire to sink: from the advance that dispatched a fire to its
+        # delivery (time queued before the step dispatched is not in it)
+        self._lat_hist = g.histogram("emit_latency_ms")
+        self._wm_lag = g.gauge("watermark_lag_ms")
+        self.prof: Dict[str, float] = collections.defaultdict(float)
+        # (node id, lazy fire, the advance's wall time)
+        self._pending_emits: List[Tuple[int, Any, float]] = []
         self._sub_batches = int(config.get(PipelineOptions.SUB_BATCHES))
         self._base_inflight = int(
             config.get(PipelineOptions.MAX_INFLIGHT_STEPS))
@@ -104,6 +147,21 @@ class Driver:
         # source batches each split generates ahead on its feeder thread
         self._prefetch = int(config.get(PipelineOptions.SOURCE_PREFETCH))
         self._build_ops()
+        # plan-time device budget: the operators' dense tensors are known
+        # before the first step (memory.hbm-budget)
+        from flink_tpu_torch.memory import MemoryBudget
+
+        self.memory = MemoryBudget(int(config.get(MemoryOptions.HBM_BUDGET)))
+        for nid, op in self._ops.items():
+            if hasattr(op, "hbm_bytes"):
+                n = plan.node(nid)
+                self.memory.register(
+                    f"{n.kind}:{n.name or nid}", op.hbm_bytes(),
+                    detail=f"layout={getattr(op, 'layout', None)}")
+        self.memory.check()
+        memory = self.memory
+        self.registry.group("memory").gauge(
+            "hbm_state_bytes", lambda: float(memory.hbm_total))
         # the loop throttles its window operators at the reference's
         # cadence (_throttle_ops)
         for op in self._ops.values():
@@ -116,10 +174,17 @@ class Driver:
             n.kind in _STATEFUL and self._reaches_stateful(n.id)
             for n in plan.nodes.values())
         # source id -> (window node id, the source as chained, its
-        # sub-batch factor)
+        # sub-batch factor); chained at run start, after any restore
         self._dev_chains: Dict[int, Tuple[int, DeviceGeneratorSource, int]] = {}
-        for sid in plan.sources:
-            self._maybe_chain_device_source(sid, plan.node(sid))
+        # the factor each source's positions count in this run
+        self._sub_factor: Dict[int, int] = {}
+        self._coordinator = None
+        self._ckpt_executor = None
+        self._ckpt_pending = None
+        self._ckpt_base: Optional[Dict[str, Any]] = None
+        self._ckpt_failures = 0
+        self._last_freeze_versions: Dict[int, int] = {}
+        self._metrics_server = None
 
     def _reaches_stateful(self, nid: int) -> bool:
         todo = list(self.plan.node(nid).downstream)
@@ -195,6 +260,8 @@ class Driver:
         if not op.attach_device_source(src):
             return
         self._dev_chains[sid] = (wid, src, factor)
+        if factor > 1:
+            self._sub_factor[sid] = factor
         if factor == 1:
             # steps stay logical batches: the K-scaled credit would
             # queue K times the bytes
@@ -217,7 +284,9 @@ class Driver:
             if (factor == 1 or self._readiness == "piggyback"
                     or (marker.index + 1) % factor == 0):
                 self._throttle_ops()
-            self._wm_gens[sid][split_ix].on_batch(marker.ts_max)
+            self._positions[sid][split_ix] += 1
+            self._eps_meter.mark(marker.n)
+            self._on_source_ts(sid, split_ix, marker.ts_max)
         self.prof["push"] += time.perf_counter() - t0
         return ok
 
@@ -237,82 +306,436 @@ class Driver:
             if hasattr(op, "throttle"):
                 op.throttle()
 
+    # -- checkpointing ------------------------------------------------------
+    def _setup_checkpointing(self, job_name: str):
+        from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
+        from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+        interval = self.config.get(CheckpointingOptions.INTERVAL)
+        restore = self.config.get(CheckpointingOptions.RESTORE)
+        if interval <= 0 and not restore:
+            return None
+        storage = FsCheckpointStorage(
+            self.config.get(CheckpointingOptions.DIRECTORY),
+            job_id=job_name.replace("/", "_"),
+            retained=self.config.get(CheckpointingOptions.RETAINED),
+            compression=self.config.get(CheckpointingOptions.COMPRESSION))
+        return CheckpointCoordinator(storage)
+
+    def _snapshot(self, allow_reuse: bool = True) -> Dict[str, Any]:
+        """The checkpoint's payload, frozen at this batch boundary. An
+        operator whose ``state_version`` is unchanged since the base (the
+        last completed checkpoint) reuses that checkpoint's blob (a
+        hardlink); savepoints stay self-contained."""
+        from flink_tpu_torch.checkpoint.storage import ReusedOpState
+
+        base = (self._ckpt_base
+                if allow_reuse
+                and self.config.get(CheckpointingOptions.INCREMENTAL)
+                else None)
+        ops: Dict[Any, Any] = {}
+        versions: Dict[str, int] = {}
+        for nid, op in self._ops.items():
+            v = getattr(op, "state_version", None)
+            versions[str(nid)] = -1 if v is None else int(v)
+            if (v is not None and base is not None
+                    and base["versions"].get(nid) == v
+                    and nid in base["files"]):
+                ops[nid] = ReusedOpState(base["files"][nid], int(v))
+            else:
+                ops[nid] = op.snapshot_state()
+        self._last_freeze_versions = {
+            nid: getattr(op, "state_version", -1)
+            for nid, op in self._ops.items()}
+        return {
+            "sources": {sid: dict(pos) for sid, pos in self._positions.items()},
+            # the factor positions count in: restore re-bases them when
+            # its own factor differs (_rebase_position)
+            "sub_factors": dict(self._sub_factor),
+            "wm_gens": {sid: [g.snapshot() for g in gens]
+                        for sid, gens in self._wm_gens.items()},
+            "max_ts": dict(self._max_ts),
+            "out_wm": dict(self._out_wm),
+            "operators": ops,
+            "op_versions": versions,
+            # the DataStream partitioners come with ROADMAP.md queue 1
+            # item 9.3; none is stateful here
+            "partitioners": {},
+            # staged, uncommitted 2PC epochs: prepare_commit ran before
+            # this snapshot, so the epoch it covers rides inside it
+            "sinks": {
+                nid: staged
+                for nid, n in self.plan.nodes.items()
+                if n.kind == "sink"
+                and (staged := n.sink.snapshot_staged()) is not None
+            },
+            "metrics": dict(self.metrics),
+            "rescale": self._rescale_identity(),
+        }
+
+    def _rescale_identity(self) -> Dict[str, Any]:
+        num_shards = int(self.config.get(StateOptions.NUM_KEY_SHARDS))
+        return {"nproc": 1, "pid": 0, "num_shards": num_shards,
+                "shard_range": [0, num_shards]}
+
+    def _load_restore_path(self, path: str) -> Dict[str, Any]:
+        """An explicit restore path, written by a process of the same
+        key-group identity; another identity is a rescale."""
+        from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+        payload = FsCheckpointStorage.load(path)
+        ident = payload.get("rescale")
+        if ident is not None and (int(ident.get("nproc", 1)) != 1
+                                  or int(ident.get("pid", 0)) != 0):
+            raise NotImplementedError(
+                f"checkpoint {path} was written by process "
+                f"{ident.get('pid')} of {ident.get('nproc')}; restoring it "
+                "into one process merges key-group ranges "
+                "(checkpoint/repartition.py), which is still to port: "
+                "ROADMAP.md queue 1 item 6")
+        return payload
+
+    def _restore(self, payload: Dict[str, Any]) -> None:
+        self._positions = {sid: dict(pos)
+                           for sid, pos in payload["sources"].items()}
+        self._restored_sub_factors = {
+            int(k): int(v)
+            for k, v in payload.get("sub_factors", {}).items()}
+        for sid, states in payload.get("wm_gens", {}).items():
+            for g, st in zip(self._wm_gens[sid], states):
+                g.restore(st)
+        self._max_ts.update(payload.get("max_ts", {}))
+        self._out_wm.update(payload.get("out_wm", {}))
+        if payload.get("partitioners"):
+            raise NotImplementedError(
+                "checkpoint carries DataStream partitioner state; the "
+                "partitioners are still to port: ROADMAP.md queue 1 "
+                "item 9.3")
+        for nid, snap in payload["operators"].items():
+            self._ops[nid].restore_state(snap)
+        # adopt the checkpoint's operator versions and make it the reuse
+        # base: an operator untouched after the restore hardlinks its
+        # blob at the next checkpoint; a blob keeps its bytes, so a base
+        # written under another compression is not reused
+        file_versions = payload.get("op_file_versions")
+        if (file_versions and payload.get("op_file_compression", "none")
+                != self.config.get(CheckpointingOptions.COMPRESSION)):
+            file_versions = None
+        if file_versions:
+            for nid, v in file_versions.items():
+                if nid in self._ops and hasattr(
+                        self._ops[nid], "state_version"):
+                    self._ops[nid].state_version = v
+            self._ckpt_base = {
+                "files": dict(payload.get("op_files", {})),
+                "versions": dict(file_versions),
+            }
+        self.metrics.update(payload["metrics"])
+        staged_sinks = payload.get("sinks", {})
+        cid = int(payload.get("checkpoint_id", 0))
+        for nid, n in self.plan.nodes.items():
+            if n.kind != "sink":
+                continue
+            if nid in staged_sinks:
+                # re-commit the epochs the completed checkpoint covers: a
+                # crash between its manifest and the commit must not
+                # lose them
+                n.sink.restore_staged(staged_sinks[nid], cid)
+            elif hasattr(n.sink, "abort_uncommitted"):
+                n.sink.abort_uncommitted()
+
+    def _abort_sinks(self) -> None:
+        """Drop every sink's pending (never-committed) rows: a failed or
+        superseded attempt's output must not leak into a later attempt
+        that reuses the sink instances."""
+        for n in self.plan.nodes.values():
+            if n.kind == "sink" and hasattr(n.sink, "abort_uncommitted"):
+                n.sink.abort_uncommitted()
+
+    def checkpoint_now(self, savepoint: bool = False):
+        """One synchronous checkpoint at the current batch boundary
+        (``savepoint=True``: a retained savepoint); returns its handle
+        once it is durable and committed."""
+        if self._coordinator is None:
+            raise RuntimeError(
+                "checkpoint_now needs checkpointing: set "
+                "execution.checkpointing.interval (or a restore)")
+        # the checkpoint already in flight is a periodic one: its failure
+        # is tolerable, this one's is not
+        self._complete_pending_checkpoint(wait=True, tolerate=True)
+        self._ckpt_pending = self._begin_checkpoint(savepoint=savepoint)
+        return self._complete_pending_checkpoint(wait=True)
+
+    def _begin_checkpoint(self, savepoint: bool = False):
+        """The loop thread's part: deliver every fire so far (the staged
+        epoch must hold them: a restore resets the emit rings, so a fire
+        left on the device would be in neither the epoch nor the replay),
+        stage the sinks' epoch and freeze the snapshot. Fetching,
+        encoding and writing run on the checkpoint executor."""
+        from flink_tpu_torch.obs.tracing import tracer
+
+        # the drain waits for the steps in flight: the loop thread's part
+        # of a checkpoint is this span and the coordinator's freeze span
+        with tracer.span("checkpoint.barrier"):
+            self._drain_emits(barrier=True)
+        sinks = [n.sink for n in self.plan.nodes.values() if n.kind == "sink"]
+        pend = self._coordinator.trigger_async(
+            lambda: self._snapshot(allow_reuse=not savepoint),
+            commit_fns=[s.notify_checkpoint_complete for s in sinks],
+            prepare_fns=[s.prepare_commit for s in sinks],
+            # a failed attempt's abandon() rolls this epoch back
+            abort_fns=[s.notify_checkpoint_abort for s in sinks],
+            executor=self._ckpt_executor,
+            savepoint=savepoint,
+        )
+        pend.frozen_versions = dict(self._last_freeze_versions)
+        pend.is_savepoint = savepoint
+        return pend
+
+    def _complete_pending_checkpoint(self, wait: bool = False,
+                                     tolerate: bool = False):
+        """Commit a finished background checkpoint's 2PC epoch on the
+        loop thread; non-blocking unless ``wait``. ``tolerate``: a
+        periodic checkpoint's persist or commit failure is ridden out up
+        to ``execution.checkpointing.tolerable-failures`` consecutive
+        times (its id left no manifest, and the staged epoch commits
+        with the next checkpoint); savepoints and the final checkpoint
+        never tolerate one."""
+        p = self._ckpt_pending
+        if p is None:
+            return None
+        if not wait and not p.done():
+            return None
+        try:
+            handle = p.complete()
+        except Exception as e:  # noqa: BLE001 — persist/commit failure
+            self._ckpt_pending = None
+            if p.is_savepoint:
+                raise
+            self._ckpt_failures += 1
+            tol = int(self.config.get(
+                CheckpointingOptions.TOLERABLE_FAILURES))
+            if not tolerate or self._ckpt_failures > tol:
+                raise
+            from flink_tpu_torch.obs.tracing import tracer
+
+            self.metrics["checkpoint_failures"] = (
+                self.metrics.get("checkpoint_failures", 0) + 1)
+            with tracer.span("checkpoint.failed",
+                             checkpoint_id=p.checkpoint_id,
+                             consecutive=self._ckpt_failures,
+                             error=f"{type(e).__name__}: {e}"):
+                pass
+            return None
+        if not p.is_savepoint:
+            self._ckpt_failures = 0
+        self._ckpt_pending = None
+        if not p.is_savepoint:
+            names = handle.op_files or {}
+            self._ckpt_base = {
+                "files": {nid: os.path.join(
+                    handle.path, names.get(str(nid), f"op-{nid}.blob"))
+                    for nid in self._ops},
+                "versions": dict(p.frozen_versions),
+            }
+        return handle
+
+    def _commit_final_epoch(self) -> None:
+        """The 2PC sinks' terminal commit of a bounded run without
+        checkpointing: end of input is the terminal barrier. A ms
+        timestamp for the epoch id cannot collide with an earlier run's
+        ids in a reused sink directory."""
+        final_epoch = int(time.time() * 1000)
+        for n in self.plan.nodes.values():
+            if n.kind == "sink":
+                n.sink.prepare_commit(final_epoch)
+                n.sink.notify_checkpoint_complete(final_epoch)
+
     # -- the streaming loop -------------------------------------------------
     def run(self, job_name: str = "job"):
-        from flink_tpu_torch.api.environment import JobResult
+        from concurrent.futures import ThreadPoolExecutor
 
-        t_start = time.perf_counter()
-        srcs: Dict[int, Dict[int, Any]] = {}
+        from flink_tpu_torch import faults
+        from flink_tpu_torch.obs.metrics import MetricsServer
+
+        self._coordinator = self._setup_checkpointing(job_name)
+        # the checkpoint executor serves this job's fault scope
+        self._ckpt_executor = (ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ckpt",
+            initializer=faults.set_thread_scope,
+            initargs=(faults.current_scope(),))
+            if self._coordinator is not None else None)
+        port = int(self.config.get(MetricsOptions.PORT))
+        self._metrics_server = (
+            MetricsServer(self.registry, port,
+                          str(self.config.get(MetricsOptions.BIND)))
+            if port else None)
+        self._srcs: Dict[int, Dict[int, Any]] = {}
         try:
-            for sid in self.plan.sources:
-                n = self.plan.node(sid)
-                strategy = n.watermark_strategy or self.plan.watermark_strategy
-                splits = n.source.splits()
-                # one watermark generator per split, combined with min
-                self._wm_gens[sid] = [make_generator(strategy) for _ in splits]
-                srcs[sid] = {}
-                for i, split in enumerate(splits):
-                    if sid in self._dev_chains:
-                        # no records and no feeder thread: markers only
-                        srcs[sid][i] = _dev_batch_markers(
-                            self._dev_chains[sid][1])
-                        continue
-                    it = n.source.open_split(split, 0)
-                    srcs[sid][i] = (_Prefetcher(it, self._prefetch)
-                                    if self._prefetch > 0 else iter(it))
-            active = {sid: sorted(its) for sid, its in srcs.items()}
-            while any(active.values()):
-                for sid, alive in active.items():
-                    for split_ix in list(alive):
-                        t0 = time.perf_counter()
-                        nxt = next(srcs[sid][split_ix], None)
-                        self.prof["source_next"] += time.perf_counter() - t0
-                        if nxt is None:
-                            alive.remove(split_ix)
-                            continue
-                        already_sub = False
-                        if isinstance(nxt, _DevBatch):
-                            if self._push_device_batch(sid, split_ix, nxt):
-                                continue
-                            nxt, already_sub = self._host_batch_for(sid, nxt)
-                        data, ts = nxt
-                        ts = np.asarray(ts, np.int64)
-                        if self._sub_batches > 1 and not already_sub:
-                            self._ingest_host_subbatched(sid, split_ix, alive,
-                                                         data, ts)
-                        else:
-                            self._push_source_batch(sid, data, ts)
-                        if len(ts):
-                            self._wm_gens[sid][split_ix].on_batch(int(ts.max()))
-                    # exhausted splits stop holding the watermark back
-                    self._recombine_source_wm(sid, alive)
-                    t3 = time.perf_counter()
-                    self._propagate_watermarks()
-                    self.prof["advance_wm"] += time.perf_counter() - t3
-                    self._drain_emits(barrier=False)
-            # end of input: the final watermark flushes every window
-            for op in self._ops.values():
-                op.quiesce()
-            for sid in self.plan.sources:
-                self._out_wm[sid] = _FINAL
-            self._propagate_watermarks(final=True)
-            self._drain_emits(barrier=True)
-            for op in self._ops.values():
-                op.quiesce()
+            return self._run_loop(job_name)
+        except BaseException:
+            # a failed attempt: its in-flight checkpoint must not commit
+            # (the manifest may still land, which restore reads like a
+            # crash between manifest and commit); wait a bounded time so
+            # the next attempt does not race its writer on one id
+            if self._ckpt_pending is not None:
+                self._ckpt_pending.abandon()
+                from concurrent.futures import wait as _fwait
+
+                _fwait([self._ckpt_pending.future], timeout=30.0)
+                self._ckpt_pending = None
+            # rows delivered before the crash still sit in the sinks
+            self._abort_sinks()
+            raise
         finally:
-            for its in srcs.values():
+            # feeder threads end with the attempt, before a restart
+            # reopens the splits at their positions
+            for its in self._srcs.values():
                 for it in its.values():
                     close = getattr(it, "close", None)
                     if close is not None:
                         close()
+            self._srcs = {}
+            if self._metrics_server is not None:
+                self._metrics_server.close()
+                self._metrics_server = None
+            if self._ckpt_executor is not None:
+                # an abandoned persist may still be writing; letting it
+                # finish is safe (manifest last)
+                self._ckpt_executor.shutdown(wait=False)
+                self._ckpt_executor = None
+
+    def _run_loop(self, job_name: str):
+        from flink_tpu_torch.api.environment import JobResult
+
+        t_start = time.perf_counter()
+        interval_ms = int(self.config.get(CheckpointingOptions.INTERVAL))
+        restore = self.config.get(CheckpointingOptions.RESTORE)
+        for sid in self.plan.sources:
+            n = self.plan.node(sid)
+            strategy = n.watermark_strategy or self.plan.watermark_strategy
+            # one watermark generator per split, combined with min
+            self._wm_gens[sid] = [make_generator(strategy)
+                                  for _ in n.source.splits()]
+            self._max_ts[sid] = LONG_MIN
+            self._positions[sid] = {i: 0 for i in
+                                    range(len(n.source.splits()))}
+        self._restored_sub_factors: Dict[int, int] = {}
+        if restore:
+            if restore == "latest":
+                payload = self._coordinator.restore_latest()
+            else:
+                payload = self._load_restore_path(restore)
+                self._coordinator.resume_numbering(payload)
+            if payload is not None:
+                self._restore(payload)
+            else:
+                # nothing to restore (a crash before the first
+                # checkpoint): a reused sink still holds the crashed
+                # attempt's rows, which the full replay would repeat
+                self._abort_sinks()
+        srcs = self._srcs
+        for sid in self.plan.sources:
+            n = self.plan.node(sid)
+            self._maybe_chain_device_source(sid, n)
+            # positions were counted at the restored factor: re-base them
+            # to this run's, or fail on a cut that does not align
+            old_f = int(self._restored_sub_factors.get(sid, 1))
+            new_f = int(self._sub_factor.get(sid, 1))
+            if old_f != new_f:
+                for i, pos in list(self._positions[sid].items()):
+                    self._positions[sid][i] = _rebase_position(
+                        int(pos), old_f, new_f, sid=sid, split_ix=i)
+            srcs[sid] = {}
+            for i, split in enumerate(n.source.splits()):
+                start = self._positions[sid].get(i, 0)
+                if sid in self._dev_chains:
+                    # no records and no feeder thread: markers only
+                    srcs[sid][i] = _dev_batch_markers(
+                        self._dev_chains[sid][1], start)
+                    continue
+                it = n.source.open_split(split, start)
+                srcs[sid][i] = (_Prefetcher(it, self._prefetch)
+                                if self._prefetch > 0 else iter(it))
+        last_chk = time.time()
+        active = {sid: sorted(its) for sid, its in srcs.items()}
+        while any(active.values()):
+            for sid, alive in active.items():
+                for split_ix in list(alive):
+                    t0 = time.perf_counter()
+                    nxt = next(srcs[sid][split_ix], None)
+                    self.prof["source_next"] += time.perf_counter() - t0
+                    if nxt is None:
+                        alive.remove(split_ix)
+                        continue
+                    already_sub = False
+                    if isinstance(nxt, _DevBatch):
+                        if self._push_device_batch(sid, split_ix, nxt):
+                            continue
+                        nxt, already_sub = self._host_batch_for(sid, nxt)
+                    data, ts = nxt
+                    ts = np.asarray(ts, np.int64)
+                    if self._sub_batches > 1 and not already_sub:
+                        self._ingest_host_subbatched(sid, split_ix, alive,
+                                                     data, ts)
+                    else:
+                        self._push_source_batch(sid, data, ts)
+                    src = self.plan.node(sid).source
+                    self._positions[sid][split_ix] = src.position_after(
+                        self._positions[sid][split_ix], data, ts)
+                    self._eps_meter.mark(len(ts))
+                    if len(ts):
+                        self._on_source_ts(sid, split_ix, int(ts.max()))
+                # exhausted splits stop holding the watermark back
+                self._recombine_source_wm(sid, alive)
+                t3 = time.perf_counter()
+                self._propagate_watermarks()
+                self.prof["advance_wm"] += time.perf_counter() - t3
+                self._drain_emits(barrier=False)
+            # commit a finished background checkpoint (never blocks),
+            # then start the next once the interval has passed and none
+            # is in flight
+            self._complete_pending_checkpoint(wait=False, tolerate=True)
+            if (self._coordinator is not None and interval_ms > 0
+                    and self._ckpt_pending is None
+                    and (time.time() - last_chk) * 1000 >= interval_ms):
+                t0 = time.perf_counter()
+                self._ckpt_pending = self._begin_checkpoint()
+                self.prof["checkpoint_freeze"] += time.perf_counter() - t0
+                last_chk = time.time()
+        # end of input: the final watermark flushes every window
+        for op in self._ops.values():
+            op.quiesce()
+        for sid in self.plan.sources:
+            self._out_wm[sid] = _FINAL
+        self._propagate_watermarks(final=True)
+        self._drain_emits(barrier=True)
+        for op in self._ops.values():
+            op.quiesce()
+        if self._coordinator is not None and interval_ms > 0:
+            t0 = time.perf_counter()
+            self.checkpoint_now()  # the final epoch's commit
+            self.prof["checkpoint_final"] += time.perf_counter() - t0
+        else:
+            self._commit_final_epoch()
         for n in self.plan.nodes.values():
             if n.kind == "sink":
                 n.sink.close()
         return JobResult(job_name, self._final_metrics(t_start))
 
+    def _on_source_ts(self, sid: int, split_ix: int, ts_max: int) -> None:
+        """One consumed batch's newest timestamp: the split's watermark
+        generator, the source's max timestamp and the lag gauge."""
+        self._max_ts[sid] = max(self._max_ts[sid], ts_max)
+        self._wm_gens[sid][split_ix].on_batch(ts_max)
+        self._wm_lag.set(ts_max - self._out_wm[sid])
+
     def _final_metrics(self, t_start: float) -> Dict[str, Any]:
         out = dict(self.metrics)
+        out.update(self.registry.snapshot())
         out["wall_s"] = time.perf_counter() - t_start
+        if self._coordinator is not None:
+            out["checkpoints_completed"] = len(self._coordinator.stats)
         out["device"] = str(self.device)
         for counter in ("late_records", "records_dropped_full",
                         "records_spilled", "exchange_overflow",
@@ -425,12 +848,12 @@ class Driver:
                     self._pending_emits.append((nid, (
                         op.advance_watermark(op.final_watermark())
                         if in_wm == _FINAL or final
-                        else op.advance_processing_time())))
+                        else op.advance_processing_time()), time.time()))
                 else:
                     wm = op.final_watermark() if in_wm == _FINAL else in_wm
                     if wm > op.watermark or final:
                         self._pending_emits.append(
-                            (nid, op.advance_watermark(wm)))
+                            (nid, op.advance_watermark(wm), time.time()))
                 if self._deliver_at_fire:
                     self._drain_emits(barrier=True)
             self._out_wm[nid] = in_wm
@@ -460,22 +883,27 @@ class Driver:
                 if self.plan.node(nid).kind == "window" \
                         and op._emit_ring is not None and op._ring_version_no:
                     pending.append((nid, FiredWindows(
-                        op=op, ring=True, ring_no=op._ring_version_no)))
-        FiredWindows.materialize_many([f for _, f in pending], barrier=barrier)
-        for nid, fired in pending:
-            self._deliver(nid, fired)
+                        op=op, ring=True, ring_no=op._ring_version_no),
+                        time.time()))
+        FiredWindows.materialize_many([f for _, f, _ in pending],
+                                      barrier=barrier)
+        for nid, fired, t_fire in pending:
+            if self._deliver(nid, fired):
+                self._lat_hist.update((time.time() - t_fire) * 1000.0)
         self.prof["drain"] += time.perf_counter() - t0
 
-    def _deliver(self, nid: int, fired) -> None:
+    def _deliver(self, nid: int, fired) -> bool:
         """Push one fire's rows downstream, stamped at window end - 1
-        (materializing it first, if it is still lazy)."""
+        (materializing it first, if it is still lazy); False when it has
+        none."""
         out = dict(fired)
         nrec = len(out["window_end"])
         if nrec == 0:
-            return
+            return False
         self.metrics["fired_windows"] += nrec
         ts = np.asarray(out["window_end"], np.int64) - 1
         self._push_downstream(nid, (out, ts, np.ones(nrec, bool)))
+        return True
 
 
 class _DevBatch:
@@ -490,9 +918,29 @@ class _DevBatch:
         self.n = n
 
 
-def _dev_batch_markers(src: DeviceGeneratorSource):
-    for i in range(src.n_batches):
+def _dev_batch_markers(src: DeviceGeneratorSource, start: int = 0):
+    """Markers of a device-made source's batches from position
+    ``start`` on."""
+    for i in range(start, src.n_batches):
         yield _DevBatch(i, int(src.ts_bounds(i)[1]), src.batch_size)
+
+
+def _rebase_position(pos: int, old_f: int, new_f: int, *,
+                     sid: int = 0, split_ix: int = 0) -> int:
+    """A replay position counted in ``old_f`` sub-batches per logical
+    batch, in ``new_f`` units. Only a position on a common sub-batch
+    boundary converts (a cut in the middle of a logical batch at K = 4
+    cannot resume at K = 3); otherwise it fails rather than replay a
+    partial logical batch."""
+    scaled = pos * new_f
+    if scaled % old_f:
+        raise ValueError(
+            f"checkpoint position {pos} of source {sid} split "
+            f"{split_ix} was taken at sub-batch factor {old_f} and "
+            f"does not align to factor {new_f} — restore with the "
+            "original pipeline.sub-batches, or from a logical-batch-"
+            "aligned checkpoint")
+    return scaled // old_f
 
 
 class _Prefetcher:
@@ -517,6 +965,8 @@ class _Prefetcher:
                 if self._closed:
                     return
                 self._q.put(item)
+                if self._closed:
+                    return
             self._q.put(StopIteration())
         except BaseException as e:  # surfaced on consume
             self._q.put(e)
@@ -530,6 +980,14 @@ class _Prefetcher:
             except Exception:
                 break
         self._thread.join(timeout=1.0)
+        # a wrapped iterator with background work of its own ends here too
+        inner_close = getattr(self._it, "close", None)
+        if inner_close is not None:
+            try:
+                inner_close()
+            except ValueError:
+                pass  # a generator still running on the feeder thread
+                # refuses close(); the feeder is ending anyway
 
     def __iter__(self):
         return self

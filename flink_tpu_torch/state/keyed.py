@@ -36,6 +36,11 @@ class PaneStateLayout:
     def rows(self) -> int:
         return self.slots + 1
 
+    def bytes(self) -> int:
+        """Device bytes of one block's pane lanes and counts."""
+        per_cell = 4 * (self.sum_width + self.max_width + self.min_width) + 4
+        return self.rows * self.ring * per_cell
+
 
 @dataclasses.dataclass
 class PaneState:

@@ -1,6 +1,7 @@
 """Event-time watermarks: the host watermark clock advances once per
 batch from the batch's max timestamp, and the driver takes the min over
-a source's splits and over a node's inputs."""
+a source's splits and over a node's inputs. A generator's state (its
+max timestamp) rides in checkpoints (``snapshot``/``restore``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,6 +41,12 @@ class MonotonousWatermarks:
     def current(self) -> int:
         return self._max_ts - 1 if self._max_ts != LONG_MIN else LONG_MIN
 
+    def snapshot(self) -> int:
+        return self._max_ts
+
+    def restore(self, state: int) -> None:
+        self._max_ts = state
+
 
 class BoundedOutOfOrdernessWatermarks:
     """wm = max_ts - delay - 1."""
@@ -57,6 +64,12 @@ class BoundedOutOfOrdernessWatermarks:
         if self._max_ts == LONG_MIN:
             return LONG_MIN
         return self._max_ts - self._delay - 1
+
+    def snapshot(self) -> int:
+        return self._max_ts
+
+    def restore(self, state: int) -> None:
+        self._max_ts = state
 
 
 def make_generator(strategy: WatermarkStrategy):

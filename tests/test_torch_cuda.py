@@ -532,6 +532,50 @@ def test_devgen_q5_on_the_card_matches_the_cpu(dev, k):
     assert wk.LAUNCHES["devgen_ingest"] == 4 * k
 
 
+def test_checkpoint_freeze_is_the_state_at_the_cut(dev):
+    """A checkpoint's freeze is a clone enqueued on the operator's stream,
+    with no synchronization: steps launched after it update the panes in
+    place, and the snapshot materialized afterwards on another thread
+    (the checkpoint executor's) still holds the panes at the cut — the
+    copy taken after a synchronize() there."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.checkpoint.coordinator import materialize_snapshot
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream_device
+    from flink_tpu_torch.ops.aggregates import count
+    from flink_tpu_torch.ops.window import WindowOperator
+
+    src = bid_stream_device(NexmarkConfig(
+        batch_size=1 << 18, n_batches=8, events_per_ms=8,
+        num_active_auctions=2_000, hot_ratio=4)).subdivided(4)
+    op = WindowOperator(SlidingEventTimeWindows.of(10_000, 1_000), count(),
+                        num_shards=32, slots_per_shard=256,
+                        max_out_of_orderness_ms=1_000, top_n=("count", 1),
+                        device=dev)
+    assert op.attach_device_source(src)
+
+    def step(i):
+        assert op.process_batch_device(i)
+        op.advance_watermark(src.ts_bounds(i)[1] - 1_001)
+
+    for i in range(13):  # the cut falls inside logical batch 3
+        step(i)
+    snap = op.snapshot_state()
+    torch.cuda.synchronize()
+    at_cut = op.state.counts.cpu().clone()
+    for i in range(13, 32):
+        step(i)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        mat = ex.submit(materialize_snapshot, snap).result()
+    assert isinstance(mat["panes"].counts, np.ndarray)
+    assert np.array_equal(mat["panes"].counts, at_cut.numpy())
+    assert int(at_cut.sum()) > 0
+    torch.cuda.synchronize()
+    assert not torch.equal(op.state.counts.cpu(), at_cut)
+    wk.check_errors(dev)
+
+
 # -- the lane kernels (fire_pack, scatter_lanes, scatter_pair_lanes) ---------
 
 def _lane_state(rng, rows, ring, pane_lo, pane_hi, sw, mw, nw):

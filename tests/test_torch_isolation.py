@@ -60,6 +60,11 @@ def test_scan_covers_the_package():
     assert "flink_tpu_torch/api/sinks.py" in files
     assert "flink_tpu_torch/native_codec.py" in files
     assert "flink_tpu_torch/nexmark/generator.py" in files
+    for mod in ("checkpoint/coordinator.py", "checkpoint/storage.py",
+                "checkpoint/blobformat.py", "obs/metrics.py",
+                "obs/tracing.py", "faults.py", "fs.py", "memory.py",
+                "runtime/restart.py", "runtime/supervisor.py"):
+        assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 
 
