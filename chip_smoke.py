@@ -207,7 +207,37 @@ mesh).
    completed checkpoints, the loop thread's ms a checkpoint (the fire
    drain and the freeze, p50 and max), the executor's persist ms (p50
    and max), bytes a checkpoint, and events/s with checkpoints beside
-   without (smoke figures, not a benchmark).
+   without (smoke figures, not a benchmark). Since slice 21 a fourth
+   job: session windows (phase 16's job, 4 batches) at
+   ``host.parallelism`` 4, whose chaos run also fails a host pool task
+   (``CKPT_POOL_FAULT``); its committed sessions against the
+   brute-force sessionizer.
+16. ``sessions`` — BASELINE config #4 (``bench.py:683-726``,
+   ``confs/bench_sessions.conf``): 50,000 users, 12 batches of 2^20
+   clicks in 1 s bursts, 2 % of them up to 3 s late, session gap 500 ms,
+   allowed lateness 5 s, out of order 1 s, ``count()``, at
+   ``host.parallelism`` 1 and 4: the two runs' rows byte-identical, each
+   session's final row against a brute-force sessionizer, the late drops
+   against its count, no kernel launched (the lift and finalize are
+   torch on the CPU by design); beside it, one batch's columns copied to
+   the card and back.
+17. ``q8`` — BASELINE config #3 (``bench.py:408-438``,
+   ``confs/bench_q8.conf``): 100,000 active people, 24 batches of 2^18
+   events on each input, 1 s tumbling windows, out of order 1 s; the
+   join in ``pairs`` mode (host row buffers) against every person ⋈
+   seller pair of each window, and in ``aggregate`` mode (two device
+   window operators: ``scatter_lanes``, ``fire_pack``, ``ring_columns``)
+   against each (key, window)'s counts and maxima.
+18. ``q7`` — BASELINE config #2 (``bench.py:385-405``,
+   ``confs/bench_q7.conf``): 10,000 auctions, hot ratio 4, 24 batches
+   of 2^18 bids, 10 s tumbling windows, out of order 1 s; windowAll's
+   host pane fold against each window's max price and bid count.
+19. ``emit_defer`` — Q5 host-fed (8 x 2^20 bids) at
+   ``pipeline.emit-defer`` 0 and 500 ms: the same rows in the same
+   order, the emit latency of each.
+
+Each of 16-19 prints its events/s and wall time beside the card's name
+and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
 the two ``scatter_lanes`` cases above (one JSON line).
@@ -277,6 +307,9 @@ copied in and run both in one call, in turns. The rows:
   the final checkpoint's seconds a run, rows against the golden.
 
 With ``--checkpoint`` it builds the kernels and runs only phase 15.
+
+With ``--host-operators`` it builds the kernels and runs only phases
+16-19.
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -3195,12 +3228,14 @@ def ms_stats(np, values):
             "max": float(max(vals))}
 
 
-def run_checkpointed(torch, np, build, conf, label, root, mode, limit=0):
+def run_checkpointed(torch, np, build, conf, label, root, mode, limit=0,
+                     fault=CKPT_FAULT):
     """One job through ``run_with_recovery`` into a
     ``TransactionalCollectSink``: mode 'none' without checkpoints (the
     final commit at end of input), 'clean' with a checkpoint at every
     batch boundary once the last is durable (interval 1 ms), 'chaos'
-    the same with the storage fault ``CKPT_FAULT`` and a sink that fails
+    the same with the faults ``fault`` (``CKPT_FAULT``, a storage write,
+    by default) and a sink that fails
     its attempt at ``limit`` rows; each failure restarts the job from
     its latest checkpoint. Returns the committed rows in commit order,
     the wall seconds, the launches and the checkpoint figures."""
@@ -3230,7 +3265,7 @@ def run_checkpointed(torch, np, build, conf, label, root, mode, limit=0):
         "restart-strategy.fixed-delay.attempts": 5 if mode == "chaos" else 0,
         "restart-strategy.fixed-delay.delay": 1})
     if mode == "chaos":
-        values.update({"faults.inject": CKPT_FAULT, "faults.seed": SEED})
+        values.update({"faults.inject": fault, "faults.seed": SEED})
     sink = PoisonedSink()
     envs = []
 
@@ -3293,18 +3328,21 @@ def run_checkpointed(torch, np, build, conf, label, root, mode, limit=0):
 
 
 def checkpoint_job(torch, np, name, build, conf, events, check_rows, on_path,
-                   root):
+                   root, fault=CKPT_FAULT,
+                   injected=("checkpoint.storage.write",)):
     """A job without checkpoints, with them, with them under faults,
     without again and with again (the second, warm runs give the rates
     printed side by side); the chaos run's committed rows must equal the
-    clean run's in order, and all of them the golden."""
+    clean run's in order, and all of them the golden; every fault point
+    in ``injected`` must have fired."""
     runs = {}
     for mode in ("none", "clean", "chaos", "none-again", "clean-again"):
         m = mode.split("-")[0]
         limit = (len(runs["clean"][0]) // 3) if m == "chaos" else 0
         runs[mode] = run_checkpointed(
             torch, np, build, conf, f"ckpt-{name}-{mode}",
-            os.path.join(root, f"{name}-{mode}"), m, limit=limit)
+            os.path.join(root, f"{name}-{mode}"), m, limit=limit,
+            fault=fault)
     none_rows, none_wall, _, _ = runs["none-again"]
     rows, wall, launches, fig = runs["clean-again"]
     c_rows, c_wall, c_launches, c_fig = runs["chaos"]
@@ -3315,8 +3353,7 @@ def checkpoint_job(torch, np, name, build, conf, events, check_rows, on_path,
           f"checkpoint {name}: the crashed and resumed run committed "
           f"{len(c_rows)} rows, the fault-free run {len(rows)}, or another "
           "order")
-    check(c_fig["recoveries"] >= 1 and "checkpoint.storage.write"
-          in c_fig["injected"],
+    check(c_fig["recoveries"] >= 1 and set(injected) <= set(c_fig["injected"]),
           f"checkpoint {name}: the chaos run did not crash as planned: {c_fig}")
     check(fig["checkpoints_completed"] > 1,
           f"checkpoint {name}: {fig['checkpoints_completed']} checkpoints")
@@ -3434,11 +3471,35 @@ def phase_checkpoint(torch, np):
         torch, np, "window_wordcount", build_ww, wconf,
         WC_BATCH * CKPT_WW_BATCHES, check_ww,
         ("scatter_lanes", "count_fire"), root))
+
+    # 4. sessions (BASELINE config #4's shape) at host.parallelism 4: a
+    # host pool task and a storage write fail, and the poisoned sink
+    sgen = session_gen(np, CKPT_SESSION_BATCHES, SESSION_BATCH,
+                       SESSION_USERS)
+    sconf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_sessions.conf"))
+    sconf.set("host.parallelism", 4)
+    sgolden = sessions_golden(np, sgen, CKPT_SESSION_BATCHES)[0]
+
+    def check_sessions(rows, label):
+        cols = {f: np.array([dict(r)[f] for r in rows]) for f in
+                ("key", "window_start", "window_end", "count")}
+        got = final_session_rows(np, cols)
+        check(got.shape == sgolden.shape and np.array_equal(got, sgolden),
+              f"{label}: sessions differ from the golden")
+
+    jobs.append(checkpoint_job(
+        torch, np, "sessions",
+        lambda c, sink: build_sessions(sgen, sink, c), sconf,
+        SESSION_BATCH * CKPT_SESSION_BATCHES, check_sessions, (), root,
+        fault=f"{CKPT_FAULT};{CKPT_POOL_FAULT}",
+        injected=("checkpoint.storage.write", "host.pool.task")))
     shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "checkpoint", "jobs": jobs,
           "note": "events/s with and without checkpoints are smoke "
                   "figures of single runs, not a benchmark",
-          "fault": CKPT_FAULT, "phase_s": time.perf_counter() - t_phase,
+          "fault": CKPT_FAULT, "sessions_fault": CKPT_POOL_FAULT,
+          "phase_s": time.perf_counter() - t_phase,
           "card": card_line()})
 
 
@@ -6343,6 +6404,419 @@ def phase_mesh_cards(torch, np):
           "card": card_line()})
 
 
+# -- slice 21: sessions, Q8 and Q7 (the host pool's operators) ---------------
+
+SESSION_USERS = 50_000          # bench.py:694, BASELINE config #4
+SESSION_BATCH = 1 << 20         # confs/bench_sessions.conf
+SESSION_BATCHES = 12
+SESSION_GAP = 500
+SESSION_LATENESS = 5_000
+SESSION_OOO = 1_000
+CKPT_SESSION_BATCHES = 4        # the checkpoint phase's sessions job
+CKPT_POOL_FAULT = "host.pool.task=raise x1 +20"
+Q8_PEOPLE = 100_000             # bench.py:408-438, confs/bench_q8.conf
+Q8_BATCH = 1 << 18
+Q8_BATCHES = 24
+Q7_BATCH = 1 << 18              # bench.py:385-405, confs/bench_q7.conf
+Q7_BATCHES = 24
+DEFER_BATCHES = 8               # Q5 host-fed at pipeline.emit-defer 500 ms
+Q8_DEVICE_KERNELS = ("scatter_lanes", "fire_pack", "ring_columns")
+
+
+def columns_sink(np, parts):
+    """A FnSink that keeps each delivered batch's columns."""
+    from flink_tpu_torch.api.sinks import FnSink
+
+    return FnSink(lambda b: parts.append(
+        {k: np.asarray(v).copy() for k, v in b.items()}))
+
+
+def concat_parts(np, parts):
+    if not parts:
+        return {}
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def run_timed(torch, env, label):
+    """``env.execute`` on the card between syncs: (JobResult, wall
+    seconds, the launches of the run)."""
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(wk.LAUNCHES)
+
+
+def session_gen(np, n_batches, batch, users):
+    """bench.py:697-708's clicks: ``users`` users, activity in 1 s bursts
+    a batch apart in event time, 2 % of the records up to 3 s late."""
+    def gen(split, i):
+        if i >= n_batches:
+            return None
+        rng = np.random.default_rng(i)
+        user = rng.integers(0, users, batch).astype(np.int64)
+        base = i * batch // 100
+        ts = base + rng.integers(0, 1000, batch)
+        late = rng.random(batch) < 0.02
+        ts = np.where(late, np.maximum(ts - 3000, 0), ts).astype(np.int64)
+        return ({"user": user}, ts)
+    return gen
+
+
+def build_sessions(gen, sink, conf):
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.api.windowing import EventTimeSessionWindows
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    env = StreamExecutionEnvironment(conf)
+    (env.from_source(GeneratorSource(gen),
+                     WatermarkStrategy.for_bounded_out_of_orderness(SESSION_OOO))
+        .key_by("user")
+        .window(EventTimeSessionWindows.with_gap(SESSION_GAP))
+        .allowed_lateness(SESSION_LATENESS)
+        .count()
+        .add_sink(sink))
+    return env
+
+
+def sessions_golden(np, gen, n_batches):
+    """A brute-force sessionizer over every record: (user, start, end,
+    count) sorted, and the records beyond the lateness when they arrive
+    (the watermark before their batch)."""
+    users, tss, late, wm_max = [], [], 0, None
+    for i in range(n_batches):
+        data, ts = gen("0", i)
+        if wm_max is not None:
+            wm = wm_max - SESSION_OOO - 1
+            late += int((ts + SESSION_GAP - 1 + SESSION_LATENESS <= wm).sum())
+        wm_max = max(wm_max or int(ts.max()), int(ts.max()))
+        users.append(data["user"])
+        tss.append(ts)
+    u, t = np.concatenate(users), np.concatenate(tss)
+    o = np.lexsort((t, u))
+    u, t = u[o], t[o]
+    new = np.ones(len(u), bool)
+    new[1:] = (u[1:] != u[:-1]) | (t[1:] - t[:-1] > SESSION_GAP)
+    starts = np.flatnonzero(new)
+    ends = np.append(starts[1:], len(u))
+    golden = np.stack([u[starts], t[starts], t[ends - 1] + SESSION_GAP,
+                       ends - starts], axis=1)
+    return golden, late
+
+
+def final_session_rows(np, rows):
+    """Each session's last row in commit order (a re-fired session
+    supersedes its key's earlier rows whose start it covers), sorted."""
+    k, s, e, c = (rows[f] for f in ("key", "window_start", "window_end",
+                                    "count"))
+    if len(np.unique(np.stack([k, s], 1), axis=0)) == len(k) and not (
+            len(k) and _covered(np, k, s, e)):
+        out = np.stack([k, s, e, c.astype(np.int64)], axis=1)
+    else:
+        final = {}
+        for kk, ss, ee, cc in zip(k.tolist(), s.tolist(), e.tolist(),
+                                  c.tolist()):
+            final = {key: v for key, v in final.items()
+                     if not (key[0] == kk and ss <= key[1] < ee)}
+            final[(kk, ss)] = (ee, cc)
+        out = np.array([(kk, ss, ee, cc) for (kk, ss), (ee, cc)
+                        in final.items()], np.int64).reshape(-1, 4)
+    return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+
+def _covered(np, k, s, e):
+    """Whether any row's start lies inside another row of its key."""
+    o = np.lexsort((s, k))
+    k, s, e = k[o], s[o], e[o]
+    return bool(((k[1:] == k[:-1]) & (s[1:] < e[:-1])).any())
+
+
+def batch_copy_ms(torch, np, gen):
+    """The time to copy one batch's columns (user and ts, int64) to the
+    card and back, pageable host memory, median of 5 (ms each way)."""
+    data, ts = gen("0", 0)
+    cols = [data["user"], ts]
+    up, down = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on = [torch.from_numpy(c).to("cuda") for c in cols]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = [t.cpu() for t in on]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(all(np.array_equal(b.numpy(), c) for b, c in zip(back, cols)),
+              "sessions: the batch's round trip changed its columns")
+        up.append((t1 - t0) * 1e3)
+        down.append((t2 - t1) * 1e3)
+    nbytes = sum(c.nbytes for c in cols)
+    return {"bytes": nbytes, "to_card_ms": float(np.median(up[1:])),
+            "to_host_ms": float(np.median(down[1:])),
+            "to_card_GBps": nbytes / np.median(up[1:]) / 1e6}
+
+
+def phase_sessions(torch, np):
+    """BASELINE config #4 (bench.py:683-726, confs/bench_sessions.conf):
+    session windows over a click stream through ``env.execute()`` at
+    host.parallelism 1 and 4; rows byte-identical between the two and
+    equal to the brute-force sessionizer, late drops equal to its
+    count; no kernel launches (the lift and finalize are torch on the
+    CPU by design); the batch's copy to the card and back beside."""
+    from flink_tpu_torch.config import Configuration
+
+    n_batches, batch = SESSION_BATCHES, SESSION_BATCH
+    gen = session_gen(np, n_batches, batch, SESSION_USERS)
+    runs = {}
+    for w in (1, 4):
+        conf = Configuration.from_file(
+            os.path.join(ROOT, "confs", "bench_sessions.conf"))
+        conf.set("pipeline.microbatch-size", batch)
+        conf.set("host.parallelism", w)
+        parts = []
+        env = build_sessions(gen, columns_sink(np, parts), conf)
+        res, wall, launches = run_timed(torch, env, f"sessions-w{w}")
+        runs[w] = (concat_parts(np, parts), res, wall, launches)
+    (r1, res1, _, l1), (r4, res4, _, l4) = runs[1], runs[4]
+    check(set(r1) == set(r4) and all(
+        r1[k].dtype == r4[k].dtype and np.array_equal(r1[k], r4[k])
+        for k in r1), "sessions: rows at host.parallelism 4 differ from 1")
+    golden, late = sessions_golden(np, gen, n_batches)
+    got = final_session_rows(np, r1)
+    check(got.shape == golden.shape and np.array_equal(got, golden),
+          f"sessions: {len(got)} final sessions against the golden's "
+          f"{len(golden)}, or other values")
+    check(res1.metrics["late_records"] == res4.metrics["late_records"] == late,
+          f"sessions: late drops {res1.metrics['late_records']} / "
+          f"{res4.metrics['late_records']}, the golden {late}")
+    for w, (_, _, _, launches) in runs.items():
+        check(not any(launches.values()),
+              f"sessions w={w} launched kernels: {launches}")
+    events = n_batches * batch
+    out = {"phase": "sessions", "events": events, "batches": n_batches,
+           "rows": int(len(r1["key"])), "sessions": int(len(golden)),
+           "late_records": late,
+           "by_parallelism": {
+               str(w): {"wall_s": wall, "events_per_s": events / wall,
+                        "pool_tasks": res.metrics.get("hostpool.tasks_total"),
+                        "host_profile_s": busy_and_host(res)[1]}
+               for w, (_, res, wall, _) in runs.items()},
+           "batch_copy": batch_copy_ms(torch, np, gen),
+           "card": card_line()}
+    emit(out)
+    return out
+
+
+def q8_cfg(n_batches, batch, people):
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig
+
+    # bench.py:420-421
+    return NexmarkConfig(batch_size=batch, n_batches=n_batches,
+                         events_per_ms=100, num_active_people=people)
+
+
+def run_q8(torch, np, mode, cfg):
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import auction_stream, person_stream
+    from flink_tpu_torch.nexmark.queries import q8_monitor_new_users
+
+    conf = Configuration.from_file(os.path.join(ROOT, "confs",
+                                                "bench_q8.conf"))
+    conf.set("pipeline.microbatch-size", cfg.batch_size)
+    parts = []
+    env = StreamExecutionEnvironment(conf)
+    # bench.py:432-433: 1 s windows, 1 s out of order
+    q8_monitor_new_users(env, person_stream(cfg), auction_stream(cfg),
+                         columns_sink(np, parts), window_ms=1_000,
+                         out_of_orderness_ms=1_000, mode=mode)
+    res, wall, launches = run_timed(torch, env, f"q8-{mode}")
+    return concat_parts(np, parts), res, wall, launches
+
+
+def q8_sides(np, cfg):
+    """Both inputs' (window end, key, carried field), from the
+    generators' batches."""
+    from flink_tpu_torch.nexmark.generator import auction_batch, person_batch
+
+    L = [person_batch(cfg, 0, i) for i in range(cfg.n_batches)]
+    R = [auction_batch(cfg, 0, i) for i in range(cfg.n_batches)]
+
+    def side(parts, key, field):
+        ts = np.concatenate([t for _, t in parts])
+        return (ts // 1000 * 1000 + 1000,
+                np.concatenate([d[key] for d, _ in parts]),
+                np.concatenate([d[field] for d, _ in parts]))
+    return side(L, "person", "state_id"), side(R, "seller", "reserve")
+
+
+def q8_pairs_golden(np, cfg):
+    """Every person ⋈ seller pair of a window, by searchsorted ranges of
+    the sorted right side: (window_end, key, state_id, reserve) rows."""
+    (lw, lk, ls), (rw, rk, rv) = q8_sides(np, cfg)
+    span = int(max(lk.max(), rk.max())) + 1
+    lcode, rcode = lw * span + lk, rw * span + rk
+    o = np.argsort(rcode, kind="stable")
+    rs = rcode[o]
+    lo = np.searchsorted(rs, lcode, "left")
+    n = np.searchsorted(rs, lcode, "right") - lo
+    li = np.repeat(np.arange(len(lcode)), n)
+    first = np.repeat(lo, n)
+    within = np.arange(len(li)) - np.repeat(np.cumsum(n) - n, n)
+    ri = o[first + within]
+    return sort_rows(np, [lw[li], lk[li], ls[li].astype(np.float64),
+                          rv[ri].astype(np.float64)])
+
+
+def q8_aggregate_golden(np, cfg):
+    """Per (key, window) on both sides: (key, window_end, each side's
+    count and the max of its carried field), by group-by over sorted
+    codes."""
+    (lw, lk, ls), (rw, rk, rv) = q8_sides(np, cfg)
+    span = int(max(lk.max(), rk.max())) + 1
+
+    def groups(w, k, v):
+        code = w * span + k
+        o = np.argsort(code, kind="stable")
+        c = code[o]
+        starts = np.flatnonzero(np.r_[True, c[1:] != c[:-1]])
+        return (c[starts], np.diff(np.r_[starts, len(c)]),
+                np.maximum.reduceat(v[o].astype(np.float64), starts))
+
+    lc, ln, lm = groups(lw, lk, ls)
+    rc, rn, rm = groups(rw, rk, rv)
+    common, li, ri = np.intersect1d(lc, rc, return_indices=True)
+    return sort_rows(np, [common % span, common // span, ln[li],
+                          lm[li], rn[ri], rm[ri]])
+
+
+def sort_rows(np, cols):
+    arr = np.stack([np.asarray(c, np.float64) for c in cols], axis=1)
+    return arr[np.lexsort(arr.T[::-1])]
+
+
+def phase_q8(torch, np):
+    """BASELINE config #3, Nexmark Q8 (bench.py:408-438,
+    confs/bench_q8.conf) through ``env.execute()`` in both join modes:
+    pairs (the host row buffers and the ragged cross product) against
+    the exact person ⋈ seller pairs of each window; aggregate (each side
+    a device WindowOperator: scatter_lanes, fire_pack and ring_columns on
+    the card) against each (key, window)'s counts and maxima."""
+    cfg = q8_cfg(Q8_BATCHES, Q8_BATCH, Q8_PEOPLE)
+    out = {"phase": "q8", "events": 2 * Q8_BATCHES * Q8_BATCH,
+           "batches": Q8_BATCHES}
+    pairs, res, wall, launches = run_q8(torch, np, "pairs", cfg)
+    got = sort_rows(np, [pairs["window_end"], pairs["key"],
+                         pairs["left_state_id"], pairs["right_reserve"]])
+    want = q8_pairs_golden(np, cfg)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"q8 pairs: {len(got)} pairs against the golden's {len(want)}, "
+          "or other values")
+    check(not any(launches.values()), f"q8 pairs launched {launches}")
+    out["pairs"] = {"rows": int(len(got)), "wall_s": wall,
+                    "events_per_s": out["events"] / wall,
+                    "late_records": res.metrics["late_records"],
+                    "host_profile_s": busy_and_host(res)[1]}
+    agg, res, wall, launches = run_q8(torch, np, "aggregate", cfg)
+    got = sort_rows(np, [agg["key"], agg["window_end"], agg["left_count"],
+                         agg["left_state_id"], agg["right_count"],
+                         agg["right_reserve"]])
+    want = q8_aggregate_golden(np, cfg)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"q8 aggregate: {len(got)} rows against the golden's {len(want)}, "
+          "or other values")
+    missing = [k for k in Q8_DEVICE_KERNELS if not launches.get(k)]
+    check(not missing, f"q8 aggregate: kernels not launched {missing}")
+    ran = {k: launches[k] for k in UNLAUNCHED if launches.get(k)}
+    check(not ran, f"q8 aggregate: launched kernels no path calls: {ran}")
+    busy, host = busy_and_host(res)
+    out["aggregate"] = {
+        "rows": int(len(got)), "wall_s": wall,
+        "events_per_s": out["events"] / wall,
+        "launches": {k: launches.get(k, 0) for k in Q8_DEVICE_KERNELS},
+        "device_busy_ms": busy,
+        "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+        "host_profile_s": host}
+    out["card"] = card_line()
+    emit(out)
+    return out
+
+
+def phase_q7(torch, np):
+    """BASELINE config #2, Nexmark Q7 (bench.py:385-405,
+    confs/bench_q7.conf): the highest bid of each 10 s window through
+    windowAll's host pane fold, against each window's max price and bid
+    count from numpy."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import (
+        NexmarkConfig, bid_batch, bid_stream)
+    from flink_tpu_torch.nexmark.queries import q7_highest_bid
+
+    n_batches, batch = Q7_BATCHES, Q7_BATCH
+    cfg = NexmarkConfig(batch_size=batch, n_batches=n_batches,
+                        events_per_ms=100, num_active_auctions=10_000,
+                        hot_ratio=4)
+    conf = Configuration.from_file(os.path.join(ROOT, "confs",
+                                                "bench_q7.conf"))
+    conf.set("pipeline.microbatch-size", batch)
+    parts = []
+    env = StreamExecutionEnvironment(conf)
+    q7_highest_bid(env, bid_stream(cfg), columns_sink(np, parts),
+                   window_ms=10_000, out_of_orderness_ms=1_000)
+    res, wall, launches = run_timed(torch, env, "q7")
+    rows = concat_parts(np, parts)
+    bids = [bid_batch(cfg, 0, i) for i in range(n_batches)]
+    price = np.concatenate([d["price"] for d, _ in bids])
+    we = np.concatenate([t for _, t in bids]) // 10_000 * 10_000 + 10_000
+    ends, inv, counts = np.unique(we, return_inverse=True, return_counts=True)
+    best = np.full(len(ends), -np.inf, np.float32)
+    np.maximum.at(best, inv, price)
+    o = np.argsort(rows["window_end"], kind="stable")
+    check(np.array_equal(rows["window_end"][o], ends)
+          and np.array_equal(rows["max_price"][o], best)
+          and np.array_equal(rows["count"][o], counts),
+          "q7: windows, max prices or counts differ from the golden")
+    check(not any(launches.values()), f"q7 launched {launches}")
+    events = n_batches * batch
+    out = {"phase": "q7", "events": events, "batches": n_batches,
+           "windows": int(len(ends)), "wall_s": wall,
+           "events_per_s": events / wall,
+           "pool_tasks": res.metrics.get("hostpool.tasks_total"),
+           "host_profile_s": busy_and_host(res)[1], "card": card_line()}
+    emit(out)
+    return out
+
+
+def phase_emit_defer(torch, np):
+    """Q5 host-fed at ``pipeline.emit-defer: 500ms`` commits the rows of
+    the run at 0, in the same order (only their delivery waits)."""
+    cfg = bids_cfg(DEFER_BATCHES)
+    runs = {}
+    for defer in ("0ms", "500ms"):
+        rows, launches, res, wall = run_q5_host_fed(
+            torch, np, cfg, f"q5-defer-{defer}",
+            conf_extra={"pipeline.emit-defer": defer})
+        runs[defer] = (rows, wall, res)
+    check(runs["0ms"][0] == runs["500ms"][0],
+          "emit_defer: rows at 500 ms differ from those at 0")
+    check_q5_rows(np, runs["0ms"][0], cfg, "emit_defer")
+    out = {"phase": "emit_defer", "rows": len(runs["0ms"][0]),
+           "batches": DEFER_BATCHES,
+           "wall_s": {k: v[1] for k, v in runs.items()},
+           "emit_latency_ms": {
+               k: {q: v[2].metrics.get(f"driver.emit_latency_ms.{q}")
+                   for q in ("p50", "max")}
+               for k, v in runs.items()},
+           "card": card_line()}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6368,6 +6842,9 @@ def main() -> int:
                                            phase_checkpoint(torch, np)),
         "--mesh-cards": lambda torch, np: (phase_build(),
                                            phase_mesh_cards(torch, np)),
+        "--host-operators": lambda torch, np: (
+            phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
+            phase_q7(torch, np), phase_emit_defer(torch, np)),
         "--cases": lambda torch, np: phase_cases(
             torch, np, argv[argv.index("--cases") + 1].split(",")),
         **{"--" + name.replace("_", "-"): (
@@ -6405,6 +6882,10 @@ def main() -> int:
         big = run_big_cells(torch, np)
         emit({"phase": "big_cells", **big, "card": card_line()})
         phase_checkpoint(torch, np)
+        phase_sessions(torch, np)
+        phase_q8(torch, np)
+        phase_q7(torch, np)
+        phase_emit_defer(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,

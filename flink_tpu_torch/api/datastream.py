@@ -4,29 +4,39 @@ has map, map_with_timestamps, filter, flat_map,
 assign_timestamps_and_watermarks, union, key_by (a column or a key
 function), print, collect and add_sink; window (with allowed_lateness,
 trigger and evictor), count_window, count/sum/max/min/aggregate, apply
-and top. ``aggregate`` takes a ``LaneAggregate``; a user
-``AggregateFunction`` goes through ``ops.aggregates.lower_aggregate``
-first, as in the JAX package. An evictor, or a trigger outside the pane
-kernels' families, routes a window onto the element path
-(``ops/evicting_window.py``). The partitioners, async I/O, connect,
-sessions and window_all are in ROADMAP.md."""
+and top; session windows (``window(EventTimeSessionWindows.with_gap(
+gap))``, with allowed_lateness and a retracting ``aggregate``);
+window_all (``AllWindowedStream``); and the windowed equi-join
+``join(other).where(k).equal_to(k).window(w).apply(...)`` in its two
+modes. ``map`` and ``filter`` also take a ``MapFunction`` or a
+``FilterFunction`` (``api/functions.py``). ``aggregate`` takes a
+``LaneAggregate``; a user ``AggregateFunction`` goes through
+``ops.aggregates.lower_aggregate`` first, as in the JAX package. An
+evictor, or a trigger outside the pane kernels' families, routes a
+window onto the element path (``ops/evicting_window.py``). The
+partitioners, async I/O, connect, running_aggregate and process are in
+ROADMAP.md."""
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 
-from flink_tpu_torch.api.functions import as_batch_fn
-from flink_tpu_torch.api.windowing import Trigger, WindowAssigner
+from flink_tpu_torch.api.functions import as_batch_fn, as_predicate
+from flink_tpu_torch.api.windowing import (
+    EventTimeSessionWindows, Trigger, WindowAssigner)
 from flink_tpu_torch.graph.transformations import (
     CountWindowAggregateTransformation,
     EvictingWindowTransformation,
     KeyByTransformation,
     MapTransformation,
+    SessionAggregateTransformation,
     SinkTransformation,
     Transformation,
     UnionTransformation,
     WindowAggregateTransformation,
+    WindowAllAggregateTransformation,
+    WindowJoinTransformation,
 )
 from flink_tpu_torch.ops.aggregates import LaneAggregate
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
@@ -54,7 +64,9 @@ class DataStream:
         return self._append(MapTransformation(name, (self.transform,), fn=fn))
 
     def filter(self, pred: Callable, name: str = "filter") -> "DataStream":
-        """``pred(data) -> (B,) bool``, ANDed into the valid mask."""
+        """``pred(data) -> (B,) bool`` (or a FilterFunction's
+        ``filter_batch``), ANDed into the valid mask."""
+        pred = as_predicate(pred)
 
         def op(data, ts, valid):
             return data, ts, valid & np.asarray(pred(data), bool)
@@ -99,6 +111,16 @@ class DataStream:
         self.env._register(t)
         return KeyedStream(self.env, t)
 
+    def window_all(self, assigner: WindowAssigner) -> "AllWindowedStream":
+        """A global (non-keyed) window over all records, folded per pane
+        on the host (``ops/window_all.py``)."""
+        return AllWindowedStream(self, assigner)
+
+    def join(self, other: "DataStream") -> "JoinBuilder":
+        """``join(other).where(k).equal_to(k).window(w).apply(...)``: a
+        windowed equi-join of this stream (left) with ``other`` (right)."""
+        return JoinBuilder(self, other)
+
     def add_sink(self, sink: Any, name: str = "sink") -> "DataStream":
         return self._append(SinkTransformation(name, (self.transform,), sink=sink))
 
@@ -123,6 +145,8 @@ class DataStream:
 
 class KeyedStream(DataStream):
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
+        if isinstance(assigner, EventTimeSessionWindows):
+            return SessionWindowedStream(self, assigner)
         return WindowedStream(self, assigner)
 
     def count_window(self, size: int) -> "CountWindowedStream":
@@ -332,3 +356,89 @@ class WindowedAggregateStream(DataStream):
             by = fields[0]
         t.top_n = (by, n)
         return self
+
+
+class SessionWindowedStream(WindowedStream):
+    """Keyed session windows (``ops/session.py``): allowed_lateness and
+    the aggregate shortcuts as on time windows."""
+
+    def aggregate(self, agg: LaneAggregate, name: str = "session_agg",
+                  retract: bool = False) -> DataStream:
+        """``retract=True``: a merge that consumes a fired session emits
+        -U for its stale row before the merged session fires +I/+U."""
+        if self._evictor is not None:
+            raise NotImplementedError(
+                "an evictor on session windows is not supported: the "
+                "session operator keeps lanes, not elements")
+        self._check_trigger()
+        kt = self.keyed.transform
+        t = SessionAggregateTransformation(
+            name, (kt,), gap_ms=self.assigner.gap, aggregate=agg,
+            allowed_lateness_ms=self._lateness, key_field=kt.key_field,
+            retract=retract)
+        self.keyed.env._register(t)
+        return DataStream(self.keyed.env, t)
+
+
+class AllWindowedStream(_AggregateShortcuts):
+    def __init__(self, stream: DataStream, assigner: WindowAssigner):
+        self.stream = stream
+        self.assigner = assigner
+        self._lateness = 0
+
+    def allowed_lateness(self, ms: int) -> "AllWindowedStream":
+        self._lateness = ms
+        return self
+
+    def aggregate(self, agg: LaneAggregate,
+                  name: str = "window_all_agg") -> DataStream:
+        t = WindowAllAggregateTransformation(
+            name, (self.stream.transform,), assigner=self.assigner,
+            aggregate=agg, allowed_lateness_ms=self._lateness)
+        self.stream.env._register(t)
+        return DataStream(self.stream.env, t)
+
+
+class JoinBuilder:
+    """The where / equal_to / window chain of a windowed join."""
+
+    def __init__(self, left: DataStream, right: DataStream):
+        self._left = left
+        self._right = right
+        self._left_key: Optional[str] = None
+        self._right_key: Optional[str] = None
+
+    def where(self, key_field: str) -> "JoinBuilder":
+        self._left_key = key_field
+        return self
+
+    def equal_to(self, key_field: str) -> "JoinBuilder":
+        self._right_key = key_field
+        return self
+
+    def window(self, assigner: WindowAssigner) -> "WindowedJoin":
+        return WindowedJoin(self, assigner)
+
+
+class WindowedJoin:
+    def __init__(self, builder: JoinBuilder, assigner: WindowAssigner):
+        self.b = builder
+        self.assigner = assigner
+
+    def apply(self, left_fields: Sequence[str] = (),
+              right_fields: Sequence[str] = (), name: str = "window_join",
+              mode: str = "pairs") -> DataStream:
+        """``mode='pairs'`` (default): one row per matching left × right
+        pair, Flink's JoinFunction semantics. ``mode='aggregate'``: one
+        row per (key, window) present on both sides with each side's
+        count and max-carried fields (``ops/join.py``)."""
+        env = self.b._left.env
+        t = WindowJoinTransformation(
+            name, (self.b._left.transform, self.b._right.transform),
+            assigner=self.assigner,
+            left_key=self.b._left_key or "key",
+            right_key=self.b._right_key or "key",
+            left_fields=tuple(left_fields), right_fields=tuple(right_fields),
+            mode=mode)
+        env._register(t)
+        return DataStream(env, t)

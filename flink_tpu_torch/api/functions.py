@@ -1,21 +1,93 @@
-"""User functions: the map path, and incremental aggregation. A map is
-a batch function over a dict of field → (B,) numpy arrays (filters and
-flat maps are batch functions too, see ``api/datastream.py``); an
-``AggregateFunction`` lowers to lanes through
-``ops.aggregates.lower_aggregate``. Per-record functions and reduce
-functions are in ROADMAP.md."""
+"""User functions: the map and filter path, and incremental aggregation.
+A map is a batch function over a dict of field → (B,) arrays (filters
+and flat maps are batch functions too, see ``api/datastream.py``).
+
+``MapFunction`` / ``FilterFunction`` take either form: override
+``map_batch`` / ``filter_batch`` for the batch path, or ``map`` /
+``filter`` for one record, which the default batch method runs over
+the batch with ``torch.func.vmap`` (the JAX package's ``jax.vmap``).
+The vmapped form runs on the device of the tensors it is given; numpy
+fields (as the driver's chains hand them) run as CPU tensors and come
+back as numpy. ``LambdaMap`` / ``LambdaFilter`` wrap a function of
+either form (``batch=False``: per record).
+
+An ``AggregateFunction`` lowers to lanes through
+``ops.aggregates.lower_aggregate``. Reduce, process-window and keyed
+process functions are in ROADMAP.md."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Union
 
 import numpy as np
+import torch
+
+
+def _vmapped(fn: Callable, values: Dict[str, Any]) -> Any:
+    """``torch.func.vmap(fn)`` over a dict of (B,) field arrays: tensors
+    stay on their device; numpy fields go as CPU tensors and the
+    result's tensors come back as numpy."""
+    from_numpy = any(isinstance(v, np.ndarray) for v in values.values())
+    args = {k: torch.from_numpy(np.ascontiguousarray(v))
+            if isinstance(v, np.ndarray) else v for k, v in values.items()}
+    out = torch.func.vmap(fn)(args)
+    if not from_numpy:
+        return out
+    if isinstance(out, torch.Tensor):
+        return out.numpy()
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
 
 
 class MapFunction:
-    """1→1 batch transform: override ``map_batch``."""
+    """1→1 transform: override ``map_batch`` for the batch path, or
+    ``map`` for one record (run over the batch by ``torch.func.vmap``)."""
 
-    def map_batch(self, values: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    def map(self, value: Dict[str, Any]) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def map_batch(self, values: Dict[str, Any]) -> Dict[str, Any]:
+        return _vmapped(self.map, values)
+
+
+class FilterFunction:
+    """Keep the rows where the predicate holds; lowered to an AND into
+    the valid mask. Override ``filter_batch``, or ``filter`` for one
+    record (run over the batch by ``torch.func.vmap``)."""
+
+    def filter(self, value: Dict[str, Any]) -> Any:
+        raise NotImplementedError
+
+    def filter_batch(self, values: Dict[str, Any]) -> Any:
+        return _vmapped(self.filter, values)
+
+
+@dataclasses.dataclass
+class LambdaMap(MapFunction):
+    fn: Callable[[Dict[str, Any]], Dict[str, Any]]
+    batch: bool = True
+
+    def map(self, value):
+        return self.fn(value)
+
+    def map_batch(self, values):
+        if self.batch:
+            return self.fn(values)
+        return _vmapped(self.fn, values)
+
+
+@dataclasses.dataclass
+class LambdaFilter(FilterFunction):
+    fn: Callable[[Dict[str, Any]], Any]
+    batch: bool = True
+
+    def filter(self, value):
+        return self.fn(value)
+
+    def filter_batch(self, values):
+        if self.batch:
+            return self.fn(values)
+        return _vmapped(self.fn, values)
 
 
 def as_batch_fn(fn: Union[MapFunction, Callable]) -> Callable:
@@ -25,6 +97,16 @@ def as_batch_fn(fn: Union[MapFunction, Callable]) -> Callable:
     if not callable(fn):
         raise TypeError(f"map expects a MapFunction or a callable, got {fn!r}")
     return fn
+
+
+def as_predicate(pred: Union[FilterFunction, Callable]) -> Callable:
+    """The batch predicate behind a FilterFunction or a plain function."""
+    if isinstance(pred, FilterFunction):
+        return pred.filter_batch
+    if not callable(pred):
+        raise TypeError(
+            f"filter expects a FilterFunction or a callable, got {pred!r}")
+    return pred
 
 
 class AggregateFunction:

@@ -2,6 +2,8 @@
 run of ``panes_per_window`` panes of ``pane_ms = gcd(size, slide)``, and
 every record folds into exactly one (key, pane) cell. The processing-time
 assigners use the same panes with the operator's clock as the time axis.
+Session windows (``EventTimeSessionWindows``) merge by gap and have no
+pane layout.
 
 Triggers (``on_element`` / ``on_event_time`` returning CONTINUE, FIRE,
 PURGE or FIRE_AND_PURGE) are evaluated per element only on the element
@@ -29,6 +31,7 @@ class TimeWindow:
 class WindowAssigner:
     is_event_time: bool = True
     is_processing_time: bool = False
+    is_merging: bool = False
 
     @property
     def pane_ms(self) -> int:
@@ -203,6 +206,25 @@ class SlidingProcessingTimeWindows(WindowAssigner):
     @property
     def offset_ms(self) -> int:
         return self.offset
+
+
+@dataclasses.dataclass(frozen=True)
+class EventTimeSessionWindows(WindowAssigner):
+    """Gap-merged sessions: each record opens ``[ts, ts + gap)`` and a
+    key's overlapping windows merge. A session's bounds come from its
+    data, so it has no pane layout; ``ops/session.py`` keeps a span
+    registry on the host."""
+
+    gap: int
+    is_merging = True
+
+    @classmethod
+    def with_gap(cls, gap_ms: int) -> "EventTimeSessionWindows":
+        return cls(gap_ms)
+
+    @property
+    def pane_ms(self) -> int:
+        raise TypeError("session windows are not pane-decomposable")
 
 
 @dataclasses.dataclass(frozen=True)

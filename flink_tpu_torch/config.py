@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Callable, Dict, Generic, Mapping, Optional, TypeVar
 
 T = TypeVar("T")
@@ -114,11 +115,15 @@ class PipelineOptions:
         "dispatch. 0 pulls each batch on the loop thread.")
     EMIT_DEFER_MS = duration_option(
         "pipeline.emit-defer", -1,
-        "-1 (auto) or 0: a fired batch is delivered at the first loop "
-        "pass after its device-to-host copy has landed, the auto value's "
-        "meaning on a CPU host. A deferral above 0 times the JAX "
-        "package's drain thread and is refused: the port has no drain "
-        "thread.")
+        "The least age of a fired batch before the loop delivers it, "
+        "counted from the advance that fired it; a batch is delivered at "
+        "the first loop pass after its device-to-host copy has landed and "
+        "it has aged this long, in fire order, so only the time of "
+        "delivery moves, never the rows or their order. A checkpoint "
+        "barrier or end of input delivers at once. -1 (auto) and 0: no "
+        "deferral (the JAX package's auto value times its drain thread's "
+        "poll, 10 ms on an accelerator; the port delivers from the loop "
+        "thread and has no such thread).")
     FIRE_GATE = ConfigOption(
         "pipeline.fire-gate", True,
         "Fire-gated fused steps: a host-fed top-n batch's one-upload "
@@ -184,6 +189,31 @@ class ClusterOptions:
         "'ring' = N neighbour hops around the ring of blocks. "
         "Third-party implementations register via "
         "exchange.spi.register_shuffle.")
+
+
+def default_host_parallelism() -> int:
+    """``min(4, os.cpu_count())``, the JAX package's declared default."""
+    return min(4, os.cpu_count() or 1)
+
+
+class HostOptions:
+    PARALLELISM = ConfigOption(
+        "host.parallelism", default_host_parallelism(),
+        "Worker threads of the driver's shared host pool "
+        "(parallel/hostpool.py) running the host-resident operator "
+        "paths: the key-sharded session span registry, the spill "
+        "store's per-pane merges and per-window fires, and its chunked "
+        "tree fold (windowAll's). 1 = the exact serial path (no pool "
+        "threads). Default min(4, os.cpu_count()); a value below 1 fails "
+        "when the driver builds its pool.")
+    FOLD_CHUNK_RECORDS = ConfigOption(
+        "host.fold-chunk-records", 1 << 18,
+        "Batch-size floor (and chunk size) of the host spill store's "
+        "tree fold: a batch below it absorbs in one pass; at or above it "
+        "the batch splits into chunks of this many records whose pane "
+        "partials combine in chunk order. The chunk size does not depend "
+        "on host.parallelism, so the reduction tree and the output bytes "
+        "do not change with the worker count. Must be >= 1.")
 
 
 class CheckpointingOptions:
@@ -285,7 +315,6 @@ LATER_KEYS = (
     ("pipeline.target-latency", "queue 1 item 2 (the debloater)"),
     ("state.lsm.", "queue 1 item 4.5"),
     ("state.memory-budget-bytes", "queue 1 item 4.5"),
-    ("host.", "queue 1 item 5"),
     ("plugins.modules", "queue 1 item 6"),
     ("cluster.rescale-from", "queue 1 item 6"),
     ("table.", "queue 1 item 7"),
@@ -410,14 +439,6 @@ class Configuration:
         if defer < -1:
             raise ValueError(f"pipeline.emit-defer must be -1 (auto) or a "
                              f"duration >= 0, got {defer} ms")
-        if defer > 0:
-            raise NotImplementedError(
-                f"pipeline.emit-defer={defer} ms: a deferral times the JAX "
-                "package's emit drain thread, which lets a fired batch age "
-                "before its fetch; the port delivers fires from the loop "
-                "thread as soon as their device-to-host copies have landed "
-                "(flink_tpu_torch/runtime/driver.py), so there is no fetch "
-                "to defer. Use -1 (auto) or 0")
         xcap = int(self.get(PipelineOptions.EXCHANGE_CAPACITY))
         if xcap < 0:
             raise ValueError(

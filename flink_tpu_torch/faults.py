@@ -40,6 +40,7 @@ The port's points (``KNOWN_FAULT_POINTS``)::
     checkpoint.storage.stall / .write / .fsync / .rename   checkpoint/storage.py
     checkpoint.upload                                      checkpoint/coordinator.py
     supervisor.restart                                     runtime/supervisor.py
+    host.pool.task                                         parallel/hostpool.py
 
 The reference's other points (RPC, DCN, the log tier, sessions, HA,
 rescale, the LSM tier) come with the modules that fire them
@@ -73,6 +74,7 @@ KNOWN_FAULT_POINTS = frozenset((
     "checkpoint.storage.rename",
     "checkpoint.upload",
     "supervisor.restart",
+    "host.pool.task",
 ))
 
 # process-global fault/recovery metrics — chaos tests assert every

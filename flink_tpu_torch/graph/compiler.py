@@ -1,10 +1,14 @@
 """Lower the transformation DAG to the plan the driver walks per batch:
 source → chain (fused host map, filter and flat-map functions) → window,
-element-path window or count window → chain → sink, with union nodes
-merging streams. KeyBy folds into the window node that consumes it; a
-key function becomes a chain function that writes the derived key
-column. A transformation the port does not have yet raises, naming its
-ROADMAP.md item."""
+element-path window, count window, session window, windowAll or
+windowed join → chain → sink, with union nodes merging streams. KeyBy
+folds into the stateful node that consumes it; a key function becomes a
+chain function that writes the derived key column. A join node records
+which upstream node feeds its left and its right input (``left_input``,
+``right_input``), and refuses one node feeding both. Each stateful node
+records the schema of the rows it emits (``out_schema``) where that is
+a plan fact. A transformation the port does not have yet raises,
+naming its ROADMAP.md item."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,11 +21,14 @@ from flink_tpu_torch.graph.transformations import (
     EvictingWindowTransformation,
     KeyByTransformation,
     MapTransformation,
+    SessionAggregateTransformation,
     SinkTransformation,
     SourceTransformation,
     Transformation,
     UnionTransformation,
     WindowAggregateTransformation,
+    WindowAllAggregateTransformation,
+    WindowJoinTransformation,
 )
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
 
@@ -29,7 +36,8 @@ from flink_tpu_torch.time.watermarks import WatermarkStrategy
 @dataclasses.dataclass
 class ExecNode:
     id: int
-    # source | chain | union | window | evicting_window | count_window | sink
+    # source | chain | union | window | evicting_window | count_window |
+    # session | window_all | join | sink
     kind: str
     downstream: List[int] = dataclasses.field(default_factory=list)
     source: Any = None
@@ -38,6 +46,12 @@ class ExecNode:
     key_field: str = "key"
     window_transform: Any = None
     sink: Any = None
+    # join: the upstream node of each input edge
+    left_input: Optional[int] = None
+    right_input: Optional[int] = None
+    # the fired rows' schema (field -> numpy dtype name) where it is a
+    # plan fact, else None
+    out_schema: Optional[Dict[str, str]] = None
     name: str = ""
 
 
@@ -120,6 +134,29 @@ def compile_job(transforms: Sequence[Transformation],
             n = new_node("count_window", t.name, window_transform=t,
                          key_field=t.key_field)
             nodes[up].downstream.append(n.id)
+        elif isinstance(t, SessionAggregateTransformation):
+            up = node_for(t.inputs[0])
+            n = new_node("session", t.name, window_transform=t,
+                         key_field=t.key_field)
+            nodes[up].downstream.append(n.id)
+        elif isinstance(t, WindowAllAggregateTransformation):
+            up = node_for(t.inputs[0])
+            n = new_node("window_all", t.name, window_transform=t)
+            nodes[up].downstream.append(n.id)
+        elif isinstance(t, WindowJoinTransformation):
+            lup = node_for(t.inputs[0])
+            rup = node_for(t.inputs[1])
+            if lup == rup:
+                # the driver routes a batch to a side by its upstream
+                # node, which cannot tell the two edges apart
+                raise NotImplementedError(
+                    f"a join ({t.name!r}) fed twice by the same upstream "
+                    "node (a self-join) is not supported: materialize one "
+                    "side through a distinct map first")
+            n = new_node("join", t.name, window_transform=t,
+                         left_input=lup, right_input=rup)
+            nodes[lup].downstream.append(n.id)
+            nodes[rup].downstream.append(n.id)
         elif isinstance(t, SinkTransformation):
             up = node_for(t.inputs[0])
             n = new_node("sink", t.name, sink=t.sink)
@@ -142,9 +179,56 @@ def compile_job(transforms: Sequence[Transformation],
         raise ValueError("job has no sources")
     if not any(n.kind == "sink" for n in nodes.values()):
         raise ValueError("job has no sinks (add_sink/print/collect)")
+    for n in nodes.values():
+        n.out_schema = _op_out_schema(n)
     return ExecutionPlan(nodes=nodes, sources=sources,
                          topo_order=_topo_order(nodes),
                          watermark_strategy=default_wm)
+
+
+def _probe_result_schema(agg) -> Dict[str, str]:
+    """An aggregate's result fields with coarse dtypes: integer results
+    int64, the rest float32 (the JAX package's rule)."""
+    from flink_tpu_torch.ops.aggregates import probe_finalize
+
+    return {k: ("float32" if v.is_floating_point() else "int64")
+            for k, v in probe_finalize(agg).items()}
+
+
+def _op_out_schema(node: ExecNode) -> Optional[Dict[str, str]]:
+    """The fired-row schema of a stateful node, where the plan fixes it
+    (the JAX package's ``_op_out_schema``); None for chains, the element
+    path's window functions and the rest."""
+    wt = node.window_transform
+    try:
+        if node.kind in ("window", "session", "count_window"):
+            out = {"key": "int64", "window_start": "int64",
+                   "window_end": "int64", "count": "int64"}
+            out.update(_probe_result_schema(wt.aggregate))
+            if getattr(wt, "retract", False):
+                out["__op__"] = "int8"
+            return out
+        if node.kind == "window_all":
+            out = {"window_start": "int64", "window_end": "int64",
+                   "count": "int64"}
+            out.update(_probe_result_schema(wt.aggregate))
+            return out
+        if node.kind == "join":
+            out = {"key": "int64", "window_start": "int64",
+                   "window_end": "int64"}
+            if wt.mode == "aggregate":
+                out["left_count"] = "int64"
+                out["right_count"] = "int64"
+            for f in wt.left_fields:
+                out[f"left_{f}"] = "float32"
+            for f in wt.right_fields:
+                out[f"right_{f}"] = "float32"
+            return out
+    except Exception:
+        # a user aggregate whose finalize refuses empty lanes must not
+        # fail a lowering the runtime accepts
+        return None
+    return None
 
 
 def _topo_order(nodes: Dict[int, ExecNode]) -> List[int]:

@@ -91,6 +91,43 @@ class CountWindowAggregateTransformation(Transformation):
 
 
 @dataclasses.dataclass(eq=False)
+class WindowAllAggregateTransformation(Transformation):
+    """Non-keyed global window + aggregate, folded per pane on the host
+    (``ops/window_all.py``)."""
+
+    assigner: Optional[WindowAssigner] = None
+    aggregate: Optional[LaneAggregate] = None
+    allowed_lateness_ms: int = 0
+
+
+@dataclasses.dataclass(eq=False)
+class WindowJoinTransformation(Transformation):
+    """Two-input window equi-join (``ops/join.py``); ``inputs`` are
+    (left, right)."""
+
+    assigner: Optional[WindowAssigner] = None
+    left_key: str = "key"
+    right_key: str = "key"
+    left_fields: Tuple[str, ...] = ()
+    right_fields: Tuple[str, ...] = ()
+    mode: str = "pairs"  # "pairs" (exact) | "aggregate" (per-side summary)
+
+
+@dataclasses.dataclass(eq=False)
+class SessionAggregateTransformation(Transformation):
+    """Keyed session windows + aggregate (``ops/session.py``);
+    ``retract=True`` op-types the output: a merge that consumes a fired
+    span retracts its row (-U) before the merged session (re)fires
+    (+U)."""
+
+    gap_ms: int = 0
+    aggregate: Optional[LaneAggregate] = None
+    allowed_lateness_ms: int = 0
+    key_field: str = "key"
+    retract: bool = False
+
+
+@dataclasses.dataclass(eq=False)
 class SinkTransformation(Transformation):
     sink: Any = None
 

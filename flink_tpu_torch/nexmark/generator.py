@@ -1,7 +1,7 @@
-"""Nexmark bid generators: deterministic in (split, batch index) — the
+"""Nexmark generators: deterministic in (split, batch index) — the
 replayable-source contract.
 
-Two streams, as in ``flink_tpu.nexmark.generator``:
+Four streams, as in ``flink_tpu.nexmark.generator``:
 
 - ``bid_stream``: the reference's numpy RNG branch (host-fed). The
   reference prefers its native C generator when that library is built,
@@ -13,7 +13,8 @@ Two streams, as in ``flink_tpu.nexmark.generator``:
   window operator's step; the host copy repairs device-side key misses
   and materializes batches when a devgen gate closes.
 
-Person/auction streams are in ROADMAP.md.
+- ``person_stream`` and ``auction_stream``: the new-person and
+  new-auction events of Q8's join, the reference's numpy generators.
 """
 from __future__ import annotations
 
@@ -26,6 +27,18 @@ from flink_tpu_torch.api.sources import DeviceGeneratorSource, GeneratorSource
 
 # 1/HOT_AUCTION_RATIO of the auctions are hot
 HOT_AUCTION_RATIO = 100
+
+# the classic Nexmark mix: 1 person : 3 auctions : 46 bids
+PERSON_PROPORTION = 1
+AUCTION_PROPORTION = 3
+BID_PROPORTION = 46
+TOTAL_PROPORTION = PERSON_PROPORTION + AUCTION_PROPORTION + BID_PROPORTION
+
+# the record schemas (field -> numpy dtype name) of the three streams
+BID_SCHEMA = {"auction": "int64", "bidder": "int64", "price": "float32"}
+PERSON_SCHEMA = {"person": "int64", "state_id": "int64"}
+AUCTION_SCHEMA = {"auction": "int64", "seller": "int64",
+                  "category": "int64", "reserve": "float32"}
 
 # splitmix64 constants of native/codec.cc smx() and nexmark_bids()
 SMX_GAMMA = 0x9E3779B97F4A7C15
@@ -256,3 +269,55 @@ def bid_stream_device(cfg: NexmarkConfig,
         # logical seed unit stays cfg.batch_size
         subdivide=(lambda kk: bid_stream_device(cfg, sub_batches=kk))
         if k == 1 else None)
+
+
+def person_batch(cfg: NexmarkConfig, split: int,
+                 index: int) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """One batch of new-person events (Q8's left input): person,
+    state_id."""
+    ids, ts = _event_ids(cfg, split, index)
+    rng = np.random.default_rng(0x9E3779B9 ^ ((split << 20) | index))
+    b = cfg.batch_size
+    person = (ids * PERSON_PROPORTION // TOTAL_PROPORTION) % (
+        cfg.num_active_people) + rng.integers(0, 2, b)
+    return ({"person": person.astype(np.int64),
+             "state_id": rng.integers(0, 50, b).astype(np.int64)}, ts)
+
+
+def auction_batch(cfg: NexmarkConfig, split: int,
+                  index: int) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """One batch of new-auction events (Q8's right input): auction,
+    seller, category, reserve."""
+    ids, ts = _event_ids(cfg, split, index)
+    rng = np.random.default_rng(0x85EBCA6B ^ ((split << 20) | index))
+    b = cfg.batch_size
+    seller = rng.integers(0, cfg.num_active_people, b).astype(np.int64)
+    return ({
+        "auction": ids,
+        "seller": seller,
+        "category": rng.integers(0, 5, b).astype(np.int64),
+        "reserve": np.round(np.exp(rng.normal(6.0, 1.0, b)), 2).astype(
+            np.float32),
+    }, ts)
+
+
+def person_stream(cfg: NexmarkConfig) -> GeneratorSource:
+    """New-person events, ``cfg.n_batches`` batches a split."""
+
+    def gen(split: str, i: int) -> Optional[Tuple[Dict[str, np.ndarray], np.ndarray]]:
+        if i >= cfg.n_batches:
+            return None
+        return person_batch(cfg, int(split), i)
+
+    return GeneratorSource(gen, n_splits=cfg.n_splits)
+
+
+def auction_stream(cfg: NexmarkConfig) -> GeneratorSource:
+    """New-auction events, ``cfg.n_batches`` batches a split."""
+
+    def gen(split: str, i: int) -> Optional[Tuple[Dict[str, np.ndarray], np.ndarray]]:
+        if i >= cfg.n_batches:
+            return None
+        return auction_batch(cfg, int(split), i)
+
+    return GeneratorSource(gen, n_splits=cfg.n_splits)

@@ -1,6 +1,7 @@
 """Operator factories: build the runtime operator of a plan node. The
-window, element-path window and count-window operators are ported; the
-state backend (``hbm`` or ``spill``), the drop policy and, for a keyed
+window, element-path window, count-window, session, windowAll and
+windowed-join operators are ported; the state backend (``hbm`` or
+``spill``), the drop policy, the driver's host pool and, for a keyed
 window over a mesh of device blocks, the mesh plan and its exchange's
 capacity and pattern reach them through the context."""
 from __future__ import annotations
@@ -35,6 +36,10 @@ class OperatorBuildContext:
     exchange_impl: str = "all-to-all"
     # pipeline.readiness: how a window's throttle waits on a step
     readiness: str = "piggyback"
+    # the driver's shared host pool (host.parallelism) and the spill
+    # store's tree-fold floor (host.fold-chunk-records)
+    host_pool: Optional[Any] = None
+    fold_chunk_records: Optional[int] = None
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
@@ -56,6 +61,8 @@ def _window_factory(node, ctx: OperatorBuildContext):
         exchange_capacity=ctx.exchange_capacity,
         exchange_impl=ctx.exchange_impl,
         readiness=ctx.readiness,
+        host_pool=ctx.host_pool,
+        fold_chunk_records=ctx.fold_chunk_records,
     )
     op.allow_drops = ctx.allow_drops
     return op
@@ -82,3 +89,40 @@ def _evicting_window_factory(node, ctx: OperatorBuildContext):
     return EvictingWindowOperator(
         t.assigner, t.window_fn, trigger=t.trigger, evictor=t.evictor,
         allowed_lateness_ms=t.allowed_lateness_ms, device=ctx.device)
+
+
+def _session_factory(node, ctx: OperatorBuildContext):
+    from flink_tpu_torch.ops.session import SessionOperator
+
+    t = node.window_transform
+    return SessionOperator(
+        gap_ms=t.gap_ms, agg=t.aggregate,
+        allowed_lateness_ms=t.allowed_lateness_ms,
+        num_shards=ctx.num_shards, slots_per_shard=ctx.slots_per_shard,
+        max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
+        host_pool=ctx.host_pool, retract=t.retract)
+
+
+def _window_all_factory(node, ctx: OperatorBuildContext):
+    from flink_tpu_torch.ops.window_all import WindowAllOperator
+
+    t = node.window_transform
+    return WindowAllOperator(
+        t.assigner, t.aggregate,
+        allowed_lateness_ms=t.allowed_lateness_ms,
+        max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
+        host_pool=ctx.host_pool,
+        fold_chunk_records=ctx.fold_chunk_records)
+
+
+def _join_factory(node, ctx: OperatorBuildContext):
+    from flink_tpu_torch.ops.join import WindowJoinOperator
+
+    t = node.window_transform
+    # aggregate mode's two sides run on the driver's device, one block
+    # each, mesh or not, as in the JAX package
+    return WindowJoinOperator(
+        t.assigner, left_fields=t.left_fields, right_fields=t.right_fields,
+        num_shards=ctx.num_shards, slots_per_shard=ctx.slots_per_shard,
+        max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
+        mode=t.mode, device=ctx.device)

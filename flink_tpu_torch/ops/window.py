@@ -557,6 +557,8 @@ class WindowOperator:
         exchange_capacity: Optional[int] = None,
         exchange_impl: str = "all-to-all",
         readiness: str = PipelineOptions.READINESS.default,
+        host_pool: Optional[Any] = None,
+        fold_chunk_records: Optional[int] = None,
     ) -> None:
         # processing-time mode: records are stamped with the operator's
         # clock at ingest and fires ride advance_processing_time — the
@@ -658,7 +660,9 @@ class WindowOperator:
         # aggregate on the host; a top-n with spill queues the store's
         # rows here for the drain that re-ranks them with the ring's
         self._spill: Optional[HostSpillStore] = (
-            HostSpillStore(agg) if spill else None)
+            HostSpillStore(agg, pool=host_pool,
+                           fold_chunk_records=fold_chunk_records)
+            if spill else None)
         self._pending_ring_extras: collections.deque = collections.deque()
         # state.allow-drops: drop and count the records of a full shard
         # instead of failing the job (account_full_drop)
@@ -2423,28 +2427,40 @@ class FiredWindows(Mapping):
     """A fired-window batch, materialized on first access: an emit-ring
     fire reads the ring then, a packed fire decodes its buffers once
     their copies have landed (``op._decode_packs``; each pack ends with
-    its copy's CUDA event, None on the CPU). ``_extra``: the host spill
-    store's rows of the same fire, appended at materialization."""
+    its copy's CUDA event, None on the CPU), and a ``fetch`` fire (the
+    windowed join's aggregate mode) materializes its ``parts`` and then
+    combines them. ``_extra``: the host spill store's rows of the same
+    fire, appended at materialization."""
 
     def __init__(self, data: Optional[Dict[str, np.ndarray]] = None,
                  op: Any = None, ring: bool = False,
-                 ring_no: int = 0, packs: Optional[list] = None) -> None:
+                 ring_no: int = 0, packs: Optional[list] = None,
+                 fetch: Optional[Any] = None,
+                 parts: Optional[List["FiredWindows"]] = None) -> None:
         self._data = data
         self._op = op
         self._ring = ring
         self._ring_no = ring_no
         self._packs = packs
+        self._fetch = fetch
+        self._parts = parts or []
         self._extra: Optional[Dict[str, np.ndarray]] = None
 
     def ready(self) -> bool:
         """True unless a packed buffer's device→host copy is still in
         flight (an emit-ring fire reads whatever copy has landed)."""
+        if self._data is None and self._fetch is not None:
+            return all(p.ready() for p in self._parts)
         return self._data is not None or not self._packs or all(
             p[-1] is None or p[-1].query() for p in self._packs)
 
     def materialize(self) -> Dict[str, np.ndarray]:
         if self._data is None:
-            if self._packs is not None:
+            if self._fetch is not None:
+                FiredWindows.materialize_many(self._parts)
+                self._data = self._fetch()
+                self._fetch = None
+            elif self._packs is not None:
                 self._data = self._op._decode_packs(self._packs)
                 self._packs = None
             else:
@@ -2462,7 +2478,12 @@ class FiredWindows(Mapping):
         it (later ones read empty). A barrier pins each operator's newest
         fire version, so every appended row is delivered; otherwise the
         read takes whatever copy already landed. Packed fires decode
-        their own buffers, waiting for copies still in flight."""
+        their own buffers, waiting for copies still in flight; a fetch
+        fire materializes its parts first."""
+        for f in fireds:
+            if f._data is None and f._fetch is not None:
+                FiredWindows.materialize_many(f._parts, barrier=barrier)
+                f.materialize()
         need: Dict[int, int] = {}
         for f in fireds:
             if f._data is None and f._packs is None:

@@ -36,17 +36,25 @@ A count window (``count_window``) fires per batch, not per watermark:
 the driver takes its fires right after each batch and delivers them at
 once, and leaves it out of the watermark advance (it is blind to event
 time). An element-path window (``evicting_window``) fires both ways:
-per batch (its triggers, late re-fires) and on the watermark. A
+per batch (its triggers, late re-fires) and on the watermark; so does a
+session window in retract mode (its merges' -U rows per batch, queued
+behind its earlier fires; its sessions on the watermark). A
 processing-time window ignores the event watermark: each pass fires
 what the operator's clock has passed, and the end of input fires
 everything seen.
 
+The host-resident operators (session windows, windowAll, the windowed
+join's pairs mode) share one ``HostPool`` of ``host.parallelism``
+workers, which the driver builds and closes with the run; the spill
+store gets it too. A join takes each batch on the side of the upstream
+node it came from, and its watermark is the min over its two inputs.
+
 Fired windows are delivered from the same thread, in fire order: after
 every loop pass the driver polls the operators' emit rings for copies
 that have landed and delivers the packed fires whose copies have landed
-(never waiting on the device); at end of input it drains everything
-with a barrier (``pipeline.emit-defer`` above 0, which times the
-reference's drain thread, is refused).
+(never waiting on the device) and that are at least
+``pipeline.emit-defer`` old (from the advance that fired them); at a
+checkpoint and at end of input it drains everything with a barrier.
 
 Exactly-once checkpoints (``execution.checkpointing.*``): at a batch
 boundary, once the interval has passed and no checkpoint is in flight,
@@ -79,8 +87,8 @@ import numpy as np
 
 from flink_tpu_torch.api.sources import DeviceGeneratorSource
 from flink_tpu_torch.config import (
-    CheckpointingOptions, ClusterOptions, Configuration, MemoryOptions,
-    MetricsOptions, PipelineOptions, StateOptions)
+    CheckpointingOptions, ClusterOptions, Configuration, HostOptions,
+    MemoryOptions, MetricsOptions, PipelineOptions, StateOptions)
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.compiler import ExecutionPlan
 from flink_tpu_torch.time.watermarks import LONG_MIN, make_generator
@@ -88,7 +96,10 @@ from flink_tpu_torch.time.watermarks import LONG_MIN, make_generator
 Batch = Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]  # data, ts, valid
 
 _FINAL = int(np.iinfo(np.int64).max)  # end-of-input watermark
-_STATEFUL = ("window", "evicting_window", "count_window")
+_STATEFUL = ("window", "evicting_window", "count_window", "session",
+             "window_all", "join")
+# the kinds the watermark advances (count windows fire per batch only)
+_EVENT_TIME = ("window", "evicting_window", "session", "window_all", "join")
 
 
 class Driver:
@@ -146,6 +157,18 @@ class Driver:
             config.get(PipelineOptions.READINESS)).strip().lower()
         # source batches each split generates ahead on its feeder thread
         self._prefetch = int(config.get(PipelineOptions.SOURCE_PREFETCH))
+        # the least age of a fire before a periodic drain delivers it
+        self._emit_defer_s = max(
+            0, int(config.get(PipelineOptions.EMIT_DEFER_MS))) / 1000.0
+        # one shared host worker pool a driver (parallel/hostpool.py):
+        # parallelism 1 makes no threads and keeps the serial paths
+        from flink_tpu_torch.parallel.hostpool import HostPool
+
+        self._fold_chunk = int(config.get(HostOptions.FOLD_CHUNK_RECORDS))
+        if self._fold_chunk < 1:
+            raise ValueError(f"host.fold-chunk-records must be >= 1, got "
+                             f"{self._fold_chunk}")
+        self.host_pool = HostPool.from_config(config, registry=self.registry)
         self._build_ops()
         # plan-time device budget: the operators' dense tensors are known
         # before the first step (memory.hbm-budget)
@@ -202,7 +225,8 @@ class Driver:
     def _build_ops(self) -> None:
         from flink_tpu_torch.ops.factory import (
             OperatorBuildContext, _count_window_factory,
-            _evicting_window_factory, _window_factory)
+            _evicting_window_factory, _join_factory, _session_factory,
+            _window_all_factory, _window_factory)
 
         ooo = [self.plan.watermark_strategy.max_out_of_orderness_ms]
         for n in self.plan.nodes.values():
@@ -224,18 +248,23 @@ class Driver:
             mesh_plan=self.mesh_plan,
             exchange_capacity=int(self.config.get(
                 PipelineOptions.EXCHANGE_CAPACITY)) or None,
-            exchange_impl=str(self.config.get(ClusterOptions.EXCHANGE_IMPL)))
+            exchange_impl=str(self.config.get(ClusterOptions.EXCHANGE_IMPL)),
+            host_pool=self.host_pool,
+            fold_chunk_records=self._fold_chunk)
+        factories = {"window": _window_factory,
+                     "evicting_window": _evicting_window_factory,
+                     "session": _session_factory,
+                     "window_all": _window_all_factory,
+                     "join": _join_factory}
         for n in self.plan.nodes.values():
-            if n.kind == "window":
-                self._ops[n.id] = _window_factory(n, ctx)
+            if n.kind in factories:
+                self._ops[n.id] = factories[n.kind](n, ctx)
             elif n.kind == "count_window":
                 if self.mesh_plan is not None:
                     raise NotImplementedError(
                         "count windows on a device mesh are not yet "
                         "supported; run without cluster.mesh-devices")
                 self._ops[n.id] = _count_window_factory(n, ctx)
-            elif n.kind == "evicting_window":
-                self._ops[n.id] = _evicting_window_factory(n, ctx)
 
     def _maybe_chain_device_source(self, sid: int, n) -> None:
         """Chain a device-made source into its consuming window operator
@@ -604,6 +633,9 @@ class Driver:
                 # finish is safe (manifest last)
                 self._ckpt_executor.shutdown(wait=False)
                 self._ckpt_executor = None
+            # the host pool ends with the run (its shutdown does not
+            # wait; a later call runs inline)
+            self.host_pool.close()
 
     def _run_loop(self, job_name: str):
         from flink_tpu_torch.api.environment import JobResult
@@ -747,10 +779,19 @@ class Driver:
         for k, v in self.prof.items():
             out[f"profile.driver.{k}"] = v
         for nid, op in self._ops.items():
-            for k, v in op.prof.items():
-                out[f"profile.op{nid}.{k}"] = v
-            for k, v in op.timer.busy_ms.items():
-                out[f"device_busy_ms.op{nid}.{k}"] = v
+            # the device operators: a window's own, a join's sides in
+            # aggregate mode as opN.0 / opN.1; a host operator has none
+            if hasattr(op, "timer"):
+                devs = [(str(nid), op)]
+            elif hasattr(op, "sides"):
+                devs = [(f"{nid}.{i}", s) for i, s in enumerate(op.sides())]
+            else:
+                devs = []
+            for name, dop in devs:
+                for k, v in dop.prof.items():
+                    out[f"profile.op{name}.{k}"] = v
+                for k, v in dop.timer.busy_ms.items():
+                    out[f"device_busy_ms.op{name}.{k}"] = v
         return out
 
     def _push_source_batch(self, sid: int, data, ts: np.ndarray) -> None:
@@ -794,9 +835,11 @@ class Driver:
 
     def _push_downstream(self, nid: int, batch: Batch) -> None:
         for d in self.plan.node(nid).downstream:
-            self._push(d, batch)
+            self._push(d, batch, nid)
 
-    def _push(self, nid: int, batch: Batch) -> None:
+    def _push(self, nid: int, batch: Batch, from_node: int) -> None:
+        """Route one batch into node ``nid``, coming from node
+        ``from_node`` (a join's side is the edge's)."""
         n = self.plan.node(nid)
         data, ts, valid = batch
         if n.kind == "chain":
@@ -808,17 +851,37 @@ class Driver:
         elif n.kind == "window":
             keys = np.asarray(data[n.key_field], np.int64)
             self._ops[nid].process_batch(keys, ts, data, valid)
-        elif n.kind in ("count_window", "evicting_window"):
+        elif n.kind in ("count_window", "evicting_window", "session"):
             op = self._ops[nid]
             keys = np.asarray(data[n.key_field], np.int64)
-            if n.kind == "evicting_window":
-                # the element buffers keep the numeric columns only
+            if n.kind != "count_window":
+                # the element buffers and the session lanes take the
+                # numeric columns only
                 data = {k: v for k, v in data.items()
                         if np.asarray(v).dtype != object}
             op.process_batch(keys, ts, data, valid)
             fired = op.take_fired()
-            if fired is not None:
+            if fired is not None and n.kind == "session":
+                # retract mode's -U rows queue behind the session's
+                # earlier fires, which a deferral may still hold
+                self._pending_emits.append((nid, fired, time.time()))
+                if self._deliver_at_fire:
+                    self._drain_emits(barrier=True)
+            elif fired is not None:
                 self._deliver(nid, fired)
+        elif n.kind == "window_all":
+            self._ops[nid].process_batch(
+                ts, {k: v for k, v in data.items()
+                     if np.asarray(v).dtype != object}, valid)
+        elif n.kind == "join":
+            op = self._ops[nid]
+            t = n.window_transform
+            if from_node == n.left_input:
+                op.process_left(np.asarray(data[t.left_key], np.int64),
+                                ts, data, valid)
+            else:
+                op.process_right(np.asarray(data[t.right_key], np.int64),
+                                 ts, data, valid)
         elif n.kind == "sink":
             nrec = int(valid.sum())
             if nrec:
@@ -840,7 +903,7 @@ class Driver:
             in_wm = min(self._out_wm[u] for u in ups) if ups else LONG_MIN
             # count_window is left out: it fires per batch, and an
             # advance would only queue empty fires
-            if n.kind in ("window", "evicting_window"):
+            if n.kind in _EVENT_TIME:
                 op = self._ops[nid]
                 if getattr(op, "uses_processing_time", False):
                     # the clock drives the fires; end of input fires
@@ -861,9 +924,11 @@ class Driver:
     def _drain_emits(self, barrier: bool) -> None:
         """Deliver fired windows downstream, in fire order. A periodic
         drain reads the emit-ring copies that have already landed and
-        stops at the first packed fire whose copy is still in flight
-        (later drains pick it up); a barrier delivers every fire and
-        every ring row so far."""
+        stops at the first packed fire whose copy is still in flight or
+        that is younger than ``pipeline.emit-defer`` (later drains pick
+        it up); a barrier delivers every fire and every ring row so far.
+        Fires still pending when an attempt fails die with its driver:
+        a restarted attempt builds a new one."""
         from flink_tpu_torch.ops.window import FiredWindows
 
         t0 = time.perf_counter()
@@ -871,8 +936,12 @@ class Driver:
         if barrier:
             self._pending_emits = []
         else:
+            # in fire order: a fire whose copy is in flight, or younger
+            # than pipeline.emit-defer, holds back the fires after it
             k = 0
-            while k < len(pending) and pending[k][1].ready():
+            now = time.time()
+            while (k < len(pending) and pending[k][1].ready()
+                   and now - pending[k][2] >= self._emit_defer_s):
                 k += 1
             pending, self._pending_emits = pending[:k], pending[k:]
         if barrier:

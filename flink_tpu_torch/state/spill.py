@@ -17,17 +17,28 @@ keys' records never cross to the card. It is not a fallback.
 
 Fire, refire and purge follow the operator: it passes the same fired
 ends (re-fires included) to both stores and purges both at the same
-horizon. The JAX package's thread-pool and chunked-tree fold
-(``fold_chunk_records``) waits for the host pool (ROADMAP.md); until
-then a pool is refused.
+horizon.
+
+Given the driver's ``HostPool`` (``parallel/hostpool.py``) at a
+parallelism above 1, the store runs its independent units as pool
+tasks: the per-pane merges of an absorb, the per-window combines of a
+fire, and, from ``fold_chunk_records`` records a batch up, a chunked
+tree fold (chunks grouped on the pool, each pane's chunk partials
+combined in chunk order: windowAll's scaling shape, one global key).
+A pane's table is guarded by a lock of its own. The chunk size does not
+depend on the worker count, so the reduction tree, and the output bytes
+of the exact lane monoids, do not change with ``host.parallelism``;
+without a pool or at parallelism 1 the store takes the serial path.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from flink_tpu_torch.config import HostOptions
 from flink_tpu_torch.records import device_cast
 
 _NEG_INF = np.float32(-np.inf)
@@ -41,15 +52,27 @@ class HostSpillStore:
     m), counts (K,))``. A batch is absorbed by one lexsort and a segment
     reduce, then a sorted-union splice into each touched pane."""
 
-    def __init__(self, agg, *, pool=None) -> None:
-        if pool is not None:
-            raise NotImplementedError(
-                "a host pool for the spill store's folds waits for the "
-                "port of parallel/hostpool.py (ROADMAP.md)")
+    def __init__(self, agg, *, pool=None,
+                 fold_chunk_records: Optional[int] = None) -> None:
         self.agg = agg
         self.panes: Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray,
                                     np.ndarray, np.ndarray]] = {}
         self.records_spilled = 0
+        # None or parallelism 1: the serial path
+        self._pool = (pool if pool is not None and pool.parallelism > 1
+                      else None)
+        if fold_chunk_records is None:
+            fold_chunk_records = HostOptions.FOLD_CHUNK_RECORDS.default
+        self.fold_chunk_records = int(fold_chunk_records)
+        # one lock a pane entry, never a global one: within one
+        # run_tasks batch each pane has at most one merge task, and the
+        # locks guard the tables for any caller that overlaps absorbs
+        self._pane_locks: Dict[int, threading.Lock] = {}
+        self._locks_guard = threading.Lock()
+
+    def _pane_lock(self, pane: int) -> threading.Lock:
+        with self._locks_guard:
+            return self._pane_locks.setdefault(pane, threading.Lock())
 
     # -- ingest ----------------------------------------------------------
 
@@ -70,6 +93,9 @@ class HostSpillStore:
         if n == 0:
             return
         self.records_spilled += n
+        if self._pool is not None and n >= self.fold_chunk_records:
+            self._absorb_tree(keys, panes, data)
+            return
         self._splice_groups(*self._group_batch(keys, panes, data))
 
     def _group_batch(self, keys: np.ndarray, panes: np.ndarray,
@@ -96,13 +122,64 @@ class HostSpillStore:
         g_cnt = np.bincount(gid, minlength=G).astype(np.int64)
         return pk[new_grp], kk[new_grp], g_sum, g_max, g_min, g_cnt
 
-    def _splice_groups(self, g_pane, g_key, g_sum, g_max, g_min,
-                       g_cnt) -> None:
+    @staticmethod
+    def _pane_spans(g_pane: np.ndarray) -> List[Tuple[int, int]]:
         bounds = np.flatnonzero(
             np.concatenate([[True], g_pane[1:] != g_pane[:-1], [True]]))
-        for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-            self._merge_pane(int(g_pane[a]), g_key[a:b], g_sum[a:b],
-                             g_max[a:b], g_min[a:b], g_cnt[a:b])
+        return list(zip(bounds[:-1].tolist(), bounds[1:].tolist()))
+
+    def _splice_groups(self, g_pane, g_key, g_sum, g_max, g_min,
+                       g_cnt) -> None:
+        """Merge each touched pane's groups into its table; the panes
+        are independent, so with a pool they merge as parallel tasks
+        under their locks."""
+        spans = self._pane_spans(g_pane)
+
+        def merge(a: int, b: int) -> None:
+            pane = int(g_pane[a])
+            with self._pane_lock(pane):
+                self._merge_pane(pane, g_key[a:b], g_sum[a:b],
+                                 g_max[a:b], g_min[a:b], g_cnt[a:b])
+
+        if self._pool is not None and len(spans) > 1:
+            self._pool.run_tasks(
+                [lambda a=a, b=b: merge(a, b) for a, b in spans])
+        else:
+            for a, b in spans:
+                merge(a, b)
+
+    def _absorb_tree(self, keys: np.ndarray, panes: np.ndarray,
+                     data: Dict[str, np.ndarray]) -> None:
+        """The chunked tree fold: chunks of ``fold_chunk_records`` group
+        on the pool, then each pane's chunk partials combine in chunk
+        order (one task a pane). The chunk size never derives from the
+        worker count, so the tree is the same at every parallelism
+        above 1."""
+        n = len(keys)
+        chunk = self.fold_chunk_records
+        data = {k: np.asarray(v) for k, v in data.items()}
+        spans = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+        parts = self._pool.run_tasks(
+            [lambda lo=lo, hi=hi: self._group_batch(
+                keys[lo:hi], panes[lo:hi],
+                {k: v[lo:hi] for k, v in data.items()})
+             for lo, hi in spans])
+        # pane -> its chunk partials, in chunk order
+        per_pane: Dict[int, List[Tuple[np.ndarray, ...]]] = {}
+        for g_pane, g_key, g_sum, g_max, g_min, g_cnt in parts:
+            for a, b in self._pane_spans(g_pane):
+                per_pane.setdefault(int(g_pane[a]), []).append(
+                    (g_key[a:b], g_sum[a:b], g_max[a:b], g_min[a:b],
+                     g_cnt[a:b]))
+
+        def combine(pane: int, pieces) -> None:
+            with self._pane_lock(pane):
+                for piece in pieces:
+                    self._merge_pane(pane, *piece)
+
+        self._pool.run_tasks(
+            [lambda p=p, pcs=pcs: combine(p, pcs)
+             for p, pcs in per_pane.items()])
 
     def _merge_pane(self, pane: int, keys, sums, maxs, mins, counts) -> None:
         cur = self.panes.get(pane)
@@ -143,12 +220,18 @@ class HostSpillStore:
         live = [e for e in ends if e > lo_stored and e - ppw <= hi_stored]
         if not live:
             return None
+        # windows only read their panes, so with a pool each window's
+        # combine is a task; rows assemble in end order either way
+        if self._pool is not None and len(live) > 1:
+            fired = self._pool.run_tasks(
+                [lambda e=e: self._fire_window(e, ppw) for e in live])
+        else:
+            fired = [self._fire_window(e, ppw) for e in live]
         keys_out: List[np.ndarray] = []
         ends_out: List[np.ndarray] = []
         cnt_out: List[np.ndarray] = []
         res_cols: Dict[str, List[np.ndarray]] = {}
-        for e in live:
-            hit = self._fire_window(e, ppw)
+        for e, hit in zip(live, fired):
             if hit is None:
                 continue
             kk, wc_has, res = hit
@@ -208,6 +291,9 @@ class HostSpillStore:
     def purge_below(self, dead_pane: int) -> None:
         for p in [p for p in self.panes if p < dead_pane]:
             del self.panes[p]
+        with self._locks_guard:  # the locks track live panes
+            for p in [p for p in self._pane_locks if p < dead_pane]:
+                del self._pane_locks[p]
 
     def snapshot(self) -> Dict[str, Any]:
         """The JAX package's layout: ``{"panes": {pane: (keys, sums,

@@ -2,9 +2,11 @@
 CPU: storage (layouts, retention, the incremental hardlink reuse,
 compression, v1/v2/v3 loading), the blob format, the coordinator's
 async commit, and whole jobs that crash and resume — Q5 with bids made
-on the device at K = 4 sub-batches, Q5 host-fed and a tumbling count
-window — whose committed rows must equal the reference's in order, and
-the golden. Checkpoints cross between the packages both ways, and a
+on the device at K = 4 sub-batches, Q5 host-fed, a tumbling count
+window, session windows on a host pool of 4 (with a pool task's fault
+too), Nexmark Q7 (windowAll) and Q8 (the windowed join, both modes) —
+whose committed rows must equal the reference's in order, and the
+golden. Checkpoints cross between the packages both ways, and a
 checkpoint of one job at one cut holds the same payload tree in both.
 
 Cases ported from tests/test_checkpoint.py, test_checkpoint_async.py,
@@ -508,20 +510,28 @@ def test_two_phase_commit_recovery(P, case, tmp_path):
     the commit round; its staged epoch, persisted inside it, is
     re-committed on restore. no_checkpoint: the crash comes before the
     first checkpoint; the reused sink drops the crashed attempt's rows.
-    pending_rows: after a crash and resume nothing is left pending (the
-    port has no drain thread to deliver late)."""
+    pending_rows (test_crashed_attempt_drain_never_pollutes_next_attempt):
+    the crashed attempt runs at pipeline.emit-defer 500 ms, so fires are
+    still held back when it dies; none of them may reach the sink the
+    next attempt (at 0 ms) reuses, and nothing is left pending."""
     extra = ({} if case == "commit_crash"
              else {"execution.checkpointing.interval": 10_000_000})
+    first = (dict(extra, **{"pipeline.emit-defer": "500ms"})
+             if case == "pending_rows" else extra)
     sink = (crash_on_commit_sink(P, 3) if case == "commit_crash"
             else P.sinks.TransactionalCollectSink())
     n = 12 if case == "commit_crash" else 6
-    env = P.Env(job_conf(P, str(tmp_path), extra))
+    env = P.Env(job_conf(P, str(tmp_path), first))
     count_job(P, env, failing_gen(n, None if case == "commit_crash" else 4),
               sink)
     with pytest.raises(RuntimeError, match="injected"):
         P.execute(env, f"{case}-job")
+    if case == "pending_rows" and P is PORT:
+        # the deferral really held fires back at the crash
+        assert env._driver._pending_emits
     env2 = P.Env(job_conf(P, str(tmp_path), dict(
-        extra, **{"execution.checkpointing.restore": "latest"})))
+        extra, **{"execution.checkpointing.restore": "latest",
+                  "pipeline.emit-defer": "0ms"})))
     count_job(P, env2, failing_gen(n), sink)
     P.execute(env2, f"{case}-job")
     assert sink._pending == [] and sink._staged == {}
@@ -646,8 +656,91 @@ def build_count_window(P, sink):
     return build, conf
 
 
+SESSION_BATCHES = 8
+
+
+def session_gen(split, i):
+    """Bursty clicks of 80 users, 5 % of them up to 2 s late (inside the
+    job's 10 s lateness: nothing is dropped, late records merge and
+    re-fire their sessions)."""
+    if i >= SESSION_BATCHES:
+        return None
+    rng = np.random.default_rng(900 + i)
+    user = rng.integers(0, 80, 512).astype(np.int64)
+    ts = i * 400 + rng.integers(0, 600, 512)
+    late = rng.random(512) < 0.05
+    ts = np.where(late, np.maximum(ts - rng.integers(0, 2000, 512), 0), ts)
+    return {"user": user}, ts.astype(np.int64)
+
+
+def build_sessions(P, sink):
+    def build(conf):
+        env = P.Env(conf)
+        (env.from_source(P.GeneratorSource(session_gen),
+                         P.WM.for_bounded_out_of_orderness(500))
+         .key_by("user").window(P.Sessions.with_gap(120))
+         .allowed_lateness(10_000).count().add_sink(sink))
+        return env
+    conf = {"state.num-key-shards": 8, "state.slots-per-shard": 64,
+            "pipeline.microbatch-size": 512, "host.parallelism": 4}
+    return build, conf
+
+
+Q78_CFG = dict(batch_size=512, n_batches=8, events_per_ms=1,
+               num_active_auctions=200, num_active_people=150)
+
+
+def q7_bids(split, i):
+    if i >= Q78_CFG["n_batches"]:
+        return None
+    return PORT.gen.bid_batch(PORT.gen.NexmarkConfig(**Q78_CFG), int(split), i)
+
+
+def build_q7(P, sink):
+    def build(conf):
+        env = P.Env(conf)
+        (env.from_source(P.GeneratorSource(q7_bids),
+                         P.WM.for_bounded_out_of_orderness(200))
+         .window_all(P.Tumbling.of(1000)).max("price").add_sink(sink))
+        return env
+    conf = {"pipeline.microbatch-size": 512, "host.parallelism": 2,
+            "host.fold-chunk-records": 128}
+    return build, conf
+
+
+def q8_side(which):
+    make = PORT.gen.person_batch if which == "person" else PORT.gen.auction_batch
+
+    def gen(split, i):
+        if i >= Q78_CFG["n_batches"]:
+            return None
+        return make(PORT.gen.NexmarkConfig(**Q78_CFG), int(split), i)
+    return gen
+
+
+def build_q8(mode):
+    def jobs(P, sink):
+        def build(conf):
+            env = P.Env(conf)
+            wm = P.WM.for_bounded_out_of_orderness(200)
+            (env.from_source(P.GeneratorSource(q8_side("person")), wm)
+             .join(env.from_source(P.GeneratorSource(q8_side("auction")), wm))
+             .where("person").equal_to("seller")
+             .window(P.Tumbling.of(1000))
+             .apply(left_fields=("state_id",), right_fields=("reserve",),
+                    mode=mode)
+             .add_sink(sink))
+            return env
+        conf = {"state.num-key-shards": 8, "state.slots-per-shard": 64,
+                "pipeline.microbatch-size": 512}
+        return build, conf
+    return jobs
+
+
 JOBS = {"q5_devgen_k4": build_q5_devgen, "q5_host": build_q5_host,
-        "count_window": build_count_window}
+        "count_window": build_count_window, "sessions": build_sessions,
+        "q7": build_q7, "q8_pairs": build_q8("pairs"),
+        "q8_aggregate": build_q8("aggregate")}
 
 # each (package, job, mode)'s committed rows, shared by the cases that
 # read the same run
@@ -679,9 +772,15 @@ def run_job(P, job, tmp_root, mode):
     if mode == "chaos":
         plan = P.faults.FaultPlan(seed=77).rule(
             "checkpoint.storage.write", "raise", count=1, after=2)
+        if job == "sessions":
+            # and a pool task of the key-sharded registry dies mid-batch
+            plan.rule("host.pool.task", "raise", count=1, after=20)
         with plan.activate():
             P.recover(build, conf, job)
         assert plan.log, "the storage fault never fired"
+        if job == "sessions":
+            assert {e[0] for e in plan.log} == {
+                "host.pool.task", "checkpoint.storage.write"}, plan.log
     else:
         P.execute(build(conf), job)
     rows = row_view(sink.committed)
@@ -719,6 +818,16 @@ def golden_rows(job):
         src = PORT.gen.bid_stream_device(PORT.gen.NexmarkConfig(**Q5_CFG))
         return q5_golden([src.keys_ts_host(i)
                           for i in range(Q5_CFG["n_batches"])], 2000, 500)
+    if job == "sessions":
+        return brute_sessions(session_gen, SESSION_BATCHES, 120)
+    if job == "q7":
+        parts = [q7_bids("0", i) for i in range(Q78_CFG["n_batches"])]
+        price = np.concatenate([d["price"] for d, _ in parts])
+        we = np.concatenate([ts for _, ts in parts]) // 1000 * 1000 + 1000
+        return sorted((int(e), float(price[we == e].max()))
+                      for e in np.unique(we))
+    if job.startswith("q8_"):
+        return q8_golden(job[3:])
     if job == "q5_host":
         return q5_golden([(d["auction"], ts) for d, ts in (
             host_bids("0", i) for i in range(HOST_CFG["n_batches"]))],
@@ -737,8 +846,71 @@ def golden_rows(job):
     return sorted(out)
 
 
+def final_sessions(rows):
+    """Each session's last row in commit order: a (re)fired session
+    supersedes every earlier row of its key whose span it covers."""
+    final = {}
+    for r in rows:
+        k, s, e = r["key"], r["window_start"], r["window_end"]
+        final = {kk: v for kk, v in final.items()
+                 if not (kk[0] == k and s <= kk[1] < e)}
+        final[(k, s)] = (e, r["count"])
+    return sorted((k, s, e, c) for (k, s), (e, c) in final.items())
+
+
+def brute_sessions(gen, n_batches, gap):
+    """Sessions of every record, merged per key by the gap."""
+    by_key = {}
+    for i in range(n_batches):
+        data, ts = gen("0", i)
+        for k, t in zip(data["user"].tolist(), ts.tolist()):
+            by_key.setdefault(k, []).append(t)
+    out = []
+    for k, tss in by_key.items():
+        tss.sort()
+        start, last, cnt = tss[0], tss[0], 1
+        for t in tss[1:]:
+            if t - last > gap:
+                out.append((k, start, last + gap, cnt))
+                start, last, cnt = t, t, 1
+            else:
+                last, cnt = t, cnt + 1
+        out.append((k, start, last + gap, cnt))
+    return sorted(out)
+
+
+def q8_golden(mode):
+    n = Q78_CFG["n_batches"]
+    left, right = {}, {}
+    for side, gen, field in ((left, q8_side("person"), "state_id"),
+                             (right, q8_side("auction"), "reserve")):
+        key = "person" if side is left else "seller"
+        for i in range(n):
+            data, ts = gen("0", i)
+            for k, t, v in zip(data[key].tolist(), ts.tolist(),
+                               data[field].tolist()):
+                side.setdefault((k, t // 1000 * 1000 + 1000), []).append(v)
+    both = sorted(set(left) & set(right))
+    if mode == "pairs":
+        return sorted((k, w, a, b) for k, w in both
+                      for a in left[(k, w)] for b in right[(k, w)])
+    return sorted((k, w, len(left[(k, w)]), max(left[(k, w)]),
+                   len(right[(k, w)]), max(right[(k, w)])) for k, w in both)
+
+
 def golden_view(job, rows):
     d = [dict(r) for r in rows]
+    if job == "sessions":
+        return final_sessions(d)
+    if job == "q7":
+        return sorted((r["window_end"], r["max_price"]) for r in d)
+    if job == "q8_pairs":
+        return sorted((r["key"], r["window_end"], r["left_state_id"],
+                       r["right_reserve"]) for r in d)
+    if job == "q8_aggregate":
+        return sorted((r["key"], r["window_end"], r["left_count"],
+                       r["left_state_id"], r["right_count"],
+                       r["right_reserve"]) for r in d)
     if job == "count_window":
         return sorted((r["key"], r["count"], r["sum_n"]) for r in d)
     return {(r["auction"], r["window_end"], r["bid_count"]) for r in d}
@@ -856,8 +1028,10 @@ def cut_job(P, job, root, cut, interval=10 ** 9, restore="", savepoint=False,
         "execution.checkpointing.restore": restore,
         "pipeline.source-prefetch": 0}, **(extra or {}))))
     if not restore:
-        (src_t,) = [t for t in env._transforms
-                    if getattr(t, "source", None) is not None]
+        # the first source's batch index triggers the cut (a join reads
+        # two sources in step)
+        src_t = [t for t in env._transforms
+                 if getattr(t, "source", None) is not None][0]
         src = src_t.source
         hit = [False]
 
@@ -888,7 +1062,8 @@ def cut_job(P, job, root, cut, interval=10 ** 9, restore="", savepoint=False,
     return row_view(sink.committed)
 
 
-CUTS = {"q5_devgen_k4": 9, "q5_host": 3, "count_window": 4}
+CUTS = {"q5_devgen_k4": 9, "q5_host": 3, "count_window": 4, "sessions": 3,
+        "q7": 3, "q8_pairs": 3, "q8_aggregate": 3}
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,8 @@ def _jax():
     from flink_tpu.api.environment import StreamExecutionEnvironment
     from flink_tpu.api.sources import GeneratorSource
     from flink_tpu.api.windowing import (
-        SlidingEventTimeWindows, TumblingEventTimeWindows)
+        EventTimeSessionWindows, SlidingEventTimeWindows,
+        TumblingEventTimeWindows)
     from flink_tpu.checkpoint import blobformat, coordinator, storage
     from flink_tpu.config import Configuration
     from flink_tpu.nexmark import generator
@@ -31,7 +32,8 @@ def _jax():
     return types.SimpleNamespace(
         name="jax", faults=faults, sinks=sinks, Env=StreamExecutionEnvironment,
         GeneratorSource=GeneratorSource, Sliding=SlidingEventTimeWindows,
-        Tumbling=TumblingEventTimeWindows, blobformat=blobformat,
+        Tumbling=TumblingEventTimeWindows, Sessions=EventTimeSessionWindows,
+        blobformat=blobformat,
         coordinator=coordinator, storage=storage, Conf=Configuration,
         gen=generator, q5=q5_hot_items, metrics=metrics, tracing=tracing,
         agg=aggregates, CountWindowOperator=CountWindowOperator,
@@ -49,7 +51,8 @@ def _port():
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sources import GeneratorSource
     from flink_tpu_torch.api.windowing import (
-        SlidingEventTimeWindows, TumblingEventTimeWindows)
+        EventTimeSessionWindows, SlidingEventTimeWindows,
+        TumblingEventTimeWindows)
     from flink_tpu_torch.checkpoint import blobformat, coordinator, storage
     from flink_tpu_torch.config import Configuration
     from flink_tpu_torch.nexmark import generator
@@ -67,6 +70,7 @@ def _port():
         name="port", faults=faults, sinks=sinks,
         Env=StreamExecutionEnvironment, GeneratorSource=GeneratorSource,
         Sliding=SlidingEventTimeWindows, Tumbling=TumblingEventTimeWindows,
+        Sessions=EventTimeSessionWindows,
         blobformat=blobformat, coordinator=coordinator, storage=storage,
         Conf=Configuration, gen=generator, q5=q5_hot_items, metrics=metrics,
         tracing=tracing, agg=aggregates,

@@ -63,7 +63,10 @@ def test_scan_covers_the_package():
     for mod in ("checkpoint/coordinator.py", "checkpoint/storage.py",
                 "checkpoint/blobformat.py", "obs/metrics.py",
                 "obs/tracing.py", "faults.py", "fs.py", "memory.py",
-                "runtime/restart.py", "runtime/supervisor.py"):
+                "runtime/restart.py", "runtime/supervisor.py",
+                "parallel/hostpool.py", "ops/host_control.py",
+                "ops/window_all.py", "ops/session.py", "ops/join.py",
+                "api/functions.py", "nexmark/queries.py"):
         assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 

@@ -297,6 +297,8 @@ PORTED = {
     "faults.seed": 9,
     "faults.inject": "checkpoint.upload=raise x1",
     "memory.hbm-budget": 1 << 30,
+    "host.parallelism": 3,
+    "host.fold-chunk-records": 4096,
 }
 
 
@@ -325,6 +327,8 @@ def test_ported_keys_read_as_the_reference_reads_them():
         (pc.FaultOptions.SEED, jf.FAULT_SEED),
         (pc.FaultOptions.INJECT, jf.FAULT_INJECT),
         (pc.MemoryOptions.HBM_BUDGET, jc.MemoryOptions.HBM_BUDGET),
+        (pc.HostOptions.PARALLELISM, jc.HostOptions.PARALLELISM),
+        (pc.HostOptions.FOLD_CHUNK_RECORDS, jc.HostOptions.FOLD_CHUNK_RECORDS),
     ]
     assert {p.key for p, _ in pairs} == set(PORTED)
     pconf, jconf = pc.Configuration(dict(PORTED)), jc.Configuration(dict(PORTED))
@@ -352,11 +356,57 @@ def test_bad_values_of_ported_keys_are_refused(conf, err, match):
         Configuration(conf).validate()
 
 
+@pytest.mark.parametrize("workers", [1, 2, 4])
+def test_host_keys_are_read_and_take_effect(workers):
+    """host.parallelism (once refused as a key of queue 1 item 5) sizes
+    the driver's one host pool, which the spill store and the host
+    operators share; host.fold-chunk-records reaches the stores. A value
+    below 1 fails where the reference's does: when the pool is built
+    (the reference leaves the config check to its plan analyzer)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import CollectSink
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.graph.compiler import compile_job
+    from flink_tpu_torch.runtime.driver import Driver
+
+    def build(conf):
+        env = StreamExecutionEnvironment(Configuration(conf))
+        (env.from_source(GeneratorSource(lambda s, i: None))
+         .key_by("k").window(TumblingEventTimeWindows.of(1000)).count()
+         .add_sink(CollectSink()))
+        (env.from_source(GeneratorSource(lambda s, i: None))
+         .window_all(TumblingEventTimeWindows.of(1000)).count()
+         .add_sink(CollectSink()))
+        return Driver(compile_job(env._transforms, env._watermark_strategy),
+                      env.config, device="cpu")
+
+    drv = build({"host.parallelism": workers, "state.backend": "spill",
+                 "host.fold-chunk-records": 1000})
+    try:
+        assert drv.host_pool.parallelism == workers
+        assert (drv.host_pool._executor is None) == (workers == 1)
+        win, wall = drv._ops.values()
+        for store in (win._spill, wall.store):
+            assert store._pool is (drv.host_pool if workers > 1 else None)
+            assert store.fold_chunk_records == 1000
+        assert drv.registry.snapshot()["hostpool.parallelism"] == workers
+    finally:
+        drv.host_pool.close()
+    Configuration({"host.parallelism": 0}).validate()
+    for bad, match in (({"host.parallelism": 0}, "host.parallelism"),
+                       ({"host.fold-chunk-records": 0},
+                        "host.fold-chunk-records")):
+        with pytest.raises(ValueError, match=match):
+            build(bad)
+
+
 @pytest.mark.parametrize("key,item", [
     ("pipeline.target-latency", "queue 1 item 2"),
     ("state.lsm.dir", "queue 1 item 4.5"),
     ("state.memory-budget-bytes", "queue 1 item 4.5"),
-    ("host.parallelism", "queue 1 item 5"),
+    ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
     ("plugins.modules", "queue 1 item 6"),
     ("cluster.rescale-from", "queue 1 item 6"),
     ("log.dir", "queue 1 item 8"),

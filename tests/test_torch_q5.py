@@ -162,7 +162,7 @@ def test_bench_conf_loads_and_validates():
 
 @pytest.mark.parametrize("conf,err", [
     ({"state.backend": "rocksdb"}, ValueError),
-    ({"pipeline.emit-defer": "100ms"}, NotImplementedError),
+    ({"state.backend": "lsm"}, NotImplementedError),
     ({"analysis.fail-on": "sometimes"}, ValueError),
     ({"pipeline.max-inflight-steps": 0}, ValueError),
 ])
@@ -172,6 +172,41 @@ def test_unknown_or_unported_options_raise(conf, err):
                  CollectSink(), window_ms=2_000, slide_ms=1_000)
     with pytest.raises(err):
         env.execute("q5", device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    {"pipeline.emit-defer": "100ms"},
+    {"pipeline.emit-defer": "30ms", "pipeline.sub-batches": 4},
+])
+def test_emit_defer_commits_the_rows_at_zero(extra):
+    """pipeline.emit-defer above 0 holds each fire back until it is that
+    old (a barrier at end of input delivers the rest): the committed
+    rows and their order equal the run at 0, here with a 100 ms batch
+    pace so the deferral does hold fires back."""
+    gen = seeded_bids(256, 6, 2, 40, seed=11)
+
+    def slow(split, i):
+        b = gen(split, i)
+        if b is not None and i:
+            import time
+
+            time.sleep(0.1)
+        return b
+
+    rows, held = {}, None
+    for defer in ("0ms", extra["pipeline.emit-defer"]):
+        conf = dict(SMALL_CONF, **dict(extra, **{"pipeline.emit-defer": defer,
+                                                 "pipeline.microbatch-size": 256,
+                                                 "pipeline.source-prefetch": 0}))
+        env = StreamExecutionEnvironment(Configuration(conf))
+        sink = CollectSink()
+        q5_hot_items(env, GeneratorSource(slow), sink, window_ms=600,
+                     slide_ms=200)
+        env.execute("q5-defer", device="cpu")
+        rows[defer] = [tuple(sorted(r.items())) for r in sink.rows]
+        held = env._driver._emit_defer_s
+    assert rows["0ms"] == rows[extra["pipeline.emit-defer"]]
+    assert len(rows["0ms"]) > 0 and held > 0
 
 
 @pytest.mark.parametrize("steps", [None, 1, 7])

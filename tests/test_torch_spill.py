@@ -336,8 +336,22 @@ def test_store_absorb_fire_purge_matches_reference():
     assert list(got) == list(want)
     for f in want:
         assert np.asarray(got[f]).tobytes() == np.asarray(want[f]).tobytes(), f
-    with pytest.raises(NotImplementedError, match="host pool"):
-        HostSpillStore(ta.count(), pool=object())
+    # the store takes the driver's host pool: its chunked tree fold
+    # (chunks of 2 records here) gives the same bytes
+    from flink_tpu_torch.parallel.hostpool import HostPool
+
+    pool = HostPool(2)
+    try:
+        st = HostSpillStore(ta.multi(ta.sum_of("v"), ta.max_of("v"),
+                                     ta.avg_of("v")),
+                            pool=pool, fold_chunk_records=2)
+        st.absorb(keys, panes, {"v": v})
+        par = st.fire([2], 2, 1_000, 0, 2_000)
+    finally:
+        pool.close()
+    assert list(par) == list(want)
+    for f in want:
+        assert np.asarray(par[f]).tobytes() == np.asarray(want[f]).tobytes(), f
 
 
 def test_device_made_source_is_fed_from_the_host_under_spill():

@@ -341,7 +341,7 @@ def test_devgen_gate_logical_batch_is_sliced_k_ways(monkeypatch):
     ({"pipeline.microbatch-size": 512, "pipeline.sub-batches": 3},
      ValueError, "must divide"),
     ({"pipeline.readiness": "telepathy"}, ValueError, "pipeline.readiness"),
-    ({"pipeline.emit-defer": "100ms"}, NotImplementedError, "drain thread"),
+    ({"host.fold-chunk-records": 0}, ValueError, "fold-chunk-records"),
     ({"pipeline.emit-defer": -5}, ValueError, "emit-defer"),
     ({"pipeline.source-prefetch": -1}, ValueError, "source-prefetch"),
     ({"pipeline.auto-watermark-interval": "-1 s"}, ValueError,
@@ -349,8 +349,8 @@ def test_devgen_gate_logical_batch_is_sliced_k_ways(monkeypatch):
 ])
 def test_driver_rejects(conf, err, match):
     """TestValidation's driver cases (tests/test_subbatch.py,
-    tests/test_fire_gate.py), and the driver keys' own checks: an
-    emit deferral above 0 is refused with its reason."""
+    tests/test_fire_gate.py), and the driver keys' own checks (an emit
+    deferral below -1, a tree-fold chunk below 1)."""
     env = StreamExecutionEnvironment(Configuration(conf))
     (env.from_source(GeneratorSource(wc_gen),
                      WatermarkStrategy.for_monotonous_timestamps())
@@ -373,14 +373,16 @@ def test_operator_rejects_unknown_readiness():
     {"pipeline.source-prefetch": 5},
     {"pipeline.emit-defer": "0 ms"},
     {"pipeline.emit-defer": -1},
+    {"pipeline.emit-defer": "100ms"},
 ])
 def test_driver_keys_run_and_commit_the_same_rows(wc_reference, conf):
     """The four driver-level keys a reference conf may carry: each runs
     and commits the reference's rows in order. The watermark interval
     and object reuse are read and checked, as the reference reads them,
     and change nothing in either package; the prefetch sets the feeder
-    thread's depth (0: none); an emit deferral of 0 or auto (-1) is what
-    the loop's delivery does."""
+    thread's depth (0: none); an emit deferral above 0 holds each fire
+    back that long and changes only when rows arrive, not which rows or
+    their order."""
     got, _ = run_port_wc(1, conf)
     assert got == wc_reference[1]
 
