@@ -235,8 +235,29 @@ mesh).
 19. ``emit_defer`` — Q5 host-fed (8 x 2^20 bids) at
    ``pipeline.emit-defer`` 0 and 500 ms: the same rows in the same
    order, the emit latency of each.
+20. ``hybrid`` — one job across two processes on the one card: this
+   script started twice with ``--hybrid-worker`` (``sys.executable``),
+   each process on ``make_hybrid_mesh_plan(128, 256, 2, pid, ["cuda:0",
+   "cuda:0"])`` through ``execute(mesh_plan=...)``, connected on
+   loopback with ``cluster.dcn-secret`` set. The job is Q5's count stage
+   (sliding 10 s / 1 s COUNT per auction, no top-n) on bench.py:206-208's
+   bids at confs/bench_q5_host_fed.conf's widths, 16 x 2^20 bids in two
+   splits (a split a process), into a ``FileTransactionalSink`` with a
+   checkpoint every 1 ms. The union of the two processes' committed rows
+   must equal the single-process run on the card and the numpy golden;
+   a ``torch.profiler`` run in each process must find every X1
+   (``bucket_records``) kernel inside ``intra_slice_exchange``'s ranges;
+   then process 1 dies after a checkpoint, both restart with the
+   negotiated restore, and the union is again the golden's. Printed:
+   events/s a process and for the fleet, each process's device idle share
+   by CUDA-event spans, X1's launches, loop ms, device ms and bound on
+   this path, the bytes each process sent over the exchange and its
+   ``cross_slice_fraction``, and the rendezvous wait p50 and p99. Every
+   worker's exit code is checked. The ``kernels`` line's
+   ``bucket_records`` row carries the hybrid figures (``hybrid``) and its
+   launches there (``launches_by_path``).
 
-Each of 16-19 prints its events/s and wall time beside the card's name
+Each of 16-20 prints its events/s and wall time beside the card's name
 and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
@@ -304,12 +325,14 @@ copied in and run both in one call, in turns. The rows:
   executor's steps swapped out one at a time (the JAX package's byte
   assembly of the blobs, no fsync, 256 KiB writes, a sleep for the
   write, no write, no encode, no fetch): wall seconds, checkpoints and
-  the final checkpoint's seconds a run, rows against the golden.
+  the final checkpoint's seconds a run, rows against the golden;
+- ``mesh_m1``: job M1 of the mesh phase three times in one process, its
+  events/s a run (a tree beside its parent, in turns).
 
 With ``--checkpoint`` it builds the kernels and runs only phase 15.
 
 With ``--host-operators`` it builds the kernels and runs only phases
-16-19.
+16-19. With ``--hybrid`` it builds the kernels and runs only phase 20.
 
 With ``--mesh-cards`` it builds the kernels and runs only Q5 over a mesh
 of one block per visible card (16 x 2^20 bids, then 4 batches with the
@@ -2759,10 +2782,11 @@ def run_q5_count_only(torch, np, cfg, label):
 
 def check_q5_counts(np, rows, cfg, label):
     """Every (auction, window end) of the 10 s / 1 s windows with a bid,
-    once, with its bid count."""
+    once, with its bid count (over every split of ``cfg``)."""
     from flink_tpu_torch.nexmark.generator import bid_batch
 
-    parts = [bid_batch(cfg, 0, i) for i in range(cfg.n_batches)]
+    parts = [bid_batch(cfg, s, i) for i in range(cfg.n_batches)
+             for s in range(cfg.n_splits)]
     auction = np.concatenate([d["auction"] for d, _ in parts])
     pane = np.concatenate([t for _, t in parts]) // 1000
     n_a, n_p = cfg.num_active_auctions, int(pane.max()) + 1
@@ -6010,6 +6034,25 @@ def checkpoint_cost_cases(torch, np, dev):
                 for name, runs in out.items()}}
 
 
+def mesh_m1_cases(torch, np, dev):
+    """Job M1 (Q5 host-fed over MESH_BLOCKS blocks of the card, 16 x 2^20
+    bids, the mesh phase's job) three times in one process: its events/s
+    a run, the last run's rows against the golden. Run in a tree and its
+    parent in turns to tell a change from the host's spread."""
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+    mesh = make_mesh_plan(128, 256, [dev] * MESH_BLOCKS)
+    cfg = bids_cfg(Q5_BATCHES)
+    rates = []
+    for _ in range(3):
+        rows, _, res, wall = run_q5_host_fed(torch, np, cfg, "mesh-m1",
+                                             mesh=mesh)
+        rates.append(Q5_BATCH * Q5_BATCHES / wall)
+    check_q5_rows(np, rows, cfg, "M1")
+    return {"m1_events_per_s": rates,
+            "exchange_overflow": res.metrics["exchange_overflow"]}
+
+
 KERNEL_CASES = {
     "ring_pairs": (("window_kernels", "lane_kernels"), ring_pair_cases),
     "fire_kernels": (("lane_kernels", "topn_lanes_kernels"),
@@ -6027,6 +6070,7 @@ KERNEL_CASES = {
     "hot_wide": (("window_kernels", "fused_kernels"), hot_wide_cases),
     "checkpoint_cost": (("window_kernels", "devgen_kernels"),
                         checkpoint_cost_cases),
+    "mesh_m1": (KERNEL_SOURCES, mesh_m1_cases),
 }
 
 
@@ -6817,6 +6861,419 @@ def phase_emit_defer(torch, np):
     return out
 
 
+# -- the hybrid phase: one job across two processes on one card ---------------
+
+HYBRID_BATCHES = 8              # 2^20-bid batches a split, a split a process
+HYBRID_CRASH_BATCH = 3          # process 1 dies at this batch or later
+HYBRID_PROFILED_BATCHES = 2     # a split's batches in the profiled run
+
+
+def hybrid_cfg(n_batches):
+    """bench.py:206-208's bids (100 a ms, 10,000 auctions, hot ratio 4) in
+    two splits of ``n_batches`` 2^20-bid batches, interleaved in event
+    time."""
+    return dataclasses.replace(bids_cfg(n_batches), n_splits=2)
+
+
+def hybrid_worker(torch, np, spec):
+    """``--hybrid-worker SPEC``: one process of the hybrid phase's job.
+    SPEC (JSON) names the process id, the peers and this process's ports
+    (one a run), the secret, the output directory, and whether the run
+    restores, crashes or is profiled. Writes its result as JSON to
+    ``<out>/result-p<pid>-<tag>.json``."""
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    pid, out = spec["pid"], spec["out"]
+    result = {"pid": pid, "card": card_line()}
+    if spec.get("crash"):
+        result["crash"] = run_hybrid_job(torch, np, spec, "crash",
+                                         HYBRID_BATCHES, crash=True)
+    elif spec.get("restore"):
+        result["restore"] = run_hybrid_job(torch, np, spec, "restore",
+                                           HYBRID_BATCHES, restore=True)
+    else:
+        # the timed run: every X1 call's shape, for its bound
+        shapes = []
+        real = xk.bucket_records_into
+
+        def recorded(cells, payload, n_dest, capacity, spd, ring, recv, j):
+            shapes.append((int(cells.shape[0]), 3 if cells.dim() == 2
+                           else cells.element_size(), int(n_dest),
+                           int(capacity), int(spd), int(ring),
+                           0 if payload is None else int(payload.shape[1])))
+            return real(cells, payload, n_dest, capacity, spd, ring, recv, j)
+
+        xk.bucket_records_into = recorded
+        try:
+            result["timed"] = run_hybrid_job(torch, np, spec, "timed",
+                                             HYBRID_BATCHES)
+        finally:
+            xk.bucket_records_into = real
+        result["timed"]["x1_shapes"] = shapes
+        # a shorter run under torch.profiler: X1's kernels inside
+        # intra_slice_exchange's ranges
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p = run_hybrid_job(torch, np, spec, "profiled",
+                               HYBRID_PROFILED_BATCHES)
+        p.update(x1_in_ranges(torch, prof, wk.LAUNCHES["bucket_records"]))
+        result["profiled"] = p
+        # one card a process and no mesh plan: each process runs its span
+        # on one block (the single-device operator with its shard range)
+        result["local"] = run_hybrid_job(torch, np, spec, "local",
+                                         HYBRID_PROFILED_BATCHES, mesh=False)
+    with open(os.path.join(out, f"result-p{pid}-{spec['tag']}.json"),
+              "w") as f:
+        json.dump(result, f)
+
+
+def run_hybrid_job(torch, np, spec, run, n_batches, crash=False,
+                   restore=False, mesh=True):
+    """Q5's count stage (sliding 10 s / 1 s COUNT per auction, no top-n)
+    at confs/bench_q5_host_fed.conf as process ``spec["pid"]`` of two,
+    over its ``HybridMeshPlan`` of two blocks of cuda:0 (``mesh`` False:
+    no plan, so the environment's own choice for one visible card, one
+    block over the process's span), reading its split of
+    ``hybrid_cfg(n_batches)``, into a ``FileTransactionalSink`` with a
+    checkpoint every 1 ms (the profiled and local runs: no checkpoints).
+    ``crash``:
+    the source of process 1 exits (``os._exit(43)``) at batch
+    HYBRID_CRASH_BATCH or later once a checkpoint of its own is
+    complete."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.parallel.mesh import make_hybrid_mesh_plan
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    pid = spec["pid"]
+    root = os.path.join(spec["out"], run if run != "restore" else "crash")
+    ckpt = os.path.join(root, "ckpt")
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    for k, v in (("cluster.num-processes", 2), ("cluster.process-id", pid),
+                 ("cluster.dcn-peers", spec["peers"][run]),
+                 ("cluster.dcn-port", spec["ports"][run]),
+                 ("cluster.dcn-secret", spec["secret"])):
+        conf.set(k, v)
+    if run not in ("profiled", "local"):
+        conf.set("execution.checkpointing.interval", 1)
+        conf.set("execution.checkpointing.dir", ckpt)
+    if restore:
+        conf.set("execution.checkpointing.restore", "latest")
+    src = bid_stream(hybrid_cfg(n_batches))
+    if crash and pid == 1:
+        inner = src.gen
+
+        def gen(split, i):
+            if i >= HYBRID_CRASH_BATCH and FsCheckpointStorage(
+                    ckpt, f"hybrid-p{pid}").latest() is not None:
+                os._exit(43)
+            return inner(split, i)
+        src = GeneratorSource(gen, n_splits=src.n_splits)
+    sink = FileTransactionalSink(os.path.join(root, f"sink-p{pid}"))
+    env = StreamExecutionEnvironment(conf)
+    (env.from_source(src, WatermarkStrategy.for_bounded_out_of_orderness(
+        1_000))
+     .key_by("auction").window(SlidingEventTimeWindows.of(10_000, 1_000))
+     .count().add_sink(sink))
+    plan = (make_hybrid_mesh_plan(128, 256, 2, pid, ["cuda:0", "cuda:0"])
+            if mesh else None)
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute("hybrid", device="cuda", mesh_plan=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, host = busy_and_host(res)
+    m = res.metrics
+    events = Q5_BATCH * n_batches
+    return {"events": events, "wall_s": wall, "events_per_s": events / wall,
+            "launches": dict(wk.LAUNCHES),
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+            "records_in": m["records_in"], "late_records": m["late_records"],
+            "exchange_overflow": m["exchange_overflow"],
+            "intra_exchange_bytes": m["exchange_bytes"],
+            "dcn_bytes_sent": m["dcn.bytes_sent"],
+            "dcn_records_routed": m["dcn.records_routed"],
+            "dcn_records_sent": m["dcn.records_sent"],
+            "cross_slice_fraction": (m["dcn.records_sent"]
+                                     / max(m["dcn.records_routed"], 1)),
+            "rendezvous_wait_ms": {q: m[f"dcn.wait_ms.{q}"]
+                                   for q in ("p50", "p99", "max", "count")},
+            "checkpoints_completed": m.get("checkpoints_completed", 0),
+            "mesh_devices": m.get("mesh_devices"), "host_profile_s": host}
+
+
+def x1_in_ranges(torch, prof, launches):
+    """X1's kernels in a profile and those inside the device-side marks of
+    ``intra_slice_exchange``'s profiler ranges (from the first to the last
+    kernel launched inside each)."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e for e in dev if e.name == "intra_slice_exchange"]
+    x1 = [e for e in dev
+          if any(k in e.name for k in PROFILED_KERNELS["bucket_records"])]
+    inside = [k for k in x1 if any(
+        m.time_range.start <= k.time_range.start
+        and k.time_range.end <= m.time_range.end for m in marks)]
+    cpu_ranges = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.name == "intra_slice_exchange")
+    return {"x1_launches": launches, "x1_kernels": len(x1),
+            "x1_in_intra_slice_exchange": len(inside),
+            "intra_slice_exchange_calls": cpu_ranges,
+            "intra_slice_exchange_marks": len(marks),
+            "x1_device_ms_per_call": (
+                sum(k.time_range.end - k.time_range.start for k in x1)
+                / 1e3 / len(x1) if x1 else None)}
+
+
+def spawn_hybrid(spec):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--hybrid-worker",
+         json.dumps(spec)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+
+
+def wait_hybrid(procs, label, expect=(0, 0)):
+    """Wait for both workers (a hang fails the phase; every process is
+    stopped before this returns) and check their exit codes; ``expect``
+    None for a code that only must not be 0."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=HYBRID_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, want) in enumerate(zip(procs, expect)):
+        ok = p.returncode != 0 if want is None else p.returncode == want
+        check(ok, f"hybrid {label}: process {pid} exited {p.returncode}:\n"
+                  + outs[pid][-4000:])
+    return outs
+
+
+HYBRID_TIMEOUT_S = 300
+
+
+def hybrid_rows(root):
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+
+    return [(r["key"], r["window_end"], r["count"]) for pid in range(2)
+            for r in FileTransactionalSink.committed_rows(
+                os.path.join(root, f"sink-p{pid}"))]
+
+
+def free_ports(n):
+    import socket
+
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def x1_hybrid_bound(shapes):
+    """X1's bound a call on the hybrid path, as its kernels-phase row
+    counts it: each record read once (its cell form and lanes), every
+    bucket position written once (cell, valid byte, lanes), the overflow
+    words."""
+    bounds = [bound_ms(b * (cb + 4 * c) + n * cap * (5 + 4 * c) + 4 * n,
+                       b * n)[0]
+              for b, cb, n, cap, _, _, c in shapes]
+    return sum(bounds) / len(bounds)
+
+
+def phase_hybrid(torch, np):
+    """One job across two processes on one card: Q5's count stage (sliding
+    10 s / 1 s COUNT per auction, no top-n) at
+    confs/bench_q5_host_fed.conf's widths on 16 x 2^20 bids in two splits,
+    a split a process. Each process (this script with --hybrid-worker)
+    runs ``make_hybrid_mesh_plan(128, 256, 2, pid, ["cuda:0", "cuda:0"])``
+    through ``execute(mesh_plan=...)``, the processes connected on
+    loopback with ``cluster.dcn-secret`` set, into a
+    ``FileTransactionalSink`` with a checkpoint every 1 ms. Checks: the
+    union of both processes' committed rows against the single-process
+    run on the card and the numpy golden; every worker's exit code; X1's
+    kernels inside ``intra_slice_exchange``'s profiler ranges; and a
+    second run in which process 1 dies after a checkpoint, both restart
+    with the negotiated restore, and the union is again the golden's."""
+    import secrets
+    import shutil
+
+    from flink_tpu_torch.kernels import exchange_kernels as xk
+
+    out = os.path.join(ROOT, "flink_tpu_torch", "_build", "hybrid")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg = hybrid_cfg(HYBRID_BATCHES)
+    single, s_launches, s_res, s_wall = run_q5_count_only(
+        torch, np, cfg, "hybrid-single-process")
+    secret = secrets.token_hex(16)
+
+    def specs(tag, runs, **kw):
+        ports = {r: free_ports(2) for r in runs}
+        peers = {r: ",".join(f"127.0.0.1:{p}" for p in ps)
+                 for r, ps in ports.items()}
+        return [dict(pid=pid, out=out, secret=secret, tag=tag, peers=peers,
+                     ports={r: ports[r][pid] for r in runs}, **kw)
+                for pid in range(2)]
+
+    def results(tag):
+        res = []
+        for pid in range(2):
+            with open(os.path.join(out, f"result-p{pid}-{tag}.json")) as f:
+                res.append(json.load(f))
+        return res
+
+    # the timed run, then a profiled one and one without a mesh plan, in
+    # the same two processes
+    wait_hybrid([spawn_hybrid(s) for s in specs(
+        "timed", ("timed", "profiled", "local"))], "timed run")
+    timed = results("timed")
+    rows = hybrid_rows(os.path.join(out, "timed"))
+    local_rows = hybrid_rows(os.path.join(out, "local"))
+    # process 1 dies after a checkpoint; process 0 fails on the exchange
+    wait_hybrid([spawn_hybrid(s) for s in specs("crash", ("crash",),
+                                                 crash=True)],
+                "crash", expect=(None, 43))
+    # both hold a completed checkpoint, so the restore resumes one (a
+    # replay from the start would repeat an epoch committed already)
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+    for pid in range(2):
+        check(FsCheckpointStorage(os.path.join(out, "crash", "ckpt"),
+                                  f"hybrid-p{pid}").latest() is not None,
+              f"hybrid crash: process {pid} holds no checkpoint")
+    wait_hybrid([spawn_hybrid(s) for s in specs("restore", ("restore",),
+                                                 restore=True)],
+                "restore")
+    restored = results("restore")
+    crash_rows = hybrid_rows(os.path.join(out, "crash"))
+    # X1 at the path's median shape: against its plain version (every
+    # receive position and the overflow words, bit for bit), then its
+    # loop ms
+    shapes = sorted(s for r in timed for s in r["timed"]["x1_shapes"])
+    check(shapes, "hybrid: no X1 call on the path")
+    b, cb, n_dest, cap, spd, ring, C = shapes[len(shapes) // 2]
+    rng = np.random.default_rng(SEED + 22)
+    cells_np = mesh_cells(np, rng, 10_000, b, n_dest * spd, ring)
+    sc = torch.from_numpy(split_bytes(np, cells_np, ring) if cb == 3
+                          else cells_np).cuda()
+    pay = (torch.from_numpy(rng.random((b, C)).astype(np.float32)).cuda()
+           if C else None)
+
+    def recv_rows():
+        # filled with what neither version writes, so a position left
+        # unwritten shows
+        shape = (n_dest, n_dest, cap)
+        return (torch.full(shape, -2, dtype=xk.bucket_cell_dtype(sc),
+                           device="cuda"),
+                torch.full(shape + (C,), -2.0, device="cuda") if C else None,
+                torch.ones(shape, dtype=torch.bool, device="cuda"))
+    recv, want = recv_rows(), recv_rows()
+    for j in range(n_dest):
+        ov = xk.bucket_records_into(sc, pay, n_dest, cap, spd, ring, recv, j)
+        ov_plain = xk.bucket_records_into_plain(sc, pay, n_dest, cap, spd,
+                                                ring, want, j)
+        torch.cuda.synchronize()
+        check(torch.equal(ov, ov_plain),
+              f"hybrid: bucket_records_into's overflow {ov.tolist()} "
+              f"differs from its plain version's {ov_plain.tolist()}")
+    check(all(torch.equal(x, y) for x, y in zip(recv, want)
+              if x is not None),
+          "hybrid: bucket_records_into differs from its plain version at "
+          f"the path's median shape {shapes[len(shapes) // 2]}")
+    loop_ms = time_ms(torch, lambda: xk.bucket_records_into(
+        sc, pay, n_dest, cap, spd, ring, recv, 0))
+    # the goldens' numpy work comes after the timed runs
+    check_q5_counts(np, single, cfg, "hybrid single process")
+    check(sorted(rows) == sorted(single),
+          "hybrid: the union of the processes' rows differs from the "
+          "single-process run's")
+    check_q5_counts(np, rows, cfg, "hybrid union")
+    check_q5_counts(np, crash_rows, cfg, "hybrid union after the crash")
+    check_q5_counts(np, local_rows, hybrid_cfg(HYBRID_PROFILED_BATCHES),
+                    "hybrid union without a mesh plan")
+    x1 = {"launches": sum(r["timed"]["launches"]["bucket_records"]
+                          for r in timed)}
+    for r in timed:
+        t, p = r["timed"], r["profiled"]
+        check(t["late_records"] == 0 and t["exchange_overflow"] == 0,
+              f"hybrid p{r['pid']}: late or overflowed records {t}")
+        check(t["launches"]["bucket_records"] > 0,
+              f"hybrid p{r['pid']}: X1 never launched")
+        check(t["launches"]["fused_step"] == 0,
+              f"hybrid p{r['pid']}: the one-device native lane ran")
+        check(p["x1_kernels"] > 0
+              and p["x1_in_intra_slice_exchange"] == p["x1_kernels"]
+              == p["x1_launches"],
+              f"hybrid p{r['pid']}: X1's kernels under "
+              f"intra_slice_exchange {p}")
+        lo = r["local"]["launches"]
+        check(lo["bucket_records"] == 0 and r["local"]["mesh_devices"] is None
+              and lo["apply_pairs_u32"] + lo["apply_pairs_u16"] > 0,
+              f"hybrid p{r['pid']} without a mesh plan: not the one-block "
+              f"native lane {r['local']}")
+    fleet_wall = max(r["timed"]["wall_s"] for r in timed)
+    device_ms = [r["profiled"]["x1_device_ms_per_call"] for r in timed]
+    x1.update({
+        "loop_ms": loop_ms, "shape": {"records": b, "n_dest": n_dest,
+                                      "capacity": cap, "spd": spd,
+                                      "ring": ring},
+        "device_ms": (sum(device_ms) / len(device_ms)
+                      if None not in device_ms else None),
+        "bound_ms": x1_hybrid_bound(shapes), "bound_by": "bytes"})
+    summary = {
+        "phase": "hybrid", "conf": "confs/bench_q5_host_fed.conf",
+        "job": "key_by(auction).window(10 s / 1 s sliding).count()",
+        "events": Q5_BATCH * HYBRID_BATCHES * 2, "processes": 2,
+        "blocks": ["cuda:0", "cuda:0"],
+        "fleet_events_per_s": Q5_BATCH * HYBRID_BATCHES * 2 / fleet_wall,
+        "fleet_wall_s": fleet_wall,
+        "single_process": {
+            "wall_s": s_wall,
+            "events_per_s": Q5_BATCH * HYBRID_BATCHES * 2 / s_wall,
+            "launches": {k: v for k, v in s_launches.items() if v}},
+        "rows": len(rows), "crash_rows": len(crash_rows),
+        "x1": x1,
+        "processes_detail": [
+            {"pid": r["pid"],
+             **{k: v for k, v in r["timed"].items()
+                if k not in ("x1_shapes", "launches")},
+             "launches": {k: v for k, v in r["timed"]["launches"].items()
+                          if v},
+             "x1_calls": len(r["timed"]["x1_shapes"]),
+             "profiled": r["profiled"]} for r in timed],
+        "restore": [r["restore"] for r in restored],
+        "local": [{**r["local"],
+                   "launches": {k: v for k, v in r["local"]["launches"].items()
+                                if v}} for r in timed],
+        "card": card_line()}
+    emit(summary)
+    shutil.rmtree(out, ignore_errors=True)
+    launches = {k: sum(r["timed"]["launches"][k] for r in timed)
+                for k in timed[0]["timed"]["launches"]}
+    return launches, x1
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6842,6 +7299,8 @@ def main() -> int:
                                            phase_checkpoint(torch, np)),
         "--mesh-cards": lambda torch, np: (phase_build(),
                                            phase_mesh_cards(torch, np)),
+        "--hybrid": lambda torch, np: (phase_build(),
+                                       phase_hybrid(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -6852,6 +7311,14 @@ def main() -> int:
            for name in ("ring_pairs", "fire_kernels", "count_topn",
                         "count_lane", "mesh_kernels")},
     }
+    if "--hybrid-worker" in argv:
+        try:
+            hybrid_worker(torch, np, json.loads(
+                argv[argv.index("--hybrid-worker") + 1]))
+        except Exception:
+            traceback.print_exc()
+            return 1
+        return 0
     flag = next((a for a in argv if a in modes), None)
     if flag is not None:
         try:
@@ -6886,6 +7353,7 @@ def main() -> int:
         phase_q8(torch, np)
         phase_q7(torch, np)
         phase_emit_defer(torch, np)
+        hybrid, hybrid_x1 = phase_hybrid(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -6894,6 +7362,7 @@ def main() -> int:
                  "topn_lanes": topn_lanes, "changelog": changelog,
                  "q5_spill": q5_spill, "element_window": element,
                  "proc_time": proc_time, "mesh_q5": mesh,
+                 "hybrid": hybrid,
                  "big_cells": {k: big["launches"].get(k, 0)
                                for k in host_fed}}
         # each kernel's count on its own main path: the headline (devgen)
@@ -6956,6 +7425,11 @@ def main() -> int:
                     "mesh_m2": m2_per_call.get(name)}
                 check(all(by_path.values()),
                       f"scatter_lanes has no device time a call on {by_path}")
+            if name == "bucket_records":
+                # X1 on the hybrid path: its launches by both processes'
+                # intra_slice_exchange, loop ms at the path's median
+                # shape, device ms a call (profiled), bound a call
+                row["hybrid"] = hybrid_x1
             if name == "ring_columns":
                 # device ms a call where the purge moves one lane (devgen
                 # Q5, WordCount) and where it moves a four-lane block

@@ -8,13 +8,14 @@ and top; session windows (``window(EventTimeSessionWindows.with_gap(
 gap))``, with allowed_lateness and a retracting ``aggregate``);
 window_all (``AllWindowedStream``); and the windowed equi-join
 ``join(other).where(k).equal_to(k).window(w).apply(...)`` in its two
-modes. ``map`` and ``filter`` also take a ``MapFunction`` or a
+modes; and the partitioners rebalance, rescale, shuffle, broadcast and
+global_. ``map`` and ``filter`` also take a ``MapFunction`` or a
 ``FilterFunction`` (``api/functions.py``). ``aggregate`` takes a
 ``LaneAggregate``; a user ``AggregateFunction`` goes through
 ``ops.aggregates.lower_aggregate`` first, as in the JAX package. An
 evictor, or a trigger outside the pane kernels' families, routes a
-window onto the element path (``ops/evicting_window.py``). The
-partitioners, async I/O, connect, running_aggregate and process are in
+window onto the element path (``ops/evicting_window.py``). Async
+I/O, connect, running_aggregate and process are in
 ROADMAP.md."""
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from flink_tpu_torch.graph.transformations import (
     EvictingWindowTransformation,
     KeyByTransformation,
     MapTransformation,
+    PartitionTransformation,
     SessionAggregateTransformation,
     SinkTransformation,
     Transformation,
@@ -110,6 +112,32 @@ class DataStream:
             t = KeyByTransformation(name, (self.transform,), key_field=key)
         self.env._register(t)
         return KeyedStream(self.env, t)
+
+    # -- non-keyed partitioning (ref: DataStream.{rebalance,rescale,
+    # shuffle,broadcast,global} → PartitionTransformation) ---------------
+    def rebalance(self) -> "DataStream":
+        """Round-robin across parallel subtasks: an exact equal spread."""
+        return self._partition("rebalance")
+
+    def rescale(self) -> "DataStream":
+        """Round-robin within the local scale group (never cross-host)."""
+        return self._partition("rescale")
+
+    def shuffle(self) -> "DataStream":
+        """A uniform random subtask a record (seeded: replay-stable)."""
+        return self._partition("shuffle")
+
+    def broadcast(self) -> "DataStream":
+        """Every record to every subtask."""
+        return self._partition("broadcast")
+
+    def global_(self) -> "DataStream":
+        """Everything to subtask 0 (``global`` is a Python keyword)."""
+        return self._partition("global")
+
+    def _partition(self, strategy: str) -> "DataStream":
+        return self._append(PartitionTransformation(
+            strategy, (self.transform,), strategy=strategy))
 
     def window_all(self, assigner: WindowAssigner) -> "AllWindowedStream":
         """A global (non-keyed) window over all records, folded per pane

@@ -2,7 +2,10 @@
 DAG and runs it on the local driver, on the card unless the caller asks
 for the CPU. With ``cluster.mesh-devices`` set and more than one device
 visible, the driver runs each keyed window over a mesh of device blocks
-(``build_mesh_plan``)."""
+(``build_mesh_plan``). With ``cluster.num-processes`` > 1 the job spans
+processes: each runs this program with its ``cluster.process-id`` and
+the fleet's ``cluster.dcn-peers``, and owns its span of the key shards
+(``runtime/driver.py``'s cross-process loop)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional
@@ -50,8 +53,9 @@ class StreamExecutionEnvironment:
                 mesh_plan=None) -> "JobResult":
         """Lower and run to completion on ``device`` ("cuda" by default;
         raises when there is no CUDA device — pass "cpu" explicitly).
-        ``mesh_plan`` (``parallel.mesh.make_mesh_plan``) places the keyed
-        windows' device blocks explicitly, several on one device if need
+        ``mesh_plan`` (``parallel.mesh.make_mesh_plan``, or across
+        processes ``make_hybrid_mesh_plan``) places the keyed windows'
+        device blocks explicitly, several on one device if need
         be; without it ``cluster.mesh-devices`` decides."""
         from flink_tpu_torch.graph.compiler import compile_job
         from flink_tpu_torch.runtime.driver import Driver
@@ -67,8 +71,10 @@ class StreamExecutionEnvironment:
     def build_mesh_plan(self, device: "str | torch.device" = "cuda"):
         """The mesh of ``cluster.mesh-devices`` over the devices of
         ``device``'s kind that this process sees (``visible_devices``):
-        None for local execution (the option empty, or one device)."""
-        from flink_tpu_torch.parallel.mesh import make_mesh_plan
+        None for local execution (the option empty, or one device); with
+        ``cluster.num-processes`` > 1 this process's ``HybridMeshPlan``."""
+        from flink_tpu_torch.parallel.mesh import (
+            make_hybrid_mesh_plan, make_mesh_plan)
 
         spec = str(self.config.get(ClusterOptions.MESH_DEVICES)).strip()
         if not spec:
@@ -87,14 +93,18 @@ class StreamExecutionEnvironment:
             devices = devices[:n]
         if len(devices) == 1:
             return None  # a one-device mesh is local execution
-        if int(self.config.get(ClusterOptions.NUM_PROCESSES)) > 1:
-            raise NotImplementedError(
-                "cluster.num-processes > 1 (the hybrid mesh across "
-                "processes, exchange/dcn.py) is still to port: ROADMAP.md "
-                "queue 1 item 9")
-        return make_mesh_plan(
-            int(self.config.get(StateOptions.NUM_KEY_SHARDS)),
-            int(self.config.get(StateOptions.SLOTS_PER_SHARD)), devices)
+        num_shards = int(self.config.get(StateOptions.NUM_KEY_SHARDS))
+        slots = int(self.config.get(StateOptions.SLOTS_PER_SHARD))
+        nproc = int(self.config.get(ClusterOptions.NUM_PROCESSES))
+        if nproc > 1:
+            # across processes: this process's blocks cover only its
+            # span of the shards; records arrive already routed through
+            # the cross-process exchange (the key directory keeps the
+            # global shard space)
+            return make_hybrid_mesh_plan(
+                num_shards, slots, nproc,
+                int(self.config.get(ClusterOptions.PROCESS_ID)), devices)
+        return make_mesh_plan(num_shards, slots, devices)
 
 
 def visible_devices(device: "str | torch.device" = "cuda"

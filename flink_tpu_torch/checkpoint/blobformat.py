@@ -201,7 +201,7 @@ def decode(raw: bytes, allow_pickle: bool = True) -> Any:
     """v3 bytes → payload tree (arrays are read-only views when the
     input buffer allows zero-copy). ``allow_pickle=False`` rejects the
     ``__pickle__`` escape — required for any decoder fed from the
-    network (the cross-process exchange, ROADMAP.md queue 1 item 9.3)."""
+    network (the cross-process exchange's legacy codec, exchange/dcn.py)."""
     header, base = read_header(raw)
     arrays: List[np.ndarray] = []
     for spec in header["arrays"]:

@@ -179,8 +179,55 @@ class ClusterOptions:
         "KeyGroupRangeAssignment).")
     NUM_PROCESSES = ConfigOption(
         "cluster.num-processes", 1,
-        "Host-process count of ONE job. Only 1 is ported: the hybrid "
-        "mesh across processes (the DCN tier) is still to port.")
+        "Host-process count of ONE job (the cross-process data plane): "
+        "each process owns num-key-shards/N contiguous key shards; keyed "
+        "records route to their owner through the per-step all-to-all "
+        "(exchange/dcn.py), whose rendezvous also carries the global "
+        "watermark, termination and checkpoint-alignment consensus.")
+    PROCESS_ID = ConfigOption(
+        "cluster.process-id", 0,
+        "This process's index in [0, cluster.num-processes).")
+    DCN_PEERS = ConfigOption(
+        "cluster.dcn-peers", "",
+        "Comma-separated host:port of every process's exchange "
+        "listener, indexed by process id.")
+    DCN_PORT = ConfigOption(
+        "cluster.dcn-port", 0,
+        "This process's exchange listen port (0 = ephemeral).")
+    DCN_SECRET = ConfigOption(
+        "cluster.dcn-secret", "",
+        "Per-job shared secret authenticating the exchange handshake "
+        "(HMAC over the hello; exchange/dcn.py). Empty = "
+        "unauthenticated (single-host loopback only).")
+    DCN_OVERLAP = ConfigOption(
+        "cluster.dcn-overlap", True,
+        "Step-overlapped exchange (exchange_async): the driver dispatches "
+        "step N+1's frames before it consumes step N's, so the "
+        "rendezvous overlaps the device work and the next step's routing. "
+        "Committed output is identical; false consumes at dispatch (the "
+        "lockstep loop).")
+    DCN_OVERLAP_DRAIN = ConfigOption(
+        "cluster.dcn-overlap-drain", True,
+        "Drain the one in-flight overlapped step before snapshotting at "
+        "a checkpoint barrier (the exactly-once contract: the cut covers "
+        "every routed record). False skips the drain: a restore from "
+        "such a checkpoint loses that step's records (at-most-once for "
+        "it).")
+    DCN_IO_THREADS = ConfigOption(
+        "cluster.dcn-io-threads", 0,
+        "Sender-worker threads of the exchange. 0 = one per peer; a "
+        "positive value caps them, peers assigned round-robin, each "
+        "peer's frames FIFO on one worker. Receive threads are always "
+        "one per peer.")
+    DCN_BUFFER_BYTES = ConfigOption(
+        "cluster.dcn-buffer-bytes", 0,
+        "SO_SNDBUF/SO_RCVBUF of every exchange socket, in bytes; 0 = the "
+        "OS default.")
+    DCN_BIND = ConfigOption(
+        "cluster.dcn-bind", "auto",
+        "Address the exchange listener binds. 'auto' stays on 127.0.0.1 "
+        "unless cluster.dcn-peers names another host, then 0.0.0.0; an "
+        "explicit address overrides.")
     EXCHANGE_IMPL = ConfigOption(
         "exchange.impl", "all-to-all",
         "Keyed-exchange pattern (the Shuffle SPI seam, ref: "
@@ -323,8 +370,8 @@ LATER_KEYS = (
     ("storage.enospc-", "queue 1 item 8"),
     ("execution.runtime-mode", "queue 1 item 8"),
     ("execution.batch.", "queue 1 item 8"),
-    ("cluster.dcn-", "queue 1 item 9.3"),
-    ("cluster.process-id", "queue 1 item 9.3"),
+    ("cluster.dcn-host", "queue 1 item 10"),
+    ("cluster.dcn-rendezvous", "queue 1 item 10"),
     ("session.", "queue 1 item 10"),
     ("heartbeat.", "queue 1 item 10"),
     ("high-availability.", "queue 1 item 10"),
@@ -460,6 +507,20 @@ class Configuration:
                              f"{RESTART_STRATEGIES}, got {strategy!r}")
         if int(self.get(MemoryOptions.HBM_BUDGET)) < 0:
             raise ValueError("memory.hbm-budget must be >= 0 (0 = unlimited)")
+        nproc = int(self.get(ClusterOptions.NUM_PROCESSES))
+        if nproc < 1:
+            raise ValueError("cluster.num-processes must be >= 1")
+        pid = int(self.get(ClusterOptions.PROCESS_ID))
+        if not 0 <= pid < nproc:
+            raise ValueError(f"cluster.process-id ({pid}) must be in [0, "
+                             f"cluster.num-processes={nproc})")
+        if not 0 <= int(self.get(ClusterOptions.DCN_PORT)) < 65536:
+            raise ValueError("cluster.dcn-port must be a port number "
+                             "(0 = ephemeral)")
+        for opt in (ClusterOptions.DCN_IO_THREADS,
+                    ClusterOptions.DCN_BUFFER_BYTES):
+            if int(self.get(opt)) < 0:
+                raise ValueError(f"{opt.key} must be >= 0 (0 = auto)")
         if not 0 <= int(self.get(MetricsOptions.PORT)) < 65536:
             raise ValueError("metrics.port must be a port number (0 = off)")
         for opt in (PipelineOptions.MICROBATCH_SIZE,

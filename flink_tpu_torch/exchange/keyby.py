@@ -26,6 +26,9 @@ straight into row j of the owners' receive blocks (one allocation for
 all of them), so the exchange is one launch a source block and no copy,
 with the same received layout and the same byte count.
 
+A job across processes runs the same exchange over each process's own
+blocks, ``intra_slice_exchange``.
+
 A record past its bucket's capacity is dropped and counted, never
 silently; the operator splits a batch on the host so that no bucket
 overflows (``WindowOperator._split_for_exchange``).
@@ -157,9 +160,25 @@ def _exchange_one_device(cells, payload, device, capacity, spd, ring):
              for d in range(n)], overflow, n * (n - 1) * row)
 
 
-def intra_slice_exchange(*args, **kwargs):
-    """The ICI leg of the hybrid ICI×DCN topology: still to port."""
-    raise NotImplementedError(
-        "intra_slice_exchange belongs to the hybrid mesh across processes "
-        "(cluster.num-processes > 1), still to port: ROADMAP.md queue 1 "
-        "item 9")
+def intra_slice_exchange(cells: Sequence[torch.Tensor],
+                         payload: Sequence[Optional[torch.Tensor]], *,
+                         devices: Sequence[torch.device], capacity: int,
+                         spd: int, ring: int
+                         ) -> Tuple[List[Block], List[torch.Tensor], int]:
+    """The keyBy exchange of one process of a job across processes: the
+    reference's ``keyby_exchange`` named over the inner axis of its
+    hybrid mesh, so records move among the blocks of this process only.
+    The window operator on a ``HybridMeshPlan`` picks it as its
+    all-to-all and passes the plan's blocks as ``devices``; records of
+    other processes crossed on the host before they reached the blocks
+    (``exchange/dcn.py``, routed by the same ``hybrid_route``). The cells
+    are local to this process's blocks already (the key directory counts
+    slots from the span's first shard), so nothing is rebased. On blocks
+    of one card it is one ``bucket_records_into`` launch a source block
+    and no copy; the launches run inside a profiler range of this
+    function's name."""
+    from torch.autograd.profiler import record_function
+
+    with record_function("intra_slice_exchange"):
+        return keyby_exchange(cells, payload, devices=devices,
+                              capacity=capacity, spd=spd, ring=ring)

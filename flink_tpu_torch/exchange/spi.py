@@ -2,6 +2,8 @@
 
 - ``all-to-all`` (default): every block's buckets straight to their
   owners (``keyby.all_to_all_records``).
+  On a ``HybridMeshPlan`` (one process of a job across processes) the
+  window operator takes ``keyby.intra_slice_exchange`` in its place.
 - ``ring``: N hops around the ring of blocks: at hop s each block holds
   the buckets that started at block ``(my - s) % N``, keeps the row
   addressed to it, and passes the whole bucket block on to the next
@@ -30,7 +32,7 @@ import torch
 from flink_tpu_torch.device import on_device
 from flink_tpu_torch.exchange.keyby import (
     Block, _copy_row, _flatten, _receive_buffers, bucket_by_destination,
-    keyby_exchange)
+    intra_slice_exchange, keyby_exchange)
 
 ShuffleFn = Callable[..., Tuple[List[Block], List[torch.Tensor], int]]
 
@@ -86,7 +88,7 @@ _IMPLS: Dict[str, ShuffleFn] = {
 def takes_split_bytes(fn: ShuffleFn) -> bool:
     """Whether ``fn`` takes a source block's split upload bytes as they
     are (the built-ins); a registered shuffle takes flat cells."""
-    return fn in (all_to_all_shuffle, ring_shuffle)
+    return fn in (all_to_all_shuffle, ring_shuffle, intra_slice_exchange)
 
 
 def get_shuffle(name: str) -> ShuffleFn:

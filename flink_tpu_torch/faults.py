@@ -41,10 +41,13 @@ The port's points (``KNOWN_FAULT_POINTS``)::
     checkpoint.upload                                      checkpoint/coordinator.py
     supervisor.restart                                     runtime/supervisor.py
     host.pool.task                                         parallel/hostpool.py
+    dcn.accept / dcn.send / dcn.send.partial / dcn.recv    exchange/dcn.py
+    dcn.frame.encode                                       exchange/frames.py
+    dcn.overlap.consume                                    runtime/driver.py
 
-The reference's other points (RPC, DCN, the log tier, sessions, HA,
-rescale, the LSM tier) come with the modules that fire them
-(ROADMAP.md queue 1 items 4.5 to 10).
+The reference's other points (RPC, the log tier, sessions, HA, rescale,
+the LSM tier) come with the modules that fire them (ROADMAP.md queue 1
+items 4.5 to 10).
 """
 from __future__ import annotations
 
@@ -75,6 +78,12 @@ KNOWN_FAULT_POINTS = frozenset((
     "checkpoint.upload",
     "supervisor.restart",
     "host.pool.task",
+    "dcn.accept",
+    "dcn.send",
+    "dcn.send.partial",
+    "dcn.recv",
+    "dcn.frame.encode",
+    "dcn.overlap.consume",
 ))
 
 # process-global fault/recovery metrics — chaos tests assert every

@@ -1,7 +1,9 @@
 """Lower the transformation DAG to the plan the driver walks per batch:
 source → chain (fused host map, filter and flat-map functions) → window,
 element-path window, count window, session window, windowAll or
-windowed join → chain → sink, with union nodes merging streams. KeyBy
+windowed join → chain → sink, with union nodes merging streams and
+partition nodes (``rebalance`` and the like) as pass-through exchange
+boundaries. KeyBy
 folds into the stateful node that consumes it; a key function becomes a
 chain function that writes the derived key column. A join node records
 which upstream node feeds its left and its right input (``left_input``,
@@ -21,6 +23,7 @@ from flink_tpu_torch.graph.transformations import (
     EvictingWindowTransformation,
     KeyByTransformation,
     MapTransformation,
+    PartitionTransformation,
     SessionAggregateTransformation,
     SinkTransformation,
     SourceTransformation,
@@ -36,8 +39,8 @@ from flink_tpu_torch.time.watermarks import WatermarkStrategy
 @dataclasses.dataclass
 class ExecNode:
     id: int
-    # source | chain | union | window | evicting_window | count_window |
-    # session | window_all | join | sink
+    # source | chain | union | partition | window | evicting_window |
+    # count_window | session | window_all | join | sink
     kind: str
     downstream: List[int] = dataclasses.field(default_factory=list)
     source: Any = None
@@ -49,6 +52,8 @@ class ExecNode:
     # join: the upstream node of each input edge
     left_input: Optional[int] = None
     right_input: Optional[int] = None
+    # partition: the non-keyed redistribution strategy
+    partition_strategy: Optional[str] = None
     # the fired rows' schema (field -> numpy dtype name) where it is a
     # plan fact, else None
     out_schema: Optional[Dict[str, str]] = None
@@ -157,6 +162,11 @@ def compile_job(transforms: Sequence[Transformation],
                          left_input=lup, right_input=rup)
             nodes[lup].downstream.append(n.id)
             nodes[rup].downstream.append(n.id)
+        elif isinstance(t, PartitionTransformation):
+            # an exchange boundary: always a node of its own
+            up = node_for(t.inputs[0])
+            n = new_node("partition", t.name, partition_strategy=t.strategy)
+            nodes[up].downstream.append(n.id)
         elif isinstance(t, SinkTransformation):
             up = node_for(t.inputs[0])
             n = new_node("sink", t.name, sink=t.sink)

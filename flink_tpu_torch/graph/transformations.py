@@ -128,6 +128,16 @@ class SessionAggregateTransformation(Transformation):
 
 
 @dataclasses.dataclass(eq=False)
+class PartitionTransformation(Transformation):
+    """Non-keyed redistribution: ``strategy`` is one of
+    rebalance|rescale|shuffle|broadcast|global|forward, lowered to a
+    node of its own (an exchange boundary); the subtask assignment lives
+    in ``exchange/partitioners.py``."""
+
+    strategy: str = "rebalance"
+
+
+@dataclasses.dataclass(eq=False)
 class SinkTransformation(Transformation):
     sink: Any = None
 

@@ -3,7 +3,8 @@ window, element-path window, count-window, session, windowAll and
 windowed-join operators are ported; the state backend (``hbm`` or
 ``spill``), the drop policy, the driver's host pool and, for a keyed
 window over a mesh of device blocks, the mesh plan and its exchange's
-capacity and pattern reach them through the context."""
+capacity and pattern, and across processes the process's span of the
+key shards, reach them through the context."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,6 +41,9 @@ class OperatorBuildContext:
     # store's tree-fold floor (host.fold-chunk-records)
     host_pool: Optional[Any] = None
     fold_chunk_records: Optional[int] = None
+    # a job across processes: this process's contiguous span of the key
+    # shards (None = every shard)
+    shard_range: Optional[Any] = None
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
@@ -63,6 +67,7 @@ def _window_factory(node, ctx: OperatorBuildContext):
         readiness=ctx.readiness,
         host_pool=ctx.host_pool,
         fold_chunk_records=ctx.fold_chunk_records,
+        shard_range=ctx.shard_range,
     )
     op.allow_drops = ctx.allow_drops
     return op

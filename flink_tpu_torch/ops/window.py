@@ -97,7 +97,14 @@ gathered buffer on the home device, and ``topn_select_given`` on every
 block against that buffer (each select works out the global k-th
 itself) into that block's own emit ring, which the drain reads in block
 order. Purge and growth run on every
-block. Snapshots hold the blocks end to end (the reference's global row
+block. Across processes (``shard_range``, this process's span) the key
+directory keeps the global shard space but owns only this process's
+span: slot ids count from the span's first shard, so the cells are
+already local to the process's blocks, and a key outside the span (a
+routing error) fails the job, or with ``state.allow-drops`` is dropped
+and counted; the spill store never takes it. On a hybrid plan the
+all-to-all exchange is ``keyby.intra_slice_exchange`` over the process's
+own blocks. Snapshots hold the blocks end to end (the reference's global row
 layout) and restore across block counts.
 """
 from __future__ import annotations
@@ -116,14 +123,17 @@ from flink_tpu_torch import native_codec as nc
 from flink_tpu_torch.api.windowing import WindowAssigner
 from flink_tpu_torch.config import READINESS_VALUES, PipelineOptions
 from flink_tpu_torch.device import on_device, resolve_device
-from flink_tpu_torch.exchange.spi import get_shuffle, takes_split_bytes
+from flink_tpu_torch.exchange.keyby import intra_slice_exchange
+from flink_tpu_torch.exchange.spi import (
+    all_to_all_shuffle, get_shuffle, takes_split_bytes)
 from flink_tpu_torch.kernels import devgen_kernels as dk
 from flink_tpu_torch.kernels import fused_kernels as fk
 from flink_tpu_torch.kernels import lane_kernels as lk
 from flink_tpu_torch.kernels import topn_lanes_kernels as tk
 from flink_tpu_torch.kernels import window_kernels as wk
 from flink_tpu_torch.ops.aggregates import LaneAggregate, probe_finalize
-from flink_tpu_torch.parallel.mesh import row_to_slot, slot_to_row
+from flink_tpu_torch.parallel.mesh import (
+    HybridMeshPlan, row_to_slot, slot_to_row)
 from flink_tpu_torch.records import device_cast
 from flink_tpu_torch.state.keyed import (
     KeyDirectory, PaneState, PaneStateLayout, account_full_drop, init_state)
@@ -559,6 +569,7 @@ class WindowOperator:
         readiness: str = PipelineOptions.READINESS.default,
         host_pool: Optional[Any] = None,
         fold_chunk_records: Optional[int] = None,
+        shard_range: Optional[Tuple[int, int]] = None,
     ) -> None:
         # processing-time mode: records are stamped with the operator's
         # clock at ingest and fires ride advance_processing_time — the
@@ -623,8 +634,24 @@ class WindowOperator:
                     "state.backend='spill' on a device mesh is still to "
                     "port: ROADMAP.md queue 1 item 9.2")
             self._shuffle = get_shuffle(exchange_impl)
-            num_shards = mesh_plan.num_shards
+            if (self._shuffle is all_to_all_shuffle
+                    and isinstance(mesh_plan, HybridMeshPlan)):
+                # one process of a job across processes: the exchange
+                # among this process's own blocks
+                self._shuffle = intra_slice_exchange
             slots_per_shard = mesh_plan.slots_per_shard
+            if shard_range is None:
+                # one process: the directory covers every shard, each
+                # block a contiguous range of its rows
+                num_shards = mesh_plan.num_shards
+            elif shard_range[1] - shard_range[0] != mesh_plan.num_shards:
+                # across processes the local blocks span exactly this
+                # process's shards; the directory keeps the global space
+                # so a misrouted key is caught (-1)
+                raise ValueError(
+                    f"local mesh covers {mesh_plan.num_shards} shards "
+                    f"but this process's range {shard_range} spans "
+                    f"{shard_range[1] - shard_range[0]}")
             self._devices = [resolve_device(d) for d in mesh_plan.devices]
         else:
             self._devices = [resolve_device(device)]
@@ -634,7 +661,8 @@ class WindowOperator:
         self.plan = WindowPlan.plan(
             assigner, allowed_lateness_ms=allowed_lateness_ms,
             max_out_of_orderness_ms=max_out_of_orderness_ms)
-        self.directory = KeyDirectory(num_shards, slots_per_shard)
+        self.directory = KeyDirectory(num_shards, slots_per_shard,
+                                      shard_range)
         self.layout = PaneStateLayout(
             slots=(mesh_plan.slots_per_device if mesh_plan is not None
                    else self.directory.local_slots),
@@ -2291,7 +2319,8 @@ class WindowOperator:
             for k in names)) for b, dev in enumerate(self._devices)]
         self.directory = KeyDirectory.restore(
             self.directory.num_shards, self.directory.slots_per_shard,
-            snap["directory"])
+            snap["directory"],
+            (self.directory.shard_lo, self.directory.shard_hi))
         self.watermark = snap["watermark"]
         self._cleared_below = snap["cleared_below"]
         self._fired_below_end = snap["fired_below_end"]

@@ -12,8 +12,10 @@ The plan is single-controller, as the reference's is (one process over
 ``jax.devices()``): it holds ``torch.device``s, and one device may stand
 in the list several times. On the CPU the tests build their mesh that
 way, as the reference's tests force eight virtual CPU devices; one card
-can hold a mesh of several blocks the same way. The hybrid plan across
-processes (the DCN tier) is still to port.
+can hold a mesh of several blocks the same way. A job across processes
+gives each process a ``HybridMeshPlan`` over its own blocks and its span
+of the key shards; records cross between processes on the host
+(``exchange/dcn.py``) before they reach the blocks.
 """
 from __future__ import annotations
 
@@ -94,19 +96,61 @@ def make_mesh_plan(num_shards: int, slots_per_shard: int,
                     slots_per_shard=slots_per_shard)
 
 
+@dataclasses.dataclass(frozen=True)
 class HybridMeshPlan(MeshPlan):
-    """The ICI×DCN plan of one process of a cross-host job: still to
-    port."""
+    """The plan of one process of a job across processes: the blocks of
+    this process only, over its contiguous span of the global key shards
+    (the reference's ICI x DCN hybrid mesh: the outer axis across
+    processes, the inner axis over the process's own devices).
+    ``num_shards`` is this process's local span, so the operator's
+    contract is that of a plain ``MeshPlan``; the global fields give the
+    fleet-level shard math that the cross-process router shares
+    (``exchange/partitioners.hybrid_route``). Records reach this process
+    already routed; the window operator on this plan runs the keyBy
+    exchange among its blocks as ``exchange/keyby.intra_slice_exchange``
+    over the plan's devices, so no record leaves the process there."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "the hybrid mesh across processes (cluster.num-processes > 1) "
-            "is still to port: ROADMAP.md queue 1 item 9 (exchange/dcn.py)")
+    n_processes: int = 1
+    process_id: int = 0
+
+    @property
+    def global_num_shards(self) -> int:
+        return self.num_shards * self.n_processes
+
+    @property
+    def shard_lo(self) -> int:
+        """The first global shard this process owns."""
+        return self.process_id * self.num_shards
+
+    def owner(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(B,) keys → (process, local block): the one routing truth."""
+        from flink_tpu_torch.exchange.partitioners import hybrid_route
+
+        return hybrid_route(keys, self.global_num_shards,
+                            self.n_processes, self.n_devices)
 
 
 def make_hybrid_mesh_plan(global_num_shards: int, slots_per_shard: int,
                           n_processes: int, process_id: int,
-                          devices=None) -> HybridMeshPlan:
-    raise NotImplementedError(
-        "the hybrid mesh across processes (cluster.num-processes > 1) is "
-        "still to port: ROADMAP.md queue 1 item 9 (exchange/dcn.py)")
+                          devices: Sequence["str | torch.device"]
+                          ) -> HybridMeshPlan:
+    """Process ``process_id``'s plan over ``devices`` (in order; a device
+    may repeat), owning the global shards ``[pid * spp, (pid + 1) *
+    spp)``, ``spp = global_num_shards / n_processes``."""
+    devs = tuple(torch.device(d) for d in devices)
+    n = len(devs)
+    if n < 1:
+        raise ValueError("a mesh needs at least one device")
+    if global_num_shards % n_processes:
+        raise ValueError(
+            f"state.num-key-shards ({global_num_shards}) must divide by "
+            f"cluster.num-processes ({n_processes}) — shards are the "
+            "rescale unit (the key-group contract)")
+    local_shards = global_num_shards // n_processes
+    if local_shards % n:
+        raise ValueError(
+            f"per-process shard span ({local_shards}) must be a multiple "
+            f"of the local device count ({n})")
+    return HybridMeshPlan(devices=devs, num_shards=local_shards,
+                          slots_per_shard=slots_per_shard,
+                          n_processes=n_processes, process_id=process_id)

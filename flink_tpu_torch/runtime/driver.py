@@ -72,13 +72,30 @@ positions, watermarks, operator state and the staged epochs it proved.
 A failed attempt abandons its in-flight checkpoint, drops its sinks'
 uncommitted rows and closes its feeder threads;
 ``runtime/supervisor.py`` restarts it. Savepoints are
-``checkpoint_now(savepoint=True)``. The cross-host exchange, batch mode,
-rescaling and the debloater are not ported (ROADMAP.md); the
-configuration check and the driver refuse confs that ask for them.
+``checkpoint_now(savepoint=True)``.
+
+A job across processes (``cluster.num-processes`` N > 1) runs this
+program in every process with its ``cluster.process-id``: the process
+reads a strided share of the source's splits, routes each batch's
+records by key to the process that owns their shard span
+(``partitioners.hybrid_route``), and the per-step rendezvous of
+``exchange/dcn.py`` hands it its share and the fleet's consensus: the
+global watermark (the min of the processes'), termination, and the
+checkpoint decision of process 0's clock, so every process snapshots at
+the same step (into its own ``<job>-p<pid>`` directory) and a checkpoint
+commits once every process holds it. A restore negotiates the newest id
+every process holds. The loop overlaps one step's exchange with the
+next by default (``cluster.dcn-overlap``). A ``partition`` node
+(``rebalance`` and the like) passes its batches through at this
+parallelism of 1 and advances its partitioner, whose state rides the
+checkpoint. Batch mode, rescaling and the debloater are not ported
+(ROADMAP.md); the configuration check and the driver refuse confs that
+ask for them.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -90,6 +107,8 @@ from flink_tpu_torch.config import (
     CheckpointingOptions, ClusterOptions, Configuration, HostOptions,
     MemoryOptions, MetricsOptions, PipelineOptions, StateOptions)
 from flink_tpu_torch.device import resolve_device
+from flink_tpu_torch.exchange.partitioners import (
+    hybrid_route, make_partitioner)
 from flink_tpu_torch.graph.compiler import ExecutionPlan
 from flink_tpu_torch.time.watermarks import LONG_MIN, make_generator
 
@@ -103,8 +122,9 @@ _EVENT_TIME = ("window", "evicting_window", "session", "window_all", "join")
 
 
 class Driver:
-    """Single-process execution of a lowered plan on one device, or with
-    ``mesh_plan`` its keyed windows over a mesh of device blocks."""
+    """Execution of a lowered plan on one device, or with ``mesh_plan``
+    its keyed windows over a mesh of device blocks; one process of a job
+    across processes with ``cluster.num-processes`` > 1."""
 
     def __init__(self, plan: ExecutionPlan, config: Configuration,
                  device="cuda", mesh_plan=None) -> None:
@@ -148,6 +168,23 @@ class Driver:
         self._lat_hist = g.histogram("emit_latency_ms")
         self._wm_lag = g.gauge("watermark_lag_ms")
         self.prof: Dict[str, float] = collections.defaultdict(float)
+        # a job across processes: this process's id among nproc, its
+        # exchange endpoint while a run holds one, and the exchange's
+        # figures (rendezvous wait a step, records routed and sent away)
+        self._nproc = int(config.get(ClusterOptions.NUM_PROCESSES))
+        self._pid = (int(config.get(ClusterOptions.PROCESS_ID))
+                     if self._nproc > 1 else 0)
+        self._dcn = None
+        self._dcn_stats = {"records_routed": 0, "records_sent": 0,
+                           "bytes_sent": 0}
+        if self._nproc > 1:
+            dg = self.registry.group("dcn")
+            st = self._dcn_stats
+            self._dcn_wait = dg.histogram("wait_ms")
+            for k in st:
+                dg.gauge(k, lambda k=k: st[k])
+        # the DataStream partitioners' cursors and streams, by plan node
+        self._partitioners: Dict[int, Any] = {}
         # (node id, lazy fire, the advance's wall time)
         self._pending_emits: List[Tuple[int, Any, float]] = []
         self._sub_batches = int(config.get(PipelineOptions.SUB_BATCHES))
@@ -250,7 +287,8 @@ class Driver:
                 PipelineOptions.EXCHANGE_CAPACITY)) or None,
             exchange_impl=str(self.config.get(ClusterOptions.EXCHANGE_IMPL)),
             host_pool=self.host_pool,
-            fold_chunk_records=self._fold_chunk)
+            fold_chunk_records=self._fold_chunk,
+            shard_range=self._shard_span())
         factories = {"window": _window_factory,
                      "evicting_window": _evicting_window_factory,
                      "session": _session_factory,
@@ -266,14 +304,26 @@ class Driver:
                         "supported; run without cluster.mesh-devices")
                 self._ops[n.id] = _count_window_factory(n, ctx)
 
+    def _shard_span(self) -> Optional[Tuple[int, int]]:
+        """This process's contiguous span of the key shards in a job
+        across processes (records reach it already routed); None in one
+        process."""
+        if self._nproc <= 1:
+            return None
+        spp = int(self.config.get(StateOptions.NUM_KEY_SHARDS)) // self._nproc
+        return (self._pid * spp, (self._pid + 1) * spp)
+
     def _maybe_chain_device_source(self, sid: int, n) -> None:
         """Chain a device-made source into its consuming window operator
         when it is the source's only consumer, keyed on the source's key
         field, and the operator can host it (its own gate). K > 1
-        subdivides the source first, when it can re-slice itself."""
+        subdivides the source first, when it can re-slice itself. Never
+        across processes: there records cross between processes on the
+        host."""
         src = n.source
         if (not isinstance(src, DeviceGeneratorSource)
-                or src.device_keys_ts is None or len(n.downstream) != 1):
+                or src.device_keys_ts is None or len(n.downstream) != 1
+                or self._dcn is not None):
             return
         wid = n.downstream[0]
         wn = self.plan.node(wid)
@@ -344,6 +394,11 @@ class Driver:
         restore = self.config.get(CheckpointingOptions.RESTORE)
         if interval <= 0 and not restore:
             return None
+        if self._nproc > 1:
+            # each process snapshots its span under a directory of its
+            # own; the ids align because the decision rides the
+            # rendezvous
+            job_name = f"{job_name}-p{self._pid}"
         storage = FsCheckpointStorage(
             self.config.get(CheckpointingOptions.DIRECTORY),
             job_id=job_name.replace("/", "_"),
@@ -387,9 +442,8 @@ class Driver:
             "out_wm": dict(self._out_wm),
             "operators": ops,
             "op_versions": versions,
-            # the DataStream partitioners come with ROADMAP.md queue 1
-            # item 9.3; none is stateful here
-            "partitioners": {},
+            "partitioners": {nid: p.snapshot()
+                             for nid, p in self._partitioners.items()},
             # staged, uncommitted 2PC epochs: prepare_commit ran before
             # this snapshot, so the epoch it covers rides inside it
             "sinks": {
@@ -403,9 +457,13 @@ class Driver:
         }
 
     def _rescale_identity(self) -> Dict[str, Any]:
+        """The key-group identity of the writing process, which a restore
+        checks against its own."""
         num_shards = int(self.config.get(StateOptions.NUM_KEY_SHARDS))
-        return {"nproc": 1, "pid": 0, "num_shards": num_shards,
-                "shard_range": [0, num_shards]}
+        spp = num_shards // max(self._nproc, 1)
+        return {"nproc": self._nproc, "pid": self._pid,
+                "num_shards": num_shards,
+                "shard_range": [self._pid * spp, (self._pid + 1) * spp]}
 
     def _load_restore_path(self, path: str) -> Dict[str, Any]:
         """An explicit restore path, written by a process of the same
@@ -414,14 +472,14 @@ class Driver:
 
         payload = FsCheckpointStorage.load(path)
         ident = payload.get("rescale")
-        if ident is not None and (int(ident.get("nproc", 1)) != 1
-                                  or int(ident.get("pid", 0)) != 0):
+        if ident is not None and (int(ident.get("nproc", 1)) != self._nproc
+                                  or int(ident.get("pid", 0)) != self._pid):
             raise NotImplementedError(
                 f"checkpoint {path} was written by process "
                 f"{ident.get('pid')} of {ident.get('nproc')}; restoring it "
-                "into one process merges key-group ranges "
-                "(checkpoint/repartition.py), which is still to port: "
-                "ROADMAP.md queue 1 item 6")
+                f"into process {self._pid} of {self._nproc} re-splits "
+                "key-group ranges (checkpoint/repartition.py), which is "
+                "still to port: ROADMAP.md queue 1 item 6")
         return payload
 
     def _restore(self, payload: Dict[str, Any]) -> None:
@@ -435,13 +493,13 @@ class Driver:
                 g.restore(st)
         self._max_ts.update(payload.get("max_ts", {}))
         self._out_wm.update(payload.get("out_wm", {}))
-        if payload.get("partitioners"):
-            raise NotImplementedError(
-                "checkpoint carries DataStream partitioner state; the "
-                "partitioners are still to port: ROADMAP.md queue 1 "
-                "item 9.3")
         for nid, snap in payload["operators"].items():
             self._ops[nid].restore_state(snap)
+        for nid, psnap in payload.get("partitioners", {}).items():
+            p = make_partitioner(self.plan.node(nid).partition_strategy,
+                                 seed=nid)
+            p.restore(psnap)
+            self._partitioners[nid] = p
         # adopt the checkpoint's operator versions and make it the reuse
         # base: an operator untouched after the restore hardlinks its
         # blob at the next checkpoint; a blob keeps its bytes, so a base
@@ -617,6 +675,11 @@ class Driver:
             self._abort_sinks()
             raise
         finally:
+            # an endpoint alive past its attempt would hold a fixed
+            # cluster.dcn-port: the next attempt's bind would fail
+            if self._dcn is not None:
+                self._dcn.close()
+                self._dcn = None
             # feeder threads end with the attempt, before a restart
             # reopens the splits at their positions
             for its in self._srcs.values():
@@ -652,10 +715,17 @@ class Driver:
             self._max_ts[sid] = LONG_MIN
             self._positions[sid] = {i: 0 for i in
                                     range(len(n.source.splits()))}
+        # across processes: the exchange comes up before the restore,
+        # whose checkpoint id the processes negotiate (a crash can leave
+        # one process a checkpoint ahead)
+        if self._nproc > 1:
+            self._dcn = self._dcn_connect()
         self._restored_sub_factors: Dict[int, int] = {}
         if restore:
             if restore == "latest":
-                payload = self._coordinator.restore_latest()
+                payload = (self._dcn_negotiated_restore()
+                           if self._dcn is not None
+                           else self._coordinator.restore_latest())
             else:
                 payload = self._load_restore_path(restore)
                 self._coordinator.resume_numbering(payload)
@@ -679,7 +749,9 @@ class Driver:
                     self._positions[sid][i] = _rebase_position(
                         int(pos), old_f, new_f, sid=sid, split_ix=i)
             srcs[sid] = {}
-            for i, split in enumerate(n.source.splits()):
+            splits = n.source.splits()
+            for i in self._owned_splits(len(splits)):
+                split = splits[i]
                 start = self._positions[sid].get(i, 0)
                 if sid in self._dev_chains:
                     # no records and no feeder thread: markers only
@@ -691,6 +763,13 @@ class Driver:
                                 if self._prefetch > 0 else iter(it))
         last_chk = time.time()
         active = {sid: sorted(its) for sid, its in srcs.items()}
+        if self._dcn is not None:
+            try:
+                self._ingest_loop_dcn(srcs, interval_ms)
+            finally:
+                self._dcn.close()
+                self._dcn = None
+            active = {}
         while any(active.values()):
             for sid, alive in active.items():
                 for split_ix in list(alive):
@@ -754,6 +833,301 @@ class Driver:
             if n.kind == "sink":
                 n.sink.close()
         return JobResult(job_name, self._final_metrics(t_start))
+
+    def _owned_splits(self, n_splits: int) -> List[int]:
+        """The split indices this process reads: all of them in one
+        process; across processes a strided share, ``pid, pid + n,
+        ...``, so the processes divide the source without overlap."""
+        if self._nproc > 1:
+            return list(range(self._pid, n_splits, self._nproc))
+        return list(range(n_splits))
+
+    # -- the cross-process data plane ---------------------------------------
+    def _dcn_connect(self):
+        """Build and connect this process's exchange endpoint, after the
+        v1 topology checks: one source, one keyed window, the shards
+        divisible by the processes, no allowed lateness."""
+        from flink_tpu_torch.exchange.dcn import DcnExchange
+
+        cfg = self.config
+        n = self._nproc
+        peers = [p.strip() for p in
+                 str(cfg.get(ClusterOptions.DCN_PEERS)).split(",")
+                 if p.strip()]
+        if len(peers) != n:
+            raise ValueError(
+                f"cluster.dcn-peers must list {n} host:port entries, got "
+                f"{len(peers)} (the coordinator rendezvous, "
+                "cluster.dcn-rendezvous, is ROADMAP.md queue 1 item 10)")
+        if len(self.plan.sources) != 1:
+            raise NotImplementedError(
+                "cross-process jobs support exactly one source in v1")
+        keyed = [nd for nd in self.plan.nodes.values()
+                 if nd.kind == "window"]
+        if len(keyed) != 1:
+            raise NotImplementedError(
+                "cross-process jobs support exactly one keyed window "
+                "stage in v1")
+        num_shards = int(cfg.get(StateOptions.NUM_KEY_SHARDS))
+        if num_shards % n:
+            raise ValueError(
+                f"state.num-key-shards ({num_shards}) must divide by "
+                f"cluster.num-processes ({n}) — shards are the rescale "
+                "unit (the key-group contract)")
+        if keyed[0].window_transform.allowed_lateness_ms:
+            raise NotImplementedError(
+                "allowed lateness across processes needs a refire "
+                "consensus the v1 exchange does not carry")
+        bind = str(cfg.get(ClusterOptions.DCN_BIND)).strip()
+        if bind == "auto":
+            # widen past loopback only when a peer is on another host
+            hosts = [p.rpartition(":")[0].strip() for p in peers]
+            bind = ("0.0.0.0" if any(h and h not in ("127.0.0.1",
+                                                     "localhost")
+                                     for h in hosts) else "127.0.0.1")
+        # attempt 1: the fencing epoch a coordinator mints per attempt
+        # (cluster.attempt) comes with ROADMAP.md queue 1 item 10; the JAX
+        # package's static-peers default is the same 1
+        ex = DcnExchange(self._pid, n,
+                         listen_port=int(cfg.get(ClusterOptions.DCN_PORT)),
+                         bind_host=bind, attempt=1,
+                         secret=str(cfg.get(ClusterOptions.DCN_SECRET)
+                                    or "") or None,
+                         io_threads=int(cfg.get(ClusterOptions.DCN_IO_THREADS)),
+                         buffer_bytes=int(cfg.get(
+                             ClusterOptions.DCN_BUFFER_BYTES)))
+        try:
+            ex.connect(peers)
+        except BaseException:
+            # a half-connected endpoint must not outlive the attempt: its
+            # listener would hold a fixed cluster.dcn-port
+            ex.close()
+            raise
+        self._dcn_key_field = keyed[0].key_field
+        self._dcn_shards = num_shards
+        return ex
+
+    def _dcn_negotiated_restore(self) -> Optional[Dict[str, Any]]:
+        """Agree on one checkpoint id across the processes (the least of
+        every process's latest) and load it; None when a process has none:
+        everyone then replays from the start together."""
+        from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+        latest = self._coordinator.storage.latest()
+        my_id = latest.checkpoint_id if latest is not None else -1
+        _, metas = self._dcn.exchange({}, {"latest": int(my_id)})
+        common = min(int(m["latest"]) for m in metas)
+        if common < 0:
+            return None
+        # the last match: list_complete sorts by (id, epoch)
+        match = [h for h in self._coordinator.storage.list_complete()
+                 if h.checkpoint_id == common and not h.is_savepoint]
+        if not match:
+            raise RuntimeError(
+                f"negotiated checkpoint id {common} is missing locally — "
+                "retention removed it; raise "
+                "execution.checkpointing.num-retained")
+        payload = FsCheckpointStorage.load(match[-1])
+        self._coordinator.resume_numbering(payload)
+        return payload
+
+    def _ingest_loop_dcn(self, srcs, interval_ms: int) -> None:
+        """The cross-process step loop: ingest a local batch, route its
+        records to the processes that own their shards, rendezvous (the
+        step barrier, carrying the watermark, termination and checkpoint
+        consensus), then run the local pipeline on this process's share.
+
+        Step overlap (``cluster.dcn-overlap``, default on): step k+1's
+        frames go out before step k's are consumed, so one step's
+        exchange is always in flight while the card folds the previous
+        share and the host routes the next. The consensus is untouched
+        (metas are the same on every process, so every process makes the
+        same checkpoint and termination decision one step later), and a
+        checkpoint barrier first drains the step in flight
+        (``cluster.dcn-overlap-drain``), so the cut covers every routed
+        record.
+
+        ``pipeline.sub-batches`` K > 1 pushes this process's merged share
+        as K contiguous slices (``_push_dcn_merged``); the global
+        watermark still advances once a rendezvous, so committed rows
+        are the K = 1 run's."""
+        cfg = self.config
+        n, pid = self._nproc, self._pid
+        key_field = self._dcn_key_field
+        (sid,) = list(self.plan.sources)
+        d = srcs[sid]
+        order = sorted(d)
+        src = self.plan.node(sid).source
+        ex = self._dcn
+        overlap = (bool(cfg.get(ClusterOptions.DCN_OVERLAP))
+                   and ex.supports_async)
+        drain_at_barrier = bool(cfg.get(ClusterOptions.DCN_OVERLAP_DRAIN))
+        st = _DcnStepState(last_chk=time.time())
+        pending_x = None    # the one overlapped step in flight
+        # without the drain, the in-flight step's meta was dispatched
+        # before the snapshot it rode behind: its ckpt flag is stale and
+        # is absorbed once (every process absorbs the same one)
+        stale_ckpt = False
+        while True:
+            batch = batch_ix = None
+            while order:
+                ix = order[0]
+                t0 = time.perf_counter()
+                nxt = next(d[ix], None)
+                self.prof["source_next"] += time.perf_counter() - t0
+                if nxt is None:
+                    order.pop(0)
+                    continue
+                batch, batch_ix = nxt, ix
+                self._positions[sid][ix] = src.position_after(
+                    self._positions[sid][ix], nxt[0], nxt[1])
+                break
+            shares: Dict[int, Any] = {}
+            if batch is not None:
+                t0 = time.perf_counter()
+                data, ts = batch
+                ts = np.asarray(ts, np.int64)
+                if len(ts):
+                    self._on_source_ts(sid, batch_ix, int(ts.max()))
+                keys = np.asarray(data[key_field], np.int64)
+                # the process of each record by the one routing truth the
+                # hybrid mesh plan shares: records of this process never
+                # touch the wire
+                dest, _ = hybrid_route(keys, self._dcn_shards, n)
+                for j in range(n):
+                    m = dest == j
+                    if m.any():
+                        shares[j] = {"data": {k: np.asarray(v)[m]
+                                              for k, v in data.items()},
+                                     "ts": ts[m]}
+                self._dcn_stats["records_routed"] += len(ts)
+                self._dcn_stats["records_sent"] += int(
+                    np.count_nonzero(dest != pid))
+                self.prof["dcn_route"] += time.perf_counter() - t0
+            local_wm = (min(self._wm_gens[sid][i].current() for i in order)
+                        if order else _FINAL)
+            want_ckpt = (pid == 0 and self._coordinator is not None
+                         and interval_ms > 0
+                         and (time.time() - st.last_chk) * 1000
+                         >= interval_ms)
+            # savepoint requests (the reference's "sp" flag) come with
+            # the control plane, ROADMAP.md queue 1 item 10
+            meta = {"wm": int(local_wm), "done": batch is None,
+                    "ckpt": bool(want_ckpt),
+                    # the id this process holds durably: a checkpoint
+                    # commits once every process has it (2PC phase 2)
+                    "persisted": int(st.persisted_id)}
+            h = ex.exchange_async(shares, meta)
+            if overlap and pending_x is None:
+                pending_x = h  # prime the double buffer
+                continue
+            target, pending_x = (pending_x, h) if overlap else (h, None)
+            all_done, ckpt_req = self._dcn_consume_step(
+                sid, target, st, deferred=overlap)
+            if stale_ckpt:
+                ckpt_req = stale_ckpt = False
+            if not (all_done or ckpt_req):
+                continue
+            if pending_x is not None and (all_done or drain_at_barrier):
+                # drain the step in flight so the cut (or the final
+                # barrier) covers its records; its flags are absorbed,
+                # the same on every process, except termination
+                done2, _ = self._dcn_consume_step(sid, pending_x, st,
+                                                  absorb=True, deferred=True)
+                all_done = all_done or done2
+                pending_x = None
+            if ckpt_req:
+                # process 0's clock decided and the flag rode the
+                # rendezvous: every process snapshots at this same step
+                # boundary, one consistent cut
+                if self._coordinator is not None and st.pending is None:
+                    t0 = time.perf_counter()
+                    st.pending = self._begin_checkpoint()
+                    self._ckpt_pending = st.pending
+                    t1 = time.perf_counter()
+                    st.pending.future.result()  # durable before the ack
+                    self.prof["checkpoint_freeze"] += t1 - t0
+                    self.prof["checkpoint_persist_wait"] += (
+                        time.perf_counter() - t1)
+                    st.pending_id = st.pending.checkpoint_id
+                    st.persisted_id = st.pending_id
+                st.last_chk = time.time()
+                stale_ckpt = pending_x is not None
+            if all_done:
+                if st.pending is not None:
+                    # end of input is the final barrier: every process
+                    # reached it, so the last cut is global
+                    st.pending.complete()
+                    self._ckpt_pending = None
+                return
+
+    def _dcn_consume_step(self, sid: int, handle, st: "_DcnStepState",
+                          absorb: bool = False, deferred: bool = False):
+        """Consume one rendezvous step: the barrier on the handle, this
+        process's merged share through the local pipeline, the global
+        watermark, and the 2PC commit of a checkpoint every process
+        holds. Returns (all done, checkpoint requested); ``absorb``
+        drops the checkpoint flag (a drained step rides the barrier that
+        drained it); ``deferred`` marks an overlapped consume, the one
+        place the ``dcn.overlap.consume`` fault point fires."""
+        if deferred:
+            from flink_tpu_torch import faults
+
+            faults.fire("dcn.overlap.consume", exc=ConnectionError)
+        t0 = time.perf_counter()
+        payloads, metas = handle.result()
+        self._dcn_wait.update((time.perf_counter() - t0) * 1000.0)
+        self._dcn_stats["bytes_sent"] = self._dcn.bytes_sent
+        parts = [p for p in payloads if p is not None and len(p["ts"])]
+        if parts:
+            md = {k: np.concatenate([p["data"][k] for p in parts])
+                  for k in parts[0]["data"]}
+            mts = np.concatenate([p["ts"] for p in parts])
+            self._push_dcn_merged(sid, md, mts)
+            self._throttle_ops()
+            self._eps_meter.mark(len(mts))
+        # the same global watermark on every process: the min of the
+        # piggybacked locals (an exhausted process reports _FINAL)
+        gwm = min(int(m["wm"]) for m in metas)
+        if gwm != _FINAL and gwm > self._out_wm[sid]:
+            self._out_wm[sid] = gwm
+        t3 = time.perf_counter()
+        self._propagate_watermarks()
+        self.prof["advance_wm"] += time.perf_counter() - t3
+        self._drain_emits(barrier=False)
+        if (st.pending is not None
+                and all(int(m.get("persisted", -1)) >= st.pending_id
+                        for m in metas)):
+            st.pending.complete()
+            self._ckpt_pending = None
+            st.pending = None
+        ckpt_req = (not absorb) and any(bool(m.get("ckpt")) for m in metas)
+        return all(bool(m["done"]) for m in metas), ckpt_req
+
+    def _push_dcn_merged(self, sid: int, md, mts: np.ndarray) -> None:
+        """This process's merged share downstream: one batch at K = 1, or
+        K contiguous slices with a watermark pass and a landed-fire
+        delivery between them at ``pipeline.sub-batches`` = K. The caller
+        applies the global watermark after the whole push, so late
+        classification and the committed rows do not change with K."""
+        t0 = time.perf_counter()
+        nrec = len(mts)
+        valid = np.ones(nrec, bool)
+        self.metrics["records_in"] += nrec
+        self.metrics["batches"] += 1
+        k = self._sub_batches
+        if k <= 1 or nrec <= k:
+            self._push_downstream(sid, (md, mts, valid))
+        else:
+            sub = -(-nrec // k)  # ragged tails allowed across processes
+            for lo in range(0, nrec, sub):
+                hi = min(lo + sub, nrec)
+                self._push_downstream(
+                    sid, ({kk: v[lo:hi] for kk, v in md.items()},
+                          mts[lo:hi], valid[lo:hi]))
+                self._propagate_watermarks()
+                self._drain_emits(barrier=False)
+        self.prof["push"] += time.perf_counter() - t0
 
     def _on_source_ts(self, sid: int, split_ix: int, ts_max: int) -> None:
         """One consumed batch's newest timestamp: the split's watermark
@@ -847,6 +1221,18 @@ class Driver:
                 data, ts, valid = fn(data, ts, valid)
             self._push_downstream(nid, (data, ts, valid))
         elif n.kind == "union":
+            self._push_downstream(nid, batch)
+        elif n.kind == "partition":
+            # one driver is parallelism 1: every strategy passes the batch
+            # through, and its cursor or random stream advances (the
+            # checkpointed state); the node id seeds a shuffle, so
+            # stacked shuffles do not correlate
+            part = self._partitioners.get(nid)
+            if part is None:
+                part = self._partitioners[nid] = make_partitioner(
+                    n.partition_strategy, seed=nid)
+            if not part.broadcast:
+                part.advance(len(ts), 1)
             self._push_downstream(nid, batch)
         elif n.kind == "window":
             keys = np.asarray(data[n.key_field], np.int64)
@@ -973,6 +1359,18 @@ class Driver:
         ts = np.asarray(out["window_end"], np.int64) - 1
         self._push_downstream(nid, (out, ts, np.ones(nrec, bool)))
         return True
+
+
+@dataclasses.dataclass
+class _DcnStepState:
+    """The cross-process loop's mutable state a run, threaded through
+    ``_dcn_consume_step`` so the overlapped and lockstep paths share one
+    consume."""
+
+    last_chk: float = 0.0
+    pending: Any = None     # persisted, not yet committed checkpoint
+    pending_id: int = -1
+    persisted_id: int = -1  # the newest id this process holds durably
 
 
 class _DevBatch:

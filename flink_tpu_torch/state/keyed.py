@@ -158,7 +158,11 @@ class _NumpyHashTable:
 
 
 class KeyDirectory:
-    """Host-side key → slot mapping, over all key shards of one device.
+    """Host-side key → slot mapping over a span of the key shards: all
+    of them, or with ``shard_range`` one process's contiguous span of a
+    job across processes (slot ids then count from the span's first
+    shard, and a key of a shard outside it gets -1: it was routed to the
+    wrong process).
 
     Batch lookups probe the C table (or its numpy form); only
     never-before-seen keys take the insert path. Slot ids are stable for
@@ -169,9 +173,11 @@ class KeyDirectory:
 
     FULL = -2  # sentinel: shard out of slots
 
-    def __init__(self, num_shards: int, slots_per_shard: int) -> None:
+    def __init__(self, num_shards: int, slots_per_shard: int,
+                 shard_range: Optional[Tuple[int, int]] = None) -> None:
         self.num_shards = num_shards
         self.slots_per_shard = slots_per_shard
+        self.shard_lo, self.shard_hi = shard_range or (0, num_shards)
         from flink_tpu_torch.native_codec import NativeHashTable
 
         self._table = NativeHashTable.create() or _NumpyHashTable()
@@ -181,11 +187,12 @@ class KeyDirectory:
 
     @property
     def local_slots(self) -> int:
-        return self.num_shards * self.slots_per_shard
+        return (self.shard_hi - self.shard_lo) * self.slots_per_shard
 
     def assign(self, keys: np.ndarray) -> np.ndarray:
-        """Map raw int64 keys → slot ids; FULL where the key's shard is
-        out of slots."""
+        """Map raw int64 keys → slot ids (relative to ``shard_lo``); FULL
+        where the key's shard is out of slots, -1 where it lies outside
+        this directory's span."""
         keys = np.asarray(keys, dtype=np.int64)
         slots, found = self._table.lookup_keys(keys)
         if not found.all():
@@ -232,6 +239,8 @@ class KeyDirectory:
         [0, n) allocate normally from what each shard has left."""
         if self.num_keys():
             raise ValueError("register_dense requires an empty directory")
+        if (self.shard_lo, self.shard_hi) != (0, self.num_shards):
+            raise ValueError("register_dense requires the full shard range")
         if n > self.local_slots:
             raise ValueError(
                 f"dense key domain {n} exceeds capacity {self.local_slots}")
@@ -250,9 +259,11 @@ class KeyDirectory:
         Python."""
         shards = (hashes % self.num_shards).astype(np.int64)
         out = np.full(len(keys), -1, dtype=np.int64)
-        if not len(keys):
+        inr = (shards >= self.shard_lo) & (shards < self.shard_hi)
+        if not inr.any():
             return out
-        sub = np.argsort(shards, kind="stable")
+        sub = np.nonzero(inr)[0]
+        sub = sub[np.argsort(shards[sub], kind="stable")]
         sh = shards[sub]
         # rank of each key within its equal-shard run
         starts = np.r_[0, np.nonzero(np.diff(sh))[0] + 1]
@@ -260,7 +271,7 @@ class KeyDirectory:
         ranks = np.arange(len(sh)) - np.repeat(starts, run_lens)
         local_ix = self._next_free[sh] + ranks
         full = local_ix >= self.slots_per_shard
-        slot = sh * self.slots_per_shard + local_ix
+        slot = (sh - self.shard_lo) * self.slots_per_shard + local_ix
         slot[full] = self.FULL
         np.add.at(self._next_free, sh[~full], 1)
         ok = slot[~full]
@@ -289,8 +300,10 @@ class KeyDirectory:
 
     @classmethod
     def restore(cls, num_shards: int, slots_per_shard: int,
-                snap: Dict[str, np.ndarray]) -> "KeyDirectory":
-        d = cls(num_shards, slots_per_shard)
+                snap: Dict[str, np.ndarray],
+                shard_range: Optional[Tuple[int, int]] = None
+                ) -> "KeyDirectory":
+        d = cls(num_shards, slots_per_shard, shard_range)
         d._rev_keys = snap["rev_keys"].copy()
         d._rev_used = snap["rev_used"].copy()
         d._next_free = snap["next_free"].copy()
@@ -311,7 +324,8 @@ def account_full_drop(op, n: int) -> None:
     if not getattr(op, "allow_drops", False):
         raise RuntimeError(
             f"key directory shard full: {n} record(s) have no state slot "
-            "(state.num-key-shards x state.slots-per-shard exceeded). The "
+            "(state.num-key-shards x state.slots-per-shard exceeded, or "
+            "keys routed outside this worker's shard range). The "
             "default policy never drops data - use state.backend='spill' "
             "for exact host-side degradation, raise the slot budget, or "
             "set state.allow-drops=true to drop with accounting "

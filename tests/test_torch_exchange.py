@@ -33,6 +33,7 @@ from jax.sharding import PartitionSpec as P
 from flink_tpu.exchange.keyby import (
     all_to_all_records, bucket_by_destination, keyby_exchange)
 from flink_tpu.parallel.mesh import AXIS
+from flink_tpu.parallel.mesh import make_hybrid_mesh_plan as jax_hybrid_plan
 from flink_tpu.parallel.mesh import make_mesh_plan as jax_mesh_plan
 from flink_tpu.records import hash_keys_device as jax_hash_keys_device
 from flink_tpu.ops.window import split_decode as jax_split_decode
@@ -231,12 +232,30 @@ def test_mesh_plan_matches_the_reference():
                                   ref.global_slot_to_row(slots))
     with pytest.raises(ValueError, match="multiple of the device count"):
         make_mesh_plan(30, SLOTS, ["cpu"] * N_DEV)
-    for make in (lambda: make_hybrid_mesh_plan(32, 16, 2, 0),
-                 lambda: HybridMeshPlan((torch.device("cpu"),), 32, 16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        keyby.intra_slice_exchange()
+    # the hybrid plan of one process of a job across processes: its
+    # blocks, its span of the global shards and owner() as the
+    # reference's, and the same divisibility errors
+    keys = np.arange(512, dtype=np.int64) * 104729
+    for nproc, pid, n in ((2, 1, 4), (4, 0, 2), (4, 3, 1), (2, 0, 8)):
+        ref_h = jax_hybrid_plan(64, 16, nproc, pid,
+                                devices=jax.devices()[:n])
+        hp = make_hybrid_mesh_plan(64, 16, nproc, pid, ["cpu"] * n)
+        assert isinstance(hp, HybridMeshPlan)
+        for attr in ("n_devices", "num_shards", "global_num_shards",
+                     "shard_lo", "shards_per_device", "slots_per_device",
+                     "total_slots", "rows_per_device", "n_processes",
+                     "process_id"):
+            assert getattr(hp, attr) == getattr(ref_h, attr), attr
+        assert [hp.shard_range(d) for d in range(n)] == \
+            [ref_h.shard_range(d) for d in range(n)]
+        for got, want in zip(hp.owner(keys), ref_h.owner(keys)):
+            np.testing.assert_array_equal(got, want)
+    for args, n, match in (((63, 16, 2, 0), 2, "num-processes"),
+                           ((64, 16, 2, 0), 3, "local device count")):
+        with pytest.raises(ValueError, match=match):
+            jax_hybrid_plan(*args, devices=jax.devices()[:n])
+        with pytest.raises(ValueError, match=match):
+            make_hybrid_mesh_plan(*args, ["cpu"] * n)
 
 
 def split_grid(seed, rows=40, W=5, n_blocks=4):

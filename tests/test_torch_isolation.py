@@ -66,7 +66,9 @@ def test_scan_covers_the_package():
                 "runtime/restart.py", "runtime/supervisor.py",
                 "parallel/hostpool.py", "ops/host_control.py",
                 "ops/window_all.py", "ops/session.py", "ops/join.py",
-                "api/functions.py", "nexmark/queries.py"):
+                "api/functions.py", "nexmark/queries.py",
+                "exchange/dcn.py", "exchange/frames.py",
+                "exchange/partitioners.py", "parallel/mesh.py"):
         assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 
@@ -99,3 +101,31 @@ def test_native_codec_builds_only_the_port_source(monkeypatch, tmp_path):
     with open(os.path.join(ROOT, "flink_tpu_torch", "native_codec.py")) as f:
         text = f.read()
     assert "libflinktpucodec" not in text
+
+
+def test_the_hybrid_worker_path_imports_no_jax():
+    """``chip_smoke.py --hybrid-worker``'s path, run in a fresh
+    interpreter: the script and every module its worker imports load
+    without jax or flink_tpu, and without a card the entry refuses (a
+    non-zero exit, no result)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.path.insert(0, %r); import chip_smoke\n"
+        "import flink_tpu_torch.api.environment, flink_tpu_torch.api.sinks\n"
+        "import flink_tpu_torch.checkpoint.storage\n"
+        "import flink_tpu_torch.exchange.dcn, flink_tpu_torch.exchange.keyby\n"
+        "import flink_tpu_torch.nexmark.generator\n"
+        "import flink_tpu_torch.parallel.mesh, flink_tpu_torch.runtime.driver\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flink_tpu'))\n"
+        "assert not bad, bad\n"
+        "sys.argv = ['chip_smoke.py', '--hybrid-worker', '{}']\n"
+        "sys.exit(chip_smoke.main())\n" % ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout

@@ -45,7 +45,7 @@ from flink_tpu_torch.config import Configuration
 from flink_tpu_torch.graph.compiler import compile_job
 from flink_tpu_torch.ops import aggregates as ta
 from flink_tpu_torch.ops.window import WindowOperator
-from flink_tpu_torch.parallel.mesh import make_mesh_plan
+from flink_tpu_torch.parallel.mesh import HybridMeshPlan, make_mesh_plan
 from flink_tpu_torch.runtime.driver import Driver
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
 from test_torch_threads import capped_torch_threads  # noqa: F401
@@ -339,8 +339,12 @@ def test_execute_builds_the_mesh(monkeypatch):
     assert env_with("1").build_mesh_plan("cpu") is None
     with pytest.raises(ValueError, match="positive integer"):
         env_with("0").build_mesh_plan("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        env_with("all", procs=2).build_mesh_plan("cpu")
+    # across processes: this process's hybrid plan over its span
+    hp = env_with("all", procs=2).build_mesh_plan("cpu")
+    assert isinstance(hp, HybridMeshPlan)
+    assert (hp.n_devices, hp.num_shards, hp.global_num_shards,
+            hp.shard_lo) == (N_DEV, CONF["state.num-key-shards"] // 2,
+                             CONF["state.num-key-shards"], 0)
     env = env_with("all")
     sink = CollectSink()
     build(env, GeneratorSource, WatermarkStrategy, sink,

@@ -299,6 +299,16 @@ PORTED = {
     "memory.hbm-budget": 1 << 30,
     "host.parallelism": 3,
     "host.fold-chunk-records": 4096,
+    "cluster.num-processes": 3,
+    "cluster.process-id": 2,
+    "cluster.dcn-peers": "127.0.0.1:7001,127.0.0.1:7002,127.0.0.1:7003",
+    "cluster.dcn-port": 7003,
+    "cluster.dcn-secret": "s3cret",
+    "cluster.dcn-overlap": "false",
+    "cluster.dcn-overlap-drain": "false",
+    "cluster.dcn-io-threads": 2,
+    "cluster.dcn-buffer-bytes": 1 << 22,
+    "cluster.dcn-bind": "0.0.0.0",
 }
 
 
@@ -329,6 +339,18 @@ def test_ported_keys_read_as_the_reference_reads_them():
         (pc.MemoryOptions.HBM_BUDGET, jc.MemoryOptions.HBM_BUDGET),
         (pc.HostOptions.PARALLELISM, jc.HostOptions.PARALLELISM),
         (pc.HostOptions.FOLD_CHUNK_RECORDS, jc.HostOptions.FOLD_CHUNK_RECORDS),
+        (pc.ClusterOptions.NUM_PROCESSES, jc.ClusterOptions.NUM_PROCESSES),
+        (pc.ClusterOptions.PROCESS_ID, jc.ClusterOptions.PROCESS_ID),
+        (pc.ClusterOptions.DCN_PEERS, jc.ClusterOptions.DCN_PEERS),
+        (pc.ClusterOptions.DCN_PORT, jc.ClusterOptions.DCN_PORT),
+        (pc.ClusterOptions.DCN_SECRET, jc.ClusterOptions.DCN_SECRET),
+        (pc.ClusterOptions.DCN_OVERLAP, jc.ClusterOptions.DCN_OVERLAP),
+        (pc.ClusterOptions.DCN_OVERLAP_DRAIN,
+         jc.ClusterOptions.DCN_OVERLAP_DRAIN),
+        (pc.ClusterOptions.DCN_IO_THREADS, jc.ClusterOptions.DCN_IO_THREADS),
+        (pc.ClusterOptions.DCN_BUFFER_BYTES,
+         jc.ClusterOptions.DCN_BUFFER_BYTES),
+        (pc.ClusterOptions.DCN_BIND, jc.ClusterOptions.DCN_BIND),
     ]
     assert {p.key for p, _ in pairs} == set(PORTED)
     pconf, jconf = pc.Configuration(dict(PORTED)), jc.Configuration(dict(PORTED))
@@ -348,6 +370,11 @@ def test_ported_keys_read_as_the_reference_reads_them():
     ({"restart-strategy.type": "sometimes"}, ValueError, "restart-strategy"),
     ({"memory.hbm-budget": -1}, ValueError, "hbm-budget"),
     ({"metrics.port": 70000}, ValueError, "metrics.port"),
+    ({"cluster.num-processes": 2, "cluster.process-id": 2}, ValueError,
+     "process-id"),
+    ({"cluster.num-processes": 0}, ValueError, "num-processes"),
+    ({"cluster.dcn-port": 70000}, ValueError, "dcn-port"),
+    ({"cluster.dcn-io-threads": -1}, ValueError, "dcn-io-threads"),
 ])
 def test_bad_values_of_ported_keys_are_refused(conf, err, match):
     from flink_tpu_torch.config import Configuration
@@ -412,7 +439,8 @@ def test_host_keys_are_read_and_take_effect(workers):
     ("log.dir", "queue 1 item 8"),
     ("storage.enospc-policy", "queue 1 item 8"),
     ("execution.runtime-mode", "queue 1 item 8"),
-    ("cluster.dcn-peers", "queue 1 item 9.3"),
+    ("cluster.dcn-host", "queue 1 item 10"),
+    ("cluster.dcn-rendezvous", "queue 1 item 10"),
     ("session.slots-per-job", "queue 1 item 10"),
     ("high-availability.dir", "queue 1 item 10"),
     ("cluster.attempt", "queue 1 item 10"),
