@@ -257,7 +257,31 @@ mesh).
    ``bucket_records`` row carries the hybrid figures (``hybrid``) and its
    launches there (``launches_by_path``).
 
-Each of 16-20 prints its events/s and wall time beside the card's name
+21. ``state_tiers`` — job S's shapes (Q5 host-fed over 100,000
+   auctions against 128 x 256 key slots, 8 batches of 2^20 bids) through
+   the state tiers and the host operators of this slice, each against a
+   numpy golden: S-LSM (job S with ``state.backend: lsm``, a 1 MiB
+   delta budget, so a run seals about every batch, and
+   ``state.lsm.compact-min-runs: 2``: at Q5's 10 s window over 10.5 s
+   batches the purge drops a run about a batch after it seals, so no
+   more than two runs are ever live) whose rows must equal job S's
+   spill run in commit order, with its seals, compactions, bytes on disk
+   and rows; S-LSM crashed (a storage write fault and a poisoned sink,
+   through ``run_with_recovery``) and resumed, its committed rows the
+   fault-free rows, with the run files each retained checkpoint
+   hardlinked; the debloater on job S at ``pipeline.emit-defer: 20ms``
+   (without it each fire is delivered in the pass that fired it, p99
+   under the key's 1 ms resolution) with ``pipeline.target-latency`` set
+   to half the fire-to-sink p99 the same job reads without a target (the
+   p99 printed first): rows as the golden, the ``debloat_chunk`` gauge
+   ending below the source batch, more pushes than batches; ``running_aggregate`` of count, sum
+   and max of price by auction in upsert and retract mode (final views
+   against a numpy golden, sums bit for bit: the golden folds in the
+   operator's order); and a ``KeyedProcessFunction`` (an idle timeout on
+   a ``ValueState`` and event-time timers) against a numpy golden of
+   its alerts. The last three keep their keys in 128 x 1024 slots.
+
+Each of 16-21 prints its events/s and wall time beside the card's name
 and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
@@ -330,6 +354,7 @@ copied in and run both in one call, in turns. The rows:
   events/s a run (a tree beside its parent, in turns).
 
 With ``--checkpoint`` it builds the kernels and runs only phase 15.
+With ``--state-tiers`` it builds the kernels and runs only phase 21.
 
 With ``--host-operators`` it builds the kernels and runs only phases
 16-19. With ``--hybrid`` it builds the kernels and runs only phase 20.
@@ -2673,14 +2698,14 @@ def q5_golden(np, parts, n_auctions: int, window_panes: int, pane_ms: int):
 
 
 def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None,
-                    mesh=None, conf_extra=None):
+                    mesh=None, conf_extra=None, envs=None):
     """Q5 on host-made bids through ``env.execute()`` at
     confs/bench_q5_host_fed.conf: (rows in commit order, launches,
     JobResult, wall seconds). ``numpy_lane`` runs it with the numpy key
     table (``NativeHashTable.create`` returning None, as the tests select
     it), so no native lane; ``backend`` sets ``state.backend``; ``mesh``
     runs the window over that mesh of device blocks; ``conf_extra`` sets
-    further options."""
+    further options; ``envs``, a list, receives the environment."""
     from flink_tpu_torch import native_codec
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
@@ -2697,6 +2722,8 @@ def run_q5_host_fed(torch, np, cfg, label, numpy_lane=False, backend=None,
         conf.set(k, v)
     parts = []
     env = StreamExecutionEnvironment(conf)
+    if envs is not None:
+        envs.append(env)
     q5_hot_items(env, bid_stream(cfg), FnSink(
         lambda b: parts.append({k: np.asarray(v).copy() for k, v in b.items()})),
         window_ms=10_000, slide_ms=1_000, out_of_orderness_ms=1_000)
@@ -3319,6 +3346,9 @@ def run_checkpointed(torch, np, build, conf, label, root, mode, limit=0,
             payload = FsCheckpointStorage.load(h)
             positions.append({
                 "id": int(payload["checkpoint_id"]),
+                # the changelog files (LSM runs) it hardlinked
+                "aux_files": sum(len(m) for m in
+                                 payload.get("op_aux_paths", {}).values()),
                 "sub_factors": {str(k): int(v) for k, v in
                                 payload.get("sub_factors", {}).items()},
                 "positions": [int(p) for pos in payload["sources"].values()
@@ -7274,6 +7304,326 @@ def phase_hybrid(torch, np):
     return launches, x1
 
 
+TIER_BUDGET = 1 << 20           # S-LSM's delta budget: a seal about every batch
+TIER_COMPACT_MIN_RUNS = 2       # the most runs Q5's purge leaves live at once
+TIER_SLOTS_PER_SHARD = 1024     # 128 x 1024 slots hold job S's 100,000 keys
+TIER_IDLE_GAP_MS = 2_000        # the process function's idle timeout
+TIER_EMIT_DEFER = "20ms"        # the debloater job's delivery deferral
+
+
+def tier_summary(res, wall, events):
+    """events/s, wall and the card's idle share by the operators'
+    CUDA-event spans (1.0 for a job with no device operator)."""
+    busy, _ = busy_and_host(res)
+    return {"events": events, "wall_s": wall, "events_per_s": events / wall,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3)}
+
+
+def run_tier_job(torch, build, label):
+    """One job of the host operators through ``env.execute()`` on the
+    card: (JobResult, wall seconds)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.config import Configuration
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    conf.set("state.slots-per-shard", TIER_SLOTS_PER_SHARD)
+    env = StreamExecutionEnvironment(conf)
+    build(env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def running_agg_golden(np, cfg):
+    """Per auction: count, sum and max of price, the sum folded as the
+    operator folds it (each batch's f32 sum a key in record order, then
+    a float64 total, rounded to f32 at the end)."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    n = cfg.num_active_auctions
+    cnt = np.zeros(n, np.int64)
+    tot = np.zeros(n, np.float64)
+    mx = np.full(n, -np.inf, np.float32)
+    for i in range(cfg.n_batches):
+        d, _ = bid_batch(cfg, 0, i)
+        a = d["auction"]
+        price = d["price"].astype(np.float32)
+        o = np.argsort(a, kind="stable")
+        so = a[o]
+        starts = np.flatnonzero(np.concatenate([[True], so[1:] != so[:-1]]))
+        keys = so[starts]
+        cnt[keys] += np.diff(np.append(starts, len(so)))
+        # the (records, 1) lane the operator's lift makes, reduced as
+        # the operator reduces it
+        tot[keys] += np.add.reduceat(price[o].reshape(-1, 1), starts,
+                                     axis=0)[:, 0]
+        np.maximum.at(mx, a, price)
+    seen = np.flatnonzero(cnt)
+    return {int(k): (int(cnt[k]), np.float32(tot[k]), mx[k]) for k in seen}
+
+
+def idle_golden(np, cfg, gap, ooo_ms):
+    """The idle-timeout alerts: a key's activity is each batch whose max
+    timestamp raises the key's running max m; its alert (key, m, m +
+    gap) fires if the watermark after the batch before the key's next
+    such batch has reached m + gap, or at the end of input if there is
+    none."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    akeys, abatch, amax = [], [], []
+    wm = []
+    hi = -(1 << 62)
+    for i in range(cfg.n_batches):
+        d, ts = bid_batch(cfg, 0, i)
+        a = d["auction"]
+        o = np.lexsort((ts, a))
+        sa, st = a[o], ts[o]
+        last = np.flatnonzero(np.append(sa[1:] != sa[:-1], True))
+        akeys.append(sa[last])
+        amax.append(st[last])
+        abatch.append(np.full(len(last), i))
+        hi = max(hi, int(ts.max()))
+        wm.append(hi - ooo_ms - 1)
+    k = np.concatenate(akeys)
+    b = np.concatenate(abatch)
+    m = np.concatenate(amax).astype(np.int64)
+    o = np.lexsort((b, k))
+    k, b, m = k[o], b[o], m[o]
+    first = np.append(True, k[1:] != k[:-1])
+    # the key's running max before this batch: only a raise registers
+    run = m.copy()
+    starts = np.flatnonzero(first)
+    for s, e in zip(starts, np.append(starts[1:], len(k))):
+        run[s:e] = np.maximum.accumulate(m[s:e])
+    prev = np.where(first, np.iinfo(np.int64).min, np.roll(run, 1))
+    act = m > prev
+    k, b, m = k[act], b[act], m[act]
+    nxt_same = np.append(k[1:] == k[:-1], False)
+    nxt_b = np.append(b[1:], 0)
+    wm = np.asarray(wm, np.int64)
+    fires = ~nxt_same | (wm[np.maximum(nxt_b - 1, 0)] >= m + gap)
+    return {(int(x), int(y), int(y) + gap) for x, y in zip(k[fires], m[fires])}
+
+
+def phase_state_tiers(torch, np):
+    """Phase 21 (see the module docstring): S-LSM against job S's spill
+    run, S-LSM crashed and resumed, the debloater, running aggregates
+    and a KeyedProcessFunction, each against its golden."""
+    import shutil
+
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.functions import KeyedProcessFunction
+    from flink_tpu_torch.api.sinks import FnSink, RetractSink, UpsertSink
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+    from flink_tpu_torch.ops.aggregates import count, max_of, multi, sum_of
+    from flink_tpu_torch.state.api import ValueStateDescriptor
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "state_tiers")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = bids_cfg(SPILL_BATCHES, SPILL_AUCTIONS)
+    events = Q5_BATCH * SPILL_BATCHES
+    out = {"phase": "state_tiers", "conf": "confs/bench_q5_host_fed.conf",
+           "auctions": SPILL_AUCTIONS, "batches": SPILL_BATCHES,
+           "batch": Q5_BATCH}
+
+    # 1. S-LSM against job S's spill run (the spill run first, so both
+    # run warm)
+    spill_rows, _, spill_res, spill_wall = run_q5_host_fed(
+        torch, np, cfg, "tiers-s-spill", backend="spill")
+    lsm_conf = {"state.memory-budget-bytes": TIER_BUDGET,
+                "state.lsm.compact-min-runs": TIER_COMPACT_MIN_RUNS,
+                "state.lsm.dir": os.path.join(root, "lsm")}
+    envs = []
+    rows, launches, res, wall = run_q5_host_fed(
+        torch, np, cfg, "tiers-s-lsm", backend="lsm", conf_extra=lsm_conf,
+        envs=envs)
+    (op,) = envs[0]._driver._ops.values()
+    store = op._spill
+    check(rows == spill_rows,
+          f"S-LSM: {len(rows)} rows differ from job S's spill run's "
+          f"{len(spill_rows)} (values or commit order)")
+    check_q5_rows(np, rows, cfg, "S-LSM")
+    check(store.seals >= 4 and store.compactions >= 1,
+          f"S-LSM: {store.seals} seals, {store.compactions} compactions")
+    missing = [k for k in ("scatter_split_counts", "window_counts",
+                           "topn_select_append", "ring_columns")
+               if launches[k] == 0]
+    check(not missing, f"S-LSM: kernels not launched: {missing}")
+    disk = sum(os.path.getsize(os.path.join(store.dir, f))
+               for f in os.listdir(store.dir))
+    out["s_lsm"] = {
+        **tier_summary(res, wall, events), "rows": len(rows),
+        "rows_equal_spill_run": True, "seals": store.seals,
+        "compactions": store.compactions, "live_runs": store.run_count,
+        "run_bytes_on_disk": disk,
+        "records_spilled": int(res.metrics["records_spilled"]),
+        "launches": launches,
+        "spill_run": tier_summary(spill_res, spill_wall, events)}
+
+    # 2. S-LSM crashed and resumed: a storage write fault and a poisoned
+    # sink, every retained checkpoint kept to count its hardlinks
+    from flink_tpu_torch.config import Configuration
+
+    q5_cols = ("auction", "window_end", "bid_count")
+    cconf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    for k, v in dict(lsm_conf, **{
+            "state.backend": "lsm",
+            "state.lsm.dir": os.path.join(root, "lsm-ckpt"),
+            "execution.checkpointing.num-retained": 100}).items():
+        cconf.set(k, v)
+
+    def build_lsm(c, sink):
+        env = StreamExecutionEnvironment(c)
+        q5_hot_items(env, bid_stream(cfg), sink, window_ms=10_000,
+                     slide_ms=1_000, out_of_orderness_ms=1_000)
+        return env
+
+    c_rows, c_wall, c_launches, c_fig = run_checkpointed(
+        torch, np, build_lsm, cconf, "tiers-s-lsm-chaos",
+        os.path.join(root, "ckpt"), "chaos", limit=len(rows) // 3)
+    got = [tuple(dict(r)[c] for c in q5_cols) for r in c_rows]
+    check(got == rows,
+          f"S-LSM crash: {len(got)} committed rows, the fault-free run "
+          f"{len(rows)}, or another order")
+    check(c_fig["recoveries"] >= 1
+          and "checkpoint.storage.write" in c_fig["injected"],
+          f"S-LSM crash: did not crash as planned: {c_fig}")
+    links = [c["aux_files"] for c in c_fig["retained"]]
+    check(max(links, default=0) > 0, "S-LSM crash: no checkpoint "
+          "hardlinked a run file")
+    out["s_lsm_crash"] = {
+        "events": events, "wall_s": c_wall, "rows": len(got),
+        "rows_equal_fault_free": True, "attempts": c_fig["attempts"],
+        "recoveries": c_fig["recoveries"], "injected": c_fig["injected"],
+        "checkpoints_completed": c_fig["checkpoints_completed"],
+        "run_files_linked_by_checkpoint": {
+            str(c["id"]): c["aux_files"] for c in c_fig["retained"]},
+        "bytes_per_checkpoint": c_fig["bytes_per_checkpoint"],
+        "launches": {k: c_launches[k] for k in
+                     ("scatter_split_counts", "window_counts",
+                      "topn_select_append", "ring_columns")}}
+
+    # 3. the debloater: the fire-to-sink p99 without a target, then a
+    # target at half of it. Job S delivers each fire in the loop pass
+    # that fired it, well under the key's 1 ms resolution, so the job
+    # runs at pipeline.emit-defer TIER_EMIT_DEFER, both times: a fire
+    # then waits for the next pass's drain
+    plain_envs, deb_envs = [], []
+    defer = {"pipeline.emit-defer": TIER_EMIT_DEFER}
+    run_q5_host_fed(torch, np, cfg, "tiers-debloat-off", backend="spill",
+                    conf_extra=defer, envs=plain_envs)
+    p99 = plain_envs[0]._driver._lat_hist.quantile(0.99)
+    print(json.dumps({"phase": "state_tiers.debloat_baseline",
+                      "emit_defer": TIER_EMIT_DEFER,
+                      "fire_to_sink_p99_ms": p99}), flush=True)
+    target = int(p99 / 2)
+    check(target >= 1, f"debloat: a p99 of {p99} ms leaves no target "
+          "below it at the key's 1 ms resolution")
+    d_rows, _, d_res, d_wall = run_q5_host_fed(
+        torch, np, cfg, "tiers-debloat", backend="spill",
+        conf_extra=dict(defer, **{"pipeline.target-latency": target}),
+        envs=deb_envs)
+    drv = deb_envs[0]._driver
+    check_q5_rows(np, d_rows, cfg, "debloat")
+    chunk = drv.registry.snapshot()["driver.debloat_chunk"]
+    pushed = int(d_res.metrics["batches"])
+    check(0 < chunk < Q5_BATCH,
+          f"debloat: the chunk gauge ended at {chunk}, not below the "
+          f"source batch {Q5_BATCH}")
+    # a push a chunk: more pushes than source batches means a halving
+    check(pushed > SPILL_BATCHES, f"debloat: {pushed} pushes, no halving")
+    out["debloat"] = {
+        **tier_summary(d_res, d_wall, events),
+        "emit_defer": TIER_EMIT_DEFER,
+        "p99_without_target_ms": p99, "target_ms": target,
+        "p99_with_target_ms": drv._lat_hist.quantile(0.99),
+        "chunk_end": chunk, "batches_pushed": pushed,
+        "rows": len(d_rows)}
+
+    # 4. running aggregates by auction, upsert and retract
+    want = running_agg_golden(np, cfg)
+    out["running_aggregate"] = {}
+    for retract in (False, True):
+        view = (RetractSink(key_fields=("key",)) if retract
+                else UpsertSink(key_fields=("key",)))
+
+        def build(env, view=view, retract=retract):
+            (env.from_source(bid_stream(cfg), WatermarkStrategy
+                             .for_bounded_out_of_orderness(1_000))
+             .key_by("auction")
+             .running_aggregate(multi(count(), sum_of("price"),
+                                      max_of("price")), retract=retract)
+             .add_sink(view))
+
+        mode = "retract" if retract else "upsert"
+        res, wall = run_tier_job(torch, build, f"tiers-running-{mode}")
+        got = {int(r["key"]): (int(r["count"]), np.float32(r["sum_price"]),
+                               np.float32(r["max_price"]))
+               for r in view.view()}
+        bad = [k for k in want if got.get(k) != want[k]]
+        check(got.keys() == want.keys() and not bad,
+              f"running_aggregate {mode}: {len(bad)} keys differ, "
+              f"{len(got)} keys against {len(want)}")
+        out["running_aggregate"][mode] = {
+            **tier_summary(res, wall, events), "keys": len(got),
+            "rows_emitted": int(res.metrics["records_out"])}
+
+    # 5. a KeyedProcessFunction: an idle timeout a key
+    last_desc = ValueStateDescriptor("last_ts", -1.0)
+
+    class IdleTimeout(KeyedProcessFunction):
+        def process_batch(self, ctx):
+            last = ctx.value_state(last_desc)
+            order = np.argsort(ctx.slots, kind="stable")
+            sl, ts = ctx.slots[order], ctx.timestamps[order]
+            uniq, starts = np.unique(sl, return_index=True)
+            mx = np.maximum.reduceat(ts, starts)
+            newer = mx > last[uniq]
+            last[uniq[newer]] = mx[newer].astype(np.float64)
+            ctx.register_event_time_timers(mx[newer] + TIER_IDLE_GAP_MS,
+                                           slots=uniq[newer])
+
+        def on_timer(self, ctx):
+            last = ctx.value_state(last_desc)
+            live = last[ctx.slots] + TIER_IDLE_GAP_MS == ctx.timestamps
+            ctx.emit({"key": ctx.keys[live],
+                      "idle_since": last[ctx.slots[live]].astype(np.int64)},
+                     ts=ctx.timestamps[live])
+
+    parts = []
+
+    def build_process(env):
+        (env.from_source(bid_stream(cfg), WatermarkStrategy
+                         .for_bounded_out_of_orderness(1_000))
+         .key_by("auction").process(IdleTimeout())
+         .add_sink(FnSink(lambda b: parts.append(
+             {k: np.asarray(v).copy() for k, v in b.items()}))))
+
+    res, wall = run_tier_job(torch, build_process, "tiers-process")
+    # an alert fires at its timer, idle_since + the gap
+    got = [(int(k), int(s), int(s) + TIER_IDLE_GAP_MS) for p in parts
+           for k, s in zip(p["key"], p["idle_since"])]
+    pwant = idle_golden(np, cfg, TIER_IDLE_GAP_MS, 1_000)
+    check(len(got) == len(set(got)) and set(got) == pwant,
+          f"process: {len(set(got) - pwant)} extra, "
+          f"{len(pwant - set(got))} missing alerts of {len(pwant)}")
+    out["process"] = {**tier_summary(res, wall, events), "alerts": len(got),
+                      "gap_ms": TIER_IDLE_GAP_MS}
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    emit(out)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7301,6 +7651,8 @@ def main() -> int:
                                            phase_mesh_cards(torch, np)),
         "--hybrid": lambda torch, np: (phase_build(),
                                        phase_hybrid(torch, np)),
+        "--state-tiers": lambda torch, np: (phase_build(),
+                                            phase_state_tiers(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -7354,6 +7706,7 @@ def main() -> int:
         phase_q7(torch, np)
         phase_emit_defer(torch, np)
         hybrid, hybrid_x1 = phase_hybrid(torch, np)
+        q5_lsm = phase_state_tiers(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -7362,7 +7715,7 @@ def main() -> int:
                  "topn_lanes": topn_lanes, "changelog": changelog,
                  "q5_spill": q5_spill, "element_window": element,
                  "proc_time": proc_time, "mesh_q5": mesh,
-                 "hybrid": hybrid,
+                 "hybrid": hybrid, "q5_lsm": q5_lsm,
                  "big_cells": {k: big["launches"].get(k, 0)
                                for k in host_fed}}
         # each kernel's count on its own main path: the headline (devgen)

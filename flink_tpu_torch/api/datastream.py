@@ -14,9 +14,12 @@ global_. ``map`` and ``filter`` also take a ``MapFunction`` or a
 ``LaneAggregate``; a user ``AggregateFunction`` goes through
 ``ops.aggregates.lower_aggregate`` first, as in the JAX package. An
 evictor, or a trigger outside the pane kernels' families, routes a
-window onto the element path (``ops/evicting_window.py``). Async
-I/O, connect, running_aggregate and process are in
-ROADMAP.md."""
+window onto the element path (``ops/evicting_window.py``). A keyed
+stream also has ``running_aggregate`` (an unwindowed upsert or
+retract changelog, ``ops/global_agg.py``) and ``process`` (a
+``KeyedProcessFunction`` with keyed state and timers,
+``ops/process.py``). Async I/O and connect are ROADMAP.md queue 1
+items 5.3 and 5.4."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Union
@@ -29,7 +32,9 @@ from flink_tpu_torch.api.windowing import (
 from flink_tpu_torch.graph.transformations import (
     CountWindowAggregateTransformation,
     EvictingWindowTransformation,
+    GlobalAggregateTransformation,
     KeyByTransformation,
+    KeyedProcessTransformation,
     MapTransformation,
     PartitionTransformation,
     SessionAggregateTransformation,
@@ -183,6 +188,31 @@ class KeyedStream(DataStream):
         crossing ``size`` inside a batch fires once with its full
         aggregate (``ops/count_window.py``)."""
         return CountWindowedStream(self, size, purge=True)
+
+    def running_aggregate(self, agg, name: str = "running_agg",
+                          retract: bool = False) -> "DataStream":
+        """Unwindowed keyed running aggregation emitting an UPSERT
+        stream: each batch emits the updated (key, aggregates) row of
+        every key it touched, replacing the key's previous row (ref:
+        table-runtime GroupAggFunction; ops/global_agg.py). Materialize
+        latest-by-key with ``UpsertSink``. ``retract=True`` emits the
+        full changelog instead: -U (stale row out) / +U (replacement
+        in) pairs, first results +I, op-typed in the ``__op__`` int8
+        column; ``RetractSink`` folds it."""
+        kt = self.transform
+        return self._append(GlobalAggregateTransformation(
+            name, (kt,), aggregate=agg, key_field=kt.key_field,
+            retract=retract))
+
+    def process(self, fn: Any, name: str = "keyed_process") -> "DataStream":
+        """General keyed processing with state and timers (ref:
+        KeyedStream.process(KeyedProcessFunction)). ``fn`` implements
+        ``api.functions.KeyedProcessFunction``: batch-vectorized hooks,
+        or the per-element adapter."""
+        kt = self.transform
+        assert isinstance(kt, KeyByTransformation)
+        return self._append(KeyedProcessTransformation(
+            name, (kt,), fn=fn, key_field=kt.key_field))
 
 
 class _AggregateShortcuts:

@@ -12,8 +12,9 @@ back as numpy. ``LambdaMap`` / ``LambdaFilter`` wrap a function of
 either form (``batch=False``: per record).
 
 An ``AggregateFunction`` lowers to lanes through
-``ops.aggregates.lower_aggregate``. Reduce, process-window and keyed
-process functions are in ROADMAP.md."""
+``ops.aggregates.lower_aggregate``. A ``KeyedProcessFunction`` runs in
+``ops/process.py``'s operator (``KeyedStream.process``). Reduce and
+process-window functions are ROADMAP.md queue 1 item 5.6."""
 from __future__ import annotations
 
 import dataclasses
@@ -128,3 +129,34 @@ class AggregateFunction:
 
     def get_result(self, acc: Any) -> Any:
         raise NotImplementedError
+
+
+class KeyedProcessFunction:
+    """General keyed processing with state and timers (ref: streaming/
+    api/functions/KeyedProcessFunction.java via KeyedProcessOperator).
+
+    Native authoring style is per-BATCH: override ``process_batch(ctx)``
+    and ``on_timer(ctx)`` — ``ctx`` (ops/process.ProcessContext) carries
+    the microbatch as struct-of-arrays (``ctx.keys/slots/timestamps/
+    data``), columnar state handles (``ctx.value_state/list_state/
+    map_state``), vectorized timer registration, and ``ctx.emit``.
+
+    The reference's element-at-a-time style is available by overriding
+    ``process_element(key, ts, row, ctx, slot)`` instead — the default
+    ``process_batch`` loops it over the batch (host-loop speed; use it
+    only when the logic is truly sequential per record)."""
+
+    def process_batch(self, ctx) -> None:
+        for i in range(len(ctx.keys)):
+            row = {k: v[i] for k, v in ctx.data.items()}
+            self.process_element(int(ctx.keys[i]), int(ctx.timestamps[i]),
+                                 row, ctx, int(ctx.slots[i]))
+
+    def process_element(self, key: int, ts: int, row: Dict[str, Any],
+                        ctx, slot: int) -> None:
+        raise NotImplementedError(
+            "override process_batch (vectorized) or process_element")
+
+    def on_timer(self, ctx) -> None:
+        """Called once per watermark advance with ALL due timers as
+        arrays (ctx.keys/slots/timestamps)."""

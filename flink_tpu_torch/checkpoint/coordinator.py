@@ -193,16 +193,25 @@ class CheckpointCoordinator:
                     else:
                         blobs: Dict[str, bytes] = {}
                         reuse: Dict[str, ReusedOpState] = {}
+                        op_aux: Dict[str, Dict[str, str]] = {}
                         from flink_tpu_torch.checkpoint import blobformat
 
                         for nid, snap in ops.items():
                             if isinstance(snap, ReusedOpState):
                                 reuse[str(nid)] = snap
                             else:
+                                # the changelog plane (lsm runs): the
+                                # files named here ride as hardlinks,
+                                # never through the serializer
+                                if isinstance(snap, dict):
+                                    aux = snap.pop("__aux_files__", None)
+                                    if aux:
+                                        op_aux[str(nid)] = aux
                                 # self-describing v3 blob, not pickle
                                 blobs[str(nid)] = blobformat.encode(snap)
                         h = enospc_retry(lambda: self.storage.save_v2(
-                            cid, mat, blobs, reuse, savepoint=savepoint))
+                            cid, mat, blobs, reuse, savepoint=savepoint,
+                            op_aux=op_aux))
                     psp.set("bytes", getattr(h, "size_bytes", None))
                     return h
             finally:

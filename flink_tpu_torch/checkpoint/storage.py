@@ -31,9 +31,12 @@ role, SURVEY §3.1). v1/v2 pickle checkpoints remain loadable, and a v3
 incremental checkpoint may hardlink op blobs written by a v2 base —
 the loader dispatches per blob on the magic bytes.
 
-The LSM state tier's changelog files (the manifest's ``aux`` plane)
-come with ROADMAP.md queue 1 item 4.5: this package writes none, and
-loading a checkpoint that lists some raises.
+The changelog plane (the manifest's ``aux``): an LSM state tier's
+sealed, immutable run files ride a checkpoint as hardlinks
+(``<chk>/st-<nid>-<run name>``, fault point ``state.changelog.link``)
+instead of being re-serialized, so checkpoint bytes scale with the
+write rate, not the state size; ``load`` hands each operator the paths
+of its files (``__aux_paths__``, and ``op_aux_paths`` for all).
 """
 from __future__ import annotations
 
@@ -63,6 +66,11 @@ class CheckpointHandle:
     # reuse base must reference the ACTUAL names — a reused blob keeps
     # its lineage's extension across format upgrades
     op_files: Optional[Dict[str, str]] = None
+    # per-op changelog aux files as written (save_v2 only): nid ->
+    # {logical name -> file name under path}. The next checkpoint's
+    # reuse base links THESE, not the store's live files, so aux
+    # survives the base's retirement (inode refcount, as for op blobs)
+    op_aux: Optional[Dict[str, Dict[str, str]]] = None
 
 
 @dataclasses.dataclass
@@ -71,10 +79,12 @@ class ReusedOpState:
     unchanged since the base checkpoint — reuse (hardlink) its blob
     instead of re-serializing. ``file`` is the absolute path of the base
     checkpoint's op blob; ``version`` the operator state_version it
-    captured."""
+    captured; ``aux`` the base's changelog aux files (logical name ->
+    absolute path) to re-link alongside the blob."""
 
     file: str
     version: int
+    aux: Optional[Dict[str, str]] = None
 
 
 class StaleCheckpointWriter(RuntimeError):
@@ -215,10 +225,15 @@ class FsCheckpointStorage:
     def save_v2(self, checkpoint_id: int, meta_payload: Dict[str, Any],
                 op_blobs: Dict[str, bytes],
                 op_reuse: Dict[str, "ReusedOpState"],
-                savepoint: bool = False) -> CheckpointHandle:
+                savepoint: bool = False,
+                op_aux: Optional[Dict[str, Dict[str, str]]] = None
+                ) -> CheckpointHandle:
         """Incremental format: per-operator blob files; unchanged
-        operators hardlink the base checkpoint's blob. Manifest lands
-        last, exactly like v1."""
+        operators hardlink the base checkpoint's blob. ``op_aux`` (nid
+        -> {logical name -> source path}) is the changelog plane: each
+        named file, an LSM tier's sealed, immutable, already durable
+        run, is hardlinked into the checkpoint instead of re-serialized.
+        Manifest lands last, exactly like v1."""
         from flink_tpu_torch.checkpoint import blobformat
 
         d = self._dir(checkpoint_id, savepoint)
@@ -237,6 +252,18 @@ class FsCheckpointStorage:
             op_files[nid] = fn
             versions[nid] = meta_payload.get(
                 "op_versions", {}).get(nid, -1)
+        aux_links: Dict[str, Dict[str, str]] = {}
+
+        def _link_aux(nid: str, mapping: Dict[str, str]) -> None:
+            for logical, src in sorted(mapping.items()):
+                fn = f"st-{nid}-{logical}"
+                faults.fire("state.changelog.link", exc=OSError,
+                            checkpoint_id=checkpoint_id, file=logical)
+                self.fs.link_or_copy(src, os.path.join(tmp, fn))
+                aux_links.setdefault(nid, {})[logical] = fn
+
+        for nid, mapping in (op_aux or {}).items():
+            _link_aux(nid, mapping)
         for nid, ref in op_reuse.items():
             # reuse keeps the BASE's file name (it may be a v2 .pkl
             # pickle blob — the loader dispatches on magic bytes)
@@ -244,7 +271,11 @@ class FsCheckpointStorage:
             self.fs.link_or_copy(ref.file, os.path.join(tmp, fn))
             op_files[nid] = fn
             versions[nid] = ref.version
-        if op_reuse:
+            if ref.aux:
+                # an idle operator's changelog is its base's aux set,
+                # re-linked so this checkpoint stays self-locating
+                _link_aux(nid, ref.aux)
+        if op_reuse or aux_links:
             # entry durability for the REUSE links: a hardlink is a
             # directory mutation the blobs' content fsyncs never cover
             # — without this dir barrier a power cut after save_v2
@@ -270,7 +301,7 @@ class FsCheckpointStorage:
                 "compression": self.compression,
                 "ops": {nid: {"file": fn, "version": versions[nid]}
                         for nid, fn in op_files.items()},
-                "aux": {},
+                "aux": aux_links,
                 "epoch": self.epoch,
             }).encode())
         try:
@@ -291,7 +322,9 @@ class FsCheckpointStorage:
             self._retire_old()
         return CheckpointHandle(checkpoint_id, d, ts, savepoint,
                                 epoch=self.epoch, size_bytes=_dir_size(d),
-                                op_files=dict(op_files))
+                                op_files=dict(op_files),
+                                op_aux={n: dict(m)
+                                        for n, m in aux_links.items()})
 
     def list_complete(self) -> List[CheckpointHandle]:
         out = []
@@ -363,11 +396,16 @@ class FsCheckpointStorage:
         payload["op_files"] = {
             int(nid): os.path.join(path, e["file"])
             for nid, e in manifest.get("ops", {}).items()}
-        if any(manifest.get("aux", {}).values()):
-            raise NotImplementedError(
-                f"checkpoint {path} carries LSM changelog files (state."
-                "backend='lsm'); that tier is still to port: ROADMAP.md "
-                "queue 1 item 4.5")
+        # changelog aux (lsm runs): absolute paths, injected into each
+        # operator's snapshot so its restore finds the run files
+        aux_paths = {
+            int(nid): {logical: os.path.join(path, fn)
+                       for logical, fn in m.items()}
+            for nid, m in manifest.get("aux", {}).items()}
+        for nid, m in aux_paths.items():
+            if isinstance(ops.get(nid), dict):
+                ops[nid]["__aux_paths__"] = m
+        payload["op_aux_paths"] = aux_paths
         return payload
 
     def _pack(self, raw: bytes) -> bytes:

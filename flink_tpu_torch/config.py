@@ -132,6 +132,14 @@ class PipelineOptions:
         "sizes its fire to the ends it has. Committed output is the same "
         "either way; false runs the fire and purge at full width on every "
         "step.")
+    TARGET_LATENCY = duration_option(
+        "pipeline.target-latency", 0,
+        "Adaptive microbatch debloater (ref: BufferDebloater — auto-"
+        "size in-flight buffers to hit a latency target): when > 0, the "
+        "driver re-chunks source batches at ingest, halving the chunk "
+        "while recent emit p99 exceeds the target and growing it back "
+        "toward the source batch size while p99 sits under half the "
+        "target. 0 = off (source batch size rules, maximum throughput).")
     EXCHANGE_CAPACITY = ConfigOption(
         "pipeline.exchange-capacity", 0,
         "Per-(source, destination) bucket capacity of the keyBy "
@@ -153,10 +161,36 @@ class StateOptions:
         "resident key count on the device.")
     BACKEND = ConfigOption(
         "state.backend", "hbm",
-        "Keyed state backend: 'hbm' (dense pane tensors on the device) "
-        "or 'spill' (keys past the device's slots aggregate exactly in a "
-        "host store, state/spill.py). 'lsm', the disk-backed spill tier, "
-        "is still to port.")
+        "Keyed state backend: 'hbm' (dense pane tensors on the device), "
+        "'spill' (keys past the device's slots aggregate exactly in a "
+        "host store, state/spill.py) or 'lsm' (the disk-backed spill "
+        "tier: memtable delta bounded by state.memory-budget-bytes, "
+        "sealed into CRC'd columnar runs with changelog checkpoints, "
+        "state/lsm.py).")
+    MEMORY_BUDGET_BYTES = ConfigOption(
+        "state.memory-budget-bytes", 64 * 1024 * 1024,
+        "RAM ceiling for the in-memory delta (memtable) of the 'lsm' "
+        "backend, per windowed operator; when the delta's pane tables "
+        "exceed it, the delta is sealed into a sorted on-disk run. "
+        "Ignored by 'hbm' and 'spill' (those hold all state resident). "
+        "Must be at least state.lsm.run-floor-bytes.")
+    LSM_DIR = ConfigOption(
+        "state.lsm.dir", "/tmp/flink-tpu-state",
+        "Root directory for 'lsm' backend run files; each operator "
+        "instance gets a unique store subdirectory. Local filesystem "
+        "only (runs are mmap'd for zero-copy scans).")
+    LSM_COMPACT_MIN_RUNS = ConfigOption(
+        "state.lsm.compact-min-runs", 4,
+        "Sealed-run count that triggers a leveled compaction pass "
+        "(k-way monoid merge of all live runs into one higher-level "
+        "run, under the store's maintenance lock). Minimum 2.")
+    # the plan analyzer's STATE_BUDGET_INVALID check of this floor comes
+    # with ROADMAP.md queue 1 item 11; until then the key is read only
+    LSM_RUN_FLOOR_BYTES = ConfigOption(
+        "state.lsm.run-floor-bytes", 65536,
+        "Smallest useful sealed-run size; a memory budget below this "
+        "floor would seal degenerate runs on nearly every batch and is "
+        "rejected at analysis time (STATE_BUDGET_INVALID).")
     ALLOW_DROPS = ConfigOption(
         "state.allow-drops", False,
         "When a key shard is full under state.backend='hbm', the default "
@@ -359,9 +393,6 @@ FAIL_ON_VALUES = ("error", "warn", "off")
 # keys of modules still to port, by prefix (or whole key), with the
 # ROADMAP.md item that brings each
 LATER_KEYS = (
-    ("pipeline.target-latency", "queue 1 item 2 (the debloater)"),
-    ("state.lsm.", "queue 1 item 4.5"),
-    ("state.memory-budget-bytes", "queue 1 item 4.5"),
     ("plugins.modules", "queue 1 item 6"),
     ("cluster.rescale-from", "queue 1 item 6"),
     ("table.", "queue 1 item 7"),
@@ -457,11 +488,6 @@ class Configuration:
         if backend not in BACKENDS:
             raise ValueError(f"state.backend must be 'hbm', 'spill' or "
                              f"'lsm', got {backend!r}")
-        if backend == "lsm":
-            raise NotImplementedError(
-                "state.backend='lsm' (the disk-backed spill tier, "
-                "state/lsm.py) is still to port: ROADMAP.md queue 1 item "
-                "4.5; use 'spill'")
         k = int(self.get(PipelineOptions.SUB_BATCHES))
         if k < 1:
             raise ValueError(f"pipeline.sub-batches must be >= 1, got {k}")

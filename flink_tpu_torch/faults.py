@@ -44,10 +44,13 @@ The port's points (``KNOWN_FAULT_POINTS``)::
     dcn.accept / dcn.send / dcn.send.partial / dcn.recv    exchange/dcn.py
     dcn.frame.encode                                       exchange/frames.py
     dcn.overlap.consume                                    runtime/driver.py
+    state.run.seal / state.run.fsync / state.compact.swap  state/lsm.py
+    state.changelog.link                                   checkpoint/storage.py
+    changelog.retract.emit                                 ops/global_agg.py
 
-The reference's other points (RPC, the log tier, sessions, HA, rescale,
-the LSM tier) come with the modules that fire them (ROADMAP.md queue 1
-items 4.5 to 10).
+The reference's other points (RPC, the log tier, sessions, HA, rescale)
+come with the modules that fire them (ROADMAP.md queue 1 items 6 to
+10).
 """
 from __future__ import annotations
 
@@ -84,6 +87,11 @@ KNOWN_FAULT_POINTS = frozenset((
     "dcn.recv",
     "dcn.frame.encode",
     "dcn.overlap.consume",
+    "state.run.seal",
+    "state.run.fsync",
+    "state.compact.swap",
+    "state.changelog.link",
+    "changelog.retract.emit",
 ))
 
 # process-global fault/recovery metrics — chaos tests assert every

@@ -1,7 +1,8 @@
 """Lower the transformation DAG to the plan the driver walks per batch:
 source → chain (fused host map, filter and flat-map functions) → window,
-element-path window, count window, session window, windowAll or
-windowed join → chain → sink, with union nodes merging streams and
+element-path window, count window, session window, windowAll, windowed
+join, running aggregate (``global_agg``) or keyed process function
+(``process``) → chain → sink, with union nodes merging streams and
 partition nodes (``rebalance`` and the like) as pass-through exchange
 boundaries. KeyBy
 folds into the stateful node that consumes it; a key function becomes a
@@ -21,7 +22,9 @@ import numpy as np
 from flink_tpu_torch.graph.transformations import (
     CountWindowAggregateTransformation,
     EvictingWindowTransformation,
+    GlobalAggregateTransformation,
     KeyByTransformation,
+    KeyedProcessTransformation,
     MapTransformation,
     PartitionTransformation,
     SessionAggregateTransformation,
@@ -40,7 +43,8 @@ from flink_tpu_torch.time.watermarks import WatermarkStrategy
 class ExecNode:
     id: int
     # source | chain | union | partition | window | evicting_window |
-    # count_window | session | window_all | join | sink
+    # count_window | session | window_all | join | global_agg | process |
+    # sink
     kind: str
     downstream: List[int] = dataclasses.field(default_factory=list)
     source: Any = None
@@ -144,6 +148,15 @@ def compile_job(transforms: Sequence[Transformation],
             n = new_node("session", t.name, window_transform=t,
                          key_field=t.key_field)
             nodes[up].downstream.append(n.id)
+        elif isinstance(t, (GlobalAggregateTransformation,
+                            KeyedProcessTransformation)):
+            up = node_for(t.inputs[0])
+            kind = ("global_agg"
+                    if isinstance(t, GlobalAggregateTransformation)
+                    else "process")
+            n = new_node(kind, t.name, window_transform=t,
+                         key_field=t.key_field)
+            nodes[up].downstream.append(n.id)
         elif isinstance(t, WindowAllAggregateTransformation):
             up = node_for(t.inputs[0])
             n = new_node("window_all", t.name, window_transform=t)
@@ -222,6 +235,12 @@ def _op_out_schema(node: ExecNode) -> Optional[Dict[str, str]]:
             out = {"window_start": "int64", "window_end": "int64",
                    "count": "int64"}
             out.update(_probe_result_schema(wt.aggregate))
+            return out
+        if node.kind == "global_agg":
+            out = {"key": "int64", "count": "int64"}
+            out.update(_probe_result_schema(wt.aggregate))
+            if getattr(wt, "retract", False):
+                out["__op__"] = "int8"
             return out
         if node.kind == "join":
             out = {"key": "int64", "window_start": "int64",

@@ -91,6 +91,26 @@ class CountWindowAggregateTransformation(Transformation):
 
 
 @dataclasses.dataclass(eq=False)
+class GlobalAggregateTransformation(Transformation):
+    """Unwindowed keyed running aggregation emitting an upsert stream
+    (ops/global_agg.py); ``retract=True`` emits the full op-typed
+    changelog instead (-U/+U pairs, records.OP_FIELD lane)."""
+
+    aggregate: Optional[LaneAggregate] = None
+    key_field: str = "key"
+    retract: bool = False
+
+
+@dataclasses.dataclass(eq=False)
+class KeyedProcessTransformation(Transformation):
+    """Keyed process function with state and timers (ref: KeyedStream
+    .process -> KeyedProcessOperator; ops/process.py)."""
+
+    fn: Any = None  # api.functions.KeyedProcessFunction
+    key_field: str = "key"
+
+
+@dataclasses.dataclass(eq=False)
 class WindowAllAggregateTransformation(Transformation):
     """Non-keyed global window + aggregate, folded per pane on the host
     (``ops/window_all.py``)."""

@@ -1,7 +1,9 @@
 """Operator factories: build the runtime operator of a plan node. The
 window, element-path window, count-window, session, windowAll and
-windowed-join operators are ported; the state backend (``hbm`` or
-``spill``), the drop policy, the driver's host pool and, for a keyed
+windowed-join operators are ported; the state backend (``hbm``,
+``spill`` or ``lsm``, whose disk tier the window factory builds, a store
+directory an operator instance under ``state.lsm.dir``), the drop
+policy, the driver's host pool and, for a keyed
 window over a mesh of device blocks, the mesh plan and its exchange's
 capacity and pattern, and across processes the process's span of the
 key shards, reach them through the context."""
@@ -23,9 +25,14 @@ class OperatorBuildContext:
     max_inflight_steps: int
     max_out_of_orderness_ms: int
     fire_gate: bool
-    # state.backend: 'hbm' (device slots only) or 'spill' (keys past
-    # them aggregate in a host store)
+    # state.backend: 'hbm' (device slots only), 'spill' (keys past them
+    # aggregate in a host store) or 'lsm' (the host store tiered to disk)
     backend: str = "hbm"
+    # state.backend='lsm': the memtable budget, the run-file root and
+    # the compaction trigger
+    memory_budget_bytes: int = 64 * 1024 * 1024
+    lsm_dir: str = "/tmp/flink-tpu-state"
+    lsm_compact_min_runs: int = 4
     # state.allow-drops: drop and count a full shard's records instead
     # of failing the job
     allow_drops: bool = False
@@ -50,6 +57,26 @@ def _window_factory(node, ctx: OperatorBuildContext):
     from flink_tpu_torch.ops.window import WindowOperator
 
     t = node.window_transform
+    spill_store = None
+    if ctx.backend == "lsm":
+        import os
+        import uuid
+
+        from flink_tpu_torch.state.lsm import LsmSpillStore
+
+        # unique an operator instance: run files belong to one store for
+        # its lifetime (checkpoints hardlink them out; a restore links
+        # them back into the successor's fresh directory)
+        store_dir = os.path.join(
+            ctx.lsm_dir,
+            f"op{node.id}-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+        spill_store = LsmSpillStore(
+            t.aggregate, store_dir=store_dir,
+            memory_budget_bytes=ctx.memory_budget_bytes,
+            num_shards=ctx.num_shards,
+            compact_min_runs=ctx.lsm_compact_min_runs,
+            pool=ctx.host_pool,
+            fold_chunk_records=ctx.fold_chunk_records)
     op = WindowOperator(
         t.assigner, t.aggregate,
         num_shards=ctx.num_shards,
@@ -58,6 +85,7 @@ def _window_factory(node, ctx: OperatorBuildContext):
         max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
         top_n=t.top_n,
         spill=ctx.backend == "spill",
+        spill_store=spill_store,
         max_inflight_steps=ctx.max_inflight_steps,
         fire_gate=ctx.fire_gate,
         device=ctx.device,

@@ -64,7 +64,13 @@ can carry late, re-fire or miss work.
 With ``spill`` (``state.backend = spill``) a record whose key's shard
 is full aggregates in a ``HostSpillStore`` on the host instead; each
 fire adds the store's rows for the same ends, and a top-n re-ranks the
-union per window (the emit ring drained at each fire). Under
+union per window (the emit ring drained at each fire). With
+``state.backend = lsm`` the factory passes the disk tier
+(``state/lsm.py``'s ``LsmSpillStore``) as ``spill_store``, used in its
+place: a snapshot carries its delta inline and names its sealed runs
+(``__aux_files__``, hardlinked by the checkpoint plane), and a restore
+takes the LSM form, with the run files at ``__aux_paths__``, or a plain
+spill snapshot. Under
 ``state.allow-drops`` a full shard's records are dropped and counted
 (``records_dropped_full``); by default they fail the job.
 
@@ -560,6 +566,7 @@ class WindowOperator:
         max_out_of_orderness_ms: int = 0,
         top_n: Optional[Tuple[str, int]] = None,
         spill: bool = False,
+        spill_store: Optional[Any] = None,
         max_inflight_steps: int = PipelineOptions.MAX_INFLIGHT_STEPS.default,
         fire_gate: bool = PipelineOptions.FIRE_GATE.default,
         device: "str | torch.device" = "cuda",
@@ -629,10 +636,11 @@ class WindowOperator:
                     "(the lane form of the reference's topn_shard) is still "
                     "to port: ROADMAP.md queue 1 item 9.1; a mesh ranks "
                     "count() by its count")
-            if spill:
+            if spill or spill_store is not None:
+                backend = "lsm" if spill_store is not None else "spill"
                 raise NotImplementedError(
-                    "state.backend='spill' on a device mesh is still to "
-                    "port: ROADMAP.md queue 1 item 9.2")
+                    f"state.backend='{backend}' on a device mesh is still "
+                    "to port: ROADMAP.md queue 1 item 9.2")
             self._shuffle = get_shuffle(exchange_impl)
             if (self._shuffle is all_to_all_shuffle
                     and isinstance(mesh_plan, HybridMeshPlan)):
@@ -686,10 +694,13 @@ class WindowOperator:
         self.late_records = 0
         # state.backend = spill: keys past the directory's slots
         # aggregate on the host; a top-n with spill queues the store's
-        # rows here for the drain that re-ranks them with the ring's
-        self._spill: Optional[HostSpillStore] = (
-            HostSpillStore(agg, pool=host_pool,
-                           fold_chunk_records=fold_chunk_records)
+        # rows here for the drain that re-ranks them with the ring's.
+        # state.backend = lsm passes the disk tier (state/lsm.py, the
+        # same interface) as spill_store
+        self._spill: Optional[Any] = (
+            spill_store if spill_store is not None
+            else HostSpillStore(agg, pool=host_pool,
+                                fold_chunk_records=fold_chunk_records)
             if spill else None)
         self._pending_ring_extras: collections.deque = collections.deque()
         # state.allow-drops: drop and count the records of a full shard
@@ -2232,9 +2243,15 @@ class WindowOperator:
             self._reconcile_devstats()
         self._flush_stash()
         self._resolve_overflow()  # a checkpoint must not hide a loss
-        return {
-            "spill": (self._spill.snapshot() if self._spill is not None
-                      else None),
+        spill_snap = (self._spill.snapshot() if self._spill is not None
+                      else None)
+        # the LSM tier's sealed runs ride the checkpoint as hardlinks,
+        # not serialized state: their name -> path map goes to the top
+        # level, where the coordinator hands it to storage's aux plane
+        aux_files = (spill_snap.pop("aux_files", None)
+                     if isinstance(spill_snap, dict) else None)
+        out = {
+            "spill": spill_snap,
             "n_dev": len(self._devices),
             "ring": self.plan.ring,
             # the blocks end to end: the reference's global row layout
@@ -2249,6 +2266,9 @@ class WindowOperator:
             "late_records": self.late_records,
             "records_dropped_full": self.records_dropped_full,
         }
+        if aux_files:
+            out["__aux_files__"] = aux_files
+        return out
 
     def _global_panes(self) -> PaneState:
         """A copy of the pane state with the blocks end to end on the
@@ -2269,13 +2289,27 @@ class WindowOperator:
         the reference package's once its panes are host arrays (see
         ``load_jax_snapshot``). A snapshot taken over another number of
         device blocks is re-blocked (``reblock_panes``). Host-spill state
-        restores into an operator with spill; an operator without refuses
-        it rather than lose it."""
+        restores into an operator with spill or lsm; an LSM snapshot with
+        sealed runs only into lsm (its run files at ``__aux_paths__``,
+        which checkpoint storage's load injects); an operator without a
+        store refuses either rather than lose it."""
         snap_spill = snap.get("spill")
-        if self._spill is None and snap_spill and snap_spill.get("panes"):
+        if self._spill is None and snap_spill and (
+                snap_spill.get("panes") or snap_spill.get("runs")
+                or (snap_spill.get("delta") or {}).get("panes")):
             raise ValueError(
-                "snapshot contains host-spill state but state.backend is "
-                "'hbm'; restore with state.backend='spill'")
+                "snapshot contains host-spill state but state.backend "
+                "is 'hbm'; restore with state.backend='spill' or 'lsm'")
+        if (isinstance(self._spill, HostSpillStore) and snap_spill
+                and snap_spill.get("kind") == "lsm"
+                and snap_spill.get("runs")):
+            # an lsm->spill flip: the delta would restore, but the sealed
+            # runs hold state the RAM store has no files for
+            raise ValueError(
+                "snapshot carries "
+                f"{len(snap_spill['runs'])} sealed lsm "
+                "run(s) the RAM spill store cannot adopt; "
+                "restore with state.backend='lsm'")
         panes = snap["panes"]
         names = ("sums", "maxs", "mins", "counts")
         lanes = {}
@@ -2330,7 +2364,14 @@ class WindowOperator:
         self.late_records = snap["late_records"]
         self.records_dropped_full = snap.get("records_dropped_full", 0)
         if self._spill is not None and snap_spill is not None:
-            self._spill.restore(snap_spill)
+            if not isinstance(self._spill, HostSpillStore):
+                # the disk tier: the lsm form or a plain spill snapshot
+                self._spill.restore(
+                    snap_spill, aux_paths=snap.get("__aux_paths__"))
+            elif snap_spill.get("kind") == "lsm":
+                self._spill.restore(snap_spill["delta"])
+            else:
+                self._spill.restore(snap_spill)
         self._pending_ring_extras.clear()
         # stashed and device-made steps from before the restore belong to
         # another timeline
@@ -2357,10 +2398,6 @@ class WindowOperator:
         The lanes must be this operator's aggregate's. A snapshot of the
         reference's sharded operator (its blocks end to end, ``n_dev``
         of them) loads into any number of blocks."""
-        spill = snap.get("spill")
-        if spill and (spill.get("kind") == "lsm" or spill.get("runs")):
-            raise ValueError("snapshot carries lsm state (state.backend="
-                             "'lsm'), which is not ported")
         if snap.get("records_dropped_full", 0) and not self.allow_drops:
             raise ValueError(
                 "snapshot's operator dropped records on a full key "

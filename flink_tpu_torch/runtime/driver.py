@@ -88,9 +88,15 @@ every process holds. The loop overlaps one step's exchange with the
 next by default (``cluster.dcn-overlap``). A ``partition`` node
 (``rebalance`` and the like) passes its batches through at this
 parallelism of 1 and advances its partitioner, whose state rides the
-checkpoint. Batch mode, rescaling and the debloater are not ported
-(ROADMAP.md); the configuration check and the driver refuse confs that
-ask for them.
+checkpoint. Batch mode and rescaling are not ported (ROADMAP.md); the
+configuration check and the driver refuse confs that ask for them.
+
+With ``pipeline.target-latency`` set, the debloater re-chunks each
+host-fed batch (each sub-batch slice at K > 1) before the push, and
+steers the chunk once a loop pass by the recent fire-to-sink p99
+(``_debloat_split``, ``_debloat_adjust``, gauge ``debloat_chunk``), as
+the reference's driver does; device-made batches and the cross-process
+loop's merged shares are not re-chunked, there or here.
 """
 from __future__ import annotations
 
@@ -116,9 +122,13 @@ Batch = Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]  # data, ts, valid
 
 _FINAL = int(np.iinfo(np.int64).max)  # end-of-input watermark
 _STATEFUL = ("window", "evicting_window", "count_window", "session",
-             "window_all", "join")
+             "window_all", "join", "global_agg", "process")
 # the kinds the watermark advances (count windows fire per batch only)
-_EVENT_TIME = ("window", "evicting_window", "session", "window_all", "join")
+_EVENT_TIME = ("window", "evicting_window", "session", "window_all", "join",
+               "process")
+# the kinds that emit per batch (take_fired) and queue behind the fires
+# before them
+_PER_BATCH = ("session", "global_agg", "process")
 
 
 class Driver:
@@ -167,6 +177,19 @@ class Driver:
         # delivery (time queued before the step dispatched is not in it)
         self._lat_hist = g.histogram("emit_latency_ms")
         self._wm_lag = g.gauge("watermark_lag_ms")
+        # the adaptive microbatch debloater (ref: BufferDebloater): with
+        # pipeline.target-latency set, ingest re-chunks host-fed source
+        # batches; the chunk halves while the recent fire-to-sink p99
+        # overshoots the target and regrows while it sits under half of
+        # it (_debloat_split, _debloat_adjust)
+        self._debloat_target = float(
+            config.get(PipelineOptions.TARGET_LATENCY))
+        # the chunk (None until the first batch seeds it) lives in a
+        # dict the gauge reads, as the other gauges read the driver's
+        debloat = self._debloat = {"chunk": None}
+        self._debloat_min = 4096
+        self._debloat_seen = 0  # histogram count at the last control step
+        g.gauge("debloat_chunk", lambda: float(debloat["chunk"] or 0))
         self.prof: Dict[str, float] = collections.defaultdict(float)
         # a job across processes: this process's id among nproc, its
         # exchange endpoint while a run holds one, and the exchange's
@@ -246,6 +269,53 @@ class Driver:
         self._last_freeze_versions: Dict[int, int] = {}
         self._metrics_server = None
 
+    @property
+    def _debloat_chunk(self) -> Optional[int]:
+        return self._debloat["chunk"]
+
+    @_debloat_chunk.setter
+    def _debloat_chunk(self, chunk: Optional[int]) -> None:
+        self._debloat["chunk"] = chunk
+
+    def _debloat_split(self, data, ts):
+        """Re-chunk one host-fed source batch (or sub-batch slice) to the
+        debloater's chunk: the batch whole when the debloater is off or
+        the batch fits, else contiguous slices in record order, so the
+        watermark generators see the same max timestamp. The first
+        non-empty batch seeds the chunk at its size."""
+        n = len(ts)
+        chunk = self._debloat_chunk
+        if self._debloat_target <= 0 or chunk is None or n <= chunk:
+            if self._debloat_target > 0 and chunk is None and n:
+                self._debloat_chunk = n
+            yield data, ts
+            return
+        chunk = max(1, chunk)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            yield ({k: v[lo:hi] for k, v in data.items()}, ts[lo:hi])
+
+    def _debloat_adjust(self) -> None:
+        """One control step (ref: BufferDebloater.recalculateBufferSize),
+        once a loop pass: the p99 of the 16 newest fire-to-sink
+        latencies above the target halves the chunk (not below
+        ``_debloat_min``), under half the target doubles it (the split
+        never merges batches, so the source batch caps it). It acts on
+        fresh samples only (at least 2 since the last step): the loop
+        passes far more often than windows fire."""
+        if self._debloat_target <= 0 or self._debloat_chunk is None:
+            return
+        c = self._lat_hist.count
+        if c - self._debloat_seen < 2:
+            return
+        self._debloat_seen = c
+        p99 = self._lat_hist.quantile_recent(0.99, window=16)
+        if p99 > self._debloat_target:
+            self._debloat_chunk = max(self._debloat_min,
+                                      self._debloat_chunk // 2)
+        elif p99 < self._debloat_target / 2:
+            self._debloat_chunk *= 2
+
     def _reaches_stateful(self, nid: int) -> bool:
         todo = list(self.plan.node(nid).downstream)
         seen = set()
@@ -281,6 +351,11 @@ class Driver:
             fire_gate=bool(self.config.get(PipelineOptions.FIRE_GATE)),
             readiness=self._readiness,
             backend=str(self.config.get(StateOptions.BACKEND)).strip().lower(),
+            memory_budget_bytes=int(self.config.get(
+                StateOptions.MEMORY_BUDGET_BYTES)),
+            lsm_dir=str(self.config.get(StateOptions.LSM_DIR)),
+            lsm_compact_min_runs=int(self.config.get(
+                StateOptions.LSM_COMPACT_MIN_RUNS)),
             allow_drops=bool(self.config.get(StateOptions.ALLOW_DROPS)),
             mesh_plan=self.mesh_plan,
             exchange_capacity=int(self.config.get(
@@ -303,6 +378,26 @@ class Driver:
                         "count windows on a device mesh are not yet "
                         "supported; run without cluster.mesh-devices")
                 self._ops[n.id] = _count_window_factory(n, ctx)
+            elif n.kind == "global_agg":
+                from flink_tpu_torch.ops.global_agg import (
+                    GlobalAggregateOperator)
+
+                if self.mesh_plan is not None:
+                    raise NotImplementedError(
+                        "unwindowed aggregation on a device mesh is not "
+                        "yet supported; run without cluster.mesh-devices")
+                t = n.window_transform
+                op = self._ops[n.id] = GlobalAggregateOperator(
+                    t.aggregate, num_shards=ctx.num_shards,
+                    slots_per_shard=ctx.slots_per_shard, retract=t.retract)
+                op.allow_drops = ctx.allow_drops
+            elif n.kind == "process":
+                from flink_tpu_torch.ops.process import KeyedProcessOperator
+
+                op = self._ops[n.id] = KeyedProcessOperator(
+                    n.window_transform.fn, num_shards=ctx.num_shards,
+                    slots_per_shard=ctx.slots_per_shard)
+                op.allow_drops = ctx.allow_drops
 
     def _shard_span(self) -> Optional[Tuple[int, int]]:
         """This process's contiguous span of the key shards in a job
@@ -425,7 +520,12 @@ class Driver:
             if (v is not None and base is not None
                     and base["versions"].get(nid) == v
                     and nid in base["files"]):
-                ops[nid] = ReusedOpState(base["files"][nid], int(v))
+                ops[nid] = ReusedOpState(
+                    base["files"][nid], int(v),
+                    # changelog aux (lsm runs) re-links from the base
+                    # checkpoint's own hardlinks, never the store's live
+                    # files: reuse must survive the store's compaction
+                    aux=(base.get("aux") or {}).get(nid))
             else:
                 ops[nid] = op.snapshot_state()
         self._last_freeze_versions = {
@@ -516,6 +616,8 @@ class Driver:
             self._ckpt_base = {
                 "files": dict(payload.get("op_files", {})),
                 "versions": dict(file_versions),
+                "aux": {nid: dict(m) for nid, m in
+                        (payload.get("op_aux_paths") or {}).items()},
             }
         self.metrics.update(payload["metrics"])
         staged_sinks = payload.get("sinks", {})
@@ -619,11 +721,17 @@ class Driver:
         self._ckpt_pending = None
         if not p.is_savepoint:
             names = handle.op_files or {}
+            aux_names = handle.op_aux or {}
             self._ckpt_base = {
                 "files": {nid: os.path.join(
                     handle.path, names.get(str(nid), f"op-{nid}.blob"))
                     for nid in self._ops},
                 "versions": dict(p.frozen_versions),
+                "aux": {nid: {logical: os.path.join(handle.path, fn)
+                              for logical, fn in
+                              aux_names.get(str(nid), {}).items()}
+                        for nid in self._ops
+                        if aux_names.get(str(nid))},
             }
         return handle
 
@@ -790,7 +898,8 @@ class Driver:
                         self._ingest_host_subbatched(sid, split_ix, alive,
                                                      data, ts)
                     else:
-                        self._push_source_batch(sid, data, ts)
+                        for data_c, ts_c in self._debloat_split(data, ts):
+                            self._push_source_batch(sid, data_c, ts_c)
                     src = self.plan.node(sid).source
                     self._positions[sid][split_ix] = src.position_after(
                         self._positions[sid][split_ix], data, ts)
@@ -803,6 +912,7 @@ class Driver:
                 self._propagate_watermarks()
                 self.prof["advance_wm"] += time.perf_counter() - t3
                 self._drain_emits(barrier=False)
+            self._debloat_adjust()
             # commit a finished background checkpoint (never blocks),
             # then start the next once the interval has passed and none
             # is in flight
@@ -1197,8 +1307,9 @@ class Driver:
         sub = max(1, -(-n // self._sub_batches))
         for lo in range(0, n, sub):
             hi = min(lo + sub, n)
-            self._push_source_batch(sid, {k: v[lo:hi] for k, v in data.items()},
-                                    ts[lo:hi])
+            for data_c, ts_c in self._debloat_split(
+                    {k: v[lo:hi] for k, v in data.items()}, ts[lo:hi]):
+                self._push_source_batch(sid, data_c, ts_c)
             if hi > lo:
                 self._wm_gens[sid][split_ix].on_batch(int(ts[lo:hi].max()))
             self._recombine_source_wm(sid, alive)
@@ -1237,19 +1348,22 @@ class Driver:
         elif n.kind == "window":
             keys = np.asarray(data[n.key_field], np.int64)
             self._ops[nid].process_batch(keys, ts, data, valid)
-        elif n.kind in ("count_window", "evicting_window", "session"):
+        elif n.kind in ("count_window", "evicting_window") + _PER_BATCH:
             op = self._ops[nid]
             keys = np.asarray(data[n.key_field], np.int64)
             if n.kind != "count_window":
-                # the element buffers and the session lanes take the
-                # numeric columns only
+                # the element buffers, the session lanes, the running
+                # aggregate and the process function take the numeric
+                # columns only
                 data = {k: v for k, v in data.items()
                         if np.asarray(v).dtype != object}
             op.process_batch(keys, ts, data, valid)
             fired = op.take_fired()
-            if fired is not None and n.kind == "session":
-                # retract mode's -U rows queue behind the session's
-                # earlier fires, which a deferral may still hold
+            if fired is not None and n.kind in _PER_BATCH:
+                # per-batch rows (a session's retract -U rows, a running
+                # aggregate's upserts, a process function's emissions)
+                # queue behind the operator's earlier fires, which a
+                # deferral may still hold
                 self._pending_emits.append((nid, fired, time.time()))
                 if self._deliver_at_fire:
                     self._drain_emits(barrier=True)
@@ -1303,6 +1417,16 @@ class Driver:
                     if wm > op.watermark or final:
                         self._pending_emits.append(
                             (nid, op.advance_watermark(wm), time.time()))
+                    # a process function's processing-time timers fire
+                    # on the clock beside the event-time advance (all of
+                    # them at end of input)
+                    adv_proc = getattr(op, "advance_processing_time_timers",
+                                       None)
+                    if adv_proc is not None:
+                        fired = adv_proc(fire_all=(in_wm == _FINAL or final))
+                        if fired is not None:
+                            self._pending_emits.append(
+                                (nid, fired, time.time()))
                 if self._deliver_at_fire:
                     self._drain_emits(barrier=True)
             self._out_wm[nid] = in_wm
@@ -1348,15 +1472,19 @@ class Driver:
         self.prof["drain"] += time.perf_counter() - t0
 
     def _deliver(self, nid: int, fired) -> bool:
-        """Push one fire's rows downstream, stamped at window end - 1
-        (materializing it first, if it is still lazy); False when it has
-        none."""
+        """Push one fire's rows downstream, stamped at window end - 1, or
+        at their own timestamps (``__ts__``: a running aggregate's and a
+        process function's rows), materializing it first if it is still
+        lazy; False when it has none."""
         out = dict(fired)
-        nrec = len(out["window_end"])
+        if "__ts__" in out:
+            ts = np.asarray(out.pop("__ts__"), np.int64)
+        else:
+            ts = np.asarray(out["window_end"], np.int64) - 1
+        nrec = len(ts)
         if nrec == 0:
             return False
         self.metrics["fired_windows"] += nrec
-        ts = np.asarray(out["window_end"], np.int64) - 1
         self._push_downstream(nid, (out, ts, np.ones(nrec, bool)))
         return True
 

@@ -295,8 +295,22 @@ class HostSpillStore:
             for p in [p for p in self._pane_locks if p < dead_pane]:
                 del self._pane_locks[p]
 
+    def bytes_used(self) -> int:
+        """Host memory held by spilled panes; the LSM tier seals its
+        delta past its budget by it. ``list()`` takes the values at once
+        for a caller on another thread."""
+        return sum(sum(a.nbytes for a in arrs)
+                   for arrs in list(self.panes.values()))
+
+    @property
+    def key_count(self) -> int:
+        if not self.panes:
+            return 0
+        return len(np.unique(np.concatenate(
+            [t[0] for t in self.panes.values()])))
+
     def snapshot(self) -> Dict[str, Any]:
-        """The JAX package's layout: ``{"panes": {pane: (keys, sums,
+        """The JAX package's layout:``{"panes": {pane: (keys, sums,
         maxs, mins, counts)}, "records_spilled": n}``."""
         return {
             "panes": {int(p): tuple(a.copy() for a in t)

@@ -2,7 +2,9 @@
 CPU: storage (layouts, retention, the incremental hardlink reuse,
 compression, v1/v2/v3 loading), the blob format, the coordinator's
 async commit, and whole jobs that crash and resume — Q5 with bids made
-on the device at K = 4 sub-batches, Q5 host-fed, a tumbling count
+on the device at K = 4 sub-batches, Q5 host-fed, job S (Q5 host-fed
+with most keys in the host spill store, and in the LSM tier, whose
+sealed runs ride the checkpoints as hardlinks), a tumbling count
 window, session windows on a host pool of 4 (with a pool task's fault
 too), Nexmark Q7 (windowAll) and Q8 (the windowed join, both modes) —
 whose committed rows must equal the reference's in order, and the
@@ -491,14 +493,31 @@ def test_an_idle_operator_hardlinks_its_blob_in_a_job(P, tmp_path):
 # -- the 2PC sinks across a crash (tests/test_checkpoint.py) --------------------
 
 def crash_on_commit_sink(P, crash_at):
+    """A sink whose commit round for checkpoint ``crash_at`` dies once.
+    It records the checkpoint each restore came from (``restored``) and
+    every staged epoch as it turns visible (``commits``)."""
     class CrashOnCommit(P.sinks.TransactionalCollectSink):
         crashed = False
+
+        def __post_init__(self):
+            super().__post_init__()
+            self.restored = []
+            self.commits = []
 
         def notify_checkpoint_complete(self, checkpoint_id):
             if checkpoint_id == crash_at and not self.crashed:
                 self.crashed = True
                 raise RuntimeError("injected crash before commit")
+            self.commits += sorted(c for c in self._staged
+                                   if c <= checkpoint_id)
             super().notify_checkpoint_complete(checkpoint_id)
+
+        def restore_staged(self, staged, checkpoint_id):
+            self.restored.append(checkpoint_id)
+            self.commits += sorted(
+                c for c in staged
+                if self._last_committed < c <= checkpoint_id)
+            super().restore_staged(staged, checkpoint_id)
     return CrashOnCommit()
 
 
@@ -506,9 +525,11 @@ def crash_on_commit_sink(P, crash_at):
 @pytest.mark.parametrize("case", ["commit_crash", "no_checkpoint",
                                   "pending_rows"])
 def test_two_phase_commit_recovery(P, case, tmp_path):
-    """commit_crash: checkpoint 3 is durable but the process dies before
+    """commit_crash: checkpoint 2 is durable but the process dies before
     the commit round; its staged epoch, persisted inside it, is
-    re-committed on restore. no_checkpoint: the crash comes before the
+    re-committed on restore, once. Every run reaches checkpoint 2: at an
+    interval of 1 ms checkpoint 1 starts on an early loop pass, and the
+    final checkpoint comes after it, however long its persist lasts. no_checkpoint: the crash comes before the
     first checkpoint; the reused sink drops the crashed attempt's rows.
     pending_rows (test_crashed_attempt_drain_never_pollutes_next_attempt):
     the crashed attempt runs at pipeline.emit-defer 500 ms, so fires are
@@ -518,7 +539,7 @@ def test_two_phase_commit_recovery(P, case, tmp_path):
              else {"execution.checkpointing.interval": 10_000_000})
     first = (dict(extra, **{"pipeline.emit-defer": "500ms"})
              if case == "pending_rows" else extra)
-    sink = (crash_on_commit_sink(P, 3) if case == "commit_crash"
+    sink = (crash_on_commit_sink(P, 2) if case == "commit_crash"
             else P.sinks.TransactionalCollectSink())
     n = 12 if case == "commit_crash" else 6
     env = P.Env(job_conf(P, str(tmp_path), first))
@@ -536,6 +557,11 @@ def test_two_phase_commit_recovery(P, case, tmp_path):
     P.execute(env2, f"{case}-job")
     assert sink._pending == [] and sink._staged == {}
     assert counts_of(sink) == golden_counts(n)
+    if case == "commit_crash":
+        # the second run resumed from the checkpoint whose commit died,
+        # and that checkpoint's epoch turned visible exactly once
+        assert sink.restored == [2]
+        assert sink.commits.count(2) == 1
 
 
 # -- TestReshard: a snapshot across 1 and 4 device blocks ------------------------
@@ -633,6 +659,29 @@ def build_q5_host(P, sink):
     conf = {"state.num-key-shards": 8, "state.slots-per-shard": 128,
             "pipeline.microbatch-size": HOST_CFG["batch_size"]}
     return build, conf
+
+
+def build_q5_tiered(backend):
+    """Job S: the host-fed Q5 job with 128 device slots for its 500
+    auctions, so most keys aggregate in the host store; under 'lsm' a
+    4 KiB delta seals a run about every batch and four runs compact."""
+    def jobs(P, sink):
+        build, conf = build_q5_host(P, sink)
+        conf = dict(conf, **{"state.slots-per-shard": 16,
+                             "state.backend": backend,
+                             "execution.checkpointing.num-retained": 100})
+        if backend == "lsm":
+            conf.update({"state.memory-budget-bytes": 4096,
+                         "state.lsm.run-floor-bytes": 4096})
+        return build, conf
+    return jobs
+
+
+def with_state_dir(conf, root):
+    """The job's conf with the LSM tier's run files under ``root``."""
+    if conf.get("state.backend") == "lsm":
+        conf = dict(conf, **{"state.lsm.dir": root + "-state"})
+    return conf
 
 
 def wc_gen(split, i):
@@ -738,6 +787,8 @@ def build_q8(mode):
 
 
 JOBS = {"q5_devgen_k4": build_q5_devgen, "q5_host": build_q5_host,
+        "q5_spill": build_q5_tiered("spill"),
+        "q5_lsm": build_q5_tiered("lsm"),
         "count_window": build_count_window, "sessions": build_sessions,
         "q7": build_q7, "q8_pairs": build_q8("pairs"),
         "q8_aggregate": build_q8("aggregate")}
@@ -763,7 +814,7 @@ def run_job(P, job, tmp_root, mode):
             else P.sinks.TransactionalCollectSink())
     build, conf = JOBS[job](P, sink)
     root = os.path.join(tmp_root, f"{P.name}-{job}-{mode}")
-    conf = P.Conf(dict(conf, **{
+    conf = P.Conf(dict(with_state_dir(conf, root), **{
         "execution.checkpointing.dir": root,
         "execution.checkpointing.interval": 1,
         "restart-strategy.type": "fixed-delay",
@@ -784,15 +835,17 @@ def run_job(P, job, tmp_root, mode):
     else:
         P.execute(build(conf), job)
     rows = row_view(sink.committed)
-    positions = []
+    positions, aux = [], []
     st = P.storage.FsCheckpointStorage(root, job)
     for h in st.list_complete():
         payload = P.storage.FsCheckpointStorage.load(h)
         positions.append((payload.get("sub_factors", {}),
                           [p for pos in payload["sources"].values()
                            for p in pos.values()]))
+        aux.append(sum(len(m) for m in payload["op_aux_paths"].values()))
     _RUNS[key] = rows
     _RUNS[key + ("positions",)] = positions
+    _RUNS[key + ("aux",)] = aux
     return rows
 
 
@@ -828,7 +881,7 @@ def golden_rows(job):
                       for e in np.unique(we))
     if job.startswith("q8_"):
         return q8_golden(job[3:])
-    if job == "q5_host":
+    if job in ("q5_host", "q5_spill", "q5_lsm"):
         return q5_golden([(d["auction"], ts) for d, ts in (
             host_bids("0", i) for i in range(HOST_CFG["n_batches"]))],
             4000, 1000)
@@ -940,6 +993,11 @@ def test_crash_and_resume_commits_the_reference_rows(job, tmp_path_factory):
                     assert all(int(v) == 4 for v in factors.values())
                     mid += sum(1 for p in pos if p % 4)
         assert mid > 0, "no checkpoint cut a logical batch"
+    if job == "q5_lsm":
+        # sealed runs rode the checkpoints as hardlinks, in both packages
+        for P in BOTH:
+            for mode in ("clean", "chaos"):
+                assert max(_RUNS[(P.name, job, mode, "aux")]) > 0
 
 
 def test_position_rebase_between_factors():
@@ -1022,6 +1080,7 @@ def cut_job(P, job, root, cut, interval=10 ** 9, restore="", savepoint=False,
     Returns the committed rows."""
     sink = P.sinks.TransactionalCollectSink()
     build, conf = JOBS[job](P, sink)
+    conf = with_state_dir(conf, os.path.join(root, job))
     env = build(P.Conf(dict(conf, **{
         "execution.checkpointing.dir": root,
         "execution.checkpointing.interval": interval,
@@ -1062,7 +1121,8 @@ def cut_job(P, job, root, cut, interval=10 ** 9, restore="", savepoint=False,
     return row_view(sink.committed)
 
 
-CUTS = {"q5_devgen_k4": 9, "q5_host": 3, "count_window": 4, "sessions": 3,
+CUTS = {"q5_devgen_k4": 9, "q5_host": 3, "q5_spill": 3, "q5_lsm": 3,
+        "count_window": 4, "sessions": 3,
         "q7": 3, "q8_pairs": 3, "q8_aggregate": 3}
 
 
@@ -1133,6 +1193,15 @@ def test_payload_trees_equal_at_the_same_cut(job, cut_runs):
         for k in set(jop) - {"__aux_paths__"}:
             tree_equal(pop[k], jop[k], f"operators[{nid}][{k!r}]")
     assert pp["op_file_versions"] == jp["op_file_versions"]
+    # the LSM tier's hardlinked runs: the same names, the same bytes
+    assert ({n: sorted(m) for n, m in pp["op_aux_paths"].items()}
+            == {n: sorted(m) for n, m in jp["op_aux_paths"].items()})
+    assert bool(pp["op_aux_paths"]) == (job == "q5_lsm")
+    for nid, m in pp["op_aux_paths"].items():
+        for name, path in m.items():
+            with open(path, "rb") as f, \
+                    open(jp["op_aux_paths"][nid][name], "rb") as g:
+                assert f.read() == g.read(), (nid, name)
     assert pp["sinks"].keys() == jp["sinks"].keys()
     for nid in jp["sinks"]:
         assert ({c: row_view(r) for c, r in pp["sinks"][nid].items()}

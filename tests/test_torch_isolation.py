@@ -68,7 +68,9 @@ def test_scan_covers_the_package():
                 "ops/window_all.py", "ops/session.py", "ops/join.py",
                 "api/functions.py", "nexmark/queries.py",
                 "exchange/dcn.py", "exchange/frames.py",
-                "exchange/partitioners.py", "parallel/mesh.py"):
+                "exchange/partitioners.py", "parallel/mesh.py",
+                "formats_columnar.py", "log/bus.py", "state/lsm.py",
+                "ops/global_agg.py", "state/api.py", "ops/process.py"):
         assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 

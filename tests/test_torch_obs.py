@@ -430,9 +430,9 @@ def test_host_keys_are_read_and_take_effect(workers):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("pipeline.target-latency", "queue 1 item 2"),
-    ("state.lsm.dir", "queue 1 item 4.5"),
-    ("state.memory-budget-bytes", "queue 1 item 4.5"),
+    ("log.cleaner.enabled", "queue 1 item 8"),
+    ("execution.batch.shuffle-dir", "queue 1 item 8"),
+    ("rescale.mode", "queue 1 item 10"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
     ("plugins.modules", "queue 1 item 6"),
     ("cluster.rescale-from", "queue 1 item 6"),
@@ -458,6 +458,23 @@ def test_keys_of_later_items_name_their_item(key, item):
         Configuration({key: "1"}).validate()
     with pytest.raises(ValueError, match="not supported"):
         Configuration({"no.such.key": 1}).validate()
+
+
+@pytest.mark.parametrize("key", [
+    "pipeline.target-latency", "state.memory-budget-bytes",
+    "state.lsm.dir", "state.lsm.compact-min-runs",
+    "state.lsm.run-floor-bytes"])
+def test_ported_keys_take_the_reference_default_and_text(key):
+    """The keys of the debloater and the LSM tier are read by the port,
+    with the JAX package's default and description."""
+    from flink_tpu import config as jc
+    from flink_tpu_torch import config as pc
+
+    ref, port = jc._REGISTRY[key], pc._REGISTRY[key]
+    assert (port.default, port.description) == (ref.default,
+                                                ref.description)
+    pc.Configuration({key: ref.default}).validate()
+    pc.Configuration({"state.backend": "lsm"}).validate()
 
 
 def test_every_reference_key_is_ported_or_names_its_item():

@@ -162,7 +162,7 @@ def test_bench_conf_loads_and_validates():
 
 @pytest.mark.parametrize("conf,err", [
     ({"state.backend": "rocksdb"}, ValueError),
-    ({"state.backend": "lsm"}, NotImplementedError),
+    ({"plugins.modules": "x"}, NotImplementedError),
     ({"analysis.fail-on": "sometimes"}, ValueError),
     ({"pipeline.max-inflight-steps": 0}, ValueError),
 ])
@@ -229,19 +229,22 @@ def test_max_inflight_steps_reaches_the_operator(steps):
     assert [op.max_inflight_steps for op in ops] == [want]
 
 
-def test_unported_pipeline_shapes_raise():
+def test_unported_pipeline_shapes_raise(tmp_path):
     from flink_tpu_torch.ops.aggregates import count, max_of, multi
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
 
-    # the disk-backed spill tier is still to port: a job asking for it
-    # is refused, naming the roadmap item
+    # the disk-backed spill tier on a device mesh is still to port: a
+    # job asking for it is refused, naming the roadmap item
     env = StreamExecutionEnvironment(Configuration(
-        dict(SMALL_CONF, **{"state.backend": "lsm"})))
+        dict(SMALL_CONF, **{"state.backend": "lsm",
+                            "state.lsm.dir": str(tmp_path)})))
     (env.from_source(GeneratorSource(seeded_bids(64, 1, 1, 5, seed=5)))
      .key_by("auction").window(TumblingEventTimeWindows.of(1_000))
-     .aggregate(multi(count(), max_of("price"))).top(1, by="max_price")
+     .aggregate(multi(count(), max_of("price")))
      .add_sink(CollectSink()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.5"):
-        env.execute("top-by-price", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9.2"):
+        env.execute("lsm-on-a-mesh", device="cpu",
+                    mesh_plan=make_mesh_plan(8, 512, ["cpu"] * 4))
 
 
 def test_from_collection_batches_by_microbatch_size():

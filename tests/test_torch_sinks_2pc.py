@@ -12,6 +12,7 @@ run_with_recovery with storage faults (TestChaosRecoveryExactlyOnce),
 whose committed rows, fault spans, recovery spans and counters must be
 the reference's."""
 import os
+import time
 
 import numpy as np
 import pytest
@@ -357,7 +358,18 @@ def run_chaos(P, root, tolerable):
 
     def build(conf):
         env = P.Env(conf)
-        (env.from_source(P.GeneratorSource(det_gen),
+
+        def paced(split, i):
+            # the source (on the loop thread: no prefetch) waits for the
+            # checkpoint in flight, so every batch boundary takes one
+            # whatever the host's load, and each injection lands on the
+            # same checkpoint in every run: never on the final one
+            p = getattr(getattr(env, "_driver", None), "_ckpt_pending", None)
+            while p is not None and not p.done():
+                time.sleep(0.001)
+            return det_gen(split, i)
+
+        (env.from_source(P.GeneratorSource(paced),
                          P.WM.for_bounded_out_of_orderness(1000))
          .key_by("k").window(P.Tumbling.of(1000)).count().add_sink(sink))
         return env
@@ -365,6 +377,7 @@ def run_chaos(P, root, tolerable):
     conf = P.Conf({
         "state.num-key-shards": 8, "state.slots-per-shard": 64,
         "pipeline.microbatch-size": 128,
+        "pipeline.source-prefetch": 0,
         "execution.checkpointing.dir": root,
         "execution.checkpointing.interval": 1,
         "execution.checkpointing.tolerable-failures": 5 if tolerable else 0,
