@@ -280,8 +280,43 @@ mesh).
    operator's order); and a ``KeyedProcessFunction`` (an idle timeout on
    a ``ValueState`` and event-time timers) against a numpy golden of
    its alerts. The last three keep their keys in 128 x 1024 slots.
+22. ``host_patterns`` — bench.py:206-208's bids at
+   confs/bench_q5_host_fed.conf through the host operators of CEP,
+   async I/O and broadcast state,
+   each against a numpy golden: CEP on 4 x 2^20 bids keyed by bidder (a
+   low bid, under the 20th percentile of price, followed by a high one,
+   over the 99th, within 10 s) run with one partial a key, as NO_SKIP
+   with ``max_partials`` set from the data, and with a trailing absence
+   window (no bid over the 99.9th percentile within 10 s of the low one),
+   each held to a plain per-key automaton written here; async I/O on 8 x
+   2^20 bids (auction to one of 64 categories from a numpy table, 2 ms a
+   batch, capacity 8), ordered and unordered, into a keyed 1 s tumbling
+   count on the card; and broadcast state (per-category thresholds in
+   the control stream's one batch) into the same window. Printed a job:
+   events/s, the device idle share by CUDA-event spans, the kernels it
+   launched, and for async the mean batches in flight (submit to release
+   over the job's wall time).
+23. ``rescale`` — the hybrid phase's job (16 x 2^20 bids a split, two
+   splits, into ``FileTransactionalSink``s) through two cuts, this
+   script started as ``--rescale-worker`` processes: 2 -> 1 (two
+   processes on their hybrid plans checkpoint every step in lockstep and
+   stop after batch 8; one process restores both checkpoints through
+   ``cluster.rescale-from`` on mesh M1's four blocks of cuda:0 and runs
+   batches 9-16) and 1 -> 2 (one process on M1's blocks stops after a
+   synchronous checkpoint at batch 8; two restore their spans of it).
+   Each old sink first commits the epochs its cut staged. Checked: the
+   union of committed rows against the golden, each (auction, window)
+   once, and the resumed half's ``bucket_records`` and window kernels
+   launched. Printed: the restore's load, merge and re-block plus upload
+   seconds, the resumed half's events/s and idle share.
 
-Each of 16-21 prints its events/s and wall time beside the card's name
+In the default run, for the script's time budget, phase 22's CEP takes
+2 batches and phase 23 8 batches a split, cut after batch 4 (each JSON
+line lists its cut); ``--host-patterns`` and ``--rescale`` run the sizes
+above. Before the card line the default run prints each phase's seconds
+(``phase_seconds``).
+
+Each of 16-23 prints its events/s and wall time beside the card's name
 and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
@@ -354,7 +389,8 @@ copied in and run both in one call, in turns. The rows:
   events/s a run (a tree beside its parent, in turns).
 
 With ``--checkpoint`` it builds the kernels and runs only phase 15.
-With ``--state-tiers`` it builds the kernels and runs only phase 21.
+With ``--state-tiers`` it builds the kernels and runs only phase 21,
+with ``--host-patterns`` phase 22 and with ``--rescale`` phase 23.
 
 With ``--host-operators`` it builds the kernels and runs only phases
 16-19. With ``--hybrid`` it builds the kernels and runs only phase 20.
@@ -504,8 +540,15 @@ CALL_KERNELS = {
 }
 
 
+# (phase, the time its line was printed): the default run prints each
+# phase's seconds from them (its budget)
+PHASE_ENDS = [("start", time.perf_counter())]
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        PHASE_ENDS.append((obj["phase"], time.perf_counter()))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -7624,6 +7667,565 @@ def phase_state_tiers(torch, np):
     return launches
 
 
+# -- phase 22: host patterns — CEP, async I/O and broadcast state -------------
+
+HP_CEP_BATCHES = 4              # CEP: 2^20 bids a batch, keyed by bidder
+HP_CEP_BATCHES_CUT = 2          # the same in the default run (its budget)
+HP_ASYNC_BATCHES = 8            # async I/O and broadcast, 2^20 bids a batch
+HP_WITHIN_MS = 10_000
+HP_CATEGORIES = 64              # the lookup table's categories
+HP_SLEEP_S = 0.002              # the stand-in RPC, a batch
+HP_CAPACITY = 8
+
+
+def hp_prices(np, cfg):
+    """The CEP patterns' thresholds: the 20th, 99th and 99.9th
+    percentiles of the job's bid prices."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    price = np.concatenate([bid_batch(cfg, 0, i)[0]["price"]
+                            for i in range(cfg.n_batches)])
+    return tuple(float(p) for p in np.percentile(price, [20, 99, 99.9]))
+
+
+def hp_bids(np, cfg):
+    """(bidder, ts, price) of every bid of ``cfg``, in stream order."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    parts = [bid_batch(cfg, 0, i) for i in range(cfg.n_batches)]
+    return (np.concatenate([d["bidder"] for d, _ in parts]),
+            np.concatenate([t for _, t in parts]),
+            np.concatenate([d["price"] for d, _ in parts]))
+
+
+def hp_automaton(np, cfg, prices, mode):
+    """A plain per-key automaton of the three CEP runs, sharing no code
+    with the port: each bidder's bids in time order; only bids that are
+    low (< the 20th percentile) or high (> the 99th) move it, the rest
+    can only age a partial out of its window, which the next low or high
+    bid decides alike. ``mode``: 'first' (one partial a key, skip past
+    the match), 'all' (every low bid opens a partial; a high bid
+    completes every live one) or 'absence' (low, then high, then no top
+    bid (> the 99.9th) within the window of the low: completed by a later
+    bid of the key past the deadline, as the job runs without a
+    watermark flush of its CEP node). The rows as (key, low_ts,
+    high_ts[, end]) and, for 'all', the most partials a key held at
+    once."""
+    lo_p, hi_p, top_p = prices
+    keys, ts, price = hp_bids(np, cfg)
+    order = np.lexsort((ts, keys))
+    keys, ts, price = keys[order], ts[order], price[order]
+    last_ts = {}
+    ends = np.flatnonzero(np.r_[keys[1:] != keys[:-1], True])
+    for e in ends.tolist():
+        last_ts[int(keys[e])] = int(ts[e])
+    rel = (price < lo_p) | (price > hi_p)
+    out, widest = [], 0
+    w = HP_WITHIN_MS
+    cur_key, start, high, parts = None, None, None, []
+    for k, t, is_hi, is_top in zip(
+            keys[rel].tolist(), ts[rel].tolist(),
+            (price[rel] > hi_p).tolist(), (price[rel] > top_p).tolist()):
+        if k != cur_key:
+            if mode == "absence" and high is not None \
+                    and last_ts[cur_key] - start > w:
+                out.append((cur_key, start, high, start + w))
+            cur_key, start, high, parts = k, None, None, []
+        if mode == "all":
+            parts = [s for s in parts if t - s <= w]
+            if is_hi:
+                out += [(k, s, t) for s in parts]
+                parts = []
+            else:
+                parts.append(t)
+                widest = max(widest, len(parts))
+            continue
+        if mode == "absence" and high is not None and t - start > w:
+            out.append((k, start, high, start + w))
+            start = high = None
+        if start is not None and t - start > w:
+            start = high = None
+        if start is None:
+            if not is_hi:
+                start = t
+        elif mode == "first":
+            if is_hi:
+                out.append((k, start, t))
+                start = None
+        elif high is None:
+            if is_hi:
+                high = t
+        elif is_top:
+            start = high = None     # a top bid kills it
+    if mode == "absence" and high is not None \
+            and last_ts[cur_key] - start > w:
+        out.append((cur_key, start, high, start + w))
+    return sorted(out), widest
+
+
+def hp_job(torch, np, build, label, events):
+    """One job of phase 22 through ``env.execute()`` on the card at
+    confs/bench_q5_host_fed.conf: ``build(env, sink)`` wires it. (rows as
+    columns, its figures)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    env = StreamExecutionEnvironment(Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf")))
+    parts = []
+    build(env, FnSink(lambda b: parts.append(
+        {k: np.asarray(v) for k, v in b.items()})))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, host = busy_and_host(res)
+    cols = ({k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+            if parts else {})
+    return cols, {"events": events, "wall_s": wall,
+                  "events_per_s": events / wall,
+                  "device_busy_ms": busy,
+                  "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+                  "kernels": {k: v for k, v in wk.LAUNCHES.items() if v},
+                  "late_records": res.metrics["late_records"],
+                  "host_profile_s": host}
+
+
+def hp_window_golden(np, cfg, table, keep=None):
+    """(category, window_end, count) of the 1 s tumbling count over the
+    bids' categories (``keep``: a mask of the bids that pass)."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    cats, ends = [], []
+    for i in range(cfg.n_batches):
+        d, t = bid_batch(cfg, 0, i)
+        m = np.ones(len(t), bool) if keep is None else keep(d)
+        cats.append(table[d["auction"][m]])
+        ends.append(t[m] // 1000 * 1000 + 1000)
+    pairs, counts = np.unique(np.stack([np.concatenate(cats),
+                                        np.concatenate(ends)], 1),
+                              axis=0, return_counts=True)
+    return set(zip(pairs[:, 0].tolist(), pairs[:, 1].tolist(),
+                   counts.tolist()))
+
+
+def hp_window_rows(cols):
+    rows = list(zip(cols["key"].tolist(), cols["window_end"].tolist(),
+                    cols["count"].tolist()))
+    check(len(rows) == len(set(rows)), "host patterns: a window twice")
+    return set(rows)
+
+
+def phase_host_patterns(torch, np, cep_batches=HP_CEP_BATCHES):
+    """Phase 22: CEP, async I/O and broadcast state on bench.py:206-208's
+    bids (100 a ms, 10,000 auctions, hot ratio 4) at
+    confs/bench_q5_host_fed.conf, each against a numpy golden. The
+    default run passes ``HP_CEP_BATCHES_CUT`` and lists the cut."""
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.cep import CEP, Pattern
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.ops.broadcast import BroadcastProcessFunction
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    wm = WatermarkStrategy.for_bounded_out_of_orderness(1_000)
+    out = {"phase": "host_patterns", "conf": "confs/bench_q5_host_fed.conf",
+           "batch": Q5_BATCH, "cep_batches": cep_batches,
+           "async_batches": HP_ASYNC_BATCHES}
+    if cep_batches != HP_CEP_BATCHES:
+        out["cut"] = {"cep_batches": [HP_CEP_BATCHES, cep_batches]}
+
+    # CEP: low then high bid of a bidder within 10 s
+    cfg = bids_cfg(cep_batches)
+    prices = lo_p, hi_p, top_p = hp_prices(np, cfg)
+    want_all, widest = hp_automaton(np, cfg, prices, "all")
+    runs = {
+        "first": (Pattern.begin("low").where(lambda d: d["price"] < lo_p)
+                  .followed_by("high").where(lambda d: d["price"] > hi_p)
+                  .within(HP_WITHIN_MS), 8),
+        "all": (Pattern.begin("low").where(lambda d: d["price"] < lo_p)
+                .followed_by("high").where(lambda d: d["price"] > hi_p)
+                .within(HP_WITHIN_MS).after_match("NO_SKIP"), widest),
+        "absence": (Pattern.begin("low").where(lambda d: d["price"] < lo_p)
+                    .followed_by("high").where(lambda d: d["price"] > hi_p)
+                    .not_followed_by("top")
+                    .where(lambda d: d["price"] > top_p)
+                    .within(HP_WITHIN_MS), 8)}
+    cep = {}
+    for mode, (pattern, width) in runs.items():
+        def build(env, sink, pattern=pattern, width=width):
+            CEP.pattern(env.from_source(bid_stream(cfg), wm).key_by("bidder"),
+                        pattern, max_partials=width).add_sink(sink)
+        cols, fig = hp_job(torch, np, build, f"cep-{mode}",
+                           Q5_BATCH * cep_batches)
+        want = want_all if mode == "all" else hp_automaton(
+            np, cfg, prices, mode)[0]
+        fields = ["key", "low_ts", "high_ts"] + (
+            ["match_end"] if mode == "absence" else [])
+        got = sorted(zip(*(cols[f].tolist() for f in fields))) if cols else []
+        check(got == want, f"cep {mode}: {len(got)} matches, the automaton "
+                           f"{len(want)}; they differ")
+        check(want, f"cep {mode}: no match (vacuous)")
+        if mode == "absence" and cols:
+            check((cols["top_ts"] == -1).all(),
+                  "cep absence: the negated stage's column is not -1")
+        cep[mode] = {**fig, "matches": len(got), "max_partials": width}
+    out["cep"] = {"keyed_by": "bidder", "low_price": lo_p,
+                  "high_price": hi_p, "top_price": top_p,
+                  "within_ms": HP_WITHIN_MS, **cep}
+
+    # async I/O: auction -> category from a table, a 2 ms RPC a batch,
+    # into a keyed 1 s count on the card
+    cfg = bids_cfg(HP_ASYNC_BATCHES)
+    table = np.random.default_rng(SEED + 24).integers(
+        0, HP_CATEGORIES, cfg.num_active_auctions)
+    golden = hp_window_golden(np, cfg, table)
+    for ordered in (True, False):
+        # a batch by its first bids' auctions (a 2^20-bid batch's first
+        # 16 never repeat in 8 batches): submit and release times
+        submitted, released = {}, {}
+
+        def submit(data):
+            submitted[data["auction"][:16].tobytes()] = time.perf_counter()
+            return data
+
+        def lookup(data, ts):
+            time.sleep(HP_SLEEP_S)
+            return {**data, "category": table[data["auction"]]}
+
+        def release(data):
+            released[data["auction"][:16].tobytes()] = time.perf_counter()
+            return data
+
+        def build(env, sink, ordered=ordered):
+            (env.from_source(bid_stream(cfg), wm).map(submit)
+             .async_io(lookup, capacity=HP_CAPACITY, ordered=ordered)
+             .map(release).key_by("category")
+             .window(TumblingEventTimeWindows.of(1000)).count()
+             .add_sink(sink))
+        cols, fig = hp_job(torch, np, build, "async",
+                           Q5_BATCH * HP_ASYNC_BATCHES)
+        check(hp_window_rows(cols) == golden,
+              f"async (ordered={ordered}): rows differ from the golden")
+        check(fig["late_records"] == 0, f"async: late records {fig}")
+        check(sum(fig["kernels"].values()) > 0,
+              "async: the card window launched no kernel")
+        check(len(released) == HP_ASYNC_BATCHES, "async: a batch lost")
+        in_flight = sum(released[b] - submitted[b] for b in released)
+        out["async_ordered" if ordered else "async_unordered"] = {
+            **fig, "capacity": HP_CAPACITY, "sleep_ms": HP_SLEEP_S * 1e3,
+            "mean_batches_in_flight": in_flight / fig["wall_s"],
+            "rows": len(golden)}
+
+    # broadcast: per-category thresholds in the control stream's first
+    # (only) batch; the bids over their category's threshold go on to the
+    # same card window
+    thr = np.random.default_rng(SEED + 25).uniform(
+        *np.percentile(hp_bids(np, cfg)[2], [50, 95]), HP_CATEGORIES)
+
+    class OverThreshold(BroadcastProcessFunction):
+        def process_element(self, data, ts, state):
+            cat = table[data["auction"]]
+            keep = data["price"] > state["thr"][cat]
+            return {"category": cat[keep], "__ts__": ts[keep]}
+
+        def process_broadcast_element(self, data, ts, state):
+            state.setdefault("thr", np.zeros(HP_CATEGORIES))[
+                data["cat"]] = data["thr"]
+
+    def control(split, i):
+        # timestamped past the bids: the finished control stream holds
+        # no watermark back
+        if i >= 1:
+            return None
+        return ({"cat": np.arange(HP_CATEGORIES, dtype=np.int64),
+                 "thr": thr}, np.full(HP_CATEGORIES, 1 << 40, np.int64))
+
+    def build(env, sink):
+        from flink_tpu_torch.api.sources import GeneratorSource
+
+        ctl = env.from_source(GeneratorSource(control), wm)
+        (env.from_source(bid_stream(cfg), wm).connect(ctl)
+         .process(OverThreshold()).key_by("category")
+         .window(TumblingEventTimeWindows.of(1000)).count().add_sink(sink))
+    cols, fig = hp_job(torch, np, build, "broadcast",
+                       Q5_BATCH * HP_ASYNC_BATCHES)
+    want = hp_window_golden(
+        np, cfg, table,
+        keep=lambda d: d["price"] > thr[table[d["auction"]]])
+    check(hp_window_rows(cols) == want,
+          "broadcast: rows differ from the golden")
+    check(fig["late_records"] == 0 and sum(fig["kernels"].values()) > 0,
+          f"broadcast: late records or no kernel {fig}")
+    out["broadcast"] = {**fig, "rows": len(want)}
+    out["card"] = card_line()
+    emit(out)
+    return out
+
+
+# -- phase 23: rescale Q5's count stage from a checkpoint set ----------------
+
+RESCALE_BATCHES = 16            # 2^20-bid batches a split, two splits
+RESCALE_CUT = 8                 # the old fleet stops after this batch
+RESCALE_BATCHES_CUT = 8         # both halved in the default run (its
+RESCALE_CUT_CUT = 4             # budget)
+RESCALE_TIMEOUT_S = 300
+
+
+def rescale_plan(nproc, pid):
+    """Two processes: each its ``make_hybrid_mesh_plan(128, 256, 2, pid,
+    ["cuda:0", "cuda:0"])``; one process: mesh M1's four blocks of
+    cuda:0."""
+    from flink_tpu_torch.parallel.mesh import (make_hybrid_mesh_plan,
+                                               make_mesh_plan)
+
+    if nproc > 1:
+        return make_hybrid_mesh_plan(128, 256, 2, pid, ["cuda:0", "cuda:0"])
+    return make_mesh_plan(128, 256, ["cuda:0"] * MESH_BLOCKS)
+
+
+def rescale_worker(torch, np, spec):
+    """``--rescale-worker SPEC``: one process of phase 23. SPEC (JSON):
+    the cut's directory, the run ('old' or 'new'), the process id and
+    count, the peers, this process's port and the secret; a new run's
+    restore path and checkpoint set. The old run checkpoints every step
+    and stops after batch ``spec["cut"]``: across two processes (lockstep
+    steps, so the last checkpoint covers the batch) process 1 exits at
+    the next batch once process 0 holds that checkpoint too; alone, a
+    synchronous checkpoint at the cut, then the exit. Writes its figures to ``<root>/result-<run>-p<pid>.json``."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    pid, nproc, run, root = (spec["pid"], spec["nproc"], spec["run"],
+                             spec["root"])
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    if nproc > 1:
+        for k, v in (("cluster.num-processes", nproc),
+                     ("cluster.process-id", pid),
+                     ("cluster.dcn-peers", spec["peers"]),
+                     ("cluster.dcn-port", spec["port"]),
+                     ("cluster.dcn-secret", spec["secret"])):
+            conf.set(k, v)
+    conf.set("execution.checkpointing.dir", os.path.join(root, f"{run}-ckpt"))
+    if run == "old":
+        # the cut at a known batch: the source read when the loop needs
+        # it, and steps in lockstep across processes
+        conf.set("pipeline.source-prefetch", 0)
+        conf.set("execution.checkpointing.interval", 1)
+        conf.set("cluster.dcn-overlap", False)
+    else:
+        conf.set("execution.checkpointing.restore", spec["restore"])
+        conf.set("cluster.rescale-from", ",".join(spec["rescale_from"]))
+    inner = bid_stream(hybrid_cfg(spec["batches"])).gen
+    env = StreamExecutionEnvironment(conf)
+    read = [0]
+
+    def latest(p):
+        return FsCheckpointStorage(os.path.join(root, "old-ckpt"),
+                                   f"rescale-p{p}").latest()
+
+    def gen(split, i):
+        if run == "old" and i >= spec["cut"]:
+            if nproc == 1:
+                env._driver.checkpoint_now()
+                os._exit(43)
+            if pid == 1:
+                # process 0 finishes the step's checkpoint before this one
+                # leaves (it then fails on the exchange)
+                mine = latest(1).checkpoint_id
+                deadline = time.time() + RESCALE_TIMEOUT_S / 2
+                while ((latest(0) is None
+                        or latest(0).checkpoint_id < mine)
+                       and time.time() < deadline):
+                    time.sleep(0.01)
+                os._exit(43)
+        out = inner(split, i)
+        if out is not None:
+            read[0] += len(out[1])
+        return out
+
+    sink = FileTransactionalSink(os.path.join(root, f"sink-{run}-p{pid}"))
+    (env.from_source(GeneratorSource(gen, n_splits=2),
+                     WatermarkStrategy.for_bounded_out_of_orderness(1_000))
+     .key_by("auction").window(SlidingEventTimeWindows.of(10_000, 1_000))
+     .count().add_sink(sink))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute("rescale", device="cuda",
+                      mesh_plan=rescale_plan(nproc, pid))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, host = busy_and_host(res)
+    m = res.metrics
+    result = {"pid": pid, "nproc": nproc, "run": run, "events": read[0],
+              "wall_s": wall, "events_per_s": read[0] / wall,
+              "launches": {k: v for k, v in wk.LAUNCHES.items() if v},
+              "device_busy_ms": busy,
+              "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+              "restore_s": {k: m.get(f"profile.driver.restore_{k}", 0.0)
+                            for k in ("load", "merge", "ops")},
+              "late_records": m["late_records"],
+              "exchange_overflow": m["exchange_overflow"],
+              "mesh_devices": m.get("mesh_devices"),
+              "card": card_line()}
+    with open(os.path.join(root, f"result-{run}-p{pid}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def spawn_rescale(spec):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rescale-worker",
+         json.dumps(spec)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+
+
+def wait_workers(procs, label, expect):
+    """Wait for every worker (a hang fails the phase; each process is
+    stopped before this returns) and check its exit code (None: any but
+    0)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RESCALE_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, want) in enumerate(zip(procs, expect)):
+        ok = p.returncode != 0 if want is None else p.returncode == want
+        check(ok, f"{label}: process {pid} exited {p.returncode}:\n"
+                  + outs[pid][-4000:])
+
+
+def rescale_cut(torch, np, out, n_old, n_new, secret, batches, cut_after):
+    """One cut of phase 23: the old fleet of ``n_old`` processes stops
+    after batch ``cut_after`` of ``batches``; each old sink commits the
+    epochs its
+    process's last checkpoint staged (the restore's own step: the merged
+    payload carries none); ``n_new`` processes restore their spans of the
+    set through ``cluster.rescale-from`` and finish the job."""
+    import shutil
+
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+    root = os.path.join(out, f"{n_old}to{n_new}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def specs(run, nproc, **kw):
+        ports = free_ports(nproc)
+        peers = ",".join(f"127.0.0.1:{p}" for p in ports)
+        return [dict(pid=pid, nproc=nproc, run=run, root=root, peers=peers,
+                     port=ports[pid], secret=secret, batches=batches,
+                     cut=cut_after, **kw)
+                for pid in range(nproc)]
+
+    t0 = time.perf_counter()
+    wait_workers([spawn_rescale(s) for s in specs("old", n_old)],
+                 f"rescale {n_old}->{n_new} old fleet",
+                 (None, 43) if n_old == 2 else (43,))
+    old_wall = time.perf_counter() - t0
+    stores = [FsCheckpointStorage(
+        os.path.join(root, "old-ckpt"),
+        "rescale" + (f"-p{pid}" if n_old > 1 else "")) for pid in range(n_old)]
+    for pid, st in enumerate(stores):
+        check(st.latest() is not None,
+              f"rescale {n_old}->{n_new}: process {pid} holds no checkpoint")
+    cut = min(st.latest().checkpoint_id for st in stores)
+    paths, positions = [], []
+    for pid, st in enumerate(stores):
+        (h,) = [h for h in st.list_complete() if h.checkpoint_id == cut]
+        payload = FsCheckpointStorage.load(h)
+        (staged,) = payload["sinks"].values()
+        FileTransactionalSink(os.path.join(
+            root, f"sink-old-p{pid}")).restore_staged(staged, cut)
+        paths.append(h.path)
+        positions.append({str(k): v for pos in payload["sources"].values()
+                          for k, v in pos.items()})
+    t0 = time.perf_counter()
+    wait_workers([spawn_rescale(s) for s in specs(
+        "new", n_new, restore=paths[0], rescale_from=paths)],
+        f"rescale {n_old}->{n_new} new fleet", (0,) * n_new)
+    new_wall = time.perf_counter() - t0
+    results = []
+    for pid in range(n_new):
+        with open(os.path.join(root, f"result-new-p{pid}.json")) as f:
+            results.append(json.load(f))
+    rows = [(r["key"], r["window_end"], r["count"])
+            for run, n in (("old", n_old), ("new", n_new))
+            for pid in range(n)
+            for r in FileTransactionalSink.committed_rows(
+                os.path.join(root, f"sink-{run}-p{pid}"))]
+    before = sum(1 for pid in range(n_old)
+                 for _ in FileTransactionalSink.committed_rows(
+                     os.path.join(root, f"sink-old-p{pid}")))
+    check(before and len(rows) > before,
+          f"rescale {n_old}->{n_new}: a half committed nothing")
+    for r in results:
+        lo = r["launches"]
+        check(lo.get("bucket_records", 0) > 0,
+              f"rescale {n_old}->{n_new}: the resumed half launched no "
+              f"bucket_records: {lo}")
+        check(sum(v for k, v in lo.items() if k != "bucket_records") > 0,
+              f"rescale {n_old}->{n_new}: no window kernel launched: {lo}")
+        check(r["late_records"] == 0 and r["exchange_overflow"] == 0,
+              f"rescale {n_old}->{n_new}: late or overflowed records {r}")
+    fleet_wall = max(r["wall_s"] for r in results)
+    return rows, {
+        "old_processes": n_old, "new_processes": n_new,
+        "old_blocks": 2 if n_old == 2 else MESH_BLOCKS,
+        "new_blocks": 2 if n_new == 2 else MESH_BLOCKS,
+        "cut_checkpoint": cut, "cut_positions": positions,
+        "old_fleet_wall_s": old_wall, "new_fleet_wall_s": new_wall,
+        "rows_before": before, "rows_after": len(rows) - before,
+        "resumed_events": sum(r["events"] for r in results),
+        "resumed_events_per_s": sum(r["events"] for r in results) / fleet_wall,
+        "processes": results}
+
+
+def phase_rescale(torch, np, batches=RESCALE_BATCHES, cut_after=RESCALE_CUT):
+    """Phase 23: Q5's count stage (the hybrid phase's job) rescaled 2 -> 1
+    and 1 -> 2 from a checkpoint set; the union of both halves' committed
+    rows against the golden, each (auction, window) once. The default
+    run passes the ``*_CUT`` counts and lists the cut."""
+    import secrets
+
+    out = os.path.join(ROOT, "flink_tpu_torch", "_build", "rescale")
+    secret = secrets.token_hex(16)
+    cuts = {}
+    rows = {}
+    for n_old, n_new in ((2, 1), (1, 2)):
+        rows[(n_old, n_new)], cuts[f"{n_old}to{n_new}"] = rescale_cut(
+            torch, np, out, n_old, n_new, secret, batches, cut_after)
+    # the golden's numpy work after the timed runs
+    cfg = hybrid_cfg(batches)
+    for (n_old, n_new), r in rows.items():
+        check_q5_counts(np, r, cfg, f"rescale {n_old}->{n_new} union")
+    summary = {"phase": "rescale", "conf": "confs/bench_q5_host_fed.conf",
+               "job": "key_by(auction).window(10 s / 1 s sliding).count()",
+               "batches": batches, "splits": 2, "batch": Q5_BATCH,
+               "cut_after_batch": cut_after, **cuts, "card": card_line()}
+    if batches != RESCALE_BATCHES:
+        summary["cut"] = {"batches": [RESCALE_BATCHES, batches],
+                          "cut_after_batch": [RESCALE_CUT, cut_after]}
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7653,6 +8255,10 @@ def main() -> int:
                                        phase_hybrid(torch, np)),
         "--state-tiers": lambda torch, np: (phase_build(),
                                             phase_state_tiers(torch, np)),
+        "--host-patterns": lambda torch, np: (
+            phase_build(), phase_host_patterns(torch, np)),
+        "--rescale": lambda torch, np: (phase_build(),
+                                        phase_rescale(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -7663,14 +8269,16 @@ def main() -> int:
            for name in ("ring_pairs", "fire_kernels", "count_topn",
                         "count_lane", "mesh_kernels")},
     }
-    if "--hybrid-worker" in argv:
-        try:
-            hybrid_worker(torch, np, json.loads(
-                argv[argv.index("--hybrid-worker") + 1]))
-        except Exception:
-            traceback.print_exc()
-            return 1
-        return 0
+    for worker_flag, worker in (("--hybrid-worker", hybrid_worker),
+                                ("--rescale-worker", rescale_worker)):
+        if worker_flag in argv:
+            try:
+                worker(torch, np, json.loads(
+                    argv[argv.index(worker_flag) + 1]))
+            except Exception:
+                traceback.print_exc()
+                return 1
+            return 0
     flag = next((a for a in argv if a in modes), None)
     if flag is not None:
         try:
@@ -7707,6 +8315,8 @@ def main() -> int:
         phase_emit_defer(torch, np)
         hybrid, hybrid_x1 = phase_hybrid(torch, np)
         q5_lsm = phase_state_tiers(torch, np)
+        phase_host_patterns(torch, np, HP_CEP_BATCHES_CUT)
+        phase_rescale(torch, np, RESCALE_BATCHES_CUT, RESCALE_CUT_CUT)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -7797,6 +8407,9 @@ def main() -> int:
             row["launches_path"] = path
             row["launches_by_path"] = {p: l[name] for p, l in paths.items()}
             check(row["launches"] > 0, f"{name} never launched on its path")
+        emit({"phase_seconds": {
+            name: t - PHASE_ENDS[i][1]
+            for i, (name, t) in enumerate(PHASE_ENDS[1:])}})
         print(card_line(), flush=True)
     except Exception:
         traceback.print_exc()

@@ -18,8 +18,11 @@ window onto the element path (``ops/evicting_window.py``). A keyed
 stream also has ``running_aggregate`` (an unwindowed upsert or
 retract changelog, ``ops/global_agg.py``) and ``process`` (a
 ``KeyedProcessFunction`` with keyed state and timers,
-``ops/process.py``). Async I/O and connect are ROADMAP.md queue 1
-items 5.3 and 5.4."""
+``ops/process.py``); ``cep.CEP.pattern(keyed, pattern)`` matches a
+pattern on it (``cep.py``). ``async_io`` enriches a stream through a
+worker pool (``ops/async_io.py``), and ``connect(control).process(fn)``
+joins a stream with a broadcast control stream
+(``ops/broadcast.py``)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Union
@@ -30,6 +33,8 @@ from flink_tpu_torch.api.functions import as_batch_fn, as_predicate
 from flink_tpu_torch.api.windowing import (
     EventTimeSessionWindows, Trigger, WindowAssigner)
 from flink_tpu_torch.graph.transformations import (
+    AsyncIOTransformation,
+    BroadcastConnectTransformation,
     CountWindowAggregateTransformation,
     EvictingWindowTransformation,
     GlobalAggregateTransformation,
@@ -118,6 +123,20 @@ class DataStream:
         self.env._register(t)
         return KeyedStream(self.env, t)
 
+    def async_io(self, fn: Any, capacity: int = 8,
+                 timeout_ms: int = 60_000, ordered: bool = True,
+                 name: str = "async_io") -> "DataStream":
+        """Async external enrichment (ref: AsyncDataStream.orderedWait /
+        unorderedWait). ``fn`` is an ``AsyncFunction`` (``invoke_batch``)
+        or a callable ``(data, ts) -> data'`` doing the lookup for a
+        whole batch; up to ``capacity`` batches overlap on a worker pool
+        while ingest goes on. ``ordered=False`` releases batches as they
+        complete; a watermark never overtakes a pending batch either
+        way."""
+        return self._append(AsyncIOTransformation(
+            name, (self.transform,), fn=fn, capacity=capacity,
+            timeout_ms=timeout_ms, ordered=ordered))
+
     # -- non-keyed partitioning (ref: DataStream.{rebalance,rescale,
     # shuffle,broadcast,global} → PartitionTransformation) ---------------
     def rebalance(self) -> "DataStream":
@@ -153,6 +172,13 @@ class DataStream:
         """``join(other).where(k).equal_to(k).window(w).apply(...)``: a
         windowed equi-join of this stream (left) with ``other`` (right)."""
         return JoinBuilder(self, other)
+
+    def connect(self, control: "DataStream") -> "BroadcastConnectedStream":
+        """This (data) stream with a low-volume control stream whose
+        elements replicate into broadcast state (ref: DataStream.connect
+        (BroadcastStream) → BroadcastConnectedStream); ``.process(fn)``
+        with a ``BroadcastProcessFunction`` completes the pair."""
+        return BroadcastConnectedStream(self, control)
 
     def add_sink(self, sink: Any, name: str = "sink") -> "DataStream":
         return self._append(SinkTransformation(name, (self.transform,), sink=sink))
@@ -500,3 +526,17 @@ class WindowedJoin:
             mode=mode)
         env._register(t)
         return DataStream(env, t)
+
+
+class BroadcastConnectedStream:
+    """The (data, control) pair awaiting its
+    ``BroadcastProcessFunction`` (ref: BroadcastConnectedStream)."""
+
+    def __init__(self, data: DataStream, control: DataStream) -> None:
+        self._data = data
+        self._control = control
+
+    def process(self, fn: Any,
+                name: str = "broadcast_connect") -> DataStream:
+        return self._data._append(BroadcastConnectTransformation(
+            name, (self._data.transform, self._control.transform), fn=fn))

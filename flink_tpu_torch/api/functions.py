@@ -13,8 +13,9 @@ either form (``batch=False``: per record).
 
 An ``AggregateFunction`` lowers to lanes through
 ``ops.aggregates.lower_aggregate``. A ``KeyedProcessFunction`` runs in
-``ops/process.py``'s operator (``KeyedStream.process``). Reduce and
-process-window functions are ROADMAP.md queue 1 item 5.6."""
+``ops/process.py``'s operator (``KeyedStream.process``).
+``ReduceFunction`` and ``ProcessWindowFunction`` are the interfaces
+alone, as in the JAX package: no path of either package calls them."""
 from __future__ import annotations
 
 import dataclasses
@@ -110,6 +111,17 @@ def as_predicate(pred: Union[FilterFunction, Callable]) -> Callable:
     return pred
 
 
+class ReduceFunction:
+    """Commutative and associative combine of two values of one type
+    (ref: ReduceFunction.java), over dicts of torch tensors. It must be
+    expressible as elementwise sum, max or min lanes for the dense pane
+    path; compose ``ops.aggregates`` lanes for anything else."""
+
+    def reduce(self, a: Dict[str, torch.Tensor],
+               b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+
 class AggregateFunction:
     """Incremental aggregation ACC/IN/OUT (create_accumulator / add /
     merge / get_result). The accumulator is a pytree of scalars, and
@@ -129,6 +141,19 @@ class AggregateFunction:
 
     def get_result(self, acc: Any) -> Any:
         raise NotImplementedError
+
+
+class ProcessWindowFunction:
+    """Post-aggregation hook a fired batch with the window's metadata
+    (ref: streaming/api/functions/windowing/ProcessWindowFunction.java,
+    applied through InternalAggregateProcessWindowFunction): the fired
+    (key, window, result) columns as torch tensors, vectorized. The
+    default returns ``results`` unchanged."""
+
+    def process_batch(self, keys: torch.Tensor, window_starts: torch.Tensor,
+                      window_ends: torch.Tensor, results: Any,
+                      valid: torch.Tensor) -> Any:
+        return results
 
 
 class KeyedProcessFunction:

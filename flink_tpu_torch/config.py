@@ -257,6 +257,19 @@ class ClusterOptions:
         "cluster.dcn-buffer-bytes", 0,
         "SO_SNDBUF/SO_RCVBUF of every exchange socket, in bytes; 0 = the "
         "OS default.")
+    RESCALE_FROM = ConfigOption(
+        "cluster.rescale-from", "",
+        "Deploy-injected by the coordinator after a process-level "
+        "rescale: the savepoint path (p0's, for multi-process "
+        "savepoints) the new topology was restored from. When a later "
+        "attempt restores with execution.checkpointing.restore=latest "
+        "and finds NO checkpoint newer than this savepoint (or none at "
+        "all — the crash landed before the first post-rescale "
+        "checkpoint published), the driver falls back to this path so "
+        "recovery never resurrects a pre-rescale checkpoint written "
+        "for the OLD key-group ownership, and never replays from "
+        "scratch duplicating committed output. User configs never set "
+        "it.")
     DCN_BIND = ConfigOption(
         "cluster.dcn-bind", "auto",
         "Address the exchange listener binds. 'auto' stays on 127.0.0.1 "
@@ -394,7 +407,6 @@ FAIL_ON_VALUES = ("error", "warn", "off")
 # ROADMAP.md item that brings each
 LATER_KEYS = (
     ("plugins.modules", "queue 1 item 6"),
-    ("cluster.rescale-from", "queue 1 item 6"),
     ("table.", "queue 1 item 7"),
     ("sql.", "queue 1 item 7"),
     ("log.", "queue 1 item 8"),

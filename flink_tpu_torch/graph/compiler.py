@@ -1,14 +1,16 @@
 """Lower the transformation DAG to the plan the driver walks per batch:
 source → chain (fused host map, filter and flat-map functions) → window,
 element-path window, count window, session window, windowAll, windowed
-join, running aggregate (``global_agg``) or keyed process function
-(``process``) → chain → sink, with union nodes merging streams and
-partition nodes (``rebalance`` and the like) as pass-through exchange
-boundaries. KeyBy
-folds into the stateful node that consumes it; a key function becomes a
-chain function that writes the derived key column. A join node records
-which upstream node feeds its left and its right input (``left_input``,
-``right_input``), and refuses one node feeding both. Each stateful node
+join, running aggregate (``global_agg``), keyed process function
+(``process``), pattern match (``cep``) or broadcast connect
+(``broadcast_connect``) → chain → sink, with union nodes merging
+streams, partition nodes (``rebalance`` and the like) as pass-through
+exchange boundaries and async I/O nodes (``async_io``) between them.
+KeyBy folds into the stateful node that consumes it; a key function
+becomes a chain function that writes the derived key column. A join or
+broadcast-connect node records which upstream node feeds its left (the
+data) and its right (the control) input (``left_input``,
+``right_input``); a join refuses one node feeding both. Each stateful node
 records the schema of the rows it emits (``out_schema``) where that is
 a plan fact. A transformation the port does not have yet raises,
 naming its ROADMAP.md item."""
@@ -20,6 +22,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from flink_tpu_torch.graph.transformations import (
+    AsyncIOTransformation,
+    BroadcastConnectTransformation,
+    CepTransformation,
     CountWindowAggregateTransformation,
     EvictingWindowTransformation,
     GlobalAggregateTransformation,
@@ -42,9 +47,9 @@ from flink_tpu_torch.time.watermarks import WatermarkStrategy
 @dataclasses.dataclass
 class ExecNode:
     id: int
-    # source | chain | union | partition | window | evicting_window |
-    # count_window | session | window_all | join | global_agg | process |
-    # sink
+    # source | chain | union | partition | async_io | window |
+    # evicting_window | count_window | session | window_all | join |
+    # global_agg | process | cep | broadcast_connect | sink
     kind: str
     downstream: List[int] = dataclasses.field(default_factory=list)
     source: Any = None
@@ -53,7 +58,7 @@ class ExecNode:
     key_field: str = "key"
     window_transform: Any = None
     sink: Any = None
-    # join: the upstream node of each input edge
+    # join, broadcast_connect: the upstream node of each input edge
     left_input: Optional[int] = None
     right_input: Optional[int] = None
     # partition: the non-keyed redistribution strategy
@@ -149,13 +154,18 @@ def compile_job(transforms: Sequence[Transformation],
                          key_field=t.key_field)
             nodes[up].downstream.append(n.id)
         elif isinstance(t, (GlobalAggregateTransformation,
-                            KeyedProcessTransformation)):
+                            KeyedProcessTransformation, CepTransformation)):
             up = node_for(t.inputs[0])
             kind = ("global_agg"
                     if isinstance(t, GlobalAggregateTransformation)
+                    else "cep" if isinstance(t, CepTransformation)
                     else "process")
             n = new_node(kind, t.name, window_transform=t,
                          key_field=t.key_field)
+            nodes[up].downstream.append(n.id)
+        elif isinstance(t, AsyncIOTransformation):
+            up = node_for(t.inputs[0])
+            n = new_node("async_io", t.name, window_transform=t)
             nodes[up].downstream.append(n.id)
         elif isinstance(t, WindowAllAggregateTransformation):
             up = node_for(t.inputs[0])
@@ -172,6 +182,14 @@ def compile_job(transforms: Sequence[Transformation],
                     "node (a self-join) is not supported: materialize one "
                     "side through a distinct map first")
             n = new_node("join", t.name, window_transform=t,
+                         left_input=lup, right_input=rup)
+            nodes[lup].downstream.append(n.id)
+            nodes[rup].downstream.append(n.id)
+        elif isinstance(t, BroadcastConnectTransformation):
+            # left: the data stream; right: the control (broadcast) stream
+            lup = node_for(t.inputs[0])
+            rup = node_for(t.inputs[1])
+            n = new_node("broadcast_connect", t.name, window_transform=t,
                          left_input=lup, right_input=rup)
             nodes[lup].downstream.append(n.id)
             nodes[rup].downstream.append(n.id)

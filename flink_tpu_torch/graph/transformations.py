@@ -148,6 +148,37 @@ class SessionAggregateTransformation(Transformation):
 
 
 @dataclasses.dataclass(eq=False)
+class AsyncIOTransformation(Transformation):
+    """Async external enrichment (ref: AsyncDataStream.orderedWait /
+    unorderedWait -> AsyncWaitOperator; ``ops/async_io.py``)."""
+
+    fn: Any = None                # AsyncFunction or callable(data, ts)
+    capacity: int = 8
+    timeout_ms: int = 60_000
+    ordered: bool = True
+
+
+@dataclasses.dataclass(eq=False)
+class CepTransformation(Transformation):
+    """Keyed pattern matching (ref: cep/PatternStream -> CepOperator;
+    ``cep.py``)."""
+
+    pattern: Any = None
+    key_field: str = "key"
+    max_partials: int = 8
+
+
+@dataclasses.dataclass(eq=False)
+class BroadcastConnectTransformation(Transformation):
+    """Two-input broadcast connect: ``inputs`` are (data, control); the
+    control side replicates into broadcast state (ref:
+    BroadcastConnectedStream + CoBroadcastWithNonKeyedOperator;
+    ``ops/broadcast.py``)."""
+
+    fn: Any = None
+
+
+@dataclasses.dataclass(eq=False)
 class PartitionTransformation(Transformation):
     """Non-keyed redistribution: ``strategy`` is one of
     rebalance|rescale|shuffle|broadcast|global|forward, lowered to a

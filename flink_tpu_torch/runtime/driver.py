@@ -32,6 +32,17 @@ A host-fed window operator may hold its last batch back for the next
 watermark advance (its native lane's fused step); the end-of-input
 ``quiesce`` folds such a batch in before the final watermark.
 
+A pattern match (``cep``) emits its matches per batch and queues them
+behind earlier fires; a broadcast connect (``broadcast_connect``) takes
+each batch on the side of its input edge (the control edge into its
+broadcast state) and delivers its rows at once. An async I/O node
+(``async_io``) submits each batch to its worker pool without blocking;
+the loop's throttle waits while more than its capacity run, each
+watermark pass pushes the completed batches downstream (in arrival
+order, or as they complete), the node's watermark never passes a batch
+still in flight, and a checkpoint barrier and the end of input drain
+them all first.
+
 A count window (``count_window``) fires per batch, not per watermark:
 the driver takes its fires right after each batch and delivers them at
 once, and leaves it out of the watermark advance (it is blind to event
@@ -88,8 +99,16 @@ every process holds. The loop overlaps one step's exchange with the
 next by default (``cluster.dcn-overlap``). A ``partition`` node
 (``rebalance`` and the like) passes its batches through at this
 parallelism of 1 and advances its partitioner, whose state rides the
-checkpoint. Batch mode and rescaling are not ported (ROADMAP.md); the
-configuration check and the driver refuse confs that ask for them.
+checkpoint. Batch mode is not ported (ROADMAP.md); the configuration
+check refuses confs that ask for it.
+
+Rescaling: a restore path written by another process count or id (the
+checkpoint's ``rescale`` identity) loads the whole checkpoint set that
+``cluster.rescale-from`` names, one path per old process, and merges it
+down to this process's span of the shards
+(``checkpoint/repartition.py``); the window state is then re-blocked
+onto this process's blocks. A later ``restore: latest`` never goes back
+behind that set (the rescale floor).
 
 With ``pipeline.target-latency`` set, the debloater re-chunks each
 host-fed batch (each sub-batch slice at K > 1) before the push, and
@@ -122,13 +141,16 @@ Batch = Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]  # data, ts, valid
 
 _FINAL = int(np.iinfo(np.int64).max)  # end-of-input watermark
 _STATEFUL = ("window", "evicting_window", "count_window", "session",
-             "window_all", "join", "global_agg", "process")
+             "window_all", "join", "global_agg", "process", "cep")
+# the kinds a fire must reach before the watermark that passed it: they
+# hold state, or hand the watermark on behind their pending batches
+_CONSUMERS = _STATEFUL + ("async_io", "broadcast_connect")
 # the kinds the watermark advances (count windows fire per batch only)
 _EVENT_TIME = ("window", "evicting_window", "session", "window_all", "join",
                "process")
 # the kinds that emit per batch (take_fired) and queue behind the fires
 # before them
-_PER_BATCH = ("session", "global_agg", "process")
+_PER_BATCH = ("session", "global_agg", "process", "cep")
 
 
 class Driver:
@@ -324,7 +346,7 @@ class Driver:
             if d in seen:
                 continue
             seen.add(d)
-            if self.plan.node(d).kind in _STATEFUL:
+            if self.plan.node(d).kind in _CONSUMERS:
                 return True
             todo.extend(self.plan.node(d).downstream)
         return False
@@ -398,6 +420,29 @@ class Driver:
                     n.window_transform.fn, num_shards=ctx.num_shards,
                     slots_per_shard=ctx.slots_per_shard)
                 op.allow_drops = ctx.allow_drops
+            elif n.kind == "cep":
+                from flink_tpu_torch.cep import CepOperator
+
+                t = n.window_transform
+                op = self._ops[n.id] = CepOperator(
+                    t.pattern, num_shards=ctx.num_shards,
+                    slots_per_shard=ctx.slots_per_shard,
+                    max_partials=t.max_partials)
+                op.allow_drops = ctx.allow_drops
+            elif n.kind == "async_io":
+                from flink_tpu_torch.ops.async_io import AsyncIOOperator
+
+                t = n.window_transform
+                self._ops[n.id] = AsyncIOOperator(
+                    getattr(t.fn, "invoke_batch", t.fn),
+                    capacity=t.capacity, timeout_ms=t.timeout_ms,
+                    ordered=t.ordered)
+            elif n.kind == "broadcast_connect":
+                from flink_tpu_torch.ops.broadcast import (
+                    BroadcastConnectOperator)
+
+                self._ops[n.id] = BroadcastConnectOperator(
+                    n.window_transform.fn)
 
     def _shard_span(self) -> Optional[Tuple[int, int]]:
         """This process's contiguous span of the key shards in a job
@@ -565,22 +610,69 @@ class Driver:
                 "num_shards": num_shards,
                 "shard_range": [self._pid * spp, (self._pid + 1) * spp]}
 
-    def _load_restore_path(self, path: str) -> Dict[str, Any]:
-        """An explicit restore path, written by a process of the same
-        key-group identity; another identity is a rescale."""
+    # -- rescale restore ----------------------------------------------------
+    def _rescale_from_paths(self) -> List[str]:
+        """The checkpoint set (one per old process, in process order) a
+        rescale restores from: ``cluster.rescale-from``, which every
+        later attempt keeps, so each finds the pre-rescale cut (the
+        restore floor in ``_run_loop``)."""
+        raw = str(self.config.get(ClusterOptions.RESCALE_FROM) or "")
+        return [p.strip() for p in raw.split(",") if p.strip()]
+
+    @staticmethod
+    def _checkpoint_seq(path: str) -> int:
+        """The checkpoint id a checkpoint or savepoint directory was
+        written under (ids are aligned across the processes): its
+        manifest's ``checkpoint_id``, else the ``chk-<n>`` or
+        ``savepoint-<n>`` of its name; -1 when it has neither."""
+        import json
+        import re
+
+        from flink_tpu_torch.fs import get_filesystem
+
+        mf = os.path.join(path, "MANIFEST.json")
+        fs = get_filesystem(mf)
+        if fs.exists(mf):
+            with fs.open_read(mf) as f:
+                return int(json.loads(f.read().decode())["checkpoint_id"])
+        m = re.findall(r"(?:chk|savepoint)-(\d+)",
+                       str(path).replace("\\", "/"))
+        return int(m[-1]) if m else -1
+
+    def _load_repartitioned(self, primary: str) -> Dict[str, Any]:
+        """Load an explicit restore path. When its key-group identity
+        (the writer's process count and id) is not this process's, load
+        the whole set that ``cluster.rescale-from`` names and merge it
+        down to this process's span of the shards
+        (``checkpoint/repartition.py``). Profile keys ``restore_load``
+        and ``restore_merge`` (s)."""
         from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
 
-        payload = FsCheckpointStorage.load(path)
+        t0 = time.perf_counter()
+        payload = FsCheckpointStorage.load(primary)
         ident = payload.get("rescale")
-        if ident is not None and (int(ident.get("nproc", 1)) != self._nproc
-                                  or int(ident.get("pid", 0)) != self._pid):
-            raise NotImplementedError(
-                f"checkpoint {path} was written by process "
-                f"{ident.get('pid')} of {ident.get('nproc')}; restoring it "
-                f"into process {self._pid} of {self._nproc} re-splits "
-                "key-group ranges (checkpoint/repartition.py), which is "
-                "still to port: ROADMAP.md queue 1 item 6")
-        return payload
+        if ident is None or (int(ident.get("nproc", 1)) == self._nproc
+                             and int(ident.get("pid", 0)) == self._pid):
+            # the same identity (or a checkpoint without one): as it is
+            return payload
+        from flink_tpu_torch.checkpoint.repartition import merge_payloads
+
+        paths = self._rescale_from_paths() or [primary]
+        payloads = [payload if p == primary else FsCheckpointStorage.load(p)
+                    for p in paths]
+        payloads.sort(
+            key=lambda pl: int((pl.get("rescale") or {}).get("pid", 0)))
+        op_kinds = {nid: n.kind for nid, n in self.plan.nodes.items()
+                    if nid in payload.get("operators", {})}
+        t1 = time.perf_counter()
+        merged = merge_payloads(
+            payloads, new_pid=self._pid, new_nproc=self._nproc,
+            num_shards=int(self.config.get(StateOptions.NUM_KEY_SHARDS)),
+            slots_per_shard=int(self.config.get(StateOptions.SLOTS_PER_SHARD)),
+            op_kinds=op_kinds)
+        self.prof["restore_load"] += t1 - t0
+        self.prof["restore_merge"] += time.perf_counter() - t1
+        return merged
 
     def _restore(self, payload: Dict[str, Any]) -> None:
         self._positions = {sid: dict(pos)
@@ -593,8 +685,12 @@ class Driver:
                 g.restore(st)
         self._max_ts.update(payload.get("max_ts", {}))
         self._out_wm.update(payload.get("out_wm", {}))
+        # the operators' state onto their blocks (a window's re-block and
+        # upload): profile key restore_ops
+        t0 = time.perf_counter()
         for nid, snap in payload["operators"].items():
             self._ops[nid].restore_state(snap)
+        self.prof["restore_ops"] += time.perf_counter() - t0
         for nid, psnap in payload.get("partitioners", {}).items():
             p = make_partitioner(self.plan.node(nid).partition_strategy,
                                  seed=nid)
@@ -666,6 +762,13 @@ class Driver:
         # the drain waits for the steps in flight: the loop thread's part
         # of a checkpoint is this span and the coordinator's freeze span
         with tracer.span("checkpoint.barrier"):
+            # async batches in flight are not in the snapshot, and their
+            # source positions have advanced: their rows go downstream
+            # first, so the staged epoch holds them
+            for nid, op in self._ops.items():
+                if self.plan.node(nid).kind == "async_io":
+                    for b in op.poll(drain=True):
+                        self._push_downstream(nid, b)
             self._drain_emits(barrier=True)
         sinks = [n.sink for n in self.plan.nodes.values() if n.kind == "sink"]
         pend = self._coordinator.trigger_async(
@@ -807,6 +910,10 @@ class Driver:
             # the host pool ends with the run (its shutdown does not
             # wait; a later call runs inline)
             self.host_pool.close()
+            # so do the async I/O workers, on success and on failure
+            for nid, op in self._ops.items():
+                if self.plan.node(nid).kind == "async_io":
+                    op.close()
 
     def _run_loop(self, job_name: str):
         from flink_tpu_torch.api.environment import JobResult
@@ -834,8 +941,22 @@ class Driver:
                 payload = (self._dcn_negotiated_restore()
                            if self._dcn is not None
                            else self._coordinator.restore_latest())
+                # the rescale floor: a checkpoint older than the set that
+                # cluster.rescale-from names predates the cut (at 1 -> 2
+                # -> 1 the last process count reuses the first one's
+                # directory, whose latest checkpoint is pre-rescale
+                # state at another key-group geometry); the set wins
+                # unless a checkpoint at least as new exists
+                paths = self._rescale_from_paths()
+                if paths:
+                    floor = max(self._checkpoint_seq(p) for p in paths)
+                    have = (int(payload.get("checkpoint_id", -1))
+                            if payload is not None else -1)
+                    if have < floor:
+                        payload = self._load_repartitioned(paths[0])
+                        self._coordinator.resume_numbering(payload)
             else:
-                payload = self._load_restore_path(restore)
+                payload = self._load_repartitioned(restore)
                 self._coordinator.resume_numbering(payload)
             if payload is not None:
                 self._restore(payload)
@@ -925,14 +1046,12 @@ class Driver:
                 self.prof["checkpoint_freeze"] += time.perf_counter() - t0
                 last_chk = time.time()
         # end of input: the final watermark flushes every window
-        for op in self._ops.values():
-            op.quiesce()
+        self._quiesce_ops()
         for sid in self.plan.sources:
             self._out_wm[sid] = _FINAL
         self._propagate_watermarks(final=True)
         self._drain_emits(barrier=True)
-        for op in self._ops.values():
-            op.quiesce()
+        self._quiesce_ops()
         if self._coordinator is not None and interval_ms > 0:
             t0 = time.perf_counter()
             self.checkpoint_now()  # the final epoch's commit
@@ -943,6 +1062,12 @@ class Driver:
             if n.kind == "sink":
                 n.sink.close()
         return JobResult(job_name, self._final_metrics(t_start))
+
+    def _quiesce_ops(self) -> None:
+        """Fold every held-back step in (the operators that hold any)."""
+        for op in self._ops.values():
+            if hasattr(op, "quiesce"):
+                op.quiesce()
 
     def _owned_splits(self, n_splits: int) -> List[int]:
         """The split indices this process reads: all of them in one
@@ -1333,6 +1458,11 @@ class Driver:
             self._push_downstream(nid, (data, ts, valid))
         elif n.kind == "union":
             self._push_downstream(nid, batch)
+        elif n.kind == "async_io":
+            # never blocks: the capacity wait is the loop's throttle
+            in_wm = min((self._out_wm[u] for u in self._upstream[nid]),
+                        default=LONG_MIN)
+            self._ops[nid].submit(batch, in_wm)
         elif n.kind == "partition":
             # one driver is parallelism 1: every strategy passes the batch
             # through, and its cursor or random stream advances (the
@@ -1382,6 +1512,15 @@ class Driver:
             else:
                 op.process_right(np.asarray(data[t.right_key], np.int64),
                                  ts, data, valid)
+        elif n.kind == "broadcast_connect":
+            op = self._ops[nid]
+            if from_node == n.right_input:
+                op.process_broadcast(ts, data, valid)
+            else:
+                op.process_main(ts, data, valid)
+            fired = op.take_fired()
+            if fired is not None:
+                self._deliver(nid, fired)
         elif n.kind == "sink":
             nrec = int(valid.sum())
             if nrec:
@@ -1429,6 +1568,16 @@ class Driver:
                                 (nid, fired, time.time()))
                 if self._deliver_at_fire:
                     self._drain_emits(barrier=True)
+            elif n.kind == "async_io":
+                op = self._ops[nid]
+                final_in = in_wm == _FINAL
+                if not final_in:
+                    op.note_watermark(in_wm)
+                for b in op.poll(drain=final_in):
+                    self._push_downstream(nid, b)
+                # a watermark never overtakes a batch still in flight
+                self._out_wm[nid] = _FINAL if final_in else op.watermark
+                continue
             self._out_wm[nid] = in_wm
 
     def _drain_emits(self, barrier: bool) -> None:

@@ -530,7 +530,7 @@ class LsmSpillStore:
         self._maybe_seal()
 
 
-# -- rescale (the repartition that calls it is ROADMAP.md queue 1 item 6) --
+# -- rescale (called by checkpoint/repartition.py's _merge_lsm_spill) --------
 
 class _LaneWidths:
     """Width-only aggregate shim: the scratch merge below needs the

@@ -786,12 +786,154 @@ def build_q8(mode):
     return jobs
 
 
+CEP_BATCHES = 10
+
+
+def cep_gen(split, i):
+    """40 accounts, v in 0..9, timestamps rising batch by batch (so no
+    event falls behind its key's frontier)."""
+    if i >= CEP_BATCHES:
+        return None
+    rng = np.random.default_rng(1300 + i)
+    return ({"acct": rng.integers(0, 40, 256).astype(np.int64),
+             "v": rng.integers(0, 10, 256).astype(np.int64)},
+            np.sort(i * 1000 + rng.integers(0, 1000, 256)).astype(np.int64))
+
+
+def cep_pattern(P):
+    return (P.cep.Pattern.begin("lo").where(lambda d: d["v"] < 2)
+            .followed_by("hi").where(lambda d: d["v"] >= 8).within(300))
+
+
+def build_cep(P, sink):
+    def build(conf):
+        env = P.Env(conf)
+        stream = (env.from_source(P.GeneratorSource(cep_gen),
+                                  P.WM.for_bounded_out_of_orderness(100))
+                  .key_by("acct"))
+        P.cep.CEP.pattern(stream, cep_pattern(P)).add_sink(sink)
+        return env
+    conf = {"state.num-key-shards": 8, "state.slots-per-shard": 16,
+            "pipeline.microbatch-size": 256}
+    return build, conf
+
+
+def cep_golden():
+    """The documented one-partial semantics per key, record by record."""
+    out, state = [], {}
+    for i in range(CEP_BATCHES):
+        data, ts = cep_gen("0", i)
+        order = np.lexsort((ts, data["acct"]))
+        for k, v, t in zip(data["acct"][order].tolist(),
+                           data["v"][order].tolist(), ts[order].tolist()):
+            st = state.get(k)
+            if st is not None and t - st > 300:
+                st = state[k] = None
+            if st is None:
+                if v < 2:
+                    state[k] = t
+            elif v >= 8:
+                out.append((k, st, t))
+                state[k] = None
+    return sorted(out)
+
+
+BC_BATCHES, BC_CATS = 8, 16
+
+
+def bc_data(split, i):
+    if i >= BC_BATCHES:
+        return None
+    rng = np.random.default_rng(1400 + i)
+    return ({"auction": rng.integers(0, 64, 512).astype(np.int64),
+             "price": rng.integers(0, 1000, 512).astype(np.int64)},
+            (i * 500 + rng.integers(0, 500, 512)).astype(np.int64))
+
+
+def bc_thresholds():
+    return np.random.default_rng(1499).integers(200, 900, BC_CATS)
+
+
+def bc_control(split, i):
+    """One batch: every category's threshold, timestamped past the data
+    (a finished control stream holds no watermark back). The loop reads
+    it after data batch 0, which meets no threshold yet and passes
+    nothing."""
+    if i >= 1:
+        return None
+    return ({"cat": np.arange(BC_CATS, dtype=np.int64),
+             "thr": bc_thresholds()}, np.full(BC_CATS, 10 ** 9, np.int64))
+
+
+def build_broadcast(P, sink):
+    class OverThreshold(P.broadcast.BroadcastProcessFunction):
+        def process_element(self, data, ts, state):
+            if "thr" not in state:
+                return None
+            keep = data["price"] > state["thr"][data["auction"] % BC_CATS]
+            return {"auction": data["auction"][keep],
+                    "price": data["price"][keep], "__ts__": ts[keep]}
+
+        def process_broadcast_element(self, data, ts, state):
+            thr = state.setdefault("thr", np.zeros(BC_CATS, np.int64))
+            thr[data["cat"]] = data["thr"]
+
+    def build(conf):
+        env = P.Env(conf)
+        wm = P.WM.for_bounded_out_of_orderness(500)
+        data = env.from_source(P.GeneratorSource(bc_data), wm)
+        control = env.from_source(P.GeneratorSource(bc_control), wm)
+        (data.connect(control).process(OverThreshold())
+         .key_by("auction").window(P.Tumbling.of(1000)).count()
+         .add_sink(sink))
+        return env
+    conf = {"state.num-key-shards": 8, "state.slots-per-shard": 16,
+            "pipeline.microbatch-size": 512}
+    return build, conf
+
+
+def bc_golden():
+    thr = bc_thresholds()
+    a, ts = [], []
+    for i in range(1, BC_BATCHES):
+        data, t = bc_data("0", i)
+        keep = data["price"] > thr[data["auction"] % BC_CATS]
+        a.append(data["auction"][keep])
+        ts.append(t[keep])
+    a, ts = np.concatenate(a), np.concatenate(ts)
+    ends = ts // 1000 * 1000 + 1000
+    pairs, counts = np.unique(np.stack([a, ends], 1), axis=0,
+                              return_counts=True)
+    return sorted((int(k), int(e), int(c))
+                  for (k, e), c in zip(pairs, counts))
+
+
+def build_mesh_m1(P, sink):
+    """Mesh job M1 (Q5 host-fed over four device blocks): the JAX
+    package's ``cluster.mesh-devices: 4`` of its forced CPU devices; the
+    port's four blocks of its one CPU (``make_mesh_plan``), the plan its
+    environment then builds."""
+    build, conf = build_q5_host(P, sink)
+    if P is JAX:
+        return build, dict(conf, **{"cluster.mesh-devices": "4"})
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+    def build_port(c):
+        env = build(c)
+        env.build_mesh_plan = lambda device: make_mesh_plan(
+            conf["state.num-key-shards"], conf["state.slots-per-shard"],
+            [device] * 4)
+        return env
+    return build_port, conf
+
+
 JOBS = {"q5_devgen_k4": build_q5_devgen, "q5_host": build_q5_host,
         "q5_spill": build_q5_tiered("spill"),
         "q5_lsm": build_q5_tiered("lsm"),
         "count_window": build_count_window, "sessions": build_sessions,
         "q7": build_q7, "q8_pairs": build_q8("pairs"),
-        "q8_aggregate": build_q8("aggregate")}
+        "q8_aggregate": build_q8("aggregate"), "cep": build_cep,
+        "broadcast": build_broadcast, "mesh_m1": build_mesh_m1}
 
 # each (package, job, mode)'s committed rows, shared by the cases that
 # read the same run
@@ -881,7 +1023,11 @@ def golden_rows(job):
                       for e in np.unique(we))
     if job.startswith("q8_"):
         return q8_golden(job[3:])
-    if job in ("q5_host", "q5_spill", "q5_lsm"):
+    if job == "cep":
+        return cep_golden()
+    if job == "broadcast":
+        return bc_golden()
+    if job in ("q5_host", "q5_spill", "q5_lsm", "mesh_m1"):
         return q5_golden([(d["auction"], ts) for d, ts in (
             host_bids("0", i) for i in range(HOST_CFG["n_batches"]))],
             4000, 1000)
@@ -966,7 +1112,20 @@ def golden_view(job, rows):
                        r["right_reserve"]) for r in d)
     if job == "count_window":
         return sorted((r["key"], r["count"], r["sum_n"]) for r in d)
+    if job == "cep":
+        return sorted((r["key"], r["lo_ts"], r["hi_ts"]) for r in d)
+    if job == "broadcast":
+        return sorted((r["key"], r["window_end"], r["count"]) for r in d)
     return {(r["auction"], r["window_end"], r["bid_count"]) for r in d}
+
+
+def commit_view(job, rows):
+    """Committed rows as the packages agree on them: in commit order, or
+    on a mesh (whose blocks' fires each driver drains at its own
+    cadence) in commit order within each window."""
+    if job != "mesh_m1":
+        return rows
+    return sorted(rows, key=lambda r: dict(r)["window_end"])
 
 
 @pytest.mark.parametrize("job", sorted(JOBS))
@@ -977,8 +1136,10 @@ def test_crash_and_resume_commits_the_reference_rows(job, tmp_path_factory):
     positions count sub-batches, and some completed checkpoint cuts a
     logical batch."""
     tmp = str(tmp_path_factory.mktemp(job))
-    clean = {P.name: run_job(P, job, tmp, "clean") for P in BOTH}
-    chaos = {P.name: run_job(P, job, tmp, "chaos") for P in BOTH}
+    clean = {P.name: commit_view(job, run_job(P, job, tmp, "clean"))
+             for P in BOTH}
+    chaos = {P.name: commit_view(job, run_job(P, job, tmp, "chaos"))
+             for P in BOTH}
     assert clean["port"] == clean["jax"] == chaos["port"] == chaos["jax"]
     rows = clean["port"]
     assert len(rows) > 0
@@ -1123,7 +1284,8 @@ def cut_job(P, job, root, cut, interval=10 ** 9, restore="", savepoint=False,
 
 CUTS = {"q5_devgen_k4": 9, "q5_host": 3, "q5_spill": 3, "q5_lsm": 3,
         "count_window": 4, "sessions": 3,
-        "q7": 3, "q8_pairs": 3, "q8_aggregate": 3}
+        "q7": 3, "q8_pairs": 3, "q8_aggregate": 3, "cep": 4,
+        "broadcast": 3, "mesh_m1": 3}
 
 
 @pytest.fixture(scope="module")
@@ -1180,7 +1342,7 @@ def test_payload_trees_equal_at_the_same_cut(job, cut_runs):
     node watermarks, operator versions and every operator's arrays are
     the reference's, field by field."""
     (jrows, jpath), (prows, ppath) = cut_runs(JAX, job), cut_runs(PORT, job)
-    assert prows == jrows and len(prows) > 0
+    assert commit_view(job, prows) == commit_view(job, jrows) and prows
     jp = JAX.storage.FsCheckpointStorage.load(jpath)
     pp = PORT.storage.FsCheckpointStorage.load(ppath)
     for f in PAYLOAD_FIELDS:
@@ -1218,13 +1380,13 @@ def test_each_package_resumes_the_others_checkpoint(job, cut_runs, tmp_path):
     got = {}
     for reader in BOTH:
         for writer, path in (("jax", jpath), ("port", ppath)):
-            got[(reader.name, writer)] = cut_job(
+            got[(reader.name, writer)] = commit_view(job, cut_job(
                 reader, job, str(tmp_path / f"{reader.name}-{writer}"), None,
-                interval=1, restore=path)
+                interval=1, restore=path))
     want = got[("jax", "jax")]
     assert all(v == want for v in got.values()) and len(want) > 0
     # the resumed rows are the tail of the uninterrupted run
-    assert want == jrows[len(jrows) - len(want):]
+    assert want == commit_view(job, jrows[len(jrows) - len(want):])
 
 
 @pytest.mark.parametrize("P", BOTH, ids=pkg_id)
@@ -1280,8 +1442,13 @@ def test_restore_across_sub_batch_factors(cut_runs, tmp_path):
 
 def test_a_checkpoint_of_another_process_names_the_rescale_item(tmp_path):
     """A checkpoint written by process 1 of 2 restores in one process only
-    through the key-group merge of checkpoint/repartition.py, which is
-    still to port: the port refuses it, naming its ROADMAP.md item."""
+    through the key-group merge of checkpoint/repartition.py, over the
+    whole set of the old processes' checkpoints: named alone (no
+    ``cluster.rescale-from``), the set is incomplete, and both packages
+    refuse it with the merge's ``RescaleError``."""
+    from flink_tpu.checkpoint.repartition import RescaleError as JaxRescale
+    from flink_tpu_torch.checkpoint.repartition import RescaleError
+
     sink = PORT.sinks.TransactionalCollectSink()
     env = PORT.Env(job_conf(PORT, str(tmp_path), {
         "execution.checkpointing.interval": 10 ** 9}))
@@ -1296,8 +1463,9 @@ def test_a_checkpoint_of_another_process_names_the_rescale_item(tmp_path):
                           "shard_range": [4, 8]}
     with open(meta, "wb") as f:
         f.write(PORT.blobformat.encode(payload))
-    env2 = PORT.Env(job_conf(PORT, str(tmp_path / "b"), {
-        "execution.checkpointing.restore": h.path}))
-    count_job(PORT, env2, failing_gen(2), PORT.sinks.TransactionalCollectSink())
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        PORT.execute(env2, "two")
+    for P, err in ((PORT, RescaleError), (JAX, JaxRescale)):
+        env2 = P.Env(job_conf(P, str(tmp_path / f"b-{P.name}"), {
+            "execution.checkpointing.restore": h.path}))
+        count_job(P, env2, failing_gen(2), P.sinks.TransactionalCollectSink())
+        with pytest.raises(err, match="2-process fleet"):
+            P.execute(env2, "two")

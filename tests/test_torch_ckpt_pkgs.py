@@ -9,7 +9,7 @@ from test_torch_threads import capped_torch_threads  # noqa: F401
 
 
 def _jax():
-    from flink_tpu import faults
+    from flink_tpu import cep, faults
     from flink_tpu.api import sinks
     from flink_tpu.api.environment import StreamExecutionEnvironment
     from flink_tpu.api.sources import GeneratorSource
@@ -21,7 +21,7 @@ def _jax():
     from flink_tpu.nexmark import generator
     from flink_tpu.nexmark.queries import q5_hot_items
     from flink_tpu.obs import metrics, tracing
-    from flink_tpu.ops import aggregates
+    from flink_tpu.ops import aggregates, broadcast
     from flink_tpu.ops.count_window import CountWindowOperator
     from flink_tpu.ops.window import WindowOperator
     from flink_tpu.runtime import driver, restart
@@ -37,6 +37,7 @@ def _jax():
         coordinator=coordinator, storage=storage, Conf=Configuration,
         gen=generator, q5=q5_hot_items, metrics=metrics, tracing=tracing,
         agg=aggregates, CountWindowOperator=CountWindowOperator,
+        cep=cep, broadcast=broadcast,
         WindowOperator=WindowOperator, driver=driver, restart=restart,
         run_with_recovery=run_with_recovery, PaneState=PaneState,
         WM=WatermarkStrategy, kw={},
@@ -46,7 +47,7 @@ def _jax():
 
 
 def _port():
-    from flink_tpu_torch import faults
+    from flink_tpu_torch import cep, faults
     from flink_tpu_torch.api import sinks
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sources import GeneratorSource
@@ -58,7 +59,7 @@ def _port():
     from flink_tpu_torch.nexmark import generator
     from flink_tpu_torch.nexmark.queries import q5_hot_items
     from flink_tpu_torch.obs import metrics, tracing
-    from flink_tpu_torch.ops import aggregates
+    from flink_tpu_torch.ops import aggregates, broadcast
     from flink_tpu_torch.ops.count_window import CountWindowOperator
     from flink_tpu_torch.ops.window import WindowOperator
     from flink_tpu_torch.runtime import driver, restart
@@ -75,6 +76,7 @@ def _port():
         Conf=Configuration, gen=generator, q5=q5_hot_items, metrics=metrics,
         tracing=tracing, agg=aggregates,
         CountWindowOperator=CountWindowOperator, WindowOperator=WindowOperator,
+        cep=cep, broadcast=broadcast,
         driver=driver, restart=restart, run_with_recovery=run_with_recovery,
         PaneState=PaneState, WM=WatermarkStrategy, kw={"device": "cpu"},
         execute=lambda env, name: env.execute(name, device="cpu"),

@@ -70,7 +70,9 @@ def test_scan_covers_the_package():
                 "exchange/dcn.py", "exchange/frames.py",
                 "exchange/partitioners.py", "parallel/mesh.py",
                 "formats_columnar.py", "log/bus.py", "state/lsm.py",
-                "ops/global_agg.py", "state/api.py", "ops/process.py"):
+                "ops/global_agg.py", "state/api.py", "ops/process.py",
+                "ops/broadcast.py", "ops/async_io.py", "cep.py",
+                "checkpoint/repartition.py", "state_processor.py"):
         assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 
@@ -124,6 +126,32 @@ def test_the_hybrid_worker_path_imports_no_jax():
         "('jax', 'jaxlib', 'flink_tpu'))\n"
         "assert not bad, bad\n"
         "sys.argv = ['chip_smoke.py', '--hybrid-worker', '{}']\n"
+        "sys.exit(chip_smoke.main())\n" % ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert "no CUDA device" in proc.stderr
+    assert '"ok"' not in proc.stdout
+
+
+def test_the_rescale_worker_path_imports_no_jax():
+    """``chip_smoke.py --rescale-worker``'s path and the modules of the
+    host-patterns phase load without jax or flink_tpu; without a card
+    the entry refuses."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.path.insert(0, %r); import chip_smoke\n"
+        "import flink_tpu_torch.cep, flink_tpu_torch.ops.async_io\n"
+        "import flink_tpu_torch.ops.broadcast, flink_tpu_torch.state_processor\n"
+        "import flink_tpu_torch.checkpoint.repartition\n"
+        "import flink_tpu_torch.runtime.driver\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flink_tpu'))\n"
+        "assert not bad, bad\n"
+        "sys.argv = ['chip_smoke.py', '--rescale-worker', '{}']\n"
         "sys.exit(chip_smoke.main())\n" % ROOT)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, cwd=ROOT,

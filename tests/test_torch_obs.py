@@ -309,6 +309,7 @@ PORTED = {
     "cluster.dcn-io-threads": 2,
     "cluster.dcn-buffer-bytes": 1 << 22,
     "cluster.dcn-bind": "0.0.0.0",
+    "cluster.rescale-from": "/ckpt/job-p0/chk-4,/ckpt/job-p1/chk-4",
 }
 
 
@@ -351,6 +352,7 @@ def test_ported_keys_read_as_the_reference_reads_them():
         (pc.ClusterOptions.DCN_BUFFER_BYTES,
          jc.ClusterOptions.DCN_BUFFER_BYTES),
         (pc.ClusterOptions.DCN_BIND, jc.ClusterOptions.DCN_BIND),
+        (pc.ClusterOptions.RESCALE_FROM, jc.ClusterOptions.RESCALE_FROM),
     ]
     assert {p.key for p, _ in pairs} == set(PORTED)
     pconf, jconf = pc.Configuration(dict(PORTED)), jc.Configuration(dict(PORTED))
@@ -435,7 +437,6 @@ def test_host_keys_are_read_and_take_effect(workers):
     ("rescale.mode", "queue 1 item 10"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
     ("plugins.modules", "queue 1 item 6"),
-    ("cluster.rescale-from", "queue 1 item 6"),
     ("log.dir", "queue 1 item 8"),
     ("storage.enospc-policy", "queue 1 item 8"),
     ("execution.runtime-mode", "queue 1 item 8"),
@@ -463,10 +464,11 @@ def test_keys_of_later_items_name_their_item(key, item):
 @pytest.mark.parametrize("key", [
     "pipeline.target-latency", "state.memory-budget-bytes",
     "state.lsm.dir", "state.lsm.compact-min-runs",
-    "state.lsm.run-floor-bytes"])
+    "state.lsm.run-floor-bytes", "cluster.rescale-from"])
 def test_ported_keys_take_the_reference_default_and_text(key):
-    """The keys of the debloater and the LSM tier are read by the port,
-    with the JAX package's default and description."""
+    """The keys of the debloater, the LSM tier and the rescale restore
+    are read by the port, with the JAX package's default and
+    description."""
     from flink_tpu import config as jc
     from flink_tpu_torch import config as pc
 
