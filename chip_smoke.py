@@ -309,6 +309,28 @@ mesh).
    once, and the resumed half's ``bucket_records`` and window kernels
    launched. Printed: the restore's load, merge and re-block plus upload
    seconds, the resumed half's events/s and idle share.
+24. ``sql`` — Table/SQL on the card, the bids of ``bench.py:206-208``.
+   SQL Q5 (HOP 1 s / 10 s, ``COUNT(*)``, ``ORDER BY bid_count DESC
+   LIMIT 1``) host-fed at ``confs/bench_q5_host_fed.conf`` on 16 x 2^20
+   bids beside ``nexmark.queries.q5_hot_items`` on the same batches: the
+   same rows in commit order, the same ``LAUNCHES``, and the golden's
+   rows; the same SQL over ``bid_stream_device`` at
+   ``confs/bench_q5_headline.conf`` (4 logical batches of 2^22 at 4
+   sub-batches) beside the DataStream devgen job: the same rows and
+   launches, one ``devgen_ingest`` a sub-batch and no ``nexmark_bids``;
+   a TUMBLE 1 s COUNT / SUM / MAX / MIN of price per auction with
+   ``WHERE price > <the bids' median>`` on 8 x 2^20 bids against a numpy
+   golden (counts, max and min exact, sums within the bound of
+   ``agg_rel_bound``); SQL Q5 on 8 x 2^20 bids checkpointing at every
+   batch boundary into ``crash://`` (``fs_crash.install``, a journaled
+   run for each of seeds 0 and 1), 3 crash images a seed restored on
+   the card with ``restore: latest`` into the transactional sink as the
+   cut left it (each the golden's rows once, or a loud failure; at
+   least half recovered); and the same job with ``plugins.modules:
+   flink_tpu_torch.fs_objstore`` checkpointing to ``objstore://``,
+   crashed once by the storage fault and resumed to the golden. Printed:
+   events/s, idle share and parse-plus-plan ms a query, each image's
+   cut, restored checkpoint and outcome, the launches of each job.
 
 In the default run, for the script's time budget, phase 22's CEP takes
 2 batches and phase 23 8 batches a split, cut after batch 4 (each JSON
@@ -316,7 +338,7 @@ line lists its cut); ``--host-patterns`` and ``--rescale`` run the sizes
 above. Before the card line the default run prints each phase's seconds
 (``phase_seconds``).
 
-Each of 16-23 prints its events/s and wall time beside the card's name
+Each of 16-24 prints its events/s and wall time beside the card's name
 and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
@@ -390,7 +412,8 @@ copied in and run both in one call, in turns. The rows:
 
 With ``--checkpoint`` it builds the kernels and runs only phase 15.
 With ``--state-tiers`` it builds the kernels and runs only phase 21,
-with ``--host-patterns`` phase 22 and with ``--rescale`` phase 23.
+with ``--host-patterns`` phase 22, with ``--rescale`` phase 23 and with
+``--sql`` phase 24.
 
 With ``--host-operators`` it builds the kernels and runs only phases
 16-19. With ``--hybrid`` it builds the kernels and runs only phase 20.
@@ -8226,6 +8249,353 @@ def phase_rescale(torch, np, batches=RESCALE_BATCHES, cut_after=RESCALE_CUT):
     return summary
 
 
+SQL_Q5 = ("SELECT auction, window_end, COUNT(*) AS bid_count "
+          "FROM TABLE(HOP(TABLE bids, DESCRIPTOR(ts), "
+          "INTERVAL '1' SECOND, INTERVAL '10' SECOND)) "
+          "GROUP BY auction, window_start, window_end "
+          "ORDER BY bid_count DESC LIMIT 1")
+SQL_TUMBLE = ("SELECT auction, window_end, COUNT(*) AS c, SUM(price) AS s, "
+              "MAX(price) AS mx, MIN(price) AS mn "
+              "FROM TABLE(TUMBLE(TABLE bids, DESCRIPTOR(ts), "
+              "INTERVAL '1' SECOND)) WHERE price > {median} "
+              "GROUP BY auction, window_start, window_end")
+SQL_BATCHES = 16                # SQL Q5 host-fed, 2^20 bids each
+SQL_DEVGEN_BATCHES = 4          # SQL Q5 on the card's generator, 2^22 each
+SQL_TUMBLE_BATCHES = 8          # the TUMBLE query with WHERE
+SQL_CRASH_BATCHES = 8           # the crash-image job and the objstore job
+SQL_CRASH_SEEDS = (0, 1)        # one journaled run a seed
+SQL_IMAGES_PER_SEED = 3         # 6 crash images in all
+
+
+def sql_env(conf, source, sink, query=SQL_Q5):
+    """``query`` over a ``bids`` view of ``source`` (1 s out of
+    orderness) into ``sink``: (environment, parse-plus-plan ms)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.table import TableEnvironment
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    env = StreamExecutionEnvironment(conf)
+    t_env = TableEnvironment.create(env)
+    bids = env.from_source(
+        source, WatermarkStrategy.for_bounded_out_of_orderness(1_000))
+    t_env.create_temporary_view("bids", bids,
+                                schema=["auction", "bidder", "price"],
+                                time_attr="ts")
+    t0 = time.perf_counter()
+    table = t_env.sql_query(query)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    table.add_sink(sink)
+    return env, plan_ms
+
+
+def run_sql(torch, np, conf, source, label, query=SQL_Q5):
+    """``query`` through ``env.execute()`` on the card: (rows as columns
+    in commit order, launches, JobResult, wall seconds, plan ms)."""
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    parts = []
+    env, plan_ms = sql_env(conf, source, FnSink(lambda b: parts.append(
+        {k: np.asarray(v).copy() for k, v in b.items()})), query)
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cols = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return cols, dict(wk.LAUNCHES), res, wall, plan_ms
+
+
+def q5_rows(cols):
+    return [(int(a), int(w), int(c)) for a, w, c in zip(
+        cols["auction"], cols["window_end"], cols["bid_count"])]
+
+
+def host_fed_conf(extra=None):
+    from flink_tpu_torch.config import Configuration
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_host_fed.conf"))
+    for k, v in (extra or {}).items():
+        conf.set(k, v)
+    return conf
+
+
+def tumble_golden(np, cfg, median):
+    """Per (auction, 1 s window end) of the bids above ``median``: count,
+    f64 sum, max and min, for every cell with a bid."""
+    from flink_tpu_torch.nexmark.generator import bid_batch
+
+    n_a = cfg.num_active_auctions
+    n_p = (cfg.batch_size * cfg.n_batches - 1) // cfg.events_per_ms // 1000 + 1
+    cnt = np.zeros(n_a * n_p, np.int64)
+    tot = np.zeros(n_a * n_p, np.float64)
+    mx = np.full(n_a * n_p, -np.inf, np.float32)
+    mn = np.full(n_a * n_p, np.inf, np.float32)
+    for i in range(cfg.n_batches):
+        data, ts = bid_batch(cfg, 0, i)
+        keep = data["price"] > median
+        price = data["price"][keep]
+        cell = data["auction"][keep] * n_p + ts[keep] // 1000
+        cnt += np.bincount(cell, minlength=n_a * n_p)
+        tot += np.bincount(cell, weights=price.astype(np.float64),
+                           minlength=n_a * n_p)
+        np.maximum.at(mx, cell, price)
+        np.minimum.at(mn, cell, price)
+    return n_p, cnt, tot, mx, mn
+
+
+def check_tumble(np, cols, golden, label):
+    n_p, cnt, tot, mx, mn = golden
+    cell = cols["auction"].astype(np.int64) * n_p + (
+        cols["window_end"].astype(np.int64) // 1000 - 1)
+    check(len(np.unique(cell)) == len(cell),
+          f"{label}: duplicate (auction, window) rows")
+    check(len(cell) == int((cnt > 0).sum()),
+          f"{label}: {len(cell)} rows, expected {int((cnt > 0).sum())}")
+    check(np.array_equal(cols["c"], cnt[cell]),
+          f"{label}: counts differ from the golden")
+    check(np.array_equal(cols["mx"], mx[cell])
+          and np.array_equal(cols["mn"], mn[cell]),
+          f"{label}: max/min differ from the golden")
+    rel = np.abs(cols["s"].astype(np.float64) - tot[cell]) / np.abs(tot[cell])
+    bound = agg_rel_bound(cnt[cell])
+    check(bool((rel <= bound).all()),
+          f"{label}: sums outside the bound (max rel err {float(rel.max())})")
+    return float(rel.max()), float((rel / bound).max())
+
+
+def sql_crash_images(torch, np, cfg, root, golden):
+    """SQL Q5 host-fed checkpointing at every batch boundary into
+    ``crash://`` (a journaled run a seed, into a transactional sink whose
+    commits log the journal's length), then crash images restored on
+    the card with ``restore: latest`` into the sink as the cut left it:
+    each must commit the golden's rows once each, or fail loudly."""
+    import random
+    import shutil
+
+    from flink_tpu_torch import fs_crash
+    from flink_tpu_torch.api.sinks import TransactionalCollectSink
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+    from flink_tpu_torch.nexmark.generator import bid_stream
+
+    label = "sql-q5-crash"
+    recovered, loud, images = 0, 0, []
+    mutate_s = []
+    for seed in SQL_CRASH_SEEDS:
+        run_root = os.path.join(root, f"run-{seed}")
+        os.makedirs(run_root)
+        cfs = fs_crash.install(run_root)
+        log = []
+
+        class LoggedSink(TransactionalCollectSink):
+            def notify_checkpoint_complete(self, checkpoint_id):
+                super().notify_checkpoint_complete(checkpoint_id)
+                log.append((len(cfs.journal), len(self.committed),
+                            self._last_committed))
+
+        def conf_for(chk, restore):
+            extra = {"execution.checkpointing.interval": 1,
+                     "execution.checkpointing.dir": chk}
+            if restore:
+                extra["execution.checkpointing.restore"] = "latest"
+            return host_fed_conf(extra)
+
+        try:
+            sink = LoggedSink()
+            env, _ = sql_env(conf_for("crash://" + run_root + "/chk", False),
+                             bid_stream(cfg), sink)
+            t0 = time.perf_counter()
+            env.execute(label, device="cuda")
+            mutate_s.append(time.perf_counter() - t0)
+            committed = [(int(r["auction"]), int(r["window_end"]),
+                          int(r["bid_count"])) for r in sink.committed]
+            check(cfs.journal, "sql crash: the journaled run recorded no "
+                  "mutations (the checkpoints bypass the seam)")
+            check(len(log) > 2, f"sql crash: {len(log)} checkpoints committed")
+            check(set(committed) == golden
+                  and len(committed) == len(golden),
+                  "sql crash: the journaled run's rows differ from the golden")
+            img = os.path.join(root, "img")
+            for k in range(SQL_IMAGES_PER_SEED):
+                dec = cfs.crash(img, rng=random.Random((seed << 20) ^ k),
+                                seed=seed)
+                done = [r for r in log if r[0] <= dec["cut"]]
+                latest = FsCheckpointStorage(
+                    os.path.join(img, "chk"), label).latest()
+                image = {"seed": seed, "image": k, "cut": dec["cut"],
+                         "journal": len(cfs.journal),
+                         "decisions": len(dec["decisions"]),
+                         "restored": latest.checkpoint_id if latest else None,
+                         "committed_before": done[-1][1] if done else 0}
+                sink2 = TransactionalCollectSink()
+                if done:
+                    sink2.committed.extend(sink.committed[:done[-1][1]])
+                    sink2._last_committed = done[-1][2]
+                env2, _ = sql_env(conf_for(os.path.join(img, "chk"), True),
+                                  bid_stream(cfg), sink2)
+                try:
+                    t0 = time.perf_counter()
+                    env2.execute(label, device="cuda")
+                    image["resume_s"] = time.perf_counter() - t0
+                except (ValueError, OSError) as e:
+                    loud += 1
+                    image["loud"] = f"{type(e).__name__}: {e}"[:200]
+                    images.append(image)
+                    continue
+                rows = [(int(r["auction"]), int(r["window_end"]),
+                         int(r["bid_count"])) for r in sink2.committed]
+                check(len(rows) == len(set(rows)) and set(rows) == golden,
+                      f"SILENT DIVERGENCE after recovery: {image} "
+                      f"decisions={dec['decisions']}: {len(rows)} rows, "
+                      f"{len(set(rows) ^ golden)} off the golden")
+                recovered += 1
+                images.append(image)
+        finally:
+            cfs.close()
+            shutil.rmtree(os.path.join(root, "img"), ignore_errors=True)
+    total = recovered + loud
+    check(recovered >= max(1, total // 2),
+          f"sql crash: only {recovered}/{total} images recovered cleanly")
+    return {"batches": cfg.n_batches, "seeds": list(SQL_CRASH_SEEDS),
+            "recovered": recovered, "loud": loud, "images": images,
+            "journaled_run_s": mutate_s}
+
+
+def phase_sql(torch, np):
+    """Table/SQL on the card (see the module docstring, phase 24); the
+    launches of each SQL job, by path, for the kernels line."""
+    import shutil
+
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import (
+        NexmarkConfig, bid_batch, bid_stream, bid_stream_device)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "sql")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"phase": "sql", "query": SQL_Q5}
+    paths = {}
+
+    # 1. SQL Q5 host-fed beside the DataStream job on the same batches
+    cfg = bids_cfg(SQL_BATCHES)
+    ds_rows, ds_launches, ds_res, ds_wall = run_q5_host_fed(
+        torch, np, cfg, "sql-ds-q5-host-fed")
+    cols, launches, res, wall, plan_ms = run_sql(
+        torch, np, host_fed_conf(), bid_stream(cfg), "sql-q5-host-fed")
+    rows = q5_rows(cols)
+    check(launches == ds_launches,
+          f"sql q5 host-fed: launches {launches} differ from the DataStream "
+          f"job's {ds_launches}")
+    check(rows == ds_rows,
+          "sql q5 host-fed: rows differ from the DataStream job's")
+    paths["sql_q5_host_fed"] = launches
+    out["q5_host_fed"] = {
+        "conf": "confs/bench_q5_host_fed.conf", "plan_ms": plan_ms,
+        **q5_run_summary(rows, launches, res, wall, SQL_BATCHES),
+        "datastream_events_per_s": Q5_BATCH * SQL_BATCHES / ds_wall,
+        "launches_equal_datastream": True}
+
+    # 2. SQL Q5 over the card's generator beside the DataStream devgen job
+    dconf_path = os.path.join(ROOT, "confs", "bench_q5_headline.conf")
+    dcfg = NexmarkConfig(batch_size=DEVGEN_BATCH, n_batches=SQL_DEVGEN_BATCHES,
+                         events_per_ms=100, num_active_auctions=10_000,
+                         hot_ratio=4)
+    d_rows, d_launches, _, _ = run_devgen_q5(
+        torch, np, Configuration.from_file(dconf_path), dcfg, "sql-ds-devgen")
+    dcols, dl, dres, dwall, dplan = run_sql(
+        torch, np, Configuration.from_file(dconf_path),
+        bid_stream_device(dcfg), "sql-q5-devgen")
+    drows = q5_rows(dcols)
+    steps = SQL_DEVGEN_BATCHES * DEVGEN_SUB
+    check(dl["devgen_ingest"] == steps and dl["nexmark_bids"] == 0
+          and dres.metrics["devgen_host_batches"] == 0,
+          f"sql q5 devgen: {dl['devgen_ingest']} devgen_ingest for {steps} "
+          f"sub-batches, {dl['nexmark_bids']} nexmark_bids, "
+          f"{dres.metrics['devgen_host_batches']} host batches")
+    check(dl == d_launches, f"sql q5 devgen: launches {dl} differ from the "
+          f"DataStream job's {d_launches}")
+    check(drows == d_rows, "sql q5 devgen: rows differ from the DataStream "
+          "devgen job's")
+    paths["sql_q5_devgen"] = dl
+    d_events = DEVGEN_BATCH * SQL_DEVGEN_BATCHES
+    busy, _ = busy_and_host(dres)
+    out["q5_devgen"] = {
+        "conf": "confs/bench_q5_headline.conf", "plan_ms": dplan,
+        "events": d_events, "logical_batches": SQL_DEVGEN_BATCHES,
+        "sub_batches": DEVGEN_SUB, "wall_s": dwall,
+        "events_per_s": d_events / dwall, "rows": len(drows),
+        "launches": dl, "device_busy_ms": busy,
+        "device_idle_share": 1.0 - sum(busy.values()) / (dwall * 1e3),
+        "launches_equal_datastream": True}
+
+    # 3. TUMBLE with WHERE over the bids above their median price
+    tcfg = bids_cfg(SQL_TUMBLE_BATCHES)
+    median = float(np.median(np.concatenate(
+        [bid_batch(tcfg, 0, i)[0]["price"]
+         for i in range(SQL_TUMBLE_BATCHES)])))
+    query = SQL_TUMBLE.format(median=repr(median))
+    tcols, tl, tres, twall, tplan = run_sql(
+        torch, np, host_fed_conf(), bid_stream(tcfg), "sql-tumble-where",
+        query)
+    paths["sql_tumble"] = tl
+
+    # 4. crash images and 5. the object store (the goldens' numpy work
+    # comes after the timed runs above)
+    ccfg = bids_cfg(SQL_CRASH_BATCHES)
+    cgolden = q5_golden(np, ((d["auction"], t) for d, t in (
+        bid_batch(ccfg, 0, i) for i in range(ccfg.n_batches))),
+        ccfg.num_active_auctions, window_panes=10, pane_ms=1000)
+    out["crash_images"] = sql_crash_images(
+        torch, np, ccfg, os.path.join(root, "crash"), cgolden)
+
+    def build_objstore(c, sink):
+        return sql_env(c, bid_stream(ccfg), sink)[0]
+
+    o_rows, o_wall, o_launches, o_fig = run_checkpointed(
+        torch, np, build_objstore,
+        host_fed_conf({"plugins.modules": "flink_tpu_torch.fs_objstore"}),
+        "sql-q5-objstore", "objstore://" + os.path.join(root, "objstore"),
+        "chaos", limit=1 << 62)
+    got = [tuple(dict(r)[c] for c in ("auction", "window_end", "bid_count"))
+           for r in o_rows]
+    check(len(got) == len(set(got)) and set(got) == cgolden,
+          "sql q5 objstore: the resumed rows differ from the golden")
+    check(o_fig["recoveries"] >= 1
+          and "checkpoint.storage.write" in o_fig["injected"],
+          f"sql q5 objstore: the job did not crash as planned: {o_fig}")
+    paths["sql_q5_objstore"] = o_launches
+    out["objstore"] = {
+        "dir": "objstore://", "plugins.modules": "flink_tpu_torch.fs_objstore",
+        "fault": CKPT_FAULT, "events": Q5_BATCH * SQL_CRASH_BATCHES,
+        "wall_s": o_wall, "events_per_s": Q5_BATCH * SQL_CRASH_BATCHES / o_wall,
+        "rows": len(got), "attempts": o_fig["attempts"],
+        "recoveries": o_fig["recoveries"],
+        "checkpoints_completed": o_fig["checkpoints_completed"]}
+
+    # the goldens of 1-3
+    check_q5_rows(np, rows, cfg, "sql q5 host-fed")
+    expect = devgen_golden(np, dcfg)
+    check(set(drows) == expect and len(drows) == len(expect),
+          "sql q5 devgen: rows differ from the golden")
+    max_rel, max_share = check_tumble(
+        np, tcols, tumble_golden(np, tcfg, median), "sql tumble")
+    t_events = Q5_BATCH * SQL_TUMBLE_BATCHES
+    out["tumble_where"] = {
+        "query": query, "plan_ms": tplan, "rows": len(tcols["c"]),
+        "kept_share": float(tcols["c"].sum()) / t_events,
+        "sum_max_rel_err": max_rel, "sum_err_share_of_bound": max_share,
+        "rel_bound": "(2 * count + 34) * 2^-24", "launches": tl,
+        **tier_summary(tres, twall, t_events)}
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    emit(out)
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8259,6 +8629,7 @@ def main() -> int:
             phase_build(), phase_host_patterns(torch, np)),
         "--rescale": lambda torch, np: (phase_build(),
                                         phase_rescale(torch, np)),
+        "--sql": lambda torch, np: (phase_build(), phase_sql(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -8317,6 +8688,7 @@ def main() -> int:
         q5_lsm = phase_state_tiers(torch, np)
         phase_host_patterns(torch, np, HP_CEP_BATCHES_CUT)
         phase_rescale(torch, np, RESCALE_BATCHES_CUT, RESCALE_CUT_CUT)
+        sql_paths = phase_sql(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -8327,7 +8699,8 @@ def main() -> int:
                  "proc_time": proc_time, "mesh_q5": mesh,
                  "hybrid": hybrid, "q5_lsm": q5_lsm,
                  "big_cells": {k: big["launches"].get(k, 0)
-                               for k in host_fed}}
+                               for k in host_fed},
+                 **sql_paths}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy

@@ -5,7 +5,9 @@ visible, the driver runs each keyed window over a mesh of device blocks
 (``build_mesh_plan``). With ``cluster.num-processes`` > 1 the job spans
 processes: each runs this program with its ``cluster.process-id`` and
 the fleet's ``cluster.dcn-peers``, and owns its span of the key shards
-(``runtime/driver.py``'s cross-process loop)."""
+(``runtime/driver.py``'s cross-process loop). ``plugins.modules`` is
+loaded when the environment is made, so a plugin's filesystem schemes
+resolve for every path the job names."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Optional
@@ -16,7 +18,7 @@ import torch
 from flink_tpu_torch.api.datastream import DataStream
 from flink_tpu_torch.api.sources import CollectionSource, Source
 from flink_tpu_torch.config import (
-    ClusterOptions, Configuration, PipelineOptions, StateOptions)
+    ClusterOptions, Configuration, CoreOptions, PipelineOptions, StateOptions)
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.graph.transformations import SourceTransformation, Transformation
 from flink_tpu_torch.time.watermarks import WatermarkStrategy
@@ -27,6 +29,14 @@ class StreamExecutionEnvironment:
         self.config = config or Configuration()
         self._transforms: List[Transformation] = []
         self._watermark_strategy = WatermarkStrategy.for_monotonous_timestamps()
+        # plugin loading happens at env creation, where filesystem
+        # schemes must be ready (ref: FileSystem.initialize at the
+        # cluster entrypoint)
+        mods = self.config.get(CoreOptions.PLUGINS)
+        if mods:
+            from flink_tpu_torch.fs import load_plugins
+
+            load_plugins(mods.split(","))
 
     def from_source(self, source: Source,
                     watermark_strategy: Optional[WatermarkStrategy] = None,
@@ -50,17 +60,22 @@ class StreamExecutionEnvironment:
 
     def execute(self, job_name: str = "job",
                 device: "str | torch.device" = "cuda",
-                mesh_plan=None) -> "JobResult":
+                mesh_plan=None, transforms=None) -> "JobResult":
         """Lower and run to completion on ``device`` ("cuda" by default;
         raises when there is no CUDA device — pass "cpu" explicitly).
         ``mesh_plan`` (``parallel.mesh.make_mesh_plan``, or across
         processes ``make_hybrid_mesh_plan``) places the keyed windows'
         device blocks explicitly, several on one device if need
-        be; without it ``cluster.mesh-devices`` decides."""
+        be; without it ``cluster.mesh-devices`` decides. ``transforms``
+        restricts the run to a subset of the registered graph (the
+        Table API runs one query's lineage, not every pipeline built on
+        this environment)."""
         from flink_tpu_torch.graph.compiler import compile_job
         from flink_tpu_torch.runtime.driver import Driver
 
-        plan = compile_job(self._transforms, self._watermark_strategy)
+        plan = compile_job(
+            self._transforms if transforms is None else transforms,
+            self._watermark_strategy)
         if mesh_plan is None:
             mesh_plan = self.build_mesh_plan(device)
         driver = Driver(plan, self.config, device=device, mesh_plan=mesh_plan)

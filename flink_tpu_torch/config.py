@@ -70,6 +70,15 @@ def duration_option(key: str, default_ms: int,
 READINESS_VALUES = ("piggyback", "probe")
 
 
+class CoreOptions:
+    PLUGINS = ConfigOption(
+        "plugins.modules", "",
+        "Comma-separated module names loaded at environment creation; "
+        "each must expose register(registry) extending the FileSystem "
+        "scheme registry (ref: core/plugin/PluginManager + "
+        "FileSystemFactory SPI; see flink_tpu/fs.py).")
+
+
 class PipelineOptions:
     MICROBATCH_SIZE = ConfigOption(
         "pipeline.microbatch-size", 8192,
@@ -406,9 +415,6 @@ FAIL_ON_VALUES = ("error", "warn", "off")
 # keys of modules still to port, by prefix (or whole key), with the
 # ROADMAP.md item that brings each
 LATER_KEYS = (
-    ("plugins.modules", "queue 1 item 6"),
-    ("table.", "queue 1 item 7"),
-    ("sql.", "queue 1 item 7"),
     ("log.", "queue 1 item 8"),
     ("storage.enospc-", "queue 1 item 8"),
     ("execution.runtime-mode", "queue 1 item 8"),

@@ -37,6 +37,7 @@ The plan is process-global, or scoped to a job id (``install_scoped``,
 The port's points (``KNOWN_FAULT_POINTS``)::
 
     fs.write.enospc / fs.fsync / fs.rename                 fs.py
+    fs.cas.put                                             fs_objstore.py
     checkpoint.storage.stall / .write / .fsync / .rename   checkpoint/storage.py
     checkpoint.upload                                      checkpoint/coordinator.py
     supervisor.restart                                     runtime/supervisor.py
@@ -74,6 +75,7 @@ KNOWN_FAULT_POINTS = frozenset((
     "fs.write.enospc",
     "fs.fsync",
     "fs.rename",
+    "fs.cas.put",
     "checkpoint.storage.stall",
     "checkpoint.storage.write",
     "checkpoint.storage.fsync",

@@ -15,24 +15,47 @@ helpers every checkpoint and transactional sink write goes through.
   come with ROADMAP.md queue 1 item 8), counted on the
   ``storage.enospc_retries`` metric.
 
-The object store (``fs_objstore.py``, its conditional put) and
-``plugins.modules`` come with ROADMAP.md queue 1 item 6.
+- The conditional-write extension: a backend that sets
+  ``conditional_put`` (``cas_capable``) has ``etag(path)`` and
+  ``put_if(path, data, expected_etag)``, an atomic compare-and-swap
+  publish that raises ``CASConflictError`` when it loses the race. The
+  in-tree object store (``fs_objstore.py``) is registered under
+  ``objstore`` by default, so ``objstore://`` paths resolve everywhere.
+- ``plugins.modules`` names modules whose ``register(registry)`` hook
+  extends the scheme registry (``load_plugins``, run when a
+  ``StreamExecutionEnvironment`` is made).
+
+Every durable write goes through this seam, so a recording wrapper
+(``fs_crash.CrashFS``) sees the whole order of mutations and barriers.
 """
 from __future__ import annotations
 
 import errno
+import importlib
 import os
 import shutil
 import threading
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 from flink_tpu_torch.obs.metrics import MetricRegistry
+
+
+class CASConflictError(OSError):
+    """Conditional put lost the race: the object's current ETag no
+    longer matches the expected one (the 412 Precondition Failed of
+    real object stores). Callers treat it like any other lock-
+    acquisition failure — re-read, re-decide, retry or give up."""
 
 
 class FileSystem:
     """Minimal filesystem contract (ref: core/fs/FileSystem.java —
     subset actually used by checkpoint storage and file sinks)."""
+
+    #: True when this backend implements ``put_if``/``etag`` — the
+    #: conditional-write capability the lock tiers probe via
+    #: ``cas_capable`` to pick CAS records over O_EXCL lock files.
+    conditional_put = False
 
     def open_read(self, path: str):
         raise NotImplementedError
@@ -75,6 +98,29 @@ class FileSystem:
 
     def is_dir(self, path: str) -> bool:
         raise NotImplementedError
+
+    # -- conditional-write extension (object-store CAS) ------------------
+
+    def etag(self, path: str) -> Optional[str]:
+        """Current ETag/generation of the object, ``None`` when absent.
+        Only meaningful on backends advertising ``conditional_put``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support conditional put")
+
+    def put_if(self, path: str, data: bytes,
+               expected_etag: Optional[str] = None) -> str:
+        """Atomic compare-and-swap publish: write ``data`` whole iff the
+        object's current ETag equals ``expected_etag`` (``None`` =
+        create-only, the object must not exist). Returns the new ETag;
+        raises :class:`CASConflictError` when the precondition fails."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support conditional put")
+
+
+def cas_capable(fs: "FileSystem") -> bool:
+    """Whether this backend advertises the conditional-put extension
+    (the lock tiers' capability probe)."""
+    return bool(getattr(fs, "conditional_put", False))
 
 
 class LocalFileSystem(FileSystem):
@@ -318,6 +364,15 @@ def write_atomic(fs: "FileSystem", path: str, payload,
     enospc_retry(attempt, what=path)
 
 
+def _objstore_factory() -> "FileSystem":
+    # the in-tree conditional-put store (fs_objstore.py), registered by
+    # default like "file" so objstore:// paths resolve without
+    # plugins.modules; the deferred import breaks the module cycle
+    from flink_tpu_torch.fs_objstore import ObjectStoreFileSystem
+
+    return ObjectStoreFileSystem()
+
+
 class FileSystemRegistry:
     """Scheme → FileSystem factory (ref: FileSystem.FS_FACTORIES +
     getUnguardedFileSystem). ``get`` resolves a path's scheme; bare
@@ -327,6 +382,7 @@ class FileSystemRegistry:
         self._factories: Dict[str, Callable[[], FileSystem]] = {}
         self._instances: Dict[str, FileSystem] = {}
         self.register("file", LocalFileSystem)
+        self.register("objstore", _objstore_factory)
 
     def register(self, scheme: str,
                  factory: Callable[[], FileSystem]) -> None:
@@ -339,11 +395,14 @@ class FileSystemRegistry:
         if key not in self._factories:
             raise ValueError(
                 f"no filesystem registered for scheme {key!r} "
-                f"(known: {sorted(self._factories)}); register one with "
-                "register_filesystem()")
+                f"(known: {sorted(self._factories)}); load a plugin via "
+                "plugins.modules or register_filesystem()")
         if key not in self._instances:
             self._instances[key] = self._factories[key]()
         return self._instances[key]
+
+    def schemes(self) -> List[str]:
+        return sorted(self._factories)
 
 
 _REGISTRY = FileSystemRegistry()
@@ -357,3 +416,28 @@ def register_filesystem(scheme: str,
 
 def get_filesystem(path: str) -> FileSystem:
     return _REGISTRY.get(path)
+
+
+def schemes() -> List[str]:
+    return _REGISTRY.schemes()
+
+
+def load_plugins(modules: Iterable[str]) -> List[str]:
+    """Import each named module and run its ``register(registry)`` hook
+    (ref: PluginManager discovering FileSystemFactory services). Returns
+    the loaded module names; a missing module, or one without the hook,
+    raises at load time — a silently absent plugin would surface later
+    as an unknown scheme."""
+    loaded = []
+    for name in modules:
+        name = name.strip()
+        if not name:
+            continue
+        mod = importlib.import_module(name)
+        hook = getattr(mod, "register", None)
+        if hook is None:
+            raise ValueError(
+                f"plugin module {name!r} has no register(registry) hook")
+        hook(_REGISTRY)
+        loaded.append(name)
+    return loaded

@@ -383,6 +383,60 @@ def test_q5_on_the_card_matches_the_cpu(dev):
     assert rows[0] == rows[1] and len(rows[0]) > 40
 
 
+def test_sql_q5_launches_what_datastream_q5_launches(dev):
+    """SQL Q5 (``Table.execute()`` at its default device, the card) and
+    ``q5_hot_items`` on the same bids: the same rows in the same order,
+    the same kernels the same number of times, and the CPU's rows."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import CollectSink
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.nexmark.generator import NexmarkConfig, bid_stream
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+    from flink_tpu_torch.table import TableEnvironment
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    cfg = NexmarkConfig(batch_size=1 << 16, n_batches=5, events_per_ms=8,
+                        num_active_auctions=2_000, hot_ratio=4)
+    conf = {"state.num-key-shards": 32, "state.slots-per-shard": 256}
+    sql = ("SELECT auction, window_end, COUNT(*) AS bid_count "
+           "FROM TABLE(HOP(TABLE bids, DESCRIPTOR(ts), "
+           "INTERVAL '1' SECOND, INTERVAL '10' SECOND)) "
+           "GROUP BY auction, window_start, window_end "
+           "ORDER BY bid_count DESC LIMIT 1")
+
+    def view(r):
+        return [(int(x["auction"]), int(x["window_end"]),
+                 int(x["bid_count"])) for x in r]
+
+    env = StreamExecutionEnvironment(Configuration(conf))
+    sink = CollectSink()
+    q5_hot_items(env, bid_stream(cfg), sink, out_of_orderness_ms=1_000)
+    wk.reset_launch_counts()
+    env.execute("q5", device=dev)
+    ds_launches, ds_rows = dict(wk.LAUNCHES), view(sink.rows)
+
+    rows = {}
+    for d in (None, "cpu"):
+        env = StreamExecutionEnvironment(Configuration(conf))
+        t_env = TableEnvironment.create(env)
+        t_env.create_temporary_view(
+            "bids", env.from_source(
+                bid_stream(cfg),
+                WatermarkStrategy.for_bounded_out_of_orderness(1_000)),
+            schema=["auction", "bidder", "price"], time_attr="ts")
+        table = t_env.sql_query(sql)
+        wk.reset_launch_counts()
+        res = table.execute("sql-q5") if d is None else table.execute(
+            "sql-q5", device=d)
+        rows[d] = view(res.rows)
+        if d is None:
+            sql_launches = dict(wk.LAUNCHES)
+    assert sql_launches == ds_launches
+    assert all(sql_launches[k] > 0 for k in (
+        "fused_step", "window_counts", "topn_select_append", "ring_columns"))
+    assert rows[None] == ds_rows == rows["cpu"] and len(ds_rows) > 40
+
+
 # -- the device-made ingest (nexmark_bids, devgen_ingest) --------------------
 
 @pytest.mark.parametrize("logical,off", [(0, 0), (5, 1 << 20), (77, 3 << 20)])

@@ -2,8 +2,8 @@
 ``ops/global_agg.py``) in the port, against the JAX package on the same
 seeded inputs: ``tests/test_global_agg.py``'s ``TestDataStreamRunning``
 and ``TestExactlyOnceRestore``, in upsert and in retract mode.
-``TestSqlUnwindowed`` builds on Table/SQL, which is ROADMAP.md queue 1
-item 7: it comes with that item.
+``TestSqlUnwindowed`` builds on Table/SQL: it is in
+``tests/test_torch_table_sql.py``.
 
 Rows compare exactly and in order: keys, counts, op codes, and f32
 max/min byte for byte. The ulp bound of the f32 sums is 0: both packages

@@ -436,7 +436,6 @@ def test_host_keys_are_read_and_take_effect(workers):
     ("execution.batch.shuffle-dir", "queue 1 item 8"),
     ("rescale.mode", "queue 1 item 10"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
-    ("plugins.modules", "queue 1 item 6"),
     ("log.dir", "queue 1 item 8"),
     ("storage.enospc-policy", "queue 1 item 8"),
     ("execution.runtime-mode", "queue 1 item 8"),
@@ -464,11 +463,11 @@ def test_keys_of_later_items_name_their_item(key, item):
 @pytest.mark.parametrize("key", [
     "pipeline.target-latency", "state.memory-budget-bytes",
     "state.lsm.dir", "state.lsm.compact-min-runs",
-    "state.lsm.run-floor-bytes", "cluster.rescale-from"])
+    "state.lsm.run-floor-bytes", "cluster.rescale-from", "plugins.modules"])
 def test_ported_keys_take_the_reference_default_and_text(key):
-    """The keys of the debloater, the LSM tier and the rescale restore
-    are read by the port, with the JAX package's default and
-    description."""
+    """The keys of the debloater, the LSM tier, the rescale restore and
+    the filesystem plugins are read by the port, with the JAX package's
+    default and description."""
     from flink_tpu import config as jc
     from flink_tpu_torch import config as pc
 
