@@ -332,13 +332,40 @@ mesh).
    events/s, idle share and parse-plus-plan ms a query, each image's
    cut, restored checkpoint and outcome, the launches of each job.
 
+25. ``log`` — the durable log tier feeding Q5, ``bench.py``
+   ``run_q5_backfill``'s shape at ``confs/bench_q5_backfill.conf``
+   (128 x 256 key slots, 2^18-record batches and reads, group fsync,
+   zero-copy reads with one batch of readahead, a consumer group): the
+   port's ``LogSink`` commits 8 history batches of 2^18 bids
+   (``bench.py:564-575``: 10,000 auctions, ``ts = event_id // 100``) into
+   two 2-partition topics, ``Compactor`` compacts one keyed on
+   ``event_id``, and Q5 (sliding 10 s / 1 s) reads each topic through
+   ``LogSource`` in its group on the card; then 4 live batches land and
+   the same groups read on past their committed offsets. Checked in
+   both phases: the compacted topic's rows equal the never-compacted
+   topic's and ``q5_golden`` over the same bids, ``records_in`` equals
+   the bids produced, and a fire and a top-n kernel launched. Then a
+   crash run: Q5 over the whole compacted topic in a fresh group,
+   checkpointing at every batch boundary, its output into a ``LogSink``
+   topic, under ``run_with_recovery`` with a ``log.prefetch.read`` and a
+   ``log.txn.commit`` fault armed: the output topic holds each golden
+   row once, after one or two recoveries. Printed: the phase line (bids/s
+   and idle share a phase, the host seconds split into the wait for the
+   topic's read and decode, the push into the operator and the rest,
+   the read and decode alone, the launches, the crash run's figures)
+   and a compact ``log_summary`` line. ``--log`` runs it alone.
+
+Every line the script prints also goes to
+``chiprun_out/chip_smoke_phases.jsonl``, with the kernels' per-path
+detail (``kernels_detail``) that the printed ``kernels`` line leaves out.
+
 In the default run, for the script's time budget, phase 22's CEP takes
 2 batches and phase 23 8 batches a split, cut after batch 4 (each JSON
 line lists its cut); ``--host-patterns`` and ``--rescale`` run the sizes
 above. Before the card line the default run prints each phase's seconds
 (``phase_seconds``).
 
-Each of 16-24 prints its events/s and wall time beside the card's name
+Each of 16-25 prints its events/s and wall time beside the card's name
 and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
@@ -566,10 +593,26 @@ CALL_KERNELS = {
 # (phase, the time its line was printed): the default run prints each
 # phase's seconds from them (its budget)
 PHASE_ENDS = [("start", time.perf_counter())]
+# every line printed, and the kernels' per-path detail, one JSON object
+# a line, for a reader that keeps only the tail of the output
+PHASES_FILE = os.path.join(ROOT, "chiprun_out", "chip_smoke_phases.jsonl")
+# the keys of a kernel's entry in the printed kernels line; the rest of
+# its row (launches by path, device ms by path, the hybrid path's X1)
+# goes to PHASES_FILE
+KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "launches_path", "pipeline_device_ms")
+
+
+def record_line(obj) -> None:
+    os.makedirs(os.path.dirname(PHASES_FILE), exist_ok=True)
+    with open(PHASES_FILE, "a") as f:
+        f.write(json.dumps(obj) + "\n")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    record_line(obj)
     if "phase" in obj:
         PHASE_ENDS.append((obj["phase"], time.perf_counter()))
 
@@ -8595,6 +8638,282 @@ def phase_sql(torch, np):
     emit(out)
     return paths
 
+LOG_BATCH = 1 << 18             # confs/bench_q5_backfill.conf's batch
+LOG_HIST = 8                    # history batches, then live ones
+LOG_LIVE = 4
+LOG_AUCTIONS = 10_000
+
+
+def log_bid_gen(np, n_batches, start_batch=0):
+    """``bench.py`` ``run_q5_backfill``'s bids (``:564-575``): 10,000
+    auctions, a unique ``event_id`` and ``ts = event_id // 100``."""
+    def gen(split, i):
+        if i >= n_batches:
+            return None
+        j = start_batch + i
+        rng = np.random.default_rng(9200 + j)
+        auction = rng.integers(0, LOG_AUCTIONS, LOG_BATCH).astype(np.int64)
+        price = rng.integers(100, 10_000, LOG_BATCH).astype(np.int64)
+        eid = j * LOG_BATCH + np.arange(LOG_BATCH, dtype=np.int64)
+        ts = eid // 100
+        return ({"auction": auction, "price": price, "event_id": eid,
+                 "ts_ms": ts}, ts)
+    return gen
+
+
+def log_conf(root, extra=None):
+    """confs/bench_q5_backfill.conf with ``log.dir`` at ``root``."""
+    from flink_tpu_torch.config import Configuration
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_q5_backfill.conf"))
+    conf.set("log.dir", root)
+    for k, v in (extra or {}).items():
+        conf.set(k, v)
+    return conf
+
+
+def log_produce(torch, np, root, name, n_batches, start_batch=0):
+    """The port's ``LogSink`` commits ``n_batches`` of bids into the
+    topic ``root/name`` (2 partitions keyed on ``event_id``): wall s."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.log import LogSink
+
+    conf = log_conf(root, {"log.partitions": 2})
+    env = StreamExecutionEnvironment(conf)
+    env.from_source(GeneratorSource(log_bid_gen(np, n_batches, start_batch))
+                    ).add_sink(LogSink.from_config(conf, name,
+                                                   key_field="event_id"))
+    t0 = time.perf_counter()
+    res = env.execute(f"log-producer-{name}", device="cuda")
+    check(res.metrics["records_in"] == n_batches * LOG_BATCH,
+          f"log producer {name}: {res.metrics['records_in']} records in")
+    return time.perf_counter() - t0
+
+
+def log_read_s(topic, starts):
+    """Seconds to read and decode the topic from ``starts`` through the
+    source's own path (zero-copy, coalesced, readahead), no job."""
+    from flink_tpu_torch.log import LogSource
+
+    src = LogSource(topic, ts_field="ts_ms", batch_records=LOG_BATCH)
+    t0 = time.perf_counter()
+    rows = 0
+    for p in src.splits():
+        it = src.open_split(p, int(starts.get(int(p), 0)))
+        try:
+            for data, ts in it:
+                rows += len(ts)
+        finally:
+            it.close()
+    return time.perf_counter() - t0, rows
+
+
+def log_consume(torch, np, root, name, group, label):
+    """Q5 over ``LogSource.from_config`` on the topic, in its consumer
+    group, on the card: (rows in commit order, launches, JobResult,
+    wall s)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sinks import FnSink
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.log import LogSource
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+
+    conf = log_conf(root, {"log.group.name": group})
+    parts = []
+    env = StreamExecutionEnvironment(conf)
+    q5_hot_items(env, LogSource.from_config(conf, name, ts_field="ts_ms"),
+                 FnSink(lambda b: parts.append(
+                     {k: np.asarray(v).copy() for k, v in b.items()})),
+                 window_ms=10_000, slide_ms=1_000, out_of_orderness_ms=1_000)
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(int(a), int(w), int(c)) for p in parts
+            for a, w, c in zip(p["auction"], p["window_end"], p["bid_count"])]
+    return rows, dict(wk.LAUNCHES), res, wall
+
+
+def log_crash_run(torch, np, root, name, golden):
+    """The consumer again, checkpointing at every batch boundary, its
+    output into a ``LogSink`` topic, under ``run_with_recovery`` with a
+    ``log.prefetch.read`` and a ``log.txn.commit`` fault armed: the
+    output topic must hold each golden row once."""
+    from flink_tpu_torch import faults
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.log import LogSink, LogSource, TopicReader
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+    from flink_tpu_torch.obs.tracing import tracer
+    from flink_tpu_torch.runtime.supervisor import run_with_recovery
+
+    out_topic = os.path.join(root, "q5-out")
+    conf = log_conf(root, {
+        "log.group.name": "crash",
+        "execution.checkpointing.dir": os.path.join(root, "ckpt"),
+        "execution.checkpointing.interval": 1,
+        "restart-strategy.type": "fixed-delay",
+        "restart-strategy.fixed-delay.attempts": 5,
+        "restart-strategy.fixed-delay.delay": 1})
+
+    def build(c):
+        env = StreamExecutionEnvironment(c)
+        q5_hot_items(env, LogSource.from_config(c, name, ts_field="ts_ms"),
+                     LogSink(out_topic, partitions=1), window_ms=10_000,
+                     slide_ms=1_000, out_of_orderness_ms=1_000)
+        return env
+
+    plan = (faults.FaultPlan(seed=SEED)
+            .rule("log.prefetch.read", "raise", count=1, after=4)
+            .rule("log.txn.commit", "raise", count=1))
+    tracer.clear()
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plan.activate():
+        res = run_with_recovery(build, conf, job_name="log-crash",
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fired = sorted({x[0] for x in plan.log})
+    recoveries = len(tracer.spans("recovery"))
+    check(fired == ["log.prefetch.read", "log.txn.commit"],
+          f"log crash run: the faults fired were {plan.log}")
+    check(1 <= recoveries <= 2, f"log crash run: {recoveries} recoveries")
+    reader = TopicReader(out_topic)
+    got = [(int(a), int(w), int(c)) for _, b in reader.read(0)
+           for a, w, c in zip(b["auction"], b["window_end"], b["bid_count"])]
+    check(len(got) == len(set(got)),
+          f"log crash run: {len(got) - len(set(got))} rows committed twice")
+    check(set(got) == golden,
+          f"log crash run: {len(set(got) - golden)} extra and "
+          f"{len(golden - set(got))} missing rows of {len(golden)}")
+    return {"wall_s": wall, "rows": len(got), "faults": fired,
+            "recoveries": recoveries,
+            "checkpoints": len(tracer.spans("checkpoint.persist")),
+            "launches": dict(wk.LAUNCHES),
+            "output_committed": reader.committed_offsets()[0],
+            "records_in_last_attempt": res.metrics["records_in"]}
+
+
+def phase_log(torch, np):
+    """The durable log tier feeding Q5 on the card (see the module
+    docstring, phase 25): backfill from a compacted topic, then the live
+    tail through the same consumer groups, then a crash run. Returns
+    each consumer job's launches, by path, for the kernels line."""
+    import shutil
+
+    from flink_tpu_torch.log import Compactor, ConsumerGroups, describe_topic
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "log")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    topics = {"compacted": "bids", "plain": "bids-ref"}
+    groups = {"compacted": "q5-backfill", "plain": "ref"}
+    out = {"phase": "log", "batch": LOG_BATCH, "history_batches": LOG_HIST,
+           "live_batches": LOG_LIVE, "partitions": 2,
+           "conf": "confs/bench_q5_backfill.conf"}
+    produce_s = {k: log_produce(torch, np, root, t, LOG_HIST)
+                 for k, t in topics.items()}
+    t0 = time.perf_counter()
+    comp = Compactor(os.path.join(root, topics["compacted"]),
+                     key_field="event_id", min_segments=1).compact()
+    compact_s = time.perf_counter() - t0
+    check(comp["gen"] == 1 and all(
+        e["rows_in"] == e["rows_out"] for e in comp["partitions"].values()),
+        f"log: the compaction keyed on event_id dropped rows: {comp}")
+    figures, paths, rows = {}, {}, {}
+    for phase, n_batches in (("backfill", LOG_HIST), ("live", LOG_LIVE)):
+        if phase == "live":
+            for k, t in topics.items():
+                produce_s[k + "_live"] = log_produce(
+                    torch, np, root, t, LOG_LIVE, start_batch=LOG_HIST)
+        for k, t in topics.items():
+            topic = os.path.join(root, t)
+            starts = ConsumerGroups.committed(topic, groups[k])
+            got, launches, res, wall = log_consume(
+                torch, np, root, t, groups[k], f"log-{phase}-{k}")
+            check(res.metrics["records_in"] == n_batches * LOG_BATCH,
+                  f"log {phase} {k}: {res.metrics['records_in']} records in "
+                  f"for {n_batches * LOG_BATCH} bids")
+            check(launches["fused_step"] + launches["topn_select_append"] > 0
+                  and launches["fused_step"] + launches["window_counts"] > 0,
+                  f"log {phase} {k}: no fire or top-n kernel launched: "
+                  f"{launches}")
+            rows[(phase, k)] = got
+            paths[f"log_{phase}_{k}"] = launches
+            if k == "compacted":
+                read_s, read_rows = log_read_s(topic, starts)
+                check(read_rows == n_batches * LOG_BATCH,
+                      f"log {phase}: the read alone saw {read_rows} rows")
+                busy, _ = busy_and_host(res)
+                events = n_batches * LOG_BATCH
+                read_wait = res.metrics.get("profile.driver.source_next", 0.0)
+                push = res.metrics.get("profile.driver.push", 0.0)
+                figures[phase] = {
+                    "events": events, "wall_s": wall,
+                    "events_per_s": events / wall, "rows": len(got),
+                    "device_busy_ms": busy,
+                    "device_idle_share": 1.0 - sum(busy.values()) / (
+                        wall * 1e3),
+                    "host_s": {"read_decode_wait": read_wait,
+                               "push": push,
+                               "rest": wall - read_wait - push},
+                    "read_decode_alone_s": read_s,
+                    "launches": {n: c for n, c in launches.items() if c}}
+        check(sorted(rows[(phase, "compacted")])
+              == sorted(rows[(phase, "plain")]),
+              f"log {phase}: the compacted topic's rows differ from the "
+              "never-compacted topic's")
+    # the goldens' numpy work comes after the timed runs
+    def golden(start_batch, n_batches):
+        gen = log_bid_gen(np, n_batches, start_batch)
+        return q5_golden(np, ((d["auction"], t) for d, t in (
+            gen(0, i) for i in range(n_batches))), LOG_AUCTIONS,
+            window_panes=10, pane_ms=1000)
+
+    for phase, (start, n) in (("backfill", (0, LOG_HIST)),
+                              ("live", (LOG_HIST, LOG_LIVE))):
+        got = rows[(phase, "compacted")]
+        check(len(got) == len(set(got)), f"log {phase}: duplicate rows")
+        expect = golden(start, n)
+        check(set(got) == expect,
+              f"log {phase}: {len(set(got) - expect)} extra and "
+              f"{len(expect - set(got))} missing rows of {len(expect)}")
+    desc = describe_topic(os.path.join(root, topics["compacted"]))
+    crash = log_crash_run(torch, np, root, topics["compacted"],
+                          golden(0, LOG_HIST + LOG_LIVE))
+    paths["log_crash"] = crash["launches"]
+    out.update({
+        "producer_s": produce_s, "compaction": {"seconds": compact_s, **comp},
+        "backfill": figures["backfill"], "live": figures["live"],
+        "rows_equal_never_compacted": True, "rows_equal_golden": True,
+        "topic": {"compaction_generation": desc["compaction_generation"],
+                  "committed_offsets": desc["committed_offsets"],
+                  "groups": desc["groups"]},
+        "crash": crash})
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_line()
+    emit(out)
+    # the compact line: rates, idle share, host split, kernels, card
+    emit({
+        "log_summary": {
+            "backfill_bids_per_s": figures["backfill"]["events_per_s"],
+            "live_bids_per_s": figures["live"]["events_per_s"],
+            "idle_share": {p: figures[p]["device_idle_share"]
+                           for p in ("backfill", "live")},
+            "host_s": {p: figures[p]["host_s"] for p in ("backfill", "live")},
+            "kernels": figures["backfill"]["launches"],
+            "crash_recoveries": crash["recoveries"],
+            "seconds": out["seconds"], "card": out["card"]}})
+    return paths
+
 
 def main() -> int:
     import numpy as np
@@ -8630,6 +8949,7 @@ def main() -> int:
         "--rescale": lambda torch, np: (phase_build(),
                                         phase_rescale(torch, np)),
         "--sql": lambda torch, np: (phase_build(), phase_sql(torch, np)),
+        "--log": lambda torch, np: (phase_build(), phase_log(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -8650,6 +8970,9 @@ def main() -> int:
                 traceback.print_exc()
                 return 1
             return 0
+    # a run starts the file afresh (its worker processes append to it)
+    if os.path.exists(PHASES_FILE):
+        os.remove(PHASES_FILE)
     flag = next((a for a in argv if a in modes), None)
     if flag is not None:
         try:
@@ -8689,6 +9012,7 @@ def main() -> int:
         phase_host_patterns(torch, np, HP_CEP_BATCHES_CUT)
         phase_rescale(torch, np, RESCALE_BATCHES_CUT, RESCALE_CUT_CUT)
         sql_paths = phase_sql(torch, np)
+        log_paths = phase_log(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -8700,7 +9024,7 @@ def main() -> int:
                  "hybrid": hybrid, "q5_lsm": q5_lsm,
                  "big_cells": {k: big["launches"].get(k, 0)
                                for k in host_fed},
-                 **sql_paths}
+                 **sql_paths, **log_paths}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy
@@ -8787,7 +9111,9 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
-    emit({"kernels": table})
+    record_line({"kernels_detail": table})
+    emit({"kernels": [{k: row.get(k) for k in KERNEL_LINE_KEYS}
+                      for row in table]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

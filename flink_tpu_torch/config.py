@@ -410,13 +410,194 @@ class AnalysisOptions:
         "threshold.")
 
 
+class LogOptions:
+    DIR = ConfigOption(
+        "log.dir", "/tmp/flink-tpu-log",
+        "Root directory for embedded durable-log topics (log/"
+        "— the job-chaining exchange plane, the Kafka role without a "
+        "broker process). LogSink.from_config resolves a topic name "
+        "under this root; any registered FileSystem scheme works. Jobs "
+        "chained through one topic must share this filesystem.")
+    PARTITIONS = ConfigOption(
+        "log.partitions", 1,
+        "Default partition count for topics created by "
+        "LogSink.from_config. Partitions are the source-split unit of "
+        "LogSource (one replayable split per partition); records "
+        "hash-route by the sink's key_field, so each partition holds a "
+        "disjoint key range and per-key order is preserved. Fixed at "
+        "topic creation — reopening with a different count fails "
+        "loudly (offsets are per-partition).")
+    SEGMENT_RECORDS = ConfigOption(
+        "log.segment-records", 65536,
+        "Records per appended log segment before the appender rolls to "
+        "a new file within one transaction. Every segment is written "
+        "sealed (columnar footer + fsync) at pre-commit, so this is "
+        "also the recovery/replay granularity of a topic partition.")
+    FSYNC_MODE = ConfigOption(
+        "log.fsync-mode", "group",
+        "Segment durability discipline at transaction pre-commit: "
+        "'group' (default) writes every staged segment first and runs "
+        "ONE group-commit fsync pass over all of them strictly before "
+        "the pre-commit marker publishes (fsyncs overlap through the "
+        "host pool on multi-partition topics); 'segment' is the legacy "
+        "fsync-per-file-at-write discipline. The 2PC crash-window "
+        "semantics are identical: the marker rename — the point after "
+        "which a transaction is recoverable — always strictly follows "
+        "every segment fsync.")
+    ZERO_COPY = ConfigOption(
+        "log.zero-copy", True,
+        "LogSource decode mode: true mmaps sealed local-fs segments "
+        "and returns fixed-width columns as read-only np.frombuffer "
+        "views (no read() image copy, no per-column decode copy; "
+        "block CRCs still verified, corruption/truncation exactly as "
+        "loud). false is the legacy copying decode. Non-local schemes "
+        "and big-endian hosts degrade to copying automatically.")
+    READ_BATCH_RECORDS = ConfigOption(
+        "log.read-batch-records", 262_144,
+        "LogSource read-batch coalescing target: on-disk blocks merge "
+        "until a batch holds at least this many rows before entering "
+        "the pipeline — small sealed blocks otherwise starve the "
+        "device path with tiny dispatches. Replay "
+        "positions advance at merged-batch boundaries and stay "
+        "checkpoint-exact. 0 = per-block reads (the legacy "
+        "granularity).")
+    PREFETCH_SEGMENTS = ConfigOption(
+        "log.prefetch-segments", 1,
+        "Merged read batches the LogSource decodes ahead on a feeder "
+        "thread while the pipeline consumes the current one (the "
+        "cluster.dcn-overlap shape at the segment-read seam; 1 = "
+        "double-buffered). 0 disables — reads run inline on the "
+        "consuming thread. Positions stay checkpoint-exact: only "
+        "consumed batches advance them, a restore re-reads from the "
+        "frozen offset.")
+    COMPACTION_KEY_FIELD = ConfigOption(
+        "log.compaction.key-field", "",
+        "Key column for latest-wins key compaction (log/bus.py "
+        "Compactor): sealed committed segments below the safety floor "
+        "are rewritten keeping only the latest committed row per key, "
+        "original offsets preserved. Empty = the key_field recorded in "
+        "the topic's meta.json at creation (the sink's routing key).")
+    COMPACTION_MIN_SEGMENTS = ConfigOption(
+        "log.compaction.min-segments", 2,
+        "Only compact a partition when at least this many sealed "
+        "committed segments sit wholly below the safety floor — a "
+        "single segment gains nothing from a rewrite; raising it "
+        "amortizes rewrite I/O over more input (the Kafka "
+        "min.cleanable.dirty.ratio role, count-based).")
+    RETENTION_MS = ConfigOption(
+        "log.retention.ms", 0,
+        "Retention window: whole sealed segments whose newest row is "
+        "older than this (by the topic's ts column) are dropped, but "
+        "NEVER above the safety floor (lowest consumer-group committed "
+        "offset / open pre-commit marker). 0 = keep forever.")
+    RETENTION_TS_FIELD = ConfigOption(
+        "log.retention.ts-field", "",
+        "Event-time column used by log.retention.ms: a segment's age "
+        "is now minus its newest row's value in this column. Required "
+        "whenever log.retention.ms > 0 — a time-retention pass "
+        "without it fails loudly (size-only retention leaves both "
+        "unset).")
+    RETENTION_BYTES = ConfigOption(
+        "log.retention.bytes", 0,
+        "Per-partition size budget: oldest whole sealed segments are "
+        "dropped until the partition fits, subject to the same safety "
+        "floor as log.retention.ms. 0 = unbounded.")
+    LEASE_TTL_MS = ConfigOption(
+        "log.lease.ttl-ms", 30_000,
+        "Per-partition writer-lease time-to-live (log/bus.py "
+        "LeaseManager). A producer renews its leases at every stage/"
+        "commit; a lease this stale is expired and another producer "
+        "may take the partition over with a bumped fencing epoch — "
+        "the deposed holder's late writes are rejected by epoch.")
+    GROUP_NAME = ConfigOption(
+        "log.group.name", "",
+        "Consumer-group name for LogSource.from_config: members share "
+        "a topic with per-partition committed offsets published at "
+        "checkpoint complete (the compaction/retention safety floor "
+        "and the cross-generation resume point). Empty = no group "
+        "(anonymous reader, offsets live only in the job checkpoint).")
+    GROUP_MEMBER = ConfigOption(
+        "log.group.member", 0,
+        "This reader's member index within log.group.members: static "
+        "partition assignment p % members == member (disjoint, "
+        "deterministic — no broker to rebalance).")
+    GROUP_MEMBERS = ConfigOption(
+        "log.group.members", 1,
+        "Total members in the consumer group; together with "
+        "log.group.member this fixes the partition assignment. All "
+        "members of one group must agree on this count.")
+    GROUP_MEMBER_ID = ConfigOption(
+        "log.group.member-id", "",
+        "DYNAMIC membership: a non-empty id makes LogSource.from_config "
+        "join the group's durable membership manifest at open "
+        "(idempotent re-join on restart) and derive its partition "
+        "assignment from the manifest's sorted member list — the "
+        "generation-fenced rebalance protocol, instead of the static "
+        "log.group.member/members pair. Offset commits are keyed by "
+        "the joined generation; a member deposed by a rebalance it "
+        "missed has its late commit rejected at the fence. Members "
+        "leave explicitly (ConsumerGroups.leave / the log CLI), not on "
+        "close — a restart must keep its seat.")
+    CLEANER_ENABLED = ConfigOption(
+        "log.cleaner.enabled", False,
+        "Run the driver-owned background cleaner service "
+        "(log/cleaner.py): one maintenance thread per log topic the "
+        "job writes, executing compaction + retention per the "
+        "log.compaction.*/log.retention.* grammar at "
+        "log.cleaner.interval-ms cadence under a fenced cleaner lease "
+        "and the per-topic maintenance lock. False (default) keeps "
+        "maintenance an explicit CLI invocation (`log TOPIC --compact/"
+        "--retain`).")
+    CLEANER_INTERVAL_MS = ConfigOption(
+        "log.cleaner.interval-ms", 30_000,
+        "Cadence of the background cleaner's maintenance passes per "
+        "topic (the Kafka log.cleaner backoff role). Each pass runs "
+        "compaction then retention below the safety floor; readers "
+        "and leased producers race it freely — the manifest-swap "
+        "discipline keeps their reads byte-identical.")
+    CLEANER_LEASE_TTL_MS = ConfigOption(
+        "log.cleaner.lease-ttl-ms", 60_000,
+        "Time-to-live of the fenced cleaner lease (cleaner.lease in "
+        "the topic dir): exactly one cleaner service owns a topic's "
+        "maintenance at a time, a crashed cleaner's lease expires "
+        "after this, and a deposed cleaner's late pass dies at its "
+        "next lease verify (the writer-lease epoch discipline).")
+
+
+
+class StorageOptions:
+    """The durable-storage degradation grammar (fs.py): how
+    the FileSystem seam behaves when the disk itself fails under a
+    write — the crash-consistency plane's runtime half."""
+
+    ENOSPC_POLICY = ConfigOption(
+        "storage.enospc-policy", "retry",
+        "How a durable write seam (checkpoint persist, log segment "
+        "stage, sink part write — everything routed through "
+        "fs.write_atomic/enospc_retry) handles OSError(ENOSPC): "
+        "'retry' (default) re-attempts the whole-file write with "
+        "bounded backoff (retention/rotation may free space between "
+        "attempts; every re-attempt counts on the "
+        "storage.enospc_retries metric, exhausted budgets count toward "
+        "execution.checkpointing.tolerable-failures like any persist "
+        "failure) or 'fail' (propagate immediately). Either way the "
+        "tmp+fsync+rename discipline guarantees no torn file at a "
+        "final name.")
+    ENOSPC_RETRIES = ConfigOption(
+        "storage.enospc-retries", 4,
+        "Bounded retry budget per whole-file write under "
+        "storage.enospc-policy=retry (0 behaves like 'fail').")
+    ENOSPC_BACKOFF_MS = ConfigOption(
+        "storage.enospc-backoff-ms", 50.0,
+        "First retry delay in ms under storage.enospc-policy=retry; "
+        "doubles per attempt.")
+
+
 FAIL_ON_VALUES = ("error", "warn", "off")
 
 # keys of modules still to port, by prefix (or whole key), with the
 # ROADMAP.md item that brings each
 LATER_KEYS = (
-    ("log.", "queue 1 item 8"),
-    ("storage.enospc-", "queue 1 item 8"),
     ("execution.runtime-mode", "queue 1 item 8"),
     ("execution.batch.", "queue 1 item 8"),
     ("cluster.dcn-host", "queue 1 item 10"),
@@ -426,6 +607,8 @@ LATER_KEYS = (
     ("high-availability.", "queue 1 item 10"),
     ("rescale.", "queue 1 item 10"),
     ("source.enumeration", "queue 1 item 10"),
+    # the attempt's fencing epoch; until it comes the driver announces
+    # epoch 0 to the sinks, the reference's default
     ("cluster.attempt", "queue 1 item 10"),
     ("cluster.coordinator", "queue 1 item 10"),
     ("cluster.job-id", "queue 1 item 10"),

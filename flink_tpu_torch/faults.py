@@ -48,10 +48,17 @@ The port's points (``KNOWN_FAULT_POINTS``)::
     state.run.seal / state.run.fsync / state.compact.swap  state/lsm.py
     state.changelog.link                                   checkpoint/storage.py
     changelog.retract.emit                                 ops/global_agg.py
+    log.segment.append / .seal / .fsync                    log/topic.py
+    log.txn.marker / log.txn.commit                        log/topic.py
+    log.compact.rewrite / log.compact.swap                 log/bus.py
+    log.retention.drop                                     log/bus.py
+    log.lease.acquire / log.lease.renew                    log/bus.py
+    log.group.commit / .rebalance / .fence                 log/bus.py
+    log.prefetch.read                                      log/connectors.py
+    log.cleaner.pass                                       log/cleaner.py
 
-The reference's other points (RPC, the log tier, sessions, HA, rescale)
-come with the modules that fire them (ROADMAP.md queue 1 items 6 to
-10).
+The reference's other points (RPC, sessions, HA, rescale) come with the
+modules that fire them (ROADMAP.md queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -94,6 +101,21 @@ KNOWN_FAULT_POINTS = frozenset((
     "state.compact.swap",
     "state.changelog.link",
     "changelog.retract.emit",
+    "log.segment.append",
+    "log.segment.seal",
+    "log.segment.fsync",
+    "log.txn.marker",
+    "log.txn.commit",
+    "log.compact.rewrite",
+    "log.compact.swap",
+    "log.retention.drop",
+    "log.lease.acquire",
+    "log.lease.renew",
+    "log.group.commit",
+    "log.group.rebalance",
+    "log.group.fence",
+    "log.prefetch.read",
+    "log.cleaner.pass",
 ))
 
 # process-global fault/recovery metrics — chaos tests assert every

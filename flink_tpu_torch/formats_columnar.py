@@ -26,8 +26,10 @@ views of the caller's arrays, and ``iter_blocks(..., zero_copy=True)``
 returns read-only views into the file image (an mmap from
 ``map_file_image``) on a little-endian host.
 
-``ColumnarFormat`` (the connector's ``Format``) and the streaming file
-reader come with ROADMAP.md queue 1 item 8.
+``infer_schema`` maps a batch's dtypes to the schema a log topic
+fixes at its first append (``log/topic.py``). ``ColumnarFormat`` (the
+connector's ``Format``) and the streaming file reader come with
+ROADMAP.md queue 1 item 8.2.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from zlib import crc32 as _crc32
 
 import numpy as np
 
-__all__ = ["ColumnarError", "ColumnarWriter", "iter_blocks",
-           "map_file_image", "read_schema"]
+__all__ = ["ColumnarError", "ColumnarWriter", "infer_schema",
+           "iter_blocks", "map_file_image", "read_schema"]
 
 #: zero-copy views reinterpret little-endian file bytes in place —
 #: only valid when the host IS little-endian (x86/arm64; the copying
@@ -65,6 +67,28 @@ class ColumnarError(ValueError):
     schema mismatch. Always raised loudly — a batch pipeline must never
     silently skip a damaged shuffle partition (SURVEY §3.7: lost blocks
     mean lost records, which blocking exchanges may not drop)."""
+
+
+def infer_schema(batch: Batch) -> Tuple[Tuple[str, str], ...]:
+    """Schema from a concrete batch: integer/bool → i64, float32 → f32,
+    other floats → f64, object/str → str. Columns keep dict order (the
+    framework's struct-of-arrays convention is insertion-ordered)."""
+    schema: List[Tuple[str, str]] = []
+    for name, col in batch.items():
+        a = np.asarray(col)
+        if a.dtype.kind in ("i", "u", "b"):
+            schema.append((name, "i64"))
+        elif a.dtype == np.float32:
+            schema.append((name, "f32"))
+        elif a.dtype.kind == "f":
+            schema.append((name, "f64"))
+        elif a.dtype.kind in ("O", "U", "S"):
+            schema.append((name, "str"))
+        else:
+            raise ColumnarError(
+                f"column {name!r} has unsupported dtype {a.dtype} "
+                f"(supported: int→i64, f32, f64, object/str)")
+    return tuple(schema)
 
 
 def _check_schema(schema) -> Tuple[Tuple[str, str], ...]:

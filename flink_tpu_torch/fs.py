@@ -9,11 +9,13 @@ helpers every checkpoint and transactional sink write goes through.
   durability barrier (flush + fsync); ``fsync(path)`` is the barrier on
   a closed file or a directory; ``write_atomic`` publishes a whole file
   as tmp + fsync + rename + parent-directory fsync.
-- A full disk (``OSError(ENOSPC)``) under ``enospc_retry`` retries the
-  whole-file write with bounded backoff (4 retries, 50 ms doubling: the
-  reference's default ``storage.enospc-policy``; the keys that change it
-  come with ROADMAP.md queue 1 item 8), counted on the
-  ``storage.enospc_retries`` metric.
+- A full disk (``OSError(ENOSPC)``) under ``enospc_retry`` follows the
+  process's ``storage.enospc-policy``: ``retry`` (the default: 4
+  retries, 50 ms doubling) re-runs the whole-file write with bounded
+  backoff, each retry counted on the ``storage.enospc_retries`` metric;
+  ``fail`` propagates at once. The driver installs a job's policy at run
+  start (``install_enospc_policy_from_config``), and only when the job
+  sets a ``storage.enospc-*`` key.
 
 - The conditional-write extension: a backend that sets
   ``conditional_put`` (``cas_capable``) has ``etag(path)`` and
@@ -244,7 +246,7 @@ class _SyncOnClose:
             self.close()
 
 
-# -- ENOSPC degradation: the reference's default storage.enospc-policy ---
+# -- ENOSPC degradation policy (storage.enospc-policy) -------------------
 
 _ENOSPC_ERRNOS = (errno.ENOSPC, getattr(errno, "EDQUOT", errno.ENOSPC))
 
@@ -252,9 +254,9 @@ _ENOSPC_ERRNOS = (errno.ENOSPC, getattr(errno, "EDQUOT", errno.ENOSPC))
 # storage.enospc_retries counts every backed-off re-attempt so a
 # degrading disk is visible before it becomes a failed job
 registry = MetricRegistry()
-_counter_lock = threading.Lock()
-ENOSPC_RETRIES = 4
-ENOSPC_BACKOFF_MS = 50.0
+_policy_lock = threading.Lock()
+_enospc_policy: Dict[str, Any] = {
+    "mode": "retry", "retries": 4, "backoff_ms": 50.0}
 
 
 def is_enospc(exc: BaseException) -> bool:
@@ -266,6 +268,46 @@ def is_enospc(exc: BaseException) -> bool:
     return exc.errno in _ENOSPC_ERRNOS or "enospc" in str(exc).lower()
 
 
+def install_enospc_policy(mode: str = "retry", retries: int = 4,
+                          backoff_ms: float = 50.0) -> None:
+    if mode not in ("retry", "fail"):
+        raise ValueError(
+            f"storage.enospc-policy must be 'retry' or 'fail', "
+            f"got {mode!r}")
+    with _policy_lock:
+        _enospc_policy.update(mode=mode, retries=max(0, int(retries)),
+                              backoff_ms=float(backoff_ms))
+
+
+def install_enospc_policy_from_config(config) -> None:
+    """The driver's deploy-time install (the faults.install_from_config
+    shape). The policy is PROCESS-global — like the faults plan and for
+    the same reason: the disk filling up is a property of the machine,
+    not attributable to one tenant from inside the write seam. So a
+    config that does not EXPLICITLY set any ``storage.enospc*`` key is
+    a no-op here (the installed policy — the declared default, or a
+    co-resident job's explicit choice — stays), and co-scheduling two
+    jobs with CONFLICTING explicit policies on one runner process is
+    last-writer-wins, the documented faults-plane discipline: give
+    policy-sensitive jobs their own runner."""
+    from flink_tpu_torch.config import StorageOptions
+
+    keys = set(config.to_dict())
+    if not any(opt.key in keys for opt in (
+            StorageOptions.ENOSPC_POLICY, StorageOptions.ENOSPC_RETRIES,
+            StorageOptions.ENOSPC_BACKOFF_MS)):
+        return
+    install_enospc_policy(
+        str(config.get(StorageOptions.ENOSPC_POLICY)).strip().lower(),
+        int(config.get(StorageOptions.ENOSPC_RETRIES)),
+        float(config.get(StorageOptions.ENOSPC_BACKOFF_MS)))
+
+
+def enospc_policy() -> Dict[str, Any]:
+    with _policy_lock:
+        return dict(_enospc_policy)
+
+
 _enospc_counter = None
 
 
@@ -275,7 +317,7 @@ def _count_enospc_retry() -> None:
     # counter-cache discipline)
     global _enospc_counter
     if _enospc_counter is None:
-        with _counter_lock:
+        with _policy_lock:
             if _enospc_counter is None:
                 _enospc_counter = registry.group(
                     "storage").counter("enospc_retries")
@@ -283,15 +325,17 @@ def _count_enospc_retry() -> None:
 
 
 def enospc_retry(fn: Callable[[], Any], what: str = "") -> Any:
-    """Run a WHOLE-FILE write attempt, re-running it with bounded
-    backoff on an ENOSPC-classed OSError (a retention pass may free
-    space between attempts); an exhausted budget propagates. Retry is
+    """Run a WHOLE-FILE write attempt under the installed policy:
+    ``retry`` re-runs it with bounded backoff on an ENOSPC-classed
+    OSError (a retention pass or log rotation may free space between
+    attempts); ``fail`` — or an exhausted budget — propagates. Retry is
     safe exactly because every caller is an idempotent tmp-write
     (write_atomic, segment writes, checkpoint persists): a failed
     attempt leaves only an unreferenced tmp the recovery sweep
     removes."""
-    attempts = ENOSPC_RETRIES + 1
-    delay = ENOSPC_BACKOFF_MS / 1000.0
+    pol = enospc_policy()
+    attempts = pol["retries"] + 1 if pol["mode"] == "retry" else 1
+    delay = pol["backoff_ms"] / 1000.0
     for i in range(attempts):
         try:
             return fn()

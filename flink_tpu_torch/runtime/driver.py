@@ -174,6 +174,8 @@ class Driver:
         self._max_ts: Dict[int, int] = {}
         # source id -> split index -> replay position
         self._positions: Dict[int, Dict[int, int]] = {}
+        # the run's background log cleaners (log.cleaner.enabled)
+        self._cleaners: List[Any] = []
         self.metrics: Dict[str, Any] = {
             "records_in": 0, "records_out": 0, "batches": 0,
             "fired_windows": 0, "devgen_host_batches": 0,
@@ -771,9 +773,11 @@ class Driver:
                         self._push_downstream(nid, b)
             self._drain_emits(barrier=True)
         sinks = [n.sink for n in self.plan.nodes.values() if n.kind == "sink"]
+        commit_fns = [s.notify_checkpoint_complete for s in sinks]
+        commit_fns.extend(self._source_offset_committers())
         pend = self._coordinator.trigger_async(
             lambda: self._snapshot(allow_reuse=not savepoint),
-            commit_fns=[s.notify_checkpoint_complete for s in sinks],
+            commit_fns=commit_fns,
             prepare_fns=[s.prepare_commit for s in sinks],
             # a failed attempt's abandon() rolls this epoch back
             abort_fns=[s.notify_checkpoint_abort for s in sinks],
@@ -838,25 +842,65 @@ class Driver:
             }
         return handle
 
+    def _source_offset_committers(self):
+        """One commit-round function a source that publishes committed
+        offsets (a ``LogSource`` in a consumer group), run by the
+        coordinator once the checkpoint is durable, with the positions
+        frozen at this barrier: a group's floor never runs ahead of the
+        checkpoint that proves its rows were consumed."""
+        fns = []
+        for sid in self.plan.sources:
+            src = self.plan.node(sid).source
+            if src is None or not hasattr(src, "commit_offsets"):
+                continue
+            frozen = dict(self._positions.get(sid, {}))
+
+            def _commit(cid, _src=src, _frozen=frozen):
+                _src.commit_offsets(cid, _frozen)
+
+            fns.append(_commit)
+        return fns
+
     def _commit_final_epoch(self) -> None:
         """The 2PC sinks' terminal commit of a bounded run without
         checkpointing: end of input is the terminal barrier. A ms
         timestamp for the epoch id cannot collide with an earlier run's
-        ids in a reused sink directory."""
+        ids in a reused sink directory. Consumer-group sources publish
+        their final offsets under the same barrier."""
         final_epoch = int(time.time() * 1000)
         for n in self.plan.nodes.values():
             if n.kind == "sink":
                 n.sink.prepare_commit(final_epoch)
                 n.sink.notify_checkpoint_complete(final_epoch)
+        for fn in self._source_offset_committers():
+            fn(final_epoch)
 
     # -- the streaming loop -------------------------------------------------
     def run(self, job_name: str = "job"):
         from concurrent.futures import ThreadPoolExecutor
 
         from flink_tpu_torch import faults
+        from flink_tpu_torch.fs import install_enospc_policy_from_config
         from flink_tpu_torch.obs.metrics import MetricsServer
 
         self._coordinator = self._setup_checkpointing(job_name)
+        # the attempt's fencing epoch, announced to the sinks before any
+        # restore or write: epoch-qualified staged names keep a deposed
+        # attempt's late renames off a successor's output. It stays 0
+        # until the coordinator that mints it (cluster.attempt, ROADMAP.md
+        # queue 1 item 10) is ported, the reference's default. The host
+        # pool rides the same announcement: a log sink writes its
+        # partitions' segments and runs its group fsync through it.
+        for n in self.plan.nodes.values():
+            if n.kind == "sink":
+                setter = getattr(n.sink, "set_attempt_epoch", None)
+                if setter is not None:
+                    setter(0)
+                pool_setter = getattr(n.sink, "set_host_pool", None)
+                if pool_setter is not None:
+                    pool_setter(self.host_pool)
+        # the job's disk-full policy, process-wide for every durable write
+        install_enospc_policy_from_config(self.config)
         # the checkpoint executor serves this job's fault scope
         self._ckpt_executor = (ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ckpt",
@@ -869,6 +913,7 @@ class Driver:
                           str(self.config.get(MetricsOptions.BIND)))
             if port else None)
         self._srcs: Dict[int, Dict[int, Any]] = {}
+        self._cleaners = self._start_cleaners()
         try:
             return self._run_loop(job_name)
         except BaseException:
@@ -886,6 +931,14 @@ class Driver:
             self._abort_sinks()
             raise
         finally:
+            # cleaners end with the run on every exit path, releasing
+            # their leases so a successor acquires at once
+            for cleaner in self._cleaners:
+                try:
+                    cleaner.stop()
+                except Exception:  # noqa: BLE001 — must not mask the outcome
+                    pass
+            self._cleaners = []
             # an endpoint alive past its attempt would hold a fixed
             # cluster.dcn-port: the next attempt's bind would fail
             if self._dcn is not None:
@@ -914,6 +967,33 @@ class Driver:
             for nid, op in self._ops.items():
                 if self.plan.node(nid).kind == "async_io":
                     op.close()
+
+    def _start_cleaners(self) -> list:
+        """Under ``log.cleaner.enabled``, one leased background cleaner a
+        ``LogSink`` topic of the job (compaction then retention at
+        ``log.cleaner.interval-ms``). A topic whose cleaner lease another
+        live service holds runs without one."""
+        from flink_tpu_torch.config import LogOptions
+
+        if not bool(self.config.get(LogOptions.CLEANER_ENABLED)):
+            return []
+        from flink_tpu_torch.log.cleaner import LogCleaner
+        from flink_tpu_torch.log.connectors import LogSink
+        from flink_tpu_torch.log.topic import LogError
+
+        cleaners, seen = [], set()
+        for n in self.plan.nodes.values():
+            if (n.kind != "sink" or not isinstance(n.sink, LogSink)
+                    or n.sink.path in seen):
+                continue
+            seen.add(n.sink.path)
+            cleaner = LogCleaner(n.sink.path, self.config)
+            try:
+                cleaner.start()
+            except LogError:
+                continue  # a live cleaner service owns this topic
+            cleaners.append(cleaner)
+        return cleaners
 
     def _run_loop(self, job_name: str):
         from flink_tpu_torch.api.environment import JobResult

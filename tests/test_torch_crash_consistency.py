@@ -8,15 +8,20 @@ cut, decisions) for exact replay.
 
 Tiers: checkpoint storage (v1, v2/v3 blobs and the incremental
 hardlink reuse), the LSM state tier (seals, a compaction's manifest
-swap), both as ``tests/test_crash_consistency.py`` has them, and a
-third, a whole job: SQL Q5 host-fed checkpointing at every batch
+swap), the log tier's four (segments and 2PC markers, a compaction's
+manifest swap, writer leases with group offsets, and the bus on
+``objstore://`` over CrashFS), all as ``tests/test_crash_consistency.py``
+has them, each log tier's golden equal to the reference's, and a whole
+job: SQL Q5 host-fed checkpointing at every batch
 boundary into ``crash://``, restored from each image with
 ``execution.checkpointing.restore: latest`` into the transactional
 sink as the crash left it, whose committed rows must be the golden's,
 once each. The job's golden equals the reference's same SQL job.
 
 Tier-1 runs the reference's bounded schedule (3 seeds x 8 images per
-tier); the ``slow`` soak runs 70 images a seed.
+tier); the ``slow`` soak runs 70 images a seed. ``FileSinkTier`` waits
+for the file connectors (ROADMAP.md queue 1 item 8.2) and
+``HaRegistryTier`` for the HA session registry (item 10).
 """
 import json
 import os
@@ -31,6 +36,14 @@ from flink_tpu_torch.checkpoint import blobformat
 from flink_tpu_torch.checkpoint.storage import (
     FsCheckpointStorage, ReusedOpState)
 from flink_tpu_torch.fs import get_filesystem
+from flink_tpu_torch.log.bus import Compactor, ConsumerGroups, LeaseManager
+from flink_tpu_torch.log.topic import (
+    TopicAppender,
+    TopicReader,
+    create_topic,
+    list_group_offsets,
+    list_leases,
+)
 from test_torch_ckpt_pkgs import JAX, PORT
 from test_torch_threads import capped_torch_threads  # noqa: F401
 
@@ -57,6 +70,38 @@ def _canon(obj):
     if isinstance(obj, bytes):
         return obj.hex()
     return obj
+
+
+def _read_topic(topic: str):
+    r = TopicReader(topic)
+    out = {}
+    for p in range(r.partitions):
+        rows = []
+        for off, block in r.read(p):
+            rows.append([off, _canon(block)])
+        out[p] = rows
+    return {"rows": out,
+            "committed": _canon(r.committed_offsets()),
+            "compacted_end": _canon(r.compacted_ends()),
+            "start": _canon(r.start_offsets())}
+
+
+@pytest.fixture(autouse=True)
+def _restore_objstore_default():
+    """The objstore-bus tier registers ``objstore://`` over each crash
+    image's root; put the default registration back afterwards."""
+    yield
+    import flink_tpu_torch.fs_objstore as fso
+
+    fso.install(inner_prefix="")
+
+
+# -- tier scenarios ---------------------------------------------------------
+# Each tier: setup(root), where a tier has one, runs before the journal
+# (the state the crash starts from); mutate(root) is the journaled phase
+# and returns what recovery needs (the staged payload a checkpoint
+# holds); recover(root, aux, cut) completes the protocol on a crashed
+# image; observe(root) returns the committed, visible output.
 
 
 class CheckpointTier:
@@ -270,12 +315,213 @@ class SqlQ5JobTier:
                        int(r["bid_count"])) for r in self._rows)
 
 
-TIERS = (CheckpointTier(), LsmTier(), SqlQ5JobTier())
+class LogTxnTier:
+    """Log segments + 2PC markers: two committed transactions across
+    two partitions, recovered by rebuild-from-checkpoint-payload +
+    idempotent re-commit (the restore_staged path)."""
+
+    name = "log-2pc"
+
+    def setup(self, root):
+        pass
+
+    def _batches(self):
+        b1 = {"k": np.arange(8, dtype=np.int64),
+              "v": np.arange(8, dtype=np.float64) * 1.5}
+        b2 = {"k": np.arange(8, 13, dtype=np.int64),
+              "v": np.arange(5, dtype=np.float64) - 2.0}
+        return b1, b2
+
+    def mutate(self, root):
+        topic = os.path.join(root, "events")
+        ap = TopicAppender(topic, partitions=2, segment_records=4)
+        b1, b2 = self._batches()
+        aux = {}
+        ap.stage(1, {0: [b1], 1: [b1]})
+        aux["1"] = ap.snapshot(1)
+        ap.commit(1)
+        ap.stage(2, {0: [b2], 1: [b2]})
+        aux["2"] = ap.snapshot(2)
+        ap.commit(2)
+        return aux
+
+    def recover(self, root, aux, cut=None):
+        topic = os.path.join(root, "events")
+        ap = TopicAppender(topic, partitions=2, segment_records=4)
+        for cid in ("1", "2"):
+            ap.rebuild(int(cid), aux[cid])
+            ap.commit(int(cid))
+        ap.sweep_orphans()
+
+    def observe(self, root):
+        return _read_topic(os.path.join(root, "events"))
+
+
+class CompactionTier:
+    """The compaction manifest swap: committed history exists BEFORE
+    journaling (base snapshot); the journaled phase is one compaction
+    pass; recovery re-runs the pass on whatever generation the crash
+    left visible."""
+
+    name = "compaction-swap"
+
+    def _batch(self, lo):
+        return {"k": (np.arange(lo, lo + 6, dtype=np.int64) % 4),
+                "v": np.arange(lo, lo + 6, dtype=np.int64)}
+
+    def setup(self, root):
+        topic = os.path.join(root, "keyed")
+        create_topic(topic, 1, key_field="k")
+        ap = TopicAppender(topic, partitions=1, segment_records=6)
+        for cid in (1, 2, 3):
+            ap.stage(cid, {0: [self._batch(cid * 10)]})
+            ap.commit(cid)
+
+    def mutate(self, root):
+        Compactor(os.path.join(root, "keyed"), min_segments=2).compact()
+        return None
+
+    def recover(self, root, aux, cut=None):
+        topic = os.path.join(root, "keyed")
+        Compactor(topic, min_segments=2).compact()
+        TopicAppender(topic, partitions=1, segment_records=6).sweep_orphans()
+
+    def observe(self, root):
+        return _read_topic(os.path.join(root, "keyed"))
+
+
+class LeaseGroupTier:
+    """Writer leases + consumer-group offsets: both are control files
+    published through write_atomic; recovery re-runs the idempotent
+    acquire/commit sequence (max-merge, keep-epoch)."""
+
+    name = "lease-group"
+
+    def setup(self, root):
+        create_topic(os.path.join(root, "t"), 2, key_field="k")
+
+    def mutate(self, root):
+        topic = os.path.join(root, "t")
+        lm = LeaseManager(topic, "producer-a", [0, 1], ttl_ms=3_600_000)
+        lm.acquire()
+        ConsumerGroups.commit(topic, "g1", {0: 5, 1: 3})
+        ConsumerGroups.commit(topic, "g1", {0: 9})
+        ConsumerGroups.commit(topic, "g2", {0: 2, 1: 2})
+        return None
+
+    def recover(self, root, aux, cut=None):
+        self.mutate(root)
+
+    def observe(self, root):
+        topic = os.path.join(root, "t")
+        leases = {p: {"owner": rec.get("owner"),
+                      "epoch": rec.get("epoch"),
+                      "released": rec.get("released", False)}
+                  for p, rec in list_leases(topic).items()}
+        return {"groups": _canon(list_group_offsets(topic)),
+                "leases": _canon(leases)}
+
+
+class ObjstoreBusTier:
+    """The bus tier served THROUGH the objstore CAS driver
+    composed over CrashFS (``install(inner_prefix="crash://<root>/")``
+    — every object put becomes a journaled atomic publish): a
+    committed 2PC transaction, CAS writer leases, dynamic-group
+    membership (two joins → generation 2) + a generation-keyed offset
+    commit, and a compaction pass whose manifest swap is a
+    conditional put. Recovery re-runs the idempotent sequence
+    (rebuild+re-commit, keep-epoch re-acquire, idempotent re-join,
+    max-merge re-commit at the CURRENT generation, re-compact) on
+    whatever objects the cut left visible."""
+
+    name = "objstore-bus"
+    TOPIC = "objstore://t"
+
+    def _install(self, root):
+        import flink_tpu_torch.fs_objstore as fso
+
+        fso.install(inner_prefix=root.rstrip("/") + "/")
+
+    def _batch(self, lo):
+        return {"k": (np.arange(lo, lo + 8, dtype=np.int64) % 4),
+                "v": np.arange(lo, lo + 8, dtype=np.float64)}
+
+    def setup(self, root):
+        self._install(root)
+        create_topic(self.TOPIC, 2, key_field="k")
+        ap = TopicAppender(self.TOPIC, partitions=2, segment_records=4)
+        for cid in (1, 2):
+            b = self._batch(cid * 10)
+            ap.stage(cid, {0: [b], 1: [b]})
+            ap.commit(cid)
+
+    def mutate(self, root):
+        self._install(root)
+        ap = TopicAppender(self.TOPIC, partitions=2, segment_records=4)
+        b = self._batch(30)
+        ap.stage(3, {0: [b], 1: [b]})
+        aux = {"3": ap.snapshot(3)}
+        ap.commit(3)
+        LeaseManager(self.TOPIC, "producer-a", [0, 1],
+                     ttl_ms=3_600_000).acquire()
+        ConsumerGroups.join(self.TOPIC, "g1", "m1")
+        ConsumerGroups.join(self.TOPIC, "g1", "m2")
+        ConsumerGroups.commit(self.TOPIC, "g1", {0: 5, 1: 3},
+                              generation=2)
+        Compactor(self.TOPIC, min_segments=2).compact()
+        return aux
+
+    def recover(self, root, aux, cut=None):
+        self._install(root)
+        ap = TopicAppender(self.TOPIC, partitions=2, segment_records=4)
+        ap.rebuild(3, aux["3"])
+        ap.commit(3)
+        LeaseManager(self.TOPIC, "producer-a", [0, 1],
+                     ttl_ms=3_600_000).acquire()
+        ConsumerGroups.join(self.TOPIC, "g1", "m1")
+        ConsumerGroups.join(self.TOPIC, "g1", "m2")
+        gen = ConsumerGroups.read_membership(
+            self.TOPIC, "g1")["generation"]
+        ConsumerGroups.commit(self.TOPIC, "g1", {0: 5, 1: 3},
+                              generation=gen)
+        Compactor(self.TOPIC, min_segments=2).compact()
+        ap.sweep_orphans()
+
+    def observe(self, root):
+        self._install(root)
+        view = _read_topic(self.TOPIC)
+        leases = {p: {"owner": rec.get("owner"),
+                      "epoch": rec.get("epoch"),
+                      "released": rec.get("released", False)}
+                  for p, rec in list_leases(self.TOPIC).items()}
+        return {"topic": view,
+                "groups": _canon(list_group_offsets(self.TOPIC)),
+                "membership": _canon(ConsumerGroups.read_membership(
+                    self.TOPIC, "g1")),
+                "leases": _canon(leases)}
+
+    def check_image(self, root):
+        """PUT-is-durable, asserted BEFORE recovery: an object either
+        exists whole or not at all — every .json object in the image
+        must parse (a torn one would mean the buffered-put publish
+        leaked a partial object through the crash)."""
+        for dirpath, _dirs, files in os.walk(os.path.join(root, "t")):
+            for name in files:
+                if name.endswith(".json"):
+                    with open(os.path.join(dirpath, name)) as f:
+                        json.load(f)
+
+
+TIERS = (CheckpointTier(), LsmTier(), SqlQ5JobTier(), LogTxnTier(),
+         CompactionTier(), LeaseGroupTier(), ObjstoreBusTier())
+LOG_TIERS = ("log-2pc", "compaction-swap", "lease-group", "objstore-bus")
 
 
 def explore(tier, tmp_path, seeds, images_per_seed):
+    setup = getattr(tier, "setup", lambda root: None)
     groot = os.path.join(str(tmp_path), "golden")
     os.makedirs(groot)
+    setup(groot)
     tier.mutate(groot)
     golden = tier.observe(groot)
 
@@ -283,6 +529,7 @@ def explore(tier, tmp_path, seeds, images_per_seed):
     for seed in seeds:
         root = os.path.join(str(tmp_path), f"run-{seed}")
         os.makedirs(root)
+        setup(root)  # the state before the journaled phase
         cfs = fs_crash.install(root)
         try:
             aux = tier.mutate("crash://" + root)
@@ -348,3 +595,27 @@ def test_sql_q5_job_golden_equals_the_reference(tmp_path):
                          int(r["bid_count"])) for r in sink.committed]
     assert rows["port"] == rows["jax"]
     assert len(rows["jax"]) > 0
+
+
+@pytest.mark.parametrize("name", LOG_TIERS)
+def test_log_tier_golden_equals_the_reference(name, tmp_path):
+    """Each log tier's fault-free output is the reference's same tier's,
+    run on the JAX package."""
+    import test_crash_consistency as ref
+
+    port = next(t for t in TIERS if t.name == name)
+    theirs = next(t for t in ref.TIERS if t.name == name)
+    got = {}
+    for key, tier, fso in (("port", port, "flink_tpu_torch.fs_objstore"),
+                           ("jax", theirs, "flink_tpu.fs_objstore")):
+        root = str(tmp_path / key)
+        os.makedirs(root)
+        try:
+            tier.setup(root)
+            tier.mutate(root)
+            got[key] = _canon(tier.observe(root))
+        finally:
+            import importlib
+
+            importlib.import_module(fso).install(inner_prefix="")
+    assert got["port"] == got["jax"]

@@ -432,12 +432,12 @@ def test_host_keys_are_read_and_take_effect(workers):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("log.cleaner.enabled", "queue 1 item 8"),
+    ("execution.batch.shuffle-partitions", "queue 1 item 8"),
     ("execution.batch.shuffle-dir", "queue 1 item 8"),
     ("rescale.mode", "queue 1 item 10"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
-    ("log.dir", "queue 1 item 8"),
-    ("storage.enospc-policy", "queue 1 item 8"),
+    ("execution.batch.shuffle-cleanup", "queue 1 item 8"),
+    ("heartbeat.interval", "queue 1 item 10"),
     ("execution.runtime-mode", "queue 1 item 8"),
     ("cluster.dcn-host", "queue 1 item 10"),
     ("cluster.dcn-rendezvous", "queue 1 item 10"),
@@ -476,6 +476,72 @@ def test_ported_keys_take_the_reference_default_and_text(key):
                                                 ref.description)
     pc.Configuration({key: ref.default}).validate()
     pc.Configuration({"state.backend": "lsm"}).validate()
+
+
+LOG_KEYS = (
+    "log.dir", "log.partitions", "log.segment-records", "log.fsync-mode",
+    "log.zero-copy", "log.read-batch-records", "log.prefetch-segments",
+    "log.compaction.key-field", "log.compaction.min-segments",
+    "log.retention.ms", "log.retention.ts-field", "log.retention.bytes",
+    "log.lease.ttl-ms", "log.group.name", "log.group.member",
+    "log.group.members", "log.group.member-id", "log.cleaner.enabled",
+    "log.cleaner.interval-ms", "log.cleaner.lease-ttl-ms",
+    "storage.enospc-policy", "storage.enospc-retries",
+    "storage.enospc-backoff-ms")
+
+
+@pytest.mark.parametrize("key", LOG_KEYS)
+def test_log_and_enospc_keys_are_read_with_the_reference_default(key):
+    """The log tier's 20 ``log.*`` keys and the three
+    ``storage.enospc-*`` keys are read by the port, with the JAX
+    package's default, and no longer name an item."""
+    from flink_tpu import config as jc
+    from flink_tpu_torch import config as pc
+
+    ref, port = jc._REGISTRY[key], pc._REGISTRY[key]
+    assert port.default == ref.default and port.description
+    assert pc.later_item(key) is None
+    conf = pc.Configuration({key: ref.default})
+    conf.validate()
+    assert conf.get(port) == jc.Configuration({key: ref.default}).get(ref)
+
+
+def test_every_log_key_of_the_reference_is_listed():
+    from flink_tpu import config as jc
+
+    assert sorted(LOG_KEYS) == sorted(
+        k for k in jc._REGISTRY
+        if k.startswith(("log.", "storage.enospc-")))
+
+
+@pytest.mark.parametrize("conf,policy", [
+    ({}, {"mode": "retry", "retries": 4, "backoff_ms": 50.0}),
+    ({"storage.enospc-policy": "fail"},
+     {"mode": "fail", "retries": 4, "backoff_ms": 50.0}),
+    ({"storage.enospc-retries": "2", "storage.enospc-backoff-ms": "5"},
+     {"mode": "retry", "retries": 2, "backoff_ms": 5.0}),
+])
+def test_the_driver_installs_the_enospc_policy_as_the_reference_does(
+        conf, policy):
+    """``install_enospc_policy_from_config`` reads the three keys as the
+    reference's does, and a config that sets none of them leaves the
+    process's policy as it is."""
+    from flink_tpu import config as jc
+    from flink_tpu import fs as jfs
+    from flink_tpu_torch import config as pc
+    from flink_tpu_torch import fs as pfs
+
+    try:
+        for fs, cfg in ((pfs, pc), (jfs, jc)):
+            fs.install_enospc_policy()
+            fs.install_enospc_policy_from_config(cfg.Configuration(conf))
+            assert fs.enospc_policy() == policy
+        with pytest.raises(ValueError, match="enospc-policy"):
+            pfs.install_enospc_policy_from_config(pc.Configuration(
+                {"storage.enospc-policy": "sometimes"}))
+    finally:
+        pfs.install_enospc_policy()
+        jfs.install_enospc_policy()
 
 
 def test_every_reference_key_is_ported_or_names_its_item():

@@ -162,7 +162,7 @@ def test_bench_conf_loads_and_validates():
 
 @pytest.mark.parametrize("conf,err", [
     ({"state.backend": "rocksdb"}, ValueError),
-    ({"log.dir": "x"}, NotImplementedError),
+    ({"execution.runtime-mode": "BATCH"}, NotImplementedError),
     ({"analysis.fail-on": "sometimes"}, ValueError),
     ({"pipeline.max-inflight-steps": 0}, ValueError),
 ])

@@ -8,9 +8,14 @@ its driver and operator ``TestValidation`` cases.
 Host-fed runs commit the same row set at every K, each key's rows in the
 same order, and the same set as the reference's (a K = 1 advance packs
 many window ends into one fire; K = 4 fires the same ends in groups, so
-only the interleave across keys moves). Every comparison is exact:
-integer counts. The checkpoint, chaos, CLI and analyzer cases of those
-files wait for their modules (ROADMAP.md queue 1)."""
+only the interleave across keys moves): ``TestHostPlaneParity``'s
+WordCount and sessions runners. ``TestSubbatchChaosK4`` runs the
+sessions job at K = 4 and ``host.parallelism`` 4 under a
+``host.pool.task`` and a checkpoint-storage fault: its committed rows
+equal the fault-free run's at the same K, and the reference's. Every
+comparison is exact: integer counts. The CLI case waits for the CLI
+(ROADMAP.md queue 1 item 10) and the analyzer cases for the analyzer
+(item 11)."""
 import collections
 
 import numpy as np
@@ -409,3 +414,129 @@ def test_driver_keys_parse_and_reach_the_driver():
     (op,) = drv._ops.values()
     assert drv._prefetch == 0 and op.readiness == "probe"
     assert op.external_throttle
+
+
+# -- sessions: TestHostPlaneParity's second runner and TestSubbatchChaosK4 ------
+
+def sess_gen(split, i):
+    """tests/test_subbatch.py's sessions source: 6 batches of 256 users'
+    events, disordered within 600 ms (no record is late)."""
+    if i >= 6:
+        return None
+    rng = np.random.default_rng(500 + i)
+    u = rng.integers(0, 30, 256).astype(np.int64)
+    ts = (i * 400 + rng.integers(0, 600, 256)).astype(np.int64)
+    return {"u": u}, ts
+
+
+def run_sessions(P, k):
+    env = P.Env(P.Conf({"state.num-key-shards": 8,
+                        "state.slots-per-shard": 64,
+                        "pipeline.microbatch-size": 256,
+                        "pipeline.sub-batches": k}))
+    sink = P.sinks.CollectSink()
+    (env.from_source(P.GeneratorSource(sess_gen),
+                     P.WM.for_bounded_out_of_orderness(600))
+     .key_by("u").window(P.Sessions.with_gap(150)).allowed_lateness(1000)
+     .count().add_sink(sink))
+    P.execute(env, f"sess-sub{k}")
+    return [(int(r["key"]), int(r["window_start"]), int(r["window_end"]),
+             int(r["count"])) for r in sink.rows]
+
+
+def per_key_sessions(rows):
+    seq = collections.defaultdict(list)
+    for k, s, e, c in rows:
+        seq[k].append((s, e, c))
+    return dict(seq)
+
+
+@pytest.fixture(scope="module")
+def sessions_reference():
+    from test_torch_ckpt_pkgs import JAX
+
+    return run_sessions(JAX, 1)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_sessions_rows_and_per_key_order_at_every_k(sessions_reference, k):
+    """TestHostPlaneParity's sessions runner: at every K the port commits
+    the reference's K = 1 session rows, each key's in the same order."""
+    from test_torch_ckpt_pkgs import PORT
+
+    got = run_sessions(PORT, k)
+    assert len(sessions_reference) > 0
+    assert sorted(got) == sorted(sessions_reference)
+    assert per_key_sessions(got) == per_key_sessions(sessions_reference)
+
+
+def sessions_chaos_source(split, i):
+    """tests/test_chaos.py TestHostPoolChaos's sessions source."""
+    if i >= 8:
+        return None
+    rng = np.random.default_rng(500 + 1000 * int(split) + i)
+    user = rng.integers(0, 30, 256).astype(np.int64)
+    ts = (i * 400 + rng.integers(0, 600, 256)).astype(np.int64)
+    return {"u": user}, ts
+
+
+def sessions_builder(P, sink):
+    def build_env(conf):
+        env = P.Env(conf)
+        (env.from_source(P.GeneratorSource(sessions_chaos_source),
+                         P.WM.for_bounded_out_of_orderness(500))
+         .key_by("u").window(P.Sessions.with_gap(150))
+         .allowed_lateness(1000).count().add_sink(sink))
+        return env
+    return build_env
+
+
+def session_view(sink):
+    return sorted((int(r["key"]), int(r["window_start"]),
+                   int(r["window_end"]), int(r["count"]))
+                  for r in sink.committed)
+
+
+def sessions_golden(P, tmp_path):
+    """Fault-free at K = 4 and host.parallelism 1, checkpointing every
+    batch boundary."""
+    sink = P.sinks.TransactionalCollectSink()
+    conf = P.Conf({"state.num-key-shards": 8, "state.slots-per-shard": 64,
+                   "pipeline.microbatch-size": 256,
+                   "execution.checkpointing.dir": str(tmp_path / "golden"),
+                   "execution.checkpointing.interval": 1,
+                   "host.parallelism": 1, "pipeline.sub-batches": 4})
+    P.execute(sessions_builder(P, sink)(conf), "hostpool-golden")
+    return session_view(sink)
+
+
+def test_sessions_chaos_exactly_once_at_k4(tmp_path):
+    """TestSubbatchChaosK4: the sessions job at K = 4 and
+    host.parallelism 4, with a host.pool.task fault and a
+    checkpoint-storage fault armed, commits the fault-free run's rows at
+    the same K (which are the reference's), after one or two
+    recoveries."""
+    from test_torch_ckpt_pkgs import JAX, PORT
+
+    golden = sessions_golden(PORT, tmp_path / "port")
+    assert golden == sessions_golden(JAX, tmp_path / "jax") and golden
+    sink = PORT.sinks.TransactionalCollectSink()
+    conf = PORT.Conf({
+        "state.num-key-shards": 8, "state.slots-per-shard": 64,
+        "pipeline.microbatch-size": 128,
+        "execution.checkpointing.dir": str(tmp_path / "chaos-ckpt"),
+        "execution.checkpointing.interval": 1,
+        "restart-strategy.type": "fixed-delay",
+        "restart-strategy.fixed-delay.attempts": 20,
+        "restart-strategy.fixed-delay.delay": 1,
+        "pipeline.sub-batches": 4, "host.parallelism": 4})
+    plan = (PORT.faults.FaultPlan(seed=4321)
+            .rule("host.pool.task", "raise", count=1, after=6)
+            .rule("checkpoint.storage.write", "raise", count=1, after=1))
+    tracer = PORT.tracing.tracer
+    tracer.clear()
+    with plan.activate():
+        PORT.recover(sessions_builder(PORT, sink), conf, "hostpool-chaos")
+    assert session_view(sink) == golden
+    assert len(tracer.spans("fault")) == len(plan.log) == 2
+    assert 1 <= len(tracer.spans("recovery")) <= 2
