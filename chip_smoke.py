@@ -349,11 +349,33 @@ mesh).
    checkpointing at every batch boundary, its output into a ``LogSink``
    topic, under ``run_with_recovery`` with a ``log.prefetch.read`` and a
    ``log.txn.commit`` fault armed: the output topic holds each golden
-   row once, after one or two recoveries. Printed: the phase line (bids/s
+   row once, after one or two recoveries. The port's ``fsck_path`` then
+   checks the crash run's output topic and checkpoint directory: no
+   finding of error severity, and the findings' counts by rule are
+   printed. Printed: the phase line (bids/s
    and idle share a phase, the host seconds split into the wait for the
    topic's read and decode, the push into the operator and the rest,
    the read and decode alone, the launches, the crash run's figures)
    and a compact ``log_summary`` line. ``--log`` runs it alone.
+
+26. ``batch`` — bounded WordCount from files in streaming and batch mode
+   (``execution.runtime-mode``), BASELINE #0's words (``bench.py:441-478``:
+   2^20 a batch, ``floor(u^2 * 30,000)``, ``ts = index // 100``) at
+   ``confs/bench_wordcount.conf``'s shape (128 x 512 key slots, one step
+   in flight). Setup, timed apart: the port's ``FileSink`` writes 16
+   batches (``word``, ``ts``, int64) as ``ColumnarFormat`` parts, one a
+   batch. Then ``FileSource(ColumnarFormat)`` -> ``key_by("word")`` ->
+   1 s tumbling ``count()`` -> ``FileSink(CsvFormat)`` runs in streaming
+   mode, in batch mode at ``execution.batch.shuffle-partitions`` 1 and at
+   4; and 2 batches written as CSV parts run in batch mode through the C
+   parser. Checked in each run: the committed CSV rows, sorted, equal
+   across the runs and the numpy golden, ``records_in`` equals the words,
+   a batch run reports 2 waves and spools every word, and
+   ``apply_pairs_u32`` or ``scatter_counts``, ``fire_pack`` and
+   ``ring_columns`` launched. Printed: the phase line and a compact
+   ``batch_summary`` line (words/s a run, idle share, batch mode's wall
+   split into wave 0, wave 1's replay and push, the one fire and the
+   commit, the shuffle's bytes, the launches). ``--batch`` runs it alone.
 
 Every line the script prints also goes to
 ``chiprun_out/chip_smoke_phases.jsonl``, with the kernels' per-path
@@ -365,7 +387,7 @@ line lists its cut); ``--host-patterns`` and ``--rescale`` run the sizes
 above. Before the card line the default run prints each phase's seconds
 (``phase_seconds``).
 
-Each of 16-25 prints its events/s and wall time beside the card's name
+Each of 16-26 prints its events/s and wall time beside the card's name
 and power limit.
 
 With ``--scatter-lanes`` it builds ``lane_kernels`` alone and runs only
@@ -455,6 +477,7 @@ one JSON object, and last ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without that last line; so does a machine with
 no CUDA device, and a directory without the package.
 """
+import collections
 import dataclasses
 import inspect
 import json
@@ -8792,8 +8815,18 @@ def log_crash_run(torch, np, root, name, golden):
     check(set(got) == golden,
           f"log crash run: {len(set(got) - golden)} extra and "
           f"{len(golden - set(got))} missing rows of {len(golden)}")
+    # the storage the crash left, through the port's fsck: no error
+    from flink_tpu_torch.fsck import fsck_path
+
+    fsck = {}
+    for kind, path in (("output_topic", out_topic),
+                       ("checkpoints", os.path.join(root, "ckpt"))):
+        findings = fsck_path(path)
+        errors = [f for f in findings if f["severity"] == "error"]
+        check(not errors, f"log crash run: fsck of the {kind}: {errors}")
+        fsck[kind] = dict(collections.Counter(f["rule"] for f in findings))
     return {"wall_s": wall, "rows": len(got), "faults": fired,
-            "recoveries": recoveries,
+            "recoveries": recoveries, "fsck": fsck,
             "checkpoints": len(tracer.spans("checkpoint.persist")),
             "launches": dict(wk.LAUNCHES),
             "output_committed": reader.committed_offsets()[0],
@@ -8911,7 +8944,176 @@ def phase_log(torch, np):
             "host_s": {p: figures[p]["host_s"] for p in ("backfill", "live")},
             "kernels": figures["backfill"]["launches"],
             "crash_recoveries": crash["recoveries"],
+            "fsck": crash["fsck"],
             "seconds": out["seconds"], "card": out["card"]}})
+    return paths
+
+
+BATCH_FILES = 16                # 2^20-word columnar parts, a part a split
+BATCH_CSV_FILES = 2             # the CSV input through the C parser
+BATCH_OUT = (("key", "i64"), ("window_end", "i64"), ("count", "i64"))
+BATCH_IN = (("word", "i64"), ("ts", "i64"))
+WC_KERNELS = ("fire_pack", "ring_columns")
+
+
+def batch_write_input(np, root, fmt, n_batches):
+    """The port's ``FileSink`` commits ``n_batches`` WordCount batches as
+    parts of ``fmt``, one a batch, through a job: (the committed
+    directory, the job's wall s)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors import FileSink
+
+    _, words = wordcount_source(np, n_batches)
+
+    def gen(split, i):
+        b = words(split, i)
+        return None if b is None else ({"word": b[0]["word"], "ts": b[1]},
+                                        b[1])
+
+    env = StreamExecutionEnvironment(Configuration(
+        {"pipeline.microbatch-size": WC_BATCH}))
+    env.from_source(GeneratorSource(gen)).add_sink(
+        FileSink(root, fmt, rolling_records=WC_BATCH))
+    t0 = time.perf_counter()
+    res = env.execute("batch-input", device="cuda")
+    wall = time.perf_counter() - t0
+    check(res.metrics["records_in"] == n_batches * WC_BATCH,
+          f"batch input: {res.metrics['records_in']} words written")
+    return os.path.join(root, "committed"), wall
+
+
+def batch_wordcount(torch, np, root, in_dir, in_fmt, mode, parts, label):
+    """WordCount from the files of ``in_dir`` into a CSV ``FileSink`` on
+    the card, in ``mode`` (at ``parts`` shuffle partitions in batch
+    mode): (committed rows as (key, window_end, count) sorted by
+    (window_end, key), launches, JobResult, wall s)."""
+    from flink_tpu_torch.api.environment import StreamExecutionEnvironment
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors import FileSink, FileSource
+    from flink_tpu_torch.formats import CsvFormat
+    from flink_tpu_torch.kernels import window_kernels as wk
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf"))
+    conf.set("execution.runtime-mode", mode)
+    conf.set("execution.batch.shuffle-partitions", parts)
+    conf.set("execution.batch.shuffle-dir", os.path.join(root, "shuffle"))
+    out_dir = os.path.join(root, f"out-{label}")
+    sink = FileSink(out_dir, CsvFormat(BATCH_OUT), rolling_records=WC_BATCH)
+    env = StreamExecutionEnvironment(conf)
+    (env.from_source(FileSource(in_dir, in_fmt, ts_field="ts",
+                                batch_size=WC_BATCH),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .key_by("word").window(TumblingEventTimeWindows.of(1000)).count()
+     .add_sink(sink))
+    torch.cuda.synchronize()
+    wk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = env.execute(label, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(wk.LAUNCHES)
+    got = sink.committed_batches()
+    key, end, cnt = (np.concatenate([b[c] for b in got])
+                     for c in ("key", "window_end", "count"))
+    order = np.lexsort((key, end))
+    return (key[order], end[order], cnt[order]), launches, res, wall
+
+
+def phase_batch(torch, np, n_files=BATCH_FILES):
+    """Bounded WordCount from files on the card, in streaming mode and
+    in batch mode (see the module docstring, phase 26). Returns each
+    run's launches, by path, for the kernels line."""
+    import shutil
+
+    from flink_tpu_torch.formats import CsvFormat
+    from flink_tpu_torch.formats_columnar import ColumnarFormat
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "batch")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    words = n_files * WC_BATCH
+    col_dir, write_s = batch_write_input(
+        np, os.path.join(root, "in-colb"), ColumnarFormat(BATCH_IN), n_files)
+    csv_dir, csv_write_s = batch_write_input(
+        np, os.path.join(root, "in-csv"), CsvFormat(BATCH_IN),
+        BATCH_CSV_FILES)
+    runs = {}
+    for label, in_dir, fmt, mode, parts in (
+            ("streaming", col_dir, ColumnarFormat(BATCH_IN), "streaming", 1),
+            ("batch_p1", col_dir, ColumnarFormat(BATCH_IN), "batch", 1),
+            ("batch_p4", col_dir, ColumnarFormat(BATCH_IN), "batch", 4),
+            ("batch_csv", csv_dir, CsvFormat(BATCH_IN), "batch", 1)):
+        runs[label] = batch_wordcount(torch, np, root, in_dir, fmt, mode,
+                                      parts, label)
+    figures, paths = {}, {}
+    for label, (rows, launches, res, wall) in runs.items():
+        n = BATCH_CSV_FILES * WC_BATCH if label == "batch_csv" else words
+        m = res.metrics
+        check(m["records_in"] == n,
+              f"batch {label}: {m['records_in']} records in for {n} words")
+        missing = [k for k in WC_KERNELS if launches[k] == 0]
+        if launches["apply_pairs_u32"] + launches["scatter_counts"] == 0:
+            missing.append("apply_pairs_u32/scatter_counts")
+        check(not missing, f"batch {label}: kernels not launched: {missing}")
+        if label != "streaming":
+            check(m["batch_waves"] == 2 and m["shuffle_rows_spooled"] == n,
+                  f"batch {label}: {m['batch_waves']} waves, "
+                  f"{m['shuffle_rows_spooled']} rows spooled for {n}")
+        busy, _ = busy_and_host(res)
+        prof = {k.split(".")[-1]: v for k, v in m.items()
+                if k.startswith("profile.driver.")}
+        fig = {"words": n, "wall_s": wall, "words_per_s": n / wall,
+               "rows": len(rows[0]), "device_busy_ms": busy,
+               "device_idle_share": 1.0 - sum(busy.values()) / (wall * 1e3),
+               "launches": {k: c for k, c in launches.items() if c}}
+        if label != "streaming":
+            fire = prof.get("batch_fire", 0.0)
+            fig["waves_s"] = {
+                "wave0_read_and_spool": prof.get("batch_wave0", 0.0),
+                "wave1_replay_and_push": prof.get("batch_wave1", 0.0) - fire,
+                "fire": fire, "commit": prof.get("batch_commit", 0.0)}
+            fig["shuffle_bytes"] = m["shuffle_bytes_spooled"]
+            fig["batch_wall_s"] = m["batch_wall_s"]
+        figures[label] = fig
+        paths[f"files_{label}"] = launches
+    # the goldens' numpy work comes after the timed runs
+    for label, n_b in (("streaming", n_files), ("batch_csv", BATCH_CSV_FILES)):
+        golden = wordcount_golden(np, n_b)
+        group = ([label] if label == "batch_csv"
+                 else ["streaming", "batch_p1", "batch_p4"])
+        for g in group:
+            rows = runs[g][0]
+            check(len(rows[0]) == len(golden[0]) and all(
+                np.array_equal(a, b) for a, b in zip(rows, golden)),
+                f"batch {g}: committed rows differ from the golden "
+                f"({len(rows[0])} rows, {len(golden[0])} expected)")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "batch", "conf": "confs/bench_wordcount.conf",
+           "files": n_files, "csv_files": BATCH_CSV_FILES,
+           "batch": WC_BATCH, "input_write_s": {"columnar": write_s,
+                                                "csv": csv_write_s},
+           "runs": figures, "rows_equal_across_runs": True,
+           "rows_equal_golden": True,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    emit(out)
+    emit({"batch_summary": {
+        "words_per_s": {k: f["words_per_s"] for k, f in figures.items()},
+        "idle_share": {k: f["device_idle_share"] for k, f in figures.items()},
+        "waves_s": {k: f["waves_s"] for k, f in figures.items()
+                    if "waves_s" in f},
+        "shuffle_bytes": {k: f["shuffle_bytes"] for k, f in figures.items()
+                          if "shuffle_bytes" in f},
+        "kernels": {k: {n: c for n, c in f["launches"].items()
+                        if n in WC_KERNELS + ("apply_pairs_u32",
+                                              "scatter_counts")}
+                    for k, f in figures.items()},
+        "seconds": out["seconds"], "card": out["card"]}})
     return paths
 
 
@@ -8950,6 +9152,7 @@ def main() -> int:
                                         phase_rescale(torch, np)),
         "--sql": lambda torch, np: (phase_build(), phase_sql(torch, np)),
         "--log": lambda torch, np: (phase_build(), phase_log(torch, np)),
+        "--batch": lambda torch, np: (phase_build(), phase_batch(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -9013,6 +9216,7 @@ def main() -> int:
         phase_rescale(torch, np, RESCALE_BATCHES_CUT, RESCALE_CUT_CUT)
         sql_paths = phase_sql(torch, np)
         log_paths = phase_log(torch, np)
+        batch_paths = phase_batch(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -9024,7 +9228,7 @@ def main() -> int:
                  "hybrid": hybrid, "q5_lsm": q5_lsm,
                  "big_cells": {k: big["launches"].get(k, 0)
                                for k in host_fed},
-                 **sql_paths, **log_paths}
+                 **sql_paths, **log_paths, **batch_paths}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused
         # step on host-fed Q5's native lane, scatter_counts on its numpy

@@ -5,7 +5,9 @@ visible, the driver runs each keyed window over a mesh of device blocks
 (``build_mesh_plan``). With ``cluster.num-processes`` > 1 the job spans
 processes: each runs this program with its ``cluster.process-id`` and
 the fleet's ``cluster.dcn-peers``, and owns its span of the key shards
-(``runtime/driver.py``'s cross-process loop). ``plugins.modules`` is
+(``runtime/driver.py``'s cross-process loop). ``set_runtime_mode("batch")``
+(``execution.runtime-mode``) runs a bounded job in waves over blocking
+exchanges, each stateful operator firing once. ``plugins.modules`` is
 loaded when the environment is made, so a plugin's filesystem schemes
 resolve for every path the job names."""
 from __future__ import annotations
@@ -58,9 +60,27 @@ class StreamExecutionEnvironment:
     def _register(self, t: Transformation) -> None:
         self._transforms.append(t)
 
+    def set_runtime_mode(self, mode: str) -> "StreamExecutionEnvironment":
+        """'streaming' or 'batch' (``execution.runtime-mode``). Batch
+        runs a bounded job, every source bounded, in topological waves
+        over blocking columnar exchanges, each window firing once at the
+        end of input; the plan's compilation checks it."""
+        from flink_tpu_torch.config import ExecutionOptions
+
+        self.config.set(ExecutionOptions.RUNTIME_MODE, mode)
+        return self
+
+    def compile_plan(self):
+        """The lowered plan of the registered graph, without running it."""
+        from flink_tpu_torch.graph.compiler import compile_job
+
+        return compile_job(self._transforms, self._watermark_strategy,
+                           self.config)
+
     def execute(self, job_name: str = "job",
                 device: "str | torch.device" = "cuda",
-                mesh_plan=None, transforms=None) -> "JobResult":
+                mesh_plan=None, transforms=None,
+                savepoint_request=None) -> "JobResult":
         """Lower and run to completion on ``device`` ("cuda" by default;
         raises when there is no CUDA device — pass "cpu" explicitly).
         ``mesh_plan`` (``parallel.mesh.make_mesh_plan``, or across
@@ -69,19 +89,20 @@ class StreamExecutionEnvironment:
         be; without it ``cluster.mesh-devices`` decides. ``transforms``
         restricts the run to a subset of the registered graph (the
         Table API runs one query's lineage, not every pipeline built on
-        this environment)."""
+        this environment). ``savepoint_request``: a ``threading.Event``
+        the run polls at batch boundaries (``Driver.run``)."""
         from flink_tpu_torch.graph.compiler import compile_job
         from flink_tpu_torch.runtime.driver import Driver
 
         plan = compile_job(
             self._transforms if transforms is None else transforms,
-            self._watermark_strategy)
+            self._watermark_strategy, self.config)
         if mesh_plan is None:
             mesh_plan = self.build_mesh_plan(device)
         driver = Driver(plan, self.config, device=device, mesh_plan=mesh_plan)
         # the last run's driver (its checkpoint coordinator, registry)
         self._driver = driver
-        return driver.run(job_name)
+        return driver.run(job_name, savepoint_request=savepoint_request)
 
     def build_mesh_plan(self, device: "str | torch.device" = "cuda"):
         """The mesh of ``cluster.mesh-devices`` over the devices of

@@ -8,8 +8,9 @@ barrier (``prepare_commit``) and makes them visible only on
 two-phase-commit sink protocol); its staged epochs ride inside the
 checkpoint, so a restore re-commits what the checkpoint proved and
 drops the rest. ``CollectSink``, ``PrintSink``, ``FnSink`` and
-``UpsertSink`` write through. The log tier's 2PC sinks come with
-ROADMAP.md queue 1 item 8.
+``UpsertSink`` write through. The other 2PC sinks are the file
+connector's ``FileSink`` (``connectors.py``) and the log tier's
+``LogSink`` (``log/connectors.py``), both on ``TwoPhaseCommitSink``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Sources: numbered host numpy batches per split, replayable from a
 position (the batch index by default, ``Source.position_after``): a
 checkpoint records each split's position, and a restore reopens the
-split there."""
+split there. A source declares whether it ends (``bounded``, read
+through ``source_is_bounded``); batch mode runs bounded sources only."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +11,14 @@ from typing import Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 
 Batch = Tuple[Dict[str, np.ndarray], np.ndarray]  # (data fields, timestamps)
+
+
+def source_is_bounded(source: "Source") -> bool:
+    """Whether ``source`` ends. ``bounded`` is a property on the
+    package's sources; a user's source may spell it as a method, which
+    is called rather than read as a truthy bound method."""
+    b = source.bounded
+    return bool(b() if callable(b) else b)
 
 
 class Source:
@@ -25,6 +34,10 @@ class Source:
         counts batches (an offset-addressed source would count
         records)."""
         return pos + 1
+
+    @property
+    def bounded(self) -> bool:
+        return True
 
 
 @dataclasses.dataclass
@@ -51,9 +64,15 @@ class GeneratorSource(Source):
 
     gen: Callable[[str, int], Optional[Batch]]
     n_splits: int = 1
+    # False declares a generator that never ends (refused in batch mode)
+    is_bounded: bool = True
 
     def splits(self) -> List[str]:
         return [str(i) for i in range(self.n_splits)]
+
+    @property
+    def bounded(self) -> bool:
+        return self.is_bounded
 
     def open_split(self, split: str, start_pos: int = 0) -> Iterator[Batch]:
         i = start_pos

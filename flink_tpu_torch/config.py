@@ -410,6 +410,40 @@ class AnalysisOptions:
         "threshold.")
 
 
+class ExecutionOptions:
+    RUNTIME_MODE = ConfigOption(
+        "execution.runtime-mode", "streaming",
+        "'streaming' (default): one pipelined region, per-microbatch "
+        "watermark advance, continuous window fires. 'batch': bounded "
+        "execution (ref: execution.runtime-mode=BATCH, SURVEY §3.7) — "
+        "requires every source to report bounded=True; the compiler "
+        "marks stage-boundary edges BLOCKING, stages run in topological "
+        "waves (runtime/scheduler.py), each upstream stage materializes "
+        "its full output to columnar partition files "
+        "(exchange/blocking.py + formats_columnar.py), and stateful "
+        "operators fire exactly once at end-of-input (no per-step fire "
+        "scans). Recovery is re-execution: checkpointing/restore are "
+        "rejected in this mode. Honest scope: no sort-merge spill, no "
+        "speculative execution (SURVEY §3.7 SPMD rationale).")
+    BATCH_SHUFFLE_DIR = ConfigOption(
+        "execution.batch.shuffle-dir", "/tmp/flink-tpu-shuffle",
+        "Root directory for blocking-shuffle partition files of batch "
+        "(bounded-mode) jobs. Node-local scratch space — the analogue "
+        "of io.tmp.dirs for BoundedBlockingSubpartition spill files; "
+        "each run spools under a unique subdirectory.")
+    BATCH_SHUFFLE_PARTITIONS = ConfigOption(
+        "execution.batch.shuffle-partitions", 1,
+        "Partition files per KEYED blocking edge: records hash-route "
+        "by key (the same hash as the runtime exchange) so each file "
+        "holds a disjoint key range, preserving per-key record order. "
+        "Non-keyed edges always spool to a single file.")
+    BATCH_SHUFFLE_CLEANUP = ConfigOption(
+        "execution.batch.shuffle-cleanup", True,
+        "Delete the run's shuffle spool directory when the job ends "
+        "(success or failure). Set false to keep partition files for "
+        "inspection.")
+
+
 class LogOptions:
     DIR = ConfigOption(
         "log.dir", "/tmp/flink-tpu-log",
@@ -598,8 +632,6 @@ FAIL_ON_VALUES = ("error", "warn", "off")
 # keys of modules still to port, by prefix (or whole key), with the
 # ROADMAP.md item that brings each
 LATER_KEYS = (
-    ("execution.runtime-mode", "queue 1 item 8"),
-    ("execution.batch.", "queue 1 item 8"),
     ("cluster.dcn-host", "queue 1 item 10"),
     ("cluster.dcn-rendezvous", "queue 1 item 10"),
     ("session.", "queue 1 item 10"),

@@ -27,12 +27,15 @@ returns read-only views into the file image (an mmap from
 ``map_file_image``) on a little-endian host.
 
 ``infer_schema`` maps a batch's dtypes to the schema a log topic
-fixes at its first append (``log/topic.py``). ``ColumnarFormat`` (the
-connector's ``Format``) and the streaming file reader come with
-ROADMAP.md queue 1 item 8.2.
+fixes at its first append (``log/topic.py``). ``iter_file_blocks``
+reads an open file a block at a time (the shuffle's consumer holds one
+block, never the whole partition), and ``ColumnarFormat`` is the
+connectors' ``Format`` face: one single-block file a serialized batch,
+a file's blocks as the file source's replayable batches.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -42,8 +45,11 @@ from zlib import crc32 as _crc32
 
 import numpy as np
 
-__all__ = ["ColumnarError", "ColumnarWriter", "infer_schema",
-           "iter_blocks", "map_file_image", "read_schema"]
+from flink_tpu_torch.formats import Format
+
+__all__ = ["ColumnarError", "ColumnarFormat", "ColumnarWriter",
+           "infer_schema", "iter_blocks", "iter_file_blocks",
+           "map_file_image", "read_schema"]
 
 #: zero-copy views reinterpret little-endian file bytes in place —
 #: only valid when the host IS little-endian (x86/arm64; the copying
@@ -247,6 +253,29 @@ class _Cursor:
         return self.pos != len(self.data)
 
 
+class _FileCursor:
+    """``_Cursor``'s contract over an open binary file: one block is
+    resident at a time, never the whole file image."""
+
+    def __init__(self, f) -> None:
+        self.f = f
+        self.pos = 0
+
+    def take(self, n: int, what: str) -> bytes:
+        out = self.f.read(n)
+        if len(out) != n:
+            if self.pos == 0 and not out:
+                raise ColumnarError("empty columnar file (0 bytes)")
+            raise ColumnarError(
+                f"truncated columnar file: needed {n} bytes for {what} "
+                f"at offset {self.pos}, only {len(out)} remain")
+        self.pos += n
+        return out
+
+    def trailing(self) -> bool:
+        return bool(self.f.read(1))
+
+
 def _read_header(cur) -> Tuple[Tuple[str, str], ...]:
     magic = bytes(cur.take(4, "magic"))
     if magic != _MAGIC:
@@ -368,6 +397,14 @@ def iter_blocks(data, expect_schema=None, skip: int = 0,
                         zero_copy=zero_copy)
 
 
+def iter_file_blocks(f, expect_schema=None,
+                     skip: int = 0) -> Iterator[Batch]:
+    """``iter_blocks`` over an open binary file, one block's bytes
+    resident at a time (a shuffle partition may be far larger than the
+    batches that built it)."""
+    return _iter_cursor(_FileCursor(f), expect_schema, skip)
+
+
 def read_schema(data: bytes) -> Tuple[Tuple[str, str], ...]:
     """Schema of a file image (header only — no block validation)."""
     return _read_header(_Cursor(data))
@@ -391,3 +428,53 @@ def map_file_image(path: str) -> memoryview:
             return memoryview(b"")
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
     return memoryview(mm)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnarFormat(Format):
+    """The columnar file as a connector ``Format``: ``serialize`` renders
+    a batch as one complete single-block file, ``deserialize`` validates
+    a complete file and concatenates its blocks, ``iter_batches`` yields
+    them one at a time. Both directions refuse a schema mismatch."""
+
+    schema: Tuple[Tuple[str, str], ...]
+    binary = True  # a file source must not cut it on newlines
+
+    def __init__(self, schema) -> None:
+        object.__setattr__(self, "schema", _check_schema(schema))
+
+    @property
+    def fields(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.schema)
+
+    @classmethod
+    def infer(cls, batch: Batch) -> "ColumnarFormat":
+        return cls(infer_schema(batch))
+
+    def serialize(self, batch: Batch) -> bytes:
+        import io
+
+        buf = io.BytesIO()
+        w = ColumnarWriter(buf, self.schema)
+        if self.fields and len(np.asarray(batch[self.fields[0]])):
+            w.write_batch(batch)
+        w.close()
+        return buf.getvalue()
+
+    def deserialize(self, data: bytes) -> Batch:
+        parts = list(iter_blocks(data, expect_schema=self.schema))
+        if not parts:
+            return self.empty_batch()
+        return {n: np.concatenate([p[n] for p in parts])
+                for n, _ in self.schema}
+
+    def iter_batches(self, data: bytes, skip: int = 0) -> Iterator[Batch]:
+        """The file's blocks, the file source's replayable batches;
+        ``skip`` validates but does not decode the first ``skip``."""
+        return iter_blocks(data, expect_schema=self.schema, skip=skip)
+
+    def empty_batch(self) -> Batch:
+        """Zero rows in schema-typed columns."""
+        return {n: (np.array([], dtype=object) if t == "str"
+                    else np.array([], _FIXED_DTYPES[t]))
+                for n, t in self.schema}

@@ -13,11 +13,17 @@ data) and its right (the control) input (``left_input``,
 ``right_input``); a join refuses one node feeding both. Each stateful node
 records the schema of the rows it emits (``out_schema``) where that is
 a plan fact. A transformation the port does not have yet raises,
-naming its ROADMAP.md item."""
+naming its ROADMAP.md item.
+
+In batch mode (``execution.runtime-mode: batch``, every source bounded)
+the plan also levels each node into a topological wave
+(``assign_stages``): the input edges of a stateful node
+(``STAGE_HEAD_KINDS``) block, and the node runs one wave below its
+producers; every other node joins its deepest producer's wave."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -75,13 +81,76 @@ class ExecutionPlan:
     sources: List[int]
     topo_order: List[int]
     watermark_strategy: WatermarkStrategy
+    # batch mode: each node's wave, and the (producer, stateful consumer)
+    # edges the driver spools through the blocking shuffle; empty in
+    # streaming mode
+    runtime_mode: str = "streaming"
+    stage_of: Dict[int, int] = dataclasses.field(default_factory=dict)
+    blocking_edges: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
 
     def node(self, nid: int) -> ExecNode:
         return self.nodes[nid]
 
 
+# the stateful kinds whose input edges block in batch mode: the consumer
+# sees no record before its producers' wave has ended. async_io blocks
+# too: the per-batch watermark pass that drains it does not run in batch
+# mode, so the driver owns its submit and poll at a wave head
+STAGE_HEAD_KINDS = frozenset((
+    "window", "session", "join", "count_window", "window_all",
+    "process", "cep", "evicting_window", "global_agg",
+    "broadcast_connect", "async_io",
+))
+
+
+def _batch_self_feed(kind: str, name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"batch mode does not support a two-input operator ({kind} "
+        f"{name!r}) fed twice by the same upstream node "
+        "(self-join/self-connect) — materialize one side through a "
+        "distinct map first")
+
+
+def assign_stages(nodes: Dict[int, ExecNode], topo: List[int]
+                  ) -> Tuple[Dict[int, int], List[Tuple[int, int]]]:
+    """Each node's wave and the blocking edges: a stateful node lives one
+    wave below its deepest producer, every other node in that producer's
+    wave. A two-input node fed twice by one node (a self-join) is
+    refused: its two edges would share one spool."""
+    upstream: Dict[int, List[int]] = {nid: [] for nid in nodes}
+    for n in nodes.values():
+        for d in n.downstream:
+            upstream[d].append(n.id)
+    stage_of: Dict[int, int] = {}
+    blocking: List[Tuple[int, int]] = []
+    for nid in topo:
+        ups = upstream[nid]
+        base = max((stage_of[u] for u in ups), default=0)
+        if nodes[nid].kind in STAGE_HEAD_KINDS:
+            if len(set(ups)) != len(ups):
+                raise _batch_self_feed(nodes[nid].kind, nodes[nid].name)
+            stage_of[nid] = base + 1
+            blocking.extend((u, nid) for u in ups)
+        else:
+            stage_of[nid] = base
+    return stage_of, blocking
+
+
 def compile_job(transforms: Sequence[Transformation],
-                default_wm: WatermarkStrategy) -> ExecutionPlan:
+                default_wm: WatermarkStrategy,
+                config=None) -> ExecutionPlan:
+    """The plan of ``transforms``; ``config`` (a ``Configuration``)
+    decides ``execution.runtime-mode``, streaming without one."""
+    mode = "streaming"
+    if config is not None:
+        from flink_tpu_torch.config import ExecutionOptions
+
+        mode = str(config.get(ExecutionOptions.RUNTIME_MODE)).strip().lower()
+    if mode not in ("streaming", "batch"):
+        raise ValueError(
+            f"execution.runtime-mode must be 'streaming' or 'batch', "
+            f"got {mode!r}")
     consumers: Dict[int, List[Transformation]] = {}
     for t in transforms:
         for up in t.inputs:
@@ -177,6 +246,8 @@ def compile_job(transforms: Sequence[Transformation],
             if lup == rup:
                 # the driver routes a batch to a side by its upstream
                 # node, which cannot tell the two edges apart
+                if mode == "batch":
+                    raise _batch_self_feed("join", t.name)
                 raise NotImplementedError(
                     f"a join ({t.name!r}) fed twice by the same upstream "
                     "node (a self-join) is not supported: materialize one "
@@ -222,9 +293,23 @@ def compile_job(transforms: Sequence[Transformation],
         raise ValueError("job has no sinks (add_sink/print/collect)")
     for n in nodes.values():
         n.out_schema = _op_out_schema(n)
-    return ExecutionPlan(nodes=nodes, sources=sources,
-                         topo_order=_topo_order(nodes),
-                         watermark_strategy=default_wm)
+    topo = _topo_order(nodes)
+    stage_of: Dict[int, int] = {}
+    blocking: List[Tuple[int, int]] = []
+    if mode == "batch":
+        from flink_tpu_torch.api.sources import source_is_bounded
+
+        unbounded = [nodes[sid].name or str(sid) for sid in sources
+                     if not source_is_bounded(nodes[sid].source)]
+        if unbounded:
+            raise ValueError(
+                "execution.runtime-mode=batch requires every source to "
+                f"be bounded; unbounded source(s): {unbounded} (run "
+                "them in streaming mode, or bound the generator)")
+        stage_of, blocking = assign_stages(nodes, topo)
+    return ExecutionPlan(nodes=nodes, sources=sources, topo_order=topo,
+                         watermark_strategy=default_wm, runtime_mode=mode,
+                         stage_of=stage_of, blocking_edges=blocking)
 
 
 def _probe_result_schema(agg) -> Dict[str, str]:

@@ -3,17 +3,25 @@
 // _process_batch_fused), bound with ctypes by flink_tpu_torch/native_codec.py
 // and built from this file alone with g++ at first use.
 //
-// The port's own copy of the functions of native/codec.cc that the lane
-// runs, and nothing else: the key-directory hash table, the host pre-
-// combine, and the fused count-only ingest scan with its three finalizes.
-// The other codec functions (tokenizer, parsers, socket reader, CRC, the
-// Nexmark generator) come with the slices that need them.
+// The port's own copy of the functions of native/codec.cc that it runs:
+// the key-directory hash table, the host pre-combine, the fused
+// count-only ingest scan with its three finalizes, and the text plane of
+// the file formats and the socket source (the whitespace tokenizer and
+// string hashes, the delimited-table parsers, the row encoder and the
+// line-framed TCP reader). The CRC stays zlib's on the Python side, and
+// the Nexmark generator is not ported.
 //
 // Interface is plain C: the Python side passes raw numpy buffers.
 
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+
+#include <netinet/in.h>
+#include <netinet/tcp.h>
+#include <poll.h>
+#include <sys/socket.h>
+#include <unistd.h>
 
 extern "C" {
 
@@ -291,6 +299,248 @@ void ingest_fused_finalize_pairs(
     out_counts[j] = hist[p];
     hist[p] = 0;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Text plane: the string hash is 63-bit FNV-1a, bit-identical to
+// flink_tpu_torch/records.py hash_string_key, so a key hashed here and
+// one hashed in Python route alike.
+
+static inline bool is_space(char c) {
+  return c == ' ' || c == '\t' || c == '\n' || c == '\r';
+}
+
+static inline int64_t fnv1a63(const char* p, const char* end) {
+  uint64_t h = 0xCBF29CE484222325ULL;
+  for (; p < end; ++p) h = (h ^ (uint8_t)(*p)) * 0x100000001B3ULL;
+  return (int64_t)(h & 0x7FFFFFFFFFFFFFFFULL);
+}
+
+// Hash every whitespace-separated token of the lines [line_offs[i],
+// line_offs[i+1]) of buf: out_ids the token hashes, out_line the line of
+// each. Returns the tokens written, or -1 past max_out.
+int64_t tokenize_hash(const char* buf, int64_t /*len*/,
+                      const int64_t* line_offs, int64_t n_lines,
+                      int64_t* out_ids, int64_t* out_line,
+                      int64_t max_out) {
+  int64_t n = 0;
+  for (int64_t li = 0; li < n_lines; ++li) {
+    const char* p = buf + line_offs[li];
+    const char* end = buf + line_offs[li + 1];
+    for (;;) {
+      while (p < end && is_space(*p)) ++p;
+      if (p >= end) break;
+      const char* q = p;
+      while (q < end && !is_space(*q)) ++q;
+      if (n >= max_out) return -1;
+      out_ids[n] = fnv1a63(p, q);
+      out_line[n] = li;
+      ++n;
+      p = q;
+    }
+  }
+  return n;
+}
+
+// Hash the n byte strings [offs[i], offs[i+1]) of buf.
+void hash_strings(const char* buf, const int64_t* offs, int64_t n,
+                  int64_t* out_ids) {
+  for (int64_t i = 0; i < n; ++i)
+    out_ids[i] = fnv1a63(buf + offs[i], buf + offs[i + 1]);
+}
+
+// Delimited integer rows of n_cols cells: an unparseable or missing cell
+// reads 0, and whatever follows the last cell on a line is skipped.
+// Returns the rows parsed (at most max_rows).
+int64_t parse_i64_table(const char* buf, int64_t len, char delim,
+                        int64_t n_cols, int64_t* out, int64_t max_rows) {
+  const char* p = buf;
+  const char* end = buf + len;
+  int64_t row = 0;
+  for (; p < end && row < max_rows; ++row) {
+    for (int64_t c = 0; c < n_cols; ++c) {
+      bool neg = p < end && *p == '-';
+      if (neg) ++p;
+      int64_t v = 0;
+      while (p < end && *p >= '0' && *p <= '9') v = v * 10 + (*p++ - '0');
+      out[row * n_cols + c] = neg ? -v : v;
+      if (p < end && *p == delim) ++p;
+    }
+    while (p < end && *p != '\n') ++p;
+    if (p < end) ++p;
+  }
+  return row;
+}
+
+// The same framing for float32 cells: digits, an optional fraction, the
+// value accumulated in double and rounded once.
+int64_t parse_f32_table(const char* buf, int64_t len, char delim,
+                        int64_t n_cols, float* out, int64_t max_rows) {
+  const char* p = buf;
+  const char* end = buf + len;
+  int64_t row = 0;
+  for (; p < end && row < max_rows; ++row) {
+    for (int64_t c = 0; c < n_cols; ++c) {
+      bool neg = p < end && *p == '-';
+      if (neg) ++p;
+      double v = 0.0;
+      while (p < end && *p >= '0' && *p <= '9') v = v * 10.0 + (*p++ - '0');
+      if (p < end && *p == '.') {
+        ++p;
+        double scale = 0.1;
+        for (; p < end && *p >= '0' && *p <= '9'; scale *= 0.1)
+          v += (*p++ - '0') * scale;
+      }
+      out[row * n_cols + c] = (float)(neg ? -v : v);
+      if (p < end && *p == delim) ++p;
+    }
+    while (p < end && *p != '\n') ++p;
+    if (p < end) ++p;
+  }
+  return row;
+}
+
+// Rows of int64 cells as delimited text, one line a row. Returns the
+// bytes written, or -1 when cap is too small.
+int64_t encode_i64_rows(const int64_t* vals, int64_t n_rows, int64_t n_cols,
+                        char delim, char* out, int64_t cap) {
+  int64_t w = 0;
+  for (int64_t r = 0; r < n_rows; ++r) {
+    for (int64_t c = 0; c < n_cols; ++c) {
+      int64_t v = vals[r * n_cols + c];
+      char tmp[24];
+      int t = 0;
+      if (v < 0) {
+        if (w >= cap) return -1;
+        out[w++] = '-';
+        v = -v;
+      }
+      do {
+        tmp[t++] = (char)('0' + v % 10);
+        v /= 10;
+      } while (v);
+      if (w + t + 1 > cap) return -1;
+      while (t) out[w++] = tmp[--t];
+      out[w++] = (c + 1 < n_cols) ? delim : '\n';
+    }
+  }
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// Line-framed TCP reader of the socket source: one loopback listener, one
+// connection, blocks of complete lines. The bytes after a block's last
+// newline wait in the carry for the next block.
+
+struct SockReader {
+  int listen_fd;
+  int conn_fd;
+  char* carry;
+  int64_t carry_len;
+  int64_t carry_cap;
+};
+
+void* sr_listen(int port) {
+  int fd = socket(AF_INET, SOCK_STREAM, 0);
+  if (fd < 0) return nullptr;
+  int one = 1;
+  setsockopt(fd, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+  sockaddr_in addr{};
+  addr.sin_family = AF_INET;
+  addr.sin_addr.s_addr = htonl(INADDR_LOOPBACK);
+  addr.sin_port = htons((uint16_t)port);
+  if (bind(fd, (sockaddr*)&addr, sizeof(addr)) != 0 || listen(fd, 1) != 0) {
+    close(fd);
+    return nullptr;
+  }
+  SockReader* r = (SockReader*)calloc(1, sizeof(SockReader));
+  r->listen_fd = fd;
+  r->conn_fd = -1;
+  r->carry_cap = 1 << 16;
+  r->carry = (char*)malloc(r->carry_cap);
+  return r;
+}
+
+int sr_port(void* h) {
+  SockReader* r = (SockReader*)h;
+  sockaddr_in addr{};
+  socklen_t len = sizeof(addr);
+  if (getsockname(r->listen_fd, (sockaddr*)&addr, &len) != 0) return -1;
+  return ntohs(addr.sin_port);
+}
+
+// 1 = connected, 0 = timeout, -1 = error.
+int sr_accept(void* h, int timeout_ms) {
+  SockReader* r = (SockReader*)h;
+  if (r->conn_fd >= 0) return 1;
+  pollfd p{r->listen_fd, POLLIN, 0};
+  int rc = poll(&p, 1, timeout_ms);
+  if (rc <= 0) return rc;
+  r->conn_fd = accept(r->listen_fd, nullptr, nullptr);
+  if (r->conn_fd < 0) return -1;
+  int one = 1;
+  setsockopt(r->conn_fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+  return 1;
+}
+
+static int64_t sr_last_newline(const char* buf, int64_t n) {
+  for (int64_t i = n - 1; i >= 0; --i)
+    if (buf[i] == '\n') return i;
+  return -1;
+}
+
+// Hand out out[0..nl] as the block; out[nl+1..have) goes to the FRONT of
+// the carry, ahead of anything already carried.
+static int64_t sr_flush(SockReader* r, char* out, int64_t have, int64_t nl) {
+  int64_t tail = have - (nl + 1);
+  if (tail > 0) {
+    if (r->carry_len + tail > r->carry_cap) {
+      r->carry_cap = (r->carry_len + tail) * 2;
+      r->carry = (char*)realloc(r->carry, r->carry_cap);
+    }
+    memmove(r->carry + tail, r->carry, r->carry_len);
+    memcpy(r->carry, out + nl + 1, tail);
+    r->carry_len += tail;
+  }
+  return nl + 1;
+}
+
+// Complete lines into out (at most cap bytes, ending at a newline).
+// Returns the bytes written; 0 = timeout with no complete line; -1 = the
+// peer closed (an unterminated tail is no record and is dropped); -2 = an
+// error, or one line longer than cap.
+int64_t sr_read_block(void* h, char* out, int64_t cap, int timeout_ms) {
+  SockReader* r = (SockReader*)h;
+  if (r->conn_fd < 0) return -2;
+  int64_t have = r->carry_len < cap ? r->carry_len : cap;
+  memcpy(out, r->carry, have);
+  memmove(r->carry, r->carry + have, r->carry_len - have);
+  r->carry_len -= have;
+  for (;;) {
+    int64_t nl = sr_last_newline(out, have);
+    if (nl >= 0 && (have == cap || r->carry_len > 0))
+      return sr_flush(r, out, have, nl);
+    if (have == cap) return -2;
+    pollfd p{r->conn_fd, POLLIN, 0};
+    int rc = poll(&p, 1, timeout_ms);
+    if (rc == 0) return nl >= 0 ? sr_flush(r, out, have, nl) : 0;
+    if (rc < 0) return -2;
+    int64_t n = read(r->conn_fd, out + have, cap - have);
+    if (n == 0) {
+      int64_t last = sr_last_newline(out, have);
+      return last >= 0 ? last + 1 : -1;
+    }
+    if (n < 0) return -2;
+    have += n;
+  }
+}
+
+void sr_close(void* h) {
+  SockReader* r = (SockReader*)h;
+  if (r->conn_fd >= 0) close(r->conn_fd);
+  close(r->listen_fd);
+  free(r->carry);
+  free(r);
 }
 
 }  // extern "C"

@@ -4,7 +4,14 @@ use and bound with ctypes.
 It holds what the window operator's native lane runs on the host: the
 C key table (``NativeHashTable``, the ``KeyDirectory`` probe), the host
 pre-combine (``preagg_combine_native``) and the fused count-only ingest
-scan (``ingest_fused_scan_native``) with its three finalizes. The library
+scan (``ingest_fused_scan_native``) with its three finalizes; and the
+text plane of the file formats and the socket source: the whitespace
+tokenizer and string hashes (``tokenize_hash``, ``hash_strings``, bit for
+bit ``records.hash_string_key``), the delimited-table parsers
+(``parse_i64_table``, ``parse_f32_table``), the row encoder
+(``encode_i64_rows``) and the line-framed TCP reader
+(``NativeSocketReader``). ``_tokenize_hash_numpy`` is the tokenizer's
+plain version, which tests hold the C one to. The library
 is built from ``flink_tpu_torch/native/codec.cc`` alone into
 ``flink_tpu_torch/_build/`` under a name carrying a hash of the source
 and the flags, so an edited source never loads a stale build. A build
@@ -94,6 +101,20 @@ def _bind(lib: ctypes.CDLL) -> None:
         "ingest_fused_finalize_u32": (None, [i64, i32p, i32p, i32p, i64, i64]),
         "ingest_fused_finalize_u16": (None, [i64, i32p, i32p, i32p, i64]),
         "ingest_fused_finalize_pairs": (None, [i64, i32p, i32p, i32p]),
+        "tokenize_hash": (i64, [ctypes.c_char_p, i64, i64p, i64, i64p,
+                                i64p, i64]),
+        "hash_strings": (None, [ctypes.c_char_p, i64p, i64, i64p]),
+        "parse_i64_table": (i64, [ctypes.c_char_p, i64, ctypes.c_char,
+                                  i64, i64p, i64]),
+        "parse_f32_table": (i64, [ctypes.c_char_p, i64, ctypes.c_char,
+                                  i64, f32p, i64]),
+        "encode_i64_rows": (i64, [i64p, i64, i64, ctypes.c_char,
+                                  ctypes.c_char_p, i64]),
+        "sr_listen": (vp, [ctypes.c_int]),
+        "sr_port": (ctypes.c_int, [vp]),
+        "sr_accept": (ctypes.c_int, [vp, ctypes.c_int]),
+        "sr_read_block": (i64, [vp, ctypes.c_char_p, i64, ctypes.c_int]),
+        "sr_close": (None, [vp]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -299,3 +320,137 @@ def ingest_fused_finalize_pairs_native(
     load().ingest_fused_finalize_pairs(
         res.npairs, ws.hist, res.out_pairs, counts)
     return res.out_pairs[:res.npairs], counts[:res.npairs]
+
+
+# -- the text plane ----------------------------------------------------------
+
+def tokenize_hash(lines: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """The whitespace-separated tokens of ``lines`` as (63-bit FNV-1a
+    hashes, line index of each): WordCount's tokenize and dictionary
+    encode in one C pass."""
+    enc = [s.encode("utf-8") for s in lines]
+    offs = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(b) + 1 for b in enc], out=offs[1:])
+    buf = b"\n".join(enc) + b"\n"
+    cap = max(len(buf), 16)
+    ids = np.empty(cap, np.int64)
+    line_ix = np.empty(cap, np.int64)
+    n = load().tokenize_hash(buf, len(buf), offs, len(enc), ids, line_ix, cap)
+    if n < 0:
+        raise RuntimeError("tokenize_hash overflowed its output")
+    return ids[:n].copy(), line_ix[:n].copy()
+
+
+def _tokenize_hash_numpy(lines: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """``tokenize_hash``'s plain version."""
+    from flink_tpu_torch.records import hash_string_key
+
+    ids, lix = [], []
+    for i, line in enumerate(lines):
+        for w in line.split():
+            ids.append(hash_string_key(w))
+            lix.append(i)
+    return np.asarray(ids, np.int64), np.asarray(lix, np.int64)
+
+
+def hash_strings(strings: List[str]) -> np.ndarray:
+    """A string column as stable 63-bit ids (``records.hash_string_key``
+    of each)."""
+    enc = [s.encode("utf-8") for s in strings]
+    offs = np.zeros(len(enc) + 1, np.int64)
+    np.cumsum([len(b) for b in enc], out=offs[1:])
+    out = np.empty(len(enc), np.int64)
+    load().hash_strings(b"".join(enc), offs, len(enc), out)
+    return out
+
+
+def _row_cap(data: bytes, max_rows: Optional[int]) -> int:
+    return max_rows if max_rows is not None else data.count(b"\n") + 1
+
+
+def parse_i64_table(data: bytes, n_cols: int, delim: str = ",",
+                    max_rows: Optional[int] = None) -> np.ndarray:
+    """Delimited text as a (rows, n_cols) int64 table; an unparseable or
+    missing cell reads 0."""
+    cap = _row_cap(data, max_rows)
+    out = np.zeros((cap, n_cols), np.int64)
+    n = load().parse_i64_table(data, len(data), delim.encode(), n_cols,
+                               out.reshape(-1), cap)
+    return out[:n]
+
+
+def parse_f32_table(data: bytes, n_cols: int, delim: str = ",",
+                    max_rows: Optional[int] = None) -> np.ndarray:
+    """Delimited text as a (rows, n_cols) float32 table."""
+    cap = _row_cap(data, max_rows)
+    out = np.zeros((cap, n_cols), np.float32)
+    n = load().parse_f32_table(data, len(data), delim.encode(), n_cols,
+                               out.reshape(-1), cap)
+    return out[:n]
+
+
+def encode_i64_rows(vals: np.ndarray, delim: str = ",") -> bytes:
+    """A (rows, cols) int64 table as delimited text, one line a row."""
+    vals = np.ascontiguousarray(vals, np.int64)
+    cap = vals.size * 22 + vals.shape[0] + 16
+    buf = ctypes.create_string_buffer(cap)
+    n = load().encode_i64_rows(vals.reshape(-1), vals.shape[0],
+                               vals.shape[1] if vals.ndim > 1 else 1,
+                               delim.encode(), buf, cap)
+    if n < 0:
+        raise RuntimeError("encode_i64_rows overflowed its buffer")
+    return buf.raw[:n]
+
+
+class NativeSocketReader:
+    """The socket source's line-framed TCP reader in C: one loopback
+    listener, one connection; ``read_block`` returns blocks that end at
+    a newline, ready for the table parsers. ``create`` raises when the
+    listener cannot bind."""
+
+    def __init__(self, lib: ctypes.CDLL, handle) -> None:
+        self._lib = lib
+        self._h = handle
+        self._buf = None
+
+    @classmethod
+    def create(cls, port: int = 0) -> "NativeSocketReader":
+        lib = load()
+        h = lib.sr_listen(port)
+        if not h:
+            raise OSError(f"socket reader could not listen on port {port}")
+        return cls(lib, h)
+
+    @property
+    def port(self) -> int:
+        return int(self._lib.sr_port(self._h))
+
+    def accept(self, timeout_ms: int = 100) -> int:
+        """1 = connected, 0 = timeout, -1 = error."""
+        return int(self._lib.sr_accept(self._h, timeout_ms))
+
+    def read_block(self, cap: int = 1 << 20,
+                   timeout_ms: int = 100) -> Optional[bytes]:
+        """A block of complete lines, b"" on a timeout, None once the
+        peer closed. Raises on a transport error or a line longer than
+        ``cap``. The scratch buffer is kept across calls, so idle polls
+        allocate nothing."""
+        if self._buf is None or len(self._buf) < cap:
+            self._buf = ctypes.create_string_buffer(cap)
+        n = int(self._lib.sr_read_block(self._h, self._buf, cap, timeout_ms))
+        if n > 0:
+            return self._buf.raw[:n]
+        if n == 0:
+            return b""
+        if n == -1:
+            return None
+        raise IOError("socket reader error (closed early or a line "
+                      f"exceeded {cap} bytes)")
+
+    def close(self) -> None:
+        h, self._h = self._h, None
+        if h:
+            self._lib.sr_close(h)
+
+    def __del__(self):
+        self.close()

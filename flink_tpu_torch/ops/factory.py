@@ -6,11 +6,16 @@ directory an operator instance under ``state.lsm.dir``), the drop
 policy, the driver's host pool and, for a keyed
 window over a mesh of device blocks, the mesh plan and its exchange's
 capacity and pattern, and across processes the process's span of the
-key shards, reach them through the context."""
+key shards, reach them through the context.
+
+The factories form a registry keyed by plan node kind, the JAX
+package's operator factory SPI: the driver builds each node through
+``lookup_operator_factory``, the built-ins are registered below, and a
+factory registered for a kind replaces the built-in for every job."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -51,6 +56,23 @@ class OperatorBuildContext:
     # a job across processes: this process's contiguous span of the key
     # shards (None = every shard)
     shard_range: Optional[Any] = None
+
+
+OperatorFactory = Callable[[Any, OperatorBuildContext], Any]
+
+_FACTORIES: Dict[str, OperatorFactory] = {}
+
+
+def register_operator_factory(kind: str, factory: OperatorFactory) -> None:
+    _FACTORIES[kind] = factory
+
+
+def unregister_operator_factory(kind: str) -> None:
+    _FACTORIES.pop(kind, None)
+
+
+def lookup_operator_factory(kind: str) -> Optional[OperatorFactory]:
+    return _FACTORIES.get(kind)
 
 
 def _window_factory(node, ctx: OperatorBuildContext):
@@ -104,6 +126,10 @@ def _window_factory(node, ctx: OperatorBuildContext):
 def _count_window_factory(node, ctx: OperatorBuildContext):
     from flink_tpu_torch.ops.count_window import CountWindowOperator
 
+    if ctx.mesh_plan is not None:
+        raise NotImplementedError(
+            "count windows on a device mesh are not yet "
+            "supported; run without cluster.mesh-devices")
     t = node.window_transform
     op = CountWindowOperator(
         t.aggregate, t.size, purge=t.purge,
@@ -159,3 +185,12 @@ def _join_factory(node, ctx: OperatorBuildContext):
         num_shards=ctx.num_shards, slots_per_shard=ctx.slots_per_shard,
         max_out_of_orderness_ms=max(ctx.max_out_of_orderness_ms, 0),
         mode=t.mode, device=ctx.device)
+
+
+for _kind, _factory in (("window", _window_factory),
+                        ("evicting_window", _evicting_window_factory),
+                        ("count_window", _count_window_factory),
+                        ("session", _session_factory),
+                        ("window_all", _window_all_factory),
+                        ("join", _join_factory)):
+    register_operator_factory(_kind, _factory)

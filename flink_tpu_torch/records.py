@@ -2,7 +2,9 @@
 column, the key hash that routes keys to key shards (bit-identical to
 ``flink_tpu.records.hash_keys_numpy``, so both packages assign the same
 slots to the same keys; ``hash_keys_device`` is the same mix on the
-card) and the cast of record fields for upload."""
+card), the 63-bit FNV-1a hash of string keys (``hash_string_key``, which
+the host codec's tokenizer and string hashes match bit for bit) and the
+cast of record fields for upload."""
 from __future__ import annotations
 
 import numpy as np
@@ -31,6 +33,15 @@ def hash_keys_numpy(keys: np.ndarray) -> np.ndarray:
         x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
         x = x ^ (x >> np.uint64(31))
     return (x & np.uint64(0x7FFFFFFFFFFFFFFF)).astype(np.int64)
+
+
+def hash_string_key(s: str) -> int:
+    """63-bit FNV-1a of a string key's UTF-8 bytes (the JAX package's
+    ``hash_string_key``)."""
+    h = 0xCBF29CE484222325
+    for b in s.encode("utf-8"):
+        h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h & 0x7FFFFFFFFFFFFFFF
 
 
 def hash_keys_device(keys: torch.Tensor) -> torch.Tensor:

@@ -99,8 +99,24 @@ every process holds. The loop overlaps one step's exchange with the
 next by default (``cluster.dcn-overlap``). A ``partition`` node
 (``rebalance`` and the like) passes its batches through at this
 parallelism of 1 and advances its partitioner, whose state rides the
-checkpoint. Batch mode is not ported (ROADMAP.md); the configuration
-check refuses confs that ask for it.
+checkpoint.
+
+Batch mode (``execution.runtime-mode: batch``, the JAX package's bounded
+run): the plan's waves (``runtime/scheduler.py``) run one after the
+other. Wave 0 drains every source split to its end through the
+stateless chains, whole batches (no sub-batch slices, no debloater
+re-chunking) and no watermark between them; every edge into a stateful
+operator is diverted at the top of ``_push`` into its spool
+(``exchange/blocking.py``), so no record reaches a stateful operator in
+wave 0. Each later wave replays its sealed partitions into its head
+operators. At the end of a wave one final watermark pass over the
+wave's nodes fires each stateful operator once, through the same fire
+paths as streaming, and a barrier drain delivers the fires, into the
+next wave's spools where they lead there. Nothing checkpoints: a
+checkpoint interval or a restore path is refused, ``restore: latest``
+reads as a fresh run (a supervisor's retry), a savepoint request fails
+the run, and so does a job across processes. The 2PC sinks first drop
+what an earlier attempt staged, then commit once at the end of input.
 
 Rescaling: a restore path written by another process count or id (the
 checkpoint's ``rescale`` identity) loads the whole checkpoint set that
@@ -285,6 +301,11 @@ class Driver:
         self._dev_chains: Dict[int, Tuple[int, DeviceGeneratorSource, int]] = {}
         # the factor each source's positions count in this run
         self._sub_factor: Dict[int, int] = {}
+        # batch mode: (producer, stateful consumer) -> the edge's spool
+        # while a run holds the shuffle open
+        self._batch_capture: Dict[Tuple[int, int], Any] = {}
+        self._savepoint_request = None
+        self.last_savepoint: Optional[str] = None
         self._coordinator = None
         self._ckpt_executor = None
         self._ckpt_pending = None
@@ -355,9 +376,7 @@ class Driver:
 
     def _build_ops(self) -> None:
         from flink_tpu_torch.ops.factory import (
-            OperatorBuildContext, _count_window_factory,
-            _evicting_window_factory, _join_factory, _session_factory,
-            _window_all_factory, _window_factory)
+            OperatorBuildContext, lookup_operator_factory)
 
         ooo = [self.plan.watermark_strategy.max_out_of_orderness_ms]
         for n in self.plan.nodes.values():
@@ -388,20 +407,12 @@ class Driver:
             host_pool=self.host_pool,
             fold_chunk_records=self._fold_chunk,
             shard_range=self._shard_span())
-        factories = {"window": _window_factory,
-                     "evicting_window": _evicting_window_factory,
-                     "session": _session_factory,
-                     "window_all": _window_all_factory,
-                     "join": _join_factory}
         for n in self.plan.nodes.values():
-            if n.kind in factories:
-                self._ops[n.id] = factories[n.kind](n, ctx)
-            elif n.kind == "count_window":
-                if self.mesh_plan is not None:
-                    raise NotImplementedError(
-                        "count windows on a device mesh are not yet "
-                        "supported; run without cluster.mesh-devices")
-                self._ops[n.id] = _count_window_factory(n, ctx)
+            # a factory registered for the kind builds the node (the
+            # built-in operators register theirs, ops/factory.py)
+            factory = lookup_operator_factory(n.kind)
+            if factory is not None:
+                self._ops[n.id] = factory(n, ctx)
             elif n.kind == "global_agg":
                 from flink_tpu_torch.ops.global_agg import (
                     GlobalAggregateOperator)
@@ -876,13 +887,38 @@ class Driver:
             fn(final_epoch)
 
     # -- the streaming loop -------------------------------------------------
-    def run(self, job_name: str = "job"):
+    def run(self, job_name: str = "job", savepoint_request=None):
+        """Run the job to the end of its input. ``savepoint_request``: a
+        ``threading.Event``; once set, the loop takes a savepoint at the
+        next batch boundary, clears it and keeps the savepoint's path in
+        ``last_savepoint`` (a batch-mode run fails instead)."""
         from concurrent.futures import ThreadPoolExecutor
 
         from flink_tpu_torch import faults
         from flink_tpu_torch.fs import install_enospc_policy_from_config
         from flink_tpu_torch.obs.metrics import MetricsServer
 
+        self._savepoint_request = savepoint_request
+        self.last_savepoint = None
+        if self.plan.runtime_mode == "batch":
+            # a bounded run recovers by running again: nothing to
+            # checkpoint, nothing to restore
+            if self.config.get(CheckpointingOptions.INTERVAL) > 0:
+                raise ValueError(
+                    "execution.checkpointing.interval is incompatible "
+                    "with execution.runtime-mode=batch (bounded-mode "
+                    "recovery is re-execution; 2PC sinks commit once "
+                    "at end of input)")
+            restore = self.config.get(CheckpointingOptions.RESTORE)
+            if restore == "latest":
+                # a supervisor's retry asks for the latest checkpoint;
+                # a batch job has none and reruns from the start
+                self.config.set(CheckpointingOptions.RESTORE, "")
+            elif restore:
+                raise ValueError(
+                    "execution.checkpointing.restore is incompatible "
+                    "with execution.runtime-mode=batch (nothing "
+                    "checkpoints in batch mode — re-run the job)")
         self._coordinator = self._setup_checkpointing(job_name)
         # the attempt's fencing epoch, announced to the sinks before any
         # restore or write: epoch-qualified staged names keep a deposed
@@ -1014,6 +1050,12 @@ class Driver:
         # whose checkpoint id the processes negotiate (a crash can leave
         # one process a checkpoint ahead)
         if self._nproc > 1:
+            if self.plan.runtime_mode == "batch":
+                raise NotImplementedError(
+                    "execution.runtime-mode=batch is single-process in "
+                    "v1 — the DCN rendezvous is a per-step streaming "
+                    "protocol; cross-host batch needs a partition-file "
+                    "transfer plane (out of scope, see COMPONENTS #57)")
             self._dcn = self._dcn_connect()
         self._restored_sub_factors: Dict[int, int] = {}
         if restore:
@@ -1048,7 +1090,10 @@ class Driver:
         srcs = self._srcs
         for sid in self.plan.sources:
             n = self.plan.node(sid)
-            self._maybe_chain_device_source(sid, n)
+            if self.plan.runtime_mode != "batch":
+                # batch mode makes every batch on the host: the chain
+                # fires per step, which the one final fire skips
+                self._maybe_chain_device_source(sid, n)
             # positions were counted at the restored factor: re-base them
             # to this run's, or fail on a cut that does not align
             old_f = int(self._restored_sub_factors.get(sid, 1))
@@ -1070,6 +1115,8 @@ class Driver:
                 it = n.source.open_split(split, start)
                 srcs[sid][i] = (_Prefetcher(it, self._prefetch)
                                 if self._prefetch > 0 else iter(it))
+        if self.plan.runtime_mode == "batch":
+            return self._run_batch(job_name, srcs, t_start)
         last_chk = time.time()
         active = {sid: sorted(its) for sid, its in srcs.items()}
         if self._dcn is not None:
@@ -1125,6 +1172,7 @@ class Driver:
                 self._ckpt_pending = self._begin_checkpoint()
                 self.prof["checkpoint_freeze"] += time.perf_counter() - t0
                 last_chk = time.time()
+            self._maybe_take_savepoint()
         # end of input: the final watermark flushes every window
         self._quiesce_ops()
         for sid in self.plan.sources:
@@ -1142,6 +1190,161 @@ class Driver:
             if n.kind == "sink":
                 n.sink.close()
         return JobResult(job_name, self._final_metrics(t_start))
+
+    def _maybe_take_savepoint(self) -> None:
+        """A requested savepoint, synchronous and retained, at this batch
+        boundary (a job without checkpoint storage ignores the
+        request)."""
+        req = self._savepoint_request
+        if req is None or not req.is_set():
+            return
+        req.clear()
+        if self._coordinator is not None:
+            self.last_savepoint = self.checkpoint_now(savepoint=True).path
+
+    # -- batch mode ---------------------------------------------------------
+    def _run_batch(self, job_name: str, srcs, t_start: float):
+        """The bounded run: the waves in order, each blocking edge
+        spooled in full before its consumer's wave, each stateful
+        operator firing once, at its wave's end."""
+        from flink_tpu_torch.api.environment import JobResult
+        from flink_tpu_torch.config import ExecutionOptions
+        from flink_tpu_torch.exchange.blocking import BlockingShuffle
+        from flink_tpu_torch.runtime.scheduler import BatchStageScheduler
+
+        cfg = self.config
+        # a crashed earlier attempt may have left staged rows in a reused
+        # sink directory: this run commits only its own output
+        self._abort_sinks()
+        sched = BatchStageScheduler(self.plan)
+        shuffle = BlockingShuffle(
+            str(cfg.get(ExecutionOptions.BATCH_SHUFFLE_DIR)), job_name,
+            n_partitions=int(cfg.get(
+                ExecutionOptions.BATCH_SHUFFLE_PARTITIONS)),
+            cleanup=bool(cfg.get(ExecutionOptions.BATCH_SHUFFLE_CLEANUP)))
+        # every spool opens up front (a union may merge producers of two
+        # waves into one edge) and seals when its consumer's wave starts
+        for u, v in self.plan.blocking_edges:
+            self._batch_capture[(u, v)] = shuffle.open_edge(
+                u, v, key_field=self._edge_key_field(u, v))
+        t0 = time.perf_counter()
+        try:
+            for stage in sched.waves:
+                self._batch_reject_savepoint()
+                for edge in stage.in_edges:
+                    self._batch_capture.pop(edge).seal()
+                sched.start(stage)
+                if stage.index == 0:
+                    for sid in stage.heads:
+                        self._batch_drain_source(sid, srcs[sid])
+                else:
+                    for v in stage.heads:
+                        self._batch_feed_head(v, stage, shuffle)
+                self._batch_finalize_wave(stage)
+                sched.finish(stage)
+                self.prof[f"batch_wave{stage.index}"] += (
+                    stage.finished_at - stage.started_at)
+            self.metrics["shuffle_bytes_spooled"] = shuffle.bytes_written
+            self.metrics["shuffle_rows_spooled"] = shuffle.rows_spooled
+            self.metrics["batch_waves"] = len(sched.waves)
+            # a request armed during the last wave fails the run too
+            self._batch_reject_savepoint()
+        finally:
+            self._batch_capture = {}
+            shuffle.close()
+        t1 = time.perf_counter()
+        self._commit_final_epoch()
+        self.prof["batch_commit"] += time.perf_counter() - t1
+        self.metrics["batch_wall_s"] = round(time.perf_counter() - t0, 3)
+        for n in self.plan.nodes.values():
+            if n.kind == "sink":
+                n.sink.close()
+        return JobResult(job_name, self._final_metrics(t_start))
+
+    def _batch_reject_savepoint(self) -> None:
+        if (self._savepoint_request is not None
+                and self._savepoint_request.is_set()):
+            raise ValueError(
+                "savepoints are not supported in "
+                "execution.runtime-mode=batch (nothing checkpoints; "
+                "recovery is re-execution)")
+
+    def _edge_key_field(self, u: int, v: int) -> Optional[str]:
+        """The key column routing a blocking edge's partitions (None: one
+        partition); a join's edge keys on its side's column."""
+        n = self.plan.node(v)
+        if n.kind == "join":
+            t = n.window_transform
+            return t.left_key if u == n.left_input else t.right_key
+        if n.kind in ("window", "session", "count_window", "process",
+                      "cep", "evicting_window", "global_agg"):
+            return n.key_field
+        return None  # window_all, async_io, broadcast_connect
+
+    def _batch_drain_source(self, sid: int, its) -> None:
+        """Wave 0: each split of the source to its end, every batch
+        whole through the wave's stateless chains into the spools; no
+        watermark moves until the wave's end."""
+        src = self.plan.node(sid).source
+        for split_ix in sorted(its):
+            it = its[split_ix]
+            while True:
+                t0 = time.perf_counter()
+                nxt = next(it, None)
+                self.prof["source_next"] += time.perf_counter() - t0
+                if nxt is None:
+                    break
+                data, ts = nxt
+                ts = np.asarray(ts, np.int64)
+                self._push_source_batch(sid, data, ts)
+                self._positions[sid][split_ix] = src.position_after(
+                    self._positions[sid][split_ix], data, ts)
+                self._eps_meter.mark(len(ts))
+                if len(ts):
+                    self._max_ts[sid] = max(self._max_ts[sid], int(ts.max()))
+        self._out_wm[sid] = _FINAL
+
+    def _batch_feed_head(self, v: int, stage, shuffle) -> None:
+        """Replay a wave head's sealed partitions into its operator: a
+        broadcast connect takes its control side first, a join its left
+        side first (blind to time until the wave's end, so the order of
+        the sides changes nothing)."""
+        n = self.plan.node(v)
+        edges = [e for e in stage.in_edges if e[1] == v]
+        if n.kind == "broadcast_connect":
+            edges.sort(key=lambda e: 0 if e[0] == n.right_input else 1)
+        elif n.kind == "join":
+            edges.sort(key=lambda e: 0 if e[0] == n.left_input else 1)
+        op = self._ops.get(v)
+        for u, _ in edges:
+            for data, ts in shuffle.edge(u, v).read():
+                t0 = time.perf_counter()
+                self.metrics["shuffle_records_replayed"] = (
+                    self.metrics.get("shuffle_records_replayed", 0) + len(ts))
+                self._push(v, (data, ts, np.ones(len(ts), bool)), u)
+                if n.kind == "async_io":
+                    # nothing else polls it before the wave's end
+                    for b in op.poll():
+                        self._push_downstream(v, b)
+                self._throttle_ops()
+                self.prof["push"] += time.perf_counter() - t0
+
+    def _batch_finalize_wave(self, stage) -> None:
+        """The wave's end of input: its held-back steps folded in, one
+        final watermark pass over its nodes (each stateful operator's
+        one fire), a barrier drain that delivers the fires, into the
+        next waves' spools where they lead there, and the wave's device
+        work completed (its errors raised, its device time counted)."""
+        ops = [op for nid, op in self._ops.items()
+               if nid in stage.nodes and hasattr(op, "quiesce")]
+        for op in ops:
+            op.quiesce()
+        t0 = time.perf_counter()
+        self._propagate_watermarks(final=True, only=set(stage.nodes))
+        self._drain_emits(barrier=True)
+        for op in ops:
+            op.quiesce()
+        self.prof["batch_fire"] += time.perf_counter() - t0
 
     def _quiesce_ops(self) -> None:
         """Fold every held-back step in (the operators that hold any)."""
@@ -1529,7 +1732,13 @@ class Driver:
 
     def _push(self, nid: int, batch: Batch, from_node: int) -> None:
         """Route one batch into node ``nid``, coming from node
-        ``from_node`` (a join's side is the edge's)."""
+        ``from_node`` (a join's side is the edge's). In batch mode a
+        blocking edge's batch goes into its spool first of all."""
+        if self._batch_capture:
+            w = self._batch_capture.get((from_node, nid))
+            if w is not None:
+                w.write(*batch)
+                return
         n = self.plan.node(nid)
         data, ts, valid = batch
         if n.kind == "chain":
@@ -1610,11 +1819,17 @@ class Driver:
             raise AssertionError(f"unroutable node kind {n.kind}")
 
     # -- time plane ---------------------------------------------------------
-    def _propagate_watermarks(self, final: bool = False) -> None:
+    def _propagate_watermarks(self, final: bool = False,
+                              only=None) -> None:
         """Advance node watermarks in topological order: each node takes
         the min over its inputs. ``final`` also advances operators whose
-        watermark already stands there, so pending re-fires flush."""
+        watermark already stands there, so pending re-fires flush.
+        ``only`` restricts the pass to a set of nodes (a batch wave's: a
+        later wave's operators must not see the end before their
+        input)."""
         for nid in self.plan.topo_order:
+            if only is not None and nid not in only:
+                continue
             n = self.plan.node(nid)
             if n.kind == "source":
                 continue

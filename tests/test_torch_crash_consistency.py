@@ -11,7 +11,9 @@ hardlink reuse), the LSM state tier (seals, a compaction's manifest
 swap), the log tier's four (segments and 2PC markers, a compaction's
 manifest swap, writer leases with group offsets, and the bus on
 ``objstore://`` over CrashFS), all as ``tests/test_crash_consistency.py``
-has them, each log tier's golden equal to the reference's, and a whole
+has them, each log tier's golden equal to the reference's, the file
+sink's staged and committed parts (``FileSinkTier``, recovered through
+``restore_staged``, its golden equal to the reference's), and a whole
 job: SQL Q5 host-fed checkpointing at every batch
 boundary into ``crash://``, restored from each image with
 ``execution.checkpointing.restore: latest`` into the transactional
@@ -19,9 +21,8 @@ sink as the crash left it, whose committed rows must be the golden's,
 once each. The job's golden equals the reference's same SQL job.
 
 Tier-1 runs the reference's bounded schedule (3 seeds x 8 images per
-tier); the ``slow`` soak runs 70 images a seed. ``FileSinkTier`` waits
-for the file connectors (ROADMAP.md queue 1 item 8.2) and
-``HaRegistryTier`` for the HA session registry (item 10).
+tier); the ``slow`` soak runs 70 images a seed. ``HaRegistryTier`` waits
+for the HA session registry (ROADMAP.md queue 1 item 10).
 """
 import json
 import os
@@ -512,8 +513,48 @@ class ObjstoreBusTier:
                         json.load(f)
 
 
+class FileSinkTier:
+    """``FileSink`` staged and committed parts (attempt-epoch names),
+    recovered through the real ``restore_staged`` path."""
+
+    name = "filesink"
+
+    def _sink(self, root):
+        from flink_tpu_torch.connectors import FileSink
+        from flink_tpu_torch.formats import JsonLinesFormat
+
+        return FileSink(os.path.join(root, "out"),
+                        JsonLinesFormat([("k", "i64"), ("v", "str")]),
+                        rolling_records=3)
+
+    def _write(self, sink, lo, n):
+        sink.write({"k": np.arange(lo, lo + n, dtype=np.int64),
+                    "v": np.array([f"row-{i}" for i in range(lo, lo + n)],
+                                  dtype=object)})
+
+    def mutate(self, root):
+        sink = self._sink(root)
+        aux = {}
+        self._write(sink, 0, 5)
+        sink.prepare_commit(1)
+        aux["1"] = sink.snapshot_transaction(1)
+        sink.commit_transaction(1)
+        self._write(sink, 5, 4)
+        sink.prepare_commit(2)
+        aux["2"] = sink.snapshot_transaction(2)
+        sink.commit_transaction(2)
+        return aux
+
+    def recover(self, root, aux, cut):
+        self._sink(root).restore_staged({"txn": dict(aux)}, 2)
+
+    def observe(self, root):
+        return _canon(self._sink(root).committed_batches())
+
+
 TIERS = (CheckpointTier(), LsmTier(), SqlQ5JobTier(), LogTxnTier(),
-         CompactionTier(), LeaseGroupTier(), ObjstoreBusTier())
+         CompactionTier(), LeaseGroupTier(), ObjstoreBusTier(),
+         FileSinkTier())
 LOG_TIERS = ("log-2pc", "compaction-swap", "lease-group", "objstore-bus")
 
 
@@ -601,6 +642,16 @@ def test_sql_q5_job_golden_equals_the_reference(tmp_path):
 def test_log_tier_golden_equals_the_reference(name, tmp_path):
     """Each log tier's fault-free output is the reference's same tier's,
     run on the JAX package."""
+    _golden_equals_the_reference(name, tmp_path)
+
+
+def test_filesink_tier_golden_equals_the_reference(tmp_path):
+    """The file sink tier's fault-free committed parts read back as the
+    reference's same tier's."""
+    _golden_equals_the_reference("filesink", tmp_path)
+
+
+def _golden_equals_the_reference(name, tmp_path):
     import test_crash_consistency as ref
 
     port = next(t for t in TIERS if t.name == name)
@@ -611,7 +662,7 @@ def test_log_tier_golden_equals_the_reference(name, tmp_path):
         root = str(tmp_path / key)
         os.makedirs(root)
         try:
-            tier.setup(root)
+            getattr(tier, "setup", lambda root: None)(root)
             tier.mutate(root)
             got[key] = _canon(tier.observe(root))
         finally:

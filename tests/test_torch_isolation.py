@@ -76,7 +76,9 @@ def test_scan_covers_the_package():
                 "ops/broadcast.py", "ops/async_io.py", "cep.py",
                 "checkpoint/repartition.py", "state_processor.py",
                 "fs_crash.py", "fs_objstore.py", "table/__init__.py",
-                "table/expressions.py", "table/api.py", "table/sql.py"):
+                "table/expressions.py", "table/api.py", "table/sql.py",
+                "connectors.py", "formats.py", "fsck.py",
+                "exchange/blocking.py", "runtime/scheduler.py"):
         assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 

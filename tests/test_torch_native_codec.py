@@ -290,3 +290,67 @@ def test_library_builds_from_the_port_source_into_its_build_dir():
     assert os.path.dirname(path) == os.path.join(ROOT, "flink_tpu_torch", "_build")
     assert os.path.exists(path)
     assert nc.SOURCE == os.path.join(ROOT, "flink_tpu_torch", "native", "codec.cc")
+
+
+# -- the text plane (file formats, socket source) ----------------------------
+
+LINES = ["to be or not to be", "  leading  and   double spaces ", "",
+         "tab\tseparated words", "unicode café naïve"]
+
+
+def test_tokenize_hash_matches_its_plain_version_and_the_reference():
+    from flink_tpu_torch.records import hash_string_key
+
+    ids, lix = nc.tokenize_hash(LINES)
+    pids, plix = nc._tokenize_hash_numpy(LINES)
+    rids, rlix = ref_nc.tokenize_hash(LINES)
+    for got in ((pids, plix), (rids, rlix)):
+        np.testing.assert_array_equal(ids, got[0])
+        np.testing.assert_array_equal(lix, got[1])
+    assert ids[0] == hash_string_key("to")
+
+
+def test_hash_strings_matches_the_reference():
+    from flink_tpu.records import hash_string_key as ref_hash
+    from flink_tpu_torch.records import hash_string_key
+
+    ss = ["alpha", "beta", "café", "", "x" * 300]
+    got = nc.hash_strings(ss)
+    assert got.tolist() == [hash_string_key(s) for s in ss]
+    assert got.tolist() == ref_nc.hash_strings(ss).tolist()
+    assert [hash_string_key(s) for s in ss] == [ref_hash(s) for s in ss]
+
+
+@pytest.mark.parametrize("data,n_cols", [
+    (b"1,2,3\n-4,5,6\n7,8,9\n", 3),
+    (b"1,2\n3\n,\nx,7,9\n-,-8\n12", 2),  # ragged, empty, junk, no newline
+])
+def test_parse_i64_table_matches_the_reference(data, n_cols):
+    np.testing.assert_array_equal(nc.parse_i64_table(data, n_cols),
+                                  ref_nc.parse_i64_table(data, n_cols))
+    np.testing.assert_array_equal(
+        nc.parse_i64_table(data, n_cols, max_rows=1),
+        ref_nc.parse_i64_table(data, n_cols, max_rows=1))
+
+
+def test_parse_f32_table_matches_the_reference():
+    rng = np.random.default_rng(3)
+    vals = rng.normal(0, 1e3, (200, 3)).astype(np.float32)
+    data = ("\n".join(";".join(f"{v:.5f}" for v in row) for row in vals)
+            + "\n").encode()
+    for d, cols in ((b"1.5,2\n-0.25,4.125\n", 2), (data, 3)):
+        delim = ";" if d is data else ","
+        got = nc.parse_f32_table(d, cols, delim=delim)
+        want = ref_nc.parse_f32_table(d, cols, delim=delim)
+        assert got.tobytes() == want.tobytes()
+    assert nc.parse_f32_table(b"1.5,2\n-0.25,4.125\n", 2).tolist() == [
+        [1.5, 2.0], [-0.25, 4.125]]
+
+
+def test_encode_i64_rows_bytes_match_the_reference_and_round_trip():
+    vals = np.array([[10, -20, 3], [0, 99999999999, -1],
+                     [np.iinfo(np.int64).max, -(2 ** 62), 7]], np.int64)
+    enc = nc.encode_i64_rows(vals)
+    assert enc == ref_nc.encode_i64_rows(vals)
+    assert nc.encode_i64_rows(vals, "|") == ref_nc.encode_i64_rows(vals, "|")
+    np.testing.assert_array_equal(nc.parse_i64_table(enc, 3), vals)

@@ -432,13 +432,13 @@ def test_host_keys_are_read_and_take_effect(workers):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("execution.batch.shuffle-partitions", "queue 1 item 8"),
-    ("execution.batch.shuffle-dir", "queue 1 item 8"),
+    ("heartbeat.timeout", "queue 1 item 10"),
+    ("source.enumeration", "queue 1 item 10"),
     ("rescale.mode", "queue 1 item 10"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
-    ("execution.batch.shuffle-cleanup", "queue 1 item 8"),
+    ("cluster.job-id", "queue 1 item 10"),
     ("heartbeat.interval", "queue 1 item 10"),
-    ("execution.runtime-mode", "queue 1 item 8"),
+    ("pipeline.profile-steps", "queue 1 item 11"),
     ("cluster.dcn-host", "queue 1 item 10"),
     ("cluster.dcn-rendezvous", "queue 1 item 10"),
     ("session.slots-per-job", "queue 1 item 10"),
@@ -463,11 +463,13 @@ def test_keys_of_later_items_name_their_item(key, item):
 @pytest.mark.parametrize("key", [
     "pipeline.target-latency", "state.memory-budget-bytes",
     "state.lsm.dir", "state.lsm.compact-min-runs",
-    "state.lsm.run-floor-bytes", "cluster.rescale-from", "plugins.modules"])
+    "state.lsm.run-floor-bytes", "cluster.rescale-from", "plugins.modules",
+    "execution.runtime-mode", "execution.batch.shuffle-dir",
+    "execution.batch.shuffle-partitions", "execution.batch.shuffle-cleanup"])
 def test_ported_keys_take_the_reference_default_and_text(key):
-    """The keys of the debloater, the LSM tier, the rescale restore and
-    the filesystem plugins are read by the port, with the JAX package's
-    default and description."""
+    """The keys of the debloater, the LSM tier, the rescale restore, the
+    filesystem plugins and batch mode are read by the port, with the JAX
+    package's default and description."""
     from flink_tpu import config as jc
     from flink_tpu_torch import config as pc
 

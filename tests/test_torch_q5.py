@@ -162,7 +162,7 @@ def test_bench_conf_loads_and_validates():
 
 @pytest.mark.parametrize("conf,err", [
     ({"state.backend": "rocksdb"}, ValueError),
-    ({"execution.runtime-mode": "BATCH"}, NotImplementedError),
+    ({"heartbeat.interval": "1s"}, NotImplementedError),
     ({"analysis.fail-on": "sometimes"}, ValueError),
     ({"pipeline.max-inflight-steps": 0}, ValueError),
 ])
