@@ -377,12 +377,43 @@ mesh).
    split into wave 0, wave 1's replay and push, the one fire and the
    commit, the shuffle's bytes, the launches). ``--batch`` runs it alone.
 
+27. ``mesh_tiers`` (after ``mesh`` in the full run) — the mesh of
+   ``MESH_BLOCKS`` blocks on ``cuda:0``: M5 job T (top-1 by
+   ``max_price``, then top-3 by ``avg_price`` of ``multi(max_of,
+   avg_of)``, 16 x 2^20 host-fed bids): rows against the numpy golden
+   (averages within ``(2 * count + 34) * 2^-24``, winners by the margin
+   rule) and, window by window, the one-block job T's; each chunk runs
+   ``window_lanes``, ``topn_candidates_lanes`` and
+   ``topn_select_lanes_given`` on every block and no one-device select;
+   a profiled M5 run of 4 batches. M6 job S (100,000 auctions, 8 x 2^20
+   bids) with ``state.backend: spill`` and M7 the same under ``lsm``
+   (a 1 MiB delta: the store seals), each against Q5's golden, records
+   spilled and none dropped. The ``kernels`` phase holds the two new
+   kernels bit for bit at M5's shapes (job T's grid cut into the
+   blocks, top-1 and the planted top-3), and the blocks' rows against
+   the one-block selection's.
+
+28. ``control`` (``--control``; after ``batch``) — the job coordinator
+   in this process and two task runner processes on ``cuda:0``
+   (``python -m flink_tpu_torch.runtime.runner --device cuda``): Q5
+   host-fed on 16 x 2^20 bids (``chip_smoke:control_q5_job``) with a
+   checkpoint at every batch into a ``FileTransactionalSink``; the
+   assigned runner is SIGKILLed once its 6th checkpoint has completed,
+   heartbeat expiry redeploys the job on the other runner with
+   ``restore: latest``, and every golden row is committed exactly once.
+   Printed: the runners' ``n_devices`` (the card count), the seconds
+   from the kill to the redeploy and to the new attempt's first batch
+   (its first checkpoint). Then ``python -m flink_tpu_torch run
+   --local`` of WordCount (``chip_smoke:control_wordcount_job``, 8 x
+   2^20 words at ``confs/bench_wordcount.conf``) into a columnar
+   ``FileSink``, against ``wordcount_golden``.
+
 Every line the script prints also goes to
 ``chiprun_out/chip_smoke_phases.jsonl``, with the kernels' per-path
 detail (``kernels_detail``) that the printed ``kernels`` line leaves out.
 
 In the default run, for the script's time budget, phase 22's CEP takes
-2 batches and phase 23 8 batches a split, cut after batch 4 (each JSON
+2 batches and phase 23 4 batches a split, cut after batch 2 (each JSON
 line lists its cut); ``--host-patterns`` and ``--rescale`` run the sizes
 above. Before the card line the default run prints each phase's seconds
 (``phase_seconds``).
@@ -570,6 +601,14 @@ PROFILED_KERNELS = {
                         "cand_sort_kernel"),
     "topn_global_threshold": ("topn_global_threshold_kernel",),
     "topn_select_given": ("topn_given_kernel",),
+    # the lane form's candidates (top-1 max and tail, the merge up to
+    # top-16, the radix select with the collect and sort) and selection
+    "topn_candidates_lanes": ("lanes_cand_max_kernel",
+                              "lanes_cand_merge_kernel",
+                              "lanes_cand_radix_all_kernel",
+                              "lanes_cand_collect_kernel",
+                              "lanes_cand_sort_kernel"),
+    "topn_select_lanes_given": ("lanes_given_kernel",),
 }
 # kernels that no path may launch (each held to its plain version in the
 # kernels phase): hash_keys no path of either package (the reference's
@@ -586,7 +625,8 @@ UNLAUNCHED = ("hash_keys", "nexmark_bids", "topn_global_threshold",
 # topn_select_append shares its with the fused step, so the devgen profile,
 # where no fused step runs, counts it by itself)
 ONE_CALL_WRAPPERS = ("fire_pack", "topn_select_lanes", "topn_select_given",
-                     "bucket_records", "topn_candidates", "count_fire")
+                     "bucket_records", "topn_candidates", "count_fire",
+                     "topn_candidates_lanes", "topn_select_lanes_given")
 # wrappers whose kernels are shared with other wrappers (the fused step's
 # chain reuses window_counts, top-n and ring_columns): the profiled runs
 # wrap each call in a profiler range and charge it only the device
@@ -610,6 +650,11 @@ CALL_KERNELS = {
     "topn_candidates": ("cand_max_kernel", "cand_radix_all_kernel",
                         "cand_sort_kernel"),
     "topn_select_given": ("topn_given_kernel",),
+    "topn_candidates_lanes": ("lanes_cand_max_kernel",
+                              "lanes_cand_merge_kernel",
+                              "lanes_cand_radix_all_kernel",
+                              "lanes_cand_sort_kernel"),
+    "topn_select_lanes_given": ("lanes_given_kernel",),
 }
 
 
@@ -4285,8 +4330,105 @@ def topn_lanes_kernel_cases(torch, np, dev, record, out):
     check(written3 >= 2 * W and int(r5[0, 1]) == 0,
           f"top-3 ring head {r5[0].tolist()}")
     check_top3_plants(np, r5, plant, pane_lo - int(ends[0]))
+    mesh = mesh_lanes_cases(torch, np, dev, record, out, sel, r1, r5)
     return {"window_lanes_cells": rows * W, "topn_select_lanes_rows": written,
-            "topn_select_lanes_top3_rows": written3}
+            "topn_select_lanes_top3_rows": written3, **mesh}
+
+
+def mesh_lanes_cases(torch, np, dev, record, out, sel, one1, one3):
+    """TC ``topn_candidates_lanes`` and TD ``topn_select_lanes_given`` at
+    job M5's shapes: job T's fire grid (``sel``) cut into MESH_BLOCKS
+    blocks of 8,192 slots and a dump row, top-1 by max_price and the
+    planted top-3 by avg_price (+NaN, ties, -0 / +0, -NaN). Each block's
+    candidates into its columns of one gathered buffer and each block's
+    selection against it, bit for bit against the plain versions; the
+    blocks' rows, mapped back to slots, are the one-block selection's
+    (``one1``, ``one3``) in the same order."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+
+    n_blk = MESH_BLOCKS
+    extra = {}
+    for label, args, one in (("top1", sel["top1"], one1),
+                             ("top3", sel["top3"], one3)):
+        wc, v, cols, used, ends, valid, anchor, n, sel_cap = args
+        spd = (wc.shape[0] - 1) // n_blk
+        rows_b, W, F = spd + 1, wc.shape[1], cols.shape[2]
+
+        def cut(x, fill):
+            pad = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                             device=dev)
+            return [torch.cat([x[b * spd:(b + 1) * spd], pad]).contiguous()
+                    for b in range(n_blk)]
+
+        wcs, vs, colss = cut(wc, 0), cut(v, 0.0), cut(cols, 0)
+        useds = cut(used, False)
+        k = min(n, rows_b)
+        gathered = torch.empty((W, n_blk * k), dtype=torch.float32,
+                               device=dev)
+        cands = [tk.topn_candidates_lanes(
+            wcs[b], vs[b], useds[b], valid, k,
+            out=gathered[:, b * k:(b + 1) * k]) for b in range(n_blk)]
+        plain = [tk.topn_candidates_lanes_plain(wcs[b], vs[b], useds[b],
+                                                valid, k)
+                 for b in range(n_blk)]
+        rings = [torch.zeros((2048 + 2, 3 + F), dtype=torch.int32,
+                             device=dev) for _ in range(2)]
+        for b in range(n_blk):
+            tk.topn_select_lanes_given(wcs[b], vs[b], colss[b], useds[b],
+                                       ends, valid, anchor, gathered, k,
+                                       b * rows_b, sel_cap, rings[0])
+            tk.topn_select_lanes_given_plain(
+                wcs[b], vs[b], colss[b], useds[b], ends, valid, anchor,
+                gathered.clone(), k, b * rows_b, sel_cap, rings[1])
+        torch.cuda.synchronize()
+        check(all(same_bits(torch, c, q) for c, q in zip(cands, plain)),
+              f"{label}: topn_candidates_lanes differs from its plain "
+              "version")
+        check(torch.equal(rings[0], rings[1]),
+              f"{label}: topn_select_lanes_given differs from its plain "
+              "version")
+        dist, ref = rings[0].cpu().numpy(), one.cpu().numpy()
+        n_rows = int(dist[0, 0])
+        body = dist[1:1 + n_rows].copy()
+        body[:, 0] -= body[:, 0] // rows_b      # global row -> slot
+        # the one-block ring is row-major over every row; the blocks'
+        # rings, in block order, are too
+        check(n_rows == int(ref[0, 0]) and int(dist[0, 1]) == 0
+              and np.array_equal(body, ref[1:1 + n_rows]),
+              f"{label}: the blocks' rows differ from the one-block "
+              "selection's")
+        extra[f"mesh_lanes_{label}_rows"] = n_rows
+    # timed at the top-3 shapes (a block; k = 3)
+    vt = [torch.where((w > 0) & u[:, None], x, torch.full(
+        (), -float("inf"), device=dev)).T.contiguous()
+        for w, x, u in zip(wcs, vs, useds)]
+    record("topn_candidates_lanes", "flink_tpu/ops/window.py:1605", 0,
+           time_ms(torch, lambda: tk.topn_candidates_lanes(
+               wcs[0], vs[0], useds[0], valid, k)),
+           time_ms(torch, lambda: tk.topn_candidates_lanes_plain(
+               wcs[0], vs[0], useds[0], valid, k)),
+           time_ms(torch, lambda: torch.topk(vt[0], k, dim=1)),
+           rows_b * W * 8 + rows_b + W + W * k * 4, rows_b * W * 2 * k,
+           source="topn_lanes_kernels.cu")
+    out[-1]["library_call"] = "torch.topk(v.T, k) on the masked grid"
+    out[-1]["per"] = "block, top-3 by avg_price"
+    scratch = [r.clone() for r in rings]
+    written = n_rows // n_blk + 1
+    record("topn_select_lanes_given", "flink_tpu/ops/window.py:1610", 0,
+           time_ms(torch, lambda: tk.topn_select_lanes_given(
+               wcs[0], vs[0], colss[0], useds[0], ends, valid, anchor,
+               gathered, k, 0, sel_cap, scratch[0])),
+           time_ms(torch, lambda: tk.topn_select_lanes_given_plain(
+               wcs[0], vs[0], colss[0], useds[0], ends, valid, anchor,
+               gathered, k, 0, sel_cap, scratch[1]), iters=10),
+           time_ms(torch, lambda: torch.topk(gathered, k, dim=1)),
+           rows_b * W * 8 + rows_b + W * 9 + gathered.numel() * 4
+           + written * (3 + F) * 4 + 8,
+           rows_b * W * 2 + gathered.numel() * 2 * k,
+           source="topn_lanes_kernels.cu")
+    out[-1]["library_call"] = "torch.topk(gathered, k), the threshold only"
+    out[-1]["per"] = "block, top-3 by avg_price"
+    return extra
 
 
 def topn_select_bytes_ops(rows, W, n, written):
@@ -4333,11 +4475,12 @@ def bids_cfg(n_batches, n_auctions=10_000):
 
 
 def run_window_job(torch, np, source, window, agg, label, top=None,
-                   ooo_ms=1_000, shape=None):
+                   ooo_ms=1_000, shape=None, mesh=None):
     """A keyed-by-auction window job on ``source`` through
     ``env.execute()`` at confs/bench_q5_host_fed.conf: (rows as columns,
     launches, JobResult, wall seconds). ``shape`` adds a trigger or an
-    evictor to the windowed stream."""
+    evictor to the windowed stream; ``mesh`` runs the window over that
+    mesh of device blocks."""
     from flink_tpu_torch.api.environment import StreamExecutionEnvironment
     from flink_tpu_torch.api.sinks import FnSink
     from flink_tpu_torch.config import Configuration
@@ -4360,14 +4503,14 @@ def run_window_job(torch, np, source, window, agg, label, top=None,
     torch.cuda.synchronize()
     wk.reset_launch_counts()
     t0 = time.perf_counter()
-    res = env.execute(label, device="cuda")
+    res = env.execute(label, device="cuda", mesh_plan=mesh)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     return rows, dict(wk.LAUNCHES), res, wall
 
 
-def run_topn_lanes(torch, np, n_batches, by, n, label):
+def run_topn_lanes(torch, np, n_batches, by, n, label, mesh=None):
     from flink_tpu_torch.api.windowing import SlidingEventTimeWindows
     from flink_tpu_torch.nexmark.generator import bid_stream
     from flink_tpu_torch.ops import aggregates as ta
@@ -4375,7 +4518,8 @@ def run_topn_lanes(torch, np, n_batches, by, n, label):
     return run_window_job(
         torch, np, bid_stream(bids_cfg(n_batches)),
         SlidingEventTimeWindows.of(10_000, 1_000),
-        ta.multi(ta.max_of("price"), ta.avg_of("price")), label, top=(by, n))
+        ta.multi(ta.max_of("price"), ta.avg_of("price")), label, top=(by, n),
+        mesh=mesh)
 
 
 def check_topn_lanes(np, rows, golden, by, n, label):
@@ -4478,7 +4622,9 @@ def phase_topn_lanes(torch, np):
             "narrow_margin_windows": narrow}
     out["card"] = card_line()
     emit(out)
-    return launches_first, per_call
+    return launches_first, per_call, {
+        "rows": {(by, n): rows for by, n, rows, *_ in runs},
+        "golden": golden}
 
 
 def changelog_source(np, n_batches):
@@ -6610,6 +6756,129 @@ def phase_mesh_cards(torch, np):
           "card": card_line()})
 
 
+# -- the mesh's top-n over lanes and host store (jobs M5-M7) -----------------
+
+# the kernels the mesh's top-n over lanes adds (job M5's path)
+MESH_LANES_KERNELS = ("topn_candidates_lanes", "topn_select_lanes_given")
+
+
+def window_row_sets(np, rows, fields):
+    """{window_end: sorted rows} of a lane job's columns, float fields as
+    their bits (the rows of one window in any order)."""
+    cols = [rows[f].view(np.int32) if rows[f].dtype == np.float32
+            else rows[f] for f in fields]
+    out = {}
+    for i, we in enumerate(rows["window_end"].tolist()):
+        out.setdefault(we, []).append(tuple(int(c[i]) for c in cols))
+    return {we: sorted(v) for we, v in out.items()}
+
+
+def phase_mesh_tiers(torch, np, one_block):
+    """Jobs M5-M7 on the mesh of MESH_BLOCKS blocks on cuda:0: M5 job T
+    (top-1 by max_price, top-3 by avg_price over lanes, 16 x 2^20 bids)
+    against the numpy golden and, window by window, the one-block job T's
+    rows (``one_block``: ``phase_topn_lanes``' rows and golden), with
+    ``topn_candidates_lanes``, ``topn_select_lanes_given`` and
+    ``window_lanes`` on every block and no one-device select; M6 job S
+    (100,000 auctions, 8 x 2^20 bids, ``state.backend: spill``) and M7
+    the same under ``lsm``, each against Q5's golden; a profiled M5 run
+    of 4 batches."""
+    import shutil
+
+    from flink_tpu_torch.parallel.mesh import make_mesh_plan
+
+    mesh = make_mesh_plan(128, 256, ["cuda:0"] * MESH_BLOCKS)
+    out = {"phase": "mesh_tiers", "blocks": MESH_BLOCKS,
+           "conf": "confs/bench_q5_host_fed.conf",
+           "rel_bound": "(2 * count + 34) * 2^-24"}
+    m5 = []
+    for by, n in (("max_price", 1), ("avg_price", 3)):
+        rows, launches, res, wall = run_topn_lanes(
+            torch, np, TOPN_BATCHES, by, n, f"mesh-topn-{by}", mesh=mesh)
+        missing = [k for k in MESH_LANES_KERNELS + (
+            "window_lanes", "bucket_records", "scatter_lanes",
+            "ring_columns") if not launches[k]]
+        check(not missing, f"M5 top {n} by {by}: not launched: {missing}")
+        # a chunk's candidates and selection on every block
+        check(launches["topn_candidates_lanes"] % MESH_BLOCKS == 0
+              and launches["topn_select_lanes_given"]
+              == launches["topn_candidates_lanes"]
+              and launches["window_lanes"]
+              == launches["topn_candidates_lanes"],
+              f"M5 top {n} by {by}: launches {launches}")
+        wrong = [k for k in ("topn_select_lanes", "topn_candidates",
+                             "topn_select_given", "topn_select_append",
+                             "fused_step") if launches[k]]
+        check(not wrong, f"M5 top {n} by {by} launched {wrong}")
+        m5.append((by, n, rows, launches, res, wall))
+    prof = profile_run(torch, lambda: run_topn_lanes(
+        torch, np, SIDE_BATCHES, "avg_price", 3, "mesh-topn-profiled",
+        mesh=mesh)[3])
+    check(all(prof["kernels_per_call"].get(k) == 1
+              for k in MESH_LANES_KERNELS),
+          f"M5: kernels a call {prof['kernels_per_call']}")
+
+    # M6 and M7: job S's host store under the mesh
+    root = os.path.join(ROOT, "flink_tpu_torch", "_build", "mesh_tiers")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = bids_cfg(SPILL_BATCHES, SPILL_AUCTIONS)
+    s_rows, s_launches, s_res, s_wall = run_q5_host_fed(
+        torch, np, cfg, "mesh-q5-spill", backend="spill", mesh=mesh)
+    envs = []
+    l_rows, l_launches, l_res, l_wall = run_q5_host_fed(
+        torch, np, cfg, "mesh-q5-lsm", backend="lsm", mesh=mesh, envs=envs,
+        conf_extra={"state.memory-budget-bytes": TIER_BUDGET,
+                    "state.lsm.compact-min-runs": TIER_COMPACT_MIN_RUNS,
+                    "state.lsm.dir": os.path.join(root, "lsm")})
+    (op,) = envs[0]._driver._ops.values()
+    store = op._spill
+    for label, launches, res in (("M6", s_launches, s_res),
+                                 ("M7", l_launches, l_res)):
+        missing = [k for k in MESH_PATH if not launches[k]]
+        check(not missing, f"{label}: kernels not launched: {missing}")
+        check(int(res.metrics["records_spilled"]) > 0,
+              f"{label}: no record was spilled")
+        check(int(res.metrics["records_dropped_full"]) == 0,
+              f"{label}: records were dropped")
+    check(store.seals >= 1, f"M7: the store sealed {store.seals} runs")
+
+    # the goldens' numpy work comes after the timed runs
+    events = Q5_BATCH * TOPN_BATCHES
+    for by, n, rows, launches, res, wall in m5:
+        label = f"M5 top {n} by {by}"
+        narrow = check_topn_lanes(np, rows, one_block["golden"], by, n, label)
+        fields = ("key", "count", "max_price", "avg_price")
+        check(window_row_sets(np, rows, fields) == window_row_sets(
+            np, one_block["rows"][(by, n)], fields),
+            f"{label}: rows differ from the one-block job T's by window")
+        out[f"M5_top{n}_{by}"] = {
+            **mesh_summary(len(rows["key"]), launches, res, wall,
+                           TOPN_BATCHES),
+            "windows": int(len(np.unique(rows["window_end"]))),
+            "narrow_margin_windows": narrow,
+            "rows_equal_one_block_by_window": True}
+    out["M5_profiled"] = {"batches": SIDE_BATCHES, **prof}
+    check_q5_rows(np, s_rows, cfg, "M6")
+    check_q5_rows(np, l_rows, cfg, "M7")
+    s_events = Q5_BATCH * SPILL_BATCHES
+    out["M6"] = {**mesh_summary(len(s_rows), s_launches, s_res, s_wall,
+                                SPILL_BATCHES),
+                 "auctions": SPILL_AUCTIONS, "backend": "spill",
+                 "records_spilled": int(s_res.metrics["records_spilled"]),
+                 "spilled_share": int(s_res.metrics["records_spilled"])
+                 / s_events}
+    out["M7"] = {**mesh_summary(len(l_rows), l_launches, l_res, l_wall,
+                                SPILL_BATCHES),
+                 "backend": "lsm", "seals": store.seals,
+                 "compactions": store.compactions,
+                 "records_spilled": int(l_res.metrics["records_spilled"]),
+                 "rows_equal_m6": sorted(l_rows) == sorted(s_rows)}
+    out["card"] = card_line()
+    out["events_m5"] = events
+    emit(out)
+    return m5[0][3], prof["device_ms_per_call"]
+
+
 # -- slice 21: sessions, Q8 and Q7 (the host pool's operators) ---------------
 
 SESSION_USERS = 50_000          # bench.py:694, BASELINE config #4
@@ -8059,8 +8328,8 @@ def phase_host_patterns(torch, np, cep_batches=HP_CEP_BATCHES):
 
 RESCALE_BATCHES = 16            # 2^20-bid batches a split, two splits
 RESCALE_CUT = 8                 # the old fleet stops after this batch
-RESCALE_BATCHES_CUT = 8         # both halved in the default run (its
-RESCALE_CUT_CUT = 4             # budget)
+RESCALE_BATCHES_CUT = 4         # both quartered in the default run (its
+RESCALE_CUT_CUT = 2             # budget)
 RESCALE_TIMEOUT_S = 300
 
 
@@ -9117,6 +9386,200 @@ def phase_batch(torch, np, n_files=BATCH_FILES):
     return paths
 
 
+# -- the job coordinator and task runners on the card ------------------------
+
+CONTROL_BATCHES = 16            # Q5 host-fed under the coordinator, 2^20 bids
+CONTROL_KILL_AFTER = 6          # SIGKILL after this checkpoint completes
+CONTROL_WC_BATCHES = 8          # WordCount through `run --local`
+CONTROL_TIMEOUT_S = 300
+CONTROL_DIR_ENV = "CHIP_SMOKE_CONTROL_DIR"
+
+
+def control_q5_job(env):
+    """The control phase's deployed job, as a task runner imports it
+    (``chip_smoke:control_q5_job``): Q5 host-fed on CONTROL_BATCHES x 2^20
+    bids into a FileTransactionalSink under $CHIP_SMOKE_CONTROL_DIR."""
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+
+    q5_hot_items(env, bid_stream(bids_cfg(CONTROL_BATCHES)),
+                 FileTransactionalSink(os.path.join(
+                     os.environ[CONTROL_DIR_ENV], "q5-sink")),
+                 window_ms=10_000, slide_ms=1_000, out_of_orderness_ms=1_000)
+
+
+def control_wordcount_job(env):
+    """``run --local``'s entry (``chip_smoke:control_wordcount_job``):
+    WordCount on CONTROL_WC_BATCHES x 2^20 words into a columnar FileSink
+    under $CHIP_SMOKE_CONTROL_DIR."""
+    import numpy as np
+
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.connectors import FileSink
+    from flink_tpu_torch.formats_columnar import ColumnarFormat
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    src, _ = wordcount_source(np, CONTROL_WC_BATCHES)
+    (env.from_source(src, WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .key_by("word").window(TumblingEventTimeWindows.of(1000)).count()
+     .add_sink(FileSink(os.path.join(os.environ[CONTROL_DIR_ENV], "wc-sink"),
+                        ColumnarFormat(WC_SINK_SCHEMA))))
+
+
+WC_SINK_SCHEMA = (("key", "i64"), ("window_end", "i64"), ("count", "i64"))
+
+
+def phase_control(torch, np):
+    """The job coordinator and two task runner processes on cuda:0
+    (``python -m flink_tpu_torch.runtime.runner --device cuda``, started
+    by exec, as ``phase_hybrid`` puts two processes on one card): Q5
+    host-fed on 16 x 2^20 bids with a checkpoint at every batch into a
+    FileTransactionalSink; the assigned runner is SIGKILLed once its
+    CONTROL_KILL_AFTER-th checkpoint has completed, the other restores the
+    latest checkpoint and finishes, and every golden row is committed
+    exactly once. Then ``python -m flink_tpu_torch run --local`` of
+    WordCount on 8 x 2^20 words, against its golden."""
+    import shutil
+    import signal
+    import tempfile
+
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.connectors import FileSink
+    from flink_tpu_torch.formats_columnar import ColumnarFormat
+    from flink_tpu_torch.runtime.coordinator import JobCoordinator
+    from flink_tpu_torch.runtime.rpc import RpcServer
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    logs = os.path.join(ROOT, "chiprun_out", "control")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT, **{CONTROL_DIR_ENV: work})
+    coord = JobCoordinator(Configuration({
+        "heartbeat.interval": "500ms", "heartbeat.timeout": "4s",
+        "restart-strategy.type": "fixed-delay",
+        "restart-strategy.fixed-delay.attempts": 3,
+        "restart-strategy.fixed-delay.delay": "100ms"}))
+    srv = RpcServer(coord)
+    procs, out = {}, {"phase": "control"}
+
+    def wait_for(pred, what, timeout=CONTROL_TIMEOUT_S):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if pred():
+                return
+            time.sleep(0.05)
+        raise RuntimeError(f"control: timed out waiting for {what}")
+
+    try:
+        t0 = time.perf_counter()
+        for rid in ("r1", "r2"):
+            with open(os.path.join(logs, f"{rid}.log"), "w") as log:
+                procs[rid] = subprocess.Popen(
+                    [sys.executable, "-m", "flink_tpu_torch.runtime.runner",
+                     "--coordinator", f"127.0.0.1:{srv.port}",
+                     "--runner-id", rid, "--device", "cuda"],
+                    env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        wait_for(lambda: len(coord.runners) == 2, "both runners registered")
+        out["runners_registered_s"] = time.perf_counter() - t0
+        n_dev = {rid: r.n_devices for rid, r in coord.runners.items()}
+        check(all(v == torch.cuda.device_count() for v in n_dev.values()),
+              f"control: runners report {n_dev} devices, the card count is "
+              f"{torch.cuda.device_count()}")
+        conf = Configuration.from_file(
+            os.path.join(ROOT, "confs", "bench_q5_host_fed.conf")).to_dict()
+        chk = os.path.join(work, "chk")
+        conf.update({"execution.checkpointing.dir": chk,
+                     "execution.checkpointing.interval": 1})
+        t_submit = time.perf_counter()
+        coord.rpc_submit_job("q5-control", entry="chip_smoke:control_q5_job",
+                             config=conf)
+        storage = FsCheckpointStorage(chk, "q5-control")
+
+        def newest():
+            done = storage.list_complete()
+            return max((h.checkpoint_id for h in done), default=0)
+
+        wait_for(lambda: newest() >= CONTROL_KILL_AFTER,
+                 f"checkpoint {CONTROL_KILL_AFTER}")
+        victim = coord.jobs["q5-control"].assigned_runners[0]
+        procs[victim].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        procs[victim].wait(timeout=30)
+        at_kill = newest()
+        wait_for(lambda: coord.jobs["q5-control"].attempts >= 2,
+                 "the redeploy after the kill")
+        t_redeploy = time.perf_counter()
+        # the new attempt checkpoints at every batch: its first checkpoint
+        # marks its first batch after the restore
+        wait_for(lambda: newest() > at_kill, "the new attempt's first batch")
+        t_first = time.perf_counter()
+        wait_for(lambda: coord.jobs["q5-control"].state == "FINISHED",
+                 "the job to finish")
+        t_done = time.perf_counter()
+        survivor = coord.jobs["q5-control"].assigned_runners[0]
+        check(survivor != victim, "control: the job redeployed on the "
+              "killed runner")
+        rows = [(int(r["auction"]), int(r["window_end"]), int(r["bid_count"]))
+                for r in FileTransactionalSink.committed_rows(
+                    os.path.join(work, "q5-sink"))]
+        cfg = bids_cfg(CONTROL_BATCHES)
+        check_q5_rows(np, rows, cfg, "control Q5")
+        out["q5"] = {
+            "conf": "confs/bench_q5_host_fed.conf + checkpoint interval 1 ms",
+            "batches": CONTROL_BATCHES, "events": Q5_BATCH * CONTROL_BATCHES,
+            "rows": len(rows), "rows_exactly_once": True,
+            "attempts": coord.jobs["q5-control"].attempts,
+            "killed_after_checkpoint": at_kill,
+            "checkpoints_completed": newest(),
+            "runner_n_devices": n_dev,
+            "submit_to_kill_s": t_kill - t_submit,
+            "kill_to_redeploy_s": t_redeploy - t_kill,
+            "kill_to_first_batch_after_restore_s": t_first - t_kill,
+            "kill_to_finished_s": t_done - t_kill}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        coord.close()
+        srv.close()
+
+    # WordCount through `python -m flink_tpu_torch run --local`
+    wc = Configuration.from_file(
+        os.path.join(ROOT, "confs", "bench_wordcount.conf")).to_dict()
+    args = [a for k, v in wc.items() for a in ("--conf", f"{k}={v}")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "flink_tpu_torch", "run", "--local",
+         "--device", "cuda", "--entry", "chip_smoke:control_wordcount_job",
+         "--job-id", "control-wc", *args],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"control: run --local exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line["state"] == "FINISHED"
+          and line["records_in"] == WC_BATCH * CONTROL_WC_BATCHES,
+          f"control: run --local printed {line}")
+    parts = FileSink(os.path.join(work, "wc-sink"),
+                     ColumnarFormat(WC_SINK_SCHEMA)).committed_batches()
+    rows = [np.concatenate([p[k] for p in parts]).astype(np.int64)
+            for k in ("key", "window_end", "count")]
+    golden = wordcount_golden(np, CONTROL_WC_BATCHES)
+    check_wordcount(np, (rows[0], rows[1], rows[2].astype(np.int32)),
+                    golden, "control run --local WordCount")
+    out["run_local_wordcount"] = {
+        "conf": "confs/bench_wordcount.conf", "batches": CONTROL_WC_BATCHES,
+        "events": WC_BATCH * CONTROL_WC_BATCHES, "rows": len(rows[0]),
+        "process_wall_s": wall, "printed": line}
+    shutil.rmtree(work, ignore_errors=True)
+    out["card"] = card_line()
+    emit(out)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9153,6 +9616,8 @@ def main() -> int:
         "--sql": lambda torch, np: (phase_build(), phase_sql(torch, np)),
         "--log": lambda torch, np: (phase_build(), phase_log(torch, np)),
         "--batch": lambda torch, np: (phase_build(), phase_batch(torch, np)),
+        "--control": lambda torch, np: (phase_build(),
+                                        phase_control(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -9197,12 +9662,13 @@ def main() -> int:
         wordcount, wc_per_call = phase_wordcount(torch, np)
         aggs, agg_per_call = phase_bid_aggs(torch, np)
         window_wc, ww_per_call = phase_window_wordcount(torch, np)
-        topn_lanes, tl_per_call = phase_topn_lanes(torch, np)
+        topn_lanes, tl_per_call, one_block_t = phase_topn_lanes(torch, np)
         changelog, cl_per_call = phase_changelog(torch, np)
         q5_spill, sp_per_call = phase_q5_spill(torch, np)
         element, el_per_call = phase_element_window(torch, np)
         proc_time, pt_per_call = phase_proc_time(torch, np)
         mesh, mesh_per_call, m2_per_call = phase_mesh(torch, np, q5_rows)
+        mesh_tiers, m5_per_call = phase_mesh_tiers(torch, np, one_block_t)
         big = run_big_cells(torch, np)
         emit({"phase": "big_cells", **big, "card": card_line()})
         phase_checkpoint(torch, np)
@@ -9217,6 +9683,7 @@ def main() -> int:
         sql_paths = phase_sql(torch, np)
         log_paths = phase_log(torch, np)
         batch_paths = phase_batch(torch, np)
+        phase_control(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -9225,6 +9692,7 @@ def main() -> int:
                  "topn_lanes": topn_lanes, "changelog": changelog,
                  "q5_spill": q5_spill, "element_window": element,
                  "proc_time": proc_time, "mesh_q5": mesh,
+                 "mesh_topn_lanes": mesh_tiers,
                  "hybrid": hybrid, "q5_lsm": q5_lsm,
                  "big_cells": {k: big["launches"].get(k, 0)
                                for k in host_fed},
@@ -9249,7 +9717,8 @@ def main() -> int:
                     "window_lanes": "topn_lanes",
                     "topn_select_lanes": "topn_lanes",
                     "segment_lanes": "element_window",
-                    **{k: "mesh_q5" for k in MESH_KERNELS}}
+                    **{k: "mesh_q5" for k in MESH_KERNELS},
+                    **{k: "mesh_topn_lanes" for k in MESH_LANES_KERNELS}}
         for row in table:
             name = row["name"]
             if name in UNLAUNCHED:
@@ -9268,6 +9737,8 @@ def main() -> int:
             # "ms" above is a launch loop, host-bound for short kernels)
             row["pipeline_device_ms"] = (mesh_per_call.get(name)
                                          if name in MESH_KERNELS else
+                                         m5_per_call.get(name)
+                                         if name in MESH_LANES_KERNELS else
                                          per_call.get(name)
                                          or wc_per_call.get(name)
                                          or agg_per_call.get(name)

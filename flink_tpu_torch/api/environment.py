@@ -31,6 +31,10 @@ class StreamExecutionEnvironment:
         self.config = config or Configuration()
         self._transforms: List[Transformation] = []
         self._watermark_strategy = WatermarkStrategy.for_monotonous_timestamps()
+        # the devices a mesh may use; None = the visible devices of the
+        # run's kind (a task runner offering several blocks of the one
+        # CPU, --cpu-devices, names them here)
+        self.mesh_devices: Optional[List[torch.device]] = None
         # plugin loading happens at env creation, where filesystem
         # schemes must be ready (ref: FileSystem.initialize at the
         # cluster entrypoint)
@@ -80,7 +84,7 @@ class StreamExecutionEnvironment:
     def execute(self, job_name: str = "job",
                 device: "str | torch.device" = "cuda",
                 mesh_plan=None, transforms=None,
-                savepoint_request=None) -> "JobResult":
+                savepoint_request=None, cancel=None) -> "JobResult":
         """Lower and run to completion on ``device`` ("cuda" by default;
         raises when there is no CUDA device — pass "cpu" explicitly).
         ``mesh_plan`` (``parallel.mesh.make_mesh_plan``, or across
@@ -90,7 +94,8 @@ class StreamExecutionEnvironment:
         restricts the run to a subset of the registered graph (the
         Table API runs one query's lineage, not every pipeline built on
         this environment). ``savepoint_request``: a ``threading.Event``
-        the run polls at batch boundaries (``Driver.run``)."""
+        the run polls at batch boundaries (``Driver.run``); ``cancel``, one
+        whose setting ends the run there with ``JobCancelledError``."""
         from flink_tpu_torch.graph.compiler import compile_job
         from flink_tpu_torch.runtime.driver import Driver
 
@@ -102,11 +107,13 @@ class StreamExecutionEnvironment:
         driver = Driver(plan, self.config, device=device, mesh_plan=mesh_plan)
         # the last run's driver (its checkpoint coordinator, registry)
         self._driver = driver
-        return driver.run(job_name, savepoint_request=savepoint_request)
+        return driver.run(job_name, savepoint_request=savepoint_request,
+                          cancel=cancel)
 
     def build_mesh_plan(self, device: "str | torch.device" = "cuda"):
         """The mesh of ``cluster.mesh-devices`` over the devices of
-        ``device``'s kind that this process sees (``visible_devices``):
+        ``device``'s kind that this process sees (``visible_devices``, or
+        ``mesh_devices`` where set):
         None for local execution (the option empty, or one device); with
         ``cluster.num-processes`` > 1 this process's ``HybridMeshPlan``."""
         from flink_tpu_torch.parallel.mesh import (
@@ -115,7 +122,8 @@ class StreamExecutionEnvironment:
         spec = str(self.config.get(ClusterOptions.MESH_DEVICES)).strip()
         if not spec:
             return None
-        devices = visible_devices(device)
+        devices = (list(self.mesh_devices) if self.mesh_devices is not None
+                   else visible_devices(device))
         if spec != "all":
             n = int(spec)
             if n < 1:

@@ -266,6 +266,42 @@ class ClusterOptions:
         "cluster.dcn-buffer-bytes", 0,
         "SO_SNDBUF/SO_RCVBUF of every exchange socket, in bytes; 0 = the "
         "OS default.")
+    HEARTBEAT_INTERVAL = duration_option(
+        "heartbeat.interval", 10_000,
+        "Runner→coordinator heartbeat period (ref: heartbeat.interval=10s).")
+    HEARTBEAT_TIMEOUT = duration_option(
+        "heartbeat.timeout", 50_000,
+        "Declare a runner dead after this silence (ref: heartbeat.timeout=50s).")
+    # -- deploy-injected identity keys (the TaskDeploymentDescriptor
+    # analogue): the coordinator/runner stamp these into the attempt's
+    # config at deploy; user configs normally never set them.
+    ATTEMPT = ConfigOption(
+        "cluster.attempt", 0,
+        "This attempt's fencing epoch, minted by the coordinator on "
+        "every (re)deploy. Qualifies in-progress artifacts — "
+        "chk-<id>.e<epoch> checkpoints, part-file and log-segment "
+        "names — so a deposed attempt can never clobber a successor.")
+    COORDINATOR = ConfigOption(
+        "cluster.coordinator", "",
+        "HOST:PORT of the job coordinator's RPC server, injected by the "
+        "runner at deploy (split enumeration, savepoint reporting).")
+    JOB_ID = ConfigOption(
+        "cluster.job-id", "",
+        "Submitted job id, injected by the runner at deploy.")
+    RUNNER_ID = ConfigOption(
+        "cluster.runner-id", "",
+        "This runner's id, injected at deploy (coordinator-side split "
+        "enumeration keys on it).")
+    DCN_HOST = ConfigOption(
+        "cluster.dcn-host", "",
+        "Advertised host of this process's DCN exchange listener "
+        "(coordinator-brokered rendezvous; defaults to the RPC-visible "
+        "address when empty).")
+    DCN_RENDEZVOUS = ConfigOption(
+        "cluster.dcn-rendezvous", "",
+        "'coordinator' lets a multi-process job discover DCN peers "
+        "through the coordinator instead of a static cluster.dcn-peers "
+        "list; stamped into the attempt config at deploy.")
     RESCALE_FROM = ConfigOption(
         "cluster.rescale-from", "",
         "Deploy-injected by the coordinator after a process-level "
@@ -599,6 +635,73 @@ class LogOptions:
 
 
 
+class SourceOptions:
+    ENUMERATION = ConfigOption(
+        "source.enumeration", "local",
+        "Split ownership: 'local' = this process reads every split "
+        "(single-runner execution); 'coordinator' = ask the job "
+        "coordinator's split enumerator for this runner's share, so "
+        "multiple runners of one job divide the source without overlap "
+        "(ref: FLIP-27 SplitEnumerator on the JobMaster / "
+        "SourceCoordinator). Requires cluster.coordinator/job-id/"
+        "runner-id, which the runner injects on deploy.")
+
+
+class RescaleOptions:
+    """Reactive elastic rescaling (runtime/coordinator.py, ref: the
+    AdaptiveScheduler / reactive mode, FLIP-159/160): the coordinator
+    watches the heartbeat-carried backpressure/drain gauges and, when
+    pressure stays outside the configured band for a sustained window,
+    arms the SAME stop-with-savepoint → repartition → redeploy
+    handshake `rescale JOB --devices N` drives manually. Key-group
+    discipline (state.num-key-shards at a fixed max-parallelism) makes
+    the N→M state move legal; cooldown + the two-sided band give
+    hysteresis, so the controller cannot flap by construction."""
+
+    MODE = ConfigOption(
+        "rescale.mode", "off",
+        "'off' (default) = rescale only via the manual RPC/CLI; "
+        "'reactive' = the coordinator's policy loop arms rescales "
+        "automatically from observed pressure. Reactive mode requires "
+        "checkpointing (the handshake is savepoint-based) — the plan "
+        "analyzer rejects it otherwise (RESCALE_INVALID).")
+    TARGET_PRESSURE_HIGH = ConfigOption(
+        "rescale.target-pressure-high", 70,
+        "Upper bound of the target pressure band, in percent of the "
+        "job's max(backpressure_pct, drain_busy_pct) heartbeat gauge. "
+        "Pressure sustained ABOVE it arms a scale-OUT to the next "
+        "legal width (divisibility-preserving doubling, clamped by "
+        "rescale.max-devices).")
+    TARGET_PRESSURE_LOW = ConfigOption(
+        "rescale.target-pressure-low", 20,
+        "Lower bound of the band: pressure sustained BELOW it arms a "
+        "scale-IN to the previous legal width (halving, floored at "
+        "rescale.min-devices). The gap between low and high is the "
+        "hysteresis dead zone — a signal oscillating inside it never "
+        "triggers.")
+    SUSTAINED_WINDOW = duration_option(
+        "rescale.sustained-window", 30_000,
+        "How long pressure must stay continuously outside the band "
+        "before the controller arms a rescale. One in-band sample "
+        "resets the clock, so transient spikes (a slow checkpoint, a "
+        "GC pause) never rescale the job.")
+    COOLDOWN = duration_option(
+        "rescale.cooldown", 120_000,
+        "Minimum time between controller-armed rescales of one job, "
+        "measured from the last rescale COMPLETING (redeploy at the "
+        "new width). Keep it above the checkpoint interval — a "
+        "cooldown shorter than execution.checkpointing.interval "
+        "re-arms before the first post-rescale checkpoint publishes "
+        "(RESCALE_INVALID warns).")
+    MIN_DEVICES = ConfigOption(
+        "rescale.min-devices", 1,
+        "Floor the reactive controller never scales below.")
+    MAX_DEVICES = ConfigOption(
+        "rescale.max-devices", 0,
+        "Ceiling the reactive controller never scales above. 0 = the "
+        "job's current fleet capacity (largest registered runner).")
+
+
 class StorageOptions:
     """The durable-storage degradation grammar (fs.py): how
     the FileSystem seam behaves when the disk itself fails under a
@@ -632,19 +735,8 @@ FAIL_ON_VALUES = ("error", "warn", "off")
 # keys of modules still to port, by prefix (or whole key), with the
 # ROADMAP.md item that brings each
 LATER_KEYS = (
-    ("cluster.dcn-host", "queue 1 item 10"),
-    ("cluster.dcn-rendezvous", "queue 1 item 10"),
-    ("session.", "queue 1 item 10"),
-    ("heartbeat.", "queue 1 item 10"),
-    ("high-availability.", "queue 1 item 10"),
-    ("rescale.", "queue 1 item 10"),
-    ("source.enumeration", "queue 1 item 10"),
-    # the attempt's fencing epoch; until it comes the driver announces
-    # epoch 0 to the sinks, the reference's default
-    ("cluster.attempt", "queue 1 item 10"),
-    ("cluster.coordinator", "queue 1 item 10"),
-    ("cluster.job-id", "queue 1 item 10"),
-    ("cluster.runner-id", "queue 1 item 10"),
+    ("session.", "queue 1 item 10.2"),
+    ("high-availability.", "queue 1 item 10.2"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
     ("pipeline.profile-", "queue 1 item 11"),
 )

@@ -56,9 +56,13 @@ The port's points (``KNOWN_FAULT_POINTS``)::
     log.group.commit / .rebalance / .fence                 log/bus.py
     log.prefetch.read                                      log/connectors.py
     log.cleaner.pass                                       log/cleaner.py
+    rpc.client.send / rpc.client.recv / rpc.server.dispatch  runtime/rpc.py
+    runner.heartbeat / runner.reattach                     runtime/runner.py
+    coordinator.deploy                                     runtime/coordinator.py
+    rescale.arm / rescale.savepoint / rescale.redeploy     runtime/coordinator.py
 
-The reference's other points (RPC, sessions, HA, rescale) come with the
-modules that fire them (ROADMAP.md queue 1 item 10).
+The reference's other points (sessions, HA) come with the modules that
+fire them (ROADMAP.md queue 1 item 10.2).
 """
 from __future__ import annotations
 
@@ -116,6 +120,15 @@ KNOWN_FAULT_POINTS = frozenset((
     "log.group.fence",
     "log.prefetch.read",
     "log.cleaner.pass",
+    "rpc.client.send",
+    "rpc.client.recv",
+    "rpc.server.dispatch",
+    "runner.heartbeat",
+    "runner.reattach",
+    "coordinator.deploy",
+    "rescale.arm",
+    "rescale.savepoint",
+    "rescale.redeploy",
 ))
 
 # process-global fault/recovery metrics — chaos tests assert every

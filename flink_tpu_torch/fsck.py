@@ -28,10 +28,10 @@ file a marker or manifest names.
 
 A finding is a dict: ``rule``, ``severity`` (error | warn), ``path``,
 ``message``, ``repairable`` and ``repaired``. ``main(args)`` is the
-command's half, with the JAX package's exit codes (0 clean, 1
-findings, 2 an unrecognised path); it takes an ``argparse.Namespace``
-with ``path``, ``repair`` and ``json`` until the command line comes
-(ROADMAP.md queue 1 item 10).
+``fsck`` command of the command line (``cli.py``), with the JAX
+package's exit codes (0 clean, 1 findings, 2 an unrecognised path); it
+takes the parsed ``argparse.Namespace`` (``path``, ``repair``,
+``json``).
 """
 from __future__ import annotations
 

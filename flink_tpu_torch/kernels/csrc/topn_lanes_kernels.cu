@@ -13,6 +13,12 @@
 //                         _ring_append_topn_core + :456
 //                         _topn_select_append, for a ranking field other
 //                         than a count-only aggregate's count
+// TC topn_candidates_lanes    replaces flink_tpu/ops/window.py:1585-1610
+//                         topn_shard's lax.top_k(v.T, k) over a block's
+//                         -inf-masked ranking grid (any result field)
+// TD topn_select_lanes_given  replaces :1611-1617, topn_shard's
+//                         lax.top_k(all_top, k)[0][:, k - 1] and
+//                         _topn_select_append with a row offset
 //
 // Between the two, in torch: the aggregate's finalize on TA's grid and
 // window_counts' (K2) counts gives the ranking grid v (rows, W) and the
@@ -477,6 +483,60 @@ const SelKernels kLanesKernels{lanes_max_kernel,           lanes_radix_kernel,
                                lanes_radix_all_kernel,     lanes_select_kernel<true>,
                                lanes_select_kernel<false>, g_lanes_capacity};
 
+// ---- TC / TD: the key-sharded top-n over lanes --------------------------------
+// The mesh's top-n by a result field (the reference's topn_shard, lane
+// form): each block's top k a window of its ranking grid (TC, the
+// count form's topn_candidates bodies on v: tiles over the whole card,
+// one launch up to top-16, the radix select above), written into the
+// block's columns of the gathered (W, blocks * k) buffer; then each
+// block's selection against the window's k-th of that buffer (TD,
+// select_tile's given mode, one launch, W <= kSelWinTable), its rows
+// appended with the block's first global row as the offset. Both rank
+// by total-order keys: the candidates stay f32 in the buffer, ranked by
+// their keys across blocks (kth_windows_key), so +NaN, -0 / +0 and -inf
+// keep lax.top_k's order; the selection compares v >= k-th in IEEE.
+// Bound: bytes — TC reads the (rows x W) counts and ranking grid once
+// and writes (W x k) f32; TD reads the counts, the grid and the gathered
+// buffer once and writes the appended rows (3 + F words each).
+__global__ void __launch_bounds__(kThreads) lanes_cand_max_kernel(const SelParams p) {
+  sel_max<false, kCandItems>(p);
+  cand_max_tail(p);
+}
+
+template <int KS>
+__global__ void __launch_bounds__(kThreads) lanes_cand_merge_kernel(const SelParams p) {
+  cand_merge<KS, false>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) lanes_cand_radix_all_kernel(const SelParams p) {
+  cand_radix_all<false>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) lanes_cand_collect_kernel(const SelParams p) {
+  cand_collect_all<false>(p);
+}
+
+__global__ void __launch_bounds__(kThreads) lanes_cand_sort_kernel(const SelParams p) {
+  cand_sort_all(p);
+}
+
+__global__ void __launch_bounds__(kThreads) lanes_given_kernel(const SelParams p) {
+  select_tile<false, true, kSelItems, true>(p);
+}
+
+int g_lanes_cand_capacity[64];
+const CandKernels kLanesCandKernels{lanes_cand_max_kernel,
+                                    lanes_cand_merge_kernel<4>,
+                                    lanes_cand_merge_kernel<kCandSmallK>,
+                                    lanes_radix_kernel,
+                                    lanes_cand_radix_all_kernel,
+                                    lanes_cand_collect_kernel,
+                                    lanes_cand_sort_kernel,
+                                    g_lanes_cand_capacity};
+// the given mode takes the table form only (W <= kSelWinTable)
+const SelKernels kLanesGivenKernels{nullptr, nullptr, nullptr, lanes_given_kernel, nullptr,
+                                    g_lanes_capacity};
+
 }  // namespace
 
 extern "C" {
@@ -579,6 +639,68 @@ int tl_topn_select_lanes_packed(const SelectArgs* a, void* stream) {
   p.src = host_fire(0, 0, a->anchor);
   p.ring = (int32_t*)a->ring;
   return launch_select(p, (int64_t*)a->work, a->work_windows, a->work_tiles, kLanesKernels,
+                       (cudaStream_t)stream);
+}
+
+// topn_candidates_lanes' argument block (topn_lanes_kernels.py
+// _TOPN_CANDIDATES_LANES), every field 64 bits: the grid, k, the (W, k)
+// output with its row stride, the scratch list (cand_list_words uint32
+// words; 0 at k = 1) and the clean workspace
+struct CandArgs {
+  int64_t wcounts, v, rows, W, used, w_valid, k, out, out_ld, list, list_words;
+  int64_t work, work_windows, work_tiles;
+};
+
+int tl_topn_candidates_lanes_packed(const CandArgs* a, void* stream) {
+  if (a->W >= (1ll << 31) || a->k < 1 || a->k >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  SelParams p{};
+  p.wcounts = (const int32_t*)a->wcounts;
+  p.v = (const float*)a->v;
+  p.rows = a->rows;
+  p.W = (int32_t)a->W;
+  p.k = (int32_t)a->k;
+  p.used = (const uint8_t*)a->used;
+  p.w_valid = (const uint8_t*)a->w_valid;
+  p.cand_out = (float*)a->out;
+  p.cand_ld = a->out_ld;
+  p.cand_list = (uint32_t*)a->list;
+  return launch_candidates(p, a->list_words, (int64_t*)a->work, a->work_windows, a->work_tiles,
+                           kLanesCandKernels, (cudaStream_t)stream);
+}
+
+// topn_select_lanes_given's argument block (topn_lanes_kernels.py
+// _TOPN_SELECT_LANES_GIVEN): topn_select_lanes' fields, then the gathered
+// (W, M) candidates and the block's row offset
+struct GivenArgs {
+  int64_t wcounts, v, cols, F, rows, W, used, end_panes, w_valid, anchor, k, sel_cap;
+  int64_t ring, ring_rows, ring_cols, work, work_windows, work_tiles;
+  int64_t given, given_m, row_offset;
+};
+
+int tl_topn_select_lanes_given_packed(const GivenArgs* a, void* stream) {
+  if (a->W >= (1ll << 31) || a->k < 1 || a->k > a->given_m || a->given_m >= (1ll << 31) ||
+      a->ring_rows < 3 || a->row_offset < 0 || a->row_offset >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  SelParams p{};
+  p.wcounts = (const int32_t*)a->wcounts;
+  p.v = (const float*)a->v;
+  p.cols = (const int32_t*)a->cols;
+  p.F = (int32_t)a->F;
+  p.rows = a->rows;
+  p.W = (int32_t)a->W;
+  p.k = (int32_t)a->k;
+  p.sel_cap = (int32_t)a->sel_cap;
+  p.row_cap = (int32_t)(a->ring_rows - 2);
+  p.ring_cols = (int32_t)a->ring_cols;
+  p.row_offset = (int32_t)a->row_offset;
+  p.used = (const uint8_t*)a->used;
+  p.end_panes = (const int64_t*)a->end_panes;
+  p.w_valid = (const uint8_t*)a->w_valid;
+  p.src = host_fire(0, 0, a->anchor);
+  p.given = (const float*)a->given;
+  p.given_m = (int32_t)a->given_m;
+  p.ring = (int32_t*)a->ring;
+  return launch_select(p, (int64_t*)a->work, a->work_windows, a->work_tiles, kLanesGivenKernels,
                        (cudaStream_t)stream);
 }
 

@@ -220,6 +220,84 @@ __device__ __forceinline__ void kth_windows(const float* __restrict__ given, int
   }
 }
 
+// The lane form's gathered k-th (topn_select_lanes_given): the same rule
+// on the candidates' unsigned total-order keys, so -NaN < -inf < -0 < +0
+// < +inf < +NaN rank as lax.top_k ranks them (the count form's f32
+// comparisons would tie -0 with +0 and lose a NaN). Every gathered
+// candidate is a value (its padding -inf), so k <= M values always hold
+// the k-th: no early end.
+__device__ __forceinline__ uint32_t ukey(float x) {
+  return (uint32_t)total_key(x) ^ 0x80000000u;
+}
+
+__device__ __forceinline__ uint32_t kth_regs_key(const float (&v)[kKthRegs], int32_t M,
+                                                 int32_t k) {
+  bool top = true;
+  uint32_t ceiling = 0;
+  for (int32_t need = k;;) {
+    uint32_t m = 0;
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < kKthRegs; ++i) {
+      const uint32_t x = ukey(v[i]);
+      if (i < M && (top || x < ceiling) && (!any || x > m)) {
+        m = x;
+        any = true;
+      }
+    }
+    if (!any || need == 1) return m;
+    int32_t c = 0;
+#pragma unroll
+    for (int i = 0; i < kKthRegs; ++i) c += i < M && ukey(v[i]) == m;
+    need -= c;
+    if (need <= 0) return m;
+    ceiling = m;
+    top = false;
+  }
+}
+
+__device__ __forceinline__ uint32_t warp_kth_key(const float* __restrict__ row, int32_t M,
+                                                 int32_t k) {
+  const int lane = threadIdx.x & 31;
+  bool top = true;
+  uint32_t ceiling = 0;
+  for (int32_t need = k;;) {
+    // the maximum key below the ceiling (a lane that finds none adds 0,
+    // which no found key is below)
+    uint32_t m = 0;
+    bool any = false;
+    for (int32_t i = lane; i < M; i += 32) {
+      const uint32_t x = ukey(row[i]);
+      if ((top || x < ceiling) && (!any || x > m)) {
+        m = x;
+        any = true;
+      }
+    }
+    if (!__any_sync(0xffffffffu, any)) return 0;
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (need == 1) return m;
+    int32_t c = 0;
+    for (int32_t i = lane; i < M; i += 32) c += ukey(row[i]) == m;
+    need -= __reduce_add_sync(0xffffffffu, c);
+    if (need <= 0) return m;
+    ceiling = m;
+    top = false;
+  }
+}
+
+__device__ __forceinline__ void kth_windows_key(const float* __restrict__ given, int32_t W,
+                                                int32_t M, int32_t k,
+                                                const float (&v)[kKthRegs], float* out) {
+  if (M <= kKthRegs) {
+    if ((int32_t)threadIdx.x < W) out[threadIdx.x] = key_value(kth_regs_key(v, M, k));
+    return;
+  }
+  for (int32_t x = threadIdx.x >> 5; x < W; x += kWarps) {  // the whole warp
+    const uint32_t t = warp_kth_key(given + (int64_t)x * M, M, k);
+    if ((threadIdx.x & 31) == 0) out[x] = key_value(t);
+  }
+}
+
 // a threshold block's cells: thread t takes cells a + t + kThreads * j,
 // so each load of the block reads consecutive words; (r, w) of each
 // step follow without a division
@@ -537,7 +615,10 @@ __device__ __forceinline__ void sel_radix(const SelParams& p, int pass) {
 // sides); the given mode's thresholds, each window's k-th of its gathered
 // candidates, are worked out into that table (kth_windows), and it takes
 // the table form only (launch_select refuses it past kSelWinTable).
-template <bool kCount, bool kTable, int kItems>
+// kGivenLanes: the lane form's given mode (topn_select_lanes_given), its
+// k-th by total-order keys (kth_windows_key); the lane form's other
+// kernels leave it off, so they carry no gathered loads.
+template <bool kCount, bool kTable, int kItems, bool kGivenLanes = false>
 __device__ __forceinline__ void select_tile(const SelParams& p) {
   __shared__ float s_thr[kSelWinTable];
   __shared__ int64_t s_end[kSelWinTable];
@@ -552,9 +633,9 @@ __device__ __forceinline__ void select_tile(const SelParams& p) {
   const int64_t r0 = first / W;
   const int32_t w0 = (int32_t)(first - r0 * W);
   const bool skip = p.src.skip();
-  // the given mode (count form, table only): window threadIdx.x's
-  // gathered candidates, in flight with the grid's loads
-  const bool given = kCount && kTable && p.given != nullptr;
+  // the given mode (table only): window threadIdx.x's gathered
+  // candidates, in flight with the grid's loads
+  const bool given = (kCount || kGivenLanes) && kTable && p.given != nullptr;
   float kv[kKthRegs];
   kth_load(p.given + (int64_t)threadIdx.x * p.given_m,
            given && (int32_t)threadIdx.x < W && p.given_m <= kKthRegs ? p.given_m : 0, kv);
@@ -604,7 +685,12 @@ __device__ __forceinline__ void select_tile(const SelParams& p) {
       if (!given) s_thr[threadIdx.x] = thr_x;
     }
     // the given mode: each window's k-th of its gathered candidates
-    if (given) kth_windows(p.given, W, p.given_m, p.k, kv, s_thr);
+    if (given) {
+      if (kCount)
+        kth_windows(p.given, W, p.given_m, p.k, kv, s_thr);
+      else
+        kth_windows_key(p.given, W, p.given_m, p.k, kv, s_thr);
+    }
     if (threadIdx.x == 0) {
       s_epoch = epoch;
       s_head = head;
@@ -903,7 +989,7 @@ __device__ __forceinline__ void topk_warp_merge(uint32_t (&v)[KS], int k) {
 // 1 < k <= KS <= kCandSmallK, W <= kThreads: a block's top k a window
 // into part (blocks, W, k), then the last block's merge into the output.
 // A list's empty places hold 0, below every cell's key (kNonCand and up).
-template <int KS>
+template <int KS, bool kCount = true>
 __device__ __forceinline__ void cand_merge(const SelParams& p) {
   __shared__ uint32_t s_list[KS * kThreads];
   __shared__ int s_flag;
@@ -912,7 +998,7 @@ __device__ __forceinline__ void cand_merge(const SelParams& p) {
   uint32_t* part = p.cand_list;
   uint32_t key[kCandItems];
   int32_t win[kCandItems];
-  span_keys<true, kCandItems>(p, key, win);
+  span_keys<kCount, kCandItems>(p, key, win);
   uint32_t v[KS];
 #pragma unroll
   for (int i = 0; i < KS; ++i) v[i] = 0;
@@ -983,16 +1069,20 @@ __device__ __forceinline__ void cand_max_tail(const SelParams& p) {
 }
 
 // a block's cells above their window's k-th key (t: each window's, in
-// shared memory or the workspace) appended to the windows' lists
+// shared memory or the workspace) appended to the windows' lists. A
+// non-candidate ranks as -inf (kNonCand): above t only where the k-th is
+// a lane form's -NaN candidate, and then fewer than k cells are.
 __device__ __forceinline__ void cand_collect(const SelParams& p, const uint32_t (&key)[kThrItems],
                                              const int32_t (&win)[kThrItems],
                                              const bool (&cand)[kThrItems], const uint32_t* t) {
 #pragma unroll
-  for (int j = 0; j < kThrItems; ++j)
-    if (cand[j] && key[j] > t[win[j]]) {
+  for (int j = 0; j < kThrItems; ++j) {
+    const uint32_t x = cand[j] ? key[j] : kNonCand;
+    if (win[j] >= 0 && x > t[win[j]]) {
       const uint32_t slot = atomicAdd(p.noncand + win[j], 1u);
-      p.cand_list[(int64_t)win[j] * p.k + slot] = key[j];
+      p.cand_list[(int64_t)win[j] * p.k + slot] = x;
     }
+  }
   __threadfence();  // before the barrier's last arrival releases the sort
 }
 
@@ -1028,6 +1118,7 @@ __device__ void cand_sort_window(const SelParams& p, int32_t w, uint32_t* s_keys
 // k > 1, the threshold blocks resident at once and W <= kRadixWindows:
 // sel_radix_all's passes, the collect, a grid barrier, then each block
 // sorts windows blockIdx.x, + gridDim.x, ...
+template <bool kCount = true>
 __device__ __forceinline__ void cand_radix_all(const SelParams& p) {
   __shared__ uint32_t s_hist[kRadixWindows * 256];
   __shared__ uint32_t s_pre[kRadixWindows];
@@ -1037,7 +1128,7 @@ __device__ __forceinline__ void cand_radix_all(const SelParams& p) {
   uint32_t key[kThrItems];
   int32_t win[kThrItems];
   bool cand[kThrItems];
-  walk_keys<true>(p, 0, W, key, win, cand);
+  walk_keys<kCount>(p, 0, W, key, win, cand);
   for (int32_t w = threadIdx.x; w < W; w += kThreads) s_pre[w] = 0;
   if (threadIdx.x == 0) s_epoch = __ldcg(p.epoch);
   for (int pass = 0; pass < 4; ++pass) {
@@ -1055,11 +1146,12 @@ __device__ __forceinline__ void cand_radix_all(const SelParams& p) {
 // k > 1 otherwise, after the four sel_radix launches: the collect over
 // the threshold blocks' cells (each window's T from the workspace, written
 // by the last launch)
+template <bool kCount = true>
 __device__ __forceinline__ void cand_collect_all(const SelParams& p) {
   uint32_t key[kThrItems];
   int32_t win[kThrItems];
   bool cand[kThrItems];
-  walk_keys<true>(p, 0, p.W, key, win, cand);
+  walk_keys<kCount>(p, 0, p.W, key, win, cand);
   cand_collect(p, key, win, cand, p.prefix);
 }
 

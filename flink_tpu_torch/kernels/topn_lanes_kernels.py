@@ -11,6 +11,13 @@ the same signature.
   reference's ``_ring_append_topn_core`` + ``_topn_select_append`` for
   any aggregate.
 
+- ``topn_candidates_lanes`` (TC) and ``topn_select_lanes_given`` (TD):
+  the same over a device mesh (the reference's ``topn_shard`` for any
+  result field): each block's top-k candidates a window, gathered
+  across the blocks into one (W, blocks * k) buffer, then each block's
+  selection against the k-th of its window's gathered row, appended to
+  its own emit ring with its first global row as the offset.
+
 The aggregate's finalize runs between the two, in torch, on the grid.
 Count-only top-n is ``window_kernels.topn_select_append``, whose kernels
 share TB's bodies (``csrc/topn_select.cuh``).
@@ -53,6 +60,12 @@ def _lib() -> ctypes.CDLL:
 
 _TOPN_SELECT_LANES = wk.LeanEntry(_lib, "tl_topn_select_lanes",
                                   "topn_select_lanes", 18, "tl_error_string")
+_TOPN_CANDIDATES_LANES = wk.LeanEntry(
+    _lib, "tl_topn_candidates_lanes", "topn_candidates_lanes", 14,
+    "tl_error_string")
+_TOPN_SELECT_LANES_GIVEN = wk.LeanEntry(
+    _lib, "tl_topn_select_lanes_given", "topn_select_lanes_given", 21,
+    "tl_error_string")
 
 
 def _check_fire_args(end_panes: torch.Tensor, w_valid: torch.Tensor) -> None:
@@ -331,4 +344,159 @@ def topn_select_lanes_plain(wcounts, v, cols, used_mask, end_panes, w_valid,
                       wcounts[r, w]], dim=1), cols[r, w]], dim=1)
     emit_ring[0, 0] = total + m
     emit_ring[0, 1] += total_sel - m
+    return emit_ring
+
+
+# -- TC / TD: the key-sharded top-n over lanes -----------------------------------
+
+def _masked_keys(wcounts: torch.Tensor, v: torch.Tensor,
+                 used_mask: torch.Tensor, w_valid: torch.Tensor) -> torch.Tensor:
+    """(rows, W) total-order keys of the ranking grid, a non-candidate
+    keyed as -inf (the reference's ``where(nz, v, -inf)``)."""
+    cand = (wcounts > 0) & used_mask[:, None] & w_valid[None, :]
+    return total_order_key(torch.where(
+        cand, v, torch.full((), -math.inf, device=v.device)))
+
+
+def topn_candidates_lanes(wcounts: torch.Tensor, v: torch.Tensor,
+                          used_mask: torch.Tensor, w_valid: torch.Tensor,
+                          k: int, out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """(W, k) f32: each window's top ``k`` values of the ranking grid ``v``
+    among its candidates (``wcounts > 0`` on a ``used_mask`` row of a
+    valid window), descending in IEEE total order, each as often as it
+    occurs; non-candidates rank as -inf, so -inf pads a window past its
+    candidates (a -NaN candidate ranks below that padding, as
+    ``lax.top_k`` ranks it). ``out``: as ``window_kernels.topn_candidates``'
+    (a block's columns of the gathered buffer)."""
+    index = wk.fast_index((wcounts, torch.int32, 2), (v, torch.float32, 2),
+                          (used_mask, torch.bool, 1), (w_valid, torch.bool, 1))
+    if index is None:
+        wk.check_tensor(wcounts, "wcounts", torch.int32, 2)
+        wk.check_tensor(v, "v", torch.float32, 2)
+        wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+        wk.check_tensor(w_valid, "w_valid", torch.bool, 1)
+    rows, W = wcounts.shape
+    if v.shape != wcounts.shape:
+        raise ValueError("v does not match wcounts")
+    if used_mask.numel() != rows or w_valid.numel() != W:
+        raise ValueError("used_mask/w_valid do not match wcounts")
+    if not 1 <= k <= rows:
+        raise ValueError(f"topn_candidates_lanes needs 1 <= k <= rows, got {k}")
+    if out is not None and (out.dtype is not torch.float32
+                            or tuple(out.shape) != (W, k)
+                            or out.stride(1) != 1 or out.stride(0) < k
+                            or out.device != wcounts.device):
+        raise ValueError(
+            f"out must be a (W, k) = ({W}, {k}) float32 view with unit "
+            f"column stride on {wcounts.device}, got {tuple(out.shape)} "
+            f"{out.dtype} strides {out.stride()} on {out.device}")
+    if index is None:
+        if not wk.on_cuda("topn_candidates_lanes", wcounts, v, used_mask,
+                          w_valid):
+            cand = topn_candidates_lanes_plain(wcounts, v, used_mask,
+                                               w_valid, k)
+            return cand if out is None else out.copy_(cand)
+        index = wcounts.get_device()
+    cand = (torch.empty((W, k), dtype=torch.float32, device=wcounts.device)
+            if out is None else out)
+    _, stream = wk.launch_context(index)
+    work = wk.select_workspace("topn_candidates_lanes", index, stream, rows, W)
+    words = wk.candidates_plan(rows, W, k).list_words if k > 1 else 0
+    _held, lst = wk.scratch(wcounts.device, words) if words else (None, 0)
+    try:
+        _TOPN_CANDIDATES_LANES(stream, wcounts.data_ptr(), v.data_ptr(), rows,
+                               W, used_mask.data_ptr(), w_valid.data_ptr(),
+                               int(k), cand.data_ptr(), cand.stride(0), lst,
+                               words, *work)
+    except RuntimeError:
+        wk.drop_workspace("topn_candidates_lanes", index, stream)
+        raise
+    return cand
+
+
+def topn_candidates_lanes_plain(wcounts, v, used_mask, w_valid, k):
+    key = _masked_keys(wcounts, v, used_mask, w_valid)
+    return from_total_order_key(torch.topk(key.T, k, dim=1).values)
+
+
+def topn_select_lanes_given(wcounts: torch.Tensor, v: torch.Tensor,
+                            cols: torch.Tensor, used_mask: torch.Tensor,
+                            end_panes: torch.Tensor, w_valid: torch.Tensor,
+                            anchor: int, cands: torch.Tensor, k: int,
+                            row_offset: int, sel_cap: int,
+                            emit_ring: torch.Tensor) -> torch.Tensor:
+    """``topn_select_lanes`` against the gathered ``(W, M)`` candidates:
+    window w's threshold is the ``k``-th largest of its row in IEEE total
+    order, ties counted, worked out in the kernel's own launch; a
+    candidate with ``v >= threshold`` (IEEE) is appended in row-major
+    (row, window) order as ``[row + row_offset, end_pane - anchor, count,
+    cols[row, w, :]...]``, the head moved as ``topn_select_lanes`` moves
+    it. At most SEL_WIN_TABLE windows. In place; returns ``emit_ring``."""
+    index = wk.fast_index((wcounts, torch.int32, 2), (v, torch.float32, 2),
+                          (cols, torch.int32, 3), (used_mask, torch.bool, 1),
+                          (end_panes, torch.int64, 1), (w_valid, torch.bool, 1),
+                          (cands, torch.float32, 2),
+                          (emit_ring, torch.int32, 2))
+    if index is None:
+        wk.check_tensor(wcounts, "wcounts", torch.int32, 2)
+        wk.check_tensor(v, "v", torch.float32, 2)
+        wk.check_tensor(cols, "cols", torch.int32, 3)
+        wk.check_tensor(used_mask, "used_mask", torch.bool, 1)
+        _check_fire_args(end_panes, w_valid)
+        wk.check_tensor(cands, "cands", torch.float32, 2)
+        wk.check_tensor(emit_ring, "emit_ring", torch.int32, 2)
+    elif w_valid.numel() != end_panes.numel():
+        raise ValueError("w_valid and end_panes differ in length")
+    rows, W = wcounts.shape
+    F = cols.shape[2]
+    if v.shape != wcounts.shape or cols.shape[:2] != wcounts.shape:
+        raise ValueError("v/cols do not match wcounts")
+    if used_mask.numel() != rows or end_panes.numel() != W \
+            or cands.shape[0] != W:
+        raise ValueError("used_mask/end_panes/cands do not match wcounts")
+    if W > wk.SEL_WIN_TABLE:
+        raise ValueError(f"topn_select_lanes_given takes at most "
+                         f"{wk.SEL_WIN_TABLE} windows (one selection tile's "
+                         f"table), got {W}")
+    if not 1 <= k <= cands.shape[1]:
+        raise ValueError(f"topn_select_lanes_given needs 1 <= k <= "
+                         f"{cands.shape[1]}, got {k}")
+    if emit_ring.shape[1] != 3 + F or emit_ring.shape[0] < 3:
+        raise ValueError(f"emit_ring must be (row_cap + 2, {3 + F}), got "
+                         f"{tuple(emit_ring.shape)}")
+    if sel_cap < 1 or row_offset < 0:
+        raise ValueError("sel_cap must be >= 1 and row_offset >= 0")
+    if index is None:
+        if not wk.on_cuda("topn_select_lanes_given", wcounts, v, cols,
+                          used_mask, end_panes, w_valid, cands, emit_ring):
+            return topn_select_lanes_given_plain(
+                wcounts, v, cols, used_mask, end_panes, w_valid, anchor,
+                cands, k, row_offset, sel_cap, emit_ring)
+        index = wcounts.get_device()
+    _, stream = wk.launch_context(index)
+    work = wk.select_workspace("topn_select_lanes_given", index, stream, rows,
+                               W)
+    try:
+        _TOPN_SELECT_LANES_GIVEN(
+            stream, wcounts.data_ptr(), v.data_ptr(), cols.data_ptr(), F,
+            rows, W, used_mask.data_ptr(), end_panes.data_ptr(),
+            w_valid.data_ptr(), int(anchor), int(k), int(sel_cap),
+            emit_ring.data_ptr(), emit_ring.shape[0], emit_ring.shape[1],
+            *work, cands.data_ptr(), cands.shape[1], int(row_offset))
+    except RuntimeError:
+        wk.drop_workspace("topn_select_lanes_given", index, stream)
+        raise
+    return emit_ring
+
+
+def topn_select_lanes_given_plain(wcounts, v, cols, used_mask, end_panes,
+                                  w_valid, anchor, cands, k, row_offset,
+                                  sel_cap, emit_ring):
+    thresh = from_total_order_key(
+        torch.topk(total_order_key(cands), k, dim=1).values[:, k - 1]
+        .contiguous())                                             # (W,)
+    cand = (wcounts > 0) & used_mask[:, None] & w_valid[None, :]
+    wk._ring_append(wcounts, cand & (v >= thresh[None, :]), end_panes,
+                    anchor, row_offset, sel_cap, emit_ring, cols)
     return emit_ring

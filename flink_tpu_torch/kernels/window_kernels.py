@@ -57,6 +57,8 @@ LAUNCHES: Dict[str, int] = {
     "topn_candidates": 0,
     "topn_global_threshold": 0,
     "topn_select_given": 0,
+    "topn_candidates_lanes": 0,
+    "topn_select_lanes_given": 0,
     "bucket_records": 0,
     "hash_keys": 0,
 }
@@ -895,9 +897,11 @@ def topn_select_given_plain(wcounts, used_mask, end_panes, w_valid, anchor,
 
 
 def _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,
-                 emit_ring):
+                 emit_ring, cols=None):
     """Append the selected (row, window) cells in row-major order: the
-    plain versions' half of csrc/topn_select.cuh's ``select_tile``."""
+    plain versions' half of csrc/topn_select.cuh's ``select_tile``; with
+    ``cols`` ((rows, W, F) int32) each row carries its cell's F result
+    columns."""
     W = wcounts.shape[1]
     flat = torch.nonzero(sel.reshape(-1)).reshape(-1)            # row-major
     total_sel = flat.numel()
@@ -907,9 +911,11 @@ def _ring_append(wcounts, sel, end_panes, anchor, row_offset, sel_cap,
     row_cap = emit_ring.shape[0] - 2
     total = int(emit_ring[0, 0])
     pos = (total + torch.arange(m, device=wcounts.device)) % row_cap + 1
-    emit_ring[pos] = torch.stack(
+    head = torch.stack(
         [r.to(torch.int32) + int(row_offset),
          (end_panes[w] - int(anchor)).to(torch.int32), wcounts[r, w]], dim=1)
+    emit_ring[pos] = (head if cols is None
+                      else torch.cat([head, cols[r, w]], dim=1))
     emit_ring[0, 0] = total + m
     emit_ring[0, 1] += total_sel - m
 

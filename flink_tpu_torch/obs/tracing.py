@@ -15,7 +15,7 @@ encoding and write, with ``bytes``), ``checkpoint.failed`` (a tolerated
 periodic failure), ``checkpoint.abort-notify-failed``, ``restore``,
 ``recovery`` (a supervised restart) and ``fault`` (an injected fault).
 The thread sampler of the reference's REST flame graph comes with
-``obs/rest.py`` (ROADMAP.md queue 1 item 10).
+``obs/rest.py`` (ROADMAP.md queue 1 item 10.2).
 """
 from __future__ import annotations
 

@@ -102,7 +102,13 @@ every block, each block's candidates landing in its columns of one
 gathered buffer on the home device, and ``topn_select_given`` on every
 block against that buffer (each select works out the global k-th
 itself) into that block's own emit ring, which the drain reads in block
-order. Purge and growth run on every
+order; a top-n by any other result field does the same over lanes
+(``window_lanes`` and the aggregate's finalize on each block, then
+``topn_candidates_lanes`` and ``topn_select_lanes_given``, ranked in
+IEEE total order). With ``state.backend`` spill or lsm a shard-full
+key aggregates in the host store, whose rows ride the same fires (with
+top-n re-ranked against each fire's device winners at a drain every
+fire). Purge and growth run on every
 block. Across processes (``shard_range``, this process's span) the key
 directory keeps the global shard space but owns only this process's
 span: slot ids count from the span's first shard, so the cells are
@@ -118,6 +124,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import time
 from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Tuple
@@ -630,17 +637,6 @@ class WindowOperator:
         self._overflow_markers: collections.deque = collections.deque()
         self.mesh_plan = mesh_plan
         if mesh_plan is not None:
-            if self._topn_lanes:
-                raise NotImplementedError(
-                    "top-n by a result field over lanes on a device mesh "
-                    "(the lane form of the reference's topn_shard) is still "
-                    "to port: ROADMAP.md queue 1 item 9.1; a mesh ranks "
-                    "count() by its count")
-            if spill or spill_store is not None:
-                backend = "lsm" if spill_store is not None else "spill"
-                raise NotImplementedError(
-                    f"state.backend='{backend}' on a device mesh is still "
-                    "to port: ROADMAP.md queue 1 item 9.2")
             self._shuffle = get_shuffle(exchange_impl)
             if (self._shuffle is all_to_all_shuffle
                     and isinstance(mesh_plan, HybridMeshPlan)):
@@ -1743,24 +1739,38 @@ class WindowOperator:
         k = min(self._topn[1], rows)
         ends, wvs = self._on_blocks(end_t), self._on_blocks(w_valid)
         gathered = self._gathered(end_t.numel(), len(self._blocks) * k)
-        wcs = []
+        wcs, grids = [], []
         for b, (st, dev, e, wv, u) in enumerate(zip(
                 self._blocks, self._devices, ends, wvs, used)):
             cols = gathered[:, b * k:(b + 1) * k]
             with on_device(dev):
                 wc = wk.window_counts(st.counts, e, wv, lo, hi, ppw)
                 wcs.append(wc)
-                if dev == self.device:
-                    wk.topn_candidates(wc, u, wv, k, out=cols)
+                if self._topn_lanes:
+                    # the lane form: each block's ranking grid and result
+                    # columns, ranked by the lane kernels
+                    v, grid = self._lanes_grid(st, wc, e, wv, lo, hi)
+                    grids.append((v, grid))
+                    cand = functools.partial(tk.topn_candidates_lanes, wc, v)
                 else:
-                    cols.copy_(wk.topn_candidates(wc, u, wv, k),
-                               non_blocking=True)
+                    cand = functools.partial(wk.topn_candidates, wc)
+                if dev == self.device:
+                    cand(u, wv, k, out=cols)
+                else:
+                    cols.copy_(cand(u, wv, k), non_blocking=True)
         for b, (dev, wc, e, wv, u, g, ring_b) in enumerate(zip(
                 self._devices, wcs, ends, wvs, used,
                 self._on_blocks(gathered), rings)):
             with on_device(dev):
-                wk.topn_select_given(wc, u, e, wv, self._ring_anchor, g, k,
-                                     b * rows, self._topn_cap(), ring_b)
+                if self._topn_lanes:
+                    v, grid = grids[b]
+                    tk.topn_select_lanes_given(
+                        wc, v, grid, u, e, wv, self._ring_anchor, g, k,
+                        b * rows, self._topn_cap(), ring_b)
+                else:
+                    wk.topn_select_given(wc, u, e, wv, self._ring_anchor, g,
+                                         k, b * rows, self._topn_cap(),
+                                         ring_b)
 
     def _gathered(self, W: int, M: int) -> torch.Tensor:
         """The sharded top-n's (W, M) gathered candidates on the home
@@ -1780,25 +1790,32 @@ class WindowOperator:
     def _topn_lanes_fire(self, wc: torch.Tensor, end_t: torch.Tensor,
                          w_valid: torch.Tensor, lo: int, hi: int,
                          used: torch.Tensor, ring_buf: torch.Tensor) -> None:
-        """A top-n chunk over lanes: ``window_lanes`` over the (rows, W)
-        grid, the aggregate's finalize on it in torch (the ranking field
-        as f32 and the result columns as int32 words, ``_finalize_pack``'s
-        forms), then ``topn_select_lanes``."""
-        st = self.state
+        """A top-n chunk over lanes on one device: ``_lanes_grid``, then
+        ``topn_select_lanes``."""
+        v, grid = self._lanes_grid(self.state, wc, end_t, w_valid, lo, hi)
+        tk.topn_select_lanes(wc, v, grid, used, end_t, w_valid,
+                             self._ring_anchor, self._topn[1],
+                             self._topn_cap(), ring_buf)
+
+    def _lanes_grid(self, st: PaneState, wc: torch.Tensor,
+                    end_t: torch.Tensor, w_valid: torch.Tensor, lo: int,
+                    hi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``window_lanes`` over a block's (rows, W) grid and the
+        aggregate's finalize on it in torch: the ranking field as f32
+        ``(rows, W)`` and the result columns as int32 words ``(rows, W,
+        F)`` (``_finalize_pack``'s forms)."""
         sums, maxs, mins = tk.window_lanes(
             st.sums, st.maxs, st.mins, end_t, w_valid, lo, hi,
             self.plan.panes_per_window, self.layout.rows)
         res = self.agg.finalize(sums, maxs, mins, wc)
-        by, n = self._topn
-        v = res[by].to(torch.float32).contiguous()
+        v = res[self._topn[0]].to(torch.float32).contiguous()
         cols = [res[f].to(torch.int32) if self._res_is_int[f]
                 else res[f].to(torch.float32).view(torch.int32)
                 for f in self._pack_fields()]
         grid = (torch.stack(cols, dim=2) if cols
                 else torch.zeros(wc.shape + (0,), dtype=torch.int32,
                                  device=wc.device))
-        tk.topn_select_lanes(wc, v, grid.contiguous(), used, end_t, w_valid,
-                             self._ring_anchor, n, self._topn_cap(), ring_buf)
+        return v, grid.contiguous()
 
     def _fire_packs(self, ends: List[int], lo: int, hi: int,
                     used: torch.Tensor) -> "FiredWindows":

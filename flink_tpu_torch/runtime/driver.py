@@ -169,6 +169,12 @@ _EVENT_TIME = ("window", "evicting_window", "session", "window_all", "join",
 _PER_BATCH = ("session", "global_agg", "process", "cep")
 
 
+class JobCancelledError(RuntimeError):
+    """Raised at a batch boundary once the run's cancel flag is set (the
+    task runner's cancel, or a stop-with-savepoint): the run ends as an
+    abort, its uncommitted output dropped."""
+
+
 class Driver:
     """Execution of a lowered plan on one device, or with ``mesh_plan``
     its keyed windows over a mesh of device blocks; one process of a job
@@ -305,6 +311,8 @@ class Driver:
         # while a run holds the shuffle open
         self._batch_capture: Dict[Tuple[int, int], Any] = {}
         self._savepoint_request = None
+        self._cancel = None
+        self._job_name = "job"
         self.last_savepoint: Optional[str] = None
         self._coordinator = None
         self._ckpt_executor = None
@@ -556,7 +564,11 @@ class Driver:
             self.config.get(CheckpointingOptions.DIRECTORY),
             job_id=job_name.replace("/", "_"),
             retained=self.config.get(CheckpointingOptions.RETAINED),
-            compression=self.config.get(CheckpointingOptions.COMPRESSION))
+            compression=self.config.get(CheckpointingOptions.COMPRESSION),
+            # a coordinator-deployed attempt fences its storage writes on
+            # its epoch (cluster.attempt): a deposed attempt's late
+            # persist cannot clobber its successor's; 0 = unfenced
+            epoch=int(self.config.get(ClusterOptions.ATTEMPT)))
         return CheckpointCoordinator(storage)
 
     def _snapshot(self, allow_reuse: bool = True) -> Dict[str, Any]:
@@ -887,11 +899,17 @@ class Driver:
             fn(final_epoch)
 
     # -- the streaming loop -------------------------------------------------
-    def run(self, job_name: str = "job", savepoint_request=None):
+    def run(self, job_name: str = "job", savepoint_request=None,
+            cancel=None):
         """Run the job to the end of its input. ``savepoint_request``: a
         ``threading.Event``; once set, the loop takes a savepoint at the
         next batch boundary, clears it and keeps the savepoint's path in
-        ``last_savepoint`` (a batch-mode run fails instead)."""
+        ``last_savepoint`` (a batch-mode run fails instead); its
+        ``on_complete(path, stop_after=, token=)``, where it has one, hears
+        of the savepoint (the task runner's report to the coordinator).
+        ``cancel``: a ``threading.Event`` checked at every batch; once set
+        the run raises ``JobCancelledError`` there, its uncommitted
+        output dropped."""
         from concurrent.futures import ThreadPoolExecutor
 
         from flink_tpu_torch import faults
@@ -899,6 +917,8 @@ class Driver:
         from flink_tpu_torch.obs.metrics import MetricsServer
 
         self._savepoint_request = savepoint_request
+        self._cancel = cancel
+        self._job_name = job_name
         self.last_savepoint = None
         if self.plan.runtime_mode == "batch":
             # a bounded run recovers by running again: nothing to
@@ -920,18 +940,18 @@ class Driver:
                     "with execution.runtime-mode=batch (nothing "
                     "checkpoints in batch mode — re-run the job)")
         self._coordinator = self._setup_checkpointing(job_name)
-        # the attempt's fencing epoch, announced to the sinks before any
-        # restore or write: epoch-qualified staged names keep a deposed
-        # attempt's late renames off a successor's output. It stays 0
-        # until the coordinator that mints it (cluster.attempt, ROADMAP.md
-        # queue 1 item 10) is ported, the reference's default. The host
-        # pool rides the same announcement: a log sink writes its
-        # partitions' segments and runs its group fsync through it.
+        # the attempt's fencing epoch (cluster.attempt, minted by the job
+        # coordinator at every deploy; 0 run locally), announced to the
+        # sinks before any restore or write: epoch-qualified staged names
+        # keep a deposed attempt's late renames off a successor's output.
+        # The host pool rides the same announcement: a log sink writes
+        # its partitions' segments and runs its group fsync through it.
+        attempt_epoch = int(self.config.get(ClusterOptions.ATTEMPT))
         for n in self.plan.nodes.values():
             if n.kind == "sink":
                 setter = getattr(n.sink, "set_attempt_epoch", None)
                 if setter is not None:
-                    setter(0)
+                    setter(attempt_epoch)
                 pool_setter = getattr(n.sink, "set_host_pool", None)
                 if pool_setter is not None:
                     pool_setter(self.host_pool)
@@ -1104,7 +1124,7 @@ class Driver:
                         int(pos), old_f, new_f, sid=sid, split_ix=i)
             srcs[sid] = {}
             splits = n.source.splits()
-            for i in self._owned_splits(len(splits)):
+            for i in self._owned_splits(len(splits), sid):
                 split = splits[i]
                 start = self._positions[sid].get(i, 0)
                 if sid in self._dev_chains:
@@ -1129,6 +1149,7 @@ class Driver:
         while any(active.values()):
             for sid, alive in active.items():
                 for split_ix in list(alive):
+                    self._check_cancel()
                     t0 = time.perf_counter()
                     nxt = next(srcs[sid][split_ix], None)
                     self.prof["source_next"] += time.perf_counter() - t0
@@ -1191,16 +1212,28 @@ class Driver:
                 n.sink.close()
         return JobResult(job_name, self._final_metrics(t_start))
 
+    def _check_cancel(self) -> None:
+        if self._cancel is not None and self._cancel.is_set():
+            raise JobCancelledError(self._job_name)
+
     def _maybe_take_savepoint(self) -> None:
         """A requested savepoint, synchronous and retained, at this batch
-        boundary (a job without checkpoint storage ignores the
-        request)."""
+        boundary (a job without checkpoint storage ignores the request).
+        The request's ``stop_after`` and ``token`` are read before it is
+        cleared (a new trigger may reuse the object while the savepoint
+        is written) and handed to its ``on_complete`` with the path."""
         req = self._savepoint_request
         if req is None or not req.is_set():
             return
+        stop_after = getattr(req, "stop_after", False)
+        token = getattr(req, "token", None)
         req.clear()
-        if self._coordinator is not None:
-            self.last_savepoint = self.checkpoint_now(savepoint=True).path
+        if self._coordinator is None:
+            return
+        self.last_savepoint = self.checkpoint_now(savepoint=True).path
+        cb = getattr(req, "on_complete", None)
+        if cb is not None:
+            cb(self.last_savepoint, stop_after=stop_after, token=token)
 
     # -- batch mode ---------------------------------------------------------
     def _run_batch(self, job_name: str, srcs, t_start: float):
@@ -1289,6 +1322,7 @@ class Driver:
         for split_ix in sorted(its):
             it = its[split_ix]
             while True:
+                self._check_cancel()
                 t0 = time.perf_counter()
                 nxt = next(it, None)
                 self.prof["source_next"] += time.perf_counter() - t0
@@ -1318,6 +1352,7 @@ class Driver:
         op = self._ops.get(v)
         for u, _ in edges:
             for data, ts in shuffle.edge(u, v).read():
+                self._check_cancel()
                 t0 = time.perf_counter()
                 self.metrics["shuffle_records_replayed"] = (
                     self.metrics.get("shuffle_records_replayed", 0) + len(ts))
@@ -1352,19 +1387,55 @@ class Driver:
             if hasattr(op, "quiesce"):
                 op.quiesce()
 
-    def _owned_splits(self, n_splits: int) -> List[int]:
-        """The split indices this process reads: all of them in one
-        process; across processes a strided share, ``pid, pid + n,
-        ...``, so the processes divide the source without overlap."""
-        if self._nproc > 1:
+    def _owned_splits(self, n_splits: int, sid: int = 0) -> List[int]:
+        """The split indices this process reads (``source.enumeration``):
+        'local', all of them in one process, and across processes a
+        strided share, ``pid, pid + n, ...``, so the processes divide the
+        source without overlap; 'coordinator', this runner's share from
+        the job coordinator's split enumerator (``cluster.coordinator``,
+        ``cluster.job-id`` and ``cluster.runner-id``, which the task
+        runner injects at deploy)."""
+        from flink_tpu_torch.config import SourceOptions
+
+        mode = self.config.get(SourceOptions.ENUMERATION)
+        if mode == "local" and self._nproc > 1:
             return list(range(self._pid, n_splits, self._nproc))
-        return list(range(n_splits))
+        if mode == "local" or n_splits == 0:
+            return list(range(n_splits))
+        if mode != "coordinator":
+            raise ValueError(
+                f"source.enumeration must be 'local' or 'coordinator', "
+                f"got {mode!r}")
+        from flink_tpu_torch.runtime.rpc import RpcClient
+
+        cfg = self.config
+        addr = str(cfg.get(ClusterOptions.COORDINATOR)).strip()
+        job_id = str(cfg.get(ClusterOptions.JOB_ID)).strip()
+        runner_id = str(cfg.get(ClusterOptions.RUNNER_ID)).strip()
+        if not (addr and job_id and runner_id):
+            raise ValueError(
+                "source.enumeration=coordinator needs cluster.coordinator"
+                ", cluster.job-id and cluster.runner-id (the runner "
+                "injects them on deploy)")
+        host, _, port = addr.partition(":")
+        c = RpcClient(host, int(port), timeout_s=10.0)
+        try:
+            resp = c.call("enumerate_splits", job_id=job_id, source_id=sid,
+                          n_splits=n_splits, runner_id=runner_id)
+        finally:
+            c.close()
+        return [int(i) for i in resp["splits"]]
 
     # -- the cross-process data plane ---------------------------------------
     def _dcn_connect(self):
         """Build and connect this process's exchange endpoint, after the
         v1 topology checks: one source, one keyed window, the shards
-        divisible by the processes, no allowed lateness."""
+        divisible by the processes, no allowed lateness. The peers come
+        from ``cluster.dcn-peers``, or, with ``cluster.dcn-rendezvous:
+        coordinator`` and no static list, from the job coordinator: each
+        process registers its listener (``cluster.dcn-host`` and its
+        port) under the job and attempt, then polls until the whole
+        fleet has."""
         from flink_tpu_torch.exchange.dcn import DcnExchange
 
         cfg = self.config
@@ -1372,11 +1443,12 @@ class Driver:
         peers = [p.strip() for p in
                  str(cfg.get(ClusterOptions.DCN_PEERS)).split(",")
                  if p.strip()]
-        if len(peers) != n:
+        rendezvous = (not peers and str(cfg.get(
+            ClusterOptions.DCN_RENDEZVOUS)).strip() == "coordinator")
+        if not rendezvous and len(peers) != n:
             raise ValueError(
                 f"cluster.dcn-peers must list {n} host:port entries, got "
-                f"{len(peers)} (the coordinator rendezvous, "
-                "cluster.dcn-rendezvous, is ROADMAP.md queue 1 item 10)")
+                f"{len(peers)}")
         if len(self.plan.sources) != 1:
             raise NotImplementedError(
                 "cross-process jobs support exactly one source in v1")
@@ -1398,23 +1470,27 @@ class Driver:
                 "consensus the v1 exchange does not carry")
         bind = str(cfg.get(ClusterOptions.DCN_BIND)).strip()
         if bind == "auto":
-            # widen past loopback only when a peer is on another host
+            # widen past loopback only when a peer (or the advertised
+            # host) is on another machine
             hosts = [p.rpartition(":")[0].strip() for p in peers]
+            hosts.append(str(cfg.get(ClusterOptions.DCN_HOST)).strip())
             bind = ("0.0.0.0" if any(h and h not in ("127.0.0.1",
                                                      "localhost")
                                      for h in hosts) else "127.0.0.1")
-        # attempt 1: the fencing epoch a coordinator mints per attempt
-        # (cluster.attempt) comes with ROADMAP.md queue 1 item 10; the JAX
-        # package's static-peers default is the same 1
+        # the attempt's fencing epoch: the coordinator's, else 1 (the
+        # attempt of static peers)
+        attempt = int(cfg.get(ClusterOptions.ATTEMPT)) or 1
         ex = DcnExchange(self._pid, n,
                          listen_port=int(cfg.get(ClusterOptions.DCN_PORT)),
-                         bind_host=bind, attempt=1,
+                         bind_host=bind, attempt=attempt,
                          secret=str(cfg.get(ClusterOptions.DCN_SECRET)
                                     or "") or None,
                          io_threads=int(cfg.get(ClusterOptions.DCN_IO_THREADS)),
                          buffer_bytes=int(cfg.get(
                              ClusterOptions.DCN_BUFFER_BYTES)))
         try:
+            if rendezvous:
+                peers = self._dcn_rendezvous(ex.port, attempt)
             ex.connect(peers)
         except BaseException:
             # a half-connected endpoint must not outlive the attempt: its
@@ -1424,6 +1500,33 @@ class Driver:
         self._dcn_key_field = keyed[0].key_field
         self._dcn_shards = num_shards
         return ex
+
+    def _dcn_rendezvous(self, port: int, attempt: int) -> List[str]:
+        """Register this process's listener with the job coordinator
+        and poll until every process of the attempt has (at most 60 s):
+        the peers' ``host:port`` by process id."""
+        from flink_tpu_torch.runtime.rpc import RpcClient
+
+        cfg = self.config
+        addr = str(cfg.get(ClusterOptions.COORDINATOR)).strip()
+        job_id = str(cfg.get(ClusterOptions.JOB_ID)).strip() or "job"
+        dcn_host = str(cfg.get(ClusterOptions.DCN_HOST)).strip() or "127.0.0.1"
+        host, _, cport = addr.partition(":")
+        c = RpcClient(host, int(cport), timeout_s=5.0)
+        try:
+            c.call("dcn_register", job_id=job_id, attempt=attempt,
+                   process_id=self._pid, host=dcn_host, port=port)
+            deadline = time.time() + 60.0
+            while True:
+                resp = c.call("dcn_peers", job_id=job_id, attempt=attempt,
+                              n_processes=self._nproc)
+                if resp.get("ready"):
+                    return list(resp["peers"])
+                if time.time() > deadline:
+                    raise TimeoutError("DCN rendezvous incomplete after 60s")
+                time.sleep(0.1)
+        finally:
+            c.close()
 
     def _dcn_negotiated_restore(self) -> Optional[Dict[str, Any]]:
         """Agree on one checkpoint id across the processes (the least of
@@ -1484,9 +1587,12 @@ class Driver:
         pending_x = None    # the one overlapped step in flight
         # without the drain, the in-flight step's meta was dispatched
         # before the snapshot it rode behind: its ckpt flag is stale and
-        # is absorbed once (every process absorbs the same one)
-        stale_ckpt = False
+        # is absorbed once (every process absorbs the same one); the same
+        # for the savepoint flag
+        stale_ckpt = stale_sp = False
         while True:
+            # every process checks at the same step boundary
+            self._check_cancel()
             batch = batch_ix = None
             while order:
                 ix = order[0]
@@ -1528,10 +1634,14 @@ class Driver:
                          and interval_ms > 0
                          and (time.time() - st.last_chk) * 1000
                          >= interval_ms)
-            # savepoint requests (the reference's "sp" flag) come with
-            # the control plane, ROADMAP.md queue 1 item 10
+            sp_rq = self._savepoint_request
             meta = {"wm": int(local_wm), "done": batch is None,
                     "ckpt": bool(want_ckpt),
+                    # savepoint consensus: the coordinator triggers the
+                    # request on every process, and the flag rides the
+                    # rendezvous so the fleet serves it at one common
+                    # step (all set, where the checkpoint is any set)
+                    "sp": bool(sp_rq is not None and sp_rq.is_set()),
                     # the id this process holds durably: a checkpoint
                     # commits once every process has it (2PC phase 2)
                     "persisted": int(st.persisted_id)}
@@ -1540,18 +1650,20 @@ class Driver:
                 pending_x = h  # prime the double buffer
                 continue
             target, pending_x = (pending_x, h) if overlap else (h, None)
-            all_done, ckpt_req = self._dcn_consume_step(
+            all_done, ckpt_req, sp_req = self._dcn_consume_step(
                 sid, target, st, deferred=overlap)
             if stale_ckpt:
                 ckpt_req = stale_ckpt = False
-            if not (all_done or ckpt_req):
+            if stale_sp:
+                sp_req = stale_sp = False
+            if not (all_done or ckpt_req or sp_req):
                 continue
             if pending_x is not None and (all_done or drain_at_barrier):
                 # drain the step in flight so the cut (or the final
                 # barrier) covers its records; its flags are absorbed,
                 # the same on every process, except termination
-                done2, _ = self._dcn_consume_step(sid, pending_x, st,
-                                                  absorb=True, deferred=True)
+                done2, _, _ = self._dcn_consume_step(
+                    sid, pending_x, st, absorb=True, deferred=True)
                 all_done = all_done or done2
                 pending_x = None
             if ckpt_req:
@@ -1571,6 +1683,17 @@ class Driver:
                     st.persisted_id = st.pending_id
                 st.last_chk = time.time()
                 stale_ckpt = pending_x is not None
+            if sp_req:
+                # every process holds the request: each serves it here,
+                # at the common boundary, with its own token; the
+                # savepoint commits synchronously fleet-wide
+                self._maybe_take_savepoint()
+                if (st.pending is not None
+                        and self._ckpt_pending is not st.pending):
+                    # the savepoint completed the periodic checkpoint in
+                    # flight (checkpoint_now waits on it)
+                    st.pending = None
+                stale_sp = pending_x is not None
             if all_done:
                 if st.pending is not None:
                     # end of input is the final barrier: every process
@@ -1584,9 +1707,9 @@ class Driver:
         """Consume one rendezvous step: the barrier on the handle, this
         process's merged share through the local pipeline, the global
         watermark, and the 2PC commit of a checkpoint every process
-        holds. Returns (all done, checkpoint requested); ``absorb``
-        drops the checkpoint flag (a drained step rides the barrier that
-        drained it); ``deferred`` marks an overlapped consume, the one
+        holds. Returns (all done, checkpoint requested, savepoint
+        requested); ``absorb`` drops the two flags (a drained step rides
+        the barrier that drained it); ``deferred`` marks an overlapped consume, the one
         place the ``dcn.overlap.consume`` fault point fires."""
         if deferred:
             from flink_tpu_torch import faults
@@ -1620,7 +1743,8 @@ class Driver:
             self._ckpt_pending = None
             st.pending = None
         ckpt_req = (not absorb) and any(bool(m.get("ckpt")) for m in metas)
-        return all(bool(m["done"]) for m in metas), ckpt_req
+        sp_req = (not absorb) and all(bool(m.get("sp")) for m in metas)
+        return all(bool(m["done"]) for m in metas), ckpt_req, sp_req
 
     def _push_dcn_merged(self, sid: int, md, mts: np.ndarray) -> None:
         """This process's merged share downstream: one batch at K = 1, or

@@ -12,8 +12,10 @@ columnar parts of either package's batch job feed the other's.
 whether batch mode beats streaming is measured on the card, in
 ``chip_smoke.py``'s ``batch`` phase. The jobs run at 40–60 batches
 where the reference runs 300, and the reference's runs are shared
-between cases. ``TestCliSmoke`` waits for the command line (ROADMAP.md
-queue 1 item 10)."""
+between cases. ``TestCliSmoke`` runs the bounded WordCount through
+``python -m flink_tpu_torch run --local --runtime-mode batch`` on the
+CPU and holds its committed columnar total to the reference job's
+golden."""
 import os
 import re
 import threading
@@ -410,3 +412,53 @@ def test_csv_without_the_codec_raises(monkeypatch, tmp_path):
         fmt.serialize({"a": np.arange(2), "b": np.arange(2)})
     with pytest.raises(RuntimeError, match="host codec build failed"):
         P.connectors.SocketSource()
+
+
+CLI_ENV = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+    [os.path.dirname(__file__), os.path.join(os.path.dirname(__file__), ".."),
+     os.environ.get("PYTHONPATH", "")]))
+
+
+def cli_wordcount_total(tmp_path, *extra):
+    """``python -m flink_tpu_torch run --local`` of the bounded
+    WordCount on the CPU: its JSON line and its committed count total."""
+    import json
+    import subprocess
+    import sys
+
+    from flink_tpu_torch.formats_columnar import ColumnarFormat
+    from test_torch_runner_jobs import WC_SCHEMA
+
+    sink_dir = str(tmp_path / "sink")
+    proc = subprocess.run(
+        [sys.executable, "-m", "flink_tpu_torch", "run", "--local",
+         "--device", "cpu", "--entry", "test_torch_runner_jobs:wordcount",
+         "--conf", "test.n-batches=6", "--conf", f"test.sink-dir={sink_dir}",
+         "--conf", "state.num-key-shards=4",
+         "--conf", "state.slots-per-shard=32", *extra],
+        capture_output=True, text=True, timeout=240, env=CLI_ENV,
+        cwd=os.path.dirname(__file__))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    fmt = ColumnarFormat(WC_SCHEMA)
+    total = 0
+    committed = os.path.join(sink_dir, "committed")
+    for name in sorted(os.listdir(committed)):
+        with open(os.path.join(committed, name), "rb") as f:
+            total += int(np.sum(fmt.deserialize(f.read())["count"]))
+    return out, total
+
+
+class TestCliSmoke:
+    def test_bounded_wordcount_via_cli_batch_mode(self, tmp_path):
+        """A bounded WordCount runs end to end through ``python -m
+        flink_tpu_torch run --local --runtime-mode batch`` and commits
+        columnar output: every word counted once, the reference job's
+        golden total."""
+        import runner_job_wordcount as job
+
+        out, total = cli_wordcount_total(
+            tmp_path, "--runtime-mode", "batch", "--job-id", "cli-batch-wc")
+        assert out["state"] == "FINISHED" and out["job_id"] == "cli-batch-wc"
+        assert out["records_in"] == 6 * job.BATCH
+        assert total == job.golden_total(6)

@@ -329,3 +329,58 @@ def test_lower_aggregate_matches_the_reference(numpy_host_paths):
     assert ok.all()
     with pytest.raises(NotImplementedError, match="neither sum/max/min"):
         ta.lower_aggregate(ConcatFirst(), {"v": np.float32})
+
+
+class TestCliEntry:
+    """The two SQL changelog shapes as ``run --local`` entries of the
+    port's command line (on the CPU), held to the reference jobs'
+    independent goldens."""
+
+    def _cli(self, capsys, *argv):
+        import json
+
+        from flink_tpu_torch.cli import main as cli_main
+
+        rc = cli_main(list(argv))
+        out = capsys.readouterr().out.strip().splitlines()
+        return rc, json.loads(out[-1]) if out else {}
+
+    def test_agg_over_join_entry(self, tmp_path, capsys):
+        import runner_job_changelog as ref_jobs
+
+        from flink_tpu_torch.api.sinks import FileTransactionalSink
+
+        sink_dir = str(tmp_path / "sink")
+        rc, out = self._cli(
+            capsys, "run", "--local", "--device", "cpu",
+            "--entry", "test_torch_runner_jobs:build_join_agg",
+            "--job-id", "cl-join",
+            "--conf", f"test.sink-dir={sink_dir}",
+            "--conf", "state.num-key-shards=4",
+            "--conf", "state.slots-per-shard=32",
+            "--conf", "pipeline.microbatch-size=100")
+        assert rc == 0
+        assert out["state"] == "FINISHED"
+        got = {}
+        for r in FileTransactionalSink.committed_rows(sink_dir):
+            key = (int(r["k"]), int(r["window_start"]))
+            assert key not in got  # exactly-once committed output
+            got[key] = (int(r["c"]), int(round(float(r["sw"]))))
+        assert got == ref_jobs.reference_join_agg()
+
+    def test_unwindowed_group_by_entry(self, tmp_path, capsys):
+        import runner_job_changelog as ref_jobs
+        import test_torch_runner_jobs as jobs
+
+        rc, out = self._cli(
+            capsys, "run", "--local", "--device", "cpu",
+            "--entry", "test_torch_runner_jobs:build_group_by",
+            "--job-id", "cl-upsert",
+            "--conf", "state.num-key-shards=4",
+            "--conf", "state.slots-per-shard=32",
+            "--conf", "pipeline.microbatch-size=100")
+        assert rc == 0
+        assert out["state"] == "FINISHED"
+        got = {int(r["k"]): (int(r["c"]), int(round(float(r["sv"]))))
+               for r in jobs.group_by_sink.view()}
+        assert got == ref_jobs.reference_group_by()

@@ -908,12 +908,12 @@ def bc_golden():
                   for (k, e), c in zip(pairs, counts))
 
 
-def build_mesh_m1(P, sink):
-    """Mesh job M1 (Q5 host-fed over four device blocks): the JAX
-    package's ``cluster.mesh-devices: 4`` of its forced CPU devices; the
-    port's four blocks of its one CPU (``make_mesh_plan``), the plan its
-    environment then builds."""
-    build, conf = build_q5_host(P, sink)
+def build_mesh_m1(P, sink, job=build_q5_host):
+    """Mesh job M1 (Q5 host-fed over four device blocks; ``job``'s
+    build instead): the JAX package's ``cluster.mesh-devices: 4`` of its
+    forced CPU devices; the port's four blocks of its one CPU
+    (``make_mesh_plan``), the plan its environment then builds."""
+    build, conf = job(P, sink)
     if P is JAX:
         return build, dict(conf, **{"cluster.mesh-devices": "4"})
     from flink_tpu_torch.parallel.mesh import make_mesh_plan
@@ -927,13 +927,38 @@ def build_mesh_m1(P, sink):
     return build_port, conf
 
 
+def build_topn_lanes(P, sink):
+    """Job T: the host-fed bids ranked by a result field over lanes,
+    top-1 by ``max_price`` of ``multi(count, max_of, min_of)`` (no float
+    sum, so every committed field is exact in both packages)."""
+    def build(conf):
+        env = P.Env(conf)
+        (env.from_source(P.GeneratorSource(host_bids),
+                         P.WM.for_bounded_out_of_orderness(500))
+         .key_by("auction").window(P.Sliding.of(4000, 1000))
+         .aggregate(P.agg.multi(P.agg.count(), P.agg.max_of("price"),
+                                P.agg.min_of("price")))
+         .top(1, "max_price").add_sink(sink))
+        return env
+    conf = {"state.num-key-shards": 8, "state.slots-per-shard": 128,
+            "pipeline.microbatch-size": HOST_CFG["batch_size"]}
+    return build, conf
+
+
+def build_mesh_topn_lanes(P, sink):
+    """Job T over four device blocks, as ``build_mesh_m1``."""
+    return build_mesh_m1(P, sink, build_topn_lanes)
+
+
 JOBS = {"q5_devgen_k4": build_q5_devgen, "q5_host": build_q5_host,
         "q5_spill": build_q5_tiered("spill"),
         "q5_lsm": build_q5_tiered("lsm"),
         "count_window": build_count_window, "sessions": build_sessions,
         "q7": build_q7, "q8_pairs": build_q8("pairs"),
         "q8_aggregate": build_q8("aggregate"), "cep": build_cep,
-        "broadcast": build_broadcast, "mesh_m1": build_mesh_m1}
+        "broadcast": build_broadcast, "mesh_m1": build_mesh_m1,
+        "topn_lanes": build_topn_lanes,
+        "mesh_topn_lanes": build_mesh_topn_lanes}
 
 # each (package, job, mode)'s committed rows, shared by the cases that
 # read the same run
@@ -1027,6 +1052,8 @@ def golden_rows(job):
         return cep_golden()
     if job == "broadcast":
         return bc_golden()
+    if job in ("topn_lanes", "mesh_topn_lanes"):
+        return topn_lanes_golden()
     if job in ("q5_host", "q5_spill", "q5_lsm", "mesh_m1"):
         return q5_golden([(d["auction"], ts) for d, ts in (
             host_bids("0", i) for i in range(HOST_CFG["n_batches"]))],
@@ -1043,6 +1070,23 @@ def golden_rows(job):
             if len(held[k]) >= 5:
                 out.append((k, len(held[k]), float(sum(held.pop(k)))))
     return sorted(out)
+
+
+def topn_lanes_golden():
+    """Job T's rows by numpy: each 4 s window (slide 1 s) of the bids,
+    the auctions whose max price is the window's highest, ties kept."""
+    parts = [host_bids("0", i) for i in range(HOST_CFG["n_batches"])]
+    a = np.concatenate([d["auction"] for d, _ in parts])
+    price = np.concatenate([d["price"] for d, _ in parts]).astype(np.float32)
+    pane = np.concatenate([ts for _, ts in parts]) // 1000
+    out = set()
+    for e in range(int(pane.min()) + 1, int(pane.max()) + 5):
+        m = (pane >= e - 4) & (pane < e)
+        if m.any():
+            top = price[m].max()
+            out |= {(int(x), e * 1000, float(top))
+                    for x in np.unique(a[m][price[m] == top])}
+    return out
 
 
 def final_sessions(rows):
@@ -1116,6 +1160,8 @@ def golden_view(job, rows):
         return sorted((r["key"], r["lo_ts"], r["hi_ts"]) for r in d)
     if job == "broadcast":
         return sorted((r["key"], r["window_end"], r["count"]) for r in d)
+    if job in ("topn_lanes", "mesh_topn_lanes"):
+        return {(r["key"], r["window_end"], float(r["max_price"])) for r in d}
     return {(r["auction"], r["window_end"], r["bid_count"]) for r in d}
 
 
@@ -1123,7 +1169,7 @@ def commit_view(job, rows):
     """Committed rows as the packages agree on them: in commit order, or
     on a mesh (whose blocks' fires each driver drains at its own
     cadence) in commit order within each window."""
-    if job != "mesh_m1":
+    if job not in ("mesh_m1", "mesh_topn_lanes"):
         return rows
     return sorted(rows, key=lambda r: dict(r)["window_end"])
 
@@ -1285,7 +1331,7 @@ def cut_job(P, job, root, cut, interval=10 ** 9, restore="", savepoint=False,
 CUTS = {"q5_devgen_k4": 9, "q5_host": 3, "q5_spill": 3, "q5_lsm": 3,
         "count_window": 4, "sessions": 3,
         "q7": 3, "q8_pairs": 3, "q8_aggregate": 3, "cep": 4,
-        "broadcast": 3, "mesh_m1": 3}
+        "broadcast": 3, "mesh_m1": 3, "topn_lanes": 3, "mesh_topn_lanes": 3}
 
 
 @pytest.fixture(scope="module")

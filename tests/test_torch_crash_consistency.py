@@ -22,7 +22,7 @@ once each. The job's golden equals the reference's same SQL job.
 
 Tier-1 runs the reference's bounded schedule (3 seeds x 8 images per
 tier); the ``slow`` soak runs 70 images a seed. ``HaRegistryTier`` waits
-for the HA session registry (ROADMAP.md queue 1 item 10).
+for the HA session registry (ROADMAP.md queue 1 item 10.2).
 """
 import json
 import os

@@ -2651,6 +2651,90 @@ def test_topn_candidates_matches_its_plain_version(dev, rows, W, k):
     assert torch.equal(got, torch.topk(v.T, k, dim=1).values)
 
 
+def _lane_grid(rng, rows, W, specials=True):
+    """A lane top-n grid: counts with empty cells, integer ranking values
+    with ties, and (``specials``) +NaN, -NaN, -0 / +0, +inf and -inf
+    candidates, a window of -NaN candidates and an invalid window."""
+    wc = np.where(rng.random((rows, W)) < 0.7,
+                  rng.integers(1, 4, (rows, W)), 0).astype(np.int32)
+    v = rng.integers(-6, 7, (rows, W)).astype(np.float32)
+    used = rng.random(rows) < 0.9
+    valid = np.ones(W, bool)
+    if specials and rows >= 6 and W >= 4:
+        v[0, 0], v[1, 0] = np.nan, -np.nan
+        v[2, 1], v[3, 1] = -0.0, 0.0
+        v[4, 2], v[5, 2] = np.inf, -np.inf
+        v[:, 3] = -np.nan
+        wc[:, 3] = 1
+        valid[W - 1] = W < 5
+    return wc, v, used, valid
+
+
+@pytest.mark.parametrize("rows,W,k", [
+    (8193, 11, 1), (8193, 11, 3), (8193, 11, 16),  # M5's block at top-1 / 3
+    (2000, 8, 2000),                               # k = rows: the radix
+    (300, 40, 3), (300, 40, 17), (100, 300, 5),    # the merge, the six launches
+    (6, 4, 2), (1, 1, 1)])
+def test_topn_candidates_lanes_matches_its_plain_version(dev, rows, W, k):
+    """Bit for bit against the plain version (torch.topk on the
+    total-order keys of the masked grid) in every launch form, with NaN,
+    signed zeros and infinities among the candidates; twice, so the
+    second call runs on the workspace the first left; then into a
+    block's columns of a wider buffer."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+    wc, v, used, valid = _lane_grid(np.random.default_rng(rows + W + k),
+                                    rows, W)
+    args = (_t(wc, dev), _t(v, dev), _t(used, dev), _t(valid, dev), k)
+    want = tk.topn_candidates_lanes_plain(*[a.cpu() if isinstance(
+        a, torch.Tensor) else a for a in args])
+    for _ in range(2):
+        got = tk.topn_candidates_lanes(*args)
+        assert _exact_bits(got.cpu(), want)
+    out = torch.full((W, 3 * k), 5.0, device=dev)
+    tk.topn_candidates_lanes(*args, out=out[:, k:2 * k])
+    assert _exact_bits(out[:, k:2 * k].cpu(), want)
+    assert (out[:, :k] == 5.0).all() and (out[:, 2 * k:] == 5.0).all()
+
+
+@pytest.mark.parametrize("rows,W,k,blocks", [
+    (8193, 11, 1, 4), (8193, 11, 3, 4),   # M5's chunks: M <= 16 in registers
+    (8193, 11, 5, 4),                     # M = 20: a warp a window
+    (300, 64, 2, 8), (6, 4, 2, 2), (1, 1, 1, 1)])
+def test_topn_select_lanes_given_matches_its_plain_version(dev, rows, W, k,
+                                                           blocks):
+    """Each block's selection against the gathered candidates of all
+    blocks (the plain candidates), appended with its row offset to its
+    own ring: ring and head bit for bit against the plain version, NaN
+    thresholds, signed zeros and -NaN candidates included; twice."""
+    from flink_tpu_torch.kernels import topn_lanes_kernels as tk
+    rng = np.random.default_rng(rows * W + k)
+    grids = [_lane_grid(rng, rows, W) for _ in range(blocks)]
+    cands = torch.cat([tk.topn_candidates_lanes_plain(
+        torch.from_numpy(g[0]), torch.from_numpy(g[1]),
+        torch.from_numpy(g[2]), torch.from_numpy(g[3]), k) for g in grids],
+        dim=1)
+    ends = np.arange(40, 40 + W, dtype=np.int64)
+    F = 2
+    for b, (wc, v, used, valid) in enumerate(grids):
+        cols = rng.integers(-9, 9, (rows, W, F)).astype(np.int32)
+        ring = np.zeros((4096 + 2, 3 + F), np.int32)
+        ring[0, 0] = 4090  # the append wraps past the ring's end
+        args = [wc, v, cols, used, ends, valid]
+        rest = (37, cands, k, b * rows, 3000)
+        want = tk.topn_select_lanes_given_plain(
+            *[torch.from_numpy(a) for a in args], *rest,
+            torch.from_numpy(ring.copy()))
+        got = torch.from_numpy(ring.copy()).to(dev)
+        for _ in range(2):
+            tk.topn_select_lanes_given(*[_t(a, dev) for a in args], 37,
+                                       cands.to(dev), k, b * rows, 3000, got)
+            torch.cuda.synchronize()
+            want2 = want if _ == 0 else tk.topn_select_lanes_given_plain(
+                *[torch.from_numpy(a) for a in args], *rest, want.clone())
+            assert torch.equal(got.cpu(), want2)
+            want = want2
+
+
 def test_hash_keys_matches_numpy(dev):
     from flink_tpu_torch.kernels import exchange_kernels as xk
     from flink_tpu_torch.records import hash_keys_numpy
@@ -2840,6 +2924,8 @@ def _lean_cases(dev):
     cands = wk.topn_candidates_plain(wc, used, valid, 3)
     v = _t(rng.random((rows, W)).astype(np.float32), dev)
     cols = _t(rng.integers(-9, 9, (rows, W, 2)).astype(np.int32), dev)
+    lcands = torch.cat([tk.topn_candidates_lanes_plain(wc, v, used, valid, 3)] * 2,
+                       dim=1)
     args_fp = (counts, s1, mx1, mn1, ends, valid, used, lo, hi, ppw, 4096, False)
 
     def inplace(fn, *state):
@@ -2948,6 +3034,14 @@ def _lean_cases(dev):
                                                    lo, 2, 200, r), ring5),
             lambda: after(lambda r: tk.topn_select_lanes_plain(
                 wc, v, cols, used, ends, valid, lo, 2, 200, r), ring5)),
+        "topn_candidates_lanes": (
+            pure(lambda: tk.topn_candidates_lanes(wc, v, used, valid, 3)),
+            lambda: tk.topn_candidates_lanes_plain(wc, v, used, valid, 3)),
+        "topn_select_lanes_given": (
+            inplace(lambda r: tk.topn_select_lanes_given(
+                wc, v, cols, used, ends, valid, lo, lcands, 3, 7, 200, r), ring5),
+            lambda: after(lambda r: tk.topn_select_lanes_given_plain(
+                wc, v, cols, used, ends, valid, lo, lcands, 3, 7, 200, r), ring5)),
     }
 
 
@@ -2958,7 +3052,8 @@ LEAN_WRAPPERS = ("scatter_counts", "split_cells", "scatter_split_counts",
                  "devgen_ingest_nexmark", "fire_pack",
                  "scatter_lanes", "apply_pairs_u32", "apply_pairs_u16", "fused_step",
                  "count_fire", "segment_lanes", "bucket_records", "hash_keys",
-                 "topn_select_lanes")
+                 "topn_select_lanes", "topn_candidates_lanes",
+                 "topn_select_lanes_given")
 
 
 def _flat(out):

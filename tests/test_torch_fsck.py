@@ -4,8 +4,9 @@ checkpoint directory or coordination record is built by one package
 (parametrized over both) and checked by both fscks, whose findings —
 rules, severities, paths, messages, repair flags — and exit codes must
 be equal. A repair runs on a copy of its own for each fsck. The exit
-codes come from each package's ``main`` with an ``argparse.Namespace``;
-the ``fsck`` command line waits for ROADMAP.md queue 1 item 10."""
+codes and printed reports come from each package's command line
+(``cli.py``'s ``fsck``), or its ``fsck.main`` with an
+``argparse.Namespace``."""
 import argparse
 import glob
 import json
@@ -66,10 +67,15 @@ def fsck_both(path, repair=False):
 
 
 def main_both(path, capsys, as_json=False):
+    """Each package's ``fsck`` command line over ``path``: exit code and
+    printed report, equal."""
+    import importlib
+
     out = {}
     for M in BOTH:
-        rc = M.fsck.main(argparse.Namespace(path=path, repair=False,
-                                            json=as_json))
+        cli = importlib.import_module(
+            M.fsck.__name__.rpartition(".")[0] + ".cli")
+        rc = cli.main(["fsck", path] + (["--json"] if as_json else []))
         out[M.name] = (rc, capsys.readouterr())
     assert out["port"] == out["jax"]
     return out["port"][0], out["port"][1].out

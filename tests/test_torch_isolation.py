@@ -78,7 +78,10 @@ def test_scan_covers_the_package():
                 "fs_crash.py", "fs_objstore.py", "table/__init__.py",
                 "table/expressions.py", "table/api.py", "table/sql.py",
                 "connectors.py", "formats.py", "fsck.py",
-                "exchange/blocking.py", "runtime/scheduler.py"):
+                "exchange/blocking.py", "runtime/scheduler.py",
+                "runtime/rpc.py", "runtime/blob.py",
+                "runtime/provisioner.py", "runtime/coordinator.py",
+                "runtime/runner.py", "cli.py", "__main__.py"):
         assert f"flink_tpu_torch/{mod}" in files
     assert "chip_smoke.py" in files
 
@@ -165,3 +168,30 @@ def test_the_rescale_worker_path_imports_no_jax():
     assert proc.returncode == 2, proc.stderr[-2000:]
     assert "no CUDA device" in proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_the_control_plane_imports_no_jax_and_a_card_runner_refuses():
+    """The coordinator, the runner and the command line load without jax
+    or flink_tpu; a runner asked for ``cuda`` without a card exits
+    non-zero at start, before it registers anywhere."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import flink_tpu_torch.cli, flink_tpu_torch.runtime.coordinator\n"
+        "import flink_tpu_torch.runtime.runner, flink_tpu_torch.runtime.blob\n"
+        "import flink_tpu_torch.runtime.provisioner\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flink_tpu'))\n"
+        "assert not bad, bad\n" % ROOT)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    proc = subprocess.run(
+        [sys.executable, "-m", "flink_tpu_torch.runtime.runner",
+         "--coordinator", "127.0.0.1:9"], capture_output=True, text=True,
+        timeout=120, cwd=ROOT, env=env)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr

@@ -292,3 +292,39 @@ def test_cpu_tensors_take_the_plain_version():
     wk.scatter_counts(c, torch.tensor([0, 9, 9], dtype=torch.int32))
     assert c.view(-1)[9] == 2
     assert all(v == 0 for v in wk.LAUNCHES.values())
+
+
+def test_a_build_publishes_the_library_whole(monkeypatch, tmp_path):
+    """Two processes on one card may both build a source at first use:
+    each compiles into a name of its own (``<lib>.<pid>.tmp``) and
+    publishes with ``os.replace``, so a loader only ever finds a whole
+    library at the final name; a build that finds one there starts no
+    compile."""
+    import os
+    import subprocess
+
+    from flink_tpu_torch.kernels import build
+
+    seen = []
+
+    class FakeCompile:
+        def __init__(self, cmd, **kw):
+            out = cmd[cmd.index("-o") + 1]
+            seen.append((out, os.path.exists(build.library_path("window_kernels"))))
+            with open(out, "wb") as f:
+                f.write(b"whole")
+            self.returncode = 0
+
+        def communicate(self):
+            return "", ""
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FakeCompile)
+    final = build.library_path("window_kernels")
+    build.build_all(["window_kernels"])
+    [(tmp, existed)] = seen
+    assert tmp == f"{final}.{os.getpid()}.tmp" and not existed
+    assert open(final, "rb").read() == b"whole" and not os.path.exists(tmp)
+    build.build_all(["window_kernels"])   # published: no second compile
+    assert len(seen) == 1

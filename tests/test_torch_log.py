@@ -8,9 +8,9 @@ cases: a topic written by either package is read by the other, plain,
 compacted and on ``objstore://``, and a port job consumes a topic the
 reference produced.
 
-``TestCliChainSmoke`` (two ``python -m flink_tpu run --local`` jobs
-chained through a topic, and the ``log`` command) waits for the port's
-CLI, ROADMAP.md queue 1 item 10."""
+``TestCliChainSmoke``: two ``run --local`` jobs of the port's command
+line (on the CPU) chained through a topic, and its ``log`` command; the
+consumer's committed output equals the reference job's golden."""
 import os
 
 import numpy as np
@@ -569,3 +569,56 @@ def test_a_log_fed_job_asked_for_the_card_without_one_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         env.execute("log-on-cuda")
     assert scrub(LP.log.describe_topic(topic))["groups"] == {}
+
+
+class TestCliChainSmoke:
+    """Two ``flink_tpu_torch run --local`` jobs chained through a log
+    topic; the consumer's committed FileSink output is diffed against
+    independently computed counts (the reference job's)."""
+
+    def _cli(self, capsys, *argv):
+        import json
+
+        from flink_tpu_torch.cli import main as cli_main
+
+        rc = cli_main(list(argv))
+        out = capsys.readouterr().out.strip().splitlines()
+        return rc, json.loads(out[-1]) if out else {}
+
+    def test_two_local_jobs_chained_through_topic(self, tmp_path, capsys):
+        import runner_job_log_chain as ref_jobs
+        import test_torch_runner_jobs as jobs
+
+        log_dir = str(tmp_path / "logroot")
+        sink_dir = str(tmp_path / "sink")
+        n = 5
+        rc, out = self._cli(
+            capsys, "run", "--local", "--device", "cpu",
+            "--entry", "test_torch_runner_jobs:produce",
+            "--job-id", "chain-a",
+            "--conf", f"log.dir={log_dir}",
+            "--conf", "log.partitions=2",
+            "--conf", f"test.n-batches={n}")
+        assert rc == 0 and out["state"] == "FINISHED"
+        assert out["records_in"] == n * ref_jobs.BATCH
+
+        rc, out = self._cli(
+            capsys, "run", "--local", "--device", "cpu",
+            "--entry", "test_torch_runner_jobs:consume",
+            "--job-id", "chain-b",
+            "--conf", f"log.dir={log_dir}",
+            "--conf", f"test.sink-dir={sink_dir}",
+            "--conf", "state.num-key-shards=8",
+            "--conf", "state.slots-per-shard=64")
+        assert rc == 0 and out["state"] == "FINISHED"
+        assert out["records_in"] == n * ref_jobs.BATCH
+
+        rc, topic_info = self._cli(
+            capsys, "log", os.path.join(log_dir, ref_jobs.TOPIC))
+        assert rc == 0
+        assert topic_info["partitions"] == 2
+        assert topic_info["committed_records"] == n * ref_jobs.BATCH
+        assert topic_info["staged_transactions"] == []
+
+        got = jobs.read_committed_counts(sink_dir)
+        assert got == ref_jobs.expected_counts(n) and len(got) > 0

@@ -373,12 +373,14 @@ def test_missing_aux_is_loud(tmp_path):
 def test_lsm_on_a_mesh_names_its_item(tmp_path):
     from flink_tpu_torch.parallel.mesh import make_mesh_plan
 
+    # item 9.2 is ported: the mesh takes the disk tier as its store
+    # (tests/test_torch_mesh_spill.py runs it against the reference)
     store = mk_store(PORT, tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9.2"):
-        WindowOperator(PORT["tumbling"].of(1_000), ta.count(),
-                       spill_store=store,
-                       mesh_plan=make_mesh_plan(8, 16, ["cpu"] * 4),
-                       device="cpu")
+    op = WindowOperator(PORT["tumbling"].of(1_000), ta.count(),
+                        spill_store=store,
+                        mesh_plan=make_mesh_plan(8, 16, ["cpu"] * 4),
+                        device="cpu")
+    assert op._spill is store and len(op._blocks) == 4
 
 
 def test_ram_store_accounting_is_the_reference_stores():

@@ -359,13 +359,15 @@ def test_execute_builds_the_mesh(monkeypatch):
 
 def test_refusals():
     mesh = port_mesh(N_DEV, 32, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WindowOperator(TumblingEventTimeWindows.of(1000),
-                       ta.multi(ta.count(), ta.max_of("v")),
-                       top_n=("max_v", 1), mesh_plan=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WindowOperator(TumblingEventTimeWindows.of(1000), ta.count(),
-                       spill=True, mesh_plan=mesh, device="cpu")
+    # a top-n by a result field over lanes and the spill store are taken
+    # on a mesh (tests/test_torch_mesh_topn_lanes.py, _mesh_spill.py)
+    op = WindowOperator(TumblingEventTimeWindows.of(1000),
+                        ta.multi(ta.count(), ta.max_of("v")),
+                        top_n=("max_v", 1), mesh_plan=mesh, device="cpu")
+    assert op._topn_lanes and op.mesh_plan is mesh
+    op = WindowOperator(TumblingEventTimeWindows.of(1000), ta.count(),
+                        spill=True, mesh_plan=mesh, device="cpu")
+    assert op._spill is not None
     with pytest.raises(ValueError, match="unknown exchange"):
         WindowOperator(TumblingEventTimeWindows.of(1000), ta.count(),
                        mesh_plan=mesh, exchange_impl="bus", device="cpu")

@@ -432,18 +432,18 @@ def test_host_keys_are_read_and_take_effect(workers):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("heartbeat.timeout", "queue 1 item 10"),
-    ("source.enumeration", "queue 1 item 10"),
-    ("rescale.mode", "queue 1 item 10"),
+    ("session.runner-slots", "queue 1 item 10.2"),
+    ("session.max-jobs", "queue 1 item 10.2"),
+    ("session.autoscale", "queue 1 item 10.2"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
-    ("cluster.job-id", "queue 1 item 10"),
-    ("heartbeat.interval", "queue 1 item 10"),
+    ("session.min-runners", "queue 1 item 10.2"),
+    ("session.ha.standby", "queue 1 item 10.2"),
     ("pipeline.profile-steps", "queue 1 item 11"),
-    ("cluster.dcn-host", "queue 1 item 10"),
-    ("cluster.dcn-rendezvous", "queue 1 item 10"),
-    ("session.slots-per-job", "queue 1 item 10"),
-    ("high-availability.dir", "queue 1 item 10"),
-    ("cluster.attempt", "queue 1 item 10"),
+    ("high-availability.lease-timeout", "queue 1 item 10.2"),
+    ("session.fair-drain", "queue 1 item 10.2"),
+    ("session.slots-per-job", "queue 1 item 10.2"),
+    ("high-availability.dir", "queue 1 item 10.2"),
+    ("session.concurrent-jobs", "queue 1 item 10.2"),
     ("pipeline.profile-dir", "queue 1 item 11"),
 ])
 def test_keys_of_later_items_name_their_item(key, item):
@@ -453,7 +453,7 @@ def test_keys_of_later_items_name_their_item(key, item):
     from flink_tpu import config as jc
     from flink_tpu_torch.config import Configuration
 
-    assert key in jc._REGISTRY or key == "cluster.attempt"
+    assert key in jc._REGISTRY
     with pytest.raises(NotImplementedError, match=f"{key} .*{item}"):
         Configuration({key: "1"}).validate()
     with pytest.raises(ValueError, match="not supported"):
@@ -465,11 +465,18 @@ def test_keys_of_later_items_name_their_item(key, item):
     "state.lsm.dir", "state.lsm.compact-min-runs",
     "state.lsm.run-floor-bytes", "cluster.rescale-from", "plugins.modules",
     "execution.runtime-mode", "execution.batch.shuffle-dir",
-    "execution.batch.shuffle-partitions", "execution.batch.shuffle-cleanup"])
+    "execution.batch.shuffle-partitions", "execution.batch.shuffle-cleanup",
+    "heartbeat.timeout", "heartbeat.interval", "source.enumeration",
+    "rescale.mode", "rescale.target-pressure-high",
+    "rescale.target-pressure-low", "rescale.sustained-window",
+    "rescale.cooldown", "rescale.min-devices", "rescale.max-devices",
+    "cluster.job-id", "cluster.attempt", "cluster.coordinator",
+    "cluster.runner-id", "cluster.dcn-host", "cluster.dcn-rendezvous"])
 def test_ported_keys_take_the_reference_default_and_text(key):
     """The keys of the debloater, the LSM tier, the rescale restore, the
-    filesystem plugins and batch mode are read by the port, with the JAX
-    package's default and description."""
+    filesystem plugins, batch mode and the job coordinator and its
+    runners are read by the port, with the JAX package's default and
+    description."""
     from flink_tpu import config as jc
     from flink_tpu_torch import config as pc
 

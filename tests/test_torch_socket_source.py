@@ -6,8 +6,9 @@ payload, cut in awkward chunks, comes back whole from every reader, and
 a windowed count over TCP commits the reference's rows. Every listener
 is closed by the end of its case.
 
-``test_finished_runners_reset_on_restart`` (the job coordinator) waits
-for ROADMAP.md queue 1 item 10."""
+``test_finished_runners_reset_on_restart`` holds the port's job
+coordinator to the reference's: a job split over two runners finishes
+once both report done, and a restart clears the runners that had."""
 import socket
 import threading
 import time
@@ -131,3 +132,28 @@ def test_windowed_count_over_tcp():
         kk = (int(k), (int(t) // 1000 + 1) * 1000)
         golden[kk] = golden.get(kk, 0) + 1
     assert got["port"] == got["jax"] == golden
+
+
+@pytest.mark.parametrize("pkg", ["flink_tpu", "flink_tpu_torch"])
+def test_finished_runners_reset_on_restart(pkg):
+    import importlib
+
+    coordinator = importlib.import_module(f"{pkg}.runtime.coordinator")
+    config = importlib.import_module(f"{pkg}.config")
+    coord = coordinator.JobCoordinator(config.Configuration({}))
+    try:
+        for r in ("a", "b"):
+            coord.rpc_register_runner(r, "h", 1)
+        coord.rpc_submit_job("j", runners=["a", "b"])
+        coord.rpc_finish_job("j", runner_id="a")
+        assert coord.rpc_job_status("j")["state"] == "RUNNING"
+        coord.rpc_report_failure("j", "b crashed")
+        assert coord.jobs["j"].finished_runners == []
+        # attempt 2: BOTH must finish again
+        coord.jobs["j"].state = "RUNNING"
+        coord.rpc_finish_job("j", runner_id="b")
+        assert coord.rpc_job_status("j")["state"] == "RUNNING"
+        coord.rpc_finish_job("j", runner_id="a")
+        assert coord.rpc_job_status("j")["state"] == "FINISHED"
+    finally:
+        coord.close()

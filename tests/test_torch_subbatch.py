@@ -13,9 +13,10 @@ WordCount and sessions runners. ``TestSubbatchChaosK4`` runs the
 sessions job at K = 4 and ``host.parallelism`` 4 under a
 ``host.pool.task`` and a checkpoint-storage fault: its committed rows
 equal the fault-free run's at the same K, and the reference's. Every
-comparison is exact: integer counts. The CLI case waits for the CLI
-(ROADMAP.md queue 1 item 10) and the analyzer cases for the analyzer
-(item 11)."""
+comparison is exact: integer counts. ``TestCliSmoke`` runs WordCount at
+``pipeline.sub-batches=4`` through ``python -m flink_tpu_torch run
+--local`` on the CPU; the analyzer cases wait for the analyzer
+(ROADMAP.md queue 1 item 11)."""
 import collections
 
 import numpy as np
@@ -540,3 +541,19 @@ def test_sessions_chaos_exactly_once_at_k4(tmp_path):
     assert session_view(sink) == golden
     assert len(tracer.spans("fault")) == len(plan.log) == 2
     assert 1 <= len(tracer.spans("recovery")) <= 2
+
+
+class TestCliSmoke:
+    def test_wordcount_sub_batches_via_cli(self, tmp_path):
+        """Bounded WordCount end to end with ``pipeline.sub-batches=4``
+        through ``python -m flink_tpu_torch run --local``: the same
+        committed total the reference job's K = 1 golden computes."""
+        import runner_job_wordcount as job
+        from test_torch_batch_mode import cli_wordcount_total
+
+        out, total = cli_wordcount_total(
+            tmp_path, "--job-id", "cli-sub-wc",
+            "--conf", "pipeline.sub-batches=4")
+        assert out["state"] == "FINISHED"
+        assert out["records_in"] == 6 * job.BATCH
+        assert total == job.golden_total(6)
