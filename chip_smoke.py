@@ -408,6 +408,33 @@ mesh).
    2^20 words at ``confs/bench_wordcount.conf``) into a columnar
    ``FileSink``, against ``wordcount_golden``.
 
+29. ``session_ha`` (``--session-ha``; after ``control``) — the session
+   cluster and HA, on ``cuda:0``, at the reference CLI smoke's timeouts
+   (heartbeat 200 ms, lease 700 ms, re-attach grace 1500 ms). First Q5
+   host-fed (16 x 2^20 bids, ``chip_smoke:session_q5_job``) and WordCount
+   (8 x 2^20 words, ``chip_smoke:session_wordcount_job``) deployed
+   unpaced into an in-process session cluster (one runner,
+   ``session.runner-slots`` 2): after a one-batch warm-up of both, each
+   alone, then both together (deploy to finish events/s). (a) ``python -m flink_tpu_torch session start
+   --ha-dir D --local-runners 1 --device cuda`` and a ``--standby``
+   twin; both jobs submitted through the lease, co-resident in the
+   leader's runner with ``session.fair-drain`` on and a checkpoint at
+   every batch (their sources paced 0.25 s and 0.5 s a batch, so both
+   span the kill); the leader SIGKILLed after Q5's checkpoint 6; the
+   standby, elected at epoch 2, redeploys both from their latest
+   checkpoints. Printed: kill -> elected and kill -> each job's first
+   batch s. (b) ``python -m flink_tpu_torch coordinator --ha-dir D
+   --rest-port P`` with a standby and one ``runner --ha-dir D --device
+   cuda`` running Q5 host-fed (32 x 2^20 bids paced 0.25 s a batch); the
+   leader SIGKILLed after checkpoint 4; the runner follows the new
+   leader, the job is re-adopted at attempt 1 (no restore), and the new
+   leader's REST lists it RUNNING, returns a flame graph and completes
+   a savepoint that ``fsck`` finds clean. Printed: the beat gap (kill to
+   the runner's registration at the new leader), kill -> re-adopted s,
+   the attempts. Every golden row once, each runner's ``n_devices`` the
+   card count, and each job's process launches (written beside its sink)
+   holding its path's kernels.
+
 Every line the script prints also goes to
 ``chiprun_out/chip_smoke_phases.jsonl``, with the kernels' per-path
 detail (``kernels_detail``) that the printed ``kernels`` line leaves out.
@@ -491,6 +518,8 @@ copied in and run both in one call, in turns. The rows:
   events/s a run (a tree beside its parent, in turns).
 
 With ``--checkpoint`` it builds the kernels and runs only phase 15.
+With ``--control`` it builds the kernels and runs only phase 28, with
+``--session-ha`` phase 29.
 With ``--state-tiers`` it builds the kernels and runs only phase 21,
 with ``--host-patterns`` phase 22, with ``--rescale`` phase 23 and with
 ``--sql`` phase 24.
@@ -3750,18 +3779,19 @@ def busy_and_host(res):
     return busy, host
 
 
-def wordcount_source(np, n_batches):
+def wordcount_source(np, n_batches, batch=WC_BATCH):
     """bench.py:441-478's WordCount source: 2^20 word ids a batch,
-    floor(u^2 * 30,000) from default_rng(i), ts = (i * 2^20 + j) // 100."""
+    floor(u^2 * 30,000) from default_rng(i), ts = (i * 2^20 + j) // 100
+    (``batch`` words a batch where a smaller run asks)."""
     from flink_tpu_torch.api.sources import GeneratorSource
 
     def gen(split, i):
         if i >= n_batches:
             return None
         rng = np.random.default_rng(i)
-        u = rng.random(WC_BATCH)
+        u = rng.random(batch)
         words = (u * u * WC_VOCAB).astype(np.int64)
-        ts = (i * WC_BATCH + np.arange(WC_BATCH, dtype=np.int64)) // 100
+        ts = (i * batch + np.arange(batch, dtype=np.int64)) // 100
         return ({"word": words}, ts)
     return GeneratorSource(gen), gen
 
@@ -3795,10 +3825,10 @@ def run_wordcount(torch, np, n_batches, label):
     return rows, dict(wk.LAUNCHES), res, wall
 
 
-def wordcount_golden(np, n_batches):
+def wordcount_golden(np, n_batches, batch=WC_BATCH):
     """Per-(word, 1 s window) counts of the first ``n_batches`` batches,
     as (key, window_end, count) sorted by (window_end, key)."""
-    _, gen = wordcount_source(np, n_batches)
+    _, gen = wordcount_source(np, n_batches, batch)
     hist = None
     for i in range(n_batches):
         words, ts = gen("0", i)
@@ -9580,6 +9610,656 @@ def phase_control(torch, np):
     emit(out)
 
 
+# -- the session cluster and HA on the card ----------------------------------
+
+SESSION_HA_Q5_BATCHES = 16      # Q5 host-fed in the session, 2^20 bids
+SESSION_HA_WC_BATCHES = 8       # WordCount in the session, 2^20 words
+SESSION_HA_KILL_AFTER = 6       # SIGKILL the leader after Q5's checkpoint 6
+SESSION_HA_Q5_PACE_S = 0.25     # (a)'s sources paced so both jobs span
+SESSION_HA_WC_PACE_S = 0.5      # the kill
+SESSION_HA_B_BATCHES = 32       # (b): Q5 host-fed under an HA coordinator
+SESSION_HA_B_PACE_S = 0.25      # long enough for REST while it runs
+SESSION_HA_B_KILL_AFTER = 4
+SESSION_HA_TIMEOUT_S = 300
+# the reference CLI smoke's timeouts (tests/test_session_ha.py:775-780)
+SESSION_HA_CONF = ("heartbeat.interval=200ms",
+                   "high-availability.lease-timeout=700ms",
+                   "session.ha.reattach-grace=1500ms")
+SESSION_HA_Q5_KERNELS = ("fused_step", "window_counts", "topn_select_append",
+                         "ring_columns")
+SESSION_HA_WC_KERNELS = ("scatter_counts", "fire_pack")
+
+
+def _smoke_params(env) -> dict:
+    """A deployed job's ``smoke.*`` parameters, taken out of its
+    configuration (the port refuses keys it does not read)."""
+    values = env.config._values
+    return {k: values.pop(k) for k in [k for k in values
+                                        if k.startswith("smoke.")]}
+
+
+def _paced(gen, pace_s):
+    """``gen`` with a pause before each batch: a live stream's arrival."""
+    if not pace_s:
+        return gen
+
+    def paced(split, i):
+        time.sleep(pace_s)
+        return gen(split, i)
+    return paced
+
+
+def _launches_beside(sink, hook, sink_dir):
+    """After each commit (``hook``), write this process's
+    ``window_kernels.LAUNCHES`` delta since the job was built beside the
+    sink: ``<sink_dir>.launches-<pid>.json``."""
+    from flink_tpu_torch.kernels import window_kernels as wk
+
+    base, t_build = dict(wk.LAUNCHES), time.time()
+    path = f"{sink_dir.rstrip('/')}.launches-{os.getpid()}.json"
+    commit = getattr(sink, hook)
+
+    def committed(cid, *args, **kw):
+        commit(cid, *args, **kw)
+        rec = {"pid": os.getpid(), "t_build": t_build,
+               "t_commit": time.time(), "checkpoint": cid,
+               "launches": {k: v - base.get(k, 0)
+                            for k, v in wk.LAUNCHES.items()}}
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+    setattr(sink, hook, committed)
+    return sink
+
+
+def session_q5_job(env):
+    """The session phase's Q5 (``chip_smoke:session_q5_job``): host-fed
+    on ``smoke.batches`` x ``smoke.batch`` bids (2^20 by default), paced
+    ``smoke.pace-s`` a batch, into a FileTransactionalSink at
+    ``smoke.sink``, its process's launches written beside it."""
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.nexmark.generator import bid_stream
+    from flink_tpu_torch.nexmark.queries import q5_hot_items
+
+    p = _smoke_params(env)
+    src = bid_stream(dataclasses.replace(
+        bids_cfg(int(p["smoke.batches"])),
+        batch_size=int(p.get("smoke.batch", Q5_BATCH))))
+    sink = FileTransactionalSink(p["smoke.sink"])
+    q5_hot_items(env, GeneratorSource(
+        _paced(src.gen, float(p.get("smoke.pace-s", 0))),
+        n_splits=src.n_splits),
+        _launches_beside(sink, "notify_checkpoint_complete", p["smoke.sink"]),
+        window_ms=10_000, slide_ms=1_000, out_of_orderness_ms=1_000)
+
+
+def session_wordcount_job(env):
+    """The session phase's WordCount (``chip_smoke:session_wordcount_job``):
+    ``smoke.batches`` x ``smoke.batch`` words (2^20 by default), paced
+    ``smoke.pace-s`` a batch, into a columnar FileSink at ``smoke.sink``,
+    its process's launches written beside it."""
+    import numpy as np
+
+    from flink_tpu_torch.api.sources import GeneratorSource
+    from flink_tpu_torch.api.windowing import TumblingEventTimeWindows
+    from flink_tpu_torch.connectors import FileSink
+    from flink_tpu_torch.formats_columnar import ColumnarFormat
+    from flink_tpu_torch.time.watermarks import WatermarkStrategy
+
+    p = _smoke_params(env)
+    _, gen = wordcount_source(np, int(p["smoke.batches"]),
+                              int(p.get("smoke.batch", WC_BATCH)))
+    sink = FileSink(p["smoke.sink"], ColumnarFormat(WC_SINK_SCHEMA))
+    (env.from_source(GeneratorSource(_paced(gen, float(p.get("smoke.pace-s",
+                                                             0)))),
+                     WatermarkStrategy.for_bounded_out_of_orderness(0))
+     .key_by("word").window(TumblingEventTimeWindows.of(1000)).count()
+     .add_sink(_launches_beside(sink, "commit_transaction", p["smoke.sink"])))
+
+
+class _Lines:
+    """A child process's stdout, each line stamped on arrival and copied
+    to a log file."""
+
+    def __init__(self, proc, log_path):
+        import threading
+
+        self.lines = []
+        self._cond = threading.Condition()
+        self._log = log_path
+
+        def pump():
+            with open(log_path, "w") as log:
+                for line in proc.stdout:
+                    log.write(line)
+                    log.flush()
+                    with self._cond:
+                        self.lines.append((time.perf_counter(), line))
+                        self._cond.notify_all()
+        threading.Thread(target=pump, daemon=True).start()
+
+    def wait(self, pred, what, timeout=SESSION_HA_TIMEOUT_S, after=0):
+        """The first line from index ``after`` on that ``pred`` accepts,
+        as (arrival time, line)."""
+        deadline = time.time() + timeout
+        with self._cond:
+            i = after
+            while True:
+                while i < len(self.lines):
+                    t, line = self.lines[i]
+                    i += 1
+                    if pred(line):
+                        return t, line
+                left = deadline - time.time()
+                if left <= 0:
+                    raise RuntimeError(f"session_ha: no {what} line "
+                                       f"(see {self._log})")
+                self._cond.wait(left)
+
+    def json(self, key, what, **kw):
+        def has(line):
+            line = line.strip()
+            return line.startswith("{") and key in json.loads(line)
+        t, line = self.wait(has, what, **kw)
+        return t, json.loads(line)
+
+
+def _wait(pred, what, timeout=SESSION_HA_TIMEOUT_S, poll=0.05):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if pred():
+            return time.perf_counter()
+        time.sleep(poll)
+    raise RuntimeError(f"session_ha: timed out waiting for {what}")
+
+
+def _newest_checkpoint(chk, job_id):
+    """The newest completed checkpoint's id (0 before the first). A
+    listing that races the job's retirement of an old checkpoint is
+    read again."""
+    from flink_tpu_torch.checkpoint.storage import FsCheckpointStorage
+
+    for _ in range(100):
+        try:
+            done = FsCheckpointStorage(chk, job_id).list_complete()
+        except FileNotFoundError:
+            time.sleep(0.01)
+            continue
+        return max((h.checkpoint_id for h in done), default=0)
+    raise RuntimeError(f"session_ha: {chk} kept changing under its listing")
+
+
+def _launch_files(sink_dir):
+    """{pid: the newest record} of the launches files beside a sink."""
+    import glob
+
+    out = {}
+    for path in glob.glob(f"{sink_dir}.launches-*.json"):
+        with open(path) as f:
+            rec = json.load(f)
+        out[rec["pid"]] = rec
+    return out
+
+
+def _q5_sink_rows(sink_dir):
+    from flink_tpu_torch.api.sinks import FileTransactionalSink
+
+    return [(int(r["auction"]), int(r["window_end"]), int(r["bid_count"]))
+            for r in FileTransactionalSink.committed_rows(sink_dir)]
+
+
+def _wc_sink_rows(np, sink_dir):
+    from flink_tpu_torch.connectors import FileSink
+    from flink_tpu_torch.formats_columnar import ColumnarFormat
+
+    parts = FileSink(sink_dir, ColumnarFormat(WC_SINK_SCHEMA)
+                     ).committed_batches()
+    key, end, cnt = (np.concatenate([p[k] for p in parts]).astype(np.int64)
+                     if parts else np.zeros(0, np.int64)
+                     for k in ("key", "window_end", "count"))
+    return key, end, cnt.astype(np.int32)
+
+
+def _job_conf(conf_file, extra):
+    from flink_tpu_torch.config import Configuration
+
+    conf = Configuration.from_file(
+        os.path.join(ROOT, "confs", conf_file)).to_dict()
+    conf.update(extra)
+    return conf
+
+
+def session_rates(torch, np, work, device="cuda", batch=None):
+    """Q5 and WordCount deployed unpaced into an in-process session
+    cluster on ``device`` (one runner, ``session.runner-slots`` 2, so
+    each job takes a half share), after a one-batch warm-up of both,
+    alone and then together: deploy to finish events/s a job, and the
+    pair's events over the span from the first deploy to the last
+    finish. Rows are checked later against the goldens (their sinks
+    under ``work``)."""
+    from flink_tpu_torch.config import Configuration
+    from flink_tpu_torch.runtime.session import LocalSessionCluster
+
+    jobs = {
+        "q5": ("chip_smoke:session_q5_job", "bench_q5_host_fed.conf",
+               SESSION_HA_Q5_BATCHES, batch or Q5_BATCH),
+        "wc": ("chip_smoke:session_wordcount_job", "bench_wordcount.conf",
+               SESSION_HA_WC_BATCHES, batch or WC_BATCH)}
+    out, sinks = {}, {}
+    with LocalSessionCluster(Configuration({
+            "heartbeat.interval": "200ms", "session.autoscale": False,
+            "session.runner-slots": 2}), runners=1, device=device) as c:
+        for run, names in (("warmup", ("q5", "wc")),
+                           ("q5_alone", ("q5",)), ("wc_alone", ("wc",)),
+                           ("together", ("q5", "wc"))):
+            ids = {}
+            for name in names:
+                entry, conf_file, n, b = jobs[name]
+                jid = f"rate-{run}-{name}"
+                sink = os.path.join(work, jid)
+                if run != "warmup":
+                    sinks[jid] = (name, sink)
+                ids[name] = jid
+                r = c.submit(entry, job_id=jid, config=_job_conf(
+                    conf_file, {"smoke.batches": 1 if run == "warmup"
+                                else n, "smoke.batch": b,
+                                "smoke.sink": sink}))
+                check(r.get("admitted"), f"session_ha: {jid} refused: {r}")
+            for jid in ids.values():
+                state = c.wait(jid, timeout=SESSION_HA_TIMEOUT_S)
+                check(state == "FINISHED", f"session_ha: {jid} {state}")
+            if run == "warmup":
+                continue
+            info = {name: c.dispatcher.jobs[jid] for name, jid in ids.items()}
+            rec = {}
+            for name, j in info.items():
+                events = jobs[name][2] * jobs[name][3]
+                rec[name] = {"events": events,
+                             "deploy_to_finish_s": j.finished_at - j.started_at,
+                             "events_per_s": events
+                             / (j.finished_at - j.started_at)}
+            if len(info) > 1:
+                span = (max(j.finished_at for j in info.values())
+                        - min(j.started_at for j in info.values()))
+                rec["pair_events_per_s"] = sum(
+                    r["events"] for r in rec.values()) / span
+                rec["span_s"] = span
+            out[run] = rec
+        n_dev = {rid: r.n_devices for rid, r in c.dispatcher.runners.items()}
+    return out, sinks, n_dev
+
+
+def session_leader_kill(torch, np, work, logs, env, device="cuda",
+                        batch=None):
+    """Part (a): a session leader (``session start --ha-dir D
+    --local-runners 1``) and a ``--standby`` twin; Q5 and WordCount
+    co-resident in the leader's runner (``session.fair-drain`` stamped by
+    the admission); the leader SIGKILLed after Q5's checkpoint
+    SESSION_HA_KILL_AFTER; the standby elected at epoch 2 redeploys both
+    from their latest checkpoints."""
+    import signal
+
+    from flink_tpu_torch.cli import _SessionClient
+
+    kill_after = SESSION_HA_KILL_AFTER
+    ha, chk = os.path.join(work, "ha-a"), os.path.join(work, "chk-a")
+    common = ["--ha-dir", ha, "--local-runners", "1", "--device", device,
+              "--conf", "session.autoscale=false",
+              "--conf", "session.runner-slots=2"]
+    for kv in SESSION_HA_CONF:
+        common += ["--conf", kv]
+    procs, out = {}, {}
+
+    def start(name, *extra):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "flink_tpu_torch", "session", "start",
+             *extra, *common], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        return _Lines(procs[name], os.path.join(logs, f"a-{name}.log"))
+
+    client = _SessionClient(None, ha)
+    try:
+        t0 = time.perf_counter()
+        leader = start("leader")
+        _, elected = leader.json("elected", "leader elected")
+        check(elected["epoch"] == 1, f"session_ha: leader {elected}")
+        _wait(lambda: len(client.call("list_runners")) == 1,
+              "the leader's runner")
+        out["leader_runner_up_s"] = time.perf_counter() - t0
+        n_dev = {"leader": client.call("list_runners")}
+        standby = start("standby", "--standby")
+        _, line = standby.json("session", "standby serving line")
+        check(line.get("standby") is True, f"session_ha: standby {line}")
+        standby.wait(lambda l: "contending" in l, "standby contending")
+        jobs = {"sq5": ("chip_smoke:session_q5_job", "bench_q5_host_fed.conf",
+                        SESSION_HA_Q5_BATCHES, batch or Q5_BATCH,
+                        SESSION_HA_Q5_PACE_S),
+                "swc": ("chip_smoke:session_wordcount_job",
+                        "bench_wordcount.conf", SESSION_HA_WC_BATCHES,
+                        batch or WC_BATCH, SESSION_HA_WC_PACE_S)}
+        for jid, (entry, conf_file, n, b, pace) in jobs.items():
+            r = client.call("submit_session_job", job_id=jid, entry=entry,
+                            config=_job_conf(conf_file, {
+                                "execution.checkpointing.dir": chk,
+                                "execution.checkpointing.interval": 1,
+                                "smoke.batches": n, "smoke.batch": b,
+                                "smoke.pace-s": pace,
+                                "smoke.sink": os.path.join(work, jid)}))
+            check(r.get("admitted"), f"session_ha: {jid} refused: {r}")
+        newest = {jid: (lambda jid=jid: _newest_checkpoint(
+            os.path.join(chk, jid), jid)) for jid in jobs}
+        _wait(lambda: newest["sq5"]() >= kill_after
+              and newest["swc"]() >= 1,
+              f"Q5's checkpoint {kill_after} and WordCount's first")
+        view = {j["job_id"]: j for j in client.call("session_jobs")["jobs"]}
+        check(all(view[j]["state"] == "RUNNING" for j in jobs)
+              and view["sq5"]["runners"] == view["swc"]["runners"],
+              f"session_ha: not both running in one runner at the kill: "
+              f"{ {j: (v['state'], v['runners']) for j, v in view.items()} }")
+        at_kill = {jid: newest[jid]() for jid in jobs}
+        n_lines = len(standby.lines)
+        check(not any('"elected"' in line for _, line in standby.lines)
+              and not any("revoked" in line for _, line in leader.lines),
+              "session_ha: the lease changed hands before the kill (see "
+              "the logs under chiprun_out/session_ha/)")
+        procs["leader"].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        procs["leader"].wait(timeout=30)
+        t_elected, elected = standby.json("elected", "standby elected",
+                                          after=n_lines)
+        check(elected["epoch"] == 2 and elected["recovered_jobs"] == 2,
+              f"session_ha: standby {elected}")
+        t_first = {jid: _wait(lambda jid=jid: newest[jid]() > at_kill[jid],
+                              f"{jid}'s first batch after the takeover")
+                   for jid in jobs}
+
+        def finished():
+            states = {j["job_id"]: j["state"]
+                      for j in client.call("session_jobs")["jobs"]}
+            check("FAILED" not in states.values(), f"session_ha: {states}")
+            return all(states.get(j) == "FINISHED" for j in jobs)
+        t_done = _wait(finished, "both jobs to finish")
+        view = {j["job_id"]: j for j in client.call("session_jobs")["jobs"]}
+        n_dev["standby"] = client.call("list_runners")
+        info = client.call("session_info")
+        check(info["leader_epoch"] == 2 and info["takeovers"] == 1,
+              f"session_ha: session info {info}")
+        stop = client.call("stop_session")
+        check(stop.get("ok"), f"session_ha: stop {stop}")
+        check(procs["standby"].wait(timeout=60) == 0,
+              "session_ha: the standby did not exit 0 after session stop")
+        out.update({
+            "killed_after_checkpoint": at_kill,
+            "kill_to_elected_s": t_elected - t_kill,
+            "kill_to_first_batch_s": {j: t - t_kill
+                                      for j, t in t_first.items()},
+            "kill_to_finished_s": t_done - t_kill,
+            "attempts": {j: view[j]["attempts"] for j in jobs},
+            "checkpoints_completed": {j: newest[j]() for j in jobs},
+            "leader_epoch": info["leader_epoch"],
+            "takeovers": info["takeovers"],
+            "runner_n_devices": {k: {r: v["n_devices"] for r, v in d.items()}
+                                 for k, d in n_dev.items()}})
+        return out, {"sq5": os.path.join(work, "sq5"),
+                     "swc": os.path.join(work, "swc")}
+    finally:
+        client.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+
+
+def coordinator_reattach(torch, np, work, logs, env, device="cuda",
+                         batch=None):
+    """Part (b): ``coordinator --ha-dir D --rest-port P`` and a standby
+    twin, one external ``runner --ha-dir D`` running Q5 host-fed; the
+    leader coordinator SIGKILLed mid-job; the runner follows the new
+    leader and the job is re-adopted at attempt 1 (no restore). While it
+    runs, the new leader's REST lists it RUNNING, samples a flame graph
+    and completes a savepoint that fsck finds clean."""
+    import signal
+    import urllib.request
+
+    from flink_tpu_torch.fsck import fsck_path
+    from flink_tpu_torch.runtime.ha import leader_address
+    from flink_tpu_torch.runtime.rpc import RpcClient
+
+    kill_after = SESSION_HA_B_KILL_AFTER
+    ha, chk = os.path.join(work, "ha-b"), os.path.join(work, "chk-b")
+    pa, pb, ra, rb = free_ports(4)
+    conf = []
+    for kv in (*SESSION_HA_CONF, "restart-strategy.type=fixed-delay",
+               "restart-strategy.fixed-delay.attempts=3",
+               "restart-strategy.fixed-delay.delay=100ms"):
+        conf += ["--conf", kv]
+    procs, clients, out = {}, [], {}
+
+    def start(name, *argv):
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "flink_tpu_torch", *argv], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        return _Lines(procs[name], os.path.join(logs, f"b-{name}.log"))
+
+    def rpc(port):
+        c = RpcClient("127.0.0.1", port)
+        clients.append(c)
+        return c
+
+    def rest(method, path):
+        req = urllib.request.Request(f"http://127.0.0.1:{rb}{path}",
+                                     method=method)
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        a = start("coord-a", "coordinator", "--port", str(pa),
+                  "--rest-port", str(ra), "--ha-dir", ha, *conf)
+        a.wait(lambda l: "elected leader (epoch 1)" in l, "A elected")
+        b = start("coord-b", "coordinator", "--port", str(pb),
+                  "--rest-port", str(rb), "--ha-dir", ha, *conf)
+        b.wait(lambda l: "contending for leadership" in l, "B contending")
+        check(leader_address(ha) == f"127.0.0.1:{pa}",
+              f"session_ha: the lease names {leader_address(ha)}")
+        t0 = time.perf_counter()
+        start("runner", "runner", "--ha-dir", ha, "--device", device,
+              "--runner-id", "ext-0")
+        ca = rpc(pa)
+        _wait(lambda: "ext-0" in ca.call("list_runners"), "the runner")
+        out["runner_up_s"] = time.perf_counter() - t0
+        n_dev = {"leader": ca.call("list_runners")}
+        r = ca.call("submit_job", job_id="q5-ha",
+                    entry="chip_smoke:session_q5_job",
+                    config=_job_conf("bench_q5_host_fed.conf", {
+                        "execution.checkpointing.dir": chk,
+                        "execution.checkpointing.interval": 1,
+                        "smoke.batches": SESSION_HA_B_BATCHES,
+                        "smoke.batch": batch or Q5_BATCH,
+                        "smoke.pace-s": SESSION_HA_B_PACE_S,
+                        "smoke.sink": os.path.join(work, "q5-ha")}))
+        check(r.get("assigned") == ["ext-0"], f"session_ha: submit {r}")
+
+        def newest():
+            return _newest_checkpoint(chk, "q5-ha")
+        _wait(lambda: newest() >= kill_after, f"checkpoint {kill_after}")
+        at_kill = newest()
+        n_lines = len(b.lines)
+        procs["coord-a"].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        procs["coord-a"].wait(timeout=30)
+        t_elected, _ = b.wait(lambda l: "elected leader (epoch 2)" in l,
+                              "B elected", after=n_lines)
+        b.wait(lambda l: f"rest on :{rb}" in l, "B's REST", after=n_lines)
+        cb = rpc(pb)
+        t_reg = _wait(lambda: "ext-0" in cb.call("list_runners"),
+                      "the runner at the new leader", poll=0.01)
+
+        def readopted():
+            st = cb.call("job_status", job_id="q5-ha")
+            return st["state"] == "RUNNING" and st["attempts"] == 1
+        t_adopt = _wait(readopted, "the re-adoption", poll=0.01)
+        n_dev["standby"] = cb.call("list_runners")
+        code, listed = rest("GET", "/jobs")
+        running = {j["job_id"]: j["state"] for j in listed["jobs"]}
+        check(code == 200 and running.get("q5-ha") == "RUNNING",
+              f"session_ha: REST /jobs {code} {listed}")
+        code, flame = rest("GET", "/flamegraph?seconds=0.5&hz=50")
+        check(code == 200 and flame["samples"] > 0 and flame["stacks"],
+              f"session_ha: REST /flamegraph {code}")
+        code, sp = rest("POST", "/jobs/q5-ha/savepoints")
+        check(code == 202 and sp.get("ok"),
+              f"session_ha: REST savepoint {code} {sp}")
+        _wait(lambda: cb.call("job_status", job_id="q5-ha"
+                              ).get("last_savepoint"), "the savepoint")
+        savepoint = cb.call("job_status", job_id="q5-ha")["last_savepoint"]
+        findings = fsck_path(savepoint)
+        check(findings == [], f"session_ha: fsck {savepoint}: {findings}")
+        t_done = _wait(lambda: cb.call("job_status", job_id="q5-ha"
+                                       )["state"] == "FINISHED",
+                       "the job to finish")
+        st = cb.call("job_status", job_id="q5-ha")
+        check(st["attempts"] == 1, f"session_ha: attempts {st}")
+        check(newest() > at_kill, "session_ha: no checkpoint after the "
+              "takeover")
+        out.update({
+            "killed_after_checkpoint": at_kill,
+            "kill_to_elected_s": t_elected - t_kill,
+            "beat_gap_s": t_reg - t_kill,
+            "kill_to_readopted_s": t_adopt - t_kill,
+            "kill_to_finished_s": t_done - t_kill,
+            "attempts": st["attempts"],
+            "checkpoints_completed": newest(),
+            "rest": {"jobs": running["q5-ha"],
+                     "flamegraph_samples": flame["samples"],
+                     "flamegraph_stacks": len(flame["stacks"]),
+                     "savepoint": os.path.relpath(savepoint, work),
+                     "fsck_findings": len(findings)},
+            "runner_n_devices": {k: {r: v["n_devices"] for r, v in d.items()}
+                                 for k, d in n_dev.items()}})
+        return out, os.path.join(work, "q5-ha")
+    finally:
+        for c in clients:
+            c.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+
+
+def session_ha_checks(np, out, rate_sinks, a_sinks, b_sink, device_count,
+                      batch=None, on_card=True):
+    """Every committed row against its golden once each, the runners'
+    device counts, and each job's process launches beside its sink. The
+    goldens' numpy work comes after every timed run."""
+    q5_batches, b_batches = SESSION_HA_Q5_BATCHES, SESSION_HA_B_BATCHES
+
+    def q5_cfg(n):
+        return dataclasses.replace(bids_cfg(n), batch_size=batch or Q5_BATCH)
+
+    wc_golden = wordcount_golden(np, SESSION_HA_WC_BATCHES, batch or WC_BATCH)
+    rows_n = {}
+    for jid, (kind, sink) in rate_sinks.items():
+        if kind == "q5":
+            rows = _q5_sink_rows(sink)
+            check_q5_rows(np, rows, q5_cfg(q5_batches), f"session_ha {jid}")
+        else:
+            rows = _wc_sink_rows(np, sink)
+            check_wordcount(np, rows, wc_golden, f"session_ha {jid}")
+        rows_n[jid] = len(rows[0]) if kind == "wc" else len(rows)
+    q5 = _q5_sink_rows(a_sinks["sq5"])
+    check_q5_rows(np, q5, q5_cfg(q5_batches), "session_ha (a) Q5")
+    wc = _wc_sink_rows(np, a_sinks["swc"])
+    check_wordcount(np, wc, wc_golden, "session_ha (a) WordCount")
+    qb = _q5_sink_rows(b_sink)
+    check_q5_rows(np, qb, q5_cfg(b_batches), "session_ha (b) Q5")
+    rows_n.update({"a_sq5": len(q5), "a_swc": len(wc[0]), "b_q5": len(qb)})
+    for part in ("a", "b"):
+        for who, runners in out[part]["runner_n_devices"].items():
+            check(all(v == device_count for v in runners.values()),
+                  f"session_ha ({part}): {who}'s runners report {runners} "
+                  f"devices, the card count is {device_count}")
+    launches = {}
+    for label, sink, want in (
+            ("a_sq5", a_sinks["sq5"], SESSION_HA_Q5_KERNELS),
+            ("a_swc", a_sinks["swc"], SESSION_HA_WC_KERNELS),
+            ("b_q5", b_sink, SESSION_HA_Q5_KERNELS)):
+        recs = _launch_files(sink)
+        check(recs, f"session_ha: no launches file beside {label}'s sink")
+        # over the processes that ran the job: before the kill and the
+        # survivor's (a restored WordCount folds known words only, so
+        # its survivor launches no scatter_counts)
+        by_pid = sorted(recs.values(), key=lambda r: r["t_commit"])
+        total = {}
+        for rec in by_pid:
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+        launches[label] = {"processes": len(recs), "all": total,
+                           "by_process": [r["launches"] for r in by_pid]}
+        if on_card:
+            missing = [k for k in want if not total.get(k)]
+            check(not missing, f"session_ha: {label}'s processes launched "
+                  f"none of {missing}: {by_pid}")
+    check(len(_launch_files(a_sinks["sq5"])) == 2,
+          "session_ha (a): Q5 did not commit from both leaders' runners")
+    out["rows"] = rows_n
+    out["rows_exactly_once"] = True
+    out["launches"] = launches
+    return launches
+
+
+def phase_session_ha(torch, np, device="cuda", batch=None):
+    """The session cluster and HA on the card: the rates of Q5 and
+    WordCount alone and co-resident in one session runner, then part (a)
+    (a killed session leader) and part (b) (a killed coordinator whose
+    runner re-attaches), each with every golden row committed once.
+    ``device="cpu"`` with a small ``batch`` (words and bids a batch)
+    rehearses it on the CPU; the kernels' launches are then not checked."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_session_ha_")
+    logs = os.path.join(ROOT, "chiprun_out", "session_ha")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = {"phase": "session_ha"}
+    rates, rate_sinks, rate_dev = session_rates(torch, np, work, device,
+                                                batch)
+    out["rates"] = rates
+    a, a_sinks = session_leader_kill(torch, np, work, logs, env, device,
+                                     batch)
+    out["a"] = a
+    b, b_sink = coordinator_reattach(torch, np, work, logs, env, device,
+                                     batch)
+    out["b"] = b
+    on_card = device == "cuda"
+    count = torch.cuda.device_count() if on_card else 1
+    check(all(v == count for v in rate_dev.values()),
+          f"session_ha: the rate runs' runner reports {rate_dev}")
+    launches = session_ha_checks(np, out, rate_sinks, a_sinks, b_sink,
+                                 count, batch, on_card)
+    out["conf"] = {
+        "q5": "confs/bench_q5_host_fed.conf", "wordcount":
+        "confs/bench_wordcount.conf", "timeouts": list(SESSION_HA_CONF),
+        "session.runner-slots": 2,
+        "a": {"q5_batches": SESSION_HA_Q5_BATCHES,
+              "wc_batches": SESSION_HA_WC_BATCHES,
+              "pace_s": [SESSION_HA_Q5_PACE_S, SESSION_HA_WC_PACE_S],
+              "checkpoint_interval_ms": 1},
+        "b": {"q5_batches": SESSION_HA_B_BATCHES,
+              "pace_s": SESSION_HA_B_PACE_S}}
+    shutil.rmtree(work, ignore_errors=True)
+    if on_card:
+        out["card"] = card_line()
+    emit(out)
+    merged = {}
+    for rec in launches.values():
+        for k, v in rec["all"].items():
+            merged[k] = max(merged.get(k, 0), v)
+    return merged
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9618,6 +10298,8 @@ def main() -> int:
         "--batch": lambda torch, np: (phase_build(), phase_batch(torch, np)),
         "--control": lambda torch, np: (phase_build(),
                                         phase_control(torch, np)),
+        "--session-ha": lambda torch, np: (phase_build(),
+                                           phase_session_ha(torch, np)),
         "--host-operators": lambda torch, np: (
             phase_build(), phase_sessions(torch, np), phase_q8(torch, np),
             phase_q7(torch, np), phase_emit_defer(torch, np)),
@@ -9684,6 +10366,7 @@ def main() -> int:
         log_paths = phase_log(torch, np)
         batch_paths = phase_batch(torch, np)
         phase_control(torch, np)
+        session_ha = phase_session_ha(torch, np)
         paths = {"q5_host_fed": host_fed, "q5_numpy_lane": numpy_lane,
                  "q5_hot_keys": hot_keys, "q5_count_only": count_only,
                  "q5_devgen": devgen,
@@ -9696,6 +10379,7 @@ def main() -> int:
                  "hybrid": hybrid, "q5_lsm": q5_lsm,
                  "big_cells": {k: big["launches"].get(k, 0)
                                for k in host_fed},
+                 "session_ha": session_ha,
                  **sql_paths, **log_paths, **batch_paths}
         # each kernel's count on its own main path: the headline (devgen)
         # path for the Q5 kernels it runs, else host-fed Q5; the fused

@@ -6,8 +6,16 @@
         [--job-id id] [--conf key=value ...] [--py-file PATH ...]
     python -m flink_tpu_torch run --local --entry pkg.mod:build \
         [--device cuda|cpu] [...]
-    python -m flink_tpu_torch coordinator [--port P]
-    python -m flink_tpu_torch runner --coordinator H:P [--device cuda|cpu]
+    python -m flink_tpu_torch run --session H:P [--ha-dir D] --entry mod:build
+    python -m flink_tpu_torch session start [--port P] [--local-runners N] \
+        [--device cuda|cpu] [--ha-dir D] [--standby] [--conf key=value ...]
+    python -m flink_tpu_torch session submit --session H:P --entry mod:build
+    python -m flink_tpu_torch session list|info|cancel|rescale|stop \
+        (--session H:P | --ha-dir D) [...]
+    python -m flink_tpu_torch coordinator [--port P] [--ha-dir D] \
+        [--rest-port P]
+    python -m flink_tpu_torch runner (--coordinator H:P | --ha-dir D) \
+        [--device cuda|cpu]
     python -m flink_tpu_torch log TOPIC_DIR [--compact] [--retain] \
         [--conf key=value ...]
     python -m flink_tpu_torch fsck PATH [--repair] [--json]
@@ -21,9 +29,10 @@
 ``run --local`` runs the job in this process on ``--device`` (``cuda`` by
 default; the CPU only when asked). ``coordinator`` and ``runner`` start
 the job coordinator and a task runner (``runtime/coordinator.py``,
-``runtime/runner.py``). Not here yet, and refused with exit 2 naming
-their ROADMAP.md item: ``session`` and ``run --session`` / ``--ha-dir``
-(queue 1 item 10.2), ``analyze`` and ``lint`` (queue 1 item 11).
+``runtime/runner.py``); ``session start`` serves a session cluster
+(``runtime/session.py``) whose ``--local-runners`` run their jobs on
+``--device``. Not here yet, and refused with exit 2 naming their
+ROADMAP.md item: ``analyze`` and ``lint`` (queue 1 item 11).
 
 The entry point contract is the job-jar analogue: ``module:function``
 importable on the RUNNER host, taking a StreamExecutionEnvironment and
@@ -47,6 +56,84 @@ def _coord_client(spec: str, flag: str = "--coordinator"):
     return RpcClient(host or "127.0.0.1", int(port))
 
 
+# leader re-resolution budget of the HA-aware session client: with
+# --ha-dir, a connection-refused (the leader died / a standby is mid-
+# takeover) re-reads the lease and retries up to this many times
+# before surfacing the failure (exit 1, never a traceback). Module
+# constants so tests can shrink the budget.
+_HA_RETRIES = 24
+_HA_RETRY_DELAY_S = 0.25
+
+
+class _SessionClient:
+    """Session-cluster RPC client that survives dispatcher failover.
+
+    Address resolution: an explicit ``--session HOST:PORT`` wins for
+    the FIRST attempt; with ``--ha-dir`` every retry re-resolves the
+    current leader from the lease file (``runtime/ha.leader_address``),
+    so a submit/list/poll issued against a dead leader lands on the
+    standby that took over. Without ``--ha-dir`` transport errors
+    surface immediately (the pre-HA behavior)."""
+
+    def __init__(self, session: Optional[str], ha_dir: Optional[str],
+                 flag: str = "--session") -> None:
+        if not session and not ha_dir:
+            # usage error, same class as a missing required flag —
+            # the documented exit-2 leg of the session CLI contract
+            print(f"error: {flag} HOST:PORT or --ha-dir is required",
+                  file=sys.stderr)
+            raise SystemExit(2)
+        self._session = session
+        self._ha_dir = ha_dir
+        self._flag = flag
+        self._client = None
+        self._addr: Optional[str] = session
+
+    def _resolve(self) -> Optional[str]:
+        if self._addr:
+            return self._addr
+        from flink_tpu_torch.runtime.ha import leader_address
+
+        self._addr = leader_address(self._ha_dir)
+        return self._addr
+
+    def call(self, method: str, **kw):
+        import time as _time
+
+        from flink_tpu_torch.runtime.rpc import RpcError
+
+        last: Optional[Exception] = None
+        attempts = (_HA_RETRIES + 1) if self._ha_dir else 1
+        for i in range(attempts):
+            if i:
+                _time.sleep(_HA_RETRY_DELAY_S)
+            addr = self._resolve()
+            if addr is None:
+                last = RpcError(
+                    f"no session leader lease in --ha-dir "
+                    f"{self._ha_dir!r}")
+                continue
+            if self._client is None:
+                self._client = _coord_client(addr, flag=self._flag)
+            try:
+                return self._client.call(method, **kw)
+            except RpcError as e:
+                last = e
+                self.close()
+                if self._ha_dir:
+                    # drop the cached address: the next attempt
+                    # re-reads the lease (a takeover moves it)
+                    self._addr = None
+        raise last  # type: ignore[misc]
+
+    def close(self) -> None:
+        if self._client is not None:
+            try:
+                self._client.close()
+            finally:
+                self._client = None
+
+
 def _parse_conf(pairs: List[str]) -> dict:
     conf = {}
     for p in pairs:
@@ -65,7 +152,7 @@ def _parse_conf(pairs: List[str]) -> dict:
     return conf
 
 
-_PASS_ON = ("analyze", "lint", "session", "coordinator", "runner")
+_PASS_ON = ("analyze", "lint", "coordinator", "runner")
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -113,6 +200,100 @@ def _run_local(entry: str, conf: dict, job_id: str,
     return 0
 
 
+def _run_attached(session: Optional[str], entry: str, conf: dict,
+                  job_id: str, ha_dir: Optional[str] = None) -> int:
+    """``run --session H:P``: attach the job to a RUNNING session
+    cluster instead of spinning a private runtime — submit through the
+    dispatcher's admission gate, then block until the job is terminal
+    (the `flink run` against a session cluster flow). With --ha-dir
+    the attach survives a dispatcher failover: submit and every status
+    poll re-resolve the leader through the lease."""
+    import time as _time
+
+    from flink_tpu_torch.runtime.rpc import RpcError
+
+    c = _SessionClient(session, ha_dir)
+    try:
+        resp = c.call("submit_session_job", job_id=job_id, entry=entry,
+                      config=conf)
+        if not resp.get("admitted"):
+            print(json.dumps({"job_id": job_id, **resp}))
+            return 1
+        while True:
+            st = c.call("job_status", job_id=job_id)
+            state = st.get("state")
+            if state in ("FINISHED", "FAILED", "CANCELED", "UNKNOWN"):
+                print(json.dumps({"job_id": job_id, **st}))
+                return 0 if state == "FINISHED" else 1
+            _time.sleep(0.3)
+    except RpcError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        c.close()
+
+
+def _session(args) -> int:
+    """``flink_tpu session ...``: the session-cluster control surface
+    (runtime/session.py SessionDispatcher). Exit-code contract
+    (the reference's; asserted in tests/test_torch_session_cluster.py
+    and tests/test_torch_cli.py): 0 = ok
+    (started / admitted / listed / stopped), 1 = the cluster refused
+    (admission rejection, unknown job, no reachable leader), 2 = usage
+    error (argparse / --standby without an HA dir)."""
+    from flink_tpu_torch.runtime.rpc import RpcError
+
+    if args.session_cmd == "start":
+        from flink_tpu_torch.config import Configuration
+        from flink_tpu_torch.runtime.session import serve_session
+
+        conf = _parse_conf(args.conf)
+        if args.ha_dir:
+            conf["high-availability.dir"] = args.ha_dir
+        return serve_session(Configuration(conf),
+                             port=args.port,
+                             local_runners=args.local_runners,
+                             standby=args.standby,
+                             device=args.device)
+    c = _SessionClient(args.session, args.ha_dir)
+    try:
+        if args.session_cmd == "submit":
+            job_id = args.job_id or f"job-{uuid.uuid4().hex[:8]}"
+            resp = c.call("submit_session_job", job_id=job_id,
+                          entry=args.entry,
+                          config=_parse_conf(args.conf))
+            print(json.dumps({"job_id": job_id, **resp}))
+            return 0 if resp.get("admitted") else 1
+        if args.session_cmd == "list":
+            print(json.dumps(c.call("session_jobs")))
+            return 0
+        if args.session_cmd == "info":
+            print(json.dumps(c.call("session_info")))
+            return 0
+        if args.session_cmd == "cancel":
+            resp = c.call("cancel_job", job_id=args.job_id)
+            print(json.dumps(resp))
+            return 0 if resp.get("ok") else 1
+        if args.session_cmd == "rescale":
+            resp = c.call("rescale_job", job_id=args.job_id,
+                          devices=args.devices,
+                          processes=args.processes)
+            print(json.dumps(resp))
+            return 0 if resp.get("ok") else 1
+        # stop
+        resp = c.call("stop_session")
+        print(json.dumps(resp))
+        return 0 if resp.get("ok") else 1
+    except RpcError as e:
+        # no reachable leader (after the --ha-dir retry budget): the
+        # cluster refused — a clean 1, never a traceback, so scripts
+        # can distinguish it from a usage error
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        c.close()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     try:
         return _main(argv)
@@ -121,7 +302,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
 
 
-def _main(argv: Optional[List[str]] = None) -> int:
+def arg_parser() -> argparse.ArgumentParser:
+    """The client's command line (the ``_PASS_ON`` commands hand their
+    arguments to their own module's parser)."""
     p = argparse.ArgumentParser(prog="flink_tpu_torch",
                                 description="flink_tpu_torch client")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -136,10 +319,16 @@ def _main(argv: Optional[List[str]] = None) -> int:
                            "'cuda' (default; fails without a card) or "
                            "'cpu'")
     runp.add_argument("--session", metavar="HOST:PORT",
-                      help="attach to a session cluster (still to port)")
+                      help="attach the job to a RUNNING session "
+                           "cluster (`session start`) instead of "
+                           "spinning a private runtime; blocks until "
+                           "the job is terminal (exit 0 = FINISHED)")
     runp.add_argument("--ha-dir", default=None, metavar="DIR",
-                      help="resolve the session leader through an HA "
-                           "lease (still to port)")
+                      help="with --session (or alone): resolve the "
+                           "session leader through the HA lease in "
+                           "DIR; the submit and every status poll "
+                           "re-resolve on connection failure, so the "
+                           "attach survives a dispatcher failover")
     runp.add_argument("--job-id", default=None)
     runp.add_argument("--runtime-mode", choices=("streaming", "batch"),
                       default=None,
@@ -160,11 +349,106 @@ def _main(argv: Optional[List[str]] = None) -> int:
     # their arguments before parsing)
     for name, help_ in (("analyze", "plan analysis (still to port)"),
                         ("lint", "repo AST lints (still to port)"),
-                        ("session", "session-cluster mode (still to port)"),
                         ("coordinator", "serve a job coordinator "
                                         "(runtime/coordinator.py)"),
                         ("runner", "serve a task runner (runtime/runner.py)")):
         sub.add_parser(name, help=help_, add_help=False)
+
+    sess = sub.add_parser(
+        "session",
+        help="session-cluster mode (runtime/session.py): one "
+             "long-lived dispatcher hosting N concurrent jobs on a "
+             "shared runner fleet — slot quotas, FIFO submission "
+             "queue, fair drain scheduling, queue-depth autoscaling",
+        epilog="exit codes: 0 = ok, 1 = the cluster refused "
+               "(admission rejection / unknown job), 2 = usage error.")
+    ssub = sess.add_subparsers(dest="session_cmd", required=True)
+    st = ssub.add_parser(
+        "start", help="serve a session dispatcher until `session "
+                      "stop` (prints one JSON line with the address, "
+                      "then blocks)")
+    st.add_argument("--port", type=int, default=0,
+                    help="dispatcher RPC port (0 = ephemeral, read it "
+                         "from the printed JSON line)")
+    st.add_argument("--local-runners", type=int, default=0,
+                    metavar="N",
+                    help="also start N in-process runners registered "
+                         "to this dispatcher (a self-contained local "
+                         "cluster; 0 = external runners register "
+                         "themselves via python -m "
+                         "flink_tpu_torch.runtime.runner)")
+    st.add_argument("--device", default="cuda",
+                    help="the device kind the --local-runners run their "
+                         "jobs on: 'cuda' (default; fails without a "
+                         "card) or 'cpu'")
+    st.add_argument("--ha-dir", default=None, metavar="DIR",
+                    help="shared HA directory (shorthand for --conf "
+                         "high-availability.dir=DIR): contend for the "
+                         "leadership lease and serve only while "
+                         "holding it; the durable session registry "
+                         "lives here too, so a standby takeover "
+                         "recovers every admitted job")
+    st.add_argument("--standby", action="store_true",
+                    help="hot-standby contender: block on the "
+                         "leadership lease in --ha-dir and take over "
+                         "(re-hydrating the session registry) when "
+                         "the incumbent's lease lapses")
+    st.add_argument("--conf", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="session.* quotas / autoscale knobs and any "
+                         "other cluster config")
+    _HA_HELP = ("resolve the session leader through the HA lease in "
+                "DIR instead of (or as failover for) a fixed "
+                "--session address; connection failures re-resolve "
+                "and retry with a bounded budget")
+    sb = ssub.add_parser(
+        "submit", help="submit a job to a running session cluster "
+                       "(exit 0 = admitted or queued, 1 = rejected)")
+    sb.add_argument("--session", metavar="HOST:PORT")
+    sb.add_argument("--ha-dir", default=None, metavar="DIR",
+                    help=_HA_HELP)
+    sb.add_argument("--entry", required=True, metavar="MODULE:FUNCTION")
+    sb.add_argument("--job-id", default=None)
+    sb.add_argument("--conf", action="append", default=[],
+                    metavar="KEY=VALUE")
+    sl = ssub.add_parser(
+        "list", help="per-job registry: state, slots, queue position, "
+                     "attempts, heartbeat-carried metrics, leader "
+                     "epoch + takeover count")
+    sl.add_argument("--session", metavar="HOST:PORT")
+    sl.add_argument("--ha-dir", default=None, metavar="DIR",
+                    help=_HA_HELP)
+    si = ssub.add_parser(
+        "info", help="cluster view: runners with slot occupancy, "
+                     "quotas, leader epoch, takeover count, jobs "
+                     "recovered by the current leader")
+    si.add_argument("--session", metavar="HOST:PORT")
+    si.add_argument("--ha-dir", default=None, metavar="DIR",
+                    help=_HA_HELP)
+    sc = ssub.add_parser("cancel", help="cancel one session job")
+    sc.add_argument("--session", metavar="HOST:PORT")
+    sc.add_argument("--ha-dir", default=None, metavar="DIR",
+                    help=_HA_HELP)
+    sc.add_argument("job_id")
+    sr = ssub.add_parser(
+        "rescale", help="live-rescale one session job: savepoint + "
+                        "restart at a new device width / process count "
+                        "(exit 0 = dispatched, 1 = refused)")
+    sr.add_argument("--session", metavar="HOST:PORT")
+    sr.add_argument("--ha-dir", default=None, metavar="DIR",
+                    help=_HA_HELP)
+    sr.add_argument("--devices", type=int, required=True,
+                    help="per-process mesh width after the rescale")
+    sr.add_argument("--processes", type=int, default=None, metavar="M",
+                    help="host-process count after the rescale "
+                         "(default: keep the current count)")
+    sr.add_argument("job_id")
+    sp_ = ssub.add_parser(
+        "stop", help="shut the cluster down (cancels every "
+                     "non-terminal job, then the dispatcher exits)")
+    sp_.add_argument("--session", metavar="HOST:PORT")
+    sp_.add_argument("--ha-dir", default=None, metavar="DIR",
+                     help=_HA_HELP)
 
     fsck = sub.add_parser(
         "fsck",
@@ -242,7 +526,11 @@ def _main(argv: Optional[List[str]] = None) -> int:
                     help="host-process count after the rescale "
                          "(default: keep the current count)")
     rs.add_argument("job_id")
+    return p
 
+
+def _main(argv: Optional[List[str]] = None) -> int:
+    p = arg_parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _PASS_ON:
         # the commands that hand their arguments on (or refuse them
@@ -254,10 +542,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
     if args.cmd in ("analyze", "lint"):
         raise _later(f"`{args.cmd}` (the plan analyzer and the repo "
                      "lints)", "11")
-    if args.cmd == "session" or (args.cmd == "run" and (args.session
-                                                        or args.ha_dir)):
-        raise _later("the session cluster and --session / --ha-dir",
-                     "10.2")
+    if args.cmd == "session":
+        return _session(args)
     if args.cmd == "coordinator":
         from flink_tpu_torch.runtime.coordinator import main as coord_main
 
@@ -328,8 +614,12 @@ def _main(argv: Optional[List[str]] = None) -> int:
             conf["execution.runtime-mode"] = args.runtime_mode
         if args.local:
             return _run_local(args.entry, conf, job_id, args.device)
+        if args.session or args.ha_dir:
+            return _run_attached(args.session, args.entry, conf, job_id,
+                                 ha_dir=args.ha_dir)
         if not args.coordinator:
-            raise SystemExit("run needs --coordinator or --local")
+            raise SystemExit(
+                "run needs --coordinator, --session, or --local")
         c = _coord_client(args.coordinator)
         try:
             blobs = []

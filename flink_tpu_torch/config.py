@@ -730,13 +730,128 @@ class StorageOptions:
         "doubles per attempt.")
 
 
+class SessionOptions:
+    """Session-cluster runtime mode (runtime/session.py; the upstream
+    dispatcher / ResourceManager / slot pool in session deployment):
+    a long-lived SessionDispatcher multiplexes N submitted jobs onto a
+    shared runner fleet through logical slot quotas, with fair drain
+    scheduling and per-job isolation of checkpoints/faults/metrics."""
+
+    SLOTS_PER_JOB = ConfigOption(
+        "session.slots-per-job", 1,
+        "Logical slots ONE job occupies on its runner (the slot-sharing "
+        "group size, ref: taskmanager slot model). A job may raise it "
+        "in its own submitted config to claim a bigger share; admission "
+        "rejects values < 1 or above session.runner-slots (a quota no "
+        "single runner can ever satisfy — SESSION_QUOTA_INVALID flags "
+        "both at analyze time).")
+    RUNNER_SLOTS = ConfigOption(
+        "session.runner-slots", 4,
+        "Logical slot capacity each registered runner contributes to "
+        "the session slot pool (ref: taskmanager.numberOfTaskSlots). "
+        "Per RUNNER HOST, not per device: the session plane shares one "
+        "chip/host among jobs — device-exclusive placement stays the "
+        "per-job (non-session) submit path.")
+    MAX_JOBS = ConfigOption(
+        "session.max-jobs", 8,
+        "Maximum jobs RUNNING concurrently across the session cluster; "
+        "submissions beyond it queue FIFO and deploy as running jobs "
+        "finish (the Dispatcher submission queue). Queued depth feeds "
+        "the autoscaler.")
+    FAIR_DRAIN = ConfigOption(
+        "session.fair-drain", False,
+        "Serialize co-resident jobs' emit-ring drain fetches through a "
+        "round-robin turnstile (runtime/session.py FairDrainGate) so "
+        "one job's fire/drain burst cannot starve another's emit ring "
+        "on the shared device→host link. The dispatcher stamps this "
+        "true into every session deploy; single-job (non-session) runs "
+        "default off and pay zero overhead.")
+    CONCURRENT_JOBS = ConfigOption(
+        "session.concurrent-jobs", 1,
+        "Deploy-injected by the SessionDispatcher: the job's STATIC "
+        "slot-proportional share denominator — how many jobs of its "
+        "quota fit one runner (session.runner-slots // session.slots-"
+        "per-job, clamped by session.max-jobs). The driver divides "
+        "its host-pool worker count and in-flight step credit by it, "
+        "so K co-resident tenants can never oversubscribe the host "
+        "K-fold regardless of deploy order (the reference's per-slot "
+        "managed-memory split discipline). User configs normally "
+        "never set it.")
+    SCOPED_FAULTS = ConfigOption(
+        "session.scoped-faults", False,
+        "Deploy-injected by the SessionDispatcher when a session job "
+        "carries a faults.* plan: the runner installs it as a JOB-"
+        "SCOPED plan (faults.install_scoped) instead of the process-"
+        "global one, so one tenant's chaos schedule can never inject "
+        "into a co-resident job (the per-job fault-plan isolation of "
+        "the session contract).")
+    AUTOSCALE = ConfigOption(
+        "session.autoscale", True,
+        "Run the dispatcher's autoscaler loop: submission-queue depth "
+        "and aggregate slot pressure push scale-OUT demand through the "
+        "provisioner seam (runtime/provisioner.py request_capacity); "
+        "runners idle past session.scale-down-idle above session.min-"
+        "runners drain (stop-with-savepoint redeploy) and are released "
+        "(release_capacity). False = fixed fleet.")
+    AUTOSCALE_INTERVAL = duration_option(
+        "session.autoscale-interval", 2_000,
+        "Autoscaler evaluation period.")
+    MIN_RUNNERS = ConfigOption(
+        "session.min-runners", 1,
+        "Floor the autoscaler never drains below.")
+    MAX_RUNNERS = ConfigOption(
+        "session.max-runners", 8,
+        "Ceiling on the runner fleet the autoscaler will request "
+        "capacity for (scale-out demand is clamped here, mirroring the "
+        "provisioner's own max_replicas guard).")
+    SCALE_DOWN_IDLE = duration_option(
+        "session.scale-down-idle", 30_000,
+        "A runner holding zero session slots for this long (with the "
+        "fleet above session.min-runners) is drained and released by "
+        "the autoscaler.")
+    HA_STANDBY = ConfigOption(
+        "session.ha.standby", False,
+        "Start this `session start` process as a hot-standby contender "
+        "(the --standby flag sets it): it contends for the leadership "
+        "lease in high-availability.dir and serves only once granted — "
+        "on takeover it re-hydrates the durable session registry, "
+        "re-queues undeployed jobs in original FIFO order, and waits "
+        "for runners to re-attach their live executions. Requires "
+        "high-availability.dir.")
+    HA_REATTACH_GRACE = duration_option(
+        "session.ha.reattach-grace", 10_000,
+        "How long a new leader waits for a recovered RUNNING job's "
+        "runner to re-register carrying it before falling back to a "
+        "blind redeploy with restore:latest. A stored runner that "
+        "re-registers WITHOUT the job collapses the window early (the "
+        "execution died there); a runner that re-attaches it ends the "
+        "wait with an in-place re-adoption (no redeploy, exactly-once "
+        "preserved). Lower it when runners re-resolve the leader fast "
+        "(small heartbeat.interval); raise it on congested fleets "
+        "where a blind double-deploy is costlier than a slow failover.")
+
+
+class HighAvailabilityOptions:
+    HA_DIR = ConfigOption(
+        "high-availability.dir", "",
+        "Shared directory for leader election + the job graph store. "
+        "Empty = HA off. A standby coordinator pointed at the same dir "
+        "takes leadership when the incumbent's lease lapses and "
+        "recovers every non-terminal job from the store (ref: "
+        "runtime/highavailability HighAvailabilityServices + "
+        "JobGraphStore + leader election via ZooKeeper/K8s; here the "
+        "shared filesystem is the consensus substrate).")
+    LEASE_TIMEOUT = duration_option(
+        "high-availability.lease-timeout", 10_000,
+        "Leadership lease: the leader renews within this period; a "
+        "contender may claim a lease older than this (ref: ZooKeeper "
+        "session timeout role).")
+
 FAIL_ON_VALUES = ("error", "warn", "off")
 
 # keys of modules still to port, by prefix (or whole key), with the
 # ROADMAP.md item that brings each
 LATER_KEYS = (
-    ("session.", "queue 1 item 10.2"),
-    ("high-availability.", "queue 1 item 10.2"),
     ("analysis.max-state-bytes-per-key", "queue 1 item 11"),
     ("pipeline.profile-", "queue 1 item 11"),
 )

@@ -60,9 +60,8 @@ The port's points (``KNOWN_FAULT_POINTS``)::
     runner.heartbeat / runner.reattach                     runtime/runner.py
     coordinator.deploy                                     runtime/coordinator.py
     rescale.arm / rescale.savepoint / rescale.redeploy     runtime/coordinator.py
-
-The reference's other points (sessions, HA) come with the modules that
-fire them (ROADMAP.md queue 1 item 10.2).
+    ha.lease.renew / ha.store.write                        runtime/ha.py
+    session.admit / session.failover.takeover              runtime/session.py
 """
 from __future__ import annotations
 
@@ -125,6 +124,10 @@ KNOWN_FAULT_POINTS = frozenset((
     "rpc.server.dispatch",
     "runner.heartbeat",
     "runner.reattach",
+    "ha.lease.renew",
+    "ha.store.write",
+    "session.admit",
+    "session.failover.takeover",
     "coordinator.deploy",
     "rescale.arm",
     "rescale.savepoint",

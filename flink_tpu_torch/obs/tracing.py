@@ -14,18 +14,20 @@ and the snapshot), the loop thread's part of a checkpoint;
 encoding and write, with ``bytes``), ``checkpoint.failed`` (a tolerated
 periodic failure), ``checkpoint.abort-notify-failed``, ``restore``,
 ``recovery`` (a supervised restart) and ``fault`` (an injected fault).
-The thread sampler of the reference's REST flame graph comes with
-``obs/rest.py`` (ROADMAP.md queue 1 item 10.2).
+``sample_threads`` aggregates stack samples of every live thread on
+demand, the REST server's ``/flamegraph`` (``obs/rest.py``); the REST
+server exposes the span ring at ``/traces``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "tracer"]
+__all__ = ["Span", "Tracer", "tracer", "sample_threads"]
 
 
 @dataclasses.dataclass
@@ -104,3 +106,33 @@ class Tracer:
 
 # process-global tracer: one per process, sub-systems attach by name
 tracer = Tracer()
+
+
+def sample_threads(seconds: float = 1.0, hz: float = 50.0) -> Dict[str, Any]:
+    """Aggregate stack samples across all live threads — the flame-graph
+    data (ref: JobVertexFlameGraphHandler / ThreadInfoSample: REST-
+    triggered sampling, aggregated frames). Returns {stack -> count}
+    with stacks rendered innermost-last as ';'-joined frames, plus the
+    sampling parameters (collapsed format: feed straight to any
+    flamegraph renderer)."""
+    interval = 1.0 / hz
+    counts: Dict[str, int] = {}
+    deadline = time.time() + seconds
+    n = 0
+    while time.time() < deadline:
+        for tid, frame in sys._current_frames().items():
+            if tid == threading.get_ident():
+                continue  # the sampler itself is noise
+            frames = []
+            f = frame
+            while f is not None:
+                code = f.f_code
+                frames.append(f"{code.co_name}@"
+                              f"{code.co_filename.rsplit('/', 1)[-1]}:"
+                              f"{f.f_lineno}")
+                f = f.f_back
+            stack = ";".join(reversed(frames))
+            counts[stack] = counts.get(stack, 0) + 1
+        n += 1
+        time.sleep(interval)
+    return {"samples": n, "seconds": seconds, "hz": hz, "stacks": counts}

@@ -720,6 +720,11 @@ class WindowOperator:
                 f"got {readiness!r}")
         self.readiness = readiness
         self.external_throttle = False
+        # session.fair-drain: a driver sharing the card with co-resident
+        # jobs sets this to its turn on the round-robin drain gate
+        # (runtime/session.py); each drain waits its turn for the host
+        # copy of the fire buffers or the emit ring, never for the decode
+        self.fetch_turn = None
         # pipeline.fire-gate: a fused step skips its fire on the card when
         # the header lists no window end, and its purge when the clear
         # mask is empty; it also sizes the fire to the ends it has
@@ -1893,15 +1898,22 @@ class WindowOperator:
             raise RuntimeError(
                 f"fired-row buffer overflow: {n} rows > capacity {cap}")
 
+    def _fetch_guard(self):
+        """The drain's turn on the fair-drain gate, or none."""
+        return (self.fetch_turn() if self.fetch_turn is not None
+                else contextlib.nullcontext())
+
     def _decode_packs(self, packs) -> Dict[str, np.ndarray]:
         """Host decode of landed fire buffers: slot → key, pane → window
         times, bit lanes → result fields. Each buffer's layout is read
         from its own width (a growth may flip the packed2 gate between
         fire and decode)."""
         rows_l, ep_l, cnt_l, lane_l = [], [], [], []
+        with self._fetch_guard():
+            for _, _, _, ev in packs:
+                if ev is not None:
+                    ev.synchronize()
         for lo, host, err, ev in packs:
-            if ev is not None:
-                ev.synchronize()
             buf = host.numpy()
             n = int(buf[0, 0])
             self._check_fire_cap(n, len(buf) - 1)
@@ -1976,22 +1988,23 @@ class WindowOperator:
             return self._merge_extras(dict(self._empty()), extras)
         t0 = time.perf_counter()
         need = self._ring_version_no if min_no is None else min_no
-        acceptable = [v for v in self._ring_versions if v[0] >= need]
-        copies = None
-        for _, cand in reversed(acceptable):
-            if all(ev is None or ev.query() for _, _, ev in cand):
-                copies = cand
-                break
-        if copies is None:
-            if min_no == 0:
-                return self._merge_extras(dict(self._empty()), extras)
-            if not acceptable:
-                self._announce_ring()
-                acceptable = [self._ring_versions[-1]]
-            copies = acceptable[0][1]
-            for _, _, ev in copies:
-                if ev is not None:
-                    ev.synchronize()
+        with self._fetch_guard():
+            acceptable = [v for v in self._ring_versions if v[0] >= need]
+            copies = None
+            for _, cand in reversed(acceptable):
+                if all(ev is None or ev.query() for _, _, ev in cand):
+                    copies = cand
+                    break
+            if copies is None:
+                if min_no == 0:
+                    return self._merge_extras(dict(self._empty()), extras)
+                if not acceptable:
+                    self._announce_ring()
+                    acceptable = [self._ring_versions[-1]]
+                copies = acceptable[0][1]
+                for _, _, ev in copies:
+                    if ev is not None:
+                        ev.synchronize()
         for _, err, _ in copies:
             if err is not None:
                 wk.raise_for_error_bits(int(err[0]))

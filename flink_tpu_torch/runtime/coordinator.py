@@ -1,11 +1,12 @@
 """Job coordinator — the control-plane master process (the JAX
 package's ``runtime/coordinator.py``; its RPC methods and replies are
 the reference's, so a client or runner of either package talks to a
-coordinator of the other).
-
-Not here yet (ROADMAP.md queue 1 item 10.2): the HA job store and the
-leader election (``high-availability.dir``, ``--ha-dir``) and the REST
-server (``--rest-port``), which raise naming that item.
+coordinator of the other). With ``high-availability.dir`` it writes
+every deployable job through to the HA job store (``runtime/ha.py``),
+re-hydrates the store when it takes leadership, re-adopts the live
+executions that re-registering runners carry, and stamps its leader
+epoch on every push; ``main`` contends for the lease (``--ha-dir``) and
+serves the REST API (``--rest-port``, ``obs/rest.py``).
 
 ref: runtime/dispatcher/Dispatcher.java (submission + bookkeeping),
 runtime/jobmaster/JobMaster.java (per-job control), runtime/heartbeat/
@@ -104,6 +105,16 @@ class JobInfo:
     submitted_at: float = dataclasses.field(default_factory=time.time)
     started_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # leader-takeover re-attach window (HA recovery of a job the store
+    # says was RUNNING): until ``reattach_until`` the new leader waits
+    # for a runner to re-register carrying (job_id, reattach_attempt)
+    # and re-adopts the live execution in place instead of redeploying
+    # blind; the window collapses early when one of the job's stored
+    # runners comes back WITHOUT it (the job died there). attempts is
+    # pre-bumped for the fallback redeploy; re-attach rolls it back.
+    reattach_until: Optional[float] = None
+    reattach_attempt: Optional[int] = None
+    reattach_runners: List[str] = dataclasses.field(default_factory=list)
 
 
 class JobCoordinator(RpcEndpoint):
@@ -113,22 +124,28 @@ class JobCoordinator(RpcEndpoint):
     heartbeats stop (ref: heartbeat.timeout, default 50s)."""
 
     def __init__(self, config: Optional[Configuration] = None) -> None:
+        from flink_tpu_torch.config import HighAvailabilityOptions
+
         self.config = config or Configuration()
-        if str(self.config.to_dict().get("high-availability.dir", "")
-               ).strip():
-            raise NotImplementedError(
-                "high-availability.dir (the HA job store and leader "
-                "election) is still to port: ROADMAP.md queue 1 item 10.2")
         self.runners: Dict[str, RunnerInfo] = {}
         self.jobs: Dict[str, JobInfo] = {}
+        # leadership fencing token (HA serve loops stamp the election
+        # epoch here before the RPC server starts): every deploy/cancel/
+        # savepoint push to a runner carries it, and the runner rejects
+        # a lower epoch — a deposed leader's late RPCs land dead (the
+        # writer-lease fencing discipline of the bus, log/bus.py).
+        # 0 = non-HA single coordinator (pushes stay unstamped).
+        self.leader_epoch = 0
         self._slots = SlotPool()
         # active-resource seam (ref: ActiveResourceManager): unmet slot
         # demand is pushed here; standalone mode just records it
         from flink_tpu_torch.runtime.provisioner import StandaloneProvisioner
 
         self.provisioner = StandaloneProvisioner()
-        # coordinator-scoped metrics. Time-to-rescale + per-phase
-        # counters live here: the handshake spans attempts and runners, so only the
+        # coordinator-scoped metrics (the SessionDispatcher adds its
+        # session-plane gauges to the SAME registry, so session info /
+        # REST surface both). Time-to-rescale + per-phase counters live
+        # here: the handshake spans attempts and runners, so only the
         # coordinator can clock it end to end.
         from flink_tpu_torch.obs.metrics import MetricRegistry
 
@@ -145,22 +162,142 @@ class JobCoordinator(RpcEndpoint):
         # exchange rendezvous for cross-host jobs
         self._dcn_table: Dict[tuple, Dict[int, str]] = {}
         self._strategies: Dict[str, RestartStrategy] = {}
+        # HA job store: non-terminal deployable jobs survive coordinator
+        # loss — a new leader re-deploys them with restore:latest (ref:
+        # JobGraphStore + Dispatcher recovery)
+        self._store = None
+        ha_dir = str(self.config.get(HighAvailabilityOptions.HA_DIR)).strip()
         # blob store: job-code artifacts, content-addressed (ref:
-        # BlobServer)
+        # BlobServer). Under HA it shares the durable HA dir so a new
+        # leader still serves old submissions' code.
         from flink_tpu_torch.runtime.blob import BlobStore
 
-        self._blobs = BlobStore()
+        self._blobs = BlobStore(
+            os.path.join(ha_dir, "blobs") if ha_dir else None)
+        if ha_dir:
+            from flink_tpu_torch.runtime.ha import JobStore
+
+            self._store = JobStore(ha_dir)
+            self._recover_from_store()
         self._hb_timeout = self.config.get(ClusterOptions.HEARTBEAT_TIMEOUT) / 1000
         self._lock = threading.Lock()  # monitor thread + rpc thread
         self._closed = False
         self._monitor = threading.Thread(target=self._monitor_loop, daemon=True)
         self._monitor.start()
 
-    def _disarm_rescale_locked(self, j: JobInfo) -> None:
+    def _required_devices_from_config(self, conf: Dict[str, Any]) -> int:
+        """Slot demand of a stored job record (the SessionDispatcher
+        overrides this to read the session slot quota instead)."""
+        spec = str(conf.get("cluster.mesh-devices", "") or "").strip()
+        return (SlotPool.ALL if spec == "all"
+                else max(1, int(spec)) if spec.isdigit() else 1)
+
+    def _recover_from_store(self) -> None:
+        """Re-hydrate every non-terminal deployable job from the HA
+        store (ref: Dispatcher.recoverJobs → JobMaster restore from the
+        CompletedCheckpointStore; checkpoint manifests are already
+        durable under the job's checkpoint dir). Two classes:
+
+        - stored RUNNING/RESTARTING: the execution may STILL be live on
+          its runner (leader loss is not runner loss) — park with a
+          re-attach window so the runner re-registering with its
+          in-flight job ids re-adopts the attempt in place; only after
+          the window (or the runner coming back without the job) does
+          the bumped-attempt redeploy with restore:latest fire.
+        - stored WAITING_FOR_RESOURCES/CREATED: never deployed — re-
+          queue at the ORIGINAL attempt and the original submitted_at,
+          so the FIFO submission order survives the takeover.
+        """
+        from flink_tpu_torch.config import SessionOptions
+
+        grace = self.config.get(SessionOptions.HA_REATTACH_GRACE) / 1000
+        now = time.time()
+        for rec in self._store.recoverable():
+            job_id = rec["job_id"]
+            stored_attempts = int(rec.get("attempts", 1))
+            conf = dict(rec.get("config", {}))
+            required = self._required_devices_from_config(conf)
+            was_live = rec.get("state") in ("RUNNING", "RESTARTING")
+            j = JobInfo(
+                job_id, state="WAITING_FOR_RESOURCES",
+                attempts=stored_attempts + 1 if was_live
+                else stored_attempts,
+                entry=rec.get("entry"), config=conf,
+                failure=("recovered by new leader; awaiting runner "
+                         "re-attach" if was_live
+                         else "recovered by new leader; re-queued"),
+                required_devices=required,
+                py_blobs=list(rec.get("py_blobs", [])),
+                egraph=ExecutionGraph(job_id, required))
+            if rec.get("submitted_at") is not None:
+                j.submitted_at = float(rec["submitted_at"])
+            rsc = rec.get("rescale")
+            if rsc and was_live:
+                # re-arm the stored in-flight rescale: once the runner
+                # re-attaches the live execution, _reattach_locked
+                # re-triggers the stop-with-savepoint under the SAME
+                # token (the runner's dedup absorbs the duplicate); a
+                # redeploy path instead disarms it in _deploy — the
+                # savepoint died with the attempt
+                j.pending_rescale = (int(rsc["devices"])
+                                     if rsc.get("devices") else None)
+                j.pending_rescale_procs = rsc.get("processes")
+                j.rescale_token = rsc.get("token")
+                j.rescale_paths = list(rsc.get("paths") or [])
+                j.rescale_started_at = rsc.get("started_at")
+                j.drain_exclude = rsc.get("drain_exclude")
+            if was_live:
+                j.reattach_attempt = stored_attempts
+                j.reattach_until = now + grace
+                j.reattach_runners = list(rec.get("assigned_runners", []))
+                # keep the stored assignment visible through the window:
+                # a cancel during it still routes to the runner that may
+                # hold the live execution
+                j.assigned_runners = list(j.reattach_runners)
+            self.jobs[job_id] = j
+            self._strategies[job_id] = from_config(self.config)
+            if not was_live:
+                self._persist_locked(j)
+            # was_live jobs are NOT re-persisted here: the stored
+            # RUNNING record (original attempt + runner) IS the durable
+            # truth that the execution may still be live — overwriting
+            # it with this leader's parked WAITING view would make a
+            # SECOND failover during the window recover the job as
+            # never-deployed and blind-redeploy beside the live
+            # attempt. The record advances only when something real
+            # happens: re-attach, redeploy, or a terminal transition.
+
+    def _persist_locked(self, j: JobInfo) -> None:
+        """Write-through to the HA job store (caller holds the lock or
+        is in single-threaded init)."""
+        if self._store is None:
+            return
+        if j.entry is None:
+            return  # bookkeeping-only jobs are not recoverable
+        # an armed rescale rides the record: a dispatcher takeover must
+        # resume (or cleanly disarm) the in-flight handshake, never
+        # forget it with the dead leader's memory
+        rescale = None
+        if j.pending_rescale is not None:
+            rescale = {"devices": j.pending_rescale,
+                       "processes": j.pending_rescale_procs,
+                       "token": j.rescale_token,
+                       "paths": list(j.rescale_paths),
+                       "started_at": j.rescale_started_at,
+                       "drain_exclude": j.drain_exclude}
+        self._store.put(j.job_id, entry=j.entry, config=j.config,
+                        state=j.state, attempts=j.attempts,
+                        py_blobs=j.py_blobs,
+                        submitted_at=j.submitted_at,
+                        assigned_runners=j.assigned_runners,
+                        rescale=rescale)
+
+    def _disarm_rescale_locked(self, j: JobInfo,
+                               persist: bool = True) -> None:
         """Clear an armed-but-unconsumed rescale (lock held). Every
-        disarm path funnels here so the phase counter stays truthful; a
-        consumed rescale (savepoints landed, redeploy dispatched) is NOT
-        a disarm and never calls this."""
+        disarm path funnels here so the phase counter and the durable
+        record stay truthful; a consumed rescale (savepoints landed,
+        redeploy dispatched) is NOT a disarm and never calls this."""
         if j.pending_rescale is None and j.rescale_token is None:
             return
         j.pending_rescale = None
@@ -170,6 +307,8 @@ class JobCoordinator(RpcEndpoint):
         j.rescale_started_at = None
         j.drain_exclude = None
         self._m_rescale["disarmed"].inc()
+        if persist:
+            self._persist_locked(j)
 
     # -- rpc methods -----------------------------------------------------
     def rpc_register_runner(self, runner_id: str, host: str, n_devices: int,
@@ -177,24 +316,113 @@ class JobCoordinator(RpcEndpoint):
                             jobs: Optional[List[Dict[str, Any]]] = None
                             ) -> dict:
         """``jobs`` is the runner's in-flight inventory
-        (``[{"job_id", "attempt"}, ...]``), which a leader taking over
-        re-adopts (the HA re-attach, ROADMAP.md queue 1 item 10.2); this
-        coordinator takes it on the wire and has none to re-adopt."""
+        (``[{"job_id", "attempt"}, ...]``): after a leader takeover the
+        runner re-registers CARRYING it, so slot-pool occupancy is
+        rebuilt from truth — a live execution is re-adopted in place
+        (never redeployed blind) and its slots are re-allocated before
+        any queued job can claim them. Legacy registrations omit it
+        (None), which reads as 'carrying nothing'."""
         waiting: List[str] = []
         with self._lock:
             self.runners[runner_id] = RunnerInfo(
                 runner_id, host, n_devices, time.time(), port=port)
+            carried = {str(e.get("job_id")): int(e.get("attempt", 1))
+                       for e in (jobs or [])}
+            self._reattach_locked(runner_id, carried)
             # new capacity: kick jobs parked on WAITING_FOR_RESOURCES
             # (ref: AdaptiveScheduler WaitingForResources → Executing on
             # new slots)
             waiting = self._waiting_locked()
         for job_id in waiting:
             self._deploy_async(job_id)
-        # leader_epoch 0 on the wire: a coordinator without HA, whose
-        # pushes carry no epoch for the runner to fence
         return {"heartbeat_interval_ms":
                 self.config.get(ClusterOptions.HEARTBEAT_INTERVAL),
-                "leader_epoch": 0}
+                "leader_epoch": self.leader_epoch}
+
+    def _reattach_locked(self, runner_id: str,
+                         carried: Dict[str, int]) -> None:
+        """Re-adopt recovered jobs a (re-)registering runner still
+        runs. For each job in its takeover re-attach window:
+
+        - the runner carries (job_id, attempt == reattach_attempt):
+          the execution is LIVE — re-allocate its slots on that runner,
+          roll the pre-bumped attempt back, mark RUNNING. No redeploy,
+          so committed output stays exactly-once across the takeover.
+        - the runner is one of the job's stored hosts but does NOT
+          carry it: the execution died there — collapse the window so
+          the checkpoint-restore redeploy fires now instead of waiting
+          out the grace.
+
+        Jobs the runner carries that this leader does not know (or
+        knows under a different attempt) are left to the heartbeat
+        revocation fence."""
+        for j in self.jobs.values():
+            if j.reattach_attempt is None:
+                continue
+            if j.state != "WAITING_FOR_RESOURCES":
+                # the window only re-adopts a job still PARKED by
+                # recovery: one canceled (or otherwise transitioned)
+                # during the window must never be resurrected to
+                # RUNNING by its returning runner — the heartbeat
+                # revocation fence stops the runner-side zombie
+                j.reattach_attempt = None
+                j.reattach_until = None
+                j.reattach_runners = []
+                continue
+            att = carried.get(j.job_id)
+            nproc = max(1, int(j.config.get("cluster.num-processes", 1)))
+            if nproc > 1:
+                # a cross-host job is only whole with ALL its process
+                # allocations; re-adopting through one runner's
+                # inventory would mis-account the rest — collapse to
+                # the restore redeploy once ANY stored runner returns
+                if runner_id in j.reattach_runners:
+                    j.reattach_attempt = None
+                    j.reattach_until = None
+                    j.reattach_runners = []
+                    j.assigned_runners = []
+                continue
+            if att is not None and att == j.reattach_attempt:
+                r = self.runners[runner_id]
+                resolved = (r.n_devices
+                            if j.required_devices == SlotPool.ALL
+                            else j.required_devices)
+                self._slots.release(j.job_id)
+                self._slots.allocate(j.job_id, runner_id, resolved)
+                j.attempts = j.reattach_attempt
+                j.state = "RUNNING"
+                j.failure = None
+                j.assigned_runners = [runner_id]
+                j.finished_runners = []
+                if j.started_at is None:
+                    j.started_at = time.time()
+                j.reattach_attempt = None
+                j.reattach_until = None
+                j.reattach_runners = []
+                if j.egraph is not None:
+                    j.egraph.start_attempt(j.attempts, runner_id)
+                    j.egraph.transition("RUNNING", attempt=j.attempts)
+                self._persist_locked(j)
+                if j.pending_rescale is not None and j.rescale_token:
+                    # resume the takeover-recovered rescale: re-trigger
+                    # the stop-with-savepoint under the stored token
+                    # once the re-adopted execution is RUNNING. Same
+                    # token pending on the runner → idempotent ack; an
+                    # already-completed-but-unreported savepoint →
+                    # a fresh one supersedes it. Off-thread: we hold
+                    # the coordinator lock here.
+                    tok = j.rescale_token
+                    t = threading.Timer(
+                        0.3, self.rpc_trigger_savepoint,
+                        args=(j.job_id,),
+                        kwargs={"stop": True, "token": tok})
+                    t.daemon = True
+                    t.start()
+            elif runner_id in j.reattach_runners:
+                j.reattach_attempt = None
+                j.reattach_until = None
+                j.reattach_runners = []
+                j.assigned_runners = []
 
     def _waiting_locked(self) -> List[str]:
         return [j.job_id for j in self.jobs.values()
@@ -214,7 +442,7 @@ class JobCoordinator(RpcEndpoint):
             r = self.runners.get(runner_id)
             if r is None:
                 # re-register (coordinator restarted / new leader)
-                return {"known": False, "leader_epoch": 0}
+                return {"known": False, "leader_epoch": self.leader_epoch}
             r.last_heartbeat = time.time()
             r.alive = True
             for jid, m in (metrics or {}).items():
@@ -236,7 +464,7 @@ class JobCoordinator(RpcEndpoint):
                         runner_id not in j.assigned_runners):
                     revoked.append(job_id)
         return {"known": True, "revoked_jobs": revoked,
-                "leader_epoch": 0}
+                "leader_epoch": self.leader_epoch}
 
     def rpc_submit_job(self, job_id: str, runners: Optional[List[str]] = None,
                        entry: Optional[str] = None,
@@ -262,11 +490,32 @@ class JobCoordinator(RpcEndpoint):
                           egraph=ExecutionGraph(job_id, required))
             self.jobs[job_id] = job
             self._strategies[job_id] = from_config(self.config)
+            self._persist_locked(job)
         if entry is not None:
             self._deploy_async(job_id)
         return {"assigned": chosen}
 
     # -- deployment ------------------------------------------------------
+    def _admit_locked(self, j: JobInfo) -> bool:
+        """Admission gate consulted by _deploy under the lock before any
+        slot is allocated. The base coordinator admits everything; the
+        SessionDispatcher overrides it with the max-jobs headroom check
+        (queued jobs park in WAITING_FOR_RESOURCES until a running job
+        frees headroom — the finish/cancel capacity kicks re-deploy
+        them in submission order)."""
+        return True
+
+    def _admit_refusal(self, j: JobInfo) -> str:
+        """Human-readable parking reason when _admit_locked refuses."""
+        return "queued by the admission gate"
+
+    def _deploy_config_locked(self, j: JobInfo, config: Dict[str, Any],
+                              target: "RunnerInfo") -> Dict[str, Any]:
+        """Per-deploy config injection (lock held, slots allocated):
+        the SessionDispatcher stamps admission-decided resource shares
+        here; the base coordinator pushes the job's config untouched."""
+        return config
+
     def _deploy_async(self, job_id: str, delay_s: float = 0.0,
                       exclude: Optional[List[str]] = None) -> None:
         """Push the job's deployment descriptor to an alive runner on a
@@ -291,12 +540,36 @@ class JobCoordinator(RpcEndpoint):
             if (j.state == "RUNNING"
                     and self._slots.allocation(job_id) is not None):
                 return
+            # takeover re-attach window: the execution may still be
+            # LIVE on its pre-takeover runner — a blind redeploy here
+            # would run the job twice. Deploy kicks defer until the
+            # runner re-attaches it, comes back without it, or the
+            # grace expires (the monitor loop re-kicks then).
+            if j.reattach_until is not None:
+                if time.time() < j.reattach_until:
+                    j.state = "WAITING_FOR_RESOURCES"
+                    j.failure = ("awaiting runner re-attach after "
+                                 "leader takeover")
+                    return
+                j.reattach_attempt = None
+                j.reattach_until = None
+                j.reattach_runners = []
+                j.assigned_runners = []
+            # session-mode admission seam (runtime/session.py): the
+            # base coordinator admits every deploy; a SessionDispatcher
+            # parks jobs past its max-jobs headroom back on the queue.
+            # Checked UNDER the lock so racing capacity kicks cannot
+            # admit two jobs into one remaining slot of headroom.
+            if not self._admit_locked(j):
+                j.state = "WAITING_FOR_RESOURCES"
+                j.failure = self._admit_refusal(j)
+                return
             # a rescale still ARMED when a redeploy proceeds is stale:
             # the stop-with-savepoint it was waiting on died with the
-            # old attempt (runner loss) — recovery
+            # old attempt (runner loss, reattach expiry) — recovery
             # keeps the old width and the intent disarms cleanly
             if j.pending_rescale is not None:
-                self._disarm_rescale_locked(j)
+                self._disarm_rescale_locked(j, persist=False)
             # slot allocation: best-fit over free device counts; a retry
             # releases the previous allocation first (ref:
             # ExecutionSlotAllocator + FineGrainedSlotManager matching).
@@ -371,8 +644,12 @@ class JobCoordinator(RpcEndpoint):
             j.finished_runners = []
             if j.egraph is not None:
                 j.egraph.start_attempt(j.attempts, target.runner_id)
+            self._persist_locked(j)
             entry, attempt = j.entry, j.attempts
-            config = dict(j.config)
+            # per-deploy config injection seam (runtime/session.py
+            # stamps the resource-share denominator here); base = the
+            # job's own config, untouched
+            config = self._deploy_config_locked(j, dict(j.config), target)
             blobs = list(j.py_blobs)
             rescale_deploy = j.rescale_started_at is not None
             if j.restore_path:
@@ -398,13 +675,21 @@ class JobCoordinator(RpcEndpoint):
             # the runner the failure handler blames/excludes must be the
             # one whose push actually failed, not the primary
             deploy_target = target
+            # the LEADER epoch fences the control plane the way the
+            # attempt epoch fences storage: a deposed leader's late
+            # deploy is rejected at the runner. Only stamped under HA
+            # (epoch > 0) so non-HA wire traffic is unchanged.
+            fence = ({"leader_epoch": self.leader_epoch}
+                     if self.leader_epoch > 0 else {})
             if rescale_deploy:
                 from flink_tpu_torch import faults
 
-                # the redeploy phase of the rescale handshake, between
-                # consuming the savepoints and pushing the new topology;
-                # a raise routes through the normal deploy failure
-                # handling (retry / park)
+                # the redeploy phase of the rescale handshake: a crash
+                # here is the coordinator dying between consuming the
+                # savepoints and pushing the new topology — the durable
+                # RESTARTING record + cluster.rescale-from carry the
+                # takeover; a raise routes through the normal deploy
+                # failure handling (retry / park)
                 faults.fire("rescale.redeploy", exc=RpcError, job=job_id)
             for i, t in enumerate(push_targets):
                 deploy_target = t
@@ -434,7 +719,7 @@ class JobCoordinator(RpcEndpoint):
                     resp = c.call("run_job", job_id=job_id, entry=entry,
                                   config=pconf, attempt=attempt,
                                   deploy_token=secrets.token_hex(8),
-                                  **extra)
+                                  **fence, **extra)
                 finally:
                     c.close()
                 if not resp.get("accepted"):
@@ -474,6 +759,15 @@ class JobCoordinator(RpcEndpoint):
         with self._lock:
             j = self.jobs.get(job_id)
             if j is None:
+                # terminal jobs aren't re-loaded by a new leader, but
+                # their final state is in the store — answer from there
+                # (ref: ExecutionGraphInfoStore serving archived jobs)
+                if self._store is not None:
+                    rec = self._store.get(job_id)
+                    if rec is not None:
+                        return {"state": rec.get("state", "UNKNOWN"),
+                                "attempts": rec.get("attempts", 0),
+                                "failure": None, "archived": True}
                 return {"state": "UNKNOWN"}
             rescale = {
                 "pending_devices": j.pending_rescale,
@@ -510,10 +804,18 @@ class JobCoordinator(RpcEndpoint):
                     "RUNNING", "RESTARTING", "WAITING_FOR_RESOURCES"):
                 j.state = "CANCELED"
                 j.finished_at = time.time()
-                self._disarm_rescale_locked(j)
+                self._disarm_rescale_locked(j, persist=False)
+                # a cancel during the takeover re-attach window closes
+                # it: the returning runner's inventory must not
+                # resurrect the job, and the monitor must not kick a
+                # redeploy for it
+                j.reattach_attempt = None
+                j.reattach_until = None
+                j.reattach_runners = []
                 self._slots.release(job_id)
                 if j.egraph is not None:
                     j.egraph.transition("CANCELED")
+                self._persist_locked(j)
                 targets = self._job_runners_locked(j)
         for r in targets:
             self._push_cancel_async(r, job_id)
@@ -531,11 +833,15 @@ class JobCoordinator(RpcEndpoint):
         race ahead and kill the redeployed attempt on the same runner."""
         from flink_tpu_torch.runtime.rpc import RpcClient, RpcError
 
+        epoch = self.leader_epoch
+
         def push() -> None:
             try:
                 c = RpcClient(runner.host, runner.port, timeout_s=5.0)
                 try:
                     kw = {"attempt": attempt} if attempt is not None else {}
+                    if epoch > 0:
+                        kw["leader_epoch"] = epoch
                     c.call("cancel_job", job_id=job_id, **kw)
                 finally:
                     c.close()
@@ -571,10 +877,11 @@ class JobCoordinator(RpcEndpoint):
             if j is not None and j.state in ("RUNNING", "RESTARTING"):
                 j.state = "FINISHED"
                 j.finished_at = time.time()
-                self._disarm_rescale_locked(j)
+                self._disarm_rescale_locked(j, persist=False)
                 self._slots.release(job_id)
                 if j.egraph is not None:
                     j.egraph.transition("FINISHED")
+                self._persist_locked(j)
             waiting = self._waiting_locked()
         # freed capacity is a scheduling event like registration
         for wid in waiting:
@@ -613,7 +920,7 @@ class JobCoordinator(RpcEndpoint):
         # an armed-but-unfinished rescale dies with the attempt: the
         # recovery deploy keeps the old width, and a routine savepoint
         # days later must not consume a stale rescale request
-        self._disarm_rescale_locked(j)
+        self._disarm_rescale_locked(j, persist=False)
         if j.state == "RESTARTING" and j.entry is not None:
             # one incident, one restart (coordinator-DEPLOYED jobs only —
             # _deploy owns the RESTARTING→RUNNING transition): the
@@ -631,11 +938,13 @@ class JobCoordinator(RpcEndpoint):
             j.state = "RESTARTING"
             j.attempts += 1
             j.finished_runners = []  # the new attempt starts from zero
+            self._persist_locked(j)
             return {"action": "restart", "delay_ms": delay,
                     "restore": "latest"}
         j.state = "FAILED"
         j.finished_at = time.time()
         self._slots.release(j.job_id)
+        self._persist_locked(j)
         return {"action": "fail"}
 
     def rpc_list_jobs(self) -> dict:
@@ -663,6 +972,9 @@ class JobCoordinator(RpcEndpoint):
         if not targets:
             return {"ok": False, "reason": "no reachable runner"}
 
+        fence = ({"leader_epoch": self.leader_epoch}
+                 if self.leader_epoch > 0 else {})
+
         def push() -> None:
             from flink_tpu_torch.runtime.rpc import RpcClient, RpcError
 
@@ -678,9 +990,11 @@ class JobCoordinator(RpcEndpoint):
                 if token is not None:
                     from flink_tpu_torch import faults
 
-                    # the savepoint phase of the rescale handshake: the
-                    # intent is armed but the triggers are (partially)
-                    # undispatched
+                    # the savepoint phase of the rescale handshake: a
+                    # crash here is the coordinator dying with the
+                    # intent durable but the triggers (partially)
+                    # undispatched — takeover re-triggers under the
+                    # same token
                     faults.fire("rescale.savepoint", exc=RpcError,
                                 job=job_id)
                 for r in targets:
@@ -689,7 +1003,7 @@ class JobCoordinator(RpcEndpoint):
                         try:
                             resp = c.call(
                                 "trigger_savepoint", job_id=job_id,
-                                stop=stop, token=token)
+                                stop=stop, token=token, **fence)
                         finally:
                             c.close()
                         if resp.get("ok"):
@@ -820,6 +1134,7 @@ class JobCoordinator(RpcEndpoint):
                 nproc_old = max(
                     1, int(j.config.get("cluster.num-processes", 1)))
                 if len(j.rescale_paths) < nproc_old:
+                    self._persist_locked(j)  # partial set is durable
                     return {"ok": True, "pending_savepoints":
                             nproc_old - len(j.rescale_paths)}
                 # rescale phase 2: all savepoints durable → stop the
@@ -851,6 +1166,7 @@ class JobCoordinator(RpcEndpoint):
                 if j.egraph is not None:
                     j.egraph.set_parallelism(max(1, new))
                 rescale_targets = self._job_runners_locked(j)
+                self._persist_locked(j)
                 redeploy = True
             else:
                 redeploy = False
@@ -924,9 +1240,12 @@ class JobCoordinator(RpcEndpoint):
             j.rescale_paths = []
             j.rescale_started_at = time.time()
             self._m_rescale["armed"].inc()
+            # durable BEFORE the trigger dispatch: a takeover from here
+            # on resumes (or cleanly disarms) the handshake
+            self._persist_locked(j)
         try:
             # the arm phase of the handshake: a crash here is the
-            # coordinator dying right after arming
+            # coordinator dying right after the intent became durable
             faults.fire("rescale.arm", exc=RpcError, job=job_id)
         except (RpcError, ConnectionError) as e:
             with self._lock:
@@ -1001,6 +1320,7 @@ class JobCoordinator(RpcEndpoint):
                 j.rescale_paths = []
                 j.rescale_started_at = time.time()
                 j.drain_exclude = runner_id
+                self._persist_locked(j)
                 victims.append((job_id, token))
         dispatched = []
         for job_id, token in victims:
@@ -1028,6 +1348,21 @@ class JobCoordinator(RpcEndpoint):
             time.sleep(min(self._hb_timeout / 5, 1.0))
             now = time.time()
             redeploys = []  # (job_id, delay_ms, lost_runner)
+            expired: List[str] = []
+            with self._lock:
+                # takeover re-attach windows that ran out: the stored
+                # runner never came back — fall through to the normal
+                # checkpoint-restore redeploy (attempt is pre-bumped)
+                for j in self.jobs.values():
+                    if (j.reattach_until is not None
+                            and now >= j.reattach_until):
+                        j.reattach_attempt = None
+                        j.reattach_until = None
+                        j.reattach_runners = []
+                        j.assigned_runners = []
+                        expired.append(j.job_id)
+            for job_id in expired:
+                self._deploy_async(job_id)
             with self._lock:
                 for r in self.runners.values():
                     if r.alive and now - r.last_heartbeat > self._hb_timeout:
@@ -1146,7 +1481,7 @@ class JobCoordinator(RpcEndpoint):
                 arm.append((j.job_id, target))
         for job_id, target in arm:
             # outside the lock: arming runs the full manual-RPC path
-            # (validation, arming, stop-with-savepoint)
+            # (validation, durable intent, stop-with-savepoint)
             self.rpc_rescale_job(job_id, devices=target)
 
     def close(self) -> None:
@@ -1158,34 +1493,109 @@ def start_coordinator(config: Optional[Configuration] = None,
     return RpcServer(JobCoordinator(config), port)
 
 
+def arg_parser():
+    """The coordinator process's command line."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="flink_tpu_torch job coordinator")
+    p.add_argument("--port", type=int, default=6123)
+    p.add_argument("--rest-port", type=int, default=0,
+                   help="HTTP REST/UI port (0 = disabled)")
+    p.add_argument("--rest-bind", default="127.0.0.1")
+    p.add_argument("--ha-dir", default="",
+                   help="shared HA directory: contend for leadership "
+                        "and recover jobs from its store (standby "
+                        "coordinators block here until elected)")
+    p.add_argument("--conf", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="coordinator configuration (heartbeat.*, "
+                        "high-availability.lease-timeout, "
+                        "session.ha.reattach-grace, restart-strategy.*)")
+    return p
+
+
 def main(argv: Optional[list] = None) -> None:
     """Coordinator process entrypoint (ref: the cluster entrypoints in
     runtime/entrypoint/*ClusterEntrypoint.java)::
 
         python -m flink_tpu_torch.runtime.coordinator --port 6123
     """
-    import argparse
     import time as _time
 
-    p = argparse.ArgumentParser(description="flink_tpu_torch job coordinator")
-    p.add_argument("--port", type=int, default=6123)
-    p.add_argument("--rest-port", type=int, default=0,
-                   help="HTTP REST/UI port (0 = disabled; still to port)")
-    p.add_argument("--ha-dir", default="",
-                   help="shared HA directory (still to port)")
-    args = p.parse_args(argv)
-    if args.rest_port or args.ha_dir:
-        raise NotImplementedError(
-            ("--rest-port (the REST server)" if args.rest_port
-             else "--ha-dir (the HA job store and leader election)")
-            + " is still to port: ROADMAP.md queue 1 item 10.2")
-    server = start_coordinator(port=args.port)
-    print(f"coordinator on :{server.port}", flush=True)
+    from flink_tpu_torch.cli import _parse_conf
+
+    args = arg_parser().parse_args(argv)
+    conf = Configuration(_parse_conf(args.conf))
+    conf.validate()
+
+    def serve_forever(server):
+        rest = None
+        if args.rest_port:
+            from flink_tpu_torch.obs.rest import RestServer
+
+            rest = RestServer(server, port=args.rest_port,
+                              bind=args.rest_bind)
+            print(f"rest on :{rest.port}", flush=True)
+        print(f"coordinator on :{server.port}", flush=True)
+        return rest
+
+    if not args.ha_dir:
+        server = start_coordinator(conf, port=args.port)
+        rest = serve_forever(server)
+        try:
+            while True:
+                _time.sleep(3600)
+        except KeyboardInterrupt:
+            if rest is not None:
+                rest.close()
+            server.close()
+        return
+
+    # HA mode: contend → serve while leader → on revoke STOP SERVING
+    # (a stalled leader that lost its lease must not keep accepting
+    # work — split-brain; ref: leadership revocation closing the
+    # Dispatcher's RPC) → re-contend. Jobs re-load from the store on
+    # the next grant, so dropping in-memory state is safe.
+    import threading as _threading
+
+    from flink_tpu_torch.config import HighAvailabilityOptions
+    from flink_tpu_torch.runtime.ha import LeaderElection
+
+    conf.set("high-availability.dir", args.ha_dir)
+    grant_evt = _threading.Event()
+    revoke_evt = _threading.Event()
+    election = LeaderElection(
+        args.ha_dir, f"127.0.0.1:{args.port}",
+        conf.get(HighAvailabilityOptions.LEASE_TIMEOUT) / 1000)
+    election.on_grant = lambda epoch: grant_evt.set()
+    election.on_revoke = revoke_evt.set
+    election.start()
     try:
         while True:
-            _time.sleep(3600)
+            print("contending for leadership...", flush=True)
+            grant_evt.wait()
+            grant_evt.clear()
+            revoke_evt.clear()
+            print(f"elected leader (epoch {election.epoch})", flush=True)
+            # fencing: every runner push from this incumbency carries
+            # the election epoch; a deposed leader's late RPCs are
+            # rejected at the runner. Stamped BETWEEN construction and
+            # serving, so no push can ever leave unstamped.
+            endpoint = JobCoordinator(conf)
+            endpoint.leader_epoch = election.epoch
+            server = RpcServer(endpoint, args.port)
+            rest = serve_forever(server)
+            revoke_evt.wait()  # leadership lost: stop serving
+            print("leadership revoked; closing", flush=True)
+            if rest is not None:
+                rest.close()
+            # close the ENDPOINT too: its monitor thread must stop
+            # writing to the shared job store the new leader now owns
+            # (the split-brain this loop exists to prevent)
+            server.endpoint.close()
+            server.close()
     except KeyboardInterrupt:
-        server.close()
+        election.close()
 
 
 if __name__ == "__main__":

@@ -146,7 +146,8 @@ import numpy as np
 from flink_tpu_torch.api.sources import DeviceGeneratorSource
 from flink_tpu_torch.config import (
     CheckpointingOptions, ClusterOptions, Configuration, HostOptions,
-    MemoryOptions, MetricsOptions, PipelineOptions, StateOptions)
+    MemoryOptions, MetricsOptions, PipelineOptions, SessionOptions,
+    StateOptions)
 from flink_tpu_torch.device import resolve_device
 from flink_tpu_torch.exchange.partitioners import (
     hybrid_route, make_partitioner)
@@ -274,8 +275,39 @@ class Driver:
         if self._fold_chunk < 1:
             raise ValueError(f"host.fold-chunk-records must be >= 1, got "
                              f"{self._fold_chunk}")
-        self.host_pool = HostPool.from_config(config, registry=self.registry)
+        # session resource shares (runtime/session.py): the dispatcher
+        # stamps session.concurrent-jobs = K (the STATIC slot-
+        # proportional denominator: jobs of this quota that fit one
+        # runner) into the deploy config; this job's in-flight step
+        # credit and host-pool worker count each take a 1/K share so
+        # co-resident jobs cannot oversubscribe the card's queue or the
+        # host cores, regardless of deploy order. K = 1 (every
+        # non-session run) changes nothing.
+        self._session_share = max(
+            1, int(config.get(SessionOptions.CONCURRENT_JOBS)))
+        host_w = int(config.get(HostOptions.PARALLELISM))
+        if self._session_share > 1:
+            self._base_inflight = max(
+                1, self._base_inflight // self._session_share)
+            host_w = max(1, host_w // self._session_share)
+        self.host_pool = HostPool(host_w, registry=self.registry)
+        # fair drain scheduling (session-cluster mode): co-resident
+        # jobs' drains take round-robin turns on the process-global
+        # gate for the host copy of their fires, so one tenant's fire
+        # burst cannot starve a peer's on the shared device-to-host
+        # link. Off (None) outside session deploys.
+        self._drain_gate = None
+        self._gate_token = f"drv-{id(self)}"
+        if bool(config.get(SessionOptions.FAIR_DRAIN)):
+            from flink_tpu_torch.runtime.session import drain_gate
+
+            self._drain_gate = drain_gate()
         self._build_ops()
+        if self._drain_gate is not None:
+            gate, token = self._drain_gate, self._gate_token
+            for op in self._ops.values():
+                if hasattr(op, "fetch_turn"):
+                    op.fetch_turn = lambda: gate.turn(token)
         # plan-time device budget: the operators' dense tensors are known
         # before the first step (memory.hbm-budget)
         from flink_tpu_torch.memory import MemoryBudget
@@ -970,6 +1002,10 @@ class Driver:
             if port else None)
         self._srcs: Dict[int, Dict[int, Any]] = {}
         self._cleaners = self._start_cleaners()
+        # the fair-drain gate's membership spans the run: a solo member
+        # never waits, and a member that leaves releases its turn
+        if self._drain_gate is not None:
+            self._drain_gate.register(self._gate_token)
         try:
             return self._run_loop(job_name)
         except BaseException:
@@ -987,6 +1023,8 @@ class Driver:
             self._abort_sinks()
             raise
         finally:
+            if self._drain_gate is not None:
+                self._drain_gate.unregister(self._gate_token)
             # cleaners end with the run on every exit path, releasing
             # their leases so a successor acquires at once
             for cleaner in self._cleaners:

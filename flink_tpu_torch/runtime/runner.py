@@ -8,8 +8,9 @@ reports as its devices (its slots) the CUDA cards this process sees,
 the one CPU (1 by default). A runner asked for
 ``cuda`` without a card exits non-zero at start. Started as its own
 process (``python -m``, never forked from a process that has touched
-CUDA). Following an HA leader (``--ha-dir``) is ROADMAP.md queue 1 item
-10.2.
+CUDA). With ``--ha-dir`` it finds the coordinator through the HA
+leader lease and, after two missed heartbeats, re-reads the lease and
+re-registers with the new leader carrying its jobs.
 
 ref: runtime/taskexecutor/TaskExecutor.java (registration with the
 ResourceManager, heartbeats, ``submitTask`` receiving a deployment
@@ -91,9 +92,11 @@ class TaskRunner(RpcEndpoint):
 
     def __init__(self, coordinator_host: str, coordinator_port: int,
                  runner_id: Optional[str] = None,
-                 device: str = "cuda", cpu_devices: int = 1) -> None:
+                 device: str = "cuda", cpu_devices: int = 1,
+                 ha_dir: Optional[str] = None) -> None:
         self.runner_id = runner_id or f"runner-{uuid.uuid4().hex[:8]}"
         self._coord_addr = (coordinator_host, coordinator_port)
+        self._ha_dir = ha_dir
         # the device kind its jobs run on, resolved here so that a runner
         # asked for the card fails at start without one
         from flink_tpu_torch.device import resolve_device
@@ -171,6 +174,7 @@ class TaskRunner(RpcEndpoint):
             self._leader_epoch = e
 
     def _heartbeat_loop(self, interval: float) -> None:
+        misses = 0
         while not self._closed:
             time.sleep(interval)
             try:
@@ -191,6 +195,7 @@ class TaskRunner(RpcEndpoint):
                             runner=self.runner_id)
                 r = self._coord.call("heartbeat", runner_id=self.runner_id,
                                      jobs=running, metrics=metrics)
+                misses = 0
                 self._note_epoch(r)
                 # revocation: jobs the coordinator no longer considers
                 # ours (reassigned after a false-positive loss, or
@@ -218,10 +223,57 @@ class TaskRunner(RpcEndpoint):
             except (RpcError, ConnectionError):
                 # transient (ConnectionError: an injected transport
                 # drop fires BEFORE the client's RpcError wrapping —
-                # the beat loop must survive it). Next beat retries.
-                # (Following a new HA leader after two misses is
-                # ROADMAP.md queue 1 item 10.2.)
-                pass
+                # the beat loop must survive it, a dead heartbeat
+                # thread never follows a new leader). Next beat
+                # retries. In HA mode a coordinator that stays
+                # unreachable has likely lost leadership — re-resolve
+                # the lease and follow the new leader (ref:
+                # TaskExecutor re-connecting after JM leader change)
+                misses += 1
+                if self._ha_dir and misses >= 2:
+                    misses = 0
+                    self._follow_leader()
+
+    def _follow_leader(self) -> None:
+        from flink_tpu_torch.runtime.ha import leader_address
+
+        addr = leader_address(self._ha_dir)
+        if addr is None:
+            return
+        host, _, port = addr.partition(":")
+        if (host, int(port)) == self._coord_addr:
+            return  # same leader; outage was transient
+        try:
+            from flink_tpu_torch import faults
+
+            # the takeover re-attach seam: an injected failure here is
+            # a lost re-registration — the next heartbeat miss retries
+            # it, so the inventory eventually lands on the new leader
+            faults.fire("runner.reattach", exc=RpcError,
+                        runner=self.runner_id)
+            new = RpcClient(host, int(port), timeout_s=5.0, retries=0)
+            self._note_epoch(new.call(
+                "register_runner", runner_id=self.runner_id,
+                host="127.0.0.1", n_devices=self.n_devices,
+                port=self._server.port if self._server else 0,
+                jobs=self._carried_jobs()))
+        except (RpcError, ConnectionError):
+            # new leader not serving yet, or the re-attach push was
+            # dropped (runner.reattach chaos): retry next beat — the
+            # inventory eventually lands
+            return
+        old = self._coord
+        self._coord_addr = (host, int(port))
+        self._coord = new
+        # the blob cache captured the old client at first fetch — point
+        # it at the new leader (its store shares the durable HA dir)
+        cache = getattr(self, "_blob_cache", None)
+        if cache is not None:
+            cache.rebind(new)
+        try:
+            old.close()
+        except OSError:
+            pass
 
     def close(self) -> None:
         self._closed = True
@@ -543,14 +595,15 @@ def device_count(device: str) -> int:
     return torch.cuda.device_count() if device.startswith("cuda") else 1
 
 
-def main(argv: Optional[list] = None) -> None:
+def arg_parser():
+    """The runner process's command line."""
     import argparse
 
     p = argparse.ArgumentParser(description="flink_tpu_torch task runner")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     p.add_argument("--ha-dir", default=None,
-                   help="resolve the coordinator via the HA leader lease "
-                        "(still to port)")
+                   help="resolve the coordinator via the HA leader "
+                        "lease instead of a fixed address")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--runner-id", default=None)
     p.add_argument("--device", default="cuda",
@@ -559,16 +612,27 @@ def main(argv: Optional[list] = None) -> None:
     p.add_argument("--cpu-devices", type=int, default=1, metavar="N",
                    help="with --device cpu: offer N blocks of the one CPU "
                         "as this runner's devices (a mesh job's blocks)")
+    return p
+
+
+def main(argv: Optional[list] = None) -> None:
+    p = arg_parser()
     args = p.parse_args(argv)
-    if args.ha_dir:
-        raise NotImplementedError(
-            "--ha-dir (following the HA leader) is still to port: "
-            "ROADMAP.md queue 1 item 10.2")
-    if args.coordinator is None:
-        p.error("--coordinator is required")
-    host, _, port = args.coordinator.partition(":")
+    addr = args.coordinator
+    if addr is None:
+        if not args.ha_dir:
+            p.error("one of --coordinator or --ha-dir is required")
+        from flink_tpu_torch.runtime.ha import leader_address
+
+        deadline = time.time() + 60
+        while (addr := leader_address(args.ha_dir)) is None:
+            if time.time() > deadline:
+                raise SystemExit("no leader found in --ha-dir within 60s")
+            time.sleep(0.5)
+    host, _, port = addr.partition(":")
     runner = TaskRunner(host, int(port), runner_id=args.runner_id,
-                        device=args.device, cpu_devices=args.cpu_devices)
+                        device=args.device, cpu_devices=args.cpu_devices,
+                        ha_dir=args.ha_dir)
     gateway = runner.start(args.port)
     print(f"runner {runner.runner_id} gateway on :{gateway} "
           f"({runner.device}, {runner.n_devices} device(s))", flush=True)

@@ -4,9 +4,12 @@
 ``savepoint`` / ``cancel`` against a port runner process, ``rescale``'s
 exit contract, the ``log`` command, a ``run --local`` chain through an
 ``objstore://`` topic and ``fsck``'s exit contract (0 = ok or clean, 1 =
-findings or refused, 2 = usage or path error). The commands of modules
-still to port (``session``, ``--session`` / ``--ha-dir``, ``analyze``,
-``lint``) exit 2 naming their ROADMAP.md item."""
+findings or refused, 2 = usage or path error), the session commands
+resolving their leader through ``--ha-dir`` and ``session rescale``'s
+contract. ``analyze`` and ``lint`` exit 2 naming their ROADMAP.md item;
+the commands once refused the same way (``session``, ``run --session`` /
+``--ha-dir``, ``coordinator --ha-dir`` / ``--rest-port``, ``runner
+--ha-dir``) now run."""
 import json
 import os
 import subprocess
@@ -21,6 +24,16 @@ from flink_tpu_torch.config import Configuration
 from flink_tpu_torch.runtime.coordinator import JobCoordinator
 from flink_tpu_torch.runtime.rpc import RpcServer
 from test_torch_runner_process import REPO, spawn_runner, wait_until
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 def cli(capsys, *argv):
@@ -502,6 +515,119 @@ class TestRescaleCli:
             srv.close(); gwsrv.close(); coord.close()
 
 
+    def test_session_rescale_same_contract(self, tmp_path, capsys):
+        from flink_tpu_torch.runtime.session import LocalSessionCluster
+
+        with LocalSessionCluster(Configuration(
+                {"session.autoscale": False}), device="cpu") as c:
+            sink = str(tmp_path / "sink")
+            r = c.submit("test_torch_runner_jobs:build", job_id="sj",
+                         config={
+                             "test.n-batches": "60",
+                             "test.batch-sleep-ms": "100",
+                             "test.sink-dir": sink,
+                             "execution.checkpointing.dir":
+                                 str(tmp_path / "chk"),
+                             "execution.checkpointing.interval": "300ms",
+                             "state.num-key-shards": "4",
+                             "state.slots-per-shard": "16",
+                             "pipeline.microbatch-size": "64"})
+            assert r.get("admitted")
+            wait_until(lambda: c.dispatcher.jobs["sj"].state == "RUNNING",
+                       60, what="session job running")
+            # 0: dispatched against the session leader
+            rc, out = cli(capsys, "session", "rescale",
+                          "--session", c.address, "--devices", "1", "sj")
+            assert rc == 0 and out["ok"]
+            # 1: refused — unknown job
+            rc, out = cli(capsys, "session", "rescale",
+                          "--session", c.address, "--devices", "1",
+                          "ghost")
+            assert rc == 1 and not out["ok"]
+            # 2: usage — --devices required
+            with pytest.raises(SystemExit) as e:
+                cli_main(["session", "rescale", "--session", c.address,
+                          "sj"])
+            assert e.value.code == 2
+            c.dispatcher.rpc_cancel_job("sj")
+
+
+class TestSessionHaCli:
+    """The session CLI resolves the leader through --ha-dir
+    (runtime/ha.leader_address) and RE-resolves on connection failure
+    with a bounded retry budget — exit codes 0/1/2 as the reference's:
+    0 = ok, 1 = refused / no reachable leader (clean error, never a
+    traceback), 2 = usage error."""
+
+    def _lease(self, d, address, epoch=1):
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "leader.lease"), "w") as f:
+            json.dump({"leader_id": "L", "address": address,
+                       "epoch": epoch, "claimed_at": time.time()}, f)
+
+    def test_no_leader_exits_1_cleanly(self, tmp_path, capsys,
+                                       monkeypatch):
+        import flink_tpu_torch.cli as cli_mod
+
+        monkeypatch.setattr(cli_mod, "_HA_RETRIES", 3)
+        monkeypatch.setattr(cli_mod, "_HA_RETRY_DELAY_S", 0.05)
+        rc = cli_main(["session", "list", "--ha-dir",
+                       str(tmp_path / "empty")])
+        err = capsys.readouterr().err
+        assert rc == 1
+        assert "error:" in err and "Traceback" not in err
+
+    def test_lease_resolution_without_session_flag(self, tmp_path,
+                                                   capsys):
+        from flink_tpu_torch.runtime.session import LocalSessionCluster
+
+        with LocalSessionCluster(Configuration(
+                {"session.autoscale": False}), device="cpu") as c:
+            self._lease(str(tmp_path), c.address)
+            rc, out = cli(capsys, "session", "list",
+                          "--ha-dir", str(tmp_path))
+            assert rc == 0 and out["jobs"] == []
+            # `session info` prints the leadership view
+            rc, out = cli(capsys, "session", "info",
+                          "--ha-dir", str(tmp_path))
+            assert rc == 0
+            assert "leader_epoch" in out and "takeovers" in out
+
+    def test_refused_connection_re_resolves_mid_retry(
+            self, tmp_path, capsys, monkeypatch):
+        """The failover flow a client sees: the lease points at a DEAD
+        leader; the new leader's lease lands DURING the retry budget —
+        the call re-resolves and succeeds (exit 0)."""
+        import threading
+
+        import flink_tpu_torch.cli as cli_mod
+        from flink_tpu_torch.runtime.session import LocalSessionCluster
+
+        monkeypatch.setattr(cli_mod, "_HA_RETRIES", 30)
+        monkeypatch.setattr(cli_mod, "_HA_RETRY_DELAY_S", 0.1)
+        self._lease(str(tmp_path), f"127.0.0.1:{_free_port()}", epoch=1)
+        with LocalSessionCluster(Configuration(
+                {"session.autoscale": False}), device="cpu") as c:
+            def takeover():
+                time.sleep(0.5)
+                self._lease(str(tmp_path), c.address, epoch=2)
+
+            threading.Thread(target=takeover, daemon=True).start()
+            rc, out = cli(capsys, "session", "list",
+                          "--ha-dir", str(tmp_path))
+            assert rc == 0 and out["jobs"] == []
+
+    def test_standby_without_ha_dir_exits_2(self, capsys):
+        assert cli_main(["session", "start", "--standby"]) == 2
+        assert "standby" in capsys.readouterr().err
+
+    def test_neither_session_nor_ha_dir_exits_2(self, capsys):
+        with pytest.raises(SystemExit) as e:
+            cli_main(["session", "list"])
+        assert e.value.code == 2
+        assert "--ha-dir" in capsys.readouterr().err
+
+
 class TestCommandsStillToPort:
     @pytest.mark.parametrize("argv,item", [
         (["session", "list", "--session", "127.0.0.1:1"], "10.2"),
@@ -513,10 +639,88 @@ class TestCommandsStillToPort:
         (["analyze", "--entry", "x:y"], "11"),
         (["lint"], "11"),
     ])
-    def test_exit_2_naming_the_item(self, capsys, argv, item):
-        assert cli_main(argv) == 2
-        err = capsys.readouterr().err
-        assert f"ROADMAP.md queue 1 item {item}" in err
+    def test_exit_2_naming_the_item(self, capsys, monkeypatch, tmp_path,
+                                    argv, item):
+        """Item 11's commands exit 2 naming it. The rows of item 10.2,
+        which these commands once named, now run: a session client
+        with no cluster to reach is refused with exit 1 and a clean
+        error; the coordinator contends for an HA dir and wins it, or
+        serves REST; the runner finds its coordinator through the
+        lease."""
+        if item == "11":
+            assert cli_main(argv) == 2
+            err = capsys.readouterr().err
+            assert f"ROADMAP.md queue 1 item {item}" in err
+            return
+        import flink_tpu_torch.cli as cli_mod
+
+        monkeypatch.setattr(cli_mod, "_HA_RETRIES", 2)
+        monkeypatch.setattr(cli_mod, "_HA_RETRY_DELAY_S", 0.05)
+        argv = [str(tmp_path / "ha") if a == "/nowhere" else a
+                for a in argv]
+        if argv[0] in ("session", "run"):
+            assert cli_main(argv) == 1
+            err = capsys.readouterr().err
+            assert "error:" in err and "still to port" not in err
+        elif argv[0] == "coordinator" and "--ha-dir" in argv:
+            self._serves(argv, "elected leader (epoch 1)")
+            assert "127.0.0.1" in json.load(
+                open(tmp_path / "ha" / "leader.lease"))["address"]
+        elif argv[0] == "coordinator":
+            port = _free_port()
+            argv[argv.index("8081")] = str(port)
+
+            def overview():
+                import urllib.request
+
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/overview") as r:
+                    return json.loads(r.read())
+
+            body = self._serves(argv, f"rest on :{port}", then=overview)
+            assert body == {"taskmanagers": 0, "taskmanagers-alive": 0,
+                            "jobs": {}}
+        else:
+            from flink_tpu_torch.runtime.coordinator import start_coordinator
+
+            srv = start_coordinator(Configuration({}))
+            try:
+                os.makedirs(tmp_path / "ha")
+                with open(tmp_path / "ha" / "leader.lease", "w") as f:
+                    json.dump({"leader_id": "L", "epoch": 1,
+                               "address": f"127.0.0.1:{srv.port}",
+                               "claimed_at": time.time()}, f)
+                self._serves(argv + ["--device", "cpu",
+                                     "--runner-id", "via-lease"],
+                             "gateway on")
+                assert "via-lease" in srv.endpoint.runners
+            finally:
+                srv.close()
+
+    @staticmethod
+    def _serves(argv, want, then=None, timeout=60.0):
+        """Start ``python -m flink_tpu_torch ARGV``, wait for a line
+        holding ``want``, call ``then`` while it serves, stop it."""
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                   + os.path.join(REPO, "tests"), OMP_NUM_THREADS="2")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "flink_tpu_torch", *argv], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            seen = []
+            deadline = time.time() + timeout
+            while time.time() < deadline:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                seen.append(line)
+                if want in line:
+                    return then() if then is not None else None
+            raise AssertionError(f"no {want!r} from {argv}: {seen}")
+        finally:
+            proc.kill()
+            proc.wait(timeout=10)
 
     def test_python_dash_m_runs_the_port(self, tmp_path):
         """``python -m flink_tpu_torch`` is this command line: a local

@@ -20,9 +20,11 @@ boundary into ``crash://``, restored from each image with
 sink as the crash left it, whose committed rows must be the golden's,
 once each. The job's golden equals the reference's same SQL job.
 
+The durable session registry (``HaRegistryTier``, the HA job store of
+``runtime/ha.py``) is a tier too, its golden equal to the reference's.
+
 Tier-1 runs the reference's bounded schedule (3 seeds x 8 images per
-tier); the ``slow`` soak runs 70 images a seed. ``HaRegistryTier`` waits
-for the HA session registry (ROADMAP.md queue 1 item 10.2).
+tier); the ``slow`` soak runs 70 images a seed.
 """
 import json
 import os
@@ -45,6 +47,7 @@ from flink_tpu_torch.log.topic import (
     list_group_offsets,
     list_leases,
 )
+from flink_tpu_torch.runtime.ha import JobStore
 from test_torch_ckpt_pkgs import JAX, PORT
 from test_torch_threads import capped_torch_threads  # noqa: F401
 
@@ -552,9 +555,57 @@ class FileSinkTier:
         return _canon(self._sink(root).committed_batches())
 
 
+class HaRegistryTier:
+    """The durable session registry (runtime/ha.py JobStore): every
+    put is atomic-durable, terminal states archive; recovery re-runs
+    the lifecycle (idempotent same-content puts)."""
+
+    name = "ha-registry"
+
+    def setup(self, root):
+        pass
+
+    def mutate(self, root):
+        js = JobStore(os.path.join(root, "ha"))
+        js.put("job-a", entry="m:f", config={"x": 1}, state="WAITING",
+               attempts=1, submitted_at=100.0)
+        js.put("job-b", entry="m:g", config={}, state="WAITING",
+               attempts=1, submitted_at=101.0)
+        js.put("job-a", entry="m:f", config={"x": 1}, state="RUNNING",
+               attempts=1, submitted_at=100.0,
+               assigned_runners=["runner-1"])
+        js.put("job-b", entry="m:g", config={}, state="FINISHED",
+               attempts=1, submitted_at=101.0)
+        return None
+
+    def recover(self, root, aux, cut=None):
+        self.mutate(root)
+
+    def observe(self, root):
+        js = JobStore(os.path.join(root, "ha"))
+        recs = sorted(js.recoverable(), key=lambda r: r["job_id"])
+        return {"active": _canon(recs),
+                "archived_b": _canon(js.get("job-b"))}
+
+    def check_image(self, root):
+        """No-torn-record invariant, asserted BEFORE recovery: a
+        power cut must never leave garbage at a registry record's
+        final name (recoverable() silently skips parse failures — a
+        torn record would be a SILENTLY lost job)."""
+        for sub in ("jobs", "jobs-archive"):
+            d = os.path.join(root, "ha", sub)
+            if not os.path.isdir(d):
+                continue
+            for name in os.listdir(d):
+                if not name.endswith(".json"):
+                    continue
+                with open(os.path.join(d, name)) as f:
+                    json.load(f)  # raises on a torn record
+
+
 TIERS = (CheckpointTier(), LsmTier(), SqlQ5JobTier(), LogTxnTier(),
          CompactionTier(), LeaseGroupTier(), ObjstoreBusTier(),
-         FileSinkTier())
+         FileSinkTier(), HaRegistryTier())
 LOG_TIERS = ("log-2pc", "compaction-swap", "lease-group", "objstore-bus")
 
 
@@ -649,6 +700,12 @@ def test_filesink_tier_golden_equals_the_reference(tmp_path):
     """The file sink tier's fault-free committed parts read back as the
     reference's same tier's."""
     _golden_equals_the_reference("filesink", tmp_path)
+
+
+def test_ha_registry_tier_golden_equals_the_reference(tmp_path):
+    """The session registry's fault-free records read back as the
+    reference's same tier's."""
+    _golden_equals_the_reference("ha-registry", tmp_path)
 
 
 def _golden_equals_the_reference(name, tmp_path):

@@ -449,13 +449,22 @@ def test_host_keys_are_read_and_take_effect(workers):
 def test_keys_of_later_items_name_their_item(key, item):
     """A key the reference reads and the port does not yet is refused,
     naming the ROADMAP.md item that brings it; a key neither reads is
-    refused as unknown."""
+    refused as unknown. The rows of item 10.2, once refused the same
+    way, are read now: each validates, with the reference's default."""
     from flink_tpu import config as jc
+    from flink_tpu_torch import config as pc
     from flink_tpu_torch.config import Configuration
 
     assert key in jc._REGISTRY
-    with pytest.raises(NotImplementedError, match=f"{key} .*{item}"):
-        Configuration({key: "1"}).validate()
+    if item == "queue 1 item 10.2":
+        assert pc.later_item(key) is None
+        assert pc._REGISTRY[key].default == jc._REGISTRY[key].default
+        value = jc._REGISTRY[key].default
+        Configuration({key: value}).validate()
+        assert Configuration({key: value}).get(pc._REGISTRY[key]) == value
+    else:
+        with pytest.raises(NotImplementedError, match=f"{key} .*{item}"):
+            Configuration({key: "1"}).validate()
     with pytest.raises(ValueError, match="not supported"):
         Configuration({"no.such.key": 1}).validate()
 
@@ -513,6 +522,44 @@ def test_log_and_enospc_keys_are_read_with_the_reference_default(key):
     conf = pc.Configuration({key: ref.default})
     conf.validate()
     assert conf.get(port) == jc.Configuration({key: ref.default}).get(ref)
+
+
+SESSION_HA_KEYS = (
+    "session.slots-per-job", "session.runner-slots", "session.max-jobs",
+    "session.fair-drain", "session.concurrent-jobs",
+    "session.scoped-faults", "session.autoscale",
+    "session.autoscale-interval", "session.min-runners",
+    "session.max-runners", "session.scale-down-idle",
+    "session.ha.standby", "session.ha.reattach-grace",
+    "high-availability.dir", "high-availability.lease-timeout")
+
+
+@pytest.mark.parametrize("key", SESSION_HA_KEYS)
+def test_session_and_ha_keys_take_the_reference_default_and_text(key):
+    """The session cluster's 13 ``session.*`` keys and the two
+    ``high-availability.*`` keys are read by the port, with the JAX
+    package's default and description, and a duration reads as the
+    reference reads it."""
+    from flink_tpu import config as jc
+    from flink_tpu_torch import config as pc
+
+    ref, port = jc._REGISTRY[key], pc._REGISTRY[key]
+    assert (port.default, port.description) == (ref.default,
+                                                ref.description)
+    assert pc.later_item(key) is None
+    raw = "1500ms" if isinstance(ref.default, int) and ref.parse else (
+        ref.default)
+    conf = pc.Configuration({key: raw})
+    conf.validate()
+    assert conf.get(port) == jc.Configuration({key: raw}).get(ref)
+
+
+def test_every_session_and_ha_key_of_the_reference_is_listed():
+    from flink_tpu import config as jc
+
+    assert sorted(SESSION_HA_KEYS) == sorted(
+        k for k in jc._REGISTRY
+        if k.startswith(("session.", "high-availability.")))
 
 
 def test_every_log_key_of_the_reference_is_listed():

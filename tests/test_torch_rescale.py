@@ -1,12 +1,11 @@
-"""``tests/test_rescale.py`` against the port, every case but
-``TestRescaleTakeover`` (the HA takeover, ROADMAP.md queue 1 item 10.2):
-live rescale at a new mesh width through the port's coordinator against
+"""``tests/test_rescale.py`` against the port: live rescale at a new mesh width through the port's coordinator against
 a real port runner process (``--device cpu --cpu-devices 8``: eight
 blocks of the one CPU, the reference's forced host devices), Q5's count
 plane rescaled 1 -> 2 -> 1 processes exactly once (the savepoint set cut
 at one rendezvous step, key-group ranges repartitioned at restore), a
 runner killed mid-rescale, the rescale lifecycle, the reactive
-controller under a fake clock and the chaos phases of the handshake."""
+controller under a fake clock, the chaos phases of the handshake and a
+leader takeover that resumes an armed rescale from the HA job store."""
 import os
 import signal
 import subprocess
@@ -679,3 +678,79 @@ class TestRescaleChaosPhases:
 # ---------------------------------------------------------------------------
 # leader takeover with an armed rescale (the satellite bugfix regression)
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# leader takeover with an armed rescale
+# ---------------------------------------------------------------------------
+
+class TestRescaleTakeover:
+    """A dispatcher takeover must not forget an armed rescale: the
+    intent rides the JobStore record, and re-adoption re-triggers the
+    stop-with-savepoint under the stored token (an intent held in memory
+    only would leave the handshake armed forever)."""
+
+    def test_takeover_preserves_and_resumes_armed_rescale(self, tmp_path):
+        gw = _Gw()
+        gwsrv = RpcServer(gw)
+        ha_cfg = Configuration(
+            {"high-availability.dir": str(tmp_path / "ha")})
+        coord_a = JobCoordinator(ha_cfg)
+        srv_a = RpcServer(coord_a)
+        coord_b = None
+        srv_b = None
+        try:
+            coord_a.rpc_register_runner("r1", "127.0.0.1", 8,
+                                        port=gwsrv.port)
+            coord_a.rpc_submit_job("j", entry="x:y",
+                                   config={"cluster.mesh-devices": "2"})
+            wait_until(lambda: gw.deployed, what="deploy on leader A")
+            assert coord_a.rpc_rescale_job("j", devices=4,
+                                           processes=1)["ok"]
+            wait_until(lambda: gw.savepoints, what="savepoint dispatch")
+            tok = gw.savepoints[0][2]
+            assert tok is not None
+
+            # leader A dies mid-handshake: intent armed, savepoint
+            # dispatched but NEVER completed
+            srv_a.close()
+            coord_a.close()
+
+            coord_b = JobCoordinator(ha_cfg)
+            srv_b = RpcServer(coord_b)
+            j = coord_b.jobs["j"]
+            # the durable intent survived the takeover verbatim
+            assert j.pending_rescale == 4
+            assert j.rescale_token == tok
+
+            # the runner re-registers CARRYING the live execution: it is
+            # re-adopted in place AND the armed rescale's
+            # stop-with-savepoint re-fires under the SAME token
+            n_sp = len(gw.savepoints)
+            coord_b.rpc_register_runner(
+                "r1", "127.0.0.1", 8, port=gwsrv.port,
+                jobs=[{"job_id": "j", "attempt": 1}])
+            wait_until(lambda: coord_b.jobs["j"].state == "RUNNING",
+                       what="re-adoption")
+            assert coord_b.jobs["j"].attempts == 1  # no redeploy
+            wait_until(lambda: len(gw.savepoints) > n_sp,
+                       what="re-triggered stop-with-savepoint")
+            assert gw.savepoints[-1] == ("j", True, tok)
+
+            # completion on the NEW leader consumes the recovered intent
+            coord_b.rpc_savepoint_complete("j", "/sp/p0", token=tok)
+            wait_until(
+                lambda: any(a == 2 for _, a, _c in gw.deployed),
+                what="redeploy at the new width")
+            jid, att, conf = gw.deployed[-1]
+            assert conf["cluster.mesh-devices"] == "4"
+            assert conf["execution.checkpointing.restore"] == "/sp/p0"
+            assert conf["cluster.rescale-from"] == "/sp/p0"
+            assert coord_b.jobs["j"].pending_rescale is None
+        finally:
+            if srv_b is not None:
+                srv_b.close()
+            if coord_b is not None:
+                coord_b.close()
+            gwsrv.close()
+            coord_a.close()
